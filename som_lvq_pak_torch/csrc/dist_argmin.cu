@@ -1,0 +1,178 @@
+// Fused 1-NN winner search: for each sample x_b, the codebook row m_n that
+// minimises ||x_b - m_n||^2, without materialising the (B, N) distance matrix.
+//
+// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+//   * _dist_argmin_kernel (wrapper dist_argmin): partial distance
+//     ||m||^2 - 2 x.m, running min with strict <          -> kMaxScore = false
+//   * _dist_argmin_t_kernel (wrapper dist_argmin_t): max-score form
+//     x.m - ||m||^2 / 2, running max with strict >, output -2 * best
+//                                                          -> kMaxScore = true
+// Both keep the reference's tie rule: the lowest index wins exact ties.
+//
+// Design.  One CTA owns TB samples and walks the whole codebook in TN-row
+// tiles; the TPU's sequential codebook grid axis becomes this loop, so the
+// running (best, index) pair stays in registers, is updated only on a strict
+// comparison, and needs no cross-CTA reduction or atomics (deterministic).
+// Each tile is staged through shared memory in KC-wide slices of D, so any
+// D >= 1 works with no padding; ||m||^2 is accumulated from the staged
+// slices.  Each of the 256 threads owns a 4 x 4 (sample, code) micro-tile;
+// at the end the 16 threads that share a sample merge their pairs with a
+// (value, index) lexicographic shuffle reduction, which is the same rule.
+//
+// What bounds it on H100: FP32 FMA issue and shared-memory loads (2 loads
+// per FMA pair in this micro-tile; no tensor cores).  The codebook is read
+// once per CTA from L2, so device memory is not the limit at eval shapes.
+// Tensor-core (mma/wgmma) tiles are later work.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+
+namespace {
+
+constexpr int TB = 64;        // samples per CTA
+constexpr int TN = 64;        // codebook rows per tile
+constexpr int KC = 32;        // feature slice staged per step
+constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
+
+template <bool kMaxScore>
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  // lexicographic (value, index): equal values go to the lower index
+  if (kMaxScore) return v > bv || (v == bv && i < bi);
+  return v < bv || (v == bv && i < bi);
+}
+
+template <bool kMaxScore>
+__global__ void __launch_bounds__(THREADS)
+dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
+                   int B, int N, int D, float* __restrict__ val,
+                   int* __restrict__ idx) {
+  __shared__ float xs[TB][KC + 1];
+  __shared__ float ms[TN][KC + 1];
+  __shared__ float m2s[TN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;   // code column group: codes tx + 16 j
+  const int ty = tid >> 4;   // sample row group:  samples ty + 16 i
+  const int b0 = blockIdx.x * TB;
+
+  float best[4];
+  int bidx[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    best[i] = kMaxScore ? -INFINITY : INFINITY;
+    bidx[i] = INT_MAX;
+  }
+
+  for (int n0 = 0; n0 < N; n0 += TN) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < D; k0 += KC) {
+      __syncthreads();  // everyone is done reading the previous slice / m2s
+      for (int e = tid; e < TB * KC; e += THREADS) {
+        const int r = e / KC, c = e % KC;
+        const int b = b0 + r, k = k0 + c;
+        xs[r][c] = (b < B && k < D) ? x[(size_t)b * D + k] : 0.f;
+      }
+      for (int e = tid; e < TN * KC; e += THREADS) {
+        const int r = e / KC, c = e % KC;
+        const int n = n0 + r, k = k0 + c;
+        ms[r][c] = (n < N && k < D) ? codes[(size_t)n * D + k] : 0.f;
+      }
+      __syncthreads();
+      if (tid < TN) {
+        float s = (k0 == 0) ? 0.f : m2s[tid];
+        for (int c = 0; c < KC; ++c) s += ms[tid][c] * ms[tid][c];
+        m2s[tid] = s;
+      }
+#pragma unroll 8
+      for (int c = 0; c < KC; ++c) {
+        float xv[4], mv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[i] = xs[ty + 16 * i][c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mv[j] = ms[tx + 16 * j][c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += xv[i] * mv[j];
+      }
+    }
+    __syncthreads();  // m2s of this tile is complete
+
+    // codes tx + 16 j visited in increasing order: a strict comparison keeps
+    // the first (lowest) index of this thread's subset
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) {
+        const float m2 = m2s[tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float d = kMaxScore ? acc[i][j] - 0.5f * m2 : m2 - 2.f * acc[i][j];
+          if (kMaxScore ? d > best[i] : d < best[i]) {
+            best[i] = d;
+            bidx[i] = n;
+          }
+        }
+      }
+    }
+  }
+
+  // merge the 16 threads (one half-warp) that share each sample
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bidx[i], off);
+      if (better<kMaxScore>(ov, oi, best[i], bidx[i])) {
+        best[i] = ov;
+        bidx[i] = oi;
+      }
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = b0 + ty + 16 * i;
+      if (b < B) {
+        // public contract of both TPU kernels: partial ||m||^2 - 2 x.m
+        val[b] = kMaxScore ? -2.f * best[i] : best[i];
+        idx[b] = bidx[i];
+      }
+    }
+  }
+}
+
+template <bool kMaxScore>
+int launch(const float* x, const float* codes, int B, int N, int D, float* val,
+           int* idx, cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  dist_argmin_kernel<kMaxScore>
+      <<<(B + TB - 1) / TB, THREADS, 0, stream>>>(x, codes, B, N, D, val, idx);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B,
+                                 int N, int D, float* val, int* idx,
+                                 cudaStream_t stream) {
+  return launch<false>(x, codes, B, N, D, val, idx, stream);
+}
+
+extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
+                                   int N, int D, float* val, int* idx,
+                                   cudaStream_t stream) {
+  return launch<true>(x, codes, B, N, D, val, idx, stream);
+}
+
+extern "C" const char* somvq_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

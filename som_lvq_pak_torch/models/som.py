@@ -1,0 +1,104 @@
+"""Self-organizing map: random initialisation and the fast quantization
+error — counterparts of som_lvq_pak_tpu/models/som.py.
+
+`randinit` is a copy of som_lvq_pak_tpu/models/som.py:39-72 (that module
+cannot be imported without JAX); tests hold the two bit-equal.  The host
+types it takes (Dataset, Topology, Neighborhood, CRandom) are the JAX
+package's jax-free ones, re-exported here for callers of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
+from som_lvq_pak_tpu.utils.rng import CRandom
+
+from ..convert import codebook_to_torch, host_tensor
+from ..ops.dist_argmin import dist_argmin_t
+
+__all__ = ["CRandom", "Dataset", "Neighborhood", "Topology", "find_qerror",
+           "randinit"]
+
+F32 = np.float32
+FLT_MIN = np.float32(1.17549435e-38)
+FLT_MAX = np.float32(3.4028235e38)
+
+
+def randinit(
+    data: Dataset,
+    topol: Topology,
+    neigh: Neighborhood,
+    xdim: int,
+    ydim: int,
+    rng: CRandom,
+) -> Dataset:
+    """Uniform-random codebook in the per-component data [min, max] box
+    (randinit_codes, som_rout.c:34-162), consuming the LCG stream in the
+    C order (code-major, component-minor)."""
+    noc = xdim * ydim
+    pts = data.points
+    if data.mask is not None:
+        keep = data.mask == 0
+    else:
+        keep = np.ones_like(pts, dtype=bool)
+    compcnt = keep.sum(axis=0)
+    # C initializes the running max to FLT_MIN (not -FLT_MAX!)
+    maval = np.where(keep, pts, -np.inf).max(axis=0).astype(F32)
+    maval = np.maximum(maval, FLT_MIN)
+    mival = np.where(keep, pts, np.inf).min(axis=0).astype(F32)
+    mival = np.minimum(mival, FLT_MAX)
+
+    dim = data.dim
+    draws = rng.orand_array(noc * dim).reshape(noc, dim)
+    # C: mival + (maval - mival) * ((float)orand() / 32768.0)  — the
+    # subtraction is float, the rest double, rounded to float on store.
+    span = (maval - mival).astype(F32)
+    vals = mival.astype(np.float64) + span.astype(np.float64) * (
+        draws.astype(F32).astype(np.float64) / 32768.0
+    )
+    codes = np.where(compcnt > 0, vals, 0.0).astype(F32)
+    return Dataset(points=codes, topol=topol, neigh=neigh, xdim=xdim, ydim=ydim)
+
+
+def find_qerror(codes: Union[Dataset, torch.Tensor],
+                data: Union[Dataset, torch.Tensor], mode: str = "fast") -> float:
+    """Total quantization error, sum over samples of the distance to the
+    winner (find_qerror, som_rout.c:678-731); divide by N for the
+    per-sample figure.
+
+    The fast path of `_find_qerror_fast`/`_qerror_whole_step`
+    (som_lvq_pak_tpu/models/som.py:471-592): winners from one
+    `dist_argmin_t` over the whole array, then the winner's distance
+    recomputed exactly in float32, square-rooted and summed on the device.
+
+    `codes` and `data` are host Datasets or tensors.  Tensors stay where
+    they are (keep evaluation data resident as a tensor); a Dataset is
+    copied to the other argument's device (the CPU when both are
+    Datasets)."""
+    if mode != "fast":
+        raise NotImplementedError(
+            "find_qerror(mode='parity') is the host path of "
+            "som_lvq_pak_tpu.models.som; the port has mode='fast' only")
+    tensors = [t for t in (codes, data) if isinstance(t, torch.Tensor)]
+    device = tensors[0].device if tensors else "cpu"
+    if isinstance(data, Dataset):
+        if data.mask is not None:
+            raise NotImplementedError(
+                "masked data in the fast qerror is not ported yet "
+                "(ROADMAP: masked dist_argmin, kernel 1m)")
+        X = host_tensor(data.points).to(device)
+    else:
+        X = data
+    M = codebook_to_torch(codes, device)[0] if isinstance(codes, Dataset) else codes
+    if X.device != M.device:
+        raise ValueError(f"codes on {M.device}, data on {X.device}")
+    if X.shape[0] == 0:
+        return 0.0
+    _, idx = dist_argmin_t(X, M)
+    diff = X - M[idx.long()]
+    mind = (diff * diff).sum(-1)
+    return float(torch.sqrt(torch.clamp(mind, min=0.0)).sum())

@@ -1,0 +1,175 @@
+"""The port's main path, SOMTrainer.fit then find_qerror(mode="fast"),
+against the JAX package's SOMTrainer (fused Pallas path, interpret mode on
+the CPU) on the same seeded data.
+
+Tolerances follow tests/test_trainer.py: winner flips at near-ties compound
+over batches, so trained codebooks agree to 2e-2 and quality to 2%; the
+Dataset form shuffles with a different generator (jax.random vs
+torch.Generator), so there only quality is compared, to 5%."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
+from som_lvq_pak_tpu.models import som as jsom
+from som_lvq_pak_tpu.models.trainer import SOMTrainer as JaxSOMTrainer
+from som_lvq_pak_tpu.utils.rng import CRandom
+from som_lvq_pak_torch.models import som
+from som_lvq_pak_torch.models.trainer import SOMTrainer
+
+B = 128
+
+
+def _blobs(n=1024, dim=8, seed=3):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0, 4.0, size=(4, dim)).astype(np.float32)
+    return (centres[rng.integers(0, 4, size=n)]
+            + rng.normal(0, 1.0, size=(n, dim)).astype(np.float32))
+
+
+def _stream(X, chunk=256):
+    for lo in range(0, X.shape[0], chunk):
+        yield Dataset(points=X[lo:lo + chunk])
+
+
+def _init(X, xdim, ydim, topol, neigh):
+    return som.randinit(Dataset(points=X), topol, neigh, xdim, ydim, CRandom(123))
+
+
+def _jax_q(codes, X):
+    return jsom.find_qerror(codes, Dataset(points=X), mode="fast") / X.shape[0]
+
+
+# 8x6 hexa takes the JAX package's plain fused kernel (48 rows pad to a
+# 32-row tile); 8x8 its separable ("factored") kernel.  A bubble map is
+# compared on quality only: units with the same neighbour set saturate to
+# the same weighted mean, so their rows are equal in exact arithmetic and
+# float rounding alone (which differs between the packages' matmuls)
+# decides those winner ties, and the maps drift apart.
+MAPS = [(8, 6, Topology.HEXA, Neighborhood.GAUSSIAN, 4.0, True),
+        (8, 8, Topology.RECT, Neighborhood.GAUSSIAN, 3.0, True),
+        (8, 8, Topology.RECT, Neighborhood.BUBBLE, 3.0, False)]
+
+
+@pytest.mark.parametrize("xdim,ydim,topol,neigh,radius,same_codes", MAPS)
+def test_stream_fit_and_qerror_match_jax(xdim, ydim, topol, neigh, radius,
+                                         same_codes):
+    X = _blobs()
+    init = _init(X, xdim, ydim, topol, neigh)
+    ref = JaxSOMTrainer(init, batch_size=B, use_pallas=True, vmem_steps=False
+                        ).fit(_stream(X), rlen=1024, alpha=0.05, radius=radius)
+    out = SOMTrainer(init, batch_size=B).fit(_stream(X), rlen=1024, alpha=0.05,
+                                             radius=radius)
+    assert out.points.shape == init.points.shape
+    assert (out.topol, out.neigh, out.xdim, out.ydim) == (topol, neigh, xdim, ydim)
+    if same_codes:
+        np.testing.assert_allclose(out.points, ref.points, rtol=2e-2, atol=2e-2)
+    q_ref = _jax_q(ref, X)
+    assert abs(_jax_q(out, X) - q_ref) < 0.02 * q_ref
+    assert q_ref < 0.8 * _jax_q(init, X)  # training did something
+
+    # the fast qerror itself, on one codebook, host or tensor arguments
+    want = jsom.find_qerror(ref, Dataset(points=X), mode="fast")
+    for codes, data in ((ref, Dataset(points=X)),
+                        (torch.tensor(ref.points), torch.from_numpy(X))):
+        got = som.find_qerror(codes, data)
+        assert abs(got - want) <= 1e-4 * want, (got, want)
+
+
+def test_dataset_fit_quality_matches_jax():
+    X = _blobs(n=600)
+    init = _init(X, 8, 6, Topology.HEXA, Neighborhood.GAUSSIAN)
+    kw = dict(rlen=1536, alpha=0.05, radius=4.0)  # 2.5 laps of 600
+    ref = JaxSOMTrainer(init, batch_size=B, use_pallas=True, vmem_steps=False,
+                        seed=1).fit(Dataset(points=X), **kw)
+    out = SOMTrainer(init, batch_size=B, seed=1).fit(Dataset(points=X), **kw)
+    q_ref = _jax_q(ref, X)
+    assert abs(_jax_q(out, X) - q_ref) < 0.05 * q_ref
+
+
+def _drop_after(ckpt, step):
+    assert step in ckpt.steps(), ckpt.steps()
+    for s in ckpt.steps():
+        if s > step:
+            os.remove(os.path.join(ckpt.directory, f"step_{s}.npz"))
+
+
+@pytest.mark.parametrize("form", ["dataset", "stream"])
+def test_resume_from_own_checkpoint(form, tmp_path):
+    X = _blobs()
+    init = _init(X, 8, 6, Topology.HEXA, Neighborhood.GAUSSIAN)
+
+    def data():
+        return Dataset(points=X[:600]) if form == "dataset" else _stream(X, 200)
+
+    kw = dict(rlen=B * 8, alpha=0.05, radius=4.0)
+    d = str(tmp_path / "ck")
+    full = SOMTrainer(init, batch_size=B, checkpoint_dir=d, checkpoint_interval=3,
+                      seed=5).fit(data(), **kw)
+    tr = SOMTrainer(init, batch_size=B, checkpoint_dir=d, seed=5)
+    _drop_after(tr.ckpt, 3)
+    resumed = tr.fit(data(), **kw)
+    np.testing.assert_allclose(resumed.points, full.points, rtol=1e-6, atol=1e-6)
+
+
+def test_interval_checkpoints_fire_on_elapsed_batches(tmp_path):
+    X = _blobs()
+    init = _init(X, 8, 6, Topology.HEXA, Neighborhood.GAUSSIAN)
+    tr = SOMTrainer(init, batch_size=B, checkpoint_dir=str(tmp_path / "ck"),
+                    checkpoint_interval=3)
+    tr.ckpt.keep = 0
+    tr.fit(_stream(X), rlen=B * 8, alpha=0.05, radius=4.0)
+    assert tr.ckpt.steps() == [3, 6, 8]
+    st = tr.ckpt.load(3)
+    assert st.codes.shape == init.points.shape and st.codes.dtype == np.float32
+    assert st.extra == {"alpha": 0.05, "radius": 4.0}
+
+
+def test_resume_from_jax_checkpoint(tmp_path):
+    """A checkpoint the JAX trainer wrote resumes in the port's stream form
+    (same Checkpointer files; the JAX prng_key is not needed there)."""
+    X = _blobs()
+    init = _init(X, 8, 6, Topology.HEXA, Neighborhood.GAUSSIAN)
+    kw = dict(rlen=1024, alpha=0.05, radius=4.0)
+    d = str(tmp_path / "ckj")
+    full = JaxSOMTrainer(init, batch_size=B, checkpoint_dir=d, checkpoint_interval=2,
+                         use_pallas=True, vmem_steps=False).fit(_stream(X), **kw)
+    tr = SOMTrainer(init, batch_size=B, checkpoint_dir=d)
+    _drop_after(tr.ckpt, 4)
+    assert tr.ckpt.load().prng_key is not None
+    resumed = tr.fit(_stream(X), **kw)
+    np.testing.assert_allclose(resumed.points, full.points, rtol=2e-2, atol=2e-2)
+    assert tr.ckpt.latest_step() == 8
+
+
+def test_unported_inputs_raise_and_short_streams():
+    X = _blobs(n=512)
+    init = _init(X, 6, 4, Topology.HEXA, Neighborhood.BUBBLE)
+    mask = np.zeros_like(X, dtype=np.uint8)
+    mask[:, 1] = 1
+    kw = dict(rlen=512, alpha=0.05, radius=3.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SOMTrainer(init, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SOMTrainer(init, batch_size=B).fit(Dataset(points=X, mask=mask), **kw)
+
+    def masked_stream():
+        yield Dataset(points=X[:256])
+        yield Dataset(points=X[256:], mask=mask[256:])
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SOMTrainer(init, batch_size=B).fit(masked_stream(), **kw)
+    for flag in ("use_weights", "use_fixed"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SOMTrainer(init, batch_size=B).fit(Dataset(points=X), **kw, **{flag: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        som.find_qerror(init, Dataset(points=X, mask=mask))
+    with pytest.raises(RuntimeError, match="stream exhausted"):
+        SOMTrainer(init, batch_size=B).fit(_stream(X), rlen=4096, alpha=0.05,
+                                           radius=3.0)
+    out = SOMTrainer(init, batch_size=B).fit(_stream(X), rlen=4096, alpha=0.05,
+                                             radius=3.0, allow_short_stream=True)
+    assert np.isfinite(out.points).all()
