@@ -12,13 +12,24 @@ printing one JSON line:
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events;
 4. e2e_128x128_100k  SOMTrainer.fit on a stream, then find_qerror(fast),
-            through the kernels (launch counters must move) and through the
-            plain versions; qerror within 1% of the plain run and 2% of the
-            JAX package's anchor;
+            through the kernels and through the plain versions; qerror
+            within 1% of the plain run and 2% of the JAX package's anchor;
 5. e2e_256x256_1M    the 1M x 64 run of bench.py:run_e2e_1m_65k, qerror
-            within 2% of the JAX package's anchor.
+            within 2% of the JAX package's anchor;
+6. som_batch_step_128x128  a few unmasked two-kernel steps through
+            models.fast.som_batch_step, against the plain run;
+7. e2e_masked_128x128_100k  phase 4's run with missing components in
+            every other chunk and weight= tokens (fused, re-seed and masked
+            steps all run), then the masked qerror; within 1% of plain;
+8. e2e_masked_256x256_1M    the 1M run with every chunk masked (every step
+            is the masked two-kernel step), then one masked winner search
+            over 1M x 65536; within 1% of plain, and below 0.8x the
+            random-init codebook's qerror.
 
-Then one line with every kernel's record, the nvidia-smi line, and last
+Each main-path run (4-8) sets every launch counter to 0 before it and reads
+them after: each kernel of that path must have launched, and the plain runs
+must launch none.  Then one line with every kernel's record (launches
+summed over those runs), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure ends the run non-zero first.
 
 Nothing here imports jax.  The host types (Dataset, Topology, CRandom) are
@@ -67,16 +78,18 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_winners(name, x, codes, ik, ip, rel=1e-5):
+def check_winners(name, x, codes, ik, ip, rel=1e-5, mask=None):
     """Kernel and plain winners must agree except where the two candidate
-    rows' distances differ by less than `rel` (relative, in float64)."""
+    rows' distances (over the unmasked components) differ by less than
+    `rel` (relative, in float64)."""
     import torch
 
     bad = (ik.long() != ip.long()).nonzero()[:, 0]
     if bad.numel():
         xb = x[bad].double()
-        da = ((xb - codes[ik[bad].long()].double()) ** 2).sum(-1)
-        db = ((xb - codes[ip[bad].long()].double()) ** 2).sum(-1)
+        keep = 1.0 if mask is None else (mask[bad] == 0).double()
+        da = (((xb - codes[ik[bad].long()].double()) ** 2) * keep).sum(-1)
+        db = (((xb - codes[ip[bad].long()].double()) ** 2) * keep).sum(-1)
         gap = (da - db).abs() / torch.clamp(torch.maximum(da, db), min=1e-30)
         worst = float(gap.max())
         if worst >= rel:
@@ -85,7 +98,20 @@ def check_winners(name, x, codes, ik, ip, rel=1e-5):
     return int(bad.numel())
 
 
-def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10):
+def random_mask(g, B, D, p):
+    """(B, D) uint8 mask on the card: each component masked with
+    probability p, and every 97th row masked entirely."""
+    import torch
+
+    m = (torch.rand((B, D), generator=g, device="cuda") < p).to(torch.uint8)
+    m[::97] = 1
+    return m
+
+
+def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
+                   mask_p=None):
+    """One winner kernel against its plain version; with mask_p, the masked
+    kernel on a random mask: fully masked rows must get index 0, value 0."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -95,18 +121,24 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10):
         codes = torch.cat([base, base, base]).contiguous()
     else:
         codes = torch.randn((N, D), generator=g, device="cuda")
-    vk, ik = kernel(x, codes)
-    vp, ip = plain(x, codes)
+    args = (x, codes) if mask_p is None else (x, codes, random_mask(g, B, D, mask_p))
+    vk, ik = kernel(*args)
+    vp, ip = plain(*args)
     torch.cuda.synchronize()
     if dup and int(ik.max()) >= N // 3:
         raise AssertionError(f"{name}: a duplicate row beat its first copy")
-    n_diff = check_winners(name, x, codes, ik, ip)
+    n_diff = check_winners(name, x, codes, ik, ip, mask=args[2] if mask_p else None)
     if not torch.allclose(vk, vp, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"{name}: values differ by {float((vk - vp).abs().max())}")
-    rec = dict(kernel=name, shape=[B, N, D], dup=dup, winners_differ=n_diff,
-               max_abs_err=float((vk - vp).abs().max()),
-               ms=cuda_ms(lambda: kernel(x, codes), iters),
-               plain_ms=cuda_ms(lambda: plain(x, codes), iters))
+    if mask_p is not None:
+        empty = (args[2] != 0).all(dim=1)
+        if not bool(empty.any()) or bool((ik[empty] != 0).any()) \
+                or bool((vk[empty] != 0).any()):
+            raise AssertionError(f"{name}: a fully masked row did not get index 0, value 0")
+    rec = dict(kernel=name, shape=[B, N, D], dup=dup, mask_p=mask_p,
+               winners_differ=n_diff, max_abs_err=float((vk - vp).abs().max()),
+               ms=cuda_ms(lambda: kernel(*args), iters),
+               plain_ms=cuda_ms(lambda: plain(*args), iters))
     emit("kernels", **rec)
     return rec
 
@@ -143,6 +175,42 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed):
     return rec
 
 
+def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
+                 masked):
+    """The two-kernel step's update (K5, or K6 with a mask) against its
+    plain version: a few samples without a BMU, per-sample alphas."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
+
+    noc = xdim * ydim
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randn((noc, D), generator=g, device="cuda")
+    xb = torch.randn((B, D), generator=g, device="cuda")
+    bmu = dist_argmin_plain(xb, codes)[1]
+    bmu[:7] = -1  # samples without a BMU teach nothing
+    alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device="cuda")
+    extra = (random_mask(g, B, D, 0.1),) if masked else ()
+
+    def run(fn, c):
+        return fn(c, xb, bmu, *extra, xdim, hexa, alpha, radius, gaussian)
+
+    ck = run(kernel, codes.clone())
+    cp = run(plain, codes.clone())
+    torch.cuda.synchronize()
+    name = f"{kernel.__name__} {xdim}x{ydim} {'hexa' if hexa else 'rect'} " \
+           f"{'gaussian' if gaussian else 'bubble'}"
+    if not torch.allclose(ck, cp, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
+    work = codes.clone()
+    rec = dict(kernel=name, shape=[noc, B, D], radius=radius,
+               max_abs_err=float((ck - cp).abs().max()),
+               ms=cuda_ms(lambda: run(kernel, work)),
+               plain_ms=cuda_ms(lambda: run(plain, work)))
+    emit("kernels", **rec)
+    return rec
+
+
 def blob_data(seed: int, n: int, n_centres: int):
     """bench.py's e2e data: gaussian clusters around N(0, 4) centres."""
     rng = np.random.default_rng(seed)
@@ -151,69 +219,157 @@ def blob_data(seed: int, n: int, n_centres: int):
             + rng.normal(0, 1.0, size=(n, 64)).astype(np.float32))
 
 
-def stream(X, chunk: int, total: int):
-    from som_lvq_pak_torch.models.som import Dataset
-
-    sent, n = 0, X.shape[0]
-    while sent < total:
-        lo = sent % n
-        hi = min(lo + chunk, n)
-        yield Dataset(points=X[lo:hi])
-        sent += hi - lo
-
-
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the trainer and the qerror through the plain versions (for the
-    reference run on the card); restores the kernels on exit."""
-    from som_lvq_pak_torch.models import som, trainer
+    """Route the trainer, the two-kernel step and the qerror through the
+    plain versions (for the reference run on the card); restores the
+    kernels on exit."""
+    from som_lvq_pak_torch.models import fast, som, trainer
     from som_lvq_pak_torch.ops import dist_argmin as da
-    from som_lvq_pak_torch.ops import som_step
+    from som_lvq_pak_torch.ops import som_step, som_update
 
-    saved = (trainer.dist_argmin, trainer.som_fused_train_step, som.dist_argmin_t)
-    trainer.dist_argmin = da.dist_argmin_plain
-    trainer.som_fused_train_step = som_step.som_fused_train_step_plain
-    som.dist_argmin_t = da.dist_argmin_t_plain
+    swaps = [(trainer, "dist_argmin", da.dist_argmin_plain),
+             (trainer, "som_fused_train_step", som_step.som_fused_train_step_plain),
+             (fast, "dist_argmin", da.dist_argmin_plain),
+             (fast, "som_neighborhood_update_idx",
+              som_update.som_neighborhood_update_idx_plain),
+             (som, "dist_argmin", da.dist_argmin_plain),
+             (som, "dist_argmin_t", da.dist_argmin_t_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        trainer.dist_argmin, trainer.som_fused_train_step, som.dist_argmin_t = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
-def e2e(X, map_dim, bs, radius, chunk):
+def counted():
+    from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
+                                                   dist_argmin_t)
+    from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+    from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
+                                                  som_neighborhood_update_idx_masked)
+
+    return (dist_argmin, dist_argmin_t, som_fused_train_step, dist_argmin_masked,
+            som_neighborhood_update_idx, som_neighborhood_update_idx_masked)
+
+
+def main_path(name, run, kernels, plain_run=None):
+    """Run one main path with every launch counter set to 0 first; each of
+    `kernels` must have launched.  `plain_run`, if given, runs the same path
+    through the plain versions and must launch nothing.  Returns (result,
+    plain result, launches)."""
+    fns = counted()
+    for fn in fns:
+        fn.launches = 0
+    out = run()
+    launches = {fn.__name__: fn.launches for fn in fns}
+    idle = [k for k in kernels if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"{name}: kernels of the path never launched: {idle}")
+    ref = None
+    if plain_run is not None:
+        for fn in fns:
+            fn.launches = 0
+        with plain_kernels():
+            ref = plain_run()
+        if any(fn.launches for fn in fns):
+            raise AssertionError(f"{name}: the plain run launched a kernel")
+    return out, ref, launches
+
+
+def random_codes(X, map_dim, mask=None):
+    from som_lvq_pak_torch.models.som import (CRandom, Dataset, Neighborhood,
+                                              Topology, randinit)
+
+    crng = CRandom()
+    crng.init_random(123)
+    return randinit(Dataset(points=X, mask=mask), topol=Topology.HEXA,
+                    neigh=Neighborhood.GAUSSIAN, xdim=map_dim, ydim=map_dim,
+                    rng=crng)
+
+
+def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None):
     """One streamed lap of SOMTrainer.fit, then find_qerror(fast) on a
-    device-resident copy; returns (per-sample qerror, train_s, eval_s)."""
+    device-resident copy; returns (per-sample qerror, train_s, eval_s).
+    With `mask`, chunks carry their slice of it (a Dataset drops an
+    all-zero mask, so clean chunks have none) and the qerror is masked;
+    with `weight`, chunks carry weight= tokens and training uses them."""
     import torch
 
-    from som_lvq_pak_torch.models.som import (CRandom, Dataset, Neighborhood,
-                                              Topology, find_qerror, randinit)
+    from som_lvq_pak_torch.models.som import Dataset, find_qerror
     from som_lvq_pak_torch.models.trainer import SOMTrainer
 
     n = X.shape[0]
-    crng = CRandom()
-    crng.init_random(123)
-    codes = randinit(Dataset(points=X), topol=Topology.HEXA,
-                     neigh=Neighborhood.GAUSSIAN, xdim=map_dim, ydim=map_dim,
-                     rng=crng)
+
+    def stream(total):
+        sent = 0
+        while sent < total:
+            lo = sent % n
+            sl = slice(lo, min(lo + chunk, n))
+            yield Dataset(points=X[sl], mask=None if mask is None else mask[sl],
+                          weight=None if weight is None else weight[sl])
+            sent += sl.stop - lo
+
+    codes = random_codes(X, map_dim, mask)
     X_dev = torch.from_numpy(X).to("cuda")
+    mk_dev = None if mask is None else torch.from_numpy(mask).to("cuda")
+    kw = dict(alpha=0.05, radius=radius, allow_short_stream=True,
+              use_weights=weight is not None)
     warm = SOMTrainer(codes, batch_size=bs, device="cuda")
-    find_qerror(warm.fit(stream(X, chunk, 2 * bs), rlen=2 * bs, alpha=0.05,
-                         radius=radius, allow_short_stream=True), X_dev)
+    find_qerror(warm.fit(stream(2 * bs), rlen=2 * bs, **kw), X_dev, mask=mk_dev)
     torch.cuda.synchronize()
 
     tr = SOMTrainer(codes, batch_size=bs, device="cuda")
     t0 = time.perf_counter()
-    out = tr.fit(stream(X, chunk, n), rlen=n, alpha=0.05, radius=radius,
-                 allow_short_stream=True)
+    out = tr.fit(stream(n), rlen=n, **kw)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    q = find_qerror(out, X_dev) / n
+    q = find_qerror(out, X_dev, mask=mk_dev) / n
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     if not np.isfinite(out.points).all() or out.points.shape != (map_dim * map_dim, 64):
         raise AssertionError("trained codebook is not finite or has the wrong shape")
     return q, train_s, eval_s
+
+
+def masked_data(X, seed, chunk, every_other):
+    """bench.py's e2e data with missing components: each component masked
+    with p = 0.1 and every 997th row fully masked (default_rng(seed)); with
+    every_other, the odd-numbered chunks carry no mask.  Masked components
+    are stored as 0, as the reference stores them."""
+    rng = np.random.default_rng(seed)
+    mask = (rng.random(X.shape) < 0.1).astype(np.uint8)
+    mask[::997] = 1
+    if every_other:
+        for lo in range(chunk, X.shape[0], 2 * chunk):
+            mask[lo:lo + chunk] = 0
+    return np.where(mask != 0, np.float32(0), X), mask, rng
+
+
+def check_e2e(name, q, q_plain):
+    if not (np.isfinite(q) and abs(q - q_plain) <= 0.01 * q_plain):
+        raise AssertionError(f"{name}: qerror {q} vs plain {q_plain} (> 1%)")
+
+
+def som_batch_steps(X, map_dim, bs, steps):
+    """`steps` unmasked two-kernel steps (models.fast.som_batch_step) from
+    the random-init codebook; returns the codebook."""
+    import torch
+
+    from som_lvq_pak_torch.convert import codebook_to_torch
+    from som_lvq_pak_torch.models.fast import som_batch_step
+
+    M = codebook_to_torch(random_codes(X, map_dim), "cuda")[0]
+    X_dev = torch.from_numpy(X[:steps * bs]).to("cuda")
+    for t in range(steps):
+        som_batch_step(M, X_dev[t * bs:(t + 1) * bs], map_dim, True, 0.05, 32.0,
+                       gaussian=True)
+    torch.cuda.synchronize()
+    return M
 
 
 def main() -> int:
@@ -224,11 +380,17 @@ def main() -> int:
               "kernels need a CUDA device", file=sys.stderr)
         return 1
     from som_lvq_pak_torch import _build
-    from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_plain,
-                                                   dist_argmin_t, dist_argmin_t_plain)
+    from som_lvq_pak_torch.models.som import find_qerror
+    from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
+                                                   dist_argmin_masked_plain,
+                                                   dist_argmin_plain, dist_argmin_t,
+                                                   dist_argmin_t_plain)
     from som_lvq_pak_torch.ops.distance import fp32_matmul
     from som_lvq_pak_torch.ops.som_step import (som_fused_train_step,
                                                 som_fused_train_step_plain)
+    from som_lvq_pak_torch.ops.som_update import (
+        som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
+        som_neighborhood_update_idx_plain)
 
     fp32_matmul()  # plain references in full float32 (no TF32)
     smi = nvidia_smi_line()
@@ -242,17 +404,22 @@ def main() -> int:
     _build.library()
     emit("build", seconds=time.perf_counter() - t0, library=_build.library_path())
 
+    # ---- kernels against their plain versions ----------------------------
+    # each kernel's record is taken at its main-path shape (rs[0]), with the
+    # largest error over all its shapes
     recs = {}
-    for name, k, p in (("dist_argmin", dist_argmin, dist_argmin_plain),
-                       ("dist_argmin_t", dist_argmin_t, dist_argmin_t_plain)):
-        rs = [phase_distance(name, k, p, 4096, 65536, 64, seed=1),
-              phase_distance(name, k, p, 1000, 999, 5, seed=2),
-              phase_distance(name, k, p, 1000, 999, 5, seed=3, dup=True)]
+    for name, k, p, mask_p in (
+            ("dist_argmin", dist_argmin, dist_argmin_plain, None),
+            ("dist_argmin_t", dist_argmin_t, dist_argmin_t_plain, None),
+            ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
+        rs = [phase_distance(name, k, p, 4096, 65536, 64, seed=1, mask_p=mask_p),
+              phase_distance(name, k, p, 1000, 999, 5, seed=2, mask_p=mask_p),
+              phase_distance(name, k, p, 1000, 999, 5, seed=3, dup=True,
+                             mask_p=mask_p)]
         if name == "dist_argmin_t":  # the 1M eval's single launch
             rs.insert(0, phase_distance(name, k, p, 1_000_000, 65536, 64,
                                         seed=5, iters=3))
-        # the record at the main path's shape: the 1M run's prologue (K1)
-        # and its evaluation (K2)
+        # K1: the 1M run's prologue; K2: its evaluation; K4: a masked step
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     steps = [phase_step(som_fused_train_step, som_fused_train_step_plain,
                         *case, seed=4)
@@ -261,45 +428,117 @@ def main() -> int:
                           (12, 8, False, False, 1024, 64, 3.0))]
     recs["som_fused_train_step"] = dict(
         steps[1], max_abs_err=max(r["max_abs_err"] for r in steps))
+    update_cases = ((256, 256, True, True, 4096, 64, 64.0),
+                    (128, 128, True, True, 1024, 64, 32.0),
+                    (12, 8, False, False, 1024, 64, 3.0))
+    for k, p in ((som_neighborhood_update_idx, som_neighborhood_update_idx_plain),
+                 (som_neighborhood_update_idx_masked,
+                  lambda c, x, b, m, *a: som_neighborhood_update_idx_plain(
+                      c, x, b, *a, mask=m))):
+        masked = k is som_neighborhood_update_idx_masked
+        rs = [phase_update(k, p, *case, seed=6, masked=masked) for case in update_cases]
+        recs[k.__name__] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+
+    launches = {name: 0 for name in recs}
+
+    def tally(got):
+        for name, n in got.items():
+            launches[name] += n
 
     # ---- e2e 128x128, 100k x 64 (bench.py:run_e2e_config4) ---------------
-    X = blob_data(42, 100_000, 4)
-    counted = (dist_argmin, dist_argmin_t, som_fused_train_step)
-    for fn in counted:
-        fn.launches = 0
-    q, train_s, eval_s = e2e(X, 128, 1024, 32, 8192)
-    launches = {fn.__name__: fn.launches for fn in counted}
     # e2e() runs a 2-batch warm-up fit + eval before the timed run; the
     # counts cover both, all of them through the main path's entry points
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    with plain_kernels():
-        q_plain, train_plain_s, eval_plain_s = e2e(X, 128, 1024, 32, 8192)
-    if {fn.__name__: fn.launches for fn in counted} != launches:
-        raise AssertionError("the plain run launched a kernel")
-    if abs(q - q_plain) > 0.01 * q_plain:
-        raise AssertionError(f"e2e 128: qerror {q} vs plain {q_plain} (> 1%)")
+    X = blob_data(42, 100_000, 4)
+    (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
+        "e2e_128x128_100k", lambda: e2e(X, 128, 1024, 32, 8192),
+        ("dist_argmin", "dist_argmin_t", "som_fused_train_step"),
+        lambda: e2e(X, 128, 1024, 32, 8192))
+    tally(got)
+    check_e2e("e2e 128", q, q_plain)
     if abs(q - ANCHOR_128) > 0.02 * ANCHOR_128:
         raise AssertionError(f"e2e 128: qerror {q} vs JAX anchor {ANCHOR_128} (> 2%)")
     emit("e2e_128x128_100k", card=smi, qerror_per_sample=q, train_s=train_s,
          qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
          plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
-         launches=launches)
+         launches=got)
+
+    # ---- unmasked two-kernel steps through som_batch_step ----------------
+    Mk, Mp, got = main_path(
+        "som_batch_step_128x128", lambda: som_batch_steps(X, 128, 1024, 8),
+        ("dist_argmin", "som_neighborhood_update_idx"),
+        lambda: som_batch_steps(X, 128, 1024, 8))
+    tally(got)
+    X_dev = torch.from_numpy(X).to("cuda")
+    q, q_plain = (find_qerror(M, X_dev) / X.shape[0] for M in (Mk, Mp))
+    check_e2e("som_batch_step 128", q, q_plain)
+    emit("som_batch_step_128x128", steps=8, batch=1024, qerror_per_sample=q,
+         plain_qerror_per_sample=q_plain,
+         max_abs_codebook_diff=float((Mk - Mp).abs().max()), launches=got)
+    del X_dev
+
+    # ---- masked e2e 128x128, 100k x 64: every other chunk masked ---------
+    Xm, mask, rng = masked_data(X, 43, 8192, every_other=True)
+    weight = rng.uniform(0.5, 2.0, size=X.shape[0]).astype(np.float32)
+    (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
+        "e2e_masked_128x128_100k",
+        lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight),
+        ("dist_argmin", "som_fused_train_step", "dist_argmin_masked",
+         "som_neighborhood_update_idx_masked"),
+        lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight))
+    tally(got)
+    check_e2e("e2e masked 128", q, q_plain)
+    emit("e2e_masked_128x128_100k", card=smi, qerror_per_sample=q,
+         train_s=train_s, qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
+         plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
+         launches=got)
 
     # ---- e2e 256x256, 1M x 64 (bench.py:run_e2e_1m_65k) ------------------
     X = blob_data(7, 1_000_000, 16)
-    q, train_s, eval_s = e2e(X, 256, 4096, 64, 16384)
+    (q, train_s, eval_s), _, got = main_path(
+        "e2e_256x256_1M", lambda: e2e(X, 256, 4096, 64, 16384),
+        ("dist_argmin", "dist_argmin_t", "som_fused_train_step"))
+    tally(got)
     if abs(q - ANCHOR_1M) > 0.02 * ANCHOR_1M:
         raise AssertionError(f"e2e 1M: qerror {q} vs JAX anchor {ANCHOR_1M} (> 2%)")
     emit("e2e_256x256_1M", card=smi, qerror_per_sample=q, train_s=train_s,
-         qerror_eval_s=eval_s)
+         qerror_eval_s=eval_s, launches=got)
 
-    sources = {"dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
-                               "som_lvq_pak_tpu/ops/pallas_distance.py:60"),
-               "dist_argmin_t": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
-                                 "som_lvq_pak_tpu/ops/pallas_distance.py:426"),
-               "som_fused_train_step": ("som_lvq_pak_torch/csrc/som_fused_step.cu",
-                                        "som_lvq_pak_tpu/ops/pallas_som.py:580")}
+    # ---- masked e2e 256x256, 1M x 64: every step masked ------------------
+    Xm, mask, _ = masked_data(X, 8, 16384, every_other=False)
+    del X
+    (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
+        "e2e_masked_256x256_1M",
+        lambda: e2e(Xm, 256, 4096, 64, 16384, mask=mask),
+        ("dist_argmin_masked", "som_neighborhood_update_idx_masked"),
+        lambda: e2e(Xm, 256, 4096, 64, 16384, mask=mask))
+    tally(got)
+    check_e2e("e2e masked 1M", q, q_plain)
+    q_init = find_qerror(random_codes(Xm, 256, mask), torch.from_numpy(Xm).to("cuda"),
+                         mask=torch.from_numpy(mask).to("cuda")) / Xm.shape[0]
+    if not q < 0.8 * q_init:
+        raise AssertionError(f"e2e masked 1M: qerror {q} not below 0.8 x the "
+                             f"random-init {q_init}")
+    emit("e2e_masked_256x256_1M", card=smi, qerror_per_sample=q,
+         train_s=train_s, qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
+         plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
+         random_init_qerror_per_sample=q_init, launches=got)
+
+    sources = {
+        "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
+                        "som_lvq_pak_tpu/ops/pallas_distance.py:60"),
+        "dist_argmin_t": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
+                          "som_lvq_pak_tpu/ops/pallas_distance.py:426"),
+        "som_fused_train_step": ("som_lvq_pak_torch/csrc/som_fused_step.cu",
+                                 "som_lvq_pak_tpu/ops/pallas_som.py:580"),
+        "dist_argmin_masked": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
+                               "som_lvq_pak_tpu/ops/pallas_distance.py:74"),
+        "som_neighborhood_update_idx": ("som_lvq_pak_torch/csrc/som_update.cu",
+                                        "som_lvq_pak_tpu/ops/pallas_som.py:116"),
+        "som_neighborhood_update_idx_masked": ("som_lvq_pak_torch/csrc/som_update.cu",
+                                               "som_lvq_pak_tpu/ops/pallas_som.py:152")}
+    idle = [name for name in sources if launches[name] == 0]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

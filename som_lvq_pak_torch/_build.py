@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, loaded with `ctypes`.  The build
-happens on first use, into `som_lvq_pak_torch/_build/` (git-ignored), and is
-redone whenever a source file or the flags change (the library's file name
-carries a hash of both).  A missing `nvcc` or a failed build raises: there is
-no fallback.
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one
+`nvcc` process per file, all started together, and the objects are linked
+into one shared library with a plain C interface, loaded with `ctypes`.  The
+build happens on first use, into `som_lvq_pak_torch/_build/` (git-ignored),
+and is redone whenever a source or header (`csrc/*.cuh`) or the flags change
+(the library's file name carries a hash of all of them).  A missing `nvcc` or
+a failed build raises: there is no fallback.
 
 No `--use_fast_math`: the gaussian neighbourhood needs `expf`, not
 `__expf`, and IEEE division to track the reference kernels.
@@ -26,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,10 +36,19 @@ _SIGNATURES = {
     # x, codes, B, N, D, val, idx, stream
     "somvq_dist_argmin": [_P, _P, _I, _I, _I, _P, _P, _P],
     "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # x, mask, codes, B, N, D, keys, val, idx, stream
+    "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian,
     # radius, keys, val, idx, stream
     "somvq_som_fused_step": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                              ctypes.c_float, _P, _P, _P, _P],
+    # codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius, stream
+    "somvq_som_update": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                         ctypes.c_float, _P],
+    # codes, noc, D, xb, mask, bmu, alpha, B, xdim, hexa, gaussian, radius,
+    # stream
+    "somvq_som_update_masked": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                ctypes.c_float, _P],
 }
 
 
@@ -60,11 +70,35 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode())
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libsomvq_{h.hexdigest()[:16]}.so")
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _wait(procs) -> str:
+    """Wait for every (cmd, Popen) of `_start`; raise on the first that
+    failed, after stopping the others."""
+    out = []
+    try:
+        for cmd, p in procs:
+            stdout, stderr = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            out.append(stdout + stderr)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return "".join(out)
 
 
 def build(verbose: bool = False) -> str:
@@ -75,21 +109,16 @@ def build(verbose: bool = False) -> str:
         return out
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = ([nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
-           + ["-o", tmp, *sources()])
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        flags = [nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in sources()]
+        log = _wait([_start(flags + ["-c", "-o", o, s])
+                     for s, o in zip(sources(), objs)])
+        so = os.path.join(tmp, "lib.so")
+        log += _wait([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])])
         if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic publish: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            print(log)
+        os.replace(so, out)  # atomic publish: concurrent builds agree
     return out
 
 

@@ -1,33 +1,48 @@
 // Fused 1-NN winner search: for each sample x_b, the codebook row m_n that
 // minimises ||x_b - m_n||^2, without materialising the (B, N) distance matrix.
 //
-// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+// Replaces three TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
 //   * _dist_argmin_kernel (wrapper dist_argmin): partial distance
 //     ||m||^2 - 2 x.m, running min with strict <          -> kMaxScore = false
 //   * _dist_argmin_t_kernel (wrapper dist_argmin_t): max-score form
 //     x.m - ||m||^2 / 2, running max with strict >, output -2 * best
 //                                                          -> kMaxScore = true
-// Both keep the reference's tie rule: the lowest index wins exact ties.
+//   * _dist_argmin_masked_kernel (wrapper dist_argmin with a mask): partial
+//     distance keep.(m o m) - 2 (x keep).m, masked components excluded
+//                                                -> dist_argmin_masked_kernel
+// All keep the reference's tie rule: the lowest index wins exact ties.
 //
-// Design.  One CTA owns TB samples and walks the whole codebook in TN-row
-// tiles; the TPU's sequential codebook grid axis becomes this loop, so the
-// running (best, index) pair stays in registers, is updated only on a strict
-// comparison, and needs no cross-CTA reduction or atomics (deterministic).
-// Each tile is staged through shared memory in KC-wide slices of D, so any
-// D >= 1 works with no padding; ||m||^2 is accumulated from the staged
-// slices.  Each of the 256 threads owns a 4 x 4 (sample, code) micro-tile;
-// at the end the 16 threads that share a sample merge their pairs with a
-// (value, index) lexicographic shuffle reduction, which is the same rule.
+// Design.  One CTA owns TB samples and walks the codebook in TN-row tiles;
+// the TPU's sequential codebook grid axis becomes this loop, so the running
+// (best, index) pair stays in registers and is updated only on a strict
+// comparison.  Each tile is staged through shared memory in KC-wide slices of
+// D, so any D >= 1 works with no padding; ||m||^2 is accumulated from the
+// staged slices.  Each of the 256 threads owns a 4 x 4 (sample, code)
+// micro-tile; at the end the 16 threads that share a sample merge their pairs
+// with a (value, index) lexicographic shuffle reduction, which is the same
+// rule.  K1/K2 walk the whole codebook in one CTA (deterministic, no
+// atomics).  K4 also splits the codebook across gridDim.y CTAs when the batch
+// alone gives too few CTAs to fill the card (a training batch of 4096 is 64
+// CTAs on 132 SMs); the splits fold their (value, index) pairs with the
+// packed-u64 atomicMin of argmin_keys.cuh, which keeps the same tie rule and
+// does not depend on the order the CTAs run in.
+//
+// K4's mask enters as (B, D) uint8, nonzero = masked.  A masked component is
+// zeroed in the staged x and gets keep 0; the second contraction keep.(m o m)
+// squares the code slice already in shared memory, so the masked search
+// costs twice the FMAs of K1 and no extra codebook traffic.
 //
 // What bounds it on H100: FP32 FMA issue and shared-memory loads (2 loads
-// per FMA pair in this micro-tile; no tensor cores).  The codebook is read
-// once per CTA from L2, so device memory is not the limit at eval shapes.
-// Tensor-core (mma/wgmma) tiles are later work.
+// per FMA pair in this micro-tile, 3 per 2 pairs in K4; no tensor cores).
+// The codebook is read once per CTA from L2, so device memory is not the
+// limit at eval shapes.  Tensor-core (mma/wgmma) tiles are later work.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+
+#include "argmin_keys.cuh"
 
 namespace {
 
@@ -150,6 +165,124 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
   }
 }
 
+// K4: the masked winner search over codebook rows [n_lo, n_lo + n_span) of
+// split blockIdx.y; each sample's (partial distance, index) is folded into
+// keys[b].
+__global__ void __launch_bounds__(THREADS)
+dist_argmin_masked_kernel(const float* __restrict__ x,
+                          const unsigned char* __restrict__ mask,
+                          const float* __restrict__ codes, int B, int N, int D,
+                          int n_span, unsigned long long* __restrict__ keys) {
+  __shared__ float xs[TB][KC + 1];
+  __shared__ float ks[TB][KC + 1];
+  __shared__ float ms[TN][KC + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;   // code column group: codes tx + 16 j
+  const int ty = tid >> 4;   // sample row group:  samples ty + 16 i
+  const int b0 = blockIdx.x * TB;
+  const int n_lo = blockIdx.y * n_span;
+  const int n_hi = min(N, n_lo + n_span);
+
+  float best[4];
+  int bidx[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    best[i] = INFINITY;
+    bidx[i] = INT_MAX;
+  }
+
+  for (int n0 = n_lo; n0 < n_hi; n0 += TN) {
+    float xm[4][4], km2[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xm[i][j] = km2[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < D; k0 += KC) {
+      __syncthreads();  // everyone is done reading the previous slice
+      for (int e = tid; e < TB * KC; e += THREADS) {
+        const int r = e / KC, c = e % KC;
+        const int b = b0 + r, k = k0 + c;
+        float xv = 0.f, kv = 0.f;
+        if (b < B && k < D) {
+          const size_t g = (size_t)b * D + k;
+          if (mask[g] == 0) {
+            xv = x[g];
+            kv = 1.f;
+          }
+        }
+        xs[r][c] = xv;
+        ks[r][c] = kv;
+      }
+      for (int e = tid; e < TN * KC; e += THREADS) {
+        const int r = e / KC, c = e % KC;
+        const int n = n0 + r, k = k0 + c;
+        ms[r][c] = (n < N && k < D) ? codes[(size_t)n * D + k] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < KC; ++c) {
+        float xv[4], kv[4], mv[4], mm[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          xv[i] = xs[ty + 16 * i][c];
+          kv[i] = ks[ty + 16 * i][c];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mv[j] = ms[tx + 16 * j][c];
+          mm[j] = mv[j] * mv[j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            xm[i][j] += xv[i] * mv[j];
+            km2[i][j] += kv[i] * mm[j];
+          }
+      }
+    }
+
+    // codes tx + 16 j visited in increasing order: a strict comparison keeps
+    // the first (lowest) index of this thread's subset
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < n_hi) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float d = km2[i][j] - 2.f * xm[i][j];
+          if (d < best[i]) {
+            best[i] = d;
+            bidx[i] = n;
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bidx[i], off);
+      if (better<false>(ov, oi, best[i], bidx[i])) {
+        best[i] = ov;
+        bidx[i] = oi;
+      }
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = b0 + ty + 16 * i;
+      if (b < B && bidx[i] != INT_MAX) fold_key(keys + b, best[i], bidx[i]);
+    }
+  }
+}
+
 template <bool kMaxScore>
 int launch(const float* x, const float* codes, int B, int N, int D, float* val,
            int* idx, cudaStream_t stream) {
@@ -171,6 +304,35 @@ extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
                                    int N, int D, float* val, int* idx,
                                    cudaStream_t stream) {
   return launch<true>(x, codes, B, N, D, val, idx, stream);
+}
+
+// keys: (B,) u64 scratch; val gets the partial distance, as K1's does
+extern "C" int somvq_dist_argmin_masked(const float* x, const unsigned char* mask,
+                                        const float* codes, int B, int N, int D,
+                                        unsigned long long* keys, float* val,
+                                        int* idx, cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // split the codebook until the grid holds about two CTAs per SM
+  const int b_tiles = (B + TB - 1) / TB;
+  const int n_tiles = (N + TN - 1) / TN;
+  const int want = (2 * sms + b_tiles - 1) / b_tiles;
+  const int splits = want < 1 ? 1 : (want > n_tiles ? n_tiles : want);
+  const int n_span = ((n_tiles + splits - 1) / splits) * TN;
+  const dim3 grid(b_tiles, (N + n_span - 1) / n_span);
+  init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dist_argmin_masked_kernel<<<grid, THREADS, 0, stream>>>(x, mask, codes, B, N,
+                                                          D, n_span, keys);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* somvq_error_string(int err) {

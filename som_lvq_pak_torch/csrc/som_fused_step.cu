@@ -13,14 +13,15 @@
 // 0 where bmu < 0), and accumulates acc = W.X and wsum = W.1 in registers.
 // The guarded blend c + min(wsum, 1) * (acc / max(wsum, 1e-30) - c) is then
 // written back IN PLACE: each CTA reads and writes only its own rows, and no
-// other CTA reads them, so the in-place write is race-free.
+// other CTA reads them, so the in-place write is race-free.  The update's
+// device code is shared with K5/K6 (som_grid.cuh).
 //
 // Winners.  The updated tile stays in shared memory; for each next-batch
 // sample the CTA takes the tile's (min, first argmin) of ||m||^2 - 2 m.x.
 // Across CTAs the pair is packed as (order-preserving u32 of the float,
 // u32 row) into a u64 and combined with atomicMin, which keeps the lowest
-// index among equal values, the reference's tie rule.  Initialising and
-// unpacking the u64 keys are two small kernels in this file.
+// index among equal values, the reference's tie rule (argmin_keys.cuh, shared
+// with K4).
 //
 // What bounds it on H100: FP32 FMA issue and shared-memory loads (no tensor
 // cores), plus one expf per (row, sample) for the gaussian.  Device memory
@@ -33,52 +34,10 @@
 #include <cmath>
 #include <cstdint>
 
+#include "argmin_keys.cuh"
+#include "som_grid.cuh"
+
 namespace {
-
-constexpr int TN = 32;        // codebook rows per CTA (8 warps x 4 rows)
-constexpr int BC = 32;        // batch samples staged per chunk
-constexpr int THREADS = 256;
-constexpr int MAX_D = 256;    // 32 lanes x NJ (<= 8) columns
-
-__device__ __forceinline__ unsigned int order_bits(float f) {
-  unsigned int u = __float_as_uint(f == 0.f ? 0.f : f);  // -0 -> +0
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float unorder_bits(unsigned int o) {
-  const unsigned int u = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
-  return __uint_as_float(u);
-}
-
-__global__ void init_keys(unsigned long long* keys, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keys[i] = ~0ull;
-}
-
-__global__ void unpack_keys(const unsigned long long* __restrict__ keys, int n,
-                            float* __restrict__ val, int* __restrict__ idx) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const unsigned long long k = keys[i];
-    val[i] = unorder_bits((unsigned int)(k >> 32));
-    idx[i] = (int)(unsigned int)(k & 0xffffffffull);
-  }
-}
-
-// exact-f32 squared grid distance between unit u and BMU bm
-__device__ __forceinline__ float grid_d2(int u, int bm, int xdim, bool hexa) {
-  const int uc = u % xdim, ur = u / xdim;
-  const int bc = bm % xdim, br = bm / xdim;
-  const float rd = (float)(ur - br);
-  if (hexa) {
-    const float lx = (float)uc + 0.5f * (float)(ur & 1);
-    const float bx = (float)bc + 0.5f * (float)(br & 1);
-    const float dx = lx - bx;
-    return dx * dx + (rd * rd) * 0.75f;
-  }
-  const float dx = (float)uc - (float)bc;
-  return dx * dx + rd * rd;
-}
 
 // Shared memory: tile[TN][D] | xs[BC][DS] | ws[TN][BC] | m2s[TN] |
 //                redv[THREADS] | redi[THREADS]
@@ -108,64 +67,18 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * TN;
-  const float r2 = radius * radius;
-  const float den = 2.0f * radius * radius;
 
   // ---- update: acc = W.X, wsum = W.1 over the whole batch ----------------
-  // warp w owns rows 4w..4w+3; lane owns columns lane + 32 j
   float acc[4][NJ];
-  float wsum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    wsum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int s0 = 0; s0 < B; s0 += BC) {
-    __syncthreads();  // previous chunk fully consumed
-    for (int e = tid; e < BC * D; e += THREADS) {
-      const int s = e / D, k = e % D;
-      xs[s * DS + k] = (s0 + s < B) ? xb[(size_t)(s0 + s) * D + k] : 0.f;
-    }
-    for (int e = tid; e < TN * BC; e += THREADS) {
-      const int r = e / BC, s = e % BC;
-      const int u = r0 + r, b = s0 + s;
-      float w = 0.f;
-      if (b < B && u < noc) {
-        const int bm = bmu[b];
-        if (bm >= 0) {
-          const float d2 = grid_d2(u, bm, xdim, hexa != 0);
-          w = gaussian ? alpha[b] * expf(-d2 / den) : (d2 <= r2 ? alpha[b] : 0.f);
-        }
-      }
-      ws[r * BC + s] = w;
-    }
-    __syncthreads();
-    const int nb = min(BC, B - s0);
-    for (int s = 0; s < nb; ++s) {
-      float w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w[i] = ws[(warp * 4 + i) * BC + s];
-        wsum[i] += w[i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int k = lane + 32 * j;
-        const float xv = (k < D) ? xs[s * DS + k] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += w[i] * xv;
-      }
-    }
-  }
+  float wsum[4][1];
+  accumulate_update<NJ, false>(acc, wsum, xs, nullptr, ws, r0, noc, D, xb,
+                               nullptr, bmu, alpha, B, xdim, hexa != 0,
+                               gaussian != 0, radius);
 
   // ---- guarded blend, written in place and kept in shared memory ---------
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = warp * 4 + i, u = r0 + r;
-    const float safe = fmaxf(wsum[i], 1e-30f);
-    const float blend = fminf(wsum[i], 1.0f);
     float sq = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -174,7 +87,7 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
         float nc = 0.f;
         if (u < noc) {
           const float c = codes[(size_t)u * D + k];
-          nc = c + blend * (acc[i][j] / safe - c);
+          nc = guarded_blend(c, acc[i][j], wsum[i][0]);
           codes[(size_t)u * D + k] = nc;
         }
         tile[r * D + k] = nc;
@@ -226,12 +139,7 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
         }
       }
       const int b = s0 + lane;
-      if (b < Bn && bi != INT_MAX) {
-        const unsigned long long key =
-            ((unsigned long long)order_bits(bv) << 32) | (unsigned int)bi;
-        // keys only decrease, so a stale read can only cost a spare atomic
-        if (key < __ldcg(keys + b)) atomicMin(keys + b, key);
-      }
+      if (b < Bn && bi != INT_MAX) fold_key(keys + b, bv, bi);
     }
   }
 }

@@ -1,0 +1,137 @@
+// The SOM neighbourhood update's device code, shared by K3
+// (som_fused_step.cu) and K5/K6 (som_update.cu).
+//
+// W[unit, sample] is built from flat unit indices with the exact-f32 algebra
+// of som_lvq_pak_tpu/ops/pallas_som.py:_neighborhood_w: dx from columns and
+// 0.5 offsets, hexa dy^2 as rowdiff^2 * 0.75 (exact in float32, so the bubble
+// test d2 <= r*r is exact at boundary distances); bubble alpha inside the
+// radius, gaussian alpha * expf(-d2 / (2 r r)); 0 where bmu < 0.
+//
+// Layout of the update: one CTA owns TN codebook rows; warp w owns rows
+// 4w..4w+3 and lane l owns columns l + 32 j (j < NJ), so D <= 32 NJ <= 256.
+// The batch is walked in BC-sample chunks staged in shared memory, in a fixed
+// order, so acc = W.X and the weight mass are deterministic with no atomics.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+namespace {
+
+constexpr int TN = 32;        // codebook rows per CTA (8 warps x 4 rows)
+constexpr int BC = 32;        // batch samples staged per chunk
+constexpr int THREADS = 256;
+constexpr int MAX_D = 256;    // 32 lanes x NJ (<= 8) columns
+
+// exact-f32 squared grid distance between unit u and BMU bm
+__device__ __forceinline__ float grid_d2(int u, int bm, int xdim, bool hexa) {
+  const int uc = u % xdim, ur = u / xdim;
+  const int bc = bm % xdim, br = bm / xdim;
+  const float rd = (float)(ur - br);
+  if (hexa) {
+    const float lx = (float)uc + 0.5f * (float)(ur & 1);
+    const float bx = (float)bc + 0.5f * (float)(br & 1);
+    const float dx = lx - bx;
+    return dx * dx + (rd * rd) * 0.75f;
+  }
+  const float dx = (float)uc - (float)bc;
+  return dx * dx + rd * rd;
+}
+
+// the neighbourhood weight of unit u for a sample with BMU bm and alpha a;
+// r2 = radius^2, den = 2 radius^2
+__device__ __forceinline__ float neighborhood_w(int u, int bm, float a, int xdim,
+                                                bool hexa, bool gaussian,
+                                                float r2, float den) {
+  if (bm < 0) return 0.f;
+  const float d2 = grid_d2(u, bm, xdim, hexa);
+  return gaussian ? a * expf(-d2 / den) : (d2 <= r2 ? a : 0.f);
+}
+
+// _guarded_blend: exact c + acc - wsum * c while wsum <= 1, the weighted
+// mean acc / wsum beyond
+__device__ __forceinline__ float guarded_blend(float c, float acc, float wsum) {
+  const float safe = fmaxf(wsum, 1e-30f);
+  const float blend = fminf(wsum, 1.0f);
+  return c + blend * (acc / safe - c);
+}
+
+// Accumulate, for rows r0 + 4 warp + i, acc[i][j] = sum_b W x_b (column
+// lane + 32 j) and the weight mass: wsum[i][0] = sum_b W (kMasked false) or
+// wsum[i][j] = sum_b W keep_b (kMasked true; masked components of x count as
+// 0).  mask is (B, D) uint8, nonzero = masked.  Shared memory: xs[BC][DS],
+// ks[BC][DS] (kMasked only), ws[TN][BC], DS = D | 1 (an odd stride puts
+// each sample's row on distinct banks).
+template <int NJ, bool kMasked>
+__device__ __forceinline__ void accumulate_update(
+    float (&acc)[4][NJ], float (&wsum)[4][kMasked ? NJ : 1], float* xs,
+    float* ks, float* ws, int r0, int noc, int D,
+    const float* __restrict__ xb, const unsigned char* __restrict__ mask,
+    const int* __restrict__ bmu, const float* __restrict__ alpha, int B,
+    int xdim, bool hexa, bool gaussian, float radius) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int DS = D | 1;
+  const float r2 = radius * radius;
+  const float den = 2.0f * radius * radius;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < (kMasked ? NJ : 1); ++j) wsum[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int s0 = 0; s0 < B; s0 += BC) {
+    __syncthreads();  // previous chunk fully consumed
+    for (int e = tid; e < BC * D; e += THREADS) {
+      const int s = e / D, k = e % D;
+      const size_t g = (size_t)(s0 + s) * D + k;
+      float xv = 0.f;
+      if (s0 + s < B) {
+        xv = xb[g];
+        if (kMasked) {
+          const bool masked = mask[g] != 0;
+          ks[s * DS + k] = masked ? 0.f : 1.f;
+          if (masked) xv = 0.f;
+        }
+      } else if (kMasked) {
+        ks[s * DS + k] = 0.f;
+      }
+      xs[s * DS + k] = xv;
+    }
+    for (int e = tid; e < TN * BC; e += THREADS) {
+      const int r = e / BC, s = e % BC;
+      const int u = r0 + r, b = s0 + s;
+      ws[r * BC + s] = (b < B && u < noc)
+                           ? neighborhood_w(u, bmu[b], alpha[b], xdim, hexa,
+                                            gaussian, r2, den)
+                           : 0.f;
+    }
+    __syncthreads();
+    const int nb = min(BC, B - s0);
+    for (int s = 0; s < nb; ++s) {
+      float w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        w[i] = ws[(warp * 4 + i) * BC + s];
+        if (!kMasked) wsum[i][0] += w[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int k = lane + 32 * j;
+        const float xv = (k < D) ? xs[s * DS + k] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] += w[i] * xv;
+        if (kMasked) {
+          const float kv = (k < D) ? ks[s * DS + k] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) wsum[i][kMasked ? j : 0] += w[i] * kv;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace

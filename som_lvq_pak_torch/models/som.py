@@ -9,7 +9,7 @@ package's jax-free ones, re-exported here for callers of the port.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -17,8 +17,9 @@ import torch
 from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
 from som_lvq_pak_tpu.utils.rng import CRandom
 
-from ..convert import codebook_to_torch, host_tensor
-from ..ops.dist_argmin import dist_argmin_t
+from ..convert import codebook_to_torch, samples_to_torch
+from ..ops.dist_argmin import dist_argmin, dist_argmin_t
+from ..ops.distance import keep_of
 
 __all__ = ["CRandom", "Dataset", "Neighborhood", "Topology", "find_qerror",
            "randinit"]
@@ -65,20 +66,25 @@ def randinit(
 
 
 def find_qerror(codes: Union[Dataset, torch.Tensor],
-                data: Union[Dataset, torch.Tensor], mode: str = "fast") -> float:
+                data: Union[Dataset, torch.Tensor], mode: str = "fast",
+                mask: Optional[torch.Tensor] = None) -> float:
     """Total quantization error, sum over samples of the distance to the
     winner (find_qerror, som_rout.c:678-731); divide by N for the
     per-sample figure.
 
     The fast path of `_find_qerror_fast`/`_qerror_whole_step`
-    (som_lvq_pak_tpu/models/som.py:471-592): winners from one
-    `dist_argmin_t` over the whole array, then the winner's distance
-    recomputed exactly in float32, square-rooted and summed on the device.
+    (som_lvq_pak_tpu/models/som.py:471-592): winners from one winner
+    search over the whole array, then the winner's distance recomputed
+    exactly in float32, square-rooted and summed on the device.  Unmasked
+    data searches with `dist_argmin_t`; masked data with the masked
+    `dist_argmin`, and then only the unmasked components count, so a sample
+    with every component masked adds 0 (the reference skips it).
 
-    `codes` and `data` are host Datasets or tensors.  Tensors stay where
-    they are (keep evaluation data resident as a tensor); a Dataset is
-    copied to the other argument's device (the CPU when both are
-    Datasets)."""
+    `codes` and `data` are host Datasets or tensors.  A Dataset's mask is
+    its own; `mask` (N, D), nonzero = masked, goes with a `data` tensor.
+    Tensors stay where they are (keep evaluation data resident as a
+    tensor); a Dataset is copied to the other argument's device (the CPU
+    when both are Datasets)."""
     if mode != "fast":
         raise NotImplementedError(
             "find_qerror(mode='parity') is the host path of "
@@ -86,11 +92,10 @@ def find_qerror(codes: Union[Dataset, torch.Tensor],
     tensors = [t for t in (codes, data) if isinstance(t, torch.Tensor)]
     device = tensors[0].device if tensors else "cpu"
     if isinstance(data, Dataset):
-        if data.mask is not None:
-            raise NotImplementedError(
-                "masked data in the fast qerror is not ported yet "
-                "(ROADMAP: masked dist_argmin, kernel 1m)")
-        X = host_tensor(data.points).to(device)
+        if mask is not None:
+            raise ValueError("mask= goes with a data tensor; a Dataset "
+                             "carries its own mask")
+        X, mask = samples_to_torch(data, device)[:2]
     else:
         X = data
     M = codebook_to_torch(codes, device)[0] if isinstance(codes, Dataset) else codes
@@ -98,7 +103,11 @@ def find_qerror(codes: Union[Dataset, torch.Tensor],
         raise ValueError(f"codes on {M.device}, data on {X.device}")
     if X.shape[0] == 0:
         return 0.0
-    _, idx = dist_argmin_t(X, M)
-    diff = X - M[idx.long()]
+    if mask is None:
+        _, idx = dist_argmin_t(X, M)
+        diff = X - M[idx.long()]
+    else:
+        _, idx = dist_argmin(X, M, mask=mask)
+        diff = (X - M[idx.long()]) * keep_of(mask)
     mind = (diff * diff).sum(-1)
     return float(torch.sqrt(torch.clamp(mind, min=0.0)).sum())

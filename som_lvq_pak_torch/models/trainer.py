@@ -1,18 +1,29 @@
 """Minibatch SOM training on one device — the counterpart of
-som_lvq_pak_tpu/models/trainer.py:SOMTrainer (single device, fused path).
+som_lvq_pak_tpu/models/trainer.py:SOMTrainer (single device).
 
-Each step runs one fused kernel (ops.som_step.som_fused_train_step):
+Clean batches run one fused kernel per step (ops.som_step.som_fused_train_step):
 batch t's neighbourhood update and batch t+1's winners against the updated
-codebook, in one pass over the codebook.  A prologue `dist_argmin` finds
-batch 0's winners.  The codebook stays resident on the device and is
-updated in place.
+codebook, in one pass over the codebook.  A `dist_argmin` prologue finds the
+first clean batch's winners.  A batch with masked components runs the
+two-kernel step (models.fast.som_batch_step: masked `dist_argmin`, then the
+masked neighbourhood update), and the next clean batch's winners are found
+again against the updated codebook.  A Dataset with a mask runs the
+two-kernel step for every batch; a stream decides per batch, on the host
+copy of its mask.  The codebook stays resident on the device and is updated
+in place.
+
+`use_weights` honours `weight=` tokens (per-sample alpha 1 - (1 - a)^w) and
+`use_fixed` honours `fixed=` tokens (the sample's winner is its fixed unit),
+as som_rout.c:612-632 does.
 
 Inputs are a Dataset (per-lap shuffled order) or an iterable of chunk
 Datasets (e.g. StreamingReader.chunks(laps=None)), with interval
 checkpoints in the JAX package's Checkpointer format and resume.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-masked data, `weight=`/`fixed=` tokens, and meshes.
+Not ported yet: meshes and bf16 streaming (`mesh=`, `stream_bf16=True`
+raise NotImplementedError naming their ROADMAP items), and the VMEM
+multi-step group path the JAX package picks for small codebooks (ROADMAP
+B7; K3 runs each step instead).
 """
 
 from __future__ import annotations
@@ -27,13 +38,15 @@ from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
 from som_lvq_pak_tpu.utils.checkpoint import Checkpointer, TrainState
 from som_lvq_pak_tpu.utils.progress import StepTimer
 
-from ..convert import codebook_to_torch, host_tensor, to_dataset
+from ..convert import codebook_to_torch, sample_arrays, samples_to_torch, to_dataset
 from ..ops.dist_argmin import dist_argmin
 from ..ops.som_step import som_fused_train_step
 from .common import alpha_schedule, radius_schedule
+from .fast import effective_alpha, som_batch_step
 
-_MASKED = ("masked data is not ported yet (ROADMAP: trainer masked path, "
-           "kernels 1m and 5)")
+# one training batch: (index, x, mask or None, weight or None, fixed or None)
+Batch = Tuple[int, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
+              Optional[torch.Tensor]]
 
 
 class SOMTrainer:
@@ -49,6 +62,7 @@ class SOMTrainer:
         checkpoint_interval: int = 0,
         seed: int = 0,
         device: Union[torch.device, str] = "cpu",
+        stream_bf16: bool = False,
     ):
         """`seed` fixes the per-lap shuffle of Dataset input."""
         if not codes.is_map:
@@ -57,6 +71,9 @@ class SOMTrainer:
             raise NotImplementedError(
                 "mesh training is not ported yet (ROADMAP: mesh on "
                 "torch.distributed)")
+        if stream_bf16:
+            raise NotImplementedError(
+                "bf16 streaming is not ported yet (ROADMAP A7: stream_bf16)")
         self.meta = codes
         self.batch_size = batch_size
         self.seed = seed
@@ -82,14 +99,13 @@ class SOMTrainer:
         allow_short_stream: bool = False,
     ) -> Dataset:
         """Train for `rlen` samples, grouped into batches (the schedules are
-        read at each batch's first sample).  A stream that runs dry before
-        `rlen` samples raises, unless allow_short_stream=True.  With a
-        checkpoint dir and resume=True, continues from the latest step; a
-        resumed stream is fast-forwarded to the step's stream position."""
-        if use_weights or use_fixed:
-            raise NotImplementedError(
-                "weight=/fixed= tokens are not ported yet (ROADMAP: trainer "
-                "weights/fixed)")
+        read at each batch's first sample).  `use_weights`/`use_fixed`
+        honour the data's `weight=`/`fixed=` tokens (off by default, like
+        the C -weights/-fixed flags); masks always apply.  A stream that
+        runs dry before `rlen` samples raises, unless
+        allow_short_stream=True.  With a checkpoint dir and resume=True,
+        continues from the latest step; a resumed stream is fast-forwarded
+        to the step's stream position."""
         bs = self.batch_size
         nb = max(1, rlen // bs)
         talp = alpha_schedule(rlen, alpha, alpha_type)[::bs][:nb]
@@ -106,11 +122,13 @@ class SOMTrainer:
                                  device=self.device)
                 start = st.step
 
+        xdim = meta.xdim
+        extras = dict(xdim=xdim, use_weights=use_weights, use_fixed=use_fixed)
         if isinstance(data, Dataset):
-            batches = self._dataset_batches(data, start, nb)
+            batches = self._dataset_batches(data, start, nb, **extras)
         else:
             batches = self._stream_batches(iter(data), start, nb,
-                                           allow_short_stream)
+                                           allow_short_stream, **extras)
 
         # interval checkpoints fire whenever >= interval batches have
         # elapsed since the last save (not on an exact modulo: the JAX
@@ -127,17 +145,29 @@ class SOMTrainer:
                     codes=M.cpu().numpy(), step=b + 1,
                     extra={"alpha": float(alpha), "radius": float(radius)}))
 
-        xdim = meta.xdim
+        # bmu: the winners of `prev` when it is a clean batch, found by the
+        # previous fused step; None before the first clean batch and after
+        # a two-kernel step, whose updated codebook they are found against
+        bmu = None
         prev = next(batches, None)
-        if prev is not None:
-            _, bmu = dist_argmin(prev[1], M)
         while prev is not None:
-            b, xb = prev
+            b, xb, mk, wt, ff = prev
             nxt = next(batches, None)
-            xn = nxt[1] if nxt is not None else xb
-            M, bmu, _ = som_fused_train_step(
-                M, xb, bmu, xn, xdim, self.hexa, float(talp[b]),
-                float(trad[b]), gaussian=self.gaussian)
+            if mk is not None:
+                som_batch_step(M, xb, xdim, self.hexa, float(talp[b]),
+                               float(trad[b]), self.gaussian, mask=mk,
+                               weights=wt, fixed_bmu=ff)
+                bmu = None
+            else:
+                if bmu is None:
+                    bmu = _fix(dist_argmin(xb, M)[1], ff)
+                a = (float(talp[b]) if wt is None else
+                     effective_alpha(float(talp[b]), xb.shape[0], M.device, wt))
+                _, bmu, _ = som_fused_train_step(
+                    M, xb, bmu, xb if nxt is None else nxt[1], xdim,
+                    self.hexa, a, float(trad[b]), gaussian=self.gaussian)
+                if nxt is not None:
+                    bmu = _fix(bmu, nxt[4])
             if progress is not None:
                 progress.step(bs)
             maybe_ckpt(b)
@@ -157,14 +187,13 @@ class SOMTrainer:
             ((self.seed & 0xFFFFFFFF) << 32) | (lap & 0xFFFFFFFF))
         return torch.randperm(n, generator=g).numpy()
 
-    def _dataset_batches(self, data: Dataset, start: int, nb: int
-                         ) -> Iterator[Tuple[int, torch.Tensor]]:
+    def _dataset_batches(self, data: Dataset, start: int, nb: int,
+                         **extras) -> Iterator[Batch]:
         """Per-lap shuffled order: lap l is an independent permutation of
         all n samples, batches cut from the concatenated laps (the batch
-        analogue of the reference's per-lap shuffle, datafile.c:338-341)."""
-        if data.mask is not None:
-            raise NotImplementedError(_MASKED)
-        X = host_tensor(data.points).to(self.device)
+        analogue of the reference's per-lap shuffle, datafile.c:338-341).
+        Every batch of a masked Dataset carries its mask slice."""
+        arrays = samples_to_torch(data, self.device, **extras)
         n, bs = data.n, self.batch_size
         perm, perm_lap = None, -1
         for b in range(start, nb):
@@ -177,14 +206,20 @@ class SOMTrainer:
                 take = min(bs - got, n - off)
                 idx[got:got + take] = perm[off:off + take]
                 got += take
-            yield b, X[torch.from_numpy(idx).to(self.device)]
+            it = torch.from_numpy(idx).to(self.device)
+            yield (b, *(None if a is None else a[it] for a in arrays))
 
     def _stream_batches(self, chunks: Iterator[Dataset], start: int, nb: int,
-                        allow_short_stream: bool
-                        ) -> Iterator[Tuple[int, torch.Tensor]]:
+                        allow_short_stream: bool, **extras
+                        ) -> Iterator[Batch]:
         """Buffer chunks on the host and ship every whole batch they hold in
-        one copy (pinned, asynchronous on CUDA); the remainder waits on the
-        host for the next chunk."""
+        one copy per array (pinned, asynchronous on CUDA); the remainder
+        waits on the host for the next chunk.  A batch carries a mask or
+        fixed slice only when its host copy has a masked entry or a fixed
+        sample: a clean batch in a block with masked chunks elsewhere gets
+        mask None, so it takes the fused step (an all-zero mask would send
+        it down the masked kernels, whose rounding can flip near-tie
+        winners; som_lvq_pak_tpu/models/trainer.py:331-343)."""
         s = self.batch_size
 
         def next_chunk():
@@ -192,9 +227,13 @@ class SOMTrainer:
                 c = next(chunks)
             except StopIteration:
                 return None
-            if c.mask is not None:
-                raise NotImplementedError(_MASKED)
-            return (np.ascontiguousarray(c.points, dtype=np.float32), c.n)
+            return (*sample_arrays(c, **extras), c.n)
+
+        def to_device(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
 
         pending = next_chunk()
         # resume-exact streaming: skip start*batch_size samples so batch b
@@ -215,20 +254,49 @@ class SOMTrainer:
                         f"({buffered} samples buffered, {s} needed): size "
                         "laps to cover rlen, pass laps=None, or set "
                         "allow_short_stream=True")
-                bufs.append(pending[0])
-                buffered += pending[1]
+                bufs.append(pending)
+                buffered += pending[-1]
                 pending = next_chunk()
-            X = np.concatenate(bufs) if len(bufs) > 1 else bufs[0]
+            # per array: one host array over the buffered chunks, chunks
+            # without it filled with its "absent" value
+            ns = [t[-1] for t in bufs]
+            X = _concat([t[0] for t in bufs], ns, 0.0, (), np.float32)
+            mk = _concat([t[1] for t in bufs], ns, 0, X.shape[1:], np.uint8)
+            wt = _concat([t[2] for t in bufs], ns, 0.0, (), np.float32)
+            ff = _concat([t[3] for t in bufs], ns, -1, (), np.int32)
             nfull = min(buffered // s, nb - b) * s
-            Xd = host_tensor(X[:nfull])
-            if self.device.type == "cuda":
-                Xd = Xd.pin_memory().to(self.device, non_blocking=True)
-            else:
-                Xd = Xd.to(self.device)
+            Xd = to_device(X[:nfull])
+            mkd = None if mk is None else to_device(mk[:nfull])
+            wtd = None if wt is None else to_device(wt[:nfull])
+            ffd = None if ff is None else to_device(ff[:nfull])
             for off in range(0, nfull, s):
-                yield b, Xd[off:off + s]
+                sl = slice(off, off + s)
+                yield (b, Xd[sl],
+                       mkd[sl] if mk is not None and mk[sl].any() else None,
+                       None if wtd is None else wtd[sl],
+                       ffd[sl] if ff is not None and (ff[sl] >= 0).any() else None)
                 b += 1
-            bufs, buffered = [X[nfull:]], buffered - nfull
+            rest = slice(nfull, None)
+            bufs = [tuple(None if a is None else a[rest] for a in (X, mk, wt, ff))
+                    + (buffered - nfull,)]
+            buffered -= nfull
+
+
+def _fix(bmu: torch.Tensor, fixed: Optional[torch.Tensor]) -> torch.Tensor:
+    """Winners with fixed= samples (fixed >= 0) moved to their fixed unit."""
+    if fixed is None:
+        return bmu
+    return torch.where(fixed >= 0, fixed, bmu)
+
+
+def _concat(parts, counts, fill, row_shape, dtype):
+    """One array from per-chunk parts, a chunk's None filled with `fill`;
+    None when no chunk has the array."""
+    if all(p is None for p in parts):
+        return None
+    parts = [np.full((n,) + row_shape, fill, dtype) if p is None else p
+             for p, n in zip(parts, counts)]
+    return np.concatenate(parts) if len(parts) > 1 else parts[0]
 
 
 def _skip_stream_samples(t, skip):

@@ -1,14 +1,21 @@
-"""Fused 1-NN winner search: kernels K1 (`dist_argmin`) and K2
-(`dist_argmin_t`), counterparts of som_lvq_pak_tpu/ops/pallas_distance.py.
+"""Fused 1-NN winner search: kernels K1 (`dist_argmin`), K2
+(`dist_argmin_t`) and K4 (`dist_argmin_masked`), counterparts of
+som_lvq_pak_tpu/ops/pallas_distance.py.
 
-Both return (sq_dists (B,) float32, indices (B,) int32): the kernel's
+All return (sq_dists (B,) float32, indices (B,) int32): the kernel's
 partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
 
 * `dist_argmin` scores ||m||^2 - 2 x.m with a strict-< running min
-  (replaces `_dist_argmin_kernel`); the trainer's prologue winner.
+  (replaces `_dist_argmin_kernel`); the trainer's prologue winner.  Given a
+  `mask` it runs `dist_argmin_masked`.
+* `dist_argmin_masked` scores keep.(m o m) - 2 (x keep).m, where `mask`
+  (B, D) is nonzero on masked components (replaces
+  `_dist_argmin_masked_kernel`); ||x keep||^2 is added back, so a sample
+  with every component masked gets index 0 and value 0.  The masked
+  training step's and the masked qerror's winner search.
 * `dist_argmin_t` scores x.m - ||m||^2 / 2 with a strict-> running max and
   reports -2 * best (replaces `_dist_argmin_t_kernel`); the fast qerror's
-  winner search.  The two forms round differently, so near-tie winners may
+  winner search.  The forms round differently, so near-tie winners may
   differ between them, as they do in the JAX package.
 
 A CUDA tensor launches the kernel in `csrc/dist_argmin.cu`; a CPU tensor
@@ -18,12 +25,12 @@ counts its kernel launches in its `launches` attribute.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
-from .distance import fp32_matmul
+from .distance import fp32_matmul, keep_of, mask_bytes
 
 
 def _rows_per_chunk(n: int) -> int:
@@ -46,9 +53,41 @@ def _check(x: torch.Tensor, codes: torch.Tensor) -> str:
     return x.device.type
 
 
-def dist_argmin_plain(x: torch.Tensor, codes: torch.Tensor
+def _check_mask(x: torch.Tensor, mask: torch.Tensor) -> None:
+    if mask.shape != x.shape:
+        raise ValueError(f"mask {tuple(mask.shape)} must match x {tuple(x.shape)}")
+    if mask.device != x.device:
+        raise ValueError(f"x on {x.device}, mask on {mask.device}")
+
+
+def dist_argmin_masked_plain(x: torch.Tensor, codes: torch.Tensor,
+                             mask: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K4: argmin of keep.(m o m) - 2 (x keep).m, first index on
+    ties."""
+    fp32_matmul()
+    keep = keep_of(mask)
+    xk = x * keep
+    mm = codes * codes
+    vals, idxs = [], []
+    step = _rows_per_chunk(codes.shape[0])
+    for s in range(0, x.shape[0], step):
+        xc, kc = xk[s:s + step], keep[s:s + step]
+        d = kc @ mm.T - 2.0 * (xc @ codes.T)
+        i = torch.argmin(d, dim=1)
+        x2 = (xc * xc).sum(-1)
+        vals.append(torch.clamp(d.gather(1, i[:, None])[:, 0] + x2, min=0.0))
+        idxs.append(i.to(torch.int32))
+    return torch.cat(vals), torch.cat(idxs)
+
+
+def dist_argmin_plain(x: torch.Tensor, codes: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain K1: argmin of ||m||^2 - 2 x.m, first index on ties."""
+    """Plain K1 (K4 given a mask): argmin of ||m||^2 - 2 x.m, first index
+    on ties."""
+    if mask is not None:
+        return dist_argmin_masked_plain(x, codes, mask)
     fp32_matmul()
     m2 = (codes * codes).sum(-1)
     vals, idxs = [], []
@@ -98,12 +137,43 @@ def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor):
     return torch.clamp(val + (x * x).sum(-1), min=0.0), idx
 
 
-def dist_argmin(x: torch.Tensor, codes: torch.Tensor
+def dist_argmin(x: torch.Tensor, codes: torch.Tensor,
+                mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """1-NN winners of x (B, D) in codes (N, D): (sq_dists, int32 idx)."""
+    """1-NN winners of x (B, D) in codes (N, D): (sq_dists, int32 idx).
+    `mask` (B, D), nonzero = masked, runs `dist_argmin_masked`."""
+    if mask is not None:
+        return dist_argmin_masked(x, codes, mask)
     if _check(x, codes) == "cpu":
         return dist_argmin_plain(x, codes)
     return _launch("somvq_dist_argmin", dist_argmin, x, codes)
+
+
+def dist_argmin_masked(x: torch.Tensor, codes: torch.Tensor,
+                       mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1-NN winners over the unmasked components of each sample:
+    (sq_dists, int32 idx)."""
+    device = _check(x, codes)
+    _check_mask(x, mask)
+    if device == "cpu":
+        return dist_argmin_masked_plain(x, codes, mask)
+    x = x.contiguous()
+    codes = codes.contiguous()
+    m8 = mask_bytes(mask)
+    B, D = x.shape
+    N = codes.shape[0]
+    val = torch.empty((B,), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B,), dtype=torch.int32, device=x.device)
+    if B == 0:
+        return val, idx
+    keys = torch.empty((B,), dtype=torch.int64, device=x.device)
+    _build.call("somvq_dist_argmin_masked", x.data_ptr(), m8.data_ptr(),
+                codes.data_ptr(), B, N, D, keys.data_ptr(), val.data_ptr(),
+                idx.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    dist_argmin_masked.launches += 1
+    xk = x * keep_of(m8)
+    return torch.clamp(val + (xk * xk).sum(-1), min=0.0), idx
 
 
 def dist_argmin_t(x: torch.Tensor, codes: torch.Tensor
@@ -115,4 +185,5 @@ def dist_argmin_t(x: torch.Tensor, codes: torch.Tensor
 
 
 dist_argmin.launches = 0
+dist_argmin_masked.launches = 0
 dist_argmin_t.launches = 0

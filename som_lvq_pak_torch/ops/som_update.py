@@ -1,0 +1,145 @@
+"""The SOM neighbourhood update of the two-kernel step: kernels K5
+(`som_neighborhood_update_idx`) and K6 (`som_neighborhood_update_idx_masked`),
+counterparts of som_lvq_pak_tpu/ops/pallas_som.py:som_neighborhood_update_idx.
+
+    codes = som_neighborhood_update_idx(codes, xb, bmu, xdim, hexa, alpha,
+                                        radius, gaussian, mask=None)
+
+W (noc, B) comes from the flat BMU indices with the exact-f32 grid algebra
+of `_neighborhood_w` (ops.som_step.neighborhood_w); `bmu < 0` gives weight
+0; `alpha` is a scalar or a per-sample (B,) vector.  Without a mask the
+update is the guarded blend of W.X with the weight mass W.1 (replaces
+`_som_update_kernel`).  With a mask (B, D), nonzero = masked, it is the
+blend of W.(X o K) with the per-(unit, component) mass W.K, K the keep
+flags (replaces `_som_update_masked_kernel`): a sample's masked components
+leave every unit's matching component untouched (lvq_pak.c:349-356).
+
+The codebook is updated IN PLACE, as by K3 (the caller owns the resident
+codebook; each CUDA block reads and writes only its own rows), and returned.
+
+A CUDA tensor launches the kernel in `csrc/som_update.cu`; a CPU tensor
+runs the plain version below.  The wrappers count their kernel launches in
+their `launches` attributes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from .. import _build
+from .distance import fp32_matmul, keep_of, mask_bytes
+from .som_step import MAX_D, guarded_blend, neighborhood_w
+
+
+def som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa, alpha,
+                                      radius, gaussian=False, mask=None):
+    """Plain K5 (K6 given a mask); same arguments and contract as
+    `som_neighborhood_update_idx`."""
+    fp32_matmul()
+    dev = codes.device
+    aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    aw = aw.expand(xb.shape[0]) if aw.dim() == 0 else aw
+    r = torch.tensor(radius, dtype=torch.float32, device=dev)
+    units = torch.arange(codes.shape[0], dtype=torch.int32, device=dev)
+    w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
+    if mask is None:
+        acc, wsum = w @ xb, w.sum(1, keepdim=True)
+    else:
+        keep = keep_of(mask)
+        acc, wsum = w @ (xb * keep), w @ keep
+    return codes.copy_(guarded_blend(codes, acc, wsum))
+
+
+def _prepare(codes, xb, bmu, alpha, mask):
+    """Check the arguments; returns (bmu int32, alpha (B,) float32)."""
+    dev = codes.device
+    if codes.dim() != 2 or xb.dim() != 2:
+        raise ValueError("codes and xb must be 2-D")
+    B = xb.shape[0]
+    if xb.shape[1] != codes.shape[1] or bmu.shape != (B,):
+        raise ValueError(f"shape mismatch: codes {tuple(codes.shape)}, xb "
+                         f"{tuple(xb.shape)}, bmu {tuple(bmu.shape)}")
+    if codes.dtype != torch.float32 or xb.dtype != torch.float32:
+        raise TypeError("codes and xb must be float32")
+    if any(t.device != dev for t in (xb, bmu)):
+        raise ValueError("codes, xb and bmu must share one device")
+    if mask is not None and (mask.shape != xb.shape or mask.device != dev):
+        raise ValueError(f"mask {tuple(mask.shape)} on {mask.device} must "
+                         f"match xb {tuple(xb.shape)} on {dev}")
+    if not codes.is_contiguous():
+        raise ValueError("codes must be contiguous (updated in place)")
+    if B == 0:
+        raise ValueError("empty batch")
+    aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    aw = aw.expand(B).contiguous() if aw.dim() == 0 else aw.contiguous()
+    if aw.shape != (B,):
+        raise ValueError(f"alpha must be a scalar or ({B},)")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and codes.shape[1] > MAX_D:
+        raise ValueError(f"som_neighborhood_update_idx: D={codes.shape[1]} > "
+                         f"{MAX_D}, the widest the CUDA kernel takes")
+    return bmu.to(torch.int32).contiguous(), aw
+
+
+def som_neighborhood_update_idx(
+    codes: torch.Tensor,
+    xb: torch.Tensor,
+    bmu: torch.Tensor,
+    xdim: int,
+    hexa: bool,
+    alpha: Union[float, torch.Tensor],
+    radius: float,
+    gaussian: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Update `codes` (noc, D) in place with batch `xb` (B, D) whose BMUs
+    are `bmu` (B,) and return it.  `mask` runs
+    `som_neighborhood_update_idx_masked`."""
+    if mask is not None:
+        return som_neighborhood_update_idx_masked(
+            codes, xb, bmu, mask, xdim, hexa, alpha, radius, gaussian)
+    bmu, aw = _prepare(codes, xb, bmu, alpha, None)
+    if codes.device.type == "cpu":
+        return som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa,
+                                                 aw, radius, gaussian)
+    xb = xb.contiguous()
+    _build.call("somvq_som_update", codes.data_ptr(), codes.shape[0],
+                codes.shape[1], xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(),
+                xb.shape[0], int(xdim), int(bool(hexa)), int(bool(gaussian)),
+                float(radius), torch.cuda.current_stream(codes.device).cuda_stream)
+    som_neighborhood_update_idx.launches += 1
+    return codes
+
+
+def som_neighborhood_update_idx_masked(
+    codes: torch.Tensor,
+    xb: torch.Tensor,
+    bmu: torch.Tensor,
+    mask: torch.Tensor,
+    xdim: int,
+    hexa: bool,
+    alpha: Union[float, torch.Tensor],
+    radius: float,
+    gaussian: bool = False,
+) -> torch.Tensor:
+    """The masked update: `mask` (B, D), nonzero = masked."""
+    bmu, aw = _prepare(codes, xb, bmu, alpha, mask)
+    if codes.device.type == "cpu":
+        return som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa,
+                                                 aw, radius, gaussian, mask)
+    xb = xb.contiguous()
+    m8 = mask_bytes(mask)
+    _build.call("somvq_som_update_masked", codes.data_ptr(), codes.shape[0],
+                codes.shape[1], xb.data_ptr(), m8.data_ptr(), bmu.data_ptr(),
+                aw.data_ptr(), xb.shape[0], int(xdim), int(bool(hexa)),
+                int(bool(gaussian)), float(radius),
+                torch.cuda.current_stream(codes.device).cuda_stream)
+    som_neighborhood_update_idx_masked.launches += 1
+    return codes
+
+
+som_neighborhood_update_idx.launches = 0
+som_neighborhood_update_idx_masked.launches = 0

@@ -17,10 +17,13 @@ from som_lvq_pak_tpu.models import fast as jfast
 from som_lvq_pak_tpu.models import som as jsom
 from som_lvq_pak_tpu.utils.rng import CRandom
 from som_lvq_pak_torch import _build
-from som_lvq_pak_torch.convert import codebook_to_torch, to_dataset
+from som_lvq_pak_torch.convert import codebook_to_torch, samples_to_torch, to_dataset
 from som_lvq_pak_torch.models import common, fast, som
-from som_lvq_pak_torch.ops.dist_argmin import dist_argmin, dist_argmin_t
+from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
+                                               dist_argmin_t)
 from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
+                                              som_neighborhood_update_idx_masked)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "som_lvq_pak_torch")
@@ -39,6 +42,7 @@ import som_lvq_pak_torch.models.som
 import som_lvq_pak_torch.models.trainer
 import som_lvq_pak_torch.ops.dist_argmin
 import som_lvq_pak_torch.ops.som_step
+import som_lvq_pak_torch.ops.som_update
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 print("ok")
 """
@@ -139,24 +143,59 @@ def test_codebook_conversion_round_trip():
 def test_wrappers_route_cpu_to_plain_and_reject_other_devices():
     x = torch.randn(10, 3)
     c = torch.randn(6, 3)
-    before = (dist_argmin.launches, dist_argmin_t.launches,
-              som_fused_train_step.launches)
+    mask = torch.zeros(10, 3, dtype=torch.uint8)
+    mask[2, 1] = 1
+    bmu = torch.zeros(10, dtype=torch.int32)
+    wrappers = (dist_argmin, dist_argmin_masked, dist_argmin_t,
+                som_fused_train_step, som_neighborhood_update_idx,
+                som_neighborhood_update_idx_masked)
+    before = [w.launches for w in wrappers]
     dist_argmin(x, c)
+    dist_argmin(x, c, mask=mask)
     dist_argmin_t(x, c)
-    som_fused_train_step(c.clone(), x, torch.zeros(10, dtype=torch.int32), x,
-                         3, True, 0.1, 2.0)
+    som_fused_train_step(c.clone(), x, bmu, x, 3, True, 0.1, 2.0)
+    som_neighborhood_update_idx(c.clone(), x, bmu, 3, True, 0.1, 2.0)
+    som_neighborhood_update_idx(c.clone(), x, bmu, 3, True, 0.1, 2.0, mask=mask)
     # plain versions are not kernel launches
-    assert (dist_argmin.launches, dist_argmin_t.launches,
-            som_fused_train_step.launches) == before
+    assert [w.launches for w in wrappers] == before
     xm, cm = x.to("meta"), c.to("meta")
+    bm = bmu.to("meta")
     with pytest.raises(ValueError, match="device"):
         dist_argmin(xm, cm)
     with pytest.raises(ValueError, match="device"):
+        dist_argmin(xm, cm, mask=mask.to("meta"))
+    with pytest.raises(ValueError, match="device"):
         dist_argmin_t(xm, cm)
     with pytest.raises(ValueError, match="device"):
-        som_fused_train_step(cm, xm, torch.zeros(10, dtype=torch.int32,
-                                                 device="meta"), xm, 3, True,
-                             0.1, 2.0)
+        som_fused_train_step(cm, xm, bm, xm, 3, True, 0.1, 2.0)
+    with pytest.raises(ValueError, match="device"):
+        som_neighborhood_update_idx(cm, xm, bm, 3, True, 0.1, 2.0)
+    with pytest.raises(ValueError, match="device"):
+        som_neighborhood_update_idx(cm, xm, bm, 3, True, 0.1, 2.0,
+                                    mask=mask.to("meta"))
+
+
+def test_samples_to_torch_carries_mask_weight_fixed():
+    """Masks as uint8, weights as float32, fixed= points flattened to int32
+    unit indices as the JAX trainer's fixed_flat does; each None where the
+    data set has none or the caller leaves it out."""
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(6, 4)).astype(np.float32)
+    mask = np.zeros((6, 4), np.uint8)
+    mask[1, 2] = 1
+    weight = np.array([0, 2, 0.5, 0, 1, 3], np.float32)
+    fixed = np.array([[-1, -1], [2, 1], [0, 0], [-1, 3], [4, 2], [-1, -1]], np.int32)
+    ds = Dataset(points=pts, mask=mask, weight=weight, fixed=fixed)
+    x, m, w, f = samples_to_torch(ds, "cpu", xdim=5, use_weights=True, use_fixed=True)
+    assert (x.dtype, m.dtype, w.dtype, f.dtype) == (
+        torch.float32, torch.uint8, torch.float32, torch.int32)
+    np.testing.assert_array_equal(x.numpy(), pts)
+    np.testing.assert_array_equal(m.numpy(), mask)
+    np.testing.assert_array_equal(w.numpy(), weight)
+    np.testing.assert_array_equal(f.numpy(), [-1, 7, 0, -1, 14, -1])
+    _, m, w, f = samples_to_torch(ds, "cpu", xdim=5)
+    assert w is None and f is None and m is not None
+    assert samples_to_torch(Dataset(points=pts), "cpu")[1] is None
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

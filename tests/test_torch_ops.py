@@ -20,6 +20,20 @@ from som_lvq_pak_torch.ops.som_step import som_fused_train_step
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run torch on one CPU thread in this module.  On a multi-core x86
+    host, the first vectorized transcendental (exp, sin, ...) that torch
+    spreads over several OpenMP threads in a process came back up to
+    1.5e-4 relative off in one worker thread's share, in about 0.5% of
+    processes; the port's plain SOM step makes such a call (the gaussian
+    neighbourhood), and 1e-4 is far outside these tests' tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pad128(a):
     """Lane-pad features to 128 for the JAX kernels only."""
     a = np.asarray(a, np.float32)

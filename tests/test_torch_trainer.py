@@ -23,6 +23,20 @@ from som_lvq_pak_torch.models.trainer import SOMTrainer
 B = 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run torch on one CPU thread in this module.  On a multi-core x86
+    host, the first vectorized transcendental (exp, sin, ...) that torch
+    spreads over several OpenMP threads in a process came back up to
+    1.5e-4 relative off in one worker thread's share, in about 0.5% of
+    processes; the port's plain SOM step makes such a call (the gaussian
+    neighbourhood), and 1e-4 is far outside these tests' tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _blobs(n=1024, dim=8, seed=3):
     rng = np.random.default_rng(seed)
     centres = rng.normal(0, 4.0, size=(4, dim)).astype(np.float32)
@@ -146,6 +160,9 @@ def test_resume_from_jax_checkpoint(tmp_path):
 
 
 def test_unported_inputs_raise_and_short_streams():
+    """Meshes and bf16 streaming still raise; masked data (as a Dataset and inside a stream),
+    weight= and fixed= tokens and the masked qerror now run; short streams
+    raise unless allowed."""
     X = _blobs(n=512)
     init = _init(X, 6, 4, Topology.HEXA, Neighborhood.BUBBLE)
     mask = np.zeros_like(X, dtype=np.uint8)
@@ -154,19 +171,27 @@ def test_unported_inputs_raise_and_short_streams():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SOMTrainer(init, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SOMTrainer(init, batch_size=B).fit(Dataset(points=X, mask=mask), **kw)
+        SOMTrainer(init, stream_bf16=True)
+    out = SOMTrainer(init, batch_size=B).fit(Dataset(points=X, mask=mask), **kw)
+    # component 1 is masked in every sample: no unit's component 1 moves
+    np.testing.assert_array_equal(out.points[:, 1], init.points[:, 1])
 
     def masked_stream():
         yield Dataset(points=X[:256])
         yield Dataset(points=X[256:], mask=mask[256:])
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SOMTrainer(init, batch_size=B).fit(masked_stream(), **kw)
+    out = SOMTrainer(init, batch_size=B).fit(masked_stream(), **kw)
+    assert np.isfinite(out.points).all()
+    assert not np.array_equal(out.points[:, 1], init.points[:, 1])
+    weight = np.full((512,), 2.0, np.float32)
+    fixed = np.full((512, 2), -1, np.int32)
+    fixed[::5] = (3, 2)
     for flag in ("use_weights", "use_fixed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SOMTrainer(init, batch_size=B).fit(Dataset(points=X), **kw, **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        som.find_qerror(init, Dataset(points=X, mask=mask))
+        out = SOMTrainer(init, batch_size=B).fit(
+            Dataset(points=X, weight=weight, fixed=fixed), **kw, **{flag: True})
+        assert np.isfinite(out.points).all()
+    q = som.find_qerror(init, Dataset(points=X, mask=mask))
+    assert np.isfinite(q) and q > 0
     with pytest.raises(RuntimeError, match="stream exhausted"):
         SOMTrainer(init, batch_size=B).fit(_stream(X), rlen=4096, alpha=0.05,
                                            radius=3.0)
