@@ -1,40 +1,59 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (som_lvq_pak_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --profile    # the e2e cells under torch.profiler
 
-Needs one CUDA device and nvcc; exits non-zero without them.  Phases, each
-printing one JSON line:
+Needs one CUDA device and nvcc; exits non-zero without them.  With
+--profile it builds the kernels and runs each e2e cell of phases 4-10 once
+(after its warm-up) under torch.profiler, printing for its training and
+its evaluation one "profile" line: the wall, the device's busy time (the
+union of its kernel and copy intervals), the idle share, and the kernels
+that took longest.  Without arguments, phases, each printing one JSON
+line:
 
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
-            with kernel and plain times from CUDA events;
+            with kernel and plain times from CUDA events and the kernel's
+            bound (the least time the card could take: FP32 FLOPs at
+            67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger).  K7
+            (som_vmem_train_steps) runs at bench.py:prep_vmem_steps's
+            geometry (where it is also held against K chained K3 launches),
+            at bench.py:prep_somexample_shape's, at a ragged shape with
+            every code three times, and at e2e_64x64_1M's group shape;
 4. e2e_128x128_100k  SOMTrainer.fit on a stream, then find_qerror(fast),
             through the kernels and through the plain versions; qerror
             within 1% of the plain run and 2% of the JAX package's anchor;
-5. e2e_256x256_1M    the 1M x 64 run of bench.py:run_e2e_1m_65k, qerror
-            within 2% of the JAX package's anchor;
-6. som_batch_step_128x128  a few unmasked two-kernel steps through
+5. som_batch_step_128x128  a few unmasked two-kernel steps through
             models.fast.som_batch_step, against the plain run;
-7. e2e_masked_128x128_100k  phase 4's run with missing components in
+6. e2e_masked_128x128_100k  phase 4's run with missing components in
             every other chunk and weight= tokens (fused, re-seed and masked
             steps all run), then the masked qerror; within 1% of plain;
-8. e2e_masked_256x256_1M    the 1M run with every chunk masked (every step
+7. e2e_masked_64x64_100k  the grouped path: a 64x64 map on the 100k data
+            with every other 16384-row chunk masked and weight= tokens, so
+            clean groups (K1 + K7) alternate with dirty ones (K4 + K6 per
+            batch); then the masked qerror; within 1% of plain;
+8. e2e_256x256_1M    the 1M x 64 run of bench.py:run_e2e_1m_65k, qerror
+            within 2% of the JAX package's anchor;
+9. e2e_64x64_1M      the grouped path on the same 1M x 64 data: a 64x64
+            map, B 512, 1953 steps in 62 K7 launches, then K2's qerror;
+            also with vmem_steps=False (K3 per step) and through the plain
+            versions; within 1% of both, and below 0.8x random init;
+10. e2e_masked_256x256_1M  the 1M run with every chunk masked (every step
             is the masked two-kernel step), then one masked winner search
             over 1M x 65536; within 1% of plain, and below 0.8x the
             random-init codebook's qerror.
 
-Each main-path run (4-8) sets every launch counter to 0 before it and reads
-them after: each kernel of that path must have launched, and the plain runs
-must launch none.  Then one line with every kernel's record (launches
-summed over those runs), the nvidia-smi line, and last
+Each main-path run (4-10) sets every launch counter to 0 before it and
+reads them after: each kernel of that path must have launched, and the
+plain runs must launch none.  Then one line with every kernel's record
+(launches summed over those runs), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure ends the run non-zero first.
 
-Nothing here imports jax.  The host types (Dataset, Topology, CRandom) are
-the ones the port shares with the JAX package's jax-free data and utils
-modules, reached through the port.
+Nothing here imports jax or the JAX package: the host types (Dataset,
+Topology, CRandom) are the port's own.
 """
 
 from __future__ import annotations
@@ -50,6 +69,11 @@ import numpy as np
 # quality anchors of the JAX package on these runs (BENCH_r05.json)
 ANCHOR_128 = 7.7118
 ANCHOR_1M = 7.754
+
+# one H100 SXM's published peaks (NVIDIA's data sheet): FP32 outside the
+# tensor cores, and device memory bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
 
 
 def emit(phase: str, **kw) -> None:
@@ -76,6 +100,17 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for a kernel's work: FP32 FLOPs at
+    the FP32 peak or its bytes (each input read once, each output written
+    once) at the memory rate, whichever is larger.  No PyTorch call computes
+    any of these kernels' functions in one call, so library_ms is null."""
+    f_ms, b_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    return dict(bound_ms=max(f_ms, b_ms),
+                bound_by="operations" if f_ms >= b_ms else "bytes",
+                library_ms=None)
 
 
 def check_winners(name, x, codes, ik, ip, rel=1e-5, mask=None):
@@ -135,10 +170,15 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
         if not bool(empty.any()) or bool((ik[empty] != 0).any()) \
                 or bool((vk[empty] != 0).any()):
             raise AssertionError(f"{name}: a fully masked row did not get index 0, value 0")
+    # (B, D) samples and (N, D) codes in, (B,) value and index out; 2BND
+    # FLOPs, 4BND with the mask's keep.(m o m) contraction
+    masked = mask_p is not None
     rec = dict(kernel=name, shape=[B, N, D], dup=dup, mask_p=mask_p,
                winners_differ=n_diff, max_abs_err=float((vk - vp).abs().max()),
                ms=cuda_ms(lambda: kernel(*args), iters),
-               plain_ms=cuda_ms(lambda: plain(*args), iters))
+               plain_ms=cuda_ms(lambda: plain(*args), iters),
+               **bound((4 if masked else 2) * B * N * D,
+                       4 * (B * D + N * D) + masked * B * D + 8 * B))
     emit("kernels", **rec)
     return rec
 
@@ -167,10 +207,13 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed):
     if not torch.allclose(vk, vp, rtol=1e-4, atol=1e-3):
         raise AssertionError(f"{name}: winner values differ by {float((vk - vp).abs().max())}")
     work = codes.clone()
+    # update W.X and winners, 2 noc B D FLOPs each; codes read and written,
+    # both batches, bmu and alpha read, the next winners written
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius, winners_differ=n_diff,
                max_abs_err=float((ck - cp).abs().max()),
                ms=cuda_ms(lambda: kernel(work, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)),
-               plain_ms=cuda_ms(lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)))
+               plain_ms=cuda_ms(lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)),
+               **bound(4 * noc * B * D, 8 * noc * D + 8 * B * D + 16 * B))
     emit("kernels", **rec)
     return rec
 
@@ -203,10 +246,93 @@ def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     if not torch.allclose(ck, cp, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
     work = codes.clone()
+    # W.X (and W.K with a mask), 2 noc B D FLOPs each
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius,
                max_abs_err=float((ck - cp).abs().max()),
                ms=cuda_ms(lambda: run(kernel, work)),
-               plain_ms=cuda_ms(lambda: run(plain, work)))
+               plain_ms=cuda_ms(lambda: run(plain, work)),
+               **bound((4 if masked else 2) * noc * B * D,
+                       8 * noc * D + 4 * B * D + masked * B * D + 8 * B))
+    emit("kernels", **rec)
+    return rec
+
+
+def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
+               varied=False, dup=False, vs_k3=False):
+    """K7 against its plain version at one group shape: K steps of B samples,
+    next_first given.  Constant alpha and radius (bench.py's), or with
+    `varied` per-sample alphas and a decaying radius.  With `dup` every code
+    is there three times: run first with zero alphas, the rows stay equal
+    and the first copy must win.  With `vs_k3`, also against K chained K3
+    launches (largest codebook difference, and their time)."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
+    from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+    from som_lvq_pak_torch.ops.som_vmem import (som_vmem_train_steps,
+                                                som_vmem_train_steps_plain)
+
+    noc = xdim * ydim
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dup:
+        base = torch.randn((noc // 3, D), generator=g, device="cuda")
+        codes = torch.cat([base, base, base]).contiguous()
+    else:
+        codes = torch.randn((noc, D), generator=g, device="cuda")
+    xs = torch.randn((K, B, D), generator=g, device="cuda")
+    nf = torch.randn((B, D), generator=g, device="cuda")
+    bmu0 = dist_argmin_plain(xs[0], codes)[1]
+    if varied:
+        alphas = alpha * (0.5 + torch.rand((K, B), generator=g, device="cuda"))
+        radii = torch.linspace(radius, max(1.0, radius / 2), K, device="cuda")
+    else:
+        alphas = torch.full((K,), alpha, device="cuda")
+        radii = torch.full((K,), radius, device="cuda")
+    name = f"som_vmem_train_steps {xdim}x{ydim} {'hexa' if hexa else 'rect'} " \
+           f"{'gaussian' if gaussian else 'bubble'}"
+
+    def k7(fn, c, a=alphas):
+        return fn(c, xs, bmu0, a, radii, xdim, hexa, gaussian, next_first=nf)
+
+    if dup:
+        c0, i0 = k7(som_vmem_train_steps, codes.clone(), torch.zeros_like(alphas))
+        torch.cuda.synchronize()
+        if not torch.equal(c0, codes) or int(i0.max()) >= noc // 3:
+            raise AssertionError(f"{name}: with zero alphas the codebook moved or "
+                                 "a duplicate row beat its first copy")
+    ck, ik = k7(som_vmem_train_steps, codes.clone())
+    cp, ip = k7(som_vmem_train_steps_plain, codes.clone())
+    torch.cuda.synchronize()
+    if not torch.allclose(ck, cp, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
+    n_diff = check_winners(name, nf, ck, ik, ip)
+    rlist = radii.tolist()
+
+    def k3_chain(c):
+        bmu = bmu0
+        for t in range(K):
+            _, bmu, _ = som_fused_train_step(c, xs[t], bmu, xs[t + 1] if t + 1 < K else nf,
+                                             xdim, hexa, alphas[t], rlist[t], gaussian)
+        return c, bmu
+
+    rec = dict(kernel=name, shape=[noc, B, D, K], radius=radius, alpha=alpha,
+               varied=varied, dup=dup, winners_differ=n_diff,
+               max_abs_err=float((ck - cp).abs().max()))
+    if vs_k3:
+        c3, i3 = k3_chain(codes.clone())
+        torch.cuda.synchronize()
+        rec.update(max_abs_diff_vs_k3=float((ck - c3).abs().max()),
+                   winners_differ_vs_k3=int((ik != i3).sum()))
+    work = codes.clone()
+    # K steps of update W.X and winners, 2 noc B D FLOPs each; the codebook
+    # read and written once, the batches, next_first, alphas, radii and bmu0
+    # read, the next winners written
+    rec.update(ms=cuda_ms(lambda: k7(som_vmem_train_steps, work)),
+               plain_ms=cuda_ms(lambda: k7(som_vmem_train_steps_plain, work), 3),
+               **bound(4 * noc * B * D * K,
+                       8 * noc * D + 4 * (K + 1) * B * D + 4 * K * B + 4 * K + 8 * B))
+    if vs_k3:
+        rec["k3_chain_ms"] = cuda_ms(lambda: k3_chain(work))
     emit("kernels", **rec)
     return rec
 
@@ -226,10 +352,11 @@ def plain_kernels():
     kernels on exit."""
     from som_lvq_pak_torch.models import fast, som, trainer
     from som_lvq_pak_torch.ops import dist_argmin as da
-    from som_lvq_pak_torch.ops import som_step, som_update
+    from som_lvq_pak_torch.ops import som_step, som_update, som_vmem
 
     swaps = [(trainer, "dist_argmin", da.dist_argmin_plain),
              (trainer, "som_fused_train_step", som_step.som_fused_train_step_plain),
+             (trainer, "som_vmem_train_steps", som_vmem.som_vmem_train_steps_plain),
              (fast, "dist_argmin", da.dist_argmin_plain),
              (fast, "som_neighborhood_update_idx",
               som_update.som_neighborhood_update_idx_plain),
@@ -251,9 +378,11 @@ def counted():
     from som_lvq_pak_torch.ops.som_step import som_fused_train_step
     from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
                                                   som_neighborhood_update_idx_masked)
+    from som_lvq_pak_torch.ops.som_vmem import som_vmem_train_steps
 
     return (dist_argmin, dist_argmin_t, som_fused_train_step, dist_argmin_masked,
-            som_neighborhood_update_idx, som_neighborhood_update_idx_masked)
+            som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
+            som_vmem_train_steps)
 
 
 def main_path(name, run, kernels, plain_run=None):
@@ -291,12 +420,16 @@ def random_codes(X, map_dim, mask=None):
                     rng=crng)
 
 
-def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None):
+def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
+        around=None):
     """One streamed lap of SOMTrainer.fit, then find_qerror(fast) on a
     device-resident copy; returns (per-sample qerror, train_s, eval_s).
     With `mask`, chunks carry their slice of it (a Dataset drops an
     all-zero mask, so clean chunks have none) and the qerror is masked;
-    with `weight`, chunks carry weight= tokens and training uses them."""
+    with `weight`, chunks carry weight= tokens and training uses them.
+    `vmem_steps` goes to SOMTrainer (False: never the grouped path).
+    `around(part)`, if given, is a context manager entered around the timed
+    "train" and "eval" parts."""
     import torch
 
     from som_lvq_pak_torch.models.som import Dataset, find_qerror
@@ -318,22 +451,84 @@ def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None):
     mk_dev = None if mask is None else torch.from_numpy(mask).to("cuda")
     kw = dict(alpha=0.05, radius=radius, allow_short_stream=True,
               use_weights=weight is not None)
-    warm = SOMTrainer(codes, batch_size=bs, device="cuda")
+    warm = SOMTrainer(codes, batch_size=bs, device="cuda", vmem_steps=vmem_steps)
     find_qerror(warm.fit(stream(2 * bs), rlen=2 * bs, **kw), X_dev, mask=mk_dev)
     torch.cuda.synchronize()
 
-    tr = SOMTrainer(codes, batch_size=bs, device="cuda")
-    t0 = time.perf_counter()
-    out = tr.fit(stream(n), rlen=n, **kw)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    q = find_qerror(out, X_dev, mask=mk_dev) / n
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
+    around = around or (lambda part: contextlib.nullcontext())
+    tr = SOMTrainer(codes, batch_size=bs, device="cuda", vmem_steps=vmem_steps)
+    with around("train"):
+        t0 = time.perf_counter()
+        out = tr.fit(stream(n), rlen=n, **kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    with around("eval"):
+        t0 = time.perf_counter()
+        q = find_qerror(out, X_dev, mask=mk_dev) / n
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
     if not np.isfinite(out.points).all() or out.points.shape != (map_dim * map_dim, 64):
         raise AssertionError("trained codebook is not finite or has the wrong shape")
     return q, train_s, eval_s
+
+
+@contextlib.contextmanager
+def profiled(label: str):
+    """torch.profiler around a block that ends synchronised; emits its wall,
+    the device's busy time (the union of kernel and copy intervals), the
+    idle share and the five kernels with the most device time."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the device intervals, in microseconds
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+            name = name.split("(")[0]
+            tot, cnt = by_name.get(name, (0.0, 0))
+            by_name[name] = (tot + e.time_range.end - e.time_range.start, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    emit("profile", cell=label, wall_s=wall, device_busy_s=busy * 1e-6,
+         idle_share=1.0 - busy * 1e-6 / wall if wall > 0 else None,
+         top=[dict(kernel=k, device_s=t * 1e-6, launches=c) for k, (t, c) in top])
+
+
+def profile_cells() -> None:
+    """Every e2e cell of the main run once, its training and its evaluation
+    under torch.profiler (profiled walls run slower than plain ones)."""
+    X = blob_data(42, 100_000, 4)
+    Xm128, mask128, rng = masked_data(X, 43, 8192, every_other=True)
+    w128 = rng.uniform(0.5, 2.0, size=X.shape[0]).astype(np.float32)
+    Xm64, mask64, rng = masked_data(X, 43, 16384, every_other=True)
+    w64 = rng.uniform(0.5, 2.0, size=X.shape[0]).astype(np.float32)
+    cells = [("e2e_128x128_100k", (X, 128, 1024, 32, 8192), {}),
+             ("e2e_masked_128x128_100k", (Xm128, 128, 1024, 32, 8192),
+              dict(mask=mask128, weight=w128)),
+             ("e2e_masked_64x64_100k", (Xm64, 64, 512, 16, 16384),
+              dict(mask=mask64, weight=w64))]
+    for name, args, kw in cells:
+        e2e(*args, **kw, around=lambda part: profiled(f"{name} {part}"))
+    X = blob_data(7, 1_000_000, 16)
+    Xm, mask, _ = masked_data(X, 8, 16384, every_other=False)
+    cells = [("e2e_256x256_1M", (X, 256, 4096, 64, 16384), {}),
+             ("e2e_64x64_1M", (X, 64, 512, 16, 16384), {}),
+             ("e2e_64x64_1M_stepwise", (X, 64, 512, 16, 16384), dict(vmem_steps=False)),
+             ("e2e_masked_256x256_1M", (Xm, 256, 4096, 64, 16384), dict(mask=mask))]
+    for name, args, kw in cells:
+        e2e(*args, **kw, around=lambda part: profiled(f"{name} {part}"))
 
 
 def masked_data(X, seed, chunk, every_other):
@@ -375,6 +570,9 @@ def som_batch_steps(X, map_dim, bs, steps):
 def main() -> int:
     import torch
 
+    if sys.argv[1:] not in ([], ["--profile"]):
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "kernels need a CUDA device", file=sys.stderr)
@@ -403,6 +601,10 @@ def main() -> int:
     _build.build(verbose=True)  # ptxas register/shared-memory report on stdout
     _build.library()
     emit("build", seconds=time.perf_counter() - t0, library=_build.library_path())
+    if sys.argv[1:] == ["--profile"]:
+        profile_cells()
+        print(smi)
+        return 0
 
     # ---- kernels against their plain versions ----------------------------
     # each kernel's record is taken at its main-path shape (rs[0]), with the
@@ -438,6 +640,21 @@ def main() -> int:
         masked = k is som_neighborhood_update_idx_masked
         rs = [phase_update(k, p, *case, seed=6, masked=masked) for case in update_cases]
         recs[k.__name__] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    # K7: e2e_64x64_1M's group shape first (its record), then
+    # bench.py:prep_vmem_steps, bench.py:prep_somexample_shape, and a ragged
+    # shape (99 rows, D 37) with every code three times.  At radius 16 the
+    # first keeps alpha small enough that no unit's weight mass reaches 1:
+    # saturated units blend to nearly equal rows, whose near-tie winners the
+    # kernel's and the plain version's summation orders decide differently,
+    # and such flips compound over 32 steps
+    rs = [phase_vmem(64, 64, True, True, 64, 512, 32, 16.0, 0.001, seed=7, varied=True,
+                     vs_k3=True),
+          phase_vmem(64, 64, True, True, 128, 512, 32, 3.0, 0.02, seed=5, vs_k3=True),
+          phase_vmem(12, 8, True, False, 5, 128, 64, 3.0, 0.02, seed=6),
+          phase_vmem(11, 9, False, True, 37, 100, 9, 2.5, 0.05, seed=8, varied=True,
+                     dup=True)]
+    recs["som_vmem_train_steps"] = dict(rs[0], max_abs_err=max(r["max_abs_err"]
+                                                               for r in rs))
 
     launches = {name: 0 for name in recs}
 
@@ -492,6 +709,24 @@ def main() -> int:
          plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
          launches=got)
 
+    # ---- masked e2e 64x64, 100k x 64: grouped, clean and dirty groups ----
+    # 16384-row chunks are 32 batches of 512: one group each, masked groups
+    # (every step K4 + K6) alternating with clean ones (K1 + one K7 launch)
+    Xm, mask, rng = masked_data(X, 43, 16384, every_other=True)
+    weight = rng.uniform(0.5, 2.0, size=X.shape[0]).astype(np.float32)
+    (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
+        "e2e_masked_64x64_100k",
+        lambda: e2e(Xm, 64, 512, 16, 16384, mask=mask, weight=weight),
+        ("dist_argmin", "som_vmem_train_steps", "dist_argmin_masked",
+         "som_neighborhood_update_idx_masked"),
+        lambda: e2e(Xm, 64, 512, 16, 16384, mask=mask, weight=weight))
+    tally(got)
+    check_e2e("e2e masked 64", q, q_plain)
+    emit("e2e_masked_64x64_100k", card=smi, qerror_per_sample=q,
+         train_s=train_s, qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
+         plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
+         launches=got)
+
     # ---- e2e 256x256, 1M x 64 (bench.py:run_e2e_1m_65k) ------------------
     X = blob_data(7, 1_000_000, 16)
     (q, train_s, eval_s), _, got = main_path(
@@ -502,6 +737,29 @@ def main() -> int:
         raise AssertionError(f"e2e 1M: qerror {q} vs JAX anchor {ANCHOR_1M} (> 2%)")
     emit("e2e_256x256_1M", card=smi, qerror_per_sample=q, train_s=train_s,
          qerror_eval_s=eval_s, launches=got)
+
+    # ---- e2e 64x64, 1M x 64: the grouped path, 62 K7 launches -----------
+    (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
+        "e2e_64x64_1M", lambda: e2e(X, 64, 512, 16, 16384),
+        ("dist_argmin", "dist_argmin_t", "som_vmem_train_steps"),
+        lambda: e2e(X, 64, 512, 16, 16384))
+    tally(got)
+    (q_step, train_step_s, eval_step_s), _, got_step = main_path(
+        "e2e_64x64_1M_stepwise", lambda: e2e(X, 64, 512, 16, 16384, vmem_steps=False),
+        ("dist_argmin", "dist_argmin_t", "som_fused_train_step"))
+    tally(got_step)
+    check_e2e("e2e 64 1M", q, q_plain)
+    check_e2e("e2e 64 1M vs K3 per step", q, q_step)
+    q_init = find_qerror(random_codes(X, 64), torch.from_numpy(X).to("cuda")) / X.shape[0]
+    if not q < 0.8 * q_init:
+        raise AssertionError(f"e2e 64 1M: qerror {q} not below 0.8 x the "
+                             f"random-init {q_init}")
+    emit("e2e_64x64_1M", card=smi, qerror_per_sample=q, train_s=train_s,
+         qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
+         plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
+         stepwise_qerror_per_sample=q_step, stepwise_train_s=train_step_s,
+         stepwise_qerror_eval_s=eval_step_s, random_init_qerror_per_sample=q_init,
+         launches=got, stepwise_launches=got_step)
 
     # ---- masked e2e 256x256, 1M x 64: every step masked ------------------
     Xm, mask, _ = masked_data(X, 8, 16384, every_other=False)
@@ -535,7 +793,9 @@ def main() -> int:
         "som_neighborhood_update_idx": ("som_lvq_pak_torch/csrc/som_update.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:116"),
         "som_neighborhood_update_idx_masked": ("som_lvq_pak_torch/csrc/som_update.cu",
-                                               "som_lvq_pak_tpu/ops/pallas_som.py:152")}
+                                               "som_lvq_pak_tpu/ops/pallas_som.py:152"),
+        "som_vmem_train_steps": ("som_lvq_pak_torch/csrc/som_vmem_steps.cu",
+                                 "som_lvq_pak_tpu/ops/pallas_som.py:1449")}
     idle = [name for name in sources if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
@@ -543,7 +803,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          "max_abs_err": recs[name]["max_abs_err"], "ms": recs[name]["ms"],
-         "plain_ms": recs[name]["plain_ms"], "shape": recs[name]["shape"]}
+         "plain_ms": recs[name]["plain_ms"], "bound_ms": recs[name]["bound_ms"],
+         "bound_by": recs[name]["bound_by"], "library_ms": recs[name]["library_ms"],
+         "shape": recs[name]["shape"]}
         for name in sources]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

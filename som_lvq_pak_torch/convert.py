@@ -1,14 +1,17 @@
-"""Host `Dataset`s (shared with the JAX package) and device tensors.
+"""Host `Dataset`s and device tensors.
 
-    codes, meta = codebook_to_torch(ds, device)   # (noc, D) float32 tensor
+    codes, meta = codebook_to_torch(ds)           # (noc, D) float32, on CUDA
     ds2 = to_dataset(codes, meta)                 # back to a host Dataset
-    x, mask, weight, fixed = samples_to_torch(ds, device, xdim,
+    x, mask, weight, fixed = samples_to_torch(ds, "cuda", xdim,
                                               use_weights, use_fixed)
+    ds3 = as_port_dataset(other)                  # any Dataset-like object
 
-`meta` is the Dataset with its points emptied: it carries the header
-(topology, neighbourhood, xdim, ydim), labels, masks and comments.  The
-port's checkpoints are the JAX package's `Checkpointer`/`TrainState`
-files, so codebooks cross between the packages through either route.
+The device is CUDA unless the caller names another ("cpu" runs the plain
+versions).  `meta` is the Dataset with its points emptied: it carries the
+header (topology, neighbourhood, xdim, ydim), labels, masks and comments.
+The port's checkpoints have the JAX package's `Checkpointer`/`TrainState`
+file format, so codebooks cross between the packages through files, and
+in memory through `as_port_dataset`.
 
 A data set's per-sample extras travel as: mask (N, D) uint8, nonzero =
 masked; weight (N,) float32, the `weight=` token (0.0 = no token); fixed
@@ -25,10 +28,43 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from som_lvq_pak_tpu.data.dataset import Dataset
+from .data.dataset import Dataset, Neighborhood, Topology
+from .data.labels import GLOBAL_LABELS, LabelTable
 
 
-def codebook_to_torch(ds: Dataset, device: torch.device | str = "cpu"
+def as_port_dataset(ds, labels: Optional[LabelTable] = None,
+                    source_labels=None) -> Dataset:
+    """The port's Dataset with the fields of `ds`, any object that has the
+    Dataset's fields (NumPy arrays, int topology and neighbourhood ids,
+    int32 label ids), such as the JAX package's Dataset.  Label ids are
+    carried across as strings: each nonzero id is named by
+    `source_labels.to_label(id)` (the source's label table) and interned
+    again in `labels` (the port's global table by default).  Arrays are
+    copied, never shared."""
+    lab = None
+    if ds.labels is not None:
+        ids = np.asarray(ds.labels, np.int32)
+        if ids.any() and source_labels is None:
+            raise ValueError("the data set has label ids: pass its label "
+                             "table as source_labels")
+        table = labels if labels is not None else GLOBAL_LABELS
+        # ascending source ids intern in the source's first-seen order
+        lut = np.zeros(int(ids.max(initial=0)) + 1, np.int32)
+        for i in np.unique(ids[ids != 0]):
+            lut[i] = table.to_index(source_labels.to_label(int(i)))
+        lab = lut[ids]
+
+    def copy(a, dtype):
+        return None if a is None else np.array(a, dtype=dtype, copy=True)
+
+    return Dataset(points=copy(ds.points, np.float32), mask=copy(ds.mask, np.uint8),
+                   labels=lab, weight=copy(ds.weight, np.float32),
+                   fixed=copy(ds.fixed, np.int32), topol=Topology(int(ds.topol)),
+                   neigh=Neighborhood(int(ds.neigh)), xdim=int(ds.xdim),
+                   ydim=int(ds.ydim), comments=list(ds.comments))
+
+
+def codebook_to_torch(ds: Dataset, device: torch.device | str = "cuda"
                       ) -> Tuple[torch.Tensor, Dataset]:
     """(codes, meta): a float32 (noc, D) copy of `ds.points` on `device`
     (never sharing the host array, since trainers update it in place)."""
@@ -73,7 +109,7 @@ def sample_arrays(ds: Dataset, xdim: int = 0, use_weights: bool = False,
             fixed)
 
 
-def samples_to_torch(ds: Dataset, device: torch.device | str = "cpu",
+def samples_to_torch(ds: Dataset, device: torch.device | str = "cuda",
                      xdim: int = 0, use_weights: bool = False,
                      use_fixed: bool = False
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],

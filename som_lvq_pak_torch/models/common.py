@@ -1,16 +1,16 @@
 """Learning-rate and radius schedules (host NumPy).
 
-A copy of som_lvq_pak_tpu/models/common.py:24-56: that module's package
-`__init__` imports JAX, which the port must not need.  Tests hold both
-copies bit-equal.  Schedules keep the C package's expression structure
-(alpha functions lvq_pak.c:901-921, radius decay som_rout.c:615).
+A copy of som_lvq_pak_tpu/models/common.py:24-56 (the port imports
+nothing of the JAX package); tests hold both copies bit-equal.  Schedules
+keep the C package's expression structure (alpha functions
+lvq_pak.c:901-921, radius decay som_rout.c:615).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from som_lvq_pak_tpu.config import INV_ALPHA_CONSTANT
+from ..config import INV_ALPHA_CONSTANT
 
 F32 = np.float32
 

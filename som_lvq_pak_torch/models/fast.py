@@ -18,7 +18,7 @@ from ..ops.som_update import som_neighborhood_update_idx
 
 
 def unit_coords(xdim: int, ydim: int, hexa: bool,
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str = "cuda") -> torch.Tensor:
     """(noc, 2) float32 effective grid coordinates: hexa odd rows at
     x + 0.5, y scaled by sqrt(0.75) (som_rout.c:434-455)."""
     idx = torch.arange(xdim * ydim, dtype=torch.int64, device=device)

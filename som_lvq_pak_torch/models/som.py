@@ -1,10 +1,10 @@
 """Self-organizing map: random initialisation and the fast quantization
 error — counterparts of som_lvq_pak_tpu/models/som.py.
 
-`randinit` is a copy of som_lvq_pak_tpu/models/som.py:39-72 (that module
-cannot be imported without JAX); tests hold the two bit-equal.  The host
-types it takes (Dataset, Topology, Neighborhood, CRandom) are the JAX
-package's jax-free ones, re-exported here for callers of the port.
+`randinit` is a copy of som_lvq_pak_tpu/models/som.py:39-72; tests hold
+the two bit-equal.  The host types it takes (Dataset, Topology,
+Neighborhood, CRandom) are the port's own (data/, utils/), re-exported here
+for callers.
 """
 
 from __future__ import annotations
@@ -14,12 +14,11 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
-from som_lvq_pak_tpu.utils.rng import CRandom
-
 from ..convert import codebook_to_torch, samples_to_torch
+from ..data.dataset import Dataset, Neighborhood, Topology
 from ..ops.dist_argmin import dist_argmin, dist_argmin_t
 from ..ops.distance import keep_of
+from ..utils.rng import CRandom
 
 __all__ = ["CRandom", "Dataset", "Neighborhood", "Topology", "find_qerror",
            "randinit"]
@@ -67,7 +66,8 @@ def randinit(
 
 def find_qerror(codes: Union[Dataset, torch.Tensor],
                 data: Union[Dataset, torch.Tensor], mode: str = "fast",
-                mask: Optional[torch.Tensor] = None) -> float:
+                mask: Optional[torch.Tensor] = None,
+                device: Union[torch.device, str] = "cuda") -> float:
     """Total quantization error, sum over samples of the distance to the
     winner (find_qerror, som_rout.c:678-731); divide by N for the
     per-sample figure.
@@ -83,14 +83,15 @@ def find_qerror(codes: Union[Dataset, torch.Tensor],
     `codes` and `data` are host Datasets or tensors.  A Dataset's mask is
     its own; `mask` (N, D), nonzero = masked, goes with a `data` tensor.
     Tensors stay where they are (keep evaluation data resident as a
-    tensor); a Dataset is copied to the other argument's device (the CPU
-    when both are Datasets)."""
+    tensor); a Dataset is copied to the other argument's device, or to
+    `device` when both are Datasets ("cuda" unless the caller asks for
+    "cpu"; without a GPU that raises)."""
     if mode != "fast":
         raise NotImplementedError(
             "find_qerror(mode='parity') is the host path of "
             "som_lvq_pak_tpu.models.som; the port has mode='fast' only")
     tensors = [t for t in (codes, data) if isinstance(t, torch.Tensor)]
-    device = tensors[0].device if tensors else "cpu"
+    device = tensors[0].device if tensors else device
     if isinstance(data, Dataset):
         if mask is not None:
             raise ValueError("mask= goes with a data tensor; a Dataset "

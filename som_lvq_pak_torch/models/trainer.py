@@ -1,16 +1,26 @@
 """Minibatch SOM training on one device — the counterpart of
 som_lvq_pak_tpu/models/trainer.py:SOMTrainer (single device).
 
-Clean batches run one fused kernel per step (ops.som_step.som_fused_train_step):
-batch t's neighbourhood update and batch t+1's winners against the updated
-codebook, in one pass over the codebook.  A `dist_argmin` prologue finds the
-first clean batch's winners.  A batch with masked components runs the
-two-kernel step (models.fast.som_batch_step: masked `dist_argmin`, then the
-masked neighbourhood update), and the next clean batch's winners are found
-again against the updated codebook.  A Dataset with a mask runs the
-two-kernel step for every batch; a stream decides per batch, on the host
-copy of its mask.  The codebook stays resident on the device and is updated
-in place.
+Small maps train in groups of GK = 32 batches, one K7 launch per group
+(ops.som_vmem.som_vmem_train_steps: the codebook stays on chip for the
+whole group), when `use_grouped_steps` says so: the JAX package's
+selection predicate, sizes included, so both packages take the grouped
+path for the same configurations.  A K1 `dist_argmin` finds the first
+group's winners; each group hands the next the winners of its first batch
+(`next_first`).  A group with any masked or fixed= batch runs every batch
+through the two-kernel step (models.fast.som_batch_step) instead, and the
+next clean group finds its winners again.
+
+Otherwise clean batches run one fused kernel per step
+(ops.som_step.som_fused_train_step): batch t's neighbourhood update and
+batch t+1's winners against the updated codebook, in one pass over the
+codebook.  A `dist_argmin` prologue finds the first clean batch's winners.
+A batch with masked components runs the two-kernel step (masked
+`dist_argmin`, then the masked neighbourhood update), and the next clean
+batch's winners are found again against the updated codebook.  A Dataset
+with a mask runs the two-kernel step for every batch; a stream decides per
+batch, on the host copy of its mask.  The codebook stays resident on the
+device and is updated in place.
 
 `use_weights` honours `weight=` tokens (per-sample alpha 1 - (1 - a)^w) and
 `use_fixed` honours `fixed=` tokens (the sample's winner is its fixed unit),
@@ -18,12 +28,10 @@ as som_rout.c:612-632 does.
 
 Inputs are a Dataset (per-lap shuffled order) or an iterable of chunk
 Datasets (e.g. StreamingReader.chunks(laps=None)), with interval
-checkpoints in the JAX package's Checkpointer format and resume.
+checkpoints in the JAX package's checkpoint file format and resume.
 
 Not ported yet: meshes and bf16 streaming (`mesh=`, `stream_bf16=True`
-raise NotImplementedError naming their ROADMAP items), and the VMEM
-multi-step group path the JAX package picks for small codebooks (ROADMAP
-B7; K3 runs each step instead).
+raise NotImplementedError naming their ROADMAP items).
 """
 
 from __future__ import annotations
@@ -34,13 +42,13 @@ from typing import Iterable, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
-from som_lvq_pak_tpu.utils.checkpoint import Checkpointer, TrainState
-from som_lvq_pak_tpu.utils.progress import StepTimer
-
 from ..convert import codebook_to_torch, sample_arrays, samples_to_torch, to_dataset
+from ..data.dataset import Dataset, Neighborhood, Topology
 from ..ops.dist_argmin import dist_argmin
 from ..ops.som_step import som_fused_train_step
+from ..ops.som_vmem import som_vmem_train_steps
+from ..utils.checkpoint import Checkpointer, TrainState
+from ..utils.progress import StepTimer
 from .common import alpha_schedule, radius_schedule
 from .fast import effective_alpha, som_batch_step
 
@@ -48,10 +56,37 @@ from .fast import effective_alpha, som_batch_step
 Batch = Tuple[int, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
               Optional[torch.Tensor]]
 
+GK = 32  # batches per group on the grouped path
+
+
+def use_grouped_steps(noc: int, dim: int, batch_size: int, data,
+                      use_fixed: bool = False,
+                      vmem_steps: Optional[bool] = None) -> bool:
+    """Whether `SOMTrainer.fit` trains in groups of GK batches (one K7
+    launch each): the predicate of som_lvq_pak_tpu/models/trainer.py:464-478
+    as written, with its TPU sizes (D padded to Dp = 128-multiple, a 4 MB
+    codebook, a 14 MB working set), so the same configurations take the
+    grouped path in both packages.  Never for a masked Dataset (every batch
+    is masked, :370-373), nor with use_fixed on a Dataset that has fixed=
+    tokens; vmem_steps=False turns it off."""
+    if vmem_steps is False:
+        return False
+    if isinstance(data, Dataset) and data.mask is not None:
+        return False
+    dp = -(-dim // 128) * 128
+    row_chunk = next((rc for rc in (512, 256, 128, 64, noc)
+                      if noc % rc == 0 and rc <= noc), None)
+    return (noc * dp * 4 <= (4 << 20)
+            and row_chunk is not None
+            and (2 * noc * dp * 4 + 2 * batch_size * dp * 4
+                 + 3 * row_chunk * batch_size * 4) <= (14 << 20)
+            and not (use_fixed and getattr(data, "fixed", None) is not None))
+
 
 class SOMTrainer:
-    """Minibatch SOM training at device speed on `device` ("cpu" runs the
-    kernels' plain versions; "cuda" runs the CUDA kernels)."""
+    """Minibatch SOM training at device speed on `device`: "cuda" (the
+    default) runs the CUDA kernels, "cpu" their plain versions.  Without a
+    GPU the default raises; it never falls back to the CPU."""
 
     def __init__(
         self,
@@ -61,10 +96,13 @@ class SOMTrainer:
         checkpoint_dir: Optional[str] = None,
         checkpoint_interval: int = 0,
         seed: int = 0,
-        device: Union[torch.device, str] = "cpu",
+        device: Union[torch.device, str] = "cuda",
         stream_bf16: bool = False,
+        vmem_steps: Optional[bool] = None,
     ):
-        """`seed` fixes the per-lap shuffle of Dataset input."""
+        """`seed` fixes the per-lap shuffle of Dataset input.  `vmem_steps`:
+        None picks the grouped path when `use_grouped_steps` allows it,
+        False never takes it (True acts as None, as in the JAX package)."""
         if not codes.is_map:
             raise ValueError("SOMTrainer needs a map codebook")
         if mesh is not None:
@@ -78,6 +116,7 @@ class SOMTrainer:
         self.batch_size = batch_size
         self.seed = seed
         self.device = torch.device(device)
+        self.vmem_steps = vmem_steps
         self.gaussian = codes.neigh == Neighborhood.GAUSSIAN
         self.hexa = codes.topol == Topology.HEXA
         self.ckpt = None
@@ -145,6 +184,24 @@ class SOMTrainer:
                     codes=M.cpu().numpy(), step=b + 1,
                     extra={"alpha": float(alpha), "radius": float(radius)}))
 
+        train = (self._train_groups
+                 if use_grouped_steps(*M.shape, bs, data, use_fixed,
+                                      self.vmem_steps)
+                 else self._train_steps)
+        train(M, batches, talp, trad, xdim, progress, maybe_ckpt)
+
+        if self.ckpt is not None:
+            self.ckpt.save(TrainState(codes=M.cpu().numpy(), step=nb))
+            self.ckpt.wait()
+        self.meta = replace(to_dataset(M, meta), comments=[])
+        return self.meta
+
+    # -- training loops --------------------------------------------------
+
+    def _train_steps(self, M, batches, talp, trad, xdim, progress, maybe_ckpt):
+        """One kernel step per batch: K3 for clean batches, the two-kernel
+        step for masked ones."""
+        bs = self.batch_size
         # bmu: the winners of `prev` when it is a clean batch, found by the
         # previous fused step; None before the first clean batch and after
         # a two-kernel step, whose updated codebook they are found against
@@ -173,11 +230,48 @@ class SOMTrainer:
             maybe_ckpt(b)
             prev = nxt
 
-        if self.ckpt is not None:
-            self.ckpt.save(TrainState(codes=M.cpu().numpy(), step=nb))
-            self.ckpt.wait()
-        self.meta = replace(to_dataset(M, meta), comments=[])
-        return self.meta
+    def _train_groups(self, M, batches, talp, trad, xdim, progress, maybe_ckpt):
+        """GK batches per K7 launch (som_lvq_pak_tpu/models/trainer.py:
+        482-543).  A dirty group (a batch with a mask or fixed= samples;
+        streams carry those slices only where the batch has them) runs every
+        batch through the two-kernel step, and the next clean group finds
+        its winners again with K1; interval checkpoints are taken at group
+        boundaries."""
+        bs, dev = self.batch_size, M.device
+        bmu = None
+        group = []
+        nxt = next(batches, None)
+        while nxt is not None:
+            group.append(nxt)
+            nxt = next(batches, None)
+            if len(group) < GK and nxt is not None:
+                continue
+            if any(g[2] is not None or g[4] is not None for g in group):
+                for b, xb, mk, wt, ff in group:
+                    som_batch_step(M, xb, xdim, self.hexa, float(talp[b]),
+                                   float(trad[b]), self.gaussian, mask=mk,
+                                   weights=wt, fixed_bmu=ff)
+                    if progress is not None:
+                        progress.step(bs)
+                bmu = None
+            else:
+                if bmu is None:
+                    bmu = dist_argmin(group[0][1], M)[1]
+                idx = [g[0] for g in group]
+                if all(g[3] is None for g in group):
+                    alphas = torch.from_numpy(talp[idx]).to(dev)
+                else:
+                    alphas = torch.stack([
+                        effective_alpha(float(talp[b]), bs, dev, wt)
+                        for b, _, _, wt, _ in group])
+                _, bmu = som_vmem_train_steps(
+                    M, torch.stack([g[1] for g in group]), bmu, alphas,
+                    torch.from_numpy(trad[idx]).to(dev), xdim, self.hexa,
+                    self.gaussian, next_first=None if nxt is None else nxt[1])
+                if progress is not None:
+                    progress.step(bs * len(group))
+            maybe_ckpt(group[-1][0])
+            group = []
 
     # -- batch sources ---------------------------------------------------
 

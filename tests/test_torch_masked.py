@@ -21,12 +21,15 @@ import torch
 
 from som_lvq_pak_tpu.data import read_data
 from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
+from som_lvq_pak_tpu.data.labels import GLOBAL_LABELS as JAX_LABELS
 from som_lvq_pak_tpu.models import fast as jfast
 from som_lvq_pak_tpu.models import som as jsom
 from som_lvq_pak_tpu.models.trainer import SOMTrainer as JaxSOMTrainer
 from som_lvq_pak_tpu.ops import pallas_distance as jpd
 from som_lvq_pak_tpu.ops import pallas_som as jps
 from som_lvq_pak_tpu.utils.rng import CRandom
+from som_lvq_pak_torch.convert import as_port_dataset
+from som_lvq_pak_torch.data.dataset import Dataset as PDataset
 from som_lvq_pak_torch.models import fast, som
 from som_lvq_pak_torch.models.trainer import SOMTrainer
 from som_lvq_pak_torch.ops.dist_argmin import dist_argmin
@@ -36,6 +39,11 @@ from som_lvq_pak_torch.ops.som_update import som_neighborhood_update_idx
 TOL = 1e-5
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 T = torch.from_numpy
+
+
+def P(ds):
+    """A JAX package Dataset carried to the port (labels by name)."""
+    return as_port_dataset(ds, source_labels=JAX_LABELS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -202,11 +210,12 @@ def _blobs(n=1024, dim=8, seed=3):
             + rng.normal(0, 1.0, size=(n, dim)).astype(np.float32))
 
 
-def _masked_stream(X, mask, masked_chunks, chunk=128):
+def _masked_stream(X, mask, masked_chunks, chunk=128, cls=Dataset):
+    """Chunks as the JAX package's Datasets, or the port's (cls=PDataset)."""
     for k, lo in enumerate(range(0, X.shape[0], chunk)):
         sl = slice(lo, lo + chunk)
-        yield Dataset(points=np.where(mask[sl] != 0, 0.0, X[sl]),
-                      mask=mask[sl] if k in masked_chunks else None)
+        yield cls(points=np.where(mask[sl] != 0, 0.0, X[sl]),
+                  mask=mask[sl] if k in masked_chunks else None)
 
 
 def _stream_case():
@@ -215,8 +224,8 @@ def _stream_case():
     mask = (rng.random(X.shape) < 0.1).astype(np.uint8)
     mask[:, 2] = 1          # component 2 masked everywhere it is masked
     mask[::97] = 1          # and a few rows with nothing left
-    init = som.randinit(Dataset(points=X), Topology.HEXA, Neighborhood.GAUSSIAN,
-                        6, 6, CRandom(9))
+    init = jsom.randinit(Dataset(points=X), Topology.HEXA, Neighborhood.GAUSSIAN,
+                         6, 6, CRandom(9))
     return X, mask, init
 
 
@@ -230,7 +239,8 @@ def test_stream_fit_masked_chunks_match_jax():
     chunks = {1, 4, 5}
     ref = JaxSOMTrainer(init, batch_size=128, use_pallas=True, vmem_steps=False
                         ).fit(_masked_stream(X, mask, chunks), **kw)
-    out = SOMTrainer(init, batch_size=128).fit(_masked_stream(X, mask, chunks), **kw)
+    out = SOMTrainer(P(init), batch_size=128, device="cpu", vmem_steps=False).fit(
+        _masked_stream(X, mask, chunks, cls=PDataset), **kw)
     np.testing.assert_allclose(out.points, ref.points, rtol=2e-2, atol=2e-2)
 
 
@@ -245,18 +255,23 @@ def test_resume_masked_run_from_jax_checkpoint(tmp_path):
     full = JaxSOMTrainer(init, batch_size=128, checkpoint_dir=d,
                          checkpoint_interval=2, use_pallas=True,
                          vmem_steps=False).fit(_masked_stream(X, mask, chunks), **kw)
-    tr = SOMTrainer(init, batch_size=128, checkpoint_dir=d)
+    tr = SOMTrainer(P(init), batch_size=128, checkpoint_dir=d, device="cpu",
+                    vmem_steps=False)
     for s in tr.ckpt.steps():
         if s > 4:
             os.remove(os.path.join(tr.ckpt.directory, f"step_{s}.npz"))
     assert tr.ckpt.latest_step() == 4
-    resumed = tr.fit(_masked_stream(X, mask, chunks), **kw)
+    resumed = tr.fit(_masked_stream(X, mask, chunks, cls=PDataset), **kw)
     np.testing.assert_allclose(resumed.points, full.points, rtol=2e-2, atol=2e-2)
     assert tr.ckpt.latest_step() == 8
 
 
 def _q(codes, data):
-    return jsom.find_qerror(codes, data, mode="fast") / data.n
+    """The JAX package's per-sample fast qerror of either package's codebook."""
+    jcodes = Dataset(points=codes.points, topol=Topology(int(codes.topol)),
+                     neigh=Neighborhood(int(codes.neigh)), xdim=codes.xdim,
+                     ydim=codes.ydim)
+    return jsom.find_qerror(jcodes, data, mode="fast") / data.n
 
 
 def test_dataset_fit_masked_weighted_quality_matches_jax():
@@ -268,7 +283,8 @@ def test_dataset_fit_masked_weighted_quality_matches_jax():
     kw = dict(rlen=600, alpha=0.05, radius=4.0, use_weights=True)
     ref = JaxSOMTrainer(codes, batch_size=16, use_pallas=True, vmem_steps=False,
                         seed=3).fit(data, **kw)
-    out = SOMTrainer(codes, batch_size=16, seed=3).fit(data, **kw)
+    out = SOMTrainer(P(codes), batch_size=16, seed=3, device="cpu",
+                     vmem_steps=False).fit(P(data), **kw)
     assert np.isfinite(out.points).all()
     q_ref = _q(ref, data)
     assert abs(_q(out, data) - q_ref) < 0.05 * q_ref
@@ -283,7 +299,8 @@ def test_dataset_fit_fixed_quality_matches_jax():
     kw = dict(rlen=800, alpha=0.1, radius=2.0, use_fixed=True)
     ref = JaxSOMTrainer(codes, batch_size=16, use_pallas=True, vmem_steps=False,
                         seed=2).fit(data, **kw)
-    out = SOMTrainer(codes, batch_size=16, seed=2).fit(data, **kw)
+    out = SOMTrainer(P(codes), batch_size=16, seed=2, device="cpu",
+                     vmem_steps=False).fit(P(data), **kw)
     q_ref = _q(ref, data)
     assert abs(_q(out, data) - q_ref) < 0.05 * q_ref
 
@@ -293,8 +310,8 @@ def test_masked_find_qerror_matches_jax():
     X = np.where(mask != 0, 0.0, X).astype(np.float32)
     data = Dataset(points=X, mask=mask)
     want = jsom.find_qerror(init, data, mode="fast")
-    for got in (som.find_qerror(init, data),
+    for got in (som.find_qerror(P(init), P(data), device="cpu"),
                 som.find_qerror(T(init.points.copy()), T(X), mask=T(mask))):
         assert abs(got - want) <= 1e-4 * want, (got, want)
     with pytest.raises(ValueError, match="mask"):
-        som.find_qerror(init, data, mask=T(mask))
+        som.find_qerror(P(init), P(data), mask=T(mask), device="cpu")

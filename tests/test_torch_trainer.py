@@ -14,13 +14,21 @@ import pytest
 import torch
 
 from som_lvq_pak_tpu.data.dataset import Dataset, Neighborhood, Topology
+from som_lvq_pak_tpu.data.labels import GLOBAL_LABELS as JAX_LABELS
 from som_lvq_pak_tpu.models import som as jsom
 from som_lvq_pak_tpu.models.trainer import SOMTrainer as JaxSOMTrainer
 from som_lvq_pak_tpu.utils.rng import CRandom
+from som_lvq_pak_torch.convert import as_port_dataset
+from som_lvq_pak_torch.data.dataset import Dataset as PDataset
 from som_lvq_pak_torch.models import som
 from som_lvq_pak_torch.models.trainer import SOMTrainer
 
 B = 128
+
+
+def P(ds):
+    """A JAX package Dataset carried to the port (labels by name)."""
+    return as_port_dataset(ds, source_labels=JAX_LABELS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,17 +52,23 @@ def _blobs(n=1024, dim=8, seed=3):
             + rng.normal(0, 1.0, size=(n, dim)).astype(np.float32))
 
 
-def _stream(X, chunk=256):
+def _stream(X, chunk=256, cls=Dataset):
+    """Chunks as the JAX package's Datasets, or the port's (cls=PDataset)."""
     for lo in range(0, X.shape[0], chunk):
-        yield Dataset(points=X[lo:lo + chunk])
+        yield cls(points=X[lo:lo + chunk])
 
 
 def _init(X, xdim, ydim, topol, neigh):
-    return som.randinit(Dataset(points=X), topol, neigh, xdim, ydim, CRandom(123))
+    """A JAX package codebook; P(...) carries it to the port."""
+    return jsom.randinit(Dataset(points=X), topol, neigh, xdim, ydim, CRandom(123))
 
 
 def _jax_q(codes, X):
-    return jsom.find_qerror(codes, Dataset(points=X), mode="fast") / X.shape[0]
+    """The JAX package's per-sample fast qerror of either package's codebook."""
+    jcodes = Dataset(points=codes.points, topol=Topology(int(codes.topol)),
+                     neigh=Neighborhood(int(codes.neigh)), xdim=codes.xdim,
+                     ydim=codes.ydim)
+    return jsom.find_qerror(jcodes, Dataset(points=X), mode="fast") / X.shape[0]
 
 
 # 8x6 hexa takes the JAX package's plain fused kernel (48 rows pad to a
@@ -75,8 +89,8 @@ def test_stream_fit_and_qerror_match_jax(xdim, ydim, topol, neigh, radius,
     init = _init(X, xdim, ydim, topol, neigh)
     ref = JaxSOMTrainer(init, batch_size=B, use_pallas=True, vmem_steps=False
                         ).fit(_stream(X), rlen=1024, alpha=0.05, radius=radius)
-    out = SOMTrainer(init, batch_size=B).fit(_stream(X), rlen=1024, alpha=0.05,
-                                             radius=radius)
+    out = SOMTrainer(P(init), batch_size=B, device="cpu", vmem_steps=False).fit(
+        _stream(X, cls=PDataset), rlen=1024, alpha=0.05, radius=radius)
     assert out.points.shape == init.points.shape
     assert (out.topol, out.neigh, out.xdim, out.ydim) == (topol, neigh, xdim, ydim)
     if same_codes:
@@ -87,9 +101,9 @@ def test_stream_fit_and_qerror_match_jax(xdim, ydim, topol, neigh, radius,
 
     # the fast qerror itself, on one codebook, host or tensor arguments
     want = jsom.find_qerror(ref, Dataset(points=X), mode="fast")
-    for codes, data in ((ref, Dataset(points=X)),
+    for codes, data in ((P(ref), PDataset(points=X)),
                         (torch.tensor(ref.points), torch.from_numpy(X))):
-        got = som.find_qerror(codes, data)
+        got = som.find_qerror(codes, data, device="cpu")
         assert abs(got - want) <= 1e-4 * want, (got, want)
 
 
@@ -99,7 +113,8 @@ def test_dataset_fit_quality_matches_jax():
     kw = dict(rlen=1536, alpha=0.05, radius=4.0)  # 2.5 laps of 600
     ref = JaxSOMTrainer(init, batch_size=B, use_pallas=True, vmem_steps=False,
                         seed=1).fit(Dataset(points=X), **kw)
-    out = SOMTrainer(init, batch_size=B, seed=1).fit(Dataset(points=X), **kw)
+    out = SOMTrainer(P(init), batch_size=B, seed=1, device="cpu",
+                     vmem_steps=False).fit(PDataset(points=X), **kw)
     q_ref = _jax_q(ref, X)
     assert abs(_jax_q(out, X) - q_ref) < 0.05 * q_ref
 
@@ -117,13 +132,15 @@ def test_resume_from_own_checkpoint(form, tmp_path):
     init = _init(X, 8, 6, Topology.HEXA, Neighborhood.GAUSSIAN)
 
     def data():
-        return Dataset(points=X[:600]) if form == "dataset" else _stream(X, 200)
+        return (PDataset(points=X[:600]) if form == "dataset"
+                else _stream(X, 200, cls=PDataset))
 
     kw = dict(rlen=B * 8, alpha=0.05, radius=4.0)
     d = str(tmp_path / "ck")
-    full = SOMTrainer(init, batch_size=B, checkpoint_dir=d, checkpoint_interval=3,
-                      seed=5).fit(data(), **kw)
-    tr = SOMTrainer(init, batch_size=B, checkpoint_dir=d, seed=5)
+    tk = dict(batch_size=B, seed=5, device="cpu", vmem_steps=False)
+    full = SOMTrainer(P(init), checkpoint_dir=d, checkpoint_interval=3,
+                      **tk).fit(data(), **kw)
+    tr = SOMTrainer(P(init), checkpoint_dir=d, **tk)
     _drop_after(tr.ckpt, 3)
     resumed = tr.fit(data(), **kw)
     np.testing.assert_allclose(resumed.points, full.points, rtol=1e-6, atol=1e-6)
@@ -132,10 +149,10 @@ def test_resume_from_own_checkpoint(form, tmp_path):
 def test_interval_checkpoints_fire_on_elapsed_batches(tmp_path):
     X = _blobs()
     init = _init(X, 8, 6, Topology.HEXA, Neighborhood.GAUSSIAN)
-    tr = SOMTrainer(init, batch_size=B, checkpoint_dir=str(tmp_path / "ck"),
-                    checkpoint_interval=3)
+    tr = SOMTrainer(P(init), batch_size=B, checkpoint_dir=str(tmp_path / "ck"),
+                    checkpoint_interval=3, device="cpu", vmem_steps=False)
     tr.ckpt.keep = 0
-    tr.fit(_stream(X), rlen=B * 8, alpha=0.05, radius=4.0)
+    tr.fit(_stream(X, cls=PDataset), rlen=B * 8, alpha=0.05, radius=4.0)
     assert tr.ckpt.steps() == [3, 6, 8]
     st = tr.ckpt.load(3)
     assert st.codes.shape == init.points.shape and st.codes.dtype == np.float32
@@ -151,10 +168,11 @@ def test_resume_from_jax_checkpoint(tmp_path):
     d = str(tmp_path / "ckj")
     full = JaxSOMTrainer(init, batch_size=B, checkpoint_dir=d, checkpoint_interval=2,
                          use_pallas=True, vmem_steps=False).fit(_stream(X), **kw)
-    tr = SOMTrainer(init, batch_size=B, checkpoint_dir=d)
+    tr = SOMTrainer(P(init), batch_size=B, checkpoint_dir=d, device="cpu",
+                    vmem_steps=False)
     _drop_after(tr.ckpt, 4)
     assert tr.ckpt.load().prng_key is not None
-    resumed = tr.fit(_stream(X), **kw)
+    resumed = tr.fit(_stream(X, cls=PDataset), **kw)
     np.testing.assert_allclose(resumed.points, full.points, rtol=2e-2, atol=2e-2)
     assert tr.ckpt.latest_step() == 8
 
@@ -164,37 +182,39 @@ def test_unported_inputs_raise_and_short_streams():
     weight= and fixed= tokens and the masked qerror now run; short streams
     raise unless allowed."""
     X = _blobs(n=512)
-    init = _init(X, 6, 4, Topology.HEXA, Neighborhood.BUBBLE)
+    init = P(_init(X, 6, 4, Topology.HEXA, Neighborhood.BUBBLE))
     mask = np.zeros_like(X, dtype=np.uint8)
     mask[:, 1] = 1
     kw = dict(rlen=512, alpha=0.05, radius=3.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SOMTrainer(init, mesh=object())
+        SOMTrainer(init, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SOMTrainer(init, stream_bf16=True)
-    out = SOMTrainer(init, batch_size=B).fit(Dataset(points=X, mask=mask), **kw)
+        SOMTrainer(init, stream_bf16=True, device="cpu")
+    out = SOMTrainer(init, batch_size=B, device="cpu").fit(
+        PDataset(points=X, mask=mask), **kw)
     # component 1 is masked in every sample: no unit's component 1 moves
     np.testing.assert_array_equal(out.points[:, 1], init.points[:, 1])
 
     def masked_stream():
-        yield Dataset(points=X[:256])
-        yield Dataset(points=X[256:], mask=mask[256:])
+        yield PDataset(points=X[:256])
+        yield PDataset(points=X[256:], mask=mask[256:])
 
-    out = SOMTrainer(init, batch_size=B).fit(masked_stream(), **kw)
+    out = SOMTrainer(init, batch_size=B, device="cpu").fit(masked_stream(), **kw)
     assert np.isfinite(out.points).all()
     assert not np.array_equal(out.points[:, 1], init.points[:, 1])
     weight = np.full((512,), 2.0, np.float32)
     fixed = np.full((512, 2), -1, np.int32)
     fixed[::5] = (3, 2)
     for flag in ("use_weights", "use_fixed"):
-        out = SOMTrainer(init, batch_size=B).fit(
-            Dataset(points=X, weight=weight, fixed=fixed), **kw, **{flag: True})
+        out = SOMTrainer(init, batch_size=B, device="cpu").fit(
+            PDataset(points=X, weight=weight, fixed=fixed), **kw, **{flag: True})
         assert np.isfinite(out.points).all()
-    q = som.find_qerror(init, Dataset(points=X, mask=mask))
+    q = som.find_qerror(init, PDataset(points=X, mask=mask), device="cpu")
     assert np.isfinite(q) and q > 0
     with pytest.raises(RuntimeError, match="stream exhausted"):
-        SOMTrainer(init, batch_size=B).fit(_stream(X), rlen=4096, alpha=0.05,
-                                           radius=3.0)
-    out = SOMTrainer(init, batch_size=B).fit(_stream(X), rlen=4096, alpha=0.05,
-                                             radius=3.0, allow_short_stream=True)
+        SOMTrainer(init, batch_size=B, device="cpu").fit(
+            _stream(X, cls=PDataset), rlen=4096, alpha=0.05, radius=3.0)
+    out = SOMTrainer(init, batch_size=B, device="cpu").fit(
+        _stream(X, cls=PDataset), rlen=4096, alpha=0.05, radius=3.0,
+        allow_short_stream=True)
     assert np.isfinite(out.points).all()
