@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile    # the e2e cells under torch.profiler
 
 Needs one CUDA device and nvcc; exits non-zero without them.  With
---profile it builds the kernels and runs each e2e cell of phases 4-10 once
+--profile it builds the kernels and runs each e2e cell of phases 4-13 once
 (after its warm-up) under torch.profiler, printing for its training and
 its evaluation one "profile" line: the wall, the device's busy time (the
 union of its kernel and copy intervals), the idle share, and the kernels
@@ -22,7 +22,9 @@ line:
             (som_vmem_train_steps) runs at bench.py:prep_vmem_steps's
             geometry (where it is also held against K chained K3 launches),
             at bench.py:prep_somexample_shape's, at a ragged shape with
-            every code three times, and at e2e_64x64_1M's group shape;
+            every code three times, and at e2e_64x64_1M's group shape.
+            K1 also runs at the LVQ steps' B 1024 and at the LVQ accuracy's
+            single launch over 1M x 65536;
 4. e2e_128x128_100k  SOMTrainer.fit on a stream, then find_qerror(fast),
             through the kernels and through the plain versions; qerror
             within 1% of the plain run and 2% of the JAX package's anchor;
@@ -45,8 +47,27 @@ line:
             is the masked two-kernel step), then one masked winner search
             over 1M x 65536; within 1% of plain, and below 0.8x the
             random-init codebook's qerror.
+11. e2e_olvq1_65536_1M  the LVQ family at bench.py:prep_olvq1's shape: a
+            65,536-code LVQ codebook (D 64) drawn from 1M labelled vectors
+            (32 centres, 8 classes), OLVQ1Trainer with B 1024 for one lap
+            of 16384-row chunks (976 K1 steps), then accuracy(parity=False)
+            over the 1M (K1); within 0.5 points of the plain run and above
+            the initial codebook's accuracy;
+12. e2e_lvq3_65536_1M   LVQTrainer("lvq3") from phase 11's codebook, alpha
+            0.01, rlen 262,144 (256 K8 steps), then the accuracy; within
+            0.5 points of the plain run;
+13. e2e_masked_lvq_4096_100k  the first 100k of phase 11's data with every
+            other 16384-row chunk masked, a 4096-code codebook:
+            OLVQ1Trainer (K1 clean, K4 masked batches), LVQTrainer("lvq2")
+            (K8 clean, K9 masked), the masked accuracy (K4); within 0.5
+            points of the plain run.
 
-Each main-path run (4-10) sets every launch counter to 0 before it and
+K8/K9 (dist_top2, plain and masked) are held against their plain version in
+phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), at 1000 x 999 x 5,
+with every code twice (exact ties: both indices equal the plain version's),
+and at N = 2; K9 with p = 0.1 and fully masked rows.
+
+Each main-path run (4-13) sets every launch counter to 0 before it and
 reads them after: each kernel of that path must have launched, and the
 plain runs must launch none.  Then one line with every kernel's record
 (launches summed over those runs), the nvidia-smi line, and last
@@ -179,6 +200,60 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
                plain_ms=cuda_ms(lambda: plain(*args), iters),
                **bound((4 if masked else 2) * B * N * D,
                        4 * (B * D + N * D) + masked * B * D + 8 * B))
+    emit("kernels", **rec)
+    return rec
+
+
+def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
+               mask_p=None):
+    """K8 (or K9 with mask_p) against the plain top-2: both winners equal
+    except at near-ties, values within 1e-4.  With `dup` every code is there
+    twice: each sample's pair is a row and its copy, exactly the plain
+    version's indices.  A fully masked row must get (0, 0, 0, 1)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, D), generator=g, device="cuda")
+    if dup:
+        base = torch.randn((N // 2, D), generator=g, device="cuda")
+        codes = torch.cat([base, base]).contiguous()
+    else:
+        codes = torch.randn((N, D), generator=g, device="cuda")
+    mask = None if mask_p is None else random_mask(g, B, D, mask_p)
+    args = (x, codes) if mask is None else (x, codes, mask)
+    k = kernel(*args)
+    p = plain(*args)
+    torch.cuda.synchronize()
+    n_diff = sum(check_winners(f"{name} {w}", x, codes, k[j], p[j], mask=mask)
+                 for w, j in (("best", 1), ("second", 3)))
+    err = max(float((k[j] - p[j]).abs().max()) for j in (0, 2))
+    for j in (0, 2):
+        if not torch.allclose(k[j], p[j], rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{name}: values differ by {err}")
+    if dup:
+        half = codes.shape[0] // 2
+        if not (torch.equal(k[1], p[1]) and torch.equal(k[3], p[3])):
+            raise AssertionError(f"{name}: exact ties resolved unlike the plain version")
+        rest = torch.ones(B, dtype=torch.bool, device="cuda") if mask is None \
+            else ~(mask != 0).all(dim=1)
+        if bool((k[1][rest] >= half).any()) or \
+                not torch.equal(k[3][rest].long(), k[1][rest].long() + half):
+            raise AssertionError(f"{name}: a copy beat its first row")
+    if mask is not None:
+        empty = (mask != 0).all(dim=1)
+        got = [t[empty] for t in k]
+        if not bool(empty.any()) or any(bool((t != want).any())
+                                        for t, want in zip(got, (0, 0, 0, 1))):
+            raise AssertionError(f"{name}: a fully masked row did not get (0, 0, 0, 1)")
+    # (B, D) samples and (N, D) codes in, two (B,) values and indices out;
+    # 2BND FLOPs, 4BND with the mask's keep.(m o m) contraction
+    masked = mask is not None
+    rec = dict(kernel=name, shape=[B, codes.shape[0], D], dup=dup, mask_p=mask_p,
+               winners_differ=n_diff, max_abs_err=err,
+               ms=cuda_ms(lambda: kernel(*args), iters),
+               plain_ms=cuda_ms(lambda: plain(*args), iters),
+               **bound((4 if masked else 2) * B * codes.shape[0] * D,
+                       4 * (B * D + codes.shape[0] * D) + masked * B * D + 16 * B))
     emit("kernels", **rec)
     return rec
 
@@ -347,11 +422,13 @@ def blob_data(seed: int, n: int, n_centres: int):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the trainer, the two-kernel step and the qerror through the
-    plain versions (for the reference run on the card); restores the
-    kernels on exit."""
+    """Route the trainers, the two-kernel step, the LVQ steps, the qerror
+    and the accuracy through the plain versions (for the reference run on
+    the card); restores the kernels on exit."""
+    from som_lvq_pak_torch.models import eval as ev
     from som_lvq_pak_torch.models import fast, som, trainer
     from som_lvq_pak_torch.ops import dist_argmin as da
+    from som_lvq_pak_torch.ops import dist_top2 as dt
     from som_lvq_pak_torch.ops import som_step, som_update, som_vmem
 
     swaps = [(trainer, "dist_argmin", da.dist_argmin_plain),
@@ -360,8 +437,10 @@ def plain_kernels():
              (fast, "dist_argmin", da.dist_argmin_plain),
              (fast, "som_neighborhood_update_idx",
               som_update.som_neighborhood_update_idx_plain),
+             (fast, "dist_top2", dt.dist_top2_plain),
              (som, "dist_argmin", da.dist_argmin_plain),
-             (som, "dist_argmin_t", da.dist_argmin_t_plain)]
+             (som, "dist_argmin_t", da.dist_argmin_t_plain),
+             (ev, "dist_argmin", da.dist_argmin_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -378,11 +457,12 @@ def counted():
     from som_lvq_pak_torch.ops.som_step import som_fused_train_step
     from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
                                                   som_neighborhood_update_idx_masked)
+    from som_lvq_pak_torch.ops.dist_top2 import dist_top2, dist_top2_masked
     from som_lvq_pak_torch.ops.som_vmem import som_vmem_train_steps
 
     return (dist_argmin, dist_argmin_t, som_fused_train_step, dist_argmin_masked,
             som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
-            som_vmem_train_steps)
+            som_vmem_train_steps, dist_top2, dist_top2_masked)
 
 
 def main_path(name, run, kernels, plain_run=None):
@@ -472,21 +552,139 @@ def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
     return q, train_s, eval_s
 
 
+def lvq_data(n: int = 1_000_000, seed: int = 11):
+    """Labelled vectors (default_rng(seed)): 32 centres at N(0, 0.4) per
+    component, unit-variance noise, class = centre index mod 8; returns the
+    points, the label ids 1-8, and a label table naming them "c1".."c8"."""
+    from som_lvq_pak_torch.data.labels import LabelTable
+
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0, 0.4, size=(32, 64)).astype(np.float32)
+    c = rng.integers(0, 32, size=n)
+    X = centres[c] + rng.normal(0, 1.0, size=(n, 64)).astype(np.float32)
+    table = LabelTable()
+    for k in range(1, 9):
+        table.to_index(f"c{k}")
+    return X, (c % 8 + 1).astype(np.int32), table
+
+
+def lvq_codes(X, lab, noc, seed=12):
+    """An LVQ codebook of `noc` data rows drawn without replacement by
+    default_rng(seed), carrying their classes."""
+    from som_lvq_pak_torch.models.som import Dataset, Topology
+
+    idx = np.random.default_rng(seed).choice(X.shape[0], noc, replace=False)
+    return Dataset(points=X[idx], labels=lab[idx], topol=Topology.LVQ)
+
+
+def lvq_e2e(make, fit_kw, X, lab, codes, table, chunk, mask=None, rlen=None,
+            around=None):
+    """One streamed fit of the trainer `make(codes)` for `rlen` samples (one
+    lap by default), then accuracy(parity=False) over all of X (with its
+    mask); a 2-batch warm-up fit and a 4096-row accuracy first.  Returns
+    (accuracy_pct, train_s, accuracy_eval_s, trained codebook)."""
+    import torch
+
+    from som_lvq_pak_torch.models.eval import accuracy
+    from som_lvq_pak_torch.models.som import Dataset
+
+    n = X.shape[0]
+    rlen = n if rlen is None else rlen
+
+    def stream(total):
+        sent = 0
+        while sent < total:
+            lo = sent % n
+            sl = slice(lo, min(lo + chunk, n))
+            yield Dataset(points=X[sl], labels=lab[sl],
+                          mask=None if mask is None else mask[sl])
+            sent += sl.stop - lo
+
+    data = Dataset(points=X, labels=lab, mask=mask)
+    bs = make(codes).batch_size
+    warm = make(codes).fit(stream(2 * bs), rlen=2 * bs, allow_short_stream=True,
+                           **fit_kw)
+    accuracy(Dataset(points=X[:4096], labels=lab[:4096],
+                     mask=None if mask is None else mask[:4096]), warm,
+             labels=table, device="cuda")
+    torch.cuda.synchronize()
+
+    around = around or (lambda part: contextlib.nullcontext())
+    with around("train"):
+        t0 = time.perf_counter()
+        out = make(codes).fit(stream(rlen), rlen=rlen, **fit_kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    with around("eval"):
+        t0 = time.perf_counter()
+        pct = accuracy(data, out, labels=table, device="cuda")[0]
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    if not np.isfinite(out.points).all() or out.points.shape != codes.points.shape:
+        raise AssertionError("trained codebook is not finite or has the wrong shape")
+    return pct, train_s, eval_s, out
+
+
+def check_accuracy(name, pct, pct_plain):
+    if not (np.isfinite(pct) and abs(pct - pct_plain) <= 0.5):
+        raise AssertionError(f"{name}: accuracy {pct} vs plain {pct_plain} (> 0.5 points)")
+
+
+def olvq1_trainer(codes):
+    from som_lvq_pak_torch.models.trainer import OLVQ1Trainer
+
+    return OLVQ1Trainer(codes, batch_size=1024, alpha=0.3, device="cuda")
+
+
+def lvq_trainer(algorithm):
+    from som_lvq_pak_torch.models.trainer import LVQTrainer
+
+    return lambda codes: LVQTrainer(codes, algorithm, winlen=0.3, epsilon=0.1,
+                                    batch_size=1024, device="cuda")
+
+
+def masked_lvq_e2e(X, lab, mask, codes, table, around=None):
+    """Phase 13: OLVQ1Trainer, then LVQTrainer("lvq2") from its codebook,
+    each one lap on the stream, each followed by the masked accuracy.
+    Returns (olvq1 accuracy, lvq2 accuracy, train_s of both, eval_s of the
+    last)."""
+    pct_o, train_o, _, out = lvq_e2e(olvq1_trainer, {}, X, lab, codes, table, 16384,
+                                     mask=mask, around=around)
+    pct, train_s, eval_s, _ = lvq_e2e(lvq_trainer("lvq2"), dict(alpha=0.01), X, lab,
+                                      out, table, 16384, mask=mask, around=around)
+    return pct_o, pct, train_o + train_s, eval_s
+
+
+def lvq_setup():
+    """The LVQ cells' data: the 1M labelled vectors with their 65,536-code
+    codebook, and the first 100k with every other 16384-row chunk masked
+    (default_rng(13)) with a 4096-code codebook drawn from the clean rows."""
+    X, lab, table = lvq_data()
+    X1, lab1 = X[:100_000], lab[:100_000]
+    Xm, mask, _ = masked_data(X1, 13, 16384, every_other=True)
+    return (X, lab, table, lvq_codes(X, lab, 65536), Xm, lab1, mask,
+            lvq_codes(X1, lab1, 4096))
+
+
 @contextlib.contextmanager
 def profiled(label: str):
     """torch.profiler around a block that ends synchronised; emits its wall,
     the device's busy time (the union of kernel and copy intervals), the
-    idle share and the five kernels with the most device time."""
+    idle share, the five kernels with the most device time, and the port's
+    launches in the block by its wrappers' counters (the trace has dropped
+    device records after a long traced block: a kernel the counters show
+    and the top list lacks is such a loss, and the busy time is then low)."""
     import re
 
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = {fn.__name__: fn.launches for fn in counted()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         yield
         wall = time.perf_counter() - t0
+    launched = {fn.__name__: fn.launches - before[fn.__name__] for fn in counted()}
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy, end = 0.0, float("-inf")
@@ -503,7 +701,8 @@ def profiled(label: str):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     emit("profile", cell=label, wall_s=wall, device_busy_s=busy * 1e-6,
          idle_share=1.0 - busy * 1e-6 / wall if wall > 0 else None,
-         top=[dict(kernel=k, device_s=t * 1e-6, launches=c) for k, (t, c) in top])
+         top=[dict(kernel=k, device_s=t * 1e-6, launches=c) for k, (t, c) in top],
+         port_launches={k: n for k, n in launched.items() if n})
 
 
 def profile_cells() -> None:
@@ -529,6 +728,14 @@ def profile_cells() -> None:
              ("e2e_masked_256x256_1M", (Xm, 256, 4096, 64, 16384), dict(mask=mask))]
     for name, args, kw in cells:
         e2e(*args, **kw, around=lambda part: profiled(f"{name} {part}"))
+    del X, Xm, mask
+    X, lab, table, codes, Xm, lab1, mask, small = lvq_setup()
+    _, _, _, trained = lvq_e2e(olvq1_trainer, {}, X, lab, codes, table, 16384,
+                               around=lambda part: profiled(f"e2e_olvq1_65536_1M {part}"))
+    lvq_e2e(lvq_trainer("lvq3"), dict(alpha=0.01), X, lab, trained, table, 16384,
+            rlen=262_144, around=lambda part: profiled(f"e2e_lvq3_65536_1M {part}"))
+    masked_lvq_e2e(Xm, lab1, mask, small, table,
+                   around=lambda part: profiled(f"e2e_masked_lvq_4096_100k {part}"))
 
 
 def masked_data(X, seed, chunk, every_other):
@@ -583,6 +790,8 @@ def main() -> int:
                                                    dist_argmin_masked_plain,
                                                    dist_argmin_plain, dist_argmin_t,
                                                    dist_argmin_t_plain)
+    from som_lvq_pak_torch.ops.dist_top2 import (dist_top2, dist_top2_masked,
+                                                 dist_top2_plain)
     from som_lvq_pak_torch.ops.distance import fp32_matmul
     from som_lvq_pak_torch.ops.som_step import (som_fused_train_step,
                                                 som_fused_train_step_plain)
@@ -622,6 +831,31 @@ def main() -> int:
             rs.insert(0, phase_distance(name, k, p, 1_000_000, 65536, 64,
                                         seed=5, iters=3))
         # K1: the 1M run's prologue; K2: its evaluation; K4: a masked step
+        recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    # K1 at the LVQ step's batch (one 64-sample CTA per 64 samples: 16 CTAs)
+    # and at the LVQ accuracy's one launch over the 1M data; K1 and K4 at
+    # the masked LVQ cell's step (B 1024 against 4096 codes: K4 has 17
+    # splits of which 16 hold codes)
+    phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 1024, 65536, 64, seed=9)
+    phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 1_000_000, 65536, 64,
+                   seed=14, iters=3)
+    for name, k, p, mask_p in (
+            ("dist_argmin", dist_argmin, dist_argmin_plain, None),
+            ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
+        r = phase_distance(name, k, p, 1024, 4096, 64, seed=15, mask_p=mask_p)
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
+    # K8 and K9 at the LVQ step's shape first (their record), then the
+    # masked LVQ cell's step (17 splits, 16 of them used), small, exact-tie
+    # and two-code shapes
+    for name, k, mask_p in (("dist_top2", dist_top2, None),
+                            ("dist_top2_masked", dist_top2_masked, 0.1)):
+        rs = [phase_top2(name, k, dist_top2_plain, *shape, seed=seed, dup=dup,
+                         mask_p=mask_p)
+              for shape, seed, dup in (((1024, 65536, 64), 10, False),
+                                       ((1024, 4096, 64), 16, False),
+                                       ((1000, 999, 5), 11, False),
+                                       ((1000, 999, 5), 12, True),
+                                       ((1000, 2, 5), 13, False))]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     steps = [phase_step(som_fused_train_step, som_fused_train_step_plain,
                         *case, seed=4)
@@ -781,6 +1015,54 @@ def main() -> int:
          plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
          random_init_qerror_per_sample=q_init, launches=got)
 
+    # ---- LVQ: olvq1 over 1M labelled vectors, 65,536 codes --------------
+    from som_lvq_pak_torch.models.eval import accuracy
+    from som_lvq_pak_torch.models.som import Dataset
+
+    del Xm, mask
+    X, lab, table, codes, Xm, lab1, mask, small = lvq_setup()
+    pct_init = accuracy(Dataset(points=X, labels=lab), codes, labels=table, device="cuda")[0]
+    run = lambda: lvq_e2e(olvq1_trainer, {}, X, lab, codes, table, 16384)  # noqa: E731
+    (pct, train_s, eval_s, trained), (pct_plain, train_plain_s, eval_plain_s, _), got = \
+        main_path("e2e_olvq1_65536_1M", run, ("dist_argmin",), run)
+    tally(got)
+    pct_olvq1 = pct
+    check_accuracy("e2e olvq1", pct, pct_plain)
+    if not pct > pct_init:
+        raise AssertionError(f"e2e olvq1: accuracy {pct} not above the initial {pct_init}")
+    emit("e2e_olvq1_65536_1M", card=smi, accuracy_pct=pct, train_s=train_s,
+         accuracy_eval_s=eval_s, init_accuracy_pct=pct_init,
+         plain_accuracy_pct=pct_plain, plain_train_s=train_plain_s,
+         plain_accuracy_eval_s=eval_plain_s, launches=got)
+
+    # ---- LVQ: lvq3 from the olvq1 codebook, 256 K8 steps ----------------
+    run = lambda: lvq_e2e(lvq_trainer("lvq3"), dict(alpha=0.01), X, lab, trained,  # noqa: E731
+                          table, 16384, rlen=262_144)
+    (pct, train_s, eval_s, _), (pct_plain, train_plain_s, eval_plain_s, _), got = \
+        main_path("e2e_lvq3_65536_1M", run, ("dist_top2", "dist_argmin"), run)
+    tally(got)
+    check_accuracy("e2e lvq3", pct, pct_plain)
+    emit("e2e_lvq3_65536_1M", card=smi, accuracy_pct=pct, train_s=train_s,
+         accuracy_eval_s=eval_s, start_accuracy_pct=pct_olvq1,
+         plain_accuracy_pct=pct_plain, plain_train_s=train_plain_s,
+         plain_accuracy_eval_s=eval_plain_s, launches=got)
+    del X, lab, trained
+
+    # ---- LVQ: masked chunks, 4096 codes: olvq1 then lvq2 -----------------
+    run = lambda: masked_lvq_e2e(Xm, lab1, mask, small, table)  # noqa: E731
+    (pct_o, pct, train_s, eval_s), (pct_o_plain, pct_plain, train_plain_s,
+                                    eval_plain_s), got = main_path(
+        "e2e_masked_lvq_4096_100k", run,
+        ("dist_argmin", "dist_argmin_masked", "dist_top2", "dist_top2_masked"), run)
+    tally(got)
+    check_accuracy("e2e masked olvq1", pct_o, pct_o_plain)
+    check_accuracy("e2e masked lvq2", pct, pct_plain)
+    emit("e2e_masked_lvq_4096_100k", card=smi, olvq1_accuracy_pct=pct_o,
+         accuracy_pct=pct, train_s=train_s, accuracy_eval_s=eval_s,
+         plain_olvq1_accuracy_pct=pct_o_plain, plain_accuracy_pct=pct_plain,
+         plain_train_s=train_plain_s, plain_accuracy_eval_s=eval_plain_s,
+         launches=got)
+
     sources = {
         "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
                         "som_lvq_pak_tpu/ops/pallas_distance.py:60"),
@@ -795,7 +1077,11 @@ def main() -> int:
         "som_neighborhood_update_idx_masked": ("som_lvq_pak_torch/csrc/som_update.cu",
                                                "som_lvq_pak_tpu/ops/pallas_som.py:152"),
         "som_vmem_train_steps": ("som_lvq_pak_torch/csrc/som_vmem_steps.cu",
-                                 "som_lvq_pak_tpu/ops/pallas_som.py:1449")}
+                                 "som_lvq_pak_tpu/ops/pallas_som.py:1449"),
+        "dist_top2": ("som_lvq_pak_torch/csrc/dist_top2.cu",
+                      "som_lvq_pak_tpu/ops/pallas_distance.py:295"),
+        "dist_top2_masked": ("som_lvq_pak_torch/csrc/dist_top2.cu",
+                             "som_lvq_pak_tpu/ops/pallas_distance.py:308")}
     idle = [name for name in sources if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

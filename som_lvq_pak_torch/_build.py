@@ -38,6 +38,11 @@ _SIGNATURES = {
     "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _P, _P, _P],
     # x, mask, codes, B, N, D, keys, val, idx, stream
     "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # x, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
+    "somvq_dist_top2": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # x, mask, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
+    "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                               _P, _P],
     # codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian,
     # radius, keys, val, idx, stream
     "somvq_som_fused_step": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,

@@ -109,6 +109,30 @@ def sample_arrays(ds: Dataset, xdim: int = 0, use_weights: bool = False,
             fixed)
 
 
+def lvq_codebook_to_torch(ds: Dataset, device: torch.device | str = "cuda"
+                          ) -> Tuple[torch.Tensor, torch.Tensor, Dataset]:
+    """(codes, code labels, meta): `codebook_to_torch` plus each code's
+    first label id as int32 on `device`."""
+    codes, meta = codebook_to_torch(ds, device)
+    return codes, torch.tensor(ds.first_labels(), dtype=torch.int32,
+                               device=device), meta
+
+
+def labeled_samples_to_torch(ds: Dataset, device: torch.device | str = "cuda"
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        Optional[torch.Tensor]]:
+    """(x, labels, mask) on `device`: points, each sample's first label id
+    as int32, and the uint8 mask (None without one).
+
+    LVQ compares code labels with data labels as ids, so a codebook and its
+    data must be interned in ONE label table.  Carrying both across from
+    the JAX package, pass the same `labels=` table (and the JAX
+    `source_labels=`) to both `as_port_dataset` calls: with two tables the
+    ids disagree and no sample is ever counted correct."""
+    x, mask = samples_to_torch(ds, device)[:2]
+    return x, torch.tensor(ds.first_labels(), dtype=torch.int32, device=device), mask
+
+
 def samples_to_torch(ds: Dataset, device: torch.device | str = "cuda",
                      xdim: int = 0, use_weights: bool = False,
                      use_fixed: bool = False

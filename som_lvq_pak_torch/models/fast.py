@@ -1,7 +1,15 @@
-"""Minibatch SOM building blocks — counterparts of
+"""Minibatch SOM and LVQ building blocks — counterparts of
 som_lvq_pak_tpu/models/fast.py (`unit_coords`, `grid_sq_dists_idx`,
-`_guarded_sum_update`, `som_batch_step`).  The fused step's plain version is
-built from the same algebra (ops.som_step)."""
+`_guarded_sum_update`, `som_batch_step`, `olvq1_batch_step`,
+`lvq1_batch_step`, `lvq23_batch_step`).  The fused step's plain version is
+built from the same algebra (ops.som_step).
+
+The LVQ steps update the codebook IN PLACE and return it.  Their segment
+sums are `index_add_` into a zeroed (noc, D) buffer, added to the codebook
+afterwards, so every float expression keeps the JAX package's order
+(`codes + segment_sum(...)`).  On CUDA `index_add_` sums with atomics in no
+fixed order, so two card runs may differ in the last bits; CPU runs are
+deterministic."""
 
 from __future__ import annotations
 
@@ -10,6 +18,7 @@ from typing import Optional, Union
 import torch
 
 from ..ops.dist_argmin import dist_argmin
+from ..ops.dist_top2 import dist_top2
 from ..ops.som_step import grid_sq_dists, grid_xy
 # `_guarded_sum_update`: codes + (wx - wsum * codes), saturated at the
 # batch weighted mean once a unit's weight mass exceeds 1
@@ -79,3 +88,128 @@ def som_batch_step(
         bmu = torch.where(fixed_bmu >= 0, fixed_bmu.to(torch.int32), bmu)
     return som_neighborhood_update_idx(codes, xb, bmu, xdim, hexa, a, radius,
                                        gaussian, mask=mask)
+
+
+def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, noc: int) -> torch.Tensor:
+    """(noc, ...) sums of `rows` by segment id (jax.ops.segment_sum)."""
+    out = torch.zeros((noc,) + rows.shape[1:], dtype=rows.dtype, device=rows.device)
+    return out.index_add_(0, seg, rows)
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def olvq1_batch_step(
+    codes: torch.Tensor,
+    code_labels: torch.Tensor,
+    alphas: torch.Tensor,
+    xb: torch.Tensor,
+    xlabels: torch.Tensor,
+    clip: float = 0.3,
+    mask: Optional[torch.Tensor] = None,
+    m2: Optional[torch.Tensor] = None,
+):
+    """One minibatch olvq1 step (som_lvq_pak_tpu/models/fast.py:228-281):
+    winners for B samples (`dist_argmin`, masked given a mask), the signed
+    segment-sum update, and the per-code alpha recurrences once per hit,
+    a/(1+k a) and a/(1-k a), saturated at `clip` where the batched
+    denominator leaves (0, clip] (lvq_rout.c:650-673).  Returns (codes,
+    new alphas); `codes` is updated in place.
+
+    `m2` = a maintained ||m||^2 (N,): returned updated as a third output,
+    only the winner rows re-normed.  The winner kernel computes its norms
+    from the tiles it stages, so it does not read `m2`."""
+    _, bmu = dist_argmin(xb, codes, mask=mask)
+    bmu = bmu.long()
+    noc = codes.shape[0]
+    correct = code_labels[bmu] == xlabels
+    a = alphas[bmu]
+    sign = torch.where(correct, a, -a)
+    delta = sign[:, None] * (xb - codes[bmu])
+    if mask is not None:
+        delta = torch.where(mask != 0, 0.0, delta)
+    upd = _segment_sum(delta, bmu, noc)
+    ncorrect = _segment_sum(correct.to(torch.float32), bmu, noc)
+    nwrong = _segment_sum((~correct).to(torch.float32), bmu, noc)
+    clip32 = _f32(clip, codes.device)
+    new_a = alphas / (1.0 + ncorrect * alphas)
+    denom = 1.0 - nwrong * new_a
+    ok = denom > 1e-6
+    grown = torch.where(ok, new_a / torch.where(ok, denom, 1.0), clip32)
+    new_a = torch.where(nwrong > 0, torch.minimum(grown, clip32), new_a)
+    codes.add_(upd)
+    if m2 is None:
+        return codes, new_a
+    m2[bmu] = (codes[bmu] ** 2).sum(1)
+    return codes, new_a, m2
+
+
+def lvq1_batch_step(
+    codes: torch.Tensor,
+    code_labels: torch.Tensor,
+    xb: torch.Tensor,
+    xlabels: torch.Tensor,
+    alpha,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One minibatch lvq1 step (som_lvq_pak_tpu/models/fast.py:285-311):
+    each sample pulls its winner toward it (same label) or pushes it away,
+    by `alpha`; `codes` is updated in place and returned."""
+    _, bmu = dist_argmin(xb, codes, mask=mask)
+    bmu = bmu.long()
+    a = _f32(alpha, codes.device)
+    correct = code_labels[bmu] == xlabels
+    sign = torch.where(correct, a, -a)
+    delta = sign[:, None] * (xb - codes[bmu])
+    if mask is not None:
+        delta = torch.where(mask != 0, 0.0, delta)
+    return codes.add_(_segment_sum(delta, bmu, codes.shape[0]))
+
+
+def lvq23_batch_step(
+    codes: torch.Tensor,
+    code_labels: torch.Tensor,
+    xb: torch.Tensor,
+    xlabels: torch.Tensor,
+    alpha,
+    winlen,
+    epsilon=0.0,
+    lvq3: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One minibatch lvq2.1 / lvq3 step (som_lvq_pak_tpu/models/fast.py:
+    314-368, lvq_rout.c:702-916 batched): the winner pair from `dist_top2`
+    (K8, or K9 given a mask), the window rule d1/d2 > (1-w)/(1+w) in
+    float32, and the signed pair update; lvq3 adds the same-class epsilon
+    pull.  `codes` is updated in place and returned."""
+    d1, i1, d2, i2 = dist_top2(xb, codes, mask=mask)
+    i1, i2 = i1.long(), i2.long()
+    dev, noc = codes.device, codes.shape[0]
+    a, w = _f32(alpha, dev), _f32(winlen, dev)
+    l1, l2 = code_labels[i1], code_labels[i2]
+    wl = (1.0 - w) / (1.0 + w)
+    in_window = d1 / torch.clamp(d2, min=1e-30) > wl
+    differ = l1 != l2
+    one_matches = (l1 == xlabels) | (l2 == xlabels)
+    window_rule = differ & one_matches & in_window
+    # orient: b = the code matching the sample's label
+    swap = l2 == xlabels
+    b_idx = torch.where(swap, i2, i1)
+    nb_idx = torch.where(swap, i1, i2)
+    a_b = torch.where(window_rule, a, 0.0)[:, None]
+    if mask is not None:
+        keep = 1.0 - mask.to(torch.float32)
+        a_b, neg_b = a_b * keep, -a_b * keep
+    else:
+        neg_b = -a_b
+    delta = (_segment_sum(a_b * (xb - codes[b_idx]), b_idx, noc)
+             + _segment_sum(neg_b * (xb - codes[nb_idx]), nb_idx, noc))
+    if lvq3:
+        same = (l1 == l2) & (l1 == xlabels)
+        ae = torch.where(same, a * _f32(epsilon, dev), 0.0)[:, None]
+        if mask is not None:
+            ae = ae * keep
+        delta = (delta + _segment_sum(ae * (xb - codes[i1]), i1, noc)
+                 + _segment_sum(ae * (xb - codes[i2]), i2, noc))
+    return codes.add_(delta)

@@ -1,5 +1,6 @@
-"""Minibatch SOM training on one device — the counterpart of
-som_lvq_pak_tpu/models/trainer.py:SOMTrainer (single device).
+"""Minibatch SOM and LVQ training on one device — the counterparts of
+som_lvq_pak_tpu/models/trainer.py:SOMTrainer, LVQTrainer and OLVQ1Trainer
+(single device).  SOMTrainer first; the LVQ trainers are at the end.
 
 Small maps train in groups of GK = 32 batches, one K7 launch per group
 (ops.som_vmem.som_vmem_train_steps: the codebook stays on chip for the
@@ -42,7 +43,9 @@ from typing import Iterable, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..convert import codebook_to_torch, sample_arrays, samples_to_torch, to_dataset
+from ..convert import (codebook_to_torch, labeled_samples_to_torch,
+                       lvq_codebook_to_torch, sample_arrays, samples_to_torch,
+                       to_dataset)
 from ..data.dataset import Dataset, Neighborhood, Topology
 from ..ops.dist_argmin import dist_argmin
 from ..ops.som_step import som_fused_train_step
@@ -50,7 +53,8 @@ from ..ops.som_vmem import som_vmem_train_steps
 from ..utils.checkpoint import Checkpointer, TrainState
 from ..utils.progress import StepTimer
 from .common import alpha_schedule, radius_schedule
-from .fast import effective_alpha, som_batch_step
+from .fast import (effective_alpha, lvq1_batch_step, lvq23_batch_step,
+                   olvq1_batch_step, som_batch_step)
 
 # one training batch: (index, x, mask or None, weight or None, fixed or None)
 Batch = Tuple[int, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
@@ -277,9 +281,7 @@ class SOMTrainer:
 
     def _lap_perm(self, lap: int, n: int) -> np.ndarray:
         # resume-safe: lap l's order derives from (seed, lap) alone
-        g = torch.Generator().manual_seed(
-            ((self.seed & 0xFFFFFFFF) << 32) | (lap & 0xFFFFFFFF))
-        return torch.randperm(n, generator=g).numpy()
+        return torch.randperm(n, generator=_generator(self.seed, lap)).numpy()
 
     def _dataset_batches(self, data: Dataset, start: int, nb: int,
                          **extras) -> Iterator[Batch]:
@@ -306,74 +308,99 @@ class SOMTrainer:
     def _stream_batches(self, chunks: Iterator[Dataset], start: int, nb: int,
                         allow_short_stream: bool, **extras
                         ) -> Iterator[Batch]:
-        """Buffer chunks on the host and ship every whole batch they hold in
-        one copy per array (pinned, asynchronous on CUDA); the remainder
-        waits on the host for the next chunk.  A batch carries a mask or
-        fixed slice only when its host copy has a masked entry or a fixed
-        sample: a clean batch in a block with masked chunks elsewhere gets
-        mask None, so it takes the fused step (an all-zero mask would send
+        """`_stream_batches` over (points, mask, weight, fixed): a batch
+        carries a mask or fixed slice only when its host copy has a masked
+        entry or a fixed sample, so a clean batch in a block with masked
+        chunks elsewhere takes the fused step (an all-zero mask would send
         it down the masked kernels, whose rounding can flip near-tie
         winners; som_lvq_pak_tpu/models/trainer.py:331-343)."""
-        s = self.batch_size
+        return _stream_batches(chunks, start, nb, self.batch_size, self.device,
+                               allow_short_stream, _SOM_ARRAYS,
+                               lambda c: sample_arrays(c, **extras))
 
-        def next_chunk():
-            try:
-                c = next(chunks)
-            except StopIteration:
-                return None
-            return (*sample_arrays(c, **extras), c.n)
 
-        def to_device(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
+def _generator(seed: int, k: int) -> torch.Generator:
+    """A CPU generator that depends on (seed, k) alone.  The CPU generator
+    keeps only the low 32 bits of its seed, so the pair is mixed down to 32
+    bits by numpy's SeedSequence rather than packed into one integer."""
+    mixed = np.random.SeedSequence([seed & 0xFFFFFFFF, k & 0xFFFFFFFF])
+    return torch.Generator().manual_seed(int(mixed.generate_state(1)[0]))
 
-        pending = next_chunk()
-        # resume-exact streaming: skip start*batch_size samples so batch b
-        # trains on the stream positions of the uninterrupted run
-        skip = start * s
-        while skip > 0 and pending is not None:
-            pending, skip = _skip_stream_samples(pending, skip)
+
+# the arrays of a stream batch: (fill, dtype, rows shaped like the points',
+# sparse); a sparse array's batch slice is None where it holds only `fill`
+_SOM_ARRAYS = ((0.0, np.float32, False, False),  # points
+               (0, np.uint8, True, True),        # mask
+               (0.0, np.float32, False, False),  # weight (0 = no token)
+               (-1, np.int32, False, True))      # fixed flat unit, -1 = none
+_LVQ_ARRAYS = ((0.0, np.float32, False, False),  # points
+               (0, np.int32, False, False),      # first label id
+               (0, np.uint8, True, True))        # mask
+
+
+def _stream_batches(chunks: Iterator[Dataset], start: int, nb: int, s: int,
+                    device: torch.device, allow_short_stream: bool, specs,
+                    unpack) -> Iterator[tuple]:
+    """Batches (b, *arrays) of `s` samples from a stream of chunk Datasets,
+    `unpack(chunk)` giving each chunk's host arrays in `specs` order (None
+    where it has none).  Chunks are buffered on the host and every whole
+    batch they hold ships in one copy per array (pinned, asynchronous on
+    CUDA); the remainder waits on the host for the next chunk.  Resume is
+    exact: the first start * s samples are skipped, so batch b trains on
+    the stream positions of the uninterrupted run."""
+
+    def next_chunk():
+        try:
+            c = next(chunks)
+        except StopIteration:
+            return None
+        return (*unpack(c), c.n)
+
+    def to_device(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    pending = next_chunk()
+    skip = start * s
+    while skip > 0 and pending is not None:
+        pending, skip = _skip_stream_samples(pending, skip)
+        if pending is None:
+            pending = next_chunk()
+    bufs, buffered, b = [], 0, start
+    while b < nb:
+        while buffered < s:
             if pending is None:
-                pending = next_chunk()
-        bufs, buffered, b = [], 0, start
-        while b < nb:
-            while buffered < s:
-                if pending is None:
-                    if allow_short_stream:
-                        return
-                    raise RuntimeError(
-                        f"input stream exhausted at batch {b}/{nb} "
-                        f"({buffered} samples buffered, {s} needed): size "
-                        "laps to cover rlen, pass laps=None, or set "
-                        "allow_short_stream=True")
-                bufs.append(pending)
-                buffered += pending[-1]
-                pending = next_chunk()
-            # per array: one host array over the buffered chunks, chunks
-            # without it filled with its "absent" value
-            ns = [t[-1] for t in bufs]
-            X = _concat([t[0] for t in bufs], ns, 0.0, (), np.float32)
-            mk = _concat([t[1] for t in bufs], ns, 0, X.shape[1:], np.uint8)
-            wt = _concat([t[2] for t in bufs], ns, 0.0, (), np.float32)
-            ff = _concat([t[3] for t in bufs], ns, -1, (), np.int32)
-            nfull = min(buffered // s, nb - b) * s
-            Xd = to_device(X[:nfull])
-            mkd = None if mk is None else to_device(mk[:nfull])
-            wtd = None if wt is None else to_device(wt[:nfull])
-            ffd = None if ff is None else to_device(ff[:nfull])
-            for off in range(0, nfull, s):
-                sl = slice(off, off + s)
-                yield (b, Xd[sl],
-                       mkd[sl] if mk is not None and mk[sl].any() else None,
-                       None if wtd is None else wtd[sl],
-                       ffd[sl] if ff is not None and (ff[sl] >= 0).any() else None)
-                b += 1
-            rest = slice(nfull, None)
-            bufs = [tuple(None if a is None else a[rest] for a in (X, mk, wt, ff))
-                    + (buffered - nfull,)]
-            buffered -= nfull
+                if allow_short_stream:
+                    return
+                raise RuntimeError(
+                    f"input stream exhausted at batch {b}/{nb} "
+                    f"({buffered} samples buffered, {s} needed): size "
+                    "laps to cover rlen, pass laps=None, or set "
+                    "allow_short_stream=True")
+            bufs.append(pending)
+            buffered += pending[-1]
+            pending = next_chunk()
+        # per array: one host array over the buffered chunks, chunks
+        # without it filled with its "absent" value
+        ns = [t[-1] for t in bufs]
+        host = []
+        for k, (fill, dtype, wide, _) in enumerate(specs):
+            host.append(_concat([t[k] for t in bufs], ns, fill,
+                                host[0].shape[1:] if wide else (), dtype))
+        nfull = min(buffered // s, nb - b) * s
+        dev = [None if a is None else to_device(a[:nfull]) for a in host]
+        for off in range(0, nfull, s):
+            sl = slice(off, off + s)
+            yield (b, *(None if d is None or (sparse and not (a[sl] != fill).any())
+                        else d[sl]
+                        for a, d, (fill, _, _, sparse) in zip(host, dev, specs)))
+            b += 1
+        rest = slice(nfull, None)
+        bufs = [tuple(None if a is None else a[rest] for a in host)
+                + (buffered - nfull,)]
+        buffered -= nfull
 
 
 def _fix(bmu: torch.Tensor, fixed: Optional[torch.Tensor]) -> torch.Tensor:
@@ -404,3 +431,190 @@ def _skip_stream_samples(t, skip):
     if skip == 0:
         return t, 0
     return tuple(a if a is None else a[skip:] for a in t[:-1]) + (n - skip,), 0
+
+
+# -- LVQ ------------------------------------------------------------------
+
+def _labeled_batches(data: Union[Dataset, Iterable[Dataset]], start: int,
+                     nb: int, bs: int, seed: int, device: torch.device,
+                     allow_short_stream: bool) -> Iterator[tuple]:
+    """(b, x, labels, mask or None) batches for the LVQ trainers (the
+    counterpart of som_lvq_pak_tpu/models/trainer.py:_labeled_batches).
+
+    A Dataset is sampled with replacement, batch b's indices drawn from a
+    torch.Generator seeded with (seed, b) alone, so resume is exact; every
+    batch of a masked Dataset carries its mask slice.  The JAX package
+    draws from a threefry key split once per batch, which torch cannot
+    reproduce: the two packages draw different batches from one Dataset
+    and the same seed.  A stream (an iterable of chunk Datasets) gives the
+    same batches in both packages (`_stream_batches`; a batch carries a
+    mask only where its host copy has a masked entry)."""
+    if not isinstance(data, Dataset):
+        yield from _stream_batches(
+            iter(data), start, nb, bs, device, allow_short_stream, _LVQ_ARRAYS,
+            lambda c: (np.asarray(c.points, np.float32), c.first_labels(), c.mask))
+        return
+    x, lab, mk = labeled_samples_to_torch(data, device)
+    for b in range(start, nb):
+        idx = torch.randint(0, data.n, (bs,), generator=_generator(seed, b))
+        idx = idx.to(device)
+        yield b, x[idx], lab[idx], None if mk is None else mk[idx]
+
+
+class _LVQBase:
+    """What LVQTrainer and OLVQ1Trainer share: a labelled codebook, the
+    batch size, the device and the checkpointer."""
+
+    def __init__(self, codes: Dataset, batch_size: int, mesh, checkpoint_dir,
+                 checkpoint_interval: int, seed: int, device):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh training is not ported yet (ROADMAP A13: the sharded "
+                "lvq and olvq1 steps on torch.distributed)")
+        self.meta = codes
+        self.batch_size = batch_size
+        self.seed = seed
+        self.device = torch.device(device)
+        self.ckpt = None
+        self.checkpoint_interval = checkpoint_interval
+        if checkpoint_dir is not None:
+            self.ckpt = Checkpointer(checkpoint_dir, background=True)
+
+    def _resume(self, nb: int, resume: bool) -> Optional[TrainState]:
+        """The latest checkpoint before step nb (a JAX-written state's
+        prng_key is not needed: Dataset batches derive from (seed, b),
+        streams from the step)."""
+        if self.ckpt is None or not resume:
+            return None
+        st = self.ckpt.load()
+        return st if st is not None and st.step < nb else None
+
+    def _batches(self, data, start, nb, allow_short_stream):
+        return _labeled_batches(data, start, nb, self.batch_size, self.seed,
+                                self.device, allow_short_stream)
+
+    def _finish(self, M: torch.Tensor, meta: Dataset, state: TrainState) -> Dataset:
+        if self.ckpt is not None:
+            self.ckpt.save(state)
+            self.ckpt.wait()
+        self.meta = replace(to_dataset(M, meta), comments=[])
+        return self.meta
+
+
+class LVQTrainer(_LVQBase):
+    """Minibatch lvq1 / lvq2.1 / lvq3 training at device speed on `device`:
+    "cuda" (the default) runs the CUDA kernels, "cpu" their plain versions;
+    without a GPU the default raises.  lvq1 batches take K1 `dist_argmin`
+    (K4 when masked), lvq2/lvq3 batches K8 `dist_top2` (K9 when masked);
+    models.fast.lvq1_batch_step / lvq23_batch_step.  olvq1 is
+    OLVQ1Trainer.  Interval checkpoints fire whenever >= interval batches
+    have elapsed since the last save."""
+
+    def __init__(
+        self,
+        codes: Dataset,
+        algorithm: str = "lvq1",
+        batch_size: int = 1024,
+        winlen: float = 0.3,
+        epsilon: float = 0.1,
+        mesh=None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_interval: int = 0,
+        seed: int = 0,
+        device: Union[torch.device, str] = "cuda",
+    ):
+        if algorithm not in ("lvq1", "lvq2", "lvq3"):
+            raise ValueError(
+                f"unknown algorithm {algorithm!r} (lvq1|lvq2|lvq3; "
+                "use OLVQ1Trainer for olvq1)")
+        super().__init__(codes, batch_size, mesh, checkpoint_dir,
+                         checkpoint_interval, seed, device)
+        self.algorithm = algorithm
+        self.winlen = float(winlen)
+        self.epsilon = float(epsilon)
+
+    def fit(self, data: Union[Dataset, Iterable[Dataset]], rlen: int,
+            alpha: float, alpha_type: str = "linear", resume: bool = True,
+            progress: Optional[StepTimer] = None,
+            allow_short_stream: bool = False) -> Dataset:
+        """Train for `rlen` samples in batches; the alpha schedule
+        (lvq_pak.c:901-921) is read at each batch's first sample.  A
+        stream that runs dry before `rlen` samples raises unless
+        allow_short_stream=True."""
+        bs = self.batch_size
+        nb = max(1, rlen // bs)
+        talp = alpha_schedule(rlen, alpha, alpha_type)[::max(1, bs)][:nb]
+        M, clabels, meta = lvq_codebook_to_torch(self.meta, self.device)
+        start = 0
+        st = self._resume(nb, resume)
+        if st is not None:
+            M = torch.tensor(np.asarray(st.codes, np.float32), device=self.device)
+            start = st.step
+        last_ckpt = start
+        for b, xb, xl, mb in self._batches(data, start, nb, allow_short_stream):
+            if self.algorithm == "lvq1":
+                lvq1_batch_step(M, clabels, xb, xl, float(talp[b]), mask=mb)
+            else:
+                lvq23_batch_step(M, clabels, xb, xl, float(talp[b]), self.winlen,
+                                 epsilon=self.epsilon,
+                                 lvq3=self.algorithm == "lvq3", mask=mb)
+            if progress is not None:
+                progress.step(bs)
+            if (self.ckpt is not None and self.checkpoint_interval
+                    and (b + 1) - last_ckpt >= self.checkpoint_interval):
+                last_ckpt = b + 1
+                self.ckpt.save(TrainState(codes=M.cpu().numpy(), step=b + 1))
+        return self._finish(M, meta, TrainState(codes=M.cpu().numpy(), step=nb))
+
+
+class OLVQ1Trainer(_LVQBase):
+    """Minibatch olvq1 training with per-code adaptive learning rates
+    (models.fast.olvq1_batch_step: K1 `dist_argmin`, K4 when masked) on
+    `device`, "cuda" by default.  `alpha` is the initial rate and the clip.
+    Interval checkpoints fire at batches b with (b + 1) % interval == 0
+    and carry the alphas."""
+
+    def __init__(
+        self,
+        codes: Dataset,
+        batch_size: int = 1024,
+        alpha: float = 0.3,
+        mesh=None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_interval: int = 0,
+        seed: int = 0,
+        device: Union[torch.device, str] = "cuda",
+    ):
+        super().__init__(codes, batch_size, mesh, checkpoint_dir,
+                         checkpoint_interval, seed, device)
+        self.clip = float(alpha)
+
+    def fit(self, data: Union[Dataset, Iterable[Dataset]], rlen: int,
+            resume: bool = True, progress: Optional[StepTimer] = None,
+            allow_short_stream: bool = False) -> Dataset:
+        """`data` is a Dataset (batches sampled with replacement) or an
+        iterable of chunk Datasets (StreamingReader.chunks, the reference's
+        -buffer reading, lvqtrain.c:181)."""
+        nb = max(1, rlen // self.batch_size)
+        M, clabels, meta = lvq_codebook_to_torch(self.meta, self.device)
+        alphas = torch.full((M.shape[0],), self.clip, dtype=torch.float32,
+                            device=self.device)
+        start = 0
+        st = self._resume(nb, resume)
+        if st is not None:
+            M = torch.tensor(np.asarray(st.codes, np.float32), device=self.device)
+            if st.alphas is not None:
+                alphas = torch.tensor(np.asarray(st.alphas, np.float32),
+                                      device=self.device)
+            start = st.step
+        for b, xb, xl, mb in self._batches(data, start, nb, allow_short_stream):
+            M, alphas = olvq1_batch_step(M, clabels, alphas, xb, xl,
+                                         clip=self.clip, mask=mb)
+            if progress is not None:
+                progress.step(self.batch_size)
+            if (self.ckpt is not None and self.checkpoint_interval
+                    and (b + 1) % self.checkpoint_interval == 0):
+                self.ckpt.save(TrainState(codes=M.cpu().numpy(), step=b + 1,
+                                          alphas=alphas.cpu().numpy()))
+        return self._finish(M, meta, TrainState(codes=M.cpu().numpy(), step=nb,
+                                                alphas=alphas.cpu().numpy()))

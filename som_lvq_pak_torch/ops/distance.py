@@ -61,3 +61,22 @@ def find_winners(x: torch.Tensor, codes: torch.Tensor,
     d = sq_distances(x, codes, mask)
     idx = torch.argmin(d, dim=-1)
     return idx, d.gather(1, idx[:, None])[:, 0]
+
+
+def topk_winners(x: torch.Tensor, codes: torch.Tensor, k: int,
+                 mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched k-NN: (indices (B, k), sq-dists (B, k)) by ascending
+    distance, equal distances lowest index first, as `lax.top_k` orders them
+    (the JAX package's reference_ties=False).  Built from k first-minimum
+    `argmin`s, each pick masked out with +inf: `torch.topk` promises no
+    order among equal values."""
+    if not 1 <= k <= codes.shape[0]:
+        raise ValueError(f"k = {k} needs 1 <= k <= {codes.shape[0]} codes")
+    d = sq_distances(x, codes, mask)
+    work = d.clone()
+    idx = torch.empty((x.shape[0], k), dtype=torch.int64, device=x.device)
+    for j in range(k):
+        idx[:, j] = torch.argmin(work, dim=-1)
+        work.scatter_(1, idx[:, j:j + 1], float("inf"))
+    return idx, d.gather(1, idx)

@@ -25,17 +25,20 @@ from som_lvq_pak_tpu.utils import checkpoint as jcheckpoint
 from som_lvq_pak_tpu.utils.rng import CRandom as JCRandom
 from som_lvq_pak_torch import _build, config
 from som_lvq_pak_torch.convert import (as_port_dataset, codebook_to_torch,
+                                       labeled_samples_to_torch, lvq_codebook_to_torch,
                                        samples_to_torch, to_dataset)
 from som_lvq_pak_torch.data import io
 from som_lvq_pak_torch.data.dataset import Dataset as PDataset
 from som_lvq_pak_torch.data.labels import GLOBAL_LABELS, LabelTable
 from som_lvq_pak_torch.data.streaming import StreamingReader
 from som_lvq_pak_torch.models import common, fast, som
-from som_lvq_pak_torch.models.trainer import SOMTrainer
+from som_lvq_pak_torch.models import eval as peval
+from som_lvq_pak_torch.models.trainer import LVQTrainer, OLVQ1Trainer, SOMTrainer
 from som_lvq_pak_torch.utils import checkpoint
 from som_lvq_pak_torch.utils.rng import CRandom
 from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
                                                dist_argmin_t)
+from som_lvq_pak_torch.ops.dist_top2 import dist_top2, dist_top2_masked
 from som_lvq_pak_torch.ops.som_step import som_fused_train_step
 from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
                                               som_neighborhood_update_idx_masked)
@@ -166,11 +169,14 @@ def test_wrappers_route_cpu_to_plain_and_reject_other_devices():
     bmu = torch.zeros(10, dtype=torch.int32)
     wrappers = (dist_argmin, dist_argmin_masked, dist_argmin_t,
                 som_fused_train_step, som_neighborhood_update_idx,
-                som_neighborhood_update_idx_masked, som_vmem_train_steps)
+                som_neighborhood_update_idx_masked, som_vmem_train_steps,
+                dist_top2, dist_top2_masked)
     before = [w.launches for w in wrappers]
     dist_argmin(x, c)
     dist_argmin(x, c, mask=mask)
     dist_argmin_t(x, c)
+    dist_top2(x, c)
+    dist_top2(x, c, mask=mask)
     som_fused_train_step(c.clone(), x, bmu, x, 3, True, 0.1, 2.0)
     som_neighborhood_update_idx(c.clone(), x, bmu, 3, True, 0.1, 2.0)
     som_neighborhood_update_idx(c.clone(), x, bmu, 3, True, 0.1, 2.0, mask=mask)
@@ -185,6 +191,10 @@ def test_wrappers_route_cpu_to_plain_and_reject_other_devices():
         dist_argmin(xm, cm, mask=mask.to("meta"))
     with pytest.raises(ValueError, match="device"):
         dist_argmin_t(xm, cm)
+    with pytest.raises(ValueError, match="device"):
+        dist_top2(xm, cm)
+    with pytest.raises(ValueError, match="device"):
+        dist_top2(xm, cm, mask=mask.to("meta"))
     with pytest.raises(ValueError, match="device"):
         som_fused_train_step(cm, xm, bm, xm, 3, True, 0.1, 2.0)
     with pytest.raises(ValueError, match="device"):
@@ -342,22 +352,35 @@ def test_as_port_dataset_carries_labels_by_name():
 
 
 def test_entry_points_default_to_the_gpu():
-    """SOMTrainer, find_qerror, codebook_to_torch, samples_to_torch and
+    """SOMTrainer, LVQTrainer, OLVQ1Trainer, find_qerror, accuracy,
+    classify, codebook_to_torch, samples_to_torch, the LVQ conversions and
     unit_coords run on "cuda" unless the caller asks for the CPU; without a
     GPU they raise and never fall back."""
     for fn in (codebook_to_torch, samples_to_torch, fast.unit_coords,
-               som.find_qerror, SOMTrainer.__init__):
+               som.find_qerror, SOMTrainer.__init__, LVQTrainer.__init__,
+               OLVQ1Trainer.__init__, peval.accuracy, peval.classify,
+               labeled_samples_to_torch, lvq_codebook_to_torch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     X = np.random.default_rng(1).normal(size=(64, 3)).astype(np.float32)
     data = PDataset(points=X)
     init = som.randinit(data, Topology.HEXA, Neighborhood.GAUSSIAN, 4, 3, CRandom(1))
-    assert SOMTrainer(init).device.type == "cuda"
+    labels = (np.arange(64) % 2 + 1).astype(np.int32)
+    ldata = PDataset(points=X, labels=labels)
+    lcodes = PDataset(points=X[:6], labels=labels[:6], topol=Topology.LVQ)
+    for tr in (SOMTrainer(init), LVQTrainer(lcodes), OLVQ1Trainer(lcodes)):
+        assert tr.device.type == "cuda"
     if torch.cuda.is_available():
         return
     for call in (lambda: codebook_to_torch(init), lambda: samples_to_torch(data),
                  lambda: fast.unit_coords(4, 3, True), lambda: som.find_qerror(init, data),
                  lambda: SOMTrainer(init, batch_size=16).fit(data, rlen=64, alpha=0.05,
-                                                             radius=2.0)):
+                                                             radius=2.0),
+                 lambda: LVQTrainer(lcodes, "lvq3", batch_size=16).fit(ldata, rlen=64,
+                                                                      alpha=0.05),
+                 lambda: OLVQ1Trainer(lcodes, batch_size=16).fit(ldata, rlen=64),
+                 lambda: peval.accuracy(ldata, lcodes), lambda: peval.classify(ldata, lcodes),
+                 lambda: labeled_samples_to_torch(ldata), lambda: lvq_codebook_to_torch(lcodes)):
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             call()
     assert som.find_qerror(init, data, device="cpu") > 0
+    assert peval.accuracy(ldata, lcodes, device="cpu")[0] > 0

@@ -119,6 +119,21 @@ def test_dataset_fit_quality_matches_jax():
     assert abs(_jax_q(out, X) - q_ref) < 0.05 * q_ref
 
 
+def test_dataset_shuffle_depends_on_seed():
+    """Each lap's order derives from (seed, lap): another seed, another
+    order.  (The CPU generator keeps only the low 32 bits of its seed, and
+    seed and lap once shared one 64-bit seed, so every seed shuffled alike.)"""
+    X = _blobs(n=300)
+    init = P(_init(X, 6, 4, Topology.HEXA, Neighborhood.GAUSSIAN))
+    perms = [SOMTrainer(init, seed=s, device="cpu")._lap_perm(0, 300) for s in (1, 2)]
+    assert not np.array_equal(*perms)
+    assert np.array_equal(perms[0], SOMTrainer(init, seed=1, device="cpu")._lap_perm(0, 300))
+    kw = dict(rlen=B * 4, alpha=0.05, radius=3.0)
+    outs = [SOMTrainer(init, batch_size=B, seed=s, device="cpu", vmem_steps=False).fit(
+        PDataset(points=X), **kw).points for s in (1, 2)]
+    assert not np.array_equal(*outs)
+
+
 def _drop_after(ckpt, step):
     assert step in ckpt.steps(), ckpt.steps()
     for s in ckpt.steps():
