@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # the e2e cells under torch.profiler
+    python3 chip_smoke.py --mesh       # the mesh phases 14-17 alone
 
-Needs one CUDA device and nvcc; exits non-zero without them.  With
+Needs one CUDA device and nvcc; exits non-zero without them.  With --mesh
+it builds the kernels and runs phase 6's single-device run and the mesh
+phases only; on a host with at least as many cards as a world has ranks
+the world runs NCCL, one card per rank (parallel.mesh's backend rule).  With
 --profile it builds the kernels and runs each e2e cell of phases 4-13 once
 (after its warm-up) under torch.profiler, printing for its training and
 its evaluation one "profile" line: the wall, the device's busy time (the
@@ -62,16 +66,58 @@ line:
             (K8 clean, K9 masked), the masked accuracy (K4); within 0.5
             points of the plain run.
 
+The mesh phases (14-17) each spawn a world of processes on this one card
+(parallel.mesh.spawn: one process per mesh position, a file:// rendezvous,
+gloo, since NCCL takes one card per rank; collectives staged through
+pinned host memory) and print the backend, the layout, train_s, the
+quality number against its gate and each rank's launch counts.  Each rank
+sets its counters to 0 before its fit and reads them after; the gate is
+the single-device port run on the same data in this script:
+
+14. e2e_mesh_tp_256x256_1M  (data 1, model 2) SOMTrainer(mesh=) on phase
+            8's 1M data and map as a Dataset: the pure-TP fused step (K3
+            with each shard's unit offset, K1 prologue); qerror within 1% of
+            the single-device Dataset run, the codebook bit-equal to it;
+15. e2e_mesh_mixed_256x256_100k  (data 2, model 2) first one mixed step
+            on the whole 256x256 map against K3 on the same inputs (codes
+            within 1e-5, winners equal except at near-ties); then the drift
+            chains, 24 steps over the first 100k rows in order: K3 on one
+            card, and the mixed step taking its own winners (free) or the K3
+            chain's (forced, within DRIFT_FORCED_ATOL of the K3 chain);
+            then the trainer on the first 100k rows: the mixed step (K11,
+            the data-axis sum in two row segments, K12); qerror within 1% of
+            the single-device run, the codebook's mean and max distance from
+            it within DRIFT_RATIO times those of the single-device run on
+            the data moved up by one ulp (near-tie winner flips carry any
+            rounding difference over the map);
+16. e2e_mesh_masked_stream_128x128_100k  (data 2, model 1) phase 6's
+            masked, weighted stream: the two-pass step (K1 clean, K4 masked
+            batches); qerror within 1% of phase 6;
+17. e2e_mesh_lvq_65536  (data 2, model 2, in phase 15's world) phase 11's
+            data and codebook: OLVQ1Trainer(mesh=) over 262,144 streamed
+            rows (K1 at B 512 x 32768 per rank), then LVQTrainer("lvq3",
+            mesh=) from its codebook (K10, k = 2); each accuracy over the 1M
+            within 0.5 points of the single-device runs on the same stream.
+
 K8/K9 (dist_top2, plain and masked) are held against their plain version in
 phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), at 1000 x 999 x 5,
 with every code twice (exact ties: both indices equal the plain version's),
-and at N = 2; K9 with p = 0.1 and fully masked rows.
+and at N = 2; K9 with p = 0.1 and fully masked rows.  K10 (dist_topk) at
+the mesh step's shapes (B 1024 and 512 x 32768 x 64, k = 2), small shapes
+at k = 1, 5 and 16, and every code twice; K11 (som_neighborhood_accumulate)
+at a 32768-row shard of the 256x256 map (offset 32768, B 2048), gaussian
+and bubble, hexa and rect, scalar and per-sample alpha; K12
+(som_blend_winner) at that shard with B' 2048 and 4096 and with every row
+twice, and K11 then K12 against K3 on one shard; K3 on each half of the
+256x256 map with its unit offset against the unsharded run; K1 at the
+mesh's B 512 x 32768.
 
-Each main-path run (4-13) sets every launch counter to 0 before it and
+Each main-path run (4-17) sets every launch counter to 0 before it and
 reads them after: each kernel of that path must have launched, and the
 plain runs must launch none.  Then one line with every kernel's record
-(launches summed over those runs), the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Any failure ends the run non-zero first.
+(launches summed over those runs, over every rank), the nvidia-smi line,
+and last {"ok": true, "device": {...}}.  Any failure, a rank that fails or
+a world past its time limit included, ends the run non-zero first.
 
 Nothing here imports jax or the JAX package: the host types (Dataset,
 Topology, CRandom) are the port's own.
@@ -84,6 +130,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -412,6 +459,188 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
     return rec
 
 
+def phase_topk(B, N, D, k, seed, dup=False, iters=10):
+    """K10 against its plain version (ops.distance.topk_winners): each of
+    the k index columns equal except at near-ties, values within 1e-4.  With
+    `dup` every code is there twice: every index must equal the plain
+    version's, and each sample's neighbours come as (row, copy) pairs."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_topk import dist_topk, dist_topk_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, D), generator=g, device="cuda")
+    if dup:
+        base = torch.randn((N // 2, D), generator=g, device="cuda")
+        codes = torch.cat([base, base]).contiguous()
+    else:
+        codes = torch.randn((N, D), generator=g, device="cuda")
+    vk, ik = dist_topk(x, codes, k)
+    vp, ip = dist_topk_plain(x, codes, k)
+    torch.cuda.synchronize()
+    name = f"dist_topk k={k}"
+    n_diff = sum(check_winners(f"{name} column {j}", x, codes, ik[:, j], ip[:, j])
+                 for j in range(k))
+    err = float((vk - vp).abs().max())
+    if not torch.allclose(vk, vp, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{name}: values differ by {err}")
+    if dup:
+        half = codes.shape[0] // 2
+        if not torch.equal(ik, ip):
+            raise AssertionError(f"{name}: exact ties resolved unlike the plain version")
+        if k >= 2 and not torch.equal(ik[:, 1].long(), ik[:, 0].long() + half):
+            raise AssertionError(f"{name}: a copy beat its first row")
+    # (B, D) samples and (N, D) codes in, (B, k) values and indices out
+    rec = dict(kernel=name, shape=[B, codes.shape[0], D], k=k, dup=dup,
+               winners_differ=n_diff, max_abs_err=err,
+               ms=cuda_ms(lambda: dist_topk(x, codes, k), iters),
+               plain_ms=cuda_ms(lambda: dist_topk_plain(x, codes, k), iters),
+               **bound(2 * B * codes.shape[0] * D,
+                       4 * (B * D + codes.shape[0] * D) + 8 * B * k))
+    emit("kernels", **rec)
+    return rec
+
+
+def shard_inputs(g, noc, n_local, B, D):
+    """A model shard's inputs: a batch, its global BMUs over the whole map
+    (a few samples without one) and per-sample alphas."""
+    import torch
+
+    xb = torch.randn((B, D), generator=g, device="cuda")
+    bmu = torch.randint(0, noc, (B,), generator=g, device="cuda", dtype=torch.int32)
+    bmu[:7] = -1  # samples without a BMU teach nothing
+    alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device="cuda")
+    return xb, bmu, alpha
+
+
+def phase_accum(xdim, hexa, gaussian, n_local, offset, B, D, radius, per_sample,
+                seed):
+    """K11 on the rows offset .. offset + n_local - 1 of an xdim x xdim map
+    against its plain version: acc and wsum within 1e-4 relative, 1e-5 of
+    the largest accumulator absolute (the kernel sums the batch in order,
+    the plain version's matmul in its own order)."""
+    import torch
+
+    from som_lvq_pak_torch.ops.som_accum import (som_neighborhood_accumulate,
+                                                 som_neighborhood_accumulate_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xb, bmu, alpha = shard_inputs(g, xdim * xdim, n_local, B, D)
+    a = alpha if per_sample else 0.05
+
+    def run(fn):
+        return fn(xb, bmu, n_local, xdim, hexa, a, radius, gaussian, unit_offset=offset)
+
+    ak, wk = run(som_neighborhood_accumulate)
+    ap, wp = run(som_neighborhood_accumulate_plain)
+    torch.cuda.synchronize()
+    name = (f"som_neighborhood_accumulate {xdim}x{xdim}[{offset}:{offset + n_local}] "
+            f"{'hexa' if hexa else 'rect'} {'gaussian' if gaussian else 'bubble'} "
+            f"{'per-sample' if per_sample else 'scalar'} alpha")
+    err = max(float((ak - ap).abs().max()), float((wk - wp).abs().max()))
+    for got, want in ((ak, ap), (wk, wp)):
+        if not torch.allclose(got, want, rtol=1e-4,
+                              atol=1e-5 * max(1.0, float(want.abs().max()))):
+            raise AssertionError(f"{name}: accumulators differ by {err}")
+    if float(wp.max()) <= 0:
+        raise AssertionError(f"{name}: no unit of the shard took any weight")
+    # (B, D) samples, bmu and alpha in; (n_local, D) acc and (n_local,) wsum
+    # out; 2 n_local B D FLOPs
+    rec = dict(kernel=name, shape=[n_local, B, D], radius=radius, max_abs_err=err,
+               ms=cuda_ms(lambda: run(som_neighborhood_accumulate)),
+               plain_ms=cuda_ms(lambda: run(som_neighborhood_accumulate_plain)),
+               **bound(2 * n_local * B * D, 4 * B * D + 8 * B + 4 * n_local * (D + 1)))
+    emit("kernels", **rec)
+    return rec
+
+
+def phase_blend(n_local, D, Bn, seed, dup=False):
+    """K12 against its plain version: the blended shard within 1e-5, the
+    next batch's winners equal except at near-ties, values within 1e-4.
+    With `dup` every row (and its accumulators) is there twice: the first
+    copy must win every exact tie."""
+    import torch
+
+    from som_lvq_pak_torch.ops.som_blend import som_blend_winner, som_blend_winner_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = n_local // 2 if dup else n_local
+    codes = torch.randn((rows, D), generator=g, device="cuda")
+    wsum = 2.0 * torch.rand((rows, 1), generator=g, device="cuda")
+    acc = wsum * torch.randn((rows, D), generator=g, device="cuda")
+    if dup:
+        codes, acc, wsum = (torch.cat([t, t]).contiguous() for t in (codes, acc, wsum))
+    xn = torch.randn((Bn, D), generator=g, device="cuda")
+    ck, vk, ik = som_blend_winner(codes.clone(), acc, wsum, xn)
+    cp, vp, ip = som_blend_winner_plain(codes.clone(), acc, wsum, xn)
+    torch.cuda.synchronize()
+    name = f"som_blend_winner {n_local}x{D} B' {Bn}" + (" every row twice" if dup else "")
+    if not torch.allclose(ck, cp, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
+    n_diff = check_winners(name, xn, ck, ik, ip)
+    if not torch.allclose(vk, vp, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{name}: winner values differ by {float((vk - vp).abs().max())}")
+    if dup and int(ik.max()) >= rows:
+        raise AssertionError(f"{name}: a duplicate row beat its first copy")
+    work = codes.clone()
+    # codes read and written, acc, wsum and the next batch read, the winners
+    # written; 2 n_local B' D FLOPs for the scores
+    rec = dict(kernel=name, shape=[n_local, Bn, D], dup=dup, winners_differ=n_diff,
+               max_abs_err=max(float((ck - cp).abs().max()), float((vk - vp).abs().max())),
+               ms=cuda_ms(lambda: som_blend_winner(work, acc, wsum, xn)),
+               plain_ms=cuda_ms(lambda: som_blend_winner_plain(work, acc, wsum, xn)),
+               **bound(2 * n_local * Bn * D, 12 * n_local * D + 4 * n_local + 4 * Bn * D + 8 * Bn))
+    emit("kernels", **rec)
+    return rec
+
+
+def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
+    """One step on each model-shard half of an xdim x xdim map against the
+    unsharded step on the same inputs: K3 with the half's unit offset must
+    give the unsharded K3's rows bit for bit, and the gather-min of the two
+    halves' winners (global rows, lowest on ties) its winners; K11 then K12
+    on the half (one data shard) must give the same rows as its K3 (the
+    same accumulate and blend code), winners equal except at near-ties
+    (K12 scores in the max-score form)."""
+    import torch
+
+    from som_lvq_pak_torch.ops.som_accum import som_neighborhood_accumulate
+    from som_lvq_pak_torch.ops.som_blend import som_blend_winner
+    from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+
+    noc, half = xdim * xdim, xdim * xdim // 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randn((noc, D), generator=g, device="cuda")
+    xb, bmu, alpha = shard_inputs(g, noc, half, B, D)
+    xn = torch.randn((B, D), generator=g, device="cuda")
+    args = (xdim, hexa, alpha, radius, gaussian)
+    full, i_full, v_full = som_fused_train_step(codes.clone(), xb, bmu, xn, *args)
+    parts = [som_fused_train_step(codes[m * half:(m + 1) * half].clone(), xb, bmu, xn,
+                                  *args, unit_offset=m * half) for m in (0, 1)]
+    vals = torch.stack([v for _, _, v in parts])
+    gidx = torch.stack([i + m * half for m, (_, i, _) in enumerate(parts)])
+    best = vals.min(0).values
+    won = torch.where(vals == best[None], gidx, torch.iinfo(torch.int32).max).min(0).values
+    acc, wsum = som_neighborhood_accumulate(xb, bmu, half, xdim, hexa, alpha, radius,
+                                            gaussian, unit_offset=half)
+    c12, _, i12 = som_blend_winner(codes[half:].clone(), acc, wsum, xn)
+    torch.cuda.synchronize()
+    name = f"som_fused_train_step {xdim}x{xdim} in two shards"
+    shards = torch.cat([c for c, _, _ in parts])
+    if not (torch.equal(shards, full) and torch.equal(won, i_full)
+            and torch.equal(best, v_full)):
+        raise AssertionError(f"{name}: the shards differ from the unsharded step by "
+                             f"{float((shards - full).abs().max())}, "
+                             f"{int((won != i_full).sum())} winners")
+    k12_diff = float((c12 - parts[1][0]).abs().max())
+    if not torch.allclose(c12, parts[1][0], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{name}: K11 + K12 differ from K3 by {k12_diff}")
+    n_diff = check_winners(f"{name}: K12 against K3", xn, c12, i12, parts[1][1])
+    emit("kernels", kernel=name, shape=[noc, B, D], radius=radius,
+         shards_equal_unsharded=True, k11_k12_equal_k3=bool(k12_diff == 0.0),
+         k11_k12_max_abs_diff=k12_diff, k12_winners_differ_from_k3=n_diff)
+
+
 def blob_data(seed: int, n: int, n_centres: int):
     """bench.py's e2e data: gaussian clusters around N(0, 4) centres."""
     rng = np.random.default_rng(seed)
@@ -458,11 +687,15 @@ def counted():
     from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
                                                   som_neighborhood_update_idx_masked)
     from som_lvq_pak_torch.ops.dist_top2 import dist_top2, dist_top2_masked
+    from som_lvq_pak_torch.ops.dist_topk import dist_topk
+    from som_lvq_pak_torch.ops.som_accum import som_neighborhood_accumulate
+    from som_lvq_pak_torch.ops.som_blend import som_blend_winner
     from som_lvq_pak_torch.ops.som_vmem import som_vmem_train_steps
 
     return (dist_argmin, dist_argmin_t, som_fused_train_step, dist_argmin_masked,
             som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
-            som_vmem_train_steps, dist_top2, dist_top2_masked)
+            som_vmem_train_steps, dist_top2, dist_top2_masked, dist_topk,
+            som_neighborhood_accumulate, som_blend_winner)
 
 
 def main_path(name, run, kernels, plain_run=None):
@@ -500,6 +733,21 @@ def random_codes(X, map_dim, mask=None):
                     rng=crng)
 
 
+def som_stream(X, chunk, total, mask=None, weight=None, labels=None):
+    """Chunks of `chunk` rows of X (with their slices of mask, weight= and
+    labels), from row 0 and wrapping around, until `total` samples."""
+    from som_lvq_pak_torch.models.som import Dataset
+
+    n, sent = X.shape[0], 0
+    while sent < total:
+        lo = sent % n
+        sl = slice(lo, min(lo + chunk, n))
+        yield Dataset(points=X[sl], mask=None if mask is None else mask[sl],
+                      weight=None if weight is None else weight[sl],
+                      labels=None if labels is None else labels[sl])
+        sent += sl.stop - lo
+
+
 def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
         around=None):
     """One streamed lap of SOMTrainer.fit, then find_qerror(fast) on a
@@ -512,19 +760,13 @@ def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
     "train" and "eval" parts."""
     import torch
 
-    from som_lvq_pak_torch.models.som import Dataset, find_qerror
+    from som_lvq_pak_torch.models.som import find_qerror
     from som_lvq_pak_torch.models.trainer import SOMTrainer
 
     n = X.shape[0]
 
     def stream(total):
-        sent = 0
-        while sent < total:
-            lo = sent % n
-            sl = slice(lo, min(lo + chunk, n))
-            yield Dataset(points=X[sl], mask=None if mask is None else mask[sl],
-                          weight=None if weight is None else weight[sl])
-            sent += sl.stop - lo
+        return som_stream(X, chunk, total, mask=mask, weight=weight)
 
     codes = random_codes(X, map_dim, mask)
     X_dev = torch.from_numpy(X).to("cuda")
@@ -592,13 +834,7 @@ def lvq_e2e(make, fit_kw, X, lab, codes, table, chunk, mask=None, rlen=None,
     rlen = n if rlen is None else rlen
 
     def stream(total):
-        sent = 0
-        while sent < total:
-            lo = sent % n
-            sl = slice(lo, min(lo + chunk, n))
-            yield Dataset(points=X[sl], labels=lab[sl],
-                          mask=None if mask is None else mask[sl])
-            sent += sl.stop - lo
+        return som_stream(X, chunk, total, mask=mask, labels=lab)
 
     data = Dataset(points=X, labels=lab, mask=mask)
     bs = make(codes).batch_size
@@ -630,17 +866,18 @@ def check_accuracy(name, pct, pct_plain):
         raise AssertionError(f"{name}: accuracy {pct} vs plain {pct_plain} (> 0.5 points)")
 
 
-def olvq1_trainer(codes):
+def olvq1_trainer(codes, mesh=None):
     from som_lvq_pak_torch.models.trainer import OLVQ1Trainer
 
-    return OLVQ1Trainer(codes, batch_size=1024, alpha=0.3, device="cuda")
+    return OLVQ1Trainer(codes, batch_size=1024, alpha=0.3, mesh=mesh, device="cuda")
 
 
 def lvq_trainer(algorithm):
     from som_lvq_pak_torch.models.trainer import LVQTrainer
 
-    return lambda codes: LVQTrainer(codes, algorithm, winlen=0.3, epsilon=0.1,
-                                    batch_size=1024, device="cuda")
+    return lambda codes, mesh=None: LVQTrainer(codes, algorithm, winlen=0.3,
+                                               epsilon=0.1, batch_size=1024,
+                                               mesh=mesh, device="cuda")
 
 
 def masked_lvq_e2e(X, lab, mask, codes, table, around=None):
@@ -738,6 +975,232 @@ def profile_cells() -> None:
                    around=lambda part: profiled(f"e2e_masked_lvq_4096_100k {part}"))
 
 
+# ---- the mesh phases: worker functions run by every rank of a world ----------
+# (parallel.mesh.spawn starts each rank with the "spawn" method, which loads
+# this file as its main module; nothing here imports jax)
+
+MESH_TIMEOUT_S = 300.0
+
+
+def rank_fit(mesh, fit):
+    """On every rank: the launch counters set to 0, a barrier, `fit()` (a
+    trainer's fit, or a step returning (codes, winners)), a synchronize;
+    returns (its result, the rank's record: train_s, launches, the whole
+    codebook (and winners), backend and layout)."""
+    import torch
+    import torch.distributed as dist
+
+    for fn in counted():
+        fn.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fit()
+    torch.cuda.synchronize()
+    rec = dict(train_s=time.perf_counter() - t0,
+               launches={fn.__name__: fn.launches for fn in counted()},
+               backend=mesh.backend, layout=mesh.shape)
+    if isinstance(out, tuple):
+        rec.update(codes=out[0].cpu().numpy(), winners=out[1].cpu().numpy())
+    else:
+        rec["codes"] = out.points
+    dist.barrier()
+    return out, rec
+
+
+def mesh_som(mesh, X, map_dim, bs, radius, chunk=None, mask=None, weight=None):
+    """SOMTrainer(mesh=) for one lap of X from the random-init map: a
+    Dataset (the fused steps), or with `chunk` a stream (the two-pass
+    step)."""
+    from som_lvq_pak_torch.models.som import Dataset
+    from som_lvq_pak_torch.models.trainer import SOMTrainer
+
+    codes = random_codes(X, map_dim, mask)
+    n = X.shape[0]
+    data = (Dataset(points=X) if chunk is None
+            else som_stream(X, chunk, n, mask=mask, weight=weight))
+    return rank_fit(mesh, lambda: SOMTrainer(codes, batch_size=bs, mesh=mesh,
+                                             device="cuda").fit(
+        data, rlen=n, alpha=0.05, radius=radius, allow_short_stream=True,
+        use_weights=weight is not None))[1]
+
+
+def mesh_tp_world(mesh):
+    """Phase 14 on each rank of the (data 1, model 2) world."""
+    return {"tp": mesh_som(mesh, blob_data(7, 1_000_000, 16), 256, 4096, 64)}
+
+
+def step_inputs(seed=37, noc=65536, B=4096, D=64):
+    """One step's inputs on a 256x256 map: codes, a batch, its BMUs and the
+    next batch (default_rng(seed))."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    return f(noc, D), f(B, D), rng.integers(0, noc, size=B).astype(np.int32), f(B, D)
+
+
+DRIFT_STEPS = 24
+# Limits set from the first run of these checks on one H100 (PERF.md): the
+# forced chain came within 2.0e-5 of the K3 chain; the mixed trainer's mean
+# and max distance from the single-device run were 0.74x and 0.64x those of
+# the single-device run on the data moved up one ulp
+DRIFT_FORCED_ATOL = 1e-4
+DRIFT_RATIO = 2.0
+
+
+def spread(a, b) -> dict:
+    """How far codebook `a` is from `b`: max and mean |a - b| and the share
+    of entries off by more than 1e-3."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                share_off_by_1e_3=float((d > 1e-3).mean()))
+
+
+def up_one_ulp(a):
+    return np.nextafter(a, np.float32(np.inf)).astype(np.float32)
+
+
+def k3_chain(X, nudge=None):
+    """The drift chain on one card: K1 for batch 0's winners, then
+    DRIFT_STEPS K3 steps over drift_inputs(X) (batch t + 1, batch 0 after
+    the last, the next batch); with `nudge` "codes" or "data" from the
+    codebook or on the data moved up by one ulp.  Returns (the codebook,
+    (DRIFT_STEPS + 1, 4096) winners: batch 0's, then each step's next
+    batch's)."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_argmin import dist_argmin
+    from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+
+    codes, batches, alphas, radii = drift_inputs(X)
+    if nudge == "codes":
+        codes = up_one_ulp(codes)
+    elif nudge == "data":
+        batches = up_one_ulp(batches)
+    M = torch.from_numpy(codes).to("cuda")
+    xs = torch.from_numpy(batches).to("cuda")
+    seq = [dist_argmin(xs[0], M)[1]]
+    for t in range(DRIFT_STEPS):
+        seq.append(som_fused_train_step(M, xs[t], seq[-1], xs[(t + 1) % DRIFT_STEPS],
+                                        256, True, float(alphas[t]), float(radii[t]),
+                                        True)[1])
+    return M.cpu().numpy(), torch.stack(seq).cpu().numpy()
+
+
+def drift_inputs(X):
+    """The drift chains' inputs from phase 15's 100k rows: the random-init
+    256x256 codebook, DRIFT_STEPS batches of 4096 rows in order, and the
+    trainer's alpha (0.05, linear) and radius (64) at each batch."""
+    from som_lvq_pak_torch.models.common import alpha_schedule, radius_schedule
+
+    bs = 4096
+    rlen = DRIFT_STEPS * bs
+    return (random_codes(X, 256).points, X[:rlen].reshape(DRIFT_STEPS, bs, -1),
+            alpha_schedule(rlen, 0.05)[::bs], radius_schedule(rlen, 64.0)[::bs])
+
+
+def mixed_chain(mesh, step, X, bmu_ref, forced):
+    """The drift chain through the mixed step on this rank's shards, as the
+    trainer runs it: DRIFT_STEPS steps from drift_inputs(X), batch t + 1
+    (batch 0 after the last) the next batch, the first winners bmu_ref[0]
+    (the K3 chain's).  Each step takes the previous step's own winners, or
+    with `forced` the K3 chain's (bmu_ref[t]).  Returns (the whole codebook,
+    per step the number of the step's winners that differ from the K3
+    chain's)."""
+    import torch
+
+    codes, batches, alphas, radii = drift_inputs(X)
+    n, T, B = codes.shape[0], batches.shape[0], batches.shape[1]
+    rows, bs = mesh.rows(n), mesh.batch_rows(B)
+    xs = torch.from_numpy(np.ascontiguousarray(batches[:, bs])).to(mesh.device)
+    ref = torch.from_numpy(np.ascontiguousarray(bmu_ref[:, bs])).to(mesh.device)
+    c = torch.from_numpy(codes[rows]).to(mesh.device)
+    bmu, flips = ref[0], []
+    for t in range(T):
+        c, own = step.local(c, xs[t], bmu, xs[(t + 1) % T], float(alphas[t]),
+                            float(radii[t]), rows.start)
+        flips.append((own != ref[t + 1]).sum())
+        bmu = ref[t + 1] if forced else own
+    return (mesh.gather_rows(c, n),
+            mesh.all_reduce(torch.stack(flips).to(torch.int32), "data"))
+
+
+def mesh_22_world(mesh, rlen, bmu_ref):
+    """Phases 15 and 17 on each rank of the (data 2, model 2) world: one
+    mixed step from step_inputs() (make_mixed_fused_som_train_step with two
+    row segments), the drift chains (mixed_chain, free and forced, against
+    the K3 chain's winners `bmu_ref`), the trainer's mixed path, then
+    OLVQ1Trainer(mesh=) for `rlen` streamed rows and LVQTrainer("lvq3",
+    mesh=) for as many from its codebook."""
+    import torch
+
+    from som_lvq_pak_torch.parallel.sharded import make_mixed_fused_som_train_step
+
+    step = make_mixed_fused_som_train_step(mesh, True, 256, True, overlap_segments=2)
+    args = [torch.from_numpy(a).to(mesh.device) for a in step_inputs()]
+    X = blob_data(7, 1_000_000, 16)[:100_000]
+    out = {"mixed_step": rank_fit(mesh, lambda: step(*args, 0.05, 64.0))[1],
+           "drift_free": rank_fit(mesh, lambda: mixed_chain(mesh, step, X, bmu_ref,
+                                                            False))[1],
+           "drift_forced": rank_fit(mesh, lambda: mixed_chain(mesh, step, X, bmu_ref,
+                                                              True))[1],
+           "mixed": mesh_som(mesh, X, 256, 4096, 64)}
+    X, lab, _ = lvq_data()
+    codes = lvq_codes(X, lab, 65536)
+    trained, out["olvq1"] = rank_fit(mesh, lambda: olvq1_trainer(codes, mesh=mesh).fit(
+        som_stream(X, 16384, rlen, labels=lab), rlen=rlen))
+    out["lvq3"] = rank_fit(mesh, lambda: lvq_trainer("lvq3")(trained, mesh=mesh).fit(
+        som_stream(X, 16384, rlen, labels=lab), rlen=rlen, alpha=0.01))[1]
+    return out
+
+
+def mesh_masked_world(mesh):
+    """Phase 16 on each rank of the (data 2, model 1) world: phase 6's
+    stream."""
+    Xm, mask, weight = masked_stream_data()
+    return {"masked": mesh_som(mesh, Xm, 128, 1024, 32, chunk=8192, mask=mask,
+                               weight=weight)}
+
+
+def masked_stream_data():
+    """Phase 6's data: the 100k blobs with every other 8192-row chunk
+    masked, and weight= tokens."""
+    Xm, mask, rng = masked_data(blob_data(42, 100_000, 4), 43, 8192, every_other=True)
+    return Xm, mask, rng.uniform(0.5, 2.0, size=Xm.shape[0]).astype(np.float32)
+
+
+def run_world(fn, data, model, kernels, *args):
+    """`fn` on every rank of a data x model world on this card.  Each rank
+    returns {fit name: record}; every rank must return the same codebooks
+    and have launched each of kernels[fit name] in that fit.  Returns
+    {fit name: [each rank's record]}, the launches summed over ranks and
+    fits, and the world's wall (spawn to exit)."""
+    from som_lvq_pak_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(fn, data, model, "cuda", *args, timeout_s=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    fits = {name: [r[name] for r in ranks] for name in ranks[0]}
+    total = {}
+    for name, recs in fits.items():
+        if any(not np.array_equal(r["codes"], recs[0]["codes"]) for r in recs):
+            raise AssertionError(f"{name}: the ranks returned different codebooks")
+        for rank, rec in enumerate(recs):
+            idle = [k for k in kernels[name] if rec["launches"][k] == 0]
+            if idle:
+                raise AssertionError(f"{name}: rank {rank} never launched {idle}")
+            for k, n in rec["launches"].items():
+                total[k] = total.get(k, 0) + n
+    return fits, total, world_s
+
+
+def world_record(recs):
+    """What a mesh phase prints of its fit: backend, layout, train_s (the
+    slowest rank's) and each rank's nonzero launch counts."""
+    return dict(backend=recs[0]["backend"], layout=recs[0]["layout"], ranks=len(recs),
+                train_s=max(r["train_s"] for r in recs),
+                launches_per_rank=[{k: n for k, n in r["launches"].items() if n}
+                                   for r in recs])
+
+
 def masked_data(X, seed, chunk, every_other):
     """bench.py's e2e data with missing components: each component masked
     with p = 0.1 and every 997th row fully masked (default_rng(seed)); with
@@ -774,10 +1237,192 @@ def som_batch_steps(X, map_dim, bs, steps):
     return M
 
 
+def mesh_phases(smi, tally, q_masked128):
+    """Phases 14-17: each mesh world against the single-device port run on
+    the same data; `tally(launches)` takes each run's counts, `q_masked128`
+    is phase 6's qerror."""
+    import torch
+
+    from som_lvq_pak_torch.models.eval import accuracy
+    from som_lvq_pak_torch.models.som import Dataset, find_qerror
+    from som_lvq_pak_torch.models.trainer import SOMTrainer
+    from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+
+    def single_som(X, map_dim, name, nudge=None):
+        """The single-device port run a mesh phase is gated on: the same
+        Dataset, batch, schedule and seed (K1 prologue, K3 per step); with
+        `nudge` "codes" or "data" from the random-init codebook or on the
+        data moved up by one ulp."""
+        codes = random_codes(X, map_dim)
+        if nudge == "codes":
+            codes = replace(codes, points=up_one_ulp(codes.points))
+        data = Dataset(points=up_one_ulp(X) if nudge == "data" else X)
+
+        def run():
+            t0 = time.perf_counter()
+            out = SOMTrainer(codes, batch_size=4096, device="cuda").fit(
+                data, rlen=X.shape[0], alpha=0.05, radius=64)
+            torch.cuda.synchronize()
+            return out.points, time.perf_counter() - t0
+
+        (codes_1, train_1), _, got = main_path(name, run,
+                                               ("dist_argmin", "som_fused_train_step"))
+        tally(got)
+        return codes_1, train_1
+
+    def som_gates(name, codes_m, codes_1, X, mask=None, codebook=None):
+        """qerror of the mesh codebook within 1% of the single-device one's
+        (`codes_1`, or its qerror).  codebook "equal": the two codebooks
+        bit for bit (the TP step runs K3's arithmetic on every row); a
+        spread() of the single-device run from itself on the data moved up
+        by one ulp: the mesh codebook's mean and max distance from `codes_1`
+        each at most DRIFT_RATIO times that spread's (the mixed step sums each
+        row's accumulators in two halves and scores winners in the
+        max-score form, so it differs from K3 by rounding, and near-tie
+        winner flips carry any rounding difference over the map: the
+        forced drift chain shows the step without flips stays on K3).  The
+        record is printed before a failed gate raises."""
+        X_dev = torch.from_numpy(X).to("cuda")
+        mk = None if mask is None else torch.from_numpy(mask).to("cuda")
+        q_m = find_qerror(torch.from_numpy(codes_m).to("cuda"), X_dev, mask=mk) / X.shape[0]
+        q_1 = codes_1 if codebook is None else (
+            find_qerror(torch.from_numpy(codes_1).to("cuda"), X_dev, mask=mk) / X.shape[0])
+        rec = dict(qerror_per_sample=q_m, single_qerror_per_sample=q_1,
+                   gate="qerror within 1% of the single-device run")
+        ok = bool(np.isfinite(q_m) and abs(q_m - q_1) <= 0.01 * q_1)
+        if codebook is not None:
+            rec["codebook"] = got = spread(codes_m, codes_1)
+            if codebook == "equal":
+                ok = ok and np.array_equal(codes_m, codes_1)
+                rec["gate"] += ", codebook bit-equal to it"
+            else:
+                rec["single_nudged_data"] = codebook
+                ok = ok and all(got[k] <= DRIFT_RATIO * codebook[k]
+                                for k in ("max_abs", "mean_abs"))
+                rec["gate"] += (f", codebook mean and max |diff| each within "
+                                f"{DRIFT_RATIO}x those of the single-device run on "
+                                f"the data moved up by one ulp")
+        if not ok:
+            emit(name + " failed", **rec)
+            raise AssertionError(f"{name}: gate failed: {rec}")
+        return rec
+
+    # (data 1, model 2): the pure-TP fused step on the 1M data
+    X = blob_data(7, 1_000_000, 16)
+    codes_1, train_1 = single_som(X, 256, "e2e_mesh_tp_256x256_1M single device")
+    fits, got, world_s = run_world(mesh_tp_world, 1, 2,
+                                   {"tp": ("dist_argmin", "som_fused_train_step")})
+    tally(got)
+    emit("e2e_mesh_tp_256x256_1M", card=smi, **world_record(fits["tp"]),
+         world_s=world_s, single_train_s=train_1,
+         **som_gates("e2e_mesh_tp_256x256_1M", fits["tp"][0]["codes"], codes_1, X,
+                     codebook="equal"))
+
+    # (data 2, model 2): the mixed step on the first 100k rows, then the LVQ
+    # trainers on 262,144 rows of the 1M labelled vectors
+    X = X[:100_000].copy()
+    codes_1, train_1 = single_som(X, 256, "e2e_mesh_mixed_256x256_100k single device")
+    # how far the single-device run drifts from itself at a rounding
+    # difference: the same run from the codebook, or on the data, moved up
+    # by one ulp (the trainer, and the drift chain)
+    nudged = {kind: spread(single_som(X, 256, f"e2e_mesh_mixed_256x256_100k nudged "
+                                      f"{kind}", nudge=kind)[0], codes_1)
+              for kind in ("codes", "data")}
+    (chain_1, bmu_ref), _, got = main_path("drift chain, K3", lambda: k3_chain(X),
+                                           ("dist_argmin", "som_fused_train_step"))
+    tally(got)
+    chain_nudged = {}
+    for kind in ("codes", "data"):
+        (chain_n, _), _, got = main_path(f"drift chain, K3 nudged {kind}",
+                                         lambda: k3_chain(X, nudge=kind),
+                                         ("dist_argmin", "som_fused_train_step"))
+        tally(got)
+        chain_nudged[kind] = spread(chain_n, chain_1)
+    rlen = 262_144
+    mixed_kernels = ("som_neighborhood_accumulate", "som_blend_winner")
+    fits, got, world_s = run_world(
+        mesh_22_world, 2, 2,
+        {"mixed": mixed_kernels + ("dist_argmin",), "olvq1": ("dist_argmin",),
+         "lvq3": ("dist_topk",), "mixed_step": mixed_kernels,
+         "drift_free": mixed_kernels, "drift_forced": mixed_kernels}, rlen, bmu_ref)
+    tally(got)
+    drift = dict(
+        steps=DRIFT_STEPS,
+        forced=dict(spread(fits["drift_forced"][0]["codes"], chain_1),
+                    winners_differ_per_step=fits["drift_forced"][0]["winners"].tolist()),
+        free=dict(spread(fits["drift_free"][0]["codes"], chain_1),
+                  winners_differ_per_step=fits["drift_free"][0]["winners"].tolist()),
+        k3_nudged=chain_nudged,
+        gate=f"forced chain within {DRIFT_FORCED_ATOL} of the K3 chain everywhere")
+    if not drift["forced"]["max_abs"] <= DRIFT_FORCED_ATOL:
+        emit("e2e_mesh_mixed_256x256_100k failed", drift=drift)
+        raise AssertionError(f"mixed drift chain: forced chain off the K3 chain: {drift}")
+    # the world's one mixed step against K3 on the whole map, same inputs
+    c, xb, bmu, xn = (torch.from_numpy(a).to("cuda") for a in step_inputs())
+    c3, i3, _ = som_fused_train_step(c, xb, bmu, xn, 256, True, 0.05, 64.0, True)
+    got_c = torch.from_numpy(fits["mixed_step"][0]["codes"]).to("cuda")
+    got_i = torch.from_numpy(fits["mixed_step"][0]["winners"]).to("cuda")
+    step_diff = float((got_c - c3).abs().max())
+    if not torch.allclose(got_c, c3, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"mixed step: codes differ from K3's by {step_diff}")
+    step_flips = check_winners("mixed step", xn, c3, got_i, i3)
+    emit("e2e_mesh_mixed_256x256_100k", card=smi, **world_record(fits["mixed"]),
+         world_s=world_s, single_train_s=train_1,
+         one_step=dict(world_record(fits["mixed_step"]),
+                       max_abs_diff_from_k3=step_diff, winners_differ=step_flips,
+                       gate="codes within 1e-5 of K3 on the whole map, winners "
+                            "equal except at near-ties"),
+         drift=drift, single_nudged_codes=nudged["codes"],
+         **som_gates("e2e_mesh_mixed_256x256_100k", fits["mixed"][0]["codes"], codes_1, X,
+                     codebook=nudged["data"]))
+    del X
+    X, lab, table = lvq_data()
+    data = Dataset(points=X, labels=lab)
+
+    codes = lvq_codes(X, lab, 65536)
+
+    def single_lvq():
+        t0 = time.perf_counter()
+        o = olvq1_trainer(codes).fit(
+            som_stream(X, 16384, rlen, labels=lab), rlen=rlen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        l3 = lvq_trainer("lvq3")(o).fit(som_stream(X, 16384, rlen, labels=lab),
+                                        rlen=rlen, alpha=0.01)
+        torch.cuda.synchronize()
+        return o, l3, t1 - t0, time.perf_counter() - t1
+
+    (o_1, l3_1, t_o, t_3), _, got = main_path(
+        "e2e_mesh_lvq_65536 single device", single_lvq, ("dist_argmin", "dist_top2"))
+    tally(got)
+    lvq_rec = {}
+    for name, single, t_1 in (("olvq1", o_1, t_o), ("lvq3", l3_1, t_3)):
+        trained = Dataset(points=fits[name][0]["codes"], labels=o_1.labels,
+                          topol=o_1.topol)
+        pct = accuracy(data, trained, labels=table, device="cuda")[0]
+        pct_1 = accuracy(data, single, labels=table, device="cuda")[0]
+        check_accuracy(f"e2e_mesh_lvq_65536 {name}", pct, pct_1)
+        lvq_rec[name] = dict(world_record(fits[name]), accuracy_pct=pct,
+                             single_accuracy_pct=pct_1, single_train_s=t_1)
+    emit("e2e_mesh_lvq_65536", card=smi, rows=rlen, world_s=world_s,
+         gate="each accuracy within 0.5 points of the single-device run", **lvq_rec)
+    del X, lab, data
+
+    # (data 2, model 1): the two-pass step on phase 6's masked stream
+    Xm, mask, _ = masked_stream_data()
+    fits, got, world_s = run_world(mesh_masked_world, 2, 1,
+                                   {"masked": ("dist_argmin", "dist_argmin_masked")})
+    tally(got)
+    emit("e2e_mesh_masked_stream_128x128_100k", card=smi, **world_record(fits["masked"]),
+         world_s=world_s,
+         **som_gates("e2e_mesh_masked_stream_128x128_100k", fits["masked"][0]["codes"],
+                     q_masked128, Xm, mask))
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in ([], ["--profile"]):
+    if sys.argv[1:] not in ([], ["--profile"], ["--mesh"]):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -814,6 +1459,20 @@ def main() -> int:
         profile_cells()
         print(smi)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        # phases 14-17 alone, with phase 6's single-device run for their
+        # gate; on a host with as many cards as ranks the worlds run NCCL
+        Xm, mask, weight = masked_stream_data()
+        q_masked128 = main_path(
+            "e2e_masked_128x128_100k",
+            lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight)[0],
+            ("dist_argmin", "som_fused_train_step", "dist_argmin_masked"))[0]
+        mesh_phases(smi, lambda got: None, q_masked128)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- kernels against their plain versions ----------------------------
     # each kernel's record is taken at its main-path shape (rs[0]), with the
@@ -837,6 +1496,7 @@ def main() -> int:
     # the masked LVQ cell's step (B 1024 against 4096 codes: K4 has 17
     # splits of which 16 hold codes)
     phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 1024, 65536, 64, seed=9)
+    phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 512, 32768, 64, seed=17)
     phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 1_000_000, 65536, 64,
                    seed=14, iters=3)
     for name, k, p, mask_p in (
@@ -889,6 +1549,37 @@ def main() -> int:
                      dup=True)]
     recs["som_vmem_train_steps"] = dict(rs[0], max_abs_err=max(r["max_abs_err"]
                                                                for r in rs))
+    # K10 at the sharded lvq3 step's shape (B 1024 over (data 2, model 2) is
+    # 512 per rank against a 32768-row shard; their record), the whole
+    # batch against the shard, small shapes at k = 1, 5 and 16, and every
+    # code twice
+    rs = [phase_topk(*shape, k, seed=seed, dup=dup)
+          for shape, k, seed, dup in (((512, 32768, 64), 2, 18, False),
+                                      ((1024, 32768, 64), 2, 19, False),
+                                      ((1000, 999, 5), 1, 20, False),
+                                      ((1000, 999, 5), 5, 21, False),
+                                      ((1000, 999, 5), 16, 22, False),
+                                      ((1000, 998, 5), 2, 23, True),
+                                      ((1000, 998, 5), 16, 24, True),
+                                      ((1000, 17, 5), 16, 25, False))]
+    recs["dist_topk"] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    # K11 at the mixed mesh step's shard (rows 32768.. of the 256x256 map,
+    # B 4096 over a data axis of 2; their record first)
+    rs = [phase_accum(256, hexa, gaussian, 32768, 32768, 2048, 64, radius, per_sample,
+                      seed=seed)
+          for hexa, gaussian, radius, per_sample, seed in (
+              (True, True, 64.0, False, 26), (True, True, 64.0, True, 27),
+              (False, False, 20.0, True, 28), (True, False, 20.0, False, 29),
+              (False, True, 8.0, False, 30))]
+    recs["som_neighborhood_accumulate"] = dict(
+        rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    rs = [phase_blend(32768, 64, 2048, seed=31), phase_blend(32768, 64, 4096, seed=32),
+          phase_blend(32768, 64, 2048, seed=33, dup=True),
+          phase_blend(1000, 5, 999, seed=34)]
+    recs["som_blend_winner"] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    # K3 with a unit offset on each half of the 256x256 map; K11 + K12 on one
+    phase_shard_step(256, True, True, 4096, 64, 64.0, seed=35)
+    phase_shard_step(16, False, False, 1024, 64, 3.0, seed=36)
 
     launches = {name: 0 for name in recs}
 
@@ -930,15 +1621,15 @@ def main() -> int:
     # ---- masked e2e 128x128, 100k x 64: every other chunk masked ---------
     Xm, mask, rng = masked_data(X, 43, 8192, every_other=True)
     weight = rng.uniform(0.5, 2.0, size=X.shape[0]).astype(np.float32)
-    (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
+    (q_masked128, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
         "e2e_masked_128x128_100k",
         lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight),
         ("dist_argmin", "som_fused_train_step", "dist_argmin_masked",
          "som_neighborhood_update_idx_masked"),
         lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight))
     tally(got)
-    check_e2e("e2e masked 128", q, q_plain)
-    emit("e2e_masked_128x128_100k", card=smi, qerror_per_sample=q,
+    check_e2e("e2e masked 128", q_masked128, q_plain)
+    emit("e2e_masked_128x128_100k", card=smi, qerror_per_sample=q_masked128,
          train_s=train_s, qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
          plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
          launches=got)
@@ -1062,6 +1753,10 @@ def main() -> int:
          plain_olvq1_accuracy_pct=pct_o_plain, plain_accuracy_pct=pct_plain,
          plain_train_s=train_plain_s, plain_accuracy_eval_s=eval_plain_s,
          launches=got)
+    del Xm, lab1, mask, small
+
+    # ---- the mesh phases: worlds of processes on this card ---------------
+    mesh_phases(smi, tally, q_masked128)
 
     sources = {
         "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
@@ -1081,7 +1776,13 @@ def main() -> int:
         "dist_top2": ("som_lvq_pak_torch/csrc/dist_top2.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:295"),
         "dist_top2_masked": ("som_lvq_pak_torch/csrc/dist_top2.cu",
-                             "som_lvq_pak_tpu/ops/pallas_distance.py:308")}
+                             "som_lvq_pak_tpu/ops/pallas_distance.py:308"),
+        "dist_topk": ("som_lvq_pak_torch/csrc/dist_topk.cu",
+                      "som_lvq_pak_tpu/ops/pallas_distance.py:583"),
+        "som_neighborhood_accumulate": ("som_lvq_pak_torch/csrc/som_accum.cu",
+                                        "som_lvq_pak_tpu/ops/pallas_som.py:301"),
+        "som_blend_winner": ("som_lvq_pak_torch/csrc/som_blend_winner.cu",
+                             "som_lvq_pak_tpu/ops/pallas_som.py:401")}
     idle = [name for name in sources if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -33,20 +33,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types; every entry returns a cudaError_t as int
 _SIGNATURES = {
+    # x, codes, B, N, D, splits, keys, val, idx, stream
+    "somvq_dist_argmin": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, codes, B, N, D, val, idx, stream
-    "somvq_dist_argmin": [_P, _P, _I, _I, _I, _P, _P, _P],
     "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _P, _P, _P],
-    # x, mask, codes, B, N, D, keys, val, idx, stream
-    "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # x, mask, codes, B, N, D, splits, keys, val, idx, stream
+    "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
     "somvq_dist_top2": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
     "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P],
     # codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian,
-    # radius, keys, val, idx, stream
+    # radius, unit_offset, keys, val, idx, stream
     "somvq_som_fused_step": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                             ctypes.c_float, _P, _P, _P, _P],
+                             ctypes.c_float, _I, _P, _P, _P, _P],
+    # x, codes, B, N, D, k, splits, pv, pi, vo, io, stream
+    "somvq_dist_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius,
+    # unit_offset, acc, wsum, stream
+    "somvq_som_accum": [_I, _I, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+                        _P, _P, _P],
+    # codes, n_local, D, acc, wsum, xn, Bn, keys, val, idx, stream
+    "somvq_som_blend_winner": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     # codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius, stream
     "somvq_som_update": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.c_float, _P],

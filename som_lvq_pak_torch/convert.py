@@ -6,12 +6,17 @@
                                               use_weights, use_fixed)
     ds3 = as_port_dataset(other)                  # any Dataset-like object
 
+    kw = class_blocked_state(jax_blocked_olvq1)   # ClassBlockedOLVQ1(mesh, **kw)
+
 The device is CUDA unless the caller names another ("cpu" runs the plain
 versions).  `meta` is the Dataset with its points emptied: it carries the
 header (topology, neighbourhood, xdim, ydim), labels, masks and comments.
 The port's checkpoints have the JAX package's `Checkpointer`/`TrainState`
 file format, so codebooks cross between the packages through files, and
-in memory through `as_port_dataset`.
+in memory through `as_port_dataset`.  Mesh runs of either package
+checkpoint the whole codebook in that format, so a checkpoint written by a
+JAX mesh run, a port mesh run or a single device resumes on any mesh (the
+trainers take their rows of it).
 
 A data set's per-sample extras travel as: mask (N, D) uint8, nonzero =
 masked; weight (N,) float32, the `weight=` token (0.0 = no token); fixed
@@ -141,3 +146,20 @@ def samples_to_torch(ds: Dataset, device: torch.device | str = "cuda",
     """`sample_arrays` of `ds` as tensors on `device`."""
     return tuple(None if a is None else host_tensor(a).to(device)
                  for a in sample_arrays(ds, xdim, use_weights, use_fixed))
+
+
+def class_blocked_state(blocked) -> dict:
+    """The state of a class-blocked olvq1 run (the JAX package's
+    ClassBlockedOLVQ1, or the port's) in the original row order:
+    {"codes", "code_labels", "alphas"} as NumPy arrays, the keyword
+    arguments of the port's parallel.sharded.ClassBlockedOLVQ1, which lays
+    them out again in the same class-blocked order (a stable sort of the
+    label ids)."""
+    def host(a, dtype):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return a.astype(dtype)
+
+    inv = np.argsort(np.asarray(blocked.order))
+    return {"codes": host(blocked.codes(), np.float32),
+            "code_labels": host(blocked._labels, np.int32)[inv],
+            "alphas": host(blocked.alphas(), np.float32)}

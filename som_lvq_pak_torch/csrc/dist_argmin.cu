@@ -20,12 +20,15 @@
 // staged slices.  Each of the 256 threads owns a 4 x 4 (sample, code)
 // micro-tile; at the end the 16 threads that share a sample merge their pairs
 // with a (value, index) lexicographic shuffle reduction, which is the same
-// rule.  K1/K2 walk the whole codebook in one CTA (deterministic, no
-// atomics).  K4 also splits the codebook across gridDim.y CTAs when the batch
-// alone gives too few CTAs to fill the card (a training batch of 4096 is 64
-// CTAs on 132 SMs); the splits fold their (value, index) pairs with the
-// packed-u64 atomicMin of argmin_keys.cuh, which keeps the same tie rule and
-// does not depend on the order the CTAs run in.
+// rule.  K2 walks the whole codebook in one CTA (deterministic, no atomics).
+// K1 and K4 also split the codebook across gridDim.y CTAs when the batch
+// alone gives too few CTAs to fill the card (a training batch of 1024 is 16
+// CTAs on 132 SMs, a sharded batch of 512 only 8); the splits fold their
+// (value, index) pairs with the packed-u64 atomicMin of argmin_keys.cuh,
+// which keeps the same tie rule and does not depend on the order the CTAs
+// run in.  Splits are spans of whole TN-row tiles, so every (sample, code)
+// partial distance is computed exactly as without a split.  The caller
+// passes the split count (ops.dist_argmin.codebook_splits).
 //
 // K4's mask enters as (B, D) uint8, nonzero = masked.  A masked component is
 // zeroed in the staged x and gets keep 0; the second contraction keep.(m o m)
@@ -58,11 +61,15 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
 }
 
+// K1/K2 over codebook rows [n_lo, n_lo + n_span) of split blockIdx.y: with
+// `keys` (K1) each sample's pair is folded into keys[b], without (K2, one
+// split) it is written to val/idx.
 template <bool kMaxScore>
 __global__ void __launch_bounds__(THREADS)
 dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
-                   int B, int N, int D, float* __restrict__ val,
-                   int* __restrict__ idx) {
+                   int B, int N, int D, int n_span,
+                   unsigned long long* __restrict__ keys,
+                   float* __restrict__ val, int* __restrict__ idx) {
   __shared__ float xs[TB][KC + 1];
   __shared__ float ms[TN][KC + 1];
   __shared__ float m2s[TN];
@@ -71,6 +78,8 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
   const int tx = tid & 15;   // code column group: codes tx + 16 j
   const int ty = tid >> 4;   // sample row group:  samples ty + 16 i
   const int b0 = blockIdx.x * TB;
+  const int n_lo = blockIdx.y * n_span;
+  const int n_hi = min(N, n_lo + n_span);
 
   float best[4];
   int bidx[4];
@@ -80,7 +89,7 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
     bidx[i] = INT_MAX;
   }
 
-  for (int n0 = 0; n0 < N; n0 += TN) {
+  for (int n0 = n_lo; n0 < n_hi; n0 += TN) {
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -125,7 +134,7 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) {
+      if (n < n_hi) {
         const float m2 = m2s[tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -156,8 +165,11 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int b = b0 + ty + 16 * i;
-      if (b < B) {
-        // public contract of both TPU kernels: partial ||m||^2 - 2 x.m
+      if (b >= B) continue;
+      // public contract of both TPU kernels: partial ||m||^2 - 2 x.m
+      if (keys != nullptr) {
+        if (bidx[i] != INT_MAX) fold_key(keys + b, best[i], bidx[i]);
+      } else {
         val[b] = kMaxScore ? -2.f * best[i] : best[i];
         idx[b] = bidx[i];
       }
@@ -283,47 +295,51 @@ dist_argmin_masked_kernel(const float* __restrict__ x,
   }
 }
 
-template <bool kMaxScore>
-int launch(const float* x, const float* codes, int B, int N, int D, float* val,
-           int* idx, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  dist_argmin_kernel<kMaxScore>
-      <<<(B + TB - 1) / TB, THREADS, 0, stream>>>(x, codes, B, N, D, val, idx);
-  return (int)cudaGetLastError();
+// rows per codebook split: `splits` spans of whole TN-row tiles (the caller's
+// count, ops.dist_argmin.codebook_splits, the rule K8-K10 use too)
+int split_span(int N, int splits) {
+  const int n_tiles = (N + TN - 1) / TN;
+  return ((n_tiles + splits - 1) / splits) * TN;
 }
 
 }  // namespace
 
+// keys: (B,) u64 scratch; val gets the partial distance ||m||^2 - 2 x.m
 extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B,
-                                 int N, int D, float* val, int* idx,
+                                 int N, int D, int splits,
+                                 unsigned long long* keys, float* val, int* idx,
                                  cudaStream_t stream) {
-  return launch<false>(x, codes, B, N, D, val, idx, stream);
+  if (B <= 0 || N <= 0 || D <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int n_span = split_span(N, splits);
+  const dim3 grid((B + TB - 1) / TB, (N + n_span - 1) / n_span);
+  init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dist_argmin_kernel<false><<<grid, THREADS, 0, stream>>>(
+      x, codes, B, N, D, n_span, keys, nullptr, nullptr);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
                                    int N, int D, float* val, int* idx,
                                    cudaStream_t stream) {
-  return launch<true>(x, codes, B, N, D, val, idx, stream);
+  if (B <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  dist_argmin_kernel<true><<<(B + TB - 1) / TB, THREADS, 0, stream>>>(
+      x, codes, B, N, D, N, nullptr, val, idx);
+  return (int)cudaGetLastError();
 }
 
 // keys: (B,) u64 scratch; val gets the partial distance, as K1's does
 extern "C" int somvq_dist_argmin_masked(const float* x, const unsigned char* mask,
                                         const float* codes, int B, int N, int D,
-                                        unsigned long long* keys, float* val,
-                                        int* idx, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  // split the codebook until the grid holds about two CTAs per SM
-  const int b_tiles = (B + TB - 1) / TB;
-  const int n_tiles = (N + TN - 1) / TN;
-  const int want = (2 * sms + b_tiles - 1) / b_tiles;
-  const int splits = want < 1 ? 1 : (want > n_tiles ? n_tiles : want);
-  const int n_span = ((n_tiles + splits - 1) / splits) * TN;
-  const dim3 grid(b_tiles, (N + n_span - 1) / n_span);
+                                        int splits, unsigned long long* keys,
+                                        float* val, int* idx, cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || D <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int n_span = split_span(N, splits);
+  const dim3 grid((B + TB - 1) / TB, (N + n_span - 1) / n_span);
   init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;

@@ -16,6 +16,10 @@
 // other CTA reads them, so the in-place write is race-free.  The update's
 // device code is shared with K5/K6 (som_grid.cuh).
 //
+// A model-axis shard of a larger map passes unit_offset, the global unit of
+// its row 0 (0 on a whole map): W is evaluated at unit unit_offset + row,
+// while the winners stay local rows, as the TPU wrapper reports them.
+//
 // Winners.  The updated tile stays in shared memory; for each next-batch
 // sample the CTA takes the tile's (min, first argmin) of ||m||^2 - 2 m.x.
 // Across CTAs the pair is packed as (order-preserving u32 of the float,
@@ -54,7 +58,7 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
                       const float* __restrict__ xb, const int* __restrict__ bmu,
                       const float* __restrict__ alpha, int B,
                       const float* __restrict__ xn, int Bn, int xdim, int hexa,
-                      int gaussian, float radius,
+                      int gaussian, float radius, int unit_offset,
                       unsigned long long* __restrict__ keys) {
   extern __shared__ float smem[];
   const int DS = D | 1;
@@ -73,7 +77,7 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
   float wsum[4][1];
   accumulate_update<NJ, false>(acc, wsum, xs, nullptr, ws, r0, noc, D, xb,
                                nullptr, bmu, alpha, B, xdim, hexa != 0,
-                               gaussian != 0, radius);
+                               gaussian != 0, radius, unit_offset);
 
   // ---- guarded blend, written in place and kept in shared memory ---------
 #pragma unroll
@@ -147,8 +151,8 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
 template <int NJ>
 int launch_step(float* codes, int noc, int D, const float* xb, const int* bmu,
                 const float* alpha, int B, const float* xn, int Bn, int xdim,
-                int hexa, int gaussian, float radius, unsigned long long* keys,
-                cudaStream_t stream) {
+                int hexa, int gaussian, float radius, int unit_offset,
+                unsigned long long* keys, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       som_fused_step_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -156,7 +160,7 @@ int launch_step(float* codes, int noc, int D, const float* xb, const int* bmu,
   if (err != cudaSuccess) return (int)err;
   som_fused_step_kernel<NJ><<<(noc + TN - 1) / TN, THREADS, smem, stream>>>(
       codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
-      keys);
+      unit_offset, keys);
   return (int)cudaGetLastError();
 }
 
@@ -166,9 +170,11 @@ extern "C" int somvq_som_fused_step(float* codes, int noc, int D,
                                     const float* xb, const int* bmu,
                                     const float* alpha, int B, const float* xn,
                                     int Bn, int xdim, int hexa, int gaussian,
-                                    float radius, unsigned long long* keys,
-                                    float* val, int* idx, cudaStream_t stream) {
-  if (noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || Bn <= 0 || xdim <= 0)
+                                    float radius, int unit_offset,
+                                    unsigned long long* keys, float* val,
+                                    int* idx, cudaStream_t stream) {
+  if (noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || Bn <= 0 || xdim <= 0 ||
+      unit_offset < 0)
     return (int)cudaErrorInvalidValue;
   init_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn);
   int rc = (int)cudaGetLastError();
@@ -176,16 +182,16 @@ extern "C" int somvq_som_fused_step(float* codes, int noc, int D,
   const int nj = (D + 31) / 32;
   if (nj <= 1)
     rc = launch_step<1>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, keys, stream);
+                        gaussian, radius, unit_offset, keys, stream);
   else if (nj <= 2)
     rc = launch_step<2>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, keys, stream);
+                        gaussian, radius, unit_offset, keys, stream);
   else if (nj <= 4)
     rc = launch_step<4>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, keys, stream);
+                        gaussian, radius, unit_offset, keys, stream);
   else
     rc = launch_step<8>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, keys, stream);
+                        gaussian, radius, unit_offset, keys, stream);
   if (rc) return rc;
   unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
   return (int)cudaGetLastError();

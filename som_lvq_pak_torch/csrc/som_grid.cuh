@@ -63,14 +63,16 @@ __device__ __forceinline__ float guarded_blend(float c, float acc, float wsum) {
 // wsum[i][j] = sum_b W keep_b (kMasked true; masked components of x count as
 // 0).  mask is (B, D) uint8, nonzero = masked.  Shared memory: xs[BC][DS],
 // ks[BC][DS] (kMasked only), ws[TN][BC], DS = D | 1 (an odd stride puts
-// each sample's row on distinct banks).
+// each sample's row on distinct banks).  W is evaluated at the GLOBAL unit
+// unit_offset + row (a model-axis shard of a larger map; 0 on a whole map),
+// while rows index the local codebook.
 template <int NJ, bool kMasked>
 __device__ __forceinline__ void accumulate_update(
     float (&acc)[4][NJ], float (&wsum)[4][kMasked ? NJ : 1], float* xs,
     float* ks, float* ws, int r0, int noc, int D,
     const float* __restrict__ xb, const unsigned char* __restrict__ mask,
     const int* __restrict__ bmu, const float* __restrict__ alpha, int B,
-    int xdim, bool hexa, bool gaussian, float radius) {
+    int xdim, bool hexa, bool gaussian, float radius, int unit_offset = 0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int DS = D | 1;
   const float r2 = radius * radius;
@@ -105,8 +107,8 @@ __device__ __forceinline__ void accumulate_update(
       const int r = e / BC, s = e % BC;
       const int u = r0 + r, b = s0 + s;
       ws[r * BC + s] = (b < B && u < noc)
-                           ? neighborhood_w(u, bmu[b], alpha[b], xdim, hexa,
-                                            gaussian, r2, den)
+                           ? neighborhood_w(unit_offset + u, bmu[b], alpha[b],
+                                            xdim, hexa, gaussian, r2, den)
                            : 0.f;
     }
     __syncthreads();

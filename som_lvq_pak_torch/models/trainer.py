@@ -31,8 +31,22 @@ Inputs are a Dataset (per-lap shuffled order) or an iterable of chunk
 Datasets (e.g. StreamingReader.chunks(laps=None)), with interval
 checkpoints in the JAX package's checkpoint file format and resume.
 
-Not ported yet: meshes and bf16 streaming (`mesh=`, `stream_bf16=True`
-raise NotImplementedError naming their ROADMAP items).
+With `mesh=` (a parallel.mesh.Mesh; every rank of the world calls `fit` on
+the same inputs) the trainers run the sharded steps of parallel.sharded, as
+som_lvq_pak_tpu/models/trainer.py:417-444 picks them: a clean Dataset whose
+map splits into model shards of a multiple of 8 rows takes the fused
+pure-TP step (K3 with the shard's unit offset) when the data axis is 1, else
+the mixed step (K11, the data-axis sum, K12); streams, masked Datasets and
+other shard heights take the two-pass sharded step (K1, or K4 given a mask).
+The trainer runs on the mesh's device; a `device=` naming another raises
+ValueError.  The first batch's winners are found on the whole codebook before it is
+sliced.  Each rank keeps its codebook rows; checkpoints gather the whole
+codebook, and rank 0 writes them, in the single-device format, so a mesh
+checkpoint resumes on one device, on a mesh, or in the JAX package.  `fit`
+returns the whole codebook on every rank.
+
+Not ported yet: bf16 streaming (`stream_bf16=True` raises
+NotImplementedError naming its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -50,11 +64,12 @@ from ..data.dataset import Dataset, Neighborhood, Topology
 from ..ops.dist_argmin import dist_argmin
 from ..ops.som_step import som_fused_train_step
 from ..ops.som_vmem import som_vmem_train_steps
+from ..parallel import sharded
 from ..utils.checkpoint import Checkpointer, TrainState
 from ..utils.progress import StepTimer
 from .common import alpha_schedule, radius_schedule
 from .fast import (effective_alpha, lvq1_batch_step, lvq23_batch_step,
-                   olvq1_batch_step, som_batch_step)
+                   olvq1_batch_step, som_batch_step, unit_coords)
 
 # one training batch: (index, x, mask or None, weight or None, fixed or None)
 Batch = Tuple[int, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
@@ -90,7 +105,8 @@ def use_grouped_steps(noc: int, dim: int, batch_size: int, data,
 class SOMTrainer:
     """Minibatch SOM training at device speed on `device`: "cuda" (the
     default) runs the CUDA kernels, "cpu" their plain versions.  Without a
-    GPU the default raises; it never falls back to the CPU."""
+    GPU the default raises; it never falls back to the CPU.  With `mesh=`
+    the device is the mesh's (module docstring)."""
 
     def __init__(
         self,
@@ -109,17 +125,14 @@ class SOMTrainer:
         False never takes it (True acts as None, as in the JAX package)."""
         if not codes.is_map:
             raise ValueError("SOMTrainer needs a map codebook")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh training is not ported yet (ROADMAP: mesh on "
-                "torch.distributed)")
         if stream_bf16:
             raise NotImplementedError(
                 "bf16 streaming is not ported yet (ROADMAP A7: stream_bf16)")
         self.meta = codes
         self.batch_size = batch_size
         self.seed = seed
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, batch_size, device)
         self.vmem_steps = vmem_steps
         self.gaussian = codes.neigh == Neighborhood.GAUSSIAN
         self.hexa = codes.topol == Topology.HEXA
@@ -179,23 +192,28 @@ class SOMTrainer:
         # modulo test there silently skipped intervals)
         last_ckpt = start
 
-        def maybe_ckpt(b):
+        def maybe_ckpt(b, full=lambda: M):
+            # `full()` gathers a mesh's codebook: every rank takes part
             nonlocal last_ckpt
             if (self.ckpt is not None and self.checkpoint_interval
                     and (b + 1) - last_ckpt >= self.checkpoint_interval):
                 last_ckpt = b + 1
-                self.ckpt.save(TrainState(
-                    codes=M.cpu().numpy(), step=b + 1,
+                _save(self, TrainState(
+                    codes=full().cpu().numpy(), step=b + 1,
                     extra={"alpha": float(alpha), "radius": float(radius)}))
 
-        train = (self._train_groups
-                 if use_grouped_steps(*M.shape, bs, data, use_fixed,
-                                      self.vmem_steps)
-                 else self._train_steps)
-        train(M, batches, talp, trad, xdim, progress, maybe_ckpt)
+        if self.mesh is not None:
+            M = self._train_mesh(M, data, batches, talp, trad, meta, progress,
+                                 maybe_ckpt)
+        else:
+            train = (self._train_groups
+                     if use_grouped_steps(*M.shape, bs, data, use_fixed,
+                                          self.vmem_steps)
+                     else self._train_steps)
+            train(M, batches, talp, trad, xdim, progress, maybe_ckpt)
 
         if self.ckpt is not None:
-            self.ckpt.save(TrainState(codes=M.cpu().numpy(), step=nb))
+            _save(self, TrainState(codes=M.cpu().numpy(), step=nb))
             self.ckpt.wait()
         self.meta = replace(to_dataset(M, meta), comments=[])
         return self.meta
@@ -276,6 +294,67 @@ class SOMTrainer:
                     progress.step(bs * len(group))
             maybe_ckpt(group[-1][0])
             group = []
+
+    def _train_mesh(self, M, data, batches, talp, trad, meta, progress,
+                    maybe_ckpt) -> torch.Tensor:
+        """The sharded loops (som_lvq_pak_tpu/models/trainer.py:417-444,
+        637-706); `M` is the whole starting codebook, the whole trained one
+        is returned."""
+        mesh, bs = self.mesh, self.batch_size
+        n = M.shape[0]
+        S, dd = mesh.shape["model"], mesh.shape["data"]
+        rows, mine = mesh.rows(n), mesh.batch_rows(bs)
+        block = mesh.block(n)
+        fused = (isinstance(data, Dataset) and data.mask is None
+                 and n % S == 0 and (n // S) % 8 == 0)
+        if not fused:
+            coords = unit_coords(meta.xdim, meta.ydim, self.hexa, M.device)
+            Ml = M[rows].clone()
+            for b, xb, mk, wt, ff in batches:
+                Ml = sharded.sharded_som_step(
+                    mesh, Ml, xb[mine], coords[rows], coords, float(talp[b]),
+                    float(trad[b]), self.gaussian,
+                    mask_local=_cut(mk, mine), weights_local=_cut(wt, mine),
+                    fixed_local=_cut(ff, mine), n_local=block)
+                if progress is not None:
+                    progress.step(bs)
+                maybe_ckpt(b, lambda: mesh.gather_rows(Ml, n))
+            return mesh.gather_rows(Ml, n)
+
+        # the pipelined fused steps: batch t's winners come from step t-1,
+        # the first batch's from the whole codebook before it is sliced
+        if dd == 1:
+            step = sharded.make_sharded_fused_som_train_step(
+                mesh, self.gaussian, meta.xdim, self.hexa).local
+            here = slice(None)  # the batch is replicated
+        else:
+            # two row segments: segment 0's data-axis sum runs under
+            # segment 1's accumulation (the same result as one segment)
+            step = sharded.make_mixed_fused_som_train_step(
+                mesh, self.gaussian, meta.xdim, self.hexa,
+                overlap_segments=2).local
+            here = mine
+        prev = next(batches, None)
+        bmu = None
+        if prev is not None:
+            bmu = _cut(_fix(dist_argmin(prev[1], M)[1], prev[4]), here)
+        Ml = M[rows].clone()
+        del M
+        while prev is not None:
+            b, xb, _, wt, _ = prev
+            nxt = next(batches, None)
+            xn = xb if nxt is None else nxt[1]
+            a = (float(talp[b]) if wt is None else
+                 effective_alpha(float(talp[b]), bs, xb.device, wt))
+            Ml, bmu_next = step(Ml, xb[here], bmu, xn[here], a, float(trad[b]),
+                                rows.start)
+            if nxt is not None:
+                bmu = _fix(bmu_next, _cut(nxt[4], here))
+            if progress is not None:
+                progress.step(bs)
+            maybe_ckpt(b, lambda: mesh.gather_rows(Ml, n))
+            prev = nxt
+        return mesh.gather_rows(Ml, n)
 
     # -- batch sources ---------------------------------------------------
 
@@ -403,6 +482,33 @@ def _stream_batches(chunks: Iterator[Dataset], start: int, nb: int, s: int,
         buffered -= nfull
 
 
+def _mesh_device(mesh, batch_size: int, device) -> torch.device:
+    """The trainer's device: the mesh's with a mesh (whose data axis must
+    split the batch), else `device`.  A `device` that names another device
+    than the mesh's raises ValueError ("cuda" names any card), so a mesh on
+    the CPU needs device="cpu" here too."""
+    want = torch.device(device)
+    if mesh is None:
+        return want
+    if batch_size % mesh.shape["data"]:
+        raise ValueError(f"batch_size {batch_size} does not split over the "
+                         f"mesh's data axis of {mesh.shape['data']}")
+    have = torch.device(mesh.device)
+    if want.type != have.type or want.index not in (None, have.index):
+        raise ValueError(f"device {want} disagrees with the mesh's device {have}")
+    return have
+
+
+def _save(trainer, state: TrainState) -> None:
+    """Write a checkpoint; on a mesh, rank 0 writes for the world."""
+    if trainer.mesh is None or trainer.mesh.rank == 0:
+        trainer.ckpt.save(state)
+
+
+def _cut(t: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
+    return None if t is None else t[rows]
+
+
 def _fix(bmu: torch.Tensor, fixed: Optional[torch.Tensor]) -> torch.Tensor:
     """Winners with fixed= samples (fixed >= 0) moved to their fixed unit."""
     if fixed is None:
@@ -463,18 +569,17 @@ def _labeled_batches(data: Union[Dataset, Iterable[Dataset]], start: int,
 
 class _LVQBase:
     """What LVQTrainer and OLVQ1Trainer share: a labelled codebook, the
-    batch size, the device and the checkpointer."""
+    batch size, the device, the mesh and the checkpointer.  On a mesh each
+    rank trains its codebook rows on its batch rows (parallel.sharded); a
+    batch with masked components raises ValueError there."""
 
     def __init__(self, codes: Dataset, batch_size: int, mesh, checkpoint_dir,
                  checkpoint_interval: int, seed: int, device):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh training is not ported yet (ROADMAP A13: the sharded "
-                "lvq and olvq1 steps on torch.distributed)")
         self.meta = codes
         self.batch_size = batch_size
         self.seed = seed
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, batch_size, device)
         self.ckpt = None
         self.checkpoint_interval = checkpoint_interval
         if checkpoint_dir is not None:
@@ -493,9 +598,27 @@ class _LVQBase:
         return _labeled_batches(data, start, nb, self.batch_size, self.seed,
                                 self.device, allow_short_stream)
 
+    def _local(self, M: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the whole codebook `M` (M itself without a
+        mesh)."""
+        return M if self.mesh is None else M[self.mesh.rows(M.shape[0])].clone()
+
+    def _full(self, M: torch.Tensor) -> torch.Tensor:
+        """The whole codebook from this rank's rows (every rank takes part)."""
+        return (M if self.mesh is None
+                else self.mesh.gather_rows(M, self.meta.n))
+
+    def _mesh_batch(self, xb, xl, mb):
+        """This rank's rows of a batch on a mesh; a masked batch raises."""
+        if mb is not None and bool((mb != 0).any()):
+            raise ValueError(f"{type(self).__name__}(mesh=...): masked batches "
+                             "are not supported on the sharded step")
+        rows = self.mesh.batch_rows(xb.shape[0])
+        return xb[rows], xl[rows]
+
     def _finish(self, M: torch.Tensor, meta: Dataset, state: TrainState) -> Dataset:
         if self.ckpt is not None:
-            self.ckpt.save(state)
+            _save(self, state)
             self.ckpt.wait()
         self.meta = replace(to_dataset(M, meta), comments=[])
         return self.meta
@@ -506,9 +629,10 @@ class LVQTrainer(_LVQBase):
     "cuda" (the default) runs the CUDA kernels, "cpu" their plain versions;
     without a GPU the default raises.  lvq1 batches take K1 `dist_argmin`
     (K4 when masked), lvq2/lvq3 batches K8 `dist_top2` (K9 when masked);
-    models.fast.lvq1_batch_step / lvq23_batch_step.  olvq1 is
-    OLVQ1Trainer.  Interval checkpoints fire whenever >= interval batches
-    have elapsed since the last save."""
+    models.fast.lvq1_batch_step / lvq23_batch_step; on a mesh
+    parallel.sharded.sharded_lvq_step (K1, or K10 `dist_topk` with k = 2,
+    per shard).  olvq1 is OLVQ1Trainer.  Interval checkpoints fire whenever
+    >= interval batches have elapsed since the last save."""
 
     def __init__(
         self,
@@ -550,9 +674,18 @@ class LVQTrainer(_LVQBase):
         if st is not None:
             M = torch.tensor(np.asarray(st.codes, np.float32), device=self.device)
             start = st.step
+        if self.mesh is not None:
+            sharded.check_lvq_mesh(self.mesh, M.shape[0], self.algorithm)
+        n = M.shape[0]
+        M = self._local(M)
         last_ckpt = start
         for b, xb, xl, mb in self._batches(data, start, nb, allow_short_stream):
-            if self.algorithm == "lvq1":
+            if self.mesh is not None:
+                M = sharded.sharded_lvq_step(
+                    self.mesh, M, clabels, *self._mesh_batch(xb, xl, mb),
+                    float(talp[b]), self.algorithm, self.winlen, self.epsilon,
+                    n_local=self.mesh.block(n))
+            elif self.algorithm == "lvq1":
                 lvq1_batch_step(M, clabels, xb, xl, float(talp[b]), mask=mb)
             else:
                 lvq23_batch_step(M, clabels, xb, xl, float(talp[b]), self.winlen,
@@ -563,7 +696,9 @@ class LVQTrainer(_LVQBase):
             if (self.ckpt is not None and self.checkpoint_interval
                     and (b + 1) - last_ckpt >= self.checkpoint_interval):
                 last_ckpt = b + 1
-                self.ckpt.save(TrainState(codes=M.cpu().numpy(), step=b + 1))
+                _save(self, TrainState(codes=self._full(M).cpu().numpy(),
+                                       step=b + 1))
+        M = self._full(M)
         return self._finish(M, meta, TrainState(codes=M.cpu().numpy(), step=nb))
 
 
@@ -607,14 +742,22 @@ class OLVQ1Trainer(_LVQBase):
                 alphas = torch.tensor(np.asarray(st.alphas, np.float32),
                                       device=self.device)
             start = st.step
+        n = M.shape[0]
+        M = self._local(M)
         for b, xb, xl, mb in self._batches(data, start, nb, allow_short_stream):
-            M, alphas = olvq1_batch_step(M, clabels, alphas, xb, xl,
-                                         clip=self.clip, mask=mb)
+            if self.mesh is not None:
+                M, alphas = sharded.sharded_olvq1_step(
+                    self.mesh, M, clabels, alphas, *self._mesh_batch(xb, xl, mb),
+                    self.clip, n_local=self.mesh.block(n))
+            else:
+                M, alphas = olvq1_batch_step(M, clabels, alphas, xb, xl,
+                                             clip=self.clip, mask=mb)
             if progress is not None:
                 progress.step(self.batch_size)
             if (self.ckpt is not None and self.checkpoint_interval
                     and (b + 1) % self.checkpoint_interval == 0):
-                self.ckpt.save(TrainState(codes=M.cpu().numpy(), step=b + 1,
-                                          alphas=alphas.cpu().numpy()))
+                _save(self, TrainState(codes=self._full(M).cpu().numpy(),
+                                       step=b + 1, alphas=alphas.cpu().numpy()))
+        M = self._full(M)
         return self._finish(M, meta, TrainState(codes=M.cpu().numpy(), step=nb,
                                                 alphas=alphas.cpu().numpy()))

@@ -6,8 +6,9 @@ All return (sq_dists (B,) float32, indices (B,) int32): the kernel's
 partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
 
 * `dist_argmin` scores ||m||^2 - 2 x.m with a strict-< running min
-  (replaces `_dist_argmin_kernel`); the trainer's prologue winner.  Given a
-  `mask` it runs `dist_argmin_masked`.
+  (replaces `_dist_argmin_kernel`), the codebook split across CTAs as K4's
+  is; the trainer's prologue winner, the LVQ steps' and every sharded
+  winner search's.  Given a `mask` it runs `dist_argmin_masked`.
 * `dist_argmin_masked` scores keep.(m o m) - 2 (x keep).m, where `mask`
   (B, D) is nonzero on masked components (replaces
   `_dist_argmin_masked_kernel`); ||x keep||^2 is added back, so a sample
@@ -120,6 +121,15 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
     return torch.cat(vals), torch.cat(idxs)
 
 
+def codebook_splits(B: int, N: int, device: torch.device) -> int:
+    """How many spans of the codebook K1, K4 and K8-K10 split across
+    gridDim.y: enough for about two CTAs of 64 samples per SM, at most one
+    64-row tile each."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    b_tiles, n_tiles = -(-B // 64), -(-N // 64)
+    return max(1, min(n_tiles, -(-2 * sms // b_tiles)))
+
+
 def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor):
     x = x.contiguous()
     codes = codes.contiguous()
@@ -130,7 +140,11 @@ def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor):
     if B == 0:
         return val, idx
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.call(entry, x.data_ptr(), codes.data_ptr(), B, N, D,
+    # K1 splits the codebook and folds the splits into a (B,) u64 key scratch
+    keys = torch.empty((B,), dtype=torch.int64, device=x.device)
+    extra = ([codebook_splits(B, N, x.device), keys.data_ptr()]
+             if wrapper is dist_argmin else [])
+    _build.call(entry, x.data_ptr(), codes.data_ptr(), B, N, D, *extra,
                 val.data_ptr(), idx.data_ptr(), stream)
     wrapper.launches += 1
     # the kernel returns the partial distance; add ||x||^2 here
@@ -169,8 +183,9 @@ def dist_argmin_masked(x: torch.Tensor, codes: torch.Tensor,
         return val, idx
     keys = torch.empty((B,), dtype=torch.int64, device=x.device)
     _build.call("somvq_dist_argmin_masked", x.data_ptr(), m8.data_ptr(),
-                codes.data_ptr(), B, N, D, keys.data_ptr(), val.data_ptr(),
-                idx.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+                codes.data_ptr(), B, N, D, codebook_splits(B, N, x.device),
+                keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
     dist_argmin_masked.launches += 1
     xk = x * keep_of(m8)
     return torch.clamp(val + (xk * xk).sum(-1), min=0.0), idx

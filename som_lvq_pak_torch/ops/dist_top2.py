@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import _check, _check_mask, _rows_per_chunk
+from .dist_argmin import _check, _check_mask, _rows_per_chunk, codebook_splits
 from .distance import fp32_matmul, keep_of, mask_bytes
 
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -75,14 +75,6 @@ def dist_top2_plain(x: torch.Tensor, codes: torch.Tensor,
     return tuple(torch.cat(col) for col in zip(*rows))
 
 
-def _splits(B: int, N: int, device: torch.device) -> int:
-    """Codebook splits across gridDim.y: about two CTAs of 64 samples per
-    SM, at most one 64-row tile each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    b_tiles, n_tiles = -(-B // 64), -(-N // 64)
-    return max(1, min(n_tiles, -(-2 * sms // b_tiles)))
-
-
 def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor,
             m8: Optional[torch.Tensor]) -> Top2:
     x = x.contiguous()
@@ -95,7 +87,7 @@ def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor,
     i1, i2 = torch.empty((B,), **i32), torch.empty((B,), **i32)
     if B == 0:
         return v1, i1, v2, i2
-    splits = _splits(B, N, x.device)
+    splits = codebook_splits(B, N, x.device)
     pv = torch.empty((splits, B, 2), **f32)
     pi = torch.empty((splits, B, 2), **i32)
     lead = [x.data_ptr()] + ([] if m8 is None else [m8.data_ptr()])

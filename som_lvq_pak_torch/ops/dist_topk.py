@@ -1,0 +1,68 @@
+"""Fused k-NN winner search, k <= 16: kernel K10 (`dist_topk`), the
+counterpart of som_lvq_pak_tpu/ops/pallas_distance.py:dist_topk; the
+sharded lvq2.1/lvq3 step's per-shard top-2 (parallel.sharded.sharded_top2).
+
+    vals, idx = dist_topk(x, codes, k)
+
+Returns (sq_dists (B, k) float32, indices (B, k) int32), ascending: the k
+smallest (value, index) pairs, equal values lowest index first.  The kernel
+ranks the partial distance ||m||^2 - 2 x.m and reports max(partial +
+||x||^2, 0), as the JAX wrapper does.  k outside 1..16 raises ValueError, as
+there; so does k > N.
+
+The plain version is ops.distance.topk_winners (k first-minimum argmins of
+the full distance, each pick masked out, never `torch.topk`, which promises
+no order among equal values), its values clamped at 0.  A CUDA tensor
+launches the kernel in `csrc/dist_topk.cu`; a CPU tensor runs the plain
+version.  The wrapper counts its kernel launches in its `launches` attribute.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import _build
+from .dist_argmin import _check, codebook_splits
+from .distance import topk_winners
+
+
+def dist_topk_plain(x: torch.Tensor, codes: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K10: `topk_winners`, values clamped at 0."""
+    idx, vals = topk_winners(x, codes, k)
+    return torch.clamp(vals, min=0.0), idx.to(torch.int32)
+
+
+def dist_topk(x: torch.Tensor, codes: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest codes of x (B, D) in codes (N, D): (sq_dists (B, k),
+    int32 idx (B, k)), ascending."""
+    if not 1 <= k <= 16:
+        raise ValueError(f"dist_topk: k={k} out of range (1..16)")
+    device = _check(x, codes)
+    B, D = x.shape
+    N = codes.shape[0]
+    if k > N:
+        raise ValueError(f"dist_topk: k={k} > {N} codes")
+    if device == "cpu":
+        return dist_topk_plain(x, codes, k)
+    x, codes = x.contiguous(), codes.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    i32 = dict(dtype=torch.int32, device=x.device)
+    vo, io = torch.empty((B, k), **f32), torch.empty((B, k), **i32)
+    if B == 0:
+        return vo, io
+    splits = codebook_splits(B, N, x.device)
+    pv = torch.empty((splits, B, k), **f32)
+    pi = torch.empty((splits, B, k), **i32)
+    _build.call("somvq_dist_topk", x.data_ptr(), codes.data_ptr(), B, N, D, k,
+                splits, pv.data_ptr(), pi.data_ptr(), vo.data_ptr(),
+                io.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    dist_topk.launches += 1
+    # the kernel returns partial distances; add ||x||^2 here
+    return torch.clamp(vo + (x * x).sum(-1, keepdim=True), min=0.0), io
+
+
+dist_topk.launches = 0

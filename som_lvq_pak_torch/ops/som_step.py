@@ -11,7 +11,10 @@ form the trainer runs):
 The codebook is updated IN PLACE (the caller owns the resident codebook;
 this saves a second codebook-sized buffer per step) and returned.
 `val_next` is the partial distance ||m||^2 - 2 m.x, without ||x||^2, as in
-the JAX package.
+the JAX package.  `unit_offset` (default 0) is the global unit of row 0 when
+`codes` is a model-axis shard of a larger map: the neighbourhood weights are
+taken at the global units, while `bmu_next` stays local rows, as the JAX
+wrapper returns them (parallel.sharded adds the offset).
 
 A CUDA tensor launches the kernel in `csrc/som_fused_step.cu`; a CPU tensor
 runs the plain version below, built from the plain counterparts of
@@ -92,14 +95,15 @@ def guarded_blend(c: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor
 
 
 def som_fused_train_step_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha,
-                               radius, gaussian=False):
+                               radius, gaussian=False, unit_offset=0):
     """Plain K3; same arguments and contract as `som_fused_train_step`."""
     fp32_matmul()
     dev = codes.device
     aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
     aw = aw.expand(xb.shape[0]) if aw.dim() == 0 else aw
     r = torch.tensor(radius, dtype=torch.float32, device=dev)
-    units = torch.arange(codes.shape[0], dtype=torch.int32, device=dev)
+    units = unit_offset + torch.arange(codes.shape[0], dtype=torch.int32,
+                                       device=dev)
     w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
     newc = guarded_blend(codes, w @ xb, w.sum(1, keepdim=True))
     d_t = (newc * newc).sum(1, keepdim=True) - 2.0 * (newc @ xb_next.T)
@@ -119,6 +123,7 @@ def som_fused_train_step(
     alpha: Union[float, torch.Tensor],
     radius: float,
     gaussian: bool = False,
+    unit_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Update `codes` (noc, D) in place with batch `xb` (B, D) whose BMUs
     are `bmu` (B,); return (codes, bmu_next (B',) int32, val_next (B',))
@@ -140,6 +145,8 @@ def som_fused_train_step(
         raise ValueError("codes must be contiguous (updated in place)")
     if B == 0 or xb_next.shape[0] == 0:
         raise ValueError("empty batch")
+    if unit_offset < 0:
+        raise ValueError(f"unit_offset {unit_offset} < 0")
     aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
     aw = aw.expand(B).contiguous() if aw.dim() == 0 else aw.contiguous()
     if aw.shape != (B,):
@@ -147,7 +154,7 @@ def som_fused_train_step(
     bmu = bmu.to(torch.int32).contiguous()
     if dev.type == "cpu":
         return som_fused_train_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
-                                          aw, radius, gaussian)
+                                          aw, radius, gaussian, unit_offset)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if D > MAX_D:
@@ -162,8 +169,8 @@ def som_fused_train_step(
     _build.call("somvq_som_fused_step", codes.data_ptr(), noc, D,
                 xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B,
                 xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
-                int(bool(gaussian)), float(radius), keys.data_ptr(),
-                val.data_ptr(), idx.data_ptr(),
+                int(bool(gaussian)), float(radius), int(unit_offset),
+                keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     som_fused_train_step.launches += 1
     return codes, idx, val

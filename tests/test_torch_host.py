@@ -384,3 +384,35 @@ def test_entry_points_default_to_the_gpu():
             call()
     assert som.find_qerror(init, data, device="cpu") > 0
     assert peval.accuracy(ldata, lcodes, device="cpu")[0] > 0
+
+
+@pytest.mark.parametrize("world", ["no GPU", "gloo", "nccl"])
+def test_make_mesh_defaults_to_the_gpu_in_a_world_started_by_hand(world, monkeypatch,
+                                                                  tmp_path):
+    """A one-rank world started with init_process_group, not
+    initialize_distributed (as under torchrun): make_mesh() puts the mesh
+    on the card of the backend rule (cuda:0 under gloo, cuda:LOCAL_RANK
+    under NCCL) and raises without a GPU; it is on the CPU only when the
+    caller passes device="cpu"."""
+    import torch.distributed as dist
+
+    from som_lvq_pak_torch.parallel import mesh as pmesh
+    monkeypatch.setattr(pmesh, "_device", None)
+    dist.init_process_group("gloo", init_method="file://" + str(tmp_path / "rdv"),
+                            world_size=1, rank=0)
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: world != "no GPU")
+            if world == "nccl":
+                m.setattr(dist, "get_backend", lambda *a, **k: "nccl")
+                m.setenv("LOCAL_RANK", "3")
+            if world == "no GPU":
+                with pytest.raises(RuntimeError, match="no GPU"):
+                    pmesh.make_mesh()
+            else:
+                mesh = pmesh.make_mesh()
+                assert mesh.device == torch.device("cuda", 3 if world == "nccl" else 0)
+                assert mesh.shape == {"data": 1, "model": 1}
+            assert pmesh.make_mesh(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()

@@ -13,6 +13,7 @@ an interrupted-then-resumed run equals the uninterrupted one to 1e-6 (CPU
 runs are deterministic)."""
 
 import os
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -370,10 +371,12 @@ def test_dataset_sampler_is_seeded_per_batch(table):
 
 def test_unported_and_bad_inputs_raise(table):
     _, _, pcodes, pdata = _golden(table)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        LVQTrainer(pcodes, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        OLVQ1Trainer(pcodes, mesh=object(), device="cpu")
+    # a batch that does not split over the mesh's data axis
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1})
+    with pytest.raises(ValueError, match="does not split"):
+        LVQTrainer(pcodes, batch_size=63, mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="does not split"):
+        OLVQ1Trainer(pcodes, batch_size=63, mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="olvq1"):
         LVQTrainer(pcodes, "olvq1", device="cpu")
     with pytest.raises(RuntimeError, match="stream exhausted"):

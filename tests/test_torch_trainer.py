@@ -8,6 +8,7 @@ Dataset form shuffles with a different generator (jax.random vs
 torch.Generator), so there only quality is compared, to 5%."""
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -193,7 +194,8 @@ def test_resume_from_jax_checkpoint(tmp_path):
 
 
 def test_unported_inputs_raise_and_short_streams():
-    """Meshes and bf16 streaming still raise; masked data (as a Dataset and inside a stream),
+    """bf16 streaming still raises, and so does a batch that does not split
+    over a mesh's data axis; masked data (as a Dataset and inside a stream),
     weight= and fixed= tokens and the masked qerror now run; short streams
     raise unless allowed."""
     X = _blobs(n=512)
@@ -201,8 +203,9 @@ def test_unported_inputs_raise_and_short_streams():
     mask = np.zeros_like(X, dtype=np.uint8)
     mask[:, 1] = 1
     kw = dict(rlen=512, alpha=0.05, radius=3.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SOMTrainer(init, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="does not split"):
+        SOMTrainer(init, batch_size=63, mesh=types.SimpleNamespace(
+            shape={"data": 2, "model": 1}), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SOMTrainer(init, stream_bf16=True, device="cpu")
     out = SOMTrainer(init, batch_size=B, device="cpu").fit(
