@@ -28,25 +28,45 @@ line:
             at bench.py:prep_somexample_shape's, at a ragged shape with
             every code three times, and at e2e_64x64_1M's group shape.
             K1 also runs at the LVQ steps' B 1024 and at the LVQ accuracy's
-            single launch over 1M x 65536;
+            single launch over 1M x 65536.  The fused-step kernels: K3
+            (factored=False) at the 1M cell's step and with a bf16
+            codebook; K13 (som_fused_factored_step) at the 128x128 cell's
+            step, 256x256 at B 1024, 64x64 bubble at B 4096, a rect map,
+            the 64x64 B 512 step, every code three times (exact ties) and a
+            bf16 codebook, codes within 1e-5 and values within 1e-4; K14
+            (som_fused_factored_chunked_step) at the 64x64 B 4096 step with
+            both bf16 options, bench.py's headline 256x256 shapes (B 4096
+            with the bf16 x-pattern, B 8192 with both options), bubble with
+            and without bf16 batches and a bf16 codebook (values within 1e-2
+            under bf16 batches); and the exact bubble boundary through K13
+            and K14;
 4. e2e_128x128_100k  SOMTrainer.fit on a stream, then find_qerror(fast),
-            through the kernels and through the plain versions; qerror
-            within 1% of the plain run and 2% of the JAX package's anchor;
+            through the kernels and through the plain versions: K13 per
+            step (no K3 launch, the JAX trainer's choice); qerror within
+            0.5% of the plain run and 2% of the JAX package's anchor; then
+            with bf16=True, qerror under 1.1x the float32 run's; then
+            train_s on K13 and forced onto K3, in turns (ab_train_s; also
+            for the two cells of phase 9 that run K13 and K14);
 5. som_batch_step_128x128  a few unmasked two-kernel steps through
             models.fast.som_batch_step, against the plain run;
 6. e2e_masked_128x128_100k  phase 4's run with missing components in
-            every other chunk and weight= tokens (fused, re-seed and masked
+            every other chunk and weight= tokens (K13, re-seed and masked
             steps all run), then the masked qerror; within 1% of plain;
 7. e2e_masked_64x64_100k  the grouped path: a 64x64 map on the 100k data
             with every other 16384-row chunk masked and weight= tokens, so
             clean groups (K1 + K7) alternate with dirty ones (K4 + K6 per
             batch); then the masked qerror; within 1% of plain;
-8. e2e_256x256_1M    the 1M x 64 run of bench.py:run_e2e_1m_65k, qerror
-            within 2% of the JAX package's anchor;
+8. e2e_256x256_1M    the 1M x 64 run of bench.py:run_e2e_1m_65k (K3 per
+            step, the JAX trainer's choice there), qerror within 2% of the
+            JAX package's anchor; then with stream_bf16=True, within 1% of
+            it;
 9. e2e_64x64_1M      the grouped path on the same 1M x 64 data: a 64x64
             map, B 512, 1953 steps in 62 K7 launches, then K2's qerror;
-            also with vmem_steps=False (K3 per step) and through the plain
-            versions; within 1% of both, and below 0.8x random init;
+            also with vmem_steps=False (K13 per step) and through the plain
+            versions; within 1% of both, and below 0.8x random init.
+            e2e_64x64_1M_B4096: the same map at B 4096, radius 16, 244
+            steps: K14 with the bf16 x-pattern and bf16 batches (the JAX
+            trainer's choice); within 0.5% of the plain run;
 10. e2e_masked_256x256_1M  the 1M run with every chunk masked (every step
             is the masked two-kernel step), then one masked winner search
             over 1M x 65536; within 1% of plain, and below 0.8x the
@@ -305,39 +325,110 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     return rec
 
 
-def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed):
+def bf16_ulp_close(got, want, atol=1e-5) -> bool:
+    """Two bf16 codebooks from float32 blends equal to `atol`: each entry
+    within one bf16 ulp (<= 2^-7 relative) plus `atol` (the two blends may
+    round to different bf16 neighbours; near 0 the float32 difference
+    itself shows), and at most 1% of the entries differing."""
+    d = (got.float() - want.float()).abs()
+    return bool((d <= 2.0 ** -7 * want.float().abs() + atol).all()
+                and float((d > 0).float().mean()) <= 0.01)
+
+
+def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
+               name="som_fused_train_step", kw=None, bf16=False, dup=False,
+               codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5):
+    """A fused-step kernel (K3, K13 or K14, options `kw`) against its plain
+    version: a few samples without a BMU, per-sample alphas.  Codes within
+    `codes_tol` (a bf16 codebook: bf16_ulp_close), winners equal except where
+    the two rows' distances differ by less than `win_rel`, values within
+    `val_tol` (rtol, atol).  With `dup` every code is there three times and
+    alpha is 0: the rows do not move, and the first copy must win every
+    exact tie, as in the plain version."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
 
+    kw = kw or {}
     noc = xdim * ydim
     g = torch.Generator(device="cuda").manual_seed(seed)
-    codes = torch.randn((noc, D), generator=g, device="cuda")
+    if dup:
+        base = torch.randn((noc // 3, D), generator=g, device="cuda")
+        codes = torch.cat([base, base, base]).contiguous()
+    else:
+        codes = torch.randn((noc, D), generator=g, device="cuda")
     xb = torch.randn((B, D), generator=g, device="cuda")
     xn = torch.randn((B, D), generator=g, device="cuda")
     bmu = dist_argmin_plain(xb, codes)[1]
     bmu[:7] = -1  # samples without a BMU teach nothing
     alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device="cuda")
-    ck, ik, vk = kernel(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
-    cp, ip, vp = plain(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
+    if dup:
+        alpha.zero_()
+    if bf16:
+        codes = codes.to(torch.bfloat16)
+    ck, ik, vk = kernel(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, **kw)
+    cp, ip, vp = plain(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, **kw)
     torch.cuda.synchronize()
-    name = f"som_fused_train_step {xdim}x{ydim} {'hexa' if hexa else 'rect'} " \
-           f"{'gaussian' if gaussian else 'bubble'}"
-    if not torch.allclose(ck, cp, rtol=1e-4, atol=1e-4):
-        raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
-    n_diff = check_winners(name, xn, ck, ik, ip)
-    if not torch.allclose(vk, vp, rtol=1e-4, atol=1e-3):
+    name = f"{name} {xdim}x{ydim} {'hexa' if hexa else 'rect'} " \
+           f"{'gaussian' if gaussian else 'bubble'}" \
+           + "".join(f" {k}={v}" for k, v in kw.items()) \
+           + (" bf16 codebook" if bf16 else "") + (" every code three times" if dup else "")
+    err = float((ck.float() - cp.float()).abs().max())
+    if not (bf16_ulp_close(ck, cp) if bf16
+            else torch.allclose(ck, cp, rtol=codes_tol, atol=codes_tol)):
+        raise AssertionError(f"{name}: codebooks differ by {err}")
+    n_diff = check_winners(name, xn, ck.float(), ik, ip, rel=win_rel)
+    if not torch.allclose(vk, vp, rtol=val_tol[0], atol=val_tol[1]):
         raise AssertionError(f"{name}: winner values differ by {float((vk - vp).abs().max())}")
+    if dup and not (torch.equal(ck, codes) and torch.equal(ik, ip)
+                    and int(ik.max()) < noc // 3):
+        raise AssertionError(f"{name}: rows moved at alpha 0, or an exact tie went "
+                             "unlike the plain version or to a later copy")
     work = codes.clone()
     # update W.X and winners, 2 noc B D FLOPs each; codes read and written,
     # both batches, bmu and alpha read, the next winners written
+    cb = codes.element_size()
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius, winners_differ=n_diff,
-               max_abs_err=float((ck - cp).abs().max()),
-               ms=cuda_ms(lambda: kernel(work, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)),
-               plain_ms=cuda_ms(lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)),
-               **bound(4 * noc * B * D, 8 * noc * D + 8 * B * D + 16 * B))
+               max_abs_err=err,
+               ms=cuda_ms(lambda: kernel(work, xb, bmu, xn, xdim, hexa, alpha, radius,
+                                         gaussian, **kw)),
+               plain_ms=cuda_ms(lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius,
+                                              gaussian, **kw)),
+               **bound(4 * noc * B * D, 2 * cb * noc * D + 8 * B * D + 16 * B))
     emit("kernels", **rec)
     return rec
+
+
+def phase_bubble_boundary():
+    """The exact bubble boundary through K13 and K14 on the card: on an 8x6
+    hexa map a sample with BMU (column 2, row 0) and r = 3 reaches the unit
+    (column 3, row 3) at dx = 1.5, dy^2 = 9 * 0.75, so d2 = r^2 exactly and
+    the unit is inside.  K13 takes one sample of alpha 0.5; K14 128 such
+    samples of alpha 2^-8 (wsum exactly 0.5, B a multiple of its chunk).
+    The unit must become 0.5 exactly, and each codebook equal its plain
+    version's bit for bit."""
+    import torch
+
+    from som_lvq_pak_torch.ops import som_step as ss
+
+    xdim, D, inside = 8, 64, 3 * 8 + 3
+    for name, fn, plain, B, a, kw in (
+            ("K13", ss.som_fused_factored_step, ss.som_fused_factored_step_plain,
+             1, 0.5, {}),
+            ("K14", ss.som_fused_factored_chunked_step,
+             ss.som_fused_factored_chunked_step_plain, 128, 2.0 ** -8,
+             dict(batch_chunk=128, batch_bf16=True))):
+        codes = torch.zeros((48, D), device="cuda")
+        xb = torch.ones((B, D), device="cuda")
+        bmu = torch.full((B,), 2, dtype=torch.int32, device="cuda")
+        ck = fn(codes.clone(), xb, bmu, xb, xdim, True, a, 3.0, False, **kw)[0]
+        cp = plain(codes.clone(), xb, bmu, xb, xdim, True, a, 3.0, False, **kw)[0]
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, cp) and bool((ck[inside] == 0.5).all())):
+            raise AssertionError(f"{name}: the exact bubble boundary went wrong: "
+                                 f"{ck[inside, :4].tolist()}")
+    emit("kernels", kernel="exact bubble boundary, K13 and K14", inside_equals_half=True,
+         equal_plain=True)
 
 
 def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
@@ -434,7 +525,8 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
         bmu = bmu0
         for t in range(K):
             _, bmu, _ = som_fused_train_step(c, xs[t], bmu, xs[t + 1] if t + 1 < K else nf,
-                                             xdim, hexa, alphas[t], rlist[t], gaussian)
+                                             xdim, hexa, alphas[t], rlist[t], gaussian,
+                                             factored=False)
         return c, bmu
 
     rec = dict(kernel=name, shape=[noc, B, D, K], radius=radius, alpha=alpha,
@@ -614,7 +706,8 @@ def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
     xb, bmu, alpha = shard_inputs(g, noc, half, B, D)
     xn = torch.randn((B, D), generator=g, device="cuda")
     args = (xdim, hexa, alpha, radius, gaussian)
-    full, i_full, v_full = som_fused_train_step(codes.clone(), xb, bmu, xn, *args)
+    full, i_full, v_full = som_fused_train_step(codes.clone(), xb, bmu, xn, *args,
+                                                factored=False)
     parts = [som_fused_train_step(codes[m * half:(m + 1) * half].clone(), xb, bmu, xn,
                                   *args, unit_offset=m * half) for m in (0, 1)]
     vals = torch.stack([v for _, _, v in parts])
@@ -651,9 +744,10 @@ def blob_data(seed: int, n: int, n_centres: int):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the trainers, the two-kernel step, the LVQ steps, the qerror
-    and the accuracy through the plain versions (for the reference run on
-    the card); restores the kernels on exit."""
+    """Route the trainers, the fused step (its K3, K13 and K14 branches), the
+    two-kernel step, the LVQ steps, the qerror and the accuracy through the
+    plain versions (for the reference run on the card); restores the
+    kernels on exit."""
     from som_lvq_pak_torch.models import eval as ev
     from som_lvq_pak_torch.models import fast, som, trainer
     from som_lvq_pak_torch.ops import dist_argmin as da
@@ -661,7 +755,9 @@ def plain_kernels():
     from som_lvq_pak_torch.ops import som_step, som_update, som_vmem
 
     swaps = [(trainer, "dist_argmin", da.dist_argmin_plain),
-             (trainer, "som_fused_train_step", som_step.som_fused_train_step_plain),
+             (som_step, "_fused_step_k3", som_step.som_fused_train_step_plain),
+             (som_step, "_fused_step_k13", som_step.som_fused_factored_step_plain),
+             (som_step, "_fused_step_k14", som_step.som_fused_factored_chunked_step_plain),
              (trainer, "som_vmem_train_steps", som_vmem.som_vmem_train_steps_plain),
              (fast, "dist_argmin", da.dist_argmin_plain),
              (fast, "som_neighborhood_update_idx",
@@ -680,10 +776,36 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def forced_k3():
+    """SOMTrainer's clean steps on K3, whatever fused_step_choice picks: the
+    separable kernels' A/B against K3 on one cell; restored on exit."""
+    from som_lvq_pak_torch.models import trainer
+
+    saved = trainer.fused_step_choice
+    trainer.fused_step_choice = lambda *a: (False, 1024, None, False, False)
+    try:
+        yield
+    finally:
+        trainer.fused_step_choice = saved
+
+
+def ab_train_s(run):
+    """train_s of `run()` (an e2e) on the kernel the JAX choice gives and on
+    K3, in turns: chosen, K3, K3, chosen (one card, one call)."""
+    out = {"chosen": [], "k3": []}
+    for kind in ("chosen", "k3", "k3", "chosen"):
+        with forced_k3() if kind == "k3" else contextlib.nullcontext():
+            out[kind].append(run()[1])
+    return out
+
+
 def counted():
     from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
                                                    dist_argmin_t)
-    from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+    from som_lvq_pak_torch.ops.som_step import (som_fused_factored_chunked_step,
+                                                som_fused_factored_step,
+                                                som_fused_train_step)
     from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
                                                   som_neighborhood_update_idx_masked)
     from som_lvq_pak_torch.ops.dist_top2 import dist_top2, dist_top2_masked
@@ -695,7 +817,8 @@ def counted():
     return (dist_argmin, dist_argmin_t, som_fused_train_step, dist_argmin_masked,
             som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
             som_vmem_train_steps, dist_top2, dist_top2_masked, dist_topk,
-            som_neighborhood_accumulate, som_blend_winner)
+            som_neighborhood_accumulate, som_blend_winner, som_fused_factored_step,
+            som_fused_factored_chunked_step)
 
 
 def main_path(name, run, kernels, plain_run=None):
@@ -749,14 +872,14 @@ def som_stream(X, chunk, total, mask=None, weight=None, labels=None):
 
 
 def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
-        around=None):
+        around=None, **trainer_kw):
     """One streamed lap of SOMTrainer.fit, then find_qerror(fast) on a
     device-resident copy; returns (per-sample qerror, train_s, eval_s).
     With `mask`, chunks carry their slice of it (a Dataset drops an
     all-zero mask, so clean chunks have none) and the qerror is masked;
     with `weight`, chunks carry weight= tokens and training uses them.
-    `vmem_steps` goes to SOMTrainer (False: never the grouped path).
-    `around(part)`, if given, is a context manager entered around the timed
+    `vmem_steps` goes to SOMTrainer (False: never the grouped path), as do
+    `trainer_kw` (bf16=, stream_bf16=).  `around(part)`, if given, is a context manager entered around the timed
     "train" and "eval" parts."""
     import torch
 
@@ -773,12 +896,14 @@ def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
     mk_dev = None if mask is None else torch.from_numpy(mask).to("cuda")
     kw = dict(alpha=0.05, radius=radius, allow_short_stream=True,
               use_weights=weight is not None)
-    warm = SOMTrainer(codes, batch_size=bs, device="cuda", vmem_steps=vmem_steps)
+    warm = SOMTrainer(codes, batch_size=bs, device="cuda", vmem_steps=vmem_steps,
+                      **trainer_kw)
     find_qerror(warm.fit(stream(2 * bs), rlen=2 * bs, **kw), X_dev, mask=mk_dev)
     torch.cuda.synchronize()
 
     around = around or (lambda part: contextlib.nullcontext())
-    tr = SOMTrainer(codes, batch_size=bs, device="cuda", vmem_steps=vmem_steps)
+    tr = SOMTrainer(codes, batch_size=bs, device="cuda", vmem_steps=vmem_steps,
+                    **trainer_kw)
     with around("train"):
         t0 = time.perf_counter()
         out = tr.fit(stream(n), rlen=n, **kw)
@@ -962,6 +1087,7 @@ def profile_cells() -> None:
     cells = [("e2e_256x256_1M", (X, 256, 4096, 64, 16384), {}),
              ("e2e_64x64_1M", (X, 64, 512, 16, 16384), {}),
              ("e2e_64x64_1M_stepwise", (X, 64, 512, 16, 16384), dict(vmem_steps=False)),
+             ("e2e_64x64_1M_B4096", (X, 64, 4096, 16, 16384), {}),
              ("e2e_masked_256x256_1M", (Xm, 256, 4096, 64, 16384), dict(mask=mask))]
     for name, args, kw in cells:
         e2e(*args, **kw, around=lambda part: profiled(f"{name} {part}"))
@@ -1081,7 +1207,7 @@ def k3_chain(X, nudge=None):
     for t in range(DRIFT_STEPS):
         seq.append(som_fused_train_step(M, xs[t], seq[-1], xs[(t + 1) % DRIFT_STEPS],
                                         256, True, float(alphas[t]), float(radii[t]),
-                                        True)[1])
+                                        True, factored=False)[1])
     return M.cpu().numpy(), torch.stack(seq).cpu().numpy()
 
 
@@ -1215,9 +1341,9 @@ def masked_data(X, seed, chunk, every_other):
     return np.where(mask != 0, np.float32(0), X), mask, rng
 
 
-def check_e2e(name, q, q_plain):
-    if not (np.isfinite(q) and abs(q - q_plain) <= 0.01 * q_plain):
-        raise AssertionError(f"{name}: qerror {q} vs plain {q_plain} (> 1%)")
+def check_e2e(name, q, q_plain, rel=0.01):
+    if not (np.isfinite(q) and abs(q - q_plain) <= rel * q_plain):
+        raise AssertionError(f"{name}: qerror {q} vs plain {q_plain} (> {rel:.1%})")
 
 
 def som_batch_steps(X, map_dim, bs, steps):
@@ -1359,7 +1485,8 @@ def mesh_phases(smi, tally, q_masked128):
         raise AssertionError(f"mixed drift chain: forced chain off the K3 chain: {drift}")
     # the world's one mixed step against K3 on the whole map, same inputs
     c, xb, bmu, xn = (torch.from_numpy(a).to("cuda") for a in step_inputs())
-    c3, i3, _ = som_fused_train_step(c, xb, bmu, xn, 256, True, 0.05, 64.0, True)
+    c3, i3, _ = som_fused_train_step(c, xb, bmu, xn, 256, True, 0.05, 64.0, True,
+                                     factored=False)
     got_c = torch.from_numpy(fits["mixed_step"][0]["codes"]).to("cuda")
     got_i = torch.from_numpy(fits["mixed_step"][0]["winners"]).to("cuda")
     step_diff = float((got_c - c3).abs().max())
@@ -1438,8 +1565,11 @@ def main() -> int:
     from som_lvq_pak_torch.ops.dist_top2 import (dist_top2, dist_top2_masked,
                                                  dist_top2_plain)
     from som_lvq_pak_torch.ops.distance import fp32_matmul
-    from som_lvq_pak_torch.ops.som_step import (som_fused_train_step,
-                                                som_fused_train_step_plain)
+    from som_lvq_pak_torch.models.trainer import fused_step_choice
+    from som_lvq_pak_torch.ops.som_step import (
+        som_fused_factored_chunked_step, som_fused_factored_chunked_step_plain,
+        som_fused_factored_step, som_fused_factored_step_plain, som_fused_train_step,
+        som_fused_train_step_plain)
     from som_lvq_pak_torch.ops.som_update import (
         som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
         som_neighborhood_update_idx_plain)
@@ -1466,7 +1596,7 @@ def main() -> int:
         q_masked128 = main_path(
             "e2e_masked_128x128_100k",
             lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight)[0],
-            ("dist_argmin", "som_fused_train_step", "dist_argmin_masked"))[0]
+            ("dist_argmin", "som_fused_factored_step", "dist_argmin_masked"))[0]
         mesh_phases(smi, lambda got: None, q_masked128)
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -1517,13 +1647,65 @@ def main() -> int:
                                        ((1000, 999, 5), 12, True),
                                        ((1000, 2, 5), 13, False))]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
-    steps = [phase_step(som_fused_train_step, som_fused_train_step_plain,
-                        *case, seed=4)
-             for case in ((128, 128, True, True, 1024, 64, 32.0),
-                          (256, 256, True, True, 4096, 64, 64.0),
+    # K3 (factored=False: these geometries but 12x8 take K13 by default) at
+    # the 1M cell's step first (its record), then with a bf16 codebook
+    k3 = lambda *a, **kw: som_fused_train_step(*a, factored=False, **kw)  # noqa: E731
+    steps = [phase_step(k3, som_fused_train_step_plain, *case, seed=4)
+             for case in ((256, 256, True, True, 4096, 64, 64.0),
+                          (128, 128, True, True, 1024, 64, 32.0),
                           (12, 8, False, False, 1024, 64, 3.0))]
+    phase_step(k3, som_fused_train_step_plain, 256, 256, True, True, 4096, 64, 64.0,
+               seed=4, bf16=True, win_rel=1e-2)
+    # the records' max_abs_err: float32 shapes (a bf16 codebook is held to one
+    # bf16 ulp, bf16_ulp_close)
     recs["som_fused_train_step"] = dict(
-        steps[1], max_abs_err=max(r["max_abs_err"] for r in steps))
+        steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
+    # K13 at e2e_128x128_100k's step first (its record), then 256x256 at
+    # B 1024, 64x64 bubble at B 4096 (one grid row per 32-row CTA), a rect
+    # map, e2e_64x64_1M_stepwise's step, every code three times (exact ties)
+    # and a bf16 codebook
+    f32_tols = dict(codes_tol=1e-5, val_tol=(1e-4, 1e-4))
+    steps = [phase_step(som_fused_factored_step, som_fused_factored_step_plain, *case,
+                        seed=seed, name="som_fused_factored_step", dup=dup, **f32_tols)
+             for case, seed, dup in (((128, 128, True, True, 1024, 64, 32.0), 40, False),
+                                     ((256, 256, True, True, 1024, 64, 64.0), 41, False),
+                                     ((64, 64, True, False, 4096, 64, 16.0), 42, False),
+                                     ((128, 64, False, True, 1024, 64, 20.0), 43, False),
+                                     ((64, 64, True, True, 512, 64, 16.0), 44, False),
+                                     ((48, 16, True, True, 1024, 64, 8.0), 45, True))]
+    phase_step(som_fused_factored_step, som_fused_factored_step_plain, 128, 128, True,
+               True, 1024, 64, 32.0, seed=46, name="som_fused_factored_step", bf16=True,
+               val_tol=(1e-4, 1e-4), win_rel=1e-2)
+    recs["som_fused_factored_step"] = dict(
+        steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
+    # K14 at e2e_64x64_1M_B4096's step (the JAX trainer's choice there: chunk
+    # 1024, bf16 x-pattern and batches) first, then bench.py:849-858's
+    # headline shapes (256x256, chunk 1024: B 4096 with the bf16 x-pattern,
+    # B 8192 with both), bubble (its x-pattern stays float32) with and
+    # without bf16 batches, and a bf16 codebook.  Under batch_bf16 the winners
+    # score bf16-rounded rows: values within 1e-2, winners to 1e-2 relative
+    # (tests/test_torch_factored.py)
+    both = dict(batch_chunk=1024, wxa_bf16=True, batch_bf16=True)
+    bf16_tols = dict(codes_tol=1e-5, val_tol=(1e-2, 1e-2), win_rel=1e-2)
+    steps = [phase_step(som_fused_factored_chunked_step,
+                        som_fused_factored_chunked_step_plain, *case, seed=seed,
+                        name="som_fused_factored_chunked_step", kw=kw,
+                        **(bf16_tols if kw.get("batch_bf16") else f32_tols))
+             for case, seed, kw in (
+                 ((64, 64, True, True, 4096, 64, 16.0), 47, both),
+                 ((256, 256, True, True, 4096, 64, 64.0), 48,
+                  dict(batch_chunk=1024, wxa_bf16=True)),
+                 ((256, 256, True, True, 8192, 64, 64.0), 49, both),
+                 ((64, 64, True, False, 4096, 64, 16.0), 50, dict(batch_chunk=1024)),
+                 ((64, 64, True, False, 4096, 64, 16.0), 51,
+                  dict(batch_chunk=1024, batch_bf16=True)))]
+    phase_step(som_fused_factored_chunked_step, som_fused_factored_chunked_step_plain,
+               64, 64, True, True, 4096, 64, 16.0, seed=52,
+               name="som_fused_factored_chunked_step", kw=both, bf16=True,
+               val_tol=(1e-2, 1e-2), win_rel=1e-2)
+    recs["som_fused_factored_chunked_step"] = dict(
+        steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
+    phase_bubble_boundary()
     update_cases = ((256, 256, True, True, 4096, 64, 64.0),
                     (128, 128, True, True, 1024, 64, 32.0),
                     (12, 8, False, False, 1024, 64, 3.0))
@@ -1593,16 +1775,33 @@ def main() -> int:
     X = blob_data(42, 100_000, 4)
     (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
         "e2e_128x128_100k", lambda: e2e(X, 128, 1024, 32, 8192),
-        ("dist_argmin", "dist_argmin_t", "som_fused_train_step"),
+        ("dist_argmin", "dist_argmin_t", "som_fused_factored_step"),
         lambda: e2e(X, 128, 1024, 32, 8192))
     tally(got)
-    check_e2e("e2e 128", q, q_plain)
+    if got["som_fused_train_step"]:
+        raise AssertionError("e2e 128: K3 launched where the JAX trainer takes the "
+                             "separable kernel")
+    check_e2e("e2e 128", q, q_plain, 0.005)
     if abs(q - ANCHOR_128) > 0.02 * ANCHOR_128:
         raise AssertionError(f"e2e 128: qerror {q} vs JAX anchor {ANCHOR_128} (> 2%)")
+    # the same cell with a bf16-resident codebook: K13 reads and writes bf16
+    # rows; the JAX gate (tests/test_trainer_quality.py:424-437): qerror
+    # under 1.1x the float32 run's
+    (q16, train16_s, _), _, got16 = main_path(
+        "e2e_128x128_100k bf16", lambda: e2e(X, 128, 1024, 32, 8192, bf16=True),
+        ("dist_argmin", "dist_argmin_t", "som_fused_factored_step"))
+    tally(got16)
+    if not (np.isfinite(q16) and q16 < 1.1 * q):
+        raise AssertionError(f"e2e 128 bf16: qerror {q16} not under 1.1 x {q}")
+    ab128 = ab_train_s(lambda: e2e(X, 128, 1024, 32, 8192))
     emit("e2e_128x128_100k", card=smi, qerror_per_sample=q, train_s=train_s,
          qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
          plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
-         launches=got)
+         kernel_choice=fused_step_choice(128 * 128, 128, True, True, 1024, 64),
+         launches=got, bf16_qerror_per_sample=q16, bf16_train_s=train16_s,
+         bf16_launches=got16, ab_train_s_vs_k3=ab128,
+         gate="qerror within 0.5% of plain and 2% of the JAX anchor; bf16 run under "
+              "1.1x the float32 run's; no K3 launch")
 
     # ---- unmasked two-kernel steps through som_batch_step ----------------
     Mk, Mp, got = main_path(
@@ -1624,7 +1823,7 @@ def main() -> int:
     (q_masked128, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
         "e2e_masked_128x128_100k",
         lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight),
-        ("dist_argmin", "som_fused_train_step", "dist_argmin_masked",
+        ("dist_argmin", "som_fused_factored_step", "dist_argmin_masked",
          "som_neighborhood_update_idx_masked"),
         lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight))
     tally(got)
@@ -1660,8 +1859,20 @@ def main() -> int:
     tally(got)
     if abs(q - ANCHOR_1M) > 0.02 * ANCHOR_1M:
         raise AssertionError(f"e2e 1M: qerror {q} vs JAX anchor {ANCHOR_1M} (> 2%)")
+    # the same run with the stream shipped as bf16 (tests/test_trainer.py:
+    # 359-380): qerror within 1% of the float32-streamed run
+    (q16, train16_s, _), _, got16 = main_path(
+        "e2e_256x256_1M stream_bf16",
+        lambda: e2e(X, 256, 4096, 64, 16384, stream_bf16=True),
+        ("dist_argmin", "dist_argmin_t", "som_fused_train_step"))
+    tally(got16)
+    check_e2e("e2e 1M stream_bf16", q16, q)
     emit("e2e_256x256_1M", card=smi, qerror_per_sample=q, train_s=train_s,
-         qerror_eval_s=eval_s, launches=got)
+         qerror_eval_s=eval_s,
+         kernel_choice=fused_step_choice(256 * 256, 256, True, True, 4096, 64),
+         launches=got, stream_bf16_qerror_per_sample=q16,
+         stream_bf16_train_s=train16_s, stream_bf16_launches=got16,
+         gate="qerror within 2% of the JAX anchor; stream_bf16 within 1% of it")
 
     # ---- e2e 64x64, 1M x 64: the grouped path, 62 K7 launches -----------
     (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
@@ -1671,10 +1882,11 @@ def main() -> int:
     tally(got)
     (q_step, train_step_s, eval_step_s), _, got_step = main_path(
         "e2e_64x64_1M_stepwise", lambda: e2e(X, 64, 512, 16, 16384, vmem_steps=False),
-        ("dist_argmin", "dist_argmin_t", "som_fused_train_step"))
+        ("dist_argmin", "dist_argmin_t", "som_fused_factored_step"))
     tally(got_step)
     check_e2e("e2e 64 1M", q, q_plain)
-    check_e2e("e2e 64 1M vs K3 per step", q, q_step)
+    check_e2e("e2e 64 1M vs K13 per step", q, q_step)
+    ab_step = ab_train_s(lambda: e2e(X, 64, 512, 16, 16384, vmem_steps=False))
     q_init = find_qerror(random_codes(X, 64), torch.from_numpy(X).to("cuda")) / X.shape[0]
     if not q < 0.8 * q_init:
         raise AssertionError(f"e2e 64 1M: qerror {q} not below 0.8 x the "
@@ -1684,7 +1896,25 @@ def main() -> int:
          plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
          stepwise_qerror_per_sample=q_step, stepwise_train_s=train_step_s,
          stepwise_qerror_eval_s=eval_step_s, random_init_qerror_per_sample=q_init,
-         launches=got, stepwise_launches=got_step)
+         launches=got, stepwise_launches=got_step, stepwise_ab_train_s_vs_k3=ab_step)
+
+    # ---- e2e 64x64, 1M x 64 at B 4096: the batch-chunked kernel ------------
+    # the JAX trainer's choice there: chunk 1024, bf16 x-pattern and batches
+    choice = fused_step_choice(64 * 64, 64, True, True, 4096, 64)
+    if choice != (True, 512, 1024, True, True):
+        raise AssertionError(f"e2e 64 B4096: kernel choice {choice}")
+    (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
+        "e2e_64x64_1M_B4096", lambda: e2e(X, 64, 4096, 16, 16384),
+        ("dist_argmin", "dist_argmin_t", "som_fused_factored_chunked_step"),
+        lambda: e2e(X, 64, 4096, 16, 16384))
+    tally(got)
+    check_e2e("e2e 64 1M B4096", q, q_plain, 0.005)
+    ab4096 = ab_train_s(lambda: e2e(X, 64, 4096, 16, 16384))
+    emit("e2e_64x64_1M_B4096", card=smi, qerror_per_sample=q, train_s=train_s,
+         qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
+         plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
+         kernel_choice=choice, launches=got, ab_train_s_vs_k3=ab4096,
+         gate="qerror within 0.5% of the plain run")
 
     # ---- masked e2e 256x256, 1M x 64: every step masked ------------------
     Xm, mask, _ = masked_data(X, 8, 16384, every_other=False)
@@ -1782,7 +2012,11 @@ def main() -> int:
         "som_neighborhood_accumulate": ("som_lvq_pak_torch/csrc/som_accum.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:301"),
         "som_blend_winner": ("som_lvq_pak_torch/csrc/som_blend_winner.cu",
-                             "som_lvq_pak_tpu/ops/pallas_som.py:401")}
+                             "som_lvq_pak_tpu/ops/pallas_som.py:401"),
+        "som_fused_factored_step": ("som_lvq_pak_torch/csrc/som_fused_factored.cu",
+                                    "som_lvq_pak_tpu/ops/pallas_som.py:743"),
+        "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/som_fused_factored.cu",
+                                            "som_lvq_pak_tpu/ops/pallas_som.py:904")}
     idle = [name for name in sources if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -2,8 +2,11 @@
 // update of batch t, then batch t+1's winners against the updated rows.
 //
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_fused_step_kernel (wrapper
-// som_fused_train_step).  The factored and batch-chunked TPU kernels compute
-// the same function and are also stood in for by this one.
+// som_fused_train_step).  The wrapper takes it where the JAX trainer takes
+// that kernel: a geometry the separable kernels reject (256x256 at B >= 2048
+// among the port's cells), a model-axis shard, or factored=False.  The
+// separable and batch-chunked TPU kernels are K13/K14
+// (som_fused_factored.cu).
 //
 // Update (tile-local).  One CTA owns TN codebook rows.  It walks the batch in
 // BC-sample chunks staged in shared memory, builds the neighbourhood weight
@@ -26,6 +29,11 @@
 // u32 row) into a u64 and combined with atomicMin, which keeps the lowest
 // index among equal values, the reference's tie rule (argmin_keys.cuh, shared
 // with K4).
+//
+// The codebook is float32 or bf16 (SOMTrainer(bf16=True)): rows are read
+// and upcast, blended in float32 and written back rounded to nearest even;
+// the winners are taken against the float32 blended rows, as in the TPU
+// kernel.
 //
 // What bounds it on H100: FP32 FMA issue and shared-memory loads (no tensor
 // cores), plus one expf per (row, sample) for the gaussian.  Device memory
@@ -52,9 +60,9 @@ size_t smem_bytes(int D) {
          sizeof(int) * THREADS;
 }
 
-template <int NJ>
+template <int NJ, typename CT>
 __global__ void __launch_bounds__(THREADS)
-som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
+som_fused_step_kernel(CT* __restrict__ codes, int noc, int D,
                       const float* __restrict__ xb, const int* __restrict__ bmu,
                       const float* __restrict__ alpha, int B,
                       const float* __restrict__ xn, int Bn, int xdim, int hexa,
@@ -90,9 +98,9 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
       if (k < D) {
         float nc = 0.f;
         if (u < noc) {
-          const float c = codes[(size_t)u * D + k];
+          const float c = load_f32(codes + (size_t)u * D + k);
           nc = guarded_blend(c, acc[i][j], wsum[i][0]);
-          codes[(size_t)u * D + k] = nc;
+          store_f32(codes + (size_t)u * D + k, nc);
         }
         tile[r * D + k] = nc;
         sq += nc * nc;
@@ -148,25 +156,45 @@ som_fused_step_kernel(float* __restrict__ codes, int noc, int D,
   }
 }
 
-template <int NJ>
-int launch_step(float* codes, int noc, int D, const float* xb, const int* bmu,
+template <int NJ, typename CT>
+int launch_step(CT* codes, int noc, int D, const float* xb, const int* bmu,
                 const float* alpha, int B, const float* xn, int Bn, int xdim,
                 int hexa, int gaussian, float radius, int unit_offset,
                 unsigned long long* keys, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      som_fused_step_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      som_fused_step_kernel<NJ, CT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  som_fused_step_kernel<NJ><<<(noc + TN - 1) / TN, THREADS, smem, stream>>>(
+  som_fused_step_kernel<NJ, CT><<<(noc + TN - 1) / TN, THREADS, smem, stream>>>(
       codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
       unit_offset, keys);
   return (int)cudaGetLastError();
 }
 
+template <typename CT>
+int launch_any(CT* codes, int noc, int D, const float* xb, const int* bmu,
+               const float* alpha, int B, const float* xn, int Bn, int xdim,
+               int hexa, int gaussian, float radius, int unit_offset,
+               unsigned long long* keys, cudaStream_t stream) {
+  const int nj = (D + 31) / 32;
+  if (nj <= 1)
+    return launch_step<1>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
+                          gaussian, radius, unit_offset, keys, stream);
+  if (nj <= 2)
+    return launch_step<2>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
+                          gaussian, radius, unit_offset, keys, stream);
+  if (nj <= 4)
+    return launch_step<4>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
+                          gaussian, radius, unit_offset, keys, stream);
+  return launch_step<8>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
+                        gaussian, radius, unit_offset, keys, stream);
+}
+
 }  // namespace
 
-extern "C" int somvq_som_fused_step(float* codes, int noc, int D,
+// codes (noc, D) float32, or bf16 with codes_bf16, updated in place
+extern "C" int somvq_som_fused_step(void* codes, int codes_bf16, int noc, int D,
                                     const float* xb, const int* bmu,
                                     const float* alpha, int B, const float* xn,
                                     int Bn, int xdim, int hexa, int gaussian,
@@ -179,19 +207,13 @@ extern "C" int somvq_som_fused_step(float* codes, int noc, int D,
   init_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  const int nj = (D + 31) / 32;
-  if (nj <= 1)
-    rc = launch_step<1>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, unit_offset, keys, stream);
-  else if (nj <= 2)
-    rc = launch_step<2>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, unit_offset, keys, stream);
-  else if (nj <= 4)
-    rc = launch_step<4>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, unit_offset, keys, stream);
-  else
-    rc = launch_step<8>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-                        gaussian, radius, unit_offset, keys, stream);
+  rc = codes_bf16
+           ? launch_any(static_cast<__nv_bfloat16*>(codes), noc, D, xb, bmu,
+                        alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
+                        unit_offset, keys, stream)
+           : launch_any(static_cast<float*>(codes), noc, D, xb, bmu, alpha, B,
+                        xn, Bn, xdim, hexa, gaussian, radius, unit_offset, keys,
+                        stream);
   if (rc) return rc;
   unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // The SOM neighbourhood update's device code, shared by K3
-// (som_fused_step.cu) and K5/K6 (som_update.cu).
+// (som_fused_step.cu), K5/K6 (som_update.cu) and K13/K14
+// (som_fused_factored.cu).
 //
 // W[unit, sample] is built from flat unit indices with the exact-f32 algebra
 // of som_lvq_pak_tpu/ops/pallas_som.py:_neighborhood_w: dx from columns and
@@ -14,6 +15,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -56,6 +58,20 @@ __device__ __forceinline__ float guarded_blend(float c, float acc, float wsum) {
   const float safe = fmaxf(wsum, 1e-30f);
   const float blend = fminf(wsum, 1.0f);
   return c + blend * (acc / safe - c);
+}
+
+// A codebook entry as float32, and back: a bf16 codebook (SOMTrainer(bf16=
+// True)) is read upcast and written rounded to nearest even, as astype does
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Accumulate, for rows r0 + 4 warp + i, acc[i][j] = sum_b W x_b (column

@@ -64,9 +64,8 @@ def randinit(
     return Dataset(points=codes, topol=topol, neigh=neigh, xdim=xdim, ydim=ydim)
 
 
-def find_qerror(codes: Union[Dataset, torch.Tensor],
-                data: Union[Dataset, torch.Tensor], mode: str = "fast",
-                mask: Optional[torch.Tensor] = None,
+def find_qerror(codes: Union[Dataset, torch.Tensor], data,
+                mode: str = "fast", mask: Optional[torch.Tensor] = None,
                 device: Union[torch.device, str] = "cuda") -> float:
     """Total quantization error, sum over samples of the distance to the
     winner (find_qerror, som_rout.c:678-731); divide by N for the
@@ -80,11 +79,15 @@ def find_qerror(codes: Union[Dataset, torch.Tensor],
     `dist_argmin`, and then only the unmasked components count, so a sample
     with every component masked adds 0 (the reference skips it).
 
-    `codes` and `data` are host Datasets or tensors.  A Dataset's mask is
-    its own; `mask` (N, D), nonzero = masked, goes with a `data` tensor.
+    `codes` and `data` are host Datasets or tensors, or `data` is a
+    data.streaming.StreamingReader: the codebook is then uploaded once and
+    each chunk of one lap adds its sum to one float32 total on the device,
+    fetched once at the end (som_lvq_pak_tpu/models/som.py:433-453); a
+    masked chunk takes the masked winner search.  A Dataset's mask is its
+    own; `mask` (N, D), nonzero = masked, goes with a `data` tensor.
     Tensors stay where they are (keep evaluation data resident as a
     tensor); a Dataset is copied to the other argument's device, or to
-    `device` when both are Datasets ("cuda" unless the caller asks for
+    `device` when no argument is a tensor ("cuda" unless the caller asks for
     "cpu"; without a GPU that raises)."""
     if mode != "fast":
         raise NotImplementedError(
@@ -92,6 +95,16 @@ def find_qerror(codes: Union[Dataset, torch.Tensor],
             "som_lvq_pak_tpu.models.som; the port has mode='fast' only")
     tensors = [t for t in (codes, data) if isinstance(t, torch.Tensor)]
     device = tensors[0].device if tensors else device
+    M = codebook_to_torch(codes, device)[0] if isinstance(codes, Dataset) else codes
+    if hasattr(data, "_chunks_one_lap"):  # a StreamingReader
+        if mask is not None:
+            raise ValueError("mask= goes with a data tensor; a stream's chunks "
+                             "carry their own masks")
+        total = torch.zeros((), dtype=torch.float32, device=M.device)
+        for chunk in data.chunks(laps=1):
+            X, mk = samples_to_torch(chunk, M.device)[:2]
+            total = total + _qerror_sum(X, M, mk)
+        return float(total)
     if isinstance(data, Dataset):
         if mask is not None:
             raise ValueError("mask= goes with a data tensor; a Dataset "
@@ -99,11 +112,16 @@ def find_qerror(codes: Union[Dataset, torch.Tensor],
         X, mask = samples_to_torch(data, device)[:2]
     else:
         X = data
-    M = codebook_to_torch(codes, device)[0] if isinstance(codes, Dataset) else codes
     if X.device != M.device:
         raise ValueError(f"codes on {M.device}, data on {X.device}")
+    return float(_qerror_sum(X, M, mask))
+
+
+def _qerror_sum(X: torch.Tensor, M: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The float32 device sum of the winner distances of X's samples."""
     if X.shape[0] == 0:
-        return 0.0
+        return torch.zeros((), dtype=torch.float32, device=M.device)
     if mask is None:
         _, idx = dist_argmin_t(X, M)
         diff = X - M[idx.long()]
@@ -111,4 +129,4 @@ def find_qerror(codes: Union[Dataset, torch.Tensor],
         _, idx = dist_argmin(X, M, mask=mask)
         diff = (X - M[idx.long()]) * keep_of(mask)
     mind = (diff * diff).sum(-1)
-    return float(torch.sqrt(torch.clamp(mind, min=0.0)).sum())
+    return torch.sqrt(torch.clamp(mind, min=0.0)).sum()

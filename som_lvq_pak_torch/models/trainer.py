@@ -15,13 +15,26 @@ next clean group finds its winners again.
 Otherwise clean batches run one fused kernel per step
 (ops.som_step.som_fused_train_step): batch t's neighbourhood update and
 batch t+1's winners against the updated codebook, in one pass over the
-codebook.  A `dist_argmin` prologue finds the first clean batch's winners.
-A batch with masked components runs the two-kernel step (masked
-`dist_argmin`, then the masked neighbourhood update), and the next clean
-batch's winners are found again against the updated codebook.  A Dataset
-with a mask runs the two-kernel step for every batch; a stream decides per
-batch, on the host copy of its mask.  The codebook stays resident on the
-device and is updated in place.
+codebook.  `fused_step_choice` picks the kernel family as the JAX trainer
+does (trainer.py:545-583, with its TPU sizes): the separable kernel (K13)
+where the grid geometry allows, the batch-chunked one (K14, with a bf16
+x-pattern on gaussian maps and bf16 batches where the TPU working set
+needs them) at B >= 4096, and the plain kernel (K3) elsewhere.  A
+`dist_argmin` prologue finds the first clean batch's winners.  A batch
+with masked components runs the two-kernel step (masked `dist_argmin`,
+then the masked neighbourhood update), and the next clean batch's winners
+are found again against the updated codebook.  A Dataset with a mask runs
+the two-kernel step for every batch; a stream decides per batch, on the
+host copy of its mask.  The codebook stays resident on the device and is
+updated in place.
+
+`bf16=True` keeps that resident codebook in bfloat16 on the single-device
+fused path (the kernels read it upcast and blend in float32); it never
+takes the grouped path, a masked batch's two-kernel step runs on a float32
+copy that is cast back, and a masked Dataset or a mesh trains in float32,
+as in the JAX package.  `stream_bf16=True` ships each streamed block to the
+device as bfloat16 and upcasts it there (stream input only).  `fit` returns
+a float32 codebook either way.
 
 `use_weights` honours `weight=` tokens (per-sample alpha 1 - (1 - a)^w) and
 `use_fixed` honours `fixed=` tokens (the sample's winner is its fixed unit),
@@ -33,20 +46,18 @@ checkpoints in the JAX package's checkpoint file format and resume.
 
 With `mesh=` (a parallel.mesh.Mesh; every rank of the world calls `fit` on
 the same inputs) the trainers run the sharded steps of parallel.sharded, as
-som_lvq_pak_tpu/models/trainer.py:417-444 picks them: a clean Dataset whose
-map splits into model shards of a multiple of 8 rows takes the fused
-pure-TP step (K3 with the shard's unit offset) when the data axis is 1, else
-the mixed step (K11, the data-axis sum, K12); streams, masked Datasets and
-other shard heights take the two-pass sharded step (K1, or K4 given a mask).
-The trainer runs on the mesh's device; a `device=` naming another raises
-ValueError.  The first batch's winners are found on the whole codebook before it is
-sliced.  Each rank keeps its codebook rows; checkpoints gather the whole
-codebook, and rank 0 writes them, in the single-device format, so a mesh
-checkpoint resumes on one device, on a mesh, or in the JAX package.  `fit`
-returns the whole codebook on every rank.
-
-Not ported yet: bf16 streaming (`stream_bf16=True` raises
-NotImplementedError naming its ROADMAP item).
+som_lvq_pak_tpu/models/trainer.py:417-444 picks them: a clean float32
+Dataset whose map splits into model shards of a multiple of 8 rows takes
+the fused pure-TP step (K3 with the shard's unit offset) when the data axis
+is 1, else the mixed step (K11, the data-axis sum, K12); streams, masked
+Datasets, bf16=True and other shard heights take the two-pass sharded step
+(K1, or K4 given a mask).  The trainer runs on the mesh's device; a
+`device=` naming another raises ValueError.  The first batch's winners are
+found on the whole codebook before it is sliced.  Each rank keeps its
+codebook rows; checkpoints gather the whole codebook, and rank 0 writes
+them, in the single-device format, so a mesh checkpoint resumes on one
+device, on a mesh, or in the JAX package.  `fit` returns the whole codebook
+on every rank.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ from ..convert import (codebook_to_torch, labeled_samples_to_torch,
                        to_dataset)
 from ..data.dataset import Dataset, Neighborhood, Topology
 from ..ops.dist_argmin import dist_argmin
-from ..ops.som_step import som_fused_train_step
+from ..ops.som_step import factored_geometry_ok, som_fused_train_step
 from ..ops.som_vmem import som_vmem_train_steps
 from ..parallel import sharded
 from ..utils.checkpoint import Checkpointer, TrainState
@@ -102,6 +113,69 @@ def use_grouped_steps(noc: int, dim: int, batch_size: int, data,
             and not (use_fixed and getattr(data, "fixed", None) is not None))
 
 
+def _fused_step_vmem_bytes(tile_n: int, B: int, D: int, factored: bool = False,
+                           dual: bool = False) -> int:
+    """A copy of pallas_som.py:fused_step_vmem_bytes (the TPU working set of
+    one fused-step grid cell)."""
+    common = 2 * B * D * 4 + 3 * tile_n * D * 4
+    if factored:
+        blocks = (5 if dual else 4) * tile_n * B * 4
+    else:
+        blocks = 3 * tile_n * B * 4
+    return common + blocks
+
+
+def _pick_fused_tile_n(noc: int, B: int, D: int, xdim: int = 0,
+                       factored: bool = False, budget: int = 12 << 20) -> int:
+    """A copy of pallas_som.py:pick_fused_tile_n."""
+    for tn in (1024, 512, 256, 128, 64, 32, 16, 8):
+        if tn > noc:
+            continue
+        if factored and (xdim <= 0 or tn % xdim != 0):
+            continue
+        if _fused_step_vmem_bytes(tn, B, D, factored, dual=(tn == xdim)) <= budget:
+            return tn
+    return 8
+
+
+def _chunked_step_vmem_bytes(tile_n: int, B: int, BC: int, D: int, xdim: int,
+                             hexa: bool, wxa_bf16: bool = False,
+                             batch_bf16: bool = False) -> int:
+    """A copy of pallas_som.py:chunked_step_vmem_bytes."""
+    batch_item = 2 if batch_bf16 else 4
+    wxa_item = 2 if wxa_bf16 else 4
+    dual = hexa and tile_n == xdim
+    pat_rows = 2 * tile_n if dual else tile_n
+    return (2 * B * D * batch_item + pat_rows * B * wxa_item
+            + 3 * tile_n * D * 4 + 3 * tile_n * BC * 4 + 2 * B * 4)
+
+
+def fused_step_choice(noc: int, xdim: int, hexa: bool, gaussian: bool,
+                      batch_size: int, dim: int
+                      ) -> Tuple[bool, int, Optional[int], bool, bool]:
+    """(factored, tile_n, batch_chunk, wxa_bf16, batch_bf16) for the fused
+    step, as som_lvq_pak_tpu/models/trainer.py:545-583 combines the TPU
+    sizing helpers (copied above, D padded to Dp = 128-multiple, a 12 MB
+    budget per tile and 14 MB for the batch-chunked step), so both packages
+    take the same kernel for the same configuration: the separable kernel
+    where its geometry fits a tile; at B >= 4096 (a multiple of 1024) the
+    batch-chunked one with 1024-sample chunks where its working set fits,
+    with a bf16 x-pattern on gaussian maps and then, if still too large,
+    bf16 batches; the plain kernel otherwise."""
+    dp = -(-dim // 128) * 128
+    tn_fact = _pick_fused_tile_n(noc, batch_size, dp, xdim=xdim, factored=True)
+    factored = factored_geometry_ok(noc, xdim, tn_fact, hexa)
+    tile_n = tn_fact if factored else _pick_fused_tile_n(noc, batch_size, dp)
+    if factored and batch_size >= 4096 and batch_size % 1024 == 0:
+        tn_big = _pick_fused_tile_n(noc, 1024, dp, xdim=xdim, factored=True)
+        if factored_geometry_ok(noc, xdim, tn_big, hexa):
+            for wxa_b, bat_b in ((gaussian, False), (gaussian, True)):
+                if _chunked_step_vmem_bytes(tn_big, batch_size, 1024, dp, xdim,
+                                            hexa, wxa_b, bat_b) <= (14 << 20):
+                    return True, tn_big, 1024, wxa_b, bat_b
+    return factored, tile_n, None, False, False
+
+
 class SOMTrainer:
     """Minibatch SOM training at device speed on `device`: "cuda" (the
     default) runs the CUDA kernels, "cpu" their plain versions.  Without a
@@ -119,15 +193,18 @@ class SOMTrainer:
         device: Union[torch.device, str] = "cuda",
         stream_bf16: bool = False,
         vmem_steps: Optional[bool] = None,
+        bf16: bool = False,
     ):
         """`seed` fixes the per-lap shuffle of Dataset input.  `vmem_steps`:
         None picks the grouped path when `use_grouped_steps` allows it,
-        False never takes it (True acts as None, as in the JAX package)."""
+        False never takes it (True acts as None, as in the JAX package).
+        `bf16` keeps the fused path's resident codebook in bfloat16;
+        `stream_bf16` ships streamed batches as bfloat16 (module
+        docstring)."""
         if not codes.is_map:
             raise ValueError("SOMTrainer needs a map codebook")
-        if stream_bf16:
-            raise NotImplementedError(
-                "bf16 streaming is not ported yet (ROADMAP A7: stream_bf16)")
+        self.bf16 = bf16
+        self.stream_bf16 = stream_bf16
         self.meta = codes
         self.batch_size = batch_size
         self.seed = seed
@@ -177,6 +254,11 @@ class SOMTrainer:
                 M = torch.tensor(np.asarray(st.codes, np.float32),
                                  device=self.device)
                 start = st.step
+        # the bf16-resident codebook lives on the single-device fused path
+        # only (a masked Dataset runs the two-kernel step on every batch)
+        if (self.bf16 and self.mesh is None
+                and not (isinstance(data, Dataset) and data.mask is not None)):
+            M = M.to(torch.bfloat16)
 
         xdim = meta.xdim
         extras = dict(xdim=xdim, use_weights=use_weights, use_fixed=use_fixed)
@@ -199,7 +281,7 @@ class SOMTrainer:
                     and (b + 1) - last_ckpt >= self.checkpoint_interval):
                 last_ckpt = b + 1
                 _save(self, TrainState(
-                    codes=full().cpu().numpy(), step=b + 1,
+                    codes=full().float().cpu().numpy(), step=b + 1,
                     extra={"alpha": float(alpha), "radius": float(radius)}))
 
         if self.mesh is not None:
@@ -207,10 +289,11 @@ class SOMTrainer:
                                  maybe_ckpt)
         else:
             train = (self._train_groups
-                     if use_grouped_steps(*M.shape, bs, data, use_fixed,
-                                          self.vmem_steps)
+                     if not self.bf16 and use_grouped_steps(
+                         *M.shape, bs, data, use_fixed, self.vmem_steps)
                      else self._train_steps)
             train(M, batches, talp, trad, xdim, progress, maybe_ckpt)
+        M = M.float()
 
         if self.ckpt is not None:
             _save(self, TrainState(codes=M.cpu().numpy(), step=nb))
@@ -221,9 +304,16 @@ class SOMTrainer:
     # -- training loops --------------------------------------------------
 
     def _train_steps(self, M, batches, talp, trad, xdim, progress, maybe_ckpt):
-        """One kernel step per batch: K3 for clean batches, the two-kernel
-        step for masked ones."""
+        """One kernel step per batch: the fused kernel `fused_step_choice`
+        picks (K3, K13 or K14) for clean batches, the two-kernel step for
+        masked ones.  A bf16 `M` takes the two-kernel step and the winner
+        searches of the prologue and re-seeds on a float32 copy (the JAX
+        package's `dist_argmin` reads a bf16 codebook upcast)."""
         bs = self.batch_size
+        factored, tile_n, chunk, wxa_bf16, batch_bf16 = fused_step_choice(
+            M.shape[0], xdim, self.hexa, self.gaussian, bs, M.shape[1])
+        choice = dict(factored=factored, tile_n=tile_n, batch_chunk=chunk,
+                      wxa_bf16=wxa_bf16, batch_bf16=batch_bf16)
         # bmu: the winners of `prev` when it is a clean batch, found by the
         # previous fused step; None before the first clean batch and after
         # a two-kernel step, whose updated codebook they are found against
@@ -233,18 +323,22 @@ class SOMTrainer:
             b, xb, mk, wt, ff = prev
             nxt = next(batches, None)
             if mk is not None:
-                som_batch_step(M, xb, xdim, self.hexa, float(talp[b]),
+                M32 = M.float()  # M itself when it is float32
+                som_batch_step(M32, xb, xdim, self.hexa, float(talp[b]),
                                float(trad[b]), self.gaussian, mask=mk,
                                weights=wt, fixed_bmu=ff)
+                if M32 is not M:
+                    M.copy_(M32)
                 bmu = None
             else:
                 if bmu is None:
-                    bmu = _fix(dist_argmin(xb, M)[1], ff)
+                    bmu = _fix(dist_argmin(xb, M.float())[1], ff)
                 a = (float(talp[b]) if wt is None else
                      effective_alpha(float(talp[b]), xb.shape[0], M.device, wt))
                 _, bmu, _ = som_fused_train_step(
                     M, xb, bmu, xb if nxt is None else nxt[1], xdim,
-                    self.hexa, a, float(trad[b]), gaussian=self.gaussian)
+                    self.hexa, a, float(trad[b]), gaussian=self.gaussian,
+                    **choice)
                 if nxt is not None:
                     bmu = _fix(bmu, nxt[4])
             if progress is not None:
@@ -306,7 +400,7 @@ class SOMTrainer:
         rows, mine = mesh.rows(n), mesh.batch_rows(bs)
         block = mesh.block(n)
         fused = (isinstance(data, Dataset) and data.mask is None
-                 and n % S == 0 and (n // S) % 8 == 0)
+                 and n % S == 0 and (n // S) % 8 == 0 and not self.bf16)
         if not fused:
             coords = unit_coords(meta.xdim, meta.ydim, self.hexa, M.device)
             Ml = M[rows].clone()
@@ -395,7 +489,8 @@ class SOMTrainer:
         winners; som_lvq_pak_tpu/models/trainer.py:331-343)."""
         return _stream_batches(chunks, start, nb, self.batch_size, self.device,
                                allow_short_stream, _SOM_ARRAYS,
-                               lambda c: sample_arrays(c, **extras))
+                               lambda c: sample_arrays(c, **extras),
+                               points_bf16=self.stream_bf16)
 
 
 def _generator(seed: int, k: int) -> torch.Generator:
@@ -419,14 +514,17 @@ _LVQ_ARRAYS = ((0.0, np.float32, False, False),  # points
 
 def _stream_batches(chunks: Iterator[Dataset], start: int, nb: int, s: int,
                     device: torch.device, allow_short_stream: bool, specs,
-                    unpack) -> Iterator[tuple]:
+                    unpack, points_bf16: bool = False) -> Iterator[tuple]:
     """Batches (b, *arrays) of `s` samples from a stream of chunk Datasets,
     `unpack(chunk)` giving each chunk's host arrays in `specs` order (None
     where it has none).  Chunks are buffered on the host and every whole
     batch they hold ships in one copy per array (pinned, asynchronous on
     CUDA); the remainder waits on the host for the next chunk.  Resume is
     exact: the first start * s samples are skipped, so batch b trains on
-    the stream positions of the uninterrupted run."""
+    the stream positions of the uninterrupted run.  With `points_bf16` the
+    points (array 0) ship as bfloat16, rounded to nearest even on the host,
+    and are upcast to float32 on the device (som_lvq_pak_tpu/models/
+    trainer.py:247-252, 326-327, 400-406)."""
 
     def next_chunk():
         try:
@@ -435,11 +533,15 @@ def _stream_batches(chunks: Iterator[Dataset], start: int, nb: int, s: int,
             return None
         return (*unpack(c), c.n)
 
-    def to_device(a):
+    def to_device(a, bf16=False):
         t = torch.from_numpy(np.ascontiguousarray(a))
+        if bf16:
+            t = t.to(torch.bfloat16)
         if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        return t.float() if bf16 else t
 
     pending = next_chunk()
     skip = start * s
@@ -469,7 +571,8 @@ def _stream_batches(chunks: Iterator[Dataset], start: int, nb: int, s: int,
             host.append(_concat([t[k] for t in bufs], ns, fill,
                                 host[0].shape[1:] if wide else (), dtype))
         nfull = min(buffered // s, nb - b) * s
-        dev = [None if a is None else to_device(a[:nfull]) for a in host]
+        dev = [None if a is None else to_device(a[:nfull], points_bf16 and k == 0)
+               for k, a in enumerate(host)]
         for off in range(0, nfull, s):
             sl = slice(off, off + s)
             yield (b, *(None if d is None or (sparse and not (a[sl] != fill).any())

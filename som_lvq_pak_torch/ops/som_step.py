@@ -1,5 +1,16 @@
-"""One fused SOM training step: kernel K3 (`som_fused_train_step`), the
-counterpart of som_lvq_pak_tpu/ops/pallas_som.py:som_fused_train_step.
+"""One fused SOM training step: the counterpart of
+som_lvq_pak_tpu/ops/pallas_som.py:som_fused_train_step and its three TPU
+kernels, each a hand-written CUDA kernel here:
+
+- K3 `som_fused_step` (csrc/som_fused_step.cu): the plain kernel
+  (`_som_fused_step_kernel`), W from the closed form, winners in distance
+  form;
+- K13 `som_fused_factored_step` (csrc/som_fused_factored.cu): the separable
+  kernel (`_som_fused_factored_kernel`), W = Wx(column, row parity) *
+  Wy(row), winners in max-score form;
+- K14 `som_fused_factored_chunked_step` (the same source): the batch-chunked
+  kernel (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
+  (`wxa_bf16`, gaussian only) and bf16 batches (`batch_bf16`).
 
 One call applies batch t's neighbourhood update to the codebook and finds
 batch t+1's winners against the UPDATED codebook (the software-pipelined
@@ -8,31 +19,43 @@ form the trainer runs):
     codes, bmu_next, val_next = som_fused_train_step(
         codes, x[t], bmu, x[t + 1], xdim, hexa, alpha, radius, gaussian)
 
-The codebook is updated IN PLACE (the caller owns the resident codebook;
-this saves a second codebook-sized buffer per step) and returned.
-`val_next` is the partial distance ||m||^2 - 2 m.x, without ||x||^2, as in
-the JAX package.  `unit_offset` (default 0) is the global unit of row 0 when
-`codes` is a model-axis shard of a larger map: the neighbourhood weights are
-taken at the global units, while `bmu_next` stays local rows, as the JAX
-wrapper returns them (parallel.sharded adds the offset).
+`som_fused_train_step` routes as the JAX wrapper does (pallas_som.py:
+1320-1349): `factored=None` takes the separable kernel where
+`factored_geometry_ok(noc, xdim, tile_n, hexa)` and no `unit_offset` is
+given; `factored` with a `unit_offset` raises; on the separable path any of
+`batch_chunk`, `wxa_bf16` or `batch_bf16` takes the batch-chunked kernel.
+`tile_n` decides the geometry only: the CUDA kernels tile by 32 rows, and
+the result depends on it only through the float32 order of additions.  The
+port keeps D unpadded, so the JAX `d_real` has no counterpart.
 
-A CUDA tensor launches the kernel in `csrc/som_fused_step.cu`; a CPU tensor
-runs the plain version below, built from the plain counterparts of
-`_grid_xy`, `_neighborhood_w` and `_guarded_blend` (pallas_som.py:48-113).
-The wrapper counts its kernel launches in its `launches` attribute.
+The codebook is updated IN PLACE (the caller owns the resident codebook;
+this saves a second codebook-sized buffer per step) and returned.  It is
+float32 or bfloat16 (read upcast, blended in float32, written back rounded
+to nearest even; winners against the float32 blended rows).  `val_next` is
+the partial distance ||m||^2 - 2 m.x without ||x||^2 (the separable kernels
+report -2 * the max score), as in the JAX package.  `unit_offset` is the
+global unit of row 0 when `codes` is a model-axis shard of a larger map
+(K3 only): the neighbourhood weights are taken at the global units, while
+`bmu_next` stays local rows, as the JAX wrapper returns them
+(parallel.sharded adds the offset).
+
+A CUDA tensor launches the kernel; a CPU tensor runs the plain version
+below, built from the plain counterparts of `_grid_xy`, `_neighborhood_w`
+and `_guarded_blend` (pallas_som.py:48-113).  Each kernel's wrapper counts
+its launches in its `launches` attribute; `som_fused_train_step` counts K3's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from .. import _build
 from .distance import fp32_matmul
 
-MAX_D = 256  # widest feature dimension the CUDA kernel takes
+MAX_D = 256  # widest feature dimension the CUDA kernels take
 _SQRT075 = math.sqrt(0.75)
 
 
@@ -94,23 +117,270 @@ def guarded_blend(c: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor
     return c + blend * (acc / safe - c)
 
 
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """`t` rounded to bfloat16 (nearest even) and read back as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def factored_geometry_ok(noc: int, xdim: int, tile_n: int, hexa: bool) -> bool:
+    """Whether the separable kernels apply (a copy of pallas_som.py:
+    _factored_geometry_ok): tiles cover whole grid rows, the codebook has
+    no padded rows, xdim % 8 == 0, and a hexa map has an even number of
+    grid rows per tile or one row per tile."""
+    if noc % tile_n != 0 or tile_n % xdim != 0 or xdim % 8 != 0:
+        return False
+    rows_per_tile = tile_n // xdim
+    if hexa and rows_per_tile % 2 != 0 and rows_per_tile != 1:
+        return False
+    return True
+
+
+def _alpha_r(alpha, radius, B: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    return (aw.expand(B) if aw.dim() == 0 else aw,
+            torch.tensor(radius, dtype=torch.float32, device=dev))
+
+
 def som_fused_train_step_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha,
                                radius, gaussian=False, unit_offset=0):
-    """Plain K3; same arguments and contract as `som_fused_train_step`."""
+    """Plain K3; same arguments and contract as `som_fused_train_step`
+    with factored=False."""
     fp32_matmul()
     dev = codes.device
-    aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
-    aw = aw.expand(xb.shape[0]) if aw.dim() == 0 else aw
-    r = torch.tensor(radius, dtype=torch.float32, device=dev)
-    units = unit_offset + torch.arange(codes.shape[0], dtype=torch.int32,
-                                       device=dev)
+    aw, r = _alpha_r(alpha, radius, xb.shape[0], dev)
+    units = (unit_offset or 0) + torch.arange(codes.shape[0], dtype=torch.int32,
+                                              device=dev)
     w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
-    newc = guarded_blend(codes, w @ xb, w.sum(1, keepdim=True))
+    newc = guarded_blend(codes.to(torch.float32), w @ xb, w.sum(1, keepdim=True))
     d_t = (newc * newc).sum(1, keepdim=True) - 2.0 * (newc @ xb_next.T)
     idx = torch.argmin(d_t, dim=0)  # first (lowest) row on ties
     val = d_t.gather(0, idx[None, :])[0]
     codes.copy_(newc)
     return codes, idx.to(torch.int32), val
+
+
+def separable_w(bmu: torch.Tensor, alpha: torch.Tensor, radius: torch.Tensor,
+                noc: int, xdim: int, hexa: bool, gaussian: bool,
+                wxa_bf16: bool = False) -> torch.Tensor:
+    """(noc, B) weights of the separable kernels (pallas_som.py:791-858):
+    the x-pattern over (row parity, column) and the per-grid-row y-factor,
+    with s = 1 / (2 r r); gaussian (alpha exp(-dx^2 s)) * exp(-dy^2 s), the
+    x-pattern rounded to bf16 with `wxa_bf16`; bubble alpha where dx^2 +
+    dy^2 <= r^2.  0 where bmu < 0 (the TPU kernels are never given one)."""
+    dev = bmu.device
+    ok = bmu >= 0
+    bm = torch.where(ok, bmu, torch.zeros_like(bmu))
+    a = torch.where(ok, alpha, torch.zeros_like(alpha))
+    s = 1.0 / (2.0 * radius * radius)
+    colb = (bm % xdim).to(torch.float32)
+    rowb = bm // xdim
+    l = torch.arange(2 * xdim if hexa else xdim, device=dev)
+    xq = (l % xdim).to(torch.float32)
+    if hexa:
+        colb = colb + 0.5 * (rowb % 2).to(torch.float32)
+        xq = xq + 0.5 * (l // xdim).to(torch.float32)
+    dx = xq[:, None] - colb[None, :]
+    dx2 = dx * dx
+    rd = (torch.arange(-(-noc // xdim), device=dev)[:, None]
+          - rowb[None, :]).to(torch.float32)
+    dy2 = (rd * rd) * 0.75 if hexa else rd * rd
+    if gaussian:
+        pat = a[None, :] * torch.exp(-dx2 * s)
+        pat, ytab = (_bf16(pat) if wxa_bf16 else pat), torch.exp(-dy2 * s)
+    else:
+        pat, ytab = dx2, dy2
+    u = torch.arange(noc, device=dev)
+    row = u // xdim
+    wx = pat[(row % 2) * xdim + u % xdim if hexa else u % xdim]
+    wy = ytab[row]
+    if gaussian:
+        return wx * wy
+    return torch.where(wx + wy <= radius * radius, a[None, :],
+                       torch.zeros_like(wx))
+
+
+def _factored_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
+                    gaussian, chunk, chunk_n, wxa_bf16, batch_bf16):
+    """The separable step over batch chunks of `chunk` samples (winners
+    over `chunk_n`), with the batch-chunked kernel's bf16 roundings
+    (pallas_som.py:1012-1094)."""
+    fp32_matmul()
+    dev = codes.device
+    B, D = xb.shape
+    aw, r = _alpha_r(alpha, radius, B, dev)
+    bmu = bmu.to(torch.int32)
+    x = _bf16(xb) if batch_bf16 else xb
+    xn = _bf16(xb_next) if batch_bf16 else xb_next
+    noc = codes.shape[0]
+    acc = torch.zeros((noc, D), dtype=torch.float32, device=dev)
+    wsum = torch.zeros((noc, 1), dtype=torch.float32, device=dev)
+    for lo in range(0, B, chunk):
+        sl = slice(lo, lo + chunk)
+        w = separable_w(bmu[sl], aw[sl], r, noc, xdim, hexa, gaussian, wxa_bf16)
+        acc = acc + (_bf16(w) if batch_bf16 else w) @ x[sl]
+        wsum = wsum + w.sum(1, keepdim=True)
+    newc = guarded_blend(codes.to(torch.float32), acc, wsum)
+    # max-score winners: argmax(x.m - ||m||^2 / 2), first (lowest) row on
+    # ties; the score of the bf16-rounded row under batch_bf16, its norm
+    # from the float32 row
+    m2h = 0.5 * (newc * newc).sum(1, keepdim=True)
+    cw = _bf16(newc) if batch_bf16 else newc
+    idx, best = [], []
+    for lo in range(0, xn.shape[0], chunk_n):
+        s_t = cw @ xn[lo:lo + chunk_n].T - m2h
+        i = torch.argmax(s_t, dim=0)
+        idx.append(i)
+        best.append(s_t.gather(0, i[None, :])[0])
+    codes.copy_(newc)
+    return codes, torch.cat(idx).to(torch.int32), -2.0 * torch.cat(best)
+
+
+def som_fused_factored_step_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha,
+                                  radius, gaussian=False):
+    """Plain K13 (`_som_fused_factored_kernel`); arguments and contract as
+    `som_fused_factored_step`."""
+    return _factored_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
+                           gaussian, xb.shape[0], xb_next.shape[0], False, False)
+
+
+def som_fused_factored_chunked_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
+                                          alpha, radius, gaussian=False,
+                                          batch_chunk=None, wxa_bf16=False,
+                                          batch_bf16=False):
+    """Plain K14 (`_som_fused_factored_chunked_kernel` without `stagger` and
+    `int8_win`): the separable step with the batch in `batch_chunk` slices
+    (default gcd(B, B')), the x-pattern rounded to bf16 with `wxa_bf16`
+    (gaussian only) and the batches and W's product operands with
+    `batch_bf16`."""
+    bc = _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
+    return _factored_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
+                           gaussian, bc, bc, wxa_bf16 and gaussian, batch_bf16)
+
+
+def _batch_chunk(B: int, Bn: int, batch_chunk: Optional[int]) -> int:
+    """The batch-chunked kernel's chunk (pallas_som.py:1159-1163)."""
+    bc = batch_chunk if batch_chunk is not None else math.gcd(B, Bn)
+    if B % bc or Bn % bc or bc % 128:
+        raise ValueError(f"som_fused_train_step: batch_chunk={bc} must divide "
+                         f"B={B} and B'={Bn} and be a multiple of 128")
+    return bc
+
+
+def _step_args(codes, xb, bmu, xb_next, alpha):
+    """Check one step's arguments; returns (bmu int32, alpha (B,) float32),
+    both contiguous."""
+    dev = codes.device
+    if codes.dim() != 2 or xb.dim() != 2 or xb_next.dim() != 2:
+        raise ValueError("codes, xb and xb_next must be 2-D")
+    D = codes.shape[1]
+    B = xb.shape[0]
+    if xb.shape[1] != D or xb_next.shape[1] != D or bmu.shape != (B,):
+        raise ValueError(f"shape mismatch: codes {tuple(codes.shape)}, xb "
+                         f"{tuple(xb.shape)}, bmu {tuple(bmu.shape)}, xb_next "
+                         f"{tuple(xb_next.shape)}")
+    if codes.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("codes must be float32 or bfloat16")
+    if xb.dtype != torch.float32 or xb_next.dtype != torch.float32:
+        raise TypeError("xb and xb_next must be float32")
+    if any(t.device != dev for t in (xb, bmu, xb_next)):
+        raise ValueError("codes, xb, bmu and xb_next must share one device")
+    if not codes.is_contiguous():
+        raise ValueError("codes must be contiguous (updated in place)")
+    if B == 0 or xb_next.shape[0] == 0:
+        raise ValueError("empty batch")
+    aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    aw = aw.expand(B).contiguous() if aw.dim() == 0 else aw.contiguous()
+    if aw.shape != (B,):
+        raise ValueError(f"alpha must be a scalar or ({B},)")
+    if dev.type == "cuda" and D > MAX_D:
+        raise ValueError(f"som_fused_train_step: D={D} > {MAX_D}, the "
+                         "widest the CUDA kernels take")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return bmu.to(torch.int32).contiguous(), aw
+
+
+def _launch_separable(name, codes, xb, bmu, aw, xb_next, xdim, hexa,
+                      gaussian, radius, flags=(), pattern_bf16=False):
+    """K13 or K14 through the C entry `name`: one scratch buffer holds the
+    winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc / xdim),
+    B) and the x-pattern (2 xdim or xdim, B; bf16 with `pattern_bf16`)."""
+    dev = codes.device
+    noc, D = codes.shape
+    B, Bn = xb.shape[0], xb_next.shape[0]
+    n_pat = 2 * xdim if hexa else xdim
+    words = [2 * Bn, B, -(-noc // xdim) * B]  # float32 words before the pattern
+    offs = [4 * sum(words[:k]) for k in range(4)]
+    pat_words = -(-n_pat * B // 2) if pattern_bf16 else n_pat * B
+    scratch = torch.empty((sum(words) + pat_words,), dtype=torch.float32,
+                          device=dev)
+    keys, aw_eff, ytab, pat = (scratch.data_ptr() + o for o in offs)
+    val = torch.empty((Bn,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
+    xb, xn = xb.contiguous(), xb_next.contiguous()
+    _build.call(name, codes.data_ptr(), int(codes.dtype == torch.bfloat16),
+                noc, D, xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B,
+                xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
+                int(bool(gaussian)), float(radius), *flags, pat, ytab, aw_eff,
+                keys, val.data_ptr(), idx.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    return codes, idx, val
+
+
+def som_fused_factored_step(codes, xb, bmu, xb_next, xdim, hexa, alpha,
+                            radius, gaussian=False):
+    """K13: the separable step (`_som_fused_factored_kernel`) on `codes`
+    (noc, D), float32 or bfloat16, updated in place; returns (codes,
+    bmu_next (B',) int32, val_next (B',) = -2 * the best score)."""
+    bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
+    return _fused_step_k13(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
+                           gaussian)
+
+
+def _fused_step_k13(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian):
+    """K13 on checked arguments (its plain version on the CPU)."""
+    if codes.device.type == "cpu":
+        return som_fused_factored_step_plain(codes, xb, bmu, xb_next, xdim,
+                                             hexa, aw, radius, gaussian)
+    out = _launch_separable("somvq_som_fused_factored", codes, xb, bmu, aw,
+                            xb_next, xdim, hexa, gaussian, radius)
+    som_fused_factored_step.launches += 1
+    return out
+
+
+def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
+                                    alpha, radius, gaussian=False,
+                                    batch_chunk=None, wxa_bf16=False,
+                                    batch_bf16=False):
+    """K14: the batch-chunked separable step
+    (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
+    (`wxa_bf16`, gaussian only) and bf16 batches (`batch_bf16`); as
+    `som_fused_factored_step` otherwise.  `batch_chunk` (default gcd(B, B'))
+    must divide both batches and be a multiple of 128, as in JAX; the kernel
+    walks the batch in its own chunks, so only the plain version's order of
+    additions depends on it."""
+    bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
+    _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
+    return _fused_step_k14(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
+                           gaussian, batch_chunk, wxa_bf16, batch_bf16)
+
+
+def _fused_step_k14(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
+                    batch_chunk, wxa_bf16, batch_bf16):
+    """K14 on checked arguments (its plain version on the CPU)."""
+    wxa_bf16 = bool(wxa_bf16 and gaussian)
+    if codes.device.type == "cpu":
+        return som_fused_factored_chunked_step_plain(
+            codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
+            batch_chunk, wxa_bf16, batch_bf16)
+    out = _launch_separable("somvq_som_fused_factored_chunked", codes, xb, bmu,
+                            aw, xb_next, xdim, hexa, gaussian, radius,
+                            flags=(int(wxa_bf16), int(bool(batch_bf16))),
+                            pattern_bf16=wxa_bf16)
+    som_fused_factored_chunked_step.launches += 1
+    return out
 
 
 def som_fused_train_step(
@@ -123,52 +393,68 @@ def som_fused_train_step(
     alpha: Union[float, torch.Tensor],
     radius: float,
     gaussian: bool = False,
-    unit_offset: int = 0,
+    unit_offset: Optional[int] = None,
+    *,
+    tile_n: int = 1024,
+    factored: Optional[bool] = None,
+    batch_chunk: Optional[int] = None,
+    wxa_bf16: bool = False,
+    batch_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Update `codes` (noc, D) in place with batch `xb` (B, D) whose BMUs
     are `bmu` (B,); return (codes, bmu_next (B',) int32, val_next (B',))
-    for `xb_next` (B', D).  `alpha` is a scalar or (B,) per-sample alpha."""
+    for `xb_next` (B', D).  `alpha` is a scalar or (B,) per-sample alpha.
+    Routes to K3, K13 or K14 as the module docstring says; K3 launches are
+    counted here."""
+    bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
+    noc = codes.shape[0]
+    tile_n = min(tile_n, -(-noc // 8) * 8)
+    if factored is None:
+        factored = unit_offset is None and factored_geometry_ok(
+            noc, xdim, tile_n, hexa)
+    if factored and unit_offset is not None:
+        raise ValueError("som_fused_train_step: unit_offset needs "
+                         "factored=False (the separable x-pattern assumes the "
+                         "map starts at unit 0)")
+    if factored:
+        if not factored_geometry_ok(noc, xdim, tile_n, hexa):
+            raise ValueError(
+                f"som_fused_train_step: the separable path needs noc % tile_n "
+                f"== 0, tile_n % xdim == 0, xdim % 8 == 0 (and an even number "
+                f"of grid rows per tile, or one, for hexa); got noc={noc} "
+                f"xdim={xdim} tile_n={tile_n} hexa={hexa}")
+        if batch_chunk is not None or wxa_bf16 or batch_bf16:
+            _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
+            return _fused_step_k14(codes, xb, bmu, xb_next, xdim, hexa, aw,
+                                   radius, gaussian, batch_chunk, wxa_bf16,
+                                   batch_bf16)
+        return _fused_step_k13(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
+                               gaussian)
+    offset = unit_offset or 0
+    if offset < 0:
+        raise ValueError(f"unit_offset {offset} < 0")
+    return _fused_step_k3(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
+                          gaussian, offset)
+
+
+def _fused_step_k3(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
+                   unit_offset):
+    """K3 on `som_fused_train_step`'s checked arguments (its plain version on
+    the CPU); counts its launches on `som_fused_train_step`."""
     dev = codes.device
-    if codes.dim() != 2 or xb.dim() != 2 or xb_next.dim() != 2:
-        raise ValueError("codes, xb and xb_next must be 2-D")
-    noc, D = codes.shape
-    B = xb.shape[0]
-    if xb.shape[1] != D or xb_next.shape[1] != D or bmu.shape != (B,):
-        raise ValueError(f"shape mismatch: codes {tuple(codes.shape)}, xb "
-                         f"{tuple(xb.shape)}, bmu {tuple(bmu.shape)}, xb_next "
-                         f"{tuple(xb_next.shape)}")
-    if any(t.dtype != torch.float32 for t in (codes, xb, xb_next)):
-        raise TypeError("codes, xb and xb_next must be float32")
-    if any(t.device != dev for t in (xb, bmu, xb_next)):
-        raise ValueError("codes, xb, bmu and xb_next must share one device")
-    if not codes.is_contiguous():
-        raise ValueError("codes must be contiguous (updated in place)")
-    if B == 0 or xb_next.shape[0] == 0:
-        raise ValueError("empty batch")
-    if unit_offset < 0:
-        raise ValueError(f"unit_offset {unit_offset} < 0")
-    aw = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
-    aw = aw.expand(B).contiguous() if aw.dim() == 0 else aw.contiguous()
-    if aw.shape != (B,):
-        raise ValueError(f"alpha must be a scalar or ({B},)")
-    bmu = bmu.to(torch.int32).contiguous()
     if dev.type == "cpu":
         return som_fused_train_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
                                           aw, radius, gaussian, unit_offset)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if D > MAX_D:
-        raise ValueError(f"som_fused_train_step: D={D} > {MAX_D}, the "
-                         "widest the CUDA kernel takes")
     xb = xb.contiguous()
     xn = xb_next.contiguous()
     Bn = xn.shape[0]
     keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
-    _build.call("somvq_som_fused_step", codes.data_ptr(), noc, D,
-                xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B,
-                xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
+    _build.call("somvq_som_fused_step", codes.data_ptr(),
+                int(codes.dtype == torch.bfloat16), codes.shape[0],
+                codes.shape[1], xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(),
+                xb.shape[0], xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
                 int(bool(gaussian)), float(radius), int(unit_offset),
                 keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
@@ -177,3 +463,5 @@ def som_fused_train_step(
 
 
 som_fused_train_step.launches = 0
+som_fused_factored_step.launches = 0
+som_fused_factored_chunked_step.launches = 0

@@ -196,7 +196,7 @@ def test_fused_step_unit_offset_matches_jax():
     np.testing.assert_allclose(val.numpy(), np.asarray(jval), rtol=1e-4, atol=1e-4)
     # offset 0 is the unsharded kernel
     c0, i0, _ = som_fused_train_step(T(codes.copy()), T(xb), T(bmu), T(xn), XDIM,
-                                     True, 0.05, 3.0, gaussian=True)
+                                     True, 0.05, 3.0, gaussian=True, factored=False)
     np.testing.assert_allclose(c0.numpy()[64:], c.numpy(), rtol=1e-5, atol=1e-5)
 
 

@@ -97,10 +97,13 @@ def _step_inputs(xdim, ydim, D, B, Bn, seed):
 
 
 def _port_step(codes, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian):
+    """K3's plain version (factored=False: the geometries below that the
+    separable kernels accept would otherwise take K13)."""
     c = torch.from_numpy(codes.copy())
     out, i, v = som_fused_train_step(c, torch.from_numpy(xb), torch.from_numpy(bmu),
                                      torch.from_numpy(xn), xdim, hexa,
-                                     torch.from_numpy(alpha), radius, gaussian)
+                                     torch.from_numpy(alpha), radius, gaussian,
+                                     factored=False)
     assert out.data_ptr() == c.data_ptr()  # updated in place
     return out.numpy(), i.numpy(), v.numpy()
 

@@ -194,10 +194,11 @@ def test_resume_from_jax_checkpoint(tmp_path):
 
 
 def test_unported_inputs_raise_and_short_streams():
-    """bf16 streaming still raises, and so does a batch that does not split
-    over a mesh's data axis; masked data (as a Dataset and inside a stream),
-    weight= and fixed= tokens and the masked qerror now run; short streams
-    raise unless allowed."""
+    """bf16 streaming now runs (a float32 codebook out, qerror within 0.5%
+    of the float32-streamed run, the JAX gate); a batch that does not split
+    over a mesh's data axis still raises; masked data (as a Dataset and
+    inside a stream), weight= and fixed= tokens and the masked qerror run;
+    short streams raise unless allowed."""
     X = _blobs(n=512)
     init = P(_init(X, 6, 4, Topology.HEXA, Neighborhood.BUBBLE))
     mask = np.zeros_like(X, dtype=np.uint8)
@@ -206,8 +207,13 @@ def test_unported_inputs_raise_and_short_streams():
     with pytest.raises(ValueError, match="does not split"):
         SOMTrainer(init, batch_size=63, mesh=types.SimpleNamespace(
             shape={"data": 2, "model": 1}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SOMTrainer(init, stream_bf16=True, device="cpu")
+    q = {}
+    for bf16 in (False, True):
+        out = SOMTrainer(init, batch_size=B, stream_bf16=bf16, device="cpu").fit(
+            _stream(X, cls=PDataset), **kw)
+        assert out.points.dtype == np.float32 and np.isfinite(out.points).all()
+        q[bf16] = _jax_q(out, X)
+    assert abs(q[True] - q[False]) < 0.005 * q[False], q
     out = SOMTrainer(init, batch_size=B, device="cpu").fit(
         PDataset(points=X, mask=mask), **kw)
     # component 1 is masked in every sample: no unit's component 1 moves
