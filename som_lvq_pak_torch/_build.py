@@ -49,14 +49,11 @@ _SIGNATURES = {
     "somvq_som_fused_step": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I,
                              _I, ctypes.c_float, _I, _P, _P, _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-    # gaussian, radius, pat, ytab, aw, keys, val, idx, stream
+    # gaussian, radius, chunked, wxa_bf16, batch_bf16, pat, ytab, aw, keys,
+    # val, idx, stream
     "somvq_som_fused_factored": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
-                                 _I, _I, ctypes.c_float, _P, _P, _P, _P, _P,
-                                 _P, _P],
-    # the same with wxa_bf16, batch_bf16 after radius
-    "somvq_som_fused_factored_chunked": [_P, _I, _I, _I, _P, _P, _P, _I, _P,
-                                         _I, _I, _I, _I, ctypes.c_float, _I,
-                                         _I, _P, _P, _P, _P, _P, _P, _P],
+                                 _I, _I, ctypes.c_float, _I, _I, _I, _P, _P,
+                                 _P, _P, _P, _P, _P],
     # x, codes, B, N, D, k, splits, pv, pi, vo, io, stream
     "somvq_dist_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius,

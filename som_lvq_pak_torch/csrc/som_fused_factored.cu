@@ -2,10 +2,10 @@
 // t+1's winners against the updated rows, in one pass over the codebook, with
 // the neighbourhood weight factored as W = Wx(column, row parity) * Wy(row).
 //
-// Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_fused_factored_kernel (K13,
-// entry somvq_som_fused_factored) and _som_fused_factored_chunked_kernel
-// (K14, entry somvq_som_fused_factored_chunked); the wrapper
-// som_fused_train_step routes to them as the TPU wrapper does.
+// Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_fused_factored_kernel (K13)
+// and _som_fused_factored_chunked_kernel (K14); both run one body under
+// their own names, from the one entry somvq_som_fused_factored, and the
+// wrapper som_fused_train_step routes to them as the TPU wrapper does.
 //
 // What they compute, with the TPU kernels' float32 algebra kept as it is:
 // s = 1 / (2 r r); dx from columns and 0.5 offsets, hexa dy^2 = rowdiff^2 *
@@ -296,141 +296,102 @@ som_fused_factored_chunked_kernel(CT* __restrict__ codes, int noc, int D,
                                         keys);
 }
 
+// One step's arguments, as the C entry takes them
+struct StepArgs {
+  void* codes;
+  int noc, D;
+  const float* xb;
+  const int* bmu;
+  const float* alpha;
+  int B;
+  const float* xn;
+  int Bn, xdim, hexa, gaussian;
+  float radius;
+  void* pat;
+  float* ytab;
+  float* aw;
+  unsigned long long* keys;
+  cudaStream_t stream;
+};
+
+// The main launch under K13's name (kChunked false) or K14's
 template <int NJ, typename CT, typename PT, bool kBatchBf16, bool kChunked>
-int launch_main(CT* codes, int noc, int D, const float* xb, const float* aw,
-                int B, const float* xn, int Bn, int xdim, int hexa,
-                int gaussian, float radius, const PT* pat, const float* ytab,
-                unsigned long long* keys, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  const unsigned grid = (noc + TN - 1) / TN;
+int launch_main(const StepArgs& a) {
+  const size_t smem = smem_bytes(a.D);
+  const unsigned grid = (a.noc + TN - 1) / TN;
+  CT* codes = static_cast<CT*>(a.codes);
+  const PT* pat = static_cast<const PT*>(a.pat);
   cudaError_t err;
   if constexpr (kChunked) {
-    err = cudaFuncSetAttribute(
-        som_fused_factored_chunked_kernel<NJ, CT, PT, kBatchBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    som_fused_factored_chunked_kernel<NJ, CT, PT, kBatchBf16>
-        <<<grid, THREADS, smem, stream>>>(codes, noc, D, xb, aw, B, xn, Bn,
-                                          xdim, hexa, gaussian, radius, pat,
-                                          ytab, keys);
-  } else {
-    err = cudaFuncSetAttribute(som_fused_factored_kernel<NJ, CT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto kernel = som_fused_factored_chunked_kernel<NJ, CT, PT, kBatchBf16>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    som_fused_factored_kernel<NJ, CT><<<grid, THREADS, smem, stream>>>(
-        codes, noc, D, xb, aw, B, xn, Bn, xdim, hexa, gaussian, radius, pat,
-        ytab, keys);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        codes, a.noc, a.D, a.xb, a.aw, a.B, a.xn, a.Bn, a.xdim, a.hexa,
+        a.gaussian, a.radius, pat, a.ytab, a.keys);
+  } else {
+    const auto kernel = som_fused_factored_kernel<NJ, CT>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        codes, a.noc, a.D, a.xb, a.aw, a.B, a.xn, a.Bn, a.xdim, a.hexa,
+        a.gaussian, a.radius, pat, a.ytab, a.keys);
   }
   return (int)cudaGetLastError();
 }
 
+// The table launch, then the main launch for D's register width
 template <typename CT, typename PT, bool kBatchBf16, bool kChunked>
-int run_step(void* codes, int noc, int D, const float* xb, const int* bmu,
-             const float* alpha, int B, const float* xn, int Bn, int xdim,
-             int hexa, int gaussian, float radius, void* pat_buf, float* ytab,
-             float* aw, unsigned long long* keys, cudaStream_t stream) {
-  CT* c = static_cast<CT*>(codes);
-  PT* pat = static_cast<PT*>(pat_buf);
-  const int n_pat = hexa ? 2 * xdim : xdim;
-  const int ydim = (noc + xdim - 1) / xdim;
+int run_step(const StepArgs& a) {
+  const int n_pat = a.hexa ? 2 * a.xdim : a.xdim;
+  const int ydim = (a.noc + a.xdim - 1) / a.xdim;
   const int trows = n_pat + ydim < 65535 ? n_pat + ydim : 65535;
-  const dim3 tgrid(((B > Bn ? B : Bn) + 255) / 256, trows);
-  factored_tables_kernel<PT><<<tgrid, 256, 0, stream>>>(
-      bmu, alpha, B, Bn, xdim, hexa, gaussian, radius, n_pat, ydim, pat, ytab,
-      aw, keys);
+  const dim3 tgrid(((a.B > a.Bn ? a.B : a.Bn) + 255) / 256, trows);
+  factored_tables_kernel<PT><<<tgrid, 256, 0, a.stream>>>(
+      a.bmu, a.alpha, a.B, a.Bn, a.xdim, a.hexa, a.gaussian, a.radius, n_pat,
+      ydim, static_cast<PT*>(a.pat), a.ytab, a.aw, a.keys);
   const int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  const int nj = (D + 31) / 32;
-  if (nj <= 1)
-    return launch_main<1, CT, PT, kBatchBf16, kChunked>(
-        c, noc, D, xb, aw, B, xn, Bn, xdim, hexa, gaussian, radius, pat, ytab,
-        keys, stream);
-  if (nj <= 2)
-    return launch_main<2, CT, PT, kBatchBf16, kChunked>(
-        c, noc, D, xb, aw, B, xn, Bn, xdim, hexa, gaussian, radius, pat, ytab,
-        keys, stream);
-  if (nj <= 4)
-    return launch_main<4, CT, PT, kBatchBf16, kChunked>(
-        c, noc, D, xb, aw, B, xn, Bn, xdim, hexa, gaussian, radius, pat, ytab,
-        keys, stream);
-  return launch_main<8, CT, PT, kBatchBf16, kChunked>(
-      c, noc, D, xb, aw, B, xn, Bn, xdim, hexa, gaussian, radius, pat, ytab,
-      keys, stream);
+  const int nj = (a.D + 31) / 32;
+  if (nj <= 1) return launch_main<1, CT, PT, kBatchBf16, kChunked>(a);
+  if (nj <= 2) return launch_main<2, CT, PT, kBatchBf16, kChunked>(a);
+  if (nj <= 4) return launch_main<4, CT, PT, kBatchBf16, kChunked>(a);
+  return launch_main<8, CT, PT, kBatchBf16, kChunked>(a);
 }
 
 template <typename CT>
-int run_chunked(int wxa_bf16, int batch_bf16, void* codes, int noc, int D,
-                const float* xb, const int* bmu, const float* alpha, int B,
-                const float* xn, int Bn, int xdim, int hexa, int gaussian,
-                float radius, void* pat, float* ytab, float* aw,
-                unsigned long long* keys, cudaStream_t stream) {
-  if (wxa_bf16 && batch_bf16)
-    return run_step<CT, __nv_bfloat16, true, true>(
-        codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
-        pat, ytab, aw, keys, stream);
-  if (wxa_bf16)
-    return run_step<CT, __nv_bfloat16, false, true>(
-        codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
-        pat, ytab, aw, keys, stream);
-  if (batch_bf16)
-    return run_step<CT, float, true, true>(
-        codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
-        pat, ytab, aw, keys, stream);
-  return run_step<CT, float, false, true>(
-      codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
-      pat, ytab, aw, keys, stream);
-}
-
-bool bad_args(int noc, int D, int B, int Bn, int xdim) {
-  return noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || Bn <= 0 || xdim <= 0;
+int run_flags(const StepArgs& a, int chunked, int wxa_bf16, int batch_bf16) {
+  if (!chunked) return run_step<CT, float, false, false>(a);
+  if (wxa_bf16 && batch_bf16) return run_step<CT, __nv_bfloat16, true, true>(a);
+  if (wxa_bf16) return run_step<CT, __nv_bfloat16, false, true>(a);
+  if (batch_bf16) return run_step<CT, float, true, true>(a);
+  return run_step<CT, float, false, true>(a);
 }
 
 }  // namespace
 
-// codes (noc, D) float32, or bf16 with codes_bf16, updated in place; xb (B, D),
-// bmu (B,), alpha (B,), xn (Bn, D).  Scratch from the wrapper: keys (Bn,)
-// u64; aw (B,), ytab (ceil(noc / xdim), B) and pat (n_pat, B) float32,
-// n_pat = 2 xdim (hexa) or xdim.  val gets -2 * the best score, idx its row.
+// K13 (chunked 0) or K14 (chunked 1, with 8c's options wxa_bf16, gaussian
+// only, and batch_bf16).  codes (noc, D) float32, or bf16 with codes_bf16,
+// updated in place; xb (B, D), bmu (B,), alpha (B,), xn (Bn, D).  Scratch
+// from the wrapper: keys (Bn,) u64; aw (B,), ytab (ceil(noc / xdim), B)
+// float32 and pat (n_pat, B), n_pat = 2 xdim (hexa) or xdim, bf16 under
+// wxa_bf16, else float32.  val gets -2 * the best score, idx its row.
 extern "C" int somvq_som_fused_factored(
     void* codes, int codes_bf16, int noc, int D, const float* xb,
     const int* bmu, const float* alpha, int B, const float* xn, int Bn,
-    int xdim, int hexa, int gaussian, float radius, void* pat, float* ytab,
-    float* aw, unsigned long long* keys, float* val, int* idx,
-    cudaStream_t stream) {
-  if (bad_args(noc, D, B, Bn, xdim)) return (int)cudaErrorInvalidValue;
-  const int rc =
-      codes_bf16
-          ? run_step<__nv_bfloat16, float, false, false>(
-                codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian,
-                radius, pat, ytab, aw, keys, stream)
-          : run_step<float, float, false, false>(
-                codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian,
-                radius, pat, ytab, aw, keys, stream);
-  if (rc) return rc;
-  unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
-  return (int)cudaGetLastError();
-}
-
-// As somvq_som_fused_factored, with 8c's options: wxa_bf16 (gaussian only;
-// pat is then (n_pat, B) bf16) and batch_bf16
-extern "C" int somvq_som_fused_factored_chunked(
-    void* codes, int codes_bf16, int noc, int D, const float* xb,
-    const int* bmu, const float* alpha, int B, const float* xn, int Bn,
-    int xdim, int hexa, int gaussian, float radius, int wxa_bf16,
+    int xdim, int hexa, int gaussian, float radius, int chunked, int wxa_bf16,
     int batch_bf16, void* pat, float* ytab, float* aw,
     unsigned long long* keys, float* val, int* idx, cudaStream_t stream) {
-  if (bad_args(noc, D, B, Bn, xdim) || (wxa_bf16 && !gaussian))
+  if (noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || Bn <= 0 || xdim <= 0 ||
+      (!chunked && (wxa_bf16 || batch_bf16)) || (wxa_bf16 && !gaussian))
     return (int)cudaErrorInvalidValue;
-  const int rc =
-      codes_bf16
-          ? run_chunked<__nv_bfloat16>(wxa_bf16, batch_bf16, codes, noc, D, xb,
-                                       bmu, alpha, B, xn, Bn, xdim, hexa,
-                                       gaussian, radius, pat, ytab, aw, keys,
-                                       stream)
-          : run_chunked<float>(wxa_bf16, batch_bf16, codes, noc, D, xb, bmu,
-                               alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
-                               pat, ytab, aw, keys, stream);
+  const StepArgs a{codes, noc, D,        xb,     bmu, alpha, B,    xn,    Bn,
+                   xdim,  hexa, gaussian, radius, pat, ytab,  aw,   keys, stream};
+  const int rc = codes_bf16
+                     ? run_flags<__nv_bfloat16>(a, chunked, wxa_bf16, batch_bf16)
+                     : run_flags<float>(a, chunked, wxa_bf16, batch_bf16);
   if (rc) return rc;
   unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
   return (int)cudaGetLastError();

@@ -201,48 +201,60 @@ def separable_w(bmu: torch.Tensor, alpha: torch.Tensor, radius: torch.Tensor,
                        torch.zeros_like(wx))
 
 
-def _factored_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
-                    gaussian, chunk, chunk_n, wxa_bf16, batch_bf16):
-    """The separable step over batch chunks of `chunk` samples (winners
-    over `chunk_n`), with the batch-chunked kernel's bf16 roundings
-    (pallas_som.py:1012-1094)."""
+def fused_step_winners(newc, xn, batch_bf16=False, chunk_n=None):
+    """The separable kernels' winner half on the updated float32 rows
+    `newc`: argmax of x.m - ||m||^2 / 2, the first (lowest) row on ties, over
+    samples `chunk_n` at a time; under batch_bf16 the score of bf16-rounded
+    x and rows (pallas_som.py:1087-1094), the norm from the float32 rows.
+    Returns (bmu (B',) int32, -2 * the best score)."""
+    fp32_matmul()
+    m2h = 0.5 * (newc * newc).sum(1, keepdim=True)
+    cw = _bf16(newc) if batch_bf16 else newc
+    xw = _bf16(xn) if batch_bf16 else xn
+    step = chunk_n or xn.shape[0]
+    idx, best = [], []
+    for lo in range(0, xn.shape[0], step):
+        s_t = cw @ xw[lo:lo + step].T - m2h
+        i = torch.argmax(s_t, dim=0)
+        idx.append(i)
+        best.append(s_t.gather(0, i[None, :])[0])
+    return torch.cat(idx).to(torch.int32), -2.0 * torch.cat(best)
+
+
+def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
+                     gaussian, chunked=False, batch_chunk=None, wxa_bf16=False,
+                     batch_bf16=False):
+    """Plain K13 (`chunked` False: the whole batch at once) or K14: the
+    batch in `batch_chunk` slices with the batch-chunked kernel's bf16
+    roundings (pallas_som.py:1012-1094)."""
     fp32_matmul()
     dev = codes.device
     B, D = xb.shape
+    chunk = _batch_chunk(B, xb_next.shape[0], batch_chunk) if chunked else None
+    wxa_bf16 = bool(wxa_bf16 and gaussian)
     aw, r = _alpha_r(alpha, radius, B, dev)
     bmu = bmu.to(torch.int32)
     x = _bf16(xb) if batch_bf16 else xb
-    xn = _bf16(xb_next) if batch_bf16 else xb_next
     noc = codes.shape[0]
     acc = torch.zeros((noc, D), dtype=torch.float32, device=dev)
     wsum = torch.zeros((noc, 1), dtype=torch.float32, device=dev)
-    for lo in range(0, B, chunk):
-        sl = slice(lo, lo + chunk)
+    for lo in range(0, B, chunk or B):
+        sl = slice(lo, lo + (chunk or B))
         w = separable_w(bmu[sl], aw[sl], r, noc, xdim, hexa, gaussian, wxa_bf16)
         acc = acc + (_bf16(w) if batch_bf16 else w) @ x[sl]
         wsum = wsum + w.sum(1, keepdim=True)
     newc = guarded_blend(codes.to(torch.float32), acc, wsum)
-    # max-score winners: argmax(x.m - ||m||^2 / 2), first (lowest) row on
-    # ties; the score of the bf16-rounded row under batch_bf16, its norm
-    # from the float32 row
-    m2h = 0.5 * (newc * newc).sum(1, keepdim=True)
-    cw = _bf16(newc) if batch_bf16 else newc
-    idx, best = [], []
-    for lo in range(0, xn.shape[0], chunk_n):
-        s_t = cw @ xn[lo:lo + chunk_n].T - m2h
-        i = torch.argmax(s_t, dim=0)
-        idx.append(i)
-        best.append(s_t.gather(0, i[None, :])[0])
+    idx, val = fused_step_winners(newc, xb_next, batch_bf16, chunk)
     codes.copy_(newc)
-    return codes, torch.cat(idx).to(torch.int32), -2.0 * torch.cat(best)
+    return codes, idx, val
 
 
 def som_fused_factored_step_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha,
                                   radius, gaussian=False):
     """Plain K13 (`_som_fused_factored_kernel`); arguments and contract as
     `som_fused_factored_step`."""
-    return _factored_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
-                           gaussian, xb.shape[0], xb_next.shape[0], False, False)
+    return _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
+                            gaussian)
 
 
 def som_fused_factored_chunked_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
@@ -254,9 +266,8 @@ def som_fused_factored_chunked_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
     (default gcd(B, B')), the x-pattern rounded to bf16 with `wxa_bf16`
     (gaussian only) and the batches and W's product operands with
     `batch_bf16`."""
-    bc = _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
-    return _factored_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
-                           gaussian, bc, bc, wxa_bf16 and gaussian, batch_bf16)
+    return _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
+                            gaussian, True, batch_chunk, wxa_bf16, batch_bf16)
 
 
 def _batch_chunk(B: int, Bn: int, batch_chunk: Optional[int]) -> int:
@@ -302,52 +313,14 @@ def _step_args(codes, xb, bmu, xb_next, alpha):
     return bmu.to(torch.int32).contiguous(), aw
 
 
-def _launch_separable(name, codes, xb, bmu, aw, xb_next, xdim, hexa,
-                      gaussian, radius, flags=(), pattern_bf16=False):
-    """K13 or K14 through the C entry `name`: one scratch buffer holds the
-    winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc / xdim),
-    B) and the x-pattern (2 xdim or xdim, B; bf16 with `pattern_bf16`)."""
-    dev = codes.device
-    noc, D = codes.shape
-    B, Bn = xb.shape[0], xb_next.shape[0]
-    n_pat = 2 * xdim if hexa else xdim
-    words = [2 * Bn, B, -(-noc // xdim) * B]  # float32 words before the pattern
-    offs = [4 * sum(words[:k]) for k in range(4)]
-    pat_words = -(-n_pat * B // 2) if pattern_bf16 else n_pat * B
-    scratch = torch.empty((sum(words) + pat_words,), dtype=torch.float32,
-                          device=dev)
-    keys, aw_eff, ytab, pat = (scratch.data_ptr() + o for o in offs)
-    val = torch.empty((Bn,), dtype=torch.float32, device=dev)
-    idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
-    xb, xn = xb.contiguous(), xb_next.contiguous()
-    _build.call(name, codes.data_ptr(), int(codes.dtype == torch.bfloat16),
-                noc, D, xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B,
-                xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
-                int(bool(gaussian)), float(radius), *flags, pat, ytab, aw_eff,
-                keys, val.data_ptr(), idx.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    return codes, idx, val
-
-
 def som_fused_factored_step(codes, xb, bmu, xb_next, xdim, hexa, alpha,
                             radius, gaussian=False):
     """K13: the separable step (`_som_fused_factored_kernel`) on `codes`
     (noc, D), float32 or bfloat16, updated in place; returns (codes,
     bmu_next (B',) int32, val_next (B',) = -2 * the best score)."""
     bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
-    return _fused_step_k13(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
-                           gaussian)
-
-
-def _fused_step_k13(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian):
-    """K13 on checked arguments (its plain version on the CPU)."""
-    if codes.device.type == "cpu":
-        return som_fused_factored_step_plain(codes, xb, bmu, xb_next, xdim,
-                                             hexa, aw, radius, gaussian)
-    out = _launch_separable("somvq_som_fused_factored", codes, xb, bmu, aw,
-                            xb_next, xdim, hexa, gaussian, radius)
-    som_fused_factored_step.launches += 1
-    return out
+    return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw,
+                                 radius, gaussian)
 
 
 def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
@@ -363,24 +336,46 @@ def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
     additions depends on it."""
     bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
     _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
-    return _fused_step_k14(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
-                           gaussian, batch_chunk, wxa_bf16, batch_bf16)
+    return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw,
+                                 radius, gaussian, True, batch_chunk, wxa_bf16,
+                                 batch_bf16)
 
 
-def _fused_step_k14(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
-                    batch_chunk, wxa_bf16, batch_bf16):
-    """K14 on checked arguments (its plain version on the CPU)."""
+def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
+                          gaussian, chunked=False, batch_chunk=None,
+                          wxa_bf16=False, batch_bf16=False):
+    """K13 (`chunked` False) or K14 on checked arguments (its plain version
+    on the CPU), counted on its wrapper.  One scratch buffer holds the
+    winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc / xdim),
+    B) and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16)."""
+    dev = codes.device
+    if dev.type == "cpu":
+        return _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, aw,
+                                radius, gaussian, chunked, batch_chunk,
+                                wxa_bf16, batch_bf16)
     wxa_bf16 = bool(wxa_bf16 and gaussian)
-    if codes.device.type == "cpu":
-        return som_fused_factored_chunked_step_plain(
-            codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
-            batch_chunk, wxa_bf16, batch_bf16)
-    out = _launch_separable("somvq_som_fused_factored_chunked", codes, xb, bmu,
-                            aw, xb_next, xdim, hexa, gaussian, radius,
-                            flags=(int(wxa_bf16), int(bool(batch_bf16))),
-                            pattern_bf16=wxa_bf16)
-    som_fused_factored_chunked_step.launches += 1
-    return out
+    noc, D = codes.shape
+    B, Bn = xb.shape[0], xb_next.shape[0]
+    n_pat = 2 * xdim if hexa else xdim
+    words = [2 * Bn, B, -(-noc // xdim) * B]  # float32 words before the pattern
+    offs = [4 * sum(words[:k]) for k in range(4)]
+    pat_words = -(-n_pat * B // 2) if wxa_bf16 else n_pat * B
+    scratch = torch.empty((sum(words) + pat_words,), dtype=torch.float32,
+                          device=dev)
+    keys, aw_eff, ytab, pat = (scratch.data_ptr() + o for o in offs)
+    val = torch.empty((Bn,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
+    xb, xn = xb.contiguous(), xb_next.contiguous()
+    _build.call("somvq_som_fused_factored", codes.data_ptr(),
+                int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
+                bmu.data_ptr(), aw.data_ptr(), B, xn.data_ptr(), Bn, int(xdim),
+                int(bool(hexa)), int(bool(gaussian)), float(radius),
+                int(chunked), int(wxa_bf16), int(bool(batch_bf16)), pat, ytab,
+                aw_eff, keys, val.data_ptr(), idx.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    wrapper = som_fused_factored_chunked_step if chunked else som_fused_factored_step
+    wrapper.launches += 1
+    return codes, idx, val
 
 
 def som_fused_train_step(
@@ -425,11 +420,11 @@ def som_fused_train_step(
                 f"xdim={xdim} tile_n={tile_n} hexa={hexa}")
         if batch_chunk is not None or wxa_bf16 or batch_bf16:
             _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
-            return _fused_step_k14(codes, xb, bmu, xb_next, xdim, hexa, aw,
-                                   radius, gaussian, batch_chunk, wxa_bf16,
-                                   batch_bf16)
-        return _fused_step_k13(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
-                               gaussian)
+            return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa,
+                                         aw, radius, gaussian, True,
+                                         batch_chunk, wxa_bf16, batch_bf16)
+        return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw,
+                                     radius, gaussian)
     offset = unit_offset or 0
     if offset < 0:
         raise ValueError(f"unit_offset {offset} < 0")

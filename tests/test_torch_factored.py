@@ -59,18 +59,44 @@ def _pad128(a):
     return jnp.asarray(np.pad(a, ((0, 0), (0, -a.shape[1] % 128))))
 
 
-def assert_winners_agree(x, codes, i_port, i_ref, tol=TOL):
+def _bf16_64(a):
+    """`a` rounded to bf16 (nearest even), as float64."""
+    return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def _dists(x, codes, bf16_score=False):
+    """(B', noc) float64 distances the fused steps' winners rank by: ||x -
+    m||^2, or under batch_bf16 ||x'||^2 - 2 x'.m' + ||m||^2 with x' and m'
+    rounded to bf16 and the norm from the float32 rows."""
+    c64 = np.asarray(codes, np.float64)
+    xr = _bf16_64(x) if bf16_score else np.asarray(x, np.float64)
+    cr = _bf16_64(codes) if bf16_score else c64
+    return ((xr * xr).sum(1)[:, None] - 2.0 * xr @ cr.T
+            + (c64 * c64).sum(1)[None, :])
+
+
+def assert_winners_agree(x, codes, i_port, i_ref, tol=TOL, bf16_score=False):
     i_port = np.asarray(i_port, np.int64)
     i_ref = np.asarray(i_ref, np.int64)
     bad = np.nonzero(i_port != i_ref)[0]
     if bad.size:
-        x64 = np.asarray(x, np.float64)[bad]
-        c64 = np.asarray(codes, np.float64)
-        da = ((x64 - c64[i_port[bad]]) ** 2).sum(-1)
-        db = ((x64 - c64[i_ref[bad]]) ** 2).sum(-1)
+        d = _dists(np.asarray(x)[bad], codes, bf16_score)
+        rows = np.arange(bad.size)
+        da, db = d[rows, i_port[bad]], d[rows, i_ref[bad]]
         gap = np.abs(da - db) / np.maximum(np.maximum(da, db), 1e-30)
         assert gap.max() < tol, (bad, gap)
     return bad.size
+
+
+def assert_own_scoring(x, codes, idx, val, bf16_score=False):
+    """A step's winners and values against the float64 scoring of its own
+    updated rows `codes`: winners equal except near-ties (TOL), values
+    (||m||^2 - 2 x.m, the distance without ||x||^2) within 1e-4."""
+    d = _dists(x, codes, bf16_score)
+    assert_winners_agree(x, codes, idx, d.argmin(1), bf16_score=bf16_score)
+    xr = _bf16_64(x) if bf16_score else np.asarray(x, np.float64)
+    want = d[np.arange(d.shape[0]), np.asarray(idx, np.int64)] - (xr * xr).sum(1)
+    np.testing.assert_allclose(val, want, rtol=1e-4, atol=1e-4)
 
 
 def _inputs(noc, D, B, Bn, seed):
@@ -114,6 +140,7 @@ def test_factored_step_matches_jax(xdim, ydim, hexa, tile_n, gaussian):
     np.testing.assert_allclose(c, jc, rtol=TOL, atol=TOL)
     assert_winners_agree(xn, c, i, ji)
     np.testing.assert_allclose(v, jv, rtol=1e-4, atol=1e-4)
+    assert_own_scoring(xn, c, i, v)
     # factored=None takes the same kernel where the geometry allows it
     c2, i2, v2 = _port(codes, xb, bmu, xn, xdim, hexa, alpha, 3.0, gaussian,
                        tile_n=tile_n)
@@ -152,19 +179,23 @@ def test_chunked_step_matches_jax(flags, gaussian):
     x-pattern in both).  Each bf16 option moves the result off the float32
     step by far more than the tolerance, so the roundings are the ones
     compared.  Under batch_bf16 the winners score the updated rows rounded
-    to bf16: where the two packages' float32 rows round to different bf16
-    neighbours (rows equal to 1e-5), a score moves by one bf16 ulp of the
-    entry times the sample's component, so winners agree to 1e-2 relative
-    and values to 1e-2."""
+    to bf16, and so does the check (`_dists`): winners agree to 1e-5.  Where
+    the two packages' float32 rows (equal to 1e-5) round to different bf16
+    neighbours, a value moves by the sample's component times one bf16 ulp
+    of the entry, so values agree to 5e-3; each package's winners and values
+    against the scoring of its own rows to 1e-4."""
     xdim, ydim, hexa = 16, 8, True
     codes, xb, bmu, xn, alpha = _inputs(xdim * ydim, 64, 256, 256, seed=7)
     kw = dict(tile_n=32, batch_chunk=128, **flags)
     c, i, v = _port(codes, xb, bmu, xn, xdim, hexa, alpha, 3.0, gaussian, **kw)
     jc, ji, jv = _jax(codes, xb, bmu, xn, xdim, hexa, alpha, 3.0, gaussian, **kw)
     np.testing.assert_allclose(c, jc, rtol=TOL, atol=TOL)
-    vtol = 1e-2 if flags.get("batch_bf16") else 1e-4
-    assert_winners_agree(xn, c, i, ji, tol=vtol if vtol > 1e-4 else TOL)
-    np.testing.assert_allclose(v, jv, rtol=vtol, atol=vtol)
+    bb = bool(flags.get("batch_bf16"))
+    assert_winners_agree(xn, c, i, ji, bf16_score=bb)
+    np.testing.assert_allclose(v, jv, rtol=0.0 if bb else 1e-4,
+                               atol=5e-3 if bb else 1e-4)
+    assert_own_scoring(xn, c, i, v, bb)
+    assert_own_scoring(xn, jc, ji, jv, bb)
     f32, _, v32 = _port(codes, xb, bmu, xn, xdim, hexa, alpha, 3.0, gaussian,
                         tile_n=32, factored=True)
     moved = max(np.abs(c - f32).max(), np.abs(v - v32).max())
