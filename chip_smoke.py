@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # the e2e cells under torch.profiler
     python3 chip_smoke.py --mesh       # the mesh phases 14-17 alone
+    python3 chip_smoke.py --state      # what phase 3b leaves for phase 7
 
 Needs one CUDA device and nvcc; exits non-zero without them.  With --mesh
 it builds the kernels and runs phase 6's single-device run and the mesh
@@ -13,8 +14,12 @@ the world runs NCCL, one card per rank (parallel.mesh's backend rule).  With
 (after its warm-up) under torch.profiler, printing for its training and
 its evaluation one "profile" line: the wall, the device's busy time (the
 union of its kernel and copy intervals), the idle share, and the kernels
-that took longest.  Without arguments, phases, each printing one JSON
-line:
+that took longest.  With --state it builds the kernels and times phase
+7's cell five times each: fresh, after phase 3b's kernel phases, after
+handing back their memory (gc, torch.cuda.empty_cache) and after 20 s idle,
+with the allocator's reserved GiB and the card's clock, temperature and
+power draw beside each reading (one "state" line).  Without arguments,
+phases, each printing one JSON line:
 
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed);
@@ -43,6 +48,28 @@ line:
             plain scoring of its own updated rows; K14's bound under bf16
             batches is its FLOPs at the BF16 tensor peak (989 TFLOP/s); and
             the exact bubble boundary through K13 and K14;
+3b. kernels  K14's stagger at every K14 case, bit-equal to the plain
+            schedule on the same inputs; K14's int8_win at int8_step_ab's
+            step (256x256 B 4096, chunk 1024, bf16 x-pattern), 64x64 with
+            both bf16 options, 64x64 bubble, bf16 batches at 256x256 B 8192 and a bf16 codebook: the
+            codebook bit-equal to K14's without it, stagger bit-equal, winners
+            equal to the plain int8 scoring of its own rows (values within
+            1e-5 relative), against the plain int8 run equal except within one
+            quantization step, values within 5e-5 where they agree; a bf16
+            codebook's winners and values bit-equal to the same step on the
+            codebook widened to float32 (its bound: the update at the FP32 or
+            BF16 peak plus the winners at the INT8 peak, 1979 TOP/s).  K15 and K16
+            (int8/f32_winner_probe) at tools/int8_probe.py's 65536 x 64 x
+            4096, at 999 x 5 x 1000 and with every row twice, bit-equal to
+            plain, with library_ms (torch._int_mm / torch.mm, then amax).
+            K17 (fused_step_skeleton) at bench.py's twins, 256x256 B 4096
+            float32 and B 8192 bf16 (at scale 1: out within 1e-4, vmax within
+            1e-4 relative of its own out's scoring; its bound: W.X once and
+            out.x', though it redoes W.X for every tile as bench.py's does),
+            and one "attainable_pct" line (100 * skeleton ms / step ms) for
+            K14 at B 4096 and 8192 and K3 at the 1M step.  Then their memory
+            is handed back (gc, torch.cuda.empty_cache), as before the mesh
+            phases;
 4. e2e_128x128_100k  SOMTrainer.fit on a stream, then find_qerror(fast),
             through the kernels and through the plain versions: K13 per
             step (no K3 launch, the JAX trainer's choice); qerror within
@@ -86,6 +113,13 @@ line:
             OLVQ1Trainer (K1 clean, K4 masked batches), LVQTrainer("lvq2")
             (K8 clean, K9 masked), the masked accuracy (K4); within 0.5
             points of the plain run.
+13a. e2e_int8_win_256x256_B4096  som_lvq_pak_torch.tools.int8_step_ab: the
+            step times of the float32, int8_win and stagger chains (K14) with
+            K17 beside them, then 64 training steps of each from K1's
+            winners and the qerror over 262,144 samples (K2); int8_win's
+            qerror within 1% of float32's, the stagger codebook bit-equal.
+13b. int8_probe  som_lvq_pak_torch.tools.int8_probe: the bf16/int8 library
+            rates at 4096^3 and K15 against K16 at 65536 x 64 x 4096.
 
 The mesh phases (14-17) each spawn a world of processes on this one card
 (parallel.mesh.spawn: one process per mesh position, a file:// rendezvous,
@@ -160,9 +194,11 @@ ANCHOR_128 = 7.7118
 ANCHOR_1M = 7.754
 
 # one H100 SXM's published peaks (NVIDIA's data sheet): FP32 outside the
-# tensor cores, dense BF16 on the tensor cores, and device memory bandwidth
+# tensor cores, dense BF16 and INT8 on the tensor cores, and device memory
+# bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
 
@@ -180,25 +216,20 @@ def cuda_ms(fn, iters: int = 10) -> float:
     """Mean milliseconds per call of fn() by CUDA events, after a warm-up."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from som_lvq_pak_torch.tools.timing import mean_ms
+
+    return mean_ms(fn, torch.device("cuda"), iters)
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> dict:
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
+          int8_ops: float = 0.0) -> dict:
     """The least time the card could take for a kernel's work: its FLOPs at
-    the peak of their operand type (FP32 unless stated) or its bytes (each
-    input read once, each output written once) at the memory rate, whichever
-    is larger.  No PyTorch call computes any of these kernels' functions in
-    one call, so library_ms is null."""
-    f_ms, b_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_S
+    the peak of their operand type (FP32 unless stated; `int8_ops` more at
+    the INT8 peak) or its bytes (each input read once, each output written
+    once) at the memory rate, whichever is larger.  library_ms is null here:
+    a phase sets it where one PyTorch call computes the kernel's function."""
+    f_ms = 1e3 * flops / peak + 1e3 * int8_ops / PEAK_INT8_OPS
+    b_ms = 1e3 * nbytes / PEAK_BYTES_S
     return dict(bound_ms=max(f_ms, b_ms),
                 bound_by="operations" if f_ms >= b_ms else "bytes",
                 library_ms=None)
@@ -363,7 +394,7 @@ def bf16_ulp_close(got, want, atol=1e-5) -> bool:
 
 def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                name="som_fused_train_step", kw=None, bf16=False, dup=False,
-               codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5):
+               codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5, twin=None):
     """A fused-step kernel (K3, K13 or K14, options `kw`) against its plain
     version: a few samples without a BMU, per-sample alphas.  Codes within
     `codes_tol` (a bf16 codebook: bf16_ulp_close), winners equal except where
@@ -375,7 +406,9 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     `win_rel`, values to `val_tol`, or to (1e-4, 1e-4) under batch_bf16.
     With `dup` every code is there three times and alpha is 0: the rows do
     not move, and the first copy must win every exact tie, as in the plain
-    version."""
+    version.  With `twin` (options), the kernel run under those options on
+    the same inputs must give the same codebook, winners and values bit for
+    bit (K14's stagger against its plain schedule)."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
@@ -405,6 +438,10 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
            f"{'gaussian' if gaussian else 'bubble'}" \
            + "".join(f" {k}={v}" for k, v in kw.items()) \
            + (" bf16 codebook" if bf16 else "") + (" every code three times" if dup else "")
+    if twin is not None:
+        tw = kernel(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, **twin)
+        if not all(torch.equal(a, b) for a, b in zip((ck, ik, vk), tw)):
+            raise AssertionError(f"{name}: not bit-equal to the kernel under {twin}")
     err = float((ck.float() - cp.float()).abs().max())
     if not (bf16_ulp_close(ck, cp) if bf16
             else torch.allclose(ck, cp, rtol=codes_tol, atol=codes_tol)):
@@ -436,6 +473,7 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     cb = codes.element_size()
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius, winners_differ=n_diff,
                max_abs_err=err, val_err=val_err, own_val_err=own_val_err,
+               **({} if twin is None else dict(bit_equal_to=twin)),
                ms=cuda_ms(lambda: kernel(work, xb, bmu, xn, xdim, hexa, alpha, radius,
                                          gaussian, **kw)),
                plain_ms=cuda_ms(lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius,
@@ -476,6 +514,292 @@ def phase_bubble_boundary():
                                  f"{ck[inside, :4].tolist()}")
     emit("kernels", kernel="exact bubble boundary, K13 and K14", inside_equals_half=True,
          equal_plain=True)
+
+
+def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
+    """K14 with int8_win (options `kw`) on phase_step's inputs.  The codebook
+    must equal K14's without int8_win bit for bit, and K14's with stagger
+    added (winners and values too).  A bf16 codebook's int8 rows and
+    ||m||^2 come from the float32 blend, not the rows rounded for storage:
+    its winners and values must equal, bit for bit, those of the same step
+    on the codebook widened to float32, and its rows that step's rounded to
+    bf16, on the kernel and on the plain version alike; the checks below then
+    hold those float32 steps.  Winners must equal the plain int8 scoring of
+    the kernel's own float32 rows (fused_step_winners_int8, with
+    int8_win_inputs' scales) except where the two rows' scores differ by
+    less than 1e-6 relative (||m||^2's float32 sum order), values within
+    1e-5 relative of it.  Against the plain int8 run (codes within 1e-5):
+    winners equal except where the plain run's two scores lie within
+    q1 * sum_k |x'_k| of each other (one quantization step in every entry
+    of the row), and where the winners agree, values within 5e-5 + 1e-5
+    relative (the largest difference on an H100 at these cases was 1.5e-5)."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
+    from som_lvq_pak_torch.ops.som_step import (fused_step_winners_int8,
+                                                int8_win_inputs, int8_win_scores,
+                                                som_fused_factored_chunked_step as k14,
+                                                som_fused_factored_chunked_step_plain as k14p)
+
+    noc = xdim * ydim
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randn((noc, D), generator=g, device="cuda")
+    xb = torch.randn((B, D), generator=g, device="cuda")
+    xn = torch.randn((B, D), generator=g, device="cuda")
+    bmu = dist_argmin_plain(xb, codes)[1]
+    bmu[:7] = -1
+    alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device="cuda")
+    if bf16:
+        codes = codes.to(torch.bfloat16)
+    args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
+    c0 = k14(codes.clone(), *args, **kw)[0]
+    ck, ik, vk = k14(codes.clone(), *args, int8_win=True, **kw)
+    cs, is_, vs = k14(codes.clone(), *args, int8_win=True, stagger=True, **kw)
+    cp, ip, vp = k14p(codes.clone(), *args, int8_win=True, **kw)
+    torch.cuda.synchronize()
+    name = (f"som_fused_factored_chunked_step {xdim}x{ydim} {'hexa' if hexa else 'rect'} "
+            f"{'gaussian' if gaussian else 'bubble'} int8_win=True"
+            + "".join(f" {k}={v}" for k, v in kw.items()) + (" bf16 codebook" if bf16 else ""))
+    if not torch.equal(ck, c0):
+        raise AssertionError(f"{name}: the codebook differs from K14's without int8_win")
+    if not (torch.equal(cs, ck) and torch.equal(is_, ik) and torch.equal(vs, vk)):
+        raise AssertionError(f"{name}: stagger=True is not bit-equal")
+    if bf16:
+        for side, fn, got in (("kernel", k14, (ck, ik, vk)), ("plain", k14p, (cp, ip, vp))):
+            c32, i32, v32 = fn(codes.float(), *args, int8_win=True, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], c32.to(torch.bfloat16)) and torch.equal(got[1], i32)
+                    and torch.equal(got[2], v32)):
+                raise AssertionError(f"{name}: the {side}'s step differs from its step on "
+                                     "the float32 codebook (rows rounded to bf16)")
+            if side == "kernel":
+                ck, ik, vk = c32, i32, v32
+            else:
+                cp, ip, vp = c32, i32, v32
+    err = float((ck - cp).abs().max())
+    if not torch.allclose(ck, cp, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{name}: codebooks differ from plain by {err}")
+    xq, q = int8_win_inputs(codes, xb, xn, bool(kw.get("batch_bf16")))
+    i_own, v_own = fused_step_winners_int8(ck, xq, q, 1024)
+    bad = (ik != i_own).nonzero()[:, 0]
+    own_diff = int(bad.numel())
+    if own_diff:
+        sa = int8_win_scores(ck, ik[bad], xq[bad], q)
+        sb = int8_win_scores(ck, i_own[bad], xq[bad], q)
+        gap = float(((sa - sb).abs() / torch.maximum(sa.abs(), sb.abs())).max())
+        if gap >= 1e-6:
+            raise AssertionError(f"{name}: {own_diff} winners differ from the int8 "
+                                 f"scoring of its own rows, relative gap {gap:.3g}")
+    own_val_err = float(((vk - v_own).abs() / v_own.abs().clamp(min=1e-30)).max())
+    if not bool(((vk - v_own).abs() <= 1e-5 * v_own.abs() + 1e-6).all()):
+        raise AssertionError(f"{name}: values differ from the int8 scoring of its "
+                             f"own rows by {own_val_err:.3g} relative")
+    bad = (ik != ip).nonzero()[:, 0]
+    if bad.numel():
+        sk = int8_win_scores(cp, ik[bad], xq[bad], q)
+        sp = int8_win_scores(cp, ip[bad], xq[bad], q)
+        window = q[1].double() * xq[bad].double().abs().sum(-1)
+        if bool((sp - sk > window).any()):
+            raise AssertionError(f"{name}: {bad.numel()} winners differ from the plain "
+                                 "int8 run beyond one quantization step")
+    same = ik == ip
+    val_err = float((vk - vp)[same].abs().max()) if bool(same.any()) else 0.0
+    if not bool(((vk - vp)[same].abs() <= 5e-5 + 1e-5 * vp[same].abs()).all()):
+        raise AssertionError(f"{name}: values differ from the plain int8 run by {val_err} "
+                             "where the winners agree")
+    work = codes.clone()
+    batch_bf16 = bool(kw.get("batch_bf16"))
+    cb = codes.element_size()
+    # the update's W.X at the FP32 peak (BF16 under batch_bf16), the
+    # winners' int8 contraction at the INT8 peak; codes read and written,
+    # both batches (x' as int8), bmu and alpha read, the winners written
+    rec = dict(kernel=name, shape=[noc, B, D], radius=radius,
+               winners_differ=int(bad.numel()), own_winners_differ=own_diff,
+               max_abs_err=err, own_val_rel_err=own_val_err, val_err=val_err,
+               ms=cuda_ms(lambda: k14(work, *args, int8_win=True, **kw)),
+               plain_ms=cuda_ms(lambda: k14p(work, *args, int8_win=True, **kw)),
+               **bound(2 * noc * B * D, 2 * cb * noc * D + 5 * B * D + 16 * B,
+                       PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS,
+                       int8_ops=2 * noc * B * D))
+    emit("kernels", **rec)
+    return rec
+
+
+def phase_probe(name, kernel, plain, library, dtype, N, D, B, seed, dup=False, iters=10):
+    """K15 (int8) or K16 (float32, on integer values) against its plain
+    version, bit for bit; with `dup` every row is there twice.  library_ms:
+    one PyTorch call of the same function (`library`), where given."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = torch.randint(-127, 128, (N // 2 if dup else N, D), generator=g, device="cuda",
+                      dtype=torch.int8)
+    if dup:
+        m = torch.cat([m, m]).contiguous()
+    x = torch.randint(-127, 128, (D, B), generator=g, device="cuda", dtype=torch.int8)
+    m, x = m.to(dtype), x.to(dtype)
+    got, want = kernel(m, x), plain(m, x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {N}x{D}x{B}: differs from plain by "
+                             f"{float((got.double() - want.double()).abs().max())}")
+    es = m.element_size()
+    # 2 N D B multiply-adds at the operand type's peak; m and x read once,
+    # the (B,) maxima written
+    rec = dict(kernel=name, shape=[N, D, B], dup=dup, max_abs_err=0.0,
+               ms=cuda_ms(lambda: kernel(m, x), iters),
+               plain_ms=cuda_ms(lambda: plain(m, x), iters),
+               **bound(2 * N * D * B, es * (N * D + D * B) + 4 * B,
+                       PEAK_INT8_OPS if dtype == torch.int8 else PEAK_FP32_FLOPS))
+    if library is not None:
+        rec["library_ms"] = cuda_ms(lambda: library(m, x), iters)
+    emit("kernels", **rec)
+    return rec
+
+
+def phase_skeleton(B, bf16, seed, N=65536, D=64, T=256, iters=10):
+    """K17 against its plain version at bench.py:prep_skeleton's shapes (W
+    uniform * 0.001, X normal, X' = X): at scale 1.0 out within 1e-4, and
+    vmax within 1e-4 relative of the plain scoring of the kernel's own out
+    (and, in float32, of the plain run's: two outs equal to 1e-6 may round to
+    neighbouring bf16 values); timed at the default scale 1e-30."""
+    import torch
+
+    from som_lvq_pak_torch.ops.skeleton import (fused_step_skeleton,
+                                                fused_step_skeleton_plain)
+
+    dt = torch.bfloat16 if bf16 else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randn((N, D), generator=g, device="cuda")
+    w = (torch.rand((T, B), generator=g, device="cuda") * 0.001).to(dt)
+    x = torch.randn((B, D), generator=g, device="cuda").to(dt)
+    name = f"fused_step_skeleton {N}x{D} B {B} {'bf16' if bf16 else 'float32'}"
+    errs = []
+    for scale in (1.0, 1e-30):
+        ok, vk = fused_step_skeleton(codes, w, x, x, scale)
+        op, vp = fused_step_skeleton_plain(codes, w, x, x, scale)
+        v_own = fused_step_skeleton_plain(ok, w, x, x, 0.0)[1]  # out = ok exactly
+        torch.cuda.synchronize()
+        errs.append(float((ok - op).abs().max()))
+        want = (v_own,) if bf16 else (v_own, vp)
+        if not (torch.allclose(ok, op, rtol=1e-4, atol=1e-4)
+                and all(bool(((vk - v).abs() <= 1e-4 * v.abs()).all()) for v in want)):
+            raise AssertionError(f"{name} scale {scale}: out differs by {errs[-1]}, vmax "
+                                 f"by {float((vk - v_own).abs().max())} from its own "
+                                 f"rows' scoring, {float((vk - vp).abs().max())} from plain")
+    es = w.element_size()
+    # the function's own operations at the operand type's peak: W.X once
+    # (2 T B D; the kernel, like bench.py's, redoes it for each of the N / T
+    # tiles) and out.x' (2 N B D); codes read and out written, W, X and X'
+    # read once, vmax written
+    rec = dict(kernel=name, shape=[N, B, D], max_abs_err=max(errs),
+               ms=cuda_ms(lambda: fused_step_skeleton(codes, w, x, x), iters),
+               plain_ms=cuda_ms(lambda: fused_step_skeleton_plain(codes, w, x, x), iters),
+               **bound(2 * T * B * D + 2 * N * B * D,
+                       8 * N * D + es * (T * B + 2 * B * D) + 4 * B,
+                       PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS))
+    emit("kernels", **rec)
+    return rec
+
+
+# K14's cases in phase 3: e2e_64x64_1M_B4096's step (the JAX trainer's
+# choice there: chunk 1024, bf16 x-pattern and batches) first, then
+# bench.py:849-858's headline shapes (256x256, chunk 1024: B 4096 with the
+# bf16 x-pattern, B 8192 with both), bubble (its x-pattern stays float32)
+# with and without bf16 batches, and a bf16 codebook.  Under batch_bf16 the
+# winners score bf16-rounded rows: where the kernel's and the plain
+# version's float32 rows (equal to 1e-5) round to bf16 neighbours, a value
+# moves by the sample's component times one bf16 ulp of the entry (at most
+# 0.0012 on an H100 at these shapes), so values within 5e-3 of the plain
+# run's; against the plain scoring of the kernel's own rows within 1e-4
+K14_BOTH = dict(batch_chunk=1024, wxa_bf16=True, batch_bf16=True)
+K14_CASES = (((64, 64, True, True, 4096, 64, 16.0), 47, K14_BOTH),
+             ((256, 256, True, True, 4096, 64, 64.0), 48,
+              dict(batch_chunk=1024, wxa_bf16=True)),
+             ((256, 256, True, True, 8192, 64, 64.0), 49, K14_BOTH),
+             ((64, 64, True, False, 4096, 64, 16.0), 50, dict(batch_chunk=1024)),
+             ((64, 64, True, False, 4096, 64, 16.0), 51,
+              dict(batch_chunk=1024, batch_bf16=True)))
+K14_BF16_CODEBOOK = ((64, 64, True, True, 4096, 64, 16.0), 52)
+
+
+def k14_step(case, seed, kw, twin=None, bf16=False):
+    """phase_step on K14 with options `kw` (bit-equal to K14 under `twin`
+    where given), at the tolerances of its batches and codebook."""
+    from som_lvq_pak_torch.ops.som_step import (som_fused_factored_chunked_step,
+                                                som_fused_factored_chunked_step_plain)
+
+    if bf16:
+        tols = dict(val_tol=(0.0, 5e-3), win_rel=1e-2)
+    else:
+        tols = dict(codes_tol=1e-5, val_tol=(0.0, 5e-3) if kw.get("batch_bf16")
+                    else (1e-4, 1e-4))
+    return phase_step(som_fused_factored_chunked_step,
+                      som_fused_factored_chunked_step_plain, *case, seed=seed,
+                      name="som_fused_factored_chunked_step", kw=kw, twin=twin,
+                      bf16=bf16, **tols)
+
+
+def option_phases(recs):
+    """K14's options, K15, K16 and K17 against their plain versions; fills
+    their records in `recs` and returns K17's two records."""
+    import torch
+
+    from som_lvq_pak_torch.ops.winner_probe import (f32_winner_probe,
+                                                    f32_winner_probe_plain,
+                                                    int8_winner_probe,
+                                                    int8_winner_probe_plain)
+
+    # K14's stagger (a persistent grid) at every K14 case: bit-equal to the
+    # plain schedule on the same inputs, and held against the plain version
+    # as K14 is; its record at int8_step_ab's step (256x256 B 4096, the bf16
+    # x-pattern)
+    stag = [k14_step(case, seed, dict(kw, stagger=True), twin=kw)
+            for case, seed, kw in K14_CASES]
+    k14_step(*K14_BF16_CODEBOOK, dict(K14_BOTH, stagger=True), twin=K14_BOTH, bf16=True)
+    recs["som_fused_factored_chunked_step[stagger]"] = dict(
+        stag[1], max_abs_err=max(r["max_abs_err"] for r in stag))
+    # K14's int8_win at int8_step_ab's step (its record), 64x64 with both bf16
+    # options, 64x64 bubble, bf16 batches at the 256x256 B 8192 shape, and a
+    # bf16 codebook
+    i8 = [phase_int8(*case, seed=seed, kw=kw) for case, seed, kw in (
+        ((256, 256, True, True, 4096, 64, 3.0), 53, dict(batch_chunk=1024, wxa_bf16=True)),
+        ((64, 64, True, True, 4096, 64, 16.0), 54, K14_BOTH),
+        ((64, 64, True, False, 4096, 64, 16.0), 55, dict(batch_chunk=1024)),
+        ((256, 256, True, True, 8192, 64, 64.0), 56, K14_BOTH))]
+    phase_int8(64, 64, True, True, 4096, 64, 16.0, seed=57, kw=K14_BOTH, bf16=True)
+    recs["som_fused_factored_chunked_step[int8_win]"] = dict(
+        i8[0], max_abs_err=max(r["max_abs_err"] for r in i8))
+    # K15 and K16 at tools/int8_probe.py's winner shape (their records, with
+    # the library call), a small ragged shape and every row twice
+    for name, k, p, lib, dt in (
+            ("int8_winner_probe", int8_winner_probe, int8_winner_probe_plain,
+             lambda m, x: torch._int_mm(m, x).amax(0), torch.int8),
+            ("f32_winner_probe", f32_winner_probe, f32_winner_probe_plain,
+             lambda m, x: torch.mm(m, x).amax(0), torch.float32)):
+        rs = [phase_probe(name, k, p, lib if seed == 60 else None, dt, *shape, seed=seed,
+                          dup=dup)
+              for shape, seed, dup in (((65536, 64, 4096), 60, False),
+                                       ((999, 5, 1000), 61, False),
+                                       ((1000, 5, 999), 62, True))]
+        recs[name] = rs[0]
+    # K17 at bench.py's twins of the headline steps: B 4096 float32 (its
+    # record), B 8192 bf16
+    sk = [phase_skeleton(4096, False, seed=63), phase_skeleton(8192, True, seed=64)]
+    recs["fused_step_skeleton"] = dict(sk[0], max_abs_err=max(r["max_abs_err"] for r in sk))
+    return sk
+
+
+def release():
+    """Hand back what the phases before left: Python's garbage, then the
+    CUDA caching allocator's unused blocks (the kernel phases' plain
+    references take GiBs)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
@@ -825,7 +1149,9 @@ def plain_kernels():
 def counted():
     from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
                                                    dist_argmin_t)
-    from som_lvq_pak_torch.ops.som_step import (som_fused_factored_chunked_step,
+    from som_lvq_pak_torch.ops.skeleton import fused_step_skeleton
+    from som_lvq_pak_torch.ops.som_step import (CHUNKED_INT8_WIN, CHUNKED_STAGGER,
+                                                som_fused_factored_chunked_step,
                                                 som_fused_factored_step,
                                                 som_fused_train_step)
     from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
@@ -835,12 +1161,14 @@ def counted():
     from som_lvq_pak_torch.ops.som_accum import som_neighborhood_accumulate
     from som_lvq_pak_torch.ops.som_blend import som_blend_winner
     from som_lvq_pak_torch.ops.som_vmem import som_vmem_train_steps
+    from som_lvq_pak_torch.ops.winner_probe import f32_winner_probe, int8_winner_probe
 
     return (dist_argmin, dist_argmin_t, som_fused_train_step, dist_argmin_masked,
             som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
             som_vmem_train_steps, dist_top2, dist_top2_masked, dist_topk,
             som_neighborhood_accumulate, som_blend_winner, som_fused_factored_step,
-            som_fused_factored_chunked_step)
+            som_fused_factored_chunked_step, CHUNKED_INT8_WIN, CHUNKED_STAGGER,
+            int8_winner_probe, f32_winner_probe, fused_step_skeleton)
 
 
 def main_path(name, run, kernels, plain_run=None):
@@ -1568,10 +1896,43 @@ def mesh_phases(smi, tally, q_masked128):
                      q_masked128, Xm, mask))
 
 
+def state_probe(smi):
+    """--state: what the kernel phases of option_phases leave behind for a
+    small e2e cell.  e2e_masked_64x64_100k (phase 7) runs five times fresh,
+    five times after option_phases, five after release(), and five after
+    20 s idle; each reading carries the five train_s, the caching
+    allocator's reserved and allocated GiB, and the card's SM clock,
+    temperature and power draw."""
+    import torch
+
+    X = blob_data(42, 100_000, 4)
+    Xm, mask, rng = masked_data(X, 43, 16384, every_other=True)
+    weight = rng.uniform(0.5, 2.0, size=X.shape[0]).astype(np.float32)
+
+    def reading():
+        t = [e2e(Xm, 64, 512, 16, 16384, mask=mask, weight=weight)[1] for _ in range(5)]
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        return dict(train_s=t, median_train_s=sorted(t)[2],
+                    reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+                    allocated_gib=torch.cuda.memory_allocated() / 2 ** 30, card=card)
+
+    out = dict(fresh=reading())
+    option_phases({})
+    out["after_phases"] = reading()
+    release()
+    out["released"] = reading()
+    time.sleep(20)
+    out["rested"] = reading()
+    emit("state", card=smi, cell="e2e_masked_64x64_100k", **out)
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in ([], ["--profile"], ["--mesh"]):
+    if sys.argv[1:] not in ([], ["--profile"], ["--mesh"], ["--state"]):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1589,12 +1950,12 @@ def main() -> int:
     from som_lvq_pak_torch.ops.distance import fp32_matmul
     from som_lvq_pak_torch.models.trainer import fused_step_choice
     from som_lvq_pak_torch.ops.som_step import (
-        som_fused_factored_chunked_step, som_fused_factored_chunked_step_plain,
         som_fused_factored_step, som_fused_factored_step_plain, som_fused_train_step,
         som_fused_train_step_plain)
     from som_lvq_pak_torch.ops.som_update import (
         som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
         som_neighborhood_update_idx_plain)
+    from som_lvq_pak_torch.tools import int8_probe, int8_step_ab
 
     fp32_matmul()  # plain references in full float32 (no TF32)
     smi = nvidia_smi_line()
@@ -1609,6 +1970,10 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, library=_build.library_path())
     if sys.argv[1:] == ["--profile"]:
         profile_cells()
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--state"]:
+        state_probe(smi)
         print(smi)
         return 0
     if sys.argv[1:] == ["--mesh"]:
@@ -1700,36 +2065,22 @@ def main() -> int:
                val_tol=(1e-4, 1e-4), win_rel=1e-2)
     recs["som_fused_factored_step"] = dict(
         steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
-    # K14 at e2e_64x64_1M_B4096's step (the JAX trainer's choice there: chunk
-    # 1024, bf16 x-pattern and batches) first, then bench.py:849-858's
-    # headline shapes (256x256, chunk 1024: B 4096 with the bf16 x-pattern,
-    # B 8192 with both), bubble (its x-pattern stays float32) with and
-    # without bf16 batches, and a bf16 codebook.  Under batch_bf16 the winners
-    # score bf16-rounded rows: where the kernel's and the plain version's
-    # float32 rows (equal to 1e-5) round to bf16 neighbours, a value moves by
-    # the sample's component times one bf16 ulp of the entry (at most 0.0012
-    # on an H100 at these shapes), so values within 5e-3 of the plain run's;
-    # against the plain scoring of the kernel's own rows within 1e-4
-    both = dict(batch_chunk=1024, wxa_bf16=True, batch_bf16=True)
-    bf16_tols = dict(codes_tol=1e-5, val_tol=(0.0, 5e-3))
-    steps = [phase_step(som_fused_factored_chunked_step,
-                        som_fused_factored_chunked_step_plain, *case, seed=seed,
-                        name="som_fused_factored_chunked_step", kw=kw,
-                        **(bf16_tols if kw.get("batch_bf16") else f32_tols))
-             for case, seed, kw in (
-                 ((64, 64, True, True, 4096, 64, 16.0), 47, both),
-                 ((256, 256, True, True, 4096, 64, 64.0), 48,
-                  dict(batch_chunk=1024, wxa_bf16=True)),
-                 ((256, 256, True, True, 8192, 64, 64.0), 49, both),
-                 ((64, 64, True, False, 4096, 64, 16.0), 50, dict(batch_chunk=1024)),
-                 ((64, 64, True, False, 4096, 64, 16.0), 51,
-                  dict(batch_chunk=1024, batch_bf16=True)))]
-    phase_step(som_fused_factored_chunked_step, som_fused_factored_chunked_step_plain,
-               64, 64, True, True, 4096, 64, 16.0, seed=52,
-               name="som_fused_factored_chunked_step", kw=both, bf16=True,
-               val_tol=(0.0, 5e-3), win_rel=1e-2)
+    # K14 at K14_CASES (e2e_64x64_1M_B4096's step first: its record), then
+    # its options stagger and int8_win, K15-K17 and the attainable_pct lines
+    steps = [k14_step(case, seed, kw) for case, seed, kw in K14_CASES]
+    k14_step(*K14_BF16_CODEBOOK, K14_BOTH, bf16=True)
     recs["som_fused_factored_chunked_step"] = dict(
         steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
+    sk = option_phases(recs)
+    release()
+    for fused, step, skel in (
+            ("K14 256x256 B 4096, bf16 x-pattern", steps[1], sk[0]),
+            ("K14 256x256 B 8192, bf16 x-pattern and batches", steps[2], sk[1]),
+            ("K3 256x256 B 4096, e2e_256x256_1M's step", recs["som_fused_train_step"],
+             sk[0])):
+        emit("attainable_pct", card=smi, fused=fused, fused_ms=step["ms"],
+             skeleton=skel["kernel"], skeleton_ms=skel["ms"],
+             attainable_pct=100.0 * skel["ms"] / step["ms"])
     phase_bubble_boundary()
     update_cases = ((256, 256, True, True, 4096, 64, 64.0),
                     (128, 128, True, True, 1024, 64, 32.0),
@@ -1788,7 +2139,7 @@ def main() -> int:
     phase_shard_step(256, True, True, 4096, 64, 64.0, seed=35)
     phase_shard_step(16, False, False, 1024, 64, 3.0, seed=36)
 
-    launches = {name: 0 for name in recs}
+    launches = {fn.__name__: 0 for fn in counted()}
 
     def tally(got):
         for name, n in got.items():
@@ -2007,7 +2358,29 @@ def main() -> int:
          launches=got)
     del Xm, lab1, mask, small
 
+    # ---- the int8-winner training chain (tools/int8_step_ab) --------------
+    # 256x256 B 4096, K14 with chunk 1024 and the bf16 x-pattern: step times
+    # of the float32, int8_win and stagger chains with K17 beside them, then
+    # 64 training steps each (K1 prologue) and their qerror (K2); the tool
+    # raises unless int8_win's qerror is within 1% of float32's and the
+    # stagger chain ends bit-equal to the plain schedule's
+    ab, _, got = main_path(
+        "e2e_int8_win_256x256_B4096", lambda: int8_step_ab.run(device="cuda"),
+        ("dist_argmin", "som_fused_factored_chunked_step", "dist_argmin_t",
+         "som_fused_factored_chunked_step[int8_win]",
+         "som_fused_factored_chunked_step[stagger]", "fused_step_skeleton"))
+    tally(got)
+    emit("e2e_int8_win_256x256_B4096", card=smi, **ab, launches=got,
+         gate="int8_win qerror within 1% of float32's; the stagger chain's codebook "
+              "bit-equal to the plain schedule's")
+    # ---- the int8 winner probe (tools/int8_probe): library rates, K15, K16 --
+    probe, _, got = main_path("int8_probe", lambda: int8_probe.run(device="cuda"),
+                              ("int8_winner_probe", "f32_winner_probe"))
+    tally(got)
+    emit("int8_probe", card=smi, **probe, launches=got)
+
     # ---- the mesh phases: worlds of processes on this card ---------------
+    release()  # the worlds' ranks share this card's memory
     mesh_phases(smi, tally, q_masked128)
 
     sources = {
@@ -2038,7 +2411,19 @@ def main() -> int:
         "som_fused_factored_step": ("som_lvq_pak_torch/csrc/som_fused_factored.cu",
                                     "som_lvq_pak_tpu/ops/pallas_som.py:743"),
         "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/som_fused_factored.cu",
-                                            "som_lvq_pak_tpu/ops/pallas_som.py:904")}
+                                            "som_lvq_pak_tpu/ops/pallas_som.py:904"),
+        "som_fused_factored_chunked_step[int8_win]": (
+            "som_lvq_pak_torch/csrc/som_fused_factored.cu",
+            "som_lvq_pak_tpu/ops/pallas_som.py:1056"),
+        "som_fused_factored_chunked_step[stagger]": (
+            "som_lvq_pak_torch/csrc/som_fused_factored.cu",
+            "som_lvq_pak_tpu/ops/pallas_som.py:1117"),
+        "int8_winner_probe": ("som_lvq_pak_torch/csrc/winner_probe.cu",
+                              "tools/int8_probe.py:95"),
+        "f32_winner_probe": ("som_lvq_pak_torch/csrc/winner_probe.cu",
+                             "tools/int8_probe.py:154"),
+        "fused_step_skeleton": ("som_lvq_pak_torch/csrc/fused_skeleton.cu",
+                                "bench.py:505")}
     idle = [name for name in sources if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -49,11 +49,19 @@ _SIGNATURES = {
     "somvq_som_fused_step": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I,
                              _I, ctypes.c_float, _I, _P, _P, _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-    # gaussian, radius, chunked, wxa_bf16, batch_bf16, pat, ytab, aw, keys,
-    # val, idx, stream
+    # gaussian, radius, chunked, wxa_bf16, batch_bf16, stagger, int8_win, xq,
+    # q, pat, ytab, aw, keys, val, idx, stream
     "somvq_som_fused_factored": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
-                                 _I, _I, ctypes.c_float, _I, _I, _I, _P, _P,
-                                 _P, _P, _P, _P, _P],
+                                 _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # m, x, N, D, B, out, stream
+    "somvq_int8_winner_probe": [_P, _P, _I, _I, _I, _P, _P],
+    # m, x, N, D, B, keys, out, stream
+    "somvq_f32_winner_probe": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # codes, N, D, w, T_rows, x, B, xn, Bn, bf16, scale, out, vkeys, vmax,
+    # stream
+    "somvq_fused_skeleton": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
+                             ctypes.c_float, _P, _P, _P, _P],
     # x, codes, B, N, D, k, splits, pv, pi, vo, io, stream
     "somvq_dist_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius,

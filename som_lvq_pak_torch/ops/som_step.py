@@ -10,7 +10,8 @@ kernels, each a hand-written CUDA kernel here:
   Wy(row), winners in max-score form;
 - K14 `som_fused_factored_chunked_step` (the same source): the batch-chunked
   kernel (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
-  (`wxa_bf16`, gaussian only) and bf16 batches (`batch_bf16`).
+  (`wxa_bf16`, gaussian only), bf16 batches (`batch_bf16`), int8 winners
+  (`int8_win`) and staggered schedule (`stagger`).
 
 One call applies batch t's neighbourhood update to the codebook and finds
 batch t+1's winners against the UPDATED codebook (the software-pipelined
@@ -23,7 +24,9 @@ form the trainer runs):
 1320-1349): `factored=None` takes the separable kernel where
 `factored_geometry_ok(noc, xdim, tile_n, hexa)` and no `unit_offset` is
 given; `factored` with a `unit_offset` raises; on the separable path any of
-`batch_chunk`, `wxa_bf16` or `batch_bf16` takes the batch-chunked kernel.
+`batch_chunk`, `stagger`, `wxa_bf16`, `batch_bf16` or `int8_win` takes the
+batch-chunked kernel (pallas_som.py:1339-1349); K3 ignores all five, as the
+JAX wrapper's plain path does.
 `tile_n` decides the geometry only: the CUDA kernels tile by 32 rows, and
 the result depends on it only through the float32 order of additions.  The
 port keeps D unpadded, so the JAX `d_real` has no counterpart.
@@ -43,6 +46,17 @@ A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 below, built from the plain counterparts of `_grid_xy`, `_neighborhood_w`
 and `_guarded_blend` (pallas_som.py:48-113).  Each kernel's wrapper counts
 its launches in its `launches` attribute; `som_fused_train_step` counts K3's.
+A K14 launch with `int8_win` or `stagger` also counts on
+`CHUNKED_INT8_WIN` or `CHUNKED_STAGGER`.
+
+`int8_win` (pallas_som.py:1180-1194, 1087-1094): the step's global scales
+are taken from the batches (`int8_win_inputs`), the next batch is quantized
+to int8 on the device, and the winners' contraction runs int8 x int8 ->
+int32 against the updated rows quantized with the codebook scale; scores
+dequantize to float32 and ||m||^2 / 2 stays the float32 rows', so only
+winners within the quantization noise of a tie move (`val_next` is
+approximate).  The codebook is the same as without it.  `stagger` changes
+the kernel's schedule, not its result, so its plain version is K14's.
 """
 
 from __future__ import annotations
@@ -117,6 +131,19 @@ def guarded_blend(c: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor
     return c + blend * (acc / safe - c)
 
 
+
+
+class LaunchCount:
+    """A launch counter of one option of a kernel, counted beside the
+    kernel's own `launches`."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+CHUNKED_INT8_WIN = LaunchCount("som_fused_factored_chunked_step[int8_win]")
+CHUNKED_STAGGER = LaunchCount("som_fused_factored_chunked_step[stagger]")
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -221,12 +248,65 @@ def fused_step_winners(newc, xn, batch_bf16=False, chunk_n=None):
     return torch.cat(idx).to(torch.int32), -2.0 * torch.cat(best)
 
 
+def int8_win_inputs(codes: torch.Tensor, xb: torch.Tensor, xb_next: torch.Tensor,
+                    batch_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8_win prologue of `_fused_factored_chunked_call`
+    (pallas_som.py:1180-1194), in float32 as written there, on the batches'
+    device: sm = max(max|codes|, max|xb|) + 1e-30 bounds every updated row
+    (a blend is convex), sx = max|x'| + 1e-30; returns (xq (B', D) int8 =
+    clip(round(x' 127 / sx), +-127), round half to even, and q (2,) float32 =
+    (127 / sm, (sm sx) / 127^2)).  Under batch_bf16 the batches are rounded
+    to bf16 first (pallas_som.py:1341-1343)."""
+    if batch_bf16:
+        xb, xb_next = _bf16(xb), _bf16(xb_next)
+    sm = torch.maximum(codes.to(torch.float32).abs().max(), xb.abs().max()) + 1e-30
+    sx = xb_next.abs().max() + 1e-30
+    # IEEE divisions of device tensors: torch takes `scalar / t` as
+    # reciprocal(t) * scalar, and on CUDA `t / scalar` as t * (1 / scalar),
+    # each up to one ulp off the quotient the JAX wrapper takes
+    c127, c16129 = sm.new_tensor(127.0), sm.new_tensor(16129.0)
+    xq = torch.clamp(torch.round(xb_next * (c127 / sx)), -127.0, 127.0)
+    return xq.to(torch.int8), torch.stack([c127 / sm, (sm * sx) / c16129])
+
+
+def fused_step_winners_int8(newc, xq, q, chunk_n=None):
+    """The int8_win winner half on the updated float32 rows `newc`
+    (pallas_som.py:1056-1061, 1087-1094): rows quantized to clip(round(m q0),
+    +-127), the exact integer dot with `xq` (float64), times q1 minus
+    ||m||^2 / 2 of the float32 rows, argmax with the first (lowest) row on
+    ties, over samples `chunk_n` at a time.  Returns (bmu (B',) int32,
+    -2 * the best score)."""
+    m2h = 0.5 * (newc * newc).sum(1, keepdim=True)
+    cw = torch.clamp(torch.round(newc * q[0]), -127.0, 127.0).to(torch.float64)
+    xw = xq.to(torch.float64)
+    step = chunk_n or xq.shape[0]
+    idx, best = [], []
+    for lo in range(0, xq.shape[0], step):
+        s_t = (cw @ xw[lo:lo + step].T).to(torch.float32) * q[1] - m2h
+        i = torch.argmax(s_t, dim=0)
+        idx.append(i)
+        best.append(s_t.gather(0, i[None, :])[0])
+    return torch.cat(idx).to(torch.int32), -2.0 * torch.cat(best)
+
+
+def int8_win_scores(newc, rows, xq, q):
+    """The int8_win score of row `rows[b]` of the float32 rows `newc` for
+    sample b of `xq`: fused_step_winners_int8's arithmetic, one row per
+    sample, as float64 (to hold a winner against another row's score)."""
+    m = newc[rows.long()]
+    cw = torch.clamp(torch.round(m * q[0]), -127.0, 127.0).to(torch.float64)
+    dot = (cw * xq.to(torch.float64)).sum(-1).to(torch.float32)
+    return (dot * q[1] - 0.5 * (m * m).sum(-1)).to(torch.float64)
+
+
 def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
                      gaussian, chunked=False, batch_chunk=None, wxa_bf16=False,
-                     batch_bf16=False):
+                     batch_bf16=False, stagger=False, int8_win=False):
     """Plain K13 (`chunked` False: the whole batch at once) or K14: the
     batch in `batch_chunk` slices with the batch-chunked kernel's bf16
-    roundings (pallas_som.py:1012-1094)."""
+    roundings (pallas_som.py:1012-1094) and, with `int8_win`, its int8
+    winners.  `stagger` changes the kernel's schedule only: it is taken and
+    has no effect here."""
     fp32_matmul()
     dev = codes.device
     B, D = xb.shape
@@ -234,6 +314,7 @@ def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
     wxa_bf16 = bool(wxa_bf16 and gaussian)
     aw, r = _alpha_r(alpha, radius, B, dev)
     bmu = bmu.to(torch.int32)
+    quant = int8_win_inputs(codes, xb, xb_next, batch_bf16) if int8_win else None
     x = _bf16(xb) if batch_bf16 else xb
     noc = codes.shape[0]
     acc = torch.zeros((noc, D), dtype=torch.float32, device=dev)
@@ -244,7 +325,10 @@ def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
         acc = acc + (_bf16(w) if batch_bf16 else w) @ x[sl]
         wsum = wsum + w.sum(1, keepdim=True)
     newc = guarded_blend(codes.to(torch.float32), acc, wsum)
-    idx, val = fused_step_winners(newc, xb_next, batch_bf16, chunk)
+    if int8_win:
+        idx, val = fused_step_winners_int8(newc, *quant, chunk)
+    else:
+        idx, val = fused_step_winners(newc, xb_next, batch_bf16, chunk)
     codes.copy_(newc)
     return codes, idx, val
 
@@ -260,14 +344,17 @@ def som_fused_factored_step_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha,
 def som_fused_factored_chunked_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
                                           alpha, radius, gaussian=False,
                                           batch_chunk=None, wxa_bf16=False,
-                                          batch_bf16=False):
-    """Plain K14 (`_som_fused_factored_chunked_kernel` without `stagger` and
-    `int8_win`): the separable step with the batch in `batch_chunk` slices
-    (default gcd(B, B')), the x-pattern rounded to bf16 with `wxa_bf16`
-    (gaussian only) and the batches and W's product operands with
-    `batch_bf16`."""
+                                          batch_bf16=False, stagger=False,
+                                          int8_win=False):
+    """Plain K14 (`_som_fused_factored_chunked_kernel`): the separable step
+    with the batch in `batch_chunk` slices (default gcd(B, B')), the
+    x-pattern rounded to bf16 with `wxa_bf16` (gaussian only), the batches
+    and W's product operands with `batch_bf16`, and the int8 winners of
+    `fused_step_winners_int8` with `int8_win`; `stagger` leaves the result
+    as it is."""
     return _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
-                            gaussian, True, batch_chunk, wxa_bf16, batch_bf16)
+                            gaussian, True, batch_chunk, wxa_bf16, batch_bf16,
+                            stagger, int8_win)
 
 
 def _batch_chunk(B: int, Bn: int, batch_chunk: Optional[int]) -> int:
@@ -326,34 +413,43 @@ def som_fused_factored_step(codes, xb, bmu, xb_next, xdim, hexa, alpha,
 def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
                                     alpha, radius, gaussian=False,
                                     batch_chunk=None, wxa_bf16=False,
-                                    batch_bf16=False):
+                                    batch_bf16=False, stagger=False,
+                                    int8_win=False):
     """K14: the batch-chunked separable step
     (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
-    (`wxa_bf16`, gaussian only) and bf16 batches (`batch_bf16`); as
-    `som_fused_factored_step` otherwise.  `batch_chunk` (default gcd(B, B'))
-    must divide both batches and be a multiple of 128, as in JAX; the kernel
-    walks the batch in its own chunks, so only the plain version's order of
-    additions depends on it."""
+    (`wxa_bf16`, gaussian only), bf16 batches (`batch_bf16`), int8 winners
+    (`int8_win`) and staggered schedule (`stagger`: a persistent grid whose
+    CTAs interleave each tile's update with the previous tile's winners;
+    bit-equal to the plain schedule); as `som_fused_factored_step`
+    otherwise.  `batch_chunk` (default gcd(B, B')) must divide both batches
+    and be a multiple of 128, as in JAX; the kernel walks the batch in its
+    own chunks, so only the plain version's order of additions depends on
+    it."""
     bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
     _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
     return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw,
                                  radius, gaussian, True, batch_chunk, wxa_bf16,
-                                 batch_bf16)
+                                 batch_bf16, stagger, int8_win)
 
 
 def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
                           gaussian, chunked=False, batch_chunk=None,
-                          wxa_bf16=False, batch_bf16=False):
+                          wxa_bf16=False, batch_bf16=False, stagger=False,
+                          int8_win=False):
     """K13 (`chunked` False) or K14 on checked arguments (its plain version
-    on the CPU), counted on its wrapper.  One scratch buffer holds the
-    winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc / xdim),
-    B) and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16)."""
+    on the CPU), counted on its wrapper (and K14's options on theirs).  One
+    scratch buffer holds the winner keys (Bn u64), alpha (B), the y-factor
+    table (ceil(noc / xdim), B) and the x-pattern (2 xdim or xdim, B; bf16
+    under wxa_bf16); under int8_win the quantized next batch and its scales
+    come from `int8_win_inputs`, on the device."""
     dev = codes.device
     if dev.type == "cpu":
         return _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, aw,
                                 radius, gaussian, chunked, batch_chunk,
-                                wxa_bf16, batch_bf16)
+                                wxa_bf16, batch_bf16, stagger, int8_win)
     wxa_bf16 = bool(wxa_bf16 and gaussian)
+    xq, q = (int8_win_inputs(codes, xb, xb_next, batch_bf16) if int8_win
+             else (None, None))
     noc, D = codes.shape
     B, Bn = xb.shape[0], xb_next.shape[0]
     n_pat = 2 * xdim if hexa else xdim
@@ -370,11 +466,16 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
                 int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
                 bmu.data_ptr(), aw.data_ptr(), B, xn.data_ptr(), Bn, int(xdim),
                 int(bool(hexa)), int(bool(gaussian)), float(radius),
-                int(chunked), int(wxa_bf16), int(bool(batch_bf16)), pat, ytab,
-                aw_eff, keys, val.data_ptr(), idx.data_ptr(),
+                int(chunked), int(wxa_bf16), int(bool(batch_bf16)),
+                int(bool(stagger)), int(bool(int8_win)),
+                xq.data_ptr() if int8_win else None,
+                q.data_ptr() if int8_win else None, pat, ytab, aw_eff, keys,
+                val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     wrapper = som_fused_factored_chunked_step if chunked else som_fused_factored_step
     wrapper.launches += 1
+    CHUNKED_INT8_WIN.launches += bool(int8_win)
+    CHUNKED_STAGGER.launches += bool(stagger)
     return codes, idx, val
 
 
@@ -395,6 +496,8 @@ def som_fused_train_step(
     batch_chunk: Optional[int] = None,
     wxa_bf16: bool = False,
     batch_bf16: bool = False,
+    stagger: bool = False,
+    int8_win: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Update `codes` (noc, D) in place with batch `xb` (B, D) whose BMUs
     are `bmu` (B,); return (codes, bmu_next (B',) int32, val_next (B',))
@@ -418,11 +521,13 @@ def som_fused_train_step(
                 f"== 0, tile_n % xdim == 0, xdim % 8 == 0 (and an even number "
                 f"of grid rows per tile, or one, for hexa); got noc={noc} "
                 f"xdim={xdim} tile_n={tile_n} hexa={hexa}")
-        if batch_chunk is not None or wxa_bf16 or batch_bf16:
+        if (batch_chunk is not None or stagger or wxa_bf16 or batch_bf16
+                or int8_win):
             _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
             return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa,
                                          aw, radius, gaussian, True,
-                                         batch_chunk, wxa_bf16, batch_bf16)
+                                         batch_chunk, wxa_bf16, batch_bf16,
+                                         stagger, int8_win)
         return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw,
                                      radius, gaussian)
     offset = unit_offset or 0

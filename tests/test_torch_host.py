@@ -43,6 +43,7 @@ from som_lvq_pak_torch.ops.som_step import som_fused_train_step
 from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
                                               som_neighborhood_update_idx_masked)
 from som_lvq_pak_torch.ops.som_vmem import som_vmem_train_steps
+from som_lvq_pak_torch.tools import int8_probe, int8_step_ab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "som_lvq_pak_torch")
@@ -62,13 +63,15 @@ for m in mods:
     __import__(m)
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "som_lvq_pak_tpu")]
+assert {"som_lvq_pak_torch.tools.int8_probe", "som_lvq_pak_torch.tools.int8_step_ab",
+        "som_lvq_pak_torch.ops.winner_probe", "som_lvq_pak_torch.ops.skeleton"} <= set(mods)
 print(len(mods))
 """
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax and the JAX package both
-    blocked."""
+    """Every module of the port, the tools/ subpackage's included, imports
+    with jax and the JAX package both blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -353,13 +356,15 @@ def test_as_port_dataset_carries_labels_by_name():
 
 def test_entry_points_default_to_the_gpu():
     """SOMTrainer, LVQTrainer, OLVQ1Trainer, find_qerror, accuracy,
-    classify, codebook_to_torch, samples_to_torch, the LVQ conversions and
-    unit_coords run on "cuda" unless the caller asks for the CPU; without a
-    GPU they raise and never fall back."""
+    classify, codebook_to_torch, samples_to_torch, the LVQ conversions,
+    unit_coords and the tools' functions run on "cuda" unless the caller
+    asks for the CPU; without a GPU they raise and never fall back."""
     for fn in (codebook_to_torch, samples_to_torch, fast.unit_coords,
                som.find_qerror, SOMTrainer.__init__, LVQTrainer.__init__,
                OLVQ1Trainer.__init__, peval.accuracy, peval.classify,
-               labeled_samples_to_torch, lvq_codebook_to_torch):
+               labeled_samples_to_torch, lvq_codebook_to_torch,
+               int8_probe.run, int8_probe.library_rates, int8_probe.winner_rates,
+               int8_step_ab.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     X = np.random.default_rng(1).normal(size=(64, 3)).astype(np.float32)
     data = PDataset(points=X)
@@ -379,7 +384,9 @@ def test_entry_points_default_to_the_gpu():
                                                                       alpha=0.05),
                  lambda: OLVQ1Trainer(lcodes, batch_size=16).fit(ldata, rlen=64),
                  lambda: peval.accuracy(ldata, lcodes), lambda: peval.classify(ldata, lcodes),
-                 lambda: labeled_samples_to_torch(ldata), lambda: lvq_codebook_to_torch(lcodes)):
+                 lambda: labeled_samples_to_torch(ldata), lambda: lvq_codebook_to_torch(lcodes),
+                 lambda: int8_probe.library_rates(64), lambda: int8_probe.winner_rates(64, 8, 64),
+                 lambda: int8_step_ab.run(16, 16, 256)):
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             call()
     assert som.find_qerror(init, data, device="cpu") > 0
