@@ -22,20 +22,30 @@ power draw beside each reading (one "state" line).  Without arguments,
 phases, each printing one JSON line:
 
 1. env      torch/CUDA/nvcc versions, card name and power limit;
-2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed);
+2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
+            one "sass" line: the HMMA (tensor-core) instructions in each
+            instantiation of the split-TF32 kernels K3 and K2, from
+            cuobjdump --dump-sass of the library (none fails the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
-            67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger).  K7
+            67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3 and
+            K2 also with the bound of their route (three TF32 products per
+            FP32 one at 495 TFLOP/s) and the share of it they reach, and
+            run twice on the same inputs, bit-equal.  K1, K2, K8 and K10
+            carry library_ms at their record's shape: torch.addmm, then
+            argmin, argmax or topk, in the plain versions' row chunks.  K2
+            also runs at a 16384-row StreamingReader chunk.  K7
             (som_vmem_train_steps) runs at bench.py:prep_vmem_steps's
             geometry (where it is also held against K chained K3 launches),
             at bench.py:prep_somexample_shape's, at a ragged shape with
             every code three times, and at e2e_64x64_1M's group shape.
             K1 also runs at the LVQ steps' B 1024 and at the LVQ accuracy's
             single launch over 1M x 65536.  The fused-step kernels: K3
-            (factored=False) at the 1M cell's step and with a bf16
-            codebook; K13 (som_fused_factored_step) at the 128x128 cell's
+            (factored=False) at the 1M cell's step, the 128x128 step, 12x8
+            at D 64 and D 5, a ragged 10x6 map at D 37, 16x16 at D 200 and
+            with a bf16 codebook; K13 (som_fused_factored_step) at the 128x128 cell's
             step, 256x256 at B 1024, 64x64 bubble at B 4096, a rect map,
             the 64x64 B 512 step, every code three times (exact ties) and a
             bf16 codebook, codes within 1e-5 and values within 1e-4; K14
@@ -182,6 +192,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -194,12 +205,16 @@ ANCHOR_128 = 7.7118
 ANCHOR_1M = 7.754
 
 # one H100 SXM's published peaks (NVIDIA's data sheet): FP32 outside the
-# tensor cores, dense BF16 and INT8 on the tensor cores, and device memory
-# bandwidth
+# tensor cores, dense TF32, BF16 and INT8 on the tensor cores, and device
+# memory bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
+
+# the kernels whose products run on the tensor cores as split TF32
+SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel")
 
 
 def emit(phase: str, **kw) -> None:
@@ -222,17 +237,81 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
-          int8_ops: float = 0.0) -> dict:
+          int8_ops: float = 0.0, tf32x3: bool = False) -> dict:
     """The least time the card could take for a kernel's work: its FLOPs at
     the peak of their operand type (FP32 unless stated; `int8_ops` more at
     the INT8 peak) or its bytes (each input read once, each output written
-    once) at the memory rate, whichever is larger.  library_ms is null here:
-    a phase sets it where one PyTorch call computes the kernel's function."""
+    once) at the memory rate, whichever is larger.  With `tf32x3` (K2, K3:
+    float32 products as three TF32 tensor-core products) also the bound of
+    that route, route_bound_ms: 3 x the FLOPs at the TF32 peak, or the
+    bytes.  library_ms is null here: a phase sets it where one PyTorch call
+    computes the kernel's function."""
     f_ms = 1e3 * flops / peak + 1e3 * int8_ops / PEAK_INT8_OPS
     b_ms = 1e3 * nbytes / PEAK_BYTES_S
-    return dict(bound_ms=max(f_ms, b_ms),
-                bound_by="operations" if f_ms >= b_ms else "bytes",
-                library_ms=None)
+    rec = dict(bound_ms=max(f_ms, b_ms),
+               bound_by="operations" if f_ms >= b_ms else "bytes",
+               library_ms=None)
+    if tf32x3:
+        rec["route_bound_ms"] = max(3e3 * flops / PEAK_TF32_FLOPS, b_ms)
+    return rec
+
+
+def route_pct(rec) -> dict:
+    """The roofline share against the route's bound, for a record with a
+    route_bound_ms."""
+    return dict(route_pct=100.0 * rec["route_bound_ms"] / rec["ms"])
+
+
+def library_winners(x, codes, form, k=2):
+    """One PyTorch call chain per row chunk computing a winner kernel's
+    function, timed beside it as its library_ms (the port never calls it):
+    ||m||^2 - 2 x.m by torch.addmm, then argmin ("min", K1), topk(k,
+    largest=False) ("topk", K8 and K10), or x.m - ||m||^2 / 2 then argmax
+    ("max", K2); rows in the plain versions' chunks (4096 against 65,536
+    codes), under fp32_matmul()."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_argmin import _rows_per_chunk
+
+    m2 = (codes * codes).sum(-1)
+    step = _rows_per_chunk(codes.shape[0])
+    out = []
+    for s in range(0, x.shape[0], step):
+        xc = x[s:s + step]
+        if form == "max":
+            out.append(torch.addmm(-0.5 * m2, xc, codes.T).argmax(1))
+        else:
+            d = torch.addmm(m2, xc, codes.T, alpha=-2)
+            out.append(d.argmin(1) if form == "min" else d.topk(k, largest=False))
+    return out
+
+
+def sass_hmma(library: str) -> dict:
+    """Tensor-core use of the split-TF32 kernels (K3 som_fused_step_kernel,
+    K2 dist_argmin_t_kernel), read from the built library's SASS with
+    cuobjdump (ncu does not run on every host): the HMMA instructions in
+    each of their instantiations, by mangled name from the kernel's name on.
+    Raises if an instantiation has none, or if none is found."""
+    from som_lvq_pak_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            base = [b for b in SPLIT_TF32_KERNELS if b in name]
+            fn = name[name.index(base[0]):] if base else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    for base in SPLIT_TF32_KERNELS:
+        found = {k: v for k, v in counts.items() if k.startswith(base)}
+        if not found or not all(found.values()):
+            raise AssertionError(f"{base}: no HMMA instructions in the SASS: {found}")
+    return counts
 
 
 def check_winners(name, x, codes, ik, ip, rel=1e-5, mask=None, bf16_score=False,
@@ -289,9 +368,12 @@ def random_mask(g, B, D, p):
 
 
 def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
-                   mask_p=None):
+                   mask_p=None, library=None, rerun=False):
     """One winner kernel against its plain version; with mask_p, the masked
-    kernel on a random mask: fully masked rows must get index 0, value 0."""
+    kernel on a random mask: fully masked rows must get index 0, value 0.
+    With `library` (a library_winners form) its library_ms; with `rerun` the
+    kernel runs twice on the same inputs and must give the same values and
+    winners bit for bit."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -305,6 +387,10 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     vk, ik = kernel(*args)
     vp, ip = plain(*args)
     torch.cuda.synchronize()
+    if rerun:
+        v2, i2 = kernel(*args)
+        if not (torch.equal(vk, v2) and torch.equal(ik, i2)):
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
     if dup and int(ik.max()) >= N // 3:
         raise AssertionError(f"{name}: a duplicate row beat its first copy")
     n_diff = check_winners(name, x, codes, ik, ip, mask=args[2] if mask_p else None)
@@ -320,20 +406,27 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     masked = mask_p is not None
     rec = dict(kernel=name, shape=[B, N, D], dup=dup, mask_p=mask_p,
                winners_differ=n_diff, max_abs_err=float((vk - vp).abs().max()),
+               **({"bit_equal_rerun": True} if rerun else {}),
                ms=cuda_ms(lambda: kernel(*args), iters),
                plain_ms=cuda_ms(lambda: plain(*args), iters),
                **bound((4 if masked else 2) * B * N * D,
-                       4 * (B * D + N * D) + masked * B * D + 8 * B))
+                       4 * (B * D + N * D) + masked * B * D + 8 * B,
+                       tf32x3=kernel.__name__ == "dist_argmin_t"))
+    if "route_bound_ms" in rec:
+        rec.update(route_pct(rec))
+    if library is not None:
+        rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, library), iters)
     emit("kernels", **rec)
     return rec
 
 
 def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
-               mask_p=None):
+               mask_p=None, library=False):
     """K8 (or K9 with mask_p) against the plain top-2: both winners equal
     except at near-ties, values within 1e-4.  With `dup` every code is there
     twice: each sample's pair is a row and its copy, exactly the plain
-    version's indices.  A fully masked row must get (0, 0, 0, 1)."""
+    version's indices.  A fully masked row must get (0, 0, 0, 1).  With
+    `library`, the library_ms of addmm then topk(2)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -378,6 +471,8 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
                plain_ms=cuda_ms(lambda: plain(*args), iters),
                **bound((4 if masked else 2) * B * codes.shape[0] * D,
                        4 * (B * D + codes.shape[0] * D) + masked * B * D + 16 * B))
+    if library:
+        rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, "topk", 2), iters)
     emit("kernels", **rec)
     return rec
 
@@ -394,7 +489,8 @@ def bf16_ulp_close(got, want, atol=1e-5) -> bool:
 
 def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                name="som_fused_train_step", kw=None, bf16=False, dup=False,
-               codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5, twin=None):
+               codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5, twin=None,
+               tf32x3=False):
     """A fused-step kernel (K3, K13 or K14, options `kw`) against its plain
     version: a few samples without a BMU, per-sample alphas.  Codes within
     `codes_tol` (a bf16 codebook: bf16_ulp_close), winners equal except where
@@ -408,7 +504,10 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     not move, and the first copy must win every exact tie, as in the plain
     version.  With `twin` (options), the kernel run under those options on
     the same inputs must give the same codebook, winners and values bit for
-    bit (K14's stagger against its plain schedule)."""
+    bit (K14's stagger against its plain schedule; K3 against itself with
+    twin={}).  `tf32x3` (K3) adds the split-TF32 route's bound and share,
+    and on a float32 codebook the mean distance of the kernel's and the
+    plain version's codebooks from the same blend taken in float64."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
@@ -466,20 +565,34 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                     and int(ik.max()) < noc // 3):
         raise AssertionError(f"{name}: rows moved at alpha 0, or an exact tie went "
                              "unlike the plain version or to a later copy")
+    f64 = {}
+    if tf32x3 and not bf16:  # K3's codebook and the plain one against float64
+        from som_lvq_pak_torch.ops import som_step as ss
+
+        aw, r = ss._alpha_r(alpha, radius, B, "cuda")
+        units = torch.arange(noc, dtype=torch.int32, device="cuda")
+        w = ss.neighborhood_w(bmu, aw, r, units, xdim, hexa, gaussian).double()
+        exact = ss.guarded_blend(codes.double(), w @ xb.double(), w.sum(1, keepdim=True))
+        f64 = dict(mean_abs_err_vs_f64=float((ck.double() - exact).abs().mean()),
+                   plain_mean_abs_err_vs_f64=float((cp.double() - exact).abs().mean()))
+        del w, exact
     work = codes.clone()
     # update W.X and winners, 2 noc B D FLOPs each (bf16 x bf16 products
     # under batch_bf16, a BF16 MMA's); codes read and written, both batches,
     # bmu and alpha read, the next winners written
     cb = codes.element_size()
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius, winners_differ=n_diff,
-               max_abs_err=err, val_err=val_err, own_val_err=own_val_err,
+               max_abs_err=err, val_err=val_err, own_val_err=own_val_err, **f64,
                **({} if twin is None else dict(bit_equal_to=twin)),
                ms=cuda_ms(lambda: kernel(work, xb, bmu, xn, xdim, hexa, alpha, radius,
                                          gaussian, **kw)),
                plain_ms=cuda_ms(lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius,
                                               gaussian, **kw)),
                **bound(4 * noc * B * D, 2 * cb * noc * D + 8 * B * D + 16 * B,
-                       PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS))
+                       PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS,
+                       tf32x3=tf32x3))
+    if tf32x3:
+        rec.update(route_pct(rec))
     emit("kernels", **rec)
     return rec
 
@@ -922,11 +1035,12 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
     return rec
 
 
-def phase_topk(B, N, D, k, seed, dup=False, iters=10):
+def phase_topk(B, N, D, k, seed, dup=False, iters=10, library=False):
     """K10 against its plain version (ops.distance.topk_winners): each of
     the k index columns equal except at near-ties, values within 1e-4.  With
     `dup` every code is there twice: every index must equal the plain
-    version's, and each sample's neighbours come as (row, copy) pairs."""
+    version's, and each sample's neighbours come as (row, copy) pairs.  With
+    `library`, the library_ms of addmm then topk(k)."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_topk import dist_topk, dist_topk_plain
@@ -960,6 +1074,8 @@ def phase_topk(B, N, D, k, seed, dup=False, iters=10):
                plain_ms=cuda_ms(lambda: dist_topk_plain(x, codes, k), iters),
                **bound(2 * B * codes.shape[0] * D,
                        4 * (B * D + codes.shape[0] * D) + 8 * B * k))
+    if library:
+        rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, "topk", k), iters)
     emit("kernels", **rec)
     return rec
 
@@ -1968,6 +2084,7 @@ def main() -> int:
     _build.build(verbose=True)  # ptxas register/shared-memory report on stdout
     _build.library()
     emit("build", seconds=time.perf_counter() - t0, library=_build.library_path())
+    emit("sass", hmma_per_function=sass_hmma(_build.library_path()))
     if sys.argv[1:] == ["--profile"]:
         profile_cells()
         print(smi)
@@ -1995,17 +2112,21 @@ def main() -> int:
     # each kernel's record is taken at its main-path shape (rs[0]), with the
     # largest error over all its shapes
     recs = {}
-    for name, k, p, mask_p in (
-            ("dist_argmin", dist_argmin, dist_argmin_plain, None),
-            ("dist_argmin_t", dist_argmin_t, dist_argmin_t_plain, None),
-            ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
-        rs = [phase_distance(name, k, p, 4096, 65536, 64, seed=1, mask_p=mask_p),
-              phase_distance(name, k, p, 1000, 999, 5, seed=2, mask_p=mask_p),
-              phase_distance(name, k, p, 1000, 999, 5, seed=3, dup=True,
-                             mask_p=mask_p)]
+    # K2 runs every shape twice (bit-equal), and also at a StreamingReader
+    # chunk of 16384 rows; K1's and K2's records carry library_ms
+    for name, k, p, mask_p, lib in (
+            ("dist_argmin", dist_argmin, dist_argmin_plain, None, "min"),
+            ("dist_argmin_t", dist_argmin_t, dist_argmin_t_plain, None, "max"),
+            ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1,
+             None)):
+        kw = dict(mask_p=mask_p, rerun=k is dist_argmin_t)
+        rs = [phase_distance(name, k, p, 4096, 65536, 64, seed=1, library=lib, **kw),
+              phase_distance(name, k, p, 1000, 999, 5, seed=2, **kw),
+              phase_distance(name, k, p, 1000, 999, 5, seed=3, dup=True, **kw)]
         if name == "dist_argmin_t":  # the 1M eval's single launch
             rs.insert(0, phase_distance(name, k, p, 1_000_000, 65536, 64,
-                                        seed=5, iters=3))
+                                        seed=5, iters=3, library=lib, **kw))
+            rs.append(phase_distance(name, k, p, 16384, 65536, 64, seed=39, **kw))
         # K1: the 1M run's prologue; K2: its evaluation; K4: a masked step
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # K1 at the LVQ step's batch (one 64-sample CTA per 64 samples: 16 CTAs)
@@ -2021,28 +2142,33 @@ def main() -> int:
             ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
         r = phase_distance(name, k, p, 1024, 4096, 64, seed=15, mask_p=mask_p)
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
-    # K8 and K9 at the LVQ step's shape first (their record), then the
-    # masked LVQ cell's step (17 splits, 16 of them used), small, exact-tie
-    # and two-code shapes
+    # K8 and K9 at the LVQ step's shape first (their record; K8's with
+    # library_ms), then the masked LVQ cell's step (17 splits, 16 of them
+    # used), small, exact-tie and two-code shapes
     for name, k, mask_p in (("dist_top2", dist_top2, None),
                             ("dist_top2_masked", dist_top2_masked, 0.1)):
+        cases = (((1024, 65536, 64), 10, False), ((1024, 4096, 64), 16, False),
+                 ((1000, 999, 5), 11, False), ((1000, 999, 5), 12, True),
+                 ((1000, 2, 5), 13, False))
         rs = [phase_top2(name, k, dist_top2_plain, *shape, seed=seed, dup=dup,
-                         mask_p=mask_p)
-              for shape, seed, dup in (((1024, 65536, 64), 10, False),
-                                       ((1024, 4096, 64), 16, False),
-                                       ((1000, 999, 5), 11, False),
-                                       ((1000, 999, 5), 12, True),
-                                       ((1000, 2, 5), 13, False))]
+                         mask_p=mask_p, library=mask_p is None and j == 0)
+              for j, (shape, seed, dup) in enumerate(cases)]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # K3 (factored=False: these geometries but 12x8 take K13 by default) at
-    # the 1M cell's step first (its record), then with a bf16 codebook
+    # the 1M cell's step first (its record), then D 5, a ragged map, D 200
+    # (64-row CTAs past D 128) and a bf16 codebook; every case run twice
+    # (bit-equal), with its split-TF32 bound
     k3 = lambda *a, **kw: som_fused_train_step(*a, factored=False, **kw)  # noqa: E731
-    steps = [phase_step(k3, som_fused_train_step_plain, *case, seed=4)
+    k3_kw = dict(twin={}, tf32x3=True)
+    steps = [phase_step(k3, som_fused_train_step_plain, *case, seed=4, **k3_kw)
              for case in ((256, 256, True, True, 4096, 64, 64.0),
                           (128, 128, True, True, 1024, 64, 32.0),
-                          (12, 8, False, False, 1024, 64, 3.0))]
+                          (12, 8, False, False, 1024, 64, 3.0),
+                          (12, 8, True, False, 1000, 5, 3.0),
+                          (10, 6, True, True, 100, 37, 3.0),
+                          (16, 16, False, True, 256, 200, 4.0))]
     phase_step(k3, som_fused_train_step_plain, 256, 256, True, True, 4096, 64, 64.0,
-               seed=4, bf16=True, win_rel=1e-2)
+               seed=4, bf16=True, win_rel=1e-2, **k3_kw)
     # the records' max_abs_err: float32 shapes (a bf16 codebook is held to one
     # bf16 ulp, bf16_ulp_close)
     recs["som_fused_train_step"] = dict(
@@ -2108,18 +2234,15 @@ def main() -> int:
     recs["som_vmem_train_steps"] = dict(rs[0], max_abs_err=max(r["max_abs_err"]
                                                                for r in rs))
     # K10 at the sharded lvq3 step's shape (B 1024 over (data 2, model 2) is
-    # 512 per rank against a 32768-row shard; their record), the whole
-    # batch against the shard, small shapes at k = 1, 5 and 16, and every
-    # code twice
-    rs = [phase_topk(*shape, k, seed=seed, dup=dup)
-          for shape, k, seed, dup in (((512, 32768, 64), 2, 18, False),
-                                      ((1024, 32768, 64), 2, 19, False),
-                                      ((1000, 999, 5), 1, 20, False),
-                                      ((1000, 999, 5), 5, 21, False),
-                                      ((1000, 999, 5), 16, 22, False),
-                                      ((1000, 998, 5), 2, 23, True),
-                                      ((1000, 998, 5), 16, 24, True),
-                                      ((1000, 17, 5), 16, 25, False))]
+    # 512 per rank against a 32768-row shard; their record, with library_ms),
+    # the whole batch against the shard, small shapes at k = 1, 5 and 16, and
+    # every code twice
+    cases = (((512, 32768, 64), 2, 18, False), ((1024, 32768, 64), 2, 19, False),
+             ((1000, 999, 5), 1, 20, False), ((1000, 999, 5), 5, 21, False),
+             ((1000, 999, 5), 16, 22, False), ((1000, 998, 5), 2, 23, True),
+             ((1000, 998, 5), 16, 24, True), ((1000, 17, 5), 16, 25, False))
+    rs = [phase_topk(*shape, k, seed=seed, dup=dup, library=j == 0)
+          for j, (shape, k, seed, dup) in enumerate(cases)]
     recs["dist_topk"] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # K11 at the mixed mesh step's shard (rows 32768.. of the 256x256 map,
     # B 4096 over a data axis of 2; their record first)
@@ -2386,7 +2509,7 @@ def main() -> int:
     sources = {
         "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
                         "som_lvq_pak_tpu/ops/pallas_distance.py:60"),
-        "dist_argmin_t": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
+        "dist_argmin_t": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",
                           "som_lvq_pak_tpu/ops/pallas_distance.py:426"),
         "som_fused_train_step": ("som_lvq_pak_torch/csrc/som_fused_step.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:580"),
@@ -2433,7 +2556,8 @@ def main() -> int:
          "max_abs_err": recs[name]["max_abs_err"], "ms": recs[name]["ms"],
          "plain_ms": recs[name]["plain_ms"], "bound_ms": recs[name]["bound_ms"],
          "bound_by": recs[name]["bound_by"], "library_ms": recs[name]["library_ms"],
-         "shape": recs[name]["shape"]}
+         "shape": recs[name]["shape"],
+         **{k: recs[name][k] for k in ("route_bound_ms", "route_pct") if k in recs[name]}}
         for name in sources]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

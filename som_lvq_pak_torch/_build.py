@@ -35,8 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, codes, B, N, D, splits, keys, val, idx, stream
     "somvq_dist_argmin": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # x, codes, B, N, D, val, idx, stream
-    "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # x, codes, B, N, D, splits, keys, val, idx, stream
+    "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, splits, keys, val, idx, stream
     "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream

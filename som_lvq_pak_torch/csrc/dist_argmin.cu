@@ -1,16 +1,15 @@
 // Fused 1-NN winner search: for each sample x_b, the codebook row m_n that
 // minimises ||x_b - m_n||^2, without materialising the (B, N) distance matrix.
 //
-// Replaces three TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
 //   * _dist_argmin_kernel (wrapper dist_argmin): partial distance
-//     ||m||^2 - 2 x.m, running min with strict <          -> kMaxScore = false
-//   * _dist_argmin_t_kernel (wrapper dist_argmin_t): max-score form
-//     x.m - ||m||^2 / 2, running max with strict >, output -2 * best
-//                                                          -> kMaxScore = true
+//     ||m||^2 - 2 x.m, running min with strict <       -> dist_argmin_kernel
 //   * _dist_argmin_masked_kernel (wrapper dist_argmin with a mask): partial
 //     distance keep.(m o m) - 2 (x keep).m, masked components excluded
 //                                                -> dist_argmin_masked_kernel
-// All keep the reference's tie rule: the lowest index wins exact ties.
+// Both keep the reference's tie rule: the lowest index wins exact ties.  The
+// max-score form (_dist_argmin_t_kernel, K2) runs on the tensor cores in
+// dist_argmin_t.cu.
 //
 // Design.  One CTA owns TB samples and walks the codebook in TN-row tiles;
 // the TPU's sequential codebook grid axis becomes this loop, so the running
@@ -20,8 +19,7 @@
 // staged slices.  Each of the 256 threads owns a 4 x 4 (sample, code)
 // micro-tile; at the end the 16 threads that share a sample merge their pairs
 // with a (value, index) lexicographic shuffle reduction, which is the same
-// rule.  K2 walks the whole codebook in one CTA (deterministic, no atomics).
-// K1 and K4 also split the codebook across gridDim.y CTAs when the batch
+// rule.  K1 and K4 split the codebook across gridDim.y CTAs when the batch
 // alone gives too few CTAs to fill the card (a training batch of 1024 is 16
 // CTAs on 132 SMs, a sharded batch of 512 only 8); the splits fold their
 // (value, index) pairs with the packed-u64 atomicMin of argmin_keys.cuh,
@@ -54,22 +52,17 @@ constexpr int TN = 64;        // codebook rows per tile
 constexpr int KC = 32;        // feature slice staged per step
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
 
-template <bool kMaxScore>
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   // lexicographic (value, index): equal values go to the lower index
-  if (kMaxScore) return v > bv || (v == bv && i < bi);
   return v < bv || (v == bv && i < bi);
 }
 
-// K1/K2 over codebook rows [n_lo, n_lo + n_span) of split blockIdx.y: with
-// `keys` (K1) each sample's pair is folded into keys[b], without (K2, one
-// split) it is written to val/idx.
-template <bool kMaxScore>
+// K1 over codebook rows [n_lo, n_lo + n_span) of split blockIdx.y: each
+// sample's pair is folded into keys[b].
 __global__ void __launch_bounds__(THREADS)
 dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
                    int B, int N, int D, int n_span,
-                   unsigned long long* __restrict__ keys,
-                   float* __restrict__ val, int* __restrict__ idx) {
+                   unsigned long long* __restrict__ keys) {
   __shared__ float xs[TB][KC + 1];
   __shared__ float ms[TN][KC + 1];
   __shared__ float m2s[TN];
@@ -85,7 +78,7 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
   int bidx[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    best[i] = kMaxScore ? -INFINITY : INFINITY;
+    best[i] = INFINITY;
     bidx[i] = INT_MAX;
   }
 
@@ -138,8 +131,8 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
         const float m2 = m2s[tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float d = kMaxScore ? acc[i][j] - 0.5f * m2 : m2 - 2.f * acc[i][j];
-          if (kMaxScore ? d > best[i] : d < best[i]) {
+          const float d = m2 - 2.f * acc[i][j];
+          if (d < best[i]) {
             best[i] = d;
             bidx[i] = n;
           }
@@ -155,7 +148,7 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
     for (int off = 8; off > 0; off >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, best[i], off);
       const int oi = __shfl_xor_sync(0xffffffffu, bidx[i], off);
-      if (better<kMaxScore>(ov, oi, best[i], bidx[i])) {
+      if (better(ov, oi, best[i], bidx[i])) {
         best[i] = ov;
         bidx[i] = oi;
       }
@@ -165,14 +158,8 @@ dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int b = b0 + ty + 16 * i;
-      if (b >= B) continue;
-      // public contract of both TPU kernels: partial ||m||^2 - 2 x.m
-      if (keys != nullptr) {
-        if (bidx[i] != INT_MAX) fold_key(keys + b, best[i], bidx[i]);
-      } else {
-        val[b] = kMaxScore ? -2.f * best[i] : best[i];
-        idx[b] = bidx[i];
-      }
+      // public contract of the TPU kernel: partial ||m||^2 - 2 x.m
+      if (b < B && bidx[i] != INT_MAX) fold_key(keys + b, best[i], bidx[i]);
     }
   }
 }
@@ -280,7 +267,7 @@ dist_argmin_masked_kernel(const float* __restrict__ x,
     for (int off = 8; off > 0; off >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, best[i], off);
       const int oi = __shfl_xor_sync(0xffffffffu, bidx[i], off);
-      if (better<false>(ov, oi, best[i], bidx[i])) {
+      if (better(ov, oi, best[i], bidx[i])) {
         best[i] = ov;
         bidx[i] = oi;
       }
@@ -315,20 +302,11 @@ extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B,
   init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  dist_argmin_kernel<false><<<grid, THREADS, 0, stream>>>(
-      x, codes, B, N, D, n_span, keys, nullptr, nullptr);
+  dist_argmin_kernel<<<grid, THREADS, 0, stream>>>(x, codes, B, N, D, n_span,
+                                                   keys);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
-                                   int N, int D, float* val, int* idx,
-                                   cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  dist_argmin_kernel<true><<<(B + TB - 1) / TB, THREADS, 0, stream>>>(
-      x, codes, B, N, D, N, nullptr, val, idx);
   return (int)cudaGetLastError();
 }
 

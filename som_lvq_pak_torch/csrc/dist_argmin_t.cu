@@ -1,0 +1,255 @@
+// K2: the 1-NN winner search in max-score form: for each sample x_b, the
+// codebook row m_n that maximises x_b.m_n - ||m_n||^2 / 2 (the lowest n on
+// exact ties), reported as -2 * the best score.
+//
+// Replaces som_lvq_pak_tpu/ops/pallas_distance.py:_dist_argmin_t_kernel
+// (wrapper dist_argmin_t), the fast qerror's winner search
+// (models.som.find_qerror).  K1 and K4, the distance forms, stay in
+// dist_argmin.cu.
+//
+// What bounds it on H100: the contraction x.m^T (B x N x D).  On CUDA cores
+// (the earlier 4 x 4 FP32 micro-tile, two shared loads per FMA pair) it ran
+// at about 21 FP32 TFLOP/s over 1M x 65536 x 64 on an H100, and one CTA walked the
+// whole codebook, so a batch of 4096 was 64 CTAs on 132 SMs.  The scores now
+// run on the tensor cores as split-TF32 mma.sync (tf32x3.cuh): three TF32
+// products per float32 product, float32 accumulators, float32 accuracy, a
+// 165 TFLOP/s ceiling; and the codebook splits across gridDim.y when the
+// batch alone gives too few CTAs.  It reaches about a quarter of that bound
+// on an H100 (1M x 65536 x 64), a third of what mma.sync issues there
+// (mma_probe.py): the staging and scoring between the CTA's barriers share
+// the SM with the mma (a producer warp feeding wgmma is the next step).
+//
+// Design.  One CTA owns TB = 128 samples, 16 per warp.  A warp keeps its
+// samples' A fragments, split into hi and lo, in registers for the whole
+// walk over the codebook (D <= 64: at most 8 k-steps, 64 registers); wider
+// D is walked in 64-feature slabs whose fragments are reloaded per slab.
+// The codebook streams through shared memory in TNC-row tiles: cp.async
+// copies tile i + 1 into one half of a double buffer while tile i, split
+// once into hi and lo, feeds the mma; ||m||^2 is summed per row at staging
+// in float32 (per lane, then a fixed xor tree).  Each thread keeps, for its
+// two samples, a running (max, index) with a strict > over its codes in
+// ascending order; the four lanes of a sample merge theirs
+// lexicographically (value, index).  Splits (ops.dist_argmin.
+// codebook_splits, spans of whole tiles) fold with the packed-u64 atomicMin
+// of argmin_keys.cuh on -2 * the score: negation and doubling are exact, so
+// the largest score wins and the lowest index among equal ones, in any CTA
+// order.  Every sum runs in a fixed order: two runs are bit-equal.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+#include "argmin_keys.cuh"
+#include "tf32x3.cuh"
+
+namespace {
+
+constexpr int kTB = 128;   // samples per CTA (8 warps x 16)
+constexpr int kTNC = 64;   // codebook rows per tile (8 n-tiles)
+constexpr int kWarps = kTB / 16;
+constexpr int kThreads = 32 * kWarps;
+
+// KT k-steps of 8 features per slab (slab width SW = 8 KT; KT = 8 when D >
+// 64).  Shared memory (floats): raw[2][kTNC * SW] | chi, clo [kTNC][DC] |
+// m2s[kTNC]
+template <int KT>
+struct K2Smem {
+  static constexpr int SW = 8 * KT;
+  static constexpr int DC = stride_nk(SW);
+  static constexpr size_t bytes() {
+    return sizeof(float) * (2 * (size_t)kTNC * SW + 2 * (size_t)kTNC * DC + kTNC);
+  }
+};
+
+// The A fragments of slab `sl` for the warp's samples b0..b0+15, split:
+// a0 (sample g, feature t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// of each k-step, zero past B and D.
+template <int KT>
+__device__ __forceinline__ void load_x(float (&ahi)[KT][4], float (&alo)[KT][4],
+                                       const float* __restrict__ x, int B, int D,
+                                       int b0, int sl, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int b = b0 + g + 8 * (q & 1);
+      const int k = sl * 8 * KT + 8 * ks + t + 4 * (q >> 1);
+      split_tf32((b < B && k < D) ? __ldg(x + (size_t)b * D + k) : 0.f, ahi[ks][q],
+                 alo[ks][q]);
+    }
+}
+
+// cp.async of item i's (tile, slab) into raw[row][feature]: rows past n_hi
+// and features past D are not copied (the split reads zeros for them);
+// 16-byte pieces when D % 4 == 0 (rows and slabs then 16-byte aligned)
+template <int KT>
+__device__ __forceinline__ void prefetch(float* raw, const float* __restrict__ codes,
+                                         int D, int n_lo, int n_hi, int nslab, int i,
+                                         int tid) {
+  constexpr int SW = 8 * KT;
+  const int n0 = n_lo + (i / nslab) * kTNC, f0 = (i % nslab) * SW;
+  const int rows = min(kTNC, n_hi - n0), width = min(SW, D - f0);
+  if ((D & 3) == 0) {
+    for (int e = tid; e < rows * (SW / 4); e += kThreads) {
+      const int r = e / (SW / 4), f = 4 * (e % (SW / 4));
+      if (f < width) cp_async16(raw + r * SW + f, codes + (size_t)(n0 + r) * D + f0 + f);
+    }
+  } else {
+    for (int e = tid; e < rows * SW; e += kThreads) {
+      const int r = e / SW, f = e % SW;
+      if (f < width) cp_async4(raw + r * SW + f, codes + (size_t)(n0 + r) * D + f0 + f);
+    }
+  }
+  cp_async_commit();
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kThreads, 2)
+dist_argmin_t_kernel(const float* __restrict__ x, const float* __restrict__ codes,
+                     int B, int N, int D, int n_span,
+                     unsigned long long* __restrict__ keys) {
+  using L = K2Smem<KT>;
+  constexpr int SW = L::SW, DC = L::DC;
+  extern __shared__ __align__(16) float smem[];
+  float* raw0 = smem;
+  float* raw1 = raw0 + kTNC * SW;
+  float* chi = raw1 + kTNC * SW;
+  float* clo = chi + kTNC * DC;
+  float* m2s = clo + kTNC * DC;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b0 = blockIdx.x * kTB + 16 * warp;  // this warp's 16 samples
+  const int n_lo = blockIdx.y * n_span;
+  const int n_hi = min(N, n_lo + n_span);
+  const int nslab = (D + SW - 1) / SW;
+  const int ntiles = (n_hi - n_lo + kTNC - 1) / kTNC;
+  const int nitems = ntiles * nslab;  // item = (tile, slab), slab fastest
+
+  float ahi[KT][4], alo[KT][4];
+  if (nslab == 1) load_x<KT>(ahi, alo, x, B, D, b0, 0, lane);
+  float best[2] = {-INFINITY, -INFINITY};
+  int bidx[2] = {INT_MAX, INT_MAX};
+  float S[kTNC / 8][4];
+
+  if (nitems > 0) prefetch<KT>(raw0, codes, D, n_lo, n_hi, nslab, 0, tid);
+  for (int i = 0; i < nitems; ++i) {
+    const int n0 = n_lo + (i / nslab) * kTNC, sl = i % nslab;
+    const int rows = min(kTNC, n_hi - n0), width = min(SW, D - sl * SW);
+    float* raw = (i & 1) ? raw1 : raw0;
+    cp_async_wait_all();
+    __syncthreads();  // item i landed; item i - 1's fragments and m2s read
+    if (i + 1 < nitems)
+      prefetch<KT>((i & 1) ? raw0 : raw1, codes, D, n_lo, n_hi, nslab, i + 1, tid);
+    // split: warp w takes rows w, w + 8, ...; ||m||^2 per row over slabs
+    for (int r = warp; r < kTNC; r += kWarps) {
+      float sq = 0.f;
+#pragma unroll
+      for (int f = lane; f < SW; f += 32) {
+        const float v = (r < rows && f < width) ? raw[r * SW + f] : 0.f;
+        float hi, lo;
+        split_tf32(v, hi, lo);
+        chi[r * DC + f] = hi;
+        clo[r * DC + f] = lo;
+        sq += v * v;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      if (lane == 0) m2s[r] = sl == 0 ? sq : m2s[r] + sq;
+    }
+    if (nslab > 1) load_x<KT>(ahi, alo, x, B, D, b0, sl, lane);
+    if (sl == 0) {
+#pragma unroll
+      for (int n = 0; n < kTNC / 8; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks) {
+#pragma unroll
+      for (int n = 0; n < kTNC / 8; ++n) {
+        float bhi[2], blo[2];
+        load_b_nk(bhi, chi, DC, 8 * n, 8 * ks, lane);
+        load_b_nk(blo, clo, DC, 8 * n, 8 * ks, lane);
+        mma_tf32x3(S[n], ahi[ks], alo[ks], bhi, blo);
+      }
+    }
+    if (sl == nslab - 1) {
+      // c0 (sample g, code 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8,
+      // 2t + 1): codes ascend with n and q, so strict > keeps the first
+#pragma unroll
+      for (int n = 0; n < kTNC / 8; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = 8 * n + 2 * t + (q & 1), h = q >> 1;
+          if (c < rows) {
+            const float sc = S[n][q] - 0.5f * m2s[c];
+            if (sc > best[h]) {
+              best[h] = sc;
+              bidx[h] = n0 + c;
+            }
+          }
+        }
+    }
+  }
+  cp_async_wait_all();
+
+  // merge the four lanes t of each sample, then fold across splits
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best[h], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bidx[h], off);
+      if (lex_greater(ov, oi, best[h], bidx[h])) {
+        best[h] = ov;
+        bidx[h] = oi;
+      }
+    }
+    const int b = b0 + g + 8 * h;
+    if (t == 0 && b < B && bidx[h] != INT_MAX)
+      fold_key(keys + b, -2.f * best[h], bidx[h]);
+  }
+}
+
+template <int KT>
+int launch_t(const float* x, const float* codes, int B, int N, int D, int splits,
+             unsigned long long* keys, cudaStream_t stream) {
+  const size_t smem = K2Smem<KT>::bytes();
+  cudaError_t err = cudaFuncSetAttribute(dist_argmin_t_kernel<KT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // rows per split: spans of whole kTNC-row tiles
+  const int n_tiles = (N + kTNC - 1) / kTNC;
+  const int n_span = ((n_tiles + splits - 1) / splits) * kTNC;
+  const dim3 grid((B + kTB - 1) / kTB, (N + n_span - 1) / n_span);
+  dist_argmin_t_kernel<KT><<<grid, kThreads, smem, stream>>>(x, codes, B, N, D,
+                                                              n_span, keys);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// keys: (B,) u64 scratch; val gets -2 * the best score x.m - ||m||^2 / 2
+extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
+                                   int N, int D, int splits,
+                                   unsigned long long* keys, float* val, int* idx,
+                                   cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || D <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int k8 = (D + 7) / 8;
+  rc = k8 <= 1   ? launch_t<1>(x, codes, B, N, D, splits, keys, stream)
+       : k8 <= 2 ? launch_t<2>(x, codes, B, N, D, splits, keys, stream)
+       : k8 <= 4 ? launch_t<4>(x, codes, B, N, D, splits, keys, stream)
+                 : launch_t<8>(x, codes, B, N, D, splits, keys, stream);
+  if (rc) return rc;
+  unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
+  return (int)cudaGetLastError();
+}

@@ -1,6 +1,9 @@
-// The SOM neighbourhood update's device code, shared by K3
-// (som_fused_step.cu), K5/K6 (som_update.cu) and K13/K14
-// (som_fused_factored.cu).
+// The SOM neighbourhood update's device code: the weights, shared by every
+// SOM kernel; accumulate_update, shared by K5/K6 (som_update.cu), K7
+// (som_vmem_steps.cu), K11 (som_accum.cu) and K13/K14
+// (som_fused_factored.cu).  K3
+// (som_fused_step.cu) builds the same weights from staged grid coordinates
+// (grid_x, grid_d2_at, weight_of_d2) for its tensor-core update.
 //
 // W[unit, sample] is built from flat unit indices with the exact-f32 algebra
 // of som_lvq_pak_tpu/ops/pallas_som.py:_neighborhood_w: dx from columns and
@@ -27,19 +30,35 @@ constexpr int BC = 32;        // batch samples staged per chunk
 constexpr int THREADS = 256;
 constexpr int MAX_D = 256;    // 32 lanes x NJ (<= 8) columns
 
+// the exact-f32 grid x coordinate of the unit in column c, row r (hexa odd
+// rows at c + 0.5)
+__device__ __forceinline__ float grid_x(int c, int r, bool hexa) {
+  return hexa ? (float)c + 0.5f * (float)(r & 1) : (float)c;
+}
+
+// exact-f32 squared grid distance between a unit at (lx, row ly) and a BMU
+// at (bx, row by): x from grid_x, rows as floats, exact below 2^24, so
+// ly - by is the exact row difference
+__device__ __forceinline__ float grid_d2_at(float lx, float ly, float bx, float by,
+                                            bool hexa) {
+  const float rd = ly - by;
+  const float dx = lx - bx;
+  if (hexa) return dx * dx + (rd * rd) * 0.75f;
+  return dx * dx + rd * rd;
+}
+
 // exact-f32 squared grid distance between unit u and BMU bm
 __device__ __forceinline__ float grid_d2(int u, int bm, int xdim, bool hexa) {
   const int uc = u % xdim, ur = u / xdim;
   const int bc = bm % xdim, br = bm / xdim;
-  const float rd = (float)(ur - br);
-  if (hexa) {
-    const float lx = (float)uc + 0.5f * (float)(ur & 1);
-    const float bx = (float)bc + 0.5f * (float)(br & 1);
-    const float dx = lx - bx;
-    return dx * dx + (rd * rd) * 0.75f;
-  }
-  const float dx = (float)uc - (float)bc;
-  return dx * dx + rd * rd;
+  return grid_d2_at(grid_x(uc, ur, hexa), (float)ur, grid_x(bc, br, hexa),
+                    (float)br, hexa);
+}
+
+// the neighbourhood weight at squared grid distance d2 for alpha a
+__device__ __forceinline__ float weight_of_d2(float d2, float a, bool gaussian,
+                                              float r2, float den) {
+  return gaussian ? a * expf(-d2 / den) : (d2 <= r2 ? a : 0.f);
 }
 
 // the neighbourhood weight of unit u for a sample with BMU bm and alpha a;
@@ -48,8 +67,7 @@ __device__ __forceinline__ float neighborhood_w(int u, int bm, float a, int xdim
                                                 bool hexa, bool gaussian,
                                                 float r2, float den) {
   if (bm < 0) return 0.f;
-  const float d2 = grid_d2(u, bm, xdim, hexa);
-  return gaussian ? a * expf(-d2 / den) : (d2 <= r2 ? a : 0.f);
+  return weight_of_d2(grid_d2(u, bm, xdim, hexa), a, gaussian, r2, den);
 }
 
 // _guarded_blend: exact c + acc - wsum * c while wsum <= 1, the weighted

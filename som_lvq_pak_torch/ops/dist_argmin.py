@@ -16,12 +16,16 @@ partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
   training step's and the masked qerror's winner search.
 * `dist_argmin_t` scores x.m - ||m||^2 / 2 with a strict-> running max and
   reports -2 * best (replaces `_dist_argmin_t_kernel`); the fast qerror's
-  winner search.  The forms round differently, so near-tie winners may
-  differ between them, as they do in the JAX package.
+  winner search.  Its kernel (`csrc/dist_argmin_t.cu`) runs the scores on
+  the tensor cores as split-TF32 products (float32 accuracy) and splits the
+  codebook as K1 does, in whole waves of 128-sample CTAs (`k2_splits`).  The forms round differently,
+  so near-tie winners may differ between them, as they do in the JAX
+  package.
 
-A CUDA tensor launches the kernel in `csrc/dist_argmin.cu`; a CPU tensor
-runs the plain version beside it.  Any other device raises.  Each wrapper
-counts its kernel launches in its `launches` attribute.
+A CUDA tensor launches the kernel in `csrc/dist_argmin.cu` (K1, K4) or
+`csrc/dist_argmin_t.cu` (K2); a CPU tensor runs the plain version beside
+it.  Any other device raises.  Each wrapper counts its kernel launches in
+its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -130,7 +134,18 @@ def codebook_splits(B: int, N: int, device: torch.device) -> int:
     return max(1, min(n_tiles, -(-2 * sms // b_tiles)))
 
 
-def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor):
+def k2_splits(B: int, N: int, device: torch.device) -> int:
+    """K2's codebook splits: the rule of `codebook_splits` for its CTAs of
+    128 samples, rounded down to whole waves: exactly two of them fit on an
+    SM (their registers), so a count that leaves a partial second wave
+    costs a whole one (at B 4096, 9 splits would be 288 CTAs on 264 slots
+    of an H100)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    b_tiles, n_tiles = -(-B // 128), -(-N // 64)
+    return max(1, min(n_tiles, 2 * sms // b_tiles))
+
+
+def _launch(entry: str, wrapper, splits, x: torch.Tensor, codes: torch.Tensor):
     x = x.contiguous()
     codes = codes.contiguous()
     B, D = x.shape
@@ -140,11 +155,11 @@ def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor):
     if B == 0:
         return val, idx
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    # K1 splits the codebook and folds the splits into a (B,) u64 key scratch
+    # the kernel splits the codebook and folds the splits into a (B,) u64
+    # key scratch
     keys = torch.empty((B,), dtype=torch.int64, device=x.device)
-    extra = ([codebook_splits(B, N, x.device), keys.data_ptr()]
-             if wrapper is dist_argmin else [])
-    _build.call(entry, x.data_ptr(), codes.data_ptr(), B, N, D, *extra,
+    _build.call(entry, x.data_ptr(), codes.data_ptr(), B, N, D,
+                splits(B, N, x.device), keys.data_ptr(),
                 val.data_ptr(), idx.data_ptr(), stream)
     wrapper.launches += 1
     # the kernel returns the partial distance; add ||x||^2 here
@@ -160,7 +175,7 @@ def dist_argmin(x: torch.Tensor, codes: torch.Tensor,
         return dist_argmin_masked(x, codes, mask)
     if _check(x, codes) == "cpu":
         return dist_argmin_plain(x, codes)
-    return _launch("somvq_dist_argmin", dist_argmin, x, codes)
+    return _launch("somvq_dist_argmin", dist_argmin, codebook_splits, x, codes)
 
 
 def dist_argmin_masked(x: torch.Tensor, codes: torch.Tensor,
@@ -196,7 +211,7 @@ def dist_argmin_t(x: torch.Tensor, codes: torch.Tensor
     """1-NN winners in the max-score form: (sq_dists, int32 idx)."""
     if _check(x, codes) == "cpu":
         return dist_argmin_t_plain(x, codes)
-    return _launch("somvq_dist_argmin_t", dist_argmin_t, x, codes)
+    return _launch("somvq_dist_argmin_t", dist_argmin_t, k2_splits, x, codes)
 
 
 dist_argmin.launches = 0

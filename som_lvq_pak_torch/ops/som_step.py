@@ -4,7 +4,8 @@ kernels, each a hand-written CUDA kernel here:
 
 - K3 `som_fused_step` (csrc/som_fused_step.cu): the plain kernel
   (`_som_fused_step_kernel`), W from the closed form, winners in distance
-  form;
+  form; both contractions on the tensor cores as split-TF32 products
+  (float32 accuracy, csrc/tf32x3.cuh);
 - K13 `som_fused_factored_step` (csrc/som_fused_factored.cu): the separable
   kernel (`_som_fused_factored_kernel`), W = Wx(column, row parity) *
   Wy(row), winners in max-score form;
@@ -27,8 +28,9 @@ given; `factored` with a `unit_offset` raises; on the separable path any of
 `batch_chunk`, `stagger`, `wxa_bf16`, `batch_bf16` or `int8_win` takes the
 batch-chunked kernel (pallas_som.py:1339-1349); K3 ignores all five, as the
 JAX wrapper's plain path does.
-`tile_n` decides the geometry only: the CUDA kernels tile by 32 rows, and
-the result depends on it only through the float32 order of additions.  The
+`tile_n` decides the geometry only: the CUDA kernels tile by 128 rows (K3;
+64 for D > 128) or 32 (K13, K14), and the result depends on it only through
+the float32 order of additions.  The
 port keeps D unpadded, so the JAX `d_real` has no counterpart.
 
 The codebook is updated IN PLACE (the caller owns the resident codebook;

@@ -1,0 +1,86 @@
+"""A plain emulation of the split-TF32 ("3xTF32") products that K2 and K3
+run on the tensor cores (csrc/tf32x3.cuh), for the tests and chip_smoke.py.
+No main-path code calls it.
+
+A float32 operand a is split as hi = tf32(a), lo = tf32(a - hi), where
+tf32() rounds to the nearest value with 10 mantissa bits, ties away from
+zero, as `cvt.rna.tf32.f32` does; a product is lo*hi + hi*lo + hi*hi with
+float32 accumulation, the small terms first.  The kernels accumulate in
+their own order (k-steps of 8 inside the mma), so this emulation matches
+them to float32 rounding, not bit for bit.
+
+`som_fused_train_step_tf32x3` and `dist_argmin_t_tf32x3` are the plain K3
+and K2 with their contractions through `tf32x3_mm`: the numeric design the
+kernels implement, held to the port's gates on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .distance import fp32_matmul
+from .som_step import _alpha_r, guarded_blend, neighborhood_w
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 `t` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, on the float32 bits: add half of the 13 dropped bits'
+    unit to the magnitude and clear them."""
+    if t.dtype != torch.float32:
+        raise TypeError("tf32_round takes float32")
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(t), lo = tf32(t - hi)."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def tf32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 pass: tf32(a) @ tf32(b) in float32 (what a plain TF32
+    matmul computes)."""
+    fp32_matmul()
+    return tf32_round(a) @ tf32_round(b)
+
+
+def tf32x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) as the kernels take it: lo*hi + hi*lo + hi*hi,
+    each TF32 x TF32 product exact in float32, float32 sums."""
+    fp32_matmul()
+    ahi, alo = tf32_split(a)
+    bhi, blo = tf32_split(b)
+    return (alo @ bhi + ahi @ blo) + ahi @ bhi
+
+
+def som_fused_train_step_tf32x3(codes, xb, bmu, xb_next, xdim, hexa, alpha,
+                                radius, gaussian=False, unit_offset=0):
+    """The plain K3 (`som_fused_train_step_plain`) with W.X and the scores
+    through `tf32x3_mm`; the weight mass stays a float32 sum of the same W.
+    Returns (the new float32 codebook, bmu_next int32, val_next); `codes`
+    is not changed."""
+    dev = codes.device
+    aw, r = _alpha_r(alpha, radius, xb.shape[0], dev)
+    units = (unit_offset or 0) + torch.arange(codes.shape[0], dtype=torch.int32,
+                                              device=dev)
+    w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
+    newc = guarded_blend(codes.to(torch.float32), tf32x3_mm(w, xb),
+                         w.sum(1, keepdim=True))
+    d_t = (newc * newc).sum(1, keepdim=True) - 2.0 * tf32x3_mm(newc, xb_next.T)
+    idx = torch.argmin(d_t, dim=0)
+    return newc, idx.to(torch.int32), d_t.gather(0, idx[None, :])[0]
+
+
+def dist_argmin_t_tf32x3(x: torch.Tensor, codes: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain K2 (`dist_argmin_t_plain`) with its scores x.m through
+    `tf32x3_mm`: (sq_dists, int32 idx)."""
+    m2h = 0.5 * (codes * codes).sum(-1)
+    sc = tf32x3_mm(x, codes.T) - m2h[None, :]
+    i = torch.argmax(sc, dim=1)
+    x2 = (x * x).sum(-1)
+    val = torch.clamp(-2.0 * sc.gather(1, i[:, None])[:, 0] + x2, min=0.0)
+    return val, i.to(torch.int32)
