@@ -24,24 +24,35 @@ phases, each printing one JSON line:
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             one "sass" line: the HMMA (tensor-core) instructions in each
-            instantiation of the split-TF32 kernels K3 and K2, from
+            instantiation of the split-TF32 kernels K3, K2, K1 and K6, from
             cuobjdump --dump-sass of the library (none fails the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
-            67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3 and
-            K2 also with the bound of their route (three TF32 products per
-            FP32 one at 495 TFLOP/s) and the share of it they reach, and
-            run twice on the same inputs, bit-equal.  K1, K2, K8 and K10
-            carry library_ms at their record's shape: torch.addmm, then
-            argmin, argmax or topk, in the plain versions' row chunks.  K2
+            67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3, K2,
+            K1 and K6 also with the bound of their route (the TF32 products
+            they issue at 495 TFLOP/s: three per FP32 product, two for K6's
+            weight mass) and the share of it they reach, and run twice on
+            the same inputs, bit-equal (K5 too).  K1 is also bit-equal to K2
+            on the same inputs at every K1 shape (one kernel body), and the
+            min over K1 on two shards of a codebook (split off a tile
+            boundary, merged by the sharded winner's rule) has the whole
+            run's values bit for bit and its winners except at value ties.
+            K6 records its codebook's and the plain version's mean and max
+            distance from the blend taken in float64.  K1, K2, K4, K8, K9
+            and K10 carry library_ms at their record's shape: torch.addmm
+            (keep @ (m o m)^T as its input under a mask), then argmin,
+            argmax or topk, in the plain versions' row chunks; K5, K6 and
+            K11 the plain version's time, which is that chain
+            (neighborhood_w, FP32 cuBLAS products, the blend).  K2
             also runs at a 16384-row StreamingReader chunk.  K7
             (som_vmem_train_steps) runs at bench.py:prep_vmem_steps's
             geometry (where it is also held against K chained K3 launches),
             at bench.py:prep_somexample_shape's, at a ragged shape with
             every code three times, and at e2e_64x64_1M's group shape.
-            K1 also runs at the LVQ steps' B 1024 and at the LVQ accuracy's
+            K1 also runs at the LVQ steps' B 1024, a mesh rank's B 512 x
+            32768, D 37, D 130 and at the LVQ accuracy's
             single launch over 1M x 65536.  The fused-step kernels: K3
             (factored=False) at the 1M cell's step, the 128x128 step, 12x8
             at D 64 and D 5, a ragged 10x6 map at D 37, 16x16 at D 200 and
@@ -56,8 +67,11 @@ phases, each printing one JSON line:
             of the plain run under bf16 batches); on a float32 codebook each
             fused-step kernel's winners and values are also held against the
             plain scoring of its own updated rows; K14's bound under bf16
-            batches is its FLOPs at the BF16 tensor peak (989 TFLOP/s); and
-            the exact bubble boundary through K13 and K14;
+            batches is its FLOPs at the BF16 tensor peak (989 TFLOP/s); the
+            exact bubble boundary through K13 and K14; K5 and K6 at the
+            masked 1M cell's step, 128x128, 12x8 at D 64 and D 5, a ragged
+            10x6 map at D 37 and 16x16 at D 200, and the exact bubble
+            boundary through K6;
 3b. kernels  K14's stagger at every K14 case, bit-equal to the plain
             schedule on the same inputs; K14's int8_win at int8_step_ab's
             step (256x256 B 4096, chunk 1024, bf16 x-pattern), 64x64 with
@@ -213,8 +227,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
-# the kernels whose products run on the tensor cores as split TF32
-SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel")
+# the kernels whose products run on the tensor cores as split TF32: K3, K2,
+# K1 (K2's body under its own name) and K6
+SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
+                      "dist_argmin_kernel", "som_update_masked_kernel")
 
 
 def emit(phase: str, **kw) -> None:
@@ -237,22 +253,23 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
-          int8_ops: float = 0.0, tf32x3: bool = False) -> dict:
+          int8_ops: float = 0.0, route_flops: float = None) -> dict:
     """The least time the card could take for a kernel's work: its FLOPs at
     the peak of their operand type (FP32 unless stated; `int8_ops` more at
     the INT8 peak) or its bytes (each input read once, each output written
-    once) at the memory rate, whichever is larger.  With `tf32x3` (K2, K3:
-    float32 products as three TF32 tensor-core products) also the bound of
-    that route, route_bound_ms: 3 x the FLOPs at the TF32 peak, or the
-    bytes.  library_ms is null here: a phase sets it where one PyTorch call
-    computes the kernel's function."""
+    once) at the memory rate, whichever is larger.  With `route_flops`, the
+    TF32 FLOPs a split-TF32 kernel issues (K1, K2, K3: three TF32
+    tensor-core products per float32 product, 3 x the FLOPs; K6: three for
+    W.(X o K), two for W.K), also the bound of that route, route_bound_ms:
+    those FLOPs at the TF32 peak, or the bytes.  library_ms is null here: a
+    phase sets it where one PyTorch call computes the kernel's function."""
     f_ms = 1e3 * flops / peak + 1e3 * int8_ops / PEAK_INT8_OPS
     b_ms = 1e3 * nbytes / PEAK_BYTES_S
     rec = dict(bound_ms=max(f_ms, b_ms),
                bound_by="operations" if f_ms >= b_ms else "bytes",
                library_ms=None)
-    if tf32x3:
-        rec["route_bound_ms"] = max(3e3 * flops / PEAK_TF32_FLOPS, b_ms)
+    if route_flops is not None:
+        rec["route_bound_ms"] = max(1e3 * route_flops / PEAK_TF32_FLOPS, b_ms)
     return rec
 
 
@@ -262,27 +279,33 @@ def route_pct(rec) -> dict:
     return dict(route_pct=100.0 * rec["route_bound_ms"] / rec["ms"])
 
 
-def library_winners(x, codes, form, k=2):
+def library_winners(x, codes, form, k=2, mask=None):
     """One PyTorch call chain per row chunk computing a winner kernel's
     function, timed beside it as its library_ms (the port never calls it):
     ||m||^2 - 2 x.m by torch.addmm, then argmin ("min", K1), topk(k,
     largest=False) ("topk", K8 and K10), or x.m - ||m||^2 / 2 then argmax
-    ("max", K2); rows in the plain versions' chunks (4096 against 65,536
-    codes), under fp32_matmul()."""
+    ("max", K2); with a `mask` (K4, K9) the partial distance is
+    torch.addmm(keep @ (m o m)^T, x keep, m^T, alpha=-2); rows in the plain
+    versions' chunks (4096 against 65,536 codes), under fp32_matmul()."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import _rows_per_chunk
 
     m2 = (codes * codes).sum(-1)
+    keep = None if mask is None else (mask == 0).float()
     step = _rows_per_chunk(codes.shape[0])
     out = []
     for s in range(0, x.shape[0], step):
         xc = x[s:s + step]
         if form == "max":
             out.append(torch.addmm(-0.5 * m2, xc, codes.T).argmax(1))
-        else:
+            continue
+        if keep is None:
             d = torch.addmm(m2, xc, codes.T, alpha=-2)
-            out.append(d.argmin(1) if form == "min" else d.topk(k, largest=False))
+        else:
+            kc = keep[s:s + step]
+            d = torch.addmm(kc @ (codes * codes).T, xc * kc, codes.T, alpha=-2)
+        out.append(d.argmin(1) if form == "min" else d.topk(k, largest=False))
     return out
 
 
@@ -368,12 +391,13 @@ def random_mask(g, B, D, p):
 
 
 def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
-                   mask_p=None, library=None, rerun=False):
+                   mask_p=None, library=None, rerun=False, twin=None):
     """One winner kernel against its plain version; with mask_p, the masked
     kernel on a random mask: fully masked rows must get index 0, value 0.
     With `library` (a library_winners form) its library_ms; with `rerun` the
     kernel runs twice on the same inputs and must give the same values and
-    winners bit for bit."""
+    winners bit for bit; with `twin` (K2 beside K1) that kernel must give
+    the same values and winners bit for bit on the same inputs."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -391,6 +415,12 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
         v2, i2 = kernel(*args)
         if not (torch.equal(vk, v2) and torch.equal(ik, i2)):
             raise AssertionError(f"{name}: two runs on the same inputs differ")
+    if twin is not None:
+        vt, it = twin(*args)
+        if not (torch.equal(vk.view(torch.int32), vt.view(torch.int32))
+                and torch.equal(ik, it)):
+            raise AssertionError(f"{name}: not bit-equal to {twin.__name__} on the "
+                                 "same inputs")
     if dup and int(ik.max()) >= N // 3:
         raise AssertionError(f"{name}: a duplicate row beat its first copy")
     n_diff = check_winners(name, x, codes, ik, ip, mask=args[2] if mask_p else None)
@@ -404,18 +434,21 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     # (B, D) samples and (N, D) codes in, (B,) value and index out; 2BND
     # FLOPs, 4BND with the mask's keep.(m o m) contraction
     masked = mask_p is not None
+    flops = (4 if masked else 2) * B * N * D
+    split_tf32 = kernel.__name__ in ("dist_argmin", "dist_argmin_t")
     rec = dict(kernel=name, shape=[B, N, D], dup=dup, mask_p=mask_p,
                winners_differ=n_diff, max_abs_err=float((vk - vp).abs().max()),
                **({"bit_equal_rerun": True} if rerun else {}),
+               **({} if twin is None else {"bit_equal_to": twin.__name__}),
                ms=cuda_ms(lambda: kernel(*args), iters),
                plain_ms=cuda_ms(lambda: plain(*args), iters),
-               **bound((4 if masked else 2) * B * N * D,
-                       4 * (B * D + N * D) + masked * B * D + 8 * B,
-                       tf32x3=kernel.__name__ == "dist_argmin_t"))
+               **bound(flops, 4 * (B * D + N * D) + masked * B * D + 8 * B,
+                       route_flops=3 * flops if split_tf32 else None))
     if "route_bound_ms" in rec:
         rec.update(route_pct(rec))
     if library is not None:
-        rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, library), iters)
+        rec["library_ms"] = cuda_ms(lambda: library_winners(
+            x, codes, library, mask=args[2] if masked else None), iters)
     emit("kernels", **rec)
     return rec
 
@@ -472,9 +505,47 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
                **bound((4 if masked else 2) * B * codes.shape[0] * D,
                        4 * (B * D + codes.shape[0] * D) + masked * B * D + 16 * B))
     if library:
-        rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, "topk", 2), iters)
+        rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, "topk", 2, mask=mask),
+                                    iters)
     emit("kernels", **rec)
     return rec
+
+
+def phase_k1_shards(B, N, D, split, seed):
+    """K1 on the whole codebook against K1 on its two shards [0, split) and
+    [split, N) (`split` not a multiple of the 64-row tile), merged by the
+    sharded winner's rule (parallel.sharded._gather_min: the smaller value,
+    the lower global index among equal ones): the values bit-equal, and the
+    winners equal wherever the two shards' candidates differ in value.  A
+    row's partial distance does not depend on the tile or split that holds
+    it, so the values agree; where two candidates' partials differ by less
+    than the rounding of adding ||x||^2, their values tie and the sharded
+    rule takes the lower index, the whole run the lower partial."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_argmin import dist_argmin
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, D), generator=g, device="cuda")
+    codes = torch.randn((N, D), generator=g, device="cuda")
+    vw, iw = dist_argmin(x, codes)
+    va, ia = dist_argmin(x, codes[:split].contiguous())
+    vb, ib = dist_argmin(x, codes[split:].contiguous())
+    ib = ib + split
+    vals = torch.stack([va, vb])
+    best = vals.min(0).values
+    cand = torch.where(vals == best[None, :], torch.stack([ia, ib]),
+                       torch.iinfo(torch.int32).max)
+    ish = cand.min(0).values
+    torch.cuda.synchronize()
+    name = f"dist_argmin {B}x{N}x{D} on shards [0, {split}), [{split}, {N})"
+    if not torch.equal(vw.view(torch.int32), best.view(torch.int32)):
+        raise AssertionError(f"{name}: the shard min's values differ from the whole run's")
+    flip = iw != ish
+    if bool((va[flip] != vb[flip]).any()):
+        raise AssertionError(f"{name}: winners differ where the shards' values do not tie")
+    emit("kernels", kernel=name, values_bit_equal=True,
+         winners_differ_at_value_ties=int(flip.sum()))
 
 
 def bf16_ulp_close(got, want, atol=1e-5) -> bool:
@@ -590,7 +661,7 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                                               gaussian, **kw)),
                **bound(4 * noc * B * D, 2 * cb * noc * D + 8 * B * D + 16 * B,
                        PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS,
-                       tf32x3=tf32x3))
+                       route_flops=3 * 4 * noc * B * D if tf32x3 else None))
     if tf32x3:
         rec.update(route_pct(rec))
     emit("kernels", **rec)
@@ -918,7 +989,13 @@ def release():
 def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                  masked):
     """The two-kernel step's update (K5, or K6 with a mask) against its
-    plain version: a few samples without a BMU, per-sample alphas."""
+    plain version: a few samples without a BMU, per-sample alphas; run twice
+    on the same inputs, bit-equal.  K6 also records the mean and max
+    distance of its codebook and of the plain version's from the same blend
+    taken in float64, and its split-TF32 route's bound (10 noc B D TF32
+    FLOPs: three products for W.(X o K), two for W.K).  library_ms is the
+    plain version's time: it is the PyTorch call chain of the same function
+    (neighborhood_w, then FP32 cuBLAS products and the blend)."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
@@ -937,21 +1014,71 @@ def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
 
     ck = run(kernel, codes.clone())
     cp = run(plain, codes.clone())
+    c2 = run(kernel, codes.clone())
     torch.cuda.synchronize()
     name = f"{kernel.__name__} {xdim}x{ydim} {'hexa' if hexa else 'rect'} " \
-           f"{'gaussian' if gaussian else 'bubble'}"
+           f"{'gaussian' if gaussian else 'bubble'} D {D}"
     if not torch.allclose(ck, cp, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
+    if not torch.equal(ck.view(torch.int32), c2.view(torch.int32)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    f64 = {}
+    if masked:  # both codebooks against the blend taken in float64
+        from som_lvq_pak_torch.ops import som_step as ss
+
+        aw, r = ss._alpha_r(alpha, radius, B, "cuda")
+        units = torch.arange(noc, dtype=torch.int32, device="cuda")
+        w = ss.neighborhood_w(bmu, aw, r, units, xdim, hexa, gaussian).double()
+        keep = (extra[0] == 0).double()
+        exact = ss.guarded_blend(codes.double(), w @ (xb.double() * keep), w @ keep)
+        dk, dp = (ck.double() - exact).abs(), (cp.double() - exact).abs()
+        f64 = dict(mean_abs_err_vs_f64=float(dk.mean()), max_abs_err_vs_f64=float(dk.max()),
+                   plain_mean_abs_err_vs_f64=float(dp.mean()),
+                   plain_max_abs_err_vs_f64=float(dp.max()))
+        del w, keep, exact, dk, dp
     work = codes.clone()
     # W.X (and W.K with a mask), 2 noc B D FLOPs each
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius,
-               max_abs_err=float((ck - cp).abs().max()),
+               max_abs_err=float((ck - cp).abs().max()), bit_equal_rerun=True, **f64,
                ms=cuda_ms(lambda: run(kernel, work)),
                plain_ms=cuda_ms(lambda: run(plain, work)),
                **bound((4 if masked else 2) * noc * B * D,
-                       8 * noc * D + 4 * B * D + masked * B * D + 8 * B))
+                       8 * noc * D + 4 * B * D + masked * B * D + 8 * B,
+                       route_flops=10 * noc * B * D if masked else None))
+    rec["library_ms"] = rec["plain_ms"]
+    if masked:
+        rec.update(route_pct(rec))
     emit("kernels", **rec)
     return rec
+
+
+def phase_update_bubble_boundary():
+    """The exact bubble boundary through K6 on the card: on an 8x6 hexa map
+    a sample with BMU (column 2, row 0), alpha 0.5 and r = 3 reaches the
+    unit (column 3, row 3) at d2 = r^2 exactly; the unit's unmasked
+    components must become 0.5 exactly and its masked one stay 0, the
+    codebook equal to the plain version's bit for bit."""
+    import torch
+
+    from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx_masked,
+                                                  som_neighborhood_update_idx_plain)
+
+    xdim, D, inside = 8, 64, 3 * 8 + 3
+    xb = torch.ones((1, D), device="cuda")
+    bmu = torch.full((1,), 2, dtype=torch.int32, device="cuda")
+    mask = torch.zeros((1, D), dtype=torch.uint8, device="cuda")
+    mask[0, 1::3] = 1
+    ck = som_neighborhood_update_idx_masked(torch.zeros((48, D), device="cuda"), xb, bmu,
+                                            mask, xdim, True, 0.5, 3.0, False)
+    cp = som_neighborhood_update_idx_plain(torch.zeros((48, D), device="cuda"), xb, bmu,
+                                           xdim, True, 0.5, 3.0, False, mask=mask)
+    torch.cuda.synchronize()
+    want = torch.where(mask[0] != 0, 0.0, 0.5)
+    if not (torch.equal(ck, cp) and torch.equal(ck[inside], want)):
+        raise AssertionError("K6: the exact bubble boundary went wrong: "
+                             f"{ck[inside, :4].tolist()}")
+    emit("kernels", kernel="exact bubble boundary, K6", inside_equals_half=True,
+         equal_plain=True)
 
 
 def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
@@ -1129,6 +1256,9 @@ def phase_accum(xdim, hexa, gaussian, n_local, offset, B, D, radius, per_sample,
                ms=cuda_ms(lambda: run(som_neighborhood_accumulate)),
                plain_ms=cuda_ms(lambda: run(som_neighborhood_accumulate_plain)),
                **bound(2 * n_local * B * D, 4 * B * D + 8 * B + 4 * n_local * (D + 1)))
+    # the plain version is the PyTorch call chain of the same function
+    # (neighborhood_w, then FP32 cuBLAS products)
+    rec["library_ms"] = rec["plain_ms"]
     emit("kernels", **rec)
     return rec
 
@@ -2112,14 +2242,16 @@ def main() -> int:
     # each kernel's record is taken at its main-path shape (rs[0]), with the
     # largest error over all its shapes
     recs = {}
-    # K2 runs every shape twice (bit-equal), and also at a StreamingReader
-    # chunk of 16384 rows; K1's and K2's records carry library_ms
+    # K1 and K2 run every shape twice (bit-equal), K1 also bit-equal to K2
+    # on the same inputs (one kernel body); K2 also at a StreamingReader
+    # chunk of 16384 rows; K1's, K2's and K4's records carry library_ms
     for name, k, p, mask_p, lib in (
             ("dist_argmin", dist_argmin, dist_argmin_plain, None, "min"),
             ("dist_argmin_t", dist_argmin_t, dist_argmin_t_plain, None, "max"),
             ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1,
-             None)):
-        kw = dict(mask_p=mask_p, rerun=k is dist_argmin_t)
+             "min")):
+        kw = dict(mask_p=mask_p, rerun=k is not dist_argmin_masked,
+                  twin=dist_argmin_t if k is dist_argmin else None)
         rs = [phase_distance(name, k, p, 4096, 65536, 64, seed=1, library=lib, **kw),
               phase_distance(name, k, p, 1000, 999, 5, seed=2, **kw),
               phase_distance(name, k, p, 1000, 999, 5, seed=3, dup=True, **kw)]
@@ -2129,19 +2261,28 @@ def main() -> int:
             rs.append(phase_distance(name, k, p, 16384, 65536, 64, seed=39, **kw))
         # K1: the 1M run's prologue; K2: its evaluation; K4: a masked step
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
-    # K1 at the LVQ step's batch (one 64-sample CTA per 64 samples: 16 CTAs)
-    # and at the LVQ accuracy's one launch over the 1M data; K1 and K4 at
-    # the masked LVQ cell's step (B 1024 against 4096 codes: K4 has 17
-    # splits of which 16 hold codes)
-    phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 1024, 65536, 64, seed=9)
-    phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 512, 32768, 64, seed=17)
-    phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, 1_000_000, 65536, 64,
-                   seed=14, iters=3)
+    # K1 at the LVQ step's batch (8 CTAs of 128 samples, 33 splits on an
+    # H100), a mesh rank's step (B 512 x 32768), the LVQ accuracy's one
+    # launch over the 1M data, D 37 and D 130 (three 64-feature slabs); each
+    # run twice and beside K2.  K1 and K4 at the masked LVQ cell's step
+    # (B 1024 against 4096 codes: 64 tiles, two per split)
+    k1_kw = dict(rerun=True, twin=dist_argmin_t)
+    for shape, seed, iters in (((1024, 65536, 64), 9, 10), ((512, 32768, 64), 17, 10),
+                               ((1_000_000, 65536, 64), 14, 3), ((777, 3001, 37), 47, 10),
+                               ((1000, 2999, 130), 48, 10)):
+        r = phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, *shape, seed=seed,
+                           iters=iters, **k1_kw)
+        recs["dist_argmin"]["max_abs_err"] = max(recs["dist_argmin"]["max_abs_err"],
+                                                 r["max_abs_err"])
     for name, k, p, mask_p in (
             ("dist_argmin", dist_argmin, dist_argmin_plain, None),
             ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
-        r = phase_distance(name, k, p, 1024, 4096, 64, seed=15, mask_p=mask_p)
+        r = phase_distance(name, k, p, 1024, 4096, 64, seed=15, mask_p=mask_p,
+                           **(k1_kw if mask_p is None else {}))
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
+    # K1 on two shards of the codebook against the whole: the sharded winner
+    phase_k1_shards(4096, 65536, 64, 30001, seed=49)
+    phase_k1_shards(512, 32768, 64, 16411, seed=50)
     # K8 and K9 at the LVQ step's shape first (their record; K8's with
     # library_ms), then the masked LVQ cell's step (17 splits, 16 of them
     # used), small, exact-tie and two-code shapes
@@ -2151,7 +2292,7 @@ def main() -> int:
                  ((1000, 999, 5), 11, False), ((1000, 999, 5), 12, True),
                  ((1000, 2, 5), 13, False))
         rs = [phase_top2(name, k, dist_top2_plain, *shape, seed=seed, dup=dup,
-                         mask_p=mask_p, library=mask_p is None and j == 0)
+                         mask_p=mask_p, library=j == 0)
               for j, (shape, seed, dup) in enumerate(cases)]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # K3 (factored=False: these geometries but 12x8 take K13 by default) at
@@ -2208,9 +2349,15 @@ def main() -> int:
              skeleton=skel["kernel"], skeleton_ms=skel["ms"],
              attainable_pct=100.0 * skel["ms"] / step["ms"])
     phase_bubble_boundary()
+    # K5 and K6 at the masked 1M cell's step first (their records), the
+    # 128x128 step, a small rect bubble map, D 5, a ragged map at D 37 and
+    # D 200 (K6: two 128-feature slabs)
     update_cases = ((256, 256, True, True, 4096, 64, 64.0),
                     (128, 128, True, True, 1024, 64, 32.0),
-                    (12, 8, False, False, 1024, 64, 3.0))
+                    (12, 8, False, False, 1024, 64, 3.0),
+                    (12, 8, True, False, 1000, 5, 3.0),
+                    (10, 6, True, True, 100, 37, 3.0),
+                    (16, 16, False, True, 256, 200, 4.0))
     for k, p in ((som_neighborhood_update_idx, som_neighborhood_update_idx_plain),
                  (som_neighborhood_update_idx_masked,
                   lambda c, x, b, m, *a: som_neighborhood_update_idx_plain(
@@ -2218,6 +2365,7 @@ def main() -> int:
         masked = k is som_neighborhood_update_idx_masked
         rs = [phase_update(k, p, *case, seed=6, masked=masked) for case in update_cases]
         recs[k.__name__] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    phase_update_bubble_boundary()
     # K7: e2e_64x64_1M's group shape first (its record), then
     # bench.py:prep_vmem_steps, bench.py:prep_somexample_shape, and a ragged
     # shape (99 rows, D 37) with every code three times.  At radius 16 the
@@ -2507,7 +2655,7 @@ def main() -> int:
     mesh_phases(smi, tally, q_masked128)
 
     sources = {
-        "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
+        "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",
                         "som_lvq_pak_tpu/ops/pallas_distance.py:60"),
         "dist_argmin_t": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",
                           "som_lvq_pak_tpu/ops/pallas_distance.py:426"),

@@ -1,23 +1,33 @@
-// K2: the 1-NN winner search in max-score form: for each sample x_b, the
-// codebook row m_n that maximises x_b.m_n - ||m_n||^2 / 2 (the lowest n on
-// exact ties), reported as -2 * the best score.
+// K1 and K2: the 1-NN winner search on the tensor cores.  For each sample
+// x_b, the codebook row m_n that minimises ||x_b - m_n||^2 (the lowest n on
+// exact ties), reported as the partial distance ||m_n||^2 - 2 x_b.m_n.
 //
-// Replaces som_lvq_pak_tpu/ops/pallas_distance.py:_dist_argmin_t_kernel
-// (wrapper dist_argmin_t), the fast qerror's winner search
-// (models.som.find_qerror).  K1 and K4, the distance forms, stay in
-// dist_argmin.cu.
+// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+//   * _dist_argmin_kernel (wrapper dist_argmin, the distance form
+//     ||m||^2 - 2 x.m with a strict-< running min)     -> dist_argmin_kernel (K1)
+//   * _dist_argmin_t_kernel (wrapper dist_argmin_t, the max-score form
+//     x.m - ||m||^2 / 2, reported as -2 * the best)   -> dist_argmin_t_kernel (K2)
+// The two forms give the same floats here: halving and doubling are exact, so
+// -2 fl(x.m - ||m||^2 / 2) = fl(||m||^2 - 2 x.m) for the same x.m and ||m||^2,
+// and a strict > on the score over ascending codes is a strict < on the
+// distance.  So K1 and K2 are one kernel body (argmin_tc), instantiated under
+// two names so that a profile tells the trainers' and LVQ steps' winners (K1)
+// from the fast qerror's (K2); both return the same (value, index) bit for
+// bit on the same inputs.  K4, the masked distance form, stays on CUDA cores
+// in dist_argmin.cu.
 //
 // What bounds it on H100: the contraction x.m^T (B x N x D).  On CUDA cores
 // (the earlier 4 x 4 FP32 micro-tile, two shared loads per FMA pair) it ran
-// at about 21 FP32 TFLOP/s over 1M x 65536 x 64 on an H100, and one CTA walked the
-// whole codebook, so a batch of 4096 was 64 CTAs on 132 SMs.  The scores now
-// run on the tensor cores as split-TF32 mma.sync (tf32x3.cuh): three TF32
-// products per float32 product, float32 accumulators, float32 accuracy, a
-// 165 TFLOP/s ceiling; and the codebook splits across gridDim.y when the
-// batch alone gives too few CTAs.  It reaches about a quarter of that bound
-// on an H100 (1M x 65536 x 64), a third of what mma.sync issues there
-// (mma_probe.py): the staging and scoring between the CTA's barriers share
-// the SM with the mma (a producer warp feeding wgmma is the next step).
+// at about 21 FP32 TFLOP/s over 1M x 65536 x 64 on an H100, slower than
+// torch.addmm then argmin.  The scores run on the tensor cores as split-TF32
+// mma.sync (tf32x3.cuh): three TF32 products per float32 product, float32
+// accumulators, float32 accuracy, a 165 TFLOP/s ceiling; and the codebook
+// splits across gridDim.y when the batch alone gives too few CTAs (the LVQ
+// steps' B 1024 is 8 CTAs, a mesh rank's B 512 only 4).  It reaches about a
+// quarter of that bound on an H100 (1M x 65536 x 64), a third of what
+// mma.sync issues there (mma_probe.py): the staging and scoring between the
+// CTA's barriers share the SM with the mma (a producer warp feeding wgmma is
+// the next step).
 //
 // Design.  One CTA owns TB = 128 samples, 16 per warp.  A warp keeps its
 // samples' A fragments, split into hi and lo, in registers for the whole
@@ -29,11 +39,13 @@
 // in float32 (per lane, then a fixed xor tree).  Each thread keeps, for its
 // two samples, a running (max, index) with a strict > over its codes in
 // ascending order; the four lanes of a sample merge theirs
-// lexicographically (value, index).  Splits (ops.dist_argmin.
-// codebook_splits, spans of whole tiles) fold with the packed-u64 atomicMin
-// of argmin_keys.cuh on -2 * the score: negation and doubling are exact, so
+// lexicographically (value, index).  Splits (ops.dist_argmin.k2_splits,
+// spans of whole tiles) fold with the packed-u64 atomicMin of
+// argmin_keys.cuh on -2 * the score: negation and doubling are exact, so
 // the largest score wins and the lowest index among equal ones, in any CTA
-// order.  Every sum runs in a fixed order: two runs are bit-equal.
+// order.  Every sum runs in a fixed order, and a row's value depends only on
+// its own data, not on the tile, split or shard that holds it: two runs are
+// bit-equal, and the min over shards of a codebook is the whole run's.
 
 #include <cuda_runtime.h>
 
@@ -107,10 +119,10 @@ __device__ __forceinline__ void prefetch(float* raw, const float* __restrict__ c
 }
 
 template <int KT>
-__global__ void __launch_bounds__(kThreads, 2)
-dist_argmin_t_kernel(const float* __restrict__ x, const float* __restrict__ codes,
-                     int B, int N, int D, int n_span,
-                     unsigned long long* __restrict__ keys) {
+__device__ __forceinline__ void argmin_tc(const float* __restrict__ x,
+                                          const float* __restrict__ codes, int B,
+                                          int N, int D, int n_span,
+                                          unsigned long long* __restrict__ keys) {
   using L = K2Smem<KT>;
   constexpr int SW = L::SW, DC = L::DC;
   extern __shared__ __align__(16) float smem[];
@@ -216,11 +228,30 @@ dist_argmin_t_kernel(const float* __restrict__ x, const float* __restrict__ code
   }
 }
 
+// K1 (the distance form's wrapper dist_argmin) and K2 (dist_argmin_t): one
+// body, two names
 template <int KT>
+__global__ void __launch_bounds__(kThreads, 2)
+dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
+                   int B, int N, int D, int n_span,
+                   unsigned long long* __restrict__ keys) {
+  argmin_tc<KT>(x, codes, B, N, D, n_span, keys);
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kThreads, 2)
+dist_argmin_t_kernel(const float* __restrict__ x, const float* __restrict__ codes,
+                     int B, int N, int D, int n_span,
+                     unsigned long long* __restrict__ keys) {
+  argmin_tc<KT>(x, codes, B, N, D, n_span, keys);
+}
+
+template <int KT, bool kK1>
 int launch_t(const float* x, const float* codes, int B, int N, int D, int splits,
              unsigned long long* keys, cudaStream_t stream) {
   const size_t smem = K2Smem<KT>::bytes();
-  cudaError_t err = cudaFuncSetAttribute(dist_argmin_t_kernel<KT>,
+  auto kernel = kK1 ? dist_argmin_kernel<KT> : dist_argmin_t_kernel<KT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -228,28 +259,42 @@ int launch_t(const float* x, const float* codes, int B, int N, int D, int splits
   const int n_tiles = (N + kTNC - 1) / kTNC;
   const int n_span = ((n_tiles + splits - 1) / splits) * kTNC;
   const dim3 grid((B + kTB - 1) / kTB, (N + n_span - 1) / n_span);
-  dist_argmin_t_kernel<KT><<<grid, kThreads, smem, stream>>>(x, codes, B, N, D,
-                                                              n_span, keys);
+  kernel<<<grid, kThreads, smem, stream>>>(x, codes, B, N, D, n_span, keys);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// keys: (B,) u64 scratch; val gets -2 * the best score x.m - ||m||^2 / 2
-extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
-                                   int N, int D, int splits,
-                                   unsigned long long* keys, float* val, int* idx,
-                                   cudaStream_t stream) {
+template <bool kK1>
+int search(const float* x, const float* codes, int B, int N, int D, int splits,
+           unsigned long long* keys, float* val, int* idx, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || D <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
   init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int k8 = (D + 7) / 8;
-  rc = k8 <= 1   ? launch_t<1>(x, codes, B, N, D, splits, keys, stream)
-       : k8 <= 2 ? launch_t<2>(x, codes, B, N, D, splits, keys, stream)
-       : k8 <= 4 ? launch_t<4>(x, codes, B, N, D, splits, keys, stream)
-                 : launch_t<8>(x, codes, B, N, D, splits, keys, stream);
+  rc = k8 <= 1   ? launch_t<1, kK1>(x, codes, B, N, D, splits, keys, stream)
+       : k8 <= 2 ? launch_t<2, kK1>(x, codes, B, N, D, splits, keys, stream)
+       : k8 <= 4 ? launch_t<4, kK1>(x, codes, B, N, D, splits, keys, stream)
+                 : launch_t<8, kK1>(x, codes, B, N, D, splits, keys, stream);
   if (rc) return rc;
   unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1; keys: (B,) u64 scratch; val gets the partial distance ||m||^2 - 2 x.m
+extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B,
+                                 int N, int D, int splits,
+                                 unsigned long long* keys, float* val, int* idx,
+                                 cudaStream_t stream) {
+  return search<true>(x, codes, B, N, D, splits, keys, val, idx, stream);
+}
+
+// K2; keys: (B,) u64 scratch; val gets -2 * the best score x.m - ||m||^2 / 2,
+// the same float as K1's partial distance
+extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
+                                   int N, int D, int splits,
+                                   unsigned long long* keys, float* val, int* idx,
+                                   cudaStream_t stream) {
+  return search<false>(x, codes, B, N, D, splits, keys, val, idx, stream);
 }

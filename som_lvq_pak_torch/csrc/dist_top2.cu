@@ -11,7 +11,7 @@
 // earlier tile kept) computes: the lower index wins every exact tie, on the
 // best pair and on the second.
 //
-// Design.  K1/K4's tiling (dist_argmin.cu): one CTA owns TB samples, walks
+// Design.  K4's tiling (dist_argmin.cu): one CTA owns TB samples, walks
 // its codebook rows in TN-row tiles staged through shared memory in KC-wide
 // slices of D (any D >= 1, no padding), and each of the 256 threads owns a
 // 4 x 4 (sample, code) micro-tile.  A thread visits its codes in increasing
@@ -34,7 +34,7 @@
 // traffic).  A sample with every component masked scores 0 against every
 // code and gets (0, 0), (0, 1), as in the JAX package.
 //
-// What bounds it on H100: FP32 FMA issue and shared-memory loads, as K1/K4
+// What bounds it on H100: FP32 FMA issue and shared-memory loads, as K4
 // (no tensor cores).  The codebook is read once per CTA from L2.
 
 #include <cuda_runtime.h>

@@ -10,7 +10,7 @@
 // computes.
 //
 // Design: K8's (dist_top2.cu) generalised from two to KM in {2, 4, 8, 16}
-// entries, k <= KM chosen at run time.  K1's tiling: one CTA owns TB
+// entries, k <= KM chosen at run time.  K4's tiling: one CTA owns TB
 // samples, walks its codebook rows in TN-row tiles staged through shared
 // memory in KC-wide slices of D (any D >= 1, no padding); each of the 256
 // threads owns a 4 x 4 (sample, code) micro-tile and keeps, per sample, a

@@ -9,7 +9,7 @@
 // W[row, sample] is evaluated at the GLOBAL unit unit_offset + row with the
 // exact-f32 grid algebra of _neighborhood_w (som_grid.cuh), never stored.
 // One CTA owns TN rows and walks the whole batch in BC-sample chunks in a
-// fixed order (som_grid.cuh's accumulate_update, the code K3 and K5 run), so
+// fixed order (som_grid.cuh's accumulate_update, the code K5 and K7 run), so
 // the sums are deterministic with no atomics, and a row's sums do not depend
 // on which rows share its CTA: accumulating a shard in row segments gives the
 // same bits as accumulating it whole.
@@ -45,10 +45,9 @@ som_accum_kernel(int n_local, int D, const float* __restrict__ xb,
   const int r0 = blockIdx.x * TN;
 
   float acc[4][NJ];
-  float wsum[4][1];
-  accumulate_update<NJ, false>(acc, wsum, xs, nullptr, ws, r0, n_local, D, xb,
-                               nullptr, bmu, alpha, B, xdim, hexa != 0,
-                               gaussian != 0, radius, unit_offset);
+  float wsum[4];
+  accumulate_update<NJ>(acc, wsum, xs, ws, r0, n_local, D, xb, bmu, alpha, B,
+                        xdim, hexa != 0, gaussian != 0, radius, unit_offset);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int u = r0 + warp * 4 + i;
@@ -58,7 +57,7 @@ som_accum_kernel(int n_local, int D, const float* __restrict__ xb,
       const int k = lane + 32 * j;
       if (k < D) acc_out[(size_t)u * D + k] = acc[i][j];
     }
-    if (lane == 0) wsum_out[u] = wsum[i][0];
+    if (lane == 0) wsum_out[u] = wsum[i];
   }
 }
 

@@ -1,9 +1,9 @@
 // The SOM neighbourhood update's device code: the weights, shared by every
-// SOM kernel; accumulate_update, shared by K5/K6 (som_update.cu), K7
-// (som_vmem_steps.cu), K11 (som_accum.cu) and K13/K14
-// (som_fused_factored.cu).  K3
-// (som_fused_step.cu) builds the same weights from staged grid coordinates
-// (grid_x, grid_d2_at, weight_of_d2) for its tensor-core update.
+// SOM kernel; accumulate_update (FP32 FMAs on CUDA cores), shared by K5
+// (som_update.cu), K7 (som_vmem_steps.cu) and K11 (som_accum.cu).  K3
+// (som_fused_step.cu) and K6 (som_update.cu) build the same weights from
+// staged grid coordinates (grid_x, grid_d2_at, weight_of_d2) for their
+// tensor-core updates.
 //
 // W[unit, sample] is built from flat unit indices with the exact-f32 algebra
 // of som_lvq_pak_tpu/ops/pallas_som.py:_neighborhood_w: dx from columns and
@@ -93,28 +93,24 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // Accumulate, for rows r0 + 4 warp + i, acc[i][j] = sum_b W x_b (column
-// lane + 32 j) and the weight mass: wsum[i][0] = sum_b W (kMasked false) or
-// wsum[i][j] = sum_b W keep_b (kMasked true; masked components of x count as
-// 0).  mask is (B, D) uint8, nonzero = masked.  Shared memory: xs[BC][DS],
-// ks[BC][DS] (kMasked only), ws[TN][BC], DS = D | 1 (an odd stride puts
-// each sample's row on distinct banks).  W is evaluated at the GLOBAL unit
-// unit_offset + row (a model-axis shard of a larger map; 0 on a whole map),
-// while rows index the local codebook.
-template <int NJ, bool kMasked>
+// lane + 32 j) and the weight mass wsum[i] = sum_b W.  Shared memory:
+// xs[BC][DS], ws[TN][BC], DS = D | 1 (an odd stride puts each sample's row on
+// distinct banks).  W is evaluated at the GLOBAL unit unit_offset + row (a
+// model-axis shard of a larger map; 0 on a whole map), while rows index the
+// local codebook.
+template <int NJ>
 __device__ __forceinline__ void accumulate_update(
-    float (&acc)[4][NJ], float (&wsum)[4][kMasked ? NJ : 1], float* xs,
-    float* ks, float* ws, int r0, int noc, int D,
-    const float* __restrict__ xb, const unsigned char* __restrict__ mask,
-    const int* __restrict__ bmu, const float* __restrict__ alpha, int B,
-    int xdim, bool hexa, bool gaussian, float radius, int unit_offset = 0) {
+    float (&acc)[4][NJ], float (&wsum)[4], float* xs, float* ws, int r0, int noc,
+    int D, const float* __restrict__ xb, const int* __restrict__ bmu,
+    const float* __restrict__ alpha, int B, int xdim, bool hexa, bool gaussian,
+    float radius, int unit_offset = 0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int DS = D | 1;
   const float r2 = radius * radius;
   const float den = 2.0f * radius * radius;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < (kMasked ? NJ : 1); ++j) wsum[i][j] = 0.f;
+    wsum[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
@@ -123,19 +119,7 @@ __device__ __forceinline__ void accumulate_update(
     __syncthreads();  // previous chunk fully consumed
     for (int e = tid; e < BC * D; e += THREADS) {
       const int s = e / D, k = e % D;
-      const size_t g = (size_t)(s0 + s) * D + k;
-      float xv = 0.f;
-      if (s0 + s < B) {
-        xv = xb[g];
-        if (kMasked) {
-          const bool masked = mask[g] != 0;
-          ks[s * DS + k] = masked ? 0.f : 1.f;
-          if (masked) xv = 0.f;
-        }
-      } else if (kMasked) {
-        ks[s * DS + k] = 0.f;
-      }
-      xs[s * DS + k] = xv;
+      xs[s * DS + k] = (s0 + s < B) ? xb[(size_t)(s0 + s) * D + k] : 0.f;
     }
     for (int e = tid; e < TN * BC; e += THREADS) {
       const int r = e / BC, s = e % BC;
@@ -152,7 +136,7 @@ __device__ __forceinline__ void accumulate_update(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         w[i] = ws[(warp * 4 + i) * BC + s];
-        if (!kMasked) wsum[i][0] += w[i];
+        wsum[i] += w[i];
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -160,11 +144,6 @@ __device__ __forceinline__ void accumulate_update(
         const float xv = (k < D) ? xs[s * DS + k] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] += w[i] * xv;
-        if (kMasked) {
-          const float kv = (k < D) ? ks[s * DS + k] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) wsum[i][kMasked ? j : 0] += w[i] * kv;
-        }
       }
     }
   }

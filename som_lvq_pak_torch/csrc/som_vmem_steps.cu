@@ -137,11 +137,10 @@ som_vmem_steps_kernel(float* __restrict__ codes, int noc, int D,
     // ---- 2. update of the owned tiles (accumulate_update syncs first) -----
     for (int tt = 0; tt < nt; ++tt) {
       float acc[4][NJ];
-      float wsum[4][1];
+      float wsum[4];
       const int r0 = row0 + tt * TN;
-      accumulate_update<NJ, false>(acc, wsum, xs, nullptr, ws, r0, noc, D, xb,
-                                   nullptr, bms, al, B, xdim, hexa != 0,
-                                   gaussian != 0, radius);
+      accumulate_update<NJ>(acc, wsum, xs, ws, r0, noc, D, xb, bms, al, B, xdim,
+                            hexa != 0, gaussian != 0, radius);
       float* tile = tiles + (size_t)tt * TN * D;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -152,7 +151,7 @@ som_vmem_steps_kernel(float* __restrict__ codes, int noc, int D,
           const int k = lane + 32 * j;
           if (k < D) {
             float nc = 0.f;
-            if (u < noc) nc = guarded_blend(tile[r * D + k], acc[i][j], wsum[i][0]);
+            if (u < noc) nc = guarded_blend(tile[r * D + k], acc[i][j], wsum[i]);
             tile[r * D + k] = nc;
             sq += nc * nc;
           }

@@ -6,26 +6,31 @@ All return (sq_dists (B,) float32, indices (B,) int32): the kernel's
 partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
 
 * `dist_argmin` scores ||m||^2 - 2 x.m with a strict-< running min
-  (replaces `_dist_argmin_kernel`), the codebook split across CTAs as K4's
-  is; the trainer's prologue winner, the LVQ steps' and every sharded
-  winner search's.  Given a `mask` it runs `dist_argmin_masked`.
+  (replaces `_dist_argmin_kernel`); the trainer's prologue winner, the LVQ
+  steps' and every sharded winner search's.  Given a `mask` it runs
+  `dist_argmin_masked`.
+* `dist_argmin_t` scores x.m - ||m||^2 / 2 with a strict-> running max and
+  reports -2 * best (replaces `_dist_argmin_t_kernel`); the fast qerror's
+  winner search.
+* K1 and K2 run one kernel body on the tensor cores
+  (`csrc/dist_argmin_t.cu`): split-TF32 products (float32 accuracy), the
+  codebook split across CTAs in whole waves of 128-sample CTAs
+  (`k2_splits`).  Halving and doubling are exact, so
+  -2 fl(x.m - ||m||^2 / 2) = fl(||m||^2 - 2 x.m): the two return the same
+  values and winners bit for bit, on the card and in their plain versions
+  alike.  The JAX package's two forms differ (its K1 takes an XLA-computed
+  ||m||^2), so near-tie winners may differ from its `dist_argmin`.
 * `dist_argmin_masked` scores keep.(m o m) - 2 (x keep).m, where `mask`
   (B, D) is nonzero on masked components (replaces
   `_dist_argmin_masked_kernel`); ||x keep||^2 is added back, so a sample
   with every component masked gets index 0 and value 0.  The masked
-  training step's and the masked qerror's winner search.
-* `dist_argmin_t` scores x.m - ||m||^2 / 2 with a strict-> running max and
-  reports -2 * best (replaces `_dist_argmin_t_kernel`); the fast qerror's
-  winner search.  Its kernel (`csrc/dist_argmin_t.cu`) runs the scores on
-  the tensor cores as split-TF32 products (float32 accuracy) and splits the
-  codebook as K1 does, in whole waves of 128-sample CTAs (`k2_splits`).  The forms round differently,
-  so near-tie winners may differ between them, as they do in the JAX
-  package.
+  training step's and the masked qerror's winner search.  Its kernel (K4,
+  `csrc/dist_argmin.cu`) runs FP32 FMAs on CUDA cores, the codebook split
+  by `codebook_splits`.
 
-A CUDA tensor launches the kernel in `csrc/dist_argmin.cu` (K1, K4) or
-`csrc/dist_argmin_t.cu` (K2); a CPU tensor runs the plain version beside
-it.  Any other device raises.  Each wrapper counts its kernel launches in
-its `launches` attribute.
+A CUDA tensor launches the kernel; a CPU tensor runs the plain version
+beside it.  Any other device raises.  Each wrapper counts its kernel
+launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -126,7 +131,7 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
 
 
 def codebook_splits(B: int, N: int, device: torch.device) -> int:
-    """How many spans of the codebook K1, K4 and K8-K10 split across
+    """How many spans of the codebook K4 and K8-K10 split across
     gridDim.y: enough for about two CTAs of 64 samples per SM, at most one
     64-row tile each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -135,7 +140,7 @@ def codebook_splits(B: int, N: int, device: torch.device) -> int:
 
 
 def k2_splits(B: int, N: int, device: torch.device) -> int:
-    """K2's codebook splits: the rule of `codebook_splits` for its CTAs of
+    """K1's and K2's codebook splits: the rule of `codebook_splits` for their CTAs of
     128 samples, rounded down to whole waves: exactly two of them fit on an
     SM (their registers), so a count that leaves a partial second wave
     costs a whole one (at B 4096, 9 splits would be 288 CTAs on 264 slots
@@ -175,7 +180,7 @@ def dist_argmin(x: torch.Tensor, codes: torch.Tensor,
         return dist_argmin_masked(x, codes, mask)
     if _check(x, codes) == "cpu":
         return dist_argmin_plain(x, codes)
-    return _launch("somvq_dist_argmin", dist_argmin, codebook_splits, x, codes)
+    return _launch("somvq_dist_argmin", dist_argmin, k2_splits, x, codes)
 
 
 def dist_argmin_masked(x: torch.Tensor, codes: torch.Tensor,

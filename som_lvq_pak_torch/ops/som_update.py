@@ -17,9 +17,12 @@ leave every unit's matching component untouched (lvq_pak.c:349-356).
 The codebook is updated IN PLACE, as by K3 (the caller owns the resident
 codebook; each CUDA block reads and writes only its own rows), and returned.
 
-A CUDA tensor launches the kernel in `csrc/som_update.cu`; a CPU tensor
-runs the plain version below.  The wrappers count their kernel launches in
-their `launches` attributes.
+A CUDA tensor launches the kernel in `csrc/som_update.cu`: K5 runs FP32
+FMAs on CUDA cores; K6 runs W.(X o K) and the mass W.K on the tensor cores
+as split-TF32 `mma.sync` products (float32 accuracy; `ops.tf32x3.
+som_update_masked_tf32x3` emulates its sums).  A CPU tensor runs the plain
+version below.  The wrappers count their kernel launches in their
+`launches` attributes.
 """
 
 from __future__ import annotations

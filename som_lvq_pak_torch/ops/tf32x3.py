@@ -1,6 +1,6 @@
-"""A plain emulation of the split-TF32 ("3xTF32") products that K2 and K3
-run on the tensor cores (csrc/tf32x3.cuh), for the tests and chip_smoke.py.
-No main-path code calls it.
+"""A plain emulation of the split-TF32 ("3xTF32") products that K1, K2, K3
+and K6 run on the tensor cores (csrc/tf32x3.cuh), for the tests and
+chip_smoke.py.  No main-path code calls it.
 
 A float32 operand a is split as hi = tf32(a), lo = tf32(a - hi), where
 tf32() rounds to the nearest value with 10 mantissa bits, ties away from
@@ -9,9 +9,11 @@ float32 accumulation, the small terms first.  The kernels accumulate in
 their own order (k-steps of 8 inside the mma), so this emulation matches
 them to float32 rounding, not bit for bit.
 
-`som_fused_train_step_tf32x3` and `dist_argmin_t_tf32x3` are the plain K3
-and K2 with their contractions through `tf32x3_mm`: the numeric design the
-kernels implement, held to the port's gates on the CPU.
+`som_fused_train_step_tf32x3`, `dist_argmin_t_tf32x3`, `dist_argmin_tf32x3`
+and `som_update_masked_tf32x3` are the plain K3, K2, K1 and K6 with their
+contractions through `tf32x3_mm` (K6's weight mass through two products,
+W_lo.K then W_hi.K, K being exact in TF32), summed as the kernels sum: the
+numeric design the kernels implement, held to the port's gates on the CPU.
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ from typing import Tuple
 
 import torch
 
-from .distance import fp32_matmul
+from .distance import fp32_matmul, keep_of
 from .som_step import _alpha_r, guarded_blend, neighborhood_w
+
+# the batch chunk over which K3's and K6's updates sum in the mma before
+# adding into float32 registers
+CHUNK = 32
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -84,3 +90,40 @@ def dist_argmin_t_tf32x3(x: torch.Tensor, codes: torch.Tensor
     x2 = (x * x).sum(-1)
     val = torch.clamp(-2.0 * sc.gather(1, i[:, None])[:, 0] + x2, min=0.0)
     return val, i.to(torch.int32)
+
+
+def dist_argmin_tf32x3(x: torch.Tensor, codes: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain K1 (`dist_argmin_plain`) with its scores x.m through
+    `tf32x3_mm`: (sq_dists, int32 idx).  Bit-equal to `dist_argmin_t_tf32x3`
+    (halving and doubling are exact), as K1 is to K2 on the card."""
+    m2 = (codes * codes).sum(-1)
+    d = m2[None, :] - 2.0 * tf32x3_mm(x, codes.T)
+    i = torch.argmin(d, dim=1)
+    x2 = (x * x).sum(-1)
+    val = torch.clamp(d.gather(1, i[:, None])[:, 0] + x2, min=0.0)
+    return val, i.to(torch.int32)
+
+
+def som_update_masked_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius,
+                             gaussian=False):
+    """The plain K6 (`som_neighborhood_update_idx_plain` with a mask) as the
+    kernel sums: per CHUNK-sample chunk, W.(X o K) by `tf32x3_mm` and the
+    mass W.K as W_lo.K + W_hi.K, each chunk's sums added into the float32
+    totals in batch order; then the guarded blend.  Returns the new float32
+    codebook; `codes` is not changed."""
+    fp32_matmul()
+    dev = codes.device
+    aw, r = _alpha_r(alpha, radius, xb.shape[0], dev)
+    units = torch.arange(codes.shape[0], dtype=torch.int32, device=dev)
+    w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
+    keep = keep_of(mask)
+    xk = xb * keep
+    whi, wlo = tf32_split(w)
+    acc = torch.zeros_like(codes, dtype=torch.float32)
+    mass = torch.zeros_like(acc)
+    for s in range(0, xb.shape[0], CHUNK):
+        acc += tf32x3_mm(w[:, s:s + CHUNK], xk[s:s + CHUNK])
+        kc = keep[s:s + CHUNK]
+        mass += wlo[:, s:s + CHUNK] @ kc + whi[:, s:s + CHUNK] @ kc
+    return guarded_blend(codes.to(torch.float32), acc, mass)

@@ -1,12 +1,15 @@
-"""The numeric design of the split-TF32 kernels K2 and K3 on the CPU (the
-kernels run only on a card): `ops.tf32x3`'s emulation of the split and of
-the two fused contractions, against float64, the port's plain versions and
-the JAX package's kernels in interpret mode.
+"""The numeric design of the split-TF32 kernels K1, K2, K3 and K6 on the CPU
+(the kernels run only on a card): `ops.tf32x3`'s emulation of the split and
+of the kernels' contractions, against float64, the port's plain versions and
+the JAX package's kernels in interpret mode; and the identity K1 rests on:
+the distance form's plain version equals the max-score form's bit for bit.
 
 Tolerances are chip_smoke.py's K3 gates: codebooks allclose at 1e-4,
 winner values at (rtol 1e-4, atol 1e-3), winners equal except where the
 two candidates' float64 distances differ by less than 1e-5 relative; K2's
-values at 1e-4, its winners to the same 1e-5 gap.  The products' bound is
+values at 1e-4, its winners to the same 1e-5 gap; K1's the same.  K6's
+masked update at tests/test_torch_masked.py's update tolerance, 1e-5 (float32
+sums of at most a few hundred terms).  The products' bound is
 (2^-20 + (K + 2) 2^-24) (|a| @ |b|): four terms of at most 2^-22 |a b| each
 from the split, and the float32 sums of K terms."""
 
@@ -17,10 +20,12 @@ import torch
 
 from som_lvq_pak_tpu.ops import pallas_distance as jpd
 from som_lvq_pak_tpu.ops import pallas_som as jps
-from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_t_plain
+from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain, dist_argmin_t_plain
 from som_lvq_pak_torch.ops.som_step import som_fused_train_step_plain
-from som_lvq_pak_torch.ops.tf32x3 import (dist_argmin_t_tf32x3,
-                                          som_fused_train_step_tf32x3, tf32_mm,
+from som_lvq_pak_torch.ops.som_update import som_neighborhood_update_idx_plain
+from som_lvq_pak_torch.ops.tf32x3 import (dist_argmin_t_tf32x3, dist_argmin_tf32x3,
+                                          som_fused_train_step_tf32x3,
+                                          som_update_masked_tf32x3, tf32_mm,
                                           tf32_round, tf32_split, tf32x3_mm)
 
 GAP = 1e-5
@@ -175,3 +180,142 @@ def test_dist_argmin_t_tf32x3_agrees_with_jax(B, N, D, dup):
     assert_gap(x, codes, i.numpy(), pi.numpy())
     if dup:
         assert int(i.max()) < N // 3
+
+
+def _winner_case(B, N, D, seed, dup):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, D)).astype(np.float32)
+    if dup:  # every row three times, and some samples on a code exactly
+        base = rng.normal(size=(N // 3, D)).astype(np.float32)
+        codes = np.concatenate([base, base, base])
+        x[:5] = base[rng.integers(0, N // 3, size=5)]
+    else:
+        codes = rng.normal(size=(N, D)).astype(np.float32)
+    return x, codes
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("B,N,D,dup", [(512, 4096, 64, False), (300, 999, 5, False),
+                                       (256, 2048, 37, False), (300, 999, 5, True),
+                                       (129, 300, 64, True)])
+def test_distance_form_plain_equals_max_score_form_bitwise(B, N, D, dup, seed):
+    """-2 fl(x.m - ||m||^2 / 2) = fl(||m||^2 - 2 x.m): halving and doubling
+    are exact, so the plain K1 and K2 return the same values and winners bit
+    for bit; the kernels share one body on this identity."""
+    x, codes = _winner_case(B, N, D, seed, dup)
+    v1, i1 = dist_argmin_plain(torch.from_numpy(x), torch.from_numpy(codes))
+    v2, i2 = dist_argmin_t_plain(torch.from_numpy(x), torch.from_numpy(codes))
+    np.testing.assert_array_equal(i1.numpy(), i2.numpy())
+    np.testing.assert_array_equal(v1.numpy().view(np.int32), v2.numpy().view(np.int32))
+    if dup:
+        assert int(i1.max()) < N // 3
+
+
+@pytest.mark.parametrize("B,N,D,dup", [(37, 53, 5, False), (200, 130, 64, False),
+                                       (70, 99, 5, True), (129, 300, 64, True),
+                                       (64, 1000, 100, False), (300, 64, 37, False)])
+def test_dist_argmin_tf32x3_agrees_with_jax(B, N, D, dup):
+    """K1's split-TF32 scoring against the JAX distance-form kernel, and bit
+    for bit against K2's split-TF32 scoring."""
+    rng = np.random.default_rng(B * N + D + 1)
+    x = rng.normal(size=(B, D)).astype(np.float32)
+    if dup:  # every row three times: the lowest index must win
+        base = rng.normal(size=(N // 3, D)).astype(np.float32)
+        codes = np.concatenate([base, base, base])
+    else:
+        codes = rng.normal(size=(N, D)).astype(np.float32)
+    v, i = dist_argmin_tf32x3(torch.from_numpy(x), torch.from_numpy(codes))
+    jv, ji = jpd.dist_argmin(_pad128(x), _pad128(codes))
+    assert_gap(x, codes, i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-4, atol=1e-4)
+    pv, pi = dist_argmin_plain(torch.from_numpy(x), torch.from_numpy(codes))
+    assert_gap(x, codes, i.numpy(), pi.numpy())
+    tv, ti = dist_argmin_t_tf32x3(torch.from_numpy(x), torch.from_numpy(codes))
+    np.testing.assert_array_equal(i.numpy(), ti.numpy())
+    np.testing.assert_array_equal(v.numpy().view(np.int32), tv.numpy().view(np.int32))
+    if dup:
+        assert int(i.max()) < N // 3
+
+
+UPDATE_TOL = 1e-5
+
+
+def _update_inputs(xdim, ydim, D, B, seed):
+    """tests/test_torch_masked.py's update inputs with a mask: components
+    masked with probability 0.2, every 7th sample masked entirely."""
+    rng = np.random.default_rng(seed)
+    noc = xdim * ydim
+    codes = rng.normal(size=(noc, D)).astype(np.float32)
+    xb = rng.normal(size=(B, D)).astype(np.float32)
+    bmu = rng.integers(0, noc, size=B).astype(np.int32)
+    bmu[:3] = -1  # samples without a BMU teach nothing
+    alpha = rng.uniform(0.0, 0.1, size=B).astype(np.float32)
+    mask = (rng.random((B, D)) < 0.2).astype(np.uint8)
+    mask[::7] = 1
+    return codes, xb, bmu, alpha, mask
+
+
+def _k6_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius, gaussian):
+    return som_update_masked_tf32x3(
+        torch.from_numpy(codes), torch.from_numpy(xb), torch.from_numpy(bmu),
+        torch.from_numpy(mask), xdim, hexa, torch.from_numpy(alpha), radius,
+        gaussian).numpy()
+
+
+@pytest.mark.parametrize("tiles", [None, (16, 32)])
+@pytest.mark.parametrize("xdim,ydim,hexa,gaussian,radius", [
+    (9, 7, True, True, 2.5),     # ragged: 63 rows
+    (10, 8, True, False, 3.0),   # hexa bubble: exact-boundary pairs at r=3
+    (12, 8, False, False, 3.0),
+    (8, 6, False, True, 3.0),
+])
+def test_masked_update_tf32x3_matches_jax(xdim, ydim, hexa, gaussian, radius, tiles):
+    """K6's numeric design (W.(X o K) by three TF32 products, W.K by two,
+    sums per 32-sample chunk) against the JAX masked update, at
+    test_update_matches_jax's shapes (B 48: a whole chunk and a partial one)
+    and tolerance; a component masked in every sample stays exactly as it
+    was."""
+    D, B = 5, 48
+    codes, xb, bmu, alpha, mask = _update_inputs(xdim, ydim, D, B, seed=xdim * ydim)
+    got = _k6_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius, gaussian)
+    kw = {} if tiles is None else dict(tile_b=tiles[0], tile_n=tiles[1])
+    ref = jps.som_neighborhood_update_idx(
+        jnp.asarray(codes), jnp.asarray(xb), jnp.asarray(bmu), xdim, hexa,
+        jnp.asarray(alpha), radius, gaussian=gaussian, mask=jnp.asarray(mask), **kw)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=UPDATE_TOL, atol=UPDATE_TOL)
+    mask[:, 2] = 1
+    got = _k6_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius, gaussian)
+    np.testing.assert_array_equal(got[:, 2], codes[:, 2])
+
+
+@pytest.mark.parametrize("xdim,ydim,hexa,gaussian,D,B,radius", [
+    (12, 8, True, True, 64, 200, 3.0), (32, 32, False, False, 37, 300, 8.0),
+    (16, 16, True, False, 200, 96, 4.0)])
+def test_masked_update_tf32x3_matches_plain(xdim, ydim, hexa, gaussian, D, B, radius):
+    """At K6's main-path width (D 64), a ragged D and D > 128 (two feature
+    slabs on the card), against the plain float32 update at 1e-5."""
+    codes, xb, bmu, alpha, mask = _update_inputs(xdim, ydim, D, B, seed=D + B)
+    got = _k6_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius, gaussian)
+    want = som_neighborhood_update_idx_plain(
+        torch.from_numpy(codes.copy()), torch.from_numpy(xb), torch.from_numpy(bmu),
+        xdim, hexa, torch.from_numpy(alpha), radius, gaussian,
+        mask=torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=UPDATE_TOL, atol=UPDATE_TOL)
+
+
+def test_masked_update_tf32x3_exact_bubble_boundary():
+    """dx = 1.5, dy = 3 sqrt(0.75), r = 3: d2 = r^2 exactly, so the unit is
+    inside the bubble; W = 0.5 and K are exact in TF32, so the split sums
+    give the JAX kernel's codebook bit for bit, the masked component kept."""
+    xdim, ydim, D = 8, 6, 3
+    codes = np.zeros((xdim * ydim, D), np.float32)
+    xb = np.ones((1, D), np.float32)
+    bmu = np.array([2], np.int32)               # column 2, row 0
+    mask = np.array([[0, 1, 0]], np.uint8)
+    got = _k6_tf32x3(codes, xb, bmu, mask, xdim, True, np.array([0.5], np.float32),
+                     3.0, False)
+    np.testing.assert_array_equal(got[3 * xdim + 3], [0.5, 0.0, 0.5])
+    ref = jps.som_neighborhood_update_idx(
+        jnp.asarray(codes), jnp.asarray(xb), jnp.asarray(bmu), xdim, True, 0.5, 3.0,
+        gaussian=False, mask=jnp.asarray(mask))
+    np.testing.assert_array_equal(got, np.asarray(ref))
