@@ -24,8 +24,9 @@ phases, each printing one JSON line:
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             one "sass" line: the HMMA (tensor-core) instructions in each
-            instantiation of the split-TF32 kernels K3, K2, K1 and K6, from
-            cuobjdump --dump-sass of the library (none fails the run);
+            instantiation of the tensor-core kernels K3, K2, K1, K6, K16 and
+            K17, from cuobjdump --dump-sass of the library (none fails the
+            run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
@@ -43,9 +44,10 @@ phases, each printing one JSON line:
             distance from the blend taken in float64.  K1, K2, K4, K8, K9
             and K10 carry library_ms at their record's shape: torch.addmm
             (keep @ (m o m)^T as its input under a mask), then argmin,
-            argmax or topk, in the plain versions' row chunks; K5, K6 and
-            K11 the plain version's time, which is that chain
-            (neighborhood_w, FP32 cuBLAS products, the blend).  K2
+            argmax or topk, in the plain versions' row chunks; K3, K5-K7
+            and K11-K14 the plain version's time, which is that chain
+            (neighborhood_w, FP32 cuBLAS products, the blend, the
+            winners).  K2
             also runs at a 16384-row StreamingReader chunk.  K7
             (som_vmem_train_steps) runs at bench.py:prep_vmem_steps's
             geometry (where it is also held against K chained K3 launches),
@@ -84,12 +86,20 @@ phases, each printing one JSON line:
             codebook widened to float32 (its bound: the update at the FP32 or
             BF16 peak plus the winners at the INT8 peak, 1979 TOP/s).  K15 and K16
             (int8/f32_winner_probe) at tools/int8_probe.py's 65536 x 64 x
-            4096, at 999 x 5 x 1000 and with every row twice, bit-equal to
-            plain, with library_ms (torch._int_mm / torch.mm, then amax).
-            K17 (fused_step_skeleton) at bench.py's twins, 256x256 B 4096
-            float32 and B 8192 bf16 (at scale 1: out within 1e-4, vmax within
-            1e-4 relative of its own out's scoring; its bound: W.X once and
-            out.x', though it redoes W.X for every tile as bench.py's does),
+            4096, at 999 x 5 x 1000, with every row twice and at 1000 x 130
+            x 999, bit-equal to plain and to a rerun, with library_ms (torch._int_mm / torch.mm,
+            then amax); K16 also on normal floats at 65536 x 64 x 4096,
+            within PROBE_F32_REL of the float64 plain version, and with its
+            split-TF32 route's bound and share.  K17 (fused_step_skeleton) at
+            bench.py's twins, 256x256 B 4096 float32 and B 8192 bf16, and
+            both types at four ragged shapes, D 5 to 200, with an x' of
+            their own (at scale 1: out within 1e-4, vmax within 1e-4 relative of its own
+            out's scoring; bit-equal to a rerun; its bound: W.X once and
+            out.x', though it redoes W.X for every tile as bench.py's does;
+            its route's bound: the 4 N B D FLOPs it issues, three TF32
+            products each in float32 and one in bf16; library_ms: the
+            PyTorch chain w @ x, the gather-add, one mm and amax, which is
+            what the plain version runs at these shapes),
             and one "attainable_pct" line (100 * skeleton ms / step ms) for
             K14 at B 4096 and 8192 and K3 at the 1M step.  Then their memory
             is handed back (gc, torch.cuda.empty_cache), as before the mesh
@@ -228,9 +238,15 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32: K3, K2,
-# K1 (K2's body under its own name) and K6
+# K1 (K2's body under its own name), K6, K16 (K2's body without the norm) and
+# K17 (its bf16 twin as one TF32 product)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
-                      "dist_argmin_kernel", "som_update_masked_kernel")
+                      "dist_argmin_kernel", "som_update_masked_kernel",
+                      "f32_winner_probe_kernel", "fused_skeleton_kernel")
+
+# K16 on normal float32 inputs: within this relative gap of the float64
+# maximum (split TF32 is about 2^-21 relative per product, float32 sums of 64)
+PROBE_F32_REL = 1e-5
 
 
 def emit(phase: str, **kw) -> None:
@@ -310,8 +326,8 @@ def library_winners(x, codes, form, k=2, mask=None):
 
 
 def sass_hmma(library: str) -> dict:
-    """Tensor-core use of the split-TF32 kernels (K3 som_fused_step_kernel,
-    K2 dist_argmin_t_kernel), read from the built library's SASS with
+    """Tensor-core use of the split-TF32 kernels (SPLIT_TF32_KERNELS), read
+    from the built library's SASS with
     cuobjdump (ncu does not run on every host): the HMMA instructions in
     each of their instantiations, by mangled name from the kernel's name on.
     Raises if an instantiation has none, or if none is found."""
@@ -664,6 +680,10 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                        route_flops=3 * 4 * noc * B * D if tf32x3 else None))
     if tf32x3:
         rec.update(route_pct(rec))
+    # the plain version is the PyTorch call chain of the same function
+    # (neighborhood_w or the separable factors, FP32 cuBLAS products, the
+    # blend, the winners)
+    rec["library_ms"] = rec["plain_ms"]
     emit("kernels", **rec)
     return rec
 
@@ -805,65 +825,109 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
                **bound(2 * noc * B * D, 2 * cb * noc * D + 5 * B * D + 16 * B,
                        PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS,
                        int8_ops=2 * noc * B * D))
+    rec["library_ms"] = rec["plain_ms"]  # the plain step with int8 winners: that chain
     emit("kernels", **rec)
     return rec
 
 
-def phase_probe(name, kernel, plain, library, dtype, N, D, B, seed, dup=False, iters=10):
+def phase_probe(name, kernel, plain, library, dtype, N, D, B, seed, dup=False, iters=10,
+                normal=False):
     """K15 (int8) or K16 (float32, on integer values) against its plain
-    version, bit for bit; with `dup` every row is there twice.  library_ms:
-    one PyTorch call of the same function (`library`), where given."""
+    version, bit for bit, and against a rerun on the same inputs; with `dup`
+    every row is there twice.  With `normal` (K16) m and x are normal floats
+    instead, held within PROBE_F32_REL of the float64 plain version.
+    library_ms: one PyTorch call of the same function (`library`), where
+    given.  K16 also carries its split-TF32 route's bound (three TF32
+    products per float32 product) and share."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    m = torch.randint(-127, 128, (N // 2 if dup else N, D), generator=g, device="cuda",
-                      dtype=torch.int8)
-    if dup:
-        m = torch.cat([m, m]).contiguous()
-    x = torch.randint(-127, 128, (D, B), generator=g, device="cuda", dtype=torch.int8)
-    m, x = m.to(dtype), x.to(dtype)
+    if normal:
+        m = torch.randn((N, D), generator=g, device="cuda")
+        x = torch.randn((D, B), generator=g, device="cuda")
+    else:
+        m = torch.randint(-127, 128, (N // 2 if dup else N, D), generator=g, device="cuda",
+                          dtype=torch.int8)
+        if dup:
+            m = torch.cat([m, m]).contiguous()
+        x = torch.randint(-127, 128, (D, B), generator=g, device="cuda", dtype=torch.int8)
+        m, x = m.to(dtype), x.to(dtype)
     got, want = kernel(m, x), plain(m, x)
+    again = kernel(m, x)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name} {N}x{D}x{B}: differs from plain by "
-                             f"{float((got.double() - want.double()).abs().max())}")
+    label = f"{name} {N}x{D}x{B}" + (" normal" if normal else "")
+    err = float((got.double() - want.double()).abs().max())
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
+    if normal:
+        rel = float(((got.double() - want.double()).abs() / want.double().abs()).max())
+        if not rel <= PROBE_F32_REL:
+            raise AssertionError(f"{label}: {rel} relative from float64, over "
+                                 f"{PROBE_F32_REL}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{label}: differs from plain by {err}")
     es = m.element_size()
     # 2 N D B multiply-adds at the operand type's peak; m and x read once,
     # the (B,) maxima written
-    rec = dict(kernel=name, shape=[N, D, B], dup=dup, max_abs_err=0.0,
+    split_tf32 = dtype == torch.float32
+    rec = dict(kernel=name, shape=[N, D, B], dup=dup, normal=normal, max_abs_err=err,
+               bit_equal_rerun=True,
+               **({"max_rel_err": rel} if normal else {}),
                ms=cuda_ms(lambda: kernel(m, x), iters),
                plain_ms=cuda_ms(lambda: plain(m, x), iters),
                **bound(2 * N * D * B, es * (N * D + D * B) + 4 * B,
-                       PEAK_INT8_OPS if dtype == torch.int8 else PEAK_FP32_FLOPS))
+                       PEAK_FP32_FLOPS if split_tf32 else PEAK_INT8_OPS,
+                       route_flops=3 * 2 * N * D * B if split_tf32 else None))
+    if split_tf32:
+        rec.update(route_pct(rec))
     if library is not None:
         rec["library_ms"] = cuda_ms(lambda: library(m, x), iters)
     emit("kernels", **rec)
     return rec
 
 
-def phase_skeleton(B, bf16, seed, N=65536, D=64, T=256, iters=10):
+def phase_skeleton(B, bf16, seed, N=65536, D=64, T=256, iters=10, Bn=None):
     """K17 against its plain version at bench.py:prep_skeleton's shapes (W
-    uniform * 0.001, X normal, X' = X): at scale 1.0 out within 1e-4, and
+    uniform * 0.001, X normal, X' = X; with `Bn`, X' is Bn normal samples of
+    its own): at scale 1.0 out within 1e-4, and
     vmax within 1e-4 relative of the plain scoring of the kernel's own out
     (and, in float32, of the plain run's: two outs equal to 1e-6 may round to
-    neighbouring bf16 values); timed at the default scale 1e-30."""
+    neighbouring bf16 values), and a rerun bit-equal; timed at the default
+    scale 1e-30.  Its route's bound: the 4 N B D FLOPs the kernel issues
+    (W.X for every tile, as bench.py's kernel), three TF32 products each for
+    float32 operands, one for bf16 (exact in TF32); library_ms: the PyTorch
+    chain of the same function under fp32_matmul(), W.X once by one mm, the
+    gather-add, one mm and amax (the plain version's chain: at these shapes
+    its row blocks are one block).  At the bench shapes also update_ms and
+    winners_ms: the kernel with x' or W and X cut to 64 samples, each of its
+    two contractions nearly alone."""
     import torch
 
     from som_lvq_pak_torch.ops.skeleton import (fused_step_skeleton,
                                                 fused_step_skeleton_plain)
+
+    def chain(codes, w, x, xn, scale=1e-30):
+        acc = w.to(torch.float32) @ x.to(torch.float32)
+        out = codes + acc[torch.arange(codes.shape[0], device="cuda") % w.shape[0]] * scale
+        return out, (out.to(xn.dtype).to(torch.float32) @ xn.to(torch.float32).T).amax(0)
 
     dt = torch.bfloat16 if bf16 else torch.float32
     g = torch.Generator(device="cuda").manual_seed(seed)
     codes = torch.randn((N, D), generator=g, device="cuda")
     w = (torch.rand((T, B), generator=g, device="cuda") * 0.001).to(dt)
     x = torch.randn((B, D), generator=g, device="cuda").to(dt)
-    name = f"fused_step_skeleton {N}x{D} B {B} {'bf16' if bf16 else 'float32'}"
+    xn = x if Bn is None else torch.randn((Bn, D), generator=g, device="cuda").to(dt)
+    name = f"fused_step_skeleton {N}x{D} B {B} {'bf16' if bf16 else 'float32'}" + (
+        "" if Bn is None else f" T {T} B' {Bn}")
     errs = []
     for scale in (1.0, 1e-30):
-        ok, vk = fused_step_skeleton(codes, w, x, x, scale)
-        op, vp = fused_step_skeleton_plain(codes, w, x, x, scale)
-        v_own = fused_step_skeleton_plain(ok, w, x, x, 0.0)[1]  # out = ok exactly
+        ok, vk = fused_step_skeleton(codes, w, x, xn, scale)
+        o2, v2 = fused_step_skeleton(codes, w, x, xn, scale)
+        op, vp = fused_step_skeleton_plain(codes, w, x, xn, scale)
+        v_own = fused_step_skeleton_plain(ok, w, x, xn, 0.0)[1]  # out = ok exactly
         torch.cuda.synchronize()
+        if not (torch.equal(ok, o2) and torch.equal(vk, v2)):
+            raise AssertionError(f"{name} scale {scale}: two runs on the same inputs differ")
         errs.append(float((ok - op).abs().max()))
         want = (v_own,) if bf16 else (v_own, vp)
         if not (torch.allclose(ok, op, rtol=1e-4, atol=1e-4)
@@ -876,12 +940,22 @@ def phase_skeleton(B, bf16, seed, N=65536, D=64, T=256, iters=10):
     # (2 T B D; the kernel, like bench.py's, redoes it for each of the N / T
     # tiles) and out.x' (2 N B D); codes read and out written, W, X and X'
     # read once, vmax written
-    rec = dict(kernel=name, shape=[N, B, D], max_abs_err=max(errs),
-               ms=cuda_ms(lambda: fused_step_skeleton(codes, w, x, x), iters),
-               plain_ms=cuda_ms(lambda: fused_step_skeleton_plain(codes, w, x, x), iters),
-               **bound(2 * T * B * D + 2 * N * B * D,
-                       8 * N * D + es * (T * B + 2 * B * D) + 4 * B,
-                       PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS))
+    Bn = xn.shape[0]
+    rec = dict(kernel=name, shape=[N, B, D], max_abs_err=max(errs), bit_equal_rerun=True,
+               ms=cuda_ms(lambda: fused_step_skeleton(codes, w, x, xn), iters),
+               plain_ms=cuda_ms(lambda: fused_step_skeleton_plain(codes, w, x, xn), iters),
+               **bound(2 * T * B * D + 2 * N * Bn * D,
+                       8 * N * D + es * (T * B + B * D + Bn * D) + 4 * Bn,
+                       PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS,
+                       route_flops=(1 if bf16 else 3) * 2 * N * (B + Bn) * D))
+    rec.update(route_pct(rec))
+    rec["library_ms"] = cuda_ms(lambda: chain(codes, w, x, xn), iters)
+    if xn is x:  # where the time goes: each contraction with the other cut to 64
+        w64, x64 = w[:, :64].contiguous(), x[:64].contiguous()
+        rec.update(update_ms=cuda_ms(lambda: fused_step_skeleton(codes, w, x, xn[:64]),
+                                     iters),
+                   winners_ms=cuda_ms(lambda: fused_step_skeleton(codes, w64, x64, xn),
+                                      iters))
     emit("kernels", **rec)
     return rec
 
@@ -965,12 +1039,25 @@ def option_phases(recs):
                           dup=dup)
               for shape, seed, dup in (((65536, 64, 4096), 60, False),
                                        ((999, 5, 1000), 61, False),
-                                       ((1000, 5, 999), 62, True))]
+                                       ((1000, 5, 999), 62, True),
+                                       ((1000, 130, 999), 66, False))]
+        if dt == torch.float32:  # K16 on normal floats, held to PROBE_F32_REL
+            r = phase_probe(name, k, p, None, dt, 65536, 64, 4096, seed=65, normal=True)
+            rs[0] = dict(rs[0], max_rel_err_normal=r["max_rel_err"])
         recs[name] = rs[0]
     # K17 at bench.py's twins of the headline steps: B 4096 float32 (its
-    # record), B 8192 bf16
+    # record), B 8192 bf16; then both types at ragged shapes with an x' of
+    # its own (D 5, 37, 130, 200: every width class; B not a multiple of 8:
+    # W read element by element, an odd bf16 chunk)
     sk = [phase_skeleton(4096, False, seed=63), phase_skeleton(8192, True, seed=64)]
-    recs["fused_step_skeleton"] = dict(sk[0], max_abs_err=max(r["max_abs_err"] for r in sk))
+    small = [phase_skeleton(B, bf16, seed=70 + j, N=N, D=D, T=T, Bn=Bn, iters=3)
+             for j, (N, D, T, B, Bn) in enumerate(((1000, 37, 100, 333, 257),
+                                                  (777, 5, 64, 1000, 999),
+                                                  (500, 130, 256, 513, 130),
+                                                  (300, 200, 7, 64, 100)))
+             for bf16 in (False, True)]
+    recs["fused_step_skeleton"] = dict(
+        sk[0], max_abs_err=max(r["max_abs_err"] for r in sk + small))
     return sk
 
 
@@ -1158,6 +1245,7 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
                        8 * noc * D + 4 * (K + 1) * B * D + 4 * K * B + 4 * K + 8 * B))
     if vs_k3:
         rec["k3_chain_ms"] = cuda_ms(lambda: k3_chain(work))
+    rec["library_ms"] = rec["plain_ms"]  # K chained plain K3 steps: that chain
     emit("kernels", **rec)
     return rec
 
@@ -1299,6 +1387,7 @@ def phase_blend(n_local, D, Bn, seed, dup=False):
                ms=cuda_ms(lambda: som_blend_winner(work, acc, wsum, xn)),
                plain_ms=cuda_ms(lambda: som_blend_winner_plain(work, acc, wsum, xn)),
                **bound(2 * n_local * Bn * D, 12 * n_local * D + 4 * n_local + 4 * Bn * D + 8 * Bn))
+    rec["library_ms"] = rec["plain_ms"]  # the blend, one mm, argmax: that chain
     emit("kernels", **rec)
     return rec
 
@@ -2691,7 +2780,7 @@ def main() -> int:
             "som_lvq_pak_tpu/ops/pallas_som.py:1117"),
         "int8_winner_probe": ("som_lvq_pak_torch/csrc/winner_probe.cu",
                               "tools/int8_probe.py:95"),
-        "f32_winner_probe": ("som_lvq_pak_torch/csrc/winner_probe.cu",
+        "f32_winner_probe": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",
                              "tools/int8_probe.py:154"),
         "fused_step_skeleton": ("som_lvq_pak_torch/csrc/fused_skeleton.cu",
                                 "bench.py:505")}

@@ -56,8 +56,8 @@ _SIGNATURES = {
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # m, x, N, D, B, out, stream
     "somvq_int8_winner_probe": [_P, _P, _I, _I, _I, _P, _P],
-    # m, x, N, D, B, keys, out, stream
-    "somvq_f32_winner_probe": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # m, x, N, D, B, splits, keys, out, stream
+    "somvq_f32_winner_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # codes, N, D, w, T_rows, x, B, xn, Bn, bf16, scale, out, vkeys, vmax,
     # stream
     "somvq_fused_skeleton": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,

@@ -1,12 +1,15 @@
 // K1 and K2: the 1-NN winner search on the tensor cores.  For each sample
 // x_b, the codebook row m_n that minimises ||x_b - m_n||^2 (the lowest n on
 // exact ties), reported as the partial distance ||m_n||^2 - 2 x_b.m_n.
+// K16: the same body's maximum of x_b.m_n alone.
 //
 // Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
 //   * _dist_argmin_kernel (wrapper dist_argmin, the distance form
 //     ||m||^2 - 2 x.m with a strict-< running min)     -> dist_argmin_kernel (K1)
 //   * _dist_argmin_t_kernel (wrapper dist_argmin_t, the max-score form
 //     x.m - ||m||^2 / 2, reported as -2 * the best)   -> dist_argmin_t_kernel (K2)
+// and tools/int8_probe.py's `kern32` (:154, out[b] = max_n m[n].x[:, b], x
+// stored (D, B))                                     -> f32_winner_probe_kernel (K16)
 // The two forms give the same floats here: halving and doubling are exact, so
 // -2 fl(x.m - ||m||^2 / 2) = fl(||m||^2 - 2 x.m) for the same x.m and ||m||^2,
 // and a strict > on the score over ascending codes is a strict < on the
@@ -14,7 +17,14 @@
 // two names so that a profile tells the trainers' and LVQ steps' winners (K1)
 // from the fast qerror's (K2); both return the same (value, index) bit for
 // bit on the same inputs.  K4, the masked distance form, stays on CUDA cores
-// in dist_argmin.cu.
+// in dist_argmin.cu.  K16 is the third instantiation: no norm (the score is
+// the plain dot product), x read as (D, B), and only the value kept: -2 *
+// the best score is exact, and halved back exactly on unpacking.  On the
+// probe's integer inputs (|v| <= 127) lo is zero and every partial sum is an
+// integer below 2^24, so each product and sum is exact and K16 equals the
+// float64 maximum bit for bit.  (On CUDA cores, one sample per thread and
+// FP32 FMAs from shared broadcasts, it ran at 23 TFLOP/s, level with cuBLAS
+// SGEMM then amax on an H100.)
 //
 // What bounds it on H100: the contraction x.m^T (B x N x D).  On CUDA cores
 // (the earlier 4 x 4 FP32 micro-tile, two shared loads per FMA pair) it ran
@@ -77,8 +87,9 @@ struct K2Smem {
 
 // The A fragments of slab `sl` for the warp's samples b0..b0+15, split:
 // a0 (sample g, feature t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-// of each k-step, zero past B and D.
-template <int KT>
+// of each k-step, zero past B and D; x stored (B, D), or (D, B) with kXT
+// (strided loads, once per walk)
+template <int KT, bool kXT>
 __device__ __forceinline__ void load_x(float (&ahi)[KT][4], float (&alo)[KT][4],
                                        const float* __restrict__ x, int B, int D,
                                        int b0, int sl, int lane) {
@@ -89,8 +100,8 @@ __device__ __forceinline__ void load_x(float (&ahi)[KT][4], float (&alo)[KT][4],
     for (int q = 0; q < 4; ++q) {
       const int b = b0 + g + 8 * (q & 1);
       const int k = sl * 8 * KT + 8 * ks + t + 4 * (q >> 1);
-      split_tf32((b < B && k < D) ? __ldg(x + (size_t)b * D + k) : 0.f, ahi[ks][q],
-                 alo[ks][q]);
+      const size_t i = kXT ? (size_t)k * B + b : (size_t)b * D + k;
+      split_tf32((b < B && k < D) ? __ldg(x + i) : 0.f, ahi[ks][q], alo[ks][q]);
     }
 }
 
@@ -118,7 +129,8 @@ __device__ __forceinline__ void prefetch(float* raw, const float* __restrict__ c
   cp_async_commit();
 }
 
-template <int KT>
+// kNorm: the score x.m - ||m||^2 / 2 (K1, K2), else x.m (K16); kXT: x (D, B)
+template <int KT, bool kNorm, bool kXT>
 __device__ __forceinline__ void argmin_tc(const float* __restrict__ x,
                                           const float* __restrict__ codes, int B,
                                           int N, int D, int n_span,
@@ -142,7 +154,7 @@ __device__ __forceinline__ void argmin_tc(const float* __restrict__ x,
   const int nitems = ntiles * nslab;  // item = (tile, slab), slab fastest
 
   float ahi[KT][4], alo[KT][4];
-  if (nslab == 1) load_x<KT>(ahi, alo, x, B, D, b0, 0, lane);
+  if (nslab == 1) load_x<KT, kXT>(ahi, alo, x, B, D, b0, 0, lane);
   float best[2] = {-INFINITY, -INFINITY};
   int bidx[2] = {INT_MAX, INT_MAX};
   float S[kTNC / 8][4];
@@ -166,13 +178,16 @@ __device__ __forceinline__ void argmin_tc(const float* __restrict__ x,
         split_tf32(v, hi, lo);
         chi[r * DC + f] = hi;
         clo[r * DC + f] = lo;
-        sq += v * v;
+        if (kNorm) sq += v * v;
       }
+      if (kNorm) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-      if (lane == 0) m2s[r] = sl == 0 ? sq : m2s[r] + sq;
+        for (int off = 16; off > 0; off >>= 1)
+          sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        if (lane == 0) m2s[r] = sl == 0 ? sq : m2s[r] + sq;
+      }
     }
-    if (nslab > 1) load_x<KT>(ahi, alo, x, B, D, b0, sl, lane);
+    if (nslab > 1) load_x<KT, kXT>(ahi, alo, x, B, D, b0, sl, lane);
     if (sl == 0) {
 #pragma unroll
       for (int n = 0; n < kTNC / 8; ++n)
@@ -199,7 +214,7 @@ __device__ __forceinline__ void argmin_tc(const float* __restrict__ x,
         for (int q = 0; q < 4; ++q) {
           const int c = 8 * n + 2 * t + (q & 1), h = q >> 1;
           if (c < rows) {
-            const float sc = S[n][q] - 0.5f * m2s[c];
+            const float sc = kNorm ? S[n][q] - 0.5f * m2s[c] : S[n][q];
             if (sc > best[h]) {
               best[h] = sc;
               bidx[h] = n0 + c;
@@ -229,13 +244,14 @@ __device__ __forceinline__ void argmin_tc(const float* __restrict__ x,
 }
 
 // K1 (the distance form's wrapper dist_argmin) and K2 (dist_argmin_t): one
-// body, two names
+// body, two names; K16 (f32_winner_probe) the body without the norm, on x
+// stored (D, B)
 template <int KT>
 __global__ void __launch_bounds__(kThreads, 2)
 dist_argmin_kernel(const float* __restrict__ x, const float* __restrict__ codes,
                    int B, int N, int D, int n_span,
                    unsigned long long* __restrict__ keys) {
-  argmin_tc<KT>(x, codes, B, N, D, n_span, keys);
+  argmin_tc<KT, true, false>(x, codes, B, N, D, n_span, keys);
 }
 
 template <int KT>
@@ -243,14 +259,34 @@ __global__ void __launch_bounds__(kThreads, 2)
 dist_argmin_t_kernel(const float* __restrict__ x, const float* __restrict__ codes,
                      int B, int N, int D, int n_span,
                      unsigned long long* __restrict__ keys) {
-  argmin_tc<KT>(x, codes, B, N, D, n_span, keys);
+  argmin_tc<KT, true, false>(x, codes, B, N, D, n_span, keys);
 }
 
-template <int KT, bool kK1>
+template <int KT>
+__global__ void __launch_bounds__(kThreads, 2)
+f32_winner_probe_kernel(const float* __restrict__ x, const float* __restrict__ codes,
+                        int B, int N, int D, int n_span,
+                        unsigned long long* __restrict__ keys) {
+  argmin_tc<KT, false, true>(x, codes, B, N, D, n_span, keys);
+}
+
+enum Kind { kK1, kK2, kK16 };
+
+// K16's read-back: the value of each key, -2 * the best x.m, halved back
+// (exact; 0 - v turns a zero into +0)
+__global__ void unpack_probe(const unsigned long long* __restrict__ keys, int n,
+                             float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 0.f - 0.5f * unorder_bits((unsigned int)(keys[i] >> 32));
+}
+
+template <int KT, Kind kKind>
 int launch_t(const float* x, const float* codes, int B, int N, int D, int splits,
              unsigned long long* keys, cudaStream_t stream) {
   const size_t smem = K2Smem<KT>::bytes();
-  auto kernel = kK1 ? dist_argmin_kernel<KT> : dist_argmin_t_kernel<KT>;
+  auto kernel = kKind == kK1   ? dist_argmin_kernel<KT>
+                : kKind == kK2 ? dist_argmin_t_kernel<KT>
+                               : f32_winner_probe_kernel<KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -263,7 +299,8 @@ int launch_t(const float* x, const float* codes, int B, int N, int D, int splits
   return (int)cudaGetLastError();
 }
 
-template <bool kK1>
+// val and idx from the keys (K1, K2); K16 writes its maxima to val
+template <Kind kKind>
 int search(const float* x, const float* codes, int B, int N, int D, int splits,
            unsigned long long* keys, float* val, int* idx, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || D <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
@@ -271,12 +308,15 @@ int search(const float* x, const float* codes, int B, int N, int D, int splits,
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int k8 = (D + 7) / 8;
-  rc = k8 <= 1   ? launch_t<1, kK1>(x, codes, B, N, D, splits, keys, stream)
-       : k8 <= 2 ? launch_t<2, kK1>(x, codes, B, N, D, splits, keys, stream)
-       : k8 <= 4 ? launch_t<4, kK1>(x, codes, B, N, D, splits, keys, stream)
-                 : launch_t<8, kK1>(x, codes, B, N, D, splits, keys, stream);
+  rc = k8 <= 1   ? launch_t<1, kKind>(x, codes, B, N, D, splits, keys, stream)
+       : k8 <= 2 ? launch_t<2, kKind>(x, codes, B, N, D, splits, keys, stream)
+       : k8 <= 4 ? launch_t<4, kKind>(x, codes, B, N, D, splits, keys, stream)
+                 : launch_t<8, kKind>(x, codes, B, N, D, splits, keys, stream);
   if (rc) return rc;
-  unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
+  if (kKind == kK16)
+    unpack_probe<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val);
+  else
+    unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
   return (int)cudaGetLastError();
 }
 
@@ -287,7 +327,7 @@ extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B,
                                  int N, int D, int splits,
                                  unsigned long long* keys, float* val, int* idx,
                                  cudaStream_t stream) {
-  return search<true>(x, codes, B, N, D, splits, keys, val, idx, stream);
+  return search<kK1>(x, codes, B, N, D, splits, keys, val, idx, stream);
 }
 
 // K2; keys: (B,) u64 scratch; val gets -2 * the best score x.m - ||m||^2 / 2,
@@ -296,5 +336,13 @@ extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B,
                                    int N, int D, int splits,
                                    unsigned long long* keys, float* val, int* idx,
                                    cudaStream_t stream) {
-  return search<false>(x, codes, B, N, D, splits, keys, val, idx, stream);
+  return search<kK2>(x, codes, B, N, D, splits, keys, val, idx, stream);
+}
+
+// K16: m (N, D) float32 (the codebook of the walk), x (D, B) float32 (the
+// samples); keys: (B,) u64 scratch; out (B,) float32 gets max_n m[n].x[:, b]
+extern "C" int somvq_f32_winner_probe(const float* m, const float* x, int N, int D,
+                                      int B, int splits, unsigned long long* keys,
+                                      float* out, cudaStream_t stream) {
+  return search<kK16>(x, m, B, N, D, splits, keys, out, nullptr, stream);
 }

@@ -10,10 +10,12 @@
 //
 // What bounds it on H100: the two contractions, acc = W.X (noc x B x D) and
 // the scores tile.X'^T (noc x B' x D).  On CUDA cores they ran at 10 FP32
-// TFLOP/s (the matmul-only skeleton K17 took 90% of the step), so both now
-// run on the tensor cores as split-TF32 mma.sync (tf32x3.cuh): three TF32
-// products per float32 product, float32 accumulators, float32 accuracy
-// (about 2^-21 relative per product), a 495 / 3 = 165 TFLOP/s ceiling.
+// TFLOP/s (the matmul-only skeleton K17, then on CUDA cores too, took 90% of
+// that step), so both now run on the tensor cores as split-TF32 mma.sync
+// (tf32x3.cuh; K17 since runs the same route without the W generation, the
+// blend and the argmin, fused_skeleton.cu): three TF32 products per float32
+// product, float32 accumulators, float32 accuracy (about 2^-21 relative per
+// product), a 495 / 3 = 165 TFLOP/s ceiling.
 // mma.sync itself issues TF32 at two thirds of that peak on an H100
 // (mma_probe.py), and the step reaches about 30% of what it issues
 // (chip_smoke.py's route_pct, about a fifth of the peak, at 256x256 B

@@ -1,5 +1,5 @@
-"""A plain emulation of the split-TF32 ("3xTF32") products that K1, K2, K3
-and K6 run on the tensor cores (csrc/tf32x3.cuh), for the tests and
+"""A plain emulation of the split-TF32 ("3xTF32") products that K1, K2, K3,
+K6, K16 and K17 run on the tensor cores (csrc/tf32x3.cuh), for the tests and
 chip_smoke.py.  No main-path code calls it.
 
 A float32 operand a is split as hi = tf32(a), lo = tf32(a - hi), where
@@ -9,11 +9,14 @@ float32 accumulation, the small terms first.  The kernels accumulate in
 their own order (k-steps of 8 inside the mma), so this emulation matches
 them to float32 rounding, not bit for bit.
 
-`som_fused_train_step_tf32x3`, `dist_argmin_t_tf32x3`, `dist_argmin_tf32x3`
-and `som_update_masked_tf32x3` are the plain K3, K2, K1 and K6 with their
-contractions through `tf32x3_mm` (K6's weight mass through two products,
-W_lo.K then W_hi.K, K being exact in TF32), summed as the kernels sum: the
-numeric design the kernels implement, held to the port's gates on the CPU.
+`som_fused_train_step_tf32x3`, `dist_argmin_t_tf32x3`, `dist_argmin_tf32x3`,
+`som_update_masked_tf32x3`, `fused_step_skeleton_tf32x3` and
+`f32_winner_probe_tf32x3` are the plain K3, K2, K1, K6, K17 and K16 with
+their contractions through `tf32x3_mm` (K6's weight mass through two
+products, W_lo.K then W_hi.K, K being exact in TF32; K17's bf16 operands
+through one `tf32_mm` pass, a bf16 value being exact in TF32), summed as the
+kernels sum: the numeric design the kernels implement, held to the port's
+gates on the CPU.
 """
 
 from __future__ import annotations
@@ -127,3 +130,37 @@ def som_update_masked_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius,
         kc = keep[s:s + CHUNK]
         mass += wlo[:, s:s + CHUNK] @ kc + whi[:, s:s + CHUNK] @ kc
     return guarded_blend(codes.to(torch.float32), acc, mass)
+
+
+def fused_step_skeleton_tf32x3(codes, w, x, xn, scale: float = 1e-30
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain K17 (`fused_step_skeleton_plain`) as the kernel sums: W.X
+    per CHUNK-sample chunk, each chunk's sums added into the float32 totals
+    in batch order, then the rows (rounded to x''s type) scored against x';
+    float32 operands through `tf32x3_mm`, bf16 ones through one `tf32_mm`
+    pass.  Returns (out, vmax)."""
+    fp32_matmul()
+    mm = tf32_mm if w.dtype == torch.bfloat16 else tf32x3_mm
+    wf, xf = w.to(torch.float32), x.to(torch.float32)
+    acc = torch.zeros((w.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=codes.device)
+    for s in range(0, x.shape[0], CHUNK):
+        acc += mm(wf[:, s:s + CHUNK], xf[s:s + CHUNK])
+    rows = torch.arange(codes.shape[0], device=codes.device) % w.shape[0]
+    out = codes + acc[rows] * scale
+    cw = out.to(xn.dtype).to(torch.float32)
+    xw = xn.to(torch.float32).T
+    step = max(1, (1 << 28) // xn.shape[0])
+    vmax = torch.stack([mm(cw[lo:lo + step], xw).amax(0)
+                        for lo in range(0, cw.shape[0], step)]).amax(0)
+    return out, vmax
+
+
+def f32_winner_probe_tf32x3(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The plain K16 (`f32_winner_probe_plain`) with m.x through
+    `tf32x3_mm`: (B,) max over rows, in row blocks of about 1 GiB.  On
+    integers of at most 127 in magnitude it is exact (lo is zero, every sum
+    an integer below 2^24)."""
+    step = max(1, (1 << 28) // x.shape[1])
+    return torch.stack([tf32x3_mm(m[lo:lo + step], x).amax(0)
+                        for lo in range(0, m.shape[0], step)]).amax(0)

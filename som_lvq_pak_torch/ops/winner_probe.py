@@ -6,15 +6,19 @@ option is K14's `int8_win`, ops/som_step.py).
 
     out[b] = max_n sum_k m[n, k] x[k, b],   m (N, D), x (D, B)
 
-A CUDA tensor launches the kernel in `csrc/winner_probe.cu`; a CPU tensor
-runs the plain version beside it.  Any other device raises.  Each wrapper
-counts its kernel launches in its `launches` attribute.
+A CUDA tensor launches the kernel (K15 in `csrc/winner_probe.cu`, `__dp4a`
+on CUDA cores; K16 in `csrc/dist_argmin_t.cu`, K2's split-TF32 tensor-core
+body without the norm, its codebook split by `k2_splits`); a CPU tensor runs
+the plain version beside it.  Any other device raises.  Each wrapper counts
+its kernel launches in its `launches` attribute.
 
 Both kernels are exact on the probe's inputs: an int8 dot is exact in int32,
-and for integer-valued float32 inputs with |sum| < 2^24 (D 64: at most
-64 * 127^2) every partial sum is exact in float32.  The plain versions take
-the products in float64 (exact for such inputs), so the kernels are held to
-them bit for bit.
+and integer-valued float32 inputs with |v| <= 127 are exact in TF32 (the
+split's lo is zero) with every partial sum an integer below 2^24 (D 64: at
+most 64 * 127^2), exact in float32.  The plain versions take the products in
+float64 (exact for such inputs), so the kernels are held to them bit for
+bit.  On other float32 inputs K16 carries split TF32's rounding (about 2^-21
+relative per product, `ops.tf32x3`).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .dist_argmin import k2_splits
 
 INT32_MIN = -(2 ** 31)
 
@@ -78,15 +83,16 @@ def int8_winner_probe(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def f32_winner_probe(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K16: m (N, D) float32, x (D, B) float32 -> (B,) float32 = max_n
-    m[n] . x[:, b], FP32 FMAs in column order."""
+    m[n] . x[:, b], split-TF32 products on the tensor cores."""
     if _check(m, x, torch.float32) == "cpu":
         return f32_winner_probe_plain(m, x)
     m, x = m.contiguous(), x.contiguous()
-    B = x.shape[1]
-    keys = torch.zeros((B,), dtype=torch.int32, device=m.device)  # read as u32
+    (N, D), B = m.shape, x.shape[1]
+    # the kernel folds the codebook splits into a (B,) u64 key scratch
+    keys = torch.empty((B,), dtype=torch.int64, device=m.device)
     out = torch.empty((B,), dtype=torch.float32, device=m.device)
-    _build.call("somvq_f32_winner_probe", m.data_ptr(), x.data_ptr(), m.shape[0],
-                m.shape[1], B, keys.data_ptr(), out.data_ptr(),
+    _build.call("somvq_f32_winner_probe", m.data_ptr(), x.data_ptr(), N, D, B,
+                k2_splits(B, N, m.device), keys.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(m.device).cuda_stream)
     f32_winner_probe.launches += 1
     return out
