@@ -24,18 +24,19 @@ phases, each printing one JSON line:
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             one "sass" line: the HMMA (tensor-core) instructions in each
-            instantiation of the tensor-core kernels K3, K2, K1, K6, K16 and
-            K17, from cuobjdump --dump-sass of the library (none fails the
-            run);
+            instantiation of the tensor-core kernels K3, K2, K1, K4, K6, K13,
+            K16 and K17, from cuobjdump --dump-sass of the library (none
+            fails the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
             67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3, K2,
-            K1 and K6 also with the bound of their route (the TF32 products
-            they issue at 495 TFLOP/s: three per FP32 product, two for K6's
-            weight mass) and the share of it they reach, and run twice on
-            the same inputs, bit-equal (K5 too).  K1 is also bit-equal to K2
+            K1, K4, K6 and K13 also with the bound of their route (the TF32
+            products they issue at 495 TFLOP/s: three per FP32 product, two
+            for K6's weight mass and K4's keep.(m o m)) and the share of it
+            they reach, and run twice on the same inputs, bit-equal (K5
+            too).  K1 is also bit-equal to K2
             on the same inputs at every K1 shape (one kernel body), and the
             min over K1 on two shards of a codebook (split off a tile
             boundary, merged by the sharded winner's rule) has the whole
@@ -55,13 +56,21 @@ phases, each printing one JSON line:
             every code three times, and at e2e_64x64_1M's group shape.
             K1 also runs at the LVQ steps' B 1024, a mesh rank's B 512 x
             32768, D 37, D 130 and at the LVQ accuracy's
-            single launch over 1M x 65536.  The fused-step kernels: K3
+            single launch over 1M x 65536; K4 at the masked LVQ cell's B
+            1024 x 4096, D 37 and D 130.  The LVQ steps' segment sum
+            (not a TPU kernel) at the olvq1 step's B 1024 x D 64 (and 66
+            columns) into 65,536 codes, into 4096, one column, a hot segment
+            and B 8192 (past its one-CTA sort), bit-equal to np.add.at and
+            to a rerun, timed against index_add_.  The fused-step kernels: K3
             (factored=False) at the 1M cell's step, the 128x128 step, 12x8
-            at D 64 and D 5, a ragged 10x6 map at D 37, 16x16 at D 200 and
-            with a bf16 codebook; K13 (som_fused_factored_step) at the 128x128 cell's
-            step, 256x256 at B 1024, 64x64 bubble at B 4096, a rect map,
-            the 64x64 B 512 step, every code three times (exact ties) and a
-            bf16 codebook, codes within 1e-5 and values within 1e-4; K14
+            at D 64 and D 5, a ragged 10x6 map at D 37, 16x16 at D 200,
+            K13's shapes (64x64 B 512, 256x256 B 1024, 64x64 bubble B 4096)
+            and with a bf16 codebook; K13 (som_fused_factored_step) at the
+            128x128 cell's step, 256x256 at B 1024, 64x64 bubble at B 4096, a
+            rect map, the 64x64 B 512 step, every code three times (exact
+            ties), K3's D 5, D 37 and D 200 cases and a bf16 codebook, codes
+            within 1e-5 and values within 1e-4, each run twice (bit-equal),
+            with one "k13_vs_k3" line per shape K3 also ran at; K14
             (som_fused_factored_chunked_step) at the 64x64 B 4096 step with
             both bf16 options, bench.py's headline 256x256 shapes (B 4096
             with the bf16 x-pattern, B 8192 with both options), bubble with
@@ -136,12 +145,15 @@ phases, each printing one JSON line:
 11. e2e_olvq1_65536_1M  the LVQ family at bench.py:prep_olvq1's shape: a
             65,536-code LVQ codebook (D 64) drawn from 1M labelled vectors
             (32 centres, 8 classes), OLVQ1Trainer with B 1024 for one lap
-            of 16384-row chunks (976 K1 steps), then accuracy(parity=False)
-            over the 1M (K1); within 0.5 points of the plain run and above
-            the initial codebook's accuracy;
+            of 16384-row chunks (976 K1 steps, each with a segment sum),
+            then accuracy(parity=False) over the 1M (K1); within 0.5 points
+            of the plain run and above the initial codebook's accuracy; run
+            again, codebook and accuracy bit-equal; then 40 olvq1 steps on
+            the 1M Dataset with checkpoints every 16, and the same run
+            resumed from step 32, codebook and alphas bit-equal;
 12. e2e_lvq3_65536_1M   LVQTrainer("lvq3") from phase 11's codebook, alpha
             0.01, rlen 262,144 (256 K8 steps), then the accuracy; within
-            0.5 points of the plain run;
+            0.5 points of the plain run; run again, bit-equal;
 13. e2e_masked_lvq_4096_100k  the first 100k of phase 11's data with every
             other 16384-row chunk masked, a 4096-code codebook:
             OLVQ1Trainer (K1 clean, K4 masked batches), LVQTrainer("lvq2")
@@ -203,9 +215,10 @@ mesh's B 512 x 32768.
 
 Each main-path run (4-17) sets every launch counter to 0 before it and
 reads them after: each kernel of that path must have launched, and the
-plain runs must launch none.  Then one line with every kernel's record
-(launches summed over those runs, over every rank), the nvidia-smi line,
-and last {"ok": true, "device": {...}}.  Any failure, a rank that fails or
+plain runs must launch none.  Then a line with the segment sum's record
+(a kernel of the LVQ paths that ports no TPU kernel), one line with every
+TPU kernel's record (launches summed over those runs, over every rank), the
+nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure, a rank that fails or
 a world past its time limit included, ends the run non-zero first.
 
 Nothing here imports jax or the JAX package: the host types (Dataset,
@@ -238,10 +251,12 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32: K3, K2,
-# K1 (K2's body under its own name), K6, K16 (K2's body without the norm) and
-# K17 (its bf16 twin as one TF32 product)
+# K1 (K2's body under its own name), K4 (K1's CTA shape with the keep
+# contraction), K6, K13 (K3's body with the separable W), K16 (K2's body
+# without the norm) and K17 (its bf16 twin as one TF32 product)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
-                      "dist_argmin_kernel", "som_update_masked_kernel",
+                      "dist_argmin_kernel", "dist_argmin_masked_kernel",
+                      "som_update_masked_kernel", "som_fused_factored_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel")
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -451,7 +466,9 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     # FLOPs, 4BND with the mask's keep.(m o m) contraction
     masked = mask_p is not None
     flops = (4 if masked else 2) * B * N * D
-    split_tf32 = kernel.__name__ in ("dist_argmin", "dist_argmin_t")
+    # the TF32 products issued: three per FP32 product; K4's keep.(m o m)
+    # two (keep is exact in TF32), so 10 B N D under a mask
+    route = 10 * B * N * D if masked else 3 * flops
     rec = dict(kernel=name, shape=[B, N, D], dup=dup, mask_p=mask_p,
                winners_differ=n_diff, max_abs_err=float((vk - vp).abs().max()),
                **({"bit_equal_rerun": True} if rerun else {}),
@@ -459,7 +476,7 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
                ms=cuda_ms(lambda: kernel(*args), iters),
                plain_ms=cuda_ms(lambda: plain(*args), iters),
                **bound(flops, 4 * (B * D + N * D) + masked * B * D + 8 * B,
-                       route_flops=3 * flops if split_tf32 else None))
+                       route_flops=route))
     if "route_bound_ms" in rec:
         rec.update(route_pct(rec))
     if library is not None:
@@ -577,7 +594,7 @@ def bf16_ulp_close(got, want, atol=1e-5) -> bool:
 def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                name="som_fused_train_step", kw=None, bf16=False, dup=False,
                codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5, twin=None,
-               tf32x3=False):
+               tf32x3=False, separable=False):
     """A fused-step kernel (K3, K13 or K14, options `kw`) against its plain
     version: a few samples without a BMU, per-sample alphas.  Codes within
     `codes_tol` (a bf16 codebook: bf16_ulp_close), winners equal except where
@@ -592,9 +609,10 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     version.  With `twin` (options), the kernel run under those options on
     the same inputs must give the same codebook, winners and values bit for
     bit (K14's stagger against its plain schedule; K3 against itself with
-    twin={}).  `tf32x3` (K3) adds the split-TF32 route's bound and share,
-    and on a float32 codebook the mean distance of the kernel's and the
-    plain version's codebooks from the same blend taken in float64."""
+    twin={}).  `tf32x3` (K3, K13) adds the split-TF32 route's bound and
+    share, and on a float32 codebook the mean distance of the kernel's and
+    the plain version's codebooks from the same blend taken in float64 (W
+    from the separable factors with `separable`, K13's)."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
@@ -653,12 +671,16 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
         raise AssertionError(f"{name}: rows moved at alpha 0, or an exact tie went "
                              "unlike the plain version or to a later copy")
     f64 = {}
-    if tf32x3 and not bf16:  # K3's codebook and the plain one against float64
+    if tf32x3 and not bf16:  # the codebook and the plain one against float64
         from som_lvq_pak_torch.ops import som_step as ss
 
         aw, r = ss._alpha_r(alpha, radius, B, "cuda")
-        units = torch.arange(noc, dtype=torch.int32, device="cuda")
-        w = ss.neighborhood_w(bmu, aw, r, units, xdim, hexa, gaussian).double()
+        if separable:
+            w = ss.separable_w(bmu, aw.double(), r.double(), noc, xdim, hexa,
+                               gaussian).double()
+        else:
+            units = torch.arange(noc, dtype=torch.int32, device="cuda")
+            w = ss.neighborhood_w(bmu, aw, r, units, xdim, hexa, gaussian).double()
         exact = ss.guarded_blend(codes.double(), w @ xb.double(), w.sum(1, keepdim=True))
         f64 = dict(mean_abs_err_vs_f64=float((ck.double() - exact).abs().mean()),
                    plain_mean_abs_err_vs_f64=float((cp.double() - exact).abs().mean()))
@@ -686,6 +708,89 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     rec["library_ms"] = rec["plain_ms"]
     emit("kernels", **rec)
     return rec
+
+
+def phase_segment_sum(B, C, noc, seed, kind="spread", iters=10):
+    """The LVQ steps' fixed-order segment sum (csrc/segment_sum.cu) on the
+    card: bit-equal to np.add.at on the host copy (each segment's rows in
+    sample order from 0.0) and to a rerun, rows of mixed scale with some -0;
+    `kind` "spread" draws ids over every segment, "hot" puts 90% of the rows
+    in one.  Timed against index_add_, which on CUDA sums with atomics in no
+    fixed order (its plain version there, and the one PyTorch call of the
+    same function).  Its bound: the rows and ids read once, the (noc, C)
+    output written once."""
+    import torch
+
+    from som_lvq_pak_torch.ops.segment_sum import segment_sum, segment_sum_plain
+
+    rng = np.random.default_rng(seed)
+    shape = (B,) if C is None else (B, C)
+    rows = (rng.normal(size=shape) * np.exp2(rng.integers(-20, 20, size=shape)))
+    rows = rows.astype(np.float32)
+    rows[rng.random(shape) < 0.05] = -0.0
+    seg = rng.integers(0, noc, size=B)
+    if kind == "hot":
+        seg = np.where(rng.random(B) < 0.9, noc // 3, seg)
+    want = np.zeros((noc,) + shape[1:], np.float32)
+    np.add.at(want, seg, rows)
+    rows_d = torch.from_numpy(rows).to("cuda")
+    seg_d = torch.from_numpy(seg).to("cuda")
+    got = segment_sum(rows_d, seg_d, noc)
+    again = segment_sum(rows_d, seg_d, noc)
+    torch.cuda.synchronize()
+    name = f"segment_sum {kind} {B}x{C or 1} into {noc}"
+    if not np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32)):
+        raise AssertionError(f"{name}: not bit-equal to np.add.at")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    # against the plain version's result on the host copy (np.add.at, the
+    # CPU's index_add_ order); CUDA's index_add_ sums in another order
+    plain = segment_sum_plain(rows_d, seg_d, noc)
+    width = 1 if C is None else C
+    rec = dict(kernel=name, shape=[B, width, noc], bit_equal_to="np.add.at",
+               bit_equal_rerun=True,
+               max_abs_err=float(np.abs(got.cpu().numpy() - want).max()),
+               cuda_index_add_max_abs_err=float((got - plain).abs().max()),
+               ms=cuda_ms(lambda: segment_sum(rows_d, seg_d, noc), iters),
+               plain_ms=cuda_ms(lambda: segment_sum_plain(rows_d, seg_d, noc), iters),
+               **bound(B * width, 4 * B * width + 8 * B + 4 * noc * width))
+    rec["library_ms"] = rec["plain_ms"]  # index_add_ into zeros
+    emit("kernels", **rec)
+    return rec
+
+
+def lvq_resume_check(X, lab, codes, steps=40, every=16):
+    """OLVQ1Trainer on the card, interrupted at a checkpoint and resumed,
+    against the run without the interruption: the codebook and the alphas
+    bit-equal (the Dataset sampler draws batch b from (seed, b), and every
+    step's sums run in a fixed order).  Checkpoints every `every` batches
+    into a temporary directory; the resumed run starts from the second."""
+    import tempfile
+
+    from som_lvq_pak_torch.models.som import Dataset
+    from som_lvq_pak_torch.models.trainer import OLVQ1Trainer
+
+    data = Dataset(points=X, labels=lab)
+    rlen = steps * 1024
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(batch_size=1024, alpha=0.3, seed=4, checkpoint_dir=d, device="cuda")
+        full_t = OLVQ1Trainer(codes, checkpoint_interval=every, **kw)
+        full_t.ckpt.keep = 0
+        full = full_t.fit(data, rlen=rlen)
+        full_alphas = full_t.ckpt.load(steps).alphas
+        tr = OLVQ1Trainer(codes, **kw)
+        kept = [st for st in tr.ckpt.steps() if st <= 2 * every]
+        for st in tr.ckpt.steps():
+            if st > 2 * every:
+                os.remove(os.path.join(d, f"step_{st}.npz"))
+        resumed = tr.fit(data, rlen=rlen)
+        alphas = tr.ckpt.load().alphas
+    if not (np.array_equal(resumed.points.view(np.int32), full.points.view(np.int32))
+            and np.array_equal(np.asarray(alphas).view(np.int32),
+                               np.asarray(full_alphas).view(np.int32))):
+        raise AssertionError("olvq1 resumed on the card is not bit-equal to the run "
+                             "without the interruption")
+    return dict(steps=steps, resumed_from=max(kept), bit_equal=True)
 
 
 def phase_bubble_boundary():
@@ -1451,13 +1556,14 @@ def blob_data(seed: int, n: int, n_centres: int):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the trainers, the fused step (its K3, K13 and K14 branches), the
-    two-kernel step, the LVQ steps, the qerror and the accuracy through the
-    plain versions (for the reference run on the card); restores the
+    two-kernel step, the LVQ steps (their winners and segment sums), the
+    qerror and the accuracy through the plain versions (for the reference run on the card); restores the
     kernels on exit."""
     from som_lvq_pak_torch.models import eval as ev
     from som_lvq_pak_torch.models import fast, som, trainer
     from som_lvq_pak_torch.ops import dist_argmin as da
     from som_lvq_pak_torch.ops import dist_top2 as dt
+    from som_lvq_pak_torch.ops import segment_sum as ss
     from som_lvq_pak_torch.ops import som_step, som_update, som_vmem
 
     swaps = [(trainer, "dist_argmin", da.dist_argmin_plain),
@@ -1468,6 +1574,7 @@ def plain_kernels():
              (fast, "som_neighborhood_update_idx",
               som_update.som_neighborhood_update_idx_plain),
              (fast, "dist_top2", dt.dist_top2_plain),
+             (fast, "segment_sum", ss.segment_sum_plain),
              (som, "dist_argmin", da.dist_argmin_plain),
              (som, "dist_argmin_t", da.dist_argmin_t_plain),
              (ev, "dist_argmin", da.dist_argmin_plain)]
@@ -1493,6 +1600,7 @@ def counted():
                                                   som_neighborhood_update_idx_masked)
     from som_lvq_pak_torch.ops.dist_top2 import dist_top2, dist_top2_masked
     from som_lvq_pak_torch.ops.dist_topk import dist_topk
+    from som_lvq_pak_torch.ops.segment_sum import segment_sum
     from som_lvq_pak_torch.ops.som_accum import som_neighborhood_accumulate
     from som_lvq_pak_torch.ops.som_blend import som_blend_winner
     from som_lvq_pak_torch.ops.som_vmem import som_vmem_train_steps
@@ -1503,7 +1611,7 @@ def counted():
             som_vmem_train_steps, dist_top2, dist_top2_masked, dist_topk,
             som_neighborhood_accumulate, som_blend_winner, som_fused_factored_step,
             som_fused_factored_chunked_step, CHUNKED_INT8_WIN, CHUNKED_STAGGER,
-            int8_winner_probe, f32_winner_probe, fused_step_skeleton)
+            int8_winner_probe, f32_winner_probe, fused_step_skeleton, segment_sum)
 
 
 def main_path(name, run, kernels, plain_run=None):
@@ -2153,8 +2261,9 @@ def mesh_phases(smi, tally, q_masked128):
     mixed_kernels = ("som_neighborhood_accumulate", "som_blend_winner")
     fits, got, world_s = run_world(
         mesh_22_world, 2, 2,
-        {"mixed": mixed_kernels + ("dist_argmin",), "olvq1": ("dist_argmin",),
-         "lvq3": ("dist_topk",), "mixed_step": mixed_kernels,
+        {"mixed": mixed_kernels + ("dist_argmin",),
+         "olvq1": ("dist_argmin", "segment_sum"), "lvq3": ("dist_topk", "segment_sum"),
+         "mixed_step": mixed_kernels,
          "drift_free": mixed_kernels, "drift_forced": mixed_kernels}, rlen, bmu_ref)
     tally(got)
     drift = dict(
@@ -2331,15 +2440,15 @@ def main() -> int:
     # each kernel's record is taken at its main-path shape (rs[0]), with the
     # largest error over all its shapes
     recs = {}
-    # K1 and K2 run every shape twice (bit-equal), K1 also bit-equal to K2
-    # on the same inputs (one kernel body); K2 also at a StreamingReader
+    # K1, K2 and K4 run every shape twice (bit-equal), K1 also bit-equal to
+    # K2 on the same inputs (one kernel body); K2 also at a StreamingReader
     # chunk of 16384 rows; K1's, K2's and K4's records carry library_ms
     for name, k, p, mask_p, lib in (
             ("dist_argmin", dist_argmin, dist_argmin_plain, None, "min"),
             ("dist_argmin_t", dist_argmin_t, dist_argmin_t_plain, None, "max"),
             ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1,
              "min")):
-        kw = dict(mask_p=mask_p, rerun=k is not dist_argmin_masked,
+        kw = dict(mask_p=mask_p, rerun=True,
                   twin=dist_argmin_t if k is dist_argmin else None)
         rs = [phase_distance(name, k, p, 4096, 65536, 64, seed=1, library=lib, **kw),
               phase_distance(name, k, p, 1000, 999, 5, seed=2, **kw),
@@ -2367,8 +2476,16 @@ def main() -> int:
             ("dist_argmin", dist_argmin, dist_argmin_plain, None),
             ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
         r = phase_distance(name, k, p, 1024, 4096, 64, seed=15, mask_p=mask_p,
-                           **(k1_kw if mask_p is None else {}))
+                           **(k1_kw if mask_p is None else dict(rerun=True)))
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
+    # K4 at a ragged D and at D 130 (three 64-feature slabs, its one-CTA-per-SM
+    # instantiation), each run twice
+    for shape, seed in (((777, 3001, 37), 51), ((1000, 2999, 130), 52)):
+        r = phase_distance("dist_argmin_masked", dist_argmin_masked,
+                           dist_argmin_masked_plain, *shape, seed=seed, mask_p=0.1,
+                           rerun=True)
+        recs["dist_argmin_masked"]["max_abs_err"] = max(
+            recs["dist_argmin_masked"]["max_abs_err"], r["max_abs_err"])
     # K1 on two shards of the codebook against the whole: the sharded winner
     phase_k1_shards(4096, 65536, 64, 30001, seed=49)
     phase_k1_shards(512, 32768, 64, 16411, seed=50)
@@ -2384,9 +2501,23 @@ def main() -> int:
                          mask_p=mask_p, library=j == 0)
               for j, (shape, seed, dup) in enumerate(cases)]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    # the LVQ steps' segment sum (not a TPU kernel: its own line at the end)
+    # at the olvq1 step's B 1024 x D 64 into 65,536 codes first (its record),
+    # its update with the two hit counts as columns (66), the masked LVQ
+    # cell's 4096 codes, a hit count alone, a hot segment and a batch past
+    # the one-CTA sort (torch.sort then)
+    rs = [phase_segment_sum(B, C, noc, seed=seed, kind=kind)
+          for B, C, noc, seed, kind in ((1024, 64, 65536, 53, "spread"),
+                                        (1024, 66, 65536, 54, "spread"),
+                                        (1024, 64, 4096, 55, "spread"),
+                                        (1024, None, 65536, 56, "spread"),
+                                        (4096, 64, 4096, 57, "hot"),
+                                        (8192, 64, 65536, 58, "spread"))]
+    seg_rec = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # K3 (factored=False: these geometries but 12x8 take K13 by default) at
     # the 1M cell's step first (its record), then D 5, a ragged map, D 200
-    # (64-row CTAs past D 128) and a bf16 codebook; every case run twice
+    # (64-row CTAs past D 128), K13's shapes (64x64 B 512, 256x256 B 1024,
+    # 64x64 bubble B 4096) and a bf16 codebook; every case run twice
     # (bit-equal), with its split-TF32 bound
     k3 = lambda *a, **kw: som_fused_train_step(*a, factored=False, **kw)  # noqa: E731
     k3_kw = dict(twin={}, tf32x3=True)
@@ -2396,18 +2527,25 @@ def main() -> int:
                           (12, 8, False, False, 1024, 64, 3.0),
                           (12, 8, True, False, 1000, 5, 3.0),
                           (10, 6, True, True, 100, 37, 3.0),
-                          (16, 16, False, True, 256, 200, 4.0))]
+                          (16, 16, False, True, 256, 200, 4.0),
+                          (64, 64, True, True, 512, 64, 16.0),
+                          (256, 256, True, True, 1024, 64, 64.0),
+                          (64, 64, True, False, 4096, 64, 16.0))]
     phase_step(k3, som_fused_train_step_plain, 256, 256, True, True, 4096, 64, 64.0,
                seed=4, bf16=True, win_rel=1e-2, **k3_kw)
     # the records' max_abs_err: float32 shapes (a bf16 codebook is held to one
     # bf16 ulp, bf16_ulp_close)
     recs["som_fused_train_step"] = dict(
         steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
+    recs_k3 = steps
     # K13 at e2e_128x128_100k's step first (its record), then 256x256 at
-    # B 1024, 64x64 bubble at B 4096 (one grid row per 32-row CTA), a rect
-    # map, e2e_64x64_1M_stepwise's step, every code three times (exact ties)
-    # and a bf16 codebook
-    f32_tols = dict(codes_tol=1e-5, val_tol=(1e-4, 1e-4))
+    # B 1024, 64x64 bubble at B 4096 (64-row CTAs), a rect map,
+    # e2e_64x64_1M_stepwise's step, every code three times (exact ties), K3's
+    # D 5 (8-wide split rows), ragged D 37 and D 200 (4 warps, the tightest
+    # shared memory) cases and a bf16 codebook; every case run twice
+    # (bit-equal), with its split-TF32 bound
+    f32_tols = dict(codes_tol=1e-5, val_tol=(1e-4, 1e-4), twin={}, tf32x3=True,
+                    separable=True)
     steps = [phase_step(som_fused_factored_step, som_fused_factored_step_plain, *case,
                         seed=seed, name="som_fused_factored_step", dup=dup, **f32_tols)
              for case, seed, dup in (((128, 128, True, True, 1024, 64, 32.0), 40, False),
@@ -2415,12 +2553,27 @@ def main() -> int:
                                      ((64, 64, True, False, 4096, 64, 16.0), 42, False),
                                      ((128, 64, False, True, 1024, 64, 20.0), 43, False),
                                      ((64, 64, True, True, 512, 64, 16.0), 44, False),
-                                     ((48, 16, True, True, 1024, 64, 8.0), 45, True))]
+                                     ((48, 16, True, True, 1024, 64, 8.0), 45, True),
+                                     ((12, 8, True, False, 1000, 5, 3.0), 47, False),
+                                     ((10, 6, True, True, 100, 37, 3.0), 48, False),
+                                     ((16, 16, False, True, 256, 200, 4.0), 49, False))]
     phase_step(som_fused_factored_step, som_fused_factored_step_plain, 128, 128, True,
                True, 1024, 64, 32.0, seed=46, name="som_fused_factored_step", bf16=True,
-               val_tol=(1e-4, 1e-4), win_rel=1e-2)
+               val_tol=(1e-4, 1e-4), win_rel=1e-2, twin={}, tf32x3=True)
     recs["som_fused_factored_step"] = dict(
         steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
+    # K13 beside K3 at every shape both ran at: K13's two main-path shapes,
+    # 256x256 at B 1024, 64x64 bubble at B 4096 (the rows of the JAX
+    # trainer's choice that take K13), D 5, D 37 and D 200, both timed in
+    # this run
+    k3_by_shape = {(tuple(r["shape"]), r["kernel"].split()[-1]): r for r in recs_k3}
+    for r13 in steps:
+        r3 = k3_by_shape.get((tuple(r13["shape"]), r13["kernel"].split()[-1]))
+        if r3 is None:
+            continue
+        emit("k13_vs_k3", card=smi, shape=r13["shape"], k13_ms=r13["ms"], k3_ms=r3["ms"],
+             k13_over_k3=r13["ms"] / r3["ms"], k13_route_pct=r13["route_pct"],
+             k3_route_pct=r3["route_pct"])
     # K14 at K14_CASES (e2e_64x64_1M_B4096's step first: its record), then
     # its options stagger and int8_win, K15-K17 and the attainable_pct lines
     steps = [k14_step(case, seed, kw) for case, seed, kw in K14_CASES]
@@ -2678,36 +2831,51 @@ def main() -> int:
     pct_init = accuracy(Dataset(points=X, labels=lab), codes, labels=table, device="cuda")[0]
     run = lambda: lvq_e2e(olvq1_trainer, {}, X, lab, codes, table, 16384)  # noqa: E731
     (pct, train_s, eval_s, trained), (pct_plain, train_plain_s, eval_plain_s, _), got = \
-        main_path("e2e_olvq1_65536_1M", run, ("dist_argmin",), run)
+        main_path("e2e_olvq1_65536_1M", run, ("dist_argmin", "segment_sum"), run)
     tally(got)
     pct_olvq1 = pct
+    # the same run again: every sum in a fixed order, so the codebook repeats
+    # bit for bit; then an interrupted and resumed run against an
+    # uninterrupted one
+    pct_again, _, _, again = run()
+    if not (np.array_equal(again.points.view(np.int32), trained.points.view(np.int32))
+            and pct_again == pct):
+        raise AssertionError("e2e olvq1: a rerun on the card is not bit-equal")
+    resume = lvq_resume_check(X, lab, codes)
     check_accuracy("e2e olvq1", pct, pct_plain)
     if not pct > pct_init:
         raise AssertionError(f"e2e olvq1: accuracy {pct} not above the initial {pct_init}")
     emit("e2e_olvq1_65536_1M", card=smi, accuracy_pct=pct, train_s=train_s,
          accuracy_eval_s=eval_s, init_accuracy_pct=pct_init,
          plain_accuracy_pct=pct_plain, plain_train_s=train_plain_s,
-         plain_accuracy_eval_s=eval_plain_s, launches=got)
+         plain_accuracy_eval_s=eval_plain_s, launches=got, rerun_bit_equal=True,
+         rerun_accuracy_pct=pct_again, resume=resume)
 
     # ---- LVQ: lvq3 from the olvq1 codebook, 256 K8 steps ----------------
     run = lambda: lvq_e2e(lvq_trainer("lvq3"), dict(alpha=0.01), X, lab, trained,  # noqa: E731
                           table, 16384, rlen=262_144)
-    (pct, train_s, eval_s, _), (pct_plain, train_plain_s, eval_plain_s, _), got = \
-        main_path("e2e_lvq3_65536_1M", run, ("dist_top2", "dist_argmin"), run)
+    (pct, train_s, eval_s, lvq3_out), (pct_plain, train_plain_s, eval_plain_s, _), got = \
+        main_path("e2e_lvq3_65536_1M", run, ("dist_top2", "dist_argmin", "segment_sum"),
+                  run)
     tally(got)
     check_accuracy("e2e lvq3", pct, pct_plain)
+    pct_again, _, _, again = run()
+    if not (np.array_equal(again.points.view(np.int32), lvq3_out.points.view(np.int32))
+            and pct_again == pct):
+        raise AssertionError("e2e lvq3: a rerun on the card is not bit-equal")
     emit("e2e_lvq3_65536_1M", card=smi, accuracy_pct=pct, train_s=train_s,
          accuracy_eval_s=eval_s, start_accuracy_pct=pct_olvq1,
          plain_accuracy_pct=pct_plain, plain_train_s=train_plain_s,
-         plain_accuracy_eval_s=eval_plain_s, launches=got)
-    del X, lab, trained
+         plain_accuracy_eval_s=eval_plain_s, launches=got, rerun_bit_equal=True)
+    del X, lab, trained, lvq3_out, again
 
     # ---- LVQ: masked chunks, 4096 codes: olvq1 then lvq2 -----------------
     run = lambda: masked_lvq_e2e(Xm, lab1, mask, small, table)  # noqa: E731
     (pct_o, pct, train_s, eval_s), (pct_o_plain, pct_plain, train_plain_s,
                                     eval_plain_s), got = main_path(
         "e2e_masked_lvq_4096_100k", run,
-        ("dist_argmin", "dist_argmin_masked", "dist_top2", "dist_top2_masked"), run)
+        ("dist_argmin", "dist_argmin_masked", "dist_top2", "dist_top2_masked",
+         "segment_sum"), run)
     tally(got)
     check_accuracy("e2e masked olvq1", pct_o, pct_o_plain)
     check_accuracy("e2e masked lvq2", pct, pct_plain)
@@ -2784,9 +2952,18 @@ def main() -> int:
                              "tools/int8_probe.py:154"),
         "fused_step_skeleton": ("som_lvq_pak_torch/csrc/fused_skeleton.cu",
                                 "bench.py:505")}
-    idle = [name for name in sources if launches[name] == 0]
+    idle = [name for name in list(sources) + ["segment_sum"] if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
+    # the LVQ steps' fixed-order segment sum: a kernel of the path that ports
+    # no TPU kernel (the JAX package sums in XLA), so a line of its own
+    print(json.dumps({"segment_sum": {
+        "name": "segment_sum", "route": "cuda",
+        "source": "som_lvq_pak_torch/csrc/segment_sum.cu",
+        "replaces": "jax.ops.segment_sum in XLA, som_lvq_pak_tpu/models/fast.py:265",
+        "launches": launches["segment_sum"],
+        **{k: seg_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "shape")}}}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

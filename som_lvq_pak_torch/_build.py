@@ -45,15 +45,17 @@ _SIGNATURES = {
     "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-    # gaussian, radius, unit_offset, keys, val, idx, stream
+    # gaussian, radius, unit_offset, xs, keys, val, idx, stream
     "somvq_som_fused_step": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I,
-                             _I, ctypes.c_float, _I, _P, _P, _P, _P],
+                             _I, ctypes.c_float, _I, _P, _P, _P, _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-    # gaussian, radius, chunked, wxa_bf16, batch_bf16, stagger, int8_win, xq,
-    # q, pat, ytab, aw, keys, val, idx, stream
+    # gaussian, radius, chunked, wxa_bf16, batch_bf16, stagger, int8_win,
+    # rows, xs, xq, q, pat, ytab, aw, keys, val, idx, stream
     "somvq_som_fused_factored": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
                                  _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # rows, seg, B, C, noc, presorted, scratch, out, stream
+    "somvq_segment_sum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # m, x, N, D, B, out, stream
     "somvq_int8_winner_probe": [_P, _P, _I, _I, _I, _P, _P],
     # m, x, N, D, B, splits, keys, out, stream

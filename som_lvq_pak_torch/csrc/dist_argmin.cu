@@ -1,201 +1,261 @@
-// K4: the masked 1-NN winner search: for each sample x_b, the codebook row
-// m_n that minimises the squared distance over x_b's unmasked components,
-// without materialising the (B, N) distance matrix.
+// K4: the masked 1-NN winner search on the tensor cores: for each sample
+// x_b, the codebook row m_n that minimises the squared distance over x_b's
+// unmasked components, without materialising the (B, N) distance matrix.
 //
 // Replaces som_lvq_pak_tpu/ops/pallas_distance.py:_dist_argmin_masked_kernel
 // (wrapper dist_argmin with a mask): partial distance keep.(m o m) -
-// 2 (x keep).m, masked components excluded, a strict-< running min; the
-// lowest index wins exact ties, the reference's rule.  The unmasked search
-// (K1, dist_argmin_kernel) and the max-score form (K2) run on the tensor
-// cores in dist_argmin_t.cu; K4 stays here on CUDA cores.
+// 2 (x keep).m, masked components excluded, the lowest index on exact ties,
+// -0 folded to +0; the wrapper adds ||x keep||^2.  The mask enters as (B, D)
+// uint8, nonzero = masked.
 //
-// Design.  One CTA owns TB samples and walks the codebook in TN-row tiles;
-// the TPU's sequential codebook grid axis becomes this loop, so the running
-// (best, index) pair stays in registers and is updated only on a strict
-// comparison.  Each tile is staged through shared memory in KC-wide slices of
-// D, so any D >= 1 works with no padding.  Each of the 256 threads owns a
-// 4 x 4 (sample, code) micro-tile; at the end the 16 threads that share a
-// sample merge their pairs with a (value, index) lexicographic shuffle
-// reduction, which is the same rule.  The codebook splits across gridDim.y
-// CTAs when the batch alone gives too few CTAs to fill the card (a training
-// batch of 1024 is 16 CTAs on 132 SMs); the splits fold their (value, index)
-// pairs with the packed-u64 atomicMin of argmin_keys.cuh, which keeps the
-// same tie rule and does not depend on the order the CTAs run in.  Splits are
-// spans of whole TN-row tiles, so every (sample, code) partial distance is
-// computed exactly as without a split.  The caller passes the split count
-// (ops.dist_argmin.codebook_splits).
+// What bounds it on H100: the two contractions (x keep).m^T and keep.(m o
+// m)^T, 4 B N D FLOPs, both on the tensor cores as split-TF32 mma.sync
+// (tf32x3.cuh): (x keep).m by three TF32 products, float32 accuracy; keep is
+// 0 or 1, exact in TF32, so keep.(m o m) needs two, keep.(m o m)_hi +
+// keep.(m o m)_lo (the dropped remainder is below 2^-22 of each term, as for
+// K6's weight mass): 10 B N D TF32 FLOPs against the 495 TFLOP/s peak.
 //
-// The mask enters as (B, D) uint8, nonzero = masked.  A masked component is
-// zeroed in the staged x and gets keep 0; the second contraction keep.(m o m)
-// squares the code slice already in shared memory, so the masked search
-// costs twice the FMAs of the unmasked one and no extra codebook traffic.
-//
-// What bounds it on H100: FP32 FMA issue and shared-memory loads (3 loads
-// per 2 FMA pairs in this micro-tile; no tensor cores).  The codebook is read
-// once per CTA from L2, so device memory is not the limit at eval shapes.
-// K1's split-TF32 body plus the keep.(m o m) contraction (K exact in TF32) is
-// its next design.
+// Design.  K1's body (dist_argmin_t.cu, argmin_tc.cuh) with the keep
+// contraction beside it.  One CTA owns kTB = 128 samples, 16 per warp; a warp
+// keeps its samples' A fragments of x keep, split into hi and lo, in
+// registers for the whole walk (64 registers at D 64), and their keep flags
+// as one bit each: a lane's four keep values of one k-step are four bits, so
+// D <= 64 fits in one 32-bit word, expanded to 0.0 or 1.0 with a select at
+// the mma.  The codebook streams through shared memory in kTNC-row tiles
+// (cp.async double buffer); each tile is split once into m's hi and lo and
+// m o m's hi and lo, m o m the float32 product m * m as the plain version and
+// the JAX kernel take it.  With one slab (D <= 64) a thread walks the tile
+// n-tile by n-tile, summing both contractions over the k-steps in two
+// 4-float accumulators and scoring at once, so no (samples x tile) sum array
+// stays live; wider D walks 64-feature slabs and keeps the tile's sums
+// across them (its own instantiation, one CTA per SM).  The score is
+// (x keep).m - keep.(m o m) / 2, kept with a strict > over ascending codes,
+// then the four lanes of a sample merge (value, index) and the splits of the
+// codebook (ops.dist_argmin.k4_splits, whole waves) fold -2 * the score with
+// the packed-u64 atomicMin of argmin_keys.cuh: the same floats as the
+// distance form, the lowest index among equal values, in any CTA order.
+// Every sum runs in a fixed order and a row's value depends only on its own
+// data: two runs are bit-equal.  A fully masked sample scores 0 against
+// every code and gets index 0.  Features are padded to a multiple of 8 with
+// zeros and keep 0 in registers and shared memory only.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
 
-#include "argmin_keys.cuh"
+#include "argmin_tc.cuh"
 
 namespace {
 
-constexpr int TB = 64;        // samples per CTA
-constexpr int TN = 64;        // codebook rows per tile
-constexpr int KC = 32;        // feature slice staged per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
+// Shared memory (floats): raw[2][kTNC * SW] | chi, clo, qhi, qlo [kTNC][DC]
+// (q = m o m); SW = 8 KT, KT = 8 when D > 64
+template <int KT>
+struct K4Smem {
+  static constexpr int SW = 8 * KT;
+  static constexpr int DC = stride_nk(SW);
+  static constexpr size_t bytes() {
+    return sizeof(float) * (2 * (size_t)kTNC * SW + 4 * (size_t)kTNC * DC);
+  }
+};
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  // lexicographic (value, index): equal values go to the lower index
-  return v < bv || (v == bv && i < bi);
+// The A fragments of x keep of slab `sl` for the warp's samples b0..b0+15,
+// split, and their keep flags, bit 4 ks + q for k-step ks and fragment
+// register q: a0 (sample g, feature t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); zero and keep 0 past B and D or where masked
+template <int KT>
+__device__ __forceinline__ void load_xk(float (&ahi)[KT][4], float (&alo)[KT][4],
+                                        uint32_t& kbits, const float* __restrict__ x,
+                                        const unsigned char* __restrict__ mask, int B,
+                                        int D, int b0, int sl, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  kbits = 0u;
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int b = b0 + g + 8 * (q & 1);
+      const int k = sl * 8 * KT + 8 * ks + t + 4 * (q >> 1);
+      float v = 0.f;
+      if (b < B && k < D) {
+        const size_t i = (size_t)b * D + k;
+        if (__ldg(mask + i) == 0) {
+          v = __ldg(x + i);
+          kbits |= 1u << (4 * ks + q);
+        }
+      }
+      split_tf32(v, ahi[ks][q], alo[ks][q]);
+    }
 }
 
-// The masked winner search over codebook rows [n_lo, n_lo + n_span) of
-// split blockIdx.y; each sample's (partial distance, index) is folded into
-// keys[b].
-__global__ void __launch_bounds__(THREADS)
+// keep fragment of k-step ks: 1.0 or 0.0 (exact in TF32)
+__device__ __forceinline__ void keep_frag(float (&a)[4], uint32_t kbits, int ks) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) a[q] = (kbits >> (4 * ks + q)) & 1u ? 1.f : 0.f;
+}
+
+// s1 += (x keep).m (three TF32 products), s2 += keep.(m o m) (two, the
+// small term first) over k-step ks of n-tile n
+__device__ __forceinline__ void k4_mma(float (&s1)[4], float (&s2)[4],
+                                       const float (&ahi)[4], const float (&alo)[4],
+                                       uint32_t kbits, int ks, const float* chi,
+                                       const float* clo, const float* qhi,
+                                       const float* qlo, int DC, int n, int lane) {
+  float bhi[2], blo[2], kf[4];
+  load_b_nk(bhi, chi, DC, 8 * n, 8 * ks, lane);
+  load_b_nk(blo, clo, DC, 8 * n, 8 * ks, lane);
+  mma_tf32x3(s1, ahi, alo, bhi, blo);
+  load_b_nk(bhi, qhi, DC, 8 * n, 8 * ks, lane);
+  load_b_nk(blo, qlo, DC, 8 * n, 8 * ks, lane);
+  keep_frag(kf, kbits, ks);
+  mma_tf32(s2, kf, blo);
+  mma_tf32(s2, kf, bhi);
+}
+
+// the scores of n-tile n: c0 (sample g, code 2t), c1 (g, 2t + 1), c2 (g + 8,
+// 2t), c3 (g + 8, 2t + 1); codes ascend with n and q, so strict > keeps the
+// first
+__device__ __forceinline__ void k4_score(float (&best)[2], int (&bidx)[2],
+                                         const float (&s1)[4], const float (&s2)[4],
+                                         int n, int n0, int rows, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = 8 * n + 2 * t + (q & 1), h = q >> 1;
+    if (c < rows) {
+      const float sc = s1[q] - 0.5f * s2[q];
+      if (sc > best[h]) {
+        best[h] = sc;
+        bidx[h] = n0 + c;
+      }
+    }
+  }
+}
+
+// The masked winner search over codebook rows [n_lo, n_lo + n_span) of split
+// blockIdx.y; kMulti: D > 64, walked in 64-feature slabs
+template <int KT, bool kMulti>
+__global__ void __launch_bounds__(kThreads, kMulti ? 1 : 2)
 dist_argmin_masked_kernel(const float* __restrict__ x,
                           const unsigned char* __restrict__ mask,
                           const float* __restrict__ codes, int B, int N, int D,
                           int n_span, unsigned long long* __restrict__ keys) {
-  __shared__ float xs[TB][KC + 1];
-  __shared__ float ks[TB][KC + 1];
-  __shared__ float ms[TN][KC + 1];
+  using L = K4Smem<KT>;
+  constexpr int SW = L::SW, DC = L::DC, NN = kTNC / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* raw0 = smem;
+  float* raw1 = raw0 + kTNC * SW;
+  float* chi = raw1 + kTNC * SW;
+  float* clo = chi + kTNC * DC;
+  float* qhi = clo + kTNC * DC;
+  float* qlo = qhi + kTNC * DC;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // code column group: codes tx + 16 j
-  const int ty = tid >> 4;   // sample row group:  samples ty + 16 i
-  const int b0 = blockIdx.x * TB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.x * kTB + 16 * warp;  // this warp's 16 samples
   const int n_lo = blockIdx.y * n_span;
   const int n_hi = min(N, n_lo + n_span);
+  const int nslab = (D + SW - 1) / SW;
+  const int ntiles = (n_hi - n_lo + kTNC - 1) / kTNC;
+  const int nitems = ntiles * nslab;  // item = (tile, slab), slab fastest
 
-  float best[4];
-  int bidx[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    best[i] = INFINITY;
-    bidx[i] = INT_MAX;
-  }
+  float ahi[KT][4], alo[KT][4];
+  uint32_t kbits = 0u;
+  if constexpr (!kMulti) load_xk<KT>(ahi, alo, kbits, x, mask, B, D, b0, 0, lane);
+  float best[2] = {-INFINITY, -INFINITY};
+  int bidx[2] = {INT_MAX, INT_MAX};
+  float S1[kMulti ? NN : 1][4], S2[kMulti ? NN : 1][4];
 
-  for (int n0 = n_lo; n0 < n_hi; n0 += TN) {
-    float xm[4][4], km2[4][4];
+  if (nitems > 0) prefetch<KT>(raw0, codes, D, n_lo, n_hi, nslab, 0, tid);
+  for (int i = 0; i < nitems; ++i) {
+    const int n0 = n_lo + (i / nslab) * kTNC, sl = i % nslab;
+    const int rows = min(kTNC, n_hi - n0), width = min(SW, D - sl * SW);
+    float* raw = (i & 1) ? raw1 : raw0;
+    cp_async_wait_all();
+    __syncthreads();  // item i landed; item i - 1's fragments read
+    if (i + 1 < nitems)
+      prefetch<KT>((i & 1) ? raw0 : raw1, codes, D, n_lo, n_hi, nslab, i + 1, tid);
+    // split m and m o m: warp w takes rows w, w + 8, ...
+    for (int r = warp; r < kTNC; r += kWarps) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xm[i][j] = km2[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += KC) {
-      __syncthreads();  // everyone is done reading the previous slice
-      for (int e = tid; e < TB * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC;
-        const int b = b0 + r, k = k0 + c;
-        float xv = 0.f, kv = 0.f;
-        if (b < B && k < D) {
-          const size_t g = (size_t)b * D + k;
-          if (mask[g] == 0) {
-            xv = x[g];
-            kv = 1.f;
-          }
-        }
-        xs[r][c] = xv;
-        ks[r][c] = kv;
-      }
-      for (int e = tid; e < TN * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC;
-        const int n = n0 + r, k = k0 + c;
-        ms[r][c] = (n < N && k < D) ? codes[(size_t)n * D + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < KC; ++c) {
-        float xv[4], kv[4], mv[4], mm[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          xv[i] = xs[ty + 16 * i][c];
-          kv[i] = ks[ty + 16 * i][c];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mv[j] = ms[tx + 16 * j][c];
-          mm[j] = mv[j] * mv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            xm[i][j] += xv[i] * mv[j];
-            km2[i][j] += kv[i] * mm[j];
-          }
+      for (int f = lane; f < SW; f += 32) {
+        const float v = (r < rows && f < width) ? raw[r * SW + f] : 0.f;
+        split_tf32(v, chi[r * DC + f], clo[r * DC + f]);
+        split_tf32(__fmul_rn(v, v), qhi[r * DC + f], qlo[r * DC + f]);
       }
     }
-
-    // codes tx + 16 j visited in increasing order: a strict comparison keeps
-    // the first (lowest) index of this thread's subset
+    if constexpr (kMulti) {
+      load_xk<KT>(ahi, alo, kbits, x, mask, B, D, b0, sl, lane);
+      if (sl == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < n_hi) {
+        for (int n = 0; n < NN; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float d = km2[i][j] - 2.f * xm[i][j];
-          if (d < best[i]) {
-            best[i] = d;
-            bidx[i] = n;
-          }
-        }
+          for (int q = 0; q < 4; ++q) S1[n][q] = S2[n][q] = 0.f;
+      }
+    }
+    __syncthreads();
+    if constexpr (kMulti) {
+#pragma unroll
+      for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+          k4_mma(S1[n], S2[n], ahi[ks], alo[ks], kbits, ks, chi, clo, qhi, qlo, DC,
+                 n, lane);
+      if (sl == nslab - 1) {
+#pragma unroll
+        for (int n = 0; n < NN; ++n) k4_score(best, bidx, S1[n], S2[n], n, n0, rows, lane);
+      }
+    } else {
+#pragma unroll 2
+      for (int n = 0; n < NN; ++n) {
+        float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < KT; ++ks)
+          k4_mma(s1, s2, ahi[ks], alo[ks], kbits, ks, chi, clo, qhi, qlo, DC, n, lane);
+        k4_score(best, bidx, s1, s2, n, n0, rows, lane);
       }
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best[i], off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bidx[i], off);
-      if (better(ov, oi, best[i], bidx[i])) {
-        best[i] = ov;
-        bidx[i] = oi;
-      }
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int b = b0 + ty + 16 * i;
-      if (b < B && bidx[i] != INT_MAX) fold_key(keys + b, best[i], bidx[i]);
-    }
-  }
+  cp_async_wait_all();
+  merge_fold(best, bidx, b0, B, lane, keys);
 }
 
-// rows per codebook split: `splits` spans of whole TN-row tiles (the caller's
-// count, ops.dist_argmin.codebook_splits, the rule K8-K10 use too)
-int split_span(int N, int splits) {
-  const int n_tiles = (N + TN - 1) / TN;
-  return ((n_tiles + splits - 1) / splits) * TN;
+template <int KT, bool kMulti>
+int launch_masked(const float* x, const unsigned char* mask, const float* codes, int B,
+                  int N, int D, int splits, unsigned long long* keys,
+                  cudaStream_t stream) {
+  const size_t smem = K4Smem<KT>::bytes();
+  const auto kernel = dist_argmin_masked_kernel<KT, kMulti>;
+  cudaError_t err = cudaFuncSetAttribute(kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // rows per split: spans of whole kTNC-row tiles
+  const int n_tiles = (N + kTNC - 1) / kTNC;
+  const int n_span = ((n_tiles + splits - 1) / splits) * kTNC;
+  const dim3 grid((B + kTB - 1) / kTB, (N + n_span - 1) / n_span);
+  kernel<<<grid, kThreads, smem, stream>>>(x, mask, codes, B, N, D, n_span, keys);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K4; keys: (B,) u64 scratch; val gets the partial distance
+// keep.(m o m) - 2 (x keep).m of the winner
 extern "C" int somvq_dist_argmin_masked(const float* x, const unsigned char* mask,
                                         const float* codes, int B, int N, int D,
                                         int splits, unsigned long long* keys,
                                         float* val, int* idx, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || D <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  const int n_span = split_span(N, splits);
-  const dim3 grid((B + TB - 1) / TB, (N + n_span - 1) / n_span);
   init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  dist_argmin_masked_kernel<<<grid, THREADS, 0, stream>>>(x, mask, codes, B, N,
-                                                          D, n_span, keys);
-  rc = (int)cudaGetLastError();
+  const int k8 = (D + 7) / 8;
+  rc = k8 <= 1   ? launch_masked<1, false>(x, mask, codes, B, N, D, splits, keys, stream)
+       : k8 <= 2 ? launch_masked<2, false>(x, mask, codes, B, N, D, splits, keys, stream)
+       : k8 <= 4 ? launch_masked<4, false>(x, mask, codes, B, N, D, splits, keys, stream)
+       : k8 <= 8 ? launch_masked<8, false>(x, mask, codes, B, N, D, splits, keys, stream)
+                 : launch_masked<8, true>(x, mask, codes, B, N, D, splits, keys, stream);
   if (rc) return rc;
   unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
   return (int)cudaGetLastError();

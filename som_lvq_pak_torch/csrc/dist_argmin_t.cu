@@ -16,8 +16,9 @@
 // distance.  So K1 and K2 are one kernel body (argmin_tc), instantiated under
 // two names so that a profile tells the trainers' and LVQ steps' winners (K1)
 // from the fast qerror's (K2); both return the same (value, index) bit for
-// bit on the same inputs.  K4, the masked distance form, stays on CUDA cores
-// in dist_argmin.cu.  K16 is the third instantiation: no norm (the score is
+// bit on the same inputs.  K4, the masked distance form, runs the same CTA
+// shape and staging (argmin_tc.cuh) with the keep contraction beside it, in
+// dist_argmin.cu.  K16 is the third instantiation: no norm (the score is
 // the plain dot product), x read as (D, B), and only the value kept: -2 *
 // the best score is exact, and halved back exactly on unpacking.  On the
 // probe's integer inputs (|v| <= 127) lo is zero and every partial sum is an
@@ -63,15 +64,9 @@
 #include <cmath>
 #include <cstdint>
 
-#include "argmin_keys.cuh"
-#include "tf32x3.cuh"
+#include "argmin_tc.cuh"
 
 namespace {
-
-constexpr int kTB = 128;   // samples per CTA (8 warps x 16)
-constexpr int kTNC = 64;   // codebook rows per tile (8 n-tiles)
-constexpr int kWarps = kTB / 16;
-constexpr int kThreads = 32 * kWarps;
 
 // KT k-steps of 8 features per slab (slab width SW = 8 KT; KT = 8 when D >
 // 64).  Shared memory (floats): raw[2][kTNC * SW] | chi, clo [kTNC][DC] |
@@ -103,30 +98,6 @@ __device__ __forceinline__ void load_x(float (&ahi)[KT][4], float (&alo)[KT][4],
       const size_t i = kXT ? (size_t)k * B + b : (size_t)b * D + k;
       split_tf32((b < B && k < D) ? __ldg(x + i) : 0.f, ahi[ks][q], alo[ks][q]);
     }
-}
-
-// cp.async of item i's (tile, slab) into raw[row][feature]: rows past n_hi
-// and features past D are not copied (the split reads zeros for them);
-// 16-byte pieces when D % 4 == 0 (rows and slabs then 16-byte aligned)
-template <int KT>
-__device__ __forceinline__ void prefetch(float* raw, const float* __restrict__ codes,
-                                         int D, int n_lo, int n_hi, int nslab, int i,
-                                         int tid) {
-  constexpr int SW = 8 * KT;
-  const int n0 = n_lo + (i / nslab) * kTNC, f0 = (i % nslab) * SW;
-  const int rows = min(kTNC, n_hi - n0), width = min(SW, D - f0);
-  if ((D & 3) == 0) {
-    for (int e = tid; e < rows * (SW / 4); e += kThreads) {
-      const int r = e / (SW / 4), f = 4 * (e % (SW / 4));
-      if (f < width) cp_async16(raw + r * SW + f, codes + (size_t)(n0 + r) * D + f0 + f);
-    }
-  } else {
-    for (int e = tid; e < rows * SW; e += kThreads) {
-      const int r = e / SW, f = e % SW;
-      if (f < width) cp_async4(raw + r * SW + f, codes + (size_t)(n0 + r) * D + f0 + f);
-    }
-  }
-  cp_async_commit();
 }
 
 // kNorm: the score x.m - ||m||^2 / 2 (K1, K2), else x.m (K16); kXT: x (D, B)
@@ -225,22 +196,7 @@ __device__ __forceinline__ void argmin_tc(const float* __restrict__ x,
   }
   cp_async_wait_all();
 
-  // merge the four lanes t of each sample, then fold across splits
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best[h], off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bidx[h], off);
-      if (lex_greater(ov, oi, best[h], bidx[h])) {
-        best[h] = ov;
-        bidx[h] = oi;
-      }
-    }
-    const int b = b0 + g + 8 * h;
-    if (t == 0 && b < B && bidx[h] != INT_MAX)
-      fold_key(keys + b, -2.f * best[h], bidx[h]);
-  }
+  merge_fold(best, bidx, b0, B, lane, keys);
 }
 
 // K1 (the distance form's wrapper dist_argmin) and K2 (dist_argmin_t): one

@@ -11,10 +11,10 @@
 // earlier tile kept) computes: the lower index wins every exact tie, on the
 // best pair and on the second.
 //
-// Design.  K4's tiling (dist_argmin.cu): one CTA owns TB samples, walks
-// its codebook rows in TN-row tiles staged through shared memory in KC-wide
-// slices of D (any D >= 1, no padding), and each of the 256 threads owns a
-// 4 x 4 (sample, code) micro-tile.  A thread visits its codes in increasing
+// Design.  One CTA owns TB samples, walks its codebook rows in TN-row tiles
+// staged through shared memory in KC-wide slices of D (any D >= 1, no
+// padding), and each of the 256 threads owns a 4 x 4 (sample, code)
+// micro-tile.  A thread visits its codes in increasing
 // index order, so a strict comparison inserts each candidate into its
 // registers' (v1, i1, v2, i2) per sample in lexicographic order.  The 16
 // threads that share a sample then merge their sorted pairs with shuffles.
@@ -23,8 +23,8 @@
 // order and give the same answer.
 //
 // Filling the card: a training batch of 1024 is 16 CTAs of 64 samples on 132
-// SMs, so the codebook is split across gridDim.y (K4's split, about two CTAs
-// per SM).  The packed-u64 atomicMin of argmin_keys.cuh carries one pair,
+// SMs, so the codebook is split across gridDim.y (codebook_splits, about two
+// CTAs per SM).  The packed-u64 atomicMin of argmin_keys.cuh carries one pair,
 // not two, so each split writes its partial pairs to a scratch the wrapper
 // allocates, and a second small launch merges the splits in split order.
 //
@@ -34,8 +34,9 @@
 // traffic).  A sample with every component masked scores 0 against every
 // code and gets (0, 0), (0, 1), as in the JAX package.
 //
-// What bounds it on H100: FP32 FMA issue and shared-memory loads, as K4
-// (no tensor cores).  The codebook is read once per CTA from L2.
+// What bounds it on H100: FP32 FMA issue and shared-memory loads (no tensor
+// cores; K4's split-TF32 body with a top-2 fold is its next design).  The
+// codebook is read once per CTA from L2.
 
 #include <cuda_runtime.h>
 

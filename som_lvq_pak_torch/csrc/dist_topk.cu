@@ -10,7 +10,7 @@
 // computes.
 //
 // Design: K8's (dist_top2.cu) generalised from two to KM in {2, 4, 8, 16}
-// entries, k <= KM chosen at run time.  K4's tiling: one CTA owns TB
+// entries, k <= KM chosen at run time.  K8's tiling: one CTA owns TB
 // samples, walks its codebook rows in TN-row tiles staged through shared
 // memory in KC-wide slices of D (any D >= 1, no padding); each of the 256
 // threads owns a 4 x 4 (sample, code) micro-tile and keeps, per sample, a
@@ -19,7 +19,7 @@
 // increasing index order, and every insertion and merge compares
 // lexicographically, so threads, warps and CTAs may merge in any order and
 // give the same answer.  The 16 threads of a sample merge their lists by
-// shuffles; the codebook is split across gridDim.y as K4/K8 split it (about
+// shuffles; the codebook is split across gridDim.y as K8 splits it (about
 // two CTAs per SM), each split writes its k pairs to a scratch, and a second
 // small launch merges the splits.
 //

@@ -1,0 +1,368 @@
+// The fused SOM step on the tensor cores, shared by K3 (som_fused_step.cu,
+// W from the closed form) and K13 (som_fused_factored.cu, W from the
+// separable tables): batch t's neighbourhood update, then batch t+1's
+// winners against the updated rows, in one pass over the codebook.  The two
+// kernels differ only in how a W value is built, which a weight policy
+// (ClosedFormW in som_fused_step.cu, SeparableW in som_fused_factored.cu)
+// supplies:
+//
+//   static size_t floats(...)      shared memory it stages into, per CTA
+//   init(st, r0, warp, g)          its staging area (an offset in the dynamic
+//                                  shared array) and the thread's rows
+//   prefetch(c, s0, nb, tid, n)    cp.async of chunk c's inputs (before the
+//                                  chunk's commit; nothing for K3)
+//   kStage, stage(c, s0, nb, tid)  with kStage, plain stores of chunk c's
+//                                  inputs after the chunk landed (K3's
+//                                  per-sample BMU data), then a barrier
+//   w(c, q, ks, nb)                fragment register q of k-step ks of chunk
+//                                  c: row g + 8 (q & 1), sample 8 ks + t +
+//                                  4 (q >> 1), 0 past the batch
+//
+// What bounds it on H100: the two contractions, acc = W.X (noc x B x D) and
+// the scores tile.X'^T (noc x B' x D), as split-TF32 mma.sync (tf32x3.cuh):
+// three TF32 products per float32 product, float32 accumulators, float32
+// accuracy (about 2^-21 relative per product), a 495 / 3 = 165 TFLOP/s
+// ceiling.  mma.sync itself issues TF32 at two thirds of the peak on an H100
+// (mma_probe.py); the staging, the W values and the scoring share the SM with
+// the mma between barriers (wgmma fed from shared memory by a producer warp is
+// the next step).
+//
+// Layout.  One CTA owns TN = 16 WARPS rows; warp w owns the 16-row m-tile
+// 16w.. and every feature column, so each W value is built once per CTA and
+// the batch is read from L2 once per CTA.  Features are padded to DP = 8 NT
+// (a power of two) with zeros in shared memory only.
+//
+// Update.  Both batches are split into hi and lo once per step by a small
+// launch (split_batches_kernel), so no CTA splits a sample.  The batch is
+// walked in kBC-sample chunks: cp.async copies chunk c + 1's hi and lo rows
+// (and the policy's inputs for it) into one half of a double buffer while
+// chunk c feeds the mma.  Each
+// thread builds the W values of its A fragments straight in registers.  wsum
+// is the float32 sum of the same W values: per thread in a fixed order
+// (chunk, k-step, sample t then t + 4), then over the four lanes of a row by
+// a fixed xor tree.  acc is a split-TF32 mma against the staged X, summed in
+// the mma's accumulators over one chunk only, then added into float32
+// registers with round-to-nearest adds: the tensor core's own accumulation
+// loses low bits, and summed there over a whole batch of 4096 the blended
+// rows drifted far enough from the plain step's to fail its bf16-codebook
+// gate.
+//
+// Blend.  c + min(wsum, 1) * (acc / max(wsum, 1e-30) - c) (guarded_blend) is
+// written back IN PLACE: each CTA reads and writes only its own rows.  A
+// bf16 codebook is read upcast and written rounded to nearest even.  The
+// float32 blended rows stay in shared memory, split into hi and lo, with
+// their ||m||^2 (per-thread then xor-tree sums, fixed order) for the winners.
+// Rows beyond noc are masked, never padded.
+//
+// Winners.  For each BW-sample chunk of the next batch (its split rows
+// copied with cp.async, the first chunk while the tile blends, the next one
+// while the chunk's winners fold), S = tile.X'^T on the same split-TF32 mma,
+// d = ||m||^2 - 2 S, the
+// (min, first row) per sample over the CTA's rows by a lexicographic (value,
+// row) merge, folded across CTAs as a packed u64 with atomicMin
+// (argmin_keys.cuh): the lowest row among equal values, in any CTA order.
+// d is -2 fl(S - ||m||^2 / 2) exactly (halving and doubling are exact), so
+// the max-score form's value comes out bit for bit.
+//
+// Determinism.  Every sum runs in a fixed order inside one CTA: no split of
+// the batch across CTAs, no float atomics.  A row's arithmetic depends only
+// on its own data and its unit, not on the tile or shard that holds it (for
+// a given CTA height), so two runs are bit-equal.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+#include "argmin_keys.cuh"
+#include "som_grid.cuh"
+#include "tf32x3.cuh"
+
+namespace {
+
+constexpr int kBC = 32;  // update: batch samples per chunk (4 k-steps)
+
+// next-batch samples per winner chunk (8 n-tiles; 4 for D > 128, where 8
+// would not fit in 227 KB of shared memory beside 128 rows)
+__host__ __device__ constexpr int k3_bw(int NT) { return NT <= 16 ? 64 : 32; }
+
+// Shared memory (floats), two regions that are never live together:
+// update: xhi, xlo [2][kBC][DSU] | the policy's staging
+// winner: thi, tlo [TN][DT] | whi, wlo [BW][DW] | m2s[TN] | redv, redi
+//         [WARPS][BW]
+template <int NT, int WARPS>
+struct FusedSmem {
+  static constexpr int DP = 8 * NT, TN = 16 * WARPS, BW = k3_bw(NT);
+  static constexpr int DSU = stride_kn(DP), DT = stride_nk(DP), DW = DT;
+  static size_t update_floats(size_t staged) { return 4 * (size_t)kBC * DSU + staged; }
+  static constexpr size_t winner_floats() {
+    return 2 * (size_t)TN * DT + 2 * (size_t)BW * DW + TN + 2 * WARPS * BW;
+  }
+  static size_t bytes(size_t staged) {
+    const size_t u = update_floats(staged), w = winner_floats();
+    return sizeof(float) * (u > w ? u : w);
+  }
+};
+
+// The step's batches split once: xs = xb hi, xb lo (Bp, DP) | xn hi, xn lo
+// (Bnp, DP), zero past D and past the batch (Bp, Bnp: B and Bn rounded up to
+// a multiple of 64, so whole chunks copy), one thread per entry
+__global__ void split_batches_kernel(const float* __restrict__ xb, int B,
+                                     const float* __restrict__ xn, int Bn, int D,
+                                     int DP, int Bp, int Bnp, float* __restrict__ xs) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t nb = (int64_t)Bp * DP, nn = (int64_t)Bnp * DP;
+  if (e >= nb + nn) return;
+  const bool next = e >= nb;
+  const int64_t i = next ? e - nb : e;
+  const int b = (int)(i / DP), k = (int)(i % DP);
+  const float* x = next ? xn : xb;
+  const float v = (b < (next ? Bn : B) && k < D) ? x[(size_t)b * D + k] : 0.f;
+  float* hi = xs + (next ? 2 * nb : 0);
+  split_tf32(v, hi[i], hi[(next ? nn : nb) + i]);
+}
+
+// split_batches_kernel's launch for DP-wide rows
+inline int split_batches(const float* xb, int B, const float* xn, int Bn, int D, int DP,
+                         float* xs, cudaStream_t stream) {
+  const int Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
+  const int64_t n = ((int64_t)Bp + Bnp) * DP;  // one thread per hi, lo pair
+  split_batches_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      xb, B, xn, Bn, D, DP, Bp, Bnp, xs);
+  return (int)cudaGetLastError();
+}
+
+// cp.async of `rows` rows of a pre-split (rows, DP) array into shared memory
+// rows of `stride` floats, 16 bytes a piece
+template <int DP>
+__device__ __forceinline__ void copy_rows(float* dst, int stride,
+                                          const float* __restrict__ src, int rows,
+                                          int tid, int nthreads) {
+  constexpr int Q = DP / 4;
+  for (int e = tid; e < rows * Q; e += nthreads) {
+    const int r = e / Q, f = 4 * (e - r * Q);
+    cp_async16(dst + r * stride + f, src + (size_t)r * DP + f);
+  }
+}
+
+// The step on rows r0 = blockIdx.x * TN.. of the codebook; `wp` builds W.
+// xs holds the batches xb (B, D) and xn (Bn, D) as split_batches_kernel
+// wrote them
+template <int NT, int WARPS, typename CT, typename WP>
+__device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, int D,
+                                              const float* __restrict__ xs, int B,
+                                              int Bn, unsigned long long* __restrict__ keys,
+                                              WP& wp) {
+  using L = FusedSmem<NT, WARPS>;
+  constexpr int DP = L::DP, TN = L::TN, BW = L::BW;
+  constexpr int THREADS = 32 * WARPS;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * TN;
+  // the split arrays: hi and lo of (Bp, DP), then of (Bnp, DP)
+  const size_t Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
+  const float* xb_hi = xs;
+  const float* xb_lo = xs + Bp * DP;
+  const float* xn_hi = xs + 2 * Bp * DP;
+  const float* xn_lo = xn_hi + Bnp * DP;
+
+  // ---- update: acc = W.X (split-TF32 mma), wsum = W.1 -----------------------
+  float* xhi0 = smem;
+  float* xlo0 = xhi0 + kBC * L::DSU;
+  float* xhi1 = xlo0 + kBC * L::DSU;
+  float* xlo1 = xhi1 + kBC * L::DSU;
+  wp.init((int)(xlo1 + kBC * L::DSU - smem), r0, warp, g);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  float wsum[2] = {0.f, 0.f};
+
+  const int nchunks = (B + kBC - 1) / kBC;
+  copy_rows<DP>(xhi0, L::DSU, xb_hi, kBC, tid, THREADS);
+  copy_rows<DP>(xlo0, L::DSU, xb_lo, kBC, tid, THREADS);
+  wp.prefetch(0, 0, min(kBC, B), tid, THREADS);
+  cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    const int s0 = c * kBC, nb = min(kBC, B - s0);
+    float* xhi = (c & 1) ? xhi1 : xhi0;
+    float* xlo = (c & 1) ? xlo1 : xlo0;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c landed; chunk c - 1's fragments all read
+    if (c + 1 < nchunks) {  // its buffers were last read by chunk c - 1
+      const size_t o = (size_t)(s0 + kBC) * DP;
+      copy_rows<DP>((c & 1) ? xhi0 : xhi1, L::DSU, xb_hi + o, kBC, tid, THREADS);
+      copy_rows<DP>((c & 1) ? xlo0 : xlo1, L::DSU, xb_lo + o, kBC, tid, THREADS);
+      wp.prefetch(c + 1, s0 + kBC, min(kBC, B - s0 - kBC), tid, THREADS);
+      cp_async_commit();
+    }
+    if constexpr (WP::kStage) {
+      wp.stage(c, s0, nb, tid);
+      __syncthreads();
+    }
+    float part[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kBC / 8; ++ks) {
+      // A fragment: a0 (row g, sample t), a1 (g + 8, t), a2 (g, t + 4),
+      // a3 (g + 8, t + 4)
+      float w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = wp.w(c, q, ks, nb);
+      wsum[0] += w[0];
+      wsum[0] += w[2];
+      wsum[1] += w[1];
+      wsum[1] += w[3];
+      float ahi[4], alo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(w[q], ahi[q], alo[q]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float bhi[2], blo[2];
+        load_b_kn(bhi, xhi, L::DSU, 8 * ks, 8 * j, lane);
+        load_b_kn(blo, xlo, L::DSU, 8 * ks, 8 * j, lane);
+        mma_tf32x3(part[j], ahi, alo, bhi, blo);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 1);
+    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 2);
+  }
+  __syncthreads();  // every fragment read: the update region is free
+
+  // ---- guarded blend, written in place; the tile kept split ---------------
+  float* thi = smem;
+  float* tlo = thi + TN * L::DT;
+  float* whi = tlo + TN * L::DT;
+  float* wlo = whi + BW * L::DW;
+  float* m2s = wlo + BW * L::DW;
+  float* redv = m2s + TN;
+  int* redi = reinterpret_cast<int*>(redv + WARPS * BW);
+  // the first winner chunk lands while the tile blends
+  copy_rows<DP>(whi, L::DW, xn_hi, BW, tid, THREADS);
+  copy_rows<DP>(wlo, L::DW, xn_lo, BW, tid, THREADS);
+  cp_async_commit();
+
+  float sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+      const int h = q >> 1, r = 16 * warp + g + 8 * h, k = 8 * j + 2 * t + (q & 1);
+      const int u = r0 + r;
+      float nc = 0.f;
+      if (k < D && u < noc) {
+        CT* p = codes + (size_t)u * D + k;
+        nc = guarded_blend(load_f32(p), acc[j][q], wsum[h]);
+        store_f32(p, nc);
+      }
+      sq[h] += nc * nc;
+      float hi, lo;
+      split_tf32(nc, hi, lo);
+      thi[r * L::DT + k] = hi;
+      tlo[r * L::DT + k] = lo;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+    if (t == 0) m2s[16 * warp + g + 8 * h] = sq[h];
+  }
+
+  // ---- next batch's winners against the updated tile ---------------------
+  for (int n0 = 0; n0 < Bn; n0 += BW) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk landed; tile and m2s written
+    float S[BW / 8][4];
+#pragma unroll
+    for (int n = 0; n < BW / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < NT; ++ks) {
+      float ahi[4], alo[4];
+      load_a(ahi, thi, L::DT, 16 * warp, 8 * ks, lane);
+      load_a(alo, tlo, L::DT, 16 * warp, 8 * ks, lane);
+#pragma unroll
+      for (int n = 0; n < BW / 8; ++n) {
+        float bhi[2], blo[2];
+        load_b_nk(bhi, whi, L::DW, 8 * n, 8 * ks, lane);
+        load_b_nk(blo, wlo, L::DW, 8 * n, 8 * ks, lane);
+        mma_tf32x3(S[n], ahi, alo, bhi, blo);
+      }
+    }
+    const int ra = r0 + 16 * warp + g, rb = ra + 8;
+    const float m2a = m2s[16 * warp + g], m2b = m2s[16 * warp + g + 8];
+#pragma unroll
+    for (int n = 0; n < BW / 8; ++n) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // sample 8 n + 2 t + q: rows ra, then rb
+        float bv = INFINITY;
+        int bi = INT_MAX;
+        if (ra < noc) {
+          bv = m2a - 2.f * S[n][q];
+          bi = ra;
+        }
+        if (rb < noc) {
+          const float d = m2b - 2.f * S[n][2 + q];
+          if (d < bv) {
+            bv = d;
+            bi = rb;
+          }
+        }
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes g of sample
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+          if (lex_less(ov, oi, bv, bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        if (g == 0) {
+          redv[warp * BW + 8 * n + 2 * t + q] = bv;
+          redi[warp * BW + 8 * n + 2 * t + q] = bi;
+        }
+      }
+    }
+    __syncthreads();  // every fragment of this chunk read
+    if (n0 + BW < Bn) {
+      const size_t o = (size_t)(n0 + BW) * DP;
+      copy_rows<DP>(whi, L::DW, xn_hi + o, BW, tid, THREADS);
+      copy_rows<DP>(wlo, L::DW, xn_lo + o, BW, tid, THREADS);
+      cp_async_commit();
+    }
+    if (tid < BW) {
+      float bv = INFINITY;
+      int bi = INT_MAX;
+      for (int w = 0; w < WARPS; ++w) {
+        const float v = redv[w * BW + tid];
+        const int i = redi[w * BW + tid];
+        if (lex_less(v, i, bv, bi)) {
+          bv = v;
+          bi = i;
+        }
+      }
+      const int b = n0 + tid;
+      if (b < Bn && bi != INT_MAX) fold_key(keys + b, bv, bi);
+    }
+  }
+}
+
+}  // namespace

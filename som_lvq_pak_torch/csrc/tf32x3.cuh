@@ -1,5 +1,5 @@
 // Split-TF32 ("3xTF32") tensor-core products at float32 accuracy, shared by
-// K3 (som_fused_step.cu) and K2 (dist_argmin_t.cu).
+// the tensor-core kernels (K1-K4, K6, K13, K16, K17).
 //
 // A float32 operand a is split as a = hi + lo + r with hi = tf32(a) and
 // lo = tf32(a - hi), both rounded to nearest, ties away from zero

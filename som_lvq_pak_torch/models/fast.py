@@ -5,11 +5,12 @@ som_lvq_pak_tpu/models/fast.py (`unit_coords`, `grid_sq_dists_idx`,
 built from the same algebra (ops.som_step).
 
 The LVQ steps update the codebook IN PLACE and return it.  Their segment
-sums are `index_add_` into a zeroed (noc, D) buffer, added to the codebook
-afterwards, so every float expression keeps the JAX package's order
-(`codes + segment_sum(...)`).  On CUDA `index_add_` sums with atomics in no
-fixed order, so two card runs may differ in the last bits; CPU runs are
-deterministic."""
+sums (`ops.segment_sum`) add each code's rows in ascending sample order from
+0.0 into a (noc, D) buffer, added to the codebook afterwards, so every float
+expression keeps the JAX package's order (`codes + segment_sum(...)`) and
+two runs on the card, or on the CPU, are bit-equal.  olvq1's three sums
+share one call (the update and the two hit counts as columns of one array):
+each column's sum is the same as alone."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from ..ops.dist_argmin import dist_argmin
 from ..ops.dist_top2 import dist_top2
+from ..ops.segment_sum import segment_sum
 from ..ops.som_step import grid_sq_dists, grid_xy
 # `_guarded_sum_update`: codes + (wx - wsum * codes), saturated at the
 # batch weighted mean once a unit's weight mass exceeds 1
@@ -90,12 +92,6 @@ def som_batch_step(
                                        gaussian, mask=mask)
 
 
-def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, noc: int) -> torch.Tensor:
-    """(noc, ...) sums of `rows` by segment id (jax.ops.segment_sum)."""
-    out = torch.zeros((noc,) + rows.shape[1:], dtype=rows.dtype, device=rows.device)
-    return out.index_add_(0, seg, rows)
-
-
 def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
@@ -129,9 +125,11 @@ def olvq1_batch_step(
     delta = sign[:, None] * (xb - codes[bmu])
     if mask is not None:
         delta = torch.where(mask != 0, 0.0, delta)
-    upd = _segment_sum(delta, bmu, noc)
-    ncorrect = _segment_sum(correct.to(torch.float32), bmu, noc)
-    nwrong = _segment_sum((~correct).to(torch.float32), bmu, noc)
+    D = codes.shape[1]
+    sums = segment_sum(torch.cat([delta, correct[:, None].to(torch.float32),
+                                  (~correct)[:, None].to(torch.float32)], 1),
+                       bmu, noc)
+    upd, ncorrect, nwrong = sums[:, :D], sums[:, D], sums[:, D + 1]
     clip32 = _f32(clip, codes.device)
     new_a = alphas / (1.0 + ncorrect * alphas)
     denom = 1.0 - nwrong * new_a
@@ -164,7 +162,7 @@ def lvq1_batch_step(
     delta = sign[:, None] * (xb - codes[bmu])
     if mask is not None:
         delta = torch.where(mask != 0, 0.0, delta)
-    return codes.add_(_segment_sum(delta, bmu, codes.shape[0]))
+    return codes.add_(segment_sum(delta, bmu, codes.shape[0]))
 
 
 def lvq23_batch_step(
@@ -203,13 +201,13 @@ def lvq23_batch_step(
         a_b, neg_b = a_b * keep, -a_b * keep
     else:
         neg_b = -a_b
-    delta = (_segment_sum(a_b * (xb - codes[b_idx]), b_idx, noc)
-             + _segment_sum(neg_b * (xb - codes[nb_idx]), nb_idx, noc))
+    delta = (segment_sum(a_b * (xb - codes[b_idx]), b_idx, noc)
+             + segment_sum(neg_b * (xb - codes[nb_idx]), nb_idx, noc))
     if lvq3:
         same = (l1 == l2) & (l1 == xlabels)
         ae = torch.where(same, a * _f32(epsilon, dev), 0.0)[:, None]
         if mask is not None:
             ae = ae * keep
-        delta = (delta + _segment_sum(ae * (xb - codes[i1]), i1, noc)
-                 + _segment_sum(ae * (xb - codes[i2]), i2, noc))
+        delta = (delta + segment_sum(ae * (xb - codes[i1]), i1, noc)
+                 + segment_sum(ae * (xb - codes[i2]), i2, noc))
     return codes.add_(delta)

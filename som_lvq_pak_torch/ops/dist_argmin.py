@@ -25,8 +25,9 @@ partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
   `_dist_argmin_masked_kernel`); ||x keep||^2 is added back, so a sample
   with every component masked gets index 0 and value 0.  The masked
   training step's and the masked qerror's winner search.  Its kernel (K4,
-  `csrc/dist_argmin.cu`) runs FP32 FMAs on CUDA cores, the codebook split
-  by `codebook_splits`.
+  `csrc/dist_argmin.cu`) runs K1's CTA shape on the tensor cores: (x keep).m
+  by three split-TF32 products, keep.(m o m) by two (keep is exact in
+  TF32), the codebook split by `k4_splits`.  Two runs are bit-equal.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 beside it.  Any other device raises.  Each wrapper counts its kernel
@@ -131,7 +132,7 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
 
 
 def codebook_splits(B: int, N: int, device: torch.device) -> int:
-    """How many spans of the codebook K4 and K8-K10 split across
+    """How many spans of the codebook K8-K10 split across
     gridDim.y: enough for about two CTAs of 64 samples per SM, at most one
     64-row tile each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -145,9 +146,21 @@ def k2_splits(B: int, N: int, device: torch.device) -> int:
     SM (their registers), so a count that leaves a partial second wave
     costs a whole one (at B 4096, 9 splits would be 288 CTAs on 264 slots
     of an H100)."""
+    return _whole_waves(B, N, device, 2)
+
+
+def k4_splits(B: int, N: int, D: int, device: torch.device) -> int:
+    """K4's codebook splits: K1's CTAs of 128 samples, in whole waves of
+    the CTAs an SM holds: two up to D 64 (its registers and 100 KB of
+    shared memory each), one past it (the slab walk keeps the tile's sums
+    of both contractions in registers)."""
+    return _whole_waves(B, N, device, 2 if D <= 64 else 1)
+
+
+def _whole_waves(B: int, N: int, device: torch.device, per_sm: int) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     b_tiles, n_tiles = -(-B // 128), -(-N // 64)
-    return max(1, min(n_tiles, 2 * sms // b_tiles))
+    return max(1, min(n_tiles, per_sm * sms // b_tiles))
 
 
 def _launch(entry: str, wrapper, splits, x: torch.Tensor, codes: torch.Tensor):
@@ -203,7 +216,7 @@ def dist_argmin_masked(x: torch.Tensor, codes: torch.Tensor,
         return val, idx
     keys = torch.empty((B,), dtype=torch.int64, device=x.device)
     _build.call("somvq_dist_argmin_masked", x.data_ptr(), m8.data_ptr(),
-                codes.data_ptr(), B, N, D, codebook_splits(B, N, x.device),
+                codes.data_ptr(), B, N, D, k4_splits(B, N, D, x.device),
                 keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     dist_argmin_masked.launches += 1

@@ -8,7 +8,8 @@ kernels, each a hand-written CUDA kernel here:
   (float32 accuracy, csrc/tf32x3.cuh);
 - K13 `som_fused_factored_step` (csrc/som_fused_factored.cu): the separable
   kernel (`_som_fused_factored_kernel`), W = Wx(column, row parity) *
-  Wy(row), winners in max-score form;
+  Wy(row) from tables, winners in max-score form; K3's tensor-core body
+  (csrc/fused_step_tc.cuh) with W read from the tables;
 - K14 `som_fused_factored_chunked_step` (the same source): the batch-chunked
   kernel (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
   (`wxa_bf16`, gaussian only), bf16 batches (`batch_bf16`), int8 winners
@@ -29,8 +30,9 @@ given; `factored` with a `unit_offset` raises; on the separable path any of
 batch-chunked kernel (pallas_som.py:1339-1349); K3 ignores all five, as the
 JAX wrapper's plain path does.
 `tile_n` decides the geometry only: the CUDA kernels tile by 128 rows (K3;
-64 for D > 128) or 32 (K13, K14), and the result depends on it only through
-the float32 order of additions.  The
+64 for D > 128), by `k13_rows` (K13: 128, or 64 up to 128x128) or by 32
+(K14), and the result depends on it only through the float32 order of
+additions.  The
 port keeps D unpadded, so the JAX `d_real` has no counterpart.
 
 The codebook is updated IN PLACE (the caller owns the resident codebook;
@@ -434,6 +436,27 @@ def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
                                  batch_bf16, stagger, int8_win)
 
 
+def _split_scratch(B: int, Bn: int, D: int, dev) -> torch.Tensor:
+    """Scratch for K3's and K13's batches split once per step
+    (csrc/fused_step_tc.cuh:split_batches_kernel): the hi and lo parts of
+    (B, DP) and (Bn, DP), rows rounded up to a multiple of 64, DP = 8 times
+    the power of two of 8-feature steps that covers D."""
+    dp = 8 * (1 << (-(-D // 8) - 1).bit_length())
+    return torch.empty((2 * (-(-B // 64) + -(-Bn // 64)) * 64 * dp,),
+                       dtype=torch.float32, device=dev)
+
+
+def k13_rows(noc: int, D: int, device: torch.device) -> int:
+    """K13's codebook rows per CTA: 128 where that still gives every SM two
+    CTAs (their shared memory allows two), else 64, so that one CTA's copies
+    overlap the other's mma on maps of up to 128x128 (16,384 rows: 256 CTAs
+    of 64 rows on an H100's 132 SMs); 64 past D 128, where 128 rows do not
+    fit in shared memory.  The batch is never split across CTAs: each row's
+    sums keep one order."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 128 if D <= 128 and -(-noc // 128) >= 2 * sms else 64
+
+
 def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
                           gaussian, chunked=False, batch_chunk=None,
                           wxa_bf16=False, batch_bf16=False, stagger=False,
@@ -464,12 +487,15 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
     xb, xn = xb.contiguous(), xb_next.contiguous()
+    xs = None if chunked else _split_scratch(B, Bn, D, dev)
     _build.call("somvq_som_fused_factored", codes.data_ptr(),
                 int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
                 bmu.data_ptr(), aw.data_ptr(), B, xn.data_ptr(), Bn, int(xdim),
                 int(bool(hexa)), int(bool(gaussian)), float(radius),
                 int(chunked), int(wxa_bf16), int(bool(batch_bf16)),
                 int(bool(stagger)), int(bool(int8_win)),
+                0 if chunked else k13_rows(noc, D, dev),
+                None if xs is None else xs.data_ptr(),
                 xq.data_ptr() if int8_win else None,
                 q.data_ptr() if int8_win else None, pat, ytab, aw_eff, keys,
                 val.data_ptr(), idx.data_ptr(),
@@ -549,16 +575,17 @@ def _fused_step_k3(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
                                           aw, radius, gaussian, unit_offset)
     xb = xb.contiguous()
     xn = xb_next.contiguous()
-    Bn = xn.shape[0]
+    B, Bn = xb.shape[0], xn.shape[0]
+    xs = _split_scratch(B, Bn, codes.shape[1], dev)
     keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
     _build.call("somvq_som_fused_step", codes.data_ptr(),
                 int(codes.dtype == torch.bfloat16), codes.shape[0],
                 codes.shape[1], xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(),
-                xb.shape[0], xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
+                B, xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
                 int(bool(gaussian)), float(radius), int(unit_offset),
-                keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
+                xs.data_ptr(), keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     som_fused_train_step.launches += 1
     return codes, idx, val

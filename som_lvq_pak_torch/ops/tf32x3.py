@@ -1,6 +1,6 @@
 """A plain emulation of the split-TF32 ("3xTF32") products that K1, K2, K3,
-K6, K16 and K17 run on the tensor cores (csrc/tf32x3.cuh), for the tests and
-chip_smoke.py.  No main-path code calls it.
+K4, K6, K13, K16 and K17 run on the tensor cores (csrc/tf32x3.cuh), for the
+tests and chip_smoke.py.  No main-path code calls it.
 
 A float32 operand a is split as hi = tf32(a), lo = tf32(a - hi), where
 tf32() rounds to the nearest value with 10 mantissa bits, ties away from
@@ -10,13 +10,14 @@ their own order (k-steps of 8 inside the mma), so this emulation matches
 them to float32 rounding, not bit for bit.
 
 `som_fused_train_step_tf32x3`, `dist_argmin_t_tf32x3`, `dist_argmin_tf32x3`,
-`som_update_masked_tf32x3`, `fused_step_skeleton_tf32x3` and
-`f32_winner_probe_tf32x3` are the plain K3, K2, K1, K6, K17 and K16 with
-their contractions through `tf32x3_mm` (K6's weight mass through two
-products, W_lo.K then W_hi.K, K being exact in TF32; K17's bf16 operands
-through one `tf32_mm` pass, a bf16 value being exact in TF32), summed as the
-kernels sum: the numeric design the kernels implement, held to the port's
-gates on the CPU.
+`dist_argmin_masked_tf32x3`, `som_update_masked_tf32x3`,
+`som_fused_factored_step_tf32x3`, `fused_step_skeleton_tf32x3` and
+`f32_winner_probe_tf32x3` are the plain K3, K2, K1, K4, K6, K13, K17 and K16
+with their contractions through `tf32x3_mm` (K4's keep.(m o m) and K6's
+weight mass through two products, the lo part then the hi part, keep being
+exact in TF32; K17's bf16 operands through one `tf32_mm` pass, a bf16 value
+being exact in TF32), summed as the kernels sum: the numeric design the
+kernels implement, held to the port's gates on the CPU.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Tuple
 import torch
 
 from .distance import fp32_matmul, keep_of
-from .som_step import _alpha_r, guarded_blend, neighborhood_w
+from .som_step import _alpha_r, guarded_blend, neighborhood_w, separable_w
 
 # the batch chunk over which K3's and K6's updates sum in the mma before
 # adding into float32 registers
@@ -106,6 +107,49 @@ def dist_argmin_tf32x3(x: torch.Tensor, codes: torch.Tensor
     x2 = (x * x).sum(-1)
     val = torch.clamp(d.gather(1, i[:, None])[:, 0] + x2, min=0.0)
     return val, i.to(torch.int32)
+
+
+def dist_argmin_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,
+                              mask: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain K4 (`dist_argmin_masked_plain`) as the kernel scores:
+    (x keep).m through `tf32x3_mm`, keep.(m o m) as keep.(m o m)_lo +
+    keep.(m o m)_hi (keep is exact in TF32), d = keep.(m o m) - 2 (x keep).m;
+    first index on ties; ||x keep||^2 added back: (sq_dists, int32 idx)."""
+    fp32_matmul()
+    keep = keep_of(mask)
+    xk = x * keep
+    qhi, qlo = tf32_split(codes * codes)
+    d = (keep @ qlo.T + keep @ qhi.T) - 2.0 * tf32x3_mm(xk, codes.T)
+    i = torch.argmin(d, dim=1)
+    x2 = (xk * xk).sum(-1)
+    val = torch.clamp(d.gather(1, i[:, None])[:, 0] + x2, min=0.0)
+    return val, i.to(torch.int32)
+
+
+def som_fused_factored_step_tf32x3(codes, xb, bmu, xb_next, xdim, hexa, alpha,
+                                   radius, gaussian=False):
+    """The plain K13 (`som_fused_factored_step_plain`) as the kernel sums: W
+    from the separable factors (`separable_w`, the same floats), W.X per
+    CHUNK-sample chunk through `tf32x3_mm`, each chunk's sums added into the
+    float32 totals in batch order, the weight mass a float32 sum of the same
+    W; then the winners in distance form, ||m||^2 - 2 x'.m through
+    `tf32x3_mm` (the max-score form's -2 * score).  A bf16 codebook is read
+    upcast.  Returns (the new float32 rows the winners are taken against,
+    bmu_next int32, val_next); `codes` is not changed."""
+    fp32_matmul()
+    dev = codes.device
+    aw, r = _alpha_r(alpha, radius, xb.shape[0], dev)
+    w = separable_w(bmu.to(torch.int32), aw, r, codes.shape[0], xdim, hexa,
+                    gaussian)
+    acc = torch.zeros((codes.shape[0], xb.shape[1]), dtype=torch.float32,
+                      device=dev)
+    for s in range(0, xb.shape[0], CHUNK):
+        acc += tf32x3_mm(w[:, s:s + CHUNK], xb[s:s + CHUNK])
+    newc = guarded_blend(codes.to(torch.float32), acc, w.sum(1, keepdim=True))
+    d_t = (newc * newc).sum(1, keepdim=True) - 2.0 * tf32x3_mm(newc, xb_next.T)
+    idx = torch.argmin(d_t, dim=0)
+    return newc, idx.to(torch.int32), d_t.gather(0, idx[None, :])[0]
 
 
 def som_update_masked_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius,

@@ -40,12 +40,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.fast import _f32, _segment_sum, effective_alpha, guarded_sum_update
+from ..models.fast import _f32, effective_alpha, guarded_sum_update
 from ..ops.dist_argmin import dist_argmin
 from ..ops.dist_topk import dist_topk
 from ..ops.distance import find_winners, fp32_matmul, keep_of
 from ..ops.som_accum import som_neighborhood_accumulate
 from ..ops.som_blend import som_blend_winner
+from ..ops.segment_sum import segment_sum
 from ..ops.som_step import som_fused_train_step
 from .mesh import Mesh, class_blocked_order
 
@@ -268,7 +269,7 @@ def _local_delta(mesh: Mesh, codes_local, xb_local, gidx, coef, n_local):
     lidx_c = lidx.clamp(0, rows - 1)
     contrib = torch.where(in_local, coef, 0.0)[:, None] * (
         xb_local - codes_local[lidx_c])
-    return _segment_sum(contrib, lidx_c, rows)
+    return segment_sum(contrib, lidx_c, rows)
 
 
 def sharded_olvq1_step(mesh: Mesh, codes_local, labels_full, alphas_full,
@@ -288,10 +289,10 @@ def sharded_olvq1_step(mesh: Mesh, codes_local, labels_full, alphas_full,
     sign = torch.where(correct, a, -a)
     delta = mesh.all_reduce(
         _local_delta(mesh, codes_local, xb_local, g, sign, nl), "data")
-    ncorrect = mesh.all_reduce(_segment_sum(correct.to(torch.float32), g, noc),
-                               "data")
-    nwrong = mesh.all_reduce(_segment_sum((~correct).to(torch.float32), g, noc),
-                             "data")
+    # the two hit counts as the columns of one segment sum
+    counts = mesh.all_reduce(segment_sum(torch.stack(
+        [correct, ~correct], 1).to(torch.float32), g, noc), "data")
+    ncorrect, nwrong = counts[:, 0], counts[:, 1]
     # saturating alpha growth (models.fast.olvq1_batch_step)
     clip32 = _f32(clip, codes_local.device)
     new_a = alphas_full / (1.0 + ncorrect * alphas_full)
@@ -342,8 +343,8 @@ def sharded_lvq_step(mesh: Mesh, codes_local, labels_full, xb_local, xlab_local,
                      n_local: Optional[int] = None):
     """One sharded minibatch lvq1/lvq2.1/lvq3 step; returns this rank's new
     rows.  The update math is models.fast.lvq1_batch_step /
-    lvq23_batch_step's; each shard sums into its own rows with index_add_
-    and the deltas are summed over `data`."""
+    lvq23_batch_step's; each shard sums into its own rows (ops.segment_sum,
+    in sample order) and the deltas are summed over `data`."""
     nl = codes_local.shape[0] if n_local is None else n_local
     a = _f32(alpha, codes_local.device)
 

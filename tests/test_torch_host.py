@@ -43,7 +43,7 @@ from som_lvq_pak_torch.ops.som_step import som_fused_train_step
 from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
                                               som_neighborhood_update_idx_masked)
 from som_lvq_pak_torch.ops.som_vmem import som_vmem_train_steps
-from som_lvq_pak_torch.tools import int8_probe, int8_step_ab
+from som_lvq_pak_torch.tools import fused_step_ab, int8_probe, int8_step_ab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "som_lvq_pak_torch")
@@ -354,6 +354,20 @@ def test_as_port_dataset_carries_labels_by_name():
     assert plain.labels is None and plain.mask is None
 
 
+@pytest.mark.parametrize("case", [c for c in fused_step_ab.CASES if c[0] * c[1] <= 256],
+                         ids=lambda c: f"{c[0]}x{c[1]}_D{c[5]}")
+def test_fused_step_ab_digests_repeat_on_the_cpu(case):
+    """The K3/K13 A/B tool on the CPU (the plain versions): every kernel of
+    the case is timed and digested, and a second run on the same seed gives
+    the same digests, so equal digests across trees mean equal floats."""
+    one, two = (fused_step_ab.run_case(*case, dev=torch.device("cpu"), iters=1)
+                for _ in range(2))
+    names = ("k3", "k13") if case[-1] else ("k3",)
+    for name in names:
+        assert len(one[f"{name}_digest"]) == 64 and one[f"{name}_ms"] > 0
+        assert one[f"{name}_digest"] == two[f"{name}_digest"]
+
+
 def test_entry_points_default_to_the_gpu():
     """SOMTrainer, LVQTrainer, OLVQ1Trainer, find_qerror, accuracy,
     classify, codebook_to_torch, samples_to_torch, the LVQ conversions,
@@ -364,7 +378,7 @@ def test_entry_points_default_to_the_gpu():
                OLVQ1Trainer.__init__, peval.accuracy, peval.classify,
                labeled_samples_to_torch, lvq_codebook_to_torch,
                int8_probe.run, int8_probe.library_rates, int8_probe.winner_rates,
-               int8_step_ab.run):
+               int8_step_ab.run, fused_step_ab.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     X = np.random.default_rng(1).normal(size=(64, 3)).astype(np.float32)
     data = PDataset(points=X)
