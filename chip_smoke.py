@@ -24,20 +24,21 @@ phases, each printing one JSON line:
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             one "sass" line: the HMMA (tensor-core) instructions in each
-            instantiation of the tensor-core kernels K3, K2, K1, K4, K6, K13,
-            K16 and K17, from cuobjdump --dump-sass of the library (none
-            fails the run);
+            instantiation of the tensor-core kernels K3, K2, K1, K4, K6, K11,
+            K13, K14's main form, K16 and K17, from cuobjdump --dump-sass of
+            the library (none fails the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
             67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3, K2,
-            K1, K4, K6 and K13 also with the bound of their route (the TF32
-            products they issue at 495 TFLOP/s: three per FP32 product, two
-            for K6's weight mass and K4's keep.(m o m)) and the share of it
-            they reach, and run twice on the same inputs, bit-equal (K5
-            too).  K1 is also bit-equal to K2
-            on the same inputs at every K1 shape (one kernel body), and the
+            K1, K4, K6, K11, K13 and K14's main form also with the bound of
+            their route (the TF32 products they issue at 495 TFLOP/s: three
+            per FP32 product, two for K6's weight mass and K4's keep.(m o m),
+            one for K14's under batch_bf16) and the share of it they reach,
+            and run twice on the same inputs, bit-equal (K5 too).  K1 is
+            also bit-equal to K2 on the same inputs at every K1 shape (one
+            kernel body), and the
             min over K1 on two shards of a codebook (split off a tile
             boundary, merged by the sharded winner's rule) has the whole
             run's values bit for bit and its winners except at value ties.
@@ -68,26 +69,36 @@ phases, each printing one JSON line:
             and with a bf16 codebook; K13 (som_fused_factored_step) at the
             128x128 cell's step, 256x256 at B 1024, 64x64 bubble at B 4096, a
             rect map, the 64x64 B 512 step, every code three times (exact
-            ties), K3's D 5, D 37 and D 200 cases and a bf16 codebook, codes
-            within 1e-5 and values within 1e-4, each run twice (bit-equal),
-            with one "k13_vs_k3" line per shape K3 also ran at; K14
-            (som_fused_factored_chunked_step) at the 64x64 B 4096 step with
-            both bf16 options, bench.py's headline 256x256 shapes (B 4096
-            with the bf16 x-pattern, B 8192 with both options), bubble with
-            and without bf16 batches and a bf16 codebook (values within 5e-3
-            of the plain run under bf16 batches); on a float32 codebook each
+            ties), K3's D 5, D 37 and D 200 cases, 64x64 gaussian B 4096 and
+            a bf16 codebook, codes within 1e-5 and values within 1e-4, each
+            run twice (bit-equal), with one "k13_vs_k3" line per shape K3
+            also ran at; K14's main form (som_fused_factored_chunked_step) at
+            the 64x64 B 4096 step with both bf16 options, bench.py's headline
+            256x256 shapes (B 4096 with the bf16 x-pattern, B 8192 with both
+            options), bubble with and without bf16 batches and a bf16
+            codebook (values within 5e-3 of the plain run under bf16
+            batches), each run twice (bit-equal); its 64x64 cases also at 32
+            and 64 rows per CTA, with one "k14_vs_k13" line each (both
+            heights, the height ops.som_step.K14_ROWS takes, K13 at the same
+            shape), and so are the trainer's other K14 maps, 32x32 and 64x32
+            gaussian at B 4096 (one "k14_rows" line each); on a float32
+            codebook each
             fused-step kernel's winners and values are also held against the
             plain scoring of its own updated rows; K14's bound under bf16
-            batches is its FLOPs at the BF16 tensor peak (989 TFLOP/s); the
+            batches is its FLOPs at the BF16 tensor peak (989 TFLOP/s), its
+            route's bound one TF32 product per FP32 product there; the
             exact bubble boundary through K13 and K14; K5 and K6 at the
             masked 1M cell's step, 128x128, 12x8 at D 64 and D 5, a ragged
             10x6 map at D 37 and 16x16 at D 200, and the exact bubble
             boundary through K6;
 3b. kernels  K14's stagger at every K14 case, bit-equal to the plain
-            schedule on the same inputs; K14's int8_win at int8_step_ab's
-            step (256x256 B 4096, chunk 1024, bf16 x-pattern), 64x64 with
-            both bf16 options, 64x64 bubble, bf16 batches at 256x256 B 8192 and a bf16 codebook: the
-            codebook bit-equal to K14's without it, stagger bit-equal, winners
+            schedule of its CUDA-core body on the same inputs
+            (ops.som_step._som_fused_factored_chunked_step_cuda_cores);
+            K14's int8_win at int8_step_ab's step (256x256 B 4096, chunk
+            1024, bf16 x-pattern), 64x64 with both bf16 options, 64x64
+            bubble, bf16 batches at 256x256 B 8192 and a bf16 codebook: the
+            codebook bit-equal to that CUDA-core body's without it, stagger
+            bit-equal, winners
             equal to the plain int8 scoring of its own rows (values within
             1e-5 relative), against the plain int8 run equal except within one
             quantization step, values within 5e-5 where they agree; a bf16
@@ -160,10 +171,12 @@ phases, each printing one JSON line:
             (K8 clean, K9 masked), the masked accuracy (K4); within 0.5
             points of the plain run.
 13a. e2e_int8_win_256x256_B4096  som_lvq_pak_torch.tools.int8_step_ab: the
-            step times of the float32, int8_win and stagger chains (K14) with
-            K17 beside them, then 64 training steps of each from K1's
-            winners and the qerror over 262,144 samples (K2); int8_win's
-            qerror within 1% of float32's, the stagger codebook bit-equal.
+            step times of the float32 (K14's main form), int8_win, stagger
+            and cuda_cores (K14's CUDA-core body) chains with K17 beside
+            them, then 64 training steps of each from K1's winners and the
+            qerror over 262,144 samples (K2); int8_win's qerror within 1% of
+            float32's, the stagger codebook bit-equal to the cuda_cores
+            chain's.
 13b. int8_probe  som_lvq_pak_torch.tools.int8_probe: the bf16/int8 library
             rates at 4096^3 and K15 against K16 at 65536 x 64 x 4096.
 
@@ -207,9 +220,10 @@ and at N = 2; K9 with p = 0.1 and fully masked rows.  K10 (dist_topk) at
 the mesh step's shapes (B 1024 and 512 x 32768 x 64, k = 2), small shapes
 at k = 1, 5 and 16, and every code twice; K11 (som_neighborhood_accumulate)
 at a 32768-row shard of the 256x256 map (offset 32768, B 2048), gaussian
-and bubble, hexa and rect, scalar and per-sample alpha; K12
-(som_blend_winner) at that shard with B' 2048 and 4096 and with every row
-twice, and K11 then K12 against K3 on one shard; K3 on each half of the
+and bubble, hexa and rect, scalar and per-sample alpha, each run twice
+(bit-equal), with its route's bound; K12 (som_blend_winner) at that shard
+with B' 2048 and 4096 and with every row twice, and K11 then K12 equal to
+K3 bit for bit on one shard; K3 on each half of the
 256x256 map with its unit offset against the unsharded run; K1 at the
 mesh's B 512 x 32768.
 
@@ -252,11 +266,14 @@ PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32: K3, K2,
 # K1 (K2's body under its own name), K4 (K1's CTA shape with the keep
-# contraction), K6, K13 (K3's body with the separable W), K16 (K2's body
-# without the norm) and K17 (its bf16 twin as one TF32 product)
+# contraction), K6, K11 (K3's update half), K13 (K3's body with the separable
+# W), K14's main form (K13's body; one TF32 product under batch_bf16), K16
+# (K2's body without the norm) and K17 (its bf16 twin as one TF32 product)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
                       "dist_argmin_kernel", "dist_argmin_masked_kernel",
-                      "som_update_masked_kernel", "som_fused_factored_kernel",
+                      "som_update_masked_kernel", "som_accum_kernel",
+                      "som_fused_factored_kernel",
+                      "som_fused_factored_chunked_tc_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel")
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -289,9 +306,10 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
     the peak of their operand type (FP32 unless stated; `int8_ops` more at
     the INT8 peak) or its bytes (each input read once, each output written
     once) at the memory rate, whichever is larger.  With `route_flops`, the
-    TF32 FLOPs a split-TF32 kernel issues (K1, K2, K3: three TF32
-    tensor-core products per float32 product, 3 x the FLOPs; K6: three for
-    W.(X o K), two for W.K), also the bound of that route, route_bound_ms:
+    TF32 FLOPs a tensor-core kernel issues (K1, K2, K3, K11, K13: three TF32
+    products per float32 product, 3 x the FLOPs; K6: three for W.(X o K),
+    two for W.K; K14 under batch_bf16: one), also the bound of that route,
+    route_bound_ms:
     those FLOPs at the TF32 peak, or the bytes.  library_ms is null here: a
     phase sets it where one PyTorch call computes the kernel's function."""
     f_ms = 1e3 * flops / peak + 1e3 * int8_ops / PEAK_INT8_OPS
@@ -594,7 +612,7 @@ def bf16_ulp_close(got, want, atol=1e-5) -> bool:
 def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                name="som_fused_train_step", kw=None, bf16=False, dup=False,
                codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5, twin=None,
-               tf32x3=False, separable=False):
+               twin_kernel=None, tf32x3=False, separable=False, route_mult=None):
     """A fused-step kernel (K3, K13 or K14, options `kw`) against its plain
     version: a few samples without a BMU, per-sample alphas.  Codes within
     `codes_tol` (a bf16 codebook: bf16_ulp_close), winners equal except where
@@ -606,13 +624,15 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     `win_rel`, values to `val_tol`, or to (1e-4, 1e-4) under batch_bf16.
     With `dup` every code is there three times and alpha is 0: the rows do
     not move, and the first copy must win every exact tie, as in the plain
-    version.  With `twin` (options), the kernel run under those options on
-    the same inputs must give the same codebook, winners and values bit for
-    bit (K14's stagger against its plain schedule; K3 against itself with
-    twin={}).  `tf32x3` (K3, K13) adds the split-TF32 route's bound and
-    share, and on a float32 codebook the mean distance of the kernel's and
-    the plain version's codebooks from the same blend taken in float64 (W
-    from the separable factors with `separable`, K13's)."""
+    version.  With `twin` (options), the kernel (or `twin_kernel`) run under
+    those options on the same inputs must give the same codebook, winners
+    and values bit for bit (K14's stagger against the CUDA-core body without
+    it; K3, K13 and K14's main form against a rerun).  `tf32x3` (K3, K13)
+    adds the split-TF32 route's bound and share, and on a float32 codebook
+    the mean distance of the kernel's and the plain version's codebooks from
+    the same blend taken in float64 (W from the separable factors with
+    `separable`, K13's); `route_mult` (K14's main form) the route's bound and
+    share alone, at that many TF32 products per float32 product."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
@@ -643,9 +663,11 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
            + "".join(f" {k}={v}" for k, v in kw.items()) \
            + (" bf16 codebook" if bf16 else "") + (" every code three times" if dup else "")
     if twin is not None:
-        tw = kernel(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, **twin)
+        tw = (twin_kernel or kernel)(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius,
+                                     gaussian, **twin)
         if not all(torch.equal(a, b) for a, b in zip((ck, ik, vk), tw)):
-            raise AssertionError(f"{name}: not bit-equal to the kernel under {twin}")
+            raise AssertionError(f"{name}: not bit-equal to "
+                                 f"{(twin_kernel or kernel).__name__} under {twin}")
     err = float((ck.float() - cp.float()).abs().max())
     if not (bf16_ulp_close(ck, cp) if bf16
             else torch.allclose(ck, cp, rtol=codes_tol, atol=codes_tol)):
@@ -690,6 +712,7 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     # under batch_bf16, a BF16 MMA's); codes read and written, both batches,
     # bmu and alpha read, the next winners written
     cb = codes.element_size()
+    mult = 3 if tf32x3 else route_mult
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius, winners_differ=n_diff,
                max_abs_err=err, val_err=val_err, own_val_err=own_val_err, **f64,
                **({} if twin is None else dict(bit_equal_to=twin)),
@@ -699,8 +722,8 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                                               gaussian, **kw)),
                **bound(4 * noc * B * D, 2 * cb * noc * D + 8 * B * D + 16 * B,
                        PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS,
-                       route_flops=3 * 4 * noc * B * D if tf32x3 else None))
-    if tf32x3:
+                       route_flops=mult * 4 * noc * B * D if mult else None))
+    if mult:
         rec.update(route_pct(rec))
     # the plain version is the PyTorch call chain of the same function
     # (neighborhood_w or the separable factors, FP32 cuBLAS products, the
@@ -800,7 +823,7 @@ def phase_bubble_boundary():
     the unit is inside.  K13 takes one sample of alpha 0.5; K14 128 such
     samples of alpha 2^-8 (wsum exactly 0.5, B a multiple of its chunk).
     The unit must become 0.5 exactly, and each codebook equal its plain
-    version's bit for bit."""
+    version's and a rerun's bit for bit."""
     import torch
 
     from som_lvq_pak_torch.ops import som_step as ss
@@ -816,19 +839,22 @@ def phase_bubble_boundary():
         xb = torch.ones((B, D), device="cuda")
         bmu = torch.full((B,), 2, dtype=torch.int32, device="cuda")
         ck = fn(codes.clone(), xb, bmu, xb, xdim, True, a, 3.0, False, **kw)[0]
+        again = fn(codes.clone(), xb, bmu, xb, xdim, True, a, 3.0, False, **kw)[0]
         cp = plain(codes.clone(), xb, bmu, xb, xdim, True, a, 3.0, False, **kw)[0]
         torch.cuda.synchronize()
-        if not (torch.equal(ck, cp) and bool((ck[inside] == 0.5).all())):
+        if not (torch.equal(ck, cp) and torch.equal(ck, again)
+                and bool((ck[inside] == 0.5).all())):
             raise AssertionError(f"{name}: the exact bubble boundary went wrong: "
                                  f"{ck[inside, :4].tolist()}")
     emit("kernels", kernel="exact bubble boundary, K13 and K14", inside_equals_half=True,
-         equal_plain=True)
+         equal_plain=True, rerun_bit_equal=True)
 
 
 def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
     """K14 with int8_win (options `kw`) on phase_step's inputs.  The codebook
-    must equal K14's without int8_win bit for bit, and K14's with stagger
-    added (winners and values too).  A bf16 codebook's int8 rows and
+    must equal, bit for bit, that of K14's CUDA-core body (the body int8_win
+    runs) without int8_win, and K14's with stagger added (winners and values
+    too).  A bf16 codebook's int8 rows and
     ||m||^2 come from the float32 blend, not the rows rounded for storage:
     its winners and values must equal, bit for bit, those of the same step
     on the codebook widened to float32, and its rows that step's rounded to
@@ -845,10 +871,10 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
-    from som_lvq_pak_torch.ops.som_step import (fused_step_winners_int8,
-                                                int8_win_inputs, int8_win_scores,
-                                                som_fused_factored_chunked_step as k14,
-                                                som_fused_factored_chunked_step_plain as k14p)
+    from som_lvq_pak_torch.ops.som_step import (
+        _som_fused_factored_chunked_step_cuda_cores as k14_cores, fused_step_winners_int8,
+        int8_win_inputs, int8_win_scores, som_fused_factored_chunked_step as k14,
+        som_fused_factored_chunked_step_plain as k14p)
 
     noc = xdim * ydim
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -861,7 +887,7 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
     if bf16:
         codes = codes.to(torch.bfloat16)
     args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
-    c0 = k14(codes.clone(), *args, **kw)[0]
+    c0 = k14_cores(codes.clone(), *args, **kw)[0]
     ck, ik, vk = k14(codes.clone(), *args, int8_win=True, **kw)
     cs, is_, vs = k14(codes.clone(), *args, int8_win=True, stagger=True, **kw)
     cp, ip, vp = k14p(codes.clone(), *args, int8_win=True, **kw)
@@ -870,7 +896,8 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
             f"{'gaussian' if gaussian else 'bubble'} int8_win=True"
             + "".join(f" {k}={v}" for k, v in kw.items()) + (" bf16 codebook" if bf16 else ""))
     if not torch.equal(ck, c0):
-        raise AssertionError(f"{name}: the codebook differs from K14's without int8_win")
+        raise AssertionError(f"{name}: the codebook differs from K14's CUDA-core body "
+                             "without int8_win")
     if not (torch.equal(cs, ck) and torch.equal(is_, ik) and torch.equal(vs, vk)):
         raise AssertionError(f"{name}: stagger=True is not bit-equal")
     if bf16:
@@ -1084,23 +1111,49 @@ K14_CASES = (((64, 64, True, True, 4096, 64, 16.0), 47, K14_BOTH),
              ((64, 64, True, False, 4096, 64, 16.0), 51,
               dict(batch_chunk=1024, batch_bf16=True)))
 K14_BF16_CODEBOOK = ((64, 64, True, True, 4096, 64, 16.0), 52)
+# the trainer's other K14 maps at B 4096 (models.trainer.fused_step_choice:
+# 32x32 and 64x32 hexa gaussian, both bf16 options), timed at both CTA
+# heights beside 64x64's
+K14_ROWS_CASES = (((32, 32, True, True, 4096, 64, 8.0), 58, K14_BOTH),
+                  ((64, 32, True, True, 4096, 64, 16.0), 59, K14_BOTH))
 
 
-def k14_step(case, seed, kw, twin=None, bf16=False):
-    """phase_step on K14 with options `kw` (bit-equal to K14 under `twin`
-    where given), at the tolerances of its batches and codebook."""
-    from som_lvq_pak_torch.ops.som_step import (som_fused_factored_chunked_step,
-                                                som_fused_factored_chunked_step_plain)
+def k14_step(case, seed, kw, twin=None, bf16=False, name="som_fused_factored_chunked_step"):
+    """phase_step on K14 with options `kw`, at the tolerances of its batches
+    and codebook.  The main form (no stagger, no int8_win) reruns bit-equal
+    and carries its route's bound (one TF32 product per float32 product
+    under batch_bf16, three otherwise); an option is held bit-equal to the
+    CUDA-core body under the options `twin`."""
+    from som_lvq_pak_torch.ops.som_step import (
+        _som_fused_factored_chunked_step_cuda_cores, som_fused_factored_chunked_step,
+        som_fused_factored_chunked_step_plain)
 
     if bf16:
         tols = dict(val_tol=(0.0, 5e-3), win_rel=1e-2)
     else:
         tols = dict(codes_tol=1e-5, val_tol=(0.0, 5e-3) if kw.get("batch_bf16")
                     else (1e-4, 1e-4))
+    main = not (kw.get("stagger") or kw.get("int8_win"))
     return phase_step(som_fused_factored_chunked_step,
                       som_fused_factored_chunked_step_plain, *case, seed=seed,
-                      name="som_fused_factored_chunked_step", kw=kw, twin=twin,
+                      name=name, kw=kw, twin=kw if main else twin,
+                      twin_kernel=None if main else _som_fused_factored_chunked_step_cuda_cores,
+                      route_mult=(1 if kw.get("batch_bf16") else 3) if main else None,
                       bf16=bf16, **tols)
+
+
+@contextlib.contextmanager
+def k14_rows_forced(rows: int):
+    """K14's main form at `rows` rows per CTA (32 or 64) in place of
+    ops.som_step.K14_ROWS."""
+    from som_lvq_pak_torch.ops import som_step
+
+    saved = som_step.K14_ROWS
+    som_step.K14_ROWS = rows
+    try:
+        yield
+    finally:
+        som_step.K14_ROWS = saved
 
 
 def option_phases(recs):
@@ -1113,10 +1166,10 @@ def option_phases(recs):
                                                     int8_winner_probe,
                                                     int8_winner_probe_plain)
 
-    # K14's stagger (a persistent grid) at every K14 case: bit-equal to the
-    # plain schedule on the same inputs, and held against the plain version
-    # as K14 is; its record at int8_step_ab's step (256x256 B 4096, the bf16
-    # x-pattern)
+    # K14's stagger (a persistent grid on the CUDA-core body) at every K14
+    # case: bit-equal to that body's plain schedule on the same inputs, and
+    # held against the plain version as K14 is; its record at int8_step_ab's
+    # step (256x256 B 4096, the bf16 x-pattern)
     stag = [k14_step(case, seed, dict(kw, stagger=True), twin=kw)
             for case, seed, kw in K14_CASES]
     k14_step(*K14_BF16_CODEBOOK, dict(K14_BOTH, stagger=True), twin=K14_BOTH, bf16=True)
@@ -1417,7 +1470,11 @@ def phase_accum(xdim, hexa, gaussian, n_local, offset, B, D, radius, per_sample,
     """K11 on the rows offset .. offset + n_local - 1 of an xdim x xdim map
     against its plain version: acc and wsum within 1e-4 relative, 1e-5 of
     the largest accumulator absolute (the kernel sums the batch in order,
-    the plain version's matmul in its own order)."""
+    the plain version's matmul in its own order); a rerun bit-equal, and
+    the shard accumulated in two row segments split 8 rows short of its
+    middle (the mesh step's overlap_segments takes any 8-row-aligned split)
+    bit-equal to it whole.  Its route's bound: W.X as three TF32 products,
+    6 n_local B D FLOPs."""
     import torch
 
     from som_lvq_pak_torch.ops.som_accum import (som_neighborhood_accumulate,
@@ -1431,11 +1488,22 @@ def phase_accum(xdim, hexa, gaussian, n_local, offset, B, D, radius, per_sample,
         return fn(xb, bmu, n_local, xdim, hexa, a, radius, gaussian, unit_offset=offset)
 
     ak, wk = run(som_neighborhood_accumulate)
+    ak2, wk2 = run(som_neighborhood_accumulate)
     ap, wp = run(som_neighborhood_accumulate_plain)
+    cut = n_local // 2 // 8 * 8 - 8 if n_local >= 32 else 0
+    segs = [som_neighborhood_accumulate(xb, bmu, h, xdim, hexa, a, radius, gaussian,
+                                        unit_offset=offset + o)
+            for o, h in ((0, cut), (cut, n_local - cut)) if h > 0]
     torch.cuda.synchronize()
     name = (f"som_neighborhood_accumulate {xdim}x{xdim}[{offset}:{offset + n_local}] "
             f"{'hexa' if hexa else 'rect'} {'gaussian' if gaussian else 'bubble'} "
             f"{'per-sample' if per_sample else 'scalar'} alpha")
+    if not (torch.equal(ak, ak2) and torch.equal(wk, wk2)):
+        raise AssertionError(f"{name}: a rerun is not bit-equal")
+    if not (torch.equal(torch.cat([s_[0] for s_ in segs]), ak)
+            and torch.equal(torch.cat([s_[1] for s_ in segs]), wk)):
+        raise AssertionError(f"{name}: two row segments (split at {cut}) are not "
+                             "bit-equal to the whole shard")
     err = max(float((ak - ap).abs().max()), float((wk - wp).abs().max()))
     for got, want in ((ak, ap), (wk, wp)):
         if not torch.allclose(got, want, rtol=1e-4,
@@ -1446,9 +1514,12 @@ def phase_accum(xdim, hexa, gaussian, n_local, offset, B, D, radius, per_sample,
     # (B, D) samples, bmu and alpha in; (n_local, D) acc and (n_local,) wsum
     # out; 2 n_local B D FLOPs
     rec = dict(kernel=name, shape=[n_local, B, D], radius=radius, max_abs_err=err,
+               rerun_bit_equal=True, segments_bit_equal=True, segment_cut=cut,
                ms=cuda_ms(lambda: run(som_neighborhood_accumulate)),
                plain_ms=cuda_ms(lambda: run(som_neighborhood_accumulate_plain)),
-               **bound(2 * n_local * B * D, 4 * B * D + 8 * B + 4 * n_local * (D + 1)))
+               **bound(2 * n_local * B * D, 4 * B * D + 8 * B + 4 * n_local * (D + 1),
+                       route_flops=6 * n_local * B * D))
+    rec.update(route_pct(rec))
     # the plain version is the PyTorch call chain of the same function
     # (neighborhood_w, then FP32 cuBLAS products)
     rec["library_ms"] = rec["plain_ms"]
@@ -1502,9 +1573,9 @@ def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
     unsharded step on the same inputs: K3 with the half's unit offset must
     give the unsharded K3's rows bit for bit, and the gather-min of the two
     halves' winners (global rows, lowest on ties) its winners; K11 then K12
-    on the half (one data shard) must give the same rows as its K3 (the
-    same accumulate and blend code), winners equal except at near-ties
-    (K12 scores in the max-score form)."""
+    on the half (one data shard) must give its K3's rows bit for bit (K11 is
+    K3's update half, K12 blends with K3's guarded_blend), winners equal
+    except at near-ties (K12 scores in the max-score form)."""
     import torch
 
     from som_lvq_pak_torch.ops.som_accum import som_neighborhood_accumulate
@@ -1537,12 +1608,12 @@ def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
                              f"{float((shards - full).abs().max())}, "
                              f"{int((won != i_full).sum())} winners")
     k12_diff = float((c12 - parts[1][0]).abs().max())
-    if not torch.allclose(c12, parts[1][0], rtol=1e-5, atol=1e-5):
+    if not torch.equal(c12, parts[1][0]):
         raise AssertionError(f"{name}: K11 + K12 differ from K3 by {k12_diff}")
     n_diff = check_winners(f"{name}: K12 against K3", xn, c12, i12, parts[1][1])
     emit("kernels", kernel=name, shape=[noc, B, D], radius=radius,
-         shards_equal_unsharded=True, k11_k12_equal_k3=bool(k12_diff == 0.0),
-         k11_k12_max_abs_diff=k12_diff, k12_winners_differ_from_k3=n_diff)
+         shards_equal_unsharded=True, k11_k12_equal_k3=True,
+         k12_winners_differ_from_k3=n_diff)
 
 
 def blob_data(seed: int, n: int, n_centres: int):
@@ -1592,7 +1663,8 @@ def counted():
     from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
                                                    dist_argmin_t)
     from som_lvq_pak_torch.ops.skeleton import fused_step_skeleton
-    from som_lvq_pak_torch.ops.som_step import (CHUNKED_INT8_WIN, CHUNKED_STAGGER,
+    from som_lvq_pak_torch.ops.som_step import (CHUNKED_CUDA_CORES, CHUNKED_INT8_WIN,
+                                                CHUNKED_STAGGER,
                                                 som_fused_factored_chunked_step,
                                                 som_fused_factored_step,
                                                 som_fused_train_step)
@@ -1611,6 +1683,7 @@ def counted():
             som_vmem_train_steps, dist_top2, dist_top2_masked, dist_topk,
             som_neighborhood_accumulate, som_blend_winner, som_fused_factored_step,
             som_fused_factored_chunked_step, CHUNKED_INT8_WIN, CHUNKED_STAGGER,
+            CHUNKED_CUDA_CORES,
             int8_winner_probe, f32_winner_probe, fused_step_skeleton, segment_sum)
 
 
@@ -2391,6 +2464,7 @@ def main() -> int:
                                                    dist_argmin_t_plain)
     from som_lvq_pak_torch.ops.dist_top2 import (dist_top2, dist_top2_masked,
                                                  dist_top2_plain)
+    from som_lvq_pak_torch.ops import som_step
     from som_lvq_pak_torch.ops.distance import fp32_matmul
     from som_lvq_pak_torch.models.trainer import fused_step_choice
     from som_lvq_pak_torch.ops.som_step import (
@@ -2546,17 +2620,20 @@ def main() -> int:
     # (bit-equal), with its split-TF32 bound
     f32_tols = dict(codes_tol=1e-5, val_tol=(1e-4, 1e-4), twin={}, tf32x3=True,
                     separable=True)
+    k13_cases = (((128, 128, True, True, 1024, 64, 32.0), 40, False),
+                 ((256, 256, True, True, 1024, 64, 64.0), 41, False),
+                 ((64, 64, True, False, 4096, 64, 16.0), 42, False),
+                 ((128, 64, False, True, 1024, 64, 20.0), 43, False),
+                 ((64, 64, True, True, 512, 64, 16.0), 44, False),
+                 ((48, 16, True, True, 1024, 64, 8.0), 45, True),
+                 ((12, 8, True, False, 1000, 5, 3.0), 47, False),
+                 ((10, 6, True, True, 100, 37, 3.0), 48, False),
+                 ((16, 16, False, True, 256, 200, 4.0), 49, False),
+                 ((64, 64, True, True, 4096, 64, 16.0), 50, False))
     steps = [phase_step(som_fused_factored_step, som_fused_factored_step_plain, *case,
                         seed=seed, name="som_fused_factored_step", dup=dup, **f32_tols)
-             for case, seed, dup in (((128, 128, True, True, 1024, 64, 32.0), 40, False),
-                                     ((256, 256, True, True, 1024, 64, 64.0), 41, False),
-                                     ((64, 64, True, False, 4096, 64, 16.0), 42, False),
-                                     ((128, 64, False, True, 1024, 64, 20.0), 43, False),
-                                     ((64, 64, True, True, 512, 64, 16.0), 44, False),
-                                     ((48, 16, True, True, 1024, 64, 8.0), 45, True),
-                                     ((12, 8, True, False, 1000, 5, 3.0), 47, False),
-                                     ((10, 6, True, True, 100, 37, 3.0), 48, False),
-                                     ((16, 16, False, True, 256, 200, 4.0), 49, False))]
+             for case, seed, dup in k13_cases]
+    k13_by_case = {case: r for (case, _, _), r in zip(k13_cases, steps)}
     phase_step(som_fused_factored_step, som_fused_factored_step_plain, 128, 128, True,
                True, 1024, 64, 32.0, seed=46, name="som_fused_factored_step", bf16=True,
                val_tol=(1e-4, 1e-4), win_rel=1e-2, twin={}, tf32x3=True)
@@ -2574,12 +2651,35 @@ def main() -> int:
         emit("k13_vs_k3", card=smi, shape=r13["shape"], k13_ms=r13["ms"], k3_ms=r3["ms"],
              k13_over_k3=r13["ms"] / r3["ms"], k13_route_pct=r13["route_pct"],
              k3_route_pct=r3["route_pct"])
-    # K14 at K14_CASES (e2e_64x64_1M_B4096's step first: its record), then
-    # its options stagger and int8_win, K15-K17 and the attainable_pct lines
+    # K14 at K14_CASES (e2e_64x64_1M_B4096's step first: its record), each
+    # run twice (bit-equal), with its route's bound; the 64x64 cases also at
+    # both CTA heights (ops.som_step.K14_ROWS takes 64) and beside K13 at the
+    # same shape (one "k14_vs_k13" line each), the trainer's other K14 maps
+    # at both heights (one "k14_rows" line each); then its options stagger
+    # and int8_win, K15-K17 and the attainable_pct lines
     steps = [k14_step(case, seed, kw) for case, seed, kw in K14_CASES]
     k14_step(*K14_BF16_CODEBOOK, K14_BOTH, bf16=True)
     recs["som_fused_factored_chunked_step"] = dict(
         steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
+    for (case, seed, kw), r14 in list(zip(K14_CASES, steps)) + [
+            (c, None) for c in K14_ROWS_CASES]:
+        if case[:2] != (64, 64) and r14 is not None:
+            continue
+        by_rows = {}
+        for rows in (32, 64):
+            with k14_rows_forced(rows):
+                by_rows[rows] = k14_step(
+                    case, seed, kw, name=f"som_fused_factored_chunked_step rows={rows}")
+        line = dict(card=smi, shape=by_rows[64]["shape"], options=kw, gaussian=case[3],
+                    k14_rows32_ms=by_rows[32]["ms"], k14_rows64_ms=by_rows[64]["ms"],
+                    k14_rows_chosen=som_step.K14_ROWS)
+        if r14 is None:  # another map of the trainer's K14 choice
+            emit("k14_rows", **line)
+            continue
+        r13 = k13_by_case[case]
+        emit("k14_vs_k13", **line, k14_ms=r14["ms"], k13_ms=r13["ms"],
+             k14_over_k13=r14["ms"] / r13["ms"], k14_route_pct=r14["route_pct"],
+             k13_route_pct=r13["route_pct"])
     sk = option_phases(recs)
     release()
     for fused, step, skel in (
@@ -2891,16 +2991,19 @@ def main() -> int:
     # of the float32, int8_win and stagger chains with K17 beside them, then
     # 64 training steps each (K1 prologue) and their qerror (K2); the tool
     # raises unless int8_win's qerror is within 1% of float32's and the
-    # stagger chain ends bit-equal to the plain schedule's
+    # stagger chain ends bit-equal to the plain schedule's on K14's CUDA-core
+    # body (the cuda_cores chain)
     ab, _, got = main_path(
         "e2e_int8_win_256x256_B4096", lambda: int8_step_ab.run(device="cuda"),
         ("dist_argmin", "som_fused_factored_chunked_step", "dist_argmin_t",
          "som_fused_factored_chunked_step[int8_win]",
-         "som_fused_factored_chunked_step[stagger]", "fused_step_skeleton"))
+         "som_fused_factored_chunked_step[stagger]",
+         "som_fused_factored_chunked_step[cuda_cores]", "fused_step_skeleton"))
     tally(got)
     emit("e2e_int8_win_256x256_B4096", card=smi, **ab, launches=got,
          gate="int8_win qerror within 1% of float32's; the stagger chain's codebook "
-              "bit-equal to the plain schedule's")
+              "bit-equal to the cuda_cores chain's (the plain schedule on the same "
+              "body)")
     # ---- the int8 winner probe (tools/int8_probe): library rates, K15, K16 --
     probe, _, got = main_path("int8_probe", lambda: int8_probe.run(device="cuda"),
                               ("int8_winner_probe", "f32_winner_probe"))
@@ -2938,7 +3041,7 @@ def main() -> int:
                              "som_lvq_pak_tpu/ops/pallas_som.py:401"),
         "som_fused_factored_step": ("som_lvq_pak_torch/csrc/som_fused_factored.cu",
                                     "som_lvq_pak_tpu/ops/pallas_som.py:743"),
-        "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/som_fused_factored.cu",
+        "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/som_fused_chunked_tc.cuh",
                                             "som_lvq_pak_tpu/ops/pallas_som.py:904"),
         "som_fused_factored_chunked_step[int8_win]": (
             "som_lvq_pak_torch/csrc/som_fused_factored.cu",

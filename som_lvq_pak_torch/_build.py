@@ -50,10 +50,11 @@ _SIGNATURES = {
                              _I, ctypes.c_float, _I, _P, _P, _P, _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
     # gaussian, radius, chunked, wxa_bf16, batch_bf16, stagger, int8_win,
-    # rows, xs, xq, q, pat, ytab, aw, keys, val, idx, stream
+    # cuda_cores, rows, xs, xq, q, pat, ytab, aw, keys, val, idx, stream
     "somvq_som_fused_factored": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
                                  _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
-                                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                                 _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P],
     # rows, seg, B, C, noc, presorted, scratch, out, stream
     "somvq_segment_sum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # m, x, N, D, B, out, stream
@@ -67,9 +68,9 @@ _SIGNATURES = {
     # x, codes, B, N, D, k, splits, pv, pi, vo, io, stream
     "somvq_dist_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius,
-    # unit_offset, acc, wsum, stream
+    # unit_offset, xs, acc, wsum, stream
     "somvq_som_accum": [_I, _I, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
-                        _P, _P, _P],
+                        _P, _P, _P, _P],
     # codes, n_local, D, acc, wsum, xn, Bn, keys, val, idx, stream
     "somvq_som_blend_winner": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     # codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius, stream

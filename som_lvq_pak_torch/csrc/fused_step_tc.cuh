@@ -1,9 +1,11 @@
 // The fused SOM step on the tensor cores, shared by K3 (som_fused_step.cu,
-// W from the closed form) and K13 (som_fused_factored.cu, W from the
-// separable tables): batch t's neighbourhood update, then batch t+1's
-// winners against the updated rows, in one pass over the codebook.  The two
-// kernels differ only in how a W value is built, which a weight policy
-// (ClosedFormW in som_fused_step.cu, SeparableW in som_fused_factored.cu)
+// W from the closed form), K13 and K14's main form (som_fused_factored.cu
+// and som_fused_chunked_tc.cuh, W from the separable tables): batch t's
+// neighbourhood update, then batch t+1's winners against the updated rows,
+// in one pass over the codebook.  Its update half runs alone as K11
+// (som_accum.cu: the accumulators of a model shard, written out for the
+// mixed mesh step).  The kernels differ only in how a W value is built,
+// which a weight policy (ClosedFormW below, SeparableW in separable_w.cuh)
 // supplies:
 //
 //   static size_t floats(...)      shared memory it stages into, per CTA
@@ -27,25 +29,31 @@
 // the mma between barriers (wgmma fed from shared memory by a producer warp is
 // the next step).
 //
+// kBf16 (K14's batch_bf16): both batches are rounded to bf16, W is rounded to
+// bf16 for its product with X (wsum sums the unrounded W) and the blended
+// rows are rounded to bf16 for the winners (||m||^2 from the float32 rows).
+// A bf16 value is exact in TF32 and a product of two is exact in float32, so
+// each contraction is ONE TF32 product, with no lo half split or staged:
+// the staged operands are one plane, not two.
+//
 // Layout.  One CTA owns TN = 16 WARPS rows; warp w owns the 16-row m-tile
 // 16w.. and every feature column, so each W value is built once per CTA and
 // the batch is read from L2 once per CTA.  Features are padded to DP = 8 NT
 // (a power of two) with zeros in shared memory only.
 //
-// Update.  Both batches are split into hi and lo once per step by a small
-// launch (split_batches_kernel), so no CTA splits a sample.  The batch is
-// walked in kBC-sample chunks: cp.async copies chunk c + 1's hi and lo rows
-// (and the policy's inputs for it) into one half of a double buffer while
-// chunk c feeds the mma.  Each
-// thread builds the W values of its A fragments straight in registers.  wsum
-// is the float32 sum of the same W values: per thread in a fixed order
-// (chunk, k-step, sample t then t + 4), then over the four lanes of a row by
-// a fixed xor tree.  acc is a split-TF32 mma against the staged X, summed in
-// the mma's accumulators over one chunk only, then added into float32
-// registers with round-to-nearest adds: the tensor core's own accumulation
-// loses low bits, and summed there over a whole batch of 4096 the blended
-// rows drifted far enough from the plain step's to fail its bf16-codebook
-// gate.
+// Update (fused_update_tc).  Both batches are split into hi and lo once per
+// step by a small launch (split_batches_kernel), so no CTA splits a sample.
+// The batch is walked in kBC-sample chunks: cp.async copies chunk c + 1's hi
+// and lo rows (and the policy's inputs for it) into one half of a double
+// buffer while chunk c feeds the mma.  Each thread builds the W values of its
+// A fragments straight in registers.  wsum is the float32 sum of the same W
+// values: per thread in a fixed order (chunk, k-step, sample t then t + 4),
+// then over the four lanes of a row by a fixed xor tree.  acc is a split-TF32
+// mma against the staged X, summed in the mma's accumulators over one chunk
+// only, then added into float32 registers with round-to-nearest adds: the
+// tensor core's own accumulation loses low bits, and summed there over a
+// whole batch of 4096 the blended rows drifted far enough from the plain
+// step's to fail its bf16-codebook gate.
 //
 // Blend.  c + min(wsum, 1) * (acc / max(wsum, 1e-30) - c) (guarded_blend) is
 // written back IN PLACE: each CTA reads and writes only its own rows.  A
@@ -67,7 +75,8 @@
 // Determinism.  Every sum runs in a fixed order inside one CTA: no split of
 // the batch across CTAs, no float atomics.  A row's arithmetic depends only
 // on its own data and its unit, not on the tile or shard that holds it (for
-// a given CTA height), so two runs are bit-equal.
+// a given CTA height), so two runs are bit-equal, and K11's accumulators of
+// a row are the very floats K3 blends into it.
 
 #pragma once
 
@@ -89,17 +98,25 @@ constexpr int kBC = 32;  // update: batch samples per chunk (4 k-steps)
 // would not fit in 227 KB of shared memory beside 128 rows)
 __host__ __device__ constexpr int k3_bw(int NT) { return NT <= 16 ? 64 : 32; }
 
-// Shared memory (floats), two regions that are never live together:
-// update: xhi, xlo [2][kBC][DSU] | the policy's staging
-// winner: thi, tlo [TN][DT] | whi, wlo [BW][DW] | m2s[TN] | redv, redi
-//         [WARPS][BW]
-template <int NT, int WARPS>
+// K3's and K11's warps per CTA (16 rows each): 8, or 4 for D > 128, where a
+// 128-row tile and a 64-sample winner chunk would not fit in 227 KB of
+// shared memory
+__host__ __device__ constexpr int k3_warps(int NT) { return NT <= 16 ? 8 : 4; }
+
+// Shared memory (floats), two regions that are never live together; P = 2
+// planes (hi, lo) of each staged operand, 1 under kBf16:
+// update: x [2 buffers][P][kBC][DSU] | the policy's staging
+// winner: t [P][TN][DT] | x' [P][BW][DW] | m2s[TN] | redv, redi [WARPS][BW]
+template <int NT, int WARPS, bool kBf16 = false>
 struct FusedSmem {
+  static constexpr int P = kBf16 ? 1 : 2;
   static constexpr int DP = 8 * NT, TN = 16 * WARPS, BW = k3_bw(NT);
   static constexpr int DSU = stride_kn(DP), DT = stride_nk(DP), DW = DT;
-  static size_t update_floats(size_t staged) { return 4 * (size_t)kBC * DSU + staged; }
+  static size_t update_floats(size_t staged) {
+    return 2 * P * (size_t)kBC * DSU + staged;
+  }
   static constexpr size_t winner_floats() {
-    return 2 * (size_t)TN * DT + 2 * (size_t)BW * DW + TN + 2 * WARPS * BW;
+    return P * (size_t)TN * DT + P * (size_t)BW * DW + TN + 2 * WARPS * BW;
   }
   static size_t bytes(size_t staged) {
     const size_t u = update_floats(staged), w = winner_floats();
@@ -109,7 +126,10 @@ struct FusedSmem {
 
 // The step's batches split once: xs = xb hi, xb lo (Bp, DP) | xn hi, xn lo
 // (Bnp, DP), zero past D and past the batch (Bp, Bnp: B and Bn rounded up to
-// a multiple of 64, so whole chunks copy), one thread per entry
+// a multiple of 64, so whole chunks copy), one thread per entry.  kBf16:
+// each value rounded to bf16 (nearest even), one plane: xs = xb (Bp, DP) |
+// xn (Bnp, DP)
+template <bool kBf16 = false>
 __global__ void split_batches_kernel(const float* __restrict__ xb, int B,
                                      const float* __restrict__ xn, int Bn, int D,
                                      int DP, int Bp, int Bnp, float* __restrict__ xs) {
@@ -121,16 +141,21 @@ __global__ void split_batches_kernel(const float* __restrict__ xb, int B,
   const int b = (int)(i / DP), k = (int)(i % DP);
   const float* x = next ? xn : xb;
   const float v = (b < (next ? Bn : B) && k < D) ? x[(size_t)b * D + k] : 0.f;
-  float* hi = xs + (next ? 2 * nb : 0);
-  split_tf32(v, hi[i], hi[(next ? nn : nb) + i]);
+  if constexpr (kBf16) {
+    xs[e] = bf16_round(v);
+  } else {
+    float* hi = xs + (next ? 2 * nb : 0);
+    split_tf32(v, hi[i], hi[(next ? nn : nb) + i]);
+  }
 }
 
-// split_batches_kernel's launch for DP-wide rows
-inline int split_batches(const float* xb, int B, const float* xn, int Bn, int D, int DP,
-                         float* xs, cudaStream_t stream) {
+// split_batches_kernel's launch for DP-wide rows (Bn may be 0: xb alone)
+template <bool kBf16 = false>
+int split_batches(const float* xb, int B, const float* xn, int Bn, int D, int DP,
+                  float* xs, cudaStream_t stream) {
   const int Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
   const int64_t n = ((int64_t)Bp + Bnp) * DP;  // one thread per hi, lo pair
-  split_batches_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+  split_batches_kernel<kBf16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       xb, B, xn, Bn, D, DP, Bp, Bnp, xs);
   return (int)cudaGetLastError();
 }
@@ -148,45 +173,109 @@ __device__ __forceinline__ void copy_rows(float* dst, int stride,
   }
 }
 
-// The step on rows r0 = blockIdx.x * TN.. of the codebook; `wp` builds W.
-// xs holds the batches xb (B, D) and xn (Bn, D) as split_batches_kernel
-// wrote them
-template <int NT, int WARPS, typename CT, typename WP>
-__device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, int D,
-                                              const float* __restrict__ xs, int B,
-                                              int Bn, unsigned long long* __restrict__ keys,
-                                              WP& wp) {
-  using L = FusedSmem<NT, WARPS>;
-  constexpr int DP = L::DP, TN = L::TN, BW = L::BW;
+// K3's and K11's W: the closed form at the row's global unit, from each
+// sample's BMU grid x, BMU row and alpha staged per chunk (float4: x, row,
+// alpha, 0).  The staging is found from the dynamic shared array and an
+// offset, not a stored pointer, so its loads compile as shared-memory loads.
+struct ClosedFormW {
+  const int* bmu;
+  const float* alpha;
+  int B, xdim, unit_offset;
+  bool hexa, gaussian;
+  float r2, den;
+  int st;               // the staging's offset in the shared array (floats)
+  float lx[2], fur[2];  // this thread's two rows: grid x and row
+
+  static constexpr size_t floats() { return 4 * kBC; }
+  static constexpr bool kStage = true;
+
+  __device__ __forceinline__ float4* smp() const {
+    extern __shared__ __align__(16) float smem[];
+    return reinterpret_cast<float4*>(smem + st);
+  }
+
+  __device__ __forceinline__ void init(int st_, int r0, int warp, int g) {
+    st = st_;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = unit_offset + r0 + 16 * warp + g + 8 * h;
+      lx[h] = grid_x(u % xdim, u / xdim, hexa);
+      fur[h] = (float)(u / xdim);
+    }
+  }
+  __device__ __forceinline__ void prefetch(int, int, int, int, int) {}
+  __device__ __forceinline__ void stage(int, int s0, int, int tid) {
+    if (tid < kBC) {
+      const int b = s0 + tid;
+      const int bm = b < B ? bmu[b] : -1;
+      // weight_of_d2 with alpha 0 is +0, neighborhood_w's 0 for bmu < 0
+      smp()[tid] = bm >= 0 ? make_float4(grid_x(bm % xdim, bm / xdim, hexa),
+                                         (float)(bm / xdim), alpha[b], 0.f)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ float w(int, int q, int ks, int) const {
+    const int t = threadIdx.x & 3;
+    const float4 sm = smp()[8 * ks + t + 4 * (q >> 1)];
+    const int h = q & 1;
+    return weight_of_d2(grid_d2_at(lx[h], fur[h], sm.x, sm.y, hexa), sm.z, gaussian,
+                        r2, den);
+  }
+};
+
+__device__ __forceinline__ ClosedFormW closed_form_w(const int* bmu, const float* alpha,
+                                                     int B, int xdim, int hexa,
+                                                     int gaussian, float radius,
+                                                     int unit_offset) {
+  ClosedFormW wp;
+  wp.bmu = bmu;
+  wp.alpha = alpha;
+  wp.B = B;
+  wp.xdim = xdim;
+  wp.unit_offset = unit_offset;
+  wp.hexa = hexa != 0;
+  wp.gaussian = gaussian != 0;
+  wp.r2 = radius * radius;
+  wp.den = 2.0f * radius * radius;
+  return wp;
+}
+
+// The update of rows r0 = blockIdx.x * TN..: acc = W.X (split-TF32 mma, or
+// one TF32 product under kBf16) in the mma's C layout, c0 (row g, column 2t),
+// c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1) of n-tile j, and wsum[h]
+// = W.1 of row g + 8h, over every lane of the row.  xb_hi, xb_lo: the batch
+// as split_batches_kernel wrote it (xb_lo unread under kBf16).  Leaves the
+// update region of shared memory to be read by other threads: the caller
+// synchronizes before reusing it.
+template <int NT, int WARPS, bool kBf16, typename WP>
+__device__ __forceinline__ void fused_update_tc(float (&acc)[NT][4], float (&wsum)[2],
+                                                const float* __restrict__ xb_hi,
+                                                const float* __restrict__ xb_lo, int B,
+                                                int r0, WP& wp) {
+  using L = FusedSmem<NT, WARPS, kBf16>;
+  constexpr int DP = L::DP;
   constexpr int THREADS = 32 * WARPS;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * TN;
-  // the split arrays: hi and lo of (Bp, DP), then of (Bnp, DP)
-  const size_t Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
-  const float* xb_hi = xs;
-  const float* xb_lo = xs + Bp * DP;
-  const float* xn_hi = xs + 2 * Bp * DP;
-  const float* xn_lo = xn_hi + Bnp * DP;
+  const int g = lane >> 2;
 
-  // ---- update: acc = W.X (split-TF32 mma), wsum = W.1 -----------------------
+  // the double buffer: chunk planes hi (and lo) of each buffer
   float* xhi0 = smem;
   float* xlo0 = xhi0 + kBC * L::DSU;
-  float* xhi1 = xlo0 + kBC * L::DSU;
+  float* xhi1 = xhi0 + L::P * kBC * L::DSU;
   float* xlo1 = xhi1 + kBC * L::DSU;
-  wp.init((int)(xlo1 + kBC * L::DSU - smem), r0, warp, g);
+  wp.init((int)(xhi1 + L::P * kBC * L::DSU - smem), r0, warp, g);
 
-  float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-  float wsum[2] = {0.f, 0.f};
+  wsum[0] = 0.f;
+  wsum[1] = 0.f;
 
   const int nchunks = (B + kBC - 1) / kBC;
   copy_rows<DP>(xhi0, L::DSU, xb_hi, kBC, tid, THREADS);
-  copy_rows<DP>(xlo0, L::DSU, xb_lo, kBC, tid, THREADS);
+  if constexpr (!kBf16) copy_rows<DP>(xlo0, L::DSU, xb_lo, kBC, tid, THREADS);
   wp.prefetch(0, 0, min(kBC, B), tid, THREADS);
   cp_async_commit();
   for (int c = 0; c < nchunks; ++c) {
@@ -198,7 +287,8 @@ __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, i
     if (c + 1 < nchunks) {  // its buffers were last read by chunk c - 1
       const size_t o = (size_t)(s0 + kBC) * DP;
       copy_rows<DP>((c & 1) ? xhi0 : xhi1, L::DSU, xb_hi + o, kBC, tid, THREADS);
-      copy_rows<DP>((c & 1) ? xlo0 : xlo1, L::DSU, xb_lo + o, kBC, tid, THREADS);
+      if constexpr (!kBf16)
+        copy_rows<DP>((c & 1) ? xlo0 : xlo1, L::DSU, xb_lo + o, kBC, tid, THREADS);
       wp.prefetch(c + 1, s0 + kBC, min(kBC, B - s0 - kBC), tid, THREADS);
       cp_async_commit();
     }
@@ -222,15 +312,27 @@ __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, i
       wsum[0] += w[2];
       wsum[1] += w[1];
       wsum[1] += w[3];
-      float ahi[4], alo[4];
+      if constexpr (kBf16) {  // bf16 W and X: one exact TF32 product
+        float a[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(w[q], ahi[q], alo[q]);
+        for (int q = 0; q < 4; ++q) a[q] = bf16_round(w[q]);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float bhi[2], blo[2];
-        load_b_kn(bhi, xhi, L::DSU, 8 * ks, 8 * j, lane);
-        load_b_kn(blo, xlo, L::DSU, 8 * ks, 8 * j, lane);
-        mma_tf32x3(part[j], ahi, alo, bhi, blo);
+        for (int j = 0; j < NT; ++j) {
+          float b[2];
+          load_b_kn(b, xhi, L::DSU, 8 * ks, 8 * j, lane);
+          mma_tf32(part[j], a, b);
+        }
+      } else {
+        float ahi[4], alo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(w[q], ahi[q], alo[q]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float bhi[2], blo[2];
+          load_b_kn(bhi, xhi, L::DSU, 8 * ks, 8 * j, lane);
+          load_b_kn(blo, xlo, L::DSU, 8 * ks, 8 * j, lane);
+          mma_tf32x3(part[j], ahi, alo, bhi, blo);
+        }
       }
     }
 #pragma unroll
@@ -243,19 +345,47 @@ __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, i
     wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 1);
     wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 2);
   }
+}
+
+// The step on rows r0 = blockIdx.x * TN.. of the codebook; `wp` builds W.
+// xs holds the batches xb (B, D) and xn (Bn, D) as split_batches_kernel
+// wrote them (its kBf16 form under kBf16)
+template <int NT, int WARPS, bool kBf16, typename CT, typename WP>
+__device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, int D,
+                                              const float* __restrict__ xs, int B,
+                                              int Bn, unsigned long long* __restrict__ keys,
+                                              WP& wp) {
+  using L = FusedSmem<NT, WARPS, kBf16>;
+  constexpr int DP = L::DP, TN = L::TN, BW = L::BW;
+  constexpr int THREADS = 32 * WARPS;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * TN;
+  // the split arrays: the planes of (Bp, DP), then of (Bnp, DP)
+  const size_t Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
+  const float* xb_hi = xs;
+  const float* xb_lo = xs + Bp * DP;
+  const float* xn_hi = xs + L::P * Bp * DP;
+  const float* xn_lo = xn_hi + Bnp * DP;
+
+  // ---- update: acc = W.X, wsum = W.1 ----------------------------------------
+  float acc[NT][4];
+  float wsum[2];
+  fused_update_tc<NT, WARPS, kBf16>(acc, wsum, xb_hi, xb_lo, B, r0, wp);
   __syncthreads();  // every fragment read: the update region is free
 
   // ---- guarded blend, written in place; the tile kept split ---------------
   float* thi = smem;
   float* tlo = thi + TN * L::DT;
-  float* whi = tlo + TN * L::DT;
+  float* whi = thi + L::P * TN * L::DT;
   float* wlo = whi + BW * L::DW;
-  float* m2s = wlo + BW * L::DW;
+  float* m2s = whi + L::P * BW * L::DW;
   float* redv = m2s + TN;
   int* redi = reinterpret_cast<int*>(redv + WARPS * BW);
   // the first winner chunk lands while the tile blends
   copy_rows<DP>(whi, L::DW, xn_hi, BW, tid, THREADS);
-  copy_rows<DP>(wlo, L::DW, xn_lo, BW, tid, THREADS);
+  if constexpr (!kBf16) copy_rows<DP>(wlo, L::DW, xn_lo, BW, tid, THREADS);
   cp_async_commit();
 
   float sq[2] = {0.f, 0.f};
@@ -272,10 +402,14 @@ __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, i
         store_f32(p, nc);
       }
       sq[h] += nc * nc;
-      float hi, lo;
-      split_tf32(nc, hi, lo);
-      thi[r * L::DT + k] = hi;
-      tlo[r * L::DT + k] = lo;
+      if constexpr (kBf16) {
+        thi[r * L::DT + k] = bf16_round(nc);
+      } else {
+        float hi, lo;
+        split_tf32(nc, hi, lo);
+        thi[r * L::DT + k] = hi;
+        tlo[r * L::DT + k] = lo;
+      }
     }
   }
 #pragma unroll
@@ -296,15 +430,26 @@ __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, i
       for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
 #pragma unroll 2
     for (int ks = 0; ks < NT; ++ks) {
-      float ahi[4], alo[4];
-      load_a(ahi, thi, L::DT, 16 * warp, 8 * ks, lane);
-      load_a(alo, tlo, L::DT, 16 * warp, 8 * ks, lane);
+      if constexpr (kBf16) {
+        float a[4];
+        load_a(a, thi, L::DT, 16 * warp, 8 * ks, lane);
 #pragma unroll
-      for (int n = 0; n < BW / 8; ++n) {
-        float bhi[2], blo[2];
-        load_b_nk(bhi, whi, L::DW, 8 * n, 8 * ks, lane);
-        load_b_nk(blo, wlo, L::DW, 8 * n, 8 * ks, lane);
-        mma_tf32x3(S[n], ahi, alo, bhi, blo);
+        for (int n = 0; n < BW / 8; ++n) {
+          float b[2];
+          load_b_nk(b, whi, L::DW, 8 * n, 8 * ks, lane);
+          mma_tf32(S[n], a, b);
+        }
+      } else {
+        float ahi[4], alo[4];
+        load_a(ahi, thi, L::DT, 16 * warp, 8 * ks, lane);
+        load_a(alo, tlo, L::DT, 16 * warp, 8 * ks, lane);
+#pragma unroll
+        for (int n = 0; n < BW / 8; ++n) {
+          float bhi[2], blo[2];
+          load_b_nk(bhi, whi, L::DW, 8 * n, 8 * ks, lane);
+          load_b_nk(blo, wlo, L::DW, 8 * n, 8 * ks, lane);
+          mma_tf32x3(S[n], ahi, alo, bhi, blo);
+        }
       }
     }
     const int ra = r0 + 16 * warp + g, rb = ra + 8;
@@ -345,7 +490,7 @@ __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, i
     if (n0 + BW < Bn) {
       const size_t o = (size_t)(n0 + BW) * DP;
       copy_rows<DP>(whi, L::DW, xn_hi + o, BW, tid, THREADS);
-      copy_rows<DP>(wlo, L::DW, xn_lo + o, BW, tid, THREADS);
+      if constexpr (!kBf16) copy_rows<DP>(wlo, L::DW, xn_lo + o, BW, tid, THREADS);
       cp_async_commit();
     }
     if (tid < BW) {

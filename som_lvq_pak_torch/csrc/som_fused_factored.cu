@@ -5,9 +5,10 @@
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_fused_factored_kernel (K13)
 // and _som_fused_factored_chunked_kernel (K14, with its options wxa_bf16,
 // batch_bf16, int8_win and stagger), from the one entry
-// somvq_som_fused_factored: one table launch, then K13's main launch on the
-// tensor cores or K14's on CUDA cores.  The wrapper som_fused_train_step
-// routes to them as the TPU wrapper does.
+// somvq_som_fused_factored: one table launch, then K13's or K14's main launch
+// on the tensor cores, or, for K14's stagger and int8_win, K14's CUDA-core
+// launch.  The wrapper som_fused_train_step routes to them as the TPU wrapper
+// does.
 //
 // What they compute, with the TPU kernels' float32 algebra kept as it is:
 // s = 1 / (2 r r); dx from columns and 0.5 offsets, hexa dy^2 = rowdiff^2 *
@@ -62,7 +63,7 @@
 // split-TF32 mma.sync for W.X and the winners' scores, the chunked cp.async
 // double buffer, per-chunk mma sums added into float32 registers, the
 // winners' fixed-order merge and u64 fold), with W built from the tables
-// (SeparableW below): each CTA reads its rows' x-pattern and y-factor
+// (separable_w.cuh:SeparableW): each CTA reads its rows' x-pattern and y-factor
 // entries for a 32-sample chunk into shared memory beside the batch (each
 // row's x-pattern row found once per CTA, not once per chunk), and
 // each thread builds its A fragments' W with the separable form's float
@@ -73,14 +74,21 @@
 // 256 CTAs of 64 rows); the batch is never split across CTAs, so each row's
 // sums keep one order and two runs are bit-equal.
 //
-// K14's main launch keeps the CUDA-core body: one CTA per 32 codebook rows,
-// the batch staged in shared memory 32 samples at a time, the chunk's weights
-// built from the tables, FP32 FMAs into registers; the blend is written in
-// place and the updated rows kept in shared memory for the winners.  Across
-// CTAs each sample's (-2 * score, row) pair is folded with the packed-u64
-// atomicMin of argmin_keys.cuh, as K12 does: -2 * score is an exact,
-// order-reversing scaling, so the smallest key is the largest score with the
-// lowest row; -0 is folded to +0.
+// K14's main form (no stagger, no int8_win) is the same body with its bf16
+// options (som_fused_chunked_tc.cuh): a bf16 x-pattern, and under batch_bf16
+// one TF32 product per contraction on bf16 operands.
+//
+// K14's stagger and int8_win keep the CUDA-core body below: one CTA per 32
+// codebook rows, the batch staged in shared memory 32 samples at a time, the
+// chunk's weights built from the tables, FP32 FMAs into registers; the blend
+// is written in place and the updated rows kept in shared memory for the
+// winners.  Their gates hold each option to this body without it, which the
+// entry's cuda_cores flag runs (ops.som_step's private
+// _som_fused_factored_chunked_step_cuda_cores).  Across CTAs each sample's
+// (-2 * score, row) pair is folded with the packed-u64 atomicMin of
+// argmin_keys.cuh, as K12 does: -2 * score is an exact, order-reversing
+// scaling, so the smallest key is the largest score with the lowest row; -0
+// is folded to +0.
 //
 // The codebook is float32 or bf16 (SOMTrainer(bf16=True)): rows are read and
 // upcast, blended in float32 and written back rounded to nearest even; the
@@ -88,9 +96,10 @@
 // under batch_bf16, quantized under int8_win), as in the TPU kernels.
 //
 // What bounds them on H100: the two contractions, 4 noc B D FLOPs per step:
-// for K13 as split-TF32 products on the tensor cores (12 noc B D TF32 FLOPs),
-// for K14 as FP32 FMAs and shared-memory loads on CUDA cores (int8_win: half
-// of them int8 MACs).  The exponentials drop from noc B (K3) to (pattern
+// for K13 and K14's main form as split-TF32 products on the tensor cores (12
+// noc B D TF32 FLOPs; 4 noc B D, one product each, under batch_bf16), for
+// the CUDA-core body as FP32 FMAs and shared-memory loads (int8_win: half of
+// them int8 MACs).  The exponentials drop from noc B (K3) to (pattern
 // rows + grid rows) B, in the table launch.  Device memory traffic is one
 // codebook read and write; the batches and the tables are re-read from L2 by
 // every CTA.  Rows beyond noc are masked.
@@ -101,9 +110,10 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "argmin_keys.cuh"
-#include "fused_step_tc.cuh"
+#include "separable_w.cuh"
 #include "som_grid.cuh"
 
 namespace {
@@ -411,7 +421,7 @@ __device__ __forceinline__ void factored_step(
   }
 }
 
-// K14: the batch-chunked step with its bf16 x-pattern (PT), bf16 batches,
+// K14 on CUDA cores: the batch-chunked step with its bf16 x-pattern (PT), bf16 batches,
 // int8 winners and the staggered schedule
 template <int NJ, typename CT, typename PT, bool kBatchBf16, bool kInt8>
 __global__ void __launch_bounds__(THREADS)
@@ -430,120 +440,8 @@ som_fused_factored_chunked_kernel(CT* __restrict__ codes, int noc, int D,
                                                stagger, pat, ytab, keys);
 }
 
-// K13's W: the separable tables of the table launch, read per chunk into
-// shared memory with cp.async beside the batch (double-buffered): for each of
-// the CTA's TNR rows its x-pattern row (row parity, column) and for each grid
-// row the CTA spans (at most ny) its y-factor row, kBC samples each, and for a
-// bubble map the samples' alpha (0 where bmu < 0).  W is the separable
-// form's float operations on them: gaussian Wx * Wy, bubble (Wx + Wy <= r r)
-// ? alpha : 0.
-template <int TNR>
-struct SeparableW {
-  static constexpr int kWS = kBC + 4;  // row stride: 4 mod 32 banks
-  const float* pat;
-  const float* ytab;
-  const float* aw;
-  int B, noc, xdim, ydim, ny, r0, y0;
-  bool hexa, gaussian, vec;
-  float r2;
-  // [2][TNR][kWS] | [2][ny][kWS] | [2][kBC] | prow[TNR] (int) at this offset
-  int st;
-  int rl[2], yi[2];  // this thread's rows: CTA row, staged grid row
-  bool ok[2];        // ... and whether they are rows of the map
-  static constexpr int kNQ = kBC / 4;  // 16-byte pieces of a whole chunk's row
-
-  static size_t floats(int ny) { return 2 * ((size_t)(TNR + ny) * kWS + kBC) + TNR; }
-  // everything arrives by cp.async
-  static constexpr bool kStage = false;
-
-  // the staged tables, from the dynamic shared array (shared-memory loads)
-  __device__ __forceinline__ float* wxs() const {
-    extern __shared__ __align__(16) float smem[];
-    return smem + st;
-  }
-  __device__ __forceinline__ float* wys() const { return wxs() + 2 * TNR * kWS; }
-  __device__ __forceinline__ float* aws() const { return wys() + 2 * ny * kWS; }
-  // each CTA row's x-pattern row, -1 past the map
-  __device__ __forceinline__ int* prow() const {
-    return reinterpret_cast<int*>(aws() + 2 * kBC);
-  }
-
-  __device__ __forceinline__ void init(int st_, int r0_, int warp, int g) {
-    st = st_;
-    r0 = r0_;
-    y0 = r0 / xdim;
-    vec = (B & 3) == 0 && ((reinterpret_cast<uintptr_t>(pat) |
-                            reinterpret_cast<uintptr_t>(ytab) |
-                            reinterpret_cast<uintptr_t>(aw)) & 15) == 0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rl[h] = 16 * warp + g + 8 * h;
-      const int u = r0 + rl[h];
-      ok[h] = u < noc;
-      yi[h] = ok[h] ? u / xdim - y0 : 0;
-    }
-    // the x-pattern rows of the rows this thread copies in a whole chunk
-    // (prefetch): written and read by the same thread, so no barrier
-    for (int r = threadIdx.x / kNQ; r < TNR; r += blockDim.x / kNQ) {
-      const int u = r0 + r, row = u / xdim, col = u - row * xdim;
-      prow()[r] = u < noc ? (hexa ? (row & 1) * xdim : 0) + col : -1;
-    }
-  }
-
-  // up to 4 floats of a table row (16 bytes when aligned and whole)
-  __device__ __forceinline__ void copy4(float* dst, const float* src, int left) const {
-    if (vec && left >= 4) {
-      cp_async16(dst, src);
-    } else {
-      for (int k = 0; k < min(4, left); ++k) cp_async4(dst + k, src + k);
-    }
-  }
-
-  __device__ __forceinline__ void prefetch(int c, int s0, int nb, int tid, int nthr) {
-    float* dx = wxs() + (c & 1) * TNR * kWS;
-    float* dy = wys() + (c & 1) * ny * kWS;
-    if (nb == kBC) {  // a whole chunk: no division per piece
-      for (int e = tid; e < TNR * kNQ; e += nthr) {
-        const int r = e / kNQ, j = e % kNQ, p = prow()[r];
-        if (p >= 0) copy4(dx + r * kWS + 4 * j, pat + (size_t)p * B + s0 + 4 * j, 4);
-      }
-      for (int e = tid; e < ny * kNQ; e += nthr) {
-        const int y = e / kNQ, j = e % kNQ;
-        if (y0 + y < ydim)
-          copy4(dy + y * kWS + 4 * j, ytab + (size_t)(y0 + y) * B + s0 + 4 * j, 4);
-      }
-      if (!gaussian && tid < kNQ) copy4(aws() + (c & 1) * kBC + 4 * tid, aw + s0 + 4 * tid, 4);
-      return;
-    }
-    const int nq = (nb + 3) >> 2;  // 4-sample pieces per row
-    for (int e = tid; e < TNR * nq; e += nthr) {
-      const int r = e / nq, j = e - r * nq, u = r0 + r;
-      if (u >= noc) continue;
-      const int row = u / xdim, col = u - row * xdim;
-      const int p = (hexa ? (row & 1) * xdim : 0) + col;
-      copy4(dx + r * kWS + 4 * j, pat + (size_t)p * B + s0 + 4 * j, nb - 4 * j);
-    }
-    for (int e = tid; e < ny * nq; e += nthr) {
-      const int y = e / nq, j = e - y * nq;
-      if (y0 + y >= ydim) continue;
-      copy4(dy + y * kWS + 4 * j, ytab + (size_t)(y0 + y) * B + s0 + 4 * j, nb - 4 * j);
-    }
-    if (!gaussian) {
-      for (int j = tid; j < nq; j += nthr)
-        copy4(aws() + (c & 1) * kBC + 4 * j, aw + s0 + 4 * j, nb - 4 * j);
-    }
-  }
-  __device__ __forceinline__ float w(int c, int q, int ks, int nb) const {
-    const int s = 8 * ks + (threadIdx.x & 3) + 4 * (q >> 1), h = q & 1;
-    if (!ok[h] || s >= nb) return 0.f;
-    const float wx = wxs()[((c & 1) * TNR + rl[h]) * kWS + s];
-    const float wy = wys()[((c & 1) * ny + yi[h]) * kWS + s];
-    return gaussian ? wx * wy : (wx + wy <= r2 ? aws()[(c & 1) * kBC + s] : 0.f);
-  }
-};
-
-// K13: the separable step on the tensor cores (fused_step_tc.cuh), 16 WARPS
-// rows per CTA; xs from split_batches_kernel (fused_step_tc.cuh)
+// K13: the separable step on the tensor cores (separable_w.cuh), 16 WARPS
+// rows per CTA
 template <int NT, int WARPS, typename CT>
 __global__ void __launch_bounds__(32 * WARPS, (NT <= 8 ? 2 : 1) * 8 / WARPS)
 som_fused_factored_kernel(CT* __restrict__ codes, int noc, int D,
@@ -553,43 +451,9 @@ som_fused_factored_kernel(CT* __restrict__ codes, int noc, int D,
                           const float* __restrict__ pat,
                           const float* __restrict__ ytab,
                           unsigned long long* __restrict__ keys) {
-  SeparableW<16 * WARPS> wp;
-  wp.pat = pat;
-  wp.ytab = ytab;
-  wp.aw = aw;
-  wp.B = B;
-  wp.noc = noc;
-  wp.xdim = xdim;
-  wp.ydim = (noc + xdim - 1) / xdim;
-  wp.ny = ny;
-  wp.hexa = hexa != 0;
-  wp.gaussian = gaussian != 0;
-  wp.r2 = radius * radius;
-  fused_step_tc<NT, WARPS>(codes, noc, D, xs, B, Bn, keys, wp);
+  separable_step_tc<NT, WARPS, false>(codes, noc, D, xs, aw, B, Bn, xdim, hexa, gaussian,
+                                      radius, ny, pat, ytab, keys);
 }
-
-// One step's arguments, as the C entry takes them
-struct StepArgs {
-  void* codes;
-  int noc, D;
-  const float* xb;
-  const int* bmu;
-  const float* alpha;
-  int B;
-  const float* xn;
-  const signed char* xq;
-  const float* q;
-  int Bn, xdim, hexa, gaussian;
-  float radius;
-  int stagger;
-  int rows;   // K13's rows per CTA (128 or 64)
-  float* xs;  // K13's split batches (split_batches_kernel)
-  void* pat;
-  float* ytab;
-  float* aw;
-  unsigned long long* keys;
-  cudaStream_t stream;
-};
 
 // The persistent grid of the staggered schedule: min(tiles, resident CTAs)
 template <typename K>
@@ -606,7 +470,7 @@ int stagger_grid(K kernel, size_t smem, int n_tiles, unsigned* grid) {
   return 0;
 }
 
-// K14's main launch
+// K14's CUDA-core launch (stagger, int8_win, cuda_cores)
 template <int NJ, typename CT, typename PT, bool kBatchBf16, bool kInt8>
 int launch_main(const StepArgs& a) {
   const size_t smem = smem_bytes(a.D);
@@ -627,27 +491,6 @@ int launch_main(const StepArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// K13's main launch: NT 8-feature steps, WARPS warps of 16 rows
-template <int NT, int WARPS, typename CT>
-int launch_k13(const StepArgs& a) {
-  constexpr int TNR = 16 * WARPS;
-  const int ydim = (a.noc + a.xdim - 1) / a.xdim;
-  const int ny = min((TNR - 1) / a.xdim + 2, ydim);
-  const size_t smem =
-      FusedSmem<NT, WARPS>::bytes(SeparableW<TNR>::floats(ny));
-  const auto kernel = som_fused_factored_kernel<NT, WARPS, CT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rc = split_batches(a.xb, a.B, a.xn, a.Bn, a.D, 8 * NT, a.xs, a.stream);
-  if (rc) return rc;
-  kernel<<<(a.noc + TNR - 1) / TNR, 32 * WARPS, smem, a.stream>>>(
-      static_cast<CT*>(a.codes), a.noc, a.D, a.xs, a.aw, a.B, a.Bn, a.xdim,
-      a.hexa, a.gaussian, a.radius, ny, static_cast<const float*>(a.pat), a.ytab,
-      a.keys);
-  return (int)cudaGetLastError();
-}
-
 // K13 for D's width and the wrapper's rows per CTA: 128 or 64 (64 past D 128,
 // where 128 rows would not fit)
 template <typename CT>
@@ -656,8 +499,11 @@ int run_k13(const StepArgs& a) {
   if (!(a.rows == 64 || (a.rows == 128 && k8 <= 16))) return (int)cudaErrorInvalidValue;
 #define K13_LAUNCH(NT)                                                         \
   if (k8 <= NT)                                                              \
-    return a.rows == 64 ? launch_k13<NT, 4, CT>(a)                           \
-                        : launch_k13<NT, (NT <= 16 ? 8 : 4), CT>(a);
+    return a.rows == 64                                                      \
+               ? launch_separable_tc<NT, 4, false, CT, float>(                 \
+                     som_fused_factored_kernel<NT, 4, CT>, a)                  \
+               : launch_separable_tc<NT, (NT <= 16 ? 8 : 4), false, CT, float>( \
+                     som_fused_factored_kernel<NT, (NT <= 16 ? 8 : 4), CT>, a);
   K13_LAUNCH(1)
   K13_LAUNCH(2)
   K13_LAUNCH(4)
@@ -668,9 +514,9 @@ int run_k13(const StepArgs& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The table launch, then K13's main launch or K14's for D's register width
-template <typename CT, typename PT, bool kBatchBf16, bool kInt8, bool kChunked>
-int run_step(const StepArgs& a) {
+// The table launch of one step (it also sets the winner keys)
+template <typename PT>
+int launch_tables(const StepArgs& a) {
   const int n_pat = a.hexa ? 2 * a.xdim : a.xdim;
   const int ydim = (a.noc + a.xdim - 1) / a.xdim;
   const int trows = n_pat + ydim < 65535 ? n_pat + ydim : 65535;
@@ -678,59 +524,78 @@ int run_step(const StepArgs& a) {
   factored_tables_kernel<PT><<<tgrid, 256, 0, a.stream>>>(
       a.bmu, a.alpha, a.B, a.Bn, a.xdim, a.hexa, a.gaussian, a.radius, n_pat,
       ydim, static_cast<PT*>(a.pat), a.ytab, a.aw, a.keys);
-  const int rc = (int)cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+// The table launch, then K14's CUDA-core launch for D's register width
+template <typename CT, typename PT, bool kBatchBf16, bool kInt8>
+int run_cuda_cores(const StepArgs& a) {
+  const int rc = launch_tables<PT>(a);
   if (rc) return rc;
-  if constexpr (!kChunked) {
-    return run_k13<CT>(a);
-  } else {
-    const int nj = (a.D + 31) / 32;
-    if (nj <= 1) return launch_main<1, CT, PT, kBatchBf16, kInt8>(a);
-    if (nj <= 2) return launch_main<2, CT, PT, kBatchBf16, kInt8>(a);
-    if (nj <= 4) return launch_main<4, CT, PT, kBatchBf16, kInt8>(a);
-    return launch_main<8, CT, PT, kBatchBf16, kInt8>(a);
-  }
+  const int nj = (a.D + 31) / 32;
+  if (nj <= 1) return launch_main<1, CT, PT, kBatchBf16, kInt8>(a);
+  if (nj <= 2) return launch_main<2, CT, PT, kBatchBf16, kInt8>(a);
+  if (nj <= 4) return launch_main<4, CT, PT, kBatchBf16, kInt8>(a);
+  return launch_main<8, CT, PT, kBatchBf16, kInt8>(a);
 }
 
 template <typename CT, bool kInt8>
 int run_chunked(const StepArgs& a, int wxa_bf16, int batch_bf16) {
-  if (wxa_bf16 && batch_bf16) return run_step<CT, __nv_bfloat16, true, kInt8, true>(a);
-  if (wxa_bf16) return run_step<CT, __nv_bfloat16, false, kInt8, true>(a);
-  if (batch_bf16) return run_step<CT, float, true, kInt8, true>(a);
-  return run_step<CT, float, false, kInt8, true>(a);
+  if (wxa_bf16 && batch_bf16) return run_cuda_cores<CT, __nv_bfloat16, true, kInt8>(a);
+  if (wxa_bf16) return run_cuda_cores<CT, __nv_bfloat16, false, kInt8>(a);
+  if (batch_bf16) return run_cuda_cores<CT, float, true, kInt8>(a);
+  return run_cuda_cores<CT, float, false, kInt8>(a);
 }
 
+// K13 (not chunked), K14's main form on the tensor cores, or K14 on CUDA
+// cores (stagger, int8_win, or the private cuda_cores route)
 template <typename CT>
 int run_flags(const StepArgs& a, int chunked, int wxa_bf16, int batch_bf16,
-              int int8_win) {
-  if (!chunked) return run_step<CT, float, false, false, false>(a);
-  return int8_win ? run_chunked<CT, true>(a, wxa_bf16, batch_bf16)
-                  : run_chunked<CT, false>(a, wxa_bf16, batch_bf16);
+              int int8_win, int cuda_cores) {
+  if (!chunked) {
+    const int rc = launch_tables<float>(a);
+    return rc ? rc : run_k13<CT>(a);
+  }
+  if (a.stagger || int8_win || cuda_cores)
+    return int8_win ? run_chunked<CT, true>(a, wxa_bf16, batch_bf16)
+                    : run_chunked<CT, false>(a, wxa_bf16, batch_bf16);
+  const int rc = wxa_bf16 ? launch_tables<__nv_bfloat16>(a) : launch_tables<float>(a);
+  if (rc) return rc;
+  if constexpr (std::is_same<CT, float>::value)
+    return somvq::k14_tc_f32codes(a, wxa_bf16, batch_bf16);
+  else
+    return somvq::k14_tc_bf16codes(a, wxa_bf16, batch_bf16);
 }
 
 }  // namespace
 
 // K13 (chunked 0) or K14 (chunked 1, with 8c's options wxa_bf16, gaussian
-// only, batch_bf16, stagger and int8_win).  codes (noc, D) float32, or bf16
-// with codes_bf16, updated in place; xb (B, D), bmu (B,), alpha (B,), xn
-// (Bn, D) float32; under int8_win xq (Bn, D) int8, x' quantized by the
-// wrapper, and q (2,) float32 = (127 / sm, sm sx / 127^2) on the device
-// (xn is then not read).  Scratch from the wrapper: keys (Bn,) u64; aw (B,),
-// ytab (ceil(noc / xdim), B) float32 and pat (n_pat, B), n_pat = 2 xdim
-// (hexa) or xdim, bf16 under wxa_bf16, else float32; for K13 also xs,
-// 2 (Bp + Bnp) DP float32 (B and Bn rounded up to a multiple of 64, DP = 8
-// times the power of two of 8-feature steps that covers D), and rows, its
-// rows per CTA (ops.som_step.k13_rows).  val gets -2 * the best score, idx
-// its row.
+// only, batch_bf16, stagger and int8_win).  K14 without stagger and int8_win
+// is its main form on the tensor cores; with either, or with cuda_cores (a
+// private route of the gates that hold those options to K14 without them),
+// the CUDA-core body.  codes (noc, D) float32, or bf16 with codes_bf16,
+// updated in place; xb (B, D), bmu (B,), alpha (B,), xn (Bn, D) float32;
+// under int8_win xq (Bn, D) int8, x' quantized by the wrapper, and q (2,)
+// float32 = (127 / sm, sm sx / 127^2) on the device (xn is then not read).
+// Scratch from the wrapper: keys (Bn,) u64; aw (B,), ytab (ceil(noc / xdim),
+// B) float32 and pat (n_pat, B), n_pat = 2 xdim (hexa) or xdim, bf16 under
+// wxa_bf16, else float32; for the tensor-core kernels also xs, 2 (Bp + Bnp)
+// DP float32, (Bp + Bnp) DP under batch_bf16 (B and Bn rounded up to a
+// multiple of 64, DP = 8 times the power of two of 8-feature steps that
+// covers D), and rows, the rows per CTA (ops.som_step.k13_rows: 128 or 64;
+// K14_ROWS: 64, or 32).  val gets -2 * the best score, idx its row.
 extern "C" int somvq_som_fused_factored(
     void* codes, int codes_bf16, int noc, int D, const float* xb,
     const int* bmu, const float* alpha, int B, const float* xn, int Bn,
     int xdim, int hexa, int gaussian, float radius, int chunked, int wxa_bf16,
-    int batch_bf16, int stagger, int int8_win, int rows, float* xs,
+    int batch_bf16, int stagger, int int8_win, int cuda_cores, int rows,
+    float* xs,
     const signed char* xq,
     const float* q, void* pat, float* ytab, float* aw, unsigned long long* keys,
     float* val, int* idx, cudaStream_t stream) {
   if (noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || Bn <= 0 || xdim <= 0 ||
-      (!chunked && (wxa_bf16 || batch_bf16 || stagger || int8_win || !xs)) ||
+      (!chunked && (wxa_bf16 || batch_bf16 || stagger || int8_win || cuda_cores)) ||
+      (!(chunked && (stagger || int8_win || cuda_cores)) && !xs) ||
       (wxa_bf16 && !gaussian) || (int8_win && (xq == nullptr || q == nullptr)))
     return (int)cudaErrorInvalidValue;
   const StepArgs a{codes,  noc,     D,    xb, bmu,  alpha, B,
@@ -738,8 +603,10 @@ extern "C" int somvq_som_fused_factored(
                    radius, stagger, rows, xs, pat,  ytab,  aw,
                    keys,   stream};
   const int rc = codes_bf16
-                     ? run_flags<__nv_bfloat16>(a, chunked, wxa_bf16, batch_bf16, int8_win)
-                     : run_flags<float>(a, chunked, wxa_bf16, batch_bf16, int8_win);
+                     ? run_flags<__nv_bfloat16>(a, chunked, wxa_bf16, batch_bf16, int8_win,
+                                                cuda_cores)
+                     : run_flags<float>(a, chunked, wxa_bf16, batch_bf16, int8_win,
+                                        cuda_cores);
   if (rc) return rc;
   unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
   return (int)cudaGetLastError();

@@ -10,8 +10,10 @@
 //
 // What bounds it on H100, the layout, the update, the blend, the winners and
 // why two runs are bit-equal: fused_step_tc.cuh, the body K3 shares with K13
-// (the separable step, som_fused_factored.cu), with the batches split once
-// per step by its split_batches_kernel.  K3 builds each W value from
+// and K14 (the separable steps, som_fused_factored.cu) and whose update half
+// is K11 (som_accum.cu), with the batches split once per step by its
+// split_batches_kernel.  K3 builds each W value (fused_step_tc.cuh's
+// ClosedFormW, which K11 shares) from
 // the closed form: each sample's BMU grid x and row and its alpha (0 where
 // bmu < 0 or past B) are staged once per chunk, each row's grid x and row
 // once per CTA, so no (row, sample) pair pays an integer division; W is
@@ -31,60 +33,6 @@
 
 namespace {
 
-// warps per CTA (16 rows each): 8, or 4 for D > 128, where a 128-row tile
-// and a 64-sample winner chunk would not fit in 227 KB of shared memory
-__host__ __device__ constexpr int k3_warps(int NT) { return NT <= 16 ? 8 : 4; }
-
-// K3's W: the closed form at the row's global unit, from each sample's BMU
-// grid x, BMU row and alpha staged per chunk (float4: x, row, alpha, 0).
-// The staging is found from the dynamic shared array and an offset, not a
-// stored pointer, so its loads compile as shared-memory loads.
-struct ClosedFormW {
-  const int* bmu;
-  const float* alpha;
-  int B, xdim, unit_offset;
-  bool hexa, gaussian;
-  float r2, den;
-  int st;               // the staging's offset in the shared array (floats)
-  float lx[2], fur[2];  // this thread's two rows: grid x and row
-
-  static constexpr size_t floats() { return 4 * kBC; }
-  static constexpr bool kStage = true;
-
-  __device__ __forceinline__ float4* smp() const {
-    extern __shared__ __align__(16) float smem[];
-    return reinterpret_cast<float4*>(smem + st);
-  }
-
-  __device__ __forceinline__ void init(int st_, int r0, int warp, int g) {
-    st = st_;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int u = unit_offset + r0 + 16 * warp + g + 8 * h;
-      lx[h] = grid_x(u % xdim, u / xdim, hexa);
-      fur[h] = (float)(u / xdim);
-    }
-  }
-  __device__ __forceinline__ void prefetch(int, int, int, int, int) {}
-  __device__ __forceinline__ void stage(int, int s0, int, int tid) {
-    if (tid < kBC) {
-      const int b = s0 + tid;
-      const int bm = b < B ? bmu[b] : -1;
-      // weight_of_d2 with alpha 0 is +0, neighborhood_w's 0 for bmu < 0
-      smp()[tid] = bm >= 0 ? make_float4(grid_x(bm % xdim, bm / xdim, hexa),
-                                         (float)(bm / xdim), alpha[b], 0.f)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __device__ __forceinline__ float w(int, int q, int ks, int) const {
-    const int t = threadIdx.x & 3;
-    const float4 sm = smp()[8 * ks + t + 4 * (q >> 1)];
-    const int h = q & 1;
-    return weight_of_d2(grid_d2_at(lx[h], fur[h], sm.x, sm.y, hexa), sm.z, gaussian,
-                        r2, den);
-  }
-};
-
 template <int NT, typename CT>
 __global__ void __launch_bounds__(32 * k3_warps(NT), NT <= 8 ? 2 : 1)
 som_fused_step_kernel(CT* __restrict__ codes, int noc, int D,
@@ -93,17 +41,9 @@ som_fused_step_kernel(CT* __restrict__ codes, int noc, int D,
                       int hexa_i,
                       int gaussian_i, float radius, int unit_offset,
                       unsigned long long* __restrict__ keys) {
-  ClosedFormW wp;
-  wp.bmu = bmu;
-  wp.alpha = alpha;
-  wp.B = B;
-  wp.xdim = xdim;
-  wp.unit_offset = unit_offset;
-  wp.hexa = hexa_i != 0;
-  wp.gaussian = gaussian_i != 0;
-  wp.r2 = radius * radius;
-  wp.den = 2.0f * radius * radius;
-  fused_step_tc<NT, k3_warps(NT)>(codes, noc, D, xs, B, Bn, keys, wp);
+  ClosedFormW wp = closed_form_w(bmu, alpha, B, xdim, hexa_i, gaussian_i, radius,
+                                 unit_offset);
+  fused_step_tc<NT, k3_warps(NT), false>(codes, noc, D, xs, B, Bn, keys, wp);
 }
 
 // the batches split once (into xs), then the step

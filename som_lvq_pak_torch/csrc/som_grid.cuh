@@ -1,9 +1,8 @@
 // The SOM neighbourhood update's device code: the weights, shared by every
 // SOM kernel; accumulate_update (FP32 FMAs on CUDA cores), shared by K5
-// (som_update.cu), K7 (som_vmem_steps.cu) and K11 (som_accum.cu).  K3
-// (som_fused_step.cu) and K6 (som_update.cu) build the same weights from
-// staged grid coordinates (grid_x, grid_d2_at, weight_of_d2) for their
-// tensor-core updates.
+// (som_update.cu) and K7 (som_vmem_steps.cu).  K3 and K11 (fused_step_tc.cuh)
+// and K6 (som_update.cu) build the same weights from staged grid coordinates
+// (grid_x, grid_d2_at, weight_of_d2) for their tensor-core updates.
 //
 // W[unit, sample] is built from flat unit indices with the exact-f32 algebra
 // of som_lvq_pak_tpu/ops/pallas_som.py:_neighborhood_w: dx from columns and

@@ -14,9 +14,11 @@ bmu < 0 gives 0).  `alpha` is a scalar or a per-sample (B,) vector.  No
 codebook is read: the mixed data x model step sums these over the data axis
 before K12 blends them in (parallel.sharded).
 
-A CUDA tensor launches the kernel in `csrc/som_accum.cu`; a CPU tensor runs
-the plain version below.  The wrapper counts its kernel launches in its
-`launches` attribute.
+A CUDA tensor launches the kernel in `csrc/som_accum.cu`: K3's update half
+(csrc/fused_step_tc.cuh) on the tensor cores, split-TF32 products summed per
+32-sample chunk into float32 registers, so a row's sums are the floats K3
+blends into it; a CPU tensor runs the plain version below.  The wrapper
+counts its kernel launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import MAX_D, neighborhood_w
+from .som_step import MAX_D, _split_scratch, neighborhood_w
 
 
 def som_neighborhood_accumulate_plain(xb, bmu, n_local, xdim, hexa, alpha,
@@ -79,12 +81,13 @@ def som_neighborhood_accumulate(
     if D > MAX_D:
         raise ValueError(f"som_neighborhood_accumulate: D={D} > {MAX_D}")
     xb = xb.contiguous()
+    xs = _split_scratch(B, 0, D, dev)
     acc = torch.empty((n_local, D), dtype=torch.float32, device=dev)
     wsum = torch.empty((n_local, 1), dtype=torch.float32, device=dev)
     _build.call("somvq_som_accum", int(n_local), D, xb.data_ptr(),
                 bmu.data_ptr(), aw.data_ptr(), B, int(xdim), int(bool(hexa)),
                 int(bool(gaussian)), float(radius), int(unit_offset),
-                acc.data_ptr(), wsum.data_ptr(),
+                xs.data_ptr(), acc.data_ptr(), wsum.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     som_neighborhood_accumulate.launches += 1
     return acc, wsum

@@ -10,10 +10,17 @@ kernels, each a hand-written CUDA kernel here:
   kernel (`_som_fused_factored_kernel`), W = Wx(column, row parity) *
   Wy(row) from tables, winners in max-score form; K3's tensor-core body
   (csrc/fused_step_tc.cuh) with W read from the tables;
-- K14 `som_fused_factored_chunked_step` (the same source): the batch-chunked
-  kernel (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
+- K14 `som_fused_factored_chunked_step` (csrc/som_fused_chunked_tc.cuh and
+  the same source): the batch-chunked kernel
+  (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
   (`wxa_bf16`, gaussian only), bf16 batches (`batch_bf16`), int8 winners
-  (`int8_win`) and staggered schedule (`stagger`).
+  (`int8_win`) and staggered schedule (`stagger`).  Its main form (no
+  `stagger`, no `int8_win`) is K13's tensor-core body with the bf16 table
+  widened where W is built and, under `batch_bf16`, one TF32 product per
+  contraction on the bf16 operands; `stagger` and `int8_win` keep the
+  CUDA-core body, whose gates hold each option to that body without it
+  (`_som_fused_factored_chunked_step_cuda_cores`, a private route of
+  chip_smoke.py and tools/int8_step_ab.py, no option of any wrapper).
 
 One call applies batch t's neighbourhood update to the codebook and finds
 batch t+1's winners against the UPDATED codebook (the software-pipelined
@@ -30,9 +37,9 @@ given; `factored` with a `unit_offset` raises; on the separable path any of
 batch-chunked kernel (pallas_som.py:1339-1349); K3 ignores all five, as the
 JAX wrapper's plain path does.
 `tile_n` decides the geometry only: the CUDA kernels tile by 128 rows (K3;
-64 for D > 128), by `k13_rows` (K13: 128, or 64 up to 128x128) or by 32
-(K14), and the result depends on it only through the float32 order of
-additions.  The
+64 for D > 128), by `k13_rows` (K13: 128, or 64 up to 128x128), by
+`K14_ROWS` (K14's main form: 64) or by 32 (K14's CUDA-core body), and the
+result depends on it only through the float32 order of additions.  The
 port keeps D unpadded, so the JAX `d_real` has no counterpart.
 
 The codebook is updated IN PLACE (the caller owns the resident codebook;
@@ -50,8 +57,9 @@ A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 below, built from the plain counterparts of `_grid_xy`, `_neighborhood_w`
 and `_guarded_blend` (pallas_som.py:48-113).  Each kernel's wrapper counts
 its launches in its `launches` attribute; `som_fused_train_step` counts K3's.
-A K14 launch with `int8_win` or `stagger` also counts on
-`CHUNKED_INT8_WIN` or `CHUNKED_STAGGER`.
+K14's wrapper counts its main form; a launch of the CUDA-core body counts on
+`CHUNKED_INT8_WIN` or `CHUNKED_STAGGER` under those options (on both with
+both), else on `CHUNKED_CUDA_CORES`.
 
 `int8_win` (pallas_som.py:1180-1194, 1087-1094): the step's global scales
 are taken from the batches (`int8_win_inputs`), the next batch is quantized
@@ -148,6 +156,7 @@ class LaunchCount:
 
 CHUNKED_INT8_WIN = LaunchCount("som_fused_factored_chunked_step[int8_win]")
 CHUNKED_STAGGER = LaunchCount("som_fused_factored_chunked_step[stagger]")
+CHUNKED_CUDA_CORES = LaunchCount("som_fused_factored_chunked_step[cuda_cores]")
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -305,12 +314,13 @@ def int8_win_scores(newc, rows, xq, q):
 
 def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
                      gaussian, chunked=False, batch_chunk=None, wxa_bf16=False,
-                     batch_bf16=False, stagger=False, int8_win=False):
+                     batch_bf16=False, stagger=False, int8_win=False,
+                     cuda_cores=False):
     """Plain K13 (`chunked` False: the whole batch at once) or K14: the
     batch in `batch_chunk` slices with the batch-chunked kernel's bf16
     roundings (pallas_som.py:1012-1094) and, with `int8_win`, its int8
-    winners.  `stagger` changes the kernel's schedule only: it is taken and
-    has no effect here."""
+    winners.  `stagger` changes the kernel's schedule and `cuda_cores` its
+    body, not the function: both are taken and have no effect here."""
     fp32_matmul()
     dev = codes.device
     B, D = xb.shape
@@ -436,13 +446,30 @@ def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
                                  batch_bf16, stagger, int8_win)
 
 
-def _split_scratch(B: int, Bn: int, D: int, dev) -> torch.Tensor:
-    """Scratch for K3's and K13's batches split once per step
-    (csrc/fused_step_tc.cuh:split_batches_kernel): the hi and lo parts of
-    (B, DP) and (Bn, DP), rows rounded up to a multiple of 64, DP = 8 times
-    the power of two of 8-feature steps that covers D."""
+def _som_fused_factored_chunked_step_cuda_cores(codes, xb, bmu, xb_next, xdim,
+                                                hexa, alpha, radius,
+                                                gaussian=False, batch_chunk=None,
+                                                wxa_bf16=False, batch_bf16=False):
+    """K14 without `stagger` and `int8_win` on the CUDA-core body that those
+    two options run: the reference their gates hold them to bit for bit
+    (chip_smoke.py, tools/int8_step_ab.py).  Not a route of any wrapper or
+    trainer; its launches count on `CHUNKED_CUDA_CORES`.  Its plain version
+    is K14's."""
+    bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
+    _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
+    return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw,
+                                 radius, gaussian, True, batch_chunk, wxa_bf16,
+                                 batch_bf16, cuda_cores=True)
+
+
+def _split_scratch(B: int, Bn: int, D: int, dev, planes: int = 2) -> torch.Tensor:
+    """Scratch for the tensor-core steps' batches split once per step
+    (csrc/fused_step_tc.cuh:split_batches_kernel): the hi and lo parts
+    (`planes` 2; one plane of bf16 values under K14's batch_bf16) of (B, DP)
+    and (Bn, DP), rows rounded up to a multiple of 64, DP = 8 times the power
+    of two of 8-feature steps that covers D."""
     dp = 8 * (1 << (-(-D // 8) - 1).bit_length())
-    return torch.empty((2 * (-(-B // 64) + -(-Bn // 64)) * 64 * dp,),
+    return torch.empty((planes * (-(-B // 64) + -(-Bn // 64)) * 64 * dp,),
                        dtype=torch.float32, device=dev)
 
 
@@ -457,16 +484,28 @@ def k13_rows(noc: int, D: int, device: torch.device) -> int:
     return 128 if D <= 128 and -(-noc // 128) >= 2 * sms else 64
 
 
+# K14's main form's codebook rows per CTA (csrc/som_fused_chunked_tc.cuh
+# builds 64 and 32), chosen from the card's times: each CTA walks the whole
+# batch, and on an H100 a 64-row CTA did so as fast as a 32-row one, so at
+# every map the trainer gives K14 (32x32, 64x32 and 64x64 at B 4096) and at
+# 128x128 the 64-row grid was as fast or faster (chip_smoke.py's k14_vs_k13
+# and k14_rows lines time both heights; PERF.md).  The batch is never split
+# across CTAs: each row's sums keep one order.
+K14_ROWS = 64
+
+
 def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
                           gaussian, chunked=False, batch_chunk=None,
                           wxa_bf16=False, batch_bf16=False, stagger=False,
-                          int8_win=False):
+                          int8_win=False, cuda_cores=False):
     """K13 (`chunked` False) or K14 on checked arguments (its plain version
-    on the CPU), counted on its wrapper (and K14's options on theirs).  One
-    scratch buffer holds the winner keys (Bn u64), alpha (B), the y-factor
-    table (ceil(noc / xdim), B) and the x-pattern (2 xdim or xdim, B; bf16
-    under wxa_bf16); under int8_win the quantized next batch and its scales
-    come from `int8_win_inputs`, on the device."""
+    on the CPU): K14's main form on the tensor cores, or its CUDA-core body
+    under `stagger`, `int8_win` or `cuda_cores` (the private reference
+    route), counted as the module docstring says.  One scratch buffer holds
+    the winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc /
+    xdim), B) and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16);
+    under int8_win the quantized next batch and its scales come from
+    `int8_win_inputs`, on the device."""
     dev = codes.device
     if dev.type == "cpu":
         return _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, aw,
@@ -487,23 +526,30 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
     xb, xn = xb.contiguous(), xb_next.contiguous()
-    xs = None if chunked else _split_scratch(B, Bn, D, dev)
+    core = chunked and bool(stagger or int8_win or cuda_cores)
+    xs, rows = None, 0
+    if not chunked:
+        xs, rows = _split_scratch(B, Bn, D, dev), k13_rows(noc, D, dev)
+    elif not core:
+        xs = _split_scratch(B, Bn, D, dev, 1 if batch_bf16 else 2)
+        rows = K14_ROWS
     _build.call("somvq_som_fused_factored", codes.data_ptr(),
                 int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
                 bmu.data_ptr(), aw.data_ptr(), B, xn.data_ptr(), Bn, int(xdim),
                 int(bool(hexa)), int(bool(gaussian)), float(radius),
                 int(chunked), int(wxa_bf16), int(bool(batch_bf16)),
-                int(bool(stagger)), int(bool(int8_win)),
-                0 if chunked else k13_rows(noc, D, dev),
-                None if xs is None else xs.data_ptr(),
+                int(bool(stagger)), int(bool(int8_win)), int(bool(cuda_cores)),
+                rows, None if xs is None else xs.data_ptr(),
                 xq.data_ptr() if int8_win else None,
                 q.data_ptr() if int8_win else None, pat, ytab, aw_eff, keys,
                 val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
-    wrapper = som_fused_factored_chunked_step if chunked else som_fused_factored_step
-    wrapper.launches += 1
+    if not core:
+        wrapper = som_fused_factored_chunked_step if chunked else som_fused_factored_step
+        wrapper.launches += 1
     CHUNKED_INT8_WIN.launches += bool(int8_win)
     CHUNKED_STAGGER.launches += bool(stagger)
+    CHUNKED_CUDA_CORES.launches += core and not (stagger or int8_win)
     return codes, idx, val
 
 

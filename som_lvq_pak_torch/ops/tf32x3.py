@@ -1,6 +1,6 @@
 """A plain emulation of the split-TF32 ("3xTF32") products that K1, K2, K3,
-K4, K6, K13, K16 and K17 run on the tensor cores (csrc/tf32x3.cuh), for the
-tests and chip_smoke.py.  No main-path code calls it.
+K4, K6, K11, K13, K14, K16 and K17 run on the tensor cores (csrc/tf32x3.cuh),
+for the tests and chip_smoke.py.  No main-path code calls it.
 
 A float32 operand a is split as hi = tf32(a), lo = tf32(a - hi), where
 tf32() rounds to the nearest value with 10 mantissa bits, ties away from
@@ -11,13 +11,16 @@ them to float32 rounding, not bit for bit.
 
 `som_fused_train_step_tf32x3`, `dist_argmin_t_tf32x3`, `dist_argmin_tf32x3`,
 `dist_argmin_masked_tf32x3`, `som_update_masked_tf32x3`,
-`som_fused_factored_step_tf32x3`, `fused_step_skeleton_tf32x3` and
-`f32_winner_probe_tf32x3` are the plain K3, K2, K1, K4, K6, K13, K17 and K16
-with their contractions through `tf32x3_mm` (K4's keep.(m o m) and K6's
-weight mass through two products, the lo part then the hi part, keep being
-exact in TF32; K17's bf16 operands through one `tf32_mm` pass, a bf16 value
-being exact in TF32), summed as the kernels sum: the numeric design the
-kernels implement, held to the port's gates on the CPU.
+`som_neighborhood_accumulate_tf32x3`, `som_fused_factored_step_tf32x3`,
+`som_fused_factored_chunked_step_tc`, `fused_step_skeleton_tf32x3` and
+`f32_winner_probe_tf32x3` are the plain K3, K2, K1, K4, K6, K11, K13, K14's
+main form, K17 and K16 with their contractions through `tf32x3_mm` (K4's
+keep.(m o m) and K6's weight mass through two products, the lo part then the
+hi part, keep being exact in TF32; K14's under batch_bf16 and K17's bf16
+operands through one `tf32_mm` pass, a bf16 value being exact in TF32),
+summed as the kernels sum: the numeric design the kernels implement, held to
+the port's gates on the CPU.  K11 is K3's update half: its sums of a row are
+the ones K3's emulation blends into that row, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Tuple
 import torch
 
 from .distance import fp32_matmul, keep_of
-from .som_step import _alpha_r, guarded_blend, neighborhood_w, separable_w
+from .som_step import _alpha_r, _bf16, guarded_blend, neighborhood_w, separable_w
 
 # the batch chunk over which K3's and K6's updates sum in the mma before
 # adding into float32 registers
@@ -66,22 +69,54 @@ def tf32x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (alo @ bhi + ahi @ blo) + ahi @ bhi
 
 
+def chunk_sums(w: torch.Tensor, x: torch.Tensor, mm=tf32x3_mm) -> torch.Tensor:
+    """W.X as the tensor-core updates sum it: per CHUNK-sample chunk through
+    `mm`, each chunk's sums added into float32 totals in batch order."""
+    acc = torch.zeros((w.shape[0], x.shape[1]), dtype=torch.float32, device=w.device)
+    for s in range(0, x.shape[0], CHUNK):
+        acc += mm(w[:, s:s + CHUNK], x[s:s + CHUNK])
+    return acc
+
+
+def _winners(newc, xn, mm=tf32x3_mm, rows=None):
+    """The fused steps' winners in distance form: ||m||^2 - 2 x'.m with x'.m
+    through `mm` (on `rows`, the rows as scored, if given), the first row on
+    ties: (bmu_next int32, val_next)."""
+    d_t = ((newc * newc).sum(1, keepdim=True)
+           - 2.0 * mm(newc if rows is None else rows, xn.T))
+    idx = torch.argmin(d_t, dim=0)
+    return idx.to(torch.int32), d_t.gather(0, idx[None, :])[0]
+
+
+def som_neighborhood_accumulate_tf32x3(xb, bmu, n_local, xdim, hexa, alpha,
+                                       radius, gaussian=False, unit_offset=0):
+    """The plain K11 (`som_neighborhood_accumulate_plain`) as the kernel sums:
+    K3's update half, W at the global units unit_offset.., W.X by
+    `chunk_sums`, the weight mass a float32 sum of the same W.  Returns (acc
+    (n_local, D), wsum (n_local, 1))."""
+    fp32_matmul()
+    dev = xb.device
+    aw, r = _alpha_r(alpha, radius, xb.shape[0], dev)
+    units = unit_offset + torch.arange(n_local, dtype=torch.int32, device=dev)
+    w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
+    return chunk_sums(w, xb), w.sum(1, keepdim=True)
+
+
 def som_fused_train_step_tf32x3(codes, xb, bmu, xb_next, xdim, hexa, alpha,
                                 radius, gaussian=False, unit_offset=0):
-    """The plain K3 (`som_fused_train_step_plain`) with W.X and the scores
-    through `tf32x3_mm`; the weight mass stays a float32 sum of the same W.
-    Returns (the new float32 codebook, bmu_next int32, val_next); `codes`
-    is not changed."""
+    """The plain K3 (`som_fused_train_step_plain`) as the kernel sums: W.X by
+    `chunk_sums`, the scores through `tf32x3_mm`; the weight mass stays a
+    float32 sum of the same W.  Returns (the new float32 codebook, bmu_next
+    int32, val_next); `codes` is not changed."""
+    fp32_matmul()
     dev = codes.device
     aw, r = _alpha_r(alpha, radius, xb.shape[0], dev)
     units = (unit_offset or 0) + torch.arange(codes.shape[0], dtype=torch.int32,
                                               device=dev)
     w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
-    newc = guarded_blend(codes.to(torch.float32), tf32x3_mm(w, xb),
+    newc = guarded_blend(codes.to(torch.float32), chunk_sums(w, xb),
                          w.sum(1, keepdim=True))
-    d_t = (newc * newc).sum(1, keepdim=True) - 2.0 * tf32x3_mm(newc, xb_next.T)
-    idx = torch.argmin(d_t, dim=0)
-    return newc, idx.to(torch.int32), d_t.gather(0, idx[None, :])[0]
+    return (newc, *_winners(newc, xb_next))
 
 
 def dist_argmin_t_tf32x3(x: torch.Tensor, codes: torch.Tensor
@@ -127,29 +162,42 @@ def dist_argmin_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,
     return val, i.to(torch.int32)
 
 
-def som_fused_factored_step_tf32x3(codes, xb, bmu, xb_next, xdim, hexa, alpha,
-                                   radius, gaussian=False):
-    """The plain K13 (`som_fused_factored_step_plain`) as the kernel sums: W
-    from the separable factors (`separable_w`, the same floats), W.X per
-    CHUNK-sample chunk through `tf32x3_mm`, each chunk's sums added into the
-    float32 totals in batch order, the weight mass a float32 sum of the same
-    W; then the winners in distance form, ||m||^2 - 2 x'.m through
-    `tf32x3_mm` (the max-score form's -2 * score).  A bf16 codebook is read
-    upcast.  Returns (the new float32 rows the winners are taken against,
-    bmu_next int32, val_next); `codes` is not changed."""
+def som_fused_factored_chunked_step_tc(codes, xb, bmu, xb_next, xdim, hexa,
+                                       alpha, radius, gaussian=False,
+                                       wxa_bf16=False, batch_bf16=False):
+    """K14's main form (the plain K14 without stagger and int8_win) as the
+    kernel sums: W from the separable factors (`separable_w`, the x-pattern
+    rounded to bf16 under `wxa_bf16` on a gaussian map), W.X by `chunk_sums`,
+    the weight mass a float32 sum of the unrounded W; then the winners in
+    distance form.  Under `batch_bf16` W, X, x' and the blended rows are
+    rounded to bf16 for their products and each contraction is one
+    `tf32_mm` pass (exact products), ||m||^2 from the float32 rows; otherwise
+    K13's three products (`tf32x3_mm`).  A bf16 codebook is read upcast.
+    Returns (the new float32 rows, bmu_next int32, val_next); `codes` is not
+    changed."""
     fp32_matmul()
     dev = codes.device
     aw, r = _alpha_r(alpha, radius, xb.shape[0], dev)
     w = separable_w(bmu.to(torch.int32), aw, r, codes.shape[0], xdim, hexa,
-                    gaussian)
-    acc = torch.zeros((codes.shape[0], xb.shape[1]), dtype=torch.float32,
-                      device=dev)
-    for s in range(0, xb.shape[0], CHUNK):
-        acc += tf32x3_mm(w[:, s:s + CHUNK], xb[s:s + CHUNK])
+                    gaussian, bool(wxa_bf16 and gaussian))
+    if batch_bf16:
+        acc = chunk_sums(_bf16(w), _bf16(xb), tf32_mm)
+    else:
+        acc = chunk_sums(w, xb)
     newc = guarded_blend(codes.to(torch.float32), acc, w.sum(1, keepdim=True))
-    d_t = (newc * newc).sum(1, keepdim=True) - 2.0 * tf32x3_mm(newc, xb_next.T)
-    idx = torch.argmin(d_t, dim=0)
-    return newc, idx.to(torch.int32), d_t.gather(0, idx[None, :])[0]
+    if batch_bf16:
+        return (newc, *_winners(newc, _bf16(xb_next), tf32_mm, _bf16(newc)))
+    return (newc, *_winners(newc, xb_next))
+
+
+def som_fused_factored_step_tf32x3(codes, xb, bmu, xb_next, xdim, hexa, alpha,
+                                   radius, gaussian=False):
+    """The plain K13 (`som_fused_factored_step_plain`) as the kernel sums:
+    `som_fused_factored_chunked_step_tc` without options (W from the
+    separable factors, W.X by `chunk_sums`, the winners' scores through
+    `tf32x3_mm`; distance form, the max-score form's -2 * score)."""
+    return som_fused_factored_chunked_step_tc(codes, xb, bmu, xb_next, xdim, hexa,
+                                              alpha, radius, gaussian)
 
 
 def som_update_masked_tf32x3(codes, xb, bmu, mask, xdim, hexa, alpha, radius,
@@ -185,11 +233,7 @@ def fused_step_skeleton_tf32x3(codes, w, x, xn, scale: float = 1e-30
     pass.  Returns (out, vmax)."""
     fp32_matmul()
     mm = tf32_mm if w.dtype == torch.bfloat16 else tf32x3_mm
-    wf, xf = w.to(torch.float32), x.to(torch.float32)
-    acc = torch.zeros((w.shape[0], x.shape[1]), dtype=torch.float32,
-                      device=codes.device)
-    for s in range(0, x.shape[0], CHUNK):
-        acc += mm(wf[:, s:s + CHUNK], xf[s:s + CHUNK])
+    acc = chunk_sums(w.to(torch.float32), x.to(torch.float32), mm)
     rows = torch.arange(codes.shape[0], device=codes.device) % w.shape[0]
     out = codes + acc[rows] * scale
     cw = out.to(xn.dtype).to(torch.float32)
