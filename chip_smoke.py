@@ -24,16 +24,16 @@ phases, each printing one JSON line:
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             one "sass" line: the HMMA (tensor-core) instructions in each
-            instantiation of the tensor-core kernels K3, K2, K1, K4, K6, K11,
-            K13, K14's main form, K16 and K17, from cuobjdump --dump-sass of
-            the library (none fails the run);
+            instantiation of the tensor-core kernels K3, K2, K1, K4, K6, K7,
+            K8, K11, K13, K14's main form, K16 and K17, from cuobjdump
+            --dump-sass of the library (none fails the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
             67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3, K2,
-            K1, K4, K6, K11, K13 and K14's main form also with the bound of
-            their route (the TF32 products they issue at 495 TFLOP/s: three
+            K1, K4, K6, K7, K8, K11, K13 and K14's main form also with the
+            bound of their route (the TF32 products they issue at 495 TFLOP/s: three
             per FP32 product, two for K6's weight mass and K4's keep.(m o m),
             one for K14's under batch_bf16) and the share of it they reach,
             and run twice on the same inputs, bit-equal (K5 too).  K1 is
@@ -51,10 +51,16 @@ phases, each printing one JSON line:
             (neighborhood_w, FP32 cuBLAS products, the blend, the
             winners).  K2
             also runs at a 16384-row StreamingReader chunk.  K7
-            (som_vmem_train_steps) runs at bench.py:prep_vmem_steps's
-            geometry (where it is also held against K chained K3 launches),
-            at bench.py:prep_somexample_shape's, at a ragged shape with
-            every code three times, and at e2e_64x64_1M's group shape.
+            (som_vmem_train_steps) runs at e2e_64x64_1M's group shape,
+            bench.py:prep_vmem_steps's geometry,
+            bench.py:prep_somexample_shape's, a ragged shape with every code
+            three times and the largest codebook the grouped path takes
+            (128x64 at D 128); at each the codebook and winners are
+            bit-equal to K chained K3 launches and to a rerun, and with zero
+            alphas the codebook stays bit-equal to its input; beside it the
+            K3 chain's time (and K13's at the first shape); at the first and
+            the last at 16, 32, 64 and 128 rows per CTA, each bit-equal to the K3
+            chain, with one "k7_rows" line of their times.
             K1 also runs at the LVQ steps' B 1024, a mesh rank's B 512 x
             32768, D 37, D 130 and at the LVQ accuracy's
             single launch over 1M x 65536; K4 at the masked LVQ cell's B
@@ -216,7 +222,9 @@ the single-device port run on the same data in this script:
 K8/K9 (dist_top2, plain and masked) are held against their plain version in
 phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), at 1000 x 999 x 5,
 with every code twice (exact ties: both indices equal the plain version's),
-and at N = 2; K9 with p = 0.1 and fully masked rows.  K10 (dist_topk) at
+and at N = 2; K9 with p = 0.1 and fully masked rows; K8 also at D 37 and
+D 130, each shape run twice (bit-equal), its best pair bit-equal to K1's
+(value, index) on the same inputs, with its route's bound (6 B N D).  K10 (dist_topk) at
 the mesh step's shapes (B 1024 and 512 x 32768 x 64, k = 2), small shapes
 at k = 1, 5 and 16, and every code twice; K11 (som_neighborhood_accumulate)
 at a 32768-row shard of the 256x256 map (offset 32768, B 2048), gaussian
@@ -268,13 +276,16 @@ PEAK_BYTES_S = 3.35e12
 # K1 (K2's body under its own name), K4 (K1's CTA shape with the keep
 # contraction), K6, K11 (K3's update half), K13 (K3's body with the separable
 # W), K14's main form (K13's body; one TF32 product under batch_bf16), K16
-# (K2's body without the norm) and K17 (its bf16 twin as one TF32 product)
+# (K2's body without the norm), K17 (its bf16 twin as one TF32 product), K8
+# (K1's body with a top-2 fold) and K7 (K3's step body on the resident
+# codebook)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
                       "dist_argmin_kernel", "dist_argmin_masked_kernel",
                       "som_update_masked_kernel", "som_accum_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
-                      "f32_winner_probe_kernel", "fused_skeleton_kernel")
+                      "f32_winner_probe_kernel", "fused_skeleton_kernel",
+                      "dist_top2_kernel", "som_vmem_steps_kernel")
 
 # K16 on normal float32 inputs: within this relative gap of the float64
 # maximum (split TF32 is about 2^-21 relative per product, float32 sums of 64)
@@ -306,8 +317,8 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
     the peak of their operand type (FP32 unless stated; `int8_ops` more at
     the INT8 peak) or its bytes (each input read once, each output written
     once) at the memory rate, whichever is larger.  With `route_flops`, the
-    TF32 FLOPs a tensor-core kernel issues (K1, K2, K3, K11, K13: three TF32
-    products per float32 product, 3 x the FLOPs; K6: three for W.(X o K),
+    TF32 FLOPs a tensor-core kernel issues (K1, K2, K3, K7, K8, K11, K13:
+    three TF32 products per float32 product, 3 x the FLOPs; K6: three for W.(X o K),
     two for W.K; K14 under batch_bf16: one), also the bound of that route,
     route_bound_ms:
     those FLOPs at the TF32 peak, or the bytes.  library_ms is null here: a
@@ -505,12 +516,15 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
 
 
 def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
-               mask_p=None, library=False):
+               mask_p=None, library=False, twin=None):
     """K8 (or K9 with mask_p) against the plain top-2: both winners equal
     except at near-ties, values within 1e-4.  With `dup` every code is there
     twice: each sample's pair is a row and its copy, exactly the plain
     version's indices.  A fully masked row must get (0, 0, 0, 1).  With
-    `library`, the library_ms of addmm then topk(2)."""
+    `library`, the library_ms of addmm then topk(2).  With `twin` (K1 beside
+    K8, one body) the kernel runs twice on the same inputs, bit-equal, its
+    best pair must be the twin's (value, index) bit for bit, and the record
+    carries its split-TF32 route's bound (6 B N D TF32 FLOPs) and share."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -525,6 +539,16 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     k = kernel(*args)
     p = plain(*args)
     torch.cuda.synchronize()
+    if twin is not None:
+        again = kernel(*args)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(k, again)):
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
+        vt, it = twin(*args)
+        if not (torch.equal(k[0].view(torch.int32), vt.view(torch.int32))
+                and torch.equal(k[1], it)):
+            raise AssertionError(f"{name}: the best pair is not {twin.__name__}'s "
+                                 "(value, index) bit for bit")
     n_diff = sum(check_winners(f"{name} {w}", x, codes, k[j], p[j], mask=mask)
                  for w, j in (("best", 1), ("second", 3)))
     err = max(float((k[j] - p[j]).abs().max()) for j in (0, 2))
@@ -549,12 +573,18 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     # (B, D) samples and (N, D) codes in, two (B,) values and indices out;
     # 2BND FLOPs, 4BND with the mask's keep.(m o m) contraction
     masked = mask is not None
-    rec = dict(kernel=name, shape=[B, codes.shape[0], D], dup=dup, mask_p=mask_p,
+    N = codes.shape[0]
+    rec = dict(kernel=name, shape=[B, N, D], dup=dup, mask_p=mask_p,
                winners_differ=n_diff, max_abs_err=err,
+               **({} if twin is None else {"bit_equal_rerun": True,
+                                           "best_bit_equal_to": twin.__name__}),
                ms=cuda_ms(lambda: kernel(*args), iters),
                plain_ms=cuda_ms(lambda: plain(*args), iters),
-               **bound((4 if masked else 2) * B * codes.shape[0] * D,
-                       4 * (B * D + codes.shape[0] * D) + masked * B * D + 16 * B))
+               **bound((4 if masked else 2) * B * N * D,
+                       4 * (B * D + N * D) + masked * B * D + 16 * B,
+                       route_flops=None if twin is None else 6 * B * N * D))
+    if "route_bound_ms" in rec:
+        rec.update(route_pct(rec))
     if library:
         rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, "topk", 2, mask=mask),
                                     iters)
@@ -1326,18 +1356,43 @@ def phase_update_bubble_boundary():
          equal_plain=True)
 
 
+@contextlib.contextmanager
+def k7_rows_forced(rows: int):
+    """K7 at `rows` codebook rows per CTA, whatever
+    ops.som_vmem.k7_rows picks."""
+    from som_lvq_pak_torch.ops import som_vmem
+
+    saved = som_vmem.k7_rows
+    som_vmem.k7_rows = lambda noc, D, device: rows
+    try:
+        yield
+    finally:
+        som_vmem.k7_rows = saved
+
+
+K7_ROWS = (16, 32, 64, 128)
+
+
 def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
-               varied=False, dup=False, vs_k3=False):
+               varied=False, dup=False, k13=False, rows=False):
     """K7 against its plain version at one group shape: K steps of B samples,
     next_first given.  Constant alpha and radius (bench.py's), or with
-    `varied` per-sample alphas and a decaying radius.  With `dup` every code
-    is there three times: run first with zero alphas, the rows stay equal
-    and the first copy must win.  With `vs_k3`, also against K chained K3
-    launches (largest codebook difference, and their time)."""
+    `varied` per-sample alphas and a decaying radius.  First with zero
+    alphas: the codebook must stay bit-equal to its input (with `dup`, every
+    code there three times, the first copy must win).  Then the codebook
+    and bmu_next must be bit-equal to K chained K3 launches
+    (som_fused_train_step(..., factored=False)) and to a rerun; the record
+    carries k3_chain_ms (and with `k13` k13_chain_ms, K chained K13 steps,
+    the trainer's per-step kernel at that shape) and the split-TF32 route's
+    bound (12 noc B D K TF32 FLOPs).  With `rows`, K7 at every height of
+    K7_ROWS, each bit-equal to the K3 chain, and one "k7_rows" line of
+    their times."""
     import torch
 
+    from som_lvq_pak_torch.ops import som_vmem
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
-    from som_lvq_pak_torch.ops.som_step import som_fused_train_step
+    from som_lvq_pak_torch.ops.som_step import (som_fused_factored_step,
+                                                som_fused_train_step)
     from som_lvq_pak_torch.ops.som_vmem import (som_vmem_train_steps,
                                                 som_vmem_train_steps_plain)
 
@@ -1359,52 +1414,82 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
         radii = torch.full((K,), radius, device="cuda")
     name = f"som_vmem_train_steps {xdim}x{ydim} {'hexa' if hexa else 'rect'} " \
            f"{'gaussian' if gaussian else 'bubble'}"
+    rlist = radii.tolist()
 
     def k7(fn, c, a=alphas):
         return fn(c, xs, bmu0, a, radii, xdim, hexa, gaussian, next_first=nf)
 
-    if dup:
-        c0, i0 = k7(som_vmem_train_steps, codes.clone(), torch.zeros_like(alphas))
-        torch.cuda.synchronize()
-        if not torch.equal(c0, codes) or int(i0.max()) >= noc // 3:
-            raise AssertionError(f"{name}: with zero alphas the codebook moved or "
-                                 "a duplicate row beat its first copy")
-    ck, ik = k7(som_vmem_train_steps, codes.clone())
-    cp, ip = k7(som_vmem_train_steps_plain, codes.clone())
+    def chain(step, c):
+        bmu = bmu0
+        for t in range(K):
+            _, bmu, _ = step(c, xs[t], bmu, xs[t + 1] if t + 1 < K else nf, xdim, hexa,
+                             alphas[t], rlist[t], gaussian)
+        return c, bmu
+
+    def k3_step(*a):
+        return som_fused_train_step(*a, factored=False)
+
+    def bit_equal(c, i, c_ref, i_ref):
+        return torch.equal(c.view(torch.int32), c_ref.view(torch.int32)) and \
+            torch.equal(i, i_ref)
+
+    c0, i0 = k7(som_vmem_train_steps, codes.clone(), torch.zeros_like(alphas))
     torch.cuda.synchronize()
+    if not torch.equal(c0.view(torch.int32), codes.view(torch.int32)):
+        raise AssertionError(f"{name}: with zero alphas the codebook moved")
+    if dup and int(i0.max()) >= noc // 3:
+        raise AssertionError(f"{name}: a duplicate row beat its first copy")
+    ck, ik = k7(som_vmem_train_steps, codes.clone())
+    cr, ir = k7(som_vmem_train_steps, codes.clone())
+    cp, ip = k7(som_vmem_train_steps_plain, codes.clone())
+    c3, i3 = chain(k3_step, codes.clone())
+    torch.cuda.synchronize()
+    if not bit_equal(cr, ir, ck, ik):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
     if not torch.allclose(ck, cp, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
     n_diff = check_winners(name, nf, ck, ik, ip)
-    rlist = radii.tolist()
-
-    def k3_chain(c):
-        bmu = bmu0
-        for t in range(K):
-            _, bmu, _ = som_fused_train_step(c, xs[t], bmu, xs[t + 1] if t + 1 < K else nf,
-                                             xdim, hexa, alphas[t], rlist[t], gaussian,
-                                             factored=False)
-        return c, bmu
-
+    diff3, flips3 = float((ck - c3).abs().max()), int((ik != i3).sum())
+    if not bit_equal(ck, ik, c3, i3):
+        raise AssertionError(f"{name}: not bit-equal to {K} chained K3 launches: "
+                             f"codebooks differ by {diff3}, {flips3} winners")
     rec = dict(kernel=name, shape=[noc, B, D, K], radius=radius, alpha=alpha,
                varied=varied, dup=dup, winners_differ=n_diff,
-               max_abs_err=float((ck - cp).abs().max()))
-    if vs_k3:
-        c3, i3 = k3_chain(codes.clone())
-        torch.cuda.synchronize()
-        rec.update(max_abs_diff_vs_k3=float((ck - c3).abs().max()),
-                   winners_differ_vs_k3=int((ik != i3).sum()))
+               max_abs_err=float((ck - cp).abs().max()), max_abs_diff_vs_k3=diff3,
+               winners_differ_vs_k3=flips3, bit_equal_rerun=True,
+               bit_equal_to="K chained som_fused_train_step(factored=False)",
+               zero_alpha_bit_equal=True,
+               rows_per_cta=som_vmem.k7_rows(noc, D, codes.device))
     work = codes.clone()
     # K steps of update W.X and winners, 2 noc B D FLOPs each; the codebook
     # read and written once, the batches, next_first, alphas, radii and bmu0
-    # read, the next winners written
+    # read, the next winners written; the route: three TF32 products each
     rec.update(ms=cuda_ms(lambda: k7(som_vmem_train_steps, work)),
                plain_ms=cuda_ms(lambda: k7(som_vmem_train_steps_plain, work), 3),
                **bound(4 * noc * B * D * K,
-                       8 * noc * D + 4 * (K + 1) * B * D + 4 * K * B + 4 * K + 8 * B))
-    if vs_k3:
-        rec["k3_chain_ms"] = cuda_ms(lambda: k3_chain(work))
+                       8 * noc * D + 4 * (K + 1) * B * D + 4 * K * B + 4 * K + 8 * B,
+                       route_flops=12 * noc * B * D * K))
+    rec.update(route_pct(rec))
+    rec["k3_chain_ms"] = cuda_ms(lambda: chain(k3_step, work))
+    if k13:
+        rec["k13_chain_ms"] = cuda_ms(lambda: chain(som_fused_factored_step, work))
     rec["library_ms"] = rec["plain_ms"]  # K chained plain K3 steps: that chain
     emit("kernels", **rec)
+    if rows:
+        line = dict(card=nvidia_smi_line(), shape=rec["shape"],
+                    k7_rows_chosen=som_vmem.k7_rows(noc, D, codes.device))
+        for r in K7_ROWS:
+            if r == 128 and D > 128:
+                continue
+            with k7_rows_forced(r):
+                cf, i_f = k7(som_vmem_train_steps, codes.clone())
+                torch.cuda.synchronize()
+                if not bit_equal(cf, i_f, c3, i3):
+                    raise AssertionError(f"{name} at {r} rows per CTA: not bit-equal "
+                                         f"to {K} chained K3 launches")
+                line[f"k7_rows{r}_ms"] = cuda_ms(lambda: k7(som_vmem_train_steps, work))
+        emit("k7_rows", **line, k3_chain_ms=rec["k3_chain_ms"],
+             **({"k13_chain_ms": rec["k13_chain_ms"]} if k13 else {}))
     return rec
 
 
@@ -2564,15 +2649,20 @@ def main() -> int:
     phase_k1_shards(4096, 65536, 64, 30001, seed=49)
     phase_k1_shards(512, 32768, 64, 16411, seed=50)
     # K8 and K9 at the LVQ step's shape first (their record; K8's with
-    # library_ms), then the masked LVQ cell's step (17 splits, 16 of them
-    # used), small, exact-tie and two-code shapes
+    # library_ms), then the masked LVQ cell's step (B 1024 x 4096), small,
+    # exact-tie and two-code shapes; K8 also at a ragged D 37 and at D 130
+    # (three 64-feature slabs), every shape run twice (bit-equal) and beside
+    # K1 (its best pair K1's bit for bit)
     for name, k, mask_p in (("dist_top2", dist_top2, None),
                             ("dist_top2_masked", dist_top2_masked, 0.1)):
         cases = (((1024, 65536, 64), 10, False), ((1024, 4096, 64), 16, False),
                  ((1000, 999, 5), 11, False), ((1000, 999, 5), 12, True),
                  ((1000, 2, 5), 13, False))
+        if mask_p is None:
+            cases += (((777, 3001, 37), 59, False), ((1000, 2999, 130), 60, False))
         rs = [phase_top2(name, k, dist_top2_plain, *shape, seed=seed, dup=dup,
-                         mask_p=mask_p, library=j == 0)
+                         mask_p=mask_p, library=j == 0,
+                         twin=dist_argmin if mask_p is None else None)
               for j, (shape, seed, dup) in enumerate(cases)]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # the LVQ steps' segment sum (not a TPU kernel: its own line at the end)
@@ -2708,19 +2798,22 @@ def main() -> int:
         rs = [phase_update(k, p, *case, seed=6, masked=masked) for case in update_cases]
         recs[k.__name__] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     phase_update_bubble_boundary()
-    # K7: e2e_64x64_1M's group shape first (its record), then
-    # bench.py:prep_vmem_steps, bench.py:prep_somexample_shape, and a ragged
-    # shape (99 rows, D 37) with every code three times.  At radius 16 the
-    # first keeps alpha small enough that no unit's weight mass reaches 1:
+    # K7: e2e_64x64_1M's group shape first (its record, with K13's chain and
+    # every CTA height), then bench.py:prep_vmem_steps,
+    # bench.py:prep_somexample_shape, a ragged shape (99 rows, D 37) with
+    # every code three times, and the largest codebook the grouped path
+    # takes (128x64 at D 128, 4 MB; every height).  At radius 16 the first
+    # keeps alpha small enough that no unit's weight mass reaches 1:
     # saturated units blend to nearly equal rows, whose near-tie winners the
     # kernel's and the plain version's summation orders decide differently,
     # and such flips compound over 32 steps
     rs = [phase_vmem(64, 64, True, True, 64, 512, 32, 16.0, 0.001, seed=7, varied=True,
-                     vs_k3=True),
-          phase_vmem(64, 64, True, True, 128, 512, 32, 3.0, 0.02, seed=5, vs_k3=True),
+                     k13=True, rows=True),
+          phase_vmem(64, 64, True, True, 128, 512, 32, 3.0, 0.02, seed=5),
           phase_vmem(12, 8, True, False, 5, 128, 64, 3.0, 0.02, seed=6),
           phase_vmem(11, 9, False, True, 37, 100, 9, 2.5, 0.05, seed=8, varied=True,
-                     dup=True)]
+                     dup=True),
+          phase_vmem(128, 64, True, True, 128, 512, 32, 6.0, 0.01, seed=61, rows=True)]
     recs["som_vmem_train_steps"] = dict(rs[0], max_abs_err=max(r["max_abs_err"]
                                                                for r in rs))
     # K10 at the sharded lvq3 step's shape (B 1024 over (data 2, model 2) is

@@ -81,9 +81,9 @@ _SIGNATURES = {
     "somvq_som_update_masked": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                 ctypes.c_float, _P],
     # codes, noc, D, batches, K, B, bmu0, alphas, radii, tail, xdim, hexa,
-    # gaussian, keys, bar, bmu_out, stream
+    # gaussian, rows, xs, keys, bar, bmu_out, stream
     "somvq_som_vmem_steps": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                             _I, _P, _P, _P, _P],
+                             _I, _I, _P, _P, _P, _P, _P],
 }
 
 

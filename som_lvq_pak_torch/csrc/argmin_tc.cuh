@@ -1,7 +1,8 @@
 // The pieces of the tensor-core winner search shared by K1, K2 and K16
-// (dist_argmin_t.cu) and K4 (dist_argmin.cu): the CTA shape, the cp.async
-// staging of a codebook tile, and the merge of a sample's four lanes with
-// the fold across codebook splits.
+// (dist_argmin_t.cu), K4 (dist_argmin.cu) and K8 (dist_top2.cu): the CTA
+// shape, the cp.async staging of a codebook tile, the merge of a sample's
+// four lanes with the fold across codebook splits, and the unmasked
+// search's shared-memory layout (K2Smem) and split A fragments (load_x).
 //
 // One CTA owns kTB = 128 samples, 16 per warp, and walks its span of the
 // codebook in kTNC-row tiles, each tile split into slabs of SW = 8 KT
@@ -73,6 +74,38 @@ __device__ __forceinline__ void merge_fold(float (&best)[2], int (&bidx)[2], int
     if (t == 0 && b < B && bidx[h] != INT_MAX)
       fold_key(keys + b, -2.f * best[h], bidx[h]);
   }
+}
+
+// KT k-steps of 8 features per slab (slab width SW = 8 KT; KT = 8 when D >
+// 64).  Shared memory (floats): raw[2][kTNC * SW] | chi, clo [kTNC][DC] |
+// m2s[kTNC]
+template <int KT>
+struct K2Smem {
+  static constexpr int SW = 8 * KT;
+  static constexpr int DC = stride_nk(SW);
+  static constexpr size_t bytes() {
+    return sizeof(float) * (2 * (size_t)kTNC * SW + 2 * (size_t)kTNC * DC + kTNC);
+  }
+};
+
+// The A fragments of slab `sl` for the warp's samples b0..b0+15, split:
+// a0 (sample g, feature t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// of each k-step, zero past B and D; x stored (B, D), or (D, B) with kXT
+// (strided loads, once per walk)
+template <int KT, bool kXT>
+__device__ __forceinline__ void load_x(float (&ahi)[KT][4], float (&alo)[KT][4],
+                                       const float* __restrict__ x, int B, int D,
+                                       int b0, int sl, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int b = b0 + g + 8 * (q & 1);
+      const int k = sl * 8 * KT + 8 * ks + t + 4 * (q >> 1);
+      const size_t i = kXT ? (size_t)k * B + b : (size_t)b * D + k;
+      split_tf32((b < B && k < D) ? __ldg(x + i) : 0.f, ahi[ks][q], alo[ks][q]);
+    }
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 // The SOM neighbourhood update's device code: the weights, shared by every
-// SOM kernel; accumulate_update (FP32 FMAs on CUDA cores), shared by K5
-// (som_update.cu) and K7 (som_vmem_steps.cu).  K3 and K11 (fused_step_tc.cuh)
-// and K6 (som_update.cu) build the same weights from staged grid coordinates
+// SOM kernel; accumulate_update (FP32 FMAs on CUDA cores), K5's
+// (som_update.cu).  K3 and K11 (fused_step_tc.cuh), K6 (som_update.cu) and
+// K7 (som_vmem_steps.cu) build the same weights from staged grid coordinates
 // (grid_x, grid_d2_at, weight_of_d2) for their tensor-core updates.
 //
 // W[unit, sample] is built from flat unit indices with the exact-f32 algebra

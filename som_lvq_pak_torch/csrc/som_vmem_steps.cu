@@ -1,41 +1,71 @@
 // K SOM training steps in one launch, the codebook resident on chip
-// throughout: a persistent cooperative kernel.
+// throughout: a persistent cooperative kernel on K3's tensor-core step body.
 //
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_vmem_steps_kernel (wrapper
 // som_vmem_train_steps).  The TPU kernel keeps the whole codebook (up to
 // 4 MB) in one core's VMEM and runs its grid of K steps in order.  One SM's
 // shared memory (227 KB) cannot hold that, so here the codebook is spread
-// over the grid: CTA c owns the T consecutive TN-row tiles c*T .. c*T+T-1
-// (som_grid.cuh), loads them into shared memory once, keeps them there for
-// all K steps, and writes them back once after the last.  The grid is at
-// most what can be resident at once (occupancy x SM count), launched with
+// over the grid: CTA c owns the T consecutive R-row tiles c*T .. c*T+T-1,
+// loads them into shared memory once, keeps them there for all K steps, and
+// writes them back once after the last.  The grid is at most what can be
+// resident at once (occupancy x SM count), launched with
 // cudaLaunchCooperativeKernel; a codebook that does not fit returns
 // cudaErrorCooperativeLaunchTooLarge (the wrapper raises; nothing falls
 // back).
 //
-// Step t, in every CTA:
-//   1. read bmu_t: bmu0 at t = 0, else decode the packed (value, row) keys
-//      that step t-1 folded for batch t;
-//   2. update each owned tile with batch t: acc = W.X and wsum = W.1 by
-//      som_grid.cuh's accumulate_update, then the guarded blend, in shared
-//      memory (the same code and operation order as K3);
-//   3. batch t+1's (min, first argmin) over the owned rows, folded across
-//      CTAs into a packed-u64 key per sample with argmin_keys.cuh's fold_key
-//      (atomicMin: the smallest value, then the lowest row, whatever order
-//      the CTAs run in);
+// Before the cooperative launch, split_group_kernel splits all K + 1
+// batches of the launch (the K batches and the tail, the winners' last
+// batch) into TF32 hi and lo once, as K3's split_batches_kernel splits its
+// two per step.  Step s, in every CTA:
+//   1. the step's W table: per sample of batch s its BMU's grid x and row and
+//      its alpha (the float4 K3's ClosedFormW stages per chunk), from bmu0 at
+//      s = 0, else from the packed (value, row) keys step s-1 folded;
+//   2. for each owned tile, K3's update (group_update: split-TF32 mma.sync
+//      per 32-sample chunk added into float32 registers, the fixed-order
+//      wsum), then K3's guarded blend into the RESIDENT tile, and ||m||^2
+//      per row in K3's order;
+//   3. batch s+1's winners against the resident rows, as K3's winner half
+//      scores them (A fragments split from the float32 rows into hi and lo,
+//      the floats K3 stages; split-TF32 mma.sync per 64-sample chunk, two
+//      chunks double-buffered; d = ||m||^2 - 2 S), the (min, first row) over
+//      the CTA's rows folded across CTAs into a packed-u64 key per sample
+//      (argmin_keys.cuh's order; atomicMin: the smallest value, then the
+//      lowest row, in any CTA order);
 //   4. wait at a grid-wide barrier.
-// The key buffers rotate over three: step t decodes buffer t%3, folds into
-// (t+1)%3 and resets (t+2)%3, which every CTA finished decoding before the
+// The key buffers rotate over three: step s decodes buffer s%3, folds into
+// (s+1)%3 and resets (s+2)%3, which every CTA finished decoding before the
 // previous barrier; so one barrier per step suffices.  The barrier is a
 // generation counter on a global word, valid because the cooperative launch
 // guarantees that every CTA is resident.
 //
-// One launch computes what K chained K3 launches compute, with the same
-// arithmetic in the same order.  What bounds it on H100: FP32 FMA throughput
-// and shared-memory loads (no tensor cores), as in K3, plus the barrier per
-// step; device memory sees one codebook read and write per launch and the
-// batches, which stay in L2.  A small codebook leaves SMs idle (one CTA per
-// 32 rows).
+// One launch computes what K chained K3 launches (som_fused_step.cu)
+// compute, bit for bit: every float of a row is K3's.  W[row, sample] is
+// ClosedFormW's arithmetic on the same staged values; each (row, column) of
+// W.X is summed over the same 32-sample chunks and k-steps in the mma, the
+// chunks added in batch order; wsum and ||m||^2 are summed in K3's order by
+// one warp of the row's m-tile; the scores take the same operands in the
+// same k-step order; and the lexicographic (value, row) minimum does not
+// depend on the order rows are merged in.
+//
+// What bounds it on H100: the two contractions of each step, W.X (noc x B x
+// D) and the scores (noc x B x D), as split-TF32 mma.sync: 12 noc B D K TF32
+// FLOPs against the 495 TFLOP/s peak.  Device memory sees one codebook read
+// and write per launch and the split batches, which stay in L2.  A map has
+// few rows for 132 SMs (a 4096-row map is 256 m-tiles of 16 rows), and each
+// step walks the whole batch in order (B / 32 update chunks, B / 64 winner
+// chunks), so K3's layout, one warp per m-tile doing every column, left one
+// to four warps per SM, each a long serial chain per chunk: the time did
+// not move with the CTA height (PERF.md).  Here each m-tile's work is split
+// over CG warps (up to 4): the update's columns (W built once, its k-steps
+// split over the CG warps one chunk ahead and shared through shared memory)
+// and the winner chunk's samples, so a step runs on up to 16 warps per
+// 64-row CTA.  The grid barrier per step costs a few microseconds.
+//
+// Layout.  A CTA owns R = 16 MT rows (ops.som_vmem.k7_rows picks R from the
+// card's times): MT m-tiles of 16 rows and CG column groups, warp cg MT + mt
+// for m-tile mt and group cg, each holding the mma's C fragments of its
+// m-tile for its n-tiles of the features (update) or of the chunk's samples
+// (winners).
 
 #include <cuda_runtime.h>
 
@@ -43,18 +73,112 @@
 #include <cmath>
 #include <cstdint>
 
-#include "argmin_keys.cuh"
-#include "som_grid.cuh"
+#include "fused_step_tc.cuh"
 
 namespace {
 
-// Shared memory: tiles[T][TN][D] | m2s[T][TN] | xs[BC][DS] | ws[TN][BC] |
-//                redv[THREADS] | redi[THREADS] | bms[B]
-size_t vmem_smem_bytes(int D, int T, int B) {
-  const int DS = D | 1;
-  return sizeof(float) * ((size_t)T * TN * D + (size_t)T * TN +
-                          (size_t)BC * DS + TN * BC + THREADS) +
-         sizeof(int) * ((size_t)THREADS + B);
+// The launch's arguments, one kernel parameter
+struct VmemArgs {
+  float* codes;           // (noc, D) float32, updated in place
+  int noc, D;
+  const float* xs;        // the K + 1 split batches (split_group_kernel)
+  int K, B;
+  const int* bmu0;        // (B,) winners of batch 0
+  const float* alphas;    // (K, B)
+  const float* radii;     // (K,)
+  int xdim, hexa, gaussian;
+  int T;                  // tiles per CTA
+  unsigned long long* keys;  // (3, B) key buffers
+  unsigned int* bar;      // grid barrier: count, generation
+  int* bmu_out;           // (B,) winners of the tail
+};
+
+// K3's W (ClosedFormW's values, bit for bit) from a table of the step's
+// whole batch staged once per step: per sample its BMU's grid x and row and
+// its alpha (float4: x, row, alpha, 0; zero where bmu < 0 and past B), the
+// float4 ClosedFormW stages per chunk, so the update's chunks stage nothing
+// of their own.  The table is found from the dynamic shared array and an
+// offset.
+struct GroupW {
+  int xdim;
+  bool hexa, gaussian;
+  float r2, den;
+  int tab;              // the table's offset in the shared array (floats)
+  float lx[2], fur[2];  // this thread's two rows: grid x and row
+
+
+  __device__ __forceinline__ const float4* smp() const {
+    extern __shared__ __align__(16) float smem[];
+    return reinterpret_cast<const float4*>(smem + tab);
+  }
+  // the thread's rows g and g + 8 of the m-tile from row r0
+  __device__ __forceinline__ void init(int r0, int g) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = r0 + g + 8 * h;
+      lx[h] = grid_x(u % xdim, u / xdim, hexa);
+      fur[h] = (float)(u / xdim);
+    }
+  }
+  // ClosedFormW::w: fragment register q of k-step ks of chunk c, row g +
+  // 8 (q & 1), sample 8 ks + t + 4 (q >> 1)
+  __device__ __forceinline__ float w(int c, int q, int ks) const {
+    const int t = threadIdx.x & 3;
+    const float4 sm = smp()[c * kBC + 8 * ks + t + 4 * (q >> 1)];
+    const int h = q & 1;
+    return weight_of_d2(grid_d2_at(lx[h], fur[h], sm.x, sm.y, hexa), sm.z, gaussian,
+                        r2, den);
+  }
+};
+
+// The CTA: MT m-tiles of 16 rows (R = 16 MT rows) and CG column groups, one
+// warp each (warp = cg * MT + mt).  CG = min(4, NT, 16 / MT): the 4 k-steps
+// of an update chunk split over at most 4 groups, every group at least one
+// 8-feature n-tile, at most 16 warps.
+__host__ __device__ constexpr int k7_cg(int NT, int MT) {
+  return NT < 4 ? (NT < 16 / MT ? NT : 16 / MT) : (4 < 16 / MT ? 4 : 16 / MT);
+}
+
+// Shared memory (floats) of a CTA owning T tiles: the step region, the
+// update's staging, x [2 buffers][hi, lo][kBC][DSU] | W [2 buffers][MT][4
+// k-steps][32 lanes][4], or after the update two winner chunks x' [2][hi,
+// lo][BW][DW] | redv, redi [MT][BW]; then tiles [T][R][DT] (float32) | m2s
+// [T][R] | wsum [R] | the step's W table (float4) [Bc], Bc = B rounded up
+// to a multiple of kBC
+template <int NT, int MT>
+struct VmemSmem {
+  static constexpr int CG = k7_cg(NT, MT), WARPS = MT * CG, R = 16 * MT;
+  static constexpr int DP = 8 * NT, BW = k3_bw(NT);
+  static constexpr int DSU = stride_kn(DP), DT = stride_nk(DP), DW = DT;
+  static constexpr size_t kX = 2 * 2 * (size_t)kBC * DSU;
+  static constexpr size_t kUpdate = kX + 2 * (size_t)MT * 4 * 32 * 4;
+  static constexpr size_t kWinner = 4 * (size_t)BW * DW + 2 * (size_t)MT * BW;
+  static constexpr size_t kStep = kUpdate > kWinner ? kUpdate : kWinner;
+  __host__ __device__ static size_t table(int T) {
+    return kStep + (size_t)T * R * (DT + 1) + R;
+  }
+  static size_t bytes(int T, int B) {
+    return sizeof(float) * (table(T) + 4 * (size_t)((B + kBC - 1) / kBC * kBC));
+  }
+};
+
+// Every batch of the launch split once, split_batches_kernel's split per
+// batch: batch t (batches[t] for t < K, the tail for t = K) at xs + 2 t P,
+// its hi plane then its lo plane, P = Bp DP floats each (Bp: B rounded up to
+// a multiple of 64), zero past B and D; one thread per entry
+__global__ void split_group_kernel(const float* __restrict__ batches, int K, int B,
+                                   const float* __restrict__ tail, int D, int DP,
+                                   int Bp, float* __restrict__ xs) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t plane = (int64_t)Bp * DP;
+  if (e >= (int64_t)(K + 1) * plane) return;
+  const int t = (int)(e / plane);
+  const int64_t i = e - t * plane;
+  const int b = (int)(i / DP), k = (int)(i % DP);
+  const float* x = t < K ? batches + (size_t)t * B * D : tail;
+  const float v = (b < B && k < D) ? x[(size_t)b * D + k] : 0.f;
+  float* hi = xs + 2 * t * plane;
+  split_tf32(v, hi[i], hi[plane + i]);
 }
 
 // Grid-wide barrier: bar[0] counts arrivals, bar[1] is the generation.  The
@@ -78,159 +202,355 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar, unsigned int& ge
   __syncthreads();
 }
 
-template <int NJ>
-__global__ void __launch_bounds__(THREADS)
-som_vmem_steps_kernel(float* __restrict__ codes, int noc, int D,
-                      const float* __restrict__ batches, int K, int B,
-                      const int* __restrict__ bmu0,
-                      const float* __restrict__ alphas,
-                      const float* __restrict__ radii,
-                      const float* __restrict__ tail, int xdim, int hexa,
-                      int gaussian, int T, unsigned long long* keys,
-                      unsigned int* bar, int* __restrict__ bmu_out) {
-  extern __shared__ float smem[];
-  const int DS = D | 1;
-  float* tiles = smem;
-  float* m2s = tiles + (size_t)T * TN * D;
-  float* xs = m2s + T * TN;
-  float* ws = xs + BC * DS;
-  float* redv = ws + TN * BC;
-  int* redi = reinterpret_cast<int*>(redv + THREADS);
-  int* bms = redi + THREADS;
-
+// K3's update of the rows r0.. of m-tile mt, columns of group cg (n-tiles
+// cg NTW .. cg NTW + NTW - 1): acc = W.X in the mma's C layout, and with cg
+// 0 wsum[h] = W.1 of row g + 8h over every lane of the row.  Each (row,
+// column) is summed as fused_update_tc sums it: per 32-sample chunk in the
+// mma over the chunk's 4 k-steps, each chunk's sums added into float32
+// registers in batch order; each W value is built by one thread of the
+// m-tile (k-steps split over the groups, one chunk ahead) and read by all
+// from shared memory, wsum summed from the same values in K3's order (chunk,
+// k-step, sample t then t + 4, then a fixed xor tree).  Leaves the step
+// region to be read by other threads: the caller synchronizes before reusing
+// it.
+template <int NT, int MT>
+__device__ __forceinline__ void group_update(float (&acc)[NT / k7_cg(NT, MT)][4],
+                                             float (&wsum)[2],
+                                             const float* __restrict__ xb_hi,
+                                             const float* __restrict__ xb_lo, int B,
+                                             int r0, GroupW& wp) {
+  using L = VmemSmem<NT, MT>;
+  constexpr int CG = L::CG, NTW = NT / CG, DP = L::DP, DSU = L::DSU;
+  constexpr int THREADS = 32 * L::WARPS, KS = kBC / 8;
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ntiles = (noc + TN - 1) / TN;
-  const int tile0 = blockIdx.x * T;
-  const int nt = min(T, ntiles - tile0);  // >= 1 by the grid's size
-  const int row0 = tile0 * TN;
-  const int gtid = blockIdx.x * THREADS + tid;
-  const int gsz = gridDim.x * THREADS;
+  const int mt = warp % MT, cg = warp / MT;
+  float* xbuf = smem;  // [buffer][hi, lo][kBC][DSU]
+  float4* wbuf = reinterpret_cast<float4*>(smem + L::kX);  // [buffer][MT][KS][32]
+  wp.init(r0 + 16 * mt, lane >> 2);
+
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  wsum[0] = 0.f;
+  wsum[1] = 0.f;
+
+  // this thread's share of chunk c's W fragments: k-steps cg, cg + CG, ...
+  auto build_w = [&](int c, int buf) {
+#pragma unroll
+    for (int ks = cg; ks < KS; ks += CG)
+      wbuf[((buf * MT + mt) * KS + ks) * 32 + lane] =
+          make_float4(wp.w(c, 0, ks), wp.w(c, 1, ks), wp.w(c, 2, ks), wp.w(c, 3, ks));
+  };
+
+  const int nchunks = (B + kBC - 1) / kBC;
+  copy_rows<DP>(xbuf, DSU, xb_hi, kBC, tid, THREADS);
+  copy_rows<DP>(xbuf + kBC * DSU, DSU, xb_lo, kBC, tid, THREADS);
+  cp_async_commit();
+  build_w(0, 0);
+  for (int c = 0; c < nchunks; ++c) {
+    const float* xhi = xbuf + (c & 1) * 2 * kBC * DSU;
+    const float* xlo = xhi + kBC * DSU;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c's rows and W landed; chunk c - 1's all read
+    if (c + 1 < nchunks) {  // its buffers were last read by chunk c - 1
+      const size_t o = (size_t)(c + 1) * kBC * DP;
+      float* nx = xbuf + ((c + 1) & 1) * 2 * kBC * DSU;
+      copy_rows<DP>(nx, DSU, xb_hi + o, kBC, tid, THREADS);
+      copy_rows<DP>(nx + kBC * DSU, DSU, xb_lo + o, kBC, tid, THREADS);
+      cp_async_commit();
+      build_w(c + 1, (c + 1) & 1);
+    }
+    float part[NTW][4];
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      // A fragment: a0 (row g, sample t), a1 (g + 8, t), a2 (g, t + 4),
+      // a3 (g + 8, t + 4)
+      const float4 wv = wbuf[(((c & 1) * MT + mt) * KS + ks) * 32 + lane];
+      const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+      if (cg == 0) {
+        wsum[0] += w[0];
+        wsum[0] += w[2];
+        wsum[1] += w[1];
+        wsum[1] += w[3];
+      }
+      float ahi[4], alo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(w[q], ahi[q], alo[q]);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        float bhi[2], blo[2];
+        load_b_kn(bhi, xhi, DSU, 8 * ks, 8 * (cg * NTW + j), lane);
+        load_b_kn(blo, xlo, DSU, 8 * ks, 8 * (cg * NTW + j), lane);
+        mma_tf32x3(part[j], ahi, alo, bhi, blo);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 1);
+    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 2);
+  }
+}
+
+// up to 128 registers a thread
+template <int NT, int MT>
+__global__ void __launch_bounds__(32 * VmemSmem<NT, MT>::WARPS, 16 / VmemSmem<NT, MT>::WARPS)
+som_vmem_steps_kernel(const VmemArgs a) {
+  using L = VmemSmem<NT, MT>;
+  constexpr int CG = L::CG, NTW = NT / CG, DP = L::DP, R = L::R, BW = L::BW;
+  constexpr int DT = L::DT, DW = L::DW, NTH = 32 * L::WARPS;
+  constexpr int NW = BW / 8 / CG;  // a warp's n-tiles of a winner chunk
+  extern __shared__ __align__(16) float smem[];
+  float* xw = smem;  // winner chunk buffers: [buffer][hi, lo][BW][DW]
+  float* redv = xw + 4 * BW * DW;
+  int* redi = reinterpret_cast<int*>(redv + MT * BW);
+  float* tiles = smem + L::kStep;
+  float* m2s = tiles + (size_t)a.T * R * DT;
+  float* wsm = m2s + a.T * R;
+  float4* tab = reinterpret_cast<float4*>(smem + L::table(a.T));
+
+  const int noc = a.noc, D = a.D, B = a.B;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mt = warp % MT, cg = warp / MT;
+  const int ntiles = (noc + R - 1) / R;
+  const int tile0 = blockIdx.x * a.T;
+  const int nt = min(a.T, ntiles - tile0);  // >= 1 by the grid's size
+  const int row0 = tile0 * R;
+  const int gtid = blockIdx.x * NTH + tid;
+  const int gsz = gridDim.x * NTH;
+  const size_t plane = (size_t)((B + 63) / 64 * 64) * DP;  // one split plane
   unsigned int gen = 0;
 
-  // the owned rows, once; rows beyond noc are 0
-  for (int e = tid; e < nt * TN * D; e += THREADS) {
-    const int u = row0 + e / D;
-    tiles[e] = (u < noc) ? codes[(size_t)u * D + e % D] : 0.f;
+  // the owned rows, once, features padded with zeros; rows beyond noc are 0
+  for (int e = tid; e < nt * R * DT; e += NTH) {
+    const int u = row0 + e / DT, k = e % DT;
+    tiles[e] = (u < noc && k < D) ? a.codes[(size_t)u * D + k] : 0.f;
   }
   // step 0 folds into buffer 1
-  for (int b = gtid; b < B; b += gsz) keys[(size_t)B + b] = ~0ull;
-  grid_barrier(bar, gen);
+  for (int b = gtid; b < B; b += gsz) a.keys[(size_t)B + b] = ~0ull;
+  grid_barrier(a.bar, gen);
 
-  for (int t = 0; t < K; ++t) {
-    // ---- 1. winners of batch t --------------------------------------------
-    if (t == 0) {
-      for (int b = tid; b < B; b += THREADS) bms[b] = bmu0[b];
-    } else {
-      const unsigned long long* kc = keys + (size_t)(t % 3) * B;
-      for (int b = tid; b < B; b += THREADS)
-        bms[b] = (int)(unsigned int)(__ldcg(kc + b) & 0xffffffffull);
+  const bool hexa = a.hexa != 0;
+  for (int s = 0; s < a.K; ++s) {
+    // ---- 1. the W table of batch s from its winners: bmu0 at s = 0, else
+    // the keys step s-1 folded (read by the update after its first barrier)
+    const unsigned long long* kc = a.keys + (size_t)(s % 3) * B;
+    const float* al = a.alphas + (size_t)s * B;
+    for (int b = tid; b < (B + kBC - 1) / kBC * kBC; b += NTH) {
+      int bm = -1;
+      if (b < B)
+        bm = s == 0 ? a.bmu0[b] : (int)(unsigned int)(__ldcg(kc + b) & 0xffffffffull);
+      // ClosedFormW::stage's float4: 0 where bmu < 0 or past B
+      tab[b] = bm >= 0 ? make_float4(grid_x(bm % a.xdim, bm / a.xdim, hexa),
+                                     (float)(bm / a.xdim), al[b], 0.f)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    unsigned long long* kr = keys + (size_t)((t + 2) % 3) * B;
+    unsigned long long* kr = a.keys + (size_t)((s + 2) % 3) * B;
     for (int b = gtid; b < B; b += gsz) kr[b] = ~0ull;
-    unsigned long long* kn = keys + (size_t)((t + 1) % 3) * B;
+    unsigned long long* kn = a.keys + (size_t)((s + 1) % 3) * B;
+    const float* xb_hi = a.xs + 2 * s * plane;
+    const float* xn_hi = xb_hi + 2 * plane;
+    const float radius = a.radii[s];
+    GroupW wp;
+    wp.xdim = a.xdim;
+    wp.hexa = hexa;
+    wp.gaussian = a.gaussian != 0;
+    wp.r2 = radius * radius;
+    wp.den = 2.0f * radius * radius;
+    wp.tab = (int)L::table(a.T);
+    __syncthreads();  // the table written before the first chunk's W
 
-    const float* xb = batches + (size_t)t * B * D;
-    const float* xn = (t + 1 < K) ? batches + (size_t)(t + 1) * B * D : tail;
-    const float* al = alphas + (size_t)t * B;
-    const float radius = radii[t];
-
-    // ---- 2. update of the owned tiles (accumulate_update syncs first) -----
+    // ---- 2. K3's update, then its blend into the resident tile ------------
     for (int tt = 0; tt < nt; ++tt) {
-      float acc[4][NJ];
-      float wsum[4];
-      const int r0 = row0 + tt * TN;
-      accumulate_update<NJ>(acc, wsum, xs, ws, r0, noc, D, xb, bms, al, B, xdim,
-                            hexa != 0, gaussian != 0, radius);
-      float* tile = tiles + (size_t)tt * TN * D;
+      const int r0 = row0 + tt * R;
+      float acc[NTW][4];
+      float wsum[2];
+      group_update<NT, MT>(acc, wsum, xb_hi, xb_hi + plane, B, r0, wp);
+      if (cg == 0 && t4 == 0) {
+        wsm[16 * mt + g] = wsum[0];
+        wsm[16 * mt + g + 8] = wsum[1];
+      }
+      __syncthreads();  // every fragment read: the step region is free; wsum
+      if (tt == nt - 1) {  // the first winner chunk lands while the tile blends
+        copy_rows<DP>(xw, DW, xn_hi, BW, tid, NTH);
+        copy_rows<DP>(xw + BW * DW, DW, xn_hi + plane, BW, tid, NTH);
+        cp_async_commit();
+      }
+      float* tile = tiles + (size_t)tt * R * DT;
+      const float ws[2] = {wsm[16 * mt + g], wsm[16 * mt + g + 8]};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = warp * 4 + i, u = r0 + r;
-        float sq = 0.f;
+      for (int j = 0; j < NTW; ++j) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int k = lane + 32 * j;
-          if (k < D) {
-            float nc = 0.f;
-            if (u < noc) nc = guarded_blend(tile[r * D + k], acc[i][j], wsum[i]);
-            tile[r * D + k] = nc;
-            sq += nc * nc;
+        for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+          const int h = q >> 1, r = 16 * mt + g + 8 * h;
+          const int k = 8 * (cg * NTW + j) + 2 * t4 + (q & 1);
+          float nc = 0.f;
+          if (k < D && r0 + r < noc) nc = guarded_blend(tile[r * DT + k], acc[j][q], ws[h]);
+          tile[r * DT + k] = nc;
+        }
+      }
+      __syncthreads();  // the tile blended
+      // ||m||^2 in K3's order: per thread over n-tiles then c0..c3, then the
+      // four lanes of a row
+      if (cg == 0) {
+        float sq[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int h = q >> 1;
+            const float nc = tile[(16 * mt + g + 8 * h) * DT + 8 * j + 2 * t4 + (q & 1)];
+            sq[h] += nc * nc;
           }
         }
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-        if (lane == 0) m2s[tt * TN + r] = sq;
+        for (int h = 0; h < 2; ++h) {
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+          if (t4 == 0) m2s[tt * R + 16 * mt + g + 8 * h] = sq[h];
+        }
       }
     }
 
-    // ---- 3. batch t+1's winners against the updated rows -------------------
-    // thread (warp, lane): rows 4 warp..4 warp+3 of each owned tile against
-    // sample lane; a thread's rows ascend, so strict < keeps the first
-    for (int s0 = 0; s0 < B; s0 += BC) {
-      __syncthreads();  // tiles/m2s written; previous chunk's reduction read
-      for (int e = tid; e < BC * D; e += THREADS) {
-        const int s = e / D, k = e % D;
-        xs[s * DS + k] = (s0 + s < B) ? xn[(size_t)(s0 + s) * D + k] : 0.f;
+    // ---- 3. batch s+1's winners against the resident rows -----------------
+    // chunk i in buffer i & 1; chunk i + 1 copied while chunk i is scored;
+    // warp (mt, cg) scores m-tile mt against the chunk's n-tiles cg NW ..
+    for (int n0 = 0; n0 < B; n0 += BW) {
+      const float* whi = xw + ((n0 / BW) & 1) * 2 * BW * DW;
+      const float* wlo = whi + BW * DW;
+      cp_async_wait_all();
+      __syncthreads();  // chunk landed; tiles, m2s and the last chunk's reads done
+      if (n0 + BW < B) {
+        const size_t o = (size_t)(n0 + BW) * DP;
+        float* nhi = xw + (((n0 / BW) & 1) ^ 1) * 2 * BW * DW;
+        copy_rows<DP>(nhi, DW, xn_hi + o, BW, tid, NTH);
+        copy_rows<DP>(nhi + BW * DW, DW, xn_hi + plane + o, BW, tid, NTH);
+        cp_async_commit();
       }
-      __syncthreads();
-      float bv = INFINITY;
-      int bi = INT_MAX;
-      for (int tt = 0; tt < nt; ++tt) {
-        const float* tile = tiles + (size_t)tt * TN * D;
-        float dot[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < D; ++k) {
-          const float xv = xs[lane * DS + k];
+      // per (sample 8 n + 2 t + q) the best (value, row) of this lane's rows:
+      // rows ascend (tile, then g, then g + 8), so strict < keeps the first
+      float bv[NW][2];
+      int bi[NW][2];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dot[i] += tile[(warp * 4 + i) * D + k] * xv;
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          bv[n][q] = INFINITY;
+          bi[n][q] = INT_MAX;
         }
+      for (int tt = 0; tt < nt; ++tt) {
+        const float* tile = tiles + (size_t)tt * R * DT;
+        float S[NW][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = warp * 4 + i, u = row0 + tt * TN + r;
-          if (u < noc) {
-            const float d = m2s[tt * TN + r] - 2.f * dot[i];
-            if (d < bv) {
-              bv = d;
-              bi = u;
+        for (int n = 0; n < NW; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+#pragma unroll 2
+        for (int ks = 0; ks < NT; ++ks) {
+          float av[4], ahi[4], alo[4];
+          load_a(av, tile, DT, 16 * mt, 8 * ks, lane);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) split_tf32(av[q], ahi[q], alo[q]);
+#pragma unroll
+          for (int n = 0; n < NW; ++n) {
+            float bhi[2], blo[2];
+            load_b_nk(bhi, whi, DW, 8 * (cg * NW + n), 8 * ks, lane);
+            load_b_nk(blo, wlo, DW, 8 * (cg * NW + n), 8 * ks, lane);
+            mma_tf32x3(S[n], ahi, alo, bhi, blo);
+          }
+        }
+        const int ra = row0 + tt * R + 16 * mt + g, rb = ra + 8;
+        const float m2a = m2s[tt * R + 16 * mt + g], m2b = m2s[tt * R + 16 * mt + g + 8];
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (ra < noc) {
+              const float d = m2a - 2.f * S[n][q];
+              if (d < bv[n][q]) {
+                bv[n][q] = d;
+                bi[n][q] = ra;
+              }
+            }
+            if (rb < noc) {
+              const float d = m2b - 2.f * S[n][2 + q];
+              if (d < bv[n][q]) {
+                bv[n][q] = d;
+                bi[n][q] = rb;
+              }
             }
           }
         }
       }
-      redv[warp * 32 + lane] = bv;
-      redi[warp * 32 + lane] = bi;
-      __syncthreads();
-      if (warp == 0) {
-        // warps' rows interleave across tiles: compare (value, row)
-        for (int w = 1; w < THREADS / 32; ++w) {
-          const float v = redv[w * 32 + lane];
-          const int vi = redi[w * 32 + lane];
-          if (v < bv || (v == bv && vi < bi)) {
-            bv = v;
-            bi = vi;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float v = bv[n][q];
+          int vi = bi[n][q];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes g of a sample
+            const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+            const int oi = __shfl_xor_sync(0xffffffffu, vi, off);
+            if (lex_less(ov, oi, v, vi)) {
+              v = ov;
+              vi = oi;
+            }
+          }
+          if (g == 0) {
+            const int smp = 8 * (cg * NW + n) + 2 * t4 + q;
+            redv[mt * BW + smp] = v;
+            redi[mt * BW + smp] = vi;
           }
         }
-        const int b = s0 + lane;
-        if (b < B && bi != INT_MAX) fold_key(kn + b, bv, bi);
+      }
+      __syncthreads();  // every warp's candidates written
+      for (int i = tid; i < BW; i += NTH) {  // a one-warp CTA takes two each
+        float v = INFINITY;
+        int vi = INT_MAX;
+        for (int m = 0; m < MT; ++m) {
+          const float ov = redv[m * BW + i];
+          const int oi = redi[m * BW + i];
+          if (lex_less(ov, oi, v, vi)) {
+            v = ov;
+            vi = oi;
+          }
+        }
+        // fold_key without its read: the atomic's result is not waited for
+        const int b = n0 + i;
+        if (b < B && vi != INT_MAX) atomicMin(kn + b, pack_key(v, vi));
       }
     }
 
     // ---- 4. every CTA's fold done before anyone decodes it -----------------
-    grid_barrier(bar, gen);
+    grid_barrier(a.bar, gen);
   }
 
-  for (int e = tid; e < nt * TN * D; e += THREADS) {
-    const int u = row0 + e / D;
-    if (u < noc) codes[(size_t)u * D + e % D] = tiles[e];
+  for (int e = tid; e < nt * R * DT; e += NTH) {
+    const int u = row0 + e / DT, k = e % DT;
+    if (u < noc && k < D) a.codes[(size_t)u * D + k] = tiles[e];
   }
-  const unsigned long long* kf = keys + (size_t)(K % 3) * B;
+  const unsigned long long* kf = a.keys + (size_t)(a.K % 3) * B;
   for (int b = gtid; b < B; b += gsz)
-    bmu_out[b] = (int)(unsigned int)(__ldcg(kf + b) & 0xffffffffull);
+    a.bmu_out[b] = (int)(unsigned int)(__ldcg(kf + b) & 0xffffffffull);
 }
 
-template <int NJ>
-int launch_vmem(float* codes, int noc, int D, const float* batches, int K,
-                int B, const int* bmu0, const float* alphas, const float* radii,
-                const float* tail, int xdim, int hexa, int gaussian,
-                unsigned long long* keys, unsigned int* bar, int* bmu_out,
-                cudaStream_t stream) {
+// the fewest tiles per CTA whose grid can be resident at once, then the
+// cooperative launch
+template <int NT, int MT>
+int launch_vmem(VmemArgs a, cudaStream_t stream) {
+  using L = VmemSmem<NT, MT>;
   int dev = 0, sms = 0, coop = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -241,55 +561,76 @@ int launch_vmem(float* codes, int noc, int D, const float* batches, int K,
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  void (*kern)(float*, int, int, const float*, int, int, const int*,
-               const float*, const float*, const float*, int, int, int, int,
-               unsigned long long*, unsigned int*, int*) =
-      som_vmem_steps_kernel<NJ>;
-  const int ntiles = (noc + TN - 1) / TN;
-  // the fewest tiles per CTA whose grid can be resident at once
+  void (*kern)(const VmemArgs) = som_vmem_steps_kernel<NT, MT>;
+  const int ntiles = (a.noc + L::R - 1) / L::R;
   for (int T = 1; T <= ntiles; ++T) {
-    const size_t smem = vmem_smem_bytes(D, T, B);
+    const size_t smem = L::bytes(T, a.B);
     if (smem > (size_t)max_smem) break;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * L::WARPS,
+                                                        smem);
     if (err != cudaSuccess) return (int)err;
     if ((long long)per_sm * sms * T < ntiles) continue;
-    const int grid = (ntiles + T - 1) / T;
-    void* args[] = {&codes, &noc,   &D,    &batches, &K,        &B,
-                    &bmu0,  &alphas, &radii, &tail,   &xdim,     &hexa,
-                    &gaussian, &T,  &keys, &bar,     &bmu_out};
-    err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(THREADS),
-                                      args, smem, stream);
+    a.T = T;
+    void* args[] = {&a};
+    err = cudaLaunchCooperativeKernel((const void*)kern, dim3((ntiles + T - 1) / T),
+                                      dim3(32 * L::WARPS), args, smem, stream);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
+// R = rows per CTA: 16, 32, 64 or 128 (not past D 128)
+template <int NT>
+int launch_rows(int rows, const VmemArgs& a, cudaStream_t stream) {
+  if (rows == 16) return launch_vmem<NT, 1>(a, stream);
+  if (rows == 32) return launch_vmem<NT, 2>(a, stream);
+  if (rows == 64) return launch_vmem<NT, 4>(a, stream);
+  if constexpr (NT <= 16) {
+    if (rows == 128) return launch_vmem<NT, 8>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// codes (noc, D) float32, updated in place; batches (K, B, D), tail (B, D):
+// the winners' last batch; rows: R; xs: scratch for the split batches,
+// 2 (K + 1) Bp DP floats (B rounded up to a multiple of 64, DP 8 times the
+// power of two of 8-feature steps that covers D); keys: (3 B) u64; bar: two
+// zeroed words
 extern "C" int somvq_som_vmem_steps(float* codes, int noc, int D,
                                     const float* batches, int K, int B,
                                     const int* bmu0, const float* alphas,
                                     const float* radii, const float* tail,
-                                    int xdim, int hexa, int gaussian,
-                                    unsigned long long* keys, unsigned int* bar,
-                                    int* bmu_out, cudaStream_t stream) {
-  if (noc <= 0 || D <= 0 || D > MAX_D || K <= 0 || B <= 0 || xdim <= 0)
+                                    int xdim, int hexa, int gaussian, int rows,
+                                    float* xs, unsigned long long* keys,
+                                    unsigned int* bar, int* bmu_out,
+                                    cudaStream_t stream) {
+  if (noc <= 0 || D <= 0 || D > MAX_D || K <= 0 || B <= 0 || xdim <= 0 || !xs)
     return (int)cudaErrorInvalidValue;
-  const int nj = (D + 31) / 32;
-  if (nj <= 1)
-    return launch_vmem<1>(codes, noc, D, batches, K, B, bmu0, alphas, radii,
-                          tail, xdim, hexa, gaussian, keys, bar, bmu_out, stream);
-  if (nj <= 2)
-    return launch_vmem<2>(codes, noc, D, batches, K, B, bmu0, alphas, radii,
-                          tail, xdim, hexa, gaussian, keys, bar, bmu_out, stream);
-  if (nj <= 4)
-    return launch_vmem<4>(codes, noc, D, batches, K, B, bmu0, alphas, radii,
-                          tail, xdim, hexa, gaussian, keys, bar, bmu_out, stream);
-  return launch_vmem<8>(codes, noc, D, batches, K, B, bmu0, alphas, radii,
-                        tail, xdim, hexa, gaussian, keys, bar, bmu_out, stream);
+  const int k8 = (D + 7) / 8;
+  int NT = 1;
+  while (NT < k8) NT *= 2;
+  const int DP = 8 * NT, Bp = (B + 63) / 64 * 64;
+  const int64_t n = (int64_t)(K + 1) * Bp * DP;
+  split_group_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      batches, K, B, tail, D, DP, Bp, xs);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const VmemArgs a{codes, noc,  D,     xs,       K,        B,       bmu0,
+                   alphas, radii, xdim, hexa,    gaussian, 0,       keys,
+                   bar,    bmu_out};
+  switch (NT) {
+    case 1: return launch_rows<1>(rows, a, stream);
+    case 2: return launch_rows<2>(rows, a, stream);
+    case 4: return launch_rows<4>(rows, a, stream);
+    case 8: return launch_rows<8>(rows, a, stream);
+    case 16: return launch_rows<16>(rows, a, stream);
+    default: return launch_rows<32>(rows, a, stream);
+  }
 }

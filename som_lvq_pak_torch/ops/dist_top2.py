@@ -23,7 +23,10 @@ ValueError (the lvq2.1 window needs two).
 
 A CUDA tensor launches the kernel in `csrc/dist_top2.cu`; a CPU tensor
 runs the plain version beside it.  Any other device raises.  Each wrapper
-counts its kernel launches in its `launches` attribute.
+counts its kernel launches in its `launches` attribute.  K8 runs K1's
+split-TF32 tensor-core body with a top-2 fold, the codebook split as K1's
+(`k2_splits`), so its best pair is K1's (value, index) bit for bit on the
+same inputs; K9 runs FP32 FMAs on CUDA cores, split by `codebook_splits`.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import _check, _check_mask, _rows_per_chunk, codebook_splits
+from .dist_argmin import (_check, _check_mask, _rows_per_chunk, codebook_splits,
+                          k2_splits)
 from .distance import fp32_matmul, keep_of, mask_bytes
 
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -75,8 +79,8 @@ def dist_top2_plain(x: torch.Tensor, codes: torch.Tensor,
     return tuple(torch.cat(col) for col in zip(*rows))
 
 
-def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor,
-            m8: Optional[torch.Tensor]) -> Top2:
+def _launch(entry: str, wrapper, split_rule, x: torch.Tensor,
+            codes: torch.Tensor, m8: Optional[torch.Tensor]) -> Top2:
     x = x.contiguous()
     codes = codes.contiguous()
     B, D = x.shape
@@ -87,7 +91,7 @@ def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor,
     i1, i2 = torch.empty((B,), **i32), torch.empty((B,), **i32)
     if B == 0:
         return v1, i1, v2, i2
-    splits = codebook_splits(B, N, x.device)
+    splits = split_rule(B, N, x.device)
     pv = torch.empty((splits, B, 2), **f32)
     pi = torch.empty((splits, B, 2), **i32)
     lead = [x.data_ptr()] + ([] if m8 is None else [m8.data_ptr()])
@@ -110,7 +114,7 @@ def dist_top2(x: torch.Tensor, codes: torch.Tensor,
         return dist_top2_masked(x, codes, mask)
     if _check_top2(x, codes) == "cpu":
         return dist_top2_plain(x, codes)
-    return _launch("somvq_dist_top2", dist_top2, x, codes, None)
+    return _launch("somvq_dist_top2", dist_top2, k2_splits, x, codes, None)
 
 
 def dist_top2_masked(x: torch.Tensor, codes: torch.Tensor,
@@ -121,8 +125,8 @@ def dist_top2_masked(x: torch.Tensor, codes: torch.Tensor,
     _check_mask(x, mask)
     if device == "cpu":
         return dist_top2_plain(x, codes, mask)
-    return _launch("somvq_dist_top2_masked", dist_top2_masked, x, codes,
-                   mask_bytes(mask))
+    return _launch("somvq_dist_top2_masked", dist_top2_masked, codebook_splits, x,
+                   codes, mask_bytes(mask))
 
 
 dist_top2.launches = 0

@@ -468,9 +468,15 @@ def _split_scratch(B: int, Bn: int, D: int, dev, planes: int = 2) -> torch.Tenso
     (`planes` 2; one plane of bf16 values under K14's batch_bf16) of (B, DP)
     and (Bn, DP), rows rounded up to a multiple of 64, DP = 8 times the power
     of two of 8-feature steps that covers D."""
-    dp = 8 * (1 << (-(-D // 8) - 1).bit_length())
-    return torch.empty((planes * (-(-B // 64) + -(-Bn // 64)) * 64 * dp,),
-                       dtype=torch.float32, device=dev)
+    rows = (-(-B // 64) + -(-Bn // 64)) * 64
+    return torch.empty((planes * rows * split_width(D),), dtype=torch.float32,
+                       device=dev)
+
+
+def split_width(D: int) -> int:
+    """DP, the width of the tensor-core steps' split rows: 8 times the power
+    of two of 8-feature steps that covers D."""
+    return 8 * (1 << (-(-D // 8) - 1).bit_length())
 
 
 def k13_rows(noc: int, D: int, device: torch.device) -> int:

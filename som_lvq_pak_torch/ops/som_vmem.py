@@ -17,10 +17,15 @@ when `next_first` is None.  D is not padded.
 
 A CUDA tensor launches the persistent cooperative kernel in
 `csrc/som_vmem_steps.cu`: the codebook stays in the CTAs' shared memory for
-all K steps, with one grid-wide barrier per step.  A grid that cannot be
-resident raises; nothing falls back to K3.  A CPU tensor runs the plain
-version below: K chained plain K3 steps.  The wrapper counts its kernel
-launches in its `launches` attribute.
+all K steps, with one grid-wide barrier per step, and each step runs K3's
+split-TF32 tensor-core arithmetic on it (each 16-row m-tile's work split
+over up to four warps), so one launch gives what K chained K3 launches
+(`som_fused_train_step(..., factored=False)`) give, bit for bit.  The
+K + 1 batches are split into TF32 hi and lo once per launch into a scratch
+the wrapper allocates; `k7_rows` picks the codebook rows per CTA.  A grid
+that cannot be resident raises; nothing falls back to K3.  A CPU tensor
+runs the plain version below: K chained plain K3 steps.  The wrapper
+counts its kernel launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from .. import _build
-from .som_step import MAX_D, som_fused_train_step_plain
+from .som_step import MAX_D, som_fused_train_step_plain, split_width
 
 
 def _schedules(alphas, radii, K: int, B: int, dev: torch.device):
@@ -46,10 +51,27 @@ def _schedules(alphas, radii, K: int, B: int, dev: torch.device):
     return aw, rr
 
 
-def som_vmem_train_steps_plain(codes, batches, bmu0, alphas, radii, xdim, hexa,
-                               gaussian=False, next_first=None):
-    """Plain K7: K chained plain K3 steps; same arguments and contract as
-    `som_vmem_train_steps`."""
+def k7_rows(noc: int, D: int, device: torch.device) -> int:
+    """K7's codebook rows per CTA (csrc/som_vmem_steps.cu builds 16, 32, 64
+    and 128, 128 not past D 128): the fewest that keep the grid within one
+    CTA per SM.  Each 16-row m-tile's work is split over up to four warps,
+    and every CTA walks the whole batch every step, so more CTAs than SMs
+    only add walks: on an H100 32 rows (128 CTAs) led at 4096 x D 64 and 64
+    rows (128 CTAs) at 8192 x D 128 (chip_smoke.py's k7_rows lines;
+    PERF.md)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for rows in (16, 32, 64):
+        if -(-noc // rows) <= sms:
+            return rows
+    return 64 if D > 128 else 128
+
+
+def chain_steps(step, codes, batches, bmu0, alphas, radii, xdim, hexa,
+                gaussian=False, next_first=None):
+    """K chained fused steps through `step` (the plain K3, or an emulation
+    of its arithmetic with the same arguments): step t updates with batch t
+    and its winners, then scores batch t+1 (`next_first`, or the last batch
+    if None, after the last step).  Returns (codes, bmu_next)."""
     K, B = batches.shape[:2]
     aw, rr = _schedules(alphas, radii, K, B, codes.device)
     bmu = bmu0
@@ -58,9 +80,17 @@ def som_vmem_train_steps_plain(codes, batches, bmu0, alphas, radii, xdim, hexa,
             xn = batches[t + 1]
         else:
             xn = batches[-1] if next_first is None else next_first
-        codes, bmu, _ = som_fused_train_step_plain(
-            codes, batches[t], bmu, xn, xdim, hexa, aw[t], radius, gaussian)
+        codes, bmu, _ = step(codes, batches[t], bmu, xn, xdim, hexa, aw[t], radius,
+                             gaussian)
     return codes, bmu
+
+
+def som_vmem_train_steps_plain(codes, batches, bmu0, alphas, radii, xdim, hexa,
+                               gaussian=False, next_first=None):
+    """Plain K7: K chained plain K3 steps; same arguments and contract as
+    `som_vmem_train_steps`."""
+    return chain_steps(som_fused_train_step_plain, codes, batches, bmu0, alphas,
+                       radii, xdim, hexa, gaussian, next_first)
 
 
 def som_vmem_train_steps(
@@ -108,14 +138,19 @@ def som_vmem_train_steps(
     batches = batches.contiguous()
     aw = aw.contiguous()
     tail = (batches[-1] if next_first is None else next_first).contiguous()
+    # the K batches and the tail split into hi and lo: (K + 1) x 2 planes of
+    # (B rounded up to 64, DP)
+    xs = torch.empty((2 * (K + 1) * -(-B // 64) * 64 * split_width(D),),
+                     dtype=torch.float32, device=dev)
     keys = torch.empty((3 * B,), dtype=torch.int64, device=dev)  # 3 key buffers
     bar = torch.zeros((2,), dtype=torch.int32, device=dev)  # grid barrier
     bmu_next = torch.empty((B,), dtype=torch.int32, device=dev)
     _build.call("somvq_som_vmem_steps", codes.data_ptr(), noc, D,
                 batches.data_ptr(), K, B, bmu0.data_ptr(), aw.data_ptr(),
                 rr.data_ptr(), tail.data_ptr(), int(xdim), int(bool(hexa)),
-                int(bool(gaussian)), keys.data_ptr(), bar.data_ptr(),
-                bmu_next.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                int(bool(gaussian)), k7_rows(noc, D, dev), xs.data_ptr(),
+                keys.data_ptr(), bar.data_ptr(), bmu_next.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     som_vmem_train_steps.launches += 1
     return codes, bmu_next
 

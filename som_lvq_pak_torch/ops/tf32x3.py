@@ -1,6 +1,7 @@
 """A plain emulation of the split-TF32 ("3xTF32") products that K1, K2, K3,
-K4, K6, K11, K13, K14, K16 and K17 run on the tensor cores (csrc/tf32x3.cuh),
-for the tests and chip_smoke.py.  No main-path code calls it.
+K4, K6, K7, K8, K11, K13, K14, K16 and K17 run on the tensor cores
+(csrc/tf32x3.cuh), for the tests and chip_smoke.py.  No main-path code calls
+it.
 
 A float32 operand a is split as hi = tf32(a), lo = tf32(a - hi), where
 tf32() rounds to the nearest value with 10 mantissa bits, ties away from
@@ -12,15 +13,19 @@ them to float32 rounding, not bit for bit.
 `som_fused_train_step_tf32x3`, `dist_argmin_t_tf32x3`, `dist_argmin_tf32x3`,
 `dist_argmin_masked_tf32x3`, `som_update_masked_tf32x3`,
 `som_neighborhood_accumulate_tf32x3`, `som_fused_factored_step_tf32x3`,
-`som_fused_factored_chunked_step_tc`, `fused_step_skeleton_tf32x3` and
-`f32_winner_probe_tf32x3` are the plain K3, K2, K1, K4, K6, K11, K13, K14's
-main form, K17 and K16 with their contractions through `tf32x3_mm` (K4's
+`som_fused_factored_chunked_step_tc`, `fused_step_skeleton_tf32x3`,
+`f32_winner_probe_tf32x3`, `dist_top2_tf32x3` and
+`som_vmem_train_steps_tf32x3` are the plain K3, K2, K1, K4, K6, K11, K13,
+K14's main form, K17, K16, K8 and K7 with their contractions through
+`tf32x3_mm` (K4's
 keep.(m o m) and K6's weight mass through two products, the lo part then the
 hi part, keep being exact in TF32; K14's under batch_bf16 and K17's bf16
 operands through one `tf32_mm` pass, a bf16 value being exact in TF32),
 summed as the kernels sum: the numeric design the kernels implement, held to
 the port's gates on the CPU.  K11 is K3's update half: its sums of a row are
-the ones K3's emulation blends into that row, bit for bit.
+the ones K3's emulation blends into that row, bit for bit.  K8 scores as K1
+and K7 steps as K3, so their emulations are K1's scoring with a second
+winner and K chained K3 steps.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from .distance import fp32_matmul, keep_of
 from .som_step import _alpha_r, _bf16, guarded_blend, neighborhood_w, separable_w
+from .som_vmem import chain_steps
 
 # the batch chunk over which K3's and K6's updates sum in the mma before
 # adding into float32 registers
@@ -144,6 +150,24 @@ def dist_argmin_tf32x3(x: torch.Tensor, codes: torch.Tensor
     return val, i.to(torch.int32)
 
 
+def dist_top2_tf32x3(x: torch.Tensor, codes: torch.Tensor):
+    """The plain K8 (`dist_top2_plain`) with its scores x.m through
+    `tf32x3_mm`, scored as `dist_argmin_tf32x3` scores: (d1, i1, d2, i2), the
+    two first minima of the partial distance (the lower index on ties), the
+    second found with the first masked out by +inf.  Its first pair is
+    `dist_argmin_tf32x3`'s bit for bit, as K8's is K1's on the card."""
+    m2 = (codes * codes).sum(-1)
+    d = m2[None, :] - 2.0 * tf32x3_mm(x, codes.T)
+    x2 = (x * x).sum(-1)
+    out = []
+    for _ in range(2):
+        i = torch.argmin(d, dim=1, keepdim=True)
+        out += [torch.clamp(d.gather(1, i)[:, 0] + x2, min=0.0),
+                i[:, 0].to(torch.int32)]
+        d.scatter_(1, i, float("inf"))
+    return tuple(out)
+
+
 def dist_argmin_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,
                               mask: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,6 +184,15 @@ def dist_argmin_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,
     x2 = (xk * xk).sum(-1)
     val = torch.clamp(d.gather(1, i[:, None])[:, 0] + x2, min=0.0)
     return val, i.to(torch.int32)
+
+
+def som_vmem_train_steps_tf32x3(codes, batches, bmu0, alphas, radii, xdim, hexa,
+                                gaussian=False, next_first=None):
+    """The plain K7 (`som_vmem_train_steps_plain`) as the kernel sums: K
+    chained `som_fused_train_step_tf32x3` steps.  Returns (the new float32
+    codebook, bmu_next int32); `codes` is not changed."""
+    return chain_steps(som_fused_train_step_tf32x3, codes, batches, bmu0, alphas,
+                       radii, xdim, hexa, gaussian, next_first)
 
 
 def som_fused_factored_chunked_step_tc(codes, xb, bmu, xb_next, xdim, hexa,
