@@ -23,17 +23,19 @@ phases, each printing one JSON line:
 
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
+            one "ptxas" line: registers and spill bytes of each
+            instantiation of K10 and K12, from nvcc's -Xptxas -v report;
             one "sass" line: the HMMA (tensor-core) instructions in each
             instantiation of the tensor-core kernels K3, K2, K1, K4, K6, K7,
-            K8, K11, K13, K14's main form, K16 and K17, from cuobjdump
-            --dump-sass of the library (none fails the run);
+            K10 (K8 its KM 2), K11, K12, K13, K14's main form, K16 and K17, from
+            cuobjdump --dump-sass of the library (none fails the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
             67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3, K2,
-            K1, K4, K6, K7, K8, K11, K13 and K14's main form also with the
-            bound of their route (the TF32 products they issue at 495 TFLOP/s: three
+            K1, K4, K6, K7, K8, K10, K11, K12, K13 and K14's main form also
+            with the bound of their route (the TF32 products they issue at 495 TFLOP/s: three
             per FP32 product, two for K6's weight mass and K4's keep.(m o m),
             one for K14's under batch_bf16) and the share of it they reach,
             and run twice on the same inputs, bit-equal (K5 too).  K1 is
@@ -224,16 +226,22 @@ phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), at 1000 x 999 x 5,
 with every code twice (exact ties: both indices equal the plain version's),
 and at N = 2; K9 with p = 0.1 and fully masked rows; K8 also at D 37 and
 D 130, each shape run twice (bit-equal), its best pair bit-equal to K1's
-(value, index) on the same inputs, with its route's bound (6 B N D).  K10 (dist_topk) at
-the mesh step's shapes (B 1024 and 512 x 32768 x 64, k = 2), small shapes
-at k = 1, 5 and 16, and every code twice; K11 (som_neighborhood_accumulate)
-at a 32768-row shard of the 256x256 map (offset 32768, B 2048), gaussian
-and bubble, hexa and rect, scalar and per-sample alpha, each run twice
+(value, index) on the same inputs, with its route's bound (6 B N D).  K10
+(dist_topk) at the mesh step's shapes (B 512 and 1024 x 32768 x 64, k = 2),
+K8's shapes at k = 2 (its pairs K8's bit for bit: K8 is this kernel at
+k = 2, launched through dist_top2's wrapper), the mesh rank's shape at
+k = 4, 8 and 16 (one "k10_km" line: the time of each list width KM beside
+its ptxas spills), small shapes at k = 1, 5 and 16, and every code twice;
+each run twice (bit-equal), its column 0 K1's (value, index) bit for bit,
+with its route's bound (6 B N D); K11 (som_neighborhood_accumulate) at a
+32768-row shard of the 256x256 map (offset 32768, B 2048), gaussian and
+bubble, hexa and rect, scalar and per-sample alpha, each run twice
 (bit-equal), with its route's bound; K12 (som_blend_winner) at that shard
-with B' 2048 and 4096 and with every row twice, and K11 then K12 equal to
-K3 bit for bit on one shard; K3 on each half of the
-256x256 map with its unit offset against the unsharded run; K1 at the
-mesh's B 512 x 32768.
+with B' 2048 and 4096 and with every row twice, each run twice (bit-equal),
+with its route's bound (6 n_local B' D); K3 on each half of the 256x256 map
+with its unit offset against the unsharded run, and K11 then K12 on one
+half equal to that half's K3 step bit for bit (codebook, values and
+winners); K1 at the mesh's B 512 x 32768.
 
 Each main-path run (4-17) sets every launch counter to 0 before it and
 reads them after: each kernel of that path must have launched, and the
@@ -274,18 +282,20 @@ PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32: K3, K2,
 # K1 (K2's body under its own name), K4 (K1's CTA shape with the keep
-# contraction), K6, K11 (K3's update half), K13 (K3's body with the separable
-# W), K14's main form (K13's body; one TF32 product under batch_bf16), K16
-# (K2's body without the norm), K17 (its bf16 twin as one TF32 product), K8
-# (K1's body with a top-2 fold) and K7 (K3's step body on the resident
-# codebook)
+# contraction), K6, K11 (K3's update half), K12 (K3's blend-and-winner
+# half), K13 (K3's body with the separable W), K14's main form (K13's body;
+# one TF32 product under batch_bf16), K16 (K2's body without the norm), K17
+# (its bf16 twin as one TF32 product), K10 (K1's body with a top-k fold;
+# K8 is its instantiation at KM 2, launched at k = 2) and K7 (K3's step body
+# on the resident codebook)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
                       "dist_argmin_kernel", "dist_argmin_masked_kernel",
                       "som_update_masked_kernel", "som_accum_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel",
-                      "dist_top2_kernel", "som_vmem_steps_kernel")
+                      "som_vmem_steps_kernel", "som_blend_winner_kernel",
+                      "dist_topk_kernel")
 
 # K16 on normal float32 inputs: within this relative gap of the float64
 # maximum (split TF32 is about 2^-21 relative per product, float32 sums of 64)
@@ -371,30 +381,52 @@ def library_winners(x, codes, form, k=2, mask=None):
 
 def sass_hmma(library: str) -> dict:
     """Tensor-core use of the split-TF32 kernels (SPLIT_TF32_KERNELS), read
-    from the built library's SASS with
-    cuobjdump (ncu does not run on every host): the HMMA instructions in
-    each of their instantiations, by mangled name from the kernel's name on.
-    Raises if an instantiation has none, or if none is found."""
-    from som_lvq_pak_torch import _build
+    from the built library's SASS with cuobjdump (tools.sass_diff; ncu does
+    not run on every host): the HMMA instructions in each of their
+    instantiations, by mangled name from the kernel's name on.  Raises if
+    an instantiation has none, or if none is found."""
+    from som_lvq_pak_torch.tools.sass_diff import sass
 
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True,
-                          text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            base = [b for b in SPLIT_TF32_KERNELS if b in name]
-            fn = name[name.index(base[0]):] if base else None
-            if fn:
-                counts[fn] = 0
-        elif fn and "HMMA" in line:
-            counts[fn] += 1
+    counts = {}
+    for name, insns in sass(library).items():
+        base = [b for b in SPLIT_TF32_KERNELS if b in name]
+        if base:
+            counts[name[name.index(base[0]):]] = sum("HMMA" in i for i in insns)
     for base in SPLIT_TF32_KERNELS:
         found = {k: v for k, v in counts.items() if k.startswith(base)}
         if not found or not all(found.values()):
             raise AssertionError(f"{base}: no HMMA instructions in the SASS: {found}")
     return counts
+
+
+def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel")) -> dict:
+    """Registers and spill bytes of each instantiation of the kernels named,
+    from nvcc's -Xptxas -v report (the build's log): {"name<args>":
+    {"registers", "spill_stores", "spill_loads"}}."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            base = next((b for b in bases if b in name), None)
+            fn = None
+            if base:
+                args = re.search(base + r"I((?:Li\d+E)+)E", name)
+                targs = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                fn = base + (f"<{','.join(targs)}>" if targs else "")
+                out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def check_winners(name, x, codes, ik, ip, rel=1e-5, mask=None, bf16_score=False,
@@ -1493,14 +1525,28 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
     return rec
 
 
+def bits_equal(a, b) -> bool:
+    """The same floats (or integers) bit for bit, -0 and NaN payloads too."""
+    import torch
+
+    a, b = a.contiguous(), b.contiguous()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def phase_topk(B, N, D, k, seed, dup=False, iters=10, library=False):
     """K10 against its plain version (ops.distance.topk_winners): each of
     the k index columns equal except at near-ties, values within 1e-4.  With
     `dup` every code is there twice: every index must equal the plain
-    version's, and each sample's neighbours come as (row, copy) pairs.  With
-    `library`, the library_ms of addmm then topk(k)."""
+    version's, and each sample's neighbours come as (row, copy) pairs.  The
+    kernel runs twice on the same inputs, bit-equal; its column 0 must be
+    K1's (dist_argmin) (value, index) bit for bit and, at k = 2, its columns
+    K8's (dist_top2) pairs.  The record carries its split-TF32 route's bound
+    (6 B N D TF32 FLOPs) and share; with `library`, the library_ms of addmm
+    then topk(k)."""
     import torch
 
+    from som_lvq_pak_torch.ops.dist_argmin import dist_argmin
+    from som_lvq_pak_torch.ops.dist_top2 import dist_top2
     from som_lvq_pak_torch.ops.dist_topk import dist_topk, dist_topk_plain
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1511,9 +1557,21 @@ def phase_topk(B, N, D, k, seed, dup=False, iters=10, library=False):
     else:
         codes = torch.randn((N, D), generator=g, device="cuda")
     vk, ik = dist_topk(x, codes, k)
+    va, ia = dist_topk(x, codes, k)
     vp, ip = dist_topk_plain(x, codes, k)
+    v1, i1 = dist_argmin(x, codes)
+    top2 = dist_top2(x, codes) if k == 2 else None
     torch.cuda.synchronize()
     name = f"dist_topk k={k}"
+    if not (bits_equal(vk, va) and torch.equal(ik, ia)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    if not (bits_equal(vk[:, 0], v1) and torch.equal(ik[:, 0], i1)):
+        raise AssertionError(f"{name}: column 0 is not dist_argmin's (value, index) "
+                             "bit for bit")
+    if top2 is not None and not all(
+            bits_equal(vk[:, c], top2[2 * c]) and torch.equal(ik[:, c], top2[2 * c + 1])
+            for c in (0, 1)):
+        raise AssertionError(f"{name}: the pairs are not dist_top2's bit for bit")
     n_diff = sum(check_winners(f"{name} column {j}", x, codes, ik[:, j], ip[:, j])
                  for j in range(k))
     err = float((vk - vp).abs().max())
@@ -1526,12 +1584,17 @@ def phase_topk(B, N, D, k, seed, dup=False, iters=10, library=False):
         if k >= 2 and not torch.equal(ik[:, 1].long(), ik[:, 0].long() + half):
             raise AssertionError(f"{name}: a copy beat its first row")
     # (B, D) samples and (N, D) codes in, (B, k) values and indices out
-    rec = dict(kernel=name, shape=[B, codes.shape[0], D], k=k, dup=dup,
-               winners_differ=n_diff, max_abs_err=err,
+    rec = dict(kernel=name, shape=[B, codes.shape[0], D], k=k,
+               km=min(m for m in (2, 4, 8, 16) if m >= k), dup=dup,
+               winners_differ=n_diff, max_abs_err=err, bit_equal_rerun=True,
+               column0_bit_equal_to="dist_argmin",
+               **({} if top2 is None else {"bit_equal_to": "dist_top2"}),
                ms=cuda_ms(lambda: dist_topk(x, codes, k), iters),
                plain_ms=cuda_ms(lambda: dist_topk_plain(x, codes, k), iters),
                **bound(2 * B * codes.shape[0] * D,
-                       4 * (B * D + codes.shape[0] * D) + 8 * B * k))
+                       4 * (B * D + codes.shape[0] * D) + 8 * B * k,
+                       route_flops=6 * B * codes.shape[0] * D))
+    rec.update(route_pct(rec))
     if library:
         rec["library_ms"] = cuda_ms(lambda: library_winners(x, codes, "topk", k), iters)
     emit("kernels", **rec)
@@ -1616,7 +1679,10 @@ def phase_blend(n_local, D, Bn, seed, dup=False):
     """K12 against its plain version: the blended shard within 1e-5, the
     next batch's winners equal except at near-ties, values within 1e-4.
     With `dup` every row (and its accumulators) is there twice: the first
-    copy must win every exact tie."""
+    copy must win every exact tie.  Two runs on the same inputs must be
+    bit-equal (codebook, values, winners).  The record carries its
+    split-TF32 route's bound (the scores as three TF32 products, 6 n_local
+    B' D FLOPs) and share."""
     import torch
 
     from som_lvq_pak_torch.ops.som_blend import som_blend_winner, som_blend_winner_plain
@@ -1630,9 +1696,12 @@ def phase_blend(n_local, D, Bn, seed, dup=False):
         codes, acc, wsum = (torch.cat([t, t]).contiguous() for t in (codes, acc, wsum))
     xn = torch.randn((Bn, D), generator=g, device="cuda")
     ck, vk, ik = som_blend_winner(codes.clone(), acc, wsum, xn)
+    ca, va, ia = som_blend_winner(codes.clone(), acc, wsum, xn)
     cp, vp, ip = som_blend_winner_plain(codes.clone(), acc, wsum, xn)
     torch.cuda.synchronize()
     name = f"som_blend_winner {n_local}x{D} B' {Bn}" + (" every row twice" if dup else "")
+    if not (bits_equal(ck, ca) and bits_equal(vk, va) and torch.equal(ik, ia)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
     if not torch.allclose(ck, cp, rtol=1e-5, atol=1e-5):
         raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
     n_diff = check_winners(name, xn, ck, ik, ip)
@@ -1645,9 +1714,12 @@ def phase_blend(n_local, D, Bn, seed, dup=False):
     # written; 2 n_local B' D FLOPs for the scores
     rec = dict(kernel=name, shape=[n_local, Bn, D], dup=dup, winners_differ=n_diff,
                max_abs_err=max(float((ck - cp).abs().max()), float((vk - vp).abs().max())),
+               bit_equal_rerun=True,
                ms=cuda_ms(lambda: som_blend_winner(work, acc, wsum, xn)),
                plain_ms=cuda_ms(lambda: som_blend_winner_plain(work, acc, wsum, xn)),
-               **bound(2 * n_local * Bn * D, 12 * n_local * D + 4 * n_local + 4 * Bn * D + 8 * Bn))
+               **bound(2 * n_local * Bn * D, 12 * n_local * D + 4 * n_local + 4 * Bn * D + 8 * Bn,
+                       route_flops=6 * n_local * Bn * D))
+    rec.update(route_pct(rec))
     rec["library_ms"] = rec["plain_ms"]  # the blend, one mm, argmax: that chain
     emit("kernels", **rec)
     return rec
@@ -1658,9 +1730,9 @@ def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
     unsharded step on the same inputs: K3 with the half's unit offset must
     give the unsharded K3's rows bit for bit, and the gather-min of the two
     halves' winners (global rows, lowest on ties) its winners; K11 then K12
-    on the half (one data shard) must give its K3's rows bit for bit (K11 is
-    K3's update half, K12 blends with K3's guarded_blend), winners equal
-    except at near-ties (K12 scores in the max-score form)."""
+    on the half (one data shard) must give its K3 step's rows, values and
+    winners bit for bit (K11 is K3's update half, K12 its blend-and-winner
+    half)."""
     import torch
 
     from som_lvq_pak_torch.ops.som_accum import som_neighborhood_accumulate
@@ -1683,7 +1755,7 @@ def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
     won = torch.where(vals == best[None], gidx, torch.iinfo(torch.int32).max).min(0).values
     acc, wsum = som_neighborhood_accumulate(xb, bmu, half, xdim, hexa, alpha, radius,
                                             gaussian, unit_offset=half)
-    c12, _, i12 = som_blend_winner(codes[half:].clone(), acc, wsum, xn)
+    c12, v12, i12 = som_blend_winner(codes[half:].clone(), acc, wsum, xn)
     torch.cuda.synchronize()
     name = f"som_fused_train_step {xdim}x{xdim} in two shards"
     shards = torch.cat([c for c, _, _ in parts])
@@ -1692,13 +1764,14 @@ def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
         raise AssertionError(f"{name}: the shards differ from the unsharded step by "
                              f"{float((shards - full).abs().max())}, "
                              f"{int((won != i_full).sum())} winners")
-    k12_diff = float((c12 - parts[1][0]).abs().max())
-    if not torch.equal(c12, parts[1][0]):
-        raise AssertionError(f"{name}: K11 + K12 differ from K3 by {k12_diff}")
-    n_diff = check_winners(f"{name}: K12 against K3", xn, c12, i12, parts[1][1])
+    c3, i3, v3 = parts[1]
+    if not (bits_equal(c12, c3) and bits_equal(v12, v3) and torch.equal(i12, i3)):
+        raise AssertionError(
+            f"{name}: K11 + K12 differ from K3: codebook by "
+            f"{float((c12 - c3).abs().max())}, values by {float((v12 - v3).abs().max())}, "
+            f"{int((i12 != i3).sum())} winners")
     emit("kernels", kernel=name, shape=[noc, B, D], radius=radius,
-         shards_equal_unsharded=True, k11_k12_equal_k3=True,
-         k12_winners_differ_from_k3=n_diff)
+         shards_equal_unsharded=True, k11_k12_bit_equal_k3=["codes", "val", "idx"])
 
 
 def blob_data(seed: int, n: int, n_centres: int):
@@ -2354,9 +2427,8 @@ def mesh_phases(smi, tally, q_masked128):
         spread() of the single-device run from itself on the data moved up
         by one ulp: the mesh codebook's mean and max distance from `codes_1`
         each at most DRIFT_RATIO times that spread's (the mixed step sums each
-        row's accumulators in two halves and scores winners in the
-        max-score form, so it differs from K3 by rounding, and near-tie
-        winner flips carry any rounding difference over the map: the
+        row's accumulators in two halves, so it differs from K3 by rounding,
+        and near-tie winner flips carry any rounding difference over the map: the
         forced drift chain shows the step without flips stays on K3).  The
         record is printed before a failed gate raises."""
         X_dev = torch.from_numpy(X).to("cuda")
@@ -2568,9 +2640,15 @@ def main() -> int:
          card=smi, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    _build.build(verbose=True)  # ptxas register/shared-memory report on stdout
+    built_now = not os.path.exists(_build.library_path())
+    _build.build(verbose=True)  # prints the log, ptxas's report with it
     _build.library()
-    emit("build", seconds=time.perf_counter() - t0, library=_build.library_path())
+    emit("build", seconds=time.perf_counter() - t0, library=_build.library_path(),
+         built_now=built_now)
+    # the report of the build that made this library, this run's or an
+    # earlier one's (built_now says which); empty if that build kept no log
+    ptxas = ptxas_report(_build.build_log())
+    emit("ptxas", card=smi, built_now=built_now, report=ptxas)
     emit("sass", hmma_per_function=sass_hmma(_build.library_path()))
     if sys.argv[1:] == ["--profile"]:
         profile_cells()
@@ -2818,15 +2896,29 @@ def main() -> int:
                                                                for r in rs))
     # K10 at the sharded lvq3 step's shape (B 1024 over (data 2, model 2) is
     # 512 per rank against a 32768-row shard; their record, with library_ms),
-    # the whole batch against the shard, small shapes at k = 1, 5 and 16, and
-    # every code twice
+    # the whole batch against the shard, K8's shapes at k = 2 (the LVQ step,
+    # the masked LVQ cell's, D 37, D 130, N = 2, 1000 x 999 x 5), the rank's
+    # shape at k = 4, 8 and 16 (each list width KM), small shapes at k = 1, 5
+    # and 16, every code twice, N = 17 at k = 16 and D 130 at k = 16
     cases = (((512, 32768, 64), 2, 18, False), ((1024, 32768, 64), 2, 19, False),
+             ((1024, 65536, 64), 2, 61, False), ((1024, 4096, 64), 2, 62, False),
+             ((777, 3001, 37), 2, 63, False), ((1000, 2999, 130), 2, 64, False),
+             ((1000, 2, 5), 2, 65, False), ((1000, 999, 5), 2, 70, False),
+             ((512, 32768, 64), 4, 66, False),
+             ((512, 32768, 64), 8, 67, False), ((512, 32768, 64), 16, 68, False),
              ((1000, 999, 5), 1, 20, False), ((1000, 999, 5), 5, 21, False),
              ((1000, 999, 5), 16, 22, False), ((1000, 998, 5), 2, 23, True),
-             ((1000, 998, 5), 16, 24, True), ((1000, 17, 5), 16, 25, False))
+             ((1000, 998, 5), 16, 24, True), ((1000, 17, 5), 16, 25, False),
+             ((1000, 2999, 130), 16, 69, False))
     rs = [phase_topk(*shape, k, seed=seed, dup=dup, library=j == 0)
           for j, (shape, k, seed, dup) in enumerate(cases)]
     recs["dist_topk"] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    # each list width KM at the rank's shape, beside its instantiations'
+    # registers and spills (D 64: KT 8)
+    emit("k10_km", card=smi, shape=[512, 32768, 64],
+         ms={r["km"]: r["ms"] for r in rs if r["shape"] == [512, 32768, 64]},
+         route_pct={r["km"]: r["route_pct"] for r in rs if r["shape"] == [512, 32768, 64]},
+         ptxas={n: v for n, v in ptxas.items() if n.startswith("dist_topk_kernel<8,")})
     # K11 at the mixed mesh step's shard (rows 32768.. of the 256x256 map,
     # B 4096 over a data axis of 2; their record first)
     rs = [phase_accum(256, hexa, gaussian, 32768, 32768, 2048, 64, radius, per_sample,
@@ -3122,7 +3214,7 @@ def main() -> int:
                                                "som_lvq_pak_tpu/ops/pallas_som.py:152"),
         "som_vmem_train_steps": ("som_lvq_pak_torch/csrc/som_vmem_steps.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:1449"),
-        "dist_top2": ("som_lvq_pak_torch/csrc/dist_top2.cu",
+        "dist_top2": ("som_lvq_pak_torch/csrc/dist_topk.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:295"),
         "dist_top2_masked": ("som_lvq_pak_torch/csrc/dist_top2.cu",
                              "som_lvq_pak_tpu/ops/pallas_distance.py:308"),

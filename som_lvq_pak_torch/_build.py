@@ -39,8 +39,6 @@ _SIGNATURES = {
     "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, splits, keys, val, idx, stream
     "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # x, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
-    "somvq_dist_top2": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
     "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P],
@@ -71,8 +69,8 @@ _SIGNATURES = {
     # unit_offset, xs, acc, wsum, stream
     "somvq_som_accum": [_I, _I, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
                         _P, _P, _P, _P],
-    # codes, n_local, D, acc, wsum, xn, Bn, keys, val, idx, stream
-    "somvq_som_blend_winner": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    # codes, n_local, D, acc, wsum, xn, Bn, xs, keys, val, idx, stream
+    "somvq_som_blend_winner": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     # codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius, stream
     "somvq_som_update": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.c_float, _P],
@@ -138,14 +136,16 @@ def _wait(procs) -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the current sources have no library yet;
-    returns the library's path."""
+    returns the library's path.  The compile log, with ptxas's register and
+    spill report of every kernel, is kept beside the library (`build_log`);
+    `verbose` prints it when a build runs."""
     out = library_path()
     if os.path.exists(out):
         return out
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        flags = [nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+        flags = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v"]
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in sources()]
         log = _wait([_start(flags + ["-c", "-o", o, s])
                      for s, o in zip(sources(), objs)])
@@ -153,8 +153,25 @@ def build(verbose: bool = False) -> str:
         log += _wait([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])])
         if verbose:
             print(log)
+        with open(os.path.join(tmp, "lib.log"), "w") as f:
+            f.write(log)
+        os.replace(os.path.join(tmp, "lib.log"), _log_path(out))
         os.replace(so, out)  # atomic publish: concurrent builds agree
     return out
+
+
+def _log_path(library: str) -> str:
+    return library[:-len(".so")] + ".log"
+
+
+def build_log() -> str:
+    """The compile log of the current sources' library (nvcc's output with
+    `-Xptxas -v`), or "" if it has none."""
+    path = _log_path(library_path())
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 @functools.lru_cache(maxsize=None)

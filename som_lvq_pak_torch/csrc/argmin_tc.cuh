@@ -1,6 +1,6 @@
 // The pieces of the tensor-core winner search shared by K1, K2 and K16
-// (dist_argmin_t.cu), K4 (dist_argmin.cu) and K8 (dist_top2.cu): the CTA
-// shape, the cp.async staging of a codebook tile, the merge of a sample's
+// (dist_argmin_t.cu), K4 (dist_argmin.cu) and K8/K10 (dist_topk.cu): the
+// CTA shape, the cp.async staging of a codebook tile, the merge of a sample's
 // four lanes with the fold across codebook splits, and the unmasked
 // search's shared-memory layout (K2Smem) and split A fragments (load_x).
 //

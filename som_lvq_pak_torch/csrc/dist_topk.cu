@@ -2,186 +2,253 @@
 // with the smallest ||x_b - m_n||^2, ascending, without materialising the
 // (B, N) distance matrix.
 //
-// Replaces som_lvq_pak_tpu/ops/pallas_distance.py:_dist_topk_kernel (wrapper
-// dist_topk): partial distance ||m||^2 - 2 x.m, a running top-k merged tile
-// by tile, ties to the lowest index.  The result is the k smallest (value,
-// index) pairs in lexicographic order, which is what the TPU kernel's
-// re-selection (first minimum of the running entries before the tile's)
-// computes.
+// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+//   * _dist_topk_kernel (wrapper dist_topk): a running top-k merged tile by
+//     tile                                 -> dist_topk_kernel<KT, KM> (K10)
+//   * _dist_top2_kernel (wrapper dist_top2): the running (best, second)
+//     pair                                 -> dist_topk_kernel<KT, 2> at k = 2 (K8)
+// Both score the partial distance ||m||^2 - 2 x.m, ties to the lowest index.
+// The result is the k smallest (value, index) pairs in lexicographic order,
+// which is what the TPU kernels' re-selection (first minimum of the running
+// entries before the tile's) and running merge (_top2_epilogue, strict <,
+// earlier tile kept) compute.
 //
-// Design: K8's (dist_top2.cu) generalised from two to KM in {2, 4, 8, 16}
-// entries, k <= KM chosen at run time.  K8's tiling: one CTA owns TB
-// samples, walks its codebook rows in TN-row tiles staged through shared
-// memory in KC-wide slices of D (any D >= 1, no padding); each of the 256
-// threads owns a 4 x 4 (sample, code) micro-tile and keeps, per sample, a
-// sorted list of KM (value, index) pairs in registers (fully unrolled, so
-// every index is a compile-time constant).  A thread visits its codes in
-// increasing index order, and every insertion and merge compares
-// lexicographically, so threads, warps and CTAs may merge in any order and
-// give the same answer.  The 16 threads of a sample merge their lists by
-// shuffles; the codebook is split across gridDim.y as K8 splits it (about
-// two CTAs per SM), each split writes its k pairs to a scratch, and a second
-// small launch merges the splits.
+// The walk is K1's (argmin_tc.cuh, as in dist_argmin_t.cu) with a top-k
+// fold: one CTA owns kTB = 128 samples, 16 per warp, their A fragments split
+// into TF32 hi and lo in registers for the whole walk (load_x; D > 64 in
+// 64-feature slabs, reloaded per slab); the codebook streams through shared
+// memory in 64-row tiles by a cp.async double buffer, split once at staging,
+// ||m||^2 summed per row there in K1's order; S = x.m^T by split-TF32
+// mma.sync.  Each lane keeps, for each of its two samples, a sorted list of
+// KM in {2, 4, 8, 16} (score, code) pairs, score = x.m - ||m||^2 / 2, k <= KM
+// chosen at run time: it visits its codes in ascending order, so a strict >
+// keeps the lower code of equal scores everywhere in the list.  The four
+// lanes of a sample merge their lists lexicographically by shuffles
+// (merge_lists: the better of each pair of one list and the other reversed,
+// then a bitonic merge).  Values are -2 * the score, exact, -0 folded to +0:
+// the partial distance, bit for bit the value K1 returns for the same code.
+// The codebook is split across gridDim.y as K1's (ops.dist_argmin.k2_splits,
+// whole waves of two CTAs per SM); each split writes its k pairs to a
+// (splits, B, k) scratch the wrapper allocates, and a second small launch
+// merges the splits.  A code's score depends only on its own data and every
+// sum runs in a fixed order, so two runs are bit-equal and column 0 is K1's
+// (value, index), bit for bit.
 //
-// What bounds it on H100: FP32 FMA issue and shared-memory loads (no tensor
-// cores); at large KM, the insertions (KM compares per candidate) and the
-// register lists.
+// What bounds it on H100: the contraction x.m^T (B x N x D), as split-TF32
+// mma.sync (tf32x3.cuh): three TF32 products per float32 product, 6 B N D
+// TF32 FLOPs against the 495 TFLOP/s peak; beside it each candidate's
+// insertion (one compare when it does not enter the list, KM when it does).
+// Registers: the split A fragments (64 at D 64) and S (32) beside the lists
+// (4 KM); KM <= 4 keeps K1's two CTAs per SM, KM 8 and 16 take one CTA per
+// SM and the registers it leaves (the build's ptxas report gives the
+// spills).
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
 
+#include "argmin_tc.cuh"
+
 namespace {
 
-constexpr int TB = 64;        // samples per CTA
-constexpr int TN = 64;        // codebook rows per tile
-constexpr int KC = 32;        // feature slice staged per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
-
-__device__ __forceinline__ bool lex_less(float v, int i, float w, int j) {
-  return v < w || (v == w && i < j);
+// the partial distance of a score: -2 * score (exact), -0 folded to +0
+__device__ __forceinline__ float value_of(float score) {
+  const float v = -2.f * score;
+  return v == 0.f ? 0.f : v;
 }
 
-// insert (d, n) into the sorted list (v, ix) of KM pairs, dropping the last
+// (v, i) into the list (s, j) of KM scores sorted high first, where i is
+// above every code in the list: past every equal score, the last pair
+// dropped
 template <int KM>
-__device__ __forceinline__ void insert(float (&v)[KM], int (&ix)[KM], float d,
-                                       int n) {
+__device__ __forceinline__ void push(float (&s)[KM], int (&j)[KM], float v, int i) {
+  if (!(v > s[KM - 1])) return;
+  bool placed = false;
+#pragma unroll
+  for (int t = KM - 1; t > 0; --t) {
+    const bool up = !placed && v > s[t - 1];
+    if (!placed) {
+      s[t] = up ? s[t - 1] : v;
+      j[t] = up ? j[t - 1] : i;
+    }
+    placed = placed || !up;
+  }
+  if (!placed) {
+    s[0] = v;
+    j[0] = i;
+  }
+}
+
+__device__ __forceinline__ void swap_pair(float& a, int& ai, float& b, int& bi) {
+  const float v = a;
+  const int i = ai;
+  a = b;
+  ai = bi;
+  b = v;
+  bi = i;
+}
+
+// the first KM of the union of two lists sorted by lex_greater on (score,
+// code), over disjoint codes, into (s, j): the better of s[t] and w[KM - 1 -
+// t] for each t holds the first KM as a bitonic sequence, which the
+// half-cleaners sort
+template <int KM>
+__device__ __forceinline__ void merge_lists(float (&s)[KM], int (&j)[KM],
+                                            const float (&w)[KM], const int (&wi)[KM]) {
+#pragma unroll
+  for (int t = 0; t < KM; ++t)
+    if (lex_greater(w[KM - 1 - t], wi[KM - 1 - t], s[t], j[t])) {
+      s[t] = w[KM - 1 - t];
+      j[t] = wi[KM - 1 - t];
+    }
+#pragma unroll
+  for (int h = KM / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int t = 0; t < KM; ++t)
+      if ((t & h) == 0 && lex_greater(s[t + h], j[t + h], s[t], j[t]))
+        swap_pair(s[t], j[t], s[t + h], j[t + h]);
+}
+
+// the k (<= KM) best pairs of codebook rows [n_lo, n_lo + n_span) of split
+// blockIdx.y into pv/pi[(split * B + b) * k + t], as partial distances; the
+// walk is K1's (dist_argmin_t.cu), x stored (B, D)
+template <int KT, int KM>
+__global__ void __launch_bounds__(kThreads, KM <= 4 ? 2 : 1)
+dist_topk_kernel(const float* __restrict__ x, const float* __restrict__ codes, int B,
+                 int N, int D, int n_span, int k, float* __restrict__ pv,
+                 int* __restrict__ pi) {
+  using L = K2Smem<KT>;
+  constexpr int SW = L::SW, DC = L::DC;
+  extern __shared__ __align__(16) float smem[];
+  float* raw0 = smem;
+  float* raw1 = raw0 + kTNC * SW;
+  float* chi = raw1 + kTNC * SW;
+  float* clo = chi + kTNC * DC;
+  float* m2s = clo + kTNC * DC;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b0 = blockIdx.x * kTB + 16 * warp;  // this warp's 16 samples
+  const int n_lo = blockIdx.y * n_span;
+  const int n_hi = min(N, n_lo + n_span);
+  const int nslab = (D + SW - 1) / SW;
+  const int ntiles = (n_hi - n_lo + kTNC - 1) / kTNC;
+  const int nitems = ntiles * nslab;  // item = (tile, slab), slab fastest
+
+  float ahi[KT][4], alo[KT][4];
+  if (nslab == 1) load_x<KT, false>(ahi, alo, x, B, D, b0, 0, lane);
+  // per sample h: the KM best (score, code), sorted
+  float s[2][KM];
+  int j[2][KM];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < KM; ++e) {
+      s[h][e] = -INFINITY;
+      j[h][e] = INT_MAX;
+    }
+  float S[kTNC / 8][4];
+
+  if (nitems > 0) prefetch<KT>(raw0, codes, D, n_lo, n_hi, nslab, 0, tid);
+  for (int i = 0; i < nitems; ++i) {
+    const int n0 = n_lo + (i / nslab) * kTNC, sl = i % nslab;
+    const int rows = min(kTNC, n_hi - n0), width = min(SW, D - sl * SW);
+    float* raw = (i & 1) ? raw1 : raw0;
+    cp_async_wait_all();
+    __syncthreads();  // item i landed; item i - 1's fragments and m2s read
+    if (i + 1 < nitems)
+      prefetch<KT>((i & 1) ? raw0 : raw1, codes, D, n_lo, n_hi, nslab, i + 1, tid);
+    // split: warp w takes rows w, w + 8, ...; ||m||^2 per row over slabs
+    for (int r = warp; r < kTNC; r += kWarps) {
+      float sq = 0.f;
+#pragma unroll
+      for (int f = lane; f < SW; f += 32) {
+        const float v = (r < rows && f < width) ? raw[r * SW + f] : 0.f;
+        float hi, lo;
+        split_tf32(v, hi, lo);
+        chi[r * DC + f] = hi;
+        clo[r * DC + f] = lo;
+        sq += v * v;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      if (lane == 0) m2s[r] = sl == 0 ? sq : m2s[r] + sq;
+    }
+    if (nslab > 1) load_x<KT, false>(ahi, alo, x, B, D, b0, sl, lane);
+    if (sl == 0) {
+#pragma unroll
+      for (int n = 0; n < kTNC / 8; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks) {
+#pragma unroll
+      for (int n = 0; n < kTNC / 8; ++n) {
+        float bhi[2], blo[2];
+        load_b_nk(bhi, chi, DC, 8 * n, 8 * ks, lane);
+        load_b_nk(blo, clo, DC, 8 * n, 8 * ks, lane);
+        mma_tf32x3(S[n], ahi[ks], alo[ks], bhi, blo);
+      }
+    }
+    if (sl == nslab - 1) {
+      // c0 (sample g, code 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8,
+      // 2t + 1): codes ascend with n and q
+#pragma unroll
+      for (int n = 0; n < kTNC / 8; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = 8 * n + 2 * t + (q & 1), h = q >> 1;
+          if (c < rows) push<KM>(s[h], j[h], S[n][q] - 0.5f * m2s[c], n0 + c);
+        }
+    }
+  }
+  cp_async_wait_all();
+
+  // merge the four lanes t of each sample, then write this split's pairs
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      float w[KM];
+      int wi[KM];
+#pragma unroll
+      for (int e = 0; e < KM; ++e) {
+        w[e] = __shfl_xor_sync(0xffffffffu, s[h][e], off);
+        wi[e] = __shfl_xor_sync(0xffffffffu, j[h][e], off);
+      }
+      merge_lists<KM>(s[h], j[h], w, wi);
+    }
+    const int b = b0 + g + 8 * h;
+    if (t == 0 && b < B) {
+      const size_t o = ((size_t)blockIdx.y * B + b) * k;
+#pragma unroll
+      for (int e = 0; e < KM; ++e) {
+        if (e < k) {
+          pv[o + e] = value_of(s[h][e]);
+          pi[o + e] = j[h][e];
+        }
+      }
+    }
+  }
+}
+
+// insert (d, n) into the list (v, ix) of KM pairs sorted by lex_less,
+// dropping the last
+template <int KM>
+__device__ __forceinline__ void insert(float (&v)[KM], int (&ix)[KM], float d, int n) {
   if (!lex_less(d, n, v[KM - 1], ix[KM - 1])) return;
   v[KM - 1] = d;
   ix[KM - 1] = n;
 #pragma unroll
-  for (int t = KM - 1; t > 0; --t) {
-    if (lex_less(v[t], ix[t], v[t - 1], ix[t - 1])) {
-      const float tv = v[t];
-      const int ti = ix[t];
-      v[t] = v[t - 1];
-      ix[t] = ix[t - 1];
-      v[t - 1] = tv;
-      ix[t - 1] = ti;
-    }
-  }
+  for (int t = KM - 1; t > 0; --t)
+    if (lex_less(v[t], ix[t], v[t - 1], ix[t - 1]))
+      swap_pair(v[t], ix[t], v[t - 1], ix[t - 1]);
 }
 
-// the k (<= KM) smallest pairs of codebook rows [n_lo, n_lo + n_span) of
-// split blockIdx.y into pv/pi[(split * B + b) * k + t]
-template <int KM>
-__global__ void __launch_bounds__(THREADS)
-dist_topk_kernel(const float* __restrict__ x, const float* __restrict__ codes,
-                 int B, int N, int D, int n_span, int k,
-                 float* __restrict__ pv, int* __restrict__ pi) {
-  __shared__ float xs[TB][KC + 1];
-  __shared__ float ms[TN][KC + 1];
-  __shared__ float m2s[TN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // code column group: codes tx + 16 j
-  const int ty = tid >> 4;   // sample row group:  samples ty + 16 i
-  const int b0 = blockIdx.x * TB;
-  const int n_lo = blockIdx.y * n_span;
-  const int n_hi = min(N, n_lo + n_span);
-
-  float v[4][KM];
-  int ix[4][KM];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < KM; ++t) {
-      v[i][t] = INFINITY;
-      ix[i][t] = INT_MAX;
-    }
-
-  for (int n0 = n_lo; n0 < n_hi; n0 += TN) {
-    float xm[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xm[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += KC) {
-      __syncthreads();  // everyone is done reading the previous slice / m2s
-      for (int e = tid; e < TB * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC;
-        const int b = b0 + r, kk = k0 + c;
-        xs[r][c] = (b < B && kk < D) ? x[(size_t)b * D + kk] : 0.f;
-      }
-      for (int e = tid; e < TN * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC;
-        const int n = n0 + r, kk = k0 + c;
-        ms[r][c] = (n < n_hi && kk < D) ? codes[(size_t)n * D + kk] : 0.f;
-      }
-      __syncthreads();
-      if (tid < TN) {
-        float s = (k0 == 0) ? 0.f : m2s[tid];
-        for (int c = 0; c < KC; ++c) s += ms[tid][c] * ms[tid][c];
-        m2s[tid] = s;
-      }
-#pragma unroll 4
-      for (int c = 0; c < KC; ++c) {
-        float xv[4], mv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[ty + 16 * i][c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mv[j] = ms[tx + 16 * j][c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xm[i][j] += xv[i] * mv[j];
-      }
-    }
-    __syncthreads();  // m2s of this tile is complete
-
-    // codes tx + 16 j visited in increasing index order
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < n_hi) {
-        const float m2 = m2s[tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float d = m2 - 2.f * xm[i][j];
-          d = (d == 0.f) ? 0.f : d;  // -0 -> +0
-          insert<KM>(v[i], ix[i], d, n);
-        }
-      }
-    }
-  }
-
-  // merge the 16 threads (one half-warp) that share each sample: take the
-  // partner's whole list first, then insert it
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      float w[KM];
-      int wi[KM];
-#pragma unroll
-      for (int t = 0; t < KM; ++t) {
-        w[t] = __shfl_xor_sync(0xffffffffu, v[i][t], off);
-        wi[t] = __shfl_xor_sync(0xffffffffu, ix[i][t], off);
-      }
-#pragma unroll
-      for (int t = 0; t < KM; ++t) insert<KM>(v[i], ix[i], w[t], wi[t]);
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int b = b0 + ty + 16 * i;
-      if (b >= B) continue;
-      const size_t o = ((size_t)blockIdx.y * B + b) * k;
-#pragma unroll
-      for (int t = 0; t < KM; ++t) {
-        if (t < k) {
-          pv[o + t] = v[i][t];
-          pi[o + t] = ix[i][t];
-        }
-      }
-    }
-  }
-}
-
-// fold the `splits` partial lists of each sample
+// fold the `splits` partial lists of each sample, in split order
 template <int KM>
 __global__ void topk_merge_splits(const float* __restrict__ pv,
                                   const int* __restrict__ pi, int B, int k,
@@ -209,17 +276,22 @@ __global__ void topk_merge_splits(const float* __restrict__ pv,
   }
 }
 
-template <int KM>
+template <int KT, int KM>
 int launch(const float* x, const float* codes, int B, int N, int D, int k,
            int splits, float* pv, int* pi, float* vo, int* io,
            cudaStream_t stream) {
+  const size_t smem = K2Smem<KT>::bytes();
+  cudaError_t err = cudaFuncSetAttribute(dist_topk_kernel<KT, KM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
   // `splits` spans of whole tiles; the grid holds the non-empty ones
-  const int n_tiles = (N + TN - 1) / TN;
-  const int n_span = ((n_tiles + splits - 1) / splits) * TN;
+  const int n_tiles = (N + kTNC - 1) / kTNC;
+  const int n_span = ((n_tiles + splits - 1) / splits) * kTNC;
   const int used = (N + n_span - 1) / n_span;
-  const dim3 grid((B + TB - 1) / TB, used);
-  dist_topk_kernel<KM><<<grid, THREADS, 0, stream>>>(x, codes, B, N, D, n_span,
-                                                     k, pv, pi);
+  const dim3 grid((B + kTB - 1) / kTB, used);
+  dist_topk_kernel<KT, KM><<<grid, kThreads, smem, stream>>>(x, codes, B, N, D, n_span,
+                                                             k, pv, pi);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   topk_merge_splits<KM><<<(B + 255) / 256, 256, 0, stream>>>(pv, pi, B, k, used,
@@ -227,17 +299,28 @@ int launch(const float* x, const float* codes, int B, int N, int D, int k,
   return (int)cudaGetLastError();
 }
 
+template <int KM>
+int launch_km(const float* x, const float* codes, int B, int N, int D, int k,
+              int splits, float* pv, int* pi, float* vo, int* io,
+              cudaStream_t stream) {
+  const int k8 = (D + 7) / 8;
+  if (k8 <= 1) return launch<1, KM>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+  if (k8 <= 2) return launch<2, KM>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+  if (k8 <= 4) return launch<4, KM>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+  return launch<8, KM>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+}
+
 }  // namespace
 
-// pv/pi: (splits, B, k) scratch; vo/io: (B, k) outputs, vo the partial
-// distances ||m||^2 - 2 x.m, ascending
+// K10, and K8 at k = 2; pv/pi: (splits, B, k) scratch; vo/io: (B, k)
+// outputs, vo the partial distances ||m||^2 - 2 x.m, ascending
 extern "C" int somvq_dist_topk(const float* x, const float* codes, int B, int N,
                                int D, int k, int splits, float* pv, int* pi,
                                float* vo, int* io, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || D <= 0 || k < 1 || k > 16 || k > N || splits < 1)
     return (int)cudaErrorInvalidValue;
-  if (k <= 2) return launch<2>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
-  if (k <= 4) return launch<4>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
-  if (k <= 8) return launch<8>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
-  return launch<16>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+  if (k <= 2) return launch_km<2>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+  if (k <= 4) return launch_km<4>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+  if (k <= 8) return launch_km<8>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
+  return launch_km<16>(x, codes, B, N, D, k, splits, pv, pi, vo, io, stream);
 }

@@ -2,9 +2,11 @@
 // W from the closed form), K13 and K14's main form (som_fused_factored.cu
 // and som_fused_chunked_tc.cuh, W from the separable tables): batch t's
 // neighbourhood update, then batch t+1's winners against the updated rows,
-// in one pass over the codebook.  Its update half runs alone as K11
-// (som_accum.cu: the accumulators of a model shard, written out for the
-// mixed mesh step).  The kernels differ only in how a W value is built,
+// in one pass over the codebook.  Its two halves run alone in the mixed mesh
+// step: the update half (fused_update_tc) as K11 (som_accum.cu: the
+// accumulators of a model shard, written out), the blend and winners
+// (fused_blend_winners_tc) as K12 (som_blend_winner.cu, on the accumulators
+// summed over the data axis).  The kernels differ only in how a W value is built,
 // which a weight policy (ClosedFormW below, SeparableW in separable_w.cuh)
 // supplies:
 //
@@ -75,8 +77,9 @@
 // Determinism.  Every sum runs in a fixed order inside one CTA: no split of
 // the batch across CTAs, no float atomics.  A row's arithmetic depends only
 // on its own data and its unit, not on the tile or shard that holds it (for
-// a given CTA height), so two runs are bit-equal, and K11's accumulators of
-// a row are the very floats K3 blends into it.
+// a given CTA height), so two runs are bit-equal, K11's accumulators of a
+// row are the very floats K3 blends into it, and K12 blending them gives
+// K3's rows, winners and values bit for bit.
 
 #pragma once
 
@@ -347,33 +350,24 @@ __device__ __forceinline__ void fused_update_tc(float (&acc)[NT][4], float (&wsu
   }
 }
 
-// The step on rows r0 = blockIdx.x * TN.. of the codebook; `wp` builds W.
-// xs holds the batches xb (B, D) and xn (Bn, D) as split_batches_kernel
-// wrote them (its kBf16 form under kBf16)
-template <int NT, int WARPS, bool kBf16, typename CT, typename WP>
-__device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, int D,
-                                              const float* __restrict__ xs, int B,
-                                              int Bn, unsigned long long* __restrict__ keys,
-                                              WP& wp) {
+// The blend and winners of rows r0..r0 + TN - 1: each row's guarded blend of
+// its (acc, wsum), in fused_update_tc's register layout, written IN PLACE,
+// then the next batch's winners against the blended rows, folded into
+// `keys`.  xn_hi, xn_lo: the next batch as split_batches_kernel wrote it
+// (xn_lo unread under kBf16).  Uses the winner region of shared memory, which
+// must be free: nothing else of the CTA may read or write it any more.  K12
+// (som_blend_winner.cu) runs it alone on accumulators K11 wrote out.
+template <int NT, int WARPS, bool kBf16, typename CT>
+__device__ __forceinline__ void fused_blend_winners_tc(
+    const float (&acc)[NT][4], const float (&wsum)[2], CT* __restrict__ codes, int noc,
+    int D, const float* __restrict__ xn_hi, const float* __restrict__ xn_lo, int Bn,
+    unsigned long long* __restrict__ keys, int r0) {
   using L = FusedSmem<NT, WARPS, kBf16>;
   constexpr int DP = L::DP, TN = L::TN, BW = L::BW;
   constexpr int THREADS = 32 * WARPS;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * TN;
-  // the split arrays: the planes of (Bp, DP), then of (Bnp, DP)
-  const size_t Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
-  const float* xb_hi = xs;
-  const float* xb_lo = xs + Bp * DP;
-  const float* xn_hi = xs + L::P * Bp * DP;
-  const float* xn_lo = xn_hi + Bnp * DP;
-
-  // ---- update: acc = W.X, wsum = W.1 ----------------------------------------
-  float acc[NT][4];
-  float wsum[2];
-  fused_update_tc<NT, WARPS, kBf16>(acc, wsum, xb_hi, xb_lo, B, r0, wp);
-  __syncthreads();  // every fragment read: the update region is free
 
   // ---- guarded blend, written in place; the tile kept split ---------------
   float* thi = smem;
@@ -508,6 +502,35 @@ __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, i
       if (b < Bn && bi != INT_MAX) fold_key(keys + b, bv, bi);
     }
   }
+}
+
+// The step on rows r0 = blockIdx.x * TN.. of the codebook; `wp` builds W.
+// xs holds the batches xb (B, D) and xn (Bn, D) as split_batches_kernel
+// wrote them (its kBf16 form under kBf16)
+template <int NT, int WARPS, bool kBf16, typename CT, typename WP>
+__device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, int D,
+                                              const float* __restrict__ xs, int B,
+                                              int Bn, unsigned long long* __restrict__ keys,
+                                              WP& wp) {
+  using L = FusedSmem<NT, WARPS, kBf16>;
+  constexpr int DP = L::DP;
+  const int r0 = blockIdx.x * L::TN;
+  // the split arrays: the planes of (Bp, DP), then of (Bnp, DP)
+  const size_t Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
+  const float* xb_hi = xs;
+  const float* xb_lo = xs + Bp * DP;
+  const float* xn_hi = xs + L::P * Bp * DP;
+  const float* xn_lo = xn_hi + Bnp * DP;
+
+  // ---- update: acc = W.X, wsum = W.1 ----------------------------------------
+  float acc[NT][4];
+  float wsum[2];
+  fused_update_tc<NT, WARPS, kBf16>(acc, wsum, xb_hi, xb_lo, B, r0, wp);
+  __syncthreads();  // every fragment read: the update region is free
+
+  // ---- the blend, then the next batch's winners --------------------------
+  fused_blend_winners_tc<NT, WARPS, kBf16>(acc, wsum, codes, noc, D, xn_hi, xn_lo, Bn,
+                                           keys, r0);
 }
 
 }  // namespace

@@ -5,169 +5,117 @@
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_blend_winner_kernel
 // (wrapper som_blend_winner).
 //
-// Blend.  One CTA owns TN rows: c' = c + min(wsum, 1) * (acc / max(wsum,
-// 1e-30) - c) (som_grid.cuh's guarded_blend, as K3), written IN PLACE and
-// kept in shared memory; each CTA reads and writes only its own rows.
+// K12 is the blend-and-winner half of K3 (fused_step_tc.cuh:
+// fused_blend_winners_tc) on accumulators read from device memory, as K11 is
+// its update half with them written out.  Each thread loads its rows' acc in
+// the mma's C layout (row 16 w + g + 8 h, column 8 j + 2 t + (q & 1) of
+// n-tile j) and its two rows' wsum, then runs K3's half: c + min(wsum, 1) *
+// (acc / max(wsum, 1e-30) - c) (guarded_blend) written IN PLACE, the blended
+// rows split into TF32 hi and lo in shared memory with their ||m||^2 (fixed
+// order), the next batch (split once by K3's split_batches_kernel) scored in
+// 64-sample chunks (32 past D 128) by split-TF32 mma.sync, d = ||m||^2 - 2 S,
+// each sample's (min, first row) over the CTA's rows folded across CTAs by
+// the packed-u64 atomicMin (argmin_keys.cuh): the lowest local row among
+// equal values, in any CTA order.  d is -2 fl(S - ||m||^2 / 2) exactly, the
+// TPU kernel's max-score value.  K3's CTA height (128 rows, 64 past D 128):
+// K11 then K12 on a shard give K3's rows, values and winners on that shard
+// bit for bit, and two runs are bit-equal.
 //
-// Winners, in the max-score form of the TPU kernel: score = x.m - ||m||^2 / 2
-// with ||m||^2 over the row's D columns (the port never pads D, so these are
-// the TPU kernel's d_real lanes), strict > over rows in ascending order, and
-// the reported value is -2 * score.  Across CTAs each sample's (-2 * score,
-// local row) pair is folded with K3's packed-u64 atomicMin
-// (argmin_keys.cuh): -2 * score is an exact, order-reversing scaling, so the
-// smallest key is the largest score with the lowest row on ties; -0 is
-// folded to +0.  The next batch is walked in BC-sample chunks, so any B'
-// works (the TPU wrapper's 2048-lane batch chunk is a VMEM device, not
-// needed here).
-//
-// What bounds it on H100: FP32 FMA issue and shared-memory loads (no tensor
-// cores); device memory traffic is the shard's codes, acc and wsum read and
-// the codes written once, the next batch re-read from L2 by every CTA.
+// What bounds it on H100: the scores tile.X'^T (n_local x B' x D), 2 n_local
+// B' D FLOPs, issued as three TF32 products each (6 n_local B' D at 495
+// TFLOP/s).  Device memory traffic is the shard's codes, acc and wsum read
+// and the codes written once, the split next batch read from L2 by every CTA.
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
-#include <cstdint>
-
-#include "argmin_keys.cuh"
-#include "som_grid.cuh"
+#include "fused_step_tc.cuh"
 
 namespace {
 
-// Shared memory: tile[TN][D] | xs[BC][DS] | m2h[TN] | redv[THREADS] |
-//                redi[THREADS]
-size_t smem_bytes(int D) {
-  const int DS = D | 1;
-  return sizeof(float) * ((size_t)TN * D + (size_t)BC * DS + TN + THREADS) +
-         sizeof(int) * THREADS;
-}
-
-template <int NJ>
-__global__ void __launch_bounds__(THREADS)
+template <int NT>
+__global__ void __launch_bounds__(32 * k3_warps(NT), NT <= 8 ? 2 : 1)
 som_blend_winner_kernel(float* __restrict__ codes, int n_local, int D,
-                        const float* __restrict__ acc,
-                        const float* __restrict__ wsum,
-                        const float* __restrict__ xn, int Bn,
+                        const float* __restrict__ acc_in,
+                        const float* __restrict__ wsum_in,
+                        const float* __restrict__ xs, int Bn,
                         unsigned long long* __restrict__ keys) {
-  extern __shared__ float smem[];
-  const int DS = D | 1;
-  float* tile = smem;
-  float* xs = tile + TN * D;
-  float* m2h = xs + BC * DS;
-  float* redv = m2h + TN;
-  int* redi = reinterpret_cast<int*>(redv + THREADS);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * TN;
-
-  // ---- guarded blend, written in place and kept in shared memory ---------
+  constexpr int WARPS = k3_warps(NT), DP = 8 * NT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * 16 * WARPS;
+  float acc[NT][4];
+  float wsum[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = warp * 4 + i, u = r0 + r;
-    const float ws = (u < n_local) ? wsum[u] : 0.f;
-    float sq = 0.f;
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int k = lane + 32 * j;
-      if (k < D) {
-        float nc = 0.f;
-        if (u < n_local) {
-          const size_t g = (size_t)u * D + k;
-          nc = guarded_blend(codes[g], acc[g], ws);
-          codes[g] = nc;
-        }
-        tile[r * D + k] = nc;
-        sq += nc * nc;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    if (lane == 0) m2h[r] = 0.5f * sq;
-  }
-
-  // ---- next batch's max-score winners against the blended tile -----------
-  // thread (warp, lane): rows 4 warp..4 warp+3 against sample lane
-  for (int s0 = 0; s0 < Bn; s0 += BC) {
-    __syncthreads();  // tile/m2h written; previous chunk's reduction read
-    for (int e = tid; e < BC * D; e += THREADS) {
-      const int s = e / D, k = e % D;
-      xs[s * DS + k] = (s0 + s < Bn) ? xn[(size_t)(s0 + s) * D + k] : 0.f;
-    }
-    __syncthreads();
-    float dot[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < D; ++k) {
-      const float xv = xs[lane * DS + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dot[i] += tile[(warp * 4 + i) * D + k] * xv;
-    }
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = warp * 4 + i;
-      if (r0 + r < n_local) {
-        const float s = dot[i] - m2h[r];
-        if (s > bv) {  // rows ascend with i: strict > keeps the first
-          bv = s;
-          bi = r0 + r;
-        }
-      }
-    }
-    redv[warp * 32 + lane] = bv;
-    redi[warp * 32 + lane] = bi;
-    __syncthreads();
-    if (warp == 0) {
-      for (int w = 1; w < THREADS / 32; ++w) {  // rows ascend with w
-        const float v = redv[w * 32 + lane];
-        if (v > bv) {
-          bv = v;
-          bi = redi[w * 32 + lane];
-        }
-      }
-      const int b = s0 + lane;
-      if (b < Bn && bi != INT_MAX) fold_key(keys + b, -2.f * bv, bi);
+    for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+      const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
+      acc[j][q] = (k < D && u < n_local) ? acc_in[(size_t)u * D + k] : 0.f;
     }
   }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int u = r0 + 16 * warp + g + 8 * h;
+    wsum[h] = u < n_local ? wsum_in[u] : 0.f;
+  }
+  const size_t Bnp = (Bn + 63) / 64 * 64;
+  fused_blend_winners_tc<NT, WARPS, false>(acc, wsum, codes, n_local, D, xs,
+                                           xs + Bnp * DP, Bn, keys, r0);
 }
 
-template <int NJ>
+// the next batch split once (into xs), then the blend and winners
+template <int NT>
 int launch_blend(float* codes, int n_local, int D, const float* acc,
-                 const float* wsum, const float* xn, int Bn,
+                 const float* wsum, const float* xn, int Bn, float* xs,
                  unsigned long long* keys, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  using L = FusedSmem<NT, k3_warps(NT)>;
+  const size_t smem = sizeof(float) * L::winner_floats();
   cudaError_t err = cudaFuncSetAttribute(
-      som_blend_winner_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      som_blend_winner_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  som_blend_winner_kernel<NJ><<<(n_local + TN - 1) / TN, THREADS, smem, stream>>>(
-      codes, n_local, D, acc, wsum, xn, Bn, keys);
+  const int rc = split_batches(nullptr, 0, xn, Bn, D, L::DP, xs, stream);
+  if (rc) return rc;
+  som_blend_winner_kernel<NT>
+      <<<(n_local + L::TN - 1) / L::TN, 32 * k3_warps(NT), smem, stream>>>(
+          codes, n_local, D, acc, wsum, xs, Bn, keys);
   return (int)cudaGetLastError();
+}
+
+int launch_any(float* codes, int n_local, int D, const float* acc, const float* wsum,
+               const float* xn, int Bn, float* xs, unsigned long long* keys,
+               cudaStream_t stream) {
+  const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
+#define K12_LAUNCH(NT) \
+  if (k8 <= NT) return launch_blend<NT>(codes, n_local, D, acc, wsum, xn, Bn, xs, keys, stream);
+  K12_LAUNCH(1)
+  K12_LAUNCH(2)
+  K12_LAUNCH(4)
+  K12_LAUNCH(8)
+  K12_LAUNCH(16)
+  K12_LAUNCH(32)
+#undef K12_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // codes (n_local, D) updated in place; acc (n_local, D), wsum (n_local,);
-// keys: (Bn,) u64 scratch; val gets -2 * best score, idx the local row
+// xs scratch for the split next batch: 2 Bnp DP floats (Bn rounded up to a
+// multiple of 64, DP 8 times the power of two of 8-feature steps that covers
+// D); keys: (Bn,) u64 scratch; val gets the partial distance ||m||^2 - 2 x.m
+// (-2 * the best score), idx the local row
 extern "C" int somvq_som_blend_winner(float* codes, int n_local, int D,
                                       const float* acc, const float* wsum,
-                                      const float* xn, int Bn,
+                                      const float* xn, int Bn, float* xs,
                                       unsigned long long* keys, float* val,
                                       int* idx, cudaStream_t stream) {
-  if (n_local <= 0 || D <= 0 || D > MAX_D || Bn <= 0)
+  if (n_local <= 0 || D <= 0 || D > MAX_D || Bn <= 0 || !xs)
     return (int)cudaErrorInvalidValue;
   init_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  const int nj = (D + 31) / 32;
-  if (nj <= 1)
-    rc = launch_blend<1>(codes, n_local, D, acc, wsum, xn, Bn, keys, stream);
-  else if (nj <= 2)
-    rc = launch_blend<2>(codes, n_local, D, acc, wsum, xn, Bn, keys, stream);
-  else if (nj <= 4)
-    rc = launch_blend<4>(codes, n_local, D, acc, wsum, xn, Bn, keys, stream);
-  else
-    rc = launch_blend<8>(codes, n_local, D, acc, wsum, xn, Bn, keys, stream);
+  rc = launch_any(codes, n_local, D, acc, wsum, xn, Bn, xs, keys, stream);
   if (rc) return rc;
   unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
   return (int)cudaGetLastError();

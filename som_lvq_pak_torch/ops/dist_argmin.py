@@ -132,16 +132,16 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
 
 
 def codebook_splits(B: int, N: int, device: torch.device) -> int:
-    """How many spans of the codebook K8-K10 split across
-    gridDim.y: enough for about two CTAs of 64 samples per SM, at most one
-    64-row tile each."""
+    """How many spans of the codebook K9 splits across gridDim.y: enough
+    for about two CTAs of 64 samples per SM, at most one 64-row tile each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     b_tiles, n_tiles = -(-B // 64), -(-N // 64)
     return max(1, min(n_tiles, -(-2 * sms // b_tiles)))
 
 
 def k2_splits(B: int, N: int, device: torch.device) -> int:
-    """K1's and K2's codebook splits: the rule of `codebook_splits` for their CTAs of
+    """K1's and K2's codebook splits (K8's, K10's and K16's too, on the same
+    walk): the rule of `codebook_splits` for their CTAs of
     128 samples, rounded down to whole waves: exactly two of them fit on an
     SM (their registers), so a count that leaves a partial second wave
     costs a whole one (at B 4096, 9 splits would be 288 CTAs on 264 slots

@@ -21,12 +21,14 @@ The JAX wrapper pads the codebook with +inf norms, so for one code it
 returns a padding row as the second; here fewer than two codes raise
 ValueError (the lvq2.1 window needs two).
 
-A CUDA tensor launches the kernel in `csrc/dist_top2.cu`; a CPU tensor
-runs the plain version beside it.  Any other device raises.  Each wrapper
-counts its kernel launches in its `launches` attribute.  K8 runs K1's
-split-TF32 tensor-core body with a top-2 fold, the codebook split as K1's
-(`k2_splits`), so its best pair is K1's (value, index) bit for bit on the
-same inputs; K9 runs FP32 FMAs on CUDA cores, split by `codebook_splits`.
+A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+Any other device raises.  Each wrapper counts its kernel launches in its
+`launches` attribute.  K8 is K10's kernel at k = 2 (`csrc/dist_topk.cu`,
+launched through `ops.dist_topk._launch`): K1's split-TF32 tensor-core walk
+with a top-k fold, the codebook split as K1's (`k2_splits`), so its best
+pair is K1's (value, index) bit for bit on the same inputs.  K9
+(`csrc/dist_top2.cu`) runs FP32 FMAs on CUDA cores, split by
+`codebook_splits`.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import (_check, _check_mask, _rows_per_chunk, codebook_splits,
-                          k2_splits)
+from .dist_argmin import _check, _check_mask, _rows_per_chunk, codebook_splits
+from .dist_topk import _launch as topk_launch
 from .distance import fp32_matmul, keep_of, mask_bytes
 
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -79,8 +81,7 @@ def dist_top2_plain(x: torch.Tensor, codes: torch.Tensor,
     return tuple(torch.cat(col) for col in zip(*rows))
 
 
-def _launch(entry: str, wrapper, split_rule, x: torch.Tensor,
-            codes: torch.Tensor, m8: Optional[torch.Tensor]) -> Top2:
+def _launch_masked(x: torch.Tensor, codes: torch.Tensor, m8: torch.Tensor) -> Top2:
     x = x.contiguous()
     codes = codes.contiguous()
     B, D = x.shape
@@ -91,16 +92,16 @@ def _launch(entry: str, wrapper, split_rule, x: torch.Tensor,
     i1, i2 = torch.empty((B,), **i32), torch.empty((B,), **i32)
     if B == 0:
         return v1, i1, v2, i2
-    splits = split_rule(B, N, x.device)
+    splits = codebook_splits(B, N, x.device)
     pv = torch.empty((splits, B, 2), **f32)
     pi = torch.empty((splits, B, 2), **i32)
-    lead = [x.data_ptr()] + ([] if m8 is None else [m8.data_ptr()])
-    _build.call(entry, *lead, codes.data_ptr(), B, N, D, splits, pv.data_ptr(),
-                pi.data_ptr(), v1.data_ptr(), i1.data_ptr(), v2.data_ptr(),
-                i2.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    wrapper.launches += 1
+    _build.call("somvq_dist_top2_masked", x.data_ptr(), m8.data_ptr(),
+                codes.data_ptr(), B, N, D, splits, pv.data_ptr(), pi.data_ptr(),
+                v1.data_ptr(), i1.data_ptr(), v2.data_ptr(), i2.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    dist_top2_masked.launches += 1
     # the kernel returns partial distances; add ||x keep||^2 here
-    xk = x if m8 is None else x * keep_of(m8)
+    xk = x * keep_of(m8)
     x2 = (xk * xk).sum(-1)
     return torch.clamp(v1 + x2, min=0.0), i1, torch.clamp(v2 + x2, min=0.0), i2
 
@@ -114,7 +115,13 @@ def dist_top2(x: torch.Tensor, codes: torch.Tensor,
         return dist_top2_masked(x, codes, mask)
     if _check_top2(x, codes) == "cpu":
         return dist_top2_plain(x, codes)
-    return _launch("somvq_dist_top2", dist_top2, k2_splits, x, codes, None)
+    x = x.contiguous()
+    v, i = topk_launch(x, codes, 2, dist_top2)
+    # the kernel returns partial distances; add ||x||^2 here, summed as
+    # dist_argmin sums it
+    v = torch.clamp(v + (x * x).sum(-1)[:, None], min=0.0).T.contiguous()
+    i = i.T.contiguous()
+    return v[0], i[0], v[1], i[1]
 
 
 def dist_top2_masked(x: torch.Tensor, codes: torch.Tensor,
@@ -125,8 +132,7 @@ def dist_top2_masked(x: torch.Tensor, codes: torch.Tensor,
     _check_mask(x, mask)
     if device == "cpu":
         return dist_top2_plain(x, codes, mask)
-    return _launch("somvq_dist_top2_masked", dist_top2_masked, codebook_splits, x,
-                   codes, mask_bytes(mask))
+    return _launch_masked(x, codes, mask_bytes(mask))
 
 
 dist_top2.launches = 0

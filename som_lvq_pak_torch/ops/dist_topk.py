@@ -13,8 +13,12 @@ there; so does k > N.
 The plain version is ops.distance.topk_winners (k first-minimum argmins of
 the full distance, each pick masked out, never `torch.topk`, which promises
 no order among equal values), its values clamped at 0.  A CUDA tensor
-launches the kernel in `csrc/dist_topk.cu`; a CPU tensor runs the plain
-version.  The wrapper counts its kernel launches in its `launches` attribute.
+launches the kernel in `csrc/dist_topk.cu`: K1's split-TF32 tensor-core walk
+with a top-k fold, the codebook split as K1's (`k2_splits`), so its first
+column is K1's (value, index) bit for bit on the same inputs.  K8
+(`ops.dist_top2.dist_top2` without a mask) launches the same kernel at k =
+2.  A CPU tensor runs the plain version.  The wrapper counts its kernel
+launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import _check, codebook_splits
+from .dist_argmin import _check, k2_splits
 from .distance import topk_winners
 
 
@@ -42,27 +46,40 @@ def dist_topk(x: torch.Tensor, codes: torch.Tensor, k: int
     if not 1 <= k <= 16:
         raise ValueError(f"dist_topk: k={k} out of range (1..16)")
     device = _check(x, codes)
-    B, D = x.shape
     N = codes.shape[0]
     if k > N:
         raise ValueError(f"dist_topk: k={k} > {N} codes")
     if device == "cpu":
         return dist_topk_plain(x, codes, k)
-    x, codes = x.contiguous(), codes.contiguous()
+    x = x.contiguous()
+    vo, io = _launch(x, codes, k, dist_topk)
+    # the kernel returns partial distances; add ||x||^2 here, summed as
+    # dist_argmin sums it
+    return torch.clamp(vo + (x * x).sum(-1)[:, None], min=0.0), io
+
+
+def _launch(x: torch.Tensor, codes: torch.Tensor, k: int, wrapper
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch `somvq_dist_topk` on checked CUDA tensors (x contiguous): the
+    k smallest partial distances ||m||^2 - 2 x.m (B, k) and their int32
+    indices.  K10's wrapper and, at k = 2, K8's (ops.dist_top2) call it;
+    the launch counts on `wrapper.launches`."""
+    codes = codes.contiguous()
+    B, D = x.shape
+    N = codes.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     i32 = dict(dtype=torch.int32, device=x.device)
     vo, io = torch.empty((B, k), **f32), torch.empty((B, k), **i32)
     if B == 0:
         return vo, io
-    splits = codebook_splits(B, N, x.device)
+    splits = k2_splits(B, N, x.device)
     pv = torch.empty((splits, B, k), **f32)
     pi = torch.empty((splits, B, k), **i32)
     _build.call("somvq_dist_topk", x.data_ptr(), codes.data_ptr(), B, N, D, k,
                 splits, pv.data_ptr(), pi.data_ptr(), vo.data_ptr(),
                 io.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    dist_topk.launches += 1
-    # the kernel returns partial distances; add ||x||^2 here
-    return torch.clamp(vo + (x * x).sum(-1, keepdim=True), min=0.0), io
+    wrapper.launches += 1
+    return vo, io
 
 
 dist_topk.launches = 0

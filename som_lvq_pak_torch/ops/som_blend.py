@@ -12,9 +12,12 @@ score = x.m - ||m||^2 / 2, the first (lowest) row of the largest score;
 `val` = -2 * score (the partial distance ||m||^2 - 2 x.m, in this rounding)
 and `idx` the LOCAL row, int32, as the JAX wrapper returns them.
 
-A CUDA tensor launches the kernel in `csrc/som_blend_winner.cu`; a CPU
-tensor runs the plain version below.  The wrapper counts its kernel launches
-in its `launches` attribute.
+A CUDA tensor launches the kernel in `csrc/som_blend_winner.cu`: K3's
+blend-and-winner half (csrc/fused_step_tc.cuh) on the tensor cores, the
+winners in distance form through split-TF32 products, so K11 then K12 on a
+shard give K3's rows, values and winners bit for bit; a CPU tensor runs the
+plain version below.  The wrapper counts its kernel launches in its
+`launches` attribute.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import MAX_D, guarded_blend
+from .som_step import MAX_D, _split_scratch, guarded_blend
 
 
 def som_blend_winner_plain(codes, acc, wsum, xn):
@@ -68,11 +71,12 @@ def som_blend_winner(codes: torch.Tensor, acc: torch.Tensor,
         raise ValueError(f"som_blend_winner: D={D} > {MAX_D}")
     acc, wsum, xn = acc.contiguous(), wsum.contiguous(), xn.contiguous()
     Bn = xn.shape[0]
+    xs = _split_scratch(0, Bn, D, dev)
     keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
     _build.call("somvq_som_blend_winner", codes.data_ptr(), n_local, D,
-                acc.data_ptr(), wsum.data_ptr(), xn.data_ptr(), Bn,
+                acc.data_ptr(), wsum.data_ptr(), xn.data_ptr(), Bn, xs.data_ptr(),
                 keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     som_blend_winner.launches += 1

@@ -14,18 +14,20 @@ them to float32 rounding, not bit for bit.
 `dist_argmin_masked_tf32x3`, `som_update_masked_tf32x3`,
 `som_neighborhood_accumulate_tf32x3`, `som_fused_factored_step_tf32x3`,
 `som_fused_factored_chunked_step_tc`, `fused_step_skeleton_tf32x3`,
-`f32_winner_probe_tf32x3`, `dist_top2_tf32x3` and
-`som_vmem_train_steps_tf32x3` are the plain K3, K2, K1, K4, K6, K11, K13,
-K14's main form, K17, K16, K8 and K7 with their contractions through
+`f32_winner_probe_tf32x3`, `dist_top2_tf32x3`,
+`som_vmem_train_steps_tf32x3`, `som_blend_winner_tf32x3` and
+`dist_topk_tf32x3` are the plain K3, K2, K1, K4, K6, K11, K13, K14's main
+form, K17, K16, K8, K7, K12 and K10 with their contractions through
 `tf32x3_mm` (K4's
 keep.(m o m) and K6's weight mass through two products, the lo part then the
 hi part, keep being exact in TF32; K14's under batch_bf16 and K17's bf16
 operands through one `tf32_mm` pass, a bf16 value being exact in TF32),
 summed as the kernels sum: the numeric design the kernels implement, held to
-the port's gates on the CPU.  K11 is K3's update half: its sums of a row are
-the ones K3's emulation blends into that row, bit for bit.  K8 scores as K1
-and K7 steps as K3, so their emulations are K1's scoring with a second
-winner and K chained K3 steps.
+the port's gates on the CPU.  K11 is K3's update half and K12 its blend and
+winners: K11's sums of a row are the ones K3's emulation blends into that
+row, and K12's emulation blending them gives K3's rows, winners and values,
+bit for bit.  K8 and K10 score as K1 and K7 steps as K3, so their emulations
+are K1's scoring with a second winner or k of them, and K chained K3 steps.
 """
 
 from __future__ import annotations
@@ -125,6 +127,18 @@ def som_fused_train_step_tf32x3(codes, xb, bmu, xb_next, xdim, hexa, alpha,
     return (newc, *_winners(newc, xb_next))
 
 
+def som_blend_winner_tf32x3(codes, acc, wsum, xn):
+    """The plain K12 (`som_blend_winner_plain`) as the kernel runs it: K3's
+    emulation's second half, the guarded blend, then the winners in distance
+    form with the scores through `tf32x3_mm` (`_winners`).  Returns (the new
+    float32 rows, val (B',), local idx (B',) int32) in the wrapper's order;
+    `codes` is not changed."""
+    fp32_matmul()
+    newc = guarded_blend(codes.to(torch.float32), acc, wsum)
+    idx, val = _winners(newc, xn)
+    return newc, val, idx
+
+
 def dist_argmin_t_tf32x3(x: torch.Tensor, codes: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain K2 (`dist_argmin_t_plain`) with its scores x.m through
@@ -151,21 +165,34 @@ def dist_argmin_tf32x3(x: torch.Tensor, codes: torch.Tensor
 
 
 def dist_top2_tf32x3(x: torch.Tensor, codes: torch.Tensor):
-    """The plain K8 (`dist_top2_plain`) with its scores x.m through
-    `tf32x3_mm`, scored as `dist_argmin_tf32x3` scores: (d1, i1, d2, i2), the
-    two first minima of the partial distance (the lower index on ties), the
-    second found with the first masked out by +inf.  Its first pair is
-    `dist_argmin_tf32x3`'s bit for bit, as K8's is K1's on the card."""
+    """The plain K8 (`dist_top2_plain`) as the kernel scores: K8 is K10's
+    kernel at k = 2, so this is `dist_topk_tf32x3` at k = 2 as (d1, i1, d2,
+    i2), the two first minima of the partial distance (the lower index on
+    ties).  Its first pair is `dist_argmin_tf32x3`'s bit for bit, as K8's is
+    K1's on the card."""
+    v, i = dist_topk_tf32x3(x, codes, 2)
+    return v[:, 0], i[:, 0], v[:, 1], i[:, 1]
+
+
+def dist_topk_tf32x3(x: torch.Tensor, codes: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain K10 (`dist_topk_plain`) with its scores x.m through
+    `tf32x3_mm`, scored as `dist_argmin_tf32x3` scores: (sq_dists (B, k),
+    int32 idx (B, k)), the k first minima of the partial distance in turn
+    (the lower index on ties), each masked out by +inf once taken, then
+    ||x||^2 added and clamped at 0.  Its column 0 is `dist_argmin_tf32x3`'s
+    bit for bit, as K10's is K1's on the card."""
     m2 = (codes * codes).sum(-1)
     d = m2[None, :] - 2.0 * tf32x3_mm(x, codes.T)
-    x2 = (x * x).sum(-1)
-    out = []
-    for _ in range(2):
+    vals, idx = [], []
+    for _ in range(k):
         i = torch.argmin(d, dim=1, keepdim=True)
-        out += [torch.clamp(d.gather(1, i)[:, 0] + x2, min=0.0),
-                i[:, 0].to(torch.int32)]
+        vals.append(d.gather(1, i))
+        idx.append(i)
         d.scatter_(1, i, float("inf"))
-    return tuple(out)
+    x2 = (x * x).sum(-1)[:, None]
+    return (torch.clamp(torch.cat(vals, 1) + x2, min=0.0),
+            torch.cat(idx, 1).to(torch.int32))
 
 
 def dist_argmin_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,

@@ -1,12 +1,15 @@
-"""K3 and K13, the two tensor-core fused steps, timed side by side on one
-tree, with a digest of every output so that two trees can be held bit for
-bit against each other.
+"""The tensor-core fused steps on one step body (csrc/fused_step_tc.cuh):
+K3, K13 and K14's main form, timed side by side on one tree, with a digest
+of every output so that two trees can be held bit for bit against each
+other.
 
     python -m som_lvq_pak_torch.tools.fused_step_ab [--iters 10] [--device cuda]
 
 For each case (map, topology, neighbourhood, B, D, radius): K3
 (`som_fused_train_step(factored=False)`) and, where the case names it, K13
-(`som_fused_factored_step`) on the same inputs, made on the device from
+(`som_fused_factored_step`) and, where B is also a multiple of 128, K14's
+main form (`som_fused_factored_chunked_step`, "k14") and its bf16-batch form
+(`batch_bf16=True`, "k14_bf16") on the same inputs, made on the device from
 seed 4 (codes, both batches and the per-sample alphas from `randn`/`rand`,
 the BMUs from `dist_argmin_plain`, seven samples without one).  For each
 kernel: the mean milliseconds per step over `iters` steps after a warm-up
@@ -27,11 +30,13 @@ import sys
 import torch
 
 from ..ops.dist_argmin import dist_argmin_plain
-from ..ops.som_step import som_fused_factored_step, som_fused_train_step
+from ..ops.som_step import (som_fused_factored_chunked_step, som_fused_factored_step,
+                            som_fused_train_step)
 from .timing import mean_ms, resolve
 
 # (xdim, ydim, hexa, gaussian, B, D, radius, K13 too): the 1M cell's step,
-# K13's main-path shapes, and K3's D 5, ragged D 37 and D 200 cases
+# K13's main-path shapes, and K3's D 5, ragged D 37 and D 200 cases; K14 runs
+# where K13 does and B is a multiple of 128 (its batch chunk)
 CASES = ((256, 256, True, True, 4096, 64, 64.0, False),
          (128, 128, True, True, 1024, 64, 32.0, True),
          (64, 64, True, True, 512, 64, 16.0, True),
@@ -46,6 +51,20 @@ def _k3(*a):
     return som_fused_train_step(*a, factored=False)
 
 
+def _k14_bf16(*a):
+    return som_fused_factored_chunked_step(*a, batch_bf16=True)
+
+
+def kernels(B, k13) -> tuple:
+    """The (name, step) pairs a case runs."""
+    out = (("k3", _k3),)
+    if k13:
+        out += (("k13", som_fused_factored_step),)
+    if k13 and B % 128 == 0:
+        out += (("k14", som_fused_factored_chunked_step), ("k14_bf16", _k14_bf16))
+    return out
+
+
 def _digest(ts) -> str:
     h = hashlib.sha256()
     for t in ts:
@@ -54,7 +73,7 @@ def _digest(ts) -> str:
 
 
 def run_case(xdim, ydim, hexa, gaussian, B, D, radius, k13, dev, iters=10) -> dict:
-    """One case: ms and digest for K3, and for K13 where `k13`."""
+    """One case: ms and digest for each of `kernels(B, k13)`."""
     g = torch.Generator(device=dev).manual_seed(4)
     codes = torch.randn((xdim * ydim, D), generator=g, device=dev)
     xb = torch.randn((B, D), generator=g, device=dev)
@@ -64,7 +83,7 @@ def run_case(xdim, ydim, hexa, gaussian, B, D, radius, k13, dev, iters=10) -> di
     alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device=dev)
     out = dict(case=f"{xdim}x{ydim} {'hexa' if hexa else 'rect'} "
                     f"{'gaussian' if gaussian else 'bubble'} B {B} D {D}")
-    for name, fn in (("k3", _k3), ("k13", som_fused_factored_step))[:2 if k13 else 1]:
+    for name, fn in kernels(B, k13):
         args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
         out[f"{name}_digest"] = _digest(fn(codes.clone(), *args))
         work = codes.clone()

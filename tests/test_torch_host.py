@@ -357,12 +357,16 @@ def test_as_port_dataset_carries_labels_by_name():
 @pytest.mark.parametrize("case", [c for c in fused_step_ab.CASES if c[0] * c[1] <= 256],
                          ids=lambda c: f"{c[0]}x{c[1]}_D{c[5]}")
 def test_fused_step_ab_digests_repeat_on_the_cpu(case):
-    """The K3/K13 A/B tool on the CPU (the plain versions): every kernel of
-    the case is timed and digested, and a second run on the same seed gives
-    the same digests, so equal digests across trees mean equal floats."""
+    """The K3/K13/K14 A/B tool on the CPU (the plain versions): every kernel
+    of the case is timed and digested, and a second run on the same seed
+    gives the same digests, so equal digests across trees mean equal
+    floats."""
     one, two = (fused_step_ab.run_case(*case, dev=torch.device("cpu"), iters=1)
                 for _ in range(2))
-    names = ("k3", "k13") if case[-1] else ("k3",)
+    names = [n for n, _ in fused_step_ab.kernels(case[4], case[-1])]
+    assert names[0] == "k3" and ("k13" in names) == case[-1]
+    assert ("k14" in names) == ("k14_bf16" in names) == (case[-1] and case[4] % 128 == 0)
+    assert sorted(k[:-len("_digest")] for k in one if k.endswith("_digest")) == sorted(names)
     for name in names:
         assert len(one[f"{name}_digest"]) == 64 and one[f"{name}_ms"] > 0
         assert one[f"{name}_digest"] == two[f"{name}_digest"]
