@@ -11,7 +11,8 @@ it builds the kernels and runs phase 6's single-device run and the mesh
 phases only; on a host with at least as many cards as a world has ranks
 the world runs NCCL, one card per rank (parallel.mesh's backend rule).  With
 --profile it builds the kernels and runs each e2e cell of phases 4-13 once
-(after its warm-up) under torch.profiler, printing for its training and
+(after its warm-up; phase 5's eight steps, their codebook's upload
+included) under torch.profiler, printing for its training and
 its evaluation one "profile" line: the wall, the device's busy time (the
 union of its kernel and copy intervals), the idle share, and the kernels
 that took longest.  With --state it builds the kernels and times phase
@@ -24,28 +25,31 @@ phases, each printing one JSON line:
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             one "ptxas" line: registers and spill bytes of each
-            instantiation of K10 and K12, from nvcc's -Xptxas -v report;
+            instantiation of K5, K9, K10 and K12, from nvcc's -Xptxas -v report;
             one "sass" line: the HMMA (tensor-core) instructions in each
-            instantiation of the tensor-core kernels K3, K2, K1, K4, K6, K7,
-            K10 (K8 its KM 2), K11, K12, K13, K14's main form, K16 and K17, from
-            cuobjdump --dump-sass of the library (none fails the run);
+            instantiation of the tensor-core kernels K3, K2, K1, K4, K5, K6,
+            K7, K9, K10 (K8 its KM 2), K11, K12, K13, K14's main form, K16
+            and K17, from cuobjdump --dump-sass of the library (none fails
+            the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
-            67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K3, K2,
-            K1, K4, K6, K7, K8, K10, K11, K12, K13 and K14's main form also
-            with the bound of their route (the TF32 products they issue at 495 TFLOP/s: three
-            per FP32 product, two for K6's weight mass and K4's keep.(m o m),
-            one for K14's under batch_bf16) and the share of it they reach,
-            and run twice on the same inputs, bit-equal (K5 too).  K1 is
+            67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K1-K14
+            but K14's CUDA-core options also with the bound of their route
+            (the TF32 products they issue at 495 TFLOP/s: three per FP32
+            product, two for K6's weight mass and K4's and K9's keep.(m o
+            m), one for K14's under batch_bf16) and the share of it they
+            reach, and run twice on the same inputs, bit-equal.  K1 is
             also bit-equal to K2 on the same inputs at every K1 shape (one
             kernel body), and the
             min over K1 on two shards of a codebook (split off a tile
             boundary, merged by the sharded winner's rule) has the whole
             run's values bit for bit and its winners except at value ties.
-            K6 records its codebook's and the plain version's mean and max
-            distance from the blend taken in float64.  K1, K2, K4, K8, K9
+            K5 and K6 record their codebook's and the plain version's mean
+            and max distance from the blend taken in float64, and K5's
+            codebook is K3's on the same winners bit for bit.  K1, K2, K4,
+            K8, K9
             and K10 carry library_ms at their record's shape: torch.addmm
             (keep @ (m o m)^T as its input under a mask), then argmin,
             argmax or topk, in the plain versions' row chunks; K3, K5-K7
@@ -222,11 +226,12 @@ the single-device port run on the same data in this script:
             within 0.5 points of the single-device runs on the same stream.
 
 K8/K9 (dist_top2, plain and masked) are held against their plain version in
-phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), at 1000 x 999 x 5,
-with every code twice (exact ties: both indices equal the plain version's),
-and at N = 2; K9 with p = 0.1 and fully masked rows; K8 also at D 37 and
-D 130, each shape run twice (bit-equal), its best pair bit-equal to K1's
-(value, index) on the same inputs, with its route's bound (6 B N D).  K10
+phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), the masked LVQ
+cell's B 1024 x 4096, at 1000 x 999 x 5, with every code twice (exact ties:
+both indices equal the plain version's), at N = 2, D 37 and D 130; K9 with
+p = 0.1 and fully masked rows; each shape run twice (bit-equal), the best
+pair bit-equal to the same walk's argmin (K1's for K8, K4's for K9) on the
+same inputs, with its route's bound (6 B N D; 10 B N D for K9).  K10
 (dist_topk) at the mesh step's shapes (B 512 and 1024 x 32768 x 64, k = 2),
 K8's shapes at k = 2 (its pairs K8's bit for bit: K8 is this kernel at
 k = 2, launched through dist_top2's wrapper), the mesh rank's shape at
@@ -286,8 +291,9 @@ PEAK_BYTES_S = 3.35e12
 # half), K13 (K3's body with the separable W), K14's main form (K13's body;
 # one TF32 product under batch_bf16), K16 (K2's body without the norm), K17
 # (its bf16 twin as one TF32 product), K10 (K1's body with a top-k fold;
-# K8 is its instantiation at KM 2, launched at k = 2) and K7 (K3's step body
-# on the resident codebook)
+# K8 is its instantiation at KM 2, launched at k = 2), K7 (K3's step body
+# on the resident codebook), K9 (K4's walk with K10's fold at KM 2) and K5
+# (K3's update half with the blend)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
                       "dist_argmin_kernel", "dist_argmin_masked_kernel",
                       "som_update_masked_kernel", "som_accum_kernel",
@@ -295,7 +301,8 @@ SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
                       "som_fused_factored_chunked_tc_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel",
                       "som_vmem_steps_kernel", "som_blend_winner_kernel",
-                      "dist_topk_kernel")
+                      "dist_topk_kernel", "dist_top2_masked_kernel",
+                      "som_update_kernel")
 
 # K16 on normal float32 inputs: within this relative gap of the float64
 # maximum (split TF32 is about 2^-21 relative per product, float32 sums of 64)
@@ -327,9 +334,10 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
     the peak of their operand type (FP32 unless stated; `int8_ops` more at
     the INT8 peak) or its bytes (each input read once, each output written
     once) at the memory rate, whichever is larger.  With `route_flops`, the
-    TF32 FLOPs a tensor-core kernel issues (K1, K2, K3, K7, K8, K11, K13:
-    three TF32 products per float32 product, 3 x the FLOPs; K6: three for W.(X o K),
-    two for W.K; K14 under batch_bf16: one), also the bound of that route,
+    TF32 FLOPs a tensor-core kernel issues (K1-K3, K5, K7, K8, K10-K13:
+    three TF32 products per float32 product, 3 x the FLOPs; K6: three for
+    W.(X o K), two for W.K; K4 and K9: three for (x keep).m, two for
+    keep.(m o m); K14 under batch_bf16: one), also the bound of that route,
     route_bound_ms:
     those FLOPs at the TF32 peak, or the bytes.  library_ms is null here: a
     phase sets it where one PyTorch call computes the kernel's function."""
@@ -399,9 +407,11 @@ def sass_hmma(library: str) -> dict:
     return counts
 
 
-def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel")) -> dict:
-    """Registers and spill bytes of each instantiation of the kernels named,
-    from nvcc's -Xptxas -v report (the build's log): {"name<args>":
+def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel",
+                                  "dist_top2_masked_kernel", "som_update_kernel")) -> dict:
+    """Registers and spill bytes of each instantiation of the kernels named
+    (K10, K12, K9 and K5 unless given), from nvcc's -Xptxas -v report (the
+    build's log): {"name<args>":
     {"registers", "spill_stores", "spill_loads"}}."""
     import re
 
@@ -413,8 +423,8 @@ def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel")
             base = next((b for b in bases if b in name), None)
             fn = None
             if base:
-                args = re.search(base + r"I((?:Li\d+E)+)E", name)
-                targs = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                args = re.search(base + r"I((?:L[ib]\d+E)+)E", name)
+                targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
                 fn = base + (f"<{','.join(targs)}>" if targs else "")
                 out.setdefault(fn, {})
             continue
@@ -554,9 +564,11 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     twice: each sample's pair is a row and its copy, exactly the plain
     version's indices.  A fully masked row must get (0, 0, 0, 1).  With
     `library`, the library_ms of addmm then topk(2).  With `twin` (K1 beside
-    K8, one body) the kernel runs twice on the same inputs, bit-equal, its
-    best pair must be the twin's (value, index) bit for bit, and the record
-    carries its split-TF32 route's bound (6 B N D TF32 FLOPs) and share."""
+    K8, K4 beside K9: one walk each) the kernel runs twice on the same
+    inputs, bit-equal, its best pair must be the twin's (value, index) bit
+    for bit, and the record carries its split-TF32 route's bound (6 B N D
+    TF32 FLOPs; 10 B N D under a mask, keep.(m o m) by two products) and
+    share."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -614,7 +626,8 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
                plain_ms=cuda_ms(lambda: plain(*args), iters),
                **bound((4 if masked else 2) * B * N * D,
                        4 * (B * D + N * D) + masked * B * D + 16 * B,
-                       route_flops=None if twin is None else 6 * B * N * D))
+                       route_flops=None if twin is None
+                       else (10 if masked else 6) * B * N * D))
     if "route_bound_ms" in rec:
         rec.update(route_pct(rec))
     if library:
@@ -1297,14 +1310,18 @@ def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                  masked):
     """The two-kernel step's update (K5, or K6 with a mask) against its
     plain version: a few samples without a BMU, per-sample alphas; run twice
-    on the same inputs, bit-equal.  K6 also records the mean and max
-    distance of its codebook and of the plain version's from the same blend
-    taken in float64, and its split-TF32 route's bound (10 noc B D TF32
-    FLOPs: three products for W.(X o K), two for W.K).  library_ms is the
-    plain version's time: it is the PyTorch call chain of the same function
-    (neighborhood_w, then FP32 cuBLAS products and the blend)."""
+    on the same inputs, bit-equal.  K5's codebook must equal K3's
+    (`som_fused_train_step(factored=False)`, K5 being K3's update half with
+    its blend) on the same inputs bit for bit.  Both record the mean and max
+    distance of their codebook and of the plain version's from the same
+    blend taken in float64, and their split-TF32 route's bound (K5: 6 noc B
+    D TF32 FLOPs, three products for W.X; K6: 10 noc B D, three for
+    W.(X o K), two for W.K) and share.  library_ms is the plain version's
+    time: it is the PyTorch call chain of the same function (neighborhood_w,
+    then FP32 cuBLAS products and the blend)."""
     import torch
 
+    from som_lvq_pak_torch.ops import som_step as ss
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
 
     noc = xdim * ydim
@@ -1329,32 +1346,38 @@ def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
         raise AssertionError(f"{name}: codebooks differ by {float((ck - cp).abs().max())}")
     if not torch.equal(ck.view(torch.int32), c2.view(torch.int32)):
         raise AssertionError(f"{name}: two runs on the same inputs differ")
-    f64 = {}
-    if masked:  # both codebooks against the blend taken in float64
-        from som_lvq_pak_torch.ops import som_step as ss
-
-        aw, r = ss._alpha_r(alpha, radius, B, "cuda")
-        units = torch.arange(noc, dtype=torch.int32, device="cuda")
-        w = ss.neighborhood_w(bmu, aw, r, units, xdim, hexa, gaussian).double()
-        keep = (extra[0] == 0).double()
-        exact = ss.guarded_blend(codes.double(), w @ (xb.double() * keep), w @ keep)
-        dk, dp = (ck.double() - exact).abs(), (cp.double() - exact).abs()
-        f64 = dict(mean_abs_err_vs_f64=float(dk.mean()), max_abs_err_vs_f64=float(dk.max()),
-                   plain_mean_abs_err_vs_f64=float(dp.mean()),
-                   plain_max_abs_err_vs_f64=float(dp.max()))
-        del w, keep, exact, dk, dp
+    k3 = {}
+    if not masked:  # K3's rows: any next batch, the codebook compared
+        c3 = ss.som_fused_train_step(codes.clone(), xb, bmu, xb, xdim, hexa, alpha,
+                                     radius, gaussian, factored=False)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(ck.view(torch.int32), c3.view(torch.int32)):
+            raise AssertionError(f"{name}: the codebook is not K3's on the same winners "
+                                 "bit for bit")
+        k3 = dict(bit_equal_to="som_fused_train_step(factored=False)")
+        del c3
+    # both codebooks against the blend taken in float64
+    aw, r = ss._alpha_r(alpha, radius, B, "cuda")
+    units = torch.arange(noc, dtype=torch.int32, device="cuda")
+    w = ss.neighborhood_w(bmu, aw, r, units, xdim, hexa, gaussian).double()
+    keep = (extra[0] == 0).double() if masked else torch.ones_like(xb, dtype=torch.float64)
+    exact = ss.guarded_blend(codes.double(), w @ (xb.double() * keep), w @ keep)
+    dk, dp = (ck.double() - exact).abs(), (cp.double() - exact).abs()
+    f64 = dict(mean_abs_err_vs_f64=float(dk.mean()), max_abs_err_vs_f64=float(dk.max()),
+               plain_mean_abs_err_vs_f64=float(dp.mean()),
+               plain_max_abs_err_vs_f64=float(dp.max()))
+    del w, keep, exact, dk, dp
     work = codes.clone()
     # W.X (and W.K with a mask), 2 noc B D FLOPs each
     rec = dict(kernel=name, shape=[noc, B, D], radius=radius,
-               max_abs_err=float((ck - cp).abs().max()), bit_equal_rerun=True, **f64,
-               ms=cuda_ms(lambda: run(kernel, work)),
+               max_abs_err=float((ck - cp).abs().max()), bit_equal_rerun=True, **k3,
+               **f64, ms=cuda_ms(lambda: run(kernel, work)),
                plain_ms=cuda_ms(lambda: run(plain, work)),
                **bound((4 if masked else 2) * noc * B * D,
                        8 * noc * D + 4 * B * D + masked * B * D + 8 * B,
-                       route_flops=10 * noc * B * D if masked else None))
+                       route_flops=(10 if masked else 6) * noc * B * D))
     rec["library_ms"] = rec["plain_ms"]
-    if masked:
-        rec.update(route_pct(rec))
+    rec.update(route_pct(rec))
     emit("kernels", **rec)
     return rec
 
@@ -2106,6 +2129,9 @@ def profile_cells() -> None:
               dict(mask=mask64, weight=w64))]
     for name, args, kw in cells:
         e2e(*args, **kw, around=lambda part: profiled(f"{name} {part}"))
+    som_batch_steps(X, 128, 1024, 8)  # phase 5's steps (K1 + K5): a warm-up
+    with profiled("som_batch_step_128x128 train"):
+        som_batch_steps(X, 128, 1024, 8)
     X = blob_data(7, 1_000_000, 16)
     Xm, mask, _ = masked_data(X, 8, 16384, every_other=False)
     cells = [("e2e_256x256_1M", (X, 256, 4096, 64, 16384), {}),
@@ -2726,21 +2752,20 @@ def main() -> int:
     # K1 on two shards of the codebook against the whole: the sharded winner
     phase_k1_shards(4096, 65536, 64, 30001, seed=49)
     phase_k1_shards(512, 32768, 64, 16411, seed=50)
-    # K8 and K9 at the LVQ step's shape first (their record; K8's with
+    # K8 and K9 at the LVQ step's shape first (their record, with
     # library_ms), then the masked LVQ cell's step (B 1024 x 4096), small,
-    # exact-tie and two-code shapes; K8 also at a ragged D 37 and at D 130
-    # (three 64-feature slabs), every shape run twice (bit-equal) and beside
-    # K1 (its best pair K1's bit for bit)
+    # exact-tie and two-code shapes, a ragged D 37 and D 130 (three
+    # 64-feature slabs), every shape run twice (bit-equal) and beside the
+    # walk's argmin (K1 for K8, K4 for K9: the best pair bit for bit; the
+    # masked dist_argmin is K4)
     for name, k, mask_p in (("dist_top2", dist_top2, None),
                             ("dist_top2_masked", dist_top2_masked, 0.1)):
         cases = (((1024, 65536, 64), 10, False), ((1024, 4096, 64), 16, False),
                  ((1000, 999, 5), 11, False), ((1000, 999, 5), 12, True),
-                 ((1000, 2, 5), 13, False))
-        if mask_p is None:
-            cases += (((777, 3001, 37), 59, False), ((1000, 2999, 130), 60, False))
+                 ((1000, 2, 5), 13, False), ((777, 3001, 37), 59, False),
+                 ((1000, 2999, 130), 60, False))
         rs = [phase_top2(name, k, dist_top2_plain, *shape, seed=seed, dup=dup,
-                         mask_p=mask_p, library=j == 0,
-                         twin=dist_argmin if mask_p is None else None)
+                         mask_p=mask_p, library=j == 0, twin=dist_argmin)
               for j, (shape, seed, dup) in enumerate(cases)]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # the LVQ steps' segment sum (not a TPU kernel: its own line at the end)

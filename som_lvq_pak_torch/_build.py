@@ -71,9 +71,10 @@ _SIGNATURES = {
                         _P, _P, _P, _P],
     # codes, n_local, D, acc, wsum, xn, Bn, xs, keys, val, idx, stream
     "somvq_som_blend_winner": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-    # codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius, stream
+    # codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius, xs,
+    # stream
     "somvq_som_update": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                         ctypes.c_float, _P],
+                         ctypes.c_float, _P, _P],
     # codes, noc, D, xb, mask, bmu, alpha, B, xdim, hexa, gaussian, radius,
     # stream
     "somvq_som_update_masked": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -1,8 +1,9 @@
 // The pieces of the tensor-core winner search shared by K1, K2 and K16
-// (dist_argmin_t.cu), K4 (dist_argmin.cu) and K8/K10 (dist_topk.cu): the
-// CTA shape, the cp.async staging of a codebook tile, the merge of a sample's
-// four lanes with the fold across codebook splits, and the unmasked
-// search's shared-memory layout (K2Smem) and split A fragments (load_x).
+// (dist_argmin_t.cu), K4 and K9 (masked_walk.cuh) and K8/K10 (dist_topk.cu):
+// the CTA shape, the codebook's split into spans of whole tiles, the cp.async
+// staging of a codebook tile, the merge of a sample's four lanes with the
+// fold across codebook splits, and the unmasked search's shared-memory
+// layout (K2Smem) and split A fragments (load_x).
 //
 // One CTA owns kTB = 128 samples, 16 per warp, and walks its span of the
 // codebook in kTNC-row tiles, each tile split into slabs of SW = 8 KT
@@ -25,6 +26,14 @@ constexpr int kTB = 128;   // samples per CTA (8 warps x 16)
 constexpr int kTNC = 64;   // codebook rows per tile (8 n-tiles)
 constexpr int kWarps = kTB / 16;
 constexpr int kThreads = 32 * kWarps;
+
+// `splits` spans of whole kTNC-row tiles across gridDim.y: (rows per span,
+// spans used, the non-empty ones)
+inline void tile_spans(int N, int splits, int& n_span, int& used) {
+  const int n_tiles = (N + kTNC - 1) / kTNC;
+  n_span = ((n_tiles + splits - 1) / splits) * kTNC;
+  used = (N + n_span - 1) / n_span;
+}
 
 // cp.async of item i's (tile, slab) into raw[row][feature]: rows past n_hi
 // and features past D are not copied (the split reads zeros for them);

@@ -11,232 +11,71 @@
 // K9 returns the two smallest (value, index) pairs in lexicographic order,
 // the function the TPU kernel's running merge (_top2_epilogue, strict <,
 // earlier tile kept) computes: the lower index wins every exact tie, on the
-// best pair and on the second.  The lexicographic merge of two sorted pairs
-// over disjoint code sets (merge_pairs) is associative and commutative, so
-// lanes, warps and CTAs may merge in any order and give the same answer.
-// The codebook is split across gridDim.y when the batch alone gives too few
-// CTAs (the masked LVQ step's B 1024 is 16 CTAs of 64 samples on 132 SMs).
-// The packed-u64 atomicMin of argmin_keys.cuh carries one pair, not two, so
-// each split writes its partial pairs to a (splits, B, 2) scratch the
-// wrapper allocates, and a second small launch merges the splits in split
-// order.
+// best pair and on the second.  The mask enters as (B, D) uint8, nonzero =
+// masked.  A sample with every component masked scores 0 against every code
+// and gets (0, 0), (0, 1), as in the JAX package.
 //
-// K9 stays on CUDA cores: one CTA owns TB samples, walks its codebook rows in
-// TN-row tiles staged through shared memory in KC-wide slices of D (any D >=
-// 1, no padding), and each of the 256 threads owns a 4 x 4 (sample, code)
-// micro-tile, inserting each candidate into its registers' (v1, i1, v2, i2)
-// per sample in ascending code order; the 16 threads that share a sample
-// then merge their sorted pairs with shuffles.  The mask enters as (B, D)
-// uint8, nonzero = masked: a masked component is zeroed in the staged x and
-// gets keep 0, and keep.(m o m) squares the code slice already in shared
-// memory (no extra codebook traffic).  A sample with every component masked
-// scores 0 against every code and gets (0, 0), (0, 1), as in the JAX
-// package.  What bounds it on H100: FP32 FMA issue and shared-memory loads
-// (no tensor cores; K4's split-TF32 body with K10's fold is its next
-// design).  The codebook is read once per CTA from L2.
+// Design.  K4's masked walk (masked_walk.cuh) with K10's fold at KM 2
+// (topk_fold.cuh), as K10 is K1's walk with that fold: one CTA of kTB = 128
+// samples, 16 per warp, their A fragments of x keep split into TF32 hi and
+// lo in registers and their keep flags as bits; the codebook by a cp.async
+// double buffer, split once at staging into m's and (m o m)'s hi and lo;
+// (x keep).m by three TF32 products and keep.(m o m) by two; the score
+// (x keep).m - keep.(m o m) / 2; D > 64 through the walk's 64-feature slab
+// instantiation.  Each lane keeps a sorted (best, second) (score, code) list
+// per sample, strict > over ascending codes; the four lanes of a sample
+// merge lexicographically; each split of the codebook (ops.dist_argmin.
+// k4_splits, K4's whole waves) writes its pairs as partial distances (-2 *
+// the score, exact, -0 folded to +0) to a (splits, B, 2) scratch the wrapper
+// allocates, and one small launch merges the splits in split order.  The
+// walk hands the fold K4's floats, so the best pair is K4's (value, index)
+// bit for bit, and two runs are bit-equal.
+//
+// What bounds it on H100: the two contractions, 4 B N D FLOPs, issued as 10
+// B N D TF32 FLOPs (three products for (x keep).m, two for keep.(m o m))
+// against the 495 TFLOP/s peak; beside them each candidate's insertion into
+// the pair (one compare when it does not enter).  The codebook is read from
+// L2 once per CTA.
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
-
-#include "tf32x3.cuh"  // lex_less
+#include "masked_walk.cuh"
+#include "topk_fold.cuh"
 
 namespace {
 
-// (v1, i1) before (v2, i2) and (w1, j1) before (w2, j2) by lex_less, over
-// disjoint code sets: (v1, i1, v2, i2) becomes the first two pairs of the
-// union
-__device__ __forceinline__ void merge_pairs(float& v1, int& i1, float& v2, int& i2,
-                                            float w1, int j1, float w2, int j2) {
-  if (lex_less(w1, j1, v1, i1)) {
-    if (lex_less(w2, j2, v1, i1)) {
-      v2 = w2;
-      i2 = j2;
-    } else {
-      v2 = v1;
-      i2 = i1;
-    }
-    v1 = w1;
-    i1 = j1;
-  } else if (lex_less(w1, j1, v2, i2)) {
-    v2 = w1;
-    i2 = j1;
-  }
-}
-
-// ---- K9: the masked search on CUDA cores ------------------------------------
-
-constexpr int TB = 64;        // samples per CTA
-constexpr int TN = 64;        // codebook rows per tile
-constexpr int KC = 32;        // feature slice staged per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
-
-// partial pairs of codebook rows [n_lo, n_lo + n_span) of split blockIdx.y
-// into pv/pi[(split * B + b) * 2 + {0, 1}]
-__global__ void __launch_bounds__(THREADS)
+// the (best, second) pairs of codebook rows [n_lo, n_lo + n_span) of split
+// blockIdx.y into pv/pi[(split * B + b) * 2 + {0, 1}]; kMulti: D > 64
+template <int KT, bool kMulti>
+__global__ void __launch_bounds__(kThreads, kMulti ? 1 : 2)
 dist_top2_masked_kernel(const float* __restrict__ x,
                         const unsigned char* __restrict__ mask,
                         const float* __restrict__ codes, int B, int N, int D,
                         int n_span, float* __restrict__ pv, int* __restrict__ pi) {
-  __shared__ float xs[TB][KC + 1];
-  __shared__ float ks[TB][KC + 1];
-  __shared__ float ms[TN][KC + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // code column group: codes tx + 16 j
-  const int ty = tid >> 4;   // sample row group:  samples ty + 16 i
-  const int b0 = blockIdx.x * TB;
-  const int n_lo = blockIdx.y * n_span;
-  const int n_hi = min(N, n_lo + n_span);
-
-  float v1[4], v2[4];
-  int i1[4], i2[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v1[i] = v2[i] = INFINITY;
-    i1[i] = i2[i] = INT_MAX;
-  }
-
-  for (int n0 = n_lo; n0 < n_hi; n0 += TN) {
-    float xm[4][4], km2[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xm[i][j] = km2[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += KC) {
-      __syncthreads();  // everyone is done reading the previous slice
-      for (int e = tid; e < TB * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC;
-        const int b = b0 + r, k = k0 + c;
-        float xv = 0.f, kv = 0.f;
-        if (b < B && k < D) {
-          const size_t g = (size_t)b * D + k;
-          if (mask[g] == 0) {
-            xv = x[g];
-            kv = 1.f;
-          }
-        }
-        xs[r][c] = xv;
-        ks[r][c] = kv;
-      }
-      for (int e = tid; e < TN * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC;
-        const int n = n0 + r, k = k0 + c;
-        ms[r][c] = (n < n_hi && k < D) ? codes[(size_t)n * D + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < KC; ++c) {
-        float xv[4], mv[4], kv[4], mm[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[ty + 16 * i][c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mv[j] = ms[tx + 16 * j][c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xm[i][j] += xv[i] * mv[j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) kv[i] = ks[ty + 16 * i][c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mm[j] = mv[j] * mv[j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) km2[i][j] += kv[i] * mm[j];
-      }
-    }
-
-    // codes tx + 16 j visited in increasing index order: a strict comparison
-    // keeps the lower index of equal values in both places
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < n_hi) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float d = km2[i][j] - 2.f * xm[i][j];
-          d = (d == 0.f) ? 0.f : d;  // -0 -> +0
-          if (d < v1[i]) {
-            v2[i] = v1[i];
-            i2[i] = i1[i];
-            v1[i] = d;
-            i1[i] = n;
-          } else if (d < v2[i]) {
-            v2[i] = d;
-            i2[i] = n;
-          }
-        }
-      }
-    }
-  }
-
-  // merge the 16 threads (one half-warp) that share each sample
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float w1 = __shfl_xor_sync(0xffffffffu, v1[i], off);
-      const int j1 = __shfl_xor_sync(0xffffffffu, i1[i], off);
-      const float w2 = __shfl_xor_sync(0xffffffffu, v2[i], off);
-      const int j2 = __shfl_xor_sync(0xffffffffu, i2[i], off);
-      merge_pairs(v1[i], i1[i], v2[i], i2[i], w1, j1, w2, j2);
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int b = b0 + ty + 16 * i;
-      if (b < B) {
-        const size_t o = ((size_t)blockIdx.y * B + b) * 2;
-        pv[o] = v1[i];
-        pi[o] = i1[i];
-        pv[o + 1] = v2[i];
-        pi[o + 1] = i2[i];
-      }
-    }
-  }
+  ListFold<2> fold;
+  masked_walk<KT, kMulti>(x, mask, codes, B, N, D, n_span, fold);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  fold.write(blockIdx.x * kTB + 16 * warp, B, lane, blockIdx.y, 2, pv, pi);
 }
 
-// ---- the split merge and the launches ---------------------------------------
-
-// fold the `splits` partial pairs of each sample, in split order
-__global__ void top2_merge_splits(const float* __restrict__ pv,
-                                  const int* __restrict__ pi, int B, int splits,
-                                  float* __restrict__ v1o, int* __restrict__ i1o,
-                                  float* __restrict__ v2o, int* __restrict__ i2o) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float v1 = pv[2 * (size_t)b], v2 = pv[2 * (size_t)b + 1];
-  int i1 = pi[2 * (size_t)b], i2 = pi[2 * (size_t)b + 1];
-  for (int s = 1; s < splits; ++s) {
-    const size_t o = ((size_t)s * B + b) * 2;
-    merge_pairs(v1, i1, v2, i2, pv[o], pi[o], pv[o + 1], pi[o + 1]);
-  }
-  v1o[b] = v1;
-  i1o[b] = i1;
-  v2o[b] = v2;
-  i2o[b] = i2;
-}
-
-// the non-empty spans of `splits` spans of whole `tile`-row tiles: (rows per
-// span, spans used)
-void spans(int N, int splits, int tile, int& n_span, int& used) {
-  const int n_tiles = (N + tile - 1) / tile;
-  n_span = ((n_tiles + splits - 1) / splits) * tile;
-  used = (N + n_span - 1) / n_span;
-}
-
-int check_args(int B, int N, int D, int splits) {
-  return (B <= 0 || N < 2 || D <= 0 || splits < 1) ? (int)cudaErrorInvalidValue : 0;
-}
-
-int merge(const float* pv, const int* pi, int B, int used, float* v1, int* i1,
-          float* v2, int* i2, cudaStream_t stream) {
-  top2_merge_splits<<<(B + 255) / 256, 256, 0, stream>>>(pv, pi, B, used, v1, i1,
-                                                         v2, i2);
+// the walk over the non-empty spans, then the split merge
+template <int KT, bool kMulti>
+int launch_masked(const float* x, const unsigned char* mask, const float* codes, int B,
+                  int N, int D, int splits, float* pv, int* pi, PairOut out,
+                  cudaStream_t stream) {
+  const size_t smem = K4Smem<KT>::bytes();
+  const auto kernel = dist_top2_masked_kernel<KT, kMulti>;
+  cudaError_t err = cudaFuncSetAttribute(kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int n_span, used;
+  tile_spans(N, splits, n_span, used);
+  const dim3 grid((B + kTB - 1) / kTB, used);
+  kernel<<<grid, kThreads, smem, stream>>>(x, mask, codes, B, N, D, n_span, pv, pi);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  topk_merge_splits<2><<<(B + 255) / 256, 256, 0, stream>>>(pv, pi, B, 2, used, out);
   return (int)cudaGetLastError();
 }
 
@@ -248,14 +87,12 @@ extern "C" int somvq_dist_top2_masked(const float* x, const unsigned char* mask,
                                       int splits, float* pv, int* pi, float* v1,
                                       int* i1, float* v2, int* i2,
                                       cudaStream_t stream) {
-  int rc = check_args(B, N, D, splits);
-  if (rc) return rc;
-  int n_span, used;
-  spans(N, splits, TN, n_span, used);
-  const dim3 grid((B + TB - 1) / TB, used);
-  dist_top2_masked_kernel<<<grid, THREADS, 0, stream>>>(x, mask, codes, B, N, D,
-                                                        n_span, pv, pi);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return merge(pv, pi, B, used, v1, i1, v2, i2, stream);
+  if (B <= 0 || N < 2 || D <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  const PairOut out{v1, v2, i1, i2};
+  const int k8 = (D + 7) / 8;
+  return k8 <= 1   ? launch_masked<1, false>(x, mask, codes, B, N, D, splits, pv, pi, out, stream)
+         : k8 <= 2 ? launch_masked<2, false>(x, mask, codes, B, N, D, splits, pv, pi, out, stream)
+         : k8 <= 4 ? launch_masked<4, false>(x, mask, codes, B, N, D, splits, pv, pi, out, stream)
+         : k8 <= 8 ? launch_masked<8, false>(x, mask, codes, B, N, D, splits, pv, pi, out, stream)
+                   : launch_masked<8, true>(x, mask, codes, B, N, D, splits, pv, pi, out, stream);
 }

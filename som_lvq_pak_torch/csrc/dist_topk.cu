@@ -24,8 +24,9 @@
 // chosen at run time: it visits its codes in ascending order, so a strict >
 // keeps the lower code of equal scores everywhere in the list.  The four
 // lanes of a sample merge their lists lexicographically by shuffles
-// (merge_lists: the better of each pair of one list and the other reversed,
-// then a bitonic merge).  Values are -2 * the score, exact, -0 folded to +0:
+// (topk_fold.cuh's merge_lists: the better of each pair of one list and the
+// other reversed, then a bitonic merge; K9 folds K4's masked walk with the
+// same lists at KM 2).  Values are -2 * the score, exact, -0 folded to +0:
 // the partial distance, bit for bit the value K1 returns for the same code.
 // The codebook is split across gridDim.y as K1's (ops.dist_argmin.k2_splits,
 // whole waves of two CTAs per SM); each split writes its k pairs to a
@@ -45,70 +46,10 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
-
 #include "argmin_tc.cuh"
+#include "topk_fold.cuh"
 
 namespace {
-
-// the partial distance of a score: -2 * score (exact), -0 folded to +0
-__device__ __forceinline__ float value_of(float score) {
-  const float v = -2.f * score;
-  return v == 0.f ? 0.f : v;
-}
-
-// (v, i) into the list (s, j) of KM scores sorted high first, where i is
-// above every code in the list: past every equal score, the last pair
-// dropped
-template <int KM>
-__device__ __forceinline__ void push(float (&s)[KM], int (&j)[KM], float v, int i) {
-  if (!(v > s[KM - 1])) return;
-  bool placed = false;
-#pragma unroll
-  for (int t = KM - 1; t > 0; --t) {
-    const bool up = !placed && v > s[t - 1];
-    if (!placed) {
-      s[t] = up ? s[t - 1] : v;
-      j[t] = up ? j[t - 1] : i;
-    }
-    placed = placed || !up;
-  }
-  if (!placed) {
-    s[0] = v;
-    j[0] = i;
-  }
-}
-
-__device__ __forceinline__ void swap_pair(float& a, int& ai, float& b, int& bi) {
-  const float v = a;
-  const int i = ai;
-  a = b;
-  ai = bi;
-  b = v;
-  bi = i;
-}
-
-// the first KM of the union of two lists sorted by lex_greater on (score,
-// code), over disjoint codes, into (s, j): the better of s[t] and w[KM - 1 -
-// t] for each t holds the first KM as a bitonic sequence, which the
-// half-cleaners sort
-template <int KM>
-__device__ __forceinline__ void merge_lists(float (&s)[KM], int (&j)[KM],
-                                            const float (&w)[KM], const int (&wi)[KM]) {
-#pragma unroll
-  for (int t = 0; t < KM; ++t)
-    if (lex_greater(w[KM - 1 - t], wi[KM - 1 - t], s[t], j[t])) {
-      s[t] = w[KM - 1 - t];
-      j[t] = wi[KM - 1 - t];
-    }
-#pragma unroll
-  for (int h = KM / 2; h > 0; h >>= 1)
-#pragma unroll
-    for (int t = 0; t < KM; ++t)
-      if ((t & h) == 0 && lex_greater(s[t + h], j[t + h], s[t], j[t]))
-        swap_pair(s[t], j[t], s[t + h], j[t + h]);
-}
 
 // the k (<= KM) best pairs of codebook rows [n_lo, n_lo + n_span) of split
 // blockIdx.y into pv/pi[(split * B + b) * k + t], as partial distances; the
@@ -128,7 +69,7 @@ dist_topk_kernel(const float* __restrict__ x, const float* __restrict__ codes, i
   float* m2s = clo + kTNC * DC;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int t = lane & 3;
   const int b0 = blockIdx.x * kTB + 16 * warp;  // this warp's 16 samples
   const int n_lo = blockIdx.y * n_span;
   const int n_hi = min(N, n_lo + n_span);
@@ -138,16 +79,7 @@ dist_topk_kernel(const float* __restrict__ x, const float* __restrict__ codes, i
 
   float ahi[KT][4], alo[KT][4];
   if (nslab == 1) load_x<KT, false>(ahi, alo, x, B, D, b0, 0, lane);
-  // per sample h: the KM best (score, code), sorted
-  float s[2][KM];
-  int j[2][KM];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int e = 0; e < KM; ++e) {
-      s[h][e] = -INFINITY;
-      j[h][e] = INT_MAX;
-    }
+  ListFold<KM> fold;  // per sample: the KM best (score, code), sorted
   float S[kTNC / 8][4];
 
   if (nitems > 0) prefetch<KT>(raw0, codes, D, n_lo, n_hi, nslab, 0, tid);
@@ -201,79 +133,14 @@ dist_topk_kernel(const float* __restrict__ x, const float* __restrict__ codes, i
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = 8 * n + 2 * t + (q & 1), h = q >> 1;
-          if (c < rows) push<KM>(s[h], j[h], S[n][q] - 0.5f * m2s[c], n0 + c);
+          if (c < rows) fold.visit(h, S[n][q] - 0.5f * m2s[c], n0 + c);
         }
     }
   }
   cp_async_wait_all();
 
   // merge the four lanes t of each sample, then write this split's pairs
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      float w[KM];
-      int wi[KM];
-#pragma unroll
-      for (int e = 0; e < KM; ++e) {
-        w[e] = __shfl_xor_sync(0xffffffffu, s[h][e], off);
-        wi[e] = __shfl_xor_sync(0xffffffffu, j[h][e], off);
-      }
-      merge_lists<KM>(s[h], j[h], w, wi);
-    }
-    const int b = b0 + g + 8 * h;
-    if (t == 0 && b < B) {
-      const size_t o = ((size_t)blockIdx.y * B + b) * k;
-#pragma unroll
-      for (int e = 0; e < KM; ++e) {
-        if (e < k) {
-          pv[o + e] = value_of(s[h][e]);
-          pi[o + e] = j[h][e];
-        }
-      }
-    }
-  }
-}
-
-// insert (d, n) into the list (v, ix) of KM pairs sorted by lex_less,
-// dropping the last
-template <int KM>
-__device__ __forceinline__ void insert(float (&v)[KM], int (&ix)[KM], float d, int n) {
-  if (!lex_less(d, n, v[KM - 1], ix[KM - 1])) return;
-  v[KM - 1] = d;
-  ix[KM - 1] = n;
-#pragma unroll
-  for (int t = KM - 1; t > 0; --t)
-    if (lex_less(v[t], ix[t], v[t - 1], ix[t - 1]))
-      swap_pair(v[t], ix[t], v[t - 1], ix[t - 1]);
-}
-
-// fold the `splits` partial lists of each sample, in split order
-template <int KM>
-__global__ void topk_merge_splits(const float* __restrict__ pv,
-                                  const int* __restrict__ pi, int B, int k,
-                                  int splits, float* __restrict__ vo,
-                                  int* __restrict__ io) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float v[KM];
-  int ix[KM];
-#pragma unroll
-  for (int t = 0; t < KM; ++t) {
-    v[t] = INFINITY;
-    ix[t] = INT_MAX;
-  }
-  for (int s = 0; s < splits; ++s) {
-    const size_t o = ((size_t)s * B + b) * k;
-    for (int t = 0; t < k; ++t) insert<KM>(v, ix, pv[o + t], pi[o + t]);
-  }
-#pragma unroll
-  for (int t = 0; t < KM; ++t) {
-    if (t < k) {
-      vo[(size_t)b * k + t] = v[t];
-      io[(size_t)b * k + t] = ix[t];
-    }
-  }
+  fold.write(b0, B, lane, blockIdx.y, k, pv, pi);
 }
 
 template <int KT, int KM>
@@ -285,17 +152,15 @@ int launch(const float* x, const float* codes, int B, int N, int D, int k,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // `splits` spans of whole tiles; the grid holds the non-empty ones
-  const int n_tiles = (N + kTNC - 1) / kTNC;
-  const int n_span = ((n_tiles + splits - 1) / splits) * kTNC;
-  const int used = (N + n_span - 1) / n_span;
+  int n_span, used;
+  tile_spans(N, splits, n_span, used);
   const dim3 grid((B + kTB - 1) / kTB, used);
   dist_topk_kernel<KT, KM><<<grid, kThreads, smem, stream>>>(x, codes, B, N, D, n_span,
                                                              k, pv, pi);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   topk_merge_splits<KM><<<(B + 255) / 256, 256, 0, stream>>>(pv, pi, B, k, used,
-                                                             vo, io);
+                                                             RowsOut{vo, io, k});
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,18 @@
 // registers and the result is deterministic, with no atomics and no cross-CTA
 // step.
 //
-// K5 (som_update_kernel) runs on CUDA cores: som_grid.cuh's accumulate_update,
-// TN = 32 rows per CTA, W rebuilt per chunk from the BMU indices with the
-// exact-f32 grid algebra and expf, FP32 FMAs (one per (row, sample, column)).
+// K5 (som_update_kernel) is the update half of K3 (fused_step_tc.cuh:
+// fused_update_tc) with K3's closed-form W (ClosedFormW) at unit offset 0,
+// exactly as K11 (som_accum.cu) runs it, then the guarded blend of each
+// (row, component) from the mma's registers, in place, as K3 blends: the
+// batch split into TF32 hi and lo once per call (split_batches_kernel, into
+// the wrapper's scratch), walked in 32-sample chunks through a cp.async
+// double buffer, W built in registers (bit-identical to neighborhood_w; 0
+// where bmu < 0), W.X by split-TF32 mma.sync summed per chunk and added into
+// float32 registers, wsum in a fixed order; K3's CTA height (128 rows, 64
+// past D 128).  A row's arithmetic is K3's, so the codebook equals K3's rows
+// for the same (codes, batch, winners, alpha, radius) bit for bit, and two
+// runs are bit-equal.
 //
 // K6 (som_update_masked_kernel) runs on the tensor cores, K3's update design
 // (som_fused_step.cu) with the mask:
@@ -45,75 +54,67 @@
 // shared memory only.  Every sum runs in a fixed order: two runs are
 // bit-equal.
 //
-// What bounds them on H100: K5 FP32 FMA issue and one expf per (row, sample)
-// for the gaussian.  K6 the two contractions, 4 noc B D FLOPs in float32, or
-// 10 noc B D in the TF32 products it issues (a 495 TFLOP/s peak); W's expf
-// and the chunk staging share the SM with the mma between barriers.  Device
-// memory traffic is one codebook read and write; the batch and mask are
-// re-read from L2 by every CTA.
+// What bounds them on H100: the contractions, W.X (2 noc B D FLOPs, issued
+// as 6 noc B D TF32 FLOPs) for K5 and W.(X o K) with W.K (4 noc B D, issued
+// as 10 noc B D) for K6, against the 495 TFLOP/s peak; W's expf and the
+// chunk staging share the SM with the mma between barriers.  Device memory
+// traffic is one codebook read and write; the batch (and mask) are re-read
+// from L2 by every CTA.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "som_grid.cuh"
-#include "tf32x3.cuh"
+#include "fused_step_tc.cuh"
 
 namespace {
 
-// ---- K5: CUDA cores ----------------------------------------------------------
+// ---- K5: K3's update half, then the blend ------------------------------------
 
-// Shared memory: xs[BC][DS] | ws[TN][BC]
-size_t smem_bytes(int D) {
-  const int DS = D | 1;
-  return sizeof(float) * ((size_t)BC * DS + TN * BC);
-}
-
-template <int NJ>
-__global__ void __launch_bounds__(THREADS)
+template <int NT>
+__global__ void __launch_bounds__(32 * k3_warps(NT), NT <= 8 ? 2 : 1)
 som_update_kernel(float* __restrict__ codes, int noc, int D,
-                  const float* __restrict__ xb, const int* __restrict__ bmu,
+                  const float* __restrict__ xs, const int* __restrict__ bmu,
                   const float* __restrict__ alpha, int B, int xdim, int hexa,
                   int gaussian, float radius) {
-  extern __shared__ float smem[];
-  const int DS = D | 1;
-  float* xs = smem;
-  float* ws = xs + BC * DS;
-
+  constexpr int WARPS = k3_warps(NT), DP = 8 * NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * TN;
-
-  float acc[4][NJ];
-  float wsum[4];
-  accumulate_update<NJ>(acc, wsum, xs, ws, r0, noc, D, xb, bmu, alpha, B, xdim,
-                        hexa != 0, gaussian != 0, radius);
-
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * 16 * WARPS;
+  ClosedFormW wp = closed_form_w(bmu, alpha, B, xdim, hexa, gaussian, radius, 0);
+  float acc[NT][4];
+  float wsum[2];
+  fused_update_tc<NT, WARPS, false>(acc, wsum, xs, xs + (size_t)(B + 63) / 64 * 64 * DP,
+                                    B, r0, wp);
+  // guarded blend, per (row, component), in place: c0 (g, 2t), c1 (g,
+  // 2t + 1), c2, c3: g + 8
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = r0 + warp * 4 + i;
-    if (u >= noc) continue;
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int k = lane + 32 * j;
-      if (k < D) {
-        const size_t g = (size_t)u * D + k;
-        codes[g] = guarded_blend(codes[g], acc[i][j], wsum[i]);
+    for (int q = 0; q < 4; ++q) {
+      const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
+      if (k < D && u < noc) {
+        float* p = codes + (size_t)u * D + k;
+        *p = guarded_blend(*p, acc[j][q], wsum[q >> 1]);
       }
     }
   }
 }
 
-template <int NJ>
+// the batch split once (into xs), then the update
+template <int NT>
 int launch_update(float* codes, int noc, int D, const float* xb, const int* bmu,
                   const float* alpha, int B, int xdim, int hexa, int gaussian,
-                  float radius, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+                  float radius, float* xs, cudaStream_t stream) {
+  using L = FusedSmem<NT, k3_warps(NT)>;
+  const size_t smem = sizeof(float) * L::update_floats(ClosedFormW::floats());
   cudaError_t err = cudaFuncSetAttribute(
-      som_update_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      som_update_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  som_update_kernel<NJ><<<(noc + TN - 1) / TN, THREADS, smem, stream>>>(
-      codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius);
+  const int rc = split_batches(xb, B, nullptr, 0, D, L::DP, xs, stream);
+  if (rc) return rc;
+  som_update_kernel<NT><<<(noc + L::TN - 1) / L::TN, 32 * k3_warps(NT), smem, stream>>>(
+      codes, noc, D, xs, bmu, alpha, B, xdim, hexa, gaussian, radius);
   return (int)cudaGetLastError();
 }
 
@@ -311,21 +312,25 @@ bool bad_args(int noc, int D, int B, int xdim) {
 
 }  // namespace
 
-// K5
+// K5; xs scratch for the split batch: 2 Bp DP floats (B rounded up to a
+// multiple of 64, DP 8 times the power of two of 8-feature steps that
+// covers D)
 extern "C" int somvq_som_update(float* codes, int noc, int D, const float* xb,
                                 const int* bmu, const float* alpha, int B,
                                 int xdim, int hexa, int gaussian, float radius,
-                                cudaStream_t stream) {
-  if (bad_args(noc, D, B, xdim)) return (int)cudaErrorInvalidValue;
-  const int nj = (D + 31) / 32;
-#define K5_LAUNCH(NJ)                                                          \
-  if (nj <= NJ)                                                                \
-    return launch_update<NJ>(codes, noc, D, xb, bmu, alpha, B, xdim, hexa,     \
-                             gaussian, radius, stream);
+                                float* xs, cudaStream_t stream) {
+  if (bad_args(noc, D, B, xdim) || !xs) return (int)cudaErrorInvalidValue;
+  const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
+#define K5_LAUNCH(NT)                                                          \
+  if (k8 <= NT)                                                                \
+    return launch_update<NT>(codes, noc, D, xb, bmu, alpha, B, xdim, hexa,     \
+                             gaussian, radius, xs, stream);
   K5_LAUNCH(1)
   K5_LAUNCH(2)
   K5_LAUNCH(4)
   K5_LAUNCH(8)
+  K5_LAUNCH(16)
+  K5_LAUNCH(32)
 #undef K5_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -131,29 +131,21 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
     return torch.cat(vals), torch.cat(idxs)
 
 
-def codebook_splits(B: int, N: int, device: torch.device) -> int:
-    """How many spans of the codebook K9 splits across gridDim.y: enough
-    for about two CTAs of 64 samples per SM, at most one 64-row tile each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    b_tiles, n_tiles = -(-B // 64), -(-N // 64)
-    return max(1, min(n_tiles, -(-2 * sms // b_tiles)))
-
-
 def k2_splits(B: int, N: int, device: torch.device) -> int:
     """K1's and K2's codebook splits (K8's, K10's and K16's too, on the same
-    walk): the rule of `codebook_splits` for their CTAs of
-    128 samples, rounded down to whole waves: exactly two of them fit on an
-    SM (their registers), so a count that leaves a partial second wave
+    walk): enough spans of whole 64-row tiles for about two CTAs of 128
+    samples per SM, rounded down to whole waves: exactly two of them fit on
+    an SM (their registers), so a count that leaves a partial second wave
     costs a whole one (at B 4096, 9 splits would be 288 CTAs on 264 slots
     of an H100)."""
     return _whole_waves(B, N, device, 2)
 
 
 def k4_splits(B: int, N: int, D: int, device: torch.device) -> int:
-    """K4's codebook splits: K1's CTAs of 128 samples, in whole waves of
-    the CTAs an SM holds: two up to D 64 (its registers and 100 KB of
-    shared memory each), one past it (the slab walk keeps the tile's sums
-    of both contractions in registers)."""
+    """K4's codebook splits (K9's too, on the same walk): K1's CTAs of 128
+    samples, in whole waves of the CTAs an SM holds: two up to D 64 (its
+    registers and 100 KB of shared memory each), one past it (the slab walk
+    keeps the tile's sums of both contractions in registers)."""
     return _whole_waves(B, N, device, 2 if D <= 64 else 1)
 
 

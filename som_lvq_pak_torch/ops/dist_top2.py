@@ -27,8 +27,10 @@ Any other device raises.  Each wrapper counts its kernel launches in its
 launched through `ops.dist_topk._launch`): K1's split-TF32 tensor-core walk
 with a top-k fold, the codebook split as K1's (`k2_splits`), so its best
 pair is K1's (value, index) bit for bit on the same inputs.  K9
-(`csrc/dist_top2.cu`) runs FP32 FMAs on CUDA cores, split by
-`codebook_splits`.
+(`csrc/dist_top2.cu`) is K4's masked split-TF32 walk
+(`csrc/masked_walk.cuh`) with the same fold at two, the codebook split as
+K4's (`k4_splits`), so its best pair is `dist_argmin_masked`'s (value,
+index) bit for bit on the same inputs.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import _check, _check_mask, _rows_per_chunk, codebook_splits
+from .dist_argmin import _check, _check_mask, _rows_per_chunk, k4_splits
 from .dist_topk import _launch as topk_launch
 from .distance import fp32_matmul, keep_of, mask_bytes
 
@@ -92,7 +94,7 @@ def _launch_masked(x: torch.Tensor, codes: torch.Tensor, m8: torch.Tensor) -> To
     i1, i2 = torch.empty((B,), **i32), torch.empty((B,), **i32)
     if B == 0:
         return v1, i1, v2, i2
-    splits = codebook_splits(B, N, x.device)
+    splits = k4_splits(B, N, D, x.device)
     pv = torch.empty((splits, B, 2), **f32)
     pi = torch.empty((splits, B, 2), **i32)
     _build.call("somvq_dist_top2_masked", x.data_ptr(), m8.data_ptr(),
@@ -100,7 +102,8 @@ def _launch_masked(x: torch.Tensor, codes: torch.Tensor, m8: torch.Tensor) -> To
                 v1.data_ptr(), i1.data_ptr(), v2.data_ptr(), i2.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     dist_top2_masked.launches += 1
-    # the kernel returns partial distances; add ||x keep||^2 here
+    # the kernel returns partial distances; add ||x keep||^2 here, summed as
+    # dist_argmin_masked sums it
     xk = x * keep_of(m8)
     x2 = (xk * xk).sum(-1)
     return torch.clamp(v1 + x2, min=0.0), i1, torch.clamp(v2 + x2, min=0.0), i2

@@ -17,11 +17,14 @@ leave every unit's matching component untouched (lvq_pak.c:349-356).
 The codebook is updated IN PLACE, as by K3 (the caller owns the resident
 codebook; each CUDA block reads and writes only its own rows), and returned.
 
-A CUDA tensor launches the kernel in `csrc/som_update.cu`: K5 runs FP32
-FMAs on CUDA cores; K6 runs W.(X o K) and the mass W.K on the tensor cores
-as split-TF32 `mma.sync` products (float32 accuracy; `ops.tf32x3.
-som_update_masked_tf32x3` emulates its sums).  A CPU tensor runs the plain
-version below.  The wrappers count their kernel launches in their
+A CUDA tensor launches the kernel in `csrc/som_update.cu`, both on the
+tensor cores as split-TF32 `mma.sync` products (float32 accuracy).  K5 is
+K3's update half (`csrc/fused_step_tc.cuh`, as K11 runs it) with the blend,
+the batch split once into a scratch (`ops.som_step._split_scratch`): its
+codebook is K3's rows on the same winners bit for bit
+(`ops.tf32x3.som_update_tf32x3` emulates it).  K6 runs W.(X o K) and the
+mass W.K (`ops.tf32x3.som_update_masked_tf32x3`).  A CPU tensor runs the
+plain version below.  The wrappers count their kernel launches in their
 `launches` attributes.
 """
 
@@ -33,7 +36,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul, keep_of, mask_bytes
-from .som_step import MAX_D, guarded_blend, neighborhood_w
+from .som_step import MAX_D, _split_scratch, guarded_blend, neighborhood_w
 
 
 def som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa, alpha,
@@ -109,10 +112,12 @@ def som_neighborhood_update_idx(
         return som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa,
                                                  aw, radius, gaussian)
     xb = xb.contiguous()
-    _build.call("somvq_som_update", codes.data_ptr(), codes.shape[0],
-                codes.shape[1], xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(),
-                xb.shape[0], int(xdim), int(bool(hexa)), int(bool(gaussian)),
-                float(radius), torch.cuda.current_stream(codes.device).cuda_stream)
+    B, D = xb.shape
+    xs = _split_scratch(B, 0, D, codes.device)
+    _build.call("somvq_som_update", codes.data_ptr(), codes.shape[0], D,
+                xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B, int(xdim),
+                int(bool(hexa)), int(bool(gaussian)), float(radius),
+                xs.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream)
     som_neighborhood_update_idx.launches += 1
     return codes
 

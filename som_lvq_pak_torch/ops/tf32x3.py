@@ -1,5 +1,5 @@
-"""A plain emulation of the split-TF32 ("3xTF32") products that K1, K2, K3,
-K4, K6, K7, K8, K11, K13, K14, K16 and K17 run on the tensor cores
+"""A plain emulation of the split-TF32 ("3xTF32") products that K1-K13,
+K14's main form, K16 and K17 run on the tensor cores
 (csrc/tf32x3.cuh), for the tests and chip_smoke.py.  No main-path code calls
 it.
 
@@ -15,19 +15,20 @@ them to float32 rounding, not bit for bit.
 `som_neighborhood_accumulate_tf32x3`, `som_fused_factored_step_tf32x3`,
 `som_fused_factored_chunked_step_tc`, `fused_step_skeleton_tf32x3`,
 `f32_winner_probe_tf32x3`, `dist_top2_tf32x3`,
-`som_vmem_train_steps_tf32x3`, `som_blend_winner_tf32x3` and
-`dist_topk_tf32x3` are the plain K3, K2, K1, K4, K6, K11, K13, K14's main
-form, K17, K16, K8, K7, K12 and K10 with their contractions through
-`tf32x3_mm` (K4's
-keep.(m o m) and K6's weight mass through two products, the lo part then the
-hi part, keep being exact in TF32; K14's under batch_bf16 and K17's bf16
-operands through one `tf32_mm` pass, a bf16 value being exact in TF32),
+`som_vmem_train_steps_tf32x3`, `som_blend_winner_tf32x3`,
+`dist_topk_tf32x3`, `dist_top2_masked_tf32x3` and `som_update_tf32x3` are
+the plain K3, K2, K1, K4, K6, K11, K13, K14's main form, K17, K16, K8, K7,
+K12, K10, K9 and K5 with their contractions through `tf32x3_mm` (K4's and
+K9's keep.(m o m) and K6's weight mass through two products, the lo part
+then the hi part, keep being exact in TF32; K14's under batch_bf16 and K17's
+bf16 operands through one `tf32_mm` pass, a bf16 value being exact in TF32),
 summed as the kernels sum: the numeric design the kernels implement, held to
 the port's gates on the CPU.  K11 is K3's update half and K12 its blend and
 winners: K11's sums of a row are the ones K3's emulation blends into that
 row, and K12's emulation blending them gives K3's rows, winners and values,
-bit for bit.  K8 and K10 score as K1 and K7 steps as K3, so their emulations
-are K1's scoring with a second winner or k of them, and K chained K3 steps.
+bit for bit; K5 is K11 with the blend, so its rows are K3's too.  K8 and
+K10 score as K1, K9 as K4, and K7 steps as K3, so their emulations are K1's
+or K4's scoring with a second winner or k of them, and K chained K3 steps.
 """
 
 from __future__ import annotations
@@ -108,6 +109,17 @@ def som_neighborhood_accumulate_tf32x3(xb, bmu, n_local, xdim, hexa, alpha,
     units = unit_offset + torch.arange(n_local, dtype=torch.int32, device=dev)
     w = neighborhood_w(bmu.to(torch.int32), aw, r, units, xdim, hexa, gaussian)
     return chunk_sums(w, xb), w.sum(1, keepdim=True)
+
+
+def som_update_tf32x3(codes, xb, bmu, xdim, hexa, alpha, radius, gaussian=False):
+    """The plain K5 (`som_neighborhood_update_idx_plain` without a mask) as
+    the kernel sums: K3's update half (`som_neighborhood_accumulate_tf32x3`
+    on the whole map) then the guarded blend.  Returns the new float32
+    codebook, K3's emulation's rows on the same winners bit for bit;
+    `codes` is not changed."""
+    acc, wsum = som_neighborhood_accumulate_tf32x3(xb, bmu, codes.shape[0], xdim,
+                                                   hexa, alpha, radius, gaussian)
+    return guarded_blend(codes.to(torch.float32), acc, wsum)
 
 
 def som_fused_train_step_tf32x3(codes, xb, bmu, xb_next, xdim, hexa, alpha,
@@ -195,22 +207,48 @@ def dist_topk_tf32x3(x: torch.Tensor, codes: torch.Tensor, k: int
             torch.cat(idx, 1).to(torch.int32))
 
 
-def dist_argmin_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,
-                              mask: torch.Tensor
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain K4 (`dist_argmin_masked_plain`) as the kernel scores:
-    (x keep).m through `tf32x3_mm`, keep.(m o m) as keep.(m o m)_lo +
-    keep.(m o m)_hi (keep is exact in TF32), d = keep.(m o m) - 2 (x keep).m;
-    first index on ties; ||x keep||^2 added back: (sq_dists, int32 idx)."""
+def _masked_scores(x, codes, mask):
+    """K4's partial distances as its walk scores them: (x keep).m through
+    `tf32x3_mm`, keep.(m o m) as keep.(m o m)_lo + keep.(m o m)_hi (keep is
+    exact in TF32), d = keep.(m o m) - 2 (x keep).m (B, N); and ||x keep||^2
+    (B,)."""
     fp32_matmul()
     keep = keep_of(mask)
     xk = x * keep
     qhi, qlo = tf32_split(codes * codes)
     d = (keep @ qlo.T + keep @ qhi.T) - 2.0 * tf32x3_mm(xk, codes.T)
+    return d, (xk * xk).sum(-1)
+
+
+def dist_argmin_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,
+                              mask: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain K4 (`dist_argmin_masked_plain`) as the kernel scores
+    (`_masked_scores`); first index on ties; ||x keep||^2 added back:
+    (sq_dists, int32 idx)."""
+    d, x2 = _masked_scores(x, codes, mask)
     i = torch.argmin(d, dim=1)
-    x2 = (xk * xk).sum(-1)
     val = torch.clamp(d.gather(1, i[:, None])[:, 0] + x2, min=0.0)
     return val, i.to(torch.int32)
+
+
+def dist_top2_masked_tf32x3(x: torch.Tensor, codes: torch.Tensor,
+                            mask: torch.Tensor):
+    """The plain K9 (`dist_top2_plain` with a mask) as the kernel scores: K9
+    is K4's walk with a top-2 fold, so this is K4's scores
+    (`_masked_scores`) with the two first minima in turn (the lower index on
+    ties), the first masked out by +inf once taken, then ||x keep||^2 added
+    and clamped at 0: (d1, i1, d2, i2).  Its first pair is
+    `dist_argmin_masked_tf32x3`'s bit for bit, as K9's is K4's on the
+    card."""
+    d, x2 = _masked_scores(x, codes, mask)
+    out = []
+    for _ in range(2):
+        i = torch.argmin(d, dim=1, keepdim=True)
+        out += [torch.clamp(d.gather(1, i)[:, 0] + x2, min=0.0),
+                i[:, 0].to(torch.int32)]
+        d.scatter_(1, i, float("inf"))
+    return tuple(out)
 
 
 def som_vmem_train_steps_tf32x3(codes, batches, bmu0, alphas, radii, xdim, hexa,
