@@ -25,21 +25,24 @@ phases, each printing one JSON line:
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             one "ptxas" line: registers and spill bytes of each
-            instantiation of K5, K9, K10 and K12, from nvcc's -Xptxas -v report;
+            instantiation of K5, K9, K10, K12 and K14's walk (its stagger and
+            int8_win), from nvcc's -Xptxas -v report;
             one "sass" line: the HMMA (tensor-core) instructions in each
             instantiation of the tensor-core kernels K3, K2, K1, K4, K5, K6,
-            K7, K9, K10 (K8 its KM 2), K11, K12, K13, K14's main form, K16
-            and K17, from cuobjdump --dump-sass of the library (none fails
-            the run);
+            K7, K9, K10 (K8 its KM 2), K11, K12, K13, K14's main form and its
+            walk, K16 and K17, and the IMMA (int8 tensor-core) instructions
+            in each instantiation of K14's int8_win walk, from cuobjdump
+            --dump-sass of the library (none fails the run);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
             bound (the least time the card could take: FP32 FLOPs at
             67 TFLOP/s or bytes at 3.35 TB/s, whichever is larger); K1-K14
-            but K14's CUDA-core options also with the bound of their route
+            (K14's options too) also with the bound of their route
             (the TF32 products they issue at 495 TFLOP/s: three per FP32
             product, two for K6's weight mass and K4's and K9's keep.(m o
-            m), one for K14's under batch_bf16) and the share of it they
+            m), one for K14's under batch_bf16; int8_win's winners as int8
+            operations at 1979 TOP/s) and the share of it they
             reach, and run twice on the same inputs, bit-equal.  K1 is
             also bit-equal to K2 on the same inputs at every K1 shape (one
             kernel body), and the
@@ -103,20 +106,22 @@ phases, each printing one JSON line:
             masked 1M cell's step, 128x128, 12x8 at D 64 and D 5, a ragged
             10x6 map at D 37 and 16x16 at D 200, and the exact bubble
             boundary through K6;
-3b. kernels  K14's stagger at every K14 case, bit-equal to the plain
-            schedule of its CUDA-core body on the same inputs
-            (ops.som_step._som_fused_factored_chunked_step_cuda_cores);
+3b. kernels  K14's stagger at every K14 case and a bf16 codebook,
+            bit-equal (codebook, winners, values) to K14's main form on the
+            same inputs, and at 64x64 also on persistent grids forced to 1
+            and 3 CTAs (several tiles per CTA);
             K14's int8_win at int8_step_ab's step (256x256 B 4096, chunk
             1024, bf16 x-pattern), 64x64 with both bf16 options, 64x64
             bubble, bf16 batches at 256x256 B 8192 and a bf16 codebook: the
-            codebook bit-equal to that CUDA-core body's without it, stagger
+            codebook bit-equal to K14's main form's without it, stagger
             bit-equal, winners
             equal to the plain int8 scoring of its own rows (values within
             1e-5 relative), against the plain int8 run equal except within one
             quantization step, values within 5e-5 where they agree; a bf16
             codebook's winners and values bit-equal to the same step on the
             codebook widened to float32 (its bound: the update at the FP32 or
-            BF16 peak plus the winners at the INT8 peak, 1979 TOP/s).  K15 and K16
+            BF16 peak plus the winners at the INT8 peak, 1979 TOP/s; its
+            route's: the update's TF32 products plus the int8 winners).  K15 and K16
             (int8/f32_winner_probe) at tools/int8_probe.py's 65536 x 64 x
             4096, at 999 x 5 x 1000, with every row twice and at 1000 x 130
             x 999, bit-equal to plain and to a rerun, with library_ms (torch._int_mm / torch.mm,
@@ -183,12 +188,11 @@ phases, each printing one JSON line:
             (K8 clean, K9 masked), the masked accuracy (K4); within 0.5
             points of the plain run.
 13a. e2e_int8_win_256x256_B4096  som_lvq_pak_torch.tools.int8_step_ab: the
-            step times of the float32 (K14's main form), int8_win, stagger
-            and cuda_cores (K14's CUDA-core body) chains with K17 beside
-            them, then 64 training steps of each from K1's winners and the
-            qerror over 262,144 samples (K2); int8_win's qerror within 1% of
-            float32's, the stagger codebook bit-equal to the cuda_cores
-            chain's.
+            step times of the float32 (K14's main form), int8_win and stagger
+            (K14's walk) chains with K17 beside them, then 64 training steps
+            of each from K1's winners and the qerror over 262,144 samples
+            (K2); int8_win's qerror within 1% of float32's, the stagger
+            codebook bit-equal to the float32 chain's.
 13b. int8_probe  som_lvq_pak_torch.tools.int8_probe: the bf16/int8 library
             rates at 4096^3 and K15 against K16 at 65536 x 64 x 4096.
 
@@ -289,7 +293,9 @@ PEAK_BYTES_S = 3.35e12
 # K1 (K2's body under its own name), K4 (K1's CTA shape with the keep
 # contraction), K6, K11 (K3's update half), K12 (K3's blend-and-winner
 # half), K13 (K3's body with the separable W), K14's main form (K13's body;
-# one TF32 product under batch_bf16), K16 (K2's body without the norm), K17
+# one TF32 product under batch_bf16) and its walk (stagger and int8_win:
+# the same body's chunk functions; int8_win's winners on int8 mma.sync, the
+# IMMA of INT8_MMA_KERNELS), K16 (K2's body without the norm), K17
 # (its bf16 twin as one TF32 product), K10 (K1's body with a top-k fold;
 # K8 is its instantiation at KM 2, launched at k = 2), K7 (K3's step body
 # on the resident codebook), K9 (K4's walk with K10's fold at KM 2) and K5
@@ -302,7 +308,9 @@ SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel",
                       "som_vmem_steps_kernel", "som_blend_winner_kernel",
                       "dist_topk_kernel", "dist_top2_masked_kernel",
-                      "som_update_kernel")
+                      "som_update_kernel", "som_fused_chunked_stagger_kernel",
+                      "som_fused_chunked_int8_kernel")
+INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 
 # K16 on normal float32 inputs: within this relative gap of the float64
 # maximum (split TF32 is about 2^-21 relative per product, float32 sums of 64)
@@ -339,15 +347,17 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
     W.(X o K), two for W.K; K4 and K9: three for (x keep).m, two for
     keep.(m o m); K14 under batch_bf16: one), also the bound of that route,
     route_bound_ms:
-    those FLOPs at the TF32 peak, or the bytes.  library_ms is null here: a
+    those FLOPs at the TF32 peak (and `int8_ops` at the INT8 peak: int8_win's
+    winners run on int8 mma.sync), or the bytes.  library_ms is null here: a
     phase sets it where one PyTorch call computes the kernel's function."""
-    f_ms = 1e3 * flops / peak + 1e3 * int8_ops / PEAK_INT8_OPS
+    i_ms = 1e3 * int8_ops / PEAK_INT8_OPS
+    f_ms = 1e3 * flops / peak + i_ms
     b_ms = 1e3 * nbytes / PEAK_BYTES_S
     rec = dict(bound_ms=max(f_ms, b_ms),
                bound_by="operations" if f_ms >= b_ms else "bytes",
                library_ms=None)
     if route_flops is not None:
-        rec["route_bound_ms"] = max(1e3 * route_flops / PEAK_TF32_FLOPS, b_ms)
+        rec["route_bound_ms"] = max(1e3 * route_flops / PEAK_TF32_FLOPS + i_ms, b_ms)
     return rec
 
 
@@ -387,31 +397,63 @@ def library_winners(x, codes, form, k=2, mask=None):
     return out
 
 
-def sass_hmma(library: str) -> dict:
-    """Tensor-core use of the split-TF32 kernels (SPLIT_TF32_KERNELS), read
+def sass_mma(library: str, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict:
+    """Tensor-core use of `kernels` (the split-TF32 ones unless given), read
     from the built library's SASS with cuobjdump (tools.sass_diff; ncu does
-    not run on every host): the HMMA instructions in each of their
-    instantiations, by mangled name from the kernel's name on.  Raises if
-    an instantiation has none, or if none is found."""
+    not run on every host): the `op` instructions (HMMA, or IMMA for the int8
+    products) in each of their instantiations, by mangled name from the
+    kernel's name on.  Raises if an instantiation has none, or if none is
+    found."""
     from som_lvq_pak_torch.tools.sass_diff import sass
 
     counts = {}
     for name, insns in sass(library).items():
-        base = [b for b in SPLIT_TF32_KERNELS if b in name]
+        base = [b for b in kernels if b in name]
         if base:
-            counts[name[name.index(base[0]):]] = sum("HMMA" in i for i in insns)
-    for base in SPLIT_TF32_KERNELS:
+            counts[name[name.index(base[0]):]] = sum(op in i for i in insns)
+    for base in kernels:
         found = {k: v for k, v in counts.items() if k.startswith(base)}
         if not found or not all(found.values()):
-            raise AssertionError(f"{base}: no HMMA instructions in the SASS: {found}")
+            raise AssertionError(f"{base}: no {op} instructions in the SASS: {found}")
     return counts
 
 
+def template_args(name: str, base: str) -> list:
+    """The template arguments of kernel `base` in the mangled `name`:
+    integers and bools as their values, float as f32, __nv_bfloat16 (or a
+    substitution, which among these kernels' arguments can only repeat it)
+    as bf16."""
+    import re
+
+    i = name.find(base + "I")
+    s, out = (name[i + len(base) + 1:] if i >= 0 else "E"), []
+    while s and s[0] != "E":
+        m = re.match(r"L[ib](\d+)E|f|(\d+)|S\w*?_", s)
+        if m is None:
+            break
+        if m.group(1) is not None:
+            out.append(m.group(1))
+        elif m.group(0) == "f":
+            out.append("f32")
+        elif m.group(2) is not None:
+            n0 = len(m.group(2))
+            out.append("bf16" if "bfloat16" in s[n0:n0 + int(m.group(2))] else
+                       s[n0:n0 + int(m.group(2))])
+            s = s[n0 + int(m.group(2)):]
+            continue
+        else:
+            out.append("bf16")
+        s = s[m.end():]
+    return out
+
+
 def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel",
-                                  "dist_top2_masked_kernel", "som_update_kernel")) -> dict:
+                                  "dist_top2_masked_kernel", "som_update_kernel",
+                                  "som_fused_chunked_stagger_kernel",
+                                  "som_fused_chunked_int8_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
-    (K10, K12, K9 and K5 unless given), from nvcc's -Xptxas -v report (the
-    build's log): {"name<args>":
+    (K10, K12, K9, K5 and K14's walk unless given), from nvcc's -Xptxas -v
+    report (the build's log): {"name<args>":
     {"registers", "spill_stores", "spill_loads"}}."""
     import re
 
@@ -423,8 +465,7 @@ def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel",
             base = next((b for b in bases if b in name), None)
             fn = None
             if base:
-                args = re.search(base + r"I((?:L[ib]\d+E)+)E", name)
-                targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+                targs = template_args(name, base)
                 fn = base + (f"<{','.join(targs)}>" if targs else "")
                 out.setdefault(fn, {})
             continue
@@ -687,7 +728,7 @@ def bf16_ulp_close(got, want, atol=1e-5) -> bool:
 def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                name="som_fused_train_step", kw=None, bf16=False, dup=False,
                codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5, twin=None,
-               twin_kernel=None, tf32x3=False, separable=False, route_mult=None):
+               tf32x3=False, separable=False, route_mult=None):
     """A fused-step kernel (K3, K13 or K14, options `kw`) against its plain
     version: a few samples without a BMU, per-sample alphas.  Codes within
     `codes_tol` (a bf16 codebook: bf16_ulp_close), winners equal except where
@@ -699,11 +740,10 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     `win_rel`, values to `val_tol`, or to (1e-4, 1e-4) under batch_bf16.
     With `dup` every code is there three times and alpha is 0: the rows do
     not move, and the first copy must win every exact tie, as in the plain
-    version.  With `twin` (options), the kernel (or `twin_kernel`) run under
-    those options on the same inputs must give the same codebook, winners
-    and values bit for bit (K14's stagger against the CUDA-core body without
-    it; K3, K13 and K14's main form against a rerun).  `tf32x3` (K3, K13)
-    adds the split-TF32 route's bound and share, and on a float32 codebook
+    version.  With `twin` (options), the kernel run under those options on
+    the same inputs must give the same codebook, winners and values bit for
+    bit (K14's stagger against its main form; K3, K13 and K14's main form
+    against a rerun).  `tf32x3` (K3, K13) adds the split-TF32 route's bound and share, and on a float32 codebook
     the mean distance of the kernel's and the plain version's codebooks from
     the same blend taken in float64 (W from the separable factors with
     `separable`, K13's); `route_mult` (K14's main form) the route's bound and
@@ -738,11 +778,9 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
            + "".join(f" {k}={v}" for k, v in kw.items()) \
            + (" bf16 codebook" if bf16 else "") + (" every code three times" if dup else "")
     if twin is not None:
-        tw = (twin_kernel or kernel)(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius,
-                                     gaussian, **twin)
+        tw = kernel(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, **twin)
         if not all(torch.equal(a, b) for a, b in zip((ck, ik, vk), tw)):
-            raise AssertionError(f"{name}: not bit-equal to "
-                                 f"{(twin_kernel or kernel).__name__} under {twin}")
+            raise AssertionError(f"{name}: not bit-equal to {kernel.__name__} under {twin}")
     err = float((ck.float() - cp.float()).abs().max())
     if not (bf16_ulp_close(ck, cp) if bf16
             else torch.allclose(ck, cp, rtol=codes_tol, atol=codes_tol)):
@@ -927,9 +965,9 @@ def phase_bubble_boundary():
 
 def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
     """K14 with int8_win (options `kw`) on phase_step's inputs.  The codebook
-    must equal, bit for bit, that of K14's CUDA-core body (the body int8_win
-    runs) without int8_win, and K14's with stagger added (winners and values
-    too).  A bf16 codebook's int8 rows and
+    must equal, bit for bit, that of K14's main form (without int8_win: the
+    update half int8_win's walk runs), and K14's with stagger added (winners
+    and values too).  A bf16 codebook's int8 rows and
     ||m||^2 come from the float32 blend, not the rows rounded for storage:
     its winners and values must equal, bit for bit, those of the same step
     on the codebook widened to float32, and its rows that step's rounded to
@@ -942,13 +980,16 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
     winners equal except where the plain run's two scores lie within
     q1 * sum_k |x'_k| of each other (one quantization step in every entry
     of the row), and where the winners agree, values within 5e-5 + 1e-5
-    relative (the largest difference on an H100 at these cases was 1.5e-5)."""
+    relative (the largest difference on an H100 at these cases was 1.5e-5).
+    Its route's bound: the update's TF32 products (three per FP32 product,
+    one under batch_bf16) at 495 TFLOP/s plus the winners' 2 noc B D int8
+    operations at 1979 TOP/s."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
     from som_lvq_pak_torch.ops.som_step import (
-        _som_fused_factored_chunked_step_cuda_cores as k14_cores, fused_step_winners_int8,
-        int8_win_inputs, int8_win_scores, som_fused_factored_chunked_step as k14,
+        fused_step_winners_int8, int8_win_inputs, int8_win_scores,
+        som_fused_factored_chunked_step as k14,
         som_fused_factored_chunked_step_plain as k14p)
 
     noc = xdim * ydim
@@ -962,7 +1003,7 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
     if bf16:
         codes = codes.to(torch.bfloat16)
     args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
-    c0 = k14_cores(codes.clone(), *args, **kw)[0]
+    c0 = k14(codes.clone(), *args, **kw)[0]
     ck, ik, vk = k14(codes.clone(), *args, int8_win=True, **kw)
     cs, is_, vs = k14(codes.clone(), *args, int8_win=True, stagger=True, **kw)
     cp, ip, vp = k14p(codes.clone(), *args, int8_win=True, **kw)
@@ -971,7 +1012,7 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
             f"{'gaussian' if gaussian else 'bubble'} int8_win=True"
             + "".join(f" {k}={v}" for k, v in kw.items()) + (" bf16 codebook" if bf16 else ""))
     if not torch.equal(ck, c0):
-        raise AssertionError(f"{name}: the codebook differs from K14's CUDA-core body "
+        raise AssertionError(f"{name}: the codebook differs from K14's main form "
                              "without int8_win")
     if not (torch.equal(cs, ck) and torch.equal(is_, ik) and torch.equal(vs, vk)):
         raise AssertionError(f"{name}: stagger=True is not bit-equal")
@@ -1031,7 +1072,9 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
                plain_ms=cuda_ms(lambda: k14p(work, *args, int8_win=True, **kw)),
                **bound(2 * noc * B * D, 2 * cb * noc * D + 5 * B * D + 16 * B,
                        PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS,
-                       int8_ops=2 * noc * B * D))
+                       int8_ops=2 * noc * B * D,
+                       route_flops=(1 if batch_bf16 else 3) * 2 * noc * B * D))
+    rec.update(route_pct(rec))
     rec["library_ms"] = rec["plain_ms"]  # the plain step with int8 winners: that chain
     emit("kernels", **rec)
     return rec
@@ -1195,13 +1238,12 @@ K14_ROWS_CASES = (((32, 32, True, True, 4096, 64, 8.0), 58, K14_BOTH),
 
 def k14_step(case, seed, kw, twin=None, bf16=False, name="som_fused_factored_chunked_step"):
     """phase_step on K14 with options `kw`, at the tolerances of its batches
-    and codebook.  The main form (no stagger, no int8_win) reruns bit-equal
-    and carries its route's bound (one TF32 product per float32 product
-    under batch_bf16, three otherwise); an option is held bit-equal to the
-    CUDA-core body under the options `twin`."""
-    from som_lvq_pak_torch.ops.som_step import (
-        _som_fused_factored_chunked_step_cuda_cores, som_fused_factored_chunked_step,
-        som_fused_factored_chunked_step_plain)
+    and codebook, with its route's bound (one TF32 product per float32
+    product under batch_bf16, three otherwise).  The main form (no stagger,
+    no int8_win) reruns bit-equal; stagger is held bit-equal to K14 under the
+    options `twin` (the same options without it: the main form)."""
+    from som_lvq_pak_torch.ops.som_step import (som_fused_factored_chunked_step,
+                                                som_fused_factored_chunked_step_plain)
 
     if bf16:
         tols = dict(val_tol=(0.0, 5e-3), win_rel=1e-2)
@@ -1212,9 +1254,21 @@ def k14_step(case, seed, kw, twin=None, bf16=False, name="som_fused_factored_chu
     return phase_step(som_fused_factored_chunked_step,
                       som_fused_factored_chunked_step_plain, *case, seed=seed,
                       name=name, kw=kw, twin=kw if main else twin,
-                      twin_kernel=None if main else _som_fused_factored_chunked_step_cuda_cores,
-                      route_mult=(1 if kw.get("batch_bf16") else 3) if main else None,
-                      bf16=bf16, **tols)
+                      route_mult=1 if kw.get("batch_bf16") else 3, bf16=bf16, **tols)
+
+
+@contextlib.contextmanager
+def k14_stagger_ctas(n: int):
+    """K14's staggered grid capped at `n` CTAs (ops.som_step.
+    K14_STAGGER_CTAS), so that each CTA walks several tiles."""
+    from som_lvq_pak_torch.ops import som_step
+
+    saved = som_step.K14_STAGGER_CTAS
+    som_step.K14_STAGGER_CTAS = n
+    try:
+        yield
+    finally:
+        som_step.K14_STAGGER_CTAS = saved
 
 
 @contextlib.contextmanager
@@ -1241,13 +1295,20 @@ def option_phases(recs):
                                                     int8_winner_probe,
                                                     int8_winner_probe_plain)
 
-    # K14's stagger (a persistent grid on the CUDA-core body) at every K14
-    # case: bit-equal to that body's plain schedule on the same inputs, and
-    # held against the plain version as K14 is; its record at int8_step_ab's
-    # step (256x256 B 4096, the bf16 x-pattern)
+    # K14's stagger (its walk on a persistent grid) at every K14 case and a
+    # bf16 codebook: bit-equal to K14's main form on the same inputs, and
+    # held against the plain version as K14 is; at 64x64 (64 tiles, one per
+    # CTA on the resident grid) also on grids of 1 and 3 CTAs; its record at
+    # int8_step_ab's step (256x256 B 4096, the bf16 x-pattern: 1024 tiles,
+    # several per CTA)
     stag = [k14_step(case, seed, dict(kw, stagger=True), twin=kw)
             for case, seed, kw in K14_CASES]
     k14_step(*K14_BF16_CODEBOOK, dict(K14_BOTH, stagger=True), twin=K14_BOTH, bf16=True)
+    case, seed, kw = K14_CASES[0]
+    for ctas in (1, 3):
+        with k14_stagger_ctas(ctas):
+            stag.append(k14_step(case, seed, dict(kw, stagger=True), twin=kw,
+                                 name=f"som_fused_factored_chunked_step ctas={ctas}"))
     recs["som_fused_factored_chunked_step[stagger]"] = dict(
         stag[1], max_abs_err=max(r["max_abs_err"] for r in stag))
     # K14's int8_win at int8_step_ab's step (its record), 64x64 with both bf16
@@ -1844,8 +1905,7 @@ def counted():
     from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
                                                    dist_argmin_t)
     from som_lvq_pak_torch.ops.skeleton import fused_step_skeleton
-    from som_lvq_pak_torch.ops.som_step import (CHUNKED_CUDA_CORES, CHUNKED_INT8_WIN,
-                                                CHUNKED_STAGGER,
+    from som_lvq_pak_torch.ops.som_step import (CHUNKED_INT8_WIN, CHUNKED_STAGGER,
                                                 som_fused_factored_chunked_step,
                                                 som_fused_factored_step,
                                                 som_fused_train_step)
@@ -1864,7 +1924,6 @@ def counted():
             som_vmem_train_steps, dist_top2, dist_top2_masked, dist_topk,
             som_neighborhood_accumulate, som_blend_winner, som_fused_factored_step,
             som_fused_factored_chunked_step, CHUNKED_INT8_WIN, CHUNKED_STAGGER,
-            CHUNKED_CUDA_CORES,
             int8_winner_probe, f32_winner_probe, fused_step_skeleton, segment_sum)
 
 
@@ -2675,7 +2734,8 @@ def main() -> int:
     # earlier one's (built_now says which); empty if that build kept no log
     ptxas = ptxas_report(_build.build_log())
     emit("ptxas", card=smi, built_now=built_now, report=ptxas)
-    emit("sass", hmma_per_function=sass_hmma(_build.library_path()))
+    emit("sass", hmma_per_function=sass_mma(_build.library_path()),
+         imma_per_function=sass_mma(_build.library_path(), INT8_MMA_KERNELS, "IMMA"))
     if sys.argv[1:] == ["--profile"]:
         profile_cells()
         print(smi)
@@ -3201,19 +3261,16 @@ def main() -> int:
     # of the float32, int8_win and stagger chains with K17 beside them, then
     # 64 training steps each (K1 prologue) and their qerror (K2); the tool
     # raises unless int8_win's qerror is within 1% of float32's and the
-    # stagger chain ends bit-equal to the plain schedule's on K14's CUDA-core
-    # body (the cuda_cores chain)
+    # stagger chain ends bit-equal to the float32 chain (K14's main form)
     ab, _, got = main_path(
         "e2e_int8_win_256x256_B4096", lambda: int8_step_ab.run(device="cuda"),
         ("dist_argmin", "som_fused_factored_chunked_step", "dist_argmin_t",
          "som_fused_factored_chunked_step[int8_win]",
-         "som_fused_factored_chunked_step[stagger]",
-         "som_fused_factored_chunked_step[cuda_cores]", "fused_step_skeleton"))
+         "som_fused_factored_chunked_step[stagger]", "fused_step_skeleton"))
     tally(got)
     emit("e2e_int8_win_256x256_B4096", card=smi, **ab, launches=got,
          gate="int8_win qerror within 1% of float32's; the stagger chain's codebook "
-              "bit-equal to the cuda_cores chain's (the plain schedule on the same "
-              "body)")
+              "bit-equal to the f32 chain's (K14's main form)")
     # ---- the int8 winner probe (tools/int8_probe): library rates, K15, K16 --
     probe, _, got = main_path("int8_probe", lambda: int8_probe.run(device="cuda"),
                               ("int8_winner_probe", "f32_winner_probe"))
@@ -3254,10 +3311,10 @@ def main() -> int:
         "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/som_fused_chunked_tc.cuh",
                                             "som_lvq_pak_tpu/ops/pallas_som.py:904"),
         "som_fused_factored_chunked_step[int8_win]": (
-            "som_lvq_pak_torch/csrc/som_fused_factored.cu",
+            "som_lvq_pak_torch/csrc/som_fused_chunked_tc.cuh",
             "som_lvq_pak_tpu/ops/pallas_som.py:1056"),
         "som_fused_factored_chunked_step[stagger]": (
-            "som_lvq_pak_torch/csrc/som_fused_factored.cu",
+            "som_lvq_pak_torch/csrc/som_fused_chunked_tc.cuh",
             "som_lvq_pak_tpu/ops/pallas_som.py:1117"),
         "int8_winner_probe": ("som_lvq_pak_torch/csrc/winner_probe.cu",
                               "tools/int8_probe.py:95"),

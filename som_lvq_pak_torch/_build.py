@@ -48,11 +48,10 @@ _SIGNATURES = {
                              _I, ctypes.c_float, _I, _P, _P, _P, _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
     # gaussian, radius, chunked, wxa_bf16, batch_bf16, stagger, int8_win,
-    # cuda_cores, rows, xs, xq, q, pat, ytab, aw, keys, val, idx, stream
+    # rows, xs, xq, q, pat, ytab, aw, keys, val, idx, stream
     "somvq_som_fused_factored": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
                                  _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
-                                 _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P],
+                                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # rows, seg, B, C, noc, presorted, scratch, out, stream
     "somvq_segment_sum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # m, x, N, D, B, out, stream

@@ -1,14 +1,18 @@
 // The fused SOM step on the tensor cores, shared by K3 (som_fused_step.cu,
-// W from the closed form), K13 and K14's main form (som_fused_factored.cu
-// and som_fused_chunked_tc.cuh, W from the separable tables): batch t's
+// W from the closed form), K13 and K14 (som_fused_factored.cu and
+// som_fused_chunked_tc.cuh, W from the separable tables): batch t's
 // neighbourhood update, then batch t+1's winners against the updated rows,
 // in one pass over the codebook.  Its two halves run alone in the mixed mesh
 // step: the update half (fused_update_tc) as K11 (som_accum.cu: the
 // accumulators of a model shard, written out), the blend and winners
 // (fused_blend_winners_tc) as K12 (som_blend_winner.cu, on the accumulators
-// summed over the data axis).  The kernels differ only in how a W value is built,
-// which a weight policy (ClosedFormW below, SeparableW in separable_w.cuh)
-// supplies:
+// summed over the data axis); K5 (som_update.cu) is the update half with the
+// blend.  Each half is a loop over chunk functions (fetch_update_chunk,
+// update_chunk_tc; blend_rows_tc; winner_scores_tc, winner_fold_tc,
+// winner_merge_tc), which K14's stagger and int8_win call in another order
+// (som_fused_chunked_tc.cuh: chunked_walk) with the same floats.  The
+// kernels differ only in how a W value is built, which a weight policy
+// (ClosedFormW below, SeparableW in separable_w.cuh) supplies:
 //
 //   static size_t floats(...)      shared memory it stages into, per CTA
 //   init(st, r0, warp, g)          its staging area (an offset in the dynamic
@@ -243,6 +247,84 @@ __device__ __forceinline__ ClosedFormW closed_form_w(const int* bmu, const float
   return wp;
 }
 
+// cp.async of update chunk c (samples c kBC..): its rows of the split batch
+// (xb_hi, xb_lo as split_batches_kernel wrote them) into xhi (and xlo) with
+// row stride `stride`, and the policy's inputs for it; then a commit
+template <int DP, bool kBf16, typename WP>
+__device__ __forceinline__ void fetch_update_chunk(float* xhi, float* xlo, int stride,
+                                                   const float* __restrict__ xb_hi,
+                                                   const float* __restrict__ xb_lo, int c,
+                                                   int B, WP& wp, int tid, int nthreads) {
+  const size_t o = (size_t)c * kBC * DP;
+  copy_rows<DP>(xhi, stride, xb_hi + o, kBC, tid, nthreads);
+  if constexpr (!kBf16) copy_rows<DP>(xlo, stride, xb_lo + o, kBC, tid, nthreads);
+  wp.prefetch(c, c * kBC, min(kBC, B - c * kBC), tid, nthreads);
+  cp_async_commit();
+}
+
+// One update chunk c (nb samples) on its staged rows xhi, xlo (row stride
+// `stride`): the chunk's W.X summed in the mma (split-TF32, or one TF32
+// product under kBf16), then added into acc; wsum += its W values in a fixed
+// order (k-step, sample t then t + 4)
+template <int NT, bool kBf16, typename WP>
+__device__ __forceinline__ void update_chunk_tc(float (&acc)[NT][4], float (&wsum)[2],
+                                                const float* xhi, const float* xlo,
+                                                int stride, int c, int nb, const WP& wp,
+                                                int lane) {
+  float part[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kBC / 8; ++ks) {
+    // A fragment: a0 (row g, sample t), a1 (g + 8, t), a2 (g, t + 4),
+    // a3 (g + 8, t + 4)
+    float w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w[q] = wp.w(c, q, ks, nb);
+    wsum[0] += w[0];
+    wsum[0] += w[2];
+    wsum[1] += w[1];
+    wsum[1] += w[3];
+    if constexpr (kBf16) {  // bf16 W and X: one exact TF32 product
+      float a[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[q] = bf16_round(w[q]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float b[2];
+        load_b_kn(b, xhi, stride, 8 * ks, 8 * j, lane);
+        mma_tf32(part[j], a, b);
+      }
+    } else {
+      float ahi[4], alo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(w[q], ahi[q], alo[q]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float bhi[2], blo[2];
+        load_b_kn(bhi, xhi, stride, 8 * ks, 8 * j, lane);
+        load_b_kn(blo, xlo, stride, 8 * ks, 8 * j, lane);
+        mma_tf32x3(part[j], ahi, alo, bhi, blo);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
+}
+
+// wsum of each row over its four lanes, by a fixed xor tree
+__device__ __forceinline__ void wsum_lanes(float (&wsum)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 1);
+    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 2);
+  }
+}
+
 // The update of rows r0 = blockIdx.x * TN..: acc = W.X (split-TF32 mma, or
 // one TF32 product under kBf16) in the mma's C layout, c0 (row g, column 2t),
 // c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1) of n-tile j, and wsum[h]
@@ -277,76 +359,167 @@ __device__ __forceinline__ void fused_update_tc(float (&acc)[NT][4], float (&wsu
   wsum[1] = 0.f;
 
   const int nchunks = (B + kBC - 1) / kBC;
-  copy_rows<DP>(xhi0, L::DSU, xb_hi, kBC, tid, THREADS);
-  if constexpr (!kBf16) copy_rows<DP>(xlo0, L::DSU, xb_lo, kBC, tid, THREADS);
-  wp.prefetch(0, 0, min(kBC, B), tid, THREADS);
-  cp_async_commit();
+  fetch_update_chunk<DP, kBf16>(xhi0, xlo0, L::DSU, xb_hi, xb_lo, 0, B, wp, tid, THREADS);
   for (int c = 0; c < nchunks; ++c) {
     const int s0 = c * kBC, nb = min(kBC, B - s0);
     float* xhi = (c & 1) ? xhi1 : xhi0;
     float* xlo = (c & 1) ? xlo1 : xlo0;
     cp_async_wait_all();
     __syncthreads();  // chunk c landed; chunk c - 1's fragments all read
-    if (c + 1 < nchunks) {  // its buffers were last read by chunk c - 1
-      const size_t o = (size_t)(s0 + kBC) * DP;
-      copy_rows<DP>((c & 1) ? xhi0 : xhi1, L::DSU, xb_hi + o, kBC, tid, THREADS);
-      if constexpr (!kBf16)
-        copy_rows<DP>((c & 1) ? xlo0 : xlo1, L::DSU, xb_lo + o, kBC, tid, THREADS);
-      wp.prefetch(c + 1, s0 + kBC, min(kBC, B - s0 - kBC), tid, THREADS);
-      cp_async_commit();
-    }
+    if (c + 1 < nchunks)  // its buffers were last read by chunk c - 1
+      fetch_update_chunk<DP, kBf16>((c & 1) ? xhi0 : xhi1, (c & 1) ? xlo0 : xlo1, L::DSU,
+                                    xb_hi, xb_lo, c + 1, B, wp, tid, THREADS);
     if constexpr (WP::kStage) {
       wp.stage(c, s0, nb, tid);
       __syncthreads();
     }
-    float part[NT][4];
+    update_chunk_tc<NT, kBf16>(acc, wsum, xhi, xlo, L::DSU, c, nb, wp, lane);
+  }
+  wsum_lanes(wsum);
+}
+
+// The guarded blend of rows r0..r0 + 16 WARPS - 1 from (acc, wsum) in
+// fused_update_tc's register layout, written IN PLACE; ||m||^2 of each
+// float32 blended row (per thread, then a fixed xor tree) into m2s[row]; and
+// each blended float32 value handed to store(r, k, nc), k < DP (0 past D and
+// past noc), for the winners' tile
+template <int NT, int WARPS, typename CT, typename Store>
+__device__ __forceinline__ void blend_rows_tc(const float (&acc)[NT][4],
+                                              const float (&wsum)[2],
+                                              CT* __restrict__ codes, int noc, int D,
+                                              int r0, float* m2s, Store store) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float sq[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kBC / 8; ++ks) {
-      // A fragment: a0 (row g, sample t), a1 (g + 8, t), a2 (g, t + 4),
-      // a3 (g + 8, t + 4)
-      float w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = wp.w(c, q, ks, nb);
-      wsum[0] += w[0];
-      wsum[0] += w[2];
-      wsum[1] += w[1];
-      wsum[1] += w[3];
-      if constexpr (kBf16) {  // bf16 W and X: one exact TF32 product
-        float a[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) a[q] = bf16_round(w[q]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          float b[2];
-          load_b_kn(b, xhi, L::DSU, 8 * ks, 8 * j, lane);
-          mma_tf32(part[j], a, b);
-        }
-      } else {
-        float ahi[4], alo[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(w[q], ahi[q], alo[q]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          float bhi[2], blo[2];
-          load_b_kn(bhi, xhi, L::DSU, 8 * ks, 8 * j, lane);
-          load_b_kn(blo, xlo, L::DSU, 8 * ks, 8 * j, lane);
-          mma_tf32x3(part[j], ahi, alo, bhi, blo);
-        }
+    for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+      const int h = q >> 1, r = 16 * warp + g + 8 * h, k = 8 * j + 2 * t + (q & 1);
+      const int u = r0 + r;
+      float nc = 0.f;
+      if (k < D && u < noc) {
+        CT* p = codes + (size_t)u * D + k;
+        nc = guarded_blend(load_f32(p), acc[j][q], wsum[h]);
+        store_f32(p, nc);
       }
+      sq[h] += nc * nc;
+      store(r, k, nc);
     }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 1);
-    wsum[h] += __shfl_xor_sync(0xffffffffu, wsum[h], 2);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+    if (t == 0) m2s[16 * warp + g + 8 * h] = sq[h];
+  }
+}
+
+// S = tile.X'^T of one BW-sample winner chunk: the split rows 16 warp.. of
+// the tile (thi, tlo; row stride DT) against the chunk's split samples (whi,
+// wlo; stride DW), split-TF32 (one TF32 product under kBf16; tlo, wlo unread)
+template <int NT, int BW, bool kBf16>
+__device__ __forceinline__ void winner_scores_tc(float (&S)[BW / 8][4], const float* thi,
+                                                 const float* tlo, int DT,
+                                                 const float* whi, const float* wlo,
+                                                 int DW, int warp, int lane) {
+#pragma unroll
+  for (int n = 0; n < BW / 8; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+#pragma unroll 2
+  for (int ks = 0; ks < NT; ++ks) {
+    if constexpr (kBf16) {
+      float a[4];
+      load_a(a, thi, DT, 16 * warp, 8 * ks, lane);
+#pragma unroll
+      for (int n = 0; n < BW / 8; ++n) {
+        float b[2];
+        load_b_nk(b, whi, DW, 8 * n, 8 * ks, lane);
+        mma_tf32(S[n], a, b);
+      }
+    } else {
+      float ahi[4], alo[4];
+      load_a(ahi, thi, DT, 16 * warp, 8 * ks, lane);
+      load_a(alo, tlo, DT, 16 * warp, 8 * ks, lane);
+#pragma unroll
+      for (int n = 0; n < BW / 8; ++n) {
+        float bhi[2], blo[2];
+        load_b_nk(bhi, whi, DW, 8 * n, 8 * ks, lane);
+        load_b_nk(blo, wlo, DW, 8 * n, 8 * ks, lane);
+        mma_tf32x3(S[n], ahi, alo, bhi, blo);
+      }
+    }
+  }
+}
+
+// Each sample's (d, row) minimum over the tile's rows r0 + 16 warp.. that
+// this warp holds, d = ||m||^2 - 2 S (S in the mma's C layout), over its two
+// rows per lane, then over the 8 lanes g by a lexicographic (value, row)
+// merge, into redv, redi [warp][BW].  d is -2 fl(S - ||m||^2 / 2) exactly
+// (halving and doubling are exact): the max-score form's value
+template <int BW>
+__device__ __forceinline__ void winner_fold_tc(const float (&S)[BW / 8][4],
+                                               const float* m2s, int r0, int noc,
+                                               float* redv, int* redi, int warp,
+                                               int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = r0 + 16 * warp + g, rb = ra + 8;
+  const float m2a = m2s[16 * warp + g], m2b = m2s[16 * warp + g + 8];
+#pragma unroll
+  for (int n = 0; n < BW / 8; ++n) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // sample 8 n + 2 t + q: rows ra, then rb
+      float bv = INFINITY;
+      int bi = INT_MAX;
+      if (ra < noc) {
+        bv = m2a - 2.f * S[n][q];
+        bi = ra;
+      }
+      if (rb < noc) {
+        const float d = m2b - 2.f * S[n][2 + q];
+        if (d < bv) {
+          bv = d;
+          bi = rb;
+        }
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes g of sample
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (lex_less(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (g == 0) {
+        redv[warp * BW + 8 * n + 2 * t + q] = bv;
+        redi[warp * BW + 8 * n + 2 * t + q] = bi;
+      }
+    }
+  }
+}
+
+// The chunk's (d, row) minimum over the CTA's warps, folded into keys
+// (samples n0..), after a barrier past every warp's winner_fold_tc
+template <int BW, int WARPS>
+__device__ __forceinline__ void winner_merge_tc(const float* redv, const int* redi, int n0,
+                                                int Bn,
+                                                unsigned long long* __restrict__ keys,
+                                                int tid) {
+  if (tid < BW) {
+    float bv = INFINITY;
+    int bi = INT_MAX;
+    for (int w = 0; w < WARPS; ++w) {
+      const float v = redv[w * BW + tid];
+      const int i = redi[w * BW + tid];
+      if (lex_less(v, i, bv, bi)) {
+        bv = v;
+        bi = i;
+      }
+    }
+    const int b = n0 + tid;
+    if (b < Bn && bi != INT_MAX) fold_key(keys + b, bv, bi);
   }
 }
 
@@ -367,7 +540,6 @@ __device__ __forceinline__ void fused_blend_winners_tc(
   constexpr int THREADS = 32 * WARPS;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
 
   // ---- guarded blend, written in place; the tile kept split ---------------
   float* thi = smem;
@@ -382,104 +554,24 @@ __device__ __forceinline__ void fused_blend_winners_tc(
   if constexpr (!kBf16) copy_rows<DP>(wlo, L::DW, xn_lo, BW, tid, THREADS);
   cp_async_commit();
 
-  float sq[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
-      const int h = q >> 1, r = 16 * warp + g + 8 * h, k = 8 * j + 2 * t + (q & 1);
-      const int u = r0 + r;
-      float nc = 0.f;
-      if (k < D && u < noc) {
-        CT* p = codes + (size_t)u * D + k;
-        nc = guarded_blend(load_f32(p), acc[j][q], wsum[h]);
-        store_f32(p, nc);
-      }
-      sq[h] += nc * nc;
-      if constexpr (kBf16) {
-        thi[r * L::DT + k] = bf16_round(nc);
-      } else {
-        float hi, lo;
-        split_tf32(nc, hi, lo);
-        thi[r * L::DT + k] = hi;
-        tlo[r * L::DT + k] = lo;
-      }
+  blend_rows_tc<NT, WARPS>(acc, wsum, codes, noc, D, r0, m2s, [&](int r, int k, float nc) {
+    if constexpr (kBf16) {
+      thi[r * L::DT + k] = bf16_round(nc);
+    } else {
+      float hi, lo;
+      split_tf32(nc, hi, lo);
+      thi[r * L::DT + k] = hi;
+      tlo[r * L::DT + k] = lo;
     }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
-    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
-    if (t == 0) m2s[16 * warp + g + 8 * h] = sq[h];
-  }
+  });
 
   // ---- next batch's winners against the updated tile ---------------------
   for (int n0 = 0; n0 < Bn; n0 += BW) {
     cp_async_wait_all();
     __syncthreads();  // chunk landed; tile and m2s written
     float S[BW / 8][4];
-#pragma unroll
-    for (int n = 0; n < BW / 8; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
-#pragma unroll 2
-    for (int ks = 0; ks < NT; ++ks) {
-      if constexpr (kBf16) {
-        float a[4];
-        load_a(a, thi, L::DT, 16 * warp, 8 * ks, lane);
-#pragma unroll
-        for (int n = 0; n < BW / 8; ++n) {
-          float b[2];
-          load_b_nk(b, whi, L::DW, 8 * n, 8 * ks, lane);
-          mma_tf32(S[n], a, b);
-        }
-      } else {
-        float ahi[4], alo[4];
-        load_a(ahi, thi, L::DT, 16 * warp, 8 * ks, lane);
-        load_a(alo, tlo, L::DT, 16 * warp, 8 * ks, lane);
-#pragma unroll
-        for (int n = 0; n < BW / 8; ++n) {
-          float bhi[2], blo[2];
-          load_b_nk(bhi, whi, L::DW, 8 * n, 8 * ks, lane);
-          load_b_nk(blo, wlo, L::DW, 8 * n, 8 * ks, lane);
-          mma_tf32x3(S[n], ahi, alo, bhi, blo);
-        }
-      }
-    }
-    const int ra = r0 + 16 * warp + g, rb = ra + 8;
-    const float m2a = m2s[16 * warp + g], m2b = m2s[16 * warp + g + 8];
-#pragma unroll
-    for (int n = 0; n < BW / 8; ++n) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {  // sample 8 n + 2 t + q: rows ra, then rb
-        float bv = INFINITY;
-        int bi = INT_MAX;
-        if (ra < noc) {
-          bv = m2a - 2.f * S[n][q];
-          bi = ra;
-        }
-        if (rb < noc) {
-          const float d = m2b - 2.f * S[n][2 + q];
-          if (d < bv) {
-            bv = d;
-            bi = rb;
-          }
-        }
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes g of sample
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-          if (lex_less(ov, oi, bv, bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        if (g == 0) {
-          redv[warp * BW + 8 * n + 2 * t + q] = bv;
-          redi[warp * BW + 8 * n + 2 * t + q] = bi;
-        }
-      }
-    }
+    winner_scores_tc<NT, BW, kBf16>(S, thi, tlo, L::DT, whi, wlo, L::DW, warp, lane);
+    winner_fold_tc<BW>(S, m2s, r0, noc, redv, redi, warp, lane);
     __syncthreads();  // every fragment of this chunk read
     if (n0 + BW < Bn) {
       const size_t o = (size_t)(n0 + BW) * DP;
@@ -487,20 +579,7 @@ __device__ __forceinline__ void fused_blend_winners_tc(
       if constexpr (!kBf16) copy_rows<DP>(wlo, L::DW, xn_lo + o, BW, tid, THREADS);
       cp_async_commit();
     }
-    if (tid < BW) {
-      float bv = INFINITY;
-      int bi = INT_MAX;
-      for (int w = 0; w < WARPS; ++w) {
-        const float v = redv[w * BW + tid];
-        const int i = redi[w * BW + tid];
-        if (lex_less(v, i, bv, bi)) {
-          bv = v;
-          bi = i;
-        }
-      }
-      const int b = n0 + tid;
-      if (b < Bn && bi != INT_MAX) fold_key(keys + b, bv, bi);
-    }
+    winner_merge_tc<BW, WARPS>(redv, redi, n0, Bn, keys, tid);
   }
 }
 

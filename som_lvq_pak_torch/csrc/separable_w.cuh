@@ -1,10 +1,13 @@
-// The separable weight policy of K13 and K14's main form (fused_step_tc.cuh
-// with W from the tables of som_fused_factored.cu's table launch), one step's
-// arguments as the C entry somvq_som_fused_factored takes them, and the main
-// launch of either kernel.  K13 lives in som_fused_factored.cu, K14's main
-// form in som_fused_chunked_tc.cuh, instantiated for a float32 codebook in
-// som_fused_chunked_tc_f32.cu and for a bf16 one in som_fused_chunked_tc_bf16.cu
-// (one nvcc each, compiled side by side).
+// The separable weight policy of K13 and K14 (fused_step_tc.cuh with W from
+// the tables of som_fused_factored.cu's table launch), one step's arguments as
+// the C entry somvq_som_fused_factored takes them, and the main launch of K13
+// and of K14's main form.  K13 lives in som_fused_factored.cu, K14 (its main
+// form, and the walk of its stagger and int8_win options) in
+// som_fused_chunked_tc.cuh, instantiated for each codebook type in
+// som_fused_chunked_tc_{f32,bf16}.cu (the main form),
+// som_fused_chunked_walk_{f32,bf16}.cu (stagger, float32 winners) and
+// som_fused_chunked_walk_int8_{f32,bf16}.cu (int8_win), one nvcc each,
+// compiled side by side.
 
 #pragma once
 
@@ -30,9 +33,9 @@ struct StepArgs {
   const float* q;
   int Bn, xdim, hexa, gaussian;
   float radius;
-  int stagger;
-  int rows;   // rows per CTA of the tensor-core kernels (K13: 128 or 64, K14: 64 or 32)
-  float* xs;  // their split batches (split_batches_kernel)
+  int stagger;  // 0, or the most CTAs of K14's staggered persistent grid
+  int rows;     // rows per CTA (K13: 128 or 64, K14: 64 or 32)
+  float* xs;    // the split batches (split_batches_kernel)
   void* pat;
   float* ytab;
   float* aw;
@@ -45,6 +48,12 @@ struct StepArgs {
 // after the table launch
 int k14_tc_f32codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
 int k14_tc_bf16codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
+// K14's stagger with float32 winners and its int8_win (with or without
+// stagger), for each codebook type: the walk's launch after the table launch
+int k14_walk_f32codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
+int k14_walk_bf16codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
+int k14_walk_int8_f32codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
+int k14_walk_int8_bf16codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
 
 }  // namespace somvq
 
@@ -182,15 +191,12 @@ struct SeparableW {
   }
 };
 
-// The separable step on the tensor cores, 16 WARPS rows per CTA; xs from
-// split_batches_kernel (its kBf16 form under kBf16)
-template <int NT, int WARPS, bool kBf16, typename CT, typename PT>
-__device__ __forceinline__ void separable_step_tc(
-    CT* __restrict__ codes, int noc, int D, const float* __restrict__ xs,
-    const float* __restrict__ aw, int B, int Bn, int xdim, int hexa, int gaussian,
-    float radius, int ny, const PT* __restrict__ pat, const float* __restrict__ ytab,
-    unsigned long long* __restrict__ keys) {
-  SeparableW<16 * WARPS, PT> wp;
+// The separable policy of one step, for CTAs of TNR rows (init sets the rows)
+template <int TNR, typename PT>
+__device__ __forceinline__ SeparableW<TNR, PT> separable_policy(
+    const float* __restrict__ aw, int B, int noc, int xdim, int hexa, int gaussian,
+    float radius, int ny, const PT* __restrict__ pat, const float* __restrict__ ytab) {
+  SeparableW<TNR, PT> wp;
   wp.pat = pat;
   wp.ytab = ytab;
   wp.aw = aw;
@@ -202,6 +208,19 @@ __device__ __forceinline__ void separable_step_tc(
   wp.hexa = hexa != 0;
   wp.gaussian = gaussian != 0;
   wp.r2 = radius * radius;
+  return wp;
+}
+
+// The separable step on the tensor cores, 16 WARPS rows per CTA; xs from
+// split_batches_kernel (its kBf16 form under kBf16)
+template <int NT, int WARPS, bool kBf16, typename CT, typename PT>
+__device__ __forceinline__ void separable_step_tc(
+    CT* __restrict__ codes, int noc, int D, const float* __restrict__ xs,
+    const float* __restrict__ aw, int B, int Bn, int xdim, int hexa, int gaussian,
+    float radius, int ny, const PT* __restrict__ pat, const float* __restrict__ ytab,
+    unsigned long long* __restrict__ keys) {
+  auto wp = separable_policy<16 * WARPS>(aw, B, noc, xdim, hexa, gaussian, radius, ny,
+                                         pat, ytab);
   fused_step_tc<NT, WARPS, kBf16>(codes, noc, D, xs, B, Bn, keys, wp);
 }
 

@@ -3,8 +3,7 @@
 // (som_vmem_steps.cu) and K13/K14 (separable_w.cuh, som_fused_factored.cu)
 // build W from staged grid coordinates (grid_x, grid_d2_at, weight_of_d2);
 // beside them the guarded blend, a bf16 codebook's loads and stores, the
-// widest D the kernels take (MAX_D, K17's too) and the CUDA-core layout of
-// K14's stagger/int8_win body (TN, BC, THREADS).
+// widest D the kernels take (MAX_D).
 //
 // W[unit, sample] follows the exact-f32 algebra of
 // som_lvq_pak_tpu/ops/pallas_som.py:_neighborhood_w: dx from columns and
@@ -22,13 +21,10 @@
 
 namespace {
 
-// K14's CUDA-core body (som_fused_factored.cu): one CTA owns TN codebook
-// rows, warp w rows 4w..4w+3, lane l columns l + 32 j (j < NJ <= 8); the
-// batch walked in BC-sample chunks.  MAX_D: the widest D any kernel takes
-constexpr int TN = 32;        // codebook rows per CTA (8 warps x 4 rows)
-constexpr int BC = 32;        // batch samples staged per chunk
-constexpr int THREADS = 256;
-constexpr int MAX_D = 256;    // 32 lanes x NJ (<= 8) columns
+// The widest D any kernel takes: the entry checks of K3, K5-K7, K11-K14 and
+// K17 read it; the tensor-core steps' widest instantiation is NT 32, 8 NT =
+// 256 features
+constexpr int MAX_D = 256;
 
 // the exact-f32 grid x coordinate of the unit in column c, row r (hexa odd
 // rows at c + 0.5)

@@ -1,5 +1,6 @@
 // Split-TF32 ("3xTF32") tensor-core products at float32 accuracy, shared by
-// the tensor-core kernels (K1-K4, K6, K13, K16, K17).
+// the tensor-core kernels (K1-K14, K16, K17), and the int8 product of K14's
+// int8_win winners (mma_s8 below).
 //
 // A float32 operand a is split as a = hi + lo + r with hi = tf32(a) and
 // lo = tf32(a - hi), both rounded to nearest, ties away from zero
@@ -127,6 +128,52 @@ __device__ __forceinline__ void cp_async_floats(float* dst, const float* src, in
     for (int i = tid; i < n; i += nthreads) cp_async4(dst + i, src + i);
   }
 }
+
+// The int8 product, mma.sync.m16n8k32 with .s8 operands and int32
+// accumulators: exact, for |a b| summed below 2^31 (127^2 x 256 features is
+// 4.1e6).  Fragments (PTX ISA), four int8 values of consecutive k per 32-bit
+// register, lane = 4 g + t:
+//   A (16 x 32, row major): a0 (g, 4t..4t+3), a1 (g + 8, 4t..), a2 (g,
+//                           16 + 4t..), a3 (g + 8, 16 + 4t..)
+//   B (32 x 8, k x n):      b0 (k 4t..4t+3, n g), b1 (k 16 + 4t.., n g)
+//   C (16 x 8):             the TF32 tile's: c0 (g, 2t), c1 (g, 2t + 1),
+//                           c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// Both operands are staged row by row (A's rows, B's samples) as int8 and
+// read as 32-bit words; a row stride of an odd multiple of 4 words puts the 8
+// rows g of one load on distinct banks (stride_s8).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4], const int (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment of rows r0..r0+15, k words kw..kw+7 (32 int8 values) of a
+// row-major int8 array read as words, `stride` words a row
+__device__ __forceinline__ void load_a_s8(int (&a)[4], const int* s, int stride, int r0,
+                                          int kw, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int* p = s + (r0 + g) * stride + kw + t;
+  a[0] = p[0];
+  a[1] = p[8 * stride];
+  a[2] = p[4];
+  a[3] = p[8 * stride + 4];
+}
+
+// B fragment, k words kw..kw+7 of samples n0..n0+7, stored n-major as int8
+// rows of `stride` words
+__device__ __forceinline__ void load_b_s8(int (&b)[2], const int* s, int stride, int n0,
+                                          int kw, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int* p = s + (n0 + g) * stride + kw + t;
+  b[0] = p[0];
+  b[1] = p[4];
+}
+
+// Row stride (words) of int8 rows of k8 values (a multiple of 32): an odd
+// multiple of 4
+__host__ __device__ constexpr int stride_s8(int k8) { return k8 / 4 + 4; }
 
 // (value, index) lexicographic order: equal values go to the lower index
 __device__ __forceinline__ bool lex_less(float v, int i, float bv, int bi) {

@@ -17,10 +17,11 @@ kernels, each a hand-written CUDA kernel here:
   (`int8_win`) and staggered schedule (`stagger`).  Its main form (no
   `stagger`, no `int8_win`) is K13's tensor-core body with the bf16 table
   widened where W is built and, under `batch_bf16`, one TF32 product per
-  contraction on the bf16 operands; `stagger` and `int8_win` keep the
-  CUDA-core body, whose gates hold each option to that body without it
-  (`_som_fused_factored_chunked_step_cuda_cores`, a private route of
-  chip_smoke.py and tools/int8_step_ab.py, no option of any wrapper).
+  contraction on the bf16 operands; `stagger` and `int8_win` run the same
+  body's chunk functions in a walk of their own (a persistent grid that
+  interleaves each tile's update with the previous tile's winners under
+  `stagger`; the winners on int8 `mma.sync` under `int8_win`), bit-equal to
+  the main form (`int8_win`: its codebook).
 
 One call applies batch t's neighbourhood update to the codebook and finds
 batch t+1's winners against the UPDATED codebook (the software-pipelined
@@ -37,9 +38,9 @@ given; `factored` with a `unit_offset` raises; on the separable path any of
 batch-chunked kernel (pallas_som.py:1339-1349); K3 ignores all five, as the
 JAX wrapper's plain path does.
 `tile_n` decides the geometry only: the CUDA kernels tile by 128 rows (K3;
-64 for D > 128), by `k13_rows` (K13: 128, or 64 up to 128x128), by
-`K14_ROWS` (K14's main form: 64) or by 32 (K14's CUDA-core body), and the
-result depends on it only through the float32 order of additions.  The
+64 for D > 128), by `k13_rows` (K13: 128, or 64 up to 128x128) or by
+`k14_rows` (K14: 64, or 32 under `stagger` past D 128), and the result
+depends on it only through the float32 order of additions.  The
 port keeps D unpadded, so the JAX `d_real` has no counterpart.
 
 The codebook is updated IN PLACE (the caller owns the resident codebook;
@@ -57,13 +58,14 @@ A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 below, built from the plain counterparts of `_grid_xy`, `_neighborhood_w`
 and `_guarded_blend` (pallas_som.py:48-113).  Each kernel's wrapper counts
 its launches in its `launches` attribute; `som_fused_train_step` counts K3's.
-K14's wrapper counts its main form; a launch of the CUDA-core body counts on
+K14's wrapper counts its main form; a launch of its walk counts on
 `CHUNKED_INT8_WIN` or `CHUNKED_STAGGER` under those options (on both with
-both), else on `CHUNKED_CUDA_CORES`.
+both).
 
 `int8_win` (pallas_som.py:1180-1194, 1087-1094): the step's global scales
 are taken from the batches (`int8_win_inputs`), the next batch is quantized
-to int8 on the device, and the winners' contraction runs int8 x int8 ->
+to int8 on the device (and padded with zeros as the kernel stages it,
+`int8_win_staged`), and the winners' contraction runs int8 x int8 ->
 int32 against the updated rows quantized with the codebook scale; scores
 dequantize to float32 and ||m||^2 / 2 stays the float32 rows', so only
 winners within the quantization noise of a tie move (`val_next` is
@@ -156,7 +158,6 @@ class LaunchCount:
 
 CHUNKED_INT8_WIN = LaunchCount("som_fused_factored_chunked_step[int8_win]")
 CHUNKED_STAGGER = LaunchCount("som_fused_factored_chunked_step[stagger]")
-CHUNKED_CUDA_CORES = LaunchCount("som_fused_factored_chunked_step[cuda_cores]")
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -276,21 +277,42 @@ def int8_win_inputs(codes: torch.Tensor, xb: torch.Tensor, xb_next: torch.Tensor
     sx = xb_next.abs().max() + 1e-30
     # IEEE divisions of device tensors: torch takes `scalar / t` as
     # reciprocal(t) * scalar, and on CUDA `t / scalar` as t * (1 / scalar),
-    # each up to one ulp off the quotient the JAX wrapper takes
-    c127, c16129 = sm.new_tensor(127.0), sm.new_tensor(16129.0)
+    # each up to one ulp off the quotient the JAX wrapper takes.  The
+    # constants are filled on the device: a tensor made from a Python number
+    # is copied from pageable host memory, which waits for the stream
+    c127, c16129 = (torch.full((), v, dtype=torch.float32, device=sm.device)
+                    for v in (127.0, 16129.0))
     xq = torch.clamp(torch.round(xb_next * (c127 / sx)), -127.0, 127.0)
     return xq.to(torch.int8), torch.stack([c127 / sm, (sm * sx) / c16129])
+
+
+# samples per winner chunk of K14's int8 winners (csrc/som_fused_chunked_tc.cuh:
+# WalkSmem::BW): the staged x' is padded to a multiple of it
+INT8_WIN_CHUNK = 64
+
+
+def int8_win_staged(xq: torch.Tensor) -> torch.Tensor:
+    """`xq` (B', D) int8 as K14's int8 winners stage it: zeros to D32
+    features (D rounded up to 32, the depth of one int8 mma.sync product)
+    and to a multiple of INT8_WIN_CHUNK samples, so every chunk is whole rows
+    of 16-byte pieces.  Zeros add nothing to an integer dot."""
+    Bn, D = xq.shape
+    out = xq.new_zeros((-(-Bn // INT8_WIN_CHUNK) * INT8_WIN_CHUNK, -(-D // 32) * 32))
+    out[:Bn, :D] = xq
+    return out
 
 
 def fused_step_winners_int8(newc, xq, q, chunk_n=None):
     """The int8_win winner half on the updated float32 rows `newc`
     (pallas_som.py:1056-1061, 1087-1094): rows quantized to clip(round(m q0),
-    +-127), the exact integer dot with `xq` (float64), times q1 minus
+    +-127), the exact integer dot with `xq` (float64; `xq` may carry zero
+    features past D, as `int8_win_staged` pads it), times q1 minus
     ||m||^2 / 2 of the float32 rows, argmax with the first (lowest) row on
     ties, over samples `chunk_n` at a time.  Returns (bmu (B',) int32,
-    -2 * the best score)."""
+    -2 * the best score), one per row of `xq`."""
     m2h = 0.5 * (newc * newc).sum(1, keepdim=True)
     cw = torch.clamp(torch.round(newc * q[0]), -127.0, 127.0).to(torch.float64)
+    cw = torch.nn.functional.pad(cw, (0, xq.shape[1] - cw.shape[1]))
     xw = xq.to(torch.float64)
     step = chunk_n or xq.shape[0]
     idx, best = [], []
@@ -314,13 +336,12 @@ def int8_win_scores(newc, rows, xq, q):
 
 def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
                      gaussian, chunked=False, batch_chunk=None, wxa_bf16=False,
-                     batch_bf16=False, stagger=False, int8_win=False,
-                     cuda_cores=False):
+                     batch_bf16=False, stagger=False, int8_win=False):
     """Plain K13 (`chunked` False: the whole batch at once) or K14: the
     batch in `batch_chunk` slices with the batch-chunked kernel's bf16
     roundings (pallas_som.py:1012-1094) and, with `int8_win`, its int8
-    winners.  `stagger` changes the kernel's schedule and `cuda_cores` its
-    body, not the function: both are taken and have no effect here."""
+    winners.  `stagger` changes the kernel's schedule, not the function: it
+    is taken and has no effect here."""
     fp32_matmul()
     dev = codes.device
     B, D = xb.shape
@@ -446,22 +467,6 @@ def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
                                  batch_bf16, stagger, int8_win)
 
 
-def _som_fused_factored_chunked_step_cuda_cores(codes, xb, bmu, xb_next, xdim,
-                                                hexa, alpha, radius,
-                                                gaussian=False, batch_chunk=None,
-                                                wxa_bf16=False, batch_bf16=False):
-    """K14 without `stagger` and `int8_win` on the CUDA-core body that those
-    two options run: the reference their gates hold them to bit for bit
-    (chip_smoke.py, tools/int8_step_ab.py).  Not a route of any wrapper or
-    trainer; its launches count on `CHUNKED_CUDA_CORES`.  Its plain version
-    is K14's."""
-    bmu, aw = _step_args(codes, xb, bmu, xb_next, alpha)
-    _batch_chunk(xb.shape[0], xb_next.shape[0], batch_chunk)
-    return _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw,
-                                 radius, gaussian, True, batch_chunk, wxa_bf16,
-                                 batch_bf16, cuda_cores=True)
-
-
 def _split_scratch(B: int, Bn: int, D: int, dev, planes: int = 2) -> torch.Tensor:
     """Scratch for the tensor-core steps' batches split once per step
     (csrc/fused_step_tc.cuh:split_batches_kernel): the hi and lo parts
@@ -490,27 +495,59 @@ def k13_rows(noc: int, D: int, device: torch.device) -> int:
     return 128 if D <= 128 and -(-noc // 128) >= 2 * sms else 64
 
 
-# K14's main form's codebook rows per CTA (csrc/som_fused_chunked_tc.cuh
-# builds 64 and 32), chosen from the card's times: each CTA walks the whole
-# batch, and on an H100 a 64-row CTA did so as fast as a 32-row one, so at
-# every map the trainer gives K14 (32x32, 64x32 and 64x64 at B 4096) and at
-# 128x128 the 64-row grid was as fast or faster (chip_smoke.py's k14_vs_k13
-# and k14_rows lines time both heights; PERF.md).  The batch is never split
-# across CTAs: each row's sums keep one order.
+# K14's codebook rows per CTA (csrc/som_fused_chunked_tc.cuh builds 64 and
+# 32), chosen from the card's times: each CTA walks the whole batch, and on an
+# H100 a 64-row CTA did so as fast as a 32-row one, so at every map the
+# trainer gives K14 (32x32, 64x32 and 64x64 at B 4096) and at 128x128 the
+# 64-row grid was as fast or faster (chip_smoke.py's k14_vs_k13 and k14_rows
+# lines time both heights; PERF.md).  The batch is never split across CTAs:
+# each row's sums keep one order.
 K14_ROWS = 64
+
+# The most CTAs of K14's staggered persistent grid; the card's resident count
+# caps it first (chip_smoke.py forces a few, so that each CTA walks several
+# tiles)
+K14_STAGGER_CTAS = 2 ** 31 - 1
+
+def k14_rows(D: int, stagger: bool = False) -> int:
+    """K14's rows per CTA: K14_ROWS, but 32 under `stagger` past D 128,
+    where its walk's ring and previous float32 tile do not fit in shared
+    memory beside 64 rows (`k14_walk_smem_bytes`).  The kernel refuses a
+    height that does not fit; it never shrinks one."""
+    return 32 if stagger and D > 128 else K14_ROWS
+
+
+def k14_walk_smem_bytes(D: int, rows: int, int8_win: bool, batch_bf16: bool,
+                        ny: int) -> int:
+    """The shared memory of K14's walk (its stagger and int8_win) for a CTA
+    of `rows` rows spanning `ny` grid rows, as csrc/som_fused_chunked_tc.cuh:
+    WalkSmem::bytes and SeparableW::floats count it (floats, 4 bytes each):
+    the ring's two slots, each the larger of an update chunk and a winner
+    chunk, the previous tile, ||m||^2, the winner reduction and the tables'
+    staging.  A mirror of the C layout, to check that every D fits."""
+    def c32(n):
+        return -(-n // 32) * 32
+    planes, dp, bc = (1 if batch_bf16 else 2), split_width(D), 32
+    dsu, dt, xw = c32(dp) + 8, c32(dp) + 4, max(dp, 32) // 4 + 4
+    bw = INT8_WIN_CHUNK if int8_win else 32
+    slot = max(planes * bc * dsu, bw * xw if int8_win else planes * bw * dt)
+    prev = rows * xw if int8_win else planes * rows * dt
+    ring = 2 * slot + prev + rows + 2 * (rows // 16) * bw
+    staging = 2 * ((rows + ny) * (bc + 4) + bc) + rows
+    return 4 * (ring + staging)
 
 
 def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
                           gaussian, chunked=False, batch_chunk=None,
                           wxa_bf16=False, batch_bf16=False, stagger=False,
-                          int8_win=False, cuda_cores=False):
+                          int8_win=False):
     """K13 (`chunked` False) or K14 on checked arguments (its plain version
-    on the CPU): K14's main form on the tensor cores, or its CUDA-core body
-    under `stagger`, `int8_win` or `cuda_cores` (the private reference
-    route), counted as the module docstring says.  One scratch buffer holds
-    the winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc /
-    xdim), B) and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16);
-    under int8_win the quantized next batch and its scales come from
+    on the CPU): K14's main form, or its walk under `stagger` or `int8_win`,
+    counted as the module docstring says.  One scratch buffer holds the
+    winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc / xdim), B)
+    and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16); another the
+    split batches (x' not split under int8_win); under int8_win the quantized
+    next batch, padded by `int8_win_staged`, and its scales come from
     `int8_win_inputs`, on the device."""
     dev = codes.device
     if dev.type == "cpu":
@@ -520,6 +557,8 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     wxa_bf16 = bool(wxa_bf16 and gaussian)
     xq, q = (int8_win_inputs(codes, xb, xb_next, batch_bf16) if int8_win
              else (None, None))
+    if int8_win:
+        xq = int8_win_staged(xq)
     noc, D = codes.shape
     B, Bn = xb.shape[0], xb_next.shape[0]
     n_pat = 2 * xdim if hexa else xdim
@@ -532,30 +571,27 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
     xb, xn = xb.contiguous(), xb_next.contiguous()
-    core = chunked and bool(stagger or int8_win or cuda_cores)
-    xs, rows = None, 0
-    if not chunked:
+    walk = chunked and bool(stagger or int8_win)
+    if chunked:
+        xs = _split_scratch(B, 0 if int8_win else Bn, D, dev, 1 if batch_bf16 else 2)
+        rows = k14_rows(D, bool(stagger))
+    else:
         xs, rows = _split_scratch(B, Bn, D, dev), k13_rows(noc, D, dev)
-    elif not core:
-        xs = _split_scratch(B, Bn, D, dev, 1 if batch_bf16 else 2)
-        rows = K14_ROWS
     _build.call("somvq_som_fused_factored", codes.data_ptr(),
                 int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
                 bmu.data_ptr(), aw.data_ptr(), B, xn.data_ptr(), Bn, int(xdim),
                 int(bool(hexa)), int(bool(gaussian)), float(radius),
                 int(chunked), int(wxa_bf16), int(bool(batch_bf16)),
-                int(bool(stagger)), int(bool(int8_win)), int(bool(cuda_cores)),
-                rows, None if xs is None else xs.data_ptr(),
-                xq.data_ptr() if int8_win else None,
+                K14_STAGGER_CTAS if stagger else 0, int(bool(int8_win)), rows,
+                xs.data_ptr(), xq.data_ptr() if int8_win else None,
                 q.data_ptr() if int8_win else None, pat, ytab, aw_eff, keys,
                 val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
-    if not core:
+    if not walk:
         wrapper = som_fused_factored_chunked_step if chunked else som_fused_factored_step
         wrapper.launches += 1
     CHUNKED_INT8_WIN.launches += bool(int8_win)
     CHUNKED_STAGGER.launches += bool(stagger)
-    CHUNKED_CUDA_CORES.launches += core and not (stagger or int8_win)
     return codes, idx, val
 
 

@@ -11,10 +11,9 @@ clustered(N, 1), batches clustered(B, 2) and clustered(B, 3).
 
 (a) Step time per chain, interleaved round by round (CUDA events over
     `time_steps` chained steps at alpha 0.02, radius 3): float32 winners
-    (`f32`, K14's main form on the tensor cores), `int8_win` and `stagger`
-    (K14's CUDA-core body) and `cuda_cores` (that body without an option:
-    `ops.som_step._som_fused_factored_chunked_step_cuda_cores`, the
-    reference of the two options' gates); beside them K17
+    (`f32`, K14's main form), `int8_win` (K14's walk with the winners on
+    int8 mma.sync) and `stagger` (K14's walk on a persistent grid, float32
+    winners), all on the tensor cores; beside them K17
     (`ops.skeleton.fused_step_skeleton`, the step's matmul-only twin at the
     same shape, float32 W and X) and attainable_pct = 100 * skeleton ms /
     step ms per chain.
@@ -22,7 +21,7 @@ clustered(N, 1), batches clustered(B, 2) and clustered(B, 3).
     radius 24 over clustered(B, 100 + i), from K1's prologue winners, then
     `find_qerror` over clustered(262144, 999) (K2).  `int8_win`'s qerror must
     be within 1% of float32's, and the `stagger` chain's codebook bit-equal
-    to the plain schedule's on the same body (the `cuda_cores` chain's).
+    to the `f32` chain's (stagger changes the schedule, not the result).
 
 The port keeps D unpadded (no 128-lane padding), so the JAX tool's
 `int8_win_k128` chain (the int8 contraction over the padded width) has no
@@ -45,12 +44,11 @@ import torch
 from ..models.som import find_qerror
 from ..ops.dist_argmin import dist_argmin
 from ..ops.skeleton import fused_step_skeleton
-from ..ops.som_step import _som_fused_factored_chunked_step_cuda_cores, som_fused_train_step
+from ..ops.som_step import som_fused_train_step
 from .timing import mean_ms, resolve, sync
 
 D = 64
-CHAINS = {"f32": {}, "int8_win": {"int8_win": True}, "stagger": {"stagger": True},
-          "cuda_cores": {"cuda_cores": True}}
+CHAINS = {"f32": {}, "int8_win": {"int8_win": True}, "stagger": {"stagger": True}}
 QERROR_REL = 0.01
 
 
@@ -68,15 +66,7 @@ def clustered_source(dim: int = D):
 
 def _step_fn(xdim: int, batch: int, alpha: float, radius: float, kw: dict):
     """One K14 step of the A/B's configuration: hexa gaussian, tile = one
-    grid row, chunk 1024 (the batch, if smaller), the bf16 x-pattern; under
-    `cuda_cores` through the private CUDA-core route."""
-    if kw.get("cuda_cores"):
-        def cores(c, bm, x, xn):
-            return _som_fused_factored_chunked_step_cuda_cores(
-                c, x, bm, xn, xdim, True, alpha, radius, True,
-                batch_chunk=min(1024, batch), wxa_bf16=True)
-        return cores
-
+    grid row, chunk 1024 (the batch, if smaller), the bf16 x-pattern."""
     def step(c, bm, x, xn):
         return som_fused_train_step(c, x, bm, xn, xdim, True, alpha, radius, True,
                                     tile_n=xdim, factored=True,
@@ -130,13 +120,13 @@ def quality_gate(codes, clustered, xdim, batch, dev, steps=64, n_eval=262144) ->
         finals[name] = c
     q32, q8 = out["f32_qerror"], out["int8_win_qerror"]
     out["int8_rel_delta"] = abs(q8 - q32) / q32
-    out["stagger_codes_equal"] = bool(torch.equal(finals["stagger"], finals["cuda_cores"]))
+    out["stagger_codes_equal"] = bool(torch.equal(finals["stagger"], finals["f32"]))
     if not out["int8_rel_delta"] <= QERROR_REL:
         raise AssertionError(f"int8_step_ab: int8_win qerror {q8} vs float32 {q32} "
                              f"(> {QERROR_REL:.0%})")
     if not out["stagger_codes_equal"]:
         raise AssertionError("int8_step_ab: the stagger chain's codebook differs from "
-                             "the plain schedule's")
+                             "the f32 chain's")
     return out
 
 

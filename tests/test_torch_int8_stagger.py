@@ -22,13 +22,17 @@ import torch
 from som_lvq_pak_tpu.ops import pallas_som as jps
 from som_lvq_pak_torch.ops import som_step
 from som_lvq_pak_torch.ops.som_step import (CHUNKED_INT8_WIN, CHUNKED_STAGGER,
+                                            INT8_WIN_CHUNK,
                                             fused_step_winners_int8, int8_win_inputs,
-                                            int8_win_scores,
+                                            int8_win_scores, int8_win_staged, k14_rows,
+                                            k14_walk_smem_bytes,
                                             som_fused_factored_chunked_step,
                                             som_fused_train_step)
 from som_lvq_pak_torch.tools import int8_step_ab
 
 TOL = 1e-5
+# shared memory one CTA of an H100 can take (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SMEM_PER_CTA = 232448
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -325,3 +329,79 @@ def test_int8_step_ab_chain_on_cpu():
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             int8_step_ab.run(16, 16, 256)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int8_value_identity(seed):
+    """The value K14's int8 winners report, d = ||m||^2 - 2 fl(dot q1) (the
+    float32 norm, the exact int32 dot scaled by one float32 product), equals
+    the JAX form -2 fl(fl(dot q1) - ||m||^2 / 2) in float32: halving and
+    doubling are exact, so they commute with rounding.  Over 4096 (dot, q1,
+    m2) triples from int8_win_inputs' ranges: the dots of quantized rows and
+    samples, and dots drawn up to +-127^2 * 256."""
+    rng = np.random.default_rng(seed)
+    D = 64
+    codes = (rng.normal(0, 4, size=(2048, D)) * rng.uniform(0.1, 3, size=(2048, 1)))
+    codes = codes.astype(np.float32)
+    xb = rng.normal(0, 4, size=(256, D)).astype(np.float32)
+    xn = rng.normal(0, 4, size=(2048, D)).astype(np.float32)
+    T = torch.from_numpy
+    xq, q = int8_win_inputs(T(codes), T(xb), T(xn))
+    rows = torch.clamp(torch.round(T(codes) * q[0]), -127.0, 127.0).to(torch.int64)
+    dot = (rows * xq.to(torch.int64)).sum(1).numpy()  # row i against sample i
+    dot = np.concatenate([dot, rng.integers(-127 ** 2 * 256, 127 ** 2 * 256, size=2048)])
+    m2 = (codes * codes).sum(1, dtype=np.float32)
+    m2 = np.concatenate([m2, rng.permutation(m2)])
+    q1 = np.float32(q[1].item())
+    s = dot.astype(np.float32) * q1  # exact int to float32 (|dot| < 2^24), one rounding
+    kernel = m2 - np.float32(2) * s
+    jax_form = np.float32(-2) * (s - m2 * np.float32(0.5))
+    assert kernel.dtype == jax_form.dtype == np.float32
+    np.testing.assert_array_equal(kernel, jax_form)
+
+
+@pytest.mark.parametrize("D", [5, 37, 64, 130])
+def test_int8_win_staged_xq_keeps_winners(D):
+    """The wrapper's padded x' (`int8_win_staged`: zeros to D32 features and
+    to a multiple of the 64-sample winner chunk, the rows K14's int8 winners
+    stage) gives fused_step_winners_int8 the winners and values of the
+    unpadded one, bit for bit, on its first B' rows."""
+    rng = np.random.default_rng(D)
+    T = torch.from_numpy
+    codes = T(rng.normal(size=(300, D)).astype(np.float32))
+    xb = T(rng.normal(size=(200, D)).astype(np.float32))
+    xn = T(rng.normal(size=(200, D)).astype(np.float32))
+    xq, q = int8_win_inputs(codes, xb, xn)
+    st = int8_win_staged(xq)
+    assert st.dtype == torch.int8
+    assert st.shape == (-(-200 // INT8_WIN_CHUNK) * INT8_WIN_CHUNK, -(-D // 32) * 32)
+    assert torch.equal(st[:200, :D], xq) and not st[200:].any() and not st[:, D:].any()
+    i0, v0 = fused_step_winners_int8(codes, xq, q)
+    i1, v1 = fused_step_winners_int8(codes, st, q)
+    assert torch.equal(i1[:200], i0) and torch.equal(v1[:200], v0)
+
+
+@pytest.mark.parametrize("int8_win", [False, True])
+@pytest.mark.parametrize("batch_bf16", [False, True])
+def test_k14_walk_rows_fit(int8_win, batch_bf16):
+    """K14's rows per CTA: 64 (K14_ROWS) for the main form and int8_win at
+    every D, and for stagger up to D 128, 32 above; the walk's shared memory
+    (k14_walk_smem_bytes, the C layout's mirror) at those rows fits one CTA
+    at every D from 1 to 256 with the most grid rows a CTA can span (xdim >=
+    8), and the float32 stagger walk with split batches at 64 rows past D
+    128 does not."""
+    for D in range(1, 257):
+        assert k14_rows(D) == 64
+        assert k14_rows(D, stagger=True) == (64 if D <= 128 else 32)
+        for stagger in (True, False) if int8_win else (True,):
+            rows = k14_rows(D, stagger)
+            nbytes = k14_walk_smem_bytes(D, rows, int8_win, batch_bf16, (rows - 1) // 8 + 2)
+            assert 0 < nbytes <= SMEM_PER_CTA, (D, rows, stagger, nbytes)
+    if not (int8_win or batch_bf16):
+        assert k14_walk_smem_bytes(129, 64, False, False, 9) > SMEM_PER_CTA
+    # D 64 at 64 rows on a 256-wide map (2 grid rows): the ring's two slots of
+    # 2 x 32 x 72 floats, the previous tile 2 x 64 x 68, m2s, the reduction
+    # 2 x 4 x 32 and the tables 2 ((64 + 2) 36 + 32) + 64 floats
+    if not (int8_win or batch_bf16):
+        assert k14_walk_smem_bytes(64, 64, False, False, 2) == 4 * (
+            2 * 4608 + 8704 + 64 + 256 + 4880)
