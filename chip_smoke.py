@@ -24,15 +24,17 @@ phases, each printing one JSON line:
 
 1. env      torch/CUDA/nvcc versions, card name and power limit;
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
-            one "ptxas" line: registers and spill bytes of each
-            instantiation of K5, K9, K10, K12 and K14's walk (its stagger and
-            int8_win), from nvcc's -Xptxas -v report;
+            with the three slowest nvcc processes (each source's compile
+            seconds, from the build's log); one "ptxas" line: registers and
+            spill bytes of each instantiation of K5, K9, K10, K12, K14's walk
+            (its stagger and int8_win) and K15, from nvcc's -Xptxas -v report;
             one "sass" line: the HMMA (tensor-core) instructions in each
             instantiation of the tensor-core kernels K3, K2, K1, K4, K5, K6,
             K7, K9, K10 (K8 its KM 2), K11, K12, K13, K14's main form and its
-            walk, K16 and K17, and the IMMA (int8 tensor-core) instructions
-            in each instantiation of K14's int8_win walk, from cuobjdump
-            --dump-sass of the library (none fails the run);
+            walk, K16 and K17, the IMMA (int8 mma.sync) instructions in each
+            instantiation of K14's int8_win walk and the IGMMA (int8 wgmma)
+            instructions in each of K15's, from cuobjdump --dump-sass of the
+            library (none fails the run, as does an IDP4A anywhere in it);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
@@ -125,7 +127,14 @@ phases, each printing one JSON line:
             (int8/f32_winner_probe) at tools/int8_probe.py's 65536 x 64 x
             4096, at 999 x 5 x 1000, with every row twice and at 1000 x 130
             x 999, bit-equal to plain and to a rerun, with library_ms (torch._int_mm / torch.mm,
-            then amax); K16 also on normal floats at 65536 x 64 x 4096,
+            then amax); K15 (int8 wgmma fed by a TMA ring) also at 1000 x 64
+            x 999 with every maximum negative (codes past N must not win),
+            with rows and columns of -128, at 200 x 64 x 100 (N below one
+            256-code tile, B not a multiple of 64), 1 x 1 x 1, D 256, D 37
+            (m copied padded) and the record shape with its codebook
+            splits forced to 1 and to 256, each bit-equal to plain and to a
+            rerun, its record with its route (wgmma) and bound_pct; K16
+            also on normal floats at 65536 x 64 x 4096,
             within PROBE_F32_REL of the float64 plain version, and with its
             split-TF32 route's bound and share.  K17 (fused_step_skeleton) at
             bench.py's twins, 256x256 B 4096 float32 and B 8192 bf16, and
@@ -311,6 +320,8 @@ SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
                       "som_update_kernel", "som_fused_chunked_stagger_kernel",
                       "som_fused_chunked_int8_kernel")
 INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
+# K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
+INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
 
 # K16 on normal float32 inputs: within this relative gap of the float64
 # maximum (split TF32 is about 2^-21 relative per product, float32 sums of 64)
@@ -397,17 +408,16 @@ def library_winners(x, codes, form, k=2, mask=None):
     return out
 
 
-def sass_mma(library: str, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict:
+def sass_mma(dump: dict, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict:
     """Tensor-core use of `kernels` (the split-TF32 ones unless given), read
-    from the built library's SASS with cuobjdump (tools.sass_diff; ncu does
-    not run on every host): the `op` instructions (HMMA, or IMMA for the int8
-    products) in each of their instantiations, by mangled name from the
-    kernel's name on.  Raises if an instantiation has none, or if none is
-    found."""
-    from som_lvq_pak_torch.tools.sass_diff import sass
-
+    from the built library's SASS (`dump`: tools.sass_diff.sass of the
+    library, by cuobjdump; ncu does not run on every host): the `op`
+    instructions (HMMA; IMMA for the int8 mma.sync products, IGMMA for the
+    int8 wgmma ones) in each of their instantiations, by mangled name from
+    the kernel's name on.  Raises if an instantiation has none, or if none
+    is found."""
     counts = {}
-    for name, insns in sass(library).items():
+    for name, insns in dump.items():
         base = [b for b in kernels if b in name]
         if base:
             counts[name[name.index(base[0]):]] = sum(op in i for i in insns)
@@ -416,6 +426,17 @@ def sass_mma(library: str, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict
         if not found or not all(found.values()):
             raise AssertionError(f"{base}: no {op} instructions in the SASS: {found}")
     return counts
+
+
+def no_dp4a(dump: dict) -> int:
+    """The IDP4A instructions (__dp4a on CUDA cores) in the library's SASS
+    (`dump`): none may be left, every int8 product runs on the tensor cores;
+    raises otherwise."""
+    found = {name: n for name, insns in dump.items()
+             if (n := sum("IDP4A" in i for i in insns))}
+    if found:
+        raise AssertionError(f"IDP4A in the library: {found}")
+    return 0
 
 
 def template_args(name: str, base: str) -> list:
@@ -450,9 +471,10 @@ def template_args(name: str, base: str) -> list:
 def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel",
                                   "dist_top2_masked_kernel", "som_update_kernel",
                                   "som_fused_chunked_stagger_kernel",
-                                  "som_fused_chunked_int8_kernel")) -> dict:
+                                  "som_fused_chunked_int8_kernel",
+                                  "int8_winner_probe_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
-    (K10, K12, K9, K5 and K14's walk unless given), from nvcc's -Xptxas -v
+    (K10, K12, K9, K5, K14's walk and K15 unless given), from nvcc's -Xptxas -v
     report (the build's log): {"name<args>":
     {"registers", "spill_stores", "spill_loads"}}."""
     import re
@@ -1081,14 +1103,17 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
 
 
 def phase_probe(name, kernel, plain, library, dtype, N, D, B, seed, dup=False, iters=10,
-                normal=False):
+                normal=False, kind="random", label=None):
     """K15 (int8) or K16 (float32, on integer values) against its plain
     version, bit for bit, and against a rerun on the same inputs; with `dup`
-    every row is there twice.  With `normal` (K16) m and x are normal floats
-    instead, held within PROBE_F32_REL of the float64 plain version.
-    library_ms: one PyTorch call of the same function (`library`), where
-    given.  K16 also carries its split-TF32 route's bound (three TF32
-    products per float32 product) and share."""
+    every row is there twice.  `kind` "negative": m in [1, 127] and x in
+    [-127, -1], every maximum negative; "min": m and x in [-128, 127] with
+    every 7th row of m and every 5th column of x at -128.  With `normal`
+    (K16) m and x are normal floats instead, held within PROBE_F32_REL of
+    the float64 plain version.  library_ms: one PyTorch call of the same
+    function (`library`), where given.  K16 also carries its split-TF32
+    route's bound (three TF32 products per float32 product) and share; K15
+    its route (int8 wgmma) and the share of its bound."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1096,16 +1121,23 @@ def phase_probe(name, kernel, plain, library, dtype, N, D, B, seed, dup=False, i
         m = torch.randn((N, D), generator=g, device="cuda")
         x = torch.randn((D, B), generator=g, device="cuda")
     else:
-        m = torch.randint(-127, 128, (N // 2 if dup else N, D), generator=g, device="cuda",
+        (m_lo, m_hi), (x_lo, x_hi) = {"random": ((-127, 128), (-127, 128)),
+                                      "negative": ((1, 128), (-127, 0)),
+                                      "min": ((-128, 128), (-128, 128))}[kind]
+        m = torch.randint(m_lo, m_hi, (N // 2 if dup else N, D), generator=g, device="cuda",
                           dtype=torch.int8)
         if dup:
             m = torch.cat([m, m]).contiguous()
-        x = torch.randint(-127, 128, (D, B), generator=g, device="cuda", dtype=torch.int8)
+        x = torch.randint(x_lo, x_hi, (D, B), generator=g, device="cuda", dtype=torch.int8)
+        if kind == "min":
+            m[::7] = -128
+            x[:, ::5] = -128
         m, x = m.to(dtype), x.to(dtype)
     got, want = kernel(m, x), plain(m, x)
     again = kernel(m, x)
     torch.cuda.synchronize()
-    label = f"{name} {N}x{D}x{B}" + (" normal" if normal else "")
+    label = label or (f"{name} {N}x{D}x{B}" + (" normal" if normal else "") +
+                      ("" if kind == "random" else f" {kind}"))
     err = float((got.double() - want.double()).abs().max())
     if not torch.equal(got, again):
         raise AssertionError(f"{label}: two runs on the same inputs differ")
@@ -1130,6 +1162,9 @@ def phase_probe(name, kernel, plain, library, dtype, N, D, B, seed, dup=False, i
                        route_flops=3 * 2 * N * D * B if split_tf32 else None))
     if split_tf32:
         rec.update(route_pct(rec))
+    else:
+        rec.update(route="wgmma", kind=kind, label=label,
+                   bound_pct=100.0 * rec["bound_ms"] / rec["ms"])
     if library is not None:
         rec["library_ms"] = cuda_ms(lambda: library(m, x), iters)
     emit("kernels", **rec)
@@ -1272,6 +1307,20 @@ def k14_stagger_ctas(n: int):
 
 
 @contextlib.contextmanager
+def k15_splits_forced(splits: int):
+    """K15's codebook split into `splits` spans in place of
+    ops.winner_probe.k15_splits."""
+    from som_lvq_pak_torch.ops import winner_probe
+
+    saved = winner_probe.k15_splits
+    winner_probe.k15_splits = lambda B, N, device: splits
+    try:
+        yield
+    finally:
+        winner_probe.k15_splits = saved
+
+
+@contextlib.contextmanager
 def k14_rows_forced(rows: int):
     """K14's main form at `rows` rows per CTA (32 or 64) in place of
     ops.som_step.K14_ROWS."""
@@ -1290,6 +1339,7 @@ def option_phases(recs):
     their records in `recs` and returns K17's two records."""
     import torch
 
+    from som_lvq_pak_torch.ops import winner_probe
     from som_lvq_pak_torch.ops.winner_probe import (f32_winner_probe,
                                                     f32_winner_probe_plain,
                                                     int8_winner_probe,
@@ -1339,6 +1389,21 @@ def option_phases(recs):
             r = phase_probe(name, k, p, None, dt, 65536, 64, 4096, seed=65, normal=True)
             rs[0] = dict(rs[0], max_rel_err_normal=r["max_rel_err"])
         recs[name] = rs[0]
+    # K15 where its wgmma route can break: every maximum negative past a
+    # ragged N (a zero-filled code must not win), -128 rows and columns, N
+    # below one tile with B not a multiple of 64, one of each, D 256 (two
+    # chunks of 128 bytes), D 37 (m copied padded), and the record shape
+    # with its codebook splits forced to 1 and to its largest (one tile a CTA)
+    for shape, seed, kind in (((1000, 64, 999), 67, "negative"), ((1000, 64, 999), 68, "min"),
+                              ((200, 64, 100), 69, "random"), ((1, 1, 1), 75, "min"),
+                              ((1000, 256, 999), 76, "random"), ((1000, 37, 999), 77, "negative")):
+        phase_probe("int8_winner_probe", int8_winner_probe, int8_winner_probe_plain, None,
+                    torch.int8, *shape, seed=seed, kind=kind, iters=3)
+    for splits in (1, -(-65536 // winner_probe.K15_TILE)):
+        with k15_splits_forced(splits):
+            phase_probe("int8_winner_probe", int8_winner_probe, int8_winner_probe_plain, None,
+                        torch.int8, 65536, 64, 4096, seed=60, iters=3,
+                        label=f"int8_winner_probe 65536x64x4096 splits={splits}")
     # K17 at bench.py's twins of the headline steps: B 4096 float32 (its
     # record), B 8192 bf16; then both types at ragged shapes with an x' of
     # its own (D 5, 37, 130, 200: every width class; B not a multiple of 8:
@@ -2716,6 +2781,7 @@ def main() -> int:
         som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
         som_neighborhood_update_idx_plain)
     from som_lvq_pak_torch.tools import int8_probe, int8_step_ab
+    from som_lvq_pak_torch.tools.sass_diff import sass
 
     fp32_matmul()  # plain references in full float32 (no TF32)
     smi = nvidia_smi_line()
@@ -2728,14 +2794,18 @@ def main() -> int:
     built_now = not os.path.exists(_build.library_path())
     _build.build(verbose=True)  # prints the log, ptxas's report with it
     _build.library()
+    slowest = sorted(_build.compile_seconds().items(), key=lambda kv: -kv[1])[:3]
     emit("build", seconds=time.perf_counter() - t0, library=_build.library_path(),
-         built_now=built_now)
+         built_now=built_now, slowest_nvcc=slowest)
     # the report of the build that made this library, this run's or an
     # earlier one's (built_now says which); empty if that build kept no log
     ptxas = ptxas_report(_build.build_log())
     emit("ptxas", card=smi, built_now=built_now, report=ptxas)
-    emit("sass", hmma_per_function=sass_mma(_build.library_path()),
-         imma_per_function=sass_mma(_build.library_path(), INT8_MMA_KERNELS, "IMMA"))
+    dump = sass(_build.library_path())
+    emit("sass", hmma_per_function=sass_mma(dump),
+         imma_per_function=sass_mma(dump, INT8_MMA_KERNELS, "IMMA"),
+         igmma_per_function=sass_mma(dump, INT8_WGMMA_KERNELS, "IGMMA"),
+         idp4a=no_dp4a(dump))
     if sys.argv[1:] == ["--profile"]:
         profile_cells()
         print(smi)

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -54,8 +55,8 @@ _SIGNATURES = {
                                  _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # rows, seg, B, C, noc, presorted, scratch, out, stream
     "somvq_segment_sum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # m, x, N, D, B, out, stream
-    "somvq_int8_winner_probe": [_P, _P, _I, _I, _I, _P, _P],
+    # m, x, N, D, Dp, B, splits, out, stream
+    "somvq_int8_winner_probe": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     # m, x, N, D, B, splits, keys, out, stream
     "somvq_f32_winner_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # codes, N, D, w, T_rows, x, B, xn, Bn, bf16, scale, out, vkeys, vmax,
@@ -110,35 +111,52 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsomvq_{h.hexdigest()[:16]}.so")
 
 
-def _start(cmd):
-    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True)
+def _start(cmd, log: str):
+    """Start `cmd` with its output into the file `log`; (cmd, Popen, log,
+    start time)."""
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, text=True)
+    return cmd, p, log, time.perf_counter()
 
 
-def _wait(procs) -> str:
-    """Wait for every (cmd, Popen) of `_start`; raise on the first that
-    failed, after stopping the others."""
-    out = []
+def _wait(procs) -> tuple:
+    """Wait for every process of `_start`; raise on the first that failed,
+    after stopping the others.  Returns their output, in order, and the
+    seconds each ran."""
+    seconds = [None] * len(procs)
     try:
-        for cmd, p in procs:
-            stdout, stderr = p.communicate()
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{stdout}\n{stderr}")
-            out.append(stdout + stderr)
+        while None in seconds:
+            for j, (cmd, p, log, t0) in enumerate(procs):
+                if seconds[j] is not None or p.poll() is None:
+                    continue
+                seconds[j] = time.perf_counter() - t0
+                if p.returncode != 0:
+                    with open(log) as f:
+                        raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                           f"{' '.join(cmd)}\n{f.read()}")
+            time.sleep(0.05)
     finally:
-        for _, p in procs:
+        for _, p, _, _ in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return "".join(out)
+    out = []
+    for _, _, log, _ in procs:
+        with open(log) as f:
+            out.append(f.read())
+    return "".join(out), seconds
+
+
+# the build log's line for each source's compile time
+_SECONDS = "nvcc seconds"
 
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the current sources have no library yet;
     returns the library's path.  The compile log, with ptxas's register and
-    spill report of every kernel, is kept beside the library (`build_log`);
-    `verbose` prints it when a build runs."""
+    spill report of every kernel and each nvcc process's seconds, is kept
+    beside the library (`build_log`, `compile_seconds`); `verbose` prints it
+    when a build runs."""
     out = library_path()
     if os.path.exists(out):
         return out
@@ -147,10 +165,14 @@ def build(verbose: bool = False) -> str:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         flags = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v"]
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in sources()]
-        log = _wait([_start(flags + ["-c", "-o", o, s])
-                     for s, o in zip(sources(), objs)])
+        log, seconds = _wait([_start(flags + ["-c", "-o", o, s], o + ".log")
+                              for s, o in zip(sources(), objs)])
+        log += "".join(f"{_SECONDS} {os.path.basename(s)}: {t:.1f}\n"
+                       for s, t in zip(sources(), seconds))
         so = os.path.join(tmp, "lib.so")
-        log += _wait([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])])
+        link, (t,) = _wait([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+                                   so + ".log")])
+        log += link + f"{_SECONDS} link: {t:.1f}\n"
         if verbose:
             print(log)
         with open(os.path.join(tmp, "lib.log"), "w") as f:
@@ -162,6 +184,17 @@ def build(verbose: bool = False) -> str:
 
 def _log_path(library: str) -> str:
     return library[:-len(".so")] + ".log"
+
+
+def compile_seconds(log: str = None) -> dict:
+    """{source or "link": seconds} of the build that made the current
+    library, from its log (`build_log()` unless given); {} if it kept none."""
+    out = {}
+    for line in (build_log() if log is None else log).splitlines():
+        if line.startswith(_SECONDS + " "):
+            name, t = line[len(_SECONDS) + 1:].rsplit(": ", 1)
+            out[name] = float(t)
+    return out
 
 
 def build_log() -> str:

@@ -6,11 +6,17 @@ option is K14's `int8_win`, ops/som_step.py).
 
     out[b] = max_n sum_k m[n, k] x[k, b],   m (N, D), x (D, B)
 
-A CUDA tensor launches the kernel (K15 in `csrc/winner_probe.cu`, `__dp4a`
-on CUDA cores; K16 in `csrc/dist_argmin_t.cu`, K2's split-TF32 tensor-core
-body without the norm, its codebook split by `k2_splits`); a CPU tensor runs
-the plain version beside it.  Any other device raises.  Each wrapper counts
-its kernel launches in its `launches` attribute.
+A CUDA tensor launches the kernel (K15 in `csrc/winner_probe.cu`: warpgroup
+`wgmma` on int8 operands fed by a TMA ring, 128 samples a CTA, the codebook
+split by `k15_splits`; K16 in `csrc/dist_argmin_t.cu`, K2's split-TF32
+tensor-core body without the norm, its codebook split by `k2_splits`); a
+CPU tensor runs the plain version beside it.  Any other device raises.  Each
+wrapper counts its kernel launches in its `launches` attribute.
+
+K15 reads m through a TMA tensor map, which needs rows of a multiple of 16
+bytes at a 16-byte aligned address: other m are copied once, zero-padded
+(`k15_codes`).  Its shared memory holds x's block of 128 samples whole, so
+D is at most `K15_MAX_D` (`k15_layout` raises past it).
 
 Both kernels are exact on the probe's inputs: an int8 dot is exact in int32,
 and integer-valued float32 inputs with |v| <= 127 are exact in TF32 (the
@@ -23,12 +29,77 @@ relative per product, `ops.tf32x3`).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
 from .dist_argmin import k2_splits
 
-INT32_MIN = -(2 ** 31)
+# K15's shapes (csrc/winner_probe.cu): codes per tile (the wgmma's N),
+# samples per CTA, the dynamic shared memory a CTA may take, the ring's
+# most slots, the barriers' bytes and the alignment slack
+K15_TILE = 256
+K15_SAMPLES = 128
+K15_SMEM_MAX = 232448
+_K15_MAX_STAGES = 8
+_K15_BARRIER_BYTES = 2 * _K15_MAX_STAGES * 8
+_K15_ALIGN = 1024
+
+
+def _k15_layout(D: int) -> dict:
+    W = 64 if D <= 64 else 128
+    KC = -(-D // W)
+    xs, slot = KC * K15_SAMPLES * W, K15_TILE * W
+    stages = min(_K15_MAX_STAGES,
+                 (K15_SMEM_MAX - _K15_ALIGN - _K15_BARRIER_BYTES - xs) // slot)
+    return dict(W=W, KC=KC, stages=stages,
+                bytes=_K15_ALIGN + stages * slot + xs + _K15_BARRIER_BYTES)
+
+
+# the widest D whose x block leaves room for a ring that holds a whole tile
+# (its KC chunks) and at least two slots
+K15_MAX_D = max(D for D in range(128, 4097, 128)
+                if _k15_layout(D)["stages"] >= max(2, _k15_layout(D)["KC"]))
+
+
+def k15_layout(D: int) -> dict:
+    """K15's shared memory at width D, as the C launcher lays it out: rows
+    of W bytes (64 up to D 64, else 128: the swizzle span), KC chunks of W
+    along D, x's block (KC x 128 samples x W), as many ring slots of 256
+    codes x W as fit (at most 8), the barriers and the alignment slack.  A
+    tile's KC chunks must be in the ring together: past K15_MAX_D they do
+    not fit beside x's block, and this raises ValueError."""
+    if D > K15_MAX_D:
+        raise ValueError(f"int8_winner_probe takes D up to {K15_MAX_D}, not {D}: x's "
+                         "block and a ring holding one tile of m would not fit in shared "
+                         "memory")
+    return _k15_layout(D)
+
+
+def k15_splits(B: int, N: int, device: torch.device) -> int:
+    """K15's codebook splits: spans of whole 256-code tiles, enough that the
+    CTAs of 128 samples come to at most one per SM (one fits: its
+    accumulators and ring), at least 1, at most the tiles."""
+    b_tiles, n_tiles = -(-B // K15_SAMPLES), -(-N // K15_TILE)
+    return max(1, min(n_tiles, _sm_count(torch.device(device)) // b_tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k15_codes(m: torch.Tensor) -> torch.Tensor:
+    """m as K15's tensor map reads it: itself if its rows are a multiple of
+    16 bytes at a 16-byte aligned address, else one zero-padded (N,
+    ceil16(D)) copy (zeros add nothing to an int8 dot)."""
+    N, D = m.shape
+    if D % 16 == 0 and m.data_ptr() % 16 == 0:
+        return m
+    out = torch.zeros((N, -(-D // 16) * 16), dtype=m.dtype, device=m.device)
+    out[:, :D] = m
+    return out
 
 
 def _check(m: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> str:
@@ -69,13 +140,16 @@ def f32_winner_probe_plain(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def int8_winner_probe(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K15: m (N, D) int8, x (D, B) int8 -> (B,) int32 = max_n m[n] . x[:, b]."""
+    """K15: m (N, D) int8, x (D, B) int8 -> (B,) int32 = max_n m[n] . x[:, b],
+    int8 wgmma on the tensor cores.  D at most K15_MAX_D on the card."""
     if _check(m, x, torch.int8) == "cpu":
         return int8_winner_probe_plain(m, x)
-    m, x = m.contiguous(), x.contiguous()
-    out = torch.full((x.shape[1],), INT32_MIN, dtype=torch.int32, device=m.device)
-    _build.call("somvq_int8_winner_probe", m.data_ptr(), x.data_ptr(), m.shape[0],
-                m.shape[1], x.shape[1], out.data_ptr(),
+    (N, D), B = m.shape, x.shape[1]
+    k15_layout(D)  # raises past K15_MAX_D
+    mp, x = k15_codes(m.contiguous()), x.contiguous()
+    out = torch.empty((B,), dtype=torch.int32, device=m.device)  # the C call fills it
+    _build.call("somvq_int8_winner_probe", mp.data_ptr(), x.data_ptr(), N, D, mp.shape[1],
+                B, k15_splits(B, N, m.device), out.data_ptr(),
                 torch.cuda.current_stream(m.device).cuda_stream)
     int8_winner_probe.launches += 1
     return out

@@ -7,9 +7,10 @@ tools/int8_probe.py (the JAX package's probe on the TPU).
 (a) The library rates at n^3: `torch.mm` in bf16 against `torch._int_mm` in
     int8 (the JAX probe times XLA's dots here, not a kernel of its own).
 (b) The winner contraction at rows x dim x batch, max over rows of m . x into
-    (batch,): K15 (`ops.winner_probe.int8_winner_probe`, int8 __dp4a) against
-    K16 (`f32_winner_probe`, split TF32 on the tensor cores) on the same
-    integer values, which must agree exactly, and the int8 speedup.
+    (batch,): K15 (`ops.winner_probe.int8_winner_probe`, int8 wgmma on the
+    tensor cores) against K16 (`f32_winner_probe`, split TF32 mma.sync on
+    the tensor cores) on the same integer values, which must agree exactly,
+    and the int8 speedup; K15's rate sits beside (a)'s int8 rate.
 
 Inputs come from a seeded torch.Generator; times are CUDA events, the mean
 of `iters` calls after a warm-up.  Prints one JSON line with the four rates;

@@ -2,8 +2,11 @@
 (`ops.skeleton.fused_step_skeleton`) against bench.py's `_skeleton_kernel`
 run through its own pallas_call in interpret mode, K15/K16's plain versions
 (`ops.winner_probe`) against a NumPy int64 reference and against
-tools/int8_probe.py's Pallas kernels, the int8_probe tool at a small size,
-and the wrappers' device and argument checks.
+tools/int8_probe.py's Pallas kernels (K15's at ragged shapes and
+extreme values too), K15's host helpers (the padded copy of m, the
+codebook splits, the shared-memory layout), the build's per-source compile
+times, the int8_probe tool at a small size, and the wrappers' device and
+argument checks.
 
 tools/int8_probe.py's kernels `kern` and `kern32` are closures inside its
 `main`: a test takes them from a spy on pallas_call while `main` runs with
@@ -26,6 +29,8 @@ from jax.experimental import pallas as pl
 
 import bench
 from som_lvq_pak_torch.ops.skeleton import fused_step_skeleton, fused_step_skeleton_plain
+from som_lvq_pak_torch import _build
+from som_lvq_pak_torch.ops import winner_probe
 from som_lvq_pak_torch.ops.winner_probe import (f32_winner_probe, f32_winner_probe_plain,
                                                 int8_winner_probe, int8_winner_probe_plain)
 from som_lvq_pak_torch.tools import int8_probe
@@ -132,6 +137,113 @@ def test_probe_plain_versions_match_int64(shape, dup):
         want.astype(np.float32))
 
 
+def _k15_inputs(N, D, B, kind, seed):
+    """int8 m (N, D) and x (D, B): "random" in [-127, 127]; "negative" m in
+    [1, 127] and x in [-127, -1], so that every maximum is negative (a zero
+    code past N would win it); "min" in [-128, 127] with every 7th row of m
+    and every 5th column of x at -128."""
+    rng = np.random.default_rng(seed)
+    if kind == "negative":
+        return (rng.integers(1, 128, size=(N, D)).astype(np.int8),
+                rng.integers(-127, 0, size=(D, B)).astype(np.int8))
+    lo = -128 if kind == "min" else -127
+    m = rng.integers(lo, 128, size=(N, D)).astype(np.int8)
+    x = rng.integers(lo, 128, size=(D, B)).astype(np.int8)
+    if kind == "min":
+        m[::7] = -128
+        x[:, ::5] = -128
+    return m, x
+
+
+# chip_smoke.py's K15 cases at a CPU's size: the ragged all-negative case,
+# the int8 extreme, N below one 256-code tile with B not a multiple of 64,
+# D 256 (two chunks of 128 bytes) and D 37 (the padded copy of m)
+K15_CASES = [((1000, 64, 999), "negative"), ((1000, 37, 999), "negative"),
+             ((1000, 64, 999), "min"), ((200, 64, 100), "random"), ((1, 1, 1), "min"),
+             ((300, 256, 257), "random"), ((1000, 37, 999), "random"),
+             ((513, 200, 130), "min"), ((260, 512, 70), "random")]
+
+
+@pytest.mark.parametrize("shape,kind", K15_CASES,
+                         ids=[f"{n}x{d}x{b}-{k}" for (n, d, b), k in K15_CASES])
+def test_k15_plain_matches_int64(shape, kind):
+    """K15's plain version against the NumPy int64 maximum over rows, bit
+    for bit, at the kernel's edge cases: every maximum negative, -128
+    operands (the products stay exact in int32), ragged N, B and D."""
+    m, x = _k15_inputs(*shape, kind, seed=sum(shape))
+    got = int8_winner_probe(torch.from_numpy(m), torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == (shape[2],)
+    want = _int64_max(m, x)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "negative":
+        assert (want < 0).all()
+
+
+@pytest.mark.parametrize("D", [5, 37, 130])
+def test_k15_padded_codes_keep_the_maximum(D):
+    """`k15_codes` pads m's rows with zeros to a multiple of 16 bytes (TMA's
+    global stride); against x padded with zero rows the int64 maximum is the
+    original's.  A 16-byte multiple at an aligned address is m itself; a
+    view at an unaligned address is copied."""
+    m, x = _k15_inputs(300, D, 77, "min", seed=D)
+    mp = winner_probe.k15_codes(torch.from_numpy(m))
+    Dp = -(-D // 16) * 16
+    assert mp.shape == (300, Dp) and mp.dtype == torch.int8
+    assert (mp[:, D:] == 0).all()
+    xp = np.zeros((Dp, 77), np.int8)
+    xp[:D] = x
+    np.testing.assert_array_equal(_int64_max(mp.numpy(), xp), _int64_max(m, x))
+    aligned = torch.from_numpy(np.zeros((8, 32), np.int8))
+    assert winner_probe.k15_codes(aligned) is aligned
+    view = torch.zeros(65, 32, dtype=torch.int8)[1:]  # 32 bytes in: aligned
+    assert winner_probe.k15_codes(view) is view
+    odd = torch.arange(8 * 32 + 1, dtype=torch.int8)[1:].view(8, 32)  # 1 byte in
+    assert odd.data_ptr() % 16 != 0
+    copy = winner_probe.k15_codes(odd)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, odd)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_k15_splits_and_shared_memory(monkeypatch, sms):
+    """`k15_splits` gives at least one split and at most the 256-code tiles,
+    and fills no more than one CTA per SM where there are tiles to spare;
+    `k15_layout` fits the shared memory limit at every D up to K15_MAX_D
+    with a ring of two to eight slots that holds a whole tile (its chunks
+    of D), and raises past it."""
+    monkeypatch.setattr(winner_probe, "_sm_count", lambda device: sms)
+    for B in (1, 64, 999, 4096, 8192, 65536):
+        for N in (1, 255, 256, 1000, 65536):
+            s = winner_probe.k15_splits(B, N, "cuda")
+            tiles = -(-N // winner_probe.K15_TILE)
+            assert 1 <= s <= tiles
+            blocks = -(-B // winner_probe.K15_SAMPLES)
+            assert blocks * s <= max(sms, blocks)
+    assert winner_probe.k15_splits(4096, 65536, "cuda") == max(1, sms // 32)
+    for D in range(1, winner_probe.K15_MAX_D + 1):
+        lay = winner_probe.k15_layout(D)
+        assert lay["bytes"] <= winner_probe.K15_SMEM_MAX, D
+        assert max(2, lay["KC"]) <= lay["stages"] <= 8 and lay["KC"] * lay["W"] >= D
+    with pytest.raises(ValueError, match="D up to"):
+        winner_probe.k15_layout(winner_probe.K15_MAX_D + 1)
+
+
+def test_build_times_each_nvcc_process(tmp_path):
+    """`_build._wait` runs its processes together and returns their output
+    and the seconds each ran; `compile_seconds` reads those seconds back
+    from a build log; a failed process raises with its output."""
+    import sys
+    procs = [_build._start([sys.executable, "-c", f"import time; time.sleep({t}); print({t})"],
+                           str(tmp_path / f"{j}.log")) for j, t in enumerate((0.3, 0.0))]
+    out, seconds = _build._wait(procs)
+    assert out.split() == ["0.3", "0.0"]
+    assert seconds[0] >= 0.3 and seconds[1] < seconds[0]
+    log = "ptxas info\nnvcc seconds winner_probe.cu: 3.5\nnvcc seconds link: 0.7\n"
+    assert _build.compile_seconds(log) == {"winner_probe.cu": 3.5, "link": 0.7}
+    with pytest.raises(RuntimeError, match="boom"):
+        _build._wait([_build._start([sys.executable, "-c", "import sys; print('boom'); "
+                                     "sys.exit(3)"], str(tmp_path / "f.log"))])
+
+
 def _probe_kernels(monkeypatch):
     """tools/int8_probe.py's `kern` and `kern32`, captured by a spy on
     pallas_call that keeps each kernel and returns zeros of its output while
@@ -190,6 +302,28 @@ def test_probe_plain_versions_match_int8_probe_kernels(monkeypatch):
     np.testing.assert_array_equal(
         f32_winner_probe_plain(torch.from_numpy(m).float(), torch.from_numpy(x).float()).numpy(),
         want32)
+
+
+@pytest.mark.parametrize("N,kind", [(600, "negative"), (1000, "random"), (200, "negative")])
+def test_k15_plain_matches_kern_on_ragged_rows(monkeypatch, N, kind):
+    """K15's plain version against tools/int8_probe.py's `kern` in interpret
+    mode at D 64 with N not a multiple of 256.  The TPU tool's grid takes
+    whole 256-row tiles, so m's last tile is filled out with copies of its
+    last row, which leave every maximum as it is; K15 takes m as it is."""
+    kern, _ = _probe_kernels(monkeypatch)
+    m, x = _k15_inputs(N, 64, 384, kind, seed=N)
+    tiles = -(-N // 256)
+    mt = np.concatenate([m, np.repeat(m[-1:], tiles * 256 - N, axis=0)])
+    want = np.asarray(pl.pallas_call(
+        kern, grid=(tiles,),
+        in_specs=[pl.BlockSpec((256, 64), lambda i: (i, 0)),
+                  pl.BlockSpec((64, 384), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((1, 384), lambda i: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((1, 384), jnp.int32),
+        interpret=True)(jnp.asarray(mt), jnp.asarray(x)))[0]
+    np.testing.assert_array_equal(want, _int64_max(m, x))
+    np.testing.assert_array_equal(
+        int8_winner_probe_plain(torch.from_numpy(m), torch.from_numpy(x)).numpy(), want)
 
 
 def test_int8_probe_on_cpu():
