@@ -73,9 +73,10 @@ phases, each printing one JSON line:
             the last at 16, 32, 64 and 128 rows per CTA, each bit-equal to the K3
             chain, with one "k7_rows" line of their times.
             K1 also runs at the LVQ steps' B 1024, a mesh rank's B 512 x
-            32768, D 37, D 130 and at the LVQ accuracy's
-            single launch over 1M x 65536; K4 at the masked LVQ cell's B
-            1024 x 4096, D 37 and D 130.  The LVQ steps' segment sum
+            32768, D 37, D 130, the online scan's B 1 x 4096 and at the LVQ
+            accuracy's single launch over 1M x 65536; K4 at the masked LVQ
+            cell's B 1024 x 4096, D 37, D 130 and B 1 x 4096 (no row masked
+            entirely).  The LVQ steps' segment sum
             (not a TPU kernel) at the olvq1 step's B 1024 x D 64 (and 66
             columns) into 65,536 codes, into 4096, one column, a hot segment
             and B 8192 (past its one-CTA sort), bit-equal to np.add.at and
@@ -160,6 +161,24 @@ phases, each printing one JSON line:
 6. e2e_masked_128x128_100k  phase 4's run with missing components in
             every other chunk and weight= tokens (K13, re-seed and masked
             steps all run), then the masked qerror; within 1% of plain;
+6a. e2e_som_online_64x64  the online scan, som_train(mode="fast"): a
+            64x64 hexa gaussian random-init map over the first 20,000 of
+            phase 4's rows, one sample per step (K1 at B 1), alpha 0.05,
+            radius 16; then over the first 5,000 of phase 6's masked rows
+            (K4 at B 1); each through the plain versions and again, qerror
+            within 1% of plain, below the random-init qerror, the rerun
+            bit-equal; samples/s;
+6b. e2e_som_train_fast_128x128_100k  models.fast.som_train_fast on phase
+            4's rows: 128x128 hexa gaussian random init, B 1024, rlen
+            100,000 (97 steps of K1 + K5), radius 32; within 1% of plain,
+            below random init, a rerun bit-equal;
+6c. e2e_vfind_8x16x16  bench.py:prep_vfind's row: vfind_trials over 2048
+            x 16 normal rows (default_rng(9)), 8 trials of a 16x16 hexa
+            gaussian map, phases (2048, 0.05, 4.0) and (2048, 0.02, 2.0), B
+            128 (K1 + K5 per trial and batch, K2 scores); each trial's qerror
+            within 1% of the plain run's, the same best trial unless the
+            plain run's two best are within 1%, trial 8 bit-equal to a
+            one-trial call;
 7. e2e_masked_64x64_100k  the grouped path: a 64x64 map on the 100k data
             with every other 16384-row chunk masked and weight= tokens, so
             clean groups (K1 + K7) alternate with dirty ones (K4 + K6 per
@@ -168,6 +187,11 @@ phases, each printing one JSON line:
             step, the JAX trainer's choice there), qerror within 2% of the
             JAX package's anchor; then with stream_bf16=True, within 1% of
             it;
+8a. e2e_qerror2       find_qerror2(mode="fast") (K1, K4 masked): phase
+            4's codebook on its rows at radius 1 and 8, gaussian and as
+            bubble, phase 6's masked codebook on its rows, and phase 8's on
+            the 1M rows at radius 1 (timed, with the peak of allocated
+            device memory); each within 0.1% of the plain run;
 9. e2e_64x64_1M      the grouped path on the same 1M x 64 data: a 64x64
             map, B 512, 1953 steps in 62 K7 launches, then K2's qerror;
             also with vmem_steps=False (K13 per step) and through the plain
@@ -263,7 +287,8 @@ winners); K1 at the mesh's B 512 x 32768.
 
 Each main-path run (4-17) sets every launch counter to 0 before it and
 reads them after: each kernel of that path must have launched, and the
-plain runs must launch none.  Then a line with the segment sum's record
+plain runs must launch none.  Then a "wall" line with the script's
+seconds so far, a line with the segment sum's record
 (a kernel of the LVQ paths that ports no TPU kernel), one line with every
 TPU kernel's record (launches summed over those runs, over every rank), the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure, a rank that fails or
@@ -545,20 +570,22 @@ def check_winners(name, x, codes, ik, ip, rel=1e-5, mask=None, bf16_score=False,
     return int(bad.numel())
 
 
-def random_mask(g, B, D, p):
+def random_mask(g, B, D, p, full_rows=True):
     """(B, D) uint8 mask on the card: each component masked with
-    probability p, and every 97th row masked entirely."""
+    probability p, and (with full_rows) every 97th row masked entirely."""
     import torch
 
     m = (torch.rand((B, D), generator=g, device="cuda") < p).to(torch.uint8)
-    m[::97] = 1
+    if full_rows:
+        m[::97] = 1
     return m
 
 
 def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
-                   mask_p=None, library=None, rerun=False, twin=None):
+                   mask_p=None, library=None, rerun=False, twin=None, full_rows=True):
     """One winner kernel against its plain version; with mask_p, the masked
-    kernel on a random mask: fully masked rows must get index 0, value 0.
+    kernel on a random mask: fully masked rows (every 97th, the first
+    included, unless full_rows is False) must get index 0, value 0.
     With `library` (a library_winners form) its library_ms; with `rerun` the
     kernel runs twice on the same inputs and must give the same values and
     winners bit for bit; with `twin` (K2 beside K1) that kernel must give
@@ -572,7 +599,8 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
         codes = torch.cat([base, base, base]).contiguous()
     else:
         codes = torch.randn((N, D), generator=g, device="cuda")
-    args = (x, codes) if mask_p is None else (x, codes, random_mask(g, B, D, mask_p))
+    args = (x, codes) if mask_p is None else (x, codes,
+                                              random_mask(g, B, D, mask_p, full_rows))
     vk, ik = kernel(*args)
     vp, ip = plain(*args)
     torch.cuda.synchronize()
@@ -591,7 +619,7 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     n_diff = check_winners(name, x, codes, ik, ip, mask=args[2] if mask_p else None)
     if not torch.allclose(vk, vp, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"{name}: values differ by {float((vk - vp).abs().max())}")
-    if mask_p is not None:
+    if mask_p is not None and full_rows:
         empty = (args[2] != 0).all(dim=1)
         if not bool(empty.any()) or bool((ik[empty] != 0).any()) \
                 or bool((vk[empty] != 0).any()):
@@ -1934,9 +1962,10 @@ def blob_data(seed: int, n: int, n_centres: int):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the trainers, the fused step (its K3, K13 and K14 branches), the
-    two-kernel step, the LVQ steps (their winners and segment sums), the
-    qerror and the accuracy through the plain versions (for the reference run on the card); restores the
-    kernels on exit."""
+    two-kernel step (and so som_train_fast and vfind_trials), the LVQ steps
+    (their winners and segment sums), the online scan, the qerror, the
+    qerror2 and the accuracy through the plain versions (for the reference
+    run on the card); restores the kernels on exit."""
     from som_lvq_pak_torch.models import eval as ev
     from som_lvq_pak_torch.models import fast, som, trainer
     from som_lvq_pak_torch.ops import dist_argmin as da
@@ -2043,7 +2072,7 @@ def som_stream(X, chunk, total, mask=None, weight=None, labels=None):
 
 
 def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
-        around=None, **trainer_kw):
+        around=None, keep=None, **trainer_kw):
     """One streamed lap of SOMTrainer.fit, then find_qerror(fast) on a
     device-resident copy; returns (per-sample qerror, train_s, eval_s).
     With `mask`, chunks carry their slice of it (a Dataset drops an
@@ -2051,7 +2080,8 @@ def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
     with `weight`, chunks carry weight= tokens and training uses them.
     `vmem_steps` goes to SOMTrainer (False: never the grouped path), as do
     `trainer_kw` (bf16=, stream_bf16=).  `around(part)`, if given, is a context manager entered around the timed
-    "train" and "eval" parts."""
+    "train" and "eval" parts.  `keep`, a dict, receives the trained
+    codebook under "codes"."""
     import torch
 
     from som_lvq_pak_torch.models.som import find_qerror
@@ -2087,6 +2117,8 @@ def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
         eval_s = time.perf_counter() - t0
     if not np.isfinite(out.points).all() or out.points.shape != (map_dim * map_dim, 64):
         raise AssertionError("trained codebook is not finite or has the wrong shape")
+    if keep is not None:
+        keep["codes"] = out
     return q, train_s, eval_s
 
 
@@ -2537,6 +2569,217 @@ def som_batch_steps(X, map_dim, bs, steps):
     return M
 
 
+def online_run(X, rlen, mask=None):
+    """The online scan, som_train(mode="fast"), on the card: a 64x64 hexa
+    gaussian random-init map over the first `rlen` rows of X (D 64) in file
+    order, alpha 0.05, radius 16; returns (per-sample qerror over X,
+    train_s, the codebook)."""
+    import torch
+
+    from som_lvq_pak_torch.models.som import Dataset, find_qerror, som_train
+
+    data = Dataset(points=X, mask=mask)
+    codes = random_codes(X, 64, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = som_train(codes, data, rlen, 0.05, 16.0, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if not np.isfinite(out.points).all() or out.points.shape != (4096, 64):
+        raise AssertionError("online scan: codebook not finite or of the wrong shape")
+    return find_qerror(out, data, device="cuda") / X.shape[0], train_s, out
+
+
+def train_fast_run(X, map_dim, bs, rlen, radius):
+    """models.fast.som_train_fast on the card from the random-init map;
+    returns (per-sample qerror over X, train_s, the codebook)."""
+    import torch
+
+    from som_lvq_pak_torch.models.fast import som_train_fast
+    from som_lvq_pak_torch.models.som import Dataset, find_qerror
+
+    data = Dataset(points=X)
+    codes = random_codes(X, map_dim)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = som_train_fast(codes, data, rlen, 0.05, radius, batch_size=bs, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    return find_qerror(out, data, device="cuda") / X.shape[0], train_s, out
+
+
+VFIND_PHASES = [(2048, 0.05, 4.0), (2048, 0.02, 2.0)]
+
+
+def vfind_run(data):
+    """bench.py:prep_vfind's row on the card: vfind_trials, 8 trials of a
+    16x16 hexa gaussian map, B 128; returns (best trial, {trial: qerror},
+    the best codebook, vfind_s)."""
+    import torch
+
+    from som_lvq_pak_torch.models.som import Neighborhood, Topology, vfind_trials
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, trial, _, qs = vfind_trials(data, data, 8, Topology.HEXA, Neighborhood.GAUSSIAN,
+                                      16, 16, VFIND_PHASES, batch_size=128, device="cuda")
+    torch.cuda.synchronize()
+    return trial, qs, best, time.perf_counter() - t0
+
+
+def qerror2_cases(cases):
+    """find_qerror2(mode="fast") on the card for each (name, codebook, data
+    tensor, mask tensor, radius); the last case is timed, with the peak of
+    allocated device memory during it.  Returns ({name: qerror2},
+    qerror2_eval_s, peak GiB)."""
+    import torch
+
+    from som_lvq_pak_torch.models.som import find_qerror2
+
+    out = {}
+    for name, codes, X, mask, radius in cases[:-1]:
+        out[name] = find_qerror2(codes, X, radius, mask=mask)
+    name, codes, X, mask, radius = cases[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out[name] = find_qerror2(codes, X, radius, mask=mask)
+    eval_s = time.perf_counter() - t0
+    return out, eval_s, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def som_model_phases(smi, tally, X, Xm, mask):
+    """Phases 6a-6c: the online scan on phase 4's rows `X` and phase 6's
+    masked rows `Xm` (`mask`), som_train_fast on `X`, and vfind; each
+    through the kernels, the plain versions and again; `tally(launches)`
+    takes each run's counts."""
+    import torch
+
+    from som_lvq_pak_torch.models.som import (Dataset, Neighborhood, Topology,
+                                              find_qerror, vfind_codebooks)
+
+    # ---- the online scan: som_train(mode="fast"), K1 (K4 masked) at B 1 ---
+    # 20,000 steps over phase 4's rows, then 5,000 over phase 6's masked
+    # rows (every step K4); each run again, bit-equal, and through the plain
+    # versions on the card
+    t0 = time.perf_counter()
+    runs = {}
+    for label, rows, mk, rlen, kernels in (
+            ("", X, None, 20_000, ("dist_argmin",)),
+            (" masked", Xm, mask, 5_000, ("dist_argmin_masked",))):
+        (q, train_s, out), (q_plain, train_plain_s, _), got = main_path(
+            "e2e_som_online_64x64" + label, lambda: online_run(rows, rlen, mk), kernels,
+            lambda: online_run(rows, rlen, mk))
+        tally(got)
+        check_e2e("online 64" + label, q, q_plain)
+        _, train2_s, again = online_run(rows, rlen, mk)
+        if not np.array_equal(again.points.view(np.int32), out.points.view(np.int32)):
+            raise AssertionError(f"online 64{label}: a rerun on the card is not bit-equal")
+        rows_dev = torch.from_numpy(rows).to("cuda")
+        q_init = find_qerror(random_codes(rows, 64, mk), rows_dev,
+                             mask=None if mk is None else torch.from_numpy(mk).to("cuda"))
+        q_init /= rows.shape[0]
+        if not q < q_init:
+            raise AssertionError(f"online 64{label}: qerror {q} not below the random-init "
+                                 f"{q_init}")
+        runs[label.strip() or "clean"] = dict(
+            rlen=rlen, qerror_per_sample=q, plain_qerror_per_sample=q_plain,
+            random_init_qerror_per_sample=q_init, train_s=train_s, rerun_train_s=train2_s,
+            plain_train_s=train_plain_s, samples_per_s=rlen / train_s, launches=got,
+            rerun_bit_equal=True)
+        del rows_dev
+    # phase_s: the whole line, its plain runs, reruns and evaluations included
+    emit("e2e_som_online_64x64", card=smi, **runs, phase_s=time.perf_counter() - t0,
+         gate="qerror within 1% of the plain run and below the random-init qerror; "
+              "a rerun bit-equal")
+
+    # ---- som_train_fast: the minibatch trainer, K1 + K5 per batch ---------
+    t0 = time.perf_counter()
+    run = lambda: train_fast_run(X, 128, 1024, 100_000, 32.0)  # noqa: E731
+    (q, train_s, out), (q_plain, train_plain_s, _), got = main_path(
+        "e2e_som_train_fast_128x128_100k", run,
+        ("dist_argmin", "som_neighborhood_update_idx"), run)
+    tally(got)
+    check_e2e("som_train_fast 128", q, q_plain)
+    _, _, again = run()
+    if not np.array_equal(again.points.view(np.int32), out.points.view(np.int32)):
+        raise AssertionError("som_train_fast 128: a rerun on the card is not bit-equal")
+    q_init = find_qerror(random_codes(X, 128), torch.from_numpy(X).to("cuda")) / X.shape[0]
+    if not q < q_init:
+        raise AssertionError(f"som_train_fast 128: qerror {q} not below the random-init "
+                             f"{q_init}")
+    emit("e2e_som_train_fast_128x128_100k", card=smi, steps=100_000 // 1024, batch=1024,
+         qerror_per_sample=q, plain_qerror_per_sample=q_plain,
+         random_init_qerror_per_sample=q_init, train_s=train_s,
+         plain_train_s=train_plain_s, launches=got, rerun_bit_equal=True,
+         phase_s=time.perf_counter() - t0,
+         gate="qerror within 1% of the plain run and below the random-init qerror; "
+              "a rerun bit-equal")
+
+    # ---- vfind: 8 trials at once (bench.py:prep_vfind), K1 + K5, K2 -------
+    t0 = time.perf_counter()
+    vdata = Dataset(points=np.random.default_rng(9).normal(
+        0, 1, size=(2048, 16)).astype(np.float32))
+    (trial, qs, best, vfind_s), (trial_plain, qs_plain, _, vfind_plain_s), got = main_path(
+        "e2e_vfind_8x16x16", lambda: vfind_run(vdata),
+        ("dist_argmin", "som_neighborhood_update_idx", "dist_argmin_t"),
+        lambda: vfind_run(vdata))
+    tally(got)
+    for t in qs:
+        check_e2e(f"vfind trial {t}", qs[t], qs_plain[t])
+    ranked = sorted(qs_plain.values())
+    if trial != trial_plain and ranked[1] - ranked[0] > 0.01 * ranked[0]:
+        raise AssertionError(f"vfind: best trial {trial}, plain {trial_plain}")
+    vkw = dict(topol=Topology.HEXA, neigh=Neighborhood.GAUSSIAN, xdim=16, ydim=16,
+               phases=VFIND_PHASES, batch_size=128, device="cuda")
+    all8 = vfind_codebooks(vdata, list(range(8, 0, -1)), **vkw)
+    if not (bits_equal(all8[0], vfind_codebooks(vdata, [8], **vkw)[0])
+            and bits_equal(all8[8 - trial].cpu(), torch.from_numpy(best.points))):
+        raise AssertionError("vfind: a trial's codebook depends on the trials beside it")
+    emit("e2e_vfind_8x16x16", card=smi, best_trial=trial, plain_best_trial=trial_plain,
+         qerror_per_sample={t: q / 2048 for t, q in qs.items()},
+         plain_qerror_per_sample={t: q / 2048 for t, q in qs_plain.items()},
+         vfind_s=vfind_s, plain_vfind_s=vfind_plain_s, launches=got,
+         trial8_bit_equal_to_one_trial=True, phase_s=time.perf_counter() - t0,
+         gate="each trial's qerror within 1% of the plain run's; the same best trial "
+              "unless the plain run's two best are within 1%; trial 8 bit-equal to a "
+              "one-trial call")
+
+
+def qerror2_phase(smi, tally, c128, X100, cm128, Xm128, mask128, c256, X):
+    """Phase 8a: find_qerror2(mode="fast") on phase 4's codebook `c128` and
+    its rows `X100` at radius 1 and 8, gaussian and as bubble; on phase 6's
+    masked codebook `cm128` and rows (`Xm128`, `mask128`); last (timed, with
+    the peak of device memory) on phase 8's `c256` and its 1M rows `X` at
+    radius 1.  Each within 0.1% of the plain run."""
+    import torch
+
+    from som_lvq_pak_torch.models.som import Neighborhood
+
+    t0 = time.perf_counter()
+    dev = lambda a: torch.from_numpy(a).to("cuda")  # noqa: E731
+    X100_dev, Xm_dev, m_dev, X_dev = dev(X100), dev(Xm128), dev(mask128), dev(X)
+    cases = [(f"128x128_{neigh}_r{r:g}", replace(c128, neigh=nb), X100_dev, None, r)
+             for neigh, nb in (("gaussian", Neighborhood.GAUSSIAN),
+                               ("bubble", Neighborhood.BUBBLE))
+             for r in (1.0, 8.0)]
+    cases += [("masked_128x128_r1", cm128, Xm_dev, m_dev, 1.0),
+              ("256x256_1M_r1", c256, X_dev, None, 1.0)]
+    (q2, q2_s, peak), (q2_plain, q2_plain_s, _), got = main_path(
+        "e2e_qerror2", lambda: qerror2_cases(cases), ("dist_argmin", "dist_argmin_masked"),
+        lambda: qerror2_cases(cases))
+    tally(got)
+    for name in q2:
+        if not (np.isfinite(q2[name]) and abs(q2[name] - q2_plain[name])
+                <= 1e-3 * q2_plain[name]):
+            raise AssertionError(f"qerror2 {name}: {q2[name]} vs plain {q2_plain[name]} "
+                                 "(> 0.1%)")
+    emit("e2e_qerror2", card=smi, qerror2=q2, plain_qerror2=q2_plain,
+         qerror2_eval_s=q2_s, plain_qerror2_eval_s=q2_plain_s, peak_gib=peak,
+         launches=got, phase_s=time.perf_counter() - t0,
+         gate="each value within 0.1% of the plain run on the card")
+
+
 def mesh_phases(smi, tally, q_masked128):
     """Phases 14-17: each mesh world against the single-device port run on
     the same data; `tally(launches)` takes each run's counts, `q_masked128`
@@ -2754,6 +2997,7 @@ def state_probe(smi):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if sys.argv[1:] not in ([], ["--profile"], ["--mesh"], ["--state"]):
@@ -2870,6 +3114,15 @@ def main() -> int:
             ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
         r = phase_distance(name, k, p, 1024, 4096, 64, seed=15, mask_p=mask_p,
                            **(k1_kw if mask_p is None else dict(rerun=True)))
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
+    # K1 and K4 at the online scan's step, one sample against a 64x64 map
+    # (B 1 x 4096 x 64; K4 with no row masked entirely), each run twice and
+    # K1 beside K2
+    for name, k, p, mask_p in (
+            ("dist_argmin", dist_argmin, dist_argmin_plain, None),
+            ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
+        r = phase_distance(name, k, p, 1, 4096, 64, seed=71, mask_p=mask_p,
+                           full_rows=False, **(k1_kw if mask_p is None else dict(rerun=True)))
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
     # K4 at a ragged D and at D 130 (three 64-feature slabs, its one-CTA-per-SM
     # instantiation), each run twice
@@ -3102,8 +3355,9 @@ def main() -> int:
     # e2e() runs a 2-batch warm-up fit + eval before the timed run; the
     # counts cover both, all of them through the main path's entry points
     X = blob_data(42, 100_000, 4)
+    k128 = {}
     (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
-        "e2e_128x128_100k", lambda: e2e(X, 128, 1024, 32, 8192),
+        "e2e_128x128_100k", lambda: e2e(X, 128, 1024, 32, 8192, keep=k128),
         ("dist_argmin", "dist_argmin_t", "som_fused_factored_step"),
         lambda: e2e(X, 128, 1024, 32, 8192))
     tally(got)
@@ -3148,9 +3402,10 @@ def main() -> int:
     # ---- masked e2e 128x128, 100k x 64: every other chunk masked ---------
     Xm, mask, rng = masked_data(X, 43, 8192, every_other=True)
     weight = rng.uniform(0.5, 2.0, size=X.shape[0]).astype(np.float32)
+    km128 = {}
     (q_masked128, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
         "e2e_masked_128x128_100k",
-        lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight),
+        lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight, keep=km128),
         ("dist_argmin", "som_fused_factored_step", "dist_argmin_masked",
          "som_neighborhood_update_idx_masked"),
         lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight))
@@ -3160,6 +3415,10 @@ def main() -> int:
          train_s=train_s, qerror_eval_s=eval_s, plain_qerror_per_sample=q_plain,
          plain_train_s=train_plain_s, plain_qerror_eval_s=eval_plain_s,
          launches=got)
+
+    # ---- the online scan, som_train_fast and vfind (phases 6a-6c) ---------
+    X100, Xm128, mask128 = X, Xm, mask
+    som_model_phases(smi, tally, X, Xm, mask)
 
     # ---- masked e2e 64x64, 100k x 64: grouped, clean and dirty groups ----
     # 16384-row chunks are 32 batches of 512: one group each, masked groups
@@ -3181,8 +3440,9 @@ def main() -> int:
 
     # ---- e2e 256x256, 1M x 64 (bench.py:run_e2e_1m_65k) ------------------
     X = blob_data(7, 1_000_000, 16)
+    k256 = {}
     (q, train_s, eval_s), _, got = main_path(
-        "e2e_256x256_1M", lambda: e2e(X, 256, 4096, 64, 16384),
+        "e2e_256x256_1M", lambda: e2e(X, 256, 4096, 64, 16384, keep=k256),
         ("dist_argmin", "dist_argmin_t", "som_fused_train_step"))
     tally(got)
     if abs(q - ANCHOR_1M) > 0.02 * ANCHOR_1M:
@@ -3201,6 +3461,10 @@ def main() -> int:
          launches=got, stream_bf16_qerror_per_sample=q16,
          stream_bf16_train_s=train16_s, stream_bf16_launches=got16,
          gate="qerror within 2% of the JAX anchor; stream_bf16 within 1% of it")
+
+    # ---- find_qerror2 (fast): K1, K4 masked (phase 8a) ------------------
+    qerror2_phase(smi, tally, k128["codes"], X100, km128["codes"], Xm128, mask128,
+                  k256["codes"], X)
 
     # ---- e2e 64x64, 1M x 64: the grouped path, 62 K7 launches -----------
     (q, train_s, eval_s), (q_plain, train_plain_s, eval_plain_s), got = main_path(
@@ -3395,6 +3659,7 @@ def main() -> int:
     idle = [name for name in list(sources) + ["segment_sum"] if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
+    emit("wall", card=smi, script_s=time.perf_counter() - t_script)
     # the LVQ steps' fixed-order segment sum: a kernel of the path that ports
     # no TPU kernel (the JAX package sums in XLA), so a line of its own
     print(json.dumps({"segment_sum": {

@@ -10,9 +10,10 @@ datafile.c:754-840).
 Here the same contract is a chunk iterator over Dataset slices with a
 background prefetch thread, so host parsing overlaps device compute.
 
-The port's copy of som_lvq_pak_tpu/data/streaming.py:StreamingReader; its
-chunks parse with the port's Python parser (data.io.read_data), and tests
-hold them equal to the JAX package's.
+The port's copy of som_lvq_pak_tpu/data/streaming.py:StreamingReader and
+`streamed_samples` (:212-266); its chunks parse with the port's Python
+parser (data.io.read_data), and tests hold them, and the sample order, equal
+to the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import io as _io
 import queue
 import threading
 from typing import Iterator, List, Optional
+
+import numpy as np
 
 from ..config import masked_string
 from .dataset import Dataset
@@ -192,3 +195,58 @@ class StreamingReader:
 
     def __iter__(self) -> Iterator[Dataset]:
         return self.chunks(laps=1)
+
+
+def streamed_samples(reader: StreamingReader, rlen: int,
+                     random_order: bool = False, rng=None):
+    """Yield (chunk Dataset, row) pairs for `rlen` training samples in
+    the reference's buffered order with bounded memory — the sample-level
+    contract of next_entry over LOADMODE_BUFFER (datafile.c:754-840):
+
+    * each refill holds `buffer` entries; with random_order the refill
+      is shuffled with the CONTINUING LCG stream (datafile.c:268-270,
+      338-341) — `rng` must be the same CRandom the full-load path
+      would use, so the order matches models.common.sample_order(...,
+      buffer=B) index-for-index;
+    * every lap rewinds (re-opens) the file and reloads all chunks;
+    * a file that fits one refill (n < buffer) switches buffering OFF
+      after the first load (datafile.c:330-333): the first shuffle is
+      kept and cycled, with no further LCG draws — LOADMODE_ALL
+      semantics.  n == buffer stays buffered (reshuffled every lap).
+
+    Memory: one parsed chunk at a time (~buffer entries), however large
+    the file or rlen.  NB chunk boundaries count data LINES; all-masked
+    (skip_empty) entries are dropped after chunking, so files containing
+    empty entries get slightly different refill boundaries than the
+    reference's count-after-skip loader."""
+    if random_order and rng is None:
+        raise ValueError("random_order needs the CRandom stream")
+    le = 0
+    all_mode = None  # (chunk, order) once the whole file fit one refill
+    while le < rlen:
+        if all_mode is not None:
+            chunk, order = all_mode
+            for pos in order:
+                if le >= rlen:
+                    return
+                yield chunk, int(pos)
+                le += 1
+            continue
+        nchunks = 0
+        last = last_order = None
+        for chunk in reader._chunks_one_lap():
+            nchunks += 1
+            if random_order:
+                order = rng.shuffle_order(chunk.n)
+            else:
+                order = np.arange(chunk.n)
+            for pos in order:
+                if le >= rlen:
+                    return
+                yield chunk, int(pos)
+                le += 1
+            last, last_order = chunk, order
+        if nchunks == 0:
+            raise ValueError(f"{reader.name}: no data entries")
+        if nchunks == 1 and last.n < reader.buffer:
+            all_mode = (last, last_order)

@@ -1,6 +1,7 @@
-"""Learning-rate and radius schedules (host NumPy).
+"""Learning-rate and radius schedules, the sample order and the weighted
+alpha (host NumPy).
 
-A copy of som_lvq_pak_tpu/models/common.py:24-56 (the port imports
+A copy of som_lvq_pak_tpu/models/common.py:24-112 (the port imports
 nothing of the JAX package); tests hold both copies bit-equal.  Schedules
 keep the C package's expression structure (alpha functions
 lvq_pak.c:901-921, radius decay som_rout.c:615).
@@ -8,9 +9,12 @@ lvq_pak.c:901-921, radius decay som_rout.c:615).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from ..config import INV_ALPHA_CONSTANT
+from ..utils.rng import CRandom
 
 F32 = np.float32
 
@@ -49,3 +53,61 @@ def radius_schedule(length: int, radius: float) -> np.ndarray:
     prod = (np.float64(F32(radius)) - 1.0) * (length - le).astype(F32).astype(np.float64)
     trad = 1.0 + prod / np.float64(F32(length))
     return trad.astype(F32)
+
+
+def sample_order(
+    n: int,
+    length: int,
+    random_order: bool = False,
+    rng: Optional[CRandom] = None,
+    buffer: int = 0,
+) -> np.ndarray:
+    """(length,) int32 data indices visited by a trainer.
+
+    The reference walks the data cyclically; with -rand and full loading
+    (LOADMODE_ALL) the list is shuffled ONCE at load time — not per lap —
+    and then cycled (read_entries is only invoked on the first rewind,
+    datafile.c:237-344, 787-840).
+
+    With buffered loading (-buffer B, 0 < B < n) each read_entries refill
+    loads exactly B entries (the tail chunk shorter) and shuffles THAT
+    chunk with the continuing LCG stream (datafile.c:268-270, 338-341);
+    every lap's rewind reloads and reshuffles all chunks.  B > n
+    switches buffering off after the first load (datafile.c:330-333) —
+    identical to LOADMODE_ALL.  B == n stays buffered (the refill
+    breaks on noc >= buffer before EOF is seen), so the single
+    whole-file chunk is reshuffled every lap.
+    """
+    if random_order:
+        if rng is None:
+            raise ValueError("random_order needs the CRandom stream")
+        if 0 < buffer <= n:
+            laps = -(-length // n)
+            parts = []
+            for _ in range(laps):
+                for lo in range(0, n, buffer):
+                    chunk = np.arange(lo, min(lo + buffer, n), dtype=np.int64)
+                    parts.append(chunk[rng.shuffle_order(len(chunk))])
+            return np.concatenate(parts)[:length].astype(np.int32)
+        base = rng.shuffle_order(n)
+    else:
+        base = np.arange(n, dtype=np.int64)
+    reps = -(-length // n)
+    return np.tile(base, reps)[:length].astype(np.int32)
+
+
+def effective_alpha(
+    talp: np.ndarray, weights: Optional[np.ndarray], use_weights: bool
+) -> np.ndarray:
+    """Weighted-sample correction (som_rout.c:622-624):
+    talp = 1 - (1-talp)^weight, in double, rounded to float32.
+    `talp` is per-step alpha already gathered per sample."""
+    if not use_weights or weights is None:
+        return talp
+    t = talp.astype(np.float64)
+    w = weights.astype(np.float64)
+    # C: talp = 1.0 - (float) pow((double)(1.0 - talp), (double) weight);
+    # the pow() result is truncated to float BEFORE the subtraction.
+    p = np.power(1.0 - t, w).astype(F32).astype(np.float64)
+    out = np.where(w > 0.0, 1.0 - p, t)
+    return out.astype(F32)

@@ -1,18 +1,21 @@
-"""1-NN evaluation: `accuracy` and `classify` in their fast form — the
-counterparts of som_lvq_pak_tpu/models/eval.py:25-116 with parity=False.
+"""1-NN evaluation: `accuracy` and `classify` — the counterparts of
+som_lvq_pak_tpu/models/eval.py:25-116.
 
-Reference behaviour: accuracy.c:39-137, classify.c:41-95.  Each sample's
-winner comes from one `dist_argmin` over the data on `device` (K1, or K4
-for masked data): full float32 and the first index on ties, as the JAX
-package's XLA `find_winners`.  The report text is byte-identical to the
-JAX package's for the same winners; its per-class lines keep the
-reference's hitlist order (utils.hitlist), computed here in closed form.
+Reference behaviour: accuracy.c:39-137, classify.c:41-95.  With
+parity=False (the port's default) each sample's winner comes from one
+`dist_argmin` over the data on `device` (K1, or K4 for masked data): full
+float32 and the first index on ties, as the JAX package's XLA
+`find_winners`.  With parity=True (the JAX package's default) the winners
+come from the host's C-order float32 distances (ops.exact), bit-equal to
+the JAX package's and needing no device.  The report text is
+byte-identical to the JAX package's for the same winners; its per-class
+lines keep the reference's hitlist order (utils.hitlist), computed here in
+closed form.
 
 Data and codebook labels are compared as ids, so both must come from one
 label table (see convert.labeled_samples_to_torch).
 
-Not ported yet: parity=True (the host path of ops/exact raises
-NotImplementedError), `knn_accuracy`, `confusion_matrix` and `mcnemar`.
+Not ported yet: `knn_accuracy`, `confusion_matrix` and `mcnemar`.
 """
 
 from __future__ import annotations
@@ -26,20 +29,19 @@ import torch
 from ..convert import codebook_to_torch, samples_to_torch
 from ..data.dataset import Dataset
 from ..data.labels import GLOBAL_LABELS, LabelTable
+from ..ops import exact
 from ..ops.dist_argmin import dist_argmin
 
 Device = Union[torch.device, str]
 
 
-def _no_parity(parity: bool) -> None:
+def _winner_labels(data: Dataset, codes: Dataset, parity: bool,
+                   device: Device) -> np.ndarray:
+    """(N,) first label of each sample's 1-NN code (ties: first index):
+    on the host in C order (parity), else by `dist_argmin` on `device`."""
     if parity:
-        raise NotImplementedError(
-            "parity=True is the host path of som_lvq_pak_tpu.ops.exact, not "
-            "ported yet; the port evaluates with parity=False")
-
-
-def _winner_labels(data: Dataset, codes: Dataset, device: Device) -> np.ndarray:
-    """(N,) first label of each sample's 1-NN code (ties: first index)."""
+        d = exact.pairwise_sq_distances(data.points, codes.points, data.mask)
+        return codes.first_labels()[d.argmin(axis=1)]
     x, mask = samples_to_torch(data, device)[:2]
     _, idx = dist_argmin(x, codebook_to_torch(codes, device)[0], mask=mask)
     return codes.first_labels()[idx.cpu().numpy()]
@@ -66,8 +68,7 @@ def accuracy(data, codes: Dataset, labels: Optional[LabelTable] = None,
     Returns (total_percent, report_text, per_sample_correct uint8), the
     last the -cfout stream.  `data` is a Dataset or a
     data.streaming.StreamingReader, evaluated chunk by chunk (the same
-    tallies and report)."""
-    _no_parity(parity)
+    tallies and report).  parity=True runs on the host, without `device`."""
     table = labels if labels is not None else GLOBAL_LABELS
     blocks = data.chunks(laps=1) if hasattr(data, "_chunks_one_lap") else [data]
     parts_lab: List[np.ndarray] = []
@@ -75,7 +76,7 @@ def accuracy(data, codes: Dataset, labels: Optional[LabelTable] = None,
     for block in blocks:
         cl = block.first_labels()
         parts_lab.append(cl)
-        parts_ok.append((_winner_labels(block, codes, device) == cl).astype(np.uint8))
+        parts_ok.append((_winner_labels(block, codes, parity, device) == cl).astype(np.uint8))
     dlabels = np.concatenate(parts_lab) if parts_lab else np.zeros((0,), np.int32)
     ok = np.concatenate(parts_ok) if parts_ok else np.zeros((0,), np.uint8)
     total = int(dlabels.shape[0])
@@ -101,10 +102,10 @@ def classify(data: Dataset, codes: Dataset, labels: Optional[LabelTable] = None,
     """Label every sample with its 1-NN code's label
     (compute_classifications, classify.c:41-95); a sample with every
     component masked gets "# empty datavector".  Returns the relabelled
-    Dataset and the -cfout label strings."""
-    _no_parity(parity)
+    Dataset and the -cfout label strings.  parity=True runs on the host,
+    without `device`."""
     table = labels if labels is not None else GLOBAL_LABELS
-    wlabels = _winner_labels(data, codes, device).astype(np.int32)
+    wlabels = _winner_labels(data, codes, parity, device).astype(np.int32)
     if data.mask is not None:
         empty = data.mask.all(axis=1)
         if empty.any():

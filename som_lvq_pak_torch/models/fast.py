@@ -1,8 +1,8 @@
 """Minibatch SOM and LVQ building blocks — counterparts of
 som_lvq_pak_tpu/models/fast.py (`unit_coords`, `grid_sq_dists_idx`,
-`_guarded_sum_update`, `som_batch_step`, `olvq1_batch_step`,
-`lvq1_batch_step`, `lvq23_batch_step`).  The fused step's plain version is
-built from the same algebra (ops.som_step).
+`_guarded_sum_update`, `som_batch_step`, `som_train_fast`,
+`olvq1_batch_step`, `lvq1_batch_step`, `lvq23_batch_step`).  The fused
+step's plain version is built from the same algebra (ops.som_step).
 
 The LVQ steps update the codebook IN PLACE and return it.  Their segment
 sums (`ops.segment_sum`) add each code's rows in ascending sample order from
@@ -14,10 +14,14 @@ each column's sum is the same as alone."""
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
+from ..convert import codebook_to_torch
+from ..data.dataset import Dataset, Neighborhood, Topology
 from ..ops.dist_argmin import dist_argmin
 from ..ops.dist_top2 import dist_top2
 from ..ops.segment_sum import segment_sum
@@ -26,6 +30,7 @@ from ..ops.som_step import grid_sq_dists, grid_xy
 # batch weighted mean once a unit's weight mass exceeds 1
 from ..ops.som_step import guarded_blend as guarded_sum_update  # noqa: F401
 from ..ops.som_update import som_neighborhood_update_idx
+from .common import alpha_schedule, radius_schedule
 
 
 def unit_coords(xdim: int, ydim: int, hexa: bool,
@@ -90,6 +95,53 @@ def som_batch_step(
         bmu = torch.where(fixed_bmu >= 0, fixed_bmu.to(torch.int32), bmu)
     return som_neighborhood_update_idx(codes, xb, bmu, xdim, hexa, a, radius,
                                        gaussian, mask=mask)
+
+
+def train_fast_indices(nb: int, batch_size: int, n: int, seed: int) -> torch.Tensor:
+    """(nb, batch_size) int64 sample indices of `som_train_fast`, drawn
+    uniformly from [0, n) by a CPU torch.Generator seeded with `seed`: the
+    same batches on every device (the JAX function draws with
+    jax.random.randint, so the two packages take different batches)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, n, (nb, batch_size), generator=g)
+
+
+def som_train_fast(
+    codes: Dataset,
+    data: Dataset,
+    rlen: int,
+    alpha: float,
+    radius: float,
+    batch_size: int = 1024,
+    update: str = "sum",
+    seed: int = 0,
+    device: Union[torch.device, str] = "cuda",
+) -> Dataset:
+    """Minibatch SOM training loop (som_lvq_pak_tpu/models/fast.py:
+    371-420): `rlen` counts samples like the reference, trained as
+    max(1, rlen // batch_size) batches of `batch_size` samples drawn by
+    `train_fast_indices`; alpha and radius follow the reference's linear
+    decay evaluated at each batch's first sample.  Each batch is one
+    `som_batch_step` on `device` (K1 then K5 on the card).  `update` is
+    accepted and does nothing, as in the JAX package ("sum" and "mean"
+    coincide under the guarded blend); the data's masks, weights and fixed
+    points are not used, as there."""
+    if not codes.is_map:
+        raise ValueError("not a map codebook")
+    gaussian = codes.neigh == Neighborhood.GAUSSIAN
+    hexa = codes.topol == Topology.HEXA
+    nb = max(1, rlen // batch_size)
+    talp = alpha_schedule(rlen, alpha)[:: max(1, batch_size)][:nb]
+    trad = radius_schedule(rlen, radius)[:: max(1, batch_size)][:nb]
+    M = codebook_to_torch(codes, device)[0]
+    dev = M.device
+    X = torch.from_numpy(np.ascontiguousarray(data.points, np.float32)).to(dev)
+    steps = train_fast_indices(nb, batch_size, data.n, seed).to(dev)
+    talp_d = torch.from_numpy(talp).to(dev)
+    for b in range(nb):
+        som_batch_step(M, X.index_select(0, steps[b]), codes.xdim, hexa, talp_d[b],
+                       float(trad[b]), gaussian=gaussian)
+    return replace(codes, points=M.cpu().numpy(), comments=[])
 
 
 def _f32(v, device) -> torch.Tensor:

@@ -64,7 +64,8 @@ for m in mods:
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "som_lvq_pak_tpu")]
 assert {"som_lvq_pak_torch.tools.int8_probe", "som_lvq_pak_torch.tools.int8_step_ab",
-        "som_lvq_pak_torch.ops.winner_probe", "som_lvq_pak_torch.ops.skeleton"} <= set(mods)
+        "som_lvq_pak_torch.ops.winner_probe", "som_lvq_pak_torch.ops.skeleton",
+        "som_lvq_pak_torch.ops.exact", "som_lvq_pak_torch.ops.neighborhood"} <= set(mods)
 print(len(mods))
 """
 
@@ -373,12 +374,21 @@ def test_fused_step_ab_digests_repeat_on_the_cpu(case):
 
 
 def test_entry_points_default_to_the_gpu():
-    """SOMTrainer, LVQTrainer, OLVQ1Trainer, find_qerror, accuracy,
-    classify, codebook_to_torch, samples_to_torch, the LVQ conversions,
-    unit_coords and the tools' functions run on "cuda" unless the caller
-    asks for the CPU; without a GPU they raise and never fall back."""
+    """SOMTrainer, LVQTrainer, OLVQ1Trainer, find_qerror, find_qerror2,
+    som_train, vfind_trials, som_train_fast, accuracy, classify,
+    codebook_to_torch, samples_to_torch, the LVQ conversions, unit_coords
+    and the tools' functions run on "cuda" unless the caller asks for the
+    CPU; without a GPU they raise and never fall back.  The models default
+    to their fast paths (the JAX package's to parity); the parity paths
+    need no device."""
+    for fn in (som.find_qerror, som.find_qerror2, som.som_train):
+        assert inspect.signature(fn).parameters["mode"].default == "fast"
+    for fn in (peval.accuracy, peval.classify):
+        assert inspect.signature(fn).parameters["parity"].default is False
     for fn in (codebook_to_torch, samples_to_torch, fast.unit_coords,
-               som.find_qerror, SOMTrainer.__init__, LVQTrainer.__init__,
+               som.find_qerror, som.find_qerror2, som.som_train, som.vfind_trials,
+               som.vfind_codebooks, fast.som_train_fast,
+               SOMTrainer.__init__, LVQTrainer.__init__,
                OLVQ1Trainer.__init__, peval.accuracy, peval.classify,
                labeled_samples_to_torch, lvq_codebook_to_torch,
                int8_probe.run, int8_probe.library_rates, int8_probe.winner_rates,
@@ -404,11 +414,21 @@ def test_entry_points_default_to_the_gpu():
                  lambda: peval.accuracy(ldata, lcodes), lambda: peval.classify(ldata, lcodes),
                  lambda: labeled_samples_to_torch(ldata), lambda: lvq_codebook_to_torch(lcodes),
                  lambda: int8_probe.library_rates(64), lambda: int8_probe.winner_rates(64, 8, 64),
-                 lambda: int8_step_ab.run(16, 16, 256)):
+                 lambda: int8_step_ab.run(16, 16, 256),
+                 lambda: som.find_qerror2(init, data, 1.0),
+                 lambda: som.som_train(init, data, 16, 0.05, 2.0),
+                 lambda: fast.som_train_fast(init, data, 64, 0.05, 2.0, batch_size=16),
+                 lambda: som.vfind_trials(data, data, 2, Topology.HEXA,
+                                          Neighborhood.GAUSSIAN, 4, 3, [(64, 0.05, 2.0)])):
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             call()
     assert som.find_qerror(init, data, device="cpu") > 0
     assert peval.accuracy(ldata, lcodes, device="cpu")[0] > 0
+    # the parity paths run on the host whatever `device` says
+    assert som.find_qerror(init, data, mode="parity") > 0
+    assert som.find_qerror2(init, data, 1.0, mode="parity") > 0
+    assert som.som_train(init, data, 16, 0.05, 2.0, mode="parity").points.shape == (12, 3)
+    assert peval.accuracy(ldata, lcodes, parity=True)[0] > 0
 
 
 @pytest.mark.parametrize("world", ["no GPU", "gloo", "nccl"])

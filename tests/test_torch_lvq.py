@@ -385,10 +385,14 @@ def test_unported_and_bad_inputs_raise(table):
     out = OLVQ1Trainer(pcodes, batch_size=64, device="cpu").fit(
         _stream(pdata, cls=PDataset), rlen=64 * 40, allow_short_stream=True)
     assert np.isfinite(out.points).all()
-    with pytest.raises(NotImplementedError, match="parity"):
-        peval.accuracy(pdata, pcodes, parity=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="parity"):
-        peval.classify(pdata, pcodes, parity=True, device="cpu")
+    # parity=True is ported: the host path, equal to the JAX package's
+    jcodes, jdata = _golden(table)[:2]
+    jpct, jrep, jok = jeval.accuracy(jdata, jcodes, parity=True)
+    pct, rep, ok = peval.accuracy(pdata, pcodes, labels=table, parity=True, device="cpu")
+    assert (pct, rep) == (jpct, jrep)
+    np.testing.assert_array_equal(ok, jok)
+    jnames = jeval.classify(jdata, jcodes, parity=True)[1]
+    assert peval.classify(pdata, pcodes, labels=table, parity=True, device="cpu")[1] == jnames
 
 
 def test_olvq1_quality_on_ex1_ex2(ref_dir, table):
