@@ -75,8 +75,8 @@ phases, each printing one JSON line:
             K1 also runs at the LVQ steps' B 1024, a mesh rank's B 512 x
             32768, D 37, D 130, the online scan's B 1 x 4096 and at the LVQ
             accuracy's single launch over 1M x 65536; K4 at the masked LVQ
-            cell's B 1024 x 4096, D 37, D 130 and B 1 x 4096 (no row masked
-            entirely).  The LVQ steps' segment sum
+            cell's B 1024 x 4096, D 37, D 130 and B 1 x 4096 (the one row
+            partly masked, and again fully masked: index 0, value 0).  The LVQ steps' segment sum
             (not a TPU kernel) at the olvq1 step's B 1024 x D 64 (and 66
             columns) into 65,536 codes, into 4096, one column, a hot segment
             and B 8192 (past its one-CTA sort), bit-equal to np.add.at and
@@ -220,6 +220,26 @@ phases, each printing one JSON line:
             OLVQ1Trainer (K1 clean, K4 masked batches), LVQTrainer("lvq2")
             (K8 clean, K9 masked), the masked accuracy (K4); within 0.5
             points of the plain run.
+13c. e2e_lvq_knn_262144  (run after 13) the lvqexample chain's kNN tools
+            on the first 262,144 of phase 11's rows: eveninit(mode="fast")
+            for 4,096 codes at knn 5 (a 262,144^2 self-kNN: K10 on the
+            reversed codebook), knn_accuracy, setlabel and elimin (K10),
+            confusion_matrix(parity=False) (K1); against the plain run: the
+            self-kNN lists equal except near-ties (every column's two
+            neighbours within 1e-5 relative in float64; at most 0.1% of the
+            rows), the correct masks and elimin's rows differing only there,
+            eveninit's picks equal or parting first at a flipped row, both
+            accuracies within 0.5 points; each call's wall;
+13d. e2e_lvq_scans_4096  the per-sample scans from 13c's codebook:
+            olvq1_train(mode="fast") 10,000 steps (K1 at B 1), lvq3_train
+            10,000 from it (K8), lvq1_train and lvq2_train 2,500 steps each
+            on phase 13's first masked chunk (K4, K9); each codebook's
+            accuracy(parity=False) over the 262,144 rows within 0.5 points of
+            the plain run, each codebook and olvq1's rates row by row within
+            1e-5 of the plain run's on all but 1% of the rows (equal winners
+            give equal bits), olvq1's accuracy above the eveninit codebook's,
+            olvq1 and lvq3 rerun bit-equal (codebook, alphas); samples/s per
+            scan.
 13a. e2e_int8_win_256x256_B4096  som_lvq_pak_torch.tools.int8_step_ab: the
             step times of the float32 (K14's main form), int8_win and stagger
             (K14's walk) chains with K17 beside them, then 64 training steps
@@ -265,8 +285,10 @@ the single-device port run on the same data in this script:
 K8/K9 (dist_top2, plain and masked) are held against their plain version in
 phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), the masked LVQ
 cell's B 1024 x 4096, at 1000 x 999 x 5, with every code twice (exact ties:
-both indices equal the plain version's), at N = 2, D 37 and D 130; K9 with
-p = 0.1 and fully masked rows; each shape run twice (bit-equal), the best
+both indices equal the plain version's), at N = 2, D 37 and D 130, and at
+the per-sample lvq2/lvq3 scans' step, B 1 x 4096 x 64 (K9 once with its one
+row partly masked, once with it fully masked); K9 with p = 0.1 and fully
+masked rows; each shape run twice (bit-equal), the best
 pair bit-equal to the same walk's argmin (K1's for K8, K4's for K9) on the
 same inputs, with its route's bound (6 B N D; 10 B N D for K9).  K10
 (dist_topk) at the mesh step's shapes (B 512 and 1024 x 32768 x 64, k = 2),
@@ -275,7 +297,12 @@ k = 2, launched through dist_top2's wrapper), the mesh rank's shape at
 k = 4, 8 and 16 (one "k10_km" line: the time of each list width KM beside
 its ptxas spills), small shapes at k = 1, 5 and 16, and every code twice;
 each run twice (bit-equal), its column 0 K1's (value, index) bit for bit,
-with its route's bound (6 B N D); K11 (som_neighborhood_accumulate) at a
+with its route's bound (6 B N D); K10 in the reference tie order
+(dist_topk_reference: K10 on the reversed codebook, the host tools' kNN) at
+B 1024 x 65536 x 64, k 5, and with every code twice: its indices the plain
+reference_ties path's (exactly with ties, the later copy first), its values
+K10's in file order bit for bit, and the two halves of the codebook merged
+and four query chunks bit-equal to the whole run; K11 (som_neighborhood_accumulate) at a
 32768-row shard of the 256x256 map (offset 32768, B 2048), gaussian and
 bubble, hexa and rect, scalar and per-sample alpha, each run twice
 (bit-equal), with its route's bound; K12 (som_blend_winner) at that shard
@@ -649,11 +676,12 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
 
 
 def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
-               mask_p=None, library=False, twin=None):
+               mask_p=None, library=False, twin=None, full_rows=True):
     """K8 (or K9 with mask_p) against the plain top-2: both winners equal
     except at near-ties, values within 1e-4.  With `dup` every code is there
     twice: each sample's pair is a row and its copy, exactly the plain
-    version's indices.  A fully masked row must get (0, 0, 0, 1).  With
+    version's indices.  A fully masked row (every 97th, the first included,
+    unless full_rows is False) must get (0, 0, 0, 1).  With
     `library`, the library_ms of addmm then topk(2).  With `twin` (K1 beside
     K8, K4 beside K9: one walk each) the kernel runs twice on the same
     inputs, bit-equal, its best pair must be the twin's (value, index) bit
@@ -669,7 +697,7 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
         codes = torch.cat([base, base]).contiguous()
     else:
         codes = torch.randn((N, D), generator=g, device="cuda")
-    mask = None if mask_p is None else random_mask(g, B, D, mask_p)
+    mask = None if mask_p is None else random_mask(g, B, D, mask_p, full_rows)
     args = (x, codes) if mask is None else (x, codes, mask)
     k = kernel(*args)
     p = plain(*args)
@@ -699,7 +727,7 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
         if bool((k[1][rest] >= half).any()) or \
                 not torch.equal(k[3][rest].long(), k[1][rest].long() + half):
             raise AssertionError(f"{name}: a copy beat its first row")
-    if mask is not None:
+    if mask is not None and full_rows:
         empty = (mask != 0).all(dim=1)
         got = [t[empty] for t in k]
         if not bool(empty.any()) or any(bool((t != want).any())
@@ -710,6 +738,7 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     masked = mask is not None
     N = codes.shape[0]
     rec = dict(kernel=name, shape=[B, N, D], dup=dup, mask_p=mask_p,
+               full_rows=mask is not None and full_rows,
                winners_differ=n_diff, max_abs_err=err,
                **({} if twin is None else {"bit_equal_rerun": True,
                                            "best_bit_equal_to": twin.__name__}),
@@ -1778,6 +1807,81 @@ def phase_topk(B, N, D, k, seed, dup=False, iters=10, library=False):
     return rec
 
 
+def phase_topk_reference(B, N, D, k, seed, dup=False, iters=10):
+    """K10 in the reference tie order (ops.dist_topk.dist_topk_reference:
+    K10 on the codebook in reverse row order, each index mapped back as
+    N - 1 - i), the host tools' kNN on the card: its indices equal the
+    plain reference_ties path's (ops.distance.topk_winners) except at
+    near-ties, exactly with every code twice, the later copy first; its
+    values are K10's on the codebook in file order bit for bit (a pair's
+    float does not depend on the code's row), and on two halves of the
+    codebook merged by (value, index) (a walk over other splits), and the
+    query rows in four chunks give the whole run's bits.  Returns the
+    record."""
+    import torch
+
+    from som_lvq_pak_torch.ops.dist_topk import dist_topk, dist_topk_reference
+    from som_lvq_pak_torch.ops.distance import topk_winners
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, D), generator=g, device="cuda")
+    if dup:
+        base = torch.randn((N // 2, D), generator=g, device="cuda")
+        codes = torch.cat([base, base]).contiguous()
+    else:
+        codes = torch.randn((N, D), generator=g, device="cuda")
+    name = f"dist_topk_reference k={k}" + (" dup" if dup else "")
+    rev = codes.flip(0)  # the codebook reversed once, as chunked_topk does
+    vr, ir = dist_topk_reference(x, rev, k)
+    it, vt = topk_winners(x, codes, k, reference_ties=True)
+    vk, ik = dist_topk(x, codes, k)
+    torch.cuda.synchronize()
+    n_diff = sum(check_winners(f"{name} column {j}", x, codes, ir[:, j], it[:, j])
+                 for j in range(k))
+    err = float((vr - torch.clamp(vt, min=0.0)).abs().max())
+    if not torch.allclose(vr, torch.clamp(vt, min=0.0), rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{name}: values differ from the plain version by {err}")
+    # the same (query, code) floats whichever row the code sits at
+    if not bits_equal(vr, vk):
+        raise AssertionError(f"{name}: the reversed codebook's values are not K10's "
+                             "in file order bit for bit")
+    if dup:
+        half = N // 2
+        if not torch.equal(ir.long(), it):
+            raise AssertionError(f"{name}: exact ties resolved unlike the plain "
+                                 "reference order")
+        # file order: the first copy first; reference order: the later copy
+        shift = torch.tensor([half if c % 2 == 0 else -half for c in range(k)],
+                             device="cuda")
+        if not torch.equal(ir.long(), ik.long() + shift):
+            raise AssertionError(f"{name}: the later copy did not come first")
+    elif not torch.equal(ir, ik):
+        raise AssertionError(f"{name}: the reversed codebook's winners are not K10's")
+    # the codebook walked as two halves, merged by (value, index)
+    h = N // 2
+    va, ia = dist_topk_reference(x, codes[:h].flip(0), k)
+    vb, ib = dist_topk_reference(x, codes[h:].flip(0), k)
+    cv, ci = torch.cat([va, vb], 1), torch.cat([ia, ib + h], 1).long()
+    o = torch.argsort(-ci, dim=1, stable=True)  # index descending among equal values
+    cv, ci = cv.gather(1, o), ci.gather(1, o)
+    o = torch.argsort(cv, dim=1, stable=True)[:, :k]
+    if not (bits_equal(cv.gather(1, o), vr) and torch.equal(ci.gather(1, o), ir.long())):
+        raise AssertionError(f"{name}: the two halves merged differ from the whole walk")
+    # the queries in four chunks (other splits of the codebook per launch)
+    parts = [dist_topk_reference(xc.contiguous(), rev, k) for xc in x.chunk(4)]
+    if not (bits_equal(torch.cat([p[0] for p in parts]), vr)
+            and torch.equal(torch.cat([p[1] for p in parts]), ir)):
+        raise AssertionError(f"{name}: query chunks differ from the whole run")
+    rec = dict(kernel=name, shape=[B, N, D], k=k, dup=dup, winners_differ=n_diff,
+               max_abs_err=err, bit_equal_to_file_order=True, halves_merged_bit_equal=True,
+               query_chunks_bit_equal=True,
+               ms=cuda_ms(lambda: dist_topk_reference(x, rev, k), iters),
+               file_order_ms=cuda_ms(lambda: dist_topk(x, codes, k), iters),
+               plain_ms=cuda_ms(lambda: topk_winners(x, codes, k, reference_ties=True), iters))
+    emit("kernels", **rec)
+    return rec
+
+
 def shard_inputs(g, noc, n_local, B, D):
     """A model shard's inputs: a batch, its global BMUs over the whole map
     (a few samples without one) and per-sample alphas."""
@@ -1964,12 +2068,15 @@ def plain_kernels():
     """Route the trainers, the fused step (its K3, K13 and K14 branches), the
     two-kernel step (and so som_train_fast and vfind_trials), the LVQ steps
     (their winners and segment sums), the online scan, the qerror, the
-    qerror2 and the accuracy through the plain versions (for the reference
-    run on the card); restores the kernels on exit."""
+    qerror2, the accuracy and the confusion matrix, the per-sample LVQ scans
+    and the host tools' kNN (K10 in the reference order) through the plain
+    versions (for the reference run on the card); restores the kernels on
+    exit."""
     from som_lvq_pak_torch.models import eval as ev
-    from som_lvq_pak_torch.models import fast, som, trainer
+    from som_lvq_pak_torch.models import fast, lvq, som, trainer
     from som_lvq_pak_torch.ops import dist_argmin as da
     from som_lvq_pak_torch.ops import dist_top2 as dt
+    from som_lvq_pak_torch.ops import dist_topk as dk
     from som_lvq_pak_torch.ops import segment_sum as ss
     from som_lvq_pak_torch.ops import som_step, som_update, som_vmem
 
@@ -1984,7 +2091,10 @@ def plain_kernels():
              (fast, "segment_sum", ss.segment_sum_plain),
              (som, "dist_argmin", da.dist_argmin_plain),
              (som, "dist_argmin_t", da.dist_argmin_t_plain),
-             (ev, "dist_argmin", da.dist_argmin_plain)]
+             (ev, "dist_argmin", da.dist_argmin_plain),
+             (lvq, "dist_argmin", da.dist_argmin_plain),
+             (lvq, "dist_top2", dt.dist_top2_plain),
+             (dk, "dist_topk", dk.dist_topk_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -2229,6 +2339,240 @@ def lvq_setup():
     Xm, mask, _ = masked_data(X1, 13, 16384, every_other=True)
     return (X, lab, table, lvq_codes(X, lab, 65536), Xm, lab1, mask,
             lvq_codes(X1, lab1, 4096))
+
+
+@contextlib.contextmanager
+def knn_recorded(rec):
+    """Record, into `rec`, the self-kNN indices ("idx") and the correct mask
+    ("correct") that models.lvq's eveninit computes (its chunked_topk and
+    knn_correct_mask, called through the module)."""
+    from som_lvq_pak_torch.models import lvq
+
+    topk, correct = lvq.chunked_topk, lvq.knn_correct_mask
+
+    def topk_spy(*a, **kw):
+        out = topk(*a, **kw)
+        rec["idx"] = out[0].cpu().numpy()
+        return out
+
+    def correct_spy(*a, **kw):
+        rec["correct"] = correct(*a, **kw)
+        return rec["correct"]
+
+    lvq.chunked_topk, lvq.knn_correct_mask = topk_spy, correct_spy
+    try:
+        yield
+    finally:
+        lvq.chunked_topk, lvq.knn_correct_mask = topk, correct
+
+
+def timed(walls, name, fn):
+    """fn() with its wall (ended by a synchronise) in walls[name]."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
+def lvq_knn_run(X, lab, table, noc=4096, knn=5):
+    """Phase 13c: the lvqexample chain's kNN tools over the labelled rows X:
+    eveninit(mode="fast") for `noc` codes (its self-kNN recorded), then
+    knn_accuracy, setlabel and elimin (fast: K10 on the reversed codebook)
+    and confusion_matrix(parity=False) (K1).  Returns (results, walls)."""
+    from som_lvq_pak_torch.models import eval as ev
+    from som_lvq_pak_torch.models import lvq, tools
+    from som_lvq_pak_torch.models.som import Dataset
+
+    data = Dataset(points=X, labels=lab)
+    rec, walls = {}, {}
+    with knn_recorded(rec):
+        codes = timed(walls, "eveninit_s", lambda: lvq.eveninit(data, noc, knn=knn))
+    knn_pct = timed(walls, "knn_accuracy_s",
+                    lambda: ev.knn_accuracy(data, codes, knn=knn, labels=table)[0])
+    relabelled = timed(walls, "setlabel_s", lambda: tools.setlabel(codes, data, knn=knn))
+    kept = timed(walls, "elimin_s", lambda: tools.elimin(data, knn=knn))
+    _, mat, ok = timed(walls, "cmatr_s",
+                       lambda: ev.confusion_matrix(data, codes, labels=table))
+    return dict(codes=codes, idx=rec["idx"], correct=rec["correct"], knn_pct=knn_pct,
+                setlabel=relabelled.first_labels(), kept=kept.points,
+                cmatr_pct=100.0 * float(ok.mean()), cmatr_total=int(mat.sum())), walls
+
+
+def rows_of(where, points):
+    """The row that each of `points` (rows copied from the data) came from,
+    by `where`, the data's {row bytes: row}."""
+    return np.array([where[p.tobytes()] for p in points], np.int64)
+
+
+def near_tie_rows(name, X, idx, idx_plain, rel=1e-5):
+    """Rows whose k-NN lists differ from the plain run's.  Each must be a
+    near-tie: every column's two neighbours within `rel` of each other in
+    float64 (neighbours reordered, or swapped at the k-th place)."""
+    rows = np.nonzero((idx != idx_plain).any(axis=1))[0]
+    if rows.size:
+        x64 = X[rows].astype(np.float64)[:, None, :]
+        da = ((x64 - X[idx[rows]].astype(np.float64)) ** 2).sum(-1)
+        db = ((x64 - X[idx_plain[rows]].astype(np.float64)) ** 2).sum(-1)
+        gap = np.abs(da - db) / np.maximum(np.maximum(da, db), 1e-30)
+        if gap.max() >= rel:
+            raise AssertionError(f"{name}: {rows.size} rows' neighbours differ, "
+                                 f"largest relative gap {gap.max():.3g} >= {rel}")
+    return rows
+
+
+def check_lvq_knn(X, out, plain):
+    """Phase 13c's gates against the plain run: the self-kNN lists equal
+    except at near-ties, on at most 0.1% of the rows; the correct masks and
+    elimin's kept rows differ only at those rows; eveninit's picks equal, or
+    their first difference at a row whose correct flag differs; both
+    accuracies within 0.5 points.  Returns the counts."""
+    near = near_tie_rows("e2e lvq knn", X, out["idx"], plain["idx"])
+    if near.size > 0.001 * X.shape[0]:
+        raise AssertionError(f"e2e lvq knn: {near.size} near-tie rows, over 0.1%")
+    flips = np.nonzero(out["correct"] != plain["correct"])[0]
+    if not np.isin(flips, near).all():
+        raise AssertionError("e2e lvq knn: correct masks differ off the near-tie rows")
+    where = {X[i].tobytes(): i for i in range(X.shape[0])}
+    kept, kept_plain = rows_of(where, out["kept"]), rows_of(where, plain["kept"])
+    if not np.isin(np.setxor1d(kept, kept_plain), near).all():
+        raise AssertionError("e2e lvq knn: elimin's kept rows differ off the near-tie rows")
+    # the picks in pick order: the first pass walks the rows in order, so the
+    # first place the two lists part is the first row decided apart, which
+    # only a flipped correct flag can do
+    a, b = rows_of(where, out["codes"].points), rows_of(where, plain["codes"].points)
+    n = min(a.size, b.size)
+    part = np.nonzero(a[:n] != b[:n])[0]
+    first = None
+    if part.size:
+        first = min(a[part[0]], b[part[0]])
+    elif a.size != b.size:
+        first = (a if a.size > n else b)[n]
+    if first is not None and first not in flips:
+        raise AssertionError("e2e lvq knn: eveninit's picks part at a row whose kNN vote "
+                             "did not flip")
+    picks_differ = np.setxor1d(a, b)
+    check_accuracy("e2e lvq knntest", out["knn_pct"], plain["knn_pct"])
+    check_accuracy("e2e lvq cmatr", out["cmatr_pct"], plain["cmatr_pct"])
+    if out["cmatr_total"] != X.shape[0] or out["codes"].n != plain["codes"].n:
+        raise AssertionError("e2e lvq knn: the codebook or the confusion matrix is short")
+    return dict(near_tie_rows=int(near.size), correct_flips=int(flips.size),
+                elimin_kept=int(kept.size), elimin_kept_plain=int(kept_plain.size),
+                eveninit_picks_differ=int(picks_differ.size),
+                setlabel_labels_differ=int((out["setlabel"] != plain["setlabel"]).sum()))
+
+
+SCAN_STEPS = 10_000
+MASKED_SCAN_STEPS = 2_500
+# 13d holds each trained codebook and olvq1's rates to the plain run's row
+# by row: the updates are the same torch expressions, so equal winners give
+# equal bits, and a winner that differs at a near-tie moves another code;
+# at most SCAN_ROWS_OFF of the rows may then differ by more than SCAN_ATOL
+SCAN_ATOL = 1e-5
+SCAN_ROWS_OFF = 0.01
+
+
+def rows_off(name, a, b):
+    """Rows of a and b (codebooks (noc, D) or rates (noc,)) more than
+    SCAN_ATOL apart anywhere; fails past SCAN_ROWS_OFF of the rows.
+    Returns the count and the largest difference."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    d = d.reshape(d.shape[0], -1).max(axis=1)
+    off = int((d > SCAN_ATOL).sum())
+    if off > SCAN_ROWS_OFF * d.shape[0]:
+        raise AssertionError(f"{name}: {off} of {d.shape[0]} rows differ from the plain "
+                             f"run's by more than {SCAN_ATOL} (at most {d.max():.3g})")
+    return dict(rows_off=off, max_abs=float(d.max()))
+
+
+def lvq_scans_run(codes, data, masked, table):
+    """Phase 13d: the per-sample scans from 13c's codebook, each with its
+    accuracy(parity=False) over `data`: olvq1 for SCAN_STEPS (K1 at B 1),
+    lvq3 from its codebook for SCAN_STEPS (K8), then lvq1 and lvq2 from 13c's
+    codebook over the masked rows for MASKED_SCAN_STEPS (K4, K9).  Returns
+    (results, walls)."""
+    from som_lvq_pak_torch.models import lvq
+    from som_lvq_pak_torch.models.eval import accuracy
+
+    walls, out = {}, {}
+    out["olvq1"], out["alphas"] = timed(walls, "olvq1_s", lambda: lvq.olvq1_train(
+        codes, data, SCAN_STEPS, 0.3, return_alphas=True))
+    out["lvq3"] = timed(walls, "lvq3_s", lambda: lvq.lvq3_train(
+        out["olvq1"], data, SCAN_STEPS, 0.05, 0.3, 0.1))
+    out["lvq1_masked"] = timed(walls, "lvq1_masked_s", lambda: lvq.lvq1_train(
+        codes, masked, MASKED_SCAN_STEPS, 0.05))
+    out["lvq2_masked"] = timed(walls, "lvq2_masked_s", lambda: lvq.lvq2_train(
+        codes, masked, MASKED_SCAN_STEPS, 0.05, 0.3))
+    pct = {k: accuracy(data, out[k], labels=table)[0]
+           for k in ("olvq1", "lvq3", "lvq1_masked", "lvq2_masked")}
+    return dict(out, pct=pct), walls
+
+
+def lvq_tool_phases(smi, tally, X, lab, Xm, labm, mask, table):
+    """Phases 13c and 13d: the kNN tools over the labelled rows X (`lab`,
+    names in `table`), then the per-sample scans from 13c's codebook, the
+    masked ones over the rows Xm (`labm`, `mask`); each through the kernels
+    and the plain versions, `tally(launches)` taking each run's counts."""
+    from som_lvq_pak_torch.models.som import Dataset
+    from som_lvq_pak_torch.ops.distance import chunked_topk
+
+    # ---- 13c: the kNN tools on 262,144 labelled rows (K10, K1) -------------
+    t0 = time.perf_counter()
+    chunked_topk.plain_launches = 0
+    run = lambda: lvq_knn_run(X, lab, table)  # noqa: E731
+    (knn_out, walls), (knn_plain, walls_plain), got = main_path(
+        "e2e_lvq_knn_262144", run, ("dist_topk", "dist_argmin"), run)
+    tally(got)
+    gates = check_lvq_knn(X, knn_out, knn_plain)
+    emit("e2e_lvq_knn_262144", card=smi, rows=X.shape[0], codes=knn_out["codes"].n, knn=5,
+         knn_accuracy_pct=knn_out["knn_pct"], plain_knn_accuracy_pct=knn_plain["knn_pct"],
+         cmatr_accuracy_pct=knn_out["cmatr_pct"],
+         plain_cmatr_accuracy_pct=knn_plain["cmatr_pct"], **gates, walls=walls,
+         plain_walls=walls_plain, plain_route_chunks=chunked_topk.plain_launches,
+         launches=got, phase_s=time.perf_counter() - t0,
+         gate="k-NN lists equal the plain run's except near-ties (<= 0.1% of rows); "
+              "correct masks, elimin's rows and eveninit's picks differ only there; "
+              "accuracies within 0.5 points")
+
+    # ---- 13d: the per-sample LVQ scans from 13c's codebook (K1, K8, K4, K9) -
+    t0 = time.perf_counter()
+    data = Dataset(points=X, labels=lab)
+    masked_rows = Dataset(points=Xm, labels=labm, mask=mask)
+    run = lambda: lvq_scans_run(knn_out["codes"], data, masked_rows, table)  # noqa: E731
+    (scans, walls), (scans_plain, walls_plain), got = main_path(
+        "e2e_lvq_scans_4096", run,
+        ("dist_argmin", "dist_top2", "dist_argmin_masked", "dist_top2_masked"), run)
+    tally(got)
+    for k, v in scans["pct"].items():
+        check_accuracy(f"e2e lvq scans {k}", v, scans_plain["pct"][k])
+    vs_plain = {k: rows_off(f"e2e lvq scans {k}",
+                            *((scans[k], scans_plain[k]) if k == "alphas"
+                              else (scans[k].points, scans_plain[k].points)))
+                for k in ("olvq1", "alphas", "lvq3", "lvq1_masked", "lvq2_masked")}
+    if not scans["pct"]["olvq1"] > knn_out["cmatr_pct"]:
+        raise AssertionError(f"e2e lvq scans: olvq1 accuracy {scans['pct']['olvq1']} not "
+                             f"above eveninit's {knn_out['cmatr_pct']}")
+    again, walls_again = lvq_scans_run(knn_out["codes"], data, masked_rows, table)
+    for k in ("olvq1", "alphas", "lvq3"):
+        a, b = scans[k], again[k]
+        a, b = (a, b) if k == "alphas" else (a.points, b.points)
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            raise AssertionError(f"e2e lvq scans: a rerun of {k} is not bit-equal")
+    steps = dict(olvq1=SCAN_STEPS, lvq3=SCAN_STEPS, lvq1_masked=MASKED_SCAN_STEPS,
+                 lvq2_masked=MASKED_SCAN_STEPS)
+    emit("e2e_lvq_scans_4096", card=smi, accuracy_pct=scans["pct"],
+         plain_accuracy_pct=scans_plain["pct"], init_accuracy_pct=knn_out["cmatr_pct"],
+         samples_per_s={k: steps[k] / walls[k + "_s"] for k in steps},
+         plain_samples_per_s={k: steps[k] / walls_plain[k + "_s"] for k in steps},
+         vs_plain=vs_plain, walls=walls, rerun_walls=walls_again, plain_walls=walls_plain,
+         rerun_bit_equal=["olvq1", "alphas", "lvq3"], launches=got,
+         phase_s=time.perf_counter() - t0,
+         gate="accuracy over the 262,144 rows within 0.5 points of the plain run; "
+              f"each codebook and olvq1's rates within {SCAN_ATOL} of the plain run's "
+              f"on all but {SCAN_ROWS_OFF:.0%} of the rows; olvq1 above the eveninit "
+              "codebook; olvq1 and lvq3 reruns bit-equal")
 
 
 @contextlib.contextmanager
@@ -3124,6 +3468,10 @@ def main() -> int:
         r = phase_distance(name, k, p, 1, 4096, 64, seed=71, mask_p=mask_p,
                            full_rows=False, **(k1_kw if mask_p is None else dict(rerun=True)))
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
+    # K4 with the one sample fully masked (the masked LVQ scans' trap: index
+    # 0, value 0)
+    phase_distance("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 1,
+                   4096, 64, seed=72, mask_p=0.1, rerun=True)
     # K4 at a ragged D and at D 130 (three 64-feature slabs, its one-CTA-per-SM
     # instantiation), each run twice
     for shape, seed in (((777, 3001, 37), 51), ((1000, 2999, 130), 52)):
@@ -3140,16 +3488,20 @@ def main() -> int:
     # exact-tie and two-code shapes, a ragged D 37 and D 130 (three
     # 64-feature slabs), every shape run twice (bit-equal) and beside the
     # walk's argmin (K1 for K8, K4 for K9: the best pair bit for bit; the
-    # masked dist_argmin is K4)
+    # masked dist_argmin is K4); last the per-sample lvq2/lvq3 scans' step
+    # (B 1 x 4096: K9's one row partly masked, then fully masked)
     for name, k, mask_p in (("dist_top2", dist_top2, None),
                             ("dist_top2_masked", dist_top2_masked, 0.1)):
-        cases = (((1024, 65536, 64), 10, False), ((1024, 4096, 64), 16, False),
-                 ((1000, 999, 5), 11, False), ((1000, 999, 5), 12, True),
-                 ((1000, 2, 5), 13, False), ((777, 3001, 37), 59, False),
-                 ((1000, 2999, 130), 60, False))
+        cases = (((1024, 65536, 64), 10, False, True), ((1024, 4096, 64), 16, False, True),
+                 ((1000, 999, 5), 11, False, True), ((1000, 999, 5), 12, True, True),
+                 ((1000, 2, 5), 13, False, True), ((777, 3001, 37), 59, False, True),
+                 ((1000, 2999, 130), 60, False, True), ((1, 4096, 64), 73, False, False))
+        if mask_p is not None:
+            cases += (((1, 4096, 64), 74, False, True),)
         rs = [phase_top2(name, k, dist_top2_plain, *shape, seed=seed, dup=dup,
-                         mask_p=mask_p, library=j == 0, twin=dist_argmin)
-              for j, (shape, seed, dup) in enumerate(cases)]
+                         mask_p=mask_p, library=j == 0, twin=dist_argmin,
+                         full_rows=full)
+              for j, (shape, seed, dup, full) in enumerate(cases)]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # the LVQ steps' segment sum (not a TPU kernel: its own line at the end)
     # at the olvq1 step's B 1024 x D 64 into 65,536 codes first (its record),
@@ -3321,6 +3673,10 @@ def main() -> int:
     rs = [phase_topk(*shape, k, seed=seed, dup=dup, library=j == 0)
           for j, (shape, k, seed, dup) in enumerate(cases)]
     recs["dist_topk"] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+    # K10 in the reference tie order (the host tools' kNN route), at the LVQ
+    # step's shape with k 5, and with every code twice
+    for dup, seed in ((False, 72), (True, 73)):
+        phase_topk_reference(1024, 65536, 64, 5, seed=seed, dup=dup)
     # each list width KM at the rank's shape, beside its instantiations'
     # registers and spills (D 64: KT 8)
     emit("k10_km", card=smi, shape=[512, 32768, 64],
@@ -3571,6 +3927,7 @@ def main() -> int:
          accuracy_eval_s=eval_s, start_accuracy_pct=pct_olvq1,
          plain_accuracy_pct=pct_plain, plain_train_s=train_plain_s,
          plain_accuracy_eval_s=eval_plain_s, launches=got, rerun_bit_equal=True)
+    X262, lab262 = X[:262_144].copy(), lab[:262_144].copy()
     del X, lab, trained, lvq3_out, again
 
     # ---- LVQ: masked chunks, 4096 codes: olvq1 then lvq2 -----------------
@@ -3588,7 +3945,9 @@ def main() -> int:
          plain_olvq1_accuracy_pct=pct_o_plain, plain_accuracy_pct=pct_plain,
          plain_train_s=train_plain_s, plain_accuracy_eval_s=eval_plain_s,
          launches=got)
-    del Xm, lab1, mask, small
+
+    lvq_tool_phases(smi, tally, X262, lab262, Xm[:16384], lab1[:16384], mask[:16384], table)
+    del Xm, lab1, mask, small, X262, lab262
 
     # ---- the int8-winner training chain (tools/int8_step_ab) --------------
     # 256x256 B 4096, K14 with chunk 1024 and the bf16 x-pattern: step times

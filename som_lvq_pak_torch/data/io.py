@@ -13,16 +13,19 @@ Format (reference datafile.c:112-148 reader, 396-447 writer):
 Filename conventions (reference fileio.c:57-200): '-' = stdin/stdout,
 suffix .gz/.z/.Z = gzip stream, leading '|' = shell pipe.
 
-The port's copy of the Python parser and writer of
-som_lvq_pak_tpu/data/io.py; tests hold both byte-equal on the golden files.
-The JAX package's native C++ engine (native/somvq_io.cpp), which it takes
-when it can build it, is not part of the port yet.
+The port's copy of the Python parser and writers of
+som_lvq_pak_tpu/data/io.py (`write_data_chunks` :360-407 and the olvq1
+`.lra` sidecars :410-454 included); tests hold both byte-equal on the
+golden files.  The JAX package's native C++ engine (native/somvq_io.cpp,
+its `_use_native` branches), which it takes when it can build it, is not
+part of the port yet: every entry here is written by the Python writer.
 """
 
 from __future__ import annotations
 
 import gzip
 import io as _io
+import os
 import subprocess
 import sys
 from typing import List, Optional, TextIO, Tuple
@@ -299,6 +302,13 @@ def format_entry(ds: Dataset, i: int, labels: Optional[LabelTable] = None) -> st
     return " ".join(parts) + " "
 
 
+def _write_head(f, ds: Dataset, comments: Optional[str]) -> None:
+    """The header line of `ds`, then `comments` (ended by a newline)."""
+    f.write(format_header(ds) + "\n")
+    if comments:
+        f.write(comments if comments.endswith("\n") else comments + "\n")
+
+
 def write_data(
     ds: Dataset,
     name: str,
@@ -311,11 +321,91 @@ def write_data(
     f = fileobj if fileobj is not None else _open_write(name)
     close = fileobj is None and f is not sys.stdout
     try:
-        f.write(format_header(ds) + "\n")
-        if comments:
-            f.write(comments if comments.endswith("\n") else comments + "\n")
+        _write_head(f, ds, comments)
         for i in range(ds.n):
             f.write(format_entry(ds, i, labels) + "\n")
     finally:
         if close:
             f.close()
+
+
+def write_data_chunks(
+    chunks,
+    name: str,
+    labels: Optional[LabelTable] = None,
+    comments: Optional[str] = None,
+    meta: Optional[Dataset] = None,
+) -> int:
+    """Incremental writer for streamed pipelines: `chunks` yields
+    Datasets sharing one header; the header comes from the first chunk
+    and entries append as chunks arrive — output is byte-identical to
+    write_data of the concatenation, with only one chunk resident.
+    `meta` supplies the header when the stream yields NO chunks (a
+    zero-entry input must still produce a header-only file like the
+    non-streamed writer).  Returns the number of entries written."""
+    f = _open_write(name)
+    close = f is not sys.stdout
+    n = 0
+    try:
+        first = True
+        for ds in chunks:
+            if first:
+                _write_head(f, ds, comments)
+                first = False
+            for i in range(ds.n):
+                f.write(format_entry(ds, i, labels) + "\n")
+            n += ds.n
+        if first and meta is not None:
+            _write_head(f, meta, comments)
+    finally:
+        if close:
+            f.close()
+    return n
+
+
+# --- olvq1 learning-rate sidecar files (.lra) ---------------------------
+def _alpha_basename(filename: str) -> str:
+    """Replicates `strtok(basename, "."); strcat(basename, ".lra")`
+    (datafile.c:1030-1045): strtok skips *leading* '.' delimiters, then
+    takes up to the next '.'."""
+    s = filename
+    start = 0
+    while start < len(s) and s[start] == ".":
+        start += 1
+    end = s.find(".", start)
+    if end == -1:
+        end = len(s)
+    return s[start:end] + ".lra"
+
+
+def read_alpha_file(infile: str, noc: int) -> Optional[np.ndarray]:
+    """alpha_read (datafile.c:1030-1060): returns None if absent/short."""
+    path = _alpha_basename(infile)
+    if not os.path.exists(path):
+        return None
+    vals = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                vals.append(np.float32(line))
+            if len(vals) >= noc:
+                break
+    if len(vals) < noc:
+        return None
+    return np.asarray(vals, dtype=np.float32)
+
+
+def write_alpha_file(outfile: str, alphas: np.ndarray) -> None:
+    """alpha_write (datafile.c:1062-1086): '%g\\n' per value."""
+    path = _alpha_basename(outfile)
+    with open(path, "w") as f:
+        for a in np.asarray(alphas):
+            f.write("%g\n" % float(a))
+
+
+def invalidate_alpha_file(outfile: str) -> None:
+    """invalidate_alphafile (datafile.c:1088-1108)."""
+    path = _alpha_basename(outfile)
+    if os.path.exists(path):
+        os.remove(path)

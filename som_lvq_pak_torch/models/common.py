@@ -1,17 +1,18 @@
 """Learning-rate and radius schedules, the sample order and the weighted
-alpha (host NumPy).
+alpha (host NumPy), and the block gather of the per-sample scans.
 
-A copy of som_lvq_pak_tpu/models/common.py:24-112 (the port imports
-nothing of the JAX package); tests hold both copies bit-equal.  Schedules
-keep the C package's expression structure (alpha functions
-lvq_pak.c:901-921, radius decay som_rout.c:615).
+The host part is a copy of som_lvq_pak_tpu/models/common.py:24-112 (the
+port imports nothing of the JAX package); tests hold both copies
+bit-equal.  Schedules keep the C package's expression structure (alpha
+functions lvq_pak.c:901-921, radius decay som_rout.c:615).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import INV_ALPHA_CONSTANT
 from ..utils.rng import CRandom
@@ -111,3 +112,20 @@ def effective_alpha(
     p = np.power(1.0 - t, w).astype(F32).astype(np.float64)
     out = np.where(w > 0.0, 1.0 - p, t)
     return out.astype(F32)
+
+
+# the per-sample scans (models.som's online SOM, models.lvq's LVQ scans)
+# gather their inputs a block of steps at a time, so a step reads views
+SCAN_BLOCK = 8192
+
+
+def scan_blocks(order: torch.Tensor, rows: Sequence[Optional[torch.Tensor]],
+                steps: Sequence[torch.Tensor] = ()) -> Iterator[Tuple[list, list]]:
+    """Blocks of SCAN_BLOCK steps of a scan over `order` (a device tensor of
+    sample indices): for each, the per-sample tensors `rows` gathered at the
+    block's samples by one index_select each (None stays None), and the
+    per-step tensors `steps` sliced to the block."""
+    for lo in range(0, order.shape[0], SCAN_BLOCK):
+        idx = order[lo:lo + SCAN_BLOCK]
+        yield ([None if r is None else r.index_select(0, idx) for r in rows],
+               [s[lo:lo + SCAN_BLOCK] for s in steps])

@@ -42,7 +42,7 @@ from ..ops.distance import fp32_matmul, keep_of
 from ..ops.neighborhood import grid_distance_matrix
 from ..utils.rng import CRandom
 from .common import (ALPHA_LINEAR, alpha_schedule, effective_alpha, radius_schedule,
-                     sample_order)
+                     sample_order, scan_blocks)
 from .fast import som_batch_step, unit_coords
 
 __all__ = ["CRandom", "Dataset", "Neighborhood", "Topology", "find_eigenvectors",
@@ -400,11 +400,6 @@ def _maybe_snapshot(snapshot, le, codes, codes_meta):
         snapshot(le, replace(codes_meta, points=codes.copy(), comments=[]))
 
 
-# the online scan gathers its samples, alphas and radii a block of steps at
-# a time (one index_select each), so a step reads views
-_SCAN_BLOCK = 8192
-
-
 def _som_loop_fast(codes, X, M, order, talp, trad, gd, gaussian, fixed_bmu,
                    device: Device = "cuda"):
     """The online SOM of som_lvq_pak_tpu/models/som.py:377-418 on `device`:
@@ -431,17 +426,12 @@ def _som_loop_fast(codes, X, M, order, talp, trad, gd, gaussian, fixed_bmu,
     talp_d = torch.from_numpy(np.asarray(talp, F32)).to(dev)
     trad_d = torch.from_numpy(np.asarray(trad, F32)).to(dev)
     fb = None if fixed_bmu is None else torch.from_numpy(fixed_bmu).to(dev)
-    for lo in range(0, order_d.shape[0], _SCAN_BLOCK):
-        idx = order_d[lo:lo + _SCAN_BLOCK]
-        xs = Xd.index_select(0, idx)
-        ms = None if Md is None else Md.index_select(0, idx)
-        fbs = None if fb is None else fb.index_select(0, idx)
-        a_blk = talp_d[lo:lo + _SCAN_BLOCK]
-        r_blk = trad_d[lo:lo + _SCAN_BLOCK]
+    for (xs, ms, fbs), (a_blk, r_blk) in scan_blocks(order_d, (Xd, Md, fb),
+                                                      (talp_d, trad_d)):
         if ms is not None:  # an empty (all-masked) sample teaches nothing
             a_blk = torch.where((ms != 0).all(dim=-1), 0.0, a_blk)
         den_blk = (2.0 * r_blk) * r_blk
-        for j in range(idx.shape[0]):
+        for j in range(xs.shape[0]):
             x = xs[j:j + 1]
             xm = None if ms is None else ms[j:j + 1]
             _, bmu = dist_argmin(x, C, mask=xm)

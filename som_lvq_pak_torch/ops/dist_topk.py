@@ -58,6 +58,16 @@ def dist_topk(x: torch.Tensor, codes: torch.Tensor, k: int
     return torch.clamp(vo + (x * x).sum(-1)[:, None], min=0.0), io
 
 
+def dist_topk_reference(x: torch.Tensor, rev: torch.Tensor, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`dist_topk` with equal distances highest index first, given `rev`,
+    the codebook in reverse row order (`codes.flip(0)`, made once by a
+    caller that walks it for many query blocks): (sq_dists (B, k), int32
+    idx (B, k) into the codebook in file order), ascending."""
+    vals, idx = dist_topk(x, rev, k)
+    return vals, rev.shape[0] - 1 - idx
+
+
 def _launch(x: torch.Tensor, codes: torch.Tensor, k: int, wrapper
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch `somvq_dist_topk` on checked CUDA tensors (x contiguous): the

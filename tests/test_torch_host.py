@@ -65,14 +65,25 @@ assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "som_lvq_pak_tpu")]
 assert {"som_lvq_pak_torch.tools.int8_probe", "som_lvq_pak_torch.tools.int8_step_ab",
         "som_lvq_pak_torch.ops.winner_probe", "som_lvq_pak_torch.ops.skeleton",
-        "som_lvq_pak_torch.ops.exact", "som_lvq_pak_torch.ops.neighborhood"} <= set(mods)
+        "som_lvq_pak_torch.ops.exact", "som_lvq_pak_torch.ops.neighborhood",
+        "som_lvq_pak_torch.models.lvq", "som_lvq_pak_torch.models.tools",
+        "som_lvq_pak_torch.models.eval", "som_lvq_pak_torch.ops.distance",
+        "som_lvq_pak_torch.ops.dist_topk", "som_lvq_pak_torch.data.io"} <= set(mods)
+from som_lvq_pak_torch.models import eval, lvq, tools
+from som_lvq_pak_torch.ops import distance
+from som_lvq_pak_torch.data import io
+assert all(callable(f) for f in (lvq.balance, lvq.lvq3_train, tools.setlabel, tools.vcal,
+                                 eval.knn_accuracy, eval.confusion_matrix, eval.mcnemar,
+                                 distance.chunked_topk, distance.auto_pairwise_topk,
+                                 io.write_data_chunks, io.read_alpha_file))
 print(len(mods))
 """
 
 
 def test_port_imports_without_jax():
     """Every module of the port, the tools/ subpackage's included, imports
-    with jax and the JAX package both blocked."""
+    with jax and the JAX package both blocked: the LVQ pipeline's modules
+    (models.lvq, models.tools, the kNN front end, the .lra files) too."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
