@@ -240,6 +240,34 @@ phases, each printing one JSON line:
             give equal bits), olvq1's accuracy above the eveninit codebook's,
             olvq1 and lvq3 rerun bit-equal (codebook, alphas); samples/s per
             scan.
+13e. e2e_cli_fast  (run after 13d) the CLI's -fast tools through
+            som_lvq_pak_torch.cli.main, in a temporary directory: on phase
+            4's 100,000 x 64 rows written as text by the port's write_data,
+            randinit 128x128 hexa gaussian (host), vsom -fast over 100,000
+            samples at B 1024 (K1, K13), qerror -fast (K2) and -qetype 1
+            (K1), vsom -fast -buffer 16384 over 32,768 samples with and
+            without -bf16stream, vfind -fast (8 trials of 16x16 over 2048 x
+            16 rows on stdin: K1 + K5, K2); on the first 65,536 of phase
+            11's rows, labelled, eveninit -fast for 4,096 codes, olvq1 and
+            lvq3 -fast over 65,536 samples (K1, K8, the segment sum),
+            knntest, setlabel and elimin -fast (K10).  The plain run repeats
+            the tools its gates read (vsom, vfind and the LVQ chain).  Each
+            output file byte-equal to write_data of the same call through
+            the Python API on the card, each printed qerror and knntest line
+            the API's; vsom's qerror within 1% of the plain run's, the bf16
+            stream within 1% of the float32 stream, vfind's best trial the
+            plain run's unless its two best are within 1%, the olvq1, lvq3
+            and knntest accuracies within 0.5 points, eveninit, setlabel and
+            elimin apart only at near-ties (13c's rule); then `python -m
+            som_lvq_pak_torch.cli qerror -fast` in a fresh process, which
+            must print the in-process line, beside the walls of a bare
+            interpreter and of the torch import, CUDA init and library load;
+            each tool's wall split into its text read, the call and the
+            write, the API twin's beside it.  Then
+            e2e_sammon_fast_128x128: sammon_fast on the trained 16,384-unit
+            map for 100 iterations (the error also read at 20), rerun
+            bit-equal, the mapping error (float64 on the card) below the
+            initial layout's; its wall and peak memory.
 13a. e2e_int8_win_256x256_B4096  som_lvq_pak_torch.tools.int8_step_ab: the
             step times of the float32 (K14's main form), int8_win and stagger
             (K14's walk) chains with K17 beside them, then 64 training steps
@@ -2423,22 +2451,23 @@ def near_tie_rows(name, X, idx, idx_plain, rel=1e-5):
     return rows
 
 
-def check_lvq_knn(X, out, plain):
-    """Phase 13c's gates against the plain run: the self-kNN lists equal
-    except at near-ties, on at most 0.1% of the rows; the correct masks and
-    elimin's kept rows differ only at those rows; eveninit's picks equal, or
-    their first difference at a row whose correct flag differs; both
-    accuracies within 0.5 points.  Returns the counts."""
-    near = near_tie_rows("e2e lvq knn", X, out["idx"], plain["idx"])
+def check_knn_tools(name, X, out, plain):
+    """The kNN tools' gates against the plain run (phases 13c and 13e): the
+    self-kNN lists ("idx") equal except at near-ties, on at most 0.1% of
+    the rows; the correct masks ("correct") and elimin's kept rows ("kept")
+    differ only at those rows; eveninit's picks ("codes") equal, or their
+    first difference at a row whose correct flag differs; setlabel's labels
+    ("setlabel") counted.  Returns the counts."""
+    near = near_tie_rows(name, X, out["idx"], plain["idx"])
     if near.size > 0.001 * X.shape[0]:
-        raise AssertionError(f"e2e lvq knn: {near.size} near-tie rows, over 0.1%")
+        raise AssertionError(f"{name}: {near.size} near-tie rows, over 0.1%")
     flips = np.nonzero(out["correct"] != plain["correct"])[0]
     if not np.isin(flips, near).all():
-        raise AssertionError("e2e lvq knn: correct masks differ off the near-tie rows")
+        raise AssertionError(f"{name}: correct masks differ off the near-tie rows")
     where = {X[i].tobytes(): i for i in range(X.shape[0])}
     kept, kept_plain = rows_of(where, out["kept"]), rows_of(where, plain["kept"])
     if not np.isin(np.setxor1d(kept, kept_plain), near).all():
-        raise AssertionError("e2e lvq knn: elimin's kept rows differ off the near-tie rows")
+        raise AssertionError(f"{name}: elimin's kept rows differ off the near-tie rows")
     # the picks in pick order: the first pass walks the rows in order, so the
     # first place the two lists part is the first row decided apart, which
     # only a flipped correct flag can do
@@ -2451,17 +2480,26 @@ def check_lvq_knn(X, out, plain):
     elif a.size != b.size:
         first = (a if a.size > n else b)[n]
     if first is not None and first not in flips:
-        raise AssertionError("e2e lvq knn: eveninit's picks part at a row whose kNN vote "
+        raise AssertionError(f"{name}: eveninit's picks part at a row whose kNN vote "
                              "did not flip")
-    picks_differ = np.setxor1d(a, b)
-    check_accuracy("e2e lvq knntest", out["knn_pct"], plain["knn_pct"])
-    check_accuracy("e2e lvq cmatr", out["cmatr_pct"], plain["cmatr_pct"])
-    if out["cmatr_total"] != X.shape[0] or out["codes"].n != plain["codes"].n:
-        raise AssertionError("e2e lvq knn: the codebook or the confusion matrix is short")
+    if out["codes"].n != plain["codes"].n:
+        raise AssertionError(f"{name}: the codebook is short")
     return dict(near_tie_rows=int(near.size), correct_flips=int(flips.size),
                 elimin_kept=int(kept.size), elimin_kept_plain=int(kept_plain.size),
-                eveninit_picks_differ=int(picks_differ.size),
+                eveninit_picks_differ=int(np.setxor1d(a, b).size),
                 setlabel_labels_differ=int((out["setlabel"] != plain["setlabel"]).sum()))
+
+
+def check_lvq_knn(X, out, plain):
+    """Phase 13c's gates against the plain run: check_knn_tools', then both
+    accuracies within 0.5 points and the confusion matrix over every row.
+    Returns the counts."""
+    counts = check_knn_tools("e2e lvq knn", X, out, plain)
+    check_accuracy("e2e lvq knntest", out["knn_pct"], plain["knn_pct"])
+    check_accuracy("e2e lvq cmatr", out["cmatr_pct"], plain["cmatr_pct"])
+    if out["cmatr_total"] != X.shape[0]:
+        raise AssertionError("e2e lvq knn: the confusion matrix is short")
+    return counts
 
 
 SCAN_STEPS = 10_000
@@ -2573,6 +2611,421 @@ def lvq_tool_phases(smi, tally, X, lab, Xm, labm, mask, table):
               f"each codebook and olvq1's rates within {SCAN_ATOL} of the plain run's "
               f"on all but {SCAN_ROWS_OFF:.0%} of the rows; olvq1 above the eveninit "
               "codebook; olvq1 and lvq3 reruns bit-equal")
+
+
+# ---- phase 13e: the CLI's -fast tools (som_lvq_pak_torch.cli) ----------------
+
+# vsom -fast's runs: the 100,000-row lap at B 1024 (K1 prologue, K13), then
+# the streamed pair (-buffer 16384, one chunk a refill) over two chunks
+CLI_VSOM = ["-rlen", 100_000, "-alpha", 0.05, "-radius", 32, "-batch", 1024, "-rand", 7]
+CLI_STREAM = ["-rlen", 32_768, "-alpha", 0.05, "-radius", 32, "-batch", 1024, "-rand", 7,
+              "-buffer", 16_384]
+# vfind's answers on stdin: 8 trials of a 16x16 hexa gaussian map over
+# bench.py:prep_vfind's phases (VFIND_PHASES)
+CLI_VFIND = ["8", "vfind.dat", "vfind.dat", "vfind.cod", "hexa", "gaussian", "16", "16",
+             "2048", "0.05", "4", "2048", "0.02", "2"]
+
+
+@contextlib.contextmanager
+def cli_io_timed(walls):
+    """Sum, into walls["read_s"] and walls["write_s"], the host clock of the
+    CLI's text reads (cli.common's read_data) and writes (every write_data of
+    the cli modules); into walls["stream_parse_s"] that of a
+    StreamingReader's chunk parses, which run on its prefetch thread beside
+    the call and so are part of its wall."""
+    from som_lvq_pak_torch.cli import cmds_lvq, cmds_som, common
+    from som_lvq_pak_torch.data.streaming import StreamingReader
+
+    for key in ("read_s", "write_s", "stream_parse_s"):
+        walls.setdefault(key, 0.0)
+
+    def clocked(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                walls[key] += time.perf_counter() - t0
+        return run
+
+    swaps = [(common, "read_data", "read_s"),
+             (StreamingReader, "_parse_chunk", "stream_parse_s"),
+             (common, "write_data", "write_s"), (cmds_lvq, "write_data", "write_s"),
+             (cmds_som, "write_data", "write_s")]
+    saved = [getattr(obj, name) for obj, name, _ in swaps]
+    for (obj, name, key), fn in zip(swaps, saved):
+        setattr(obj, name, clocked(fn, key))
+    try:
+        yield
+    finally:
+        for (obj, name, _), fn in zip(swaps, saved):
+            setattr(obj, name, fn)
+
+
+def cli_tool(walls, key, *argv, stdin=None):
+    """One tool through som_lvq_pak_torch.cli.main on the card, in the
+    working directory; its wall (to a synchronise) split into the text
+    read, the call (a stream's chunk parses included) and the write in
+    walls[key].  Returns (stdout, stderr);
+    a non-zero exit fails."""
+    import io
+
+    import torch
+
+    from som_lvq_pak_torch.cli import main as cli_main
+
+    argv = [str(a) for a in argv]
+    w = walls.setdefault(key, {})
+    out, err = io.StringIO(), io.StringIO()
+    stdin_saved = sys.stdin
+    sys.stdin = io.StringIO(stdin or "")
+    t0 = time.perf_counter()
+    try:
+        with cli_io_timed(w), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli_main(argv, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin = stdin_saved
+    w["total_s"] = time.perf_counter() - t0
+    w["call_s"] = w["total_s"] - w["read_s"] - w["write_s"]
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}: {err.getvalue()[-500:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def cli_chain(where, full=True):
+    """Phase 13e's tools in the directory `where` (som.dat, lvq.dat,
+    vfind.dat and r.cod there): the SOM chain (vsom -fast, qerror -fast and
+    -qetype 1, the streamed vsom pair, vfind -fast) and the LVQ chain
+    (eveninit, olvq1, lvq3, knntest, setlabel, elimin, each -fast).  With
+    full=False (the plain run) the tools its gates read: vsom, vfind and
+    the LVQ chain.  Returns (printed lines, eveninit's recorded self-kNN,
+    walls)."""
+    cwd = os.getcwd()
+    os.chdir(where)
+    walls, lines, rec = {}, {}, {}
+    try:
+        cli_tool(walls, "vsom", "vsom", "-fast", "-din", "som.dat", "-cin", "r.cod",
+                 "-cout", "v.cod", *CLI_VSOM)
+        if full:
+            lines["qerror"] = cli_tool(walls, "qerror", "qerror", "-fast", "-din",
+                                       "som.dat", "-cin", "v.cod")[0]
+            lines["qerror2"] = cli_tool(walls, "qerror -qetype 1", "qerror", "-fast",
+                                        "-qetype", 1, "-din", "som.dat", "-cin", "v.cod")[0]
+            cli_tool(walls, "vsom -bf16stream", "vsom", "-fast", "-bf16stream", "-din",
+                     "som.dat", "-cin", "r.cod", "-cout", "s16.cod", *CLI_STREAM)
+            cli_tool(walls, "vsom -buffer", "vsom", "-fast", "-din", "som.dat", "-cin",
+                     "r.cod", "-cout", "s32.cod", *CLI_STREAM)
+        lines["vfind"] = cli_tool(walls, "vfind", "vfind", "-fast",
+                                  stdin="\n".join(CLI_VFIND) + "\n")
+        with knn_recorded(rec):
+            cli_tool(walls, "eveninit", "eveninit", "-fast", "-din", "lvq.dat", "-cout",
+                     "e.cod", "-noc", 4096, "-knn", 5)
+        cli_tool(walls, "olvq1", "olvq1", "-fast", "-din", "lvq.dat", "-cin", "e.cod",
+                 "-cout", "o.cod", "-rlen", 65_536, "-batch", 1024)
+        cli_tool(walls, "lvq3", "lvq3", "-fast", "-din", "lvq.dat", "-cin", "o.cod",
+                 "-cout", "l3.cod", "-rlen", 65_536, "-alpha", 0.03, "-win", 0.3,
+                 "-epsilon", 0.1)
+        lines["knntest"] = cli_tool(walls, "knntest", "knntest", "-fast", "-din", "lvq.dat",
+                                    "-cin", "l3.cod")[0]
+        cli_tool(walls, "setlabel", "setlabel", "-fast", "-din", "lvq.dat", "-cin", "l3.cod",
+                 "-cout", "sl.cod")
+        cli_tool(walls, "elimin", "elimin", "-fast", "-din", "lvq.dat", "-cout", "el.cod")
+    finally:
+        os.chdir(cwd)
+    return lines, rec, walls
+
+
+def cli_twins(where, lines):
+    """Each -fast tool's call through the port's Python API on the card,
+    with the same inputs (read from the same files), arguments and seed;
+    fails unless every output file equals the twin's write_data text and
+    every printed line the twin's.  Returns the twins' walls and their
+    text-read data (the SOM rows, the LVQ Dataset)."""
+    import io
+
+    from som_lvq_pak_torch.data.io import read_data, write_data
+    from som_lvq_pak_torch.data.streaming import StreamingReader
+    from som_lvq_pak_torch.models import eval as ev
+    from som_lvq_pak_torch.models import lvq, som, tools
+    from som_lvq_pak_torch.models.trainer import LVQTrainer, OLVQ1Trainer, SOMTrainer
+    from som_lvq_pak_torch.utils.rng import CRandom
+
+    def text(ds):
+        buf = io.StringIO()
+        write_data(ds, None, fileobj=buf)
+        return buf.getvalue()
+
+    def path(name):
+        return os.path.join(where, name)
+
+    def same(name, ds):
+        with open(path(name)) as f:
+            written = f.read()
+        if written != text(ds):
+            raise AssertionError(f"e2e cli: {name} differs from its API twin's")
+
+    rng = CRandom()
+    rng.init_random(7)
+    seed = rng.state % (1 << 31)
+    rlen, stream_rlen = (argv[argv.index("-rlen") + 1] for argv in (CLI_VSOM, CLI_STREAM))
+    walls = {}
+    som_data, r_cod = read_data(path("som.dat")), read_data(path("r.cod"))
+    same("v.cod", timed(walls, "vsom", lambda: SOMTrainer(
+        r_cod, batch_size=1024, device="cuda", seed=seed).fit(som_data, rlen, 0.05, 32.0)))
+    v_cod = read_data(path("v.cod"))
+    n = np.float32(som_data.n)
+    q = timed(walls, "qerror", lambda: som.find_qerror(v_cod, som_data, device="cuda"))
+    q2 = timed(walls, "qerror -qetype 1", lambda: som.find_qerror2(v_cod, som_data, 1.0,
+                                                                 device="cuda"))
+    for key, total in (("qerror", q), ("qerror2", q2)):
+        want = ("Quantization error of som.dat with map v.cod is %f per sample (%d samples)\n"
+                % (np.float32(total) / n, som_data.n))
+        if lines[key] != want:
+            raise AssertionError(f"e2e cli: {key} printed {lines[key]!r}, the API {want!r}")
+    for name, bf16 in (("s16.cod", True), ("s32.cod", False)):
+        same(name, timed(walls, "vsom -bf16stream" if bf16 else "vsom -buffer", lambda: SOMTrainer(
+            r_cod, batch_size=1024, device="cuda", seed=seed, stream_bf16=bf16).fit(
+                StreamingReader(path("som.dat"), 16_384).chunks(laps=None), stream_rlen, 0.05,
+                32.0)))
+    vdata = read_data(path("vfind.dat"))
+    best = timed(walls, "vfind", lambda: som.vfind_trials(
+        vdata, vdata, 8, som.Topology.HEXA, som.Neighborhood.GAUSSIAN, 16, 16,
+        VFIND_PHASES, device="cuda")[0])
+    same("vfind.cod", best)
+    ldata = read_data(path("lvq.dat"))
+    same("e.cod", timed(walls, "eveninit", lambda: lvq.eveninit(ldata, 4096, knn=5,
+                                                                device="cuda")))
+    same("o.cod", timed(walls, "olvq1", lambda: OLVQ1Trainer(
+        read_data(path("e.cod")), batch_size=1024, alpha=0.3, device="cuda").fit(
+            ldata, 65_536)))
+    l3 = timed(walls, "lvq3", lambda: LVQTrainer(
+        read_data(path("o.cod")), algorithm="lvq3", batch_size=1024, winlen=0.3,
+        epsilon=0.1, device="cuda").fit(ldata, 65_536, 0.03))
+    same("l3.cod", l3)
+    l3 = read_data(path("l3.cod"))
+    report = timed(walls, "knntest", lambda: ev.knn_accuracy(ldata, l3, knn=5,
+                                                             device="cuda")[1])
+    if lines["knntest"] != report:
+        raise AssertionError("e2e cli: knntest's report differs from the API's")
+    same("sl.cod", timed(walls, "setlabel", lambda: tools.setlabel(l3, ldata, knn=5,
+                                                                   device="cuda")))
+    same("el.cod", timed(walls, "elimin", lambda: tools.elimin(ldata, knn=5, device="cuda")))
+    return walls, som_data, ldata
+
+
+def vfind_trials_printed(err):
+    """vfind's per-trial qerrors from its stderr ("%3d: %f")."""
+    return {int(a): float(b) for a, b in
+            (ln.split(":") for ln in err.splitlines() if ln.strip()[:1].isdigit())}
+
+
+def fresh_qerror(where, line):
+    """Part 2 of phase 13e: `python -m som_lvq_pak_torch.cli qerror -fast`
+    in a process of its own, which must exit 0 and print `line`; beside its
+    wall, that of a bare interpreter and of one that imports torch and
+    loads the built library (each a process of its own)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    probe = ("import json, time; t0 = time.perf_counter(); import torch; "
+             "t1 = time.perf_counter(); torch.cuda.init(); t2 = time.perf_counter(); "
+             "from som_lvq_pak_torch import _build; _build.library(); "
+             "t3 = time.perf_counter(); print(json.dumps(dict(torch_import_s=t1 - t0, "
+             "cuda_init_s=t2 - t1, library_load_s=t3 - t2)))")
+    walls = {}
+    for key, argv in (("bare_python_s", ["-c", "pass"]), ("probe_s", ["-c", probe]),
+                      ("qerror_s", ["-m", "som_lvq_pak_torch.cli", "qerror", "-fast",
+                                    "-din", "som.dat", "-cin", "v.cod"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *argv], cwd=where, env=env,
+                             capture_output=True, text=True, timeout=300)
+        walls[key] = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"e2e cli fresh process {argv[:3]}: exit "
+                                 f"{out.returncode}: {out.stderr[-500:]}")
+        if key == "probe_s":
+            walls.update(json.loads(out.stdout))
+        if key == "qerror_s" and out.stdout != line:
+            raise AssertionError(f"e2e cli fresh process printed {out.stdout!r}, "
+                                 f"in-process {line!r}")
+    return walls
+
+
+def sammon_error64(dmat, x, y, rows=2048):
+    """Sammon's mapping error of the layout (x, y) against the distances
+    `dmat` (noc, noc), in float64 on the card: the sum over pairs j < k of
+    (d - dp)^2 / d over the sum of d, taken in row blocks."""
+    import torch
+
+    x, y = x.double(), y.double()
+    noc = x.shape[0]
+    num = torch.zeros((), dtype=torch.float64, device=x.device)
+    den = torch.zeros_like(num)
+    cols = torch.arange(noc, device=x.device)
+    for lo in range(0, noc, rows):
+        hi = min(noc, lo + rows)
+        d = dmat[lo:hi].double()
+        dp = torch.sqrt((x[lo:hi, None] - x[None, :]) ** 2 + (y[lo:hi, None] - y[None, :]) ** 2)
+        upper = cols[None, :] > torch.arange(lo, hi, device=x.device)[:, None]
+        num += torch.where(upper, (d - dp) ** 2 / torch.where(upper, d, 1.0), 0.0).sum()
+        den += torch.where(upper, d, 0.0).sum()
+    return float(num / den)
+
+
+SAMMON_STEPS = (20, 100)
+
+
+def sammon_phase(smi, v_path):
+    """sammon_fast on the card on 13e's trained 128x128 codebook (16,384
+    units): SAMMON_STEPS[-1] iterations (the layout's error also read at
+    SAMMON_STEPS[0]); gates: finite, a rerun bit-equal, the mapping error
+    (float64 on the card) below the initial layout's."""
+    import torch
+
+    from som_lvq_pak_torch.data.io import read_data
+    from som_lvq_pak_torch.models import sammon
+    from som_lvq_pak_torch.utils.rng import CRandom
+
+    t_phase = time.perf_counter()
+    codes = read_data(v_path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for steps in SAMMON_STEPS + SAMMON_STEPS[-1:]:
+        t0 = time.perf_counter()
+        proj, deduped = sammon.sammon_fast(codes, steps, seed=1, device="cuda")
+        torch.cuda.synchronize()
+        runs.setdefault(steps, []).append((proj, time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    proj, wall = runs[SAMMON_STEPS[-1]][0]
+    again = runs[SAMMON_STEPS[-1]][1][0]
+    if not np.isfinite(proj.points).all() or proj.points.shape != (deduped.n, 2):
+        raise AssertionError("sammon_fast: the layout is not finite or of the wrong shape")
+    if not np.array_equal(proj.points.view(np.int32), again.points.view(np.int32)):
+        raise AssertionError("sammon_fast: a rerun on the card is not bit-equal")
+    P = torch.from_numpy(deduped.points).to("cuda")
+    dmat = sammon._pairwise_dist_euc_t(P, None)
+    rng = CRandom()
+    rng.init_random(1)
+    x0, y0 = (torch.from_numpy(a).to("cuda") for a in sammon.initial_layout(deduped.n, rng))
+    err0 = sammon_error64(dmat, x0, y0)
+    errs = {steps: sammon_error64(dmat, *(torch.from_numpy(np.ascontiguousarray(
+        runs[steps][0][0].points[:, i])).to("cuda") for i in (0, 1))) for steps in SAMMON_STEPS}
+    if not errs[SAMMON_STEPS[-1]] < err0:
+        raise AssertionError(f"sammon_fast: mapping error {errs[SAMMON_STEPS[-1]]} not "
+                             f"below the initial layout's {err0}")
+    del P, dmat
+    emit("e2e_sammon_fast_128x128", card=smi, units=codes.n, kept=deduped.n,
+         steps=SAMMON_STEPS[-1], mapping_error=errs, initial_mapping_error=err0,
+         walls={steps: [w for _, w in runs[steps]] for steps in runs},
+         peak_allocated_gib=peak, rerun_bit_equal=True, phase_s=time.perf_counter() - t_phase,
+         gate=f"finite; a rerun bit-equal; the mapping error after {SAMMON_STEPS[-1]} "
+              "iterations (float64 on the card) below the initial layout's")
+
+
+def cli_phase(smi, tally, X_som, X_lvq, lab_lvq, table):
+    """Phase 13e: the CLI's -fast tools on the card, in a temporary
+    directory: the SOM chain on `X_som` (100,000 x 64, written by the port's
+    write_data), vfind on 2048 x 16 rows, the LVQ chain on `X_lvq` with
+    labels `lab_lvq` (names in `table`); then the same tools' API twins, the
+    gates against the plain run, one fresh-process qerror, and sammon_fast
+    on the trained map.  `tally(launches)` takes the main run's counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from som_lvq_pak_torch.data.io import read_data, write_data
+    from som_lvq_pak_torch.models import eval as ev
+    from som_lvq_pak_torch.models import som
+    from som_lvq_pak_torch.models.som import Dataset
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("cuda", "plain")}
+        t0 = time.perf_counter()
+        for d in dirs.values():
+            os.makedirs(d)
+        base = dirs["cuda"]
+        write_data(Dataset(points=X_som), os.path.join(base, "som.dat"))
+        write_data(Dataset(points=X_lvq, labels=lab_lvq), os.path.join(base, "lvq.dat"),
+                   labels=table)
+        write_data(Dataset(points=np.random.default_rng(9).normal(
+            0, 1, size=(2048, 16)).astype(np.float32)), os.path.join(base, "vfind.dat"))
+        cwd = os.getcwd()
+        os.chdir(base)
+        setup = {}
+        try:
+            cli_tool(setup, "randinit", "randinit", "-din", "som.dat", "-cout", "r.cod", "-xdim", 128,
+                     "-ydim", 128, "-topol", "hexa", "-neigh", "gaussian", "-rand", 123)
+        finally:
+            os.chdir(cwd)
+        for name in ("som.dat", "lvq.dat", "vfind.dat", "r.cod"):
+            shutil.copy(os.path.join(base, name), dirs["plain"])
+        setup_s = time.perf_counter() - t0
+
+        (lines, rec, walls), (plain_lines, plain_rec, plain_walls), got = main_path(
+            "e2e_cli_fast", lambda: cli_chain(base),
+            ("dist_argmin", "dist_argmin_t", "som_fused_factored_step",
+             "som_neighborhood_update_idx", "dist_top2", "dist_topk", "segment_sum"),
+            lambda: cli_chain(dirs["plain"], full=False))
+        tally(got)
+        chain_s = time.perf_counter() - t_phase
+
+        twin_walls, som_data, ldata = cli_twins(base, lines)
+
+        def codes(where, name):
+            return read_data(os.path.join(where, name))
+
+        # the gates against the plain run
+        n = som_data.n
+        q = {k: som.find_qerror(codes(dirs[k], "v.cod"), som_data, device="cuda") / n
+             for k in dirs}
+        check_e2e("e2e cli vsom", q["cuda"], q["plain"])
+        q16, q32 = (som.find_qerror(codes(base, name), som_data, device="cuda") / n
+                    for name in ("s16.cod", "s32.cod"))
+        check_e2e("e2e cli vsom -bf16stream", q16, q32)
+        trials, plain_trials = (vfind_trials_printed(x["vfind"][1])
+                                for x in (lines, plain_lines))
+        best = lambda x: int(x["vfind"][0].split("random seed")[1].split(":")[0])  # noqa: E731
+        ranked = sorted(plain_trials.values())
+        if best(lines) != best(plain_lines) and ranked[1] - ranked[0] > 0.01 * ranked[0]:
+            raise AssertionError(f"e2e cli vfind: best trial {best(lines)}, plain "
+                                 f"{best(plain_lines)}")
+        pct = {}
+        for name in ("o.cod", "l3.cod"):
+            pct[name] = {k: ev.accuracy(ldata, codes(dirs[k], name), device="cuda")[0]
+                         for k in dirs}
+            check_accuracy(f"e2e cli {name}", pct[name]["cuda"], pct[name]["plain"])
+        knn_pct = {k: float((lines if k == "cuda" else plain_lines)["knntest"]
+                            .strip().splitlines()[-1].split()[-2]) for k in dirs}
+        check_accuracy("e2e cli knntest", knn_pct["cuda"], knn_pct["plain"])
+        X = ldata.points
+        knn = {k: dict(idx=r["idx"], correct=r["correct"], codes=codes(dirs[k], "e.cod"),
+                       kept=codes(dirs[k], "el.cod").points,
+                       setlabel=codes(dirs[k], "sl.cod").first_labels())
+               for k, r in (("cuda", rec), ("plain", plain_rec))}
+        counts = check_knn_tools("e2e cli knn", X, knn["cuda"], knn["plain"])
+        fresh = fresh_qerror(base, lines["qerror"])
+        phase_s = time.perf_counter() - t_phase
+        emit("e2e_cli_fast", card=smi, qerror_line=lines["qerror"].strip(),
+             qerror2_line=lines["qerror2"].strip(), qerror_per_sample=q,
+             bf16stream_qerror_per_sample=q16, f32stream_qerror_per_sample=q32,
+             vfind_best_trial=best(lines), plain_vfind_best_trial=best(plain_lines),
+             vfind_qerror_per_sample=trials, plain_vfind_qerror_per_sample=plain_trials,
+             accuracy_pct=pct, knntest_accuracy_pct=knn_pct, **counts, walls=walls,
+             api_walls=twin_walls, plain_walls=plain_walls, setup_s=setup_s,
+             setup_walls=setup, chain_s=chain_s, fresh_process=fresh, launches=got,
+             phase_s=phase_s,
+             gate="every -fast output byte-equal to its API twin and every printed line "
+                  "the API's; vsom's qerror within 1% of the plain run and the bf16 "
+                  "stream within 1% of the float32 stream; vfind's best trial the plain "
+                  "run's unless its two best are within 1%; olvq1, lvq3 and knntest "
+                  "within 0.5 points; eveninit, setlabel and elimin apart only at "
+                  "near-ties (13c's rule); the fresh-process qerror line equal")
+        sammon_phase(smi, os.path.join(base, "v.cod"))
+        del som_data, ldata, X
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -3947,7 +4400,11 @@ def main() -> int:
          launches=got)
 
     lvq_tool_phases(smi, tally, X262, lab262, Xm[:16384], lab1[:16384], mask[:16384], table)
-    del Xm, lab1, mask, small, X262, lab262
+    del Xm, lab1, mask, small
+
+    # ---- the CLI's -fast tools (phase 13e) and sammon_fast -----------------
+    cli_phase(smi, tally, X100, X262[:65_536], lab262[:65_536], table)
+    del X262, lab262, X100
 
     # ---- the int8-winner training chain (tools/int8_step_ab) --------------
     # 256x256 B 4096, K14 with chunk 1024 and the bf16 x-pattern: step times

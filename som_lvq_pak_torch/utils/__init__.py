@@ -1,5 +1,5 @@
 from .checkpoint import Checkpointer, TrainState
-from .progress import StepTimer
+from .progress import Mprint, StepTimer
 from .rng import CRandom
 
-__all__ = ["Checkpointer", "TrainState", "StepTimer", "CRandom"]
+__all__ = ["Checkpointer", "TrainState", "Mprint", "StepTimer", "CRandom"]

@@ -1,10 +1,52 @@
-"""Host-side step timing — the port's copy of
-som_lvq_pak_tpu/utils/progress.py:StepTimer (wall-clock step and sample
-rates; the trainers call `step` after each batch or group)."""
+"""Host-side progress and step timing — the port's copies of
+som_lvq_pak_tpu/utils/progress.py:Mprint (:17-55, the reference's 60-dot
+progress meter, mprint, lvq_pak.c:418-456; the CLI's parity trainers draw
+it on a terminal at verbosity >= 1) and StepTimer (wall-clock step and
+sample rates; the trainers call `step` after each batch or group)."""
 
 from __future__ import annotations
 
+import sys
 import time
+
+
+class Mprint:
+    """Stateful progress meter: call with the REMAINING count each step,
+    then with 0 to finish (the reference's calling convention)."""
+
+    def __init__(self, stream=None):
+        self.stream = stream if stream is not None else sys.stderr
+        self.totlen = 0
+        self.startt = 0.0
+        self.prevt = -1.0
+
+    def __call__(self, rlen: int) -> None:
+        currt = int(time.time())
+        if not self.totlen:
+            self.totlen = rlen
+            self.startt = currt
+            self.stream.write(" " * 15 + "-" * 60)
+        if currt != self.prevt or not rlen:
+            t1 = currt - self.startt
+            if rlen != self.totlen:
+                t2 = int((currt - self.startt) * float(self.totlen) / (self.totlen - rlen))
+            else:
+                t2 = 0
+            if t2 > 9999:
+                t1 //= 60
+                t2 //= 60
+                unit = "min."
+            else:
+                unit = "sec."
+            self.stream.write("\r%4u/%4u %4s " % (int(t1), int(t2), unit))
+            if self.totlen:
+                dots = int(60 * float(self.totlen - rlen) / self.totlen)
+                self.stream.write("." * dots)
+            self.stream.flush()
+            self.prevt = currt
+        if not rlen:
+            self.totlen = 0
+            self.stream.write("\n")
 
 
 class StepTimer:

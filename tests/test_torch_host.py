@@ -68,7 +68,14 @@ assert {"som_lvq_pak_torch.tools.int8_probe", "som_lvq_pak_torch.tools.int8_step
         "som_lvq_pak_torch.ops.exact", "som_lvq_pak_torch.ops.neighborhood",
         "som_lvq_pak_torch.models.lvq", "som_lvq_pak_torch.models.tools",
         "som_lvq_pak_torch.models.eval", "som_lvq_pak_torch.ops.distance",
-        "som_lvq_pak_torch.ops.dist_topk", "som_lvq_pak_torch.data.io"} <= set(mods)
+        "som_lvq_pak_torch.ops.dist_topk", "som_lvq_pak_torch.data.io",
+        "som_lvq_pak_torch.cli", "som_lvq_pak_torch.cli.cmds_lvq",
+        "som_lvq_pak_torch.cli.cmds_som", "som_lvq_pak_torch.cli.cmds_viz",
+        "som_lvq_pak_torch.cli.lvq_run", "som_lvq_pak_torch.cli.common",
+        "som_lvq_pak_torch.cli.params", "som_lvq_pak_torch.cli.usage",
+        "som_lvq_pak_torch.viz.eps", "som_lvq_pak_torch.viz.planes",
+        "som_lvq_pak_torch.viz.umat_ps", "som_lvq_pak_torch.models.umatrix",
+        "som_lvq_pak_torch.models.sammon", "som_lvq_pak_torch.utils.snapshot"} <= set(mods)
 from som_lvq_pak_torch.models import eval, lvq, tools
 from som_lvq_pak_torch.ops import distance
 from som_lvq_pak_torch.data import io
@@ -76,19 +83,49 @@ assert all(callable(f) for f in (lvq.balance, lvq.lvq3_train, tools.setlabel, to
                                  eval.knn_accuracy, eval.confusion_matrix, eval.mcnemar,
                                  distance.chunked_topk, distance.auto_pairwise_topk,
                                  io.write_data_chunks, io.read_alpha_file))
+from som_lvq_pak_torch import cli
+from som_lvq_pak_torch.models import sammon, umatrix
+from som_lvq_pak_torch.utils import snapshot
+assert len(cli.tool_names()) == 31 and callable(sammon.sammon_fast)
+assert callable(umatrix.calc_umatrix) and callable(snapshot.read_snapshots)
 print(len(mods))
+"""
+
+# the CLI's driver as `python -m som_lvq_pak_torch.cli help` runs it, with
+# jax and the JAX package blocked
+_BLOCKED_CLI = """
+import runpy, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "som_lvq_pak_tpu"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.argv = ["-m", "help"]
+runpy.run_module("som_lvq_pak_torch.cli", run_name="__main__", alter_sys=True)
 """
 
 
 def test_port_imports_without_jax():
     """Every module of the port, the tools/ subpackage's included, imports
     with jax and the JAX package both blocked: the LVQ pipeline's modules
-    (models.lvq, models.tools, the kNN front end, the .lra files) too."""
+    (models.lvq, models.tools, the kNN front end, the .lra files) and the
+    CLI's (cli/, viz/, models.umatrix, models.sammon, utils.snapshot) too."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20  # every module was walked
+
+
+def test_port_cli_runs_without_jax():
+    """`python -m som_lvq_pak_torch.cli help` with jax and the JAX package
+    blocked: exit 0 and the tool list (the 31 tools and lvq_run)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_CLI], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stderr.startswith("usage: somvq <tool>")
+    assert "\n  vsom\n" in out.stderr and out.stderr.endswith("  lvq_run\n")
 
 
 def test_port_sources_never_import_jax():
