@@ -35,6 +35,9 @@ phases, each printing one JSON line:
             instantiation of K14's int8_win walk and the IGMMA (int8 wgmma)
             instructions in each of K15's, from cuobjdump --dump-sass of the
             library (none fails the run, as does an IDP4A anywhere in it);
+            then g++ builds the native data-file engine (data/native_io.py
+            over native/somvq_io.cpp) into the same folder, timed; the I/O
+            phases (13e-13g) fail unless it is loaded and in use;
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             (winners equal except at near-ties, values/codebooks to 1e-4),
             with kernel and plain times from CUDA events and the kernel's
@@ -263,11 +266,28 @@ phases, each printing one JSON line:
             must print the in-process line, beside the walls of a bare
             interpreter and of the torch import, CUDA init and library load;
             each tool's wall split into its text read, the call and the
-            write, the API twin's beside it.  Then
+            write, the API twin's beside it; every read, write and chunk
+            parse must go through the native engine ("native": true), and
+            som.dat is read once more with the engine and once with
+            SOMVQ_NATIVE=0 (the Python parser), bit-equal.  Then
             e2e_sammon_fast_128x128: sammon_fast on the trained 16,384-unit
             map for 100 iterations (the error also read at 20), rerun
             bit-equal, the mapping error (float64 on the card) below the
             initial layout's; its wall and peak memory.
+13f. e2e_example_large_som  som_lvq_pak_torch.examples.large_som at the JAX
+            example's defaults: 100,000 x 64, 128x128, B 1024, two phases of
+            20 laps, Sammon of 512 codes (the fused step fused_step_choice
+            picks, K13 here; K1 prologue; K2 qerror; sammon_fast), then
+            through the plain versions on the card; check_summary, each
+            qerror point within 1% of the plain run's.
+13g. e2e_example_streaming_som  examples.streaming_som at 1M x 64, 128x128,
+            B 1024, buffer 16,384, one lap, on a file its generate_file
+            writes (outside the fit's wall); the held-out qerror falls and
+            is within 1% of the plain run's, every chunk parse on the
+            engine; a 262,144-row streamed fit with the engine on and with
+            SOMVQ_NATIVE=0, the codebooks bit-equal; a 16-step fit under
+            utils.progress.trace, whose exported trace must name the
+            fused-step kernel.
 13a. e2e_int8_win_256x256_B4096  som_lvq_pak_torch.tools.int8_step_ab: the
             step times of the float32 (K14's main form), int8_win and stagger
             (K14's walk) chains with K17 beside them, then 64 training steps
@@ -2626,35 +2646,61 @@ CLI_VFIND = ["8", "vfind.dat", "vfind.dat", "vfind.cod", "hexa", "gaussian", "16
              "2048", "0.05", "4", "2048", "0.02", "2"]
 
 
-@contextlib.contextmanager
-def cli_io_timed(walls):
-    """Sum, into walls["read_s"] and walls["write_s"], the host clock of the
-    CLI's text reads (cli.common's read_data) and writes (every write_data of
-    the cli modules); into walls["stream_parse_s"] that of a
-    StreamingReader's chunk parses, which run on its prefetch thread beside
-    the call and so are part of its wall."""
-    from som_lvq_pak_torch.cli import cmds_lvq, cmds_som, common
-    from som_lvq_pak_torch.data.streaming import StreamingReader
+def require_engine():
+    """The I/O phases' precondition: the native data-file engine
+    (som_lvq_pak_torch.data.native_io, built from native/somvq_io.cpp) is
+    loaded and in use, so no read, write or chunk parse quietly takes the
+    Python path."""
+    from som_lvq_pak_torch.data import io as pio
+    from som_lvq_pak_torch.data import native_io
 
-    for key in ("read_s", "write_s", "stream_parse_s"):
+    if not native_io.available():
+        raise AssertionError("the native data-file engine is not available (no g++?)")
+    if not pio._use_native():
+        raise AssertionError("the native data-file engine is turned off (SOMVQ_NATIVE=0)")
+
+
+@contextlib.contextmanager
+def io_timed(walls, swaps):
+    """Sum, into walls[key], the host clock of each (obj, name, key) in
+    `swaps` (a text read, write or chunk parse); walls["native"] stays True
+    while each of those calls went through the native engine (one
+    native_io call in its own thread, a chunk parse on a prefetch thread
+    included)."""
+    import threading
+
+    from som_lvq_pak_torch.data import native_io
+
+    engine = threading.local()
+    lock = threading.Lock()  # the prefetch thread's parses update walls too
+    walls.setdefault("native", True)
+    for _, _, key in swaps:
         walls.setdefault(key, 0.0)
+
+    def counted(fn):
+        def run(*a, **kw):
+            engine.calls = getattr(engine, "calls", 0) + 1
+            return fn(*a, **kw)
+        return run
 
     def clocked(fn, key):
         def run(*a, **kw):
+            before = getattr(engine, "calls", 0)
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                walls[key] += time.perf_counter() - t0
+                dt, native = time.perf_counter() - t0, getattr(engine, "calls", 0) > before
+                with lock:
+                    walls[key] += dt
+                    walls["native"] = walls["native"] and native
         return run
 
-    swaps = [(common, "read_data", "read_s"),
-             (StreamingReader, "_parse_chunk", "stream_parse_s"),
-             (common, "write_data", "write_s"), (cmds_lvq, "write_data", "write_s"),
-             (cmds_som, "write_data", "write_s")]
+    swaps = swaps + [(native_io, name, None) for name in
+                     ("read_data_native", "parse_text_native", "format_entries_native")]
     saved = [getattr(obj, name) for obj, name, _ in swaps]
     for (obj, name, key), fn in zip(swaps, saved):
-        setattr(obj, name, clocked(fn, key))
+        setattr(obj, name, counted(fn) if key is None else clocked(fn, key))
     try:
         yield
     finally:
@@ -2662,12 +2708,44 @@ def cli_io_timed(walls):
             setattr(obj, name, fn)
 
 
+def cli_io_timed(walls):
+    """io_timed over the CLI's text reads (cli.common's read_data) into
+    walls["read_s"], its writes (every write_data of the cli modules) into
+    walls["write_s"], and a StreamingReader's chunk parses, which run on its
+    prefetch thread beside the call and so are part of its wall, into
+    walls["stream_parse_s"]."""
+    from som_lvq_pak_torch.cli import cmds_lvq, cmds_som, common
+    from som_lvq_pak_torch.data.streaming import StreamingReader
+
+    return io_timed(walls, [(common, "read_data", "read_s"),
+                            (StreamingReader, "_parse_chunk", "stream_parse_s"),
+                            (common, "write_data", "write_s"),
+                            (cmds_lvq, "write_data", "write_s"),
+                            (cmds_som, "write_data", "write_s")])
+
+
+@contextlib.contextmanager
+def engine_off():
+    """SOMVQ_NATIVE=0 inside the block: reads, writes and chunk parses take
+    the Python parser and writer."""
+    saved = os.environ.get("SOMVQ_NATIVE")
+    os.environ["SOMVQ_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["SOMVQ_NATIVE"]
+        else:
+            os.environ["SOMVQ_NATIVE"] = saved
+
+
 def cli_tool(walls, key, *argv, stdin=None):
     """One tool through som_lvq_pak_torch.cli.main on the card, in the
     working directory; its wall (to a synchronise) split into the text
     read, the call (a stream's chunk parses included) and the write in
-    walls[key].  Returns (stdout, stderr);
-    a non-zero exit fails."""
+    walls[key], with walls[key]["native"].  Returns (stdout, stderr); a
+    non-zero exit fails, as does a read, write or chunk parse that did not
+    go through the native engine."""
     import io
 
     import torch
@@ -2691,6 +2769,9 @@ def cli_tool(walls, key, *argv, stdin=None):
     w["call_s"] = w["total_s"] - w["read_s"] - w["write_s"]
     if rc != 0:
         raise AssertionError(f"cli {argv}: exit {rc}: {err.getvalue()[-500:]}")
+    if not w["native"]:
+        raise AssertionError(f"cli {argv}: a text read, write or chunk parse took "
+                             "the Python path")
     return out.getvalue(), err.getvalue()
 
 
@@ -2940,6 +3021,7 @@ def cli_phase(smi, tally, X_som, X_lvq, lab_lvq, table):
     from som_lvq_pak_torch.models import som
     from som_lvq_pak_torch.models.som import Dataset
 
+    require_engine()
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         dirs = {k: os.path.join(tmp, k) for k in ("cuda", "plain")}
@@ -3006,6 +3088,16 @@ def cli_phase(smi, tally, X_som, X_lvq, lab_lvq, table):
                        setlabel=codes(dirs[k], "sl.cod").first_labels())
                for k, r in (("cuda", rec), ("plain", plain_rec))}
         counts = check_knn_tools("e2e cli knn", X, knn["cuda"], knn["plain"])
+        # the SOM text file read once more with the engine on, then with it
+        # off (SOMVQ_NATIVE=0: the Python parser): the same arrays
+        engine_vs_python = {}
+        som_path = os.path.join(base, "som.dat")
+        on = timed(engine_vs_python, "engine_read_s", lambda: read_data(som_path))
+        with engine_off():
+            off = timed(engine_vs_python, "python_read_s", lambda: read_data(som_path))
+        if not np.array_equal(on.points.view(np.int32), off.points.view(np.int32)):
+            raise AssertionError("e2e cli: the engine's read of som.dat is not the "
+                                 "Python parser's")
         fresh = fresh_qerror(base, lines["qerror"])
         phase_s = time.perf_counter() - t_phase
         emit("e2e_cli_fast", card=smi, qerror_line=lines["qerror"].strip(),
@@ -3014,7 +3106,8 @@ def cli_phase(smi, tally, X_som, X_lvq, lab_lvq, table):
              vfind_best_trial=best(lines), plain_vfind_best_trial=best(plain_lines),
              vfind_qerror_per_sample=trials, plain_vfind_qerror_per_sample=plain_trials,
              accuracy_pct=pct, knntest_accuracy_pct=knn_pct, **counts, walls=walls,
-             api_walls=twin_walls, plain_walls=plain_walls, setup_s=setup_s,
+             api_walls=twin_walls, plain_walls=plain_walls,
+             som_dat_read_engine_vs_python=engine_vs_python, setup_s=setup_s,
              setup_walls=setup, chain_s=chain_s, fresh_process=fresh, launches=got,
              phase_s=phase_s,
              gate="every -fast output byte-equal to its API twin and every printed line "
@@ -3026,6 +3119,174 @@ def cli_phase(smi, tally, X_som, X_lvq, lab_lvq, table):
         sammon_phase(smi, os.path.join(base, "v.cod"))
         del som_data, ldata, X
         torch.cuda.empty_cache()
+
+
+# ---- phases 13f, 13g: the port's examples (som_lvq_pak_torch.examples) -------
+
+# the JAX examples' defaults (examples/large_som.py, examples/streaming_som.py)
+LARGE_SOM = dict(n=100_000, dim=64, side=128, batch=1024, rlen=0, sammon_sub=512)
+STREAM_SOM = dict(n=1_000_000, dim=64, side=128, batch=1024, buffer=16_384, laps=1)
+STREAM_ON_OFF_ROWS = 262_144  # the engine-on/off streamed pair
+TRACE_STEPS = 16  # the fit under utils.progress.trace
+
+# the fused-step kernel fused_step_choice picks: its launch counter and its
+# CUDA function's name (as a trace shows it)
+FUSED_STEP_KERNELS = {
+    "K13": ("som_fused_factored_step", "som_fused_factored_kernel"),
+    "K14": ("som_fused_factored_chunked_step", "som_fused_factored_chunked_tc_kernel"),
+    "K3": ("som_fused_train_step", "som_fused_step_kernel")}
+
+
+def fused_step_kernel(side, batch, dim):
+    """The fused-step kernel SOMTrainer takes for a side x side hexa gaussian
+    map at this batch and width (models.trainer.fused_step_choice, the JAX
+    trainer's rule): (K name, launch counter, CUDA function)."""
+    from som_lvq_pak_torch.models.trainer import fused_step_choice
+
+    factored, _, chunk, _, _ = fused_step_choice(side * side, side, True, True, batch, dim)
+    k = "K14" if chunk else "K13" if factored else "K3"
+    return (k, *FUSED_STEP_KERNELS[k])
+
+
+def example_large_som_phase(smi, tally):
+    """Phase 13f: som_lvq_pak_torch.examples.large_som.run_large_som at the
+    JAX example's defaults on the card (the fused step fused_step_choice
+    picks, K1 prologue, K2 qerror, sammon_fast), then through the plain
+    versions on the card; gates: check_summary, each qerror point within 1%
+    of the plain run's (check_e2e's rule)."""
+    from som_lvq_pak_torch.examples import large_som
+
+    require_engine()
+    t_phase = time.perf_counter()
+    k, counter, _ = fused_step_kernel(LARGE_SOM["side"], LARGE_SOM["batch"], LARGE_SOM["dim"])
+    walls = {}
+
+    def run(key):
+        return timed(walls, key, lambda: large_som.run_large_som(**LARGE_SOM, device="cuda"))
+
+    s, s_plain, got = main_path("e2e_example_large_som", lambda: run("run_s"),
+                                ("dist_argmin", "dist_argmin_t", counter),
+                                lambda: run("plain_run_s"))
+    tally(got)
+    large_som.check_summary(s)
+    for i, (q, q_plain) in enumerate(zip(s["qerror_curve"], s_plain["qerror_curve"])):
+        check_e2e(f"e2e example large_som qerror point {i}", q, q_plain)
+    emit("e2e_example_large_som", card=smi, args=LARGE_SOM, summary=s,
+         plain_summary=s_plain, fused_step_kernel=k, fused_step_launches=got[counter],
+         walls=walls, launches=got, phase_s=time.perf_counter() - t_phase,
+         gate="check_summary; each qerror point within 1% of the plain run's")
+
+
+def stream_fit(path, codes, rlen, walls):
+    """examples.streaming_som.fit_stream on the card (B 1024, 16,384-row
+    chunks) over `rlen` samples of `path`, its wall in walls["train_s"] and
+    its chunk parses in walls["stream_parse_s"] with walls["native"]
+    (io_timed); returns the trained codebook."""
+    from som_lvq_pak_torch.data.streaming import StreamingReader
+    from som_lvq_pak_torch.examples.streaming_som import fit_stream
+    from som_lvq_pak_torch.models.trainer import SOMTrainer
+
+    tr = SOMTrainer(codes, batch_size=STREAM_SOM["batch"], device="cuda")
+    with io_timed(walls, [(StreamingReader, "_parse_chunk", "stream_parse_s")]):
+        return timed(walls, "train_s",
+                     lambda: fit_stream(tr, path, rlen, STREAM_SOM["buffer"]))
+
+
+def example_streaming_som_phase(smi, tally):
+    """Phase 13g: som_lvq_pak_torch.examples.streaming_som on a 1M x 64 file
+    that its generate_file writes into a temporary directory (outside the
+    timed fit): run_streaming_som on the card, then through the plain
+    versions on the card (the engine parses the chunks in both); gates: the
+    held-out qerror falls and is within 1% of the plain run's, and every
+    chunk parse went through the engine.  Then a streamed fit of 262,144
+    rows with the engine on and with SOMVQ_NATIVE=0: the codebooks bit-equal
+    (the parses give the same floats, reruns on the card are bit-equal).
+    Then where a 1M-row lap's time goes: the reader alone over the file,
+    and the fit under torch.profiler (a "profile" line: device busy time
+    and idle share).  Then a 16-step fit under utils.progress.trace: the
+    exported trace must name the fused-step kernel."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from som_lvq_pak_torch.data.streaming import StreamingReader
+    from som_lvq_pak_torch.examples import streaming_som
+    from som_lvq_pak_torch.utils.progress import trace
+
+    require_engine()
+    t_phase = time.perf_counter()
+    k, counter, kernel_fn = fused_step_kernel(STREAM_SOM["side"], STREAM_SOM["batch"],
+                                              STREAM_SOM["dim"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"stream_som_{STREAM_SOM['n']}x{STREAM_SOM['dim']}.dat")
+        gen_s = streaming_som.generate_file(path, STREAM_SOM["n"], STREAM_SOM["dim"])
+        walls = {key: {} for key in ("cuda", "plain")}
+
+        def run(key):
+            with io_timed(walls[key], [(StreamingReader, "_parse_chunk", "stream_parse_s")]):
+                return timed(walls[key], "run_s", lambda: streaming_som.run_streaming_som(
+                    path, **STREAM_SOM, device="cuda"))
+
+        s, s_plain, got = main_path("e2e_example_streaming_som", lambda: run("cuda"),
+                                    ("dist_argmin", "dist_argmin_t", counter),
+                                    lambda: run("plain"))
+        tally(got)
+        (q0, q1), (_, q1_plain) = s["qerror_subsample"], s_plain["qerror_subsample"]
+        if not q1 < q0:
+            raise AssertionError(f"e2e example streaming_som: qerror {q0} -> {q1} did not fall")
+        check_e2e("e2e example streaming_som held-out qerror", q1, q1_plain)
+        if not (walls["cuda"]["native"] and walls["plain"]["native"]):
+            raise AssertionError("e2e example streaming_som: a chunk parse took the "
+                                 "Python path")
+
+        # the engine on and off under one streamed fit: the same codebook
+        _, codes0 = streaming_som.head_codebook(path, STREAM_SOM["side"], STREAM_SOM["buffer"])
+        pair, out = {"engine": {}, "python": {}}, {}
+        out["engine"] = stream_fit(path, codes0, STREAM_ON_OFF_ROWS, pair["engine"])
+        with engine_off():
+            out["python"] = stream_fit(path, codes0, STREAM_ON_OFF_ROWS, pair["python"])
+        if not pair["engine"]["native"] or pair["python"]["native"]:
+            raise AssertionError(f"e2e example streaming_som: engine on/off not as set: {pair}")
+        if not np.array_equal(out["engine"].points.view(np.int32),
+                              out["python"].points.view(np.int32)):
+            raise AssertionError("e2e example streaming_som: the engine-on and engine-off "
+                                 "fits' codebooks are not bit-equal")
+
+        # where a streamed lap's time goes: the reader alone (its line loop
+        # and parses, no card), then the example's fit under torch.profiler
+        # (the device's busy time and idle share)
+        lap = {"reader": {}, "fit": {}}
+        with io_timed(lap["reader"], [(StreamingReader, "_parse_chunk", "stream_parse_s")]):
+            lap["reader"]["rows"] = timed(lap["reader"], "lap_s", lambda: sum(
+                c.n for c in StreamingReader(path, STREAM_SOM["buffer"]).chunks(laps=1)))
+        with profiled("e2e_example_streaming_som train"):
+            stream_fit(path, codes0, STREAM_SOM["n"], lap["fit"])
+
+        # a short fit under utils.progress.trace: the trace names the kernel
+        logdir = os.path.join(tmp, "trace")
+        with trace(logdir):
+            stream_fit(path, codes0, TRACE_STEPS * STREAM_SOM["batch"], {})
+            torch.cuda.synchronize()
+        (trace_file,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        with open(trace_file) as f:
+            events = json.load(f)["traceEvents"]
+        named = sum(1 for e in events
+                    if e.get("cat") == "kernel" and kernel_fn in e.get("name", ""))
+        if named == 0:
+            raise AssertionError(f"e2e example streaming_som: the trace names no "
+                                 f"{kernel_fn} launch")
+        trace_mb = os.path.getsize(trace_file) / 1e6
+    emit("e2e_example_streaming_som", card=smi, args=STREAM_SOM, summary=s,
+         plain_summary=s_plain, generate_file_s=gen_s, fused_step_kernel=k,
+         fused_step_launches=got[counter], walls=walls, launches=got,
+         engine_on_off_rows=STREAM_ON_OFF_ROWS, engine_on_off_walls=pair,
+         engine_on_off_bit_equal=True, streamed_lap=lap, trace_steps=TRACE_STEPS,
+         trace_kernel_events=named, trace_kernel=kernel_fn, trace_mb=trace_mb,
+         phase_s=time.perf_counter() - t_phase,
+         gate="held-out qerror falls and within 1% of the plain run's; every chunk "
+              "parse on the engine; engine-on and engine-off codebooks bit-equal; the "
+              "trace names the fused-step kernel")
 
 
 @contextlib.contextmanager
@@ -3805,6 +4066,7 @@ def main() -> int:
               "kernels need a CUDA device", file=sys.stderr)
         return 1
     from som_lvq_pak_torch import _build
+    from som_lvq_pak_torch.data import native_io
     from som_lvq_pak_torch.models.som import find_qerror
     from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
                                                    dist_argmin_masked_plain,
@@ -3836,8 +4098,16 @@ def main() -> int:
     _build.build(verbose=True)  # prints the log, ptxas's report with it
     _build.library()
     slowest = sorted(_build.compile_seconds().items(), key=lambda kv: -kv[1])[:3]
-    emit("build", seconds=time.perf_counter() - t0, library=_build.library_path(),
-         built_now=built_now, slowest_nvcc=slowest)
+    build_s = time.perf_counter() - t0
+    # the native data-file engine (native/somvq_io.cpp, g++), which the I/O
+    # phases require
+    t0 = time.perf_counter()
+    engine_built_now = not os.path.exists(native_io.library_path())
+    require_engine()
+    emit("build", seconds=build_s, library=_build.library_path(),
+         built_now=built_now, slowest_nvcc=slowest,
+         engine_seconds=time.perf_counter() - t0, engine_library=native_io.library_path(),
+         engine_built_now=engine_built_now)
     # the report of the build that made this library, this run's or an
     # earlier one's (built_now says which); empty if that build kept no log
     ptxas = ptxas_report(_build.build_log())
@@ -4405,6 +4675,11 @@ def main() -> int:
     # ---- the CLI's -fast tools (phase 13e) and sammon_fast -----------------
     cli_phase(smi, tally, X100, X262[:65_536], lab262[:65_536], table)
     del X262, lab262, X100
+
+    # ---- the port's examples (phases 13f, 13g) -----------------------------
+    example_large_som_phase(smi, tally)
+    example_streaming_som_phase(smi, tally)
+    release()
 
     # ---- the int8-winner training chain (tools/int8_step_ab) --------------
     # 256x256 B 4096, K14 with chunk 1024 and the bf16 x-pattern: step times

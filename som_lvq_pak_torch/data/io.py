@@ -13,12 +13,13 @@ Format (reference datafile.c:112-148 reader, 396-447 writer):
 Filename conventions (reference fileio.c:57-200): '-' = stdin/stdout,
 suffix .gz/.z/.Z = gzip stream, leading '|' = shell pipe.
 
-The port's copy of the Python parser and writers of
-som_lvq_pak_tpu/data/io.py (`write_data_chunks` :360-407 and the olvq1
-`.lra` sidecars :410-454 included); tests hold both byte-equal on the
-golden files.  The JAX package's native C++ engine (native/somvq_io.cpp,
-its `_use_native` branches), which it takes when it can build it, is not
-part of the port yet: every entry here is written by the Python writer.
+The port's copy of som_lvq_pak_tpu/data/io.py (`write_data_chunks`
+:360-407 and the olvq1 `.lra` sidecars :410-454 included); tests hold both
+byte-equal on the golden files.  As in the JAX package, plain file reads
+and every entry write go through the native C++ engine (data.native_io,
+built from native/somvq_io.cpp on first use) when it is available, and
+through the Python parser and writer here otherwise; both give the same
+arrays and bytes.  SOMVQ_NATIVE=0 forces Python.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..config import (
     masked_string,
     uncompress_command,
 )
+from . import native_io
 from .dataset import (
     Dataset,
     Neighborhood,
@@ -133,6 +135,15 @@ def parse_header(line: str) -> Tuple[int, Topology, Neighborhood, int, int]:
     return dim, topol, neigh, xdim, ydim
 
 
+def _use_native() -> bool:
+    """Whether reads, writes and chunk parses take the native engine:
+    unless SOMVQ_NATIVE=0, whenever it is available (som_lvq_pak_tpu/data/
+    io.py:129-134)."""
+    if os.environ.get("SOMVQ_NATIVE", "1") == "0":
+        return False
+    return native_io.available()
+
+
 def read_data(
     name: str,
     labels: Optional[LabelTable] = None,
@@ -141,7 +152,20 @@ def read_data(
 ) -> Dataset:
     """Load a data/codebook file into a Dataset (reference read_entries,
     datafile.c:237-344 + load_entry :552-748). Loads everything; buffered
-    streaming for huge files lives in data.streaming."""
+    streaming for huge files lives in data.streaming.
+
+    Plain file-backed reads go through the native C++ engine
+    (native/somvq_io.cpp) when it is available: the same arrays at
+    memcpy-like parse speed; set SOMVQ_NATIVE=0 to force Python."""
+    if (
+        fileobj is None
+        and name not in (None, "-")
+        and not name.startswith("|")
+        and not name.endswith(_GZ_SUFFIXES)
+        and os.path.exists(name)
+        and _use_native()
+    ):
+        return native_io.read_data_native(name, labels=labels, skip_empty=skip_empty)
     table = labels if labels is not None else GLOBAL_LABELS
     mstr = masked_string()
 
@@ -309,6 +333,16 @@ def _write_head(f, ds: Dataset, comments: Optional[str]) -> None:
         f.write(comments if comments.endswith("\n") else comments + "\n")
 
 
+def _write_entries(f, ds: Dataset, labels: Optional[LabelTable]) -> None:
+    """The entry lines of `ds`: the native engine's text when it is in
+    use, else the Python writer's (the same bytes)."""
+    if _use_native():
+        f.write(native_io.format_entries_native(ds, labels=labels))
+        return
+    for i in range(ds.n):
+        f.write(format_entry(ds, i, labels) + "\n")
+
+
 def write_data(
     ds: Dataset,
     name: str,
@@ -322,8 +356,7 @@ def write_data(
     close = fileobj is None and f is not sys.stdout
     try:
         _write_head(f, ds, comments)
-        for i in range(ds.n):
-            f.write(format_entry(ds, i, labels) + "\n")
+        _write_entries(f, ds, labels)
     finally:
         if close:
             f.close()
@@ -352,8 +385,7 @@ def write_data_chunks(
             if first:
                 _write_head(f, ds, comments)
                 first = False
-            for i in range(ds.n):
-                f.write(format_entry(ds, i, labels) + "\n")
+            _write_entries(f, ds, labels)
             n += ds.n
         if first and meta is not None:
             _write_head(f, meta, comments)

@@ -11,9 +11,10 @@ Here the same contract is a chunk iterator over Dataset slices with a
 background prefetch thread, so host parsing overlaps device compute.
 
 The port's copy of som_lvq_pak_tpu/data/streaming.py:StreamingReader and
-`streamed_samples` (:212-266); its chunks parse with the port's Python
-parser (data.io.read_data), and tests hold them, and the sample order, equal
-to the JAX package's.
+`streamed_samples` (:212-266).  Its chunks parse through the native C++
+engine (data.native_io) when data.io takes it, else through the Python
+parser (data.io.read_data), as the JAX package's do (:151-158); tests hold
+the chunks, and the sample order, equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import numpy as np
 
 from ..config import masked_string
 from .dataset import Dataset
-from .io import _open_read, parse_header, read_data
+from . import native_io
+from .io import _open_read, _use_native, parse_header, read_data
 from .labels import GLOBAL_LABELS, LabelTable
 
 
@@ -150,6 +152,9 @@ class StreamingReader:
 
     def _parse_chunk(self, lines: List[str]) -> Dataset:
         text = self.header + "\n" + "".join(lines)
+        if _use_native():
+            return native_io.parse_text_native(text, labels=self.labels,
+                                               skip_empty=self.skip_empty)
         return read_data("<chunk>", labels=self.labels, skip_empty=self.skip_empty,
                          fileobj=_io.StringIO(text))
 

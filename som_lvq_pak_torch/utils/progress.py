@@ -1,13 +1,17 @@
 """Host-side progress and step timing — the port's copies of
 som_lvq_pak_tpu/utils/progress.py:Mprint (:17-55, the reference's 60-dot
 progress meter, mprint, lvq_pak.c:418-456; the CLI's parity trainers draw
-it on a terminal at verbosity >= 1) and StepTimer (wall-clock step and
-sample rates; the trainers call `step` after each batch or group)."""
+it on a terminal at verbosity >= 1), StepTimer (wall-clock step and
+sample rates; the trainers call `step` after each batch or group) and
+`trace` (:84-96: a profile capture around a training region, here
+torch.profiler's in place of jax.profiler's)."""
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
+from typing import Optional
 
 
 class Mprint:
@@ -74,3 +78,23 @@ class StepTimer:
         return "%d steps (%.0f samples) in %.2fs: %.1f steps/s, %.0f samples/s" % (
             self.steps, self.samples, self.elapsed, sps, xps,
         )
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str] = None):
+    """Optional torch.profiler capture around a training region, exported
+    to `logdir` as a Chrome trace (`<host>_<pid>.<ns>.pt.trace.json`, which
+    TensorBoard's profiler plugin and chrome://tracing read); a no-op when
+    no logdir is given.  It records the host's activity, and the card's
+    kernels and copies whenever PyTorch has a CUDA device."""
+    if logdir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield

@@ -361,6 +361,57 @@ def test_snapshots_equal_jax(stype, both):
          0.05, "-radius", 3, "-snapinterval", 5, "-snaptype", "bogus", rc=1)
 
 
+# -- the golden chains with the native engine on and off ---------------------------
+
+def _same_as_golden(both, name, golden):
+    with open(_gold(golden)) as f:
+        assert both.read(name) == f.read(), name
+
+
+@pytest.mark.parametrize("native", ["0", "1"])
+@pytest.mark.parametrize("family", ["somexample", "lvqexample"])
+def test_golden_chains_native_on_and_off(family, native, tmp_path, monkeypatch):
+    """One golden chain of each family with the data-file engine off
+    (SOMVQ_NATIVE=0: the Python parser and writer) and on (the native
+    engine, as by default; both packages read the setting): every output
+    byte-equal to the JAX CLI's and to the C package's goldens.  The SOM
+    chain: vsom with -weights, with -buffer 37 -rand 3 (streamed chunk
+    parses) and -buffer 120, and with -fixed, from wmask_r.cod/fix_r.cod,
+    then qerror; the LVQ chain: mindist of lvq_e.cod, olvq1 from lvq_b.cod
+    and its .lra on elimin.dat, accuracy and classify on classify.dat,
+    sammon of lvq_o.cod."""
+    monkeypatch.setenv("SOMVQ_NATIVE", native)
+    b = Both(tmp_path, "cpu", monkeypatch)
+    if family == "somexample":
+        w, x = _gold("wmask.dat"), _gold("fix.dat")
+        b.copy("wmask_r.cod:r.cod", "fix_r.cod:f.cod")
+        som = ["-rlen", 300, "-alpha", 0.05, "-radius", 4]
+        for out, flags in (("w.cod", ["-weights", 1]), ("br.cod", ["-buffer", 37, "-rand", 3]),
+                           ("b120.cod", ["-buffer", 120, "-rand", 3])):
+            b("vsom", "-din", w, "-cin", "r.cod", "-cout", out, *som, *flags)
+        b("vsom", "-din", x, "-cin", "f.cod", "-cout", "fv.cod", "-rlen", 200, "-alpha", 0.1,
+          "-radius", 2, "-fixed", 1)
+        for name, golden in (("w.cod", "wmask_w.cod"), ("br.cod", "wmask_br.cod"),
+                             ("b120.cod", "wmask_b120.cod"), ("fv.cod", "fix_fv.cod")):
+            _same_as_golden(b, name, golden)
+        _, out, _ = b("qerror", "-din", w, "-cin", "w.cod")
+        assert "Quantization error of" in out
+        b("qerror", "-din", w, "-cin", "br.cod", "-buffer", 30)
+    else:
+        b.copy("lvq_b.cod:b.cod", "lvq_b.lra:b.lra", "lvq_o.cod:o.cod")
+        _, out, _ = b("mindist", "-cin", _gold("lvq_e.cod"))
+        with open(_gold("lvq_mindist.txt")) as f:
+            assert out == f.read()
+        b("olvq1", "-din", _gold("elimin.dat"), "-cin", "b.cod", "-cout", "t.cod",
+          "-rlen", 3000)
+        c = _gold("classify.dat")
+        _, out, _ = b("accuracy", "-din", c, "-cin", "t.cod", "-cfout", "t.cfo")
+        assert "Total accuracy:" in out
+        b("classify", "-din", c, "-cin", "t.cod", "-dout", "c.dat", "-cfout", "c.cfo")
+        b("sammon", "-cin", "o.cod", "-cout", "s.sam", "-rlen", 100, "-rand", 3)
+        _same_as_golden(b, "s.sam", "sammon.sam")
+
+
 # -- the visualisation tools -----------------------------------------------------
 
 def test_planes_equal_golden(both):

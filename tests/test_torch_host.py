@@ -75,7 +75,9 @@ assert {"som_lvq_pak_torch.tools.int8_probe", "som_lvq_pak_torch.tools.int8_step
         "som_lvq_pak_torch.cli.params", "som_lvq_pak_torch.cli.usage",
         "som_lvq_pak_torch.viz.eps", "som_lvq_pak_torch.viz.planes",
         "som_lvq_pak_torch.viz.umat_ps", "som_lvq_pak_torch.models.umatrix",
-        "som_lvq_pak_torch.models.sammon", "som_lvq_pak_torch.utils.snapshot"} <= set(mods)
+        "som_lvq_pak_torch.models.sammon", "som_lvq_pak_torch.utils.snapshot",
+        "som_lvq_pak_torch.data.native_io", "som_lvq_pak_torch.examples.large_som",
+        "som_lvq_pak_torch.examples.streaming_som"} <= set(mods)
 from som_lvq_pak_torch.models import eval, lvq, tools
 from som_lvq_pak_torch.ops import distance
 from som_lvq_pak_torch.data import io
@@ -88,6 +90,11 @@ from som_lvq_pak_torch.models import sammon, umatrix
 from som_lvq_pak_torch.utils import snapshot
 assert len(cli.tool_names()) == 31 and callable(sammon.sammon_fast)
 assert callable(umatrix.calc_umatrix) and callable(snapshot.read_snapshots)
+from som_lvq_pak_torch.data import native_io
+from som_lvq_pak_torch.examples import large_som, streaming_som
+from som_lvq_pak_torch.utils.progress import trace
+assert native_io.available() and callable(trace)
+assert callable(large_som.run_large_som) and callable(streaming_som.run_streaming_som)
 print(len(mods))
 """
 
@@ -108,8 +115,10 @@ runpy.run_module("som_lvq_pak_torch.cli", run_name="__main__", alter_sys=True)
 def test_port_imports_without_jax():
     """Every module of the port, the tools/ subpackage's included, imports
     with jax and the JAX package both blocked: the LVQ pipeline's modules
-    (models.lvq, models.tools, the kNN front end, the .lra files) and the
-    CLI's (cli/, viz/, models.umatrix, models.sammon, utils.snapshot) too."""
+    (models.lvq, models.tools, the kNN front end, the .lra files), the
+    CLI's (cli/, viz/, models.umatrix, models.sammon, utils.snapshot), the
+    native engine's binding (which builds and loads) and the examples
+    too."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
