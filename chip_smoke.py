@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # the e2e cells under torch.profiler
-    python3 chip_smoke.py --mesh       # the mesh phases 14-17 alone
+    python3 chip_smoke.py --mesh       # the mesh phases 14-19 alone
     python3 chip_smoke.py --state      # what phase 3b leaves for phase 7
 
 Needs one CUDA device and nvcc; exits non-zero without them.  With --mesh
 it builds the kernels and runs phase 6's single-device run and the mesh
 phases only; on a host with at least as many cards as a world has ranks
-the world runs NCCL, one card per rank (parallel.mesh's backend rule).  With
+the world runs NCCL, one card per rank (parallel.mesh's backend rule), and
+on a host with four cards it also runs e2e_mesh_multihost_2x2 (below).  With
 --profile it builds the kernels and runs each e2e cell of phases 4-13 once
 (after its warm-up; phase 5's eight steps, their codebook's upload
 included) under torch.profiler, printing for its training and
@@ -297,7 +298,7 @@ phases, each printing one JSON line:
 13b. int8_probe  som_lvq_pak_torch.tools.int8_probe: the bf16/int8 library
             rates at 4096^3 and K15 against K16 at 65536 x 64 x 4096.
 
-The mesh phases (14-17) each spawn a world of processes on this one card
+The mesh phases (14-19) each spawn a world of processes on this one card
 (parallel.mesh.spawn: one process per mesh position, a file:// rendezvous,
 gloo, since NCCL takes one card per rank; collectives staged through
 pinned host memory) and print the backend, the layout, train_s, the
@@ -329,6 +330,46 @@ the single-device port run on the same data in this script:
             rows (K1 at B 512 x 32768 per rank), then LVQTrainer("lvq3",
             mesh=) from its codebook (K10, k = 2); each accuracy over the 1M
             within 0.5 points of the single-device runs on the same stream.
+18. mesh_dryrun  som_lvq_pak_torch.dryrun.dryrun_multichip(4): every
+            sharded path of __graft_entry__.py's dryrun in a (data 2, model
+            2) world, in its order, with its checks and tolerances (the
+            two-pass step at overlap_chunks 1 and 4, olvq1, the dim-sharded
+            and ring winners, an 8-step train against the one-device
+            som_batch_step, the mesh checkpoint resume, the fused TP step,
+            the mixed step, sharded lvq3, ClassBlockedOLVQ1); then entry()
+            once (K1 + K5) beside its plain run; the summary line and each
+            rank's launches; each rank must launch K1, K3, K5, K10, K11, K12
+            and the segment sum;
+19. e2e_mesh_overlap_256x256  (data 2, model 2) the north-star shape:
+            bench.py's e2e_256x256_1M data (default_rng(7)), its CRandom(123)
+            random-init 256x256 codebook, 16 two-pass steps of
+            make_sharded_som_train_step(gaussian=True) on its first 16
+            batches of 4096 at the trainer's alpha and radius schedule,
+            after an untimed pass at overlap_chunks 1, 4, 4, 1, 1, 4, 4 and
+            1 (each run's slowest rank's ms per step by CUDA events, and the
+            median per k; over gloo on one card an equality check, not an
+            overlap measurement, which the line says); gates: the k 1 and
+            k 4 codebooks, the runs and every step's winners
+            (sharded_winner_search against chunked_winner_search in 4
+            pieces) bit-equal; each step within 1e-4 of the one-device
+            som_batch_step (K1 + K5) from the same codebook; the qerror over
+            the 65,536 rows falling.  The free one-device chain (16
+            som_batch_steps from the start) is printed beside it: near-tie
+            winner flips carry its rounding difference over the map, as
+            phase 15's drift chains show.
+
+With four cards, --mesh runs phases 18 and 19 over NCCL, one card per rank,
+and e2e_mesh_multihost_2x2: two torchrun "hosts" on the machine
+(--nnodes 2 --nproc-per-node 2, node ranks 0 and 1, one rendezvous on
+127.0.0.1, CUDA_VISIBLE_DEVICES 0,1 and 2,3) running `python -m
+som_lvq_pak_torch.dryrun multihost`, whose ranks start the world with
+initialize_distributed() and no arguments (NCCL on cuda:LOCAL_RANK) and
+run tests/multihost_worker.py's steps (the SOM and olvq1 steps on the batch
+each host streamed half of, a 6-step streamed train resumed from rank 0's
+checkpoint bit-equal, the fused TP and mixed steps against one-device K3);
+the SOM and olvq1 steps are held to the one-device port at 1e-5 (alphas
+1e-6).  With fewer cards one "four_card_runs_not_run" line says what did
+not run and why.
 
 K8/K9 (dist_top2, plain and masked) are held against their plain version in
 phase 3 at the LVQ step's shape (B 1024 x 65536 x 64), the masked LVQ
@@ -360,7 +401,7 @@ with its unit offset against the unsharded run, and K11 then K12 on one
 half equal to that half's K3 step bit for bit (codebook, values and
 winners); K1 at the mesh's B 512 x 32768.
 
-Each main-path run (4-17) sets every launch counter to 0 before it and
+Each main-path run (4-19) sets every launch counter to 0 before it and
 reads them after: each kernel of that path must have launched, and the
 plain runs must launch none.  Then a "wall" line with the script's
 seconds so far, a line with the segment sum's record
@@ -4021,6 +4062,302 @@ def mesh_phases(smi, tally, q_masked128):
                      q_masked128, Xm, mask))
 
 
+# ---- phases 18 and 19: the dryrun and overlap_chunks; the two torchrun hosts --
+
+OVERLAP_STEPS = 16
+OVERLAP_MAP, OVERLAP_B = 256, 4096  # the north-star shape
+DRYRUN_KERNELS = ("dist_argmin", "som_fused_train_step", "som_neighborhood_update_idx",
+                  "dist_topk", "som_neighborhood_accumulate", "som_blend_winner",
+                  "segment_sum")
+
+
+def mesh_dryrun_phase(smi, tally):
+    """Phase 18: som_lvq_pak_torch.dryrun.dryrun_multichip(4) (a (data 2,
+    model 2) world on the card(s) by the backend rule; every rank zeroes
+    its counters first and returns them) and entry() once; each rank must
+    have launched K1, K3, K5, K10, K11, K12 and the segment sum, entry K1
+    and K5."""
+    import torch
+
+    from som_lvq_pak_torch import dryrun
+
+    t0 = time.perf_counter()
+    ranks = dryrun.dryrun_multichip(4, device="cuda", timeout_s=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    for rank, r in enumerate(ranks):
+        idle = [k for k in DRYRUN_KERNELS if r["launches"][k] == 0]
+        if idle:
+            raise AssertionError(f"mesh_dryrun: rank {rank} never launched {idle}")
+        tally(r["launches"])
+    fn, args = dryrun.entry(device="cuda")
+
+    def run():
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out
+
+    out, ref, got = main_path("mesh_dryrun entry", run,
+                              ("dist_argmin", "som_neighborhood_update_idx"), run)
+    tally(got)
+    if out.shape != (512, 64) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"entry: codebook {tuple(out.shape)} not finite")
+    emit("mesh_dryrun", card=smi, backend=ranks[0]["backend"],
+         devices=[r["device"] for r in ranks], layout=[ranks[0]["data"], ranks[0]["model"]],
+         summary=dryrun.summary(ranks[0]), world_s=world_s,
+         launches_per_rank=[{k: n for k, n in r["launches"].items() if n} for r in ranks],
+         entry=dict(launches={k: n for k, n in got.items() if n},
+                    max_abs_diff_from_plain=float((out - ref).abs().max())))
+
+
+def overlap_inputs():
+    """The overlap phase's 16 steps: bench.py's e2e_256x256_1M data
+    (default_rng(7)), its CRandom(123) random-init 256x256 codebook, the
+    first 16 batches of 4096 rows and the trainer's alpha (0.05, linear)
+    and radius (64) at each batch."""
+    from som_lvq_pak_torch.models.common import alpha_schedule, radius_schedule
+
+    X = blob_data(7, 1_000_000, 16)
+    bs, rlen = OVERLAP_B, OVERLAP_STEPS * OVERLAP_B
+    return (random_codes(X, OVERLAP_MAP).points, X[:rlen].reshape(OVERLAP_STEPS, bs, -1).copy(),
+            alpha_schedule(rlen, 0.05)[::bs].copy(), radius_schedule(rlen, 64.0)[::bs].copy())
+
+
+def mesh_overlap_world(mesh, codes, batches, alphas, radii):
+    """Phase 19 on each rank of the (data 2, model 2) world.  First along
+    the overlap_chunks=1 chain of 16 two-pass steps of
+    make_sharded_som_train_step(gaussian=True): each step's winners by
+    sharded_winner_search and by chunked_winner_search in 4 pieces, and on
+    rank 0 the same step through the one-device som_batch_step (K1 + K5)
+    from the chain's codebook; on rank 0 also the 16 one-device steps from
+    the start (the free chain).  This pass also opens the communicators.
+    Then the 16 steps at overlap_chunks 1, 4, 4, 1, 1, 4, 4, 1 from the
+    same codebook, each run timed by CUDA events (ms per step), the
+    counters zeroed before them and read after."""
+    import torch
+    import torch.distributed as dist
+
+    from som_lvq_pak_torch.models.fast import som_batch_step, unit_coords
+    from som_lvq_pak_torch.parallel.sharded import (chunked_winner_search,
+                                                    make_sharded_som_train_step,
+                                                    sharded_winner_search)
+
+    dev = mesh.device
+    n, T = codes.shape[0], batches.shape[0]
+    coords = unit_coords(OVERLAP_MAP, OVERLAP_MAP, True, device=dev)
+    xs = torch.from_numpy(batches).to(dev)
+    c0 = torch.from_numpy(codes).to(dev)
+    steps = {k: make_sharded_som_train_step(mesh, gaussian=True, overlap_chunks=k)
+             for k in (1, 4)}
+    rows, bs, nl = mesh.rows(n), mesh.batch_rows(batches.shape[1]), mesh.block(n)
+    c, differ, step_diff = c0, [], []
+    for t in range(T):
+        xl, cl = xs[t][bs], c[rows].contiguous()
+        w1 = sharded_winner_search(mesh, xl, cl, nl)[1]
+        w4 = chunked_winner_search(mesh, xl, cl, nl, 4)
+        differ.append(int((w1 != w4).sum()))
+        nxt = steps[1](c, xs[t], coords, float(alphas[t]), float(radii[t]))
+        if mesh.rank == 0:
+            one = som_batch_step(c.clone(), xs[t], OVERLAP_MAP, True, float(alphas[t]),
+                                 float(radii[t]), gaussian=True)
+            step_diff.append(float((one - nxt).abs().max()))
+        c = nxt
+    free = None
+    if mesh.rank == 0:
+        m = c0.clone()
+        for t in range(T):
+            som_batch_step(m, xs[t], OVERLAP_MAP, True, float(alphas[t]),
+                           float(radii[t]), gaussian=True)
+        free = m.cpu().numpy()
+
+    def chain(k):
+        c = c0
+        for t in range(T):
+            c = steps[k](c, xs[t], coords, float(alphas[t]), float(radii[t]))
+        return c
+
+    for fn in counted():
+        fn.launches = 0
+    ms, finals, rerun_equal = {1: [], 4: []}, {1: c}, True
+    for k in (1, 4, 4, 1, 1, 4, 4, 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got = chain(k)
+        e1.record()
+        torch.cuda.synchronize()
+        ms[k].append(e0.elapsed_time(e1) / T)
+        rerun_equal = rerun_equal and torch.equal(finals.setdefault(k, got), got)
+    launches = {fn.__name__: fn.launches for fn in counted()}
+    dist.barrier()
+    return {"overlap": dict(codes=finals[1].cpu().numpy(), codes4=finals[4].cpu().numpy(),
+                            rerun_equal=rerun_equal, ms=ms, launches=launches,
+                            backend=mesh.backend, layout=mesh.shape, device=str(dev),
+                            winners_differ=differ, step_max_abs=step_diff, free=free)}
+
+
+def mesh_overlap_phase(smi, tally):
+    """Phase 19: e2e_mesh_overlap_256x256 (data 2, model 2); the gates of
+    the module docstring."""
+    import torch
+
+    from som_lvq_pak_torch.models.som import find_qerror
+
+    codes, batches, alphas, radii = overlap_inputs()
+    fits, got, world_s = run_world(mesh_overlap_world, 2, 2,
+                                   {"overlap": ("dist_argmin",)},
+                                   codes, batches, alphas, radii)
+    tally(got)
+    recs = fits["overlap"]
+    r0 = recs[0]
+    X_dev = torch.from_numpy(batches.reshape(-1, batches.shape[2])).to("cuda")
+    q = {name: find_qerror(torch.from_numpy(c).to("cuda"), X_dev) / X_dev.shape[0]
+         for name, c in (("start", codes), ("k1", r0["codes"]), ("free_one_device", r0["free"]))}
+    d14 = np.abs(r0["codes"].astype(np.float64) - r0["codes4"]).max()
+    runs = {k: [max(r["ms"][k][i] for r in recs) for i in range(len(r0["ms"][k]))]
+            for k in (1, 4)}
+    rec = dict(
+        card=smi, backend=r0["backend"], layout=r0["layout"],
+        devices=[r["device"] for r in recs], steps=OVERLAP_STEPS, world_s=world_s,
+        ms_per_step_median={f"k{k}": float(np.median(runs[k])) for k in (1, 4)},
+        ms_per_step_each_run={f"k{k}": runs[k] for k in (1, 4)},
+        order="k 1, 4, 4, 1, 1, 4, 4, 1 after an untimed pass; each run the slowest rank",
+        timing=("over gloo on one card every rank shares the card and stages its "
+                "collectives through host memory: an equality check, not an overlap "
+                "measurement") if r0["backend"] == "gloo" else "NCCL, one card per rank",
+        k1_launches_per_rank=[r["launches"]["dist_argmin"] for r in recs],
+        launches_per_rank=[{k: n for k, n in r["launches"].items() if n} for r in recs],
+        codebook_k1_vs_k4_max_abs=float(d14),
+        winners_differ_per_step=r0["winners_differ"],
+        one_device_step_max_abs=r0["step_max_abs"],
+        free_one_device_chain=spread(r0["codes"], r0["free"]),
+        qerror_per_sample=q,
+        gate=("k 1 and k 4 codebooks and every step's winners bit-equal, every run "
+              "bit-equal to the checked chain; each step within 1e-4 of the "
+              "one-device som_batch_step (K1 + K5) from the same codebook; the "
+              "qerror falling"))
+    ok = (d14 == 0 and not any(r0["winners_differ"]) and all(r["rerun_equal"] for r in recs)
+        and max(r0["step_max_abs"]) <= 1e-4 and q["k1"] < q["start"])
+    if not ok:
+        emit("e2e_mesh_overlap_256x256 failed", **rec)
+        raise AssertionError(f"e2e_mesh_overlap_256x256: gate failed: {rec}")
+    emit("e2e_mesh_overlap_256x256", **rec)
+
+
+def multihost_data(path):
+    """tests/test_multihost.py's shared file: 128 x 12 labelled rows
+    (RandomState(11)); returns the rows."""
+    rng = np.random.RandomState(11)
+    pts = rng.randn(128, 12).astype(np.float32)
+    labs = rng.randint(1, 4, 128)
+    with open(path, "w") as f:
+        f.write("12\n")
+        for row, lab in zip(pts, labs):
+            f.write(" ".join(f"{v:.6f}" for v in row) + f" L{lab}\n")
+    return pts
+
+
+def multihost_phase(smi, tally):
+    """Two torchrun "hosts" on this machine (--nnodes 2 --nproc-per-node 2,
+    node ranks 0 and 1, one rendezvous on 127.0.0.1; CUDA_VISIBLE_DEVICES
+    0,1 and 2,3, so each host sees its own two cards): four ranks of
+    `python -m som_lvq_pak_torch.dryrun multihost`, which start the world
+    with initialize_distributed() and no arguments (NCCL, cuda:LOCAL_RANK).
+    Their arrays against the one-device port on the card: the SOM step
+    against som_batch_step and the olvq1 step against olvq1_batch_step at
+    1e-5 (the alphas 1e-6), the rows interleaved as the file's; the
+    workers hold the resume, the fused TP and the mixed steps themselves."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from som_lvq_pak_torch.models.fast import olvq1_batch_step, som_batch_step
+
+    with tempfile.TemporaryDirectory(prefix="somvq_mh_") as tmp:
+        pts = multihost_data(os.path.join(tmp, "mh.dat"))
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+        s.close()
+        procs = []
+        t0 = time.perf_counter()
+        for host, cards in ((0, "0,1"), (1, "2,3")):
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2",
+                 "--nproc-per-node", "2", "--node-rank", str(host), "--master-addr",
+                 "127.0.0.1", "--master-port", port, "-m", "som_lvq_pak_torch.dryrun",
+                 "multihost", os.path.join(tmp, "mh.dat"), tmp],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        world_s = time.perf_counter() - t0
+        for p, out in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"multihost: a torchrun host failed:\n{out[-4000:]}")
+        ranks = sorted((json.loads(line) for out in outs for line in out.splitlines()
+                        if line.startswith('{"multihost_rank"')),
+                       key=lambda r: r["multihost_rank"])
+        data = dict(np.load(os.path.join(tmp, "result.npz")))
+    if len(ranks) != 4 or any(r["backend"] != "nccl" for r in ranks):
+        raise AssertionError(f"multihost: expected 4 NCCL ranks, got {ranks}")
+    for r in ranks:
+        idle = [k for k in ("dist_argmin", "segment_sum", "som_fused_train_step",
+                            "som_neighborhood_accumulate", "som_blend_winner")
+                if r["launches"][k] == 0]
+        if idle:
+            raise AssertionError(f"multihost: rank {r['multihost_rank']} never launched {idle}")
+        tally(r["launches"])
+    dev = "cuda"
+    T = lambda a: torch.from_numpy(a.copy()).to(dev)  # noqa: E731  (steps write in place)
+    som = som_batch_step(T(data["codes"]), T(data["xb"]), 16, True, 0.05, 3.0,
+                         gaussian=False).cpu().numpy()
+    oc, oa = olvq1_batch_step(T(data["codes"]), T(data["clabels"]),
+                              torch.full((64,), 0.3, device=dev), T(data["xb"]),
+                              T(data["xl"]))
+    diffs = dict(som=float(np.abs(data["som"] - som).max()),
+                 olvq1=float(np.abs(data["lvq_codes"] - oc.cpu().numpy()).max()),
+                 alphas=float(np.abs(data["lvq_alphas"] - oa.cpu().numpy()).max()))
+    np.testing.assert_allclose(data["som"], som, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(data["lvq_codes"], oc.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(data["lvq_alphas"], oa.cpu().numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(data["xb"], np.concatenate([pts[0::2], pts[1::2]]),
+                               rtol=1e-5, atol=1e-5)
+    emit("e2e_mesh_multihost_2x2", card=smi, world_s=world_s,
+         ranks=[{k: r[k] for k in ("multihost_rank", "host", "backend", "device", "layout")}
+                for r in ranks],
+         launches_per_rank=[{k: n for k, n in r["launches"].items() if n} for r in ranks],
+         max_abs_diff_from_one_device=diffs,
+         gate=("4 NCCL ranks from torchrun's environment; SOM and olvq1 steps within "
+               "1e-5 (alphas 1e-6) of the one-device steps; resume bit-equal, fused TP "
+               "within 1e-5 and mixed within 1e-4 of one-device K3 with equal winners "
+               "(in the workers)"))
+
+
+def four_card_phases(smi, tally):
+    """What --mesh adds on a host with four cards: the two torchrun hosts.
+    With fewer cards one line says what did not run and why."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        emit("four_card_runs_not_run", card=smi, cards=cards,
+             not_run=["phases 18-19 over NCCL, one card per rank",
+                      "e2e_mesh_multihost_2x2: two torchrun hosts of two ranks"],
+             why=f"{cards} card(s) here; these need 4 (one per rank; each host "
+                 "must see a card per rank)")
+        return
+    multihost_phase(smi, tally)
+
+
 def state_probe(smi):
     """--state: what the kernel phases of option_phases leave behind for a
     small e2e cell.  e2e_masked_64x64_100k (phase 7) runs five times fresh,
@@ -4126,7 +4463,7 @@ def main() -> int:
         print(smi)
         return 0
     if sys.argv[1:] == ["--mesh"]:
-        # phases 14-17 alone, with phase 6's single-device run for their
+        # phases 14-19 alone, with phase 6's single-device run for their
         # gate; on a host with as many cards as ranks the worlds run NCCL
         Xm, mask, weight = masked_stream_data()
         q_masked128 = main_path(
@@ -4134,6 +4471,9 @@ def main() -> int:
             lambda: e2e(Xm, 128, 1024, 32, 8192, mask=mask, weight=weight)[0],
             ("dist_argmin", "som_fused_factored_step", "dist_argmin_masked"))[0]
         mesh_phases(smi, lambda got: None, q_masked128)
+        mesh_dryrun_phase(smi, lambda got: None)
+        mesh_overlap_phase(smi, lambda got: None)
+        four_card_phases(smi, lambda got: None)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4705,6 +5045,9 @@ def main() -> int:
     # ---- the mesh phases: worlds of processes on this card ---------------
     release()  # the worlds' ranks share this card's memory
     mesh_phases(smi, tally, q_masked128)
+    mesh_dryrun_phase(smi, tally)
+    mesh_overlap_phase(smi, tally)
+    four_card_phases(smi, tally)
 
     sources = {
         "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",

@@ -20,15 +20,28 @@ shorter).  The JAX collectives map to:
   psum over "data"         ->  Mesh.all_reduce(t, "data")
   ppermute around "model"  ->  Mesh.ring_pass(t, "model")
 
-Backend (`initialize_distributed`), chosen once from the caller's device
-and the card count, never as a fallback:
-  one card per rank   NCCL, rank r on cuda:r;
-  more ranks than cards  gloo, every rank on cuda:0 (NCCL refuses two
-                      ranks on one card);
-  device "cpu"        gloo.
-NCCL with one card per rank is the multi-card path (`chip_smoke.py
---mesh` on a host with enough cards); the tests run gloo on the CPU, and
-chip_smoke.py's default run gloo on one card.
+Backend (`initialize_distributed`, `backend_rule`), chosen once from the
+caller's device and the cards of this host, never as a fallback:
+  device "cpu"             gloo;
+  one host (local world == world)
+    one card per rank      NCCL, rank r on cuda:r;
+    more ranks than cards  gloo, every rank on cuda:0 (NCCL refuses two
+                           ranks on one card);
+  several hosts            NCCL, each rank on cuda:LOCAL_RANK; a host with
+                           more ranks than cards raises (every rank must
+                           take the same backend, and a host that took gloo
+                           would hang the first collective).
+Called with no arguments, `initialize_distributed` starts the world from
+torchrun's environment (env://, WORLD_SIZE, RANK, LOCAL_RANK,
+LOCAL_WORLD_SIZE).  NCCL with one card per rank is the multi-card path
+(`chip_smoke.py --mesh` on a host with enough cards); the tests run gloo on
+the CPU, and chip_smoke.py's default run gloo on one card.
+
+On several hosts each host reads its own rows (e.g. StreamingReader with
+`shard=(host, hosts)`) and its ranks sit on data row `host`:
+`Mesh.global_batch` builds the whole batch from each data row's rows, and
+the builders take it as they take any batch; their results are whole on
+every rank (`Mesh.gather_rows` for a model-sharded one).
 
 `spawn` starts a one-host world through a `file://` rendezvous (no TCP
 port), joins it with a time limit, and kills it when the limit passes.
@@ -118,14 +131,21 @@ class Mesh:
             return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
         return t.clone(memory_format=torch.contiguous_format)
 
-    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: str, async_op: bool = False):
         """(size(axis), *t.shape): `t` of every rank on `axis`, in axis
-        order (jax.lax.all_gather)."""
+        order (jax.lax.all_gather).  With async_op the collective is issued
+        and a handle returned whose `wait()` gives the stacked tensor; the
+        parts are read only after the collective has completed."""
         if self.shape[axis] == 1:
-            return t.unsqueeze(0)
+            out = t.unsqueeze(0)
+            return _Done(out) if async_op else out
         src = self._to_backend(t)
         parts = [torch.empty_like(src) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, src, group=self._groups[axis])
+        work = dist.all_gather(parts, src, group=self._groups[axis],
+                               async_op=async_op)
+        if async_op:
+            # the handle keeps `src` alive: the collective reads it until wait()
+            return _Pending(work, lambda: torch.stack(parts).to(t.device), src)
         return torch.stack(parts).to(t.device)
 
     def all_reduce(self, t: torch.Tensor, axis: str, async_op: bool = False):
@@ -156,6 +176,13 @@ class Mesh:
             req.wait()
         return out.to(t.device)
 
+    def global_batch(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole batch from the rows each data row of the mesh holds
+        (jax multihost_utils.host_local_array_to_global_array with
+        P("data")): `local` of every position on `data`, concatenated in
+        data order.  Every data row must hold as many rows."""
+        return self.all_gather(local, "data").reshape((-1,) + tuple(local.shape[1:]))
+
     def gather_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
         """The whole (n, ...) codebook from every model shard's rows (shards
         are padded to one height for the gather and trimmed after)."""
@@ -179,38 +206,82 @@ class _Done:
 
 
 class _Pending:
-    def __init__(self, work, result):
-        self._work, self._result = work, result
+    def __init__(self, work, result, *keep):
+        self._work, self._result, self._keep = work, result, keep
 
     def wait(self):
         self._work.wait()
         return self._result()
 
 
-def initialize_distributed(init_method: str, world_size: int, rank: int,
-                           device="cuda", timeout_s: float = 600.0
+def backend_rule(device_type: str, world: int, local_world: int, local_rank: int,
+                 cards: int) -> Tuple[str, Optional[int]]:
+    """(backend, this rank's card or None on the CPU) by the rule of the
+    module docstring, from the device type, the world's size, the ranks on
+    this host and this rank's place among them, and the cards this host
+    shows.  A host with more ranks than cards in a world of several hosts
+    raises RuntimeError."""
+    if device_type == "cpu":
+        return "gloo", None
+    if device_type != "cuda":
+        raise ValueError(f"unsupported device type {device_type!r}")
+    if local_world == world:  # one host
+        return ("nccl", local_rank) if world <= cards else ("gloo", 0)
+    if local_world > cards:
+        raise RuntimeError(
+            f"initialize_distributed: {local_world} ranks on this host of a "
+            f"{world}-rank world of several hosts, but {cards} cards; NCCL "
+            "needs a card per rank, and every rank must take the same backend")
+    return "nccl", local_rank
+
+
+def _env_int(name: str, value: Optional[int]) -> Optional[int]:
+    if value is not None:
+        return value
+    got = os.environ.get(name)
+    return None if got is None else int(got)
+
+
+def initialize_distributed(init_method: Optional[str] = None,
+                           world_size: Optional[int] = None,
+                           rank: Optional[int] = None, device="cuda",
+                           timeout_s: float = 600.0, *,
+                           local_rank: Optional[int] = None,
+                           local_world_size: Optional[int] = None
                            ) -> Tuple[str, torch.device]:
     """Join a world of `world_size` ranks at `init_method` (e.g.
-    "file:///tmp/x" or "tcp://host:port") with the backend rule of the
-    module docstring; returns (backend, this rank's device).  A CUDA
-    device without a GPU raises.  Already initialized: the world is kept."""
+    "file:///tmp/x", "tcp://host:port" or "env://") with the backend rule
+    of the module docstring; returns (backend, this rank's device).
+
+    What is not passed comes from the environment as torchrun sets it: with
+    no arguments the world meets at "env://" (MASTER_ADDR, MASTER_PORT),
+    `world_size` is WORLD_SIZE, `rank` RANK, `local_rank` LOCAL_RANK and
+    `local_world_size` LOCAL_WORLD_SIZE.  Where neither local number is
+    known the world is one host (local rank = rank, local world = world).
+    A CUDA device without a GPU raises.  Already initialized: the world is
+    kept and its size and rank are read from it."""
     global _device
     dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("initialize_distributed: device 'cuda' but no GPU")
-        cards = torch.cuda.device_count()
-        if world_size <= cards:
-            backend, dev = "nccl", torch.device("cuda", rank)
-        else:
-            backend, dev = "gloo", torch.device("cuda", 0)
+    if dist.is_initialized():
+        world_size = dist.get_world_size() if world_size is None else world_size
+        rank = dist.get_rank() if rank is None else rank
+    world_size, rank = _env_int("WORLD_SIZE", world_size), _env_int("RANK", rank)
+    if world_size is None or rank is None:
+        raise RuntimeError("initialize_distributed: world_size and rank not given "
+                           "and WORLD_SIZE/RANK not set (as torchrun sets them)")
+    local_rank = _env_int("LOCAL_RANK", local_rank)
+    local_world_size = _env_int("LOCAL_WORLD_SIZE", local_world_size)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("initialize_distributed: device 'cuda' but no GPU")
+    backend, card = backend_rule(
+        dev.type, world_size, world_size if local_world_size is None else local_world_size,
+        rank if local_rank is None else local_rank,
+        torch.cuda.device_count() if dev.type == "cuda" else 0)
+    if card is not None:
+        dev = torch.device("cuda", card)
         torch.cuda.set_device(dev)
-    elif dev.type == "cpu":
-        backend = "gloo"
-    else:
-        raise ValueError(f"unsupported device {dev}")
     if not dist.is_initialized():
-        dist.init_process_group(backend, init_method=init_method,
+        dist.init_process_group(backend, init_method=init_method or "env://",
                                 world_size=world_size, rank=rank,
                                 timeout=datetime.timedelta(seconds=timeout_s))
     _device = dev
@@ -246,7 +317,9 @@ def make_mesh(n_devices: Optional[int] = None, data: Optional[int] = None,
 
 def _default_card() -> torch.device:
     """The card of this rank in a world that `initialize_distributed` did
-    not start."""
+    not start, by the backend the world took: cuda:LOCAL_RANK under NCCL
+    (rank modulo the cards where LOCAL_RANK is not set), cuda:0 under
+    gloo."""
     if not torch.cuda.is_available():
         raise RuntimeError("make_mesh: no device given and no GPU; pass "
                            "device='cpu' for a mesh on the CPU")
@@ -345,7 +418,8 @@ def _child(fn, rank, data, model, device, init, timeout_s, args, results):
     try:
         if device == "cpu":
             torch.set_num_threads(1)  # many ranks share the host's cores
-        initialize_distributed(init, data * model, rank, device, timeout_s)
+        initialize_distributed(init, data * model, rank, device, timeout_s,
+                               local_rank=rank, local_world_size=data * model)
         out = fn(make_mesh(data * model, data, model), *args)
         results.put((rank, True, _to_host(out)))
     except BaseException:

@@ -12,7 +12,8 @@ summed over `data`, and each rank updates only its own rows.
 Two layers:
 
 * per-rank functions, the bodies the JAX package runs inside shard_map:
-  `sharded_winner_search`, `sharded_som_step`, `sharded_olvq1_step`,
+  `sharded_winner_search` (`chunked_winner_search`, its pieces with their
+  gathers in flight), `sharded_som_step`, `sharded_olvq1_step`,
   `sharded_top2`, `sharded_lvq_step`, `ring_winner_search`,
   `dim_sharded_winner_search`.  They take this rank's shards and call the
   mesh's collectives, so every rank of the world must call them together.
@@ -53,14 +54,19 @@ from .mesh import Mesh, class_blocked_order
 INT_MAX = torch.iinfo(torch.int32).max
 
 
-def _gather_min(mesh: Mesh, val_l, gidx_l):
-    """Over `model`: the smallest of the S candidate values of each sample
-    and, among equal ones, the lowest global index."""
-    vals = mesh.all_gather(val_l, "model")   # (S, Bl)
-    gidxs = mesh.all_gather(gidx_l.to(torch.int32), "model")
+def _pick_min(vals, gidxs):
+    """Of (S, Bl) gathered candidates: each sample's smallest value and,
+    among equal ones, the lowest global index."""
     best = vals.min(0).values
     cand = torch.where(vals == best[None, :], gidxs, INT_MAX)
     return best, cand.min(0).values
+
+
+def _gather_min(mesh: Mesh, val_l, gidx_l):
+    """Over `model`: the smallest of the S candidate values of each sample
+    and, among equal ones, the lowest global index."""
+    return _pick_min(mesh.all_gather(val_l, "model"),
+                     mesh.all_gather(gidx_l.to(torch.int32), "model"))
 
 
 def sharded_winner_search(mesh: Mesh, xb, codes_local, n_local: int, mask=None):
@@ -71,10 +77,29 @@ def sharded_winner_search(mesh: Mesh, xb, codes_local, n_local: int, mask=None):
     return _gather_min(mesh, val_l, idx_l + mesh.coords["model"] * n_local)
 
 
+def chunked_winner_search(mesh: Mesh, xb, codes_local, n_local: int, chunks: int):
+    """sharded_winner_search's global winner indices (Bl,) int32, the batch
+    rows split into `chunks` pieces (at most Bl; ceil(Bl / chunks) rows
+    each): each piece's K1 search, then its two gathers over `model`
+    (values, global indices) issued asynchronously, so the next piece's
+    search runs while they travel; the pieces are waited on in order.  A
+    sample's winner does not depend on its piece."""
+    Bl = xb.shape[0]
+    csize = -(-Bl // max(1, min(chunks, Bl)))
+    off = mesh.coords["model"] * n_local
+    pending = []
+    for s in range(0, Bl, csize):
+        val_l, idx_l = dist_argmin(xb[s:s + csize], codes_local)
+        pending.append((mesh.all_gather(val_l, "model", async_op=True),
+                        mesh.all_gather((idx_l + off).to(torch.int32), "model",
+                                        async_op=True)))
+    return torch.cat([_pick_min(v.wait(), g.wait())[1] for v, g in pending])
+
+
 def sharded_som_step(
     mesh: Mesh, codes_local, xb_local, coords_local, coords_full, alpha, radius,
     gaussian: bool, mask_local=None, weights_local=None, fixed_local=None,
-    n_local: Optional[int] = None,
+    n_local: Optional[int] = None, overlap_chunks: int = 1,
 ):
     """One two-pass sharded minibatch SOM step; returns this rank's new
     codebook rows.
@@ -86,9 +111,13 @@ def sharded_som_step(
     replaces the winner (som_rout.c:612-640 on the batch path).  The
     neighbourhood weights W (Bl, rows) come from the coordinates, as in the
     JAX step; W^T X and the weight mass are summed over `data`, then the
-    guarded update (models.fast.guarded_sum_update).  The JAX step's
-    `overlap_chunks` is not ported: it needs the chunks' gathers issued
-    asynchronously (ROADMAP)."""
+    guarded update (models.fast.guarded_sum_update).
+
+    `overlap_chunks > 1` without a mask splits the winner search into
+    min(overlap_chunks, Bl) pieces whose gathers overlap the next piece's
+    search (chunked_winner_search); the winners, and so the step, are
+    those of overlap_chunks=1.  Under a mask it is ignored, as in the JAX
+    step."""
     fp32_matmul()
     nl = codes_local.shape[0] if n_local is None else n_local
     dev = codes_local.device
@@ -100,7 +129,11 @@ def sharded_som_step(
     else:
         keep = None
         xb_use = xb_local
-        _, bmu = sharded_winner_search(mesh, xb_local, codes_local, nl)
+        if overlap_chunks > 1:
+            bmu = chunked_winner_search(mesh, xb_local, codes_local, nl,
+                                        overlap_chunks)
+        else:
+            _, bmu = sharded_winner_search(mesh, xb_local, codes_local, nl)
     if fixed_local is not None:
         bmu = torch.where(fixed_local >= 0, fixed_local.to(torch.int32), bmu)
     a = effective_alpha(alpha, xb_local.shape[0], dev, weights_local, mask_local)
@@ -129,12 +162,13 @@ def shard_arrays(mesh: Mesh, codes, xb, coords):
 
 def make_sharded_som_train_step(
     mesh: Mesh, gaussian: bool, masked: bool = False, weighted: bool = False,
-    fixed: bool = False,
+    fixed: bool = False, overlap_chunks: int = 1,
 ):
     """step(codes (noc, D), xb (B, D), coords (noc, 2), alpha, radius,
     [mask (B, D)], [weights (B,)], [fixed_bmu (B,)]) -> codes (noc, D): the
     trailing arguments appear in that order for whichever of
-    masked/weighted/fixed are True."""
+    masked/weighted/fixed are True; `overlap_chunks` as in
+    sharded_som_step."""
     names = [n for n, on in (("mask_local", masked), ("weights_local", weighted),
                              ("fixed_local", fixed)) if on]
 
@@ -143,7 +177,8 @@ def make_sharded_som_train_step(
         bs = mesh.batch_rows(xb.shape[0])
         kw = {n: e[bs] for n, e in zip(names, extras)}
         out = sharded_som_step(mesh, cl, xl, crd_l, crd, alpha, radius, gaussian,
-                               n_local=mesh.block(codes.shape[0]), **kw)
+                               n_local=mesh.block(codes.shape[0]),
+                               overlap_chunks=overlap_chunks, **kw)
         return mesh.gather_rows(out, codes.shape[0])
 
     return step

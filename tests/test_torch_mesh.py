@@ -10,7 +10,9 @@ numpy-seeded inputs.  One world per mesh layout serves every case of this
 module (module-scoped fixtures); each case is its own test.
 
 Tolerances: one step's codes to 1e-5 (the packages sum in different
-orders), its winners equal; trained codebooks on the same stream to 1e-4;
+orders), its winners equal; the two-pass step with overlap_chunks against
+the JAX one and against one chunk to 1e-6 (the JAX test's rule), under a
+mask equal to one chunk; trained codebooks on the same stream to 1e-4;
 the mesh trainers against the port's single-device trainer on the same
 Dataset (same batches) to 1e-5; overlap_segments=2 exactly equal to 1; every
 rank of a world returns the same whole arrays, exactly."""
@@ -272,6 +274,26 @@ def world22(tmp_path_factory):
         jstep(*jsh.shard_arrays(jm, jnp.asarray(codes), jnp.asarray(xb),
                                 jnp.asarray(COORDS)),
               jnp.float32(0.05), jnp.float32(3.0), _put(jm, mask, "data", None)))
+    # overlap_chunks on the JAX test's inputs (tests/test_sharded.py:
+    # test_overlap_chunked_step_matches_unchunked: B 64, 16x8 hexa, D 16,
+    # gaussian), the JAX builder on the 8-device mesh; the port at 1, 4 and
+    # more chunks than a rank's 32 batch rows; and under a mask, where the
+    # option is ignored
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    ocodes = np.asarray(jax.random.normal(k1, (N, 16), dtype=jnp.float32))
+    oxb = np.asarray(jax.random.normal(k2, (B, 16), dtype=jnp.float32) * 2)
+    j8 = jmake_mesh(8)
+    jstep = jsh.make_sharded_som_train_step(j8, gaussian=True, overlap_chunks=4)
+    jlapped = jstep(*jsh.shard_arrays(j8, jnp.asarray(ocodes), jnp.asarray(oxb),
+                                      jnp.asarray(COORDS)),
+                    jnp.float32(0.05), jnp.float32(3.0))
+    for chunks in (1, 4, 1000):
+        add(f"overlap{chunks}", SH + "make_sharded_som_train_step",
+            dict(gaussian=True, overlap_chunks=chunks),
+            (None, (ocodes, oxb, COORDS, 0.05, 3.0), {}), jlapped)
+    add("two_pass_masked_overlap4", SH + "make_sharded_som_train_step",
+        dict(gaussian=True, masked=True, overlap_chunks=4),
+        (None, (codes, xb, COORDS, 0.05, 3.0, mask), {}), None)
     # mixed fused step: scalar alpha gaussian (one segment and two), and
     # per-sample alpha bubble
     for name, gaussian, alpha, segs in (("mixed", True, 0.05, 1),
@@ -318,6 +340,31 @@ def world22(tmp_path_factory):
 def test_two_pass_step_matches_jax(world22, case):
     got, ref = world22[case]
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_overlap_chunks_matches_jax(world22):
+    """overlap_chunks=4 against the JAX builder with overlap_chunks=4 on the
+    8-device mesh, at the JAX test's rule (1e-6)."""
+    got, ref = world22["overlap4"]
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["overlap4", "overlap1000"])
+def test_overlap_chunks_equal_to_one_chunk(world22, case):
+    """4 chunks, and more chunks than the rank's 32 batch rows (clamped to
+    one row each), against overlap_chunks=1 at the JAX test's rule (1e-6):
+    the winners do not depend on the chunk, so the step is the same."""
+    got, _ = world22[case]
+    one, _ = world22["overlap1"]
+    np.testing.assert_allclose(got, one, rtol=1e-6, atol=1e-6)
+
+
+def test_overlap_chunks_ignored_under_a_mask(world22):
+    """Under a mask the option is ignored, as in the JAX step: the masked
+    step with overlap_chunks=4 equals it with 1, exactly."""
+    got, _ = world22["two_pass_masked_overlap4"]
+    one, _ = world22["two_pass_masked"]
+    np.testing.assert_array_equal(got, one)
 
 
 @pytest.mark.parametrize("case", ["mixed", "mixed_bubble"])
