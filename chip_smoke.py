@@ -27,15 +27,19 @@ phases, each printing one JSON line:
 2. build    compiles som_lvq_pak_torch/csrc/*.cu for sm_90a (timed), then
             with the three slowest nvcc processes (each source's compile
             seconds, from the build's log); one "ptxas" line: registers and
-            spill bytes of each instantiation of K5, K9, K10, K12, K14's walk
-            (its stagger and int8_win) and K15, from nvcc's -Xptxas -v report;
-            one "sass" line: the HMMA (tensor-core) instructions in each
-            instantiation of the tensor-core kernels K3, K2, K1, K4, K5, K6,
-            K7, K9, K10 (K8 its KM 2), K11, K12, K13, K14's main form and its
-            walk, K16 and K17, the IMMA (int8 mma.sync) instructions in each
-            instantiation of K14's int8_win walk and the IGMMA (int8 wgmma)
-            instructions in each of K15's, from cuobjdump --dump-sass of the
-            library (none fails the run, as does an IDP4A anywhere in it);
+            spill bytes of each instantiation of K1, K2 and their prologue,
+            K5, K9, K10, K12, K14's walk (its stagger and int8_win) and K15,
+            from nvcc's -Xptxas -v report; one "sass" line: the HMMA
+            (mma.sync tensor-core) instructions in each instantiation of the
+            tensor-core kernels K3, K4, K5, K6, K7, K9, K10 (K8 its KM 2),
+            K11, K12, K13, K14's main form and its walk, K16 and K17, the
+            HGMMA (TF32 wgmma) instructions in each of K1's and K2's (which
+            must have no HMMA), the IMMA (int8 mma.sync) instructions in
+            each instantiation of K14's int8_win walk, the IGMMA (int8
+            wgmma) instructions in each of K15's, and the UTMALDG (TMA tile
+            loads) in each of K1's, K2's and K15's, from cuobjdump
+            --dump-sass of the library (none fails the run, as does an IDP4A
+            anywhere in it);
             then g++ builds the native data-file engine (data/native_io.py
             over native/somvq_io.cpp) into the same folder, timed; the I/O
             phases (13e-13g) fail unless it is loaded and in use;
@@ -49,9 +53,12 @@ phases, each printing one JSON line:
             product, two for K6's weight mass and K4's and K9's keep.(m o
             m), one for K14's under batch_bf16; int8_win's winners as int8
             operations at 1979 TOP/s) and the share of it they
-            reach, and run twice on the same inputs, bit-equal.  K1 is
+            reach, and run twice on the same inputs, bit-equal.  K1 and
+            K2's prologue (split_codes: the codebook split into TF32 hi and
+            lo, ||m||^2) is bit-equal to its plain version at D 5, 37, 64,
+            130 and 65536 x 64.  K1 is
             also bit-equal to K2 on the same inputs at every K1 shape (one
-            kernel body), and the
+            walk), and the
             min over K1 on two shards of a codebook (split off a tile
             boundary, merged by the sharded winner's rule) has the whole
             run's values bit for bit and its winners except at value ties.
@@ -62,9 +69,9 @@ phases, each printing one JSON line:
             and K10 carry library_ms at their record's shape: torch.addmm
             (keep @ (m o m)^T as its input under a mask), then argmin,
             argmax or topk, in the plain versions' row chunks; K3, K5-K7
-            and K11-K14 the plain version's time, which is that chain
-            (neighborhood_w, FP32 cuBLAS products, the blend, the
-            winners).  K2
+            and K11-K14 carry null: no one PyTorch call computes their
+            function (the plain version's chain, neighborhood_w, FP32
+            cuBLAS products, the blend, the winners, is plain_ms).  K2
             also runs at a 16384-row StreamingReader chunk.  K7
             (som_vmem_train_steps) runs at e2e_64x64_1M's group shape,
             bench.py:prep_vmem_steps's geometry,
@@ -439,19 +446,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
-# the kernels whose products run on the tensor cores as split TF32: K3, K2,
-# K1 (K2's body under its own name), K4 (K1's CTA shape with the keep
+# the kernels whose products run on the tensor cores as split TF32 on
+# mma.sync: K3, K4 (the mma.sync winner walk's CTA shape with the keep
 # contraction), K6, K11 (K3's update half), K12 (K3's blend-and-winner
 # half), K13 (K3's body with the separable W), K14's main form (K13's body;
 # one TF32 product under batch_bf16) and its walk (stagger and int8_win:
 # the same body's chunk functions; int8_win's winners on int8 mma.sync, the
-# IMMA of INT8_MMA_KERNELS), K16 (K2's body without the norm), K17
-# (its bf16 twin as one TF32 product), K10 (K1's body with a top-k fold;
+# IMMA of INT8_MMA_KERNELS), K16 (the mma.sync winner walk), K17
+# (its bf16 twin as one TF32 product), K10 (that walk with a top-k fold;
 # K8 is its instantiation at KM 2, launched at k = 2), K7 (K3's step body
 # on the resident codebook), K9 (K4's walk with K10's fold at KM 2) and K5
 # (K3's update half with the blend)
-SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
-                      "dist_argmin_kernel", "dist_argmin_masked_kernel",
+SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_masked_kernel",
                       "som_update_masked_kernel", "som_accum_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
@@ -463,6 +469,10 @@ SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_t_kernel",
 INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 # K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
 INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
+# K1 and K2 (one walk, two names): split-TF32 products on warpgroup wgmma
+# (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
+TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel")
+TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
 # maximum (split TF32 is about 2^-21 relative per product, float32 sums of 64)
@@ -569,6 +579,20 @@ def sass_mma(dump: dict, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict:
     return counts
 
 
+def sass_none(dump: dict, kernels, op: str) -> dict:
+    """The `op` instructions in each instantiation of `kernels`, which must
+    have none (K1's and K2's HMMA: their products run on wgmma); raises
+    otherwise, or if no instantiation is found."""
+    counts = {}
+    for name, insns in dump.items():
+        base = [b for b in kernels if b in name]
+        if base:
+            counts[name[name.index(base[0]):]] = sum(op in i for i in insns)
+    if not counts or any(counts.values()):
+        raise AssertionError(f"{kernels}: {op} instructions in the SASS: {counts}")
+    return counts
+
+
 def no_dp4a(dump: dict) -> int:
     """The IDP4A instructions (__dp4a on CUDA cores) in the library's SASS
     (`dump`): none may be left, every int8 product runs on the tensor cores;
@@ -609,13 +633,16 @@ def template_args(name: str, base: str) -> list:
     return out
 
 
-def ptxas_report(log: str, bases=("dist_topk_kernel", "som_blend_winner_kernel",
+def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
+                                  "split_codes_kernel",
+                                  "dist_topk_kernel", "som_blend_winner_kernel",
                                   "dist_top2_masked_kernel", "som_update_kernel",
                                   "som_fused_chunked_stagger_kernel",
                                   "som_fused_chunked_int8_kernel",
                                   "int8_winner_probe_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
-    (K10, K12, K9, K5, K14's walk and K15 unless given), from nvcc's -Xptxas -v
+    (K1, K2 and their prologue, K10, K12, K9, K5, K14's walk and K15 unless
+    given), from nvcc's -Xptxas -v
     report (the build's log): {"name<args>":
     {"registers", "spill_stores", "spill_loads"}}."""
     import re
@@ -760,6 +787,45 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     if library is not None:
         rec["library_ms"] = cuda_ms(lambda: library_winners(
             x, codes, library, mask=args[2] if masked else None), iters)
+    emit("kernels", **rec)
+    return rec
+
+
+def phase_split_codes(N, D, seed, iters=10):
+    """K1's and K2's prologue (ops.dist_argmin.split_codes) against its plain
+    version on rows over six decades of scale: hi, lo and ||m||^2 bit for bit
+    (the plain version re-enacts the kernel's order of the sums), run twice
+    (bit-equal).  Its bound: the codebook read once, hi, lo (N, Dp) and m2
+    written once.  ms is the wrapper's call (its three outputs allocated
+    each time, as K1's and K2's calls allocate their scratch); launch_ms the
+    kernel's C entry alone into the same outputs, back to back: the
+    device's time where the host's per-call work is shorter."""
+    import torch
+
+    from som_lvq_pak_torch import _build
+    from som_lvq_pak_torch.ops.dist_argmin import split_codes, split_codes_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 10.0 ** (6.0 * torch.rand((N, 1), generator=g, device="cuda") - 3.0)
+    codes = torch.randn((N, D), generator=g, device="cuda") * scale
+    got, again, want = split_codes(codes), split_codes(codes), split_codes_plain(codes)
+    torch.cuda.synchronize()
+    name = f"split_codes {N}x{D}"
+    if not all(bits_equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    if not all(bits_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: not bit-equal to split_codes_plain")
+    hi, lo, m2 = got
+    Dp = hi.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    rec = dict(kernel="split_codes", shape=[N, D], Dp=Dp, bit_equal_plain=True,
+               bit_equal_rerun=True, max_abs_err=0.0,
+               ms=cuda_ms(lambda: split_codes(codes), iters),
+               launch_ms=cuda_ms(lambda: _build.call(
+                   "somvq_split_codes", codes.data_ptr(), N, D, Dp, hi.data_ptr(),
+                   lo.data_ptr(), m2.data_ptr(), stream), 10 * iters),
+               plain_ms=cuda_ms(lambda: split_codes_plain(codes), iters),
+               **bound(2 * N * D, 4 * N * D + 8 * N * Dp + 4 * N))
     emit("kernels", **rec)
     return rec
 
@@ -1006,10 +1072,8 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                        route_flops=mult * 4 * noc * B * D if mult else None))
     if mult:
         rec.update(route_pct(rec))
-    # the plain version is the PyTorch call chain of the same function
-    # (neighborhood_w or the separable factors, FP32 cuBLAS products, the
-    # blend, the winners)
-    rec["library_ms"] = rec["plain_ms"]
+    # library_ms stays null: no one PyTorch call computes the step (its
+    # plain version's chain is plain_ms)
     emit("kernels", **rec)
     return rec
 
@@ -1243,7 +1307,6 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
                        int8_ops=2 * noc * B * D,
                        route_flops=(1 if batch_bf16 else 3) * 2 * noc * B * D))
     rec.update(route_pct(rec))
-    rec["library_ms"] = rec["plain_ms"]  # the plain step with int8 winners: that chain
     emit("kernels", **rec)
     return rec
 
@@ -1648,7 +1711,6 @@ def phase_update(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                **bound((4 if masked else 2) * noc * B * D,
                        8 * noc * D + 4 * B * D + masked * B * D + 8 * B,
                        route_flops=(10 if masked else 6) * noc * B * D))
-    rec["library_ms"] = rec["plain_ms"]
     rec.update(route_pct(rec))
     emit("kernels", **rec)
     return rec
@@ -1800,7 +1862,6 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
     rec["k3_chain_ms"] = cuda_ms(lambda: chain(k3_step, work))
     if k13:
         rec["k13_chain_ms"] = cuda_ms(lambda: chain(som_fused_factored_step, work))
-    rec["library_ms"] = rec["plain_ms"]  # K chained plain K3 steps: that chain
     emit("kernels", **rec)
     if rows:
         line = dict(card=nvidia_smi_line(), shape=rec["shape"],
@@ -2038,9 +2099,6 @@ def phase_accum(xdim, hexa, gaussian, n_local, offset, B, D, radius, per_sample,
                **bound(2 * n_local * B * D, 4 * B * D + 8 * B + 4 * n_local * (D + 1),
                        route_flops=6 * n_local * B * D))
     rec.update(route_pct(rec))
-    # the plain version is the PyTorch call chain of the same function
-    # (neighborhood_w, then FP32 cuBLAS products)
-    rec["library_ms"] = rec["plain_ms"]
     emit("kernels", **rec)
     return rec
 
@@ -2090,7 +2148,6 @@ def phase_blend(n_local, D, Bn, seed, dup=False):
                **bound(2 * n_local * Bn * D, 12 * n_local * D + 4 * n_local + 4 * Bn * D + 8 * Bn,
                        route_flops=6 * n_local * Bn * D))
     rec.update(route_pct(rec))
-    rec["library_ms"] = rec["plain_ms"]  # the blend, one mm, argmax: that chain
     emit("kernels", **rec)
     return rec
 
@@ -2196,7 +2253,7 @@ def plain_kernels():
 
 def counted():
     from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_masked,
-                                                   dist_argmin_t)
+                                                   dist_argmin_t, split_codes)
     from som_lvq_pak_torch.ops.skeleton import fused_step_skeleton
     from som_lvq_pak_torch.ops.som_step import (CHUNKED_INT8_WIN, CHUNKED_STAGGER,
                                                 som_fused_factored_chunked_step,
@@ -2217,20 +2274,30 @@ def counted():
             som_vmem_train_steps, dist_top2, dist_top2_masked, dist_topk,
             som_neighborhood_accumulate, som_blend_winner, som_fused_factored_step,
             som_fused_factored_chunked_step, CHUNKED_INT8_WIN, CHUNKED_STAGGER,
-            int8_winner_probe, f32_winner_probe, fused_step_skeleton, segment_sum)
+            int8_winner_probe, f32_winner_probe, fused_step_skeleton, segment_sum,
+            split_codes)
+
+
+def with_prologue(kernels) -> tuple:
+    """`kernels`, and K1's and K2's prologue (split_codes) wherever K1 or K2
+    is among them: every K1 or K2 call launches it first."""
+    kernels = tuple(kernels)
+    return kernels + (("split_codes",) if {"dist_argmin", "dist_argmin_t"} & set(kernels)
+                      else ())
 
 
 def main_path(name, run, kernels, plain_run=None):
     """Run one main path with every launch counter set to 0 first; each of
-    `kernels` must have launched.  `plain_run`, if given, runs the same path
-    through the plain versions and must launch nothing.  Returns (result,
-    plain result, launches)."""
+    `kernels` must have launched, and K1's and K2's prologue (split_codes)
+    wherever K1 or K2 is among them.  `plain_run`, if given, runs the same
+    path through the plain versions and must launch nothing.  Returns
+    (result, plain result, launches)."""
     fns = counted()
     for fn in fns:
         fn.launches = 0
     out = run()
     launches = {fn.__name__: fn.launches for fn in fns}
-    idle = [k for k in kernels if launches[k] == 0]
+    idle = [k for k in with_prologue(kernels) if launches[k] == 0]
     if idle:
         raise AssertionError(f"{name}: kernels of the path never launched: {idle}")
     ref = None
@@ -3601,7 +3668,8 @@ def masked_stream_data():
 def run_world(fn, data, model, kernels, *args):
     """`fn` on every rank of a data x model world on this card.  Each rank
     returns {fit name: record}; every rank must return the same codebooks
-    and have launched each of kernels[fit name] in that fit.  Returns
+    and have launched each of kernels[fit name] in that fit (and K1's
+    prologue with K1: with_prologue).  Returns
     {fit name: [each rank's record]}, the launches summed over ranks and
     fits, and the world's wall (spawn to exit)."""
     from som_lvq_pak_torch.parallel.mesh import spawn
@@ -3615,7 +3683,7 @@ def run_world(fn, data, model, kernels, *args):
         if any(not np.array_equal(r["codes"], recs[0]["codes"]) for r in recs):
             raise AssertionError(f"{name}: the ranks returned different codebooks")
         for rank, rec in enumerate(recs):
-            idle = [k for k in kernels[name] if rec["launches"][k] == 0]
+            idle = [k for k in with_prologue(kernels[name]) if rec["launches"][k] == 0]
             if idle:
                 raise AssertionError(f"{name}: rank {rank} never launched {idle}")
             for k, n in rec["launches"].items():
@@ -4451,8 +4519,11 @@ def main() -> int:
     emit("ptxas", card=smi, built_now=built_now, report=ptxas)
     dump = sass(_build.library_path())
     emit("sass", hmma_per_function=sass_mma(dump),
+         hgmma_per_function=sass_mma(dump, TF32_WGMMA_KERNELS, "HGMMA"),
+         hmma_in_k1_k2=sass_none(dump, TF32_WGMMA_KERNELS, "HMMA"),
          imma_per_function=sass_mma(dump, INT8_MMA_KERNELS, "IMMA"),
          igmma_per_function=sass_mma(dump, INT8_WGMMA_KERNELS, "IGMMA"),
+         utmaldg_per_function=sass_mma(dump, TMA_KERNELS, "UTMALDG"),
          idp4a=no_dp4a(dump))
     if sys.argv[1:] == ["--profile"]:
         profile_cells()
@@ -4484,6 +4555,12 @@ def main() -> int:
     # each kernel's record is taken at its main-path shape (rs[0]), with the
     # largest error over all its shapes
     recs = {}
+    # K1's and K2's prologue at the 65,536-code codebooks first (its record),
+    # the online scan's 4096, then D 5, 37 and 130 (three 64-feature slabs
+    # of ||m||^2), each bit-equal to its plain version
+    rs = [phase_split_codes(N, D, seed=80 + D)
+          for N, D in ((65536, 64), (4096, 64), (999, 5), (3001, 37), (2999, 130))]
+    recs["split_codes"] = rs[0]
     # K1, K2 and K4 run every shape twice (bit-equal), K1 also bit-equal to
     # K2 on the same inputs (one kernel body); K2 also at a StreamingReader
     # chunk of 16384 rows; K1's, K2's and K4's records carry library_ms
@@ -4509,13 +4586,22 @@ def main() -> int:
     # run twice and beside K2.  K1 and K4 at the masked LVQ cell's step
     # (B 1024 against 4096 codes: 64 tiles, two per split)
     k1_kw = dict(rerun=True, twin=dist_argmin_t)
+    k1_ms = {}
     for shape, seed, iters in (((1024, 65536, 64), 9, 10), ((512, 32768, 64), 17, 10),
                                ((1_000_000, 65536, 64), 14, 3), ((777, 3001, 37), 47, 10),
                                ((1000, 2999, 130), 48, 10)):
         r = phase_distance("dist_argmin", dist_argmin, dist_argmin_plain, *shape, seed=seed,
                            iters=iters, **k1_kw)
+        k1_ms[shape] = r["ms"]
         recs["dist_argmin"]["max_abs_err"] = max(recs["dist_argmin"]["max_abs_err"],
                                                  r["max_abs_err"])
+    # the prologue's share of K1's call (its kernel runs inside every K1 and
+    # K2 call) at the LVQ step's B 1024 and at B 4096, by its launch_ms
+    pro = recs["split_codes"]
+    emit("k1_prologue", card=smi, prologue_ms=pro["ms"], prologue_launch_ms=pro["launch_ms"],
+         k1_b1024_ms=k1_ms[(1024, 65536, 64)], k1_b4096_ms=recs["dist_argmin"]["ms"],
+         share_b1024=pro["launch_ms"] / k1_ms[(1024, 65536, 64)],
+         share_b4096=pro["launch_ms"] / recs["dist_argmin"]["ms"])
     for name, k, p, mask_p in (
             ("dist_argmin", dist_argmin, dist_argmin_plain, None),
             ("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 0.1)):
@@ -5050,10 +5136,13 @@ def main() -> int:
     four_card_phases(smi, tally)
 
     sources = {
-        "dist_argmin": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",
+        "dist_argmin": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
                         "som_lvq_pak_tpu/ops/pallas_distance.py:60"),
-        "dist_argmin_t": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",
+        "dist_argmin_t": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
                           "som_lvq_pak_tpu/ops/pallas_distance.py:426"),
+        "split_codes": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
+                        "||m||^2 of som_lvq_pak_tpu/ops/pallas_distance.py:165 (XLA, "
+                        "K1's m2_ref) and :446 (in K2's kernel)"),
         "som_fused_train_step": ("som_lvq_pak_torch/csrc/som_fused_step.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:580"),
         "dist_argmin_masked": ("som_lvq_pak_torch/csrc/dist_argmin.cu",

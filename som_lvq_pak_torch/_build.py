@@ -34,10 +34,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types; every entry returns a cudaError_t as int
 _SIGNATURES = {
-    # x, codes, B, N, D, splits, keys, val, idx, stream
-    "somvq_dist_argmin": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # x, codes, B, N, D, splits, keys, val, idx, stream
-    "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # codes, N, D, Dp, hi, lo, m2, stream
+    "somvq_split_codes": [_P, _I, _I, _I, _P, _P, _P, _P],
+    # x, codes, B, N, D, Dp, splits, scratch, val, idx, stream
+    "somvq_dist_argmin": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # x, codes, B, N, D, Dp, splits, scratch, val, idx, stream
+    "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, splits, keys, val, idx, stream
     "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream

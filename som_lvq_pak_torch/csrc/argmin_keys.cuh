@@ -1,5 +1,5 @@
 // Cross-CTA (min, first argmin) fold shared by K4 (dist_argmin.cu), K1 and
-// K2 (dist_argmin_t.cu, on -2 * the max score) and the fused SOM steps.
+// K2 (argmin_sm90.cu, on -2 * the max score), K16 and the fused SOM steps.
 //
 // The TPU kernels fold their running (min, argmin) across an in-order grid;
 // Hopper CTAs run in any order.  Each CTA therefore packs its candidate as

@@ -1,0 +1,392 @@
+// K1 and K2 on Hopper: the 1-NN winner search.  For each sample x_b, the
+// codebook row m_n that minimises ||x_b - m_n||^2 (the lowest n on exact
+// ties), reported as the partial distance ||m_n||^2 - 2 x_b.m_n.
+//
+// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+//   * _dist_argmin_kernel (:60, wrapper dist_argmin, the distance form
+//     ||m||^2 - 2 x.m with a strict-< running min)     -> dist_argmin_kernel (K1)
+//   * _dist_argmin_t_kernel (:426, wrapper dist_argmin_t, the max-score form
+//     x.m - ||m||^2 / 2, reported as -2 * the best)   -> dist_argmin_t_kernel (K2)
+// and the ||m||^2 row the JAX wrapper of K1 computes in XLA (its m2_ref),
+// here split_codes_kernel, the walk's prologue.  The two forms give the
+// same floats: halving and doubling are exact, so -2 fl(x.m - ||m||^2 / 2)
+// = fl(||m||^2 - 2 x.m) for the same x.m and ||m||^2, and a strict > on the
+// score over ascending codes is a strict < on the distance.  So K1 and K2
+// are one walk, instantiated under two names so that a profile tells the
+// trainers' and LVQ steps' winners (K1) from the fast qerror's (K2).
+//
+// What bounds it on H100: the contraction x.m^T (B x N x D) as split TF32
+// (tf32x3.cuh): three TF32 products per float32 product, 6 B N D TF32 FLOPs
+// at 495 TFLOP/s (50.8 ms at 1M x 65536 x 64); then the L2 reads of the
+// split codebook, which every CTA of 128 samples walks (hi and lo, 8 N D
+// bytes a CTA: about 5 TB/s at the tensor-core rate).  Device memory moves
+// x, the codebook, its split and the (B,) results once.  The products and
+// their feed alone (the fold cut to one compare a tile) ran at 81-86% of
+// that bound (58.9-62.8 ms; tools/argmin_fold_ab.py, one H100 80GB HBM3 at
+// 700 W).
+//
+// The design.  The split of the codebook into TF32 hi and lo, and ||m||^2,
+// are computed once per call by the prologue (split_codes_kernel: a warp a
+// row, (N, Dp) hi and lo with zeros past D, m2 (N,)), not once per CTA;
+// K1's and K2's entries launch it and the walk in one call, on one scratch
+// buffer.  ||m||^2 is summed in the order the mma.sync walks of K8/K10 use
+// (dist_topk.cu): lane f of a warp takes features f and f + 32 of a
+// 64-feature slab, sq = fma(v1, v1, v0 * v0), then an xor tree over 16, 8,
+// 4, 2, 1, then the slabs left to right; so K1's values are K10's bit for
+// bit (ops.dist_argmin.split_codes_plain re-enacts it).  The walk: a CTA
+// takes 128 samples, two consumer warpgroups of 64 and one producer warp.
+// Each consumer keeps its samples' A fragments (split hi and lo) in
+// registers for the whole walk (D <= 64; past it, 64-feature slabs reloaded
+// per slab).  The producer streams (128 codes x slab) tiles of hi and lo,
+// as 32-feature chunks of 128-byte rows swizzled by TMA (SWIZZLE_128B), and
+// the tile's 128 m2 values, into a ring of `stages` slots behind full and
+// empty mbarriers.  Per k step of 8 features a consumer issues the three
+// products in mma_tf32x3's order (lo.hi, hi.lo, hi.hi) as warpgroup
+// wgmma.m64n128k8.f32.tf32.tf32, A from registers and B straight from the
+// swizzled slot, into 64 float32 accumulators a thread; no thread copies or
+// splits a code.  The accumulators hold the m16n8k8 C fragment of each
+// 8-code column block.  The fold keeps the mma.sync walk's result with
+// fewer instructions: the scores S - 0.5 m2[c] in place, a max tree per
+// sample, and only where the tile's max beats the running best the first
+// code reaching it, so each thread keeps the (max, first index) a strict >
+// over ascending codes would; the four lanes merge lexicographically, and
+// the codebook splits (ops.dist_argmin.k1_sm90_splits: spans of at least
+// four whole 128-code tiles in whole waves of one CTA an SM) fold by the
+// packed-u64 atomicMin of argmin_keys.cuh on -2 * the score (-0 to +0, the
+// lowest index on ties).  The fold, not the products, set the first
+// version's pace (1M x 65536 x 64, the same A/B: 104-105 ms with a compare
+// and select per score, 64-66 ms as written), so the two warpgroups also
+// take turns to issue their products (named barriers, as K15's) and each
+// folds under the other's (at B 4096: 0.29 ms, 0.33-0.34 without the
+// turns).  Two accumulators in one warpgroup (a tile's fold under its
+// successor's products) would not fit beside the A fragments in the 224
+// registers a thread of a 288-thread CTA can hold.  Every sum runs in a
+// fixed order and a row's value depends only on its own data, not on the
+// tile, split or shard that holds it: two runs are bit-equal, and the min
+// over shards of a codebook is the whole run's.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+#include "argmin_tc.cuh"
+#include "sm90_pipe.cuh"
+
+namespace {
+
+constexpr int TN = 128;                        // codes per tile: the wgmma's N
+constexpr int CONSUMERS = 2;                   // warpgroups of 64 samples
+constexpr int BS = 64 * CONSUMERS;             // samples per CTA
+constexpr int THREADS = 128 * CONSUMERS + 32;  // and the producer warp
+constexpr int CHUNK = 32;                      // features per 128-byte swizzled row
+constexpr int CHUNK_BYTES = TN * CHUNK * 4;
+constexpr int SMEM_MAX = 232448;               // a CTA's dynamic shared memory
+constexpr int ALIGN = 1024;                    // the 128B swizzle's period
+constexpr int MAX_STAGES = 8;
+constexpr int BARRIER_BYTES = 2 * MAX_STAGES * 8;
+constexpr int TURN = 256;                      // a turn's barrier: both warpgroups
+
+// the split's row length (ops.dist_argmin.split_codes_dp): one chunk up to D
+// 32, else whole 64-feature slabs
+__host__ __device__ constexpr int padded_d(int D) { return D <= 32 ? 32 : (D + 63) / 64 * 64; }
+
+// a slot: KC chunks of hi, KC of lo, then the tile's m2 (TN floats), padded
+// to keep the next slot aligned
+template <int KC>
+__host__ __device__ constexpr int slot_bytes() {
+  return 2 * KC * CHUNK_BYTES + ALIGN;
+}
+
+template <int KC>
+__host__ __device__ constexpr int ring_stages() {
+  return (SMEM_MAX - ALIGN - BARRIER_BYTES) / slot_bytes<KC>() < MAX_STAGES
+             ? (SMEM_MAX - ALIGN - BARRIER_BYTES) / slot_bytes<KC>()
+             : MAX_STAGES;
+}
+
+// The prologue: row n of codes (N, D) into hi[n], lo[n] (Dp floats, zeros
+// past D) and m2[n] = ||m_n||^2 in the walks' order; a warp a row
+__global__ void __launch_bounds__(256)
+split_codes_kernel(const float* __restrict__ codes, int N, int D, int Dp,
+                   float* __restrict__ hi, float* __restrict__ lo, float* __restrict__ m2) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const float* row = codes + (size_t)n * D;
+  float* h = hi + (size_t)n * Dp;
+  float* l = lo + (size_t)n * Dp;
+  const int nslab = (D + 63) / 64;
+  float m = 0.f;
+  for (int sl = 0; sl < nslab; ++sl) {
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int f = 64 * sl + 32 * j + lane;
+      const float v = f < D ? row[f] : 0.f;
+      if (f < Dp) {
+        float vh, vl;
+        split_tf32(v, vh, vl);
+        h[f] = vh;
+        l[f] = vl;
+      }
+      sq = __fmaf_rn(v, v, sq);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    m = sl == 0 ? sq : m + sq;
+  }
+  if (lane == 0) m2[n] = m;
+}
+
+int split(const float* codes, int N, int D, int Dp, float* hi, float* lo, float* m2,
+          cudaStream_t stream) {
+  if (N <= 0 || D <= 0 || Dp != padded_d(D)) return (int)cudaErrorInvalidValue;
+  split_codes_kernel<<<(N + 7) / 8, 256, 0, stream>>>(codes, N, D, Dp, hi, lo, m2);
+  return (int)cudaGetLastError();
+}
+
+// The walk of CTA (blockIdx.x, blockIdx.y): samples blockIdx.x * BS.., the
+// tiles [blockIdx.y * span, +span) of the codebook, in nslab slabs of
+// 32 KC features each
+template <int KC>
+__device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMap* lo_map,
+                                     const CUtensorMap* m2_map, const float* __restrict__ x,
+                                     int B, int N, int D, int nslab, int span, int stages,
+                                     unsigned long long* __restrict__ keys) {
+  constexpr int KS = 4 * KC;  // k steps of 8 features a slab
+  constexpr int SW = CHUNK * KC;
+  constexpr int SLOT = slot_bytes<KC>();
+  const int tiles = (N + TN - 1) / TN;
+  const int t0 = blockIdx.y * span, t1 = min(tiles, t0 + span);
+  const int nitems = (t1 - t0) * nslab;  // item = (tile, slab), slab fastest
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((ALIGN - (sm90::smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * SLOT);
+  uint64_t* empty = full + MAX_STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * CONSUMERS);  // one arrival per consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * CONSUMERS) {  // the producer warp
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int s = 0;
+      uint32_t phase = 0;  // of slot s's current use
+      for (int i = 0; i < nitems; ++i) {
+        const int n0 = (t0 + i / nslab) * TN, f0 = (i % nslab) * SW;
+        unsigned char* slot = ring + s * SLOT;
+        sm90::mbar_wait(&empty[s], phase ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * KC * CHUNK_BYTES + TN * 4);
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          sm90::tma_load_2d(slot + c * CHUNK_BYTES, hi_map, &full[s], f0 + CHUNK * c, n0);
+          sm90::tma_load_2d(slot + (KC + c) * CHUNK_BYTES, lo_map, &full[s], f0 + CHUNK * c,
+                            n0);
+        }
+        sm90::tma_load_1d(slot + 2 * KC * CHUNK_BYTES, m2_map, &full[s], n0);
+        if (++s == stages) s = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int b0 = blockIdx.x * BS + 16 * (threadIdx.x >> 5);  // this warp's 16 samples
+  float ahi[KS][4], alo[KS][4];
+  if (nslab == 1) load_x<KS, false>(ahi, alo, x, B, D, b0, 0, lane);
+  float best[2] = {-INFINITY, -INFINITY};
+  int bidx[2] = {INT_MAX, INT_MAX};
+  float S[64];
+  int s = 0;
+  uint32_t phase = 0;
+  // the warpgroups take turns to issue a tile's products (named barrier 2 +
+  // wg: wg's turn), so that each folds while the other's products run
+  const int wg = threadIdx.x / 128;
+  if (wg == 1) sm90::bar_arrive(2, TURN);
+  for (int i = 0; i < nitems; ++i) {
+    const int n0 = (t0 + i / nslab) * TN, sl = i % nslab;
+    if (nslab > 1) load_x<KS, false>(ahi, alo, x, B, D, b0, sl, lane);
+    if (sl == 0) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) S[j] = 0.f;
+    }
+    const uint32_t slot = sm90::smem_u32(ring + s * SLOT);
+    sm90::mbar_wait(&full[s], phase);
+    sm90::bar_sync(2 + wg, TURN);
+    sm90::fence_operand(S);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks / 4) * CHUNK_BYTES + 32 * (ks % 4);
+      const uint64_t bh = sm90::kmajor_desc<128>(slot + off);
+      const uint64_t bl = sm90::kmajor_desc<128>(slot + KC * CHUNK_BYTES + off);
+      sm90::wgmma_tf32_n128(S, alo[ks], bh);
+      sm90::wgmma_tf32_n128(S, ahi[ks], bl);
+      sm90::wgmma_tf32_n128(S, ahi[ks], bh);
+    }
+    sm90::wgmma_commit();
+    if (wg != 1 || i + 1 < nitems) sm90::bar_arrive(2 + (wg ^ 1), TURN);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(S);
+    if (sl == nslab - 1) {
+      // S[4j + q]: sample g + 8 (q >> 1), code 8 j + 2 t + (q & 1), made the
+      // score x.m - m2 / 2 in place; codes past N score -inf
+      const float* m2s = reinterpret_cast<const float*>(ring + s * SLOT + 2 * KC * CHUNK_BYTES);
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        const float2 mm = *reinterpret_cast<const float2*>(m2s + 8 * j + 2 * t);
+        S[4 * j] = S[4 * j] - 0.5f * mm.x;
+        S[4 * j + 1] = S[4 * j + 1] - 0.5f * mm.y;
+        S[4 * j + 2] = S[4 * j + 2] - 0.5f * mm.x;
+        S[4 * j + 3] = S[4 * j + 3] - 0.5f * mm.y;
+      }
+      const int rows = N - n0;
+      if (rows < TN) {
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (8 * j + 2 * t + (q & 1) >= rows) S[4 * j + q] = -INFINITY;
+      }
+      // per sample, the tile's best score by a max tree; only where it beats
+      // the running best (rarely, past the first tiles) the first code that
+      // reaches it: the (max, first index) a strict > over ascending codes
+      // keeps, with fewer instructions on the path every tile takes
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m[TN / 16];
+#pragma unroll
+        for (int j = 0; j < TN / 16; ++j)
+          m[j] = fmaxf(fmaxf(S[8 * j + 2 * h], S[8 * j + 2 * h + 1]),
+                       fmaxf(S[8 * j + 4 + 2 * h], S[8 * j + 4 + 2 * h + 1]));
+#pragma unroll
+        for (int w = TN / 32; w >= 1; w >>= 1)
+#pragma unroll
+          for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
+        if (m[0] > best[h]) {
+          int k = 0;
+#pragma unroll
+          for (int c = TN / 4 - 1; c >= 0; --c)
+            if (S[4 * (c >> 1) + 2 * h + (c & 1)] == m[0]) k = 8 * (c >> 1) + 2 * t + (c & 1);
+          best[h] = m[0];
+          bidx[h] = n0 + k;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    if (++s == stages) s = 0, phase ^= 1;
+  }
+
+  merge_fold(best, bidx, b0, B, lane, keys);
+}
+
+// K1 (the distance form's wrapper dist_argmin) and K2 (dist_argmin_t): one
+// walk, two names
+template <int KC>
+__global__ void __launch_bounds__(THREADS, 1)
+dist_argmin_kernel(const __grid_constant__ CUtensorMap hi_map,
+                   const __grid_constant__ CUtensorMap lo_map,
+                   const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
+                   int B, int N, int D, int nslab, int span, int stages,
+                   unsigned long long* __restrict__ keys) {
+  walk<KC>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys);
+}
+
+template <int KC>
+__global__ void __launch_bounds__(THREADS, 1)
+dist_argmin_t_kernel(const __grid_constant__ CUtensorMap hi_map,
+                     const __grid_constant__ CUtensorMap lo_map,
+                     const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
+                     int B, int N, int D, int nslab, int span, int stages,
+                     unsigned long long* __restrict__ keys) {
+  walk<KC>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys);
+}
+
+enum Kind { kK1, kK2 };
+
+template <int KC, Kind kKind>
+int launch(const float* x, const float* hi, const float* lo, const float* m2, int B, int N,
+           int D, int Dp, int splits, unsigned long long* keys, cudaStream_t stream) {
+  CUtensorMap hi_map, lo_map, m2_map;
+  int rc = sm90::encode_map(&hi_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, hi, N, Dp, CHUNK, TN,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!rc)
+    rc = sm90::encode_map(&lo_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, lo, N, Dp, CHUNK, TN,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!rc)
+    rc = sm90::encode_map(&m2_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, m2, 0, N, TN, 1,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc) return rc;
+  constexpr int stages = ring_stages<KC>();
+  constexpr int bytes = ALIGN + stages * slot_bytes<KC>() + BARRIER_BYTES;
+  auto kernel = kKind == kK1 ? dist_argmin_kernel<KC> : dist_argmin_t_kernel<KC>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  // `splits` spans of whole tiles; every span used is non-empty
+  const int tiles = (N + TN - 1) / TN;
+  const int span = (tiles + splits - 1) / splits;
+  const dim3 grid((B + BS - 1) / BS, (tiles + span - 1) / span);
+  kernel<<<grid, THREADS, bytes, stream>>>(hi_map, lo_map, m2_map, x, B, N, D, Dp / (CHUNK * KC),
+                                          span, stages, keys);
+  return (int)cudaGetLastError();
+}
+
+// the prologue, then the walk on its split: scratch holds hi (N, Dp), lo
+// (N, Dp), m2 (N, padded to 4) and the (B,) u64 keys, in that order
+template <Kind kKind>
+int search(const float* x, const float* codes, int B, int N, int D, int Dp, int splits,
+           float* scratch, float* val, int* idx, cudaStream_t stream) {
+  if (B <= 0 || splits < 1 || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  float* hi = scratch;
+  float* lo = hi + (size_t)N * Dp;
+  float* m2 = lo + (size_t)N * Dp;
+  auto* keys = reinterpret_cast<unsigned long long*>(m2 + (N + 3) / 4 * 4);
+  int rc = split(codes, N, D, Dp, hi, lo, m2, stream);
+  if (rc) return rc;
+  init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  rc = Dp == CHUNK ? launch<1, kKind>(x, hi, lo, m2, B, N, D, Dp, splits, keys, stream)
+                   : launch<2, kKind>(x, hi, lo, m2, B, N, D, Dp, splits, keys, stream);
+  if (rc) return rc;
+  unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1/K2's prologue alone: codes (N, D) -> hi, lo (N, Dp) and m2 (N,), Dp =
+// padded_d(D)
+extern "C" int somvq_split_codes(const float* codes, int N, int D, int Dp, float* hi,
+                                 float* lo, float* m2, cudaStream_t stream) {
+  return split(codes, N, D, Dp, hi, lo, m2, stream);
+}
+
+// K1: the prologue, then the walk; scratch: 2 N Dp + 4 ceil(N / 4) + 2 B
+// floats, 16-byte aligned (search's layout); val gets the partial distance
+// ||m||^2 - 2 x.m
+extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B, int N, int D,
+                                 int Dp, int splits, float* scratch, float* val, int* idx,
+                                 cudaStream_t stream) {
+  return search<kK1>(x, codes, B, N, D, Dp, splits, scratch, val, idx, stream);
+}
+
+// K2; val gets -2 * the best score x.m - ||m||^2 / 2, the same float as K1's
+// partial distance
+extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B, int N, int D,
+                                   int Dp, int splits, float* scratch, float* val, int* idx,
+                                   cudaStream_t stream) {
+  return search<kK2>(x, codes, B, N, D, Dp, splits, scratch, val, idx, stream);
+}

@@ -15,7 +15,7 @@
 // keep.(m o m)_lo (the dropped remainder is below 2^-22 of each term, as for
 // K6's weight mass): 10 B N D TF32 FLOPs against the 495 TFLOP/s peak.
 //
-// Design.  K4's masked walk (masked_walk.cuh: K1's CTA shape from
+// Design.  K4's masked walk (masked_walk.cuh: the mma.sync CTA shape from
 // argmin_tc.cuh with the keep contraction beside it, split-TF32 mma.sync,
 // D > 64 in 64-feature slabs in a one-CTA-per-SM instantiation) with an
 // argmin fold: the score (x keep).m - keep.(m o m) / 2 kept with a strict >

@@ -16,9 +16,9 @@
 // and gets (0, 0), (0, 1), as in the JAX package.
 //
 // Design.  K4's masked walk (masked_walk.cuh) with K10's fold at KM 2
-// (topk_fold.cuh), as K10 is K1's walk with that fold: one CTA of kTB = 128
-// samples, 16 per warp, their A fragments of x keep split into TF32 hi and
-// lo in registers and their keep flags as bits; the codebook by a cp.async
+// (topk_fold.cuh), as K10 is the mma.sync walk with that fold: one CTA of
+// kTB = 128 samples, 16 per warp, their A fragments of x keep split into
+// TF32 hi and lo in registers and their keep flags as bits; the codebook by a cp.async
 // double buffer, split once at staging into m's and (m o m)'s hi and lo;
 // (x keep).m by three TF32 products and keep.(m o m) by two; the score
 // (x keep).m - keep.(m o m) / 2; D > 64 through the walk's 64-feature slab

@@ -13,12 +13,14 @@
 // entries before the tile's) and running merge (_top2_epilogue, strict <,
 // earlier tile kept) compute.
 //
-// The walk is K1's (argmin_tc.cuh, as in dist_argmin_t.cu) with a top-k
-// fold: one CTA owns kTB = 128 samples, 16 per warp, their A fragments split
-// into TF32 hi and lo in registers for the whole walk (load_x; D > 64 in
-// 64-feature slabs, reloaded per slab); the codebook streams through shared
-// memory in 64-row tiles by a cp.async double buffer, split once at staging,
-// ||m||^2 summed per row there in K1's order; S = x.m^T by split-TF32
+// The walk is the mma.sync winner search (argmin_tc.cuh, as K16's in
+// dist_argmin_t.cu) with a top-k fold: one CTA owns kTB = 128 samples, 16
+// per warp, their A fragments split into TF32 hi and lo in registers for the
+// whole walk (load_x; D > 64 in 64-feature slabs, reloaded per slab); the
+// codebook streams through shared memory in 64-row tiles by a cp.async
+// double buffer, split once at staging, ||m||^2 summed per row there in the
+// order of K1's prologue (argmin_sm90.cu: lane f fma's features f and f + 32
+// of a slab, an xor tree, the slabs in turn); S = x.m^T by split-TF32
 // mma.sync.  Each lane keeps, for each of its two samples, a sorted list of
 // KM in {2, 4, 8, 16} (score, code) pairs, score = x.m - ||m||^2 / 2, k <= KM
 // chosen at run time: it visits its codes in ascending order, so a strict >
@@ -28,8 +30,8 @@
 // other reversed, then a bitonic merge; K9 folds K4's masked walk with the
 // same lists at KM 2).  Values are -2 * the score, exact, -0 folded to +0:
 // the partial distance, bit for bit the value K1 returns for the same code.
-// The codebook is split across gridDim.y as K1's (ops.dist_argmin.k2_splits,
-// whole waves of two CTAs per SM); each split writes its k pairs to a
+// The codebook is split across gridDim.y by ops.dist_argmin.k2_splits
+// (whole waves of two CTAs per SM); each split writes its k pairs to a
 // (splits, B, k) scratch the wrapper allocates, and a second small launch
 // merges the splits.  A code's score depends only on its own data and every
 // sum runs in a fixed order, so two runs are bit-equal and column 0 is K1's
@@ -40,7 +42,7 @@
 // TF32 FLOPs against the 495 TFLOP/s peak; beside it each candidate's
 // insertion (one compare when it does not enter the list, KM when it does).
 // Registers: the split A fragments (64 at D 64) and S (32) beside the lists
-// (4 KM); KM <= 4 keeps K1's two CTAs per SM, KM 8 and 16 take one CTA per
+// (4 KM); KM <= 4 keeps the walk's two CTAs per SM, KM 8 and 16 take one CTA per
 // SM and the registers it leaves (the build's ptxas report gives the
 // spills).
 
@@ -53,7 +55,7 @@ namespace {
 
 // the k (<= KM) best pairs of codebook rows [n_lo, n_lo + n_span) of split
 // blockIdx.y into pv/pi[(split * B + b) * k + t], as partial distances; the
-// walk is K1's (dist_argmin_t.cu), x stored (B, D)
+// walk is K16's (dist_argmin_t.cu) with the norm, x stored (B, D)
 template <int KT, int KM>
 __global__ void __launch_bounds__(kThreads, KM <= 4 ? 2 : 1)
 dist_topk_kernel(const float* __restrict__ x, const float* __restrict__ codes, int B,
@@ -101,7 +103,7 @@ dist_topk_kernel(const float* __restrict__ x, const float* __restrict__ codes, i
         split_tf32(v, hi, lo);
         chi[r * DC + f] = hi;
         clo[r * DC + f] = lo;
-        sq += v * v;
+        sq = __fmaf_rn(v, v, sq);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);

@@ -1,9 +1,11 @@
 // Hopper's asynchronous pipeline in PTX, for kernels that feed warpgroup
 // `wgmma` from a ring of shared-memory slots filled by TMA: mbarriers, the
-// 2-D tensor-map load, the shared-memory matrix descriptor of a K-major
-// swizzled operand, the wgmma fences, and the int8 m64n256k32 product.
-// Written by hand (no CuTe) so that a source including it builds in
-// seconds.  Only for sm_90a: wgmma does not exist on plain sm_90.
+// 1-D and 2-D tensor-map loads and the tensor map's encoder, the
+// shared-memory matrix descriptor of a K-major swizzled operand, the wgmma
+// fences, the int8 m64n256k32 product (K15) and the TF32 m64n128k8 product
+// with A from registers (K1, K2).  Written by hand (no CuTe) so that a
+// source including it builds in seconds.  Only for sm_90a: wgmma does not
+// exist on plain sm_90.
 //
 // The pattern: one producer thread waits on a slot's "empty" barrier, arms
 // its "full" barrier with the bytes it expects (arrive_expect_tx) and issues
@@ -17,8 +19,8 @@
 // & (W / 16 - 1)), s = 1 for W 64 and 0 for W 128 (the XOR takes address
 // bits 7.. of a tile aligned to 1024 bytes: swizzle_offset below).  Eight
 // rows make one core-matrix group, 8 W bytes apart (the descriptor's stride
-// byte offset); a k step of 32 int8 values inside a row moves the start
-// address by 32 bytes.
+// byte offset); a k step of 32 bytes inside a row (32 int8 values, 8 TF32
+// ones) moves the start address by 32 bytes.
 
 #pragma once
 
@@ -85,6 +87,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the box at c0 of the 1-D `map` into `dst`, completing on `bar`; elements
+// outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 // shared-memory writes by ordinary stores, made visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -141,6 +154,12 @@ __device__ __forceinline__ void fence_operand(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_operand(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 #define SOMVQ_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
 #define SOMVQ_R16(i) SOMVQ_R4(i), SOMVQ_R4(i + 4), SOMVQ_R4(i + 8), SOMVQ_R4(i + 12)
 #define SOMVQ_R64(i) SOMVQ_R16(i), SOMVQ_R16(i + 16), SOMVQ_R16(i + 32), SOMVQ_R16(i + 48)
@@ -168,8 +187,85 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+#define SOMVQ_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define SOMVQ_F16(i) SOMVQ_F4(i), SOMVQ_F4(i + 4), SOMVQ_F4(i + 8), SOMVQ_F4(i + 12)
+
+// d += A B, A 64 x 8 TF32 from registers, B 8 x 128 TF32 from a K-major
+// descriptor, d float32: A as mma.m16n8k8's A fragment of rows 16 w.. for
+// warp w of the warpgroup (a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4), lane = 4 g + t); d as in wgmma_s8_n256, 64 values:
+// d[4j], d[4j + 1] at row 16 w + g, columns 8 j + 2 t and + 1, d[4j + 2],
+// d[4j + 3] at row 16 w + g + 8 (the m16n8k8 C fragment of column block j)
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const float (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SOMVQ_F16(0), SOMVQ_F16(16), SOMVQ_F16(32), SOMVQ_F16(48)
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(1));
+}
+
+#undef SOMVQ_F16
+#undef SOMVQ_F4
 #undef SOMVQ_R64
 #undef SOMVQ_R16
 #undef SOMVQ_R4
+
+// ---- tensor maps (host) ------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda);
+// null if the driver has none
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major (rows, cols) array at `base` (rank 2; rank 1
+// when rows is 0: cols elements), with boxes of (box_cols, box_rows) and
+// zeros outside it; cudaErrorSymbolNotFound if libcuda has no encoder,
+// cudaErrorInvalidResourceHandle if the encode fails
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                      const void* base, int rows, int cols, int box_cols, int box_rows,
+                      CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint32_t rank = rows > 0 ? 2 : 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidResourceHandle;
+  return 0;
+}
 
 }  // namespace sm90

@@ -5,7 +5,7 @@
 // int32, K15 int8_winner_probe), which measured whether an int8 winner
 // contraction pays (pallas_som.py:969-970; its use in the fused step is
 // K14's int8_win).  Its float32 twin `kern32` (:154, K16 f32_winner_probe)
-// runs on the tensor cores as an instantiation of K2's body
+// runs on the tensor cores on the split-TF32 mma.sync walk
 // (dist_argmin_t.cu).  The TPU kernel folds a running max over 256-row tiles
 // of an in-order grid into a (1, B) row.
 //
@@ -237,50 +237,15 @@ int8_winner_probe_kernel(const __grid_constant__ CUtensorMap m_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 template <int W, int KC>
 int launch(const signed char* m, const signed char* x, int N, int D, int Dp, int B,
            int splits, int* out, cudaStream_t stream) {
   const Layout l = layout(D);
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)Dp, (cuuint64_t)N};
-  const cuuint64_t strides[1] = {(cuuint64_t)Dp};
-  const cuuint32_t box[2] = {(cuuint32_t)W, (cuuint32_t)TN};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<signed char*>(m), dims,
-             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidResourceHandle;
+  const int enc = sm90::encode_map(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, m, N, Dp, W, TN,
+                                   W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_64B);
+  if (enc) return enc;
   const cudaError_t attr = cudaFuncSetAttribute(
       int8_winner_probe_kernel<W, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
   if (attr != cudaSuccess) return (int)attr;

@@ -12,10 +12,12 @@ partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
 * `dist_argmin_t` scores x.m - ||m||^2 / 2 with a strict-> running max and
   reports -2 * best (replaces `_dist_argmin_t_kernel`); the fast qerror's
   winner search.
-* K1 and K2 run one kernel body on the tensor cores
-  (`csrc/dist_argmin_t.cu`): split-TF32 products (float32 accuracy), the
-  codebook split across CTAs in whole waves of 128-sample CTAs
-  (`k2_splits`).  Halving and doubling are exact, so
+* K1 and K2 run one walk on the tensor cores (`csrc/argmin_sm90.cu`):
+  a prologue (`split_codes_kernel`, counted on `split_codes.launches`) splits
+  the codebook once per call into TF32 hi and lo rows and sums ||m||^2; the
+  walk streams them by TMA into a shared-memory ring and takes split-TF32
+  products (float32 accuracy) on warpgroup `wgmma`, the codebook split
+  across CTAs by `k1_sm90_splits`.  Halving and doubling are exact, so
   -2 fl(x.m - ||m||^2 / 2) = fl(||m||^2 - 2 x.m): the two return the same
   values and winners bit for bit, on the card and in their plain versions
   alike.  The JAX package's two forms differ (its K1 takes an XLA-computed
@@ -25,13 +27,14 @@ partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
   `_dist_argmin_masked_kernel`); ||x keep||^2 is added back, so a sample
   with every component masked gets index 0 and value 0.  The masked
   training step's and the masked qerror's winner search.  Its kernel (K4,
-  `csrc/dist_argmin.cu`) runs K1's CTA shape on the tensor cores: (x keep).m
-  by three split-TF32 products, keep.(m o m) by two (keep is exact in
-  TF32), the codebook split by `k4_splits`.  Two runs are bit-equal.
+  `csrc/dist_argmin.cu`) runs the mma.sync walk's CTA shape on the tensor
+  cores: (x keep).m by three split-TF32 products, keep.(m o m) by two (keep
+  is exact in TF32), the codebook split by `k4_splits`.  Two runs are
+  bit-equal.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 beside it.  Any other device raises.  Each wrapper counts its kernel
-launches in its `launches` attribute.
+launches in its `launches` attribute (`split_codes` its prologue's).
 """
 
 from __future__ import annotations
@@ -132,17 +135,124 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
 
 
 def k2_splits(B: int, N: int, device: torch.device) -> int:
-    """K1's and K2's codebook splits (K8's, K10's and K16's too, on the same
-    walk): enough spans of whole 64-row tiles for about two CTAs of 128
-    samples per SM, rounded down to whole waves: exactly two of them fit on
-    an SM (their registers), so a count that leaves a partial second wave
-    costs a whole one (at B 4096, 9 splits would be 288 CTAs on 264 slots
-    of an H100)."""
+    """The codebook splits of the mma.sync walk of K8, K10 and K16: enough
+    spans of whole 64-row tiles for about two CTAs of 128 samples per SM,
+    rounded down to whole waves: exactly two of them fit on an SM (their
+    registers), so a count that leaves a partial second wave costs a whole
+    one (at B 4096, 9 splits would be 288 CTAs on 264 slots of an H100)."""
     return _whole_waves(B, N, device, 2)
 
 
+# K1's and K2's walk (csrc/argmin_sm90.cu): codes per tile (the wgmma's N),
+# samples per CTA, and the fewest tiles a split takes
+K1_TILE = 128
+K1_SAMPLES = 128
+K1_MIN_SPAN = 4
+
+
+def k1_sm90_splits(B: int, N: int, sms: int) -> int:
+    """K1's and K2's codebook splits on a card of `sms` SMs: spans of whole
+    128-code tiles, as many as fill one wave of CTAs of 128 samples, one CTA
+    an SM (its ring takes about 196 KB of shared memory), rounded down to
+    whole waves, and at least K1_MIN_SPAN tiles each, so that a CTA's ring
+    has tiles to overlap: at B 4096 four splits (128 CTAs on an H100's 132
+    SMs), at B 1024 sixteen, at the eval's 1M one, at the scans' B 1 x 4096
+    eight.  Measured on one H100 (PR 23): at B 4096 x 65536 x 64 the walk
+    took 1.84, 0.90, 0.46, 0.46, 0.47 ms at 1, 2, 4, 8, 16 splits; at B 1 x
+    4096, 0.022 ms at 8 splits and 0.034 at 32."""
+    b_tiles, n_tiles = -(-B // K1_SAMPLES), -(-N // K1_TILE)
+    return max(1, min(n_tiles // K1_MIN_SPAN, sms // b_tiles))
+
+
+def k1_sm90_spans(N: int, splits: int) -> list:
+    """The code ranges [lo, hi) the walk's CTAs take for `splits`
+    (csrc/argmin_sm90.cu's launch): spans of ceil(tiles / splits) whole
+    tiles, the last cut at N; only non-empty spans get CTAs."""
+    tiles = -(-N // K1_TILE)
+    span = -(-tiles // splits)
+    return [(t * K1_TILE, min(N, (t + span) * K1_TILE)) for t in range(0, tiles, span)]
+
+
+def split_codes_dp(D: int) -> int:
+    """The row length of K1's split codebook: one 32-feature chunk (a
+    128-byte swizzled row of the TMA tile) up to D 32, else whole
+    64-feature slabs; zeros past D."""
+    return 32 if D <= 32 else -(-D // 64) * 64
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fl(a b + c) with one rounding, as the card's fmaf: a b is
+    exact in float64 and TwoSum recovers the float64 sum's error, which
+    decides only where the float64 sum lies on a float32 rounding midpoint
+    (the one place rounding twice can differ from rounding once)."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    r64 = r.double()
+    inf = torch.full_like(r, float("inf"))
+    o = torch.nextafter(r, torch.where(s > r64, inf, -inf))  # r's neighbour on s's side
+    mid = (s != r64) & ((r64 + o.double()) * 0.5 == s)
+    return torch.where(mid & (e != 0) & ((e > 0) == (o > r)), o, r)
+
+
+def split_codes_plain(codes: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K1/K2 prologue: (hi, lo) (N, Dp) float32, hi = tf32(m) and lo =
+    tf32(m - hi) with zeros past D (Dp = `split_codes_dp(D)`), and m2 (N,)
+    = ||m||^2 summed as the kernel sums it: per 64-feature slab, lane f
+    takes fma(v[f + 32], v[f + 32], v[f] v[f]), the 32 lanes meet by an xor
+    tree over 16, 8, 4, 2, 1 (lane 0's sums), and the slabs add left to
+    right."""
+    from .tf32x3 import tf32_split
+
+    N, D = codes.shape
+    slabs = -(-D // 64)
+    v = torch.zeros((N, 64 * slabs), dtype=torch.float32, device=codes.device)
+    v[:, :D] = codes
+    hi, lo = tf32_split(v[:, :split_codes_dp(D)].contiguous())
+    w = v.view(N, slabs, 2, 32)
+    sq = _fma32(w[:, :, 1], w[:, :, 1], w[:, :, 0] * w[:, :, 0])  # (N, slabs, 32 lanes)
+    lanes = torch.arange(32, device=codes.device)
+    for off in (16, 8, 4, 2, 1):
+        sq = sq + sq[..., lanes ^ off]
+    m2 = sq[:, 0, 0]
+    for sl in range(1, slabs):
+        m2 = m2 + sq[:, sl, 0]
+    return hi, lo, m2
+
+
+def split_codes(codes: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's and K2's prologue alone: the codebook (N, D) float32 split once
+    into TF32 (hi, lo) (N, Dp) rows and ||m||^2 (N,), as `split_codes_plain`
+    computes them, bit for bit.  `dist_argmin` and `dist_argmin_t` launch the
+    same kernel in the C call of their walk, into their scratch, and count
+    it on `split_codes.launches` too."""
+    if codes.dim() != 2 or codes.dtype != torch.float32 or codes.shape[0] == 0:
+        raise ValueError(f"codes {tuple(codes.shape)} {codes.dtype}: a non-empty "
+                         "(N, D) float32 codebook")
+    if codes.device.type == "cpu":
+        return split_codes_plain(codes)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    codes = codes.contiguous()
+    N, D = codes.shape
+    Dp = split_codes_dp(D)
+    hi = torch.empty((N, Dp), dtype=torch.float32, device=codes.device)
+    lo = torch.empty((N, Dp), dtype=torch.float32, device=codes.device)
+    m2 = torch.empty((N,), dtype=torch.float32, device=codes.device)
+    _build.call("somvq_split_codes", codes.data_ptr(), N, D, Dp, hi.data_ptr(),
+                lo.data_ptr(), m2.data_ptr(),
+                torch.cuda.current_stream(codes.device).cuda_stream)
+    split_codes.launches += 1
+    return hi, lo, m2
+
+
 def k4_splits(B: int, N: int, D: int, device: torch.device) -> int:
-    """K4's codebook splits (K9's too, on the same walk): K1's CTAs of 128
+    """K4's codebook splits (K9's too, on the same walk): CTAs of 128
     samples, in whole waves of the CTAs an SM holds: two up to D 64 (its
     registers and 100 KB of shared memory each), one past it (the slab walk
     keeps the tile's sums of both contractions in registers)."""
@@ -155,7 +265,7 @@ def _whole_waves(B: int, N: int, device: torch.device, per_sm: int) -> int:
     return max(1, min(n_tiles, per_sm * sms // b_tiles))
 
 
-def _launch(entry: str, wrapper, splits, x: torch.Tensor, codes: torch.Tensor):
+def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor):
     x = x.contiguous()
     codes = codes.contiguous()
     B, D = x.shape
@@ -164,13 +274,17 @@ def _launch(entry: str, wrapper, splits, x: torch.Tensor, codes: torch.Tensor):
     idx = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B == 0:
         return val, idx
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    # the kernel splits the codebook and folds the splits into a (B,) u64
-    # key scratch
-    keys = torch.empty((B,), dtype=torch.int64, device=x.device)
-    _build.call(entry, x.data_ptr(), codes.data_ptr(), B, N, D,
-                splits(B, N, x.device), keys.data_ptr(),
-                val.data_ptr(), idx.data_ptr(), stream)
+    Dp = split_codes_dp(D)
+    # one C call launches the prologue and the walk; one scratch holds the
+    # prologue's hi, lo (N, Dp) and m2 (N, padded to 4) and the (B,) u64
+    # keys the walk folds its codebook splits into
+    scratch = torch.empty((2 * N * Dp + -(-N // 4) * 4 + 2 * B,), dtype=torch.float32,
+                          device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _build.call(entry, x.data_ptr(), codes.data_ptr(), B, N, D, Dp,
+                k1_sm90_splits(B, N, sms), scratch.data_ptr(), val.data_ptr(),
+                idx.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    split_codes.launches += 1
     wrapper.launches += 1
     # the kernel returns the partial distance; add ||x||^2 here
     return torch.clamp(val + (x * x).sum(-1), min=0.0), idx
@@ -185,7 +299,7 @@ def dist_argmin(x: torch.Tensor, codes: torch.Tensor,
         return dist_argmin_masked(x, codes, mask)
     if _check(x, codes) == "cpu":
         return dist_argmin_plain(x, codes)
-    return _launch("somvq_dist_argmin", dist_argmin, k2_splits, x, codes)
+    return _launch("somvq_dist_argmin", dist_argmin, x, codes)
 
 
 def dist_argmin_masked(x: torch.Tensor, codes: torch.Tensor,
@@ -221,9 +335,10 @@ def dist_argmin_t(x: torch.Tensor, codes: torch.Tensor
     """1-NN winners in the max-score form: (sq_dists, int32 idx)."""
     if _check(x, codes) == "cpu":
         return dist_argmin_t_plain(x, codes)
-    return _launch("somvq_dist_argmin_t", dist_argmin_t, k2_splits, x, codes)
+    return _launch("somvq_dist_argmin_t", dist_argmin_t, x, codes)
 
 
+split_codes.launches = 0
 dist_argmin.launches = 0
 dist_argmin_masked.launches = 0
 dist_argmin_t.launches = 0

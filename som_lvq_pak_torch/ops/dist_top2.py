@@ -24,9 +24,9 @@ ValueError (the lvq2.1 window needs two).
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
 Any other device raises.  Each wrapper counts its kernel launches in its
 `launches` attribute.  K8 is K10's kernel at k = 2 (`csrc/dist_topk.cu`,
-launched through `ops.dist_topk._launch`): K1's split-TF32 tensor-core walk
-with a top-k fold, the codebook split as K1's (`k2_splits`), so its best
-pair is K1's (value, index) bit for bit on the same inputs.  K9
+launched through `ops.dist_topk._launch`): the split-TF32 mma.sync walk
+with a top-k fold, the codebook split by `k2_splits`, its best pair K1's
+(value, index) bit for bit on the same inputs.  K9
 (`csrc/dist_top2.cu`) is K4's masked split-TF32 walk
 (`csrc/masked_walk.cuh`) with the same fold at two, the codebook split as
 K4's (`k4_splits`), so its best pair is `dist_argmin_masked`'s (value,

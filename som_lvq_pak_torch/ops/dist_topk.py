@@ -13,9 +13,11 @@ there; so does k > N.
 The plain version is ops.distance.topk_winners (k first-minimum argmins of
 the full distance, each pick masked out, never `torch.topk`, which promises
 no order among equal values), its values clamped at 0.  A CUDA tensor
-launches the kernel in `csrc/dist_topk.cu`: K1's split-TF32 tensor-core walk
-with a top-k fold, the codebook split as K1's (`k2_splits`), so its first
-column is K1's (value, index) bit for bit on the same inputs.  K8
+launches the kernel in `csrc/dist_topk.cu`: the split-TF32 mma.sync walk
+(K16's, with ||m||^2 summed in the order of K1's prologue) with a top-k
+fold, the codebook split by `k2_splits`; a row's score depends only on its
+own data and K1's products give the same floats, so its first column is
+K1's (value, index) bit for bit on the same inputs.  K8
 (`ops.dist_top2.dist_top2` without a mask) launches the same kernel at k =
 2.  A CPU tensor runs the plain version.  The wrapper counts its kernel
 launches in its `launches` attribute.

@@ -8,8 +8,9 @@ option is K14's `int8_win`, ops/som_step.py).
 
 A CUDA tensor launches the kernel (K15 in `csrc/winner_probe.cu`: warpgroup
 `wgmma` on int8 operands fed by a TMA ring, 128 samples a CTA, the codebook
-split by `k15_splits`; K16 in `csrc/dist_argmin_t.cu`, K2's split-TF32
-tensor-core body without the norm, its codebook split by `k2_splits`); a
+split by `k15_splits`; K16 in `csrc/dist_argmin_t.cu`, the split-TF32
+mma.sync walk K8 and K10 run, without the norm, its codebook split by
+`k2_splits`); a
 CPU tensor runs the plain version beside it.  Any other device raises.  Each
 wrapper counts its kernel launches in its `launches` attribute.
 
