@@ -28,16 +28,18 @@ phases, each printing one JSON line:
             with the three slowest nvcc processes (each source's compile
             seconds, from the build's log); one "ptxas" line: registers and
             spill bytes of each instantiation of K1, K2 and their prologue,
-            K5, K9, K10, K12, K14's walk (its stagger and int8_win) and K15,
+            K8, K4 and its prologue, K5, K9, K10, K12, K14's walk (its
+            stagger and int8_win) and K15,
             from nvcc's -Xptxas -v report; one "sass" line: the HMMA
             (mma.sync tensor-core) instructions in each instantiation of the
-            tensor-core kernels K3, K4, K5, K6, K7, K9, K10 (K8 its KM 2),
+            tensor-core kernels K3, K5, K6, K7, K9, K10,
             K11, K12, K13, K14's main form and its walk, K16 and K17, the
-            HGMMA (TF32 wgmma) instructions in each of K1's and K2's (which
-            must have no HMMA), the IMMA (int8 mma.sync) instructions in
-            each instantiation of K14's int8_win walk, the IGMMA (int8
-            wgmma) instructions in each of K15's, and the UTMALDG (TMA tile
-            loads) in each of K1's, K2's and K15's, from cuobjdump
+            HGMMA (TF32 wgmma) instructions in each of K1's, K2's, K8's and
+            K4's (which must have no HMMA), the IMMA (int8 mma.sync)
+            instructions in each instantiation of K14's int8_win walk, the
+            IGMMA (int8 wgmma) instructions in each of K15's, and the
+            UTMALDG (TMA tile loads) in each of K1's, K2's, K8's, K4's and
+            K15's, from cuobjdump
             --dump-sass of the library (none fails the run, as does an IDP4A
             anywhere in it);
             then g++ builds the native data-file engine (data/native_io.py
@@ -56,7 +58,9 @@ phases, each printing one JSON line:
             reach, and run twice on the same inputs, bit-equal.  K1 and
             K2's prologue (split_codes: the codebook split into TF32 hi and
             lo, ||m||^2) is bit-equal to its plain version at D 5, 37, 64,
-            130 and 65536 x 64.  K1 is
+            130 and 65536 x 64, and so is K4's (split_masked_codes: m and m
+            o m split into TF32 hi and lo) at 65536 x 64, D 5, 37 and 130,
+            its times in K4's record (prologue_ms, prologue_launch_ms).  K1 is
             also bit-equal to K2 on the same inputs at every K1 shape (one
             walk), and the
             min over K1 on two shards of a codebook (split off a tile
@@ -385,11 +389,12 @@ both indices equal the plain version's), at N = 2, D 37 and D 130, and at
 the per-sample lvq2/lvq3 scans' step, B 1 x 4096 x 64 (K9 once with its one
 row partly masked, once with it fully masked); K9 with p = 0.1 and fully
 masked rows; each shape run twice (bit-equal), the best
-pair bit-equal to the same walk's argmin (K1's for K8, K4's for K9) on the
-same inputs, with its route's bound (6 B N D; 10 B N D for K9).  K10
+pair bit-equal to the same sums' argmin (K1's for K8, K4's for K9) on the
+same inputs, K8's pairs bit-equal to K10's at k = 2 (the mma.sync walk),
+with its route's bound (6 B N D; 10 B N D for K9).  K10
 (dist_topk) at the mesh step's shapes (B 512 and 1024 x 32768 x 64, k = 2),
-K8's shapes at k = 2 (its pairs K8's bit for bit: K8 is this kernel at
-k = 2, launched through dist_top2's wrapper), the mesh rank's shape at
+K8's shapes at k = 2 (its pairs K8's bit for bit: K8 is K1's wgmma walk
+with a top-2 fold, the same scores), the mesh rank's shape at
 k = 4, 8 and 16 (one "k10_km" line: the time of each list width KM beside
 its ptxas spills), small shapes at k = 1, 5 and 16, and every code twice;
 each run twice (bit-equal), its column 0 K1's (value, index) bit for bit,
@@ -447,17 +452,15 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32 on
-# mma.sync: K3, K4 (the mma.sync winner walk's CTA shape with the keep
-# contraction), K6, K11 (K3's update half), K12 (K3's blend-and-winner
+# mma.sync: K3, K6, K11 (K3's update half), K12 (K3's blend-and-winner
 # half), K13 (K3's body with the separable W), K14's main form (K13's body;
 # one TF32 product under batch_bf16) and its walk (stagger and int8_win:
 # the same body's chunk functions; int8_win's winners on int8 mma.sync, the
 # IMMA of INT8_MMA_KERNELS), K16 (the mma.sync winner walk), K17
-# (its bf16 twin as one TF32 product), K10 (that walk with a top-k fold;
-# K8 is its instantiation at KM 2, launched at k = 2), K7 (K3's step body
-# on the resident codebook), K9 (K4's walk with K10's fold at KM 2) and K5
-# (K3's update half with the blend)
-SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_masked_kernel",
+# (its bf16 twin as one TF32 product), K10 (that walk with a top-k fold),
+# K7 (K3's step body on the resident codebook), K9 (the masked mma.sync walk
+# with K10's fold at KM 2) and K5 (K3's update half with the blend)
+SPLIT_TF32_KERNELS = ("som_fused_step_kernel",
                       "som_update_masked_kernel", "som_accum_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
@@ -469,9 +472,11 @@ SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "dist_argmin_masked_kernel",
 INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 # K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
 INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
-# K1 and K2 (one walk, two names): split-TF32 products on warpgroup wgmma
-# (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
-TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel")
+# K1 and K2 (one walk, two names), K8 (that walk with a top-2 fold) and K4
+# (the walk with the keep contraction beside it): split-TF32 products on
+# warpgroup wgmma (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
+TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel", "top2_sm90_kernel",
+                      "masked_argmin_sm90_kernel")
 TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -581,7 +586,8 @@ def sass_mma(dump: dict, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict:
 
 def sass_none(dump: dict, kernels, op: str) -> dict:
     """The `op` instructions in each instantiation of `kernels`, which must
-    have none (K1's and K2's HMMA: their products run on wgmma); raises
+    have none (K1's, K2's, K8's and K4's HMMA: their products run on
+    wgmma); raises
     otherwise, or if no instantiation is found."""
     counts = {}
     for name, insns in dump.items():
@@ -634,16 +640,19 @@ def template_args(name: str, base: str) -> list:
 
 
 def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
-                                  "split_codes_kernel",
+                                  "split_codes_kernel", "top2_sm90_kernel",
+                                  "masked_argmin_sm90_kernel",
+                                  "split_masked_codes_kernel",
                                   "dist_topk_kernel", "som_blend_winner_kernel",
                                   "dist_top2_masked_kernel", "som_update_kernel",
                                   "som_fused_chunked_stagger_kernel",
                                   "som_fused_chunked_int8_kernel",
                                   "int8_winner_probe_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
-    (K1, K2 and their prologue, K10, K12, K9, K5, K14's walk and K15 unless
-    given), from nvcc's -Xptxas -v
-    report (the build's log): {"name<args>":
+    (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5,
+    K14's walk and K15 unless given), from nvcc's -Xptxas -v
+    report (the build's log; K4's registers are its launch's 168 a thread,
+    before its warpgroups' setmaxnreg split): {"name<args>":
     {"registers", "spill_stores", "spill_loads"}}."""
     import re
 
@@ -791,58 +800,65 @@ def phase_distance(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
     return rec
 
 
-def phase_split_codes(N, D, seed, iters=10):
-    """K1's and K2's prologue (ops.dist_argmin.split_codes) against its plain
-    version on rows over six decades of scale: hi, lo and ||m||^2 bit for bit
-    (the plain version re-enacts the kernel's order of the sums), run twice
-    (bit-equal).  Its bound: the codebook read once, hi, lo (N, Dp) and m2
-    written once.  ms is the wrapper's call (its three outputs allocated
-    each time, as K1's and K2's calls allocate their scratch); launch_ms the
-    kernel's C entry alone into the same outputs, back to back: the
-    device's time where the host's per-call work is shorter."""
+def phase_split_codes(N, D, seed, iters=10, masked=False):
+    """K1's and K2's prologue (ops.dist_argmin.split_codes), or with `masked`
+    K4's (split_masked_codes), against its plain version on rows over six
+    decades of scale: hi, lo and ||m||^2 (K4's: hi, lo and m o m's hi and lo)
+    bit for bit (the plain version re-enacts the kernel's order of the
+    sums), run twice (bit-equal).  Its bound: the codebook read once, its
+    (N, Dp) arrays and m2 written once.  ms is the wrapper's call (its
+    outputs allocated each time, as K1's, K2's and K4's calls allocate their
+    scratch); launch_ms the kernel's C entry alone into the same outputs,
+    back to back: the device's time where the host's per-call work is
+    shorter."""
     import torch
 
     from som_lvq_pak_torch import _build
-    from som_lvq_pak_torch.ops.dist_argmin import split_codes, split_codes_plain
+    from som_lvq_pak_torch.ops import dist_argmin as da
 
+    fn, plain, name = ((da.split_masked_codes, da.split_masked_codes_plain,
+                        "split_masked_codes") if masked else
+                       (da.split_codes, da.split_codes_plain, "split_codes"))
     g = torch.Generator(device="cuda").manual_seed(seed)
     scale = 10.0 ** (6.0 * torch.rand((N, 1), generator=g, device="cuda") - 3.0)
     codes = torch.randn((N, D), generator=g, device="cuda") * scale
-    got, again, want = split_codes(codes), split_codes(codes), split_codes_plain(codes)
+    got, again, want = fn(codes), fn(codes), plain(codes)
     torch.cuda.synchronize()
-    name = f"split_codes {N}x{D}"
+    label = f"{name} {N}x{D}"
     if not all(bits_equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"{name}: two runs on the same inputs differ")
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
     if not all(bits_equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"{name}: not bit-equal to split_codes_plain")
-    hi, lo, m2 = got
-    Dp = hi.shape[1]
+        raise AssertionError(f"{label}: not bit-equal to {plain.__name__}")
+    Dp = got[0].shape[1]
     stream = torch.cuda.current_stream().cuda_stream
-    rec = dict(kernel="split_codes", shape=[N, D], Dp=Dp, bit_equal_plain=True,
+    # written: hi, lo (N, Dp) and m2 (N,); K4's four (N, Dp) arrays
+    written = 16 * N * Dp if masked else 8 * N * Dp + 4 * N
+    rec = dict(kernel=name, shape=[N, D], Dp=Dp, bit_equal_plain=True,
                bit_equal_rerun=True, max_abs_err=0.0,
-               ms=cuda_ms(lambda: split_codes(codes), iters),
+               ms=cuda_ms(lambda: fn(codes), iters),
                launch_ms=cuda_ms(lambda: _build.call(
-                   "somvq_split_codes", codes.data_ptr(), N, D, Dp, hi.data_ptr(),
-                   lo.data_ptr(), m2.data_ptr(), stream), 10 * iters),
-               plain_ms=cuda_ms(lambda: split_codes_plain(codes), iters),
-               **bound(2 * N * D, 4 * N * D + 8 * N * Dp + 4 * N))
+                   f"somvq_{name}", codes.data_ptr(), N, D, Dp,
+                   *(t.data_ptr() for t in got), stream), 10 * iters),
+               plain_ms=cuda_ms(lambda: plain(codes), iters),
+               **bound((1 if masked else 2) * N * D, 4 * N * D + written))
     emit("kernels", **rec)
     return rec
 
 
 def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
-               mask_p=None, library=False, twin=None, full_rows=True):
+               mask_p=None, library=False, twin=None, full_rows=True, topk_twin=False):
     """K8 (or K9 with mask_p) against the plain top-2: both winners equal
     except at near-ties, values within 1e-4.  With `dup` every code is there
     twice: each sample's pair is a row and its copy, exactly the plain
     version's indices.  A fully masked row (every 97th, the first included,
     unless full_rows is False) must get (0, 0, 0, 1).  With
     `library`, the library_ms of addmm then topk(2).  With `twin` (K1 beside
-    K8, K4 beside K9: one walk each) the kernel runs twice on the same
+    K8, K4 beside K9: the same scores each) the kernel runs twice on the same
     inputs, bit-equal, its best pair must be the twin's (value, index) bit
     for bit, and the record carries its split-TF32 route's bound (6 B N D
     TF32 FLOPs; 10 B N D under a mask, keep.(m o m) by two products) and
-    share."""
+    share.  With `topk_twin` (K8) both pairs must be K10's (dist_topk at
+    k = 2, the mma.sync walk) bit for bit."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -867,6 +883,13 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
                 and torch.equal(k[1], it)):
             raise AssertionError(f"{name}: the best pair is not {twin.__name__}'s "
                                  "(value, index) bit for bit")
+    if topk_twin:
+        from som_lvq_pak_torch.ops.dist_topk import dist_topk
+
+        vk, ik = dist_topk(x, codes, 2)
+        if not all(bits_equal(vk[:, c], k[2 * c]) and torch.equal(ik[:, c], k[2 * c + 1])
+                   for c in (0, 1)):
+            raise AssertionError(f"{name}: the pairs are not dist_topk's at k = 2 bit for bit")
     n_diff = sum(check_winners(f"{name} {w}", x, codes, k[j], p[j], mask=mask)
                  for w, j in (("best", 1), ("second", 3)))
     err = max(float((k[j] - p[j]).abs().max()) for j in (0, 2))
@@ -897,6 +920,7 @@ def phase_top2(name, kernel, plain, B, N, D, seed, dup=False, iters=10,
                winners_differ=n_diff, max_abs_err=err,
                **({} if twin is None else {"bit_equal_rerun": True,
                                            "best_bit_equal_to": twin.__name__}),
+               **({"pairs_bit_equal_to": "dist_topk k=2"} if topk_twin else {}),
                ms=cuda_ms(lambda: kernel(*args), iters),
                plain_ms=cuda_ms(lambda: plain(*args), iters),
                **bound((4 if masked else 2) * B * N * D,
@@ -2279,17 +2303,17 @@ def counted():
 
 
 def with_prologue(kernels) -> tuple:
-    """`kernels`, and K1's and K2's prologue (split_codes) wherever K1 or K2
-    is among them: every K1 or K2 call launches it first."""
+    """`kernels`, and K1's and K2's prologue (split_codes) wherever K1, K2 or
+    K8 is among them: every K1, K2 or K8 call launches it first."""
     kernels = tuple(kernels)
-    return kernels + (("split_codes",) if {"dist_argmin", "dist_argmin_t"} & set(kernels)
-                      else ())
+    return kernels + (("split_codes",) if {"dist_argmin", "dist_argmin_t", "dist_top2"}
+                      & set(kernels) else ())
 
 
 def main_path(name, run, kernels, plain_run=None):
     """Run one main path with every launch counter set to 0 first; each of
     `kernels` must have launched, and K1's and K2's prologue (split_codes)
-    wherever K1 or K2 is among them.  `plain_run`, if given, runs the same
+    wherever K1, K2 or K8 is among them.  `plain_run`, if given, runs the same
     path through the plain versions and must launch nothing.  Returns
     (result, plain result, launches)."""
     fns = counted()
@@ -4520,7 +4544,7 @@ def main() -> int:
     dump = sass(_build.library_path())
     emit("sass", hmma_per_function=sass_mma(dump),
          hgmma_per_function=sass_mma(dump, TF32_WGMMA_KERNELS, "HGMMA"),
-         hmma_in_k1_k2=sass_none(dump, TF32_WGMMA_KERNELS, "HMMA"),
+         hmma_in_tf32_wgmma=sass_none(dump, TF32_WGMMA_KERNELS, "HMMA"),
          imma_per_function=sass_mma(dump, INT8_MMA_KERNELS, "IMMA"),
          igmma_per_function=sass_mma(dump, INT8_WGMMA_KERNELS, "IGMMA"),
          utmaldg_per_function=sass_mma(dump, TMA_KERNELS, "UTMALDG"),
@@ -4584,7 +4608,8 @@ def main() -> int:
     # H100), a mesh rank's step (B 512 x 32768), the LVQ accuracy's one
     # launch over the 1M data, D 37 and D 130 (three 64-feature slabs); each
     # run twice and beside K2.  K1 and K4 at the masked LVQ cell's step
-    # (B 1024 against 4096 codes: 64 tiles, two per split)
+    # (B 1024 against 4096 codes: K1 8 splits of four 128-code tiles, K4 8
+    # of eight 64-code tiles)
     k1_kw = dict(rerun=True, twin=dist_argmin_t)
     k1_ms = {}
     for shape, seed, iters in (((1024, 65536, 64), 9, 10), ((512, 32768, 64), 17, 10),
@@ -4621,14 +4646,20 @@ def main() -> int:
     # 0, value 0)
     phase_distance("dist_argmin_masked", dist_argmin_masked, dist_argmin_masked_plain, 1,
                    4096, 64, seed=72, mask_p=0.1, rerun=True)
-    # K4 at a ragged D and at D 130 (three 64-feature slabs, its one-CTA-per-SM
-    # instantiation), each run twice
+    # K4 at a ragged D and at D 130 (three 64-feature slabs, the A and keep
+    # fragments reloaded per slab), each run twice
     for shape, seed in (((777, 3001, 37), 51), ((1000, 2999, 130), 52)):
         r = phase_distance("dist_argmin_masked", dist_argmin_masked,
                            dist_argmin_masked_plain, *shape, seed=seed, mask_p=0.1,
                            rerun=True)
         recs["dist_argmin_masked"]["max_abs_err"] = max(
             recs["dist_argmin_masked"]["max_abs_err"], r["max_abs_err"])
+    # K4's prologue alone at the 65,536-code codebook (its times into K4's
+    # record), then D 5, 37 and 130, each bit-equal to its plain version
+    rs = [phase_split_codes(N, D, seed=90 + D, masked=True)
+          for N, D in ((65536, 64), (999, 5), (3001, 37), (2999, 130))]
+    recs["dist_argmin_masked"].update(prologue_ms=rs[0]["ms"],
+                                      prologue_launch_ms=rs[0]["launch_ms"])
     # K1 on two shards of the codebook against the whole: the sharded winner
     phase_k1_shards(4096, 65536, 64, 30001, seed=49)
     phase_k1_shards(512, 32768, 64, 16411, seed=50)
@@ -4637,8 +4668,9 @@ def main() -> int:
     # exact-tie and two-code shapes, a ragged D 37 and D 130 (three
     # 64-feature slabs), every shape run twice (bit-equal) and beside the
     # walk's argmin (K1 for K8, K4 for K9: the best pair bit for bit; the
-    # masked dist_argmin is K4); last the per-sample lvq2/lvq3 scans' step
-    # (B 1 x 4096: K9's one row partly masked, then fully masked)
+    # masked dist_argmin is K4), K8's pairs also K10's at k 2; last the
+    # per-sample lvq2/lvq3 scans' step (B 1 x 4096: K9's one row partly
+    # masked, then fully masked)
     for name, k, mask_p in (("dist_top2", dist_top2, None),
                             ("dist_top2_masked", dist_top2_masked, 0.1)):
         cases = (((1024, 65536, 64), 10, False, True), ((1024, 4096, 64), 16, False, True),
@@ -4649,7 +4681,7 @@ def main() -> int:
             cases += (((1, 4096, 64), 74, False, True),)
         rs = [phase_top2(name, k, dist_top2_plain, *shape, seed=seed, dup=dup,
                          mask_p=mask_p, library=j == 0, twin=dist_argmin,
-                         full_rows=full)
+                         full_rows=full, topk_twin=mask_p is None)
               for j, (shape, seed, dup, full) in enumerate(cases)]
         recs[name] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # the LVQ steps' segment sum (not a TPU kernel: its own line at the end)
@@ -5145,7 +5177,7 @@ def main() -> int:
                         "K1's m2_ref) and :446 (in K2's kernel)"),
         "som_fused_train_step": ("som_lvq_pak_torch/csrc/som_fused_step.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:580"),
-        "dist_argmin_masked": ("som_lvq_pak_torch/csrc/dist_argmin.cu",
+        "dist_argmin_masked": ("som_lvq_pak_torch/csrc/argmin_masked_sm90.cu",
                                "som_lvq_pak_tpu/ops/pallas_distance.py:74"),
         "som_neighborhood_update_idx": ("som_lvq_pak_torch/csrc/som_update.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:116"),
@@ -5153,7 +5185,7 @@ def main() -> int:
                                                "som_lvq_pak_tpu/ops/pallas_som.py:152"),
         "som_vmem_train_steps": ("som_lvq_pak_torch/csrc/som_vmem_steps.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:1449"),
-        "dist_top2": ("som_lvq_pak_torch/csrc/dist_topk.cu",
+        "dist_top2": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:295"),
         "dist_top2_masked": ("som_lvq_pak_torch/csrc/dist_top2.cu",
                              "som_lvq_pak_tpu/ops/pallas_distance.py:308"),
@@ -5199,7 +5231,8 @@ def main() -> int:
          "plain_ms": recs[name]["plain_ms"], "bound_ms": recs[name]["bound_ms"],
          "bound_by": recs[name]["bound_by"], "library_ms": recs[name]["library_ms"],
          "shape": recs[name]["shape"],
-         **{k: recs[name][k] for k in ("route_bound_ms", "route_pct") if k in recs[name]}}
+         **{k: recs[name][k] for k in ("route_bound_ms", "route_pct", "prologue_ms",
+                                       "prologue_launch_ms") if k in recs[name]}}
         for name in sources]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

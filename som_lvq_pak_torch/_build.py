@@ -40,8 +40,12 @@ _SIGNATURES = {
     "somvq_dist_argmin": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, codes, B, N, D, Dp, splits, scratch, val, idx, stream
     "somvq_dist_argmin_t": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # x, mask, codes, B, N, D, splits, keys, val, idx, stream
-    "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # x, codes, B, N, D, Dp, splits, scratch, v1, i1, v2, i2, stream
+    "somvq_dist_top2": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # codes, N, D, Dp, hi, lo, qhi, qlo, stream
+    "somvq_split_masked_codes": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # x, mask, codes, B, N, D, Dp, splits, scratch, val, idx, stream
+    "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
     "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P],

@@ -1,5 +1,6 @@
-// Cross-CTA (min, first argmin) fold shared by K4 (dist_argmin.cu), K1 and
-// K2 (argmin_sm90.cu, on -2 * the max score), K16 and the fused SOM steps.
+// Cross-CTA (min, first argmin) fold shared by K1 and K2 (argmin_sm90.cu) and
+// K4 (argmin_masked_sm90.cu), on -2 * the max score, K16 and the fused SOM
+// steps.
 //
 // The TPU kernels fold their running (min, argmin) across an in-order grid;
 // Hopper CTAs run in any order.  Each CTA therefore packs its candidate as

@@ -1,12 +1,15 @@
-// K1 and K2 on Hopper: the 1-NN winner search.  For each sample x_b, the
-// codebook row m_n that minimises ||x_b - m_n||^2 (the lowest n on exact
-// ties), reported as the partial distance ||m_n||^2 - 2 x_b.m_n.
+// K1, K2 and K8 on Hopper: the 1-NN and 2-NN winner searches.  For each
+// sample x_b, the codebook row m_n that minimises ||x_b - m_n||^2 (the
+// lowest n on exact ties), or the two smallest (value, index) pairs,
+// reported as the partial distance ||m_n||^2 - 2 x_b.m_n.
 //
-// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+// Replaces three TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
 //   * _dist_argmin_kernel (:60, wrapper dist_argmin, the distance form
 //     ||m||^2 - 2 x.m with a strict-< running min)     -> dist_argmin_kernel (K1)
 //   * _dist_argmin_t_kernel (:426, wrapper dist_argmin_t, the max-score form
 //     x.m - ||m||^2 / 2, reported as -2 * the best)   -> dist_argmin_t_kernel (K2)
+//   * _dist_top2_kernel (:295, wrapper dist_top2, the running (best, second)
+//     pair, strict <, earlier tile kept)              -> top2_sm90_kernel (K8)
 // and the ||m||^2 row the JAX wrapper of K1 computes in XLA (its m2_ref),
 // here split_codes_kernel, the walk's prologue.  The two forms give the
 // same floats: halving and doubling are exact, so -2 fl(x.m - ||m||^2 / 2)
@@ -59,11 +62,28 @@
 // take turns to issue their products (named barriers, as K15's) and each
 // folds under the other's (at B 4096: 0.29 ms, 0.33-0.34 without the
 // turns).  Two accumulators in one warpgroup (a tile's fold under its
-// successor's products) would not fit beside the A fragments in the 224
-// registers a thread of a 288-thread CTA can hold.  Every sum runs in a
+// successor's products) would not fit beside the A fragments in the 168
+// registers ptxas gives a thread of a 288-thread CTA (it allots registers to
+// whole warpgroups; K4's walk, argmin_masked_sm90.cu, moves them from a
+// producer warpgroup to its consumers with setmaxnreg).  Every sum runs in a
 // fixed order and a row's value depends only on its own data, not on the
 // tile, split or shard that holds it: two runs are bit-equal, and the min
 // over shards of a codebook is the whole run's.
+//
+// K8 is the same walk with a top-2 fold (topk_fold.cuh's ListFold at 2):
+// per sample the lane keeps a sorted (best, second) of (score, code); only
+// where the tile's max (the same max tree) beats the sample's bar, the
+// highest second of its four lanes at the tile's start (two shuffles), does
+// it visit its 32 scores of the tile in ascending code order, four at a
+// time and only where their max beats the bar and its own second too, each
+// entering on a strict >.  A code at or below the bar has two better codes
+// of lower index in one lane, so it cannot be in the sample's pair, and a
+// later code of an equal score never enters: the pairs are exact.  The four lanes
+// merge their lists (merge_lists), each codebook split writes its pairs as
+// partial distances (-2 * the score, -0 to +0) to a (splits, B, 2) scratch,
+// and topk_merge_splits<2> folds the splits in split order.  Its scores are
+// K1's floats, so its best pair is K1's (value, index) and its pairs are
+// K10's at k 2 (dist_topk.cu, on mma.sync) bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -73,6 +93,7 @@
 
 #include "argmin_tc.cuh"
 #include "sm90_pipe.cuh"
+#include "topk_fold.cuh"
 
 namespace {
 
@@ -149,12 +170,14 @@ int split(const float* codes, int N, int D, int Dp, float* hi, float* lo, float*
 
 // The walk of CTA (blockIdx.x, blockIdx.y): samples blockIdx.x * BS.., the
 // tiles [blockIdx.y * span, +span) of the codebook, in nslab slabs of
-// 32 KC features each
-template <int KC>
+// 32 KC features each; the argmin fold into `keys` (K1, K2), or with kTop2
+// the top-2 fold into split blockIdx.y's pairs of pv/pi (K8)
+template <int KC, bool kTop2>
 __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMap* lo_map,
                                      const CUtensorMap* m2_map, const float* __restrict__ x,
                                      int B, int N, int D, int nslab, int span, int stages,
-                                     unsigned long long* __restrict__ keys) {
+                                     unsigned long long* __restrict__ keys,
+                                     float* __restrict__ pv, int* __restrict__ pi) {
   constexpr int KS = 4 * KC;  // k steps of 8 features a slab
   constexpr int SW = CHUNK * KC;
   constexpr int SLOT = slot_bytes<KC>();
@@ -205,6 +228,7 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
   if (nslab == 1) load_x<KS, false>(ahi, alo, x, B, D, b0, 0, lane);
   float best[2] = {-INFINITY, -INFINITY};
   int bidx[2] = {INT_MAX, INT_MAX};
+  ListFold<2> top2;  // K8: each sample's (best, second), sorted
   float S[64];
   int s = 0;
   uint32_t phase = 0;
@@ -260,7 +284,10 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
       // per sample, the tile's best score by a max tree; only where it beats
       // the running best (rarely, past the first tiles) the first code that
       // reaches it: the (max, first index) a strict > over ascending codes
-      // keeps, with fewer instructions on the path every tile takes
+      // keeps, with fewer instructions on the path every tile takes.  K8:
+      // only where it beats the sample's bar, the lane's codes in ascending
+      // order into the pair, four at a time where their max beats the bar
+      // and the lane's second too
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float m[TN / 16];
@@ -272,7 +299,27 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
         for (int w = TN / 32; w >= 1; w >>= 1)
 #pragma unroll
           for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
-        if (m[0] > best[h]) {
+        if constexpr (kTop2) {
+          // the sample's bar: the highest second of its four lanes, whose
+          // codes all precede this tile's; a code at or below it has two
+          // better ones in that lane and cannot enter the sample's pair
+          float bar = top2.s[h][1];
+          bar = fmaxf(bar, __shfl_xor_sync(0xffffffffu, bar, 1));
+          bar = fmaxf(bar, __shfl_xor_sync(0xffffffffu, bar, 2));
+          if (m[0] > bar) {
+#pragma unroll
+            for (int j = 0; j < TN / 16; ++j) {  // four codes: column blocks 2j, 2j + 1
+              const float gm = fmaxf(fmaxf(S[8 * j + 2 * h], S[8 * j + 2 * h + 1]),
+                                     fmaxf(S[8 * j + 4 + 2 * h], S[8 * j + 4 + 2 * h + 1]));
+              if (gm > fmaxf(bar, top2.s[h][1])) {
+#pragma unroll
+                for (int c = 4 * j; c < 4 * j + 4; ++c)
+                  top2.visit(h, S[4 * (c >> 1) + 2 * h + (c & 1)],
+                             n0 + 8 * (c >> 1) + 2 * t + (c & 1));
+              }
+            }
+          }
+        } else if (m[0] > best[h]) {
           int k = 0;
 #pragma unroll
           for (int c = TN / 4 - 1; c >= 0; --c)
@@ -287,19 +334,22 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
     if (++s == stages) s = 0, phase ^= 1;
   }
 
-  merge_fold(best, bidx, b0, B, lane, keys);
+  if constexpr (kTop2)
+    top2.write(b0, B, lane, blockIdx.y, 2, pv, pi);
+  else
+    merge_fold(best, bidx, b0, B, lane, keys);
 }
 
 // K1 (the distance form's wrapper dist_argmin) and K2 (dist_argmin_t): one
-// walk, two names
+// walk, two names; K8 (dist_top2) the walk with the top-2 fold
 template <int KC>
 __global__ void __launch_bounds__(THREADS, 1)
 dist_argmin_kernel(const __grid_constant__ CUtensorMap hi_map,
                    const __grid_constant__ CUtensorMap lo_map,
                    const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
                    int B, int N, int D, int nslab, int span, int stages,
-                   unsigned long long* __restrict__ keys) {
-  walk<KC>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys);
+                   unsigned long long* __restrict__ keys, float* pv, int* pi) {
+  walk<KC, false>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys, pv, pi);
 }
 
 template <int KC>
@@ -308,15 +358,27 @@ dist_argmin_t_kernel(const __grid_constant__ CUtensorMap hi_map,
                      const __grid_constant__ CUtensorMap lo_map,
                      const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
                      int B, int N, int D, int nslab, int span, int stages,
-                     unsigned long long* __restrict__ keys) {
-  walk<KC>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys);
+                     unsigned long long* __restrict__ keys, float* pv, int* pi) {
+  walk<KC, false>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys, pv, pi);
 }
 
-enum Kind { kK1, kK2 };
+template <int KC>
+__global__ void __launch_bounds__(THREADS, 1)
+top2_sm90_kernel(const __grid_constant__ CUtensorMap hi_map,
+                 const __grid_constant__ CUtensorMap lo_map,
+                 const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
+                 int B, int N, int D, int nslab, int span, int stages,
+                 unsigned long long* __restrict__ keys, float* pv, int* pi) {
+  walk<KC, true>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys, pv, pi);
+}
 
+enum Kind { kK1, kK2, kK8 };
+
+// the walk over the non-empty spans of `splits`; their count into `used`
 template <int KC, Kind kKind>
 int launch(const float* x, const float* hi, const float* lo, const float* m2, int B, int N,
-           int D, int Dp, int splits, unsigned long long* keys, cudaStream_t stream) {
+           int D, int Dp, int splits, unsigned long long* keys, float* pv, int* pi,
+           int& used, cudaStream_t stream) {
   CUtensorMap hi_map, lo_map, m2_map;
   int rc = sm90::encode_map(&hi_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, hi, N, Dp, CHUNK, TN,
                             CU_TENSOR_MAP_SWIZZLE_128B);
@@ -329,39 +391,56 @@ int launch(const float* x, const float* hi, const float* lo, const float* m2, in
   if (rc) return rc;
   constexpr int stages = ring_stages<KC>();
   constexpr int bytes = ALIGN + stages * slot_bytes<KC>() + BARRIER_BYTES;
-  auto kernel = kKind == kK1 ? dist_argmin_kernel<KC> : dist_argmin_t_kernel<KC>;
+  auto kernel = kKind == kK1   ? dist_argmin_kernel<KC>
+                : kKind == kK2 ? dist_argmin_t_kernel<KC>
+                               : top2_sm90_kernel<KC>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return (int)attr;
   // `splits` spans of whole tiles; every span used is non-empty
   const int tiles = (N + TN - 1) / TN;
   const int span = (tiles + splits - 1) / splits;
-  const dim3 grid((B + BS - 1) / BS, (tiles + span - 1) / span);
+  used = (tiles + span - 1) / span;
+  const dim3 grid((B + BS - 1) / BS, used);
   kernel<<<grid, THREADS, bytes, stream>>>(hi_map, lo_map, m2_map, x, B, N, D, Dp / (CHUNK * KC),
-                                          span, stages, keys);
+                                          span, stages, keys, pv, pi);
   return (int)cudaGetLastError();
 }
 
 // the prologue, then the walk on its split: scratch holds hi (N, Dp), lo
-// (N, Dp), m2 (N, padded to 4) and the (B,) u64 keys, in that order
+// (N, Dp), m2 (N, padded to 4), then K1's and K2's (B,) u64 keys, or K8's
+// (splits, B, 2) pair values and indices, in that order; K1 and K2 write
+// (val, idx), K8 (val, idx) and (val2, idx2)
 template <Kind kKind>
 int search(const float* x, const float* codes, int B, int N, int D, int Dp, int splits,
-           float* scratch, float* val, int* idx, cudaStream_t stream) {
+           float* scratch, float* val, int* idx, float* val2, int* idx2,
+           cudaStream_t stream) {
   if (B <= 0 || splits < 1 || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   float* hi = scratch;
   float* lo = hi + (size_t)N * Dp;
   float* m2 = lo + (size_t)N * Dp;
-  auto* keys = reinterpret_cast<unsigned long long*>(m2 + (N + 3) / 4 * 4);
+  float* tail = m2 + (N + 3) / 4 * 4;
+  auto* keys = reinterpret_cast<unsigned long long*>(tail);
+  float* pv = tail;
+  int* pi = reinterpret_cast<int*>(pv + (size_t)splits * B * 2);
   int rc = split(codes, N, D, Dp, hi, lo, m2, stream);
   if (rc) return rc;
-  init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
-  rc = (int)cudaGetLastError();
+  if (kKind != kK8) {
+    init_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  int used = 0;
+  rc = Dp == CHUNK
+           ? launch<1, kKind>(x, hi, lo, m2, B, N, D, Dp, splits, keys, pv, pi, used, stream)
+           : launch<2, kKind>(x, hi, lo, m2, B, N, D, Dp, splits, keys, pv, pi, used, stream);
   if (rc) return rc;
-  rc = Dp == CHUNK ? launch<1, kKind>(x, hi, lo, m2, B, N, D, Dp, splits, keys, stream)
-                   : launch<2, kKind>(x, hi, lo, m2, B, N, D, Dp, splits, keys, stream);
-  if (rc) return rc;
-  unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
+  if (kKind == kK8)
+    topk_merge_splits<2><<<(B + 255) / 256, 256, 0, stream>>>(pv, pi, B, 2, used,
+                                                              PairOut{val, val2, idx, idx2});
+  else
+    unpack_keys<<<(B + 255) / 256, 256, 0, stream>>>(keys, B, val, idx);
   return (int)cudaGetLastError();
 }
 
@@ -380,7 +459,8 @@ extern "C" int somvq_split_codes(const float* codes, int N, int D, int Dp, float
 extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B, int N, int D,
                                  int Dp, int splits, float* scratch, float* val, int* idx,
                                  cudaStream_t stream) {
-  return search<kK1>(x, codes, B, N, D, Dp, splits, scratch, val, idx, stream);
+  return search<kK1>(x, codes, B, N, D, Dp, splits, scratch, val, idx, nullptr, nullptr,
+                     stream);
 }
 
 // K2; val gets -2 * the best score x.m - ||m||^2 / 2, the same float as K1's
@@ -388,5 +468,21 @@ extern "C" int somvq_dist_argmin(const float* x, const float* codes, int B, int 
 extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B, int N, int D,
                                    int Dp, int splits, float* scratch, float* val, int* idx,
                                    cudaStream_t stream) {
-  return search<kK2>(x, codes, B, N, D, Dp, splits, scratch, val, idx, stream);
+  return search<kK2>(x, codes, B, N, D, Dp, splits, scratch, val, idx, nullptr, nullptr,
+                     stream);
+}
+
+// K8: the prologue, then the walk with the top-2 fold, then the split merge;
+// scratch: 2 N Dp + 4 ceil(N / 4) + 4 splits B floats, 16-byte aligned
+// (search's layout); (v1, i1) and (v2, i2) get the best and second pairs,
+// partial distances ||m||^2 - 2 x.m, N >= 2
+extern "C" int somvq_dist_top2(const float* x, const float* codes, int B, int N, int D,
+                               int Dp, int splits, float* scratch, float* v1, int* i1,
+                               float* v2, int* i2, cudaStream_t stream) {
+  if (N < 2) return (int)cudaErrorInvalidValue;
+  return search<kK8>(x, codes, B, N, D, Dp, splits, scratch, v1, i1, v2, i2, stream);
+}
+
+extern "C" const char* somvq_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }

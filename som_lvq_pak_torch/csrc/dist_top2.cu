@@ -5,8 +5,8 @@
 // Replaces som_lvq_pak_tpu/ops/pallas_distance.py:_dist_top2_masked_kernel
 // (dist_top2 with a mask): partial distance keep.(m o m) - 2 (x keep).m,
 // running (best, second) pair                        -> dist_top2_masked_kernel (K9)
-// The unmasked _dist_top2_kernel (K8) is K10's kernel at k = 2:
-// dist_topk.cu's dist_topk_kernel<KT, 2>, launched by ops.dist_top2.
+// The unmasked _dist_top2_kernel (K8) is K1's Hopper walk with a top-2
+// fold: argmin_sm90.cu's top2_sm90_kernel.
 //
 // K9 returns the two smallest (value, index) pairs in lexicographic order,
 // the function the TPU kernel's running merge (_top2_epilogue, strict <,
@@ -15,7 +15,7 @@
 // masked.  A sample with every component masked scores 0 against every code
 // and gets (0, 0), (0, 1), as in the JAX package.
 //
-// Design.  K4's masked walk (masked_walk.cuh) with K10's fold at KM 2
+// Design.  The masked mma.sync walk (masked_walk.cuh) with K10's fold at KM 2
 // (topk_fold.cuh), as K10 is the mma.sync walk with that fold: one CTA of
 // kTB = 128 samples, 16 per warp, their A fragments of x keep split into
 // TF32 hi and lo in registers and their keep flags as bits; the codebook by a cp.async
@@ -28,8 +28,9 @@
 // k4_splits, K4's whole waves) writes its pairs as partial distances (-2 *
 // the score, exact, -0 folded to +0) to a (splits, B, 2) scratch the wrapper
 // allocates, and one small launch merges the splits in split order.  The
-// walk hands the fold K4's floats, so the best pair is K4's (value, index)
-// bit for bit, and two runs are bit-equal.
+// walk hands the fold the floats of K4 (argmin_masked_sm90.cu, the same two
+// sums on wgmma), so the best pair is K4's (value, index) bit for bit, and
+// two runs are bit-equal.
 //
 // What bounds it on H100: the two contractions, 4 B N D FLOPs, issued as 10
 // B N D TF32 FLOPs (three products for (x keep).m, two for keep.(m o m))

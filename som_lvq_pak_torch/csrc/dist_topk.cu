@@ -2,16 +2,15 @@
 // with the smallest ||x_b - m_n||^2, ascending, without materialising the
 // (B, N) distance matrix.
 //
-// Replaces two TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
-//   * _dist_topk_kernel (wrapper dist_topk): a running top-k merged tile by
-//     tile                                 -> dist_topk_kernel<KT, KM> (K10)
-//   * _dist_top2_kernel (wrapper dist_top2): the running (best, second)
-//     pair                                 -> dist_topk_kernel<KT, 2> at k = 2 (K8)
-// Both score the partial distance ||m||^2 - 2 x.m, ties to the lowest index.
-// The result is the k smallest (value, index) pairs in lexicographic order,
-// which is what the TPU kernels' re-selection (first minimum of the running
-// entries before the tile's) and running merge (_top2_epilogue, strict <,
-// earlier tile kept) compute.
+// Replaces som_lvq_pak_tpu/ops/pallas_distance.py:_dist_topk_kernel (wrapper
+// dist_topk): a running top-k merged tile by tile -> dist_topk_kernel<KT, KM>
+// (K10).  It scores the partial distance ||m||^2 - 2 x.m, ties to the lowest
+// index.  The result is the k smallest (value, index) pairs in lexicographic
+// order, which is what the TPU kernel's re-selection (first minimum of the
+// running entries before the tile's) computes; at k = 2 that is also what
+// _dist_top2_kernel's running merge (_top2_epilogue, strict <, earlier tile
+// kept) computes, so K10 at k 2 gives K8's pairs (argmin_sm90.cu's
+// top2_sm90_kernel, on K1's Hopper walk) bit for bit.
 //
 // The walk is the mma.sync winner search (argmin_tc.cuh, as K16's in
 // dist_argmin_t.cu) with a top-k fold: one CTA owns kTB = 128 samples, 16
@@ -179,7 +178,7 @@ int launch_km(const float* x, const float* codes, int B, int N, int D, int k,
 
 }  // namespace
 
-// K10, and K8 at k = 2; pv/pi: (splits, B, k) scratch; vo/io: (B, k)
+// K10; pv/pi: (splits, B, k) scratch; vo/io: (B, k)
 // outputs, vo the partial distances ||m||^2 - 2 x.m, ascending
 extern "C" int somvq_dist_topk(const float* x, const float* codes, int B, int N,
                                int D, int k, int splits, float* pv, int* pi,

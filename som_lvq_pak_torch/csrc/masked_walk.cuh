@@ -1,8 +1,8 @@
-// K4's masked walk on the tensor cores, shared by K4 (dist_argmin.cu, with
-// the argmin fold) and K9 (dist_top2.cu, with topk_fold.cuh's list fold at
-// KM 2): for the warp's 16 samples, the score (x keep).m - keep.(m o m) / 2
-// of every code of this CTA's codebook span, handed to the fold in
-// ascending code order.
+// The masked mma.sync walk of K9 (dist_top2.cu, with topk_fold.cuh's list
+// fold at KM 2), whose x keep fragments (load_xk, keep_frag) and order of the
+// products K4 shares (argmin_masked_sm90.cu, on wgmma): for the warp's 16
+// samples, the score (x keep).m - keep.(m o m) / 2 of every code of this
+// CTA's codebook span, handed to the fold in ascending code order.
 //
 // One CTA owns kTB = 128 samples, 16 per warp (argmin_tc.cuh); a warp keeps
 // its samples' A fragments of x keep, split into TF32 hi and lo, in registers

@@ -1,9 +1,10 @@
 // Hopper's asynchronous pipeline in PTX, for kernels that feed warpgroup
 // `wgmma` from a ring of shared-memory slots filled by TMA: mbarriers, the
-// 1-D and 2-D tensor-map loads and the tensor map's encoder, the
+// 1-D and 2-D tensor-map loads and the tensor map's encoder, the warpgroup
+// register split (setmaxnreg), the
 // shared-memory matrix descriptor of a K-major swizzled operand, the wgmma
-// fences, the int8 m64n256k32 product (K15) and the TF32 m64n128k8 product
-// with A from registers (K1, K2).  Written by hand (no CuTe) so that a
+// fences, the int8 m64n256k32 product (K15) and the TF32 m64n128k8 (K1, K2,
+// K8) and m64n64k8 (K4) products with A from registers.  Written by hand (no CuTe) so that a
 // source including it builds in seconds.  Only for sm_90a: wgmma does not
 // exist on plain sm_90.
 //
@@ -113,6 +114,19 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
+// the registers each thread of this warpgroup owns, lowered or raised to R
+// (a multiple of 8 in 24..256); every thread of the warpgroup executes it,
+// and a raise waits until the pool has the registers
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 // byte offset `o` of a K-major tile of W-byte rows, swizzled as TMA writes it
@@ -207,6 +221,21 @@ __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const float (&a)
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : SOMVQ_F16(0), SOMVQ_F16(16), SOMVQ_F16(32), SOMVQ_F16(48)
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(1));
+}
+
+// the same with B 8 x 64 (K4's 64-code tiles): d 32 values, d[4j..4j + 3]
+// the C fragment of column block j < 8
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const float (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SOMVQ_F16(0), SOMVQ_F16(16)
       : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
         "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(1));
 }

@@ -1,6 +1,6 @@
-// The top-k fold of the tensor-core winner walks, shared by K10 (and K8, its
-// instantiation at KM 2; dist_topk.cu, on the mma.sync walk) and K9
-// (dist_top2.cu, on K4's masked walk): per lane and sample a sorted list of KM (score, code)
+// The top-k fold of the tensor-core winner walks, shared by K10 (dist_topk.cu,
+// on the mma.sync walk), K9 (dist_top2.cu, on the masked mma.sync walk) and
+// K8 (argmin_sm90.cu, on K1's wgmma walk at KM 2): per lane and sample a sorted list of KM (score, code)
 // pairs, the four lanes of a sample merged by shuffles, each codebook split's
 // k pairs written to a (splits, B, k) scratch, and a second small launch
 // that folds the splits in split order.

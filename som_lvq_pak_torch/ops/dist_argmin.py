@@ -27,14 +27,18 @@ partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
   `_dist_argmin_masked_kernel`); ||x keep||^2 is added back, so a sample
   with every component masked gets index 0 and value 0.  The masked
   training step's and the masked qerror's winner search.  Its kernel (K4,
-  `csrc/dist_argmin.cu`) runs the mma.sync walk's CTA shape on the tensor
-  cores: (x keep).m by three split-TF32 products, keep.(m o m) by two (keep
-  is exact in TF32), the codebook split by `k4_splits`.  Two runs are
-  bit-equal.
+  `csrc/argmin_masked_sm90.cu`) is K1's walk with the keep contraction
+  beside it: a prologue (`split_masked_codes_kernel`) splits the codebook
+  and q = m o m once per call into TF32 hi and lo rows, the walk streams
+  them by TMA and takes (x keep).m by three TF32 products and keep.q by two
+  (keep is exact in TF32) on warpgroup `wgmma`, into two sums, the codebook
+  split across CTAs by `k4_sm90_splits`.  Two runs are bit-equal.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 beside it.  Any other device raises.  Each wrapper counts its kernel
-launches in its `launches` attribute (`split_codes` its prologue's).
+launches in its `launches` attribute (`split_codes` K1's and K2's
+prologue's, which K8 launches too; `split_masked_codes` the calls of K4's
+prologue alone, which K4's own calls launch in their C call).
 """
 
 from __future__ import annotations
@@ -135,7 +139,7 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
 
 
 def k2_splits(B: int, N: int, device: torch.device) -> int:
-    """The codebook splits of the mma.sync walk of K8, K10 and K16: enough
+    """The codebook splits of the mma.sync walk of K10 and K16: enough
     spans of whole 64-row tiles for about two CTAs of 128 samples per SM,
     rounded down to whole waves: exactly two of them fit on an SM (their
     registers), so a count that leaves a partial second wave costs a whole
@@ -164,13 +168,44 @@ def k1_sm90_splits(B: int, N: int, sms: int) -> int:
     return max(1, min(n_tiles // K1_MIN_SPAN, sms // b_tiles))
 
 
+def _spans(N: int, splits: int, tile: int) -> list:
+    tiles = -(-N // tile)
+    span = -(-tiles // splits)
+    return [(t * tile, min(N, (t + span) * tile)) for t in range(0, tiles, span)]
+
+
 def k1_sm90_spans(N: int, splits: int) -> list:
     """The code ranges [lo, hi) the walk's CTAs take for `splits`
     (csrc/argmin_sm90.cu's launch): spans of ceil(tiles / splits) whole
     tiles, the last cut at N; only non-empty spans get CTAs."""
-    tiles = -(-N // K1_TILE)
-    span = -(-tiles // splits)
-    return [(t * K1_TILE, min(N, (t + span) * K1_TILE)) for t in range(0, tiles, span)]
+    return _spans(N, splits, K1_TILE)
+
+
+# K4's walk (csrc/argmin_masked_sm90.cu): codes per tile (the wgmma's N; a
+# slot holds four arrays, so half K1's), samples per CTA, and the fewest
+# tiles a split takes (K1's 512 codes)
+K4_TILE = 64
+K4_SAMPLES = 128
+K4_MIN_SPAN = 8
+
+
+def k4_sm90_splits(B: int, N: int, sms: int) -> int:
+    """K4's codebook splits on a card of `sms` SMs: K1's rule on 64-code
+    tiles: spans of whole tiles, as many as fill one wave of CTAs of 128
+    samples, one CTA an SM (its ring takes about 193 KB of shared memory at
+    D 64), rounded down to whole waves, and at least K4_MIN_SPAN tiles
+    each: at B 4096 four splits (128 CTAs on an H100's 132 SMs), at the
+    masked LVQ cell's B 1024 x 4096 eight, at the eval's 1M one, at the
+    scans' B 1 x 4096 eight."""
+    b_tiles, n_tiles = -(-B // K4_SAMPLES), -(-N // K4_TILE)
+    return max(1, min(n_tiles // K4_MIN_SPAN, sms // b_tiles))
+
+
+def k4_sm90_spans(N: int, splits: int) -> list:
+    """The code ranges [lo, hi) K4's CTAs take for `splits`
+    (csrc/argmin_masked_sm90.cu's launch), as `k1_sm90_spans` on 64-code
+    tiles."""
+    return _spans(N, splits, K4_TILE)
 
 
 def split_codes_dp(D: int) -> int:
@@ -224,6 +259,47 @@ def split_codes_plain(codes: torch.Tensor
     return hi, lo, m2
 
 
+def split_masked_codes_plain(codes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain K4 prologue: (hi, lo, qhi, qlo) (N, Dp) float32 with Dp =
+    `split_codes_dp(D)` and zeros past D: hi = tf32(m), lo = tf32(m - hi),
+    and the same of q = m * m rounded to float32."""
+    from .tf32x3 import tf32_split
+
+    N, D = codes.shape
+    v = torch.zeros((N, split_codes_dp(D)), dtype=torch.float32, device=codes.device)
+    v[:, :D] = codes
+    return (*tf32_split(v), *tf32_split(v * v))
+
+
+def _check_codes(codes: torch.Tensor) -> None:
+    if codes.dim() != 2 or codes.dtype != torch.float32 or codes.shape[0] == 0:
+        raise ValueError(f"codes {tuple(codes.shape)} {codes.dtype}: a non-empty "
+                         "(N, D) float32 codebook")
+    if codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {codes.device}")
+
+
+def split_masked_codes(codes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K4's prologue alone: the codebook (N, D) float32 split once into TF32
+    (hi, lo, qhi, qlo) (N, Dp) rows, as `split_masked_codes_plain` computes
+    them, bit for bit.  `dist_argmin_masked` launches the same kernel in the
+    C call of its walk, into its scratch; this wrapper counts its own calls
+    on `split_masked_codes.launches`."""
+    _check_codes(codes)
+    if codes.device.type == "cpu":
+        return split_masked_codes_plain(codes)
+    codes = codes.contiguous()
+    N, D = codes.shape
+    Dp = split_codes_dp(D)
+    out = tuple(torch.empty((N, Dp), dtype=torch.float32, device=codes.device)
+                for _ in range(4))
+    _build.call("somvq_split_masked_codes", codes.data_ptr(), N, D, Dp,
+                *(t.data_ptr() for t in out),
+                torch.cuda.current_stream(codes.device).cuda_stream)
+    split_masked_codes.launches += 1
+    return out
+
+
 def split_codes(codes: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's and K2's prologue alone: the codebook (N, D) float32 split once
@@ -231,13 +307,9 @@ def split_codes(codes: torch.Tensor
     computes them, bit for bit.  `dist_argmin` and `dist_argmin_t` launch the
     same kernel in the C call of their walk, into their scratch, and count
     it on `split_codes.launches` too."""
-    if codes.dim() != 2 or codes.dtype != torch.float32 or codes.shape[0] == 0:
-        raise ValueError(f"codes {tuple(codes.shape)} {codes.dtype}: a non-empty "
-                         "(N, D) float32 codebook")
+    _check_codes(codes)
     if codes.device.type == "cpu":
         return split_codes_plain(codes)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
     codes = codes.contiguous()
     N, D = codes.shape
     Dp = split_codes_dp(D)
@@ -252,10 +324,10 @@ def split_codes(codes: torch.Tensor
 
 
 def k4_splits(B: int, N: int, D: int, device: torch.device) -> int:
-    """K4's codebook splits (K9's too, on the same walk): CTAs of 128
-    samples, in whole waves of the CTAs an SM holds: two up to D 64 (its
-    registers and 100 KB of shared memory each), one past it (the slab walk
-    keeps the tile's sums of both contractions in registers)."""
+    """K9's codebook splits (the masked mma.sync walk, csrc/masked_walk.cuh):
+    CTAs of 128 samples, in whole waves of the CTAs an SM holds: two up to D
+    64 (its registers and 100 KB of shared memory each), one past it (the
+    slab walk keeps the tile's sums of both contractions in registers)."""
     return _whole_waves(B, N, device, 2 if D <= 64 else 1)
 
 
@@ -320,10 +392,15 @@ def dist_argmin_masked(x: torch.Tensor, codes: torch.Tensor,
     idx = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B == 0:
         return val, idx
-    keys = torch.empty((B,), dtype=torch.int64, device=x.device)
+    Dp = split_codes_dp(D)
+    # one C call launches the prologue and the walk; one scratch holds the
+    # prologue's hi, lo, qhi, qlo (N, Dp) and the (B,) u64 keys the walk
+    # folds its codebook splits into
+    scratch = torch.empty((4 * N * Dp + 2 * B,), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _build.call("somvq_dist_argmin_masked", x.data_ptr(), m8.data_ptr(),
-                codes.data_ptr(), B, N, D, k4_splits(B, N, D, x.device),
-                keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
+                codes.data_ptr(), B, N, D, Dp, k4_sm90_splits(B, N, sms),
+                scratch.data_ptr(), val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     dist_argmin_masked.launches += 1
     xk = x * keep_of(m8)
@@ -339,6 +416,7 @@ def dist_argmin_t(x: torch.Tensor, codes: torch.Tensor
 
 
 split_codes.launches = 0
+split_masked_codes.launches = 0
 dist_argmin.launches = 0
 dist_argmin_masked.launches = 0
 dist_argmin_t.launches = 0

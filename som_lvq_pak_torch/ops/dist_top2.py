@@ -23,14 +23,16 @@ ValueError (the lvq2.1 window needs two).
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
 Any other device raises.  Each wrapper counts its kernel launches in its
-`launches` attribute.  K8 is K10's kernel at k = 2 (`csrc/dist_topk.cu`,
-launched through `ops.dist_topk._launch`): the split-TF32 mma.sync walk
-with a top-k fold, the codebook split by `k2_splits`, its best pair K1's
-(value, index) bit for bit on the same inputs.  K9
-(`csrc/dist_top2.cu`) is K4's masked split-TF32 walk
-(`csrc/masked_walk.cuh`) with the same fold at two, the codebook split as
-K4's (`k4_splits`), so its best pair is `dist_argmin_masked`'s (value,
-index) bit for bit on the same inputs.
+`launches` attribute.  K8 is K1's Hopper walk with a top-2 fold
+(`csrc/argmin_sm90.cu`'s `top2_sm90_kernel`): one C call runs K1's
+prologue (counted on `ops.dist_argmin.split_codes.launches` too), the walk
+on TF32 `wgmma` with the codebook split by `k1_sm90_splits`, and the
+merge of the splits; its best pair is K1's (value, index) and its pairs
+K10's at k = 2 (`ops.dist_topk.dist_topk`, on the mma.sync walk) bit for
+bit on the same inputs.  K9 (`csrc/dist_top2.cu`) is the masked
+split-TF32 mma.sync walk (`csrc/masked_walk.cuh`) with K10's fold at two,
+the codebook split by `k4_splits`, so its best pair is
+`dist_argmin_masked`'s (value, index) bit for bit on the same inputs.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import _check, _check_mask, _rows_per_chunk, k4_splits
-from .dist_topk import _launch as topk_launch
+from .dist_argmin import (_check, _check_mask, _rows_per_chunk, k1_sm90_splits, k4_splits,
+                          split_codes, split_codes_dp)
 from .distance import fp32_matmul, keep_of, mask_bytes
 
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -83,20 +85,52 @@ def dist_top2_plain(x: torch.Tensor, codes: torch.Tensor,
     return tuple(torch.cat(col) for col in zip(*rows))
 
 
+def _pair_outputs(x: torch.Tensor) -> Top2:
+    B = x.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    i32 = dict(dtype=torch.int32, device=x.device)
+    return (torch.empty((B,), **f32), torch.empty((B,), **i32),
+            torch.empty((B,), **f32), torch.empty((B,), **i32))
+
+
+def _launch(x: torch.Tensor, codes: torch.Tensor) -> Top2:
+    x = x.contiguous()
+    codes = codes.contiguous()
+    B, D = x.shape
+    N = codes.shape[0]
+    v1, i1, v2, i2 = _pair_outputs(x)
+    if B == 0:
+        return v1, i1, v2, i2
+    Dp = split_codes_dp(D)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = k1_sm90_splits(B, N, sms)
+    # one C call: K1's prologue, the walk, the split merge; one scratch holds
+    # the prologue's hi, lo (N, Dp), m2 (N, padded to 4) and the (splits, B,
+    # 2) pairs of the splits
+    scratch = torch.empty((2 * N * Dp + -(-N // 4) * 4 + 4 * splits * B,),
+                          dtype=torch.float32, device=x.device)
+    _build.call("somvq_dist_top2", x.data_ptr(), codes.data_ptr(), B, N, D, Dp, splits,
+                scratch.data_ptr(), v1.data_ptr(), i1.data_ptr(), v2.data_ptr(),
+                i2.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    split_codes.launches += 1
+    dist_top2.launches += 1
+    # the kernel returns partial distances; add ||x||^2 here, summed as
+    # dist_argmin sums it
+    x2 = (x * x).sum(-1)
+    return torch.clamp(v1 + x2, min=0.0), i1, torch.clamp(v2 + x2, min=0.0), i2
+
+
 def _launch_masked(x: torch.Tensor, codes: torch.Tensor, m8: torch.Tensor) -> Top2:
     x = x.contiguous()
     codes = codes.contiguous()
     B, D = x.shape
     N = codes.shape[0]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    i32 = dict(dtype=torch.int32, device=x.device)
-    v1, v2 = torch.empty((B,), **f32), torch.empty((B,), **f32)
-    i1, i2 = torch.empty((B,), **i32), torch.empty((B,), **i32)
+    v1, i1, v2, i2 = _pair_outputs(x)
     if B == 0:
         return v1, i1, v2, i2
     splits = k4_splits(B, N, D, x.device)
-    pv = torch.empty((splits, B, 2), **f32)
-    pi = torch.empty((splits, B, 2), **i32)
+    pv = torch.empty((splits, B, 2), dtype=torch.float32, device=x.device)
+    pi = torch.empty((splits, B, 2), dtype=torch.int32, device=x.device)
     _build.call("somvq_dist_top2_masked", x.data_ptr(), m8.data_ptr(),
                 codes.data_ptr(), B, N, D, splits, pv.data_ptr(), pi.data_ptr(),
                 v1.data_ptr(), i1.data_ptr(), v2.data_ptr(), i2.data_ptr(),
@@ -118,13 +152,7 @@ def dist_top2(x: torch.Tensor, codes: torch.Tensor,
         return dist_top2_masked(x, codes, mask)
     if _check_top2(x, codes) == "cpu":
         return dist_top2_plain(x, codes)
-    x = x.contiguous()
-    v, i = topk_launch(x, codes, 2, dist_top2)
-    # the kernel returns partial distances; add ||x||^2 here, summed as
-    # dist_argmin sums it
-    v = torch.clamp(v + (x * x).sum(-1)[:, None], min=0.0).T.contiguous()
-    i = i.T.contiguous()
-    return v[0], i[0], v[1], i[1]
+    return _launch(x, codes)
 
 
 def dist_top2_masked(x: torch.Tensor, codes: torch.Tensor,

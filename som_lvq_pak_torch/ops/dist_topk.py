@@ -17,9 +17,9 @@ launches the kernel in `csrc/dist_topk.cu`: the split-TF32 mma.sync walk
 (K16's, with ||m||^2 summed in the order of K1's prologue) with a top-k
 fold, the codebook split by `k2_splits`; a row's score depends only on its
 own data and K1's products give the same floats, so its first column is
-K1's (value, index) bit for bit on the same inputs.  K8
-(`ops.dist_top2.dist_top2` without a mask) launches the same kernel at k =
-2.  A CPU tensor runs the plain version.  The wrapper counts its kernel
+K1's (value, index) bit for bit on the same inputs, and at k = 2 its
+pairs are K8's (`ops.dist_top2.dist_top2`, K1's Hopper walk with a top-2
+fold).  A CPU tensor runs the plain version.  The wrapper counts its kernel
 launches in its `launches` attribute.
 """
 
@@ -54,7 +54,7 @@ def dist_topk(x: torch.Tensor, codes: torch.Tensor, k: int
     if device == "cpu":
         return dist_topk_plain(x, codes, k)
     x = x.contiguous()
-    vo, io = _launch(x, codes, k, dist_topk)
+    vo, io = _launch(x, codes, k)
     # the kernel returns partial distances; add ||x||^2 here, summed as
     # dist_argmin sums it
     return torch.clamp(vo + (x * x).sum(-1)[:, None], min=0.0), io
@@ -70,12 +70,11 @@ def dist_topk_reference(x: torch.Tensor, rev: torch.Tensor, k: int
     return vals, rev.shape[0] - 1 - idx
 
 
-def _launch(x: torch.Tensor, codes: torch.Tensor, k: int, wrapper
+def _launch(x: torch.Tensor, codes: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch `somvq_dist_topk` on checked CUDA tensors (x contiguous): the
     k smallest partial distances ||m||^2 - 2 x.m (B, k) and their int32
-    indices.  K10's wrapper and, at k = 2, K8's (ops.dist_top2) call it;
-    the launch counts on `wrapper.launches`."""
+    indices."""
     codes = codes.contiguous()
     B, D = x.shape
     N = codes.shape[0]
@@ -90,7 +89,7 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, k: int, wrapper
     _build.call("somvq_dist_topk", x.data_ptr(), codes.data_ptr(), B, N, D, k,
                 splits, pv.data_ptr(), pi.data_ptr(), vo.data_ptr(),
                 io.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    wrapper.launches += 1
+    dist_topk.launches += 1
     return vo, io
 
 

@@ -1,6 +1,8 @@
-"""The A/B of K1's and K2's fold (csrc/argmin_sm90.cu) on the card: the walk
-as it is beside copies of its source with the fold changed, each copy built
-alone by nvcc into a library of its own and timed in turns in one process.
+"""The A/B of K1's and K2's fold (csrc/argmin_sm90.cu) on the card, and of
+K8's (the same walk with a top-2 fold) and K4's (csrc/argmin_masked_sm90.cu):
+the walk as it is beside copies of its source with the fold changed, each
+copy built alone by nvcc into a library of its own and timed in turns in one
+process.
 
     python -m som_lvq_pak_torch.tools.argmin_fold_ab [--iters 20]
 
@@ -14,15 +16,22 @@ The variants, text edits of the walk's consumer loop (`variant_sources`):
 * `no_fold`: the fold cut to one compare a tile, wrong winners on purpose:
   the products and their feed alone.
 
+The fold region holds K8's top-2 fold too, so `no_turns` is K8 without the
+turns and `no_fold` K8's products and feed alone (`per_score` breaks K8 and
+is not run for it).  K4's source has two variants (`masked_variant_sources`):
+`walk` and its own `no_fold`.
+
 Every variant but `no_fold` must return the walk's (value, index) bit for bit
-(at 4096 x 65536 x 64, 777 x 3001 x 37, 1000 x 2999 x 130 and 1 x 4096 x 64);
-then each runs K1 at B 4096 and 1024 against 65,536 codes and K2 at the
-eval's 1M x 65536 x 64, D 64, in the order walk, no_turns, per_score,
-no_fold and back, over `iters` calls each (3 at 1M) by CUDA events, the
-prologue inside every call as in the wrappers.  The copies and their
-libraries go to `som_lvq_pak_torch/_build/fold_ab/` (git-ignored).  Prints
-one JSON line with the card's name and power limit; exits non-zero when a
-variant that must match does not.  Needs nvcc and a card.
+(at 4096 x 65536 x 64, 777 x 3001 x 37, 1000 x 2999 x 130 and 1 x 4096 x 64;
+K8's `no_turns` its pairs at the same shapes); then each runs K1 at B 4096
+and 1024 against 65,536 codes and K2 at the eval's 1M x 65536 x 64, D 64,
+in the order walk, no_turns, per_score, no_fold and back, K8 at B 1024
+(walk, no_turns, no_fold and back) and K4 at B 4096 and 1M with p 0.1
+(walk, no_fold, no_fold, walk), over `iters` calls each (3 at 1M) by CUDA
+events, the prologue inside every call as in the wrappers.  The copies and
+their libraries go to `som_lvq_pak_torch/_build/fold_ab/` (git-ignored).
+Prints one JSON line with the card's name and power limit; exits non-zero
+when a variant that must match does not.  Needs nvcc and a card.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import sys
 import torch
 
 from .. import _build
-from ..ops.dist_argmin import k1_sm90_splits, split_codes_dp
+from ..ops.dist_argmin import k1_sm90_splits, k4_sm90_splits, split_codes_dp
 from .timing import mean_ms, resolve
 
 OUT = os.path.join(_build.BUILD_DIR, "fold_ab")
@@ -46,6 +55,9 @@ VARIANTS = ("walk", "no_turns", "per_score", "no_fold")
 MATCH_CASES = ((4096, 65536, 64), (777, 3001, 37), (1000, 2999, 130), (1, 4096, 64))
 TIMED_CASES = ((4096, 65536, 64, "somvq_dist_argmin"), (1024, 65536, 64, "somvq_dist_argmin"),
                (1_000_000, 65536, 64, "somvq_dist_argmin_t"))
+K8_VARIANTS = ("walk", "no_turns", "no_fold")
+K8_CASE = (1024, 65536, 64)
+K4_CASES = ((4096, 65536, 64), (1_000_000, 65536, 64))
 
 # the walk's lines that make the warpgroups take turns
 _TURNS = ("  if (wg == 1) sm90::bar_arrive(2, TURN);\n",
@@ -75,8 +87,17 @@ _PER_SCORE = """    if (sl == nslab - 1) {
       }
     }
 """
+# (K8's pair takes the score too: a product whose sums nothing reads is
+# dropped by the compiler, and K8's walk reads top2, not best; K4's score
+# reads both of its sums for the same reason)
 _NO_FOLD = """    if (sl == nslab - 1 && S[0] > best[0]) {
       best[0] = S[0];
+      bidx[0] = n0;
+      top2.s[0][0] = S[0];
+    }
+"""
+_NO_FOLD_K4 = """    if (sl == nslab - 1 && S1[0] - 0.5f * S2[0] > best[0]) {
+      best[0] = S1[0] - 0.5f * S2[0];
       bidx[0] = n0;
     }
 """
@@ -102,28 +123,45 @@ def variant_sources(src: str) -> dict:
             "no_fold": _replace_fold(src, _NO_FOLD)}
 
 
+def masked_variant_sources(src: str) -> dict:
+    """{variant: the text of argmin_masked_sm90.cu} (K4) from its source
+    `src`: the walk, and `no_fold` (its fold cut to one compare a tile);
+    raises ValueError if the walk no longer has the lines edited here."""
+    if _FOLD_START not in src or _FOLD_END not in src:
+        raise ValueError("argmin_masked_sm90.cu lacks the lines the variants edit")
+    return {"walk": src, "no_fold": _replace_fold(src, _NO_FOLD_K4)}
+
+
+_ENTRIES = {"argmin_sm90.cu": ("somvq_dist_argmin", "somvq_dist_argmin_t", "somvq_dist_top2"),
+            "argmin_masked_sm90.cu": ("somvq_dist_argmin_masked",)}
+
+
 def build(out: str = OUT) -> dict:
-    """Each variant's copy of csrc/ with its argmin_sm90.cu, built by one nvcc
-    each, all started together; {variant: loaded library}."""
+    """Each variant's copy of csrc/ with its argmin_sm90.cu (K1, K2, K8), or
+    its argmin_masked_sm90.cu (K4, under the names "k4 walk" and "k4
+    no_fold"), built by one nvcc each, all started together; {variant:
+    loaded library}."""
     with open(os.path.join(_build.CSRC, "argmin_sm90.cu")) as f:
-        sources = variant_sources(f.read())
+        jobs = [(name, "argmin_sm90.cu", text) for name, text in variant_sources(f.read()).items()]
+    with open(os.path.join(_build.CSRC, "argmin_masked_sm90.cu")) as f:
+        jobs += [(f"k4 {name}", "argmin_masked_sm90.cu", text)
+                 for name, text in masked_variant_sources(f.read()).items()]
     nvcc = _build._nvcc()
     procs = []
-    for name, text in sources.items():
-        d = os.path.join(out, name)
+    for name, source, text in jobs:
+        d = os.path.join(out, name.replace(" ", "_"))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        with open(os.path.join(d, "argmin_sm90.cu"), "w") as f:
+        with open(os.path.join(d, source), "w") as f:
             f.write(text)
         procs.append(_build._start([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
-                                    os.path.join(d, "lib.so"),
-                                    os.path.join(d, "argmin_sm90.cu")],
+                                    os.path.join(d, "lib.so"), os.path.join(d, source)],
                                    os.path.join(d, "nvcc.log")))
     _build._wait(procs)
     libs = {}
-    for name in sources:
-        lib = ctypes.CDLL(os.path.join(out, name, "lib.so"))
-        for entry in ("somvq_dist_argmin", "somvq_dist_argmin_t"):
+    for name, source, _ in jobs:
+        lib = ctypes.CDLL(os.path.join(out, name.replace(" ", "_"), "lib.so"))
+        for entry in _ENTRIES[source]:
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
@@ -149,6 +187,43 @@ def _call(lib, entry: str, x: torch.Tensor, codes: torch.Tensor):
     return val, idx
 
 
+def _call_top2(lib, x: torch.Tensor, codes: torch.Tensor):
+    """K8's C call on `lib`: (v1, i1, v2, i2) partial distances, the
+    prologue included."""
+    (B, D), N = x.shape, codes.shape[0]
+    Dp = split_codes_dp(D)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = k1_sm90_splits(B, N, sms)
+    out = [torch.empty((B,), dtype=dt, device=x.device)
+           for dt in (torch.float32, torch.int32, torch.float32, torch.int32)]
+    scratch = torch.empty((2 * N * Dp + -(-N // 4) * 4 + 4 * splits * B,),
+                          dtype=torch.float32, device=x.device)
+    rc = lib.somvq_dist_top2(x.data_ptr(), codes.data_ptr(), B, N, D, Dp, splits,
+                             scratch.data_ptr(), *(t.data_ptr() for t in out),
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_dist_top2: CUDA error {rc}")
+    return out
+
+
+def _call_masked(lib, x: torch.Tensor, codes: torch.Tensor, mask: torch.Tensor):
+    """K4's C call on `lib`: (partial distance, index), the prologue
+    included."""
+    (B, D), N = x.shape, codes.shape[0]
+    Dp = split_codes_dp(D)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    val = torch.empty((B,), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B,), dtype=torch.int32, device=x.device)
+    scratch = torch.empty((4 * N * Dp + 2 * B,), dtype=torch.float32, device=x.device)
+    rc = lib.somvq_dist_argmin_masked(x.data_ptr(), mask.data_ptr(), codes.data_ptr(), B, N,
+                                      D, Dp, k4_sm90_splits(B, N, sms), scratch.data_ptr(),
+                                      val.data_ptr(), idx.data_ptr(),
+                                      torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_dist_argmin_masked: CUDA error {rc}")
+    return val, idx
+
+
 def _inputs(B: int, N: int, D: int, seed: int, dev: torch.device):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn((B, D), generator=g, device=dev),
@@ -168,6 +243,9 @@ def run(iters: int = 20, out: str = OUT) -> dict:
             match.setdefault(name, []).append(
                 bool(torch.equal(v.view(torch.int32), v0.view(torch.int32))
                      and torch.equal(i, i0)))
+        p0, p1 = _call_top2(libs["walk"], x, codes), _call_top2(libs["no_turns"], x, codes)
+        match.setdefault("k8 no_turns", []).append(
+            all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(p0, p1)))
     order = list(VARIANTS) + list(VARIANTS)[::-1]
     times = {}
     for B, N, D, entry in TIMED_CASES:
@@ -178,6 +256,23 @@ def run(iters: int = 20, out: str = OUT) -> dict:
             ms[name].append(mean_ms(lambda: _call(libs[name], entry, x, codes), dev, n))
         times[f"{'K2' if entry.endswith('_t') else 'K1'} {B}x{N}x{D}"] = ms
         del x, codes
+        torch.cuda.empty_cache()
+    x, codes = _inputs(*K8_CASE, 5, dev)
+    ms = {name: [] for name in K8_VARIANTS}
+    for name in list(K8_VARIANTS) + list(K8_VARIANTS)[::-1]:
+        ms[name].append(mean_ms(lambda: _call_top2(libs[name], x, codes), dev, iters))
+    times["K8 {}x{}x{}".format(*K8_CASE)] = ms
+    for B, N, D in K4_CASES:
+        x, codes = _inputs(B, N, D, 5, dev)
+        g = torch.Generator(device=dev).manual_seed(6)
+        mask = (torch.rand((B, D), generator=g, device=dev) < 0.1).to(torch.uint8)
+        n = 3 if B >= 100_000 else iters
+        ms = {"walk": [], "no_fold": []}
+        for name in ("walk", "no_fold", "no_fold", "walk"):
+            ms[name].append(mean_ms(lambda: _call_masked(libs[f"k4 {name}"], x, codes, mask),
+                                    dev, n))
+        times[f"K4 {B}x{N}x{D} p0.1"] = ms
+        del x, codes, mask
         torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

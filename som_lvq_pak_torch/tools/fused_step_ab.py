@@ -1,8 +1,9 @@
 """The tensor-core fused steps on one step body (csrc/fused_step_tc.cuh):
 K3, K13 and K14's main form, and the winner walks K4 (masked,
-csrc/masked_walk.cuh) and K10 (csrc/dist_topk.cu, at k 2 and 8), timed side
-by side on one tree, with a digest of every output so that two trees can be
-held bit for bit against each other.
+csrc/argmin_masked_sm90.cu), K8 (csrc/argmin_sm90.cu) and K10
+(csrc/dist_topk.cu, at k 2 and 8), timed side by side on one tree, with a
+digest of every output so that two trees can be held bit for bit against
+each other.
 
     python -m som_lvq_pak_torch.tools.fused_step_ab [--iters 10] [--device cuda]
 
@@ -16,9 +17,9 @@ the BMUs from `dist_argmin_plain`, seven samples without one).  For each
 kernel: the mean milliseconds per step over `iters` steps after a warm-up
 (CUDA events), and the SHA-256 of its updated codebook, winners and values
 from one step on fresh inputs.  For each winner case (B, N, D): K4
-(`dist_argmin` with a mask, p 0.1 and every 97th row masked) and K10
-(`dist_topk` at k 2 and 8) on inputs from seed 5, their ms and the SHA-256
-of their values and indices.  Run it in two checkouts in one call
+(`dist_argmin` with a mask, p 0.1 and every 97th row masked), K8
+(`dist_top2`) and K10 (`dist_topk` at k 2 and 8) on inputs from seed 5,
+their ms and the SHA-256 of their values and indices.  Run it in two checkouts in one call
 (parent, change, change, parent) and compare: equal digests mean the same
 floats.  Prints one JSON line.  `device="cpu"` runs the plain versions,
 timed by the host clock (a CPU time, never a device number).
@@ -34,6 +35,7 @@ import sys
 import torch
 
 from ..ops.dist_argmin import dist_argmin, dist_argmin_plain
+from ..ops.dist_top2 import dist_top2
 from ..ops.dist_topk import dist_topk
 from ..ops.som_step import (som_fused_factored_chunked_step, som_fused_factored_step,
                             som_fused_train_step)
@@ -52,9 +54,10 @@ CASES = ((256, 256, True, True, 4096, 64, 64.0, False),
          (16, 16, False, True, 256, 200, 4.0, True))
 
 
-# (B, N, D) of the winner walks: the LVQ step, the sharded lvq3 rank's step,
-# the masked LVQ cell's step, a ragged D 37 and D 130 (K4's 64-feature slabs)
-WINNER_CASES = ((1024, 65536, 64), (512, 32768, 64), (1024, 4096, 64),
+# (B, N, D) of the winner walks: the LVQ step, the masked 1M cell's step,
+# the sharded lvq3 rank's step, the masked LVQ cell's step, a ragged D 37 and
+# D 130 (64-feature slabs)
+WINNER_CASES = ((1024, 65536, 64), (4096, 65536, 64), (512, 32768, 64), (1024, 4096, 64),
                 (777, 3001, 37), (1000, 2999, 130))
 
 
@@ -103,7 +106,7 @@ def run_case(xdim, ydim, hexa, gaussian, B, D, radius, k13, dev, iters=10) -> di
 
 
 def run_winners(B, N, D, dev, iters=10) -> dict:
-    """One winner case: ms and digest of K4 and of K10 at k 2 and 8."""
+    """One winner case: ms and digest of K4, K8 and K10 at k 2 and 8."""
     g = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn((B, D), generator=g, device=dev)
     codes = torch.randn((N, D), generator=g, device=dev)
@@ -111,6 +114,7 @@ def run_winners(B, N, D, dev, iters=10) -> dict:
     mask[::97] = 1
     out = dict(case=f"B {B} N {N} D {D}")
     for name, fn in (("k4", lambda: dist_argmin(x, codes, mask)),
+                     ("k8", lambda: dist_top2(x, codes)),
                      ("k10_k2", lambda: dist_topk(x, codes, 2)),
                      ("k10_k8", lambda: dist_topk(x, codes, 8))):
         out[f"{name}_digest"] = _digest(fn())
