@@ -28,18 +28,19 @@ phases, each printing one JSON line:
             with the three slowest nvcc processes (each source's compile
             seconds, from the build's log); one "ptxas" line: registers and
             spill bytes of each instantiation of K1, K2 and their prologue,
-            K8, K4 and its prologue, K5, K9, K10, K12, K14's walk (its
-            stagger and int8_win) and K15,
+            K8, K4 and its prologue, K3's and K17's Hopper walk and its
+            prologue, K5, K9, K10, K12, K14's walk (its stagger and
+            int8_win) and K15,
             from nvcc's -Xptxas -v report; one "sass" line: the HMMA
             (mma.sync tensor-core) instructions in each instantiation of the
-            tensor-core kernels K3, K5, K6, K7, K9, K10,
-            K11, K12, K13, K14's main form and its walk, K16 and K17, the
-            HGMMA (TF32 wgmma) instructions in each of K1's, K2's, K8's and
-            K4's (which must have no HMMA), the IMMA (int8 mma.sync)
-            instructions in each instantiation of K14's int8_win walk, the
-            IGMMA (int8 wgmma) instructions in each of K15's, and the
-            UTMALDG (TMA tile loads) in each of K1's, K2's, K8's, K4's and
-            K15's, from cuobjdump
+            tensor-core kernels K3 and K17 past D 128, K5, K6, K7, K9, K10,
+            K11, K12, K13, K14's main form and its walk and K16, the HGMMA
+            (TF32 wgmma) instructions in each of K1's, K2's, K8's, K4's and
+            K3's and K17's Hopper walk (up to D 128; none may have an HMMA),
+            the IMMA (int8 mma.sync) instructions in each instantiation of
+            K14's int8_win walk, the IGMMA (int8 wgmma) instructions in each
+            of K15's, and the UTMALDG (TMA tile loads) in each of K1's,
+            K2's, K8's, K4's, K3's and K17's walk and K15's, from cuobjdump
             --dump-sass of the library (none fails the run, as does an IDP4A
             anywhere in it);
             then g++ builds the native data-file engine (data/native_io.py
@@ -452,12 +453,13 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32 on
-# mma.sync: K3, K6, K11 (K3's update half), K12 (K3's blend-and-winner
-# half), K13 (K3's body with the separable W), K14's main form (K13's body;
-# one TF32 product under batch_bf16) and its walk (stagger and int8_win:
-# the same body's chunk functions; int8_win's winners on int8 mma.sync, the
-# IMMA of INT8_MMA_KERNELS), K16 (the mma.sync winner walk), K17
-# (its bf16 twin as one TF32 product), K10 (that walk with a top-k fold),
+# mma.sync: K3 and K17 past D 128 (their one instantiation each, NT 32), K6,
+# K11 (K3's update half), K12 (K3's blend-and-winner half), K13 (K3's body
+# with the separable W), K14's main form (K13's body; one TF32 product under
+# batch_bf16) and its walk (stagger and int8_win: the same body's chunk
+# functions; int8_win's winners on int8 mma.sync, the IMMA of
+# INT8_MMA_KERNELS), K16 (the mma.sync winner walk), K10 (that walk with a
+# top-k fold),
 # K7 (K3's step body on the resident codebook), K9 (the masked mma.sync walk
 # with K10's fold at KM 2) and K5 (K3's update half with the blend)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel",
@@ -472,11 +474,13 @@ SPLIT_TF32_KERNELS = ("som_fused_step_kernel",
 INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 # K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
 INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
-# K1 and K2 (one walk, two names), K8 (that walk with a top-2 fold) and K4
-# (the walk with the keep contraction beside it): split-TF32 products on
+# K1 and K2 (one walk, two names), K8 (that walk with a top-2 fold), K4
+# (the walk with the keep contraction beside it) and K3 and K17 up to D 128
+# (their Hopper walk, csrc/fused_step_sm90.cuh): split-TF32 products on
 # warpgroup wgmma (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
 TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel", "top2_sm90_kernel",
-                      "masked_argmin_sm90_kernel")
+                      "masked_argmin_sm90_kernel", "som_fused_step_sm90_kernel",
+                      "fused_skeleton_sm90_kernel")
 TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -647,10 +651,15 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "dist_top2_masked_kernel", "som_update_kernel",
                                   "som_fused_chunked_stagger_kernel",
                                   "som_fused_chunked_int8_kernel",
-                                  "int8_winner_probe_kernel")) -> dict:
+                                  "int8_winner_probe_kernel",
+                                  "som_fused_step_sm90_kernel",
+                                  "fused_skeleton_sm90_kernel",
+                                  "split_sm90_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
     (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5,
-    K14's walk and K15 unless given), from nvcc's -Xptxas -v
+    K14's walk, K15, and K3's and K17's Hopper walk and its prologue unless
+    given), and "wgmma_serialized" where ptxas reports that it serialized the
+    function's wgmma (its C7518 performance note), from nvcc's -Xptxas -v
     report (the build's log; K4's registers are its launch's 168 a thread,
     before its warpgroups' setmaxnreg split): {"name<args>":
     {"registers", "spill_stores", "spill_loads"}}."""
@@ -658,6 +667,14 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
 
     out, fn = {}, None
     for line in log.splitlines():
+        m = re.search(r"wgmma.mma_async instructions are serialized.* function '(\w+)'", line)
+        if m:
+            base = next((b for b in bases if b in m.group(1)), None)
+            if base:
+                targs = template_args(m.group(1), base)
+                name = base + (f"<{','.join(targs)}>" if targs else "")
+                out.setdefault(name, {})["wgmma_serialized"] = True
+            continue
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             name = m.group(1)
@@ -3266,7 +3283,7 @@ TRACE_STEPS = 16  # the fit under utils.progress.trace
 FUSED_STEP_KERNELS = {
     "K13": ("som_fused_factored_step", "som_fused_factored_kernel"),
     "K14": ("som_fused_factored_chunked_step", "som_fused_factored_chunked_tc_kernel"),
-    "K3": ("som_fused_train_step", "som_fused_step_kernel")}
+    "K3": ("som_fused_train_step", "som_fused_step_sm90_kernel")}
 
 
 def fused_step_kernel(side, batch, dim):
@@ -5175,7 +5192,7 @@ def main() -> int:
         "split_codes": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
                         "||m||^2 of som_lvq_pak_tpu/ops/pallas_distance.py:165 (XLA, "
                         "K1's m2_ref) and :446 (in K2's kernel)"),
-        "som_fused_train_step": ("som_lvq_pak_torch/csrc/som_fused_step.cu",
+        "som_fused_train_step": ("som_lvq_pak_torch/csrc/fused_step_sm90.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:580"),
         "dist_argmin_masked": ("som_lvq_pak_torch/csrc/argmin_masked_sm90.cu",
                                "som_lvq_pak_tpu/ops/pallas_distance.py:74"),
@@ -5209,7 +5226,7 @@ def main() -> int:
                               "tools/int8_probe.py:95"),
         "f32_winner_probe": ("som_lvq_pak_torch/csrc/dist_argmin_t.cu",
                              "tools/int8_probe.py:154"),
-        "fused_step_skeleton": ("som_lvq_pak_torch/csrc/fused_skeleton.cu",
+        "fused_step_skeleton": ("som_lvq_pak_torch/csrc/fused_skeleton_sm90.cu",
                                 "bench.py:505")}
     idle = [name for name in list(sources) + ["segment_sum"] if launches[name] == 0]
     if idle:

@@ -53,6 +53,11 @@ _SIGNATURES = {
     # gaussian, radius, unit_offset, xs, keys, val, idx, stream
     "somvq_som_fused_step": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I,
                              _I, ctypes.c_float, _I, _P, _P, _P, _P, _P],
+    # the same for D <= 128 (the Hopper walk; xs sized by
+    # ops.som_step.sm90_scratch)
+    "somvq_som_fused_step_sm90": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
+                                  _I, _I, ctypes.c_float, _I, _P, _P, _P, _P,
+                                  _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
     # gaussian, radius, chunked, wxa_bf16, batch_bf16, stagger, int8_win,
     # rows, xs, xq, q, pat, ytab, aw, keys, val, idx, stream
@@ -69,6 +74,10 @@ _SIGNATURES = {
     # stream
     "somvq_fused_skeleton": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
                              ctypes.c_float, _P, _P, _P, _P],
+    # codes, N, D, w, T_rows, x, B, xn, Bn, bf16, scale, out, vkeys, vmax,
+    # xs, stream (D <= 128, the Hopper walk)
+    "somvq_fused_skeleton_sm90": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
+                                  ctypes.c_float, _P, _P, _P, _P, _P],
     # x, codes, B, N, D, k, splits, pv, pi, vo, io, stream
     "somvq_dist_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius,

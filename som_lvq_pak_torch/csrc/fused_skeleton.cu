@@ -1,5 +1,8 @@
 // The fused step's skeleton: the matmul-only twin of the fused SOM step, the
 // yardstick of how much of a fused step's time its two contractions take.
+// This mma.sync kernel takes D in (128, 256] (NT 32 only), K3's mma.sync
+// route; up to D 128 K17 runs K3's Hopper walk (fused_skeleton_sm90.cu,
+// bit-equal to this kernel; ops.skeleton.k17_route).
 //
 // Replaces bench.py:_skeleton_kernel (K17 fused_step_skeleton, called at
 // bench.py:556).  Per 256-row tile the TPU kernel accumulates acc = W(256, B)
@@ -66,6 +69,7 @@
 #include <type_traits>
 
 #include "argmin_keys.cuh"
+#include "skeleton_w.cuh"
 #include "som_grid.cuh"
 #include "tf32x3.cuh"
 
@@ -110,11 +114,6 @@ struct SkSmem {
   }
 };
 
-__device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return bf16_round(v);
-}
-
 // Copy n elements from global to shared with cp.async (bf16 as 4-byte
 // words, a last odd element or an unaligned source by plain copies)
 template <typename T>
@@ -134,35 +133,6 @@ __device__ __forceinline__ void stage_async(T* dst, const T* src, int n, int tid
   }
 }
 
-// samples s .. s + 7 of one W row as floats, zero from B on
-__device__ __forceinline__ void load_w8(float (&v)[8], const float* row, int s, int B,
-                                        bool vec) {
-  if (vec && s + 8 <= B) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(row + s));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(row + s + 4));
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = s + i < B ? __ldg(row + s + i) : 0.f;
-  }
-}
-__device__ __forceinline__ void load_w8(float (&v)[8], const __nv_bfloat16* row, int s,
-                                        int B, bool vec) {
-  if (vec && s + 8 <= B) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(row + s));
-    const uint32_t u[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // bf16 pairs, the lower address in the low half
-      v[2 * i] = __uint_as_float(u[i] << 16);
-      v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = s + i < B ? __bfloat162float(row[s + i]) : 0.f;
-  }
-}
-
 // d += a b: three TF32 products on split operands, one on exact ones
 template <bool kSplit>
 __device__ __forceinline__ void mma_route(float (&d)[4], const float (&ahi)[4],
@@ -172,17 +142,6 @@ __device__ __forceinline__ void mma_route(float (&d)[4], const float (&ahi)[4],
     mma_tf32x3(d, ahi, alo, bhi, blo);
   } else {
     mma_tf32(d, ahi, bhi);
-  }
-}
-
-// (hi, lo) of a float32 operand; a bf16 value is its own hi, lo unused
-template <bool kSplit>
-__device__ __forceinline__ void split_route(float v, float& hi, float& lo) {
-  if constexpr (kSplit) {
-    split_tf32(v, hi, lo);
-  } else {
-    hi = v;
-    lo = 0.f;
   }
 }
 
@@ -411,28 +370,21 @@ int launch_skeleton(const float* codes, int N, int D, const void* w, int T_rows,
   return (int)cudaGetLastError();
 }
 
+// D in (128, 256]: the one width this kernel takes (fused_skeleton_sm90.cu
+// takes D <= 128)
 template <typename T>
 int run_skeleton(const float* codes, int N, int D, const void* w, int T_rows,
                  const void* x, int B, const void* xn, int Bn, float scale,
                  float* out, unsigned int* vkeys, cudaStream_t stream) {
-  const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
-#define SK_LAUNCH(NT)                                                            \
-  if (k8 <= NT)                                                                  \
-    return launch_skeleton<NT, T>(codes, N, D, w, T_rows, x, B, xn, Bn, scale, \
-                                  out, vkeys, stream);
-  SK_LAUNCH(1)
-  SK_LAUNCH(2)
-  SK_LAUNCH(4)
-  SK_LAUNCH(8)
-  SK_LAUNCH(16)
-  SK_LAUNCH(32)
-#undef SK_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  if (D <= 128) return (int)cudaErrorInvalidValue;
+  return launch_skeleton<32, T>(codes, N, D, w, T_rows, x, B, xn, Bn, scale, out, vkeys,
+                                stream);
 }
 
 }  // namespace
 
-// K17: codes (N, D) float32; w (T_rows, B), x (B, D), xn (Bn, D) all float32,
+// K17 for 128 < D <= 256: codes (N, D) float32; w (T_rows, B), x (B, D),
+// xn (Bn, D) all float32,
 // or all bf16 with bf16; out (N, D) float32 gets codes + scale * W.X row by
 // row (W row u % T_rows); vkeys (Bn,) u32 set to 0 by the wrapper; vmax (Bn,)
 // float32 gets max_u out[u] . xn[b], out rounded to xn's type.

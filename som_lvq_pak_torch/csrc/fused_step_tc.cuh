@@ -1,5 +1,7 @@
-// The fused SOM step on the tensor cores, shared by K3 (som_fused_step.cu,
-// W from the closed form), K13 and K14 (som_fused_factored.cu and
+// The fused SOM step on the tensor cores, shared by K3 past D 128
+// (som_fused_step.cu, W from the closed form; up to D 128 K3 runs the Hopper
+// walk of fused_step_sm90.cuh, bit-equal to this body), K13 and K14
+// (som_fused_factored.cu and
 // som_fused_chunked_tc.cuh, W from the separable tables): batch t's
 // neighbourhood update, then batch t+1's winners against the updated rows,
 // in one pass over the codebook.  Its two halves run alone in the mixed mesh
@@ -32,8 +34,8 @@
 // accuracy (about 2^-21 relative per product), a 495 / 3 = 165 TFLOP/s
 // ceiling.  mma.sync itself issues TF32 at two thirds of the peak on an H100
 // (mma_probe.py); the staging, the W values and the scoring share the SM with
-// the mma between barriers (wgmma fed from shared memory by a producer warp is
-// the next step).
+// the mma between barriers (fused_step_sm90.cuh moves K3 and K17 onto wgmma
+// fed by TMA from a producer warpgroup; the kernels below are next).
 //
 // kBf16 (K14's batch_bf16): both batches are rounded to bf16, W is rounded to
 // bf16 for its product with X (wsum sums the unrounded W) and the blended

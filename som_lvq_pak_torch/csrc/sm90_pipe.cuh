@@ -4,9 +4,10 @@
 // register split (setmaxnreg), the
 // shared-memory matrix descriptor of a K-major swizzled operand, the wgmma
 // fences, the int8 m64n256k32 product (K15) and the TF32 m64n128k8 (K1, K2,
-// K8) and m64n64k8 (K4) products with A from registers.  Written by hand (no CuTe) so that a
-// source including it builds in seconds.  Only for sm_90a: wgmma does not
-// exist on plain sm_90.
+// K8, K3's and K17's winners), m64n64k8 (K4, their update at D 64) and
+// m64n32k8 (their update at D 32) products with A from registers.  Written
+// by hand (no CuTe) so that a source including it builds in seconds.  Only
+// for sm_90a: wgmma does not exist on plain sm_90.
 //
 // The pattern: one producer thread waits on a slot's "empty" barrier, arms
 // its "full" barrier with the bytes it expects (arrive_expect_tx) and issues
@@ -204,14 +205,15 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_
 #define SOMVQ_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define SOMVQ_F16(i) SOMVQ_F4(i), SOMVQ_F4(i + 4), SOMVQ_F4(i + 8), SOMVQ_F4(i + 12)
 
-// d += A B, A 64 x 8 TF32 from registers, B 8 x 128 TF32 from a K-major
-// descriptor, d float32: A as mma.m16n8k8's A fragment of rows 16 w.. for
-// warp w of the warpgroup (a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4),
-// a3 (g + 8, t + 4), lane = 4 g + t); d as in wgmma_s8_n256, 64 values:
+// d += A B (d = A B where `accumulate` is 0: wgmma's scale-d), A 64 x 8 TF32
+// from registers, B 8 x 128 TF32 from a K-major descriptor, d float32: A as
+// mma.m16n8k8's A fragment of rows 16 w.. for warp w of the warpgroup (a0
+// (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), lane = 4 g
+// + t); d as in wgmma_s8_n256, 64 values:
 // d[4j], d[4j + 1] at row 16 w + g, columns 8 j + 2 t and + 1, d[4j + 2],
 // d[4j + 3] at row 16 w + g + 8 (the m16n8k8 C fragment of column block j)
 __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const float (&a)[4],
-                                                uint64_t b) {
+                                                uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
@@ -222,13 +224,13 @@ __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const float (&a)
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : SOMVQ_F16(0), SOMVQ_F16(16), SOMVQ_F16(32), SOMVQ_F16(48)
       : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
-        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(1));
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(accumulate));
 }
 
 // the same with B 8 x 64 (K4's 64-code tiles): d 32 values, d[4j..4j + 3]
 // the C fragment of column block j < 8
 __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const float (&a)[4],
-                                               uint64_t b) {
+                                               uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -237,7 +239,21 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const float (&a)[
       "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : SOMVQ_F16(0), SOMVQ_F16(16)
       : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
-        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(1));
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(accumulate));
+}
+
+// the same with B 8 x 32 (K3's and K17's update at 32 features): d 16
+// values, d[4j..4j + 3] the C fragment of column block j < 4
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const float (&a)[4],
+                                               uint64_t b, int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : SOMVQ_F16(0)
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b), "r"(accumulate));
 }
 
 #undef SOMVQ_F16

@@ -1,5 +1,8 @@
 // One SOM training step in one pass over the codebook: the neighbourhood
-// update of batch t, then batch t+1's winners against the updated rows.
+// update of batch t, then batch t+1's winners against the updated rows, on
+// split-TF32 mma.sync, for D in (128, 256]: K3's route past the widest D its
+// Hopper walk takes (fused_step_sm90.cu, D <= 128, bit-equal to this kernel;
+// ops.som_step.k3_route).  Only the NT 32 instantiation is built.
 //
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_fused_step_kernel (wrapper
 // som_fused_train_step).  The wrapper takes it where the JAX trainer takes
@@ -67,25 +70,16 @@ int launch_step(CT* codes, int noc, int D, const float* xb, const int* bmu,
   return (int)cudaGetLastError();
 }
 
+// D in (128, 256]: the one width this kernel takes (fused_step_sm90.cu
+// takes D <= 128)
 template <typename CT>
 int launch_any(CT* codes, int noc, int D, const float* xb, const int* bmu,
                const float* alpha, int B, const float* xn, int Bn, int xdim,
                int hexa, int gaussian, float radius, int unit_offset, float* xs,
                unsigned long long* keys, cudaStream_t stream) {
-  const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
-#define K3_LAUNCH(NT)                                                          \
-  if (k8 <= NT)                                                              \
-    return launch_step<NT>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim,   \
-                           hexa, gaussian, radius, unit_offset, xs, keys,    \
-                           stream);
-  K3_LAUNCH(1)
-  K3_LAUNCH(2)
-  K3_LAUNCH(4)
-  K3_LAUNCH(8)
-  K3_LAUNCH(16)
-  K3_LAUNCH(32)
-#undef K3_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  if (D <= 128) return (int)cudaErrorInvalidValue;
+  return launch_step<32>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian,
+                         radius, unit_offset, xs, keys, stream);
 }
 
 }  // namespace

@@ -14,8 +14,11 @@ float32 or all bf16 (bench.py:585-587); sums are float32.  `scale` is 1e-30 in
 the bench, below the ulp of every code, so `out` is `codes` there; it is an
 argument only so that a check can see the accumulation.
 
-A CUDA tensor launches the kernel in `csrc/fused_skeleton.cu`; a CPU tensor
-runs the plain version beside it.  Any other device raises.  The wrapper
+A CUDA tensor launches the kernel `k17_route` names: for D <= 128 the Hopper
+walk K3 runs on (`csrc/fused_skeleton_sm90.cu`: a TMA ring fed by a producer
+warpgroup, wgmma TF32, W read and split in the consumers' registers), past it
+the mma.sync kernel in `csrc/fused_skeleton.cu`, the two bit-equal; a CPU
+tensor runs the plain version beside it.  Any other device raises.  The wrapper
 counts its kernel launches in its `launches` attribute.
 """
 
@@ -27,7 +30,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import MAX_D
+from .som_step import MAX_D, k3_route, sm90_scratch
 
 
 def _check(codes, w, x, xn) -> str:
@@ -53,6 +56,12 @@ def _check(codes, w, x, xn) -> str:
         raise ValueError(f"fused_step_skeleton: D={D} > {MAX_D}, the widest the "
                          "CUDA kernel takes")
     return dev
+
+
+def k17_route(D: int) -> str:
+    """K17's kernel for D features: K3's rule (`ops.som_step.k3_route`), so
+    that the skeleton stays on the route of the step it measures."""
+    return k3_route(D)
 
 
 def fused_step_skeleton_plain(codes, w, x, xn, scale: float = 1e-30
@@ -88,11 +97,16 @@ def fused_step_skeleton(codes: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     out = torch.empty_like(codes)
     vkeys = torch.zeros((Bn,), dtype=torch.int32, device=dev)  # read as u32
     vmax = torch.empty((Bn,), dtype=torch.float32, device=dev)
-    _build.call("somvq_fused_skeleton", codes.data_ptr(), N, D, w.data_ptr(),
-                w.shape[0], x.data_ptr(), x.shape[0], xn.data_ptr(), Bn,
-                int(w.dtype == torch.bfloat16), float(scale), out.data_ptr(),
-                vkeys.data_ptr(), vmax.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+    bf16 = w.dtype == torch.bfloat16
+    args = (codes.data_ptr(), N, D, w.data_ptr(), w.shape[0], x.data_ptr(),
+            x.shape[0], xn.data_ptr(), Bn, int(bf16), float(scale), out.data_ptr(),
+            vkeys.data_ptr(), vmax.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if k17_route(D) == "sm90":
+        xs = sm90_scratch(x.shape[0], Bn, D, dev, 1 if bf16 else 2, table=False)
+        _build.call("somvq_fused_skeleton_sm90", *args, xs.data_ptr(), stream)
+    else:
+        _build.call("somvq_fused_skeleton", *args, stream)
     fused_step_skeleton.launches += 1
     return out, vmax
 

@@ -2,10 +2,13 @@
 som_lvq_pak_tpu/ops/pallas_som.py:som_fused_train_step and its three TPU
 kernels, each a hand-written CUDA kernel here:
 
-- K3 `som_fused_step` (csrc/som_fused_step.cu): the plain kernel
-  (`_som_fused_step_kernel`), W from the closed form, winners in distance
-  form; both contractions on the tensor cores as split-TF32 products
-  (float32 accuracy, csrc/tf32x3.cuh);
+- K3 `som_fused_step` (csrc/fused_step_sm90.cu for D <= 128, the Hopper
+  walk: a TMA ring fed by a producer warpgroup, wgmma TF32, W built in the
+  consumers' registers; csrc/som_fused_step.cu's mma.sync kernel past it,
+  `k3_route`): the plain kernel (`_som_fused_step_kernel`), W from the
+  closed form, winners in distance form; both contractions on the tensor
+  cores as split-TF32 products (float32 accuracy, csrc/tf32x3.cuh), the
+  two kernels bit-equal;
 - K13 `som_fused_factored_step` (csrc/som_fused_factored.cu): the separable
   kernel (`_som_fused_factored_kernel`), W = Wx(column, row parity) *
   Wy(row) from tables, winners in max-score form; K3's tensor-core body
@@ -653,10 +656,46 @@ def som_fused_train_step(
                           gaussian, offset)
 
 
+# The widest D K3 and K17 run on their Hopper walk (csrc/fused_step_sm90.cuh):
+# past it a thread's two float32 accumulators of the update (D / 2 values
+# each) and W's two fragment sets would not fit in a consumer's 232 registers
+SM90_MAX_D = 128
+
+
+def k3_route(D: int) -> str:
+    """K3's kernel for D features, a route by shape: "sm90", the Hopper walk
+    (csrc/fused_step_sm90.cu: TMA ring, wgmma TF32), up to SM90_MAX_D;
+    "mma_sync" (csrc/som_fused_step.cu) past it, up to MAX_D.  Both give the
+    same floats; K17 (ops.skeleton) routes by the same rule."""
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"K3 takes 1 <= D <= {MAX_D}, got {D}")
+    return "sm90" if D <= SM90_MAX_D else "mma_sync"
+
+
+def sm90_width(D: int) -> int:
+    """DP, the Hopper walk's feature width: 32, 64 or 128, the smallest that
+    covers D (one, two or four 128-byte rows of 32 TF32 values)."""
+    if not 1 <= D <= SM90_MAX_D:
+        raise ValueError(f"the Hopper walk takes 1 <= D <= {SM90_MAX_D}, got {D}")
+    return 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def sm90_scratch(B: int, Bn: int, D: int, dev, planes: int = 2,
+                 table: bool = True) -> torch.Tensor:
+    """Scratch of the Hopper walk's prologue (csrc/fused_step_sm90.cuh:
+    split_sm90_kernel): `planes` planes of the batch transposed, (DP, Bp),
+    and of the next batch, (Bnp, DP), then with `table` K3's per-sample
+    float4 table (Bp,); Bp and Bnp are B and Bn rounded up to 64."""
+    Bp, Bnp = -(-B // 64) * 64, -(-Bn // 64) * 64
+    n = planes * sm90_width(D) * (Bp + Bnp) + (4 * Bp if table else 0)
+    return torch.empty((n,), dtype=torch.float32, device=dev)
+
+
 def _fused_step_k3(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
                    unit_offset):
     """K3 on `som_fused_train_step`'s checked arguments (its plain version on
-    the CPU); counts its launches on `som_fused_train_step`."""
+    the CPU), on the kernel `k3_route` names; counts its launches on
+    `som_fused_train_step`."""
     dev = codes.device
     if dev.type == "cpu":
         return som_fused_train_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
@@ -664,11 +703,14 @@ def _fused_step_k3(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
     xb = xb.contiguous()
     xn = xb_next.contiguous()
     B, Bn = xb.shape[0], xn.shape[0]
-    xs = _split_scratch(B, Bn, codes.shape[1], dev)
+    D = codes.shape[1]
+    sm90 = k3_route(D) == "sm90"
+    xs = sm90_scratch(B, Bn, D, dev) if sm90 else _split_scratch(B, Bn, D, dev)
     keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
-    _build.call("somvq_som_fused_step", codes.data_ptr(),
+    _build.call("somvq_som_fused_step_sm90" if sm90 else "somvq_som_fused_step",
+                codes.data_ptr(),
                 int(codes.dtype == torch.bfloat16), codes.shape[0],
                 codes.shape[1], xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(),
                 B, xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),

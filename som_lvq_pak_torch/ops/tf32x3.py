@@ -29,6 +29,11 @@ row, and K12's emulation blending them gives K3's rows, winners and values,
 bit for bit; K5 is K11 with the blend, so its rows are K3's too.  K8 and
 K10 score as K1, K9 as K4, and K7 steps as K3, so their emulations are K1's
 or K4's scoring with a second winner or k of them, and K chained K3 steps.
+
+`split_batches_plain` and `split_sm90_plain` are the plain versions of the
+steps' prologues, the mma.sync steps' split batches and the Hopper walk's
+(the update batch transposed, K3's per-sample table), as they fill their
+scratch.
 """
 
 from __future__ import annotations
@@ -350,3 +355,65 @@ def f32_winner_probe_tf32x3(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     step = max(1, (1 << 28) // x.shape[1])
     return torch.stack([tf32x3_mm(m[lo:lo + step], x).amax(0)
                         for lo in range(0, m.shape[0], step)]).amax(0)
+
+
+def _pad_rows(x: torch.Tensor, rows: int, width: int) -> torch.Tensor:
+    """x (n, D) as float32, zeros to (rows, width)."""
+    out = torch.zeros((rows, width), dtype=torch.float32, device=x.device)
+    out[:x.shape[0], :x.shape[1]] = x.to(torch.float32)
+    return out
+
+
+def split_batches_plain(xb: torch.Tensor, xn: torch.Tensor, DP: int) -> torch.Tensor:
+    """The mma.sync steps' prologue (csrc/fused_step_tc.cuh:
+    split_batches_kernel) as it fills its scratch: xb hi, xb lo as (Bp, DP),
+    then xn hi, xn lo as (Bnp, DP), B and Bn rounded up to 64, zeros past D
+    and past each batch."""
+    Bp, Bnp = -(-xb.shape[0] // 64) * 64, -(-xn.shape[0] // 64) * 64
+    parts = []
+    for x, rows in ((xb, Bp), (xn, Bnp)):
+        parts += tf32_split(_pad_rows(x, rows, DP))
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
+def sm90_positions(Bp: int) -> torch.Tensor:
+    """The sample at each position of K17's transposed batch
+    (split_sm90_kernel's kPerm): within each 32-sample chunk, position 8 ks +
+    c + 4 e holds sample 8 c + 2 ks + e, the sample the mma.sync walk gives
+    the k index (ks, column c + 4 e)."""
+    p = torch.arange(Bp)
+    q = p % 32
+    return p - q + 8 * (q % 4) + 2 * (q // 8) + (q // 4) % 2
+
+
+def split_sm90_plain(xb: torch.Tensor, xn: torch.Tensor, DP: int, planes: int = 2,
+                     perm: bool = False, bmu=None, alpha=None, xdim: int = 1,
+                     hexa: bool = False) -> torch.Tensor:
+    """The Hopper walk's prologue (csrc/fused_step_sm90.cuh:
+    split_sm90_kernel) as it fills its scratch: `planes` planes of the batch
+    transposed, (DP, Bp) each (positions in `sm90_positions` order with
+    `perm`), then of the next batch, (Bnp, DP); planes 2: tf32_split's hi
+    then lo, 1: the values as float32.  With `bmu`, K3's table follows: for
+    each of the Bp samples the float4 (BMU grid x, BMU row, alpha, 0), zeros
+    where bmu < 0 or past B."""
+    Bp, Bnp = -(-xb.shape[0] // 64) * 64, -(-xn.shape[0] // 64) * 64
+    xt = _pad_rows(xb, Bp, DP)
+    if perm:
+        xt = xt[sm90_positions(Bp)]
+    xr = _pad_rows(xn, Bnp, DP)
+    if planes == 2:
+        parts = [*tf32_split(xt.T.contiguous()), *tf32_split(xr)]
+    else:
+        parts = [xt.T.contiguous(), xr]
+    if bmu is not None:
+        B = xb.shape[0]
+        table = torch.zeros((Bp, 4), dtype=torch.float32, device=xb.device)
+        bm = bmu.to(torch.int64)
+        col, row = (bm % xdim).to(torch.float32), bm // xdim
+        gx = col + 0.5 * (row % 2).to(torch.float32) if hexa else col
+        on = bm >= 0
+        table[:B, 0] = torch.where(on, gx, 0.0)
+        table[:B, 1] = torch.where(on, row.to(torch.float32), 0.0)
+        table[:B, 2] = torch.where(on, alpha.to(torch.float32), 0.0)
+        parts.append(table)
+    return torch.cat([p.reshape(-1) for p in parts])

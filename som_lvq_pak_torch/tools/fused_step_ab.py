@@ -1,11 +1,14 @@
-"""The tensor-core fused steps on one step body (csrc/fused_step_tc.cuh):
-K3, K13 and K14's main form, and the winner walks K4 (masked,
+"""The tensor-core fused steps and their skeleton, timed side by side on one
+tree, with a digest of every output so that two trees can be held bit for
+bit against each other: K3 (csrc/fused_step_sm90.cu, the Hopper walk, for D
+<= 128; csrc/som_fused_step.cu past it), K13 and K14's main form (on
+csrc/fused_step_tc.cuh), K17 (csrc/fused_skeleton_sm90.cu, K3's walk;
+csrc/fused_skeleton.cu past D 128) and the winner walks K4 (masked,
 csrc/argmin_masked_sm90.cu), K8 (csrc/argmin_sm90.cu) and K10
-(csrc/dist_topk.cu, at k 2 and 8), timed side by side on one tree, with a
-digest of every output so that two trees can be held bit for bit against
-each other.
+(csrc/dist_topk.cu, at k 2 and 8).
 
     python -m som_lvq_pak_torch.tools.fused_step_ab [--iters 10] [--device cuda]
+    python -m som_lvq_pak_torch.tools.fused_step_ab --walk-variants [--iters 10]
 
 For each case (map, topology, neighbourhood, B, D, radius): K3
 (`som_fused_train_step(factored=False)`) and, where the case names it, K13
@@ -16,27 +19,61 @@ seed 4 (codes, both batches and the per-sample alphas from `randn`/`rand`,
 the BMUs from `dist_argmin_plain`, seven samples without one).  For each
 kernel: the mean milliseconds per step over `iters` steps after a warm-up
 (CUDA events), and the SHA-256 of its updated codebook, winners and values
-from one step on fresh inputs.  For each winner case (B, N, D): K4
-(`dist_argmin` with a mask, p 0.1 and every 97th row masked), K8
-(`dist_top2`) and K10 (`dist_topk` at k 2 and 8) on inputs from seed 5,
-their ms and the SHA-256 of their values and indices.  Run it in two checkouts in one call
-(parent, change, change, parent) and compare: equal digests mean the same
-floats.  Prints one JSON line.  `device="cpu"` runs the plain versions,
-timed by the host clock (a CPU time, never a device number).
+from one step on fresh inputs; for K3 also the digests of a step on the
+codebook rounded to bf16 ("k3_digest_bf16") and of one taking the rows as a
+model-axis shard from unit 64 ("k3_digest_offset").  For each skeleton case (N, D, T, B, B',
+float32 or bf16): K17 (`fused_step_skeleton`) on bench.py:prep_skeleton's
+inputs from seed 6, the SHA-256 of its out and vmax at scale 1.0 (where the
+accumulation shows) and its ms at the bench's 1e-30.  For each winner case
+(B, N, D): K4 (`dist_argmin` with a mask, p 0.1 and every 97th row masked),
+K8 (`dist_top2`) and K10 (`dist_topk` at k 2 and 8) on inputs from seed 5,
+their ms and the SHA-256 of their values and indices.  Run it in two
+checkouts in one call (parent, change, change, parent) and compare: equal
+digests mean the same floats.  Prints one JSON line.  `device="cpu"` runs
+the plain versions, timed by the host clock (a CPU time, never a device
+number).
+
+`--walk-variants` (a card and nvcc): where K3's Hopper walk spends its time.
+Copies of csrc/ with the walk's source edited (`walk_variant_sources`) are
+built by nvcc into `som_lvq_pak_torch/_build/step_ab/` (git-ignored) and
+timed in turns, K3 at 256x256, B 4096, D 64 (gaussian, hexa, radius 64),
+whole and with each contraction nearly alone (B' 64: the update; B 32: the
+winners), and K17 at its bench shape:
+
+* `walk`: the source as it is;
+* `no_w`: K3's W value replaced by the sample's alpha (no grid distance, no
+  division, no expf; the table read and every product stay);
+* `no_feed`: the producer loads each phase's first ring-full of chunks and
+  only arms the barriers after, so the products read stale slots: the L2
+  feed alone removed;
+* `no_fold`: K3's winner fold cut to a sum of the scores folded once a
+  chunk (a product whose sums nothing reads would be dropped by ptxas, so
+  the sums stay read);
+* `no_turns`: the two consumer warpgroups issue their products without
+  taking turns.
+
+Wrong results on purpose, except `walk`'s, which must equal the wrapper's
+(checked).  Prints one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
+import os
+import shutil
+import subprocess
 import sys
 
 import torch
 
+from .. import _build
 from ..ops.dist_argmin import dist_argmin, dist_argmin_plain
 from ..ops.dist_top2 import dist_top2
 from ..ops.dist_topk import dist_topk
+from ..ops.skeleton import fused_step_skeleton
 from ..ops.som_step import (som_fused_factored_chunked_step, som_fused_factored_step,
                             som_fused_train_step)
 from .timing import mean_ms, resolve
@@ -61,8 +98,16 @@ WINNER_CASES = ((1024, 65536, 64), (4096, 65536, 64), (512, 32768, 64), (1024, 4
                 (777, 3001, 37), (1000, 2999, 130))
 
 
-def _k3(*a):
-    return som_fused_train_step(*a, factored=False)
+# (N, D, T, B, B' or None for x' = x, bf16) of K17: bench.py's twins of the
+# headline steps (B 4096 float32, B 8192 bf16), then ragged shapes with an x'
+# of their own at D 37 and 5, both types
+SKELETON_CASES = ((65536, 64, 256, 4096, None, False), (65536, 64, 256, 8192, None, True),
+                  (1000, 37, 100, 333, 257, False), (1000, 37, 100, 333, 257, True),
+                  (777, 5, 64, 1000, 999, False), (777, 5, 64, 1000, 999, True))
+
+
+def _k3(*a, **kw):
+    return som_fused_train_step(*a, factored=False, **kw)
 
 
 def _k14_bf16(*a):
@@ -82,7 +127,8 @@ def kernels(B, k13) -> tuple:
 def _digest(ts) -> str:
     h = hashlib.sha256()
     for t in ts:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous().cpu()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
     return h.hexdigest()
 
 
@@ -97,11 +143,14 @@ def run_case(xdim, ydim, hexa, gaussian, B, D, radius, k13, dev, iters=10) -> di
     alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device=dev)
     out = dict(case=f"{xdim}x{ydim} {'hexa' if hexa else 'rect'} "
                     f"{'gaussian' if gaussian else 'bubble'} B {B} D {D}")
+    args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
     for name, fn in kernels(B, k13):
-        args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
         out[f"{name}_digest"] = _digest(fn(codes.clone(), *args))
         work = codes.clone()
         out[f"{name}_ms"] = mean_ms(lambda: fn(work, *args), dev, iters)
+    # K3 on a bf16 codebook and as a model-axis shard (rows from unit 64)
+    out["k3_digest_bf16"] = _digest(_k3(codes.to(torch.bfloat16), *args))
+    out["k3_digest_offset"] = _digest(_k3(codes.clone(), *args, unit_offset=64))
     return out
 
 
@@ -122,18 +171,212 @@ def run_winners(B, N, D, dev, iters=10) -> dict:
     return out
 
 
+def _skeleton_inputs(N, D, T, B, Bn, bf16, dev):
+    """bench.py:prep_skeleton's inputs: codes normal, W uniform * 0.001, X
+    normal (all bf16 W and X for the bf16 twin); x' = X unless Bn is given."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    codes = torch.randn((N, D), generator=g, device=dev)
+    w = (torch.rand((T, B), generator=g, device=dev) * 0.001).to(dt)
+    x = torch.randn((B, D), generator=g, device=dev).to(dt)
+    xn = x if Bn is None else torch.randn((Bn, D), generator=g, device=dev).to(dt)
+    return codes, w, x, xn
+
+
+def run_skeleton(N, D, T, B, Bn, bf16, dev, iters=10) -> dict:
+    """One K17 case: the digest of (out, vmax) at scale 1.0 and the ms at
+    1e-30."""
+    codes, w, x, xn = _skeleton_inputs(N, D, T, B, Bn, bf16, dev)
+    return dict(case=f"K17 {N}x{D} T {T} B {B} B' {xn.shape[0]} "
+                     f"{'bf16' if bf16 else 'float32'}",
+                k17_digest=_digest(fused_step_skeleton(codes, w, x, xn, 1.0)),
+                k17_ms=mean_ms(lambda: fused_step_skeleton(codes, w, x, xn), dev, iters))
+
+
 def run(iters: int = 10, device="cuda") -> dict:
     dev = resolve(device)
     return dict(device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
                 cases=[run_case(*c, dev=dev, iters=iters) for c in CASES],
+                skeleton=[run_skeleton(*c, dev=dev, iters=iters) for c in SKELETON_CASES],
                 winners=[run_winners(*c, dev=dev, iters=iters) for c in WINNER_CASES])
+
+
+# ---- --walk-variants: where K3's Hopper walk spends its time ------------------
+
+VARIANT_OUT = os.path.join(_build.BUILD_DIR, "step_ab")
+WALK_VARIANTS = ("walk", "no_w", "no_feed", "no_fold", "no_turns")
+_W_LINES = ("          w[ks][q] = d2 <= r2 ? sm.z : 0.f;\n",
+            "          w[ks][q] = sm.z * expf(__fmaf_rn(r1, rem, q0));\n",
+            "          w[ks][q] = weight_of_d2(d2, sm.z, true, r2, den);\n")
+_FEED_LINES = (("    sm90::mbar_arrive_expect_tx(&r.full[r.s], L::UPD);\n",
+                "    if (c >= L::STAGES) {\n      sm90::mbar_arrive(&r.full[r.s]);\n"
+                "      r.advance();\n      continue;\n    }\n"),
+               ("      sm90::mbar_arrive_expect_tx(&r.full[r.s], L::WIN);\n",
+                "      if (n * L::NSLAB + sl >= L::STAGES) {\n"
+                "        sm90::mbar_arrive(&r.full[r.s]);\n        r.advance();\n"
+                "        continue;\n      }\n"))
+_TURN_LINES = (("__device__ __forceinline__ void await_turn(int wg) "
+                "{ sm90::bar_sync(TURN + wg, ALL); }\n",
+                "__device__ __forceinline__ void await_turn(int) {}\n"),
+               ("__device__ __forceinline__ void pass_turn(int wg) "
+                "{ sm90::bar_arrive(TURN + (wg ^ 1), ALL); }\n",
+                "__device__ __forceinline__ void pass_turn(int) {}\n"))
+_FOLD_START = "    // the two samples' keys as folded so far, read first: the loads run\n"
+_FOLD_END = "  });\n}\n"
+_NO_FOLD = """    float v = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) v += S[i];
+    fold_min_u64(keys + min(n0, Bn - 1), pack_key(v, r0), ~0ull, t == 0);
+"""
+
+
+def walk_variant_sources(step_src: str, walk_src: str) -> dict:
+    """{variant: (text of fused_step_sm90.cu, text of fused_step_sm90.cuh)}
+    from the walk's two sources; raises ValueError if they no longer hold
+    the lines edited here."""
+    missing = [s for s in _W_LINES + (_FOLD_START, _FOLD_END) if s not in step_src]
+    missing += [a for a, _ in _FEED_LINES + _TURN_LINES if a not in walk_src]
+    if missing:
+        raise ValueError(f"the walk lacks the lines the variants edit: {missing}")
+    no_w = step_src
+    for line in _W_LINES:
+        no_w = no_w.replace(line, "          w[ks][q] = sm.z;\n")
+    no_feed = walk_src
+    for a, guard in _FEED_LINES:
+        no_feed = no_feed.replace(a, guard + a)
+    no_turns = walk_src
+    for a, b in _TURN_LINES:
+        no_turns = no_turns.replace(a, b)
+    i = step_src.index(_FOLD_START)
+    no_fold = step_src[:i] + _NO_FOLD + step_src[step_src.index(_FOLD_END, i):]
+    return {"walk": (step_src, walk_src), "no_w": (no_w, walk_src),
+            "no_feed": (step_src, no_feed), "no_fold": (no_fold, walk_src),
+            "no_turns": (step_src, no_turns)}
+
+
+_WALK_ENTRIES = ("somvq_som_fused_step_sm90", "somvq_fused_skeleton_sm90")
+
+
+def build_variants(out: str = VARIANT_OUT) -> dict:
+    """Each variant's copy of csrc/ built into a library of K3's and K17's
+    walks by one nvcc each, all started together; {variant: library}."""
+    read = lambda f: open(os.path.join(_build.CSRC, f)).read()  # noqa: E731
+    texts = walk_variant_sources(read("fused_step_sm90.cu"), read("fused_step_sm90.cuh"))
+    nvcc, procs = _build._nvcc(), []
+    for name, (step_src, walk_src) in texts.items():
+        d = os.path.join(out, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_build.CSRC, d)
+        for f, text in (("fused_step_sm90.cu", step_src), ("fused_step_sm90.cuh", walk_src)):
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        procs.append(_build._start([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+                                    os.path.join(d, "lib.so"),
+                                    os.path.join(d, "fused_step_sm90.cu"),
+                                    os.path.join(d, "fused_skeleton_sm90.cu")],
+                                   os.path.join(d, "nvcc.log")))
+    _build._wait(procs)
+    libs = {}
+    for name in texts:
+        lib = ctypes.CDLL(os.path.join(out, name, "lib.so"))
+        for entry in _WALK_ENTRIES:
+            fn = getattr(lib, entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def _k3_call(lib, codes, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian):
+    """K3's C call on a variant's library, as ops.som_step's wrapper makes
+    it: (codes, idx, val)."""
+    from ..ops.som_step import sm90_scratch
+
+    dev = codes.device
+    B, Bn, D = xb.shape[0], xn.shape[0], codes.shape[1]
+    xs = sm90_scratch(B, Bn, D, dev)
+    keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
+    val = torch.empty((Bn,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
+    rc = lib.somvq_som_fused_step_sm90(
+        codes.data_ptr(), int(codes.dtype == torch.bfloat16), codes.shape[0], D,
+        xb.data_ptr(), bmu.data_ptr(), alpha.data_ptr(), B, xn.data_ptr(), Bn, xdim,
+        int(hexa), int(gaussian), float(radius), 0, xs.data_ptr(), keys.data_ptr(),
+        val.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_fused_step_sm90: CUDA error {rc}")
+    return codes, idx, val
+
+
+def _k17_call(lib, codes, w, x, xn):
+    """K17's C call on a variant's library at the bench's scale: (out, vmax)."""
+    from ..ops.som_step import sm90_scratch
+
+    dev = codes.device
+    (N, D), Bn = codes.shape, xn.shape[0]
+    bf16 = w.dtype == torch.bfloat16
+    out = torch.empty_like(codes)
+    vkeys = torch.zeros((Bn,), dtype=torch.int32, device=dev)
+    vmax = torch.empty((Bn,), dtype=torch.float32, device=dev)
+    xs = sm90_scratch(x.shape[0], Bn, D, dev, 1 if bf16 else 2, table=False)
+    rc = lib.somvq_fused_skeleton_sm90(
+        codes.data_ptr(), N, D, w.data_ptr(), w.shape[0], x.data_ptr(), x.shape[0],
+        xn.data_ptr(), Bn, int(bf16), 1e-30, out.data_ptr(), vkeys.data_ptr(),
+        vmax.data_ptr(), xs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_fused_skeleton_sm90: CUDA error {rc}")
+    return out, vmax
+
+
+def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
+    """Build the walk's variants, hold `walk` to the wrapper, time them all
+    in turns (walk, no_w, no_feed, no_fold, no_turns, and back); the
+    record."""
+    dev = resolve("cuda")
+    libs = build_variants(out)
+    g = torch.Generator(device=dev).manual_seed(4)
+    xdim, hexa, radius, gaussian, B, D = 256, True, 64.0, True, 4096, 64
+    codes = torch.randn((xdim * xdim, D), generator=g, device=dev)
+    xb = torch.randn((B, D), generator=g, device=dev)
+    xn = torch.randn((B, D), generator=g, device=dev)
+    bmu = dist_argmin_plain(xb, codes)[1]
+    bmu[:7] = -1
+    alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device=dev)
+    args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
+    matched = _digest(_k3_call(libs["walk"], codes.clone(), *args)) == _digest(
+        _k3(codes.clone(), *args))
+    order = list(WALK_VARIANTS) + list(WALK_VARIANTS)[::-1]
+    ms = {}
+    for label, b, bn in (("k3 256x256 B 4096 D 64", B, B), ("k3 update (B' 64)", B, 64),
+                         ("k3 winners (B 32)", 32, B)):
+        a = (xb[:b], bmu[:b], xn[:bn], xdim, hexa, alpha[:b], radius, gaussian)
+        work = codes.clone()
+        rec = {name: [] for name in WALK_VARIANTS}
+        for name in order:
+            rec[name].append(mean_ms(lambda: _k3_call(libs[name], work, *a), dev, iters))
+        ms[label] = rec
+    sk = _skeleton_inputs(65536, 64, 256, 4096, None, False, dev)
+    rec = {name: [] for name in ("walk", "no_feed", "no_turns")}
+    for name in ("walk", "no_feed", "no_turns", "no_turns", "no_feed", "walk"):
+        rec[name].append(mean_ms(lambda: _k17_call(libs[name], *sk), dev, iters))
+    ms["k17 65536x64 B 4096 float32"] = rec
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    return dict(card=card, walk_bit_equal_to_wrapper=matched, ms=ms)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--walk-variants", action="store_true",
+                    help="time K3's Hopper walk against its variants instead")
     a = ap.parse_args(argv)
+    if a.walk_variants:
+        rec = run_variants(a.iters)
+        print(json.dumps(rec), flush=True)
+        return 0 if rec["walk_bit_equal_to_wrapper"] else 1
     print(json.dumps(run(a.iters, a.device)), flush=True)
     return 0
 
