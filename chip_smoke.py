@@ -167,11 +167,30 @@ phases, each printing one JSON line:
             K14 at B 4096 and 8192 and K3 at the 1M step.  Then their memory
             is handed back (gc, torch.cuda.empty_cache), as before the mesh
             phases;
+3w. the SOM step kernels past 256 features (wide_d_phases: their feature
+            passes of 256): K3, K13 and K14's main form (its bf16 batches
+            too) at D 300 and 512, a bf16 codebook at 300, K14's stagger
+            (bit-equal to its main form) and int8_win at 300, K5 (bit-equal
+            to K3), K6, K7 (bit-equal to K chained K3 steps), K11 then K12
+            (bit-equal to K3 on a shard) and K17 at 300 and 512, K3 and K6
+            at 1024, each under its D <= 256 gates at a small map; then
+            phase 4w's shapes: K1 at its step (1024 x 16384 x 512, rerun,
+            bit-equal to K2), K2 at its evaluation (100,000 x 16384 x 512,
+            rerun) and K13 at its step (128x128, B 1024, D 512), under
+            their D <= 256 gates; and K7's shared memory by the C layout's
+            count (somvq_vmem_smem_bytes): whole rows of 16-row CTAs at
+            B 256 within the card's opt-in at every D 1-1024;
 4. e2e_128x128_100k  SOMTrainer.fit on a stream, then find_qerror(fast),
             through the kernels and through the plain versions: K13 per
             step (no K3 launch, the JAX trainer's choice); qerror within
             0.5% of the plain run and 2% of the JAX package's anchor; then
             with bf16=True, qerror under 1.1x the float32 run's;
+4w. e2e_wide_128x128_D512  100,000 x 512 (blob_data, NumPy seed 44;
+            205 MB on the device), 128x128 hexa gaussian, B 1024, randinit
+            from CRandom(123): SOMTrainer.fit on the JAX trainer's choice
+            (K13 at D 512, its feature passes), find_qerror(fast) (K2 at D
+            512), through the kernels and through the plain versions;
+            qerror within 1% of plain and below the random init's;
 5. som_batch_step_128x128  a few unmasked two-kernel steps through
             models.fast.som_batch_step, against the plain run;
 6. e2e_masked_128x128_100k  phase 4's run with missing components in
@@ -475,12 +494,12 @@ INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 # K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
 INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
 # K1 and K2 (one walk, two names), K8 (that walk with a top-2 fold), K4
-# (the walk with the keep contraction beside it) and K3 and K17 up to D 128
-# (their Hopper walk, csrc/fused_step_sm90.cuh): split-TF32 products on
+# (the walk with the keep contraction beside it) and K3, K13 and K17 up to D
+# 128 (their Hopper walk, csrc/fused_step_sm90.cuh): split-TF32 products on
 # warpgroup wgmma (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
 TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel", "top2_sm90_kernel",
                       "masked_argmin_sm90_kernel", "som_fused_step_sm90_kernel",
-                      "fused_skeleton_sm90_kernel")
+                      "som_fused_factored_sm90_kernel", "fused_skeleton_sm90_kernel")
 TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -653,12 +672,13 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "som_fused_chunked_int8_kernel",
                                   "int8_winner_probe_kernel",
                                   "som_fused_step_sm90_kernel",
+                                  "som_fused_factored_sm90_kernel",
                                   "fused_skeleton_sm90_kernel",
                                   "split_sm90_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
     (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5,
-    K14's walk, K15, and K3's and K17's Hopper walk and its prologue unless
-    given), and "wgmma_serialized" where ptxas reports that it serialized the
+    K14's walk, K15, and K3's, K13's and K17's Hopper walk and its prologue
+    unless given), and "wgmma_serialized" where ptxas reports that it serialized the
     function's wgmma (its C7518 performance note), from nvcc's -Xptxas -v
     report (the build's log; K4's registers are its launch's 168 a thread,
     before its warpgroups' setmaxnreg split): {"name<args>":
@@ -1117,6 +1137,128 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     # plain version's chain is plain_ms)
     emit("kernels", **rec)
     return rec
+
+
+# the feature passes' widths: past PASS_D (256) the SOM step kernels run in
+# passes of 256 features; D 300 is one full slab and a ragged one, D 512 two
+# full ones, D 1024 four
+WIDE_DS = (300, 512)
+
+
+def wide_d_phases(recs):
+    """The SOM step kernels past 256 features (their feature passes) against
+    their plain versions under the gates each has at D <= 256, at small maps:
+    K3 (factored=False), K13 and K14's main form (its bf16 batches too) at
+    D 300 and 512, each rerun bit-equal, with a bf16 codebook (its float32
+    rows copy, rows32) at 300; K14's stagger bit-equal to its main form and
+    its int8_win held as at D 64, at 300; K5 and K6 (K5 bit-equal to K3),
+    K7 (bit-equal to K chained K3 steps), K11 then K12 (their shard step
+    bit-equal to K3's, and each against its plain version) and K17 at 300
+    and 512; K3 and K6 (whole rows past its shared memory: one slab staged)
+    at 1024.  Then the wide e2e path's own shapes (phase 4w): K1 at its
+    step (1024 x 16384 x 512, rerun, bit-equal to K2), K2 at its
+    evaluation (100,000 x 16384 x 512, rerun) and K13 at its step (128x128
+    hexa gaussian, B 1024, D 512, radius 32, rerun).  Last, K7's shared
+    memory by the C layout's count: 16-row CTAs of whole rows at B 256 fit
+    in the card's opt-in at every D 1-1024.  Each kernel's largest error
+    joins its record's max_abs_err."""
+    import torch
+
+    from som_lvq_pak_torch import _build
+    from som_lvq_pak_torch.ops.dist_argmin import (dist_argmin, dist_argmin_plain,
+                                                   dist_argmin_t, dist_argmin_t_plain)
+    from som_lvq_pak_torch.ops.som_step import (feature_passes, som_fused_factored_step,
+                                                som_fused_factored_step_plain,
+                                                som_fused_train_step,
+                                                som_fused_train_step_plain)
+    from som_lvq_pak_torch.ops.som_update import (som_neighborhood_update_idx,
+                                                  som_neighborhood_update_idx_masked,
+                                                  som_neighborhood_update_idx_plain)
+
+    def worst(name, rs):
+        recs[name]["max_abs_err"] = max([recs[name]["max_abs_err"]]
+                                        + [r["max_abs_err"] for r in rs])
+
+    k3 = lambda *a, **kw: som_fused_train_step(*a, factored=False, **kw)  # noqa: E731
+    rs3, rs13, rs14 = [], [], []
+    f32_tols = dict(codes_tol=1e-5, val_tol=(1e-4, 1e-4), twin={}, tf32x3=True,
+                    separable=True)
+    for j, D in enumerate(WIDE_DS + (1024,)):
+        rs3.append(phase_step(k3, som_fused_train_step_plain, 16, 16, True, True, 256, D,
+                              4.0, seed=100 + j, twin={}, tf32x3=True))
+        if D == 1024:
+            break
+        rs13.append(phase_step(som_fused_factored_step, som_fused_factored_step_plain, 32,
+                               32, True, True, 512, D, 8.0, seed=110 + j,
+                               name="som_fused_factored_step", **f32_tols))
+        for kw, seed in ((dict(batch_chunk=1024), 120 + j), (K14_BOTH, 130 + j)):
+            rs14.append(k14_step((32, 32, True, True, 1024, D, 8.0), seed, kw))
+    # a bf16 codebook: the blend writes its float32 rows beside it for the
+    # winners' slabs
+    phase_step(k3, som_fused_train_step_plain, 16, 16, True, True, 256, 300, 4.0,
+               seed=140, bf16=True, win_rel=1e-2, twin={}, tf32x3=True)
+    phase_step(som_fused_factored_step, som_fused_factored_step_plain, 32, 32, True, True,
+               512, 300, 8.0, seed=141, name="som_fused_factored_step", bf16=True,
+               val_tol=(1e-4, 1e-4), win_rel=1e-2, twin={}, tf32x3=True)
+    k14_step((32, 32, True, True, 1024, 300, 8.0), 142, K14_BOTH, bf16=True)
+    # K14's options past 256: stagger bit-equal to the main form, int8_win
+    worst("som_fused_factored_chunked_step[stagger]",
+          [k14_step((32, 32, True, True, 1024, 300, 8.0), 143,
+                    dict(K14_BOTH, stagger=True), twin=K14_BOTH)])
+    worst("som_fused_factored_chunked_step[int8_win]",
+          [phase_int8(32, 32, True, True, 1024, 300, 8.0, seed=144, kw=K14_BOTH)])
+    worst("som_fused_train_step", rs3)
+    worst("som_fused_factored_step", rs13)
+    worst("som_fused_factored_chunked_step", rs14)
+    # K5 (bit-equal to K3) and K6 at 300 and 512, K6 also at 1024
+    for k, p in ((som_neighborhood_update_idx, som_neighborhood_update_idx_plain),
+                 (som_neighborhood_update_idx_masked,
+                  lambda c, x, b, m, *a: som_neighborhood_update_idx_plain(
+                      c, x, b, *a, mask=m))):
+        masked = k is som_neighborhood_update_idx_masked
+        worst(k.__name__, [phase_update(k, p, 16, 16, True, True, 256, D, 4.0,
+                                        seed=150 + D, masked=masked)
+                           for D in WIDE_DS + ((1024,) if masked else ())])
+    # K7: its group bit-equal to K chained K3 steps (the grouped trainer's
+    # choice at 32x32, D 300)
+    worst("som_vmem_train_steps",
+          [phase_vmem(32, 32, True, True, D, 256, 8, 8.0, 0.01, seed=160 + j, varied=True)
+           for j, D in enumerate(WIDE_DS)])
+    # K11 and K12 against their plain versions, then on a shard: K11 + K12
+    # bit-equal to K3
+    worst("som_neighborhood_accumulate",
+          [phase_accum(32, True, True, 512, 512, 512, D, 8.0, True, seed=170 + j)
+           for j, D in enumerate(WIDE_DS)])
+    worst("som_blend_winner", [phase_blend(1024, D, 512, seed=180 + j)
+                               for j, D in enumerate(WIDE_DS)])
+    for j, D in enumerate(WIDE_DS):
+        phase_shard_step(32, True, True, 512, D, 8.0, seed=190 + j)
+    # K17, float32 and bf16
+    worst("fused_step_skeleton",
+          [phase_skeleton(512, bf16, seed=200 + j, N=2048, D=D, T=256, Bn=300, iters=3)
+           for j, D in enumerate(WIDE_DS) for bf16 in (False, True)])
+    # the wide e2e path's shapes: K1 at its step, K2 at its evaluation, K13
+    # at its step
+    worst("dist_argmin", [phase_distance("dist_argmin", dist_argmin, dist_argmin_plain,
+                                         1024, 16384, 512, seed=210, rerun=True,
+                                         twin=dist_argmin_t)])
+    worst("dist_argmin_t", [phase_distance("dist_argmin_t", dist_argmin_t,
+                                           dist_argmin_t_plain, 100_000, 16384, 512,
+                                           seed=211, iters=3, rerun=True)])
+    worst("som_fused_factored_step",
+          [phase_step(som_fused_factored_step, som_fused_factored_step_plain, 128, 128,
+                      True, True, 1024, 512, 32.0, seed=212,
+                      name="som_fused_factored_step", **f32_tols)])
+    # K7's shared memory, the C layout's count: whole rows (every pass's
+    # slab) of a 16-row CTA at B 256 within the opt-in at every D
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    smem = _build.library().somvq_vmem_smem_bytes
+    for D in range(1, 1025):
+        n, dp = feature_passes(D)
+        got = smem(16, 256, D)
+        if not 4 * 16 * n * dp <= got <= optin:
+            raise AssertionError(f"K7 at D {D}: {got} bytes of shared memory for 16 "
+                                 f"rows, not within [{4 * 16 * n * dp}, {optin}]")
 
 
 def phase_segment_sum(B, C, noc, seed, kind="spread", iters=10):
@@ -1793,7 +1935,7 @@ def k7_rows_forced(rows: int):
     from som_lvq_pak_torch.ops import som_vmem
 
     saved = som_vmem.k7_rows
-    som_vmem.k7_rows = lambda noc, D, device: rows
+    som_vmem.k7_rows = lambda *_: rows
     try:
         yield
     finally:
@@ -1889,7 +2031,7 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
                winners_differ_vs_k3=flips3, bit_equal_rerun=True,
                bit_equal_to="K chained som_fused_train_step(factored=False)",
                zero_alpha_bit_equal=True,
-               rows_per_cta=som_vmem.k7_rows(noc, D, codes.device))
+               rows_per_cta=som_vmem.k7_rows(noc, D, codes.device, B))
     work = codes.clone()
     # K steps of update W.X and winners, 2 noc B D FLOPs each; the codebook
     # read and written once, the batches, next_first, alphas, radii and bmu0
@@ -1906,7 +2048,7 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
     emit("kernels", **rec)
     if rows:
         line = dict(card=nvidia_smi_line(), shape=rec["shape"],
-                    k7_rows_chosen=som_vmem.k7_rows(noc, D, codes.device))
+                    k7_rows_chosen=som_vmem.k7_rows(noc, D, codes.device, B))
         for r in K7_ROWS:
             if r == 128 and D > 128:
                 continue
@@ -2242,12 +2384,13 @@ def phase_shard_step(xdim, hexa, gaussian, B, D, radius, seed):
          shards_equal_unsharded=True, k11_k12_bit_equal_k3=["codes", "val", "idx"])
 
 
-def blob_data(seed: int, n: int, n_centres: int):
-    """bench.py's e2e data: gaussian clusters around N(0, 4) centres."""
+def blob_data(seed: int, n: int, n_centres: int, dim: int = 64):
+    """bench.py's e2e data: gaussian clusters around N(0, 4) centres, `dim`
+    features (64, bench.py's)."""
     rng = np.random.default_rng(seed)
-    centres = rng.normal(0, 4.0, size=(n_centres, 64)).astype(np.float32)
+    centres = rng.normal(0, 4.0, size=(n_centres, dim)).astype(np.float32)
     return (centres[rng.integers(0, n_centres, size=n)]
-            + rng.normal(0, 1.0, size=(n, 64)).astype(np.float32))
+            + rng.normal(0, 1.0, size=(n, dim)).astype(np.float32))
 
 
 @contextlib.contextmanager
@@ -2422,7 +2565,8 @@ def e2e(X, map_dim, bs, radius, chunk, mask=None, weight=None, vmem_steps=None,
         q = find_qerror(out, X_dev, mask=mk_dev) / n
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
-    if not np.isfinite(out.points).all() or out.points.shape != (map_dim * map_dim, 64):
+    if not np.isfinite(out.points).all() or out.points.shape != (map_dim * map_dim,
+                                                                  X.shape[1]):
         raise AssertionError("trained codebook is not finite or has the wrong shape")
     if keep is not None:
         keep["codes"] = out
@@ -3280,10 +3424,14 @@ TRACE_STEPS = 16  # the fit under utils.progress.trace
 
 # the fused-step kernel fused_step_choice picks: its launch counter and its
 # CUDA function's name (as a trace shows it)
+# (launch counter, CUDA function up to D 128, past it); K3 and K13 run their
+# Hopper walk up to D 128 (ops.som_step.k3_route, k13_route)
 FUSED_STEP_KERNELS = {
-    "K13": ("som_fused_factored_step", "som_fused_factored_kernel"),
-    "K14": ("som_fused_factored_chunked_step", "som_fused_factored_chunked_tc_kernel"),
-    "K3": ("som_fused_train_step", "som_fused_step_sm90_kernel")}
+    "K13": ("som_fused_factored_step", "som_fused_factored_sm90_kernel",
+            "som_fused_factored_kernel"),
+    "K14": ("som_fused_factored_chunked_step", "som_fused_factored_chunked_tc_kernel",
+            "som_fused_factored_chunked_tc_kernel"),
+    "K3": ("som_fused_train_step", "som_fused_step_sm90_kernel", "som_fused_step_kernel")}
 
 
 def fused_step_kernel(side, batch, dim):
@@ -3291,10 +3439,12 @@ def fused_step_kernel(side, batch, dim):
     map at this batch and width (models.trainer.fused_step_choice, the JAX
     trainer's rule): (K name, launch counter, CUDA function)."""
     from som_lvq_pak_torch.models.trainer import fused_step_choice
+    from som_lvq_pak_torch.ops.som_step import SM90_MAX_D
 
     factored, _, chunk, _, _ = fused_step_choice(side * side, side, True, True, batch, dim)
     k = "K14" if chunk else "K13" if factored else "K3"
-    return (k, *FUSED_STEP_KERNELS[k])
+    counter, walk, wide = FUSED_STEP_KERNELS[k]
+    return k, counter, walk if dim <= SM90_MAX_D else wide
 
 
 def example_large_som_phase(smi, tally):
@@ -4898,6 +5048,8 @@ def main() -> int:
     # K3 with a unit offset on each half of the 256x256 map; K11 + K12 on one
     phase_shard_step(256, True, True, 4096, 64, 64.0, seed=35)
     phase_shard_step(16, False, False, 1024, 64, 3.0, seed=36)
+    # every SOM step kernel past 256 features (the feature passes)
+    wide_d_phases(recs)
 
     launches = {fn.__name__: 0 for fn in counted()}
 
@@ -4938,6 +5090,33 @@ def main() -> int:
          bf16_launches=got16,
          gate="qerror within 0.5% of plain and 2% of the JAX anchor; bf16 run under "
               "1.1x the float32 run's; no K3 launch")
+
+    # ---- e2e_wide_128x128_D512: 100k x 512 (a user clustering 512-wide
+    # embeddings; 205 MB on the device): SOMTrainer.fit on the JAX trainer's
+    # choice, K13 at D 512 in its feature passes, then find_qerror(fast), K2
+    # at D 512; quality within 1% of the plain run and below the random init's
+    Xw = blob_data(44, 100_000, 4, dim=512)
+    (qw, trainw_s, evalw_s), (qw_plain, trainw_plain_s, evalw_plain_s), gotw = main_path(
+        "e2e_wide_128x128_D512", lambda: e2e(Xw, 128, 1024, 32, 8192),
+        ("dist_argmin", "dist_argmin_t", "som_fused_factored_step"),
+        lambda: e2e(Xw, 128, 1024, 32, 8192))
+    tally(gotw)
+    if gotw["som_fused_train_step"]:
+        raise AssertionError("e2e wide: K3 launched where the JAX trainer takes the "
+                             "separable kernel")
+    check_e2e("e2e wide", qw, qw_plain, 0.01)
+    Xw_dev = torch.from_numpy(Xw).to("cuda")
+    qw_init = find_qerror(random_codes(Xw, 128), Xw_dev) / Xw.shape[0]
+    if not qw < qw_init:
+        raise AssertionError(f"e2e wide: qerror {qw} not below the random init's {qw_init}")
+    emit("e2e_wide_128x128_D512", card=smi, qerror_per_sample=qw, train_s=trainw_s,
+         qerror_eval_s=evalw_s, plain_qerror_per_sample=qw_plain,
+         plain_train_s=trainw_plain_s, plain_qerror_eval_s=evalw_plain_s,
+         random_init_qerror_per_sample=qw_init, data_mb=Xw.nbytes / 1e6,
+         kernel_choice=fused_step_choice(128 * 128, 128, True, True, 1024, 512),
+         launches=gotw,
+         gate="qerror within 1% of plain and below the random init's; no K3 launch")
+    del Xw, Xw_dev
 
     # ---- unmasked two-kernel steps through som_batch_step ----------------
     Mk, Mp, got = main_path(
@@ -5212,7 +5391,7 @@ def main() -> int:
                                         "som_lvq_pak_tpu/ops/pallas_som.py:301"),
         "som_blend_winner": ("som_lvq_pak_torch/csrc/som_blend_winner.cu",
                              "som_lvq_pak_tpu/ops/pallas_som.py:401"),
-        "som_fused_factored_step": ("som_lvq_pak_torch/csrc/som_fused_factored.cu",
+        "som_fused_factored_step": ("som_lvq_pak_torch/csrc/som_fused_factored_sm90.cu",
                                     "som_lvq_pak_tpu/ops/pallas_som.py:743"),
         "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/som_fused_chunked_tc.cuh",
                                             "som_lvq_pak_tpu/ops/pallas_som.py:904"),

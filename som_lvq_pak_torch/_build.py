@@ -50,20 +50,28 @@ _SIGNATURES = {
     "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
-    # gaussian, radius, unit_offset, xs, keys, val, idx, stream
+    # gaussian, radius, unit_offset, xs, keys, val, idx, rows32, stream
     "somvq_som_fused_step": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I,
-                             _I, ctypes.c_float, _I, _P, _P, _P, _P, _P],
-    # the same for D <= 128 (the Hopper walk; xs sized by
+                             _I, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P],
+    # the same without rows32, for D <= 128 (the Hopper walk; xs sized by
     # ops.som_step.sm90_scratch)
     "somvq_som_fused_step_sm90": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
                                   _I, _I, ctypes.c_float, _I, _P, _P, _P, _P,
                                   _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
     # gaussian, radius, chunked, wxa_bf16, batch_bf16, stagger, int8_win,
-    # rows, xs, xq, q, pat, ytab, aw, keys, val, idx, stream
+    # rows, xs, xq, q, pat, ytab, aw, keys, val, idx, rows32, stream
     "somvq_som_fused_factored": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
                                  _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
-                                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P],
+    # K13 for D <= 128 on the Hopper walk: codes, codes_bf16, noc, D, xb,
+    # bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius, xs (sized by
+    # ops.som_step.sm90_scratch without its table), pat, ytab, aw, keys, val,
+    # idx, stream
+    "somvq_som_fused_factored_sm90": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
+                                      _I, _I, ctypes.c_float, _P, _P, _P, _P, _P,
+                                      _P, _P, _P],
     # rows, seg, B, C, noc, presorted, scratch, out, stream
     "somvq_segment_sum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # m, x, N, D, Dp, B, splits, out, stream
@@ -232,6 +240,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.somvq_error_string.argtypes = [ctypes.c_int]
     lib.somvq_error_string.restype = ctypes.c_char_p
+    # rows, B, D -> K7's shared memory in bytes (a query; -1 if not built)
+    lib.somvq_vmem_smem_bytes.argtypes = [_I, _I, _I]
+    lib.somvq_vmem_smem_bytes.restype = ctypes.c_int
     return lib
 
 

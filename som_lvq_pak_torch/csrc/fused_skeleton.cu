@@ -1,7 +1,7 @@
 // The fused step's skeleton: the matmul-only twin of the fused SOM step, the
 // yardstick of how much of a fused step's time its two contractions take.
-// This mma.sync kernel takes D in (128, 256] (NT 32 only), K3's mma.sync
-// route; up to D 128 K17 runs K3's Hopper walk (fused_skeleton_sm90.cu,
+// This mma.sync kernel takes D > 128 (NT 32 only; past 256 in feature passes
+// of 256, as fused_step_tc.cuh's kernels), K3's mma.sync route; up to D 128 K17 runs K3's Hopper walk (fused_skeleton_sm90.cu,
 // bit-equal to this kernel; ops.skeleton.k17_route).
 //
 // Replaces bench.py:_skeleton_kernel (K17 fused_step_skeleton, called at
@@ -145,12 +145,54 @@ __device__ __forceinline__ void mma_route(float (&d)[4], const float (&ahi)[4],
   }
 }
 
+// Stage chunk rows s0..s0 + nb - 1 of x into raw: whole rows (RS == D) in
+// one piece, or features f0..f0 + width - 1 of each row into rows of RS
+// (the feature passes): float32 by cp.async (16-byte pieces where aligned),
+// bf16 by plain copies (seen after the next barrier)
+template <typename T>
+__device__ __forceinline__ void stage_slab(T* raw, const T* __restrict__ x, int s0, int nb,
+                                           int D, int f0, int width, int RS, int tid,
+                                           int nthreads) {
+  const size_t off = (size_t)s0 * D;
+  if (RS == D) {
+    stage_async(raw, x + off, nb * D, tid, nthreads);
+    return;
+  }
+  if constexpr (sizeof(T) == 4) {
+    const bool v16 = (D & 3) == 0 && (width & 3) == 0 && (f0 & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    if (v16) {
+      const int q = width / 4;
+      for (int e = tid; e < nb * q; e += nthreads) {
+        const int r = e / q, k = 4 * (e - r * q);
+        cp_async16(raw + r * RS + k, x + off + (size_t)r * D + f0 + k);
+      }
+      return;
+    }
+    for (int e = tid; e < nb * width; e += nthreads) {
+      const int r = e / width, k = e - r * width;
+      cp_async4(raw + r * RS + k, x + off + (size_t)r * D + f0 + k);
+    }
+  } else {
+    for (int e = tid; e < nb * width; e += nthreads) {
+      const int r = e / width, k = e - r * width;
+      raw[r * RS + k] = x[off + (size_t)r * D + f0 + k];
+    }
+  }
+}
+
+// Past 256 features (NT 32) the kernel runs n_passes(D) feature passes of
+// 256: pass s stages slab s of each chunk's rows alone, takes its W.X (W
+// read again: the same floats each pass) and writes its columns of out; the
+// winners then sum each chunk's scores in the mma over the slabs in order,
+// each slab of out read back (through L2: this CTA's own rows, written
+// before a barrier) and rounded to x''s type, beside the chunk's slab of x'.
 template <int NT, typename T>
 __global__ void __launch_bounds__(32 * sk_warps(NT), NT <= 8 ? 2 : 1)
 fused_skeleton_kernel(const float* __restrict__ codes, int N, int D,
                       const T* __restrict__ w, int T_rows, const T* __restrict__ x,
                       int B, const T* __restrict__ xn, int Bn, float scale,
-                      float* __restrict__ out, unsigned int* __restrict__ vkeys) {
+                      float* out, unsigned int* __restrict__ vkeys) {
   using L = SkSmem<NT, T>;
   constexpr bool kSplit = L::kSplit;
   constexpr int DP = L::DP, WARPS = L::WARPS, TN = L::TN, BW = L::BW;
@@ -159,11 +201,13 @@ fused_skeleton_kernel(const float* __restrict__ codes, int N, int D,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * TN;
+  const int np = NT == 32 ? n_passes(D) : 1;
+  const int RS = np > 1 ? DP : D;  // a staged row: whole, or one slab
 
   // ---- update: acc = W.X over the whole batch ------------------------------
   T* raw0 = reinterpret_cast<T*>(smem_raw);
-  T* raw1 = raw0 + kSBC * D;
-  float2* xhi = reinterpret_cast<float2*>(smem_raw + L::raw_bytes(D));
+  T* raw1 = raw0 + kSBC * RS;
+  float2* xhi = reinterpret_cast<float2*>(smem_raw + L::raw_bytes(RS));
   float2* xlo = xhi + (kSBC / 2) * S2;  // float32 operands only
 
   // this thread's two W rows, 16 warp + g and + 8 (rows past N read a valid
@@ -175,123 +219,127 @@ fused_skeleton_kernel(const float* __restrict__ codes, int N, int D,
   const bool wvec = (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
                     B % (int)(16 / sizeof(T)) == 0;
 
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-
-  const int nchunks = (B + kSBC - 1) / kSBC;
-  float wv[2][8];  // this thread's W values of the next chunk
-#pragma unroll
-  for (int h = 0; h < 2; ++h) load_w8(wv[h], wrow[h], 8 * t, B, wvec);
-  stage_async(raw0, x, min(kSBC, B) * D, tid, THREADS);
-  cp_async_commit();
-  for (int c = 0; c < nchunks; ++c) {
-    const int s0 = c * kSBC, nb = min(kSBC, B - s0);
-    const T* raw = (c & 1) ? raw1 : raw0;
-    cp_async_wait_all();
-    __syncthreads();  // chunk c landed; chunk c - 1's fragments all read
-    if (c + 1 < nchunks) {  // its buffer was last read by chunk c - 1's split
-      stage_async((c & 1) ? raw0 : raw1, x + (size_t)(s0 + kSBC) * D,
-                  min(kSBC, B - s0 - kSBC) * D, tid, THREADS);
-      cp_async_commit();
-    }
-    // X chunk c as sample pairs (2p, 2p + 1), split
-    for (int e = tid; e < (kSBC / 2) * DP; e += THREADS) {
-      const int p = e / DP, n = e % DP;
-      float v0 = 0.f, v1 = 0.f;
-      if (n < D) {
-        if (2 * p < nb) v0 = load_f32(raw + 2 * p * D + n);
-        if (2 * p + 1 < nb) v1 = load_f32(raw + (2 * p + 1) * D + n);
-      }
-      float2 hi, lo;
-      split_route<kSplit>(v0, hi.x, lo.x);
-      split_route<kSplit>(v1, hi.y, lo.y);
-      xhi[p * S2 + n] = hi;
-      if constexpr (kSplit) xlo[p * S2 + n] = lo;
-    }
-    // chunk c's A fragments from the W values loaded one chunk ahead:
-    // k-step ks, columns t and t + 4 are samples 8t + 2ks and 8t + 2ks + 1;
-    // a0 (row g), a1 (g + 8), a2 (g, next sample), a3 (g + 8, next sample)
-    float ahi[4][4], alo[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        split_route<kSplit>(wv[q & 1][2 * ks + (q >> 1)], ahi[ks][q], alo[ks][q]);
-    if (c + 1 < nchunks) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) load_w8(wv[h], wrow[h], s0 + kSBC + 8 * t, B, wvec);
-    }
-    __syncthreads();  // the split chunk is in shared memory
-    // b0 (sample 8t + 2ks, feature 8j + g), b1 (the next sample): one float2
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int a = (4 * t + ks) * S2 + 8 * j + g;
-        const float2 h2 = xhi[a];
-        const float bhi[2] = {h2.x, h2.y};
-        float blo[2] = {0.f, 0.f};
-        if constexpr (kSplit) {
-          const float2 l2 = xlo[a];
-          blo[0] = l2.x;
-          blo[1] = l2.y;
-        }
-        mma_route<kSplit>(part, ahi[ks], alo[ks], bhi, blo);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] += part[q];
-    }
-  }
-  __syncthreads();  // every fragment read: the update region is free
-
-  // ---- out = codes + scale * acc; the rows kept as x''s type, split ---------
   float* thi = reinterpret_cast<float*>(smem_raw);
   float* tlo = thi + TN * DT;                  // float32 operands only
   float* whi = thi + L::P * TN * DT;
   float* wlo = whi + BW * DT;                  // float32 operands only
   float* redv = whi + L::P * BW * DT;
+
+  for (int ps = 0; ps < np; ++ps) {
+    const int f0 = ps * DP, width = min(DP, D - f0);
+    float acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
-      const int r = 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
-      const int u = r0 + r;
-      float o = 0.f;
-      if (k < D && u < N) {
-        const size_t gi = (size_t)u * D + k;
-        o = codes[gi] + __fmul_rn(acc[j][q], scale);
-        out[gi] = o;
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+    const int nchunks = (B + kSBC - 1) / kSBC;
+    float wv[2][8];  // this thread's W values of the next chunk
+#pragma unroll
+    for (int h = 0; h < 2; ++h) load_w8(wv[h], wrow[h], 8 * t, B, wvec);
+    stage_slab(raw0, x, 0, min(kSBC, B), D, f0, width, RS, tid, THREADS);
+    cp_async_commit();
+    for (int c = 0; c < nchunks; ++c) {
+      const int s0 = c * kSBC, nb = min(kSBC, B - s0);
+      const T* raw = (c & 1) ? raw1 : raw0;
+      cp_async_wait_all();
+      __syncthreads();  // chunk c landed; chunk c - 1's fragments all read
+      if (c + 1 < nchunks) {  // its buffer was last read by chunk c - 1's split
+        stage_slab((c & 1) ? raw0 : raw1, x, s0 + kSBC, min(kSBC, B - s0 - kSBC), D, f0,
+                   width, RS, tid, THREADS);
+        cp_async_commit();
       }
-      float hi, lo;
-      split_route<kSplit>(round_as(o, xn), hi, lo);
-      thi[r * DT + kperm(k)] = hi;
-      if constexpr (kSplit) tlo[r * DT + kperm(k)] = lo;
+      // X chunk c as sample pairs (2p, 2p + 1), split
+      for (int e = tid; e < (kSBC / 2) * DP; e += THREADS) {
+        const int p = e / DP, n = e % DP;
+        float v0 = 0.f, v1 = 0.f;
+        if (n < width) {
+          if (2 * p < nb) v0 = load_f32(raw + 2 * p * RS + n);
+          if (2 * p + 1 < nb) v1 = load_f32(raw + (2 * p + 1) * RS + n);
+        }
+        float2 hi, lo;
+        split_route<kSplit>(v0, hi.x, lo.x);
+        split_route<kSplit>(v1, hi.y, lo.y);
+        xhi[p * S2 + n] = hi;
+        if constexpr (kSplit) xlo[p * S2 + n] = lo;
+      }
+      // chunk c's A fragments from the W values loaded one chunk ahead:
+      // k-step ks, columns t and t + 4 are samples 8t + 2ks and 8t + 2ks + 1;
+      // a0 (row g), a1 (g + 8), a2 (g, next sample), a3 (g + 8, next sample)
+      float ahi[4][4], alo[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_route<kSplit>(wv[q & 1][2 * ks + (q >> 1)], ahi[ks][q], alo[ks][q]);
+      if (c + 1 < nchunks) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) load_w8(wv[h], wrow[h], s0 + kSBC + 8 * t, B, wvec);
+      }
+      __syncthreads();  // the split chunk is in shared memory
+      // b0 (sample 8t + 2ks, feature 8j + g), b1 (the next sample): one float2
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const int a = (4 * t + ks) * S2 + 8 * j + g;
+          const float2 h2 = xhi[a];
+          const float bhi[2] = {h2.x, h2.y};
+          float blo[2] = {0.f, 0.f};
+          if constexpr (kSplit) {
+            const float2 l2 = xlo[a];
+            blo[0] = l2.x;
+            blo[1] = l2.y;
+          }
+          mma_route<kSplit>(part, ahi[ks], alo[ks], bhi, blo);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] += part[q];
+      }
+    }
+    __syncthreads();  // every fragment read: the update region is free
+
+    // ---- out = codes + scale * acc; the rows kept as x''s type, split -------
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+        const int r = 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
+        const int u = r0 + r;
+        float o = 0.f;
+        if (k < width && u < N) {
+          const size_t gi = (size_t)u * D + f0 + k;
+          o = codes[gi] + __fmul_rn(acc[j][q], scale);
+          out[gi] = o;
+        }
+        if (np == 1) {
+          float hi, lo;
+          split_route<kSplit>(round_as(o, xn), hi, lo);
+          thi[r * DT + kperm(k)] = hi;
+          if constexpr (kSplit) tlo[r * DT + kperm(k)] = lo;
+        }
+      }
     }
   }
 
   // ---- vmax[b] = max over the CTA's rows of row . x'[b] --------------------
   const int ra = r0 + 16 * warp + g, rb = ra + 8;
-  for (int n0 = 0; n0 < Bn; n0 += BW) {
-    __syncthreads();  // rows written; the previous chunk's fragments and redv read
+  // x' chunk n0's features f0.. (one slab, or the whole row), split
+  auto load_x = [&](int n0, int f0) {
     for (int e = tid; e < BW * DP; e += THREADS) {
       const int s = e / DP, k = e % DP;
       float hi, lo;
-      split_route<kSplit>((n0 + s < Bn && k < D) ? load_f32(xn + (size_t)(n0 + s) * D + k)
-                                                 : 0.f,
+      split_route<kSplit>((n0 + s < Bn && f0 + k < D)
+                              ? load_f32(xn + (size_t)(n0 + s) * D + f0 + k)
+                              : 0.f,
                           hi, lo);
       whi[s * DT + kperm(k)] = hi;
       if constexpr (kSplit) wlo[s * DT + kperm(k)] = lo;
     }
-    __syncthreads();
-    float S[BW / 8][4];
-#pragma unroll
-    for (int n = 0; n < BW / 8; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+  };
+  // S += the tile's rows . the staged chunk
+  auto scores = [&](float (&S)[BW / 8][4]) {
 #pragma unroll 2
     for (int ks = 0; ks < NT; ++ks) {
       // a0, a2 (row g, features t, t + 4) and a1, a3 (row g + 8)
@@ -321,6 +369,31 @@ fused_skeleton_kernel(const float* __restrict__ codes, int N, int D,
         }
         mma_route<kSplit>(S[n], ahi, alo, bhi, blo);
       }
+    }
+  };
+  for (int n0 = 0; n0 < Bn; n0 += BW) {
+    float S[BW / 8][4];
+#pragma unroll
+    for (int n = 0; n < BW / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+    for (int ps = 0; ps < np; ++ps) {
+      __syncthreads();  // rows written; the previous slab's or chunk's fragments and redv read
+      if (np > 1) {  // slab ps of the CTA's rows of out, read back and split
+        const int f0 = ps * DP;
+        for (int e = tid; e < TN * DP; e += THREADS) {
+          const int r = e / DP, k = e % DP, u = r0 + r;
+          float hi, lo;
+          split_route<kSplit>(
+              round_as((u < N && f0 + k < D) ? __ldcg(out + (size_t)u * D + f0 + k) : 0.f, xn),
+              hi, lo);
+          thi[r * DT + kperm(k)] = hi;
+          if constexpr (kSplit) tlo[r * DT + kperm(k)] = lo;
+        }
+      }
+      load_x(n0, ps * DP);
+      __syncthreads();
+      scores(S);
     }
 #pragma unroll
     for (int n = 0; n < BW / 8; ++n) {
@@ -359,7 +432,7 @@ int launch_skeleton(const float* codes, int N, int D, const void* w, int T_rows,
                     const void* x, int B, const void* xn, int Bn, float scale,
                     float* out, unsigned int* vkeys, cudaStream_t stream) {
   using L = SkSmem<NT, T>;
-  const size_t smem = L::bytes(D);
+  const size_t smem = L::bytes(NT == 32 && n_passes(D) > 1 ? L::DP : D);
   const auto kernel = fused_skeleton_kernel<NT, T>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -370,8 +443,8 @@ int launch_skeleton(const float* codes, int N, int D, const void* w, int T_rows,
   return (int)cudaGetLastError();
 }
 
-// D in (128, 256]: the one width this kernel takes (fused_skeleton_sm90.cu
-// takes D <= 128)
+// D > 128: the one width this kernel takes, in feature passes past 256
+// (fused_skeleton_sm90.cu takes D <= 128)
 template <typename T>
 int run_skeleton(const float* codes, int N, int D, const void* w, int T_rows,
                  const void* x, int B, const void* xn, int Bn, float scale,
@@ -383,7 +456,7 @@ int run_skeleton(const float* codes, int N, int D, const void* w, int T_rows,
 
 }  // namespace
 
-// K17 for 128 < D <= 256: codes (N, D) float32; w (T_rows, B), x (B, D),
+// K17 for D > 128: codes (N, D) float32; w (T_rows, B), x (B, D),
 // xn (Bn, D) all float32,
 // or all bf16 with bf16; out (N, D) float32 gets codes + scale * W.X row by
 // row (W row u % T_rows); vkeys (Bn,) u32 set to 0 by the wrapper; vmax (Bn,)
@@ -393,7 +466,7 @@ extern "C" int somvq_fused_skeleton(const float* codes, int N, int D, const void
                                     int Bn, int bf16, float scale, float* out,
                                     unsigned int* vkeys, float* vmax,
                                     cudaStream_t stream) {
-  if (N <= 0 || D <= 0 || D > MAX_D || T_rows <= 0 || B <= 0 || Bn <= 0)
+  if (N <= 0 || D <= 0 || T_rows <= 0 || B <= 0 || Bn <= 0)
     return (int)cudaErrorInvalidValue;
   const int rc = bf16 ? run_skeleton<__nv_bfloat16>(codes, N, D, w, T_rows, x, B, xn,
                                                     Bn, scale, out, vkeys, stream)

@@ -80,6 +80,23 @@
 // d is -2 fl(S - ||m||^2 / 2) exactly (halving and doubling are exact), so
 // the max-score form's value comes out bit for bit.
 //
+// Feature passes (D > 256).  The widest instantiation is NT 32 (DP 256), and
+// a wider row does not fit a thread's registers or a CTA's shared memory, so
+// past 256 features the step runs in ceil(D / 256) passes of 256 (kPassD),
+// all in one launch: split_batches_kernel writes each batch slab by slab
+// (the planes of features 256 s.. of every sample, then the next slab's), and
+// pass s runs the update of its slab (W rebuilt, the same floats every pass,
+// so wsum too) and blends its columns in place.  Each feature's sum runs over
+// the batch alone, so a pass needs nothing from the others.  The winners need
+// the whole row: ||m||^2 is summed per thread over every pass's columns in
+// pass order, then the xor tree; the scores of each winner chunk are summed
+// in the mma over the slabs in order, each slab of the CTA's rows read back
+// from device memory (its own freshly blended float32 rows, through L2: the
+// codebook itself, or for a bf16 codebook a float32 copy the blend writes
+// beside it) and split, beside the chunk's slab of x'.  Every order is
+// fixed, so two runs are bit-equal.  The passes run in kernel instantiations
+// of their own (kPasses), so at D <= 256 the code below runs as it did.
+//
 // Determinism.  Every sum runs in a fixed order inside one CTA: no split of
 // the batch across CTAs, no float atomics.  A row's arithmetic depends only
 // on its own data and its unit, not on the tile or shard that holds it (for
@@ -137,35 +154,45 @@ struct FusedSmem {
 // (Bnp, DP), zero past D and past the batch (Bp, Bnp: B and Bn rounded up to
 // a multiple of 64, so whole chunks copy), one thread per entry.  kBf16:
 // each value rounded to bf16 (nearest even), one plane: xs = xb (Bp, DP) |
-// xn (Bnp, DP)
+// xn (Bnp, DP).  With NP feature passes (D > DP) each batch is NP slabs in
+// turn, slab s the planes of features s DP.. (xb's slabs, then xn's); NP 1 is
+// the layout above
 template <bool kBf16 = false>
 __global__ void split_batches_kernel(const float* __restrict__ xb, int B,
                                      const float* __restrict__ xn, int Bn, int D,
-                                     int DP, int Bp, int Bnp, float* __restrict__ xs) {
+                                     int DP, int NP, int Bp, int Bnp,
+                                     float* __restrict__ xs) {
+  constexpr int P = kBf16 ? 1 : 2;
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t nb = (int64_t)Bp * DP, nn = (int64_t)Bnp * DP;
+  const int64_t W = (int64_t)NP * DP;
+  const int64_t nb = (int64_t)Bp * W, nn = (int64_t)Bnp * W;
   if (e >= nb + nn) return;
   const bool next = e >= nb;
   const int64_t i = next ? e - nb : e;
-  const int b = (int)(i / DP), k = (int)(i % DP);
+  const int b = (int)(i / W), f = (int)(i % W);
   const float* x = next ? xn : xb;
-  const float v = (b < (next ? Bn : B) && k < D) ? x[(size_t)b * D + k] : 0.f;
+  const float v = (b < (next ? Bn : B) && f < D) ? x[(size_t)b * D + f] : 0.f;
+  const int64_t rows = next ? Bnp : Bp;
+  // slab f / DP's hi plane, row b, column f % DP
+  float* hi = xs + (next ? P * nb : 0) + (int64_t)(f / DP) * P * rows * DP +
+              (int64_t)b * DP + f % DP;
   if constexpr (kBf16) {
-    xs[e] = bf16_round(v);
+    hi[0] = bf16_round(v);
   } else {
-    float* hi = xs + (next ? 2 * nb : 0);
-    split_tf32(v, hi[i], hi[(next ? nn : nb) + i]);
+    split_tf32(v, hi[0], hi[rows * DP]);
   }
 }
 
-// split_batches_kernel's launch for DP-wide rows (Bn may be 0: xb alone)
+// split_batches_kernel's launch for DP-wide rows, in n_passes(D) slabs when
+// D > DP (Bn may be 0: xb alone)
 template <bool kBf16 = false>
 int split_batches(const float* xb, int B, const float* xn, int Bn, int D, int DP,
                   float* xs, cudaStream_t stream) {
   const int Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;
-  const int64_t n = ((int64_t)Bp + Bnp) * DP;  // one thread per hi, lo pair
+  const int NP = D > DP ? (D + DP - 1) / DP : 1;
+  const int64_t n = ((int64_t)Bp + Bnp) * DP * NP;  // one thread per hi, lo pair
   split_batches_kernel<kBf16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      xb, B, xn, Bn, D, DP, Bp, Bnp, xs);
+      xb, B, xn, Bn, D, DP, NP, Bp, Bnp, xs);
   return (int)cudaGetLastError();
 }
 
@@ -380,19 +407,19 @@ __device__ __forceinline__ void fused_update_tc(float (&acc)[NT][4], float (&wsu
   wsum_lanes(wsum);
 }
 
-// The guarded blend of rows r0..r0 + 16 WARPS - 1 from (acc, wsum) in
-// fused_update_tc's register layout, written IN PLACE; ||m||^2 of each
-// float32 blended row (per thread, then a fixed xor tree) into m2s[row]; and
-// each blended float32 value handed to store(r, k, nc), k < DP (0 past D and
-// past noc), for the winners' tile
+// The guarded blend of columns k0..k0 + 8 NT - 1 of rows r0..r0 + 16 WARPS
+// - 1 from (acc, wsum) in fused_update_tc's register layout, written IN
+// PLACE; each blended float32 value's square added to sq[h] (this thread's
+// part of ||m||^2 of row g + 8 h, in a fixed order) and the value handed to
+// store(r, k, nc), k < 8 NT the column in the pass (0 past D and past noc)
 template <int NT, int WARPS, typename CT, typename Store>
-__device__ __forceinline__ void blend_rows_tc(const float (&acc)[NT][4],
+__device__ __forceinline__ void blend_pass_tc(const float (&acc)[NT][4],
                                               const float (&wsum)[2],
                                               CT* __restrict__ codes, int noc, int D,
-                                              int r0, float* m2s, Store store) {
+                                              int k0, int r0, float (&sq)[2],
+                                              Store store) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  float sq[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -400,8 +427,8 @@ __device__ __forceinline__ void blend_rows_tc(const float (&acc)[NT][4],
       const int h = q >> 1, r = 16 * warp + g + 8 * h, k = 8 * j + 2 * t + (q & 1);
       const int u = r0 + r;
       float nc = 0.f;
-      if (k < D && u < noc) {
-        CT* p = codes + (size_t)u * D + k;
+      if (k0 + k < D && u < noc) {
+        CT* p = codes + (size_t)u * D + k0 + k;
         nc = guarded_blend(load_f32(p), acc[j][q], wsum[h]);
         store_f32(p, nc);
       }
@@ -409,26 +436,50 @@ __device__ __forceinline__ void blend_rows_tc(const float (&acc)[NT][4],
       store(r, k, nc);
     }
   }
+}
+
+// ||m||^2 of the warp's rows into m2s[row]: each thread's part sq[h] of row
+// 16 warp + g + 8 h, then over the row's four lanes by a fixed xor tree
+__device__ __forceinline__ void m2_lanes(float (&sq)[2], float* m2s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
     sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
-    if (t == 0) m2s[16 * warp + g + 8 * h] = sq[h];
+    if ((lane & 3) == 0) m2s[16 * warp + (lane >> 2) + 8 * h] = sq[h];
   }
+}
+
+// The guarded blend of rows r0..r0 + 16 WARPS - 1 (D <= 8 NT) from (acc,
+// wsum) in fused_update_tc's register layout, written IN PLACE; ||m||^2 of
+// each float32 blended row (per thread, then a fixed xor tree) into
+// m2s[row]; and each blended float32 value handed to store(r, k, nc), k < DP
+// (0 past D and past noc), for the winners' tile
+template <int NT, int WARPS, typename CT, typename Store>
+__device__ __forceinline__ void blend_rows_tc(const float (&acc)[NT][4],
+                                              const float (&wsum)[2],
+                                              CT* __restrict__ codes, int noc, int D,
+                                              int r0, float* m2s, Store store) {
+  float sq[2] = {0.f, 0.f};
+  blend_pass_tc<NT, WARPS>(acc, wsum, codes, noc, D, 0, r0, sq, store);
+  m2_lanes(sq, m2s);
 }
 
 // S = tile.X'^T of one BW-sample winner chunk: the split rows 16 warp.. of
 // the tile (thi, tlo; row stride DT) against the chunk's split samples (whi,
-// wlo; stride DW), split-TF32 (one TF32 product under kBf16; tlo, wlo unread)
-template <int NT, int BW, bool kBf16>
+// wlo; stride DW), split-TF32 (one TF32 product under kBf16; tlo, wlo unread);
+// kZero false: added to S as it is (the next feature slab of a pass walk)
+template <int NT, int BW, bool kBf16, bool kZero = true>
 __device__ __forceinline__ void winner_scores_tc(float (&S)[BW / 8][4], const float* thi,
                                                  const float* tlo, int DT,
                                                  const float* whi, const float* wlo,
                                                  int DW, int warp, int lane) {
+  if constexpr (kZero) {
 #pragma unroll
-  for (int n = 0; n < BW / 8; ++n)
+    for (int n = 0; n < BW / 8; ++n)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+      for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+  }
 #pragma unroll 2
   for (int ks = 0; ks < NT; ++ks) {
     if constexpr (kBf16) {
@@ -585,16 +636,143 @@ __device__ __forceinline__ void fused_blend_winners_tc(
   }
 }
 
+// The winners of the next batch against rows r0..r0 + TN - 1 over NP
+// feature slabs (D > 8 NT): for each BW-sample chunk, the scores summed in
+// the mma over the slabs in order, each slab of the rows read back from
+// `rows` (the blended float32 rows, row stride D, written by this CTA before
+// a barrier: loads through L2, __ldcg) and split (rounded to bf16 under
+// kBf16) into the tile, the chunk's slab of x' (xn0: split_batches_kernel's
+// slabs of the next batch) copied beside it; then the fold against m2s (set
+// by the caller) and the merge into keys.  Uses the winner region of shared
+// memory.
+template <int NT, int WARPS, bool kBf16>
+__device__ __forceinline__ void winners_passes_tc(const float* rows, int noc, int D, int NP,
+                                                  const float* __restrict__ xn0, int Bn,
+                                                  unsigned long long* __restrict__ keys,
+                                                  int r0) {
+  using L = FusedSmem<NT, WARPS, kBf16>;
+  constexpr int DP = L::DP, TN = L::TN, BW = L::BW, Q = DP / 4;
+  constexpr int THREADS = 32 * WARPS;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* thi = smem;
+  float* tlo = thi + TN * L::DT;
+  float* whi = thi + L::P * TN * L::DT;
+  float* wlo = whi + BW * L::DW;
+  float* m2s = whi + L::P * BW * L::DW;
+  float* redv = m2s + TN;
+  int* redi = reinterpret_cast<int*>(redv + WARPS * BW);
+  const size_t Bnp = (Bn + 63) / 64 * 64;
+  const bool vec = (D & 3) == 0 && (reinterpret_cast<uintptr_t>(rows) & 15) == 0;
+  auto put = [&](int r, int k, float v) {
+    if constexpr (kBf16) {
+      thi[r * L::DT + k] = bf16_round(v);
+    } else {
+      split_tf32(v, thi[r * L::DT + k], tlo[r * L::DT + k]);
+    }
+  };
+  for (int n0 = 0; n0 < Bn; n0 += BW) {
+    float S[BW / 8][4];
+#pragma unroll
+    for (int n = 0; n < BW / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+    for (int s = 0; s < NP; ++s) {
+      const int f0 = s * DP;
+      const float* xh = xn0 + (size_t)s * L::P * Bnp * DP + (size_t)n0 * DP;
+      copy_rows<DP>(whi, L::DW, xh, BW, tid, THREADS);
+      if constexpr (!kBf16) copy_rows<DP>(wlo, L::DW, xh + Bnp * DP, BW, tid, THREADS);
+      cp_async_commit();
+      if (vec) {
+        for (int e = tid; e < TN * Q; e += THREADS) {
+          const int r = e / Q, k = 4 * (e - r * Q), u = r0 + r;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (u < noc && f0 + k < D)
+            v = __ldcg(reinterpret_cast<const float4*>(rows + (size_t)u * D + f0 + k));
+          put(r, k, v.x);
+          put(r, k + 1, v.y);
+          put(r, k + 2, v.z);
+          put(r, k + 3, v.w);
+        }
+      } else {
+        for (int e = tid; e < TN * DP; e += THREADS) {
+          const int r = e / DP, k = e - r * DP, u = r0 + r;
+          put(r, k, (u < noc && f0 + k < D) ? __ldcg(rows + (size_t)u * D + f0 + k) : 0.f);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();  // the slab's rows and samples staged (and m2s written)
+      winner_scores_tc<NT, BW, kBf16, false>(S, thi, tlo, L::DT, whi, wlo, L::DW, warp,
+                                             lane);
+      __syncthreads();  // every fragment of the slab read
+    }
+    winner_fold_tc<BW>(S, m2s, r0, noc, redv, redi, warp, lane);
+    __syncthreads();  // every warp's fold written
+    winner_merge_tc<BW, WARPS>(redv, redi, n0, Bn, keys, tid);
+  }
+}
+
+// The step on rows r0.. past 8 NT features (NT 32, D > 256), in
+// n_passes(D) passes over the feature slabs: pass s the update of slab s (W rebuilt: the same floats
+// each pass) and the blend of its columns in place, ||m||^2 summed over the
+// passes in order; then winners_passes_tc on the blended float32 rows
+// (`codes` itself, or for a bf16 codebook `rows32`, (noc, D) float32, which
+// the blend fills)
+template <int NT, int WARPS, bool kBf16, typename CT, typename WP>
+__device__ __forceinline__ void fused_step_passes_tc(CT* __restrict__ codes, int noc, int D,
+                                                     const float* __restrict__ xs, int B,
+                                                     int Bn,
+                                                     unsigned long long* __restrict__ keys,
+                                                     WP& wp, float* rows32, int r0) {
+  using L = FusedSmem<NT, WARPS, kBf16>;
+  constexpr int DP = L::DP;
+  constexpr bool kF32 = sizeof(CT) == sizeof(float);
+  extern __shared__ __align__(16) float smem[];
+  const int NP = n_passes(D);
+  const size_t Bp = (B + 63) / 64 * 64;
+  float sq[2] = {0.f, 0.f};
+  for (int s = 0; s < NP; ++s) {
+    const float* xb_hi = xs + (size_t)s * L::P * Bp * DP;
+    float acc[NT][4];
+    float wsum[2];
+    fused_update_tc<NT, WARPS, kBf16>(acc, wsum, xb_hi, xb_hi + Bp * DP, B, r0, wp);
+    __syncthreads();  // every fragment read: the update region is free
+    const int k0 = s * DP;
+    blend_pass_tc<NT, WARPS>(acc, wsum, codes, noc, D, k0, r0, sq, [&](int r, int k, float nc) {
+      if constexpr (!kF32) {
+        if (k0 + k < D && r0 + r < noc) rows32[(size_t)(r0 + r) * D + k0 + k] = nc;
+      }
+    });
+  }
+  m2_lanes(sq, smem + L::P * L::TN * L::DT + L::P * L::BW * L::DW);
+  const float* rows;
+  if constexpr (kF32)
+    rows = reinterpret_cast<const float*>(codes);
+  else
+    rows = rows32;
+  winners_passes_tc<NT, WARPS, kBf16>(rows, noc, D, NP, xs + (size_t)NP * L::P * Bp * DP, Bn,
+                                      keys, r0);
+}
+
 // The step on rows r0 = blockIdx.x * TN.. of the codebook; `wp` builds W.
 // xs holds the batches xb (B, D) and xn (Bn, D) as split_batches_kernel
-// wrote them (its kBf16 form under kBf16)
-template <int NT, int WARPS, bool kBf16, typename CT, typename WP>
+// wrote them (its kBf16 form under kBf16).  kPasses (an instantiation of its
+// own, NT 32, for D > 256, so that the one-pass kernels keep their code):
+// fused_step_passes_tc, with rows32 the float32 rows of a bf16 codebook
+// (unread otherwise)
+template <int NT, int WARPS, bool kBf16, bool kPasses = false, typename CT, typename WP>
 __device__ __forceinline__ void fused_step_tc(CT* __restrict__ codes, int noc, int D,
                                               const float* __restrict__ xs, int B,
                                               int Bn, unsigned long long* __restrict__ keys,
-                                              WP& wp) {
+                                              WP& wp, float* rows32 = nullptr) {
   using L = FusedSmem<NT, WARPS, kBf16>;
   constexpr int DP = L::DP;
+  if constexpr (kPasses) {
+    static_assert(NT == 32, "feature passes run the widest instantiation");
+    fused_step_passes_tc<NT, WARPS, kBf16>(codes, noc, D, xs, B, Bn, keys, wp, rows32,
+                                           blockIdx.x * L::TN);
+    return;
+  }
   const int r0 = blockIdx.x * L::TN;
   // the split arrays: the planes of (Bp, DP), then of (Bnp, DP)
   const size_t Bp = (B + 63) / 64 * 64, Bnp = (Bn + 63) / 64 * 64;

@@ -1,7 +1,8 @@
 // The separable weight policy of K13 and K14 (fused_step_tc.cuh with W from
-// the tables of som_fused_factored.cu's table launch), one step's arguments as
-// the C entry somvq_som_fused_factored takes them, and the main launch of K13
-// and of K14's main form.  K13 lives in som_fused_factored.cu, K14 (its main
+// the tables of the table launch below, factored_tables_kernel), one step's
+// arguments as the C entries somvq_som_fused_factored and
+// somvq_som_fused_factored_sm90 take them, and the main launch of K13 and of
+// K14's main form.  K13 lives in som_fused_factored.cu, K14 (its main
 // form, and the walk of its stagger and int8_win options) in
 // som_fused_chunked_tc.cuh, instantiated for each codebook type in
 // som_fused_chunked_tc_{f32,bf16}.cu (the main form),
@@ -40,6 +41,7 @@ struct StepArgs {
   float* ytab;
   float* aw;
   unsigned long long* keys;
+  float* rows32;  // past D 256 with a bf16 codebook: its float32 rows (noc, D)
   cudaStream_t stream;
 };
 
@@ -60,6 +62,70 @@ int k14_walk_int8_bf16codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
 namespace {
 
 using somvq::StepArgs;
+
+__device__ __forceinline__ float to_pattern(float v, float*) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_pattern(float v, __nv_bfloat16*) {
+  return __float2bfloat16_rn(v);
+}
+
+// The tables of one step, one thread per sample b.  pat[p][b] with p = parity
+// * xdim + column (parity 0 only on a rect map): gaussian alpha_b *
+// expf(-dx^2 s), stored as PT (bf16 rounds it), bubble dx^2; ytab[y][b] for
+// grid row y: gaussian expf(-dy^2 s), bubble dy^2; aw[b]: alpha_b, 0 where
+// bmu_b < 0.  Rows of ld >= B entries: the samples B..ld - 1 are written as
+// samples without a BMU (alpha 0, so every W of theirs is +0; K13's Hopper
+// walk reads whole chunks with no test).  Grid rows of the launch walk the
+// n_pat + ydim table rows; the first also sets the Bn winner keys to their
+// start value (init_keys).
+template <typename PT>
+__global__ void factored_tables_kernel(const int* __restrict__ bmu,
+                                       const float* __restrict__ alpha, int B, int ld,
+                                       int Bn, int xdim, int hexa, int gaussian,
+                                       float radius, int n_pat, int ydim,
+                                       PT* __restrict__ pat,
+                                       float* __restrict__ ytab,
+                                       float* __restrict__ aw,
+                                       unsigned long long* __restrict__ keys) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (blockIdx.y == 0 && b < Bn) keys[b] = ~0ull;
+  if (b >= ld) return;
+  const int bm = b < B ? bmu[b] : -1;
+  const bool none = bm < 0;
+  const int bmc = none ? 0 : bm;
+  const int bcol = bmc % xdim, brow = bmc / xdim;
+  const float a = none ? 0.f : alpha[b];
+  const float s = 1.0f / (2.0f * radius * radius);
+  const float bx = hexa ? (float)bcol + 0.5f * (float)(brow & 1) : (float)bcol;
+  if (blockIdx.y == 0) aw[b] = a;
+  for (int p = blockIdx.y; p < n_pat + ydim; p += gridDim.y) {
+    if (p < n_pat) {
+      const int col = p % xdim, par = p / xdim;
+      const float xq = hexa ? (float)col + 0.5f * (float)par : (float)col;
+      const float dx = xq - bx;
+      const float dx2 = dx * dx;
+      pat[(size_t)p * ld + b] = to_pattern(gaussian ? a * expf(-dx2 * s) : dx2, pat);
+    } else {
+      const int y = p - n_pat;
+      const float rd = (float)(y - brow);
+      const float dy2 = hexa ? (rd * rd) * 0.75f : rd * rd;
+      ytab[(size_t)y * ld + b] = gaussian ? expf(-dy2 * s) : dy2;
+    }
+  }
+}
+
+// The table launch of one step (it also sets the winner keys), table rows of
+// ld >= B entries
+template <typename PT>
+int launch_tables(const StepArgs& a, int ld) {
+  const int n_pat = a.hexa ? 2 * a.xdim : a.xdim;
+  const int ydim = (a.noc + a.xdim - 1) / a.xdim;
+  const int trows = n_pat + ydim < 65535 ? n_pat + ydim : 65535;
+  const dim3 tgrid(((ld > a.Bn ? ld : a.Bn) + 255) / 256, trows);
+  factored_tables_kernel<PT><<<tgrid, 256, 0, a.stream>>>(
+      a.bmu, a.alpha, a.B, ld, a.Bn, a.xdim, a.hexa, a.gaussian, a.radius, n_pat,
+      ydim, static_cast<PT*>(a.pat), a.ytab, a.aw, a.keys);
+  return (int)cudaGetLastError();
+}
 
 // The separable W: the tables of the table launch, read per chunk into
 // shared memory with cp.async beside the batch (double-buffered): for each of
@@ -212,21 +278,22 @@ __device__ __forceinline__ SeparableW<TNR, PT> separable_policy(
 }
 
 // The separable step on the tensor cores, 16 WARPS rows per CTA; xs from
-// split_batches_kernel (its kBf16 form under kBf16)
-template <int NT, int WARPS, bool kBf16, typename CT, typename PT>
+// split_batches_kernel (its kBf16 form under kBf16); kPasses: past D 256 in
+// feature passes (rows32: a bf16 codebook's float32 rows)
+template <int NT, int WARPS, bool kBf16, bool kPasses, typename CT, typename PT>
 __device__ __forceinline__ void separable_step_tc(
     CT* __restrict__ codes, int noc, int D, const float* __restrict__ xs,
     const float* __restrict__ aw, int B, int Bn, int xdim, int hexa, int gaussian,
     float radius, int ny, const PT* __restrict__ pat, const float* __restrict__ ytab,
-    unsigned long long* __restrict__ keys) {
+    unsigned long long* __restrict__ keys, float* rows32) {
   auto wp = separable_policy<16 * WARPS>(aw, B, noc, xdim, hexa, gaussian, radius, ny,
                                          pat, ytab);
-  fused_step_tc<NT, WARPS, kBf16>(codes, noc, D, xs, B, Bn, keys, wp);
+  fused_step_tc<NT, WARPS, kBf16, kPasses>(codes, noc, D, xs, B, Bn, keys, wp, rows32);
 }
 
 // The main launch of a separable tensor-core kernel (K13, or K14's main
-// form): NT 8-feature steps, WARPS warps of 16 rows; the batches split
-// first, into a.xs
+// form): NT 8-feature steps (NT 32 past D 256: the feature passes), WARPS
+// warps of 16 rows; the batches split first, into a.xs
 template <int NT, int WARPS, bool kBf16, typename CT, typename PT, typename K>
 int launch_separable_tc(K kernel, const StepArgs& a) {
   constexpr int TNR = 16 * WARPS;
@@ -243,7 +310,7 @@ int launch_separable_tc(K kernel, const StepArgs& a) {
   kernel<<<(a.noc + TNR - 1) / TNR, 32 * WARPS, smem, a.stream>>>(
       static_cast<CT*>(a.codes), a.noc, a.D, a.xs, a.aw, a.B, a.Bn, a.xdim,
       a.hexa, a.gaussian, a.radius, ny, static_cast<const PT*>(a.pat), a.ytab,
-      a.keys);
+      a.keys, a.rows32);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,7 @@
 
 namespace {
 
-template <int NT>
+template <int NT, bool kPasses>
 __global__ void __launch_bounds__(32 * k3_warps(NT), NT <= 8 ? 2 : 1)
 som_accum_kernel(int n_local, int D, const float* __restrict__ xs,
                  const int* __restrict__ bmu, const float* __restrict__ alpha, int B,
@@ -42,16 +42,37 @@ som_accum_kernel(int n_local, int D, const float* __restrict__ xs,
   const int r0 = blockIdx.x * 16 * WARPS;
   ClosedFormW wp = closed_form_w(bmu, alpha, B, xdim, hexa, gaussian, radius,
                                  unit_offset);
-  float acc[NT][4];
   float wsum[2];
-  fused_update_tc<NT, WARPS, false>(acc, wsum, xs, xs + (size_t)(B + 63) / 64 * 64 * DP,
-                                    B, r0, wp);
+  if constexpr (kPasses) {  // NT 32, D > 256, an instantiation of its own:
+    // slab s's sums written to its columns (fused_step_tc.cuh); wsum the
+    // same floats every pass
+    const size_t plane = (size_t)(B + 63) / 64 * 64 * DP;
+    const int np = n_passes(D);
+    for (int s = 0; s < np; ++s) {
+      float acc[NT][4];
+      fused_update_tc<NT, WARPS, false>(acc, wsum, xs + 2 * s * plane,
+                                        xs + (2 * s + 1) * plane, B, r0, wp);
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
-      const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
-      if (k < D && u < n_local) acc_out[(size_t)u * D + k] = acc[j][q];
+        for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+          const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = s * DP + 8 * j + 2 * t + (q & 1);
+          if (k < D && u < n_local) acc_out[(size_t)u * D + k] = acc[j][q];
+        }
+      }
+      if (s + 1 < np) __syncthreads();  // the slab's fragments read: the buffers are free
+    }
+  } else {
+    float acc[NT][4];
+    fused_update_tc<NT, WARPS, false>(acc, wsum, xs, xs + (size_t)(B + 63) / 64 * 64 * DP,
+                                      B, r0, wp);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+        const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
+        if (k < D && u < n_local) acc_out[(size_t)u * D + k] = acc[j][q];
+      }
     }
   }
   if (t == 0) {
@@ -64,7 +85,7 @@ som_accum_kernel(int n_local, int D, const float* __restrict__ xs,
 }
 
 // the batch split once (into xs), then the accumulation
-template <int NT>
+template <int NT, bool kPasses = false>
 int launch_accum(int n_local, int D, const float* xb, const int* bmu,
                  const float* alpha, int B, int xdim, int hexa, int gaussian,
                  float radius, int unit_offset, float* xs, float* acc, float* wsum,
@@ -72,11 +93,13 @@ int launch_accum(int n_local, int D, const float* xb, const int* bmu,
   using L = FusedSmem<NT, k3_warps(NT)>;
   const size_t smem = sizeof(float) * L::update_floats(ClosedFormW::floats());
   cudaError_t err = cudaFuncSetAttribute(
-      som_accum_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      som_accum_kernel<NT, kPasses>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rc = split_batches(xb, B, nullptr, 0, D, L::DP, xs, stream);
   if (rc) return rc;
-  som_accum_kernel<NT><<<(n_local + L::TN - 1) / L::TN, 32 * k3_warps(NT), smem, stream>>>(
+  som_accum_kernel<NT, kPasses>
+      <<<(n_local + L::TN - 1) / L::TN, 32 * k3_warps(NT), smem, stream>>>(
       n_local, D, xs, bmu, alpha, B, xdim, hexa, gaussian, radius, unit_offset, acc, wsum);
   return (int)cudaGetLastError();
 }
@@ -84,17 +107,20 @@ int launch_accum(int n_local, int D, const float* xb, const int* bmu,
 }  // namespace
 
 // acc: (n_local, D), wsum: (n_local,) float32 outputs; xs scratch for the
-// split batch: 2 Bp DP floats (B rounded up to a multiple of 64, DP 8 times
-// the power of two of 8-feature steps that covers D)
+// split batch: 2 Bp W floats (B rounded up to a multiple of 64, W =
+// ops.som_step.split_width(D), the passes' slabs past 256)
 extern "C" int somvq_som_accum(int n_local, int D, const float* xb,
                                const int* bmu, const float* alpha, int B,
                                int xdim, int hexa, int gaussian, float radius,
                                int unit_offset, float* xs, float* acc, float* wsum,
                                cudaStream_t stream) {
-  if (n_local <= 0 || D <= 0 || D > MAX_D || B <= 0 || xdim <= 0 ||
+  if (n_local <= 0 || D <= 0 || B <= 0 || xdim <= 0 ||
       unit_offset < 0 || !xs)
     return (int)cudaErrorInvalidValue;
   const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
+  if (D > kPassD)
+    return launch_accum<32, true>(n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian,
+                                  radius, unit_offset, xs, acc, wsum, stream);
 #define K11_LAUNCH(NT)                                                          \
   if (k8 <= NT)                                                               \
     return launch_accum<NT>(n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian, \

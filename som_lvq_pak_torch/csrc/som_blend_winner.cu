@@ -32,7 +32,7 @@
 
 namespace {
 
-template <int NT>
+template <int NT, bool kPasses>
 __global__ void __launch_bounds__(32 * k3_warps(NT), NT <= 8 ? 2 : 1)
 som_blend_winner_kernel(float* __restrict__ codes, int n_local, int D,
                         const float* __restrict__ acc_in,
@@ -45,38 +45,66 @@ som_blend_winner_kernel(float* __restrict__ codes, int n_local, int D,
   const int r0 = blockIdx.x * 16 * WARPS;
   float acc[NT][4];
   float wsum[2];
+  if constexpr (kPasses) {  // NT 32, D > 256, an instantiation of its own:
+    // feature passes (fused_step_tc.cuh), each slab blended, then the winners
+    // over the slabs
+    extern __shared__ __align__(16) float smem[];
+    using L = FusedSmem<NT, WARPS>;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
-      const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
-      acc[j][q] = (k < D && u < n_local) ? acc_in[(size_t)u * D + k] : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int u = r0 + 16 * warp + g + 8 * h;
+      wsum[h] = u < n_local ? wsum_in[u] : 0.f;
     }
-  }
+    const int np = n_passes(D);
+    float sq[2] = {0.f, 0.f};
+    for (int s = 0; s < np; ++s) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int u = r0 + 16 * warp + g + 8 * h;
-    wsum[h] = u < n_local ? wsum_in[u] : 0.f;
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = s * DP + 8 * j + 2 * t + (q & 1);
+          acc[j][q] = (k < D && u < n_local) ? acc_in[(size_t)u * D + k] : 0.f;
+        }
+      }
+      blend_pass_tc<NT, WARPS>(acc, wsum, codes, n_local, D, s * DP, r0, sq,
+                               [](int, int, float) {});
+    }
+    m2_lanes(sq, smem + L::P * L::TN * L::DT + L::P * L::BW * L::DW);
+    winners_passes_tc<NT, WARPS, false>(codes, n_local, D, np, xs, Bn, keys, r0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+        const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
+        acc[j][q] = (k < D && u < n_local) ? acc_in[(size_t)u * D + k] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = r0 + 16 * warp + g + 8 * h;
+      wsum[h] = u < n_local ? wsum_in[u] : 0.f;
+    }
+    const size_t Bnp = (Bn + 63) / 64 * 64;
+    fused_blend_winners_tc<NT, WARPS, false>(acc, wsum, codes, n_local, D, xs,
+                                             xs + Bnp * DP, Bn, keys, r0);
   }
-  const size_t Bnp = (Bn + 63) / 64 * 64;
-  fused_blend_winners_tc<NT, WARPS, false>(acc, wsum, codes, n_local, D, xs,
-                                           xs + Bnp * DP, Bn, keys, r0);
 }
 
 // the next batch split once (into xs), then the blend and winners
-template <int NT>
+template <int NT, bool kPasses = false>
 int launch_blend(float* codes, int n_local, int D, const float* acc,
                  const float* wsum, const float* xn, int Bn, float* xs,
                  unsigned long long* keys, cudaStream_t stream) {
   using L = FusedSmem<NT, k3_warps(NT)>;
   const size_t smem = sizeof(float) * L::winner_floats();
   cudaError_t err = cudaFuncSetAttribute(
-      som_blend_winner_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      som_blend_winner_kernel<NT, kPasses>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rc = split_batches(nullptr, 0, xn, Bn, D, L::DP, xs, stream);
   if (rc) return rc;
-  som_blend_winner_kernel<NT>
+  som_blend_winner_kernel<NT, kPasses>
       <<<(n_local + L::TN - 1) / L::TN, 32 * k3_warps(NT), smem, stream>>>(
           codes, n_local, D, acc, wsum, xs, Bn, keys);
   return (int)cudaGetLastError();
@@ -86,6 +114,8 @@ int launch_any(float* codes, int n_local, int D, const float* acc, const float* 
                const float* xn, int Bn, float* xs, unsigned long long* keys,
                cudaStream_t stream) {
   const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
+  if (D > kPassD)
+    return launch_blend<32, true>(codes, n_local, D, acc, wsum, xn, Bn, xs, keys, stream);
 #define K12_LAUNCH(NT) \
   if (k8 <= NT) return launch_blend<NT>(codes, n_local, D, acc, wsum, xn, Bn, xs, keys, stream);
   K12_LAUNCH(1)
@@ -101,16 +131,16 @@ int launch_any(float* codes, int n_local, int D, const float* acc, const float* 
 }  // namespace
 
 // codes (n_local, D) updated in place; acc (n_local, D), wsum (n_local,);
-// xs scratch for the split next batch: 2 Bnp DP floats (Bn rounded up to a
-// multiple of 64, DP 8 times the power of two of 8-feature steps that covers
-// D); keys: (Bn,) u64 scratch; val gets the partial distance ||m||^2 - 2 x.m
+// xs scratch for the split next batch: 2 Bnp W floats (Bn rounded up to a
+// multiple of 64, W = ops.som_step.split_width(D), the passes' slabs past
+// 256); keys: (Bn,) u64 scratch; val gets the partial distance ||m||^2 - 2 x.m
 // (-2 * the best score), idx the local row
 extern "C" int somvq_som_blend_winner(float* codes, int n_local, int D,
                                       const float* acc, const float* wsum,
                                       const float* xn, int Bn, float* xs,
                                       unsigned long long* keys, float* val,
                                       int* idx, cudaStream_t stream) {
-  if (n_local <= 0 || D <= 0 || D > MAX_D || Bn <= 0 || !xs)
+  if (n_local <= 0 || D <= 0 || Bn <= 0 || !xs)
     return (int)cudaErrorInvalidValue;
   init_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn);
   int rc = (int)cudaGetLastError();

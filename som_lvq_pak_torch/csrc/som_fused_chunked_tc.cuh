@@ -77,7 +77,7 @@
 
 namespace {
 
-template <int NT, int WARPS, typename CT, typename PT, bool kBf16>
+template <int NT, int WARPS, typename CT, typename PT, bool kBf16, bool kPasses>
 __global__ void __launch_bounds__(32 * WARPS, (NT <= 8 ? 2 : 1) * 8 / WARPS)
 som_fused_factored_chunked_tc_kernel(CT* __restrict__ codes, int noc, int D,
                                      const float* __restrict__ xs,
@@ -85,23 +85,31 @@ som_fused_factored_chunked_tc_kernel(CT* __restrict__ codes, int noc, int D,
                                      int xdim, int hexa, int gaussian, float radius,
                                      int ny, const PT* __restrict__ pat,
                                      const float* __restrict__ ytab,
-                                     unsigned long long* __restrict__ keys) {
-  separable_step_tc<NT, WARPS, kBf16>(codes, noc, D, xs, aw, B, Bn, xdim, hexa, gaussian,
-                                      radius, ny, pat, ytab, keys);
+                                     unsigned long long* __restrict__ keys, float* rows32) {
+  separable_step_tc<NT, WARPS, kBf16, kPasses>(codes, noc, D, xs, aw, B, Bn, xdim, hexa,
+                                               gaussian, radius, ny, pat, ytab, keys,
+                                               rows32);
 }
 
-// for D's width and the rows per CTA (a.rows: 64 or 32)
+// for D's width and the rows per CTA (a.rows: 64 or 32); past D 256 NT 32's
+// feature passes, an instantiation of their own
 template <typename CT, typename PT, bool kBf16>
 int launch_k14_tc(const StepArgs& a) {
   const int k8 = (a.D + 7) / 8;  // 8-feature steps, padded up to a power of two
   if (a.rows != 32 && a.rows != 64) return (int)cudaErrorInvalidValue;
-#define K14_LAUNCH(NT)                                                              \
-  if (k8 <= NT)                                                                   \
-    return a.rows == 32                                                           \
-               ? launch_separable_tc<NT, 2, kBf16, CT, PT>(                       \
-                     som_fused_factored_chunked_tc_kernel<NT, 2, CT, PT, kBf16>, a) \
-               : launch_separable_tc<NT, 4, kBf16, CT, PT>(                       \
-                     som_fused_factored_chunked_tc_kernel<NT, 4, CT, PT, kBf16>, a);
+  if (a.D > kPassD)
+    return a.rows == 32
+               ? launch_separable_tc<32, 2, kBf16, CT, PT>(
+                     som_fused_factored_chunked_tc_kernel<32, 2, CT, PT, kBf16, true>, a)
+               : launch_separable_tc<32, 4, kBf16, CT, PT>(
+                     som_fused_factored_chunked_tc_kernel<32, 4, CT, PT, kBf16, true>, a);
+#define K14_LAUNCH(NT)                                                                 \
+  if (k8 <= NT)                                                                      \
+    return a.rows == 32                                                              \
+               ? launch_separable_tc<NT, 2, kBf16, CT, PT>(                          \
+                     som_fused_factored_chunked_tc_kernel<NT, 2, CT, PT, kBf16, false>, a) \
+               : launch_separable_tc<NT, 4, kBf16, CT, PT>(                          \
+                     som_fused_factored_chunked_tc_kernel<NT, 4, CT, PT, kBf16, false>, a);
   K14_LAUNCH(1)
   K14_LAUNCH(2)
   K14_LAUNCH(4)
@@ -218,6 +226,139 @@ __device__ __forceinline__ void walk_winner_chunk(const float* slot, const float
   winner_merge_tc<BW, WARPS>(redv, redi, c * BW, Bn, keys, tid);
 }
 
+// The int8 winners of rows r0..r0 + TN - 1 past 8 NT features (NT 32, D >
+// 256): for each BW-sample chunk the exact int32 dot summed over the feature
+// slabs in order, each slab of the rows read back from `rows` (the blended
+// float32 rows, row stride D, through L2) and quantized as the walk quantizes
+// them into the previous-tile region, the chunk's slab of xq ((Bnp, D32)
+// int8, zeros past D32) in ring slot 0; then S = dot q1, the fold against
+// m2s and the merge, as walk_winner_chunk takes them.  An integer sum has no
+// order, so the values are the one-pass form's.
+template <int NT, int WARPS, bool kBf16>
+__device__ __forceinline__ void int8_winners_passes(const float* rows, int noc, int D,
+                                                    const signed char* __restrict__ xq,
+                                                    float q0, float q1, int Bn,
+                                                    unsigned long long* __restrict__ keys,
+                                                    int r0) {
+  using L = WalkSmem<NT, WARPS, kBf16, true>;
+  constexpr int DP = L::DP, TN = L::TN, BW = L::BW, THREADS = 32 * WARPS;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* prv = smem + 2 * L::SLOT;
+  float* m2s = prv + L::PREV;
+  float* redv = m2s + TN;
+  int* redi = reinterpret_cast<int*>(redv + WARPS * BW);
+  signed char* t8 = reinterpret_cast<signed char*>(prv);
+  char* x8 = reinterpret_cast<char*>(smem);
+  const int NP = n_passes(D), D32 = (D + 31) / 32 * 32;
+  for (int n0 = 0; n0 < Bn; n0 += BW) {
+    int I[BW / 8][4];
+#pragma unroll
+    for (int n = 0; n < BW / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) I[n][q] = 0;
+    for (int s = 0; s < NP; ++s) {
+      const int f0 = s * DP;
+      for (int e = tid; e < BW * (DP / 16); e += THREADS) {  // x' slab, 16 bytes a piece
+        const int r = e / (DP / 16), f = 16 * (e - r * (DP / 16));
+        char* d = x8 + 4 * r * L::XW + f;
+        if (f0 + f < D32)
+          cp_async16(d, xq + (size_t)(n0 + r) * D32 + f0 + f);
+        else
+          *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+      }
+      cp_async_commit();
+      for (int e = tid; e < TN * DP; e += THREADS) {
+        const int r = e / DP, k = e - r * DP, u = r0 + r;
+        const float nc = (u < noc && f0 + k < D) ? __ldcg(rows + (size_t)u * D + f0 + k) : 0.f;
+        const float v = fminf(fmaxf(rintf(__fmul_rn(nc, q0)), -127.f), 127.f);
+        t8[4 * L::XW * r + k] = (signed char)(int)v;
+      }
+      cp_async_wait_all();
+      __syncthreads();  // the slab's rows and samples staged (and m2s written)
+      const int* ti = reinterpret_cast<const int*>(prv);
+      const int* xi = reinterpret_cast<const int*>(smem);
+#pragma unroll 2
+      for (int ks = 0; ks < DP / 32; ++ks) {
+        int a[4];
+        load_a_s8(a, ti, L::XW, 16 * warp, 8 * ks, lane);
+#pragma unroll
+        for (int n = 0; n < BW / 8; ++n) {
+          int b[2];
+          load_b_s8(b, xi, L::XW, 8 * n, 8 * ks, lane);
+          mma_s8(I[n], a, b);
+        }
+      }
+      __syncthreads();  // every fragment of the slab read
+    }
+    float S[BW / 8][4];
+#pragma unroll
+    for (int n = 0; n < BW / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) S[n][q] = __fmul_rn((float)I[n][q], q1);  // exact int
+    winner_fold_tc<BW>(S, m2s, r0, noc, redv, redi, warp, lane);
+    __syncthreads();  // every warp's fold written
+    winner_merge_tc<BW, WARPS>(redv, redi, n0, Bn, keys, tid);
+  }
+}
+
+// The walk of K14's options past 8 NT features (NT 32, D > 256) on this
+// CTA's tiles blockIdx.x, blockIdx.x + gridDim.x, ...: each tile's feature
+// passes as the main form takes them (fused_step_tc.cuh:
+// fused_step_passes_tc, the same floats), its winners in float32 or, under
+// kInt8, int8_winners_passes.  The interleave of a tile's update with the
+// previous tile's winners is the one-slab schedule's; here the tiles run one
+// after another, which changes no float.  Not inlined: the walk kernel calls
+// it past D 256 only, and inlined its registers made the one-slab walk
+// spill twice as much
+template <int NT, int WARPS, bool kBf16, bool kInt8, typename CT, typename PT>
+__device__ __noinline__ void chunked_walk_passes(
+    CT* __restrict__ codes, int noc, int D, const float* __restrict__ xs,
+    const signed char* __restrict__ xq, const float* __restrict__ q,
+    const float* __restrict__ aw, int B, int Bn, int xdim, int hexa, int gaussian,
+    float radius, int ny, const PT* __restrict__ pat, const float* __restrict__ ytab,
+    unsigned long long* __restrict__ keys, float* rows32) {
+  using L = WalkSmem<NT, WARPS, kBf16, kInt8>;
+  using F = FusedSmem<NT, WARPS, kBf16>;
+  constexpr int DP = L::DP, TN = L::TN;
+  constexpr bool kF32 = sizeof(CT) == sizeof(float);
+  extern __shared__ __align__(16) float smem[];
+  const int n_tiles = (noc + TN - 1) / TN, NP = n_passes(D);
+  const size_t Bp = (B + 63) / 64 * 64;
+  auto wp = separable_policy<TN>(aw, B, noc, xdim, hexa, gaussian, radius, ny, pat, ytab);
+  const float* rows;
+  if constexpr (kF32)
+    rows = reinterpret_cast<const float*>(codes);
+  else
+    rows = rows32;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int r0 = tile * TN;
+    if constexpr (kInt8) {
+      float sq[2] = {0.f, 0.f};
+      for (int s = 0; s < NP; ++s) {
+        const float* xb_hi = xs + (size_t)s * F::P * Bp * DP;
+        float acc[NT][4];
+        float wsum[2];
+        fused_update_tc<NT, WARPS, kBf16>(acc, wsum, xb_hi, xb_hi + Bp * DP, B, r0, wp);
+        __syncthreads();  // every fragment read: the ring is free
+        const int k0 = s * DP;
+        blend_pass_tc<NT, WARPS>(acc, wsum, codes, noc, D, k0, r0, sq,
+                                 [&](int r, int k, float nc) {
+                                   if constexpr (!kF32) {
+                                     if (k0 + k < D && r0 + r < noc)
+                                       rows32[(size_t)(r0 + r) * D + k0 + k] = nc;
+                                   }
+                                 });
+      }
+      m2_lanes(sq, smem + 2 * L::SLOT + L::PREV);
+      int8_winners_passes<NT, WARPS, kBf16>(rows, noc, D, xq, q[0], q[1], Bn, keys, r0);
+    } else {
+      fused_step_passes_tc<NT, WARPS, kBf16>(codes, noc, D, xs, B, Bn, keys, wp, rows32, r0);
+    }
+    __syncthreads();  // the tile's last merge read before the next tile's staging
+  }
+}
+
 // The walk of K14's options on this CTA's tiles blockIdx.x, blockIdx.x +
 // gridDim.x, ...: the first tile's update is fused_update_tc's (the main
 // form's); each later tile's update chunks are interleaved with the previous
@@ -232,11 +373,19 @@ __device__ __forceinline__ void chunked_walk(
     const signed char* __restrict__ xq, const float* __restrict__ q,
     const float* __restrict__ aw, int B, int Bn, int xdim, int hexa, int gaussian,
     float radius, int ny, const PT* __restrict__ pat, const float* __restrict__ ytab,
-    unsigned long long* __restrict__ keys) {
+    unsigned long long* __restrict__ keys, float* rows32) {
   using L = WalkSmem<NT, WARPS, kBf16, kInt8>;
   constexpr int DP = L::DP, TN = L::TN, BW = L::BW, THREADS = 32 * WARPS;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2;
+  if constexpr (NT == 32) {
+    if (D > DP) {
+      chunked_walk_passes<NT, WARPS, kBf16, kInt8>(codes, noc, D, xs, xq, q, aw, B, Bn, xdim,
+                                                   hexa, gaussian, radius, ny, pat, ytab, keys,
+                                                   rows32);
+      return;
+    }
+  }
   float* prv = smem + 2 * L::SLOT;
   float* m2s = prv + L::PREV;
   float* redv = m2s + TN;
@@ -349,9 +498,9 @@ som_fused_chunked_stagger_kernel(CT* __restrict__ codes, int noc, int D,
                                  int B, int Bn, int xdim, int hexa, int gaussian,
                                  float radius, int ny, const PT* __restrict__ pat,
                                  const float* __restrict__ ytab,
-                                 unsigned long long* __restrict__ keys) {
+                                 unsigned long long* __restrict__ keys, float* rows32) {
   chunked_walk<NT, WARPS, kBf16, false>(codes, noc, D, xs, xq, q, aw, B, Bn, xdim, hexa,
-                                        gaussian, radius, ny, pat, ytab, keys);
+                                        gaussian, radius, ny, pat, ytab, keys, rows32);
 }
 
 template <int NT, int WARPS, typename CT, typename PT, bool kBf16>
@@ -363,9 +512,9 @@ som_fused_chunked_int8_kernel(CT* __restrict__ codes, int noc, int D,
                               int B, int Bn, int xdim, int hexa, int gaussian,
                               float radius, int ny, const PT* __restrict__ pat,
                               const float* __restrict__ ytab,
-                              unsigned long long* __restrict__ keys) {
+                              unsigned long long* __restrict__ keys, float* rows32) {
   chunked_walk<NT, WARPS, kBf16, true>(codes, noc, D, xs, xq, q, aw, B, Bn, xdim, hexa,
-                                       gaussian, radius, ny, pat, ytab, keys);
+                                       gaussian, radius, ny, pat, ytab, keys, rows32);
 }
 
 template <int NT, int WARPS, typename CT, typename PT, bool kBf16, bool kInt8>
@@ -425,7 +574,8 @@ int launch_walk(const StepArgs& a) {
   }
   kernel<<<grid, 32 * WARPS, smem, a.stream>>>(
       static_cast<CT*>(a.codes), a.noc, a.D, a.xs, a.xq, a.q, a.aw, a.B, a.Bn, a.xdim,
-      a.hexa, a.gaussian, a.radius, ny, static_cast<const PT*>(a.pat), a.ytab, a.keys);
+      a.hexa, a.gaussian, a.radius, ny, static_cast<const PT*>(a.pat), a.ytab, a.keys,
+      a.rows32);
   return (int)cudaGetLastError();
 }
 
@@ -435,7 +585,7 @@ int launch_k14_walk(const StepArgs& a) {
   const int k8 = (a.D + 7) / 8;
   if (a.rows != 32 && a.rows != 64) return (int)cudaErrorInvalidValue;
 #define K14_WALK(NT)                                                     \
-  if (k8 <= NT)                                                        \
+  if (k8 <= NT || NT == 32)                                            \
     return a.rows == 32 ? launch_walk<NT, 2, kBf16, kInt8, CT, PT>(a)  \
                         : launch_walk<NT, 4, kBf16, kInt8, CT, PT>(a);
   K14_WALK(1)

@@ -22,12 +22,17 @@
 //
 // The x-pattern.  The TPU kernels build the (pattern rows, B) table of Wx at
 // grid step 0 into scratch that every later grid step reads, which holds only
-// because the TPU grid runs in order.  Here a first small launch writes Wx,
+// because the TPU grid runs in order.  Here a first small launch
+// (separable_w.cuh: factored_tables_kernel) writes Wx,
 // indexed by (row parity, column), Wy, indexed by grid row, and alpha (0 where
 // bmu < 0) into buffers the wrapper allocates, and the main launch reads them
 // (12 MB at 256x256 hexa, B 4096: L2-resident).  The TPU kernels' 0/1
 // "expand" matmul that spreads Wy over a tile's rows (a relayout device) is
 // the index Wy[u / xdim].
+//
+// K13 for D <= 128 runs K3's Hopper walk (som_fused_factored_sm90.cu, its own
+// entry somvq_som_fused_factored_sm90; ops.som_step.k13_route), bit-equal to
+// the kernel here, which takes wider D.
 //
 // K13's main launch runs K3's body on the tensor cores (fused_step_tc.cuh:
 // split-TF32 mma.sync for W.X and the winners' scores, the chunked cp.async
@@ -64,7 +69,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
+#include <cstdint>
 #include <type_traits>
 
 #include "argmin_keys.cuh"
@@ -73,56 +80,9 @@
 
 namespace {
 
-__device__ __forceinline__ float to_pattern(float v, float*) { return v; }
-__device__ __forceinline__ __nv_bfloat16 to_pattern(float v, __nv_bfloat16*) {
-  return __float2bfloat16_rn(v);
-}
-
-// The tables of one step, one thread per sample b.  pat[p][b] with p = parity
-// * xdim + column (parity 0 only on a rect map): gaussian alpha_b *
-// expf(-dx^2 s), stored as PT (bf16 rounds it), bubble dx^2; ytab[y][b] for
-// grid row y: gaussian expf(-dy^2 s), bubble dy^2; aw[b]: alpha_b, 0 where
-// bmu_b < 0.  Grid rows of the launch walk the n_pat + ydim table rows; the
-// first also sets the Bn winner keys to their start value (init_keys).
-template <typename PT>
-__global__ void factored_tables_kernel(const int* __restrict__ bmu,
-                                       const float* __restrict__ alpha, int B,
-                                       int Bn, int xdim, int hexa, int gaussian,
-                                       float radius, int n_pat, int ydim,
-                                       PT* __restrict__ pat,
-                                       float* __restrict__ ytab,
-                                       float* __restrict__ aw,
-                                       unsigned long long* __restrict__ keys) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blockIdx.y == 0 && b < Bn) keys[b] = ~0ull;
-  if (b >= B) return;
-  const int bm = bmu[b];
-  const bool none = bm < 0;
-  const int bmc = none ? 0 : bm;
-  const int bcol = bmc % xdim, brow = bmc / xdim;
-  const float a = none ? 0.f : alpha[b];
-  const float s = 1.0f / (2.0f * radius * radius);
-  const float bx = hexa ? (float)bcol + 0.5f * (float)(brow & 1) : (float)bcol;
-  if (blockIdx.y == 0) aw[b] = a;
-  for (int p = blockIdx.y; p < n_pat + ydim; p += gridDim.y) {
-    if (p < n_pat) {
-      const int col = p % xdim, par = p / xdim;
-      const float xq = hexa ? (float)col + 0.5f * (float)par : (float)col;
-      const float dx = xq - bx;
-      const float dx2 = dx * dx;
-      pat[(size_t)p * B + b] = to_pattern(gaussian ? a * expf(-dx2 * s) : dx2, pat);
-    } else {
-      const int y = p - n_pat;
-      const float rd = (float)(y - brow);
-      const float dy2 = hexa ? (rd * rd) * 0.75f : rd * rd;
-      ytab[(size_t)y * B + b] = gaussian ? expf(-dy2 * s) : dy2;
-    }
-  }
-}
-
 // K13: the separable step on the tensor cores (separable_w.cuh), 16 WARPS
 // rows per CTA
-template <int NT, int WARPS, typename CT>
+template <int NT, int WARPS, typename CT, bool kPasses>
 __global__ void __launch_bounds__(32 * WARPS, (NT <= 8 ? 2 : 1) * 8 / WARPS)
 som_fused_factored_kernel(CT* __restrict__ codes, int noc, int D,
                           const float* __restrict__ xs,
@@ -130,24 +90,28 @@ som_fused_factored_kernel(CT* __restrict__ codes, int noc, int D,
                           int hexa, int gaussian, float radius, int ny,
                           const float* __restrict__ pat,
                           const float* __restrict__ ytab,
-                          unsigned long long* __restrict__ keys) {
-  separable_step_tc<NT, WARPS, false>(codes, noc, D, xs, aw, B, Bn, xdim, hexa, gaussian,
-                                      radius, ny, pat, ytab, keys);
+                          unsigned long long* __restrict__ keys, float* rows32) {
+  separable_step_tc<NT, WARPS, false, kPasses>(codes, noc, D, xs, aw, B, Bn, xdim, hexa,
+                                               gaussian, radius, ny, pat, ytab, keys,
+                                               rows32);
 }
 
 // K13 for D's width and the wrapper's rows per CTA: 128 or 64 (64 past D 128,
-// where 128 rows would not fit)
+// where 128 rows would not fit); past D 256 NT 32's feature passes (64 rows)
 template <typename CT>
 int run_k13(const StepArgs& a) {
   const int k8 = (a.D + 7) / 8;
   if (!(a.rows == 64 || (a.rows == 128 && k8 <= 16))) return (int)cudaErrorInvalidValue;
+  if (a.D > kPassD)
+    return launch_separable_tc<32, 4, false, CT, float>(
+        som_fused_factored_kernel<32, 4, CT, true>, a);
 #define K13_LAUNCH(NT)                                                         \
   if (k8 <= NT)                                                              \
     return a.rows == 64                                                      \
                ? launch_separable_tc<NT, 4, false, CT, float>(                 \
-                     som_fused_factored_kernel<NT, 4, CT>, a)                  \
+                     som_fused_factored_kernel<NT, 4, CT, false>, a)           \
                : launch_separable_tc<NT, (NT <= 16 ? 8 : 4), false, CT, float>( \
-                     som_fused_factored_kernel<NT, (NT <= 16 ? 8 : 4), CT>, a);
+                     som_fused_factored_kernel<NT, (NT <= 16 ? 8 : 4), CT, false>, a);
   K13_LAUNCH(1)
   K13_LAUNCH(2)
   K13_LAUNCH(4)
@@ -158,29 +122,17 @@ int run_k13(const StepArgs& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The table launch of one step (it also sets the winner keys)
-template <typename PT>
-int launch_tables(const StepArgs& a) {
-  const int n_pat = a.hexa ? 2 * a.xdim : a.xdim;
-  const int ydim = (a.noc + a.xdim - 1) / a.xdim;
-  const int trows = n_pat + ydim < 65535 ? n_pat + ydim : 65535;
-  const dim3 tgrid(((a.B > a.Bn ? a.B : a.Bn) + 255) / 256, trows);
-  factored_tables_kernel<PT><<<tgrid, 256, 0, a.stream>>>(
-      a.bmu, a.alpha, a.B, a.Bn, a.xdim, a.hexa, a.gaussian, a.radius, n_pat,
-      ydim, static_cast<PT*>(a.pat), a.ytab, a.aw, a.keys);
-  return (int)cudaGetLastError();
-}
-
 // K13 (not chunked), or K14: its main form, or its walk under stagger or
 // int8_win
 template <typename CT>
 int run_flags(const StepArgs& a, int chunked, int wxa_bf16, int batch_bf16,
               int int8_win) {
   if (!chunked) {
-    const int rc = launch_tables<float>(a);
+    const int rc = launch_tables<float>(a, a.B);
     return rc ? rc : run_k13<CT>(a);
   }
-  const int rc = wxa_bf16 ? launch_tables<__nv_bfloat16>(a) : launch_tables<float>(a);
+  const int rc = wxa_bf16 ? launch_tables<__nv_bfloat16>(a, a.B)
+                          : launch_tables<float>(a, a.B);
   if (rc) return rc;
   constexpr bool f32 = std::is_same<CT, float>::value;
   if (int8_win)
@@ -208,7 +160,9 @@ int run_flags(const StepArgs& a, int chunked, int wxa_bf16, int batch_bf16,
 // xdim), B) float32 and pat (n_pat, B), n_pat = 2 xdim (hexa) or xdim, bf16
 // under wxa_bf16, else float32; xs, 2 (Bp + Bnp) DP float32, (Bp + Bnp) DP
 // under batch_bf16, Bnp 0 under int8_win (B and Bn rounded up to a multiple
-// of 64, DP = 8 times the power of two of 8-feature steps that covers D);
+// of 64, DP = ops.som_step.split_width(D): 8 times the power of two of
+// 8-feature steps that covers D, 256 n_passes(D) past 256); rows32: (noc, D)
+// float32 scratch for a bf16 codebook past D 256, else unread;
 // rows, the rows per CTA (ops.som_step.k13_rows: 128 or 64; K14: 64 or 32,
 // ops.som_step.k14_rows).  val gets -2 * the best score, idx its row.
 extern "C" int somvq_som_fused_factored(
@@ -217,15 +171,16 @@ extern "C" int somvq_som_fused_factored(
     int xdim, int hexa, int gaussian, float radius, int chunked, int wxa_bf16,
     int batch_bf16, int stagger, int int8_win, int rows, float* xs,
     const signed char* xq, const float* q, void* pat, float* ytab, float* aw,
-    unsigned long long* keys, float* val, int* idx, cudaStream_t stream) {
-  if (noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || Bn <= 0 || xdim <= 0 || stagger < 0 ||
+    unsigned long long* keys, float* val, int* idx, float* rows32, cudaStream_t stream) {
+  if (noc <= 0 || D <= 0 || B <= 0 || Bn <= 0 || xdim <= 0 || stagger < 0 ||
+      (codes_bf16 && D > kPassD && !rows32) ||
       (!chunked && (wxa_bf16 || batch_bf16 || stagger || int8_win)) || !xs ||
       (wxa_bf16 && !gaussian) || (int8_win && (xq == nullptr || q == nullptr)))
     return (int)cudaErrorInvalidValue;
   const StepArgs a{codes,  noc,     D,    xb, bmu,  alpha, B,
                    xn,     xq,      q,    Bn, xdim, hexa,  gaussian,
                    radius, stagger, rows, xs, pat,  ytab,  aw,
-                   keys,   stream};
+                   keys,   rows32, stream};
   const int rc = codes_bf16
                      ? run_flags<__nv_bfloat16>(a, chunked, wxa_bf16, batch_bf16, int8_win)
                      : run_flags<float>(a, chunked, wxa_bf16, batch_bf16, int8_win);
@@ -233,3 +188,4 @@ extern "C" int somvq_som_fused_factored(
   unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
   return (int)cudaGetLastError();
 }
+

@@ -1,8 +1,11 @@
 // One SOM training step in one pass over the codebook: the neighbourhood
 // update of batch t, then batch t+1's winners against the updated rows, on
-// split-TF32 mma.sync, for D in (128, 256]: K3's route past the widest D its
-// Hopper walk takes (fused_step_sm90.cu, D <= 128, bit-equal to this kernel;
-// ops.som_step.k3_route).  Only the NT 32 instantiation is built.
+// split-TF32 mma.sync, for D > 128: K3's route past the widest D its Hopper
+// walk takes (fused_step_sm90.cu, D <= 128, bit-equal to this kernel;
+// ops.som_step.k3_route).  Only the NT 32 instantiation is built, and past
+// 256 features its feature passes' twin (fused_step_tc.cuh:
+// fused_step_passes_tc), an instantiation of its own so that the one-pass
+// kernel keeps its code.
 //
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_fused_step_kernel (wrapper
 // som_fused_train_step).  The wrapper takes it where the JAX trainer takes
@@ -36,67 +39,74 @@
 
 namespace {
 
-template <int NT, typename CT>
+template <int NT, typename CT, bool kPasses>
 __global__ void __launch_bounds__(32 * k3_warps(NT), NT <= 8 ? 2 : 1)
 som_fused_step_kernel(CT* __restrict__ codes, int noc, int D,
                       const float* __restrict__ xs, const int* __restrict__ bmu,
                       const float* __restrict__ alpha, int B, int Bn, int xdim,
                       int hexa_i,
                       int gaussian_i, float radius, int unit_offset,
-                      unsigned long long* __restrict__ keys) {
+                      unsigned long long* __restrict__ keys, float* rows32) {
   ClosedFormW wp = closed_form_w(bmu, alpha, B, xdim, hexa_i, gaussian_i, radius,
                                  unit_offset);
-  fused_step_tc<NT, k3_warps(NT), false>(codes, noc, D, xs, B, Bn, keys, wp);
+  fused_step_tc<NT, k3_warps(NT), false, kPasses>(codes, noc, D, xs, B, Bn, keys, wp,
+                                                  rows32);
 }
 
-// the batches split once (into xs), then the step
-template <int NT, typename CT>
+// the batches split once (into xs), then the step (kPasses: the feature
+// passes' instantiation, D > 256)
+template <int NT, bool kPasses, typename CT>
 int launch_step(CT* codes, int noc, int D, const float* xb, const int* bmu,
                 const float* alpha, int B, const float* xn, int Bn, int xdim,
                 int hexa, int gaussian, float radius, int unit_offset, float* xs,
-                unsigned long long* keys, cudaStream_t stream) {
+                unsigned long long* keys, float* rows32, cudaStream_t stream) {
   using L = FusedSmem<NT, k3_warps(NT)>;
   const size_t smem = L::bytes(ClosedFormW::floats());
   cudaError_t err = cudaFuncSetAttribute(
-      som_fused_step_kernel<NT, CT>,
+      som_fused_step_kernel<NT, CT, kPasses>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rc = split_batches(xb, B, xn, Bn, D, L::DP, xs, stream);
   if (rc) return rc;
-  som_fused_step_kernel<NT, CT>
+  som_fused_step_kernel<NT, CT, kPasses>
       <<<(noc + L::TN - 1) / L::TN, 32 * k3_warps(NT), smem, stream>>>(
           codes, noc, D, xs, bmu, alpha, B, Bn, xdim, hexa, gaussian, radius,
-          unit_offset, keys);
+          unit_offset, keys, rows32);
   return (int)cudaGetLastError();
 }
 
-// D in (128, 256]: the one width this kernel takes (fused_step_sm90.cu
-// takes D <= 128)
+// D > 128: the one width this kernel takes, in passes past 256
+// (fused_step_sm90.cu takes D <= 128)
 template <typename CT>
 int launch_any(CT* codes, int noc, int D, const float* xb, const int* bmu,
                const float* alpha, int B, const float* xn, int Bn, int xdim,
                int hexa, int gaussian, float radius, int unit_offset, float* xs,
-               unsigned long long* keys, cudaStream_t stream) {
+               unsigned long long* keys, float* rows32, cudaStream_t stream) {
   if (D <= 128) return (int)cudaErrorInvalidValue;
-  return launch_step<32>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian,
-                         radius, unit_offset, xs, keys, stream);
+  return D > kPassD
+             ? launch_step<32, true>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
+                                     gaussian, radius, unit_offset, xs, keys, rows32, stream)
+             : launch_step<32, false>(codes, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
+                                      gaussian, radius, unit_offset, xs, keys, rows32,
+                                      stream);
 }
 
 }  // namespace
 
 // codes (noc, D) float32, or bf16 with codes_bf16, updated in place; xs
-// scratch for the split batches: 2 (Bp + Bnp) DP floats (B and Bn rounded up
-// to a multiple of 64, DP 8 times the power of two of 8-feature steps that
-// covers D)
+// scratch for the split batches: 2 (Bp + Bnp) W floats (B and Bn rounded up
+// to a multiple of 64, W = ops.som_step.split_width(D): 256 n_passes(D) past
+// 256); rows32: (noc, D) float32 scratch for a bf16 codebook past D 256 (the
+// blended rows the winners read), else unread
 extern "C" int somvq_som_fused_step(void* codes, int codes_bf16, int noc, int D,
                                     const float* xb, const int* bmu,
                                     const float* alpha, int B, const float* xn,
                                     int Bn, int xdim, int hexa, int gaussian,
                                     float radius, int unit_offset, float* xs,
                                     unsigned long long* keys, float* val,
-                                    int* idx, cudaStream_t stream) {
-  if (noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || Bn <= 0 || xdim <= 0 ||
-      unit_offset < 0 || !xs)
+                                    int* idx, float* rows32, cudaStream_t stream) {
+  if (noc <= 0 || D <= 0 || B <= 0 || Bn <= 0 || xdim <= 0 || unit_offset < 0 || !xs ||
+      (codes_bf16 && D > kPassD && !rows32))
     return (int)cudaErrorInvalidValue;
   init_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn);
   int rc = (int)cudaGetLastError();
@@ -104,10 +114,10 @@ extern "C" int somvq_som_fused_step(void* codes, int codes_bf16, int noc, int D,
   rc = codes_bf16
            ? launch_any(static_cast<__nv_bfloat16*>(codes), noc, D, xb, bmu,
                         alpha, B, xn, Bn, xdim, hexa, gaussian, radius,
-                        unit_offset, xs, keys, stream)
+                        unit_offset, xs, keys, rows32, stream)
            : launch_any(static_cast<float*>(codes), noc, D, xb, bmu, alpha, B,
                         xn, Bn, xdim, hexa, gaussian, radius, unit_offset, xs,
-                        keys, stream);
+                        keys, rows32, stream);
   if (rc) return rc;
   unpack_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn, val, idx);
   return (int)cudaGetLastError();

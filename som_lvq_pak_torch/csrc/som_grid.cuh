@@ -2,8 +2,8 @@
 // K3, K5 and K11 (fused_step_tc.cuh), K6 (som_update.cu), K7
 // (som_vmem_steps.cu) and K13/K14 (separable_w.cuh, som_fused_factored.cu)
 // build W from staged grid coordinates (grid_x, grid_d2_at, weight_of_d2);
-// beside them the guarded blend, a bf16 codebook's loads and stores, the
-// widest D the kernels take (MAX_D).
+// beside them the guarded blend, a bf16 codebook's loads and stores, and the
+// feature passes past 256 (kPassD, n_passes).
 //
 // W[unit, sample] follows the exact-f32 algebra of
 // som_lvq_pak_tpu/ops/pallas_som.py:_neighborhood_w: dx from columns and
@@ -21,10 +21,14 @@
 
 namespace {
 
-// The widest D any kernel takes: the entry checks of K3, K5-K7, K11-K14 and
-// K17 read it; the tensor-core steps' widest instantiation is NT 32, 8 NT =
-// 256 features
-constexpr int MAX_D = 256;
+// Features per pass past the SOM step kernels' widest instantiation (NT 32,
+// 8 NT = 256 features): a wider D runs in n_passes(D) passes of kPassD
+// features (fused_step_tc.cuh), which every kernel of K3, K5-K7, K11-K14 and
+// K17 takes; none has a widest D
+constexpr int kPassD = 256;
+__host__ __device__ constexpr int n_passes(int D) {
+  return D <= kPassD ? 1 : (D + kPassD - 1) / kPassD;
+}
 
 // the exact-f32 grid x coordinate of the unit in column c, row r (hexa odd
 // rows at c + 0.5)

@@ -10,7 +10,10 @@
 // sample's masked components leave every unit's matching component untouched
 // (adapt_vector skips masked components, lvq_pak.c:349-356), which is why K6
 // carries the weight mass per component.  Both write the guarded blend IN
-// PLACE: each CTA reads and writes only its own rows.
+// PLACE: each CTA reads and writes only its own rows.  Both take any D: K5
+// in passes of 256 features past 256 (fused_step_tc.cuh), K6 in its slabs
+// of 128 on gridDim.y, staging each slab's columns alone where whole rows do
+// not fit in shared memory.
 //
 // The TPU grid walks batch tiles in order and carries acc/wsum in scratch
 // across them.  Here one CTA owns a tile of codebook rows and loops over the
@@ -82,22 +85,29 @@ som_update_kernel(float* __restrict__ codes, int noc, int D,
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * 16 * WARPS;
   ClosedFormW wp = closed_form_w(bmu, alpha, B, xdim, hexa, gaussian, radius, 0);
-  float acc[NT][4];
-  float wsum[2];
-  fused_update_tc<NT, WARPS, false>(acc, wsum, xs, xs + (size_t)(B + 63) / 64 * 64 * DP,
-                                    B, r0, wp);
-  // guarded blend, per (row, component), in place: c0 (g, 2t), c1 (g,
-  // 2t + 1), c2, c3: g + 8
+  const size_t plane = (size_t)(B + 63) / 64 * 64 * DP;
+  // feature passes past 8 NT (NT 32, D > 256): slab s's update, then its
+  // columns' blend (fused_step_tc.cuh); one pass otherwise
+  const int np = NT == 32 ? n_passes(D) : 1;
+  for (int s = 0; s < np; ++s) {
+    float acc[NT][4];
+    float wsum[2];
+    fused_update_tc<NT, WARPS, false>(acc, wsum, xs + 2 * s * plane, xs + (2 * s + 1) * plane,
+                                      B, r0, wp);
+    // guarded blend, per (row, component), in place: c0 (g, 2t), c1 (g,
+    // 2t + 1), c2, c3: g + 8
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = 8 * j + 2 * t + (q & 1);
-      if (k < D && u < noc) {
-        float* p = codes + (size_t)u * D + k;
-        *p = guarded_blend(*p, acc[j][q], wsum[q >> 1]);
+      for (int q = 0; q < 4; ++q) {
+        const int u = r0 + 16 * warp + g + 8 * (q >> 1), k = s * DP + 8 * j + 2 * t + (q & 1);
+        if (k < D && u < noc) {
+          float* p = codes + (size_t)u * D + k;
+          *p = guarded_blend(*p, acc[j][q], wsum[q >> 1]);
+        }
       }
     }
+    if (s + 1 < np) __syncthreads();  // the slab's fragments read: the buffers are free
   }
 }
 
@@ -127,16 +137,18 @@ constexpr int kThreads6 = 32 * kWarps6;
 constexpr int kSlabNT = 16;            // at most 128 features per CTA
 
 // NT 8-feature n-tiles per slab (SW = 8 NT features).  Shared memory:
-// raw[2][kChunk * D] floats | xhi, xlo, kf [kChunk][DS] floats | smp[kChunk]
-// float4 (bmu grid x, bmu row, alpha, 0) | m8[2][kChunk * D] bytes; every
-// region starts 16-byte aligned.
+// raw[2][kChunk * RS] floats | xhi, xlo, kf [kChunk][DS] floats | smp[kChunk]
+// float4 (bmu grid x, bmu row, alpha, 0) | m8[2][kChunk * RS] bytes; every
+// region starts 16-byte aligned.  RS, the staged row: D (whole rows, copied
+// in one piece) where that fits in shared memory, else SW (the CTA's slab of
+// each row alone, k6_row_stride)
 template <int NT>
 struct K6Smem {
   static constexpr int SW = 8 * NT, DS = stride_kn(SW);
-  static size_t bytes(int D) {
-    return sizeof(float) * (2 * (size_t)kChunk * D + 3 * (size_t)kChunk * DS +
+  static size_t bytes(int RS) {
+    return sizeof(float) * (2 * (size_t)kChunk * RS + 3 * (size_t)kChunk * DS +
                             4 * kChunk) +
-           2 * (size_t)kChunk * D;
+           2 * (size_t)kChunk * RS;
   }
 };
 
@@ -156,6 +168,48 @@ __device__ __forceinline__ void copy_bytes_async(unsigned char* dst,
   for (int i = done + tid; i < n; i += nthreads) dst[i] = src[i];
 }
 
+// K6's staged row for D features: whole rows up to the widest that fits in
+// 227 KB of shared memory (about 560 features), the slab alone past it
+template <int NT>
+int k6_row_stride(int D) {
+  return K6Smem<NT>::bytes(D) <= 232448 ? D : K6Smem<NT>::SW;
+}
+
+// Stage chunk rows s0..s0 + nb - 1 of x and of the mask: whole rows (RS ==
+// D) in one piece, or (RS == SW) features f0..f0 + width - 1 of each row
+// into rows of RS, 16-byte cp.async pieces where aligned, else 4-byte ones
+// (the mask's bytes by plain stores), committed by the caller
+__device__ __forceinline__ void stage_rows6(float* raw, unsigned char* m8,
+                                            const float* __restrict__ xb,
+                                            const unsigned char* __restrict__ mask, int s0,
+                                            int nb, int D, int f0, int width, int RS,
+                                            int tid, int nthreads) {
+  const size_t off = (size_t)s0 * D;
+  if (RS == D) {
+    cp_async_floats(raw, xb + off, nb * D, tid, nthreads);
+    copy_bytes_async(m8, mask + off, nb * D, tid, nthreads);
+    return;
+  }
+  const bool v16 = (D & 3) == 0 && (width & 3) == 0 && (f0 & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(xb) & 15) == 0;
+  if (v16) {
+    const int q = width / 4;
+    for (int e = tid; e < nb * q; e += nthreads) {
+      const int r = e / q, k = 4 * (e - r * q);
+      cp_async16(raw + r * RS + k, xb + off + (size_t)r * D + f0 + k);
+    }
+  } else {
+    for (int e = tid; e < nb * width; e += nthreads) {
+      const int r = e / width, k = e - r * width;
+      cp_async4(raw + r * RS + k, xb + off + (size_t)r * D + f0 + k);
+    }
+  }
+  for (int e = tid; e < nb * width; e += nthreads) {
+    const int r = e / width, k = e - r * width;
+    m8[r * RS + k] = mask[off + (size_t)r * D + f0 + k];
+  }
+}
+
 template <int NT>
 __global__ void __launch_bounds__(kThreads6, NT <= 8 ? 2 : 1)
 som_update_masked_kernel(float* __restrict__ codes, int noc, int D,
@@ -163,18 +217,18 @@ som_update_masked_kernel(float* __restrict__ codes, int noc, int D,
                          const unsigned char* __restrict__ mask,
                          const int* __restrict__ bmu,
                          const float* __restrict__ alpha, int B, int xdim,
-                         int hexa_i, int gaussian_i, float radius) {
+                         int hexa_i, int gaussian_i, float radius, int RS) {
   using L = K6Smem<NT>;
   constexpr int SW = L::SW, DS = L::DS, KS = kChunk / 8;
   extern __shared__ __align__(16) float smem6[];
   float* raw0 = smem6;
-  float* raw1 = raw0 + kChunk * D;
-  float* xhi = raw1 + kChunk * D;
+  float* raw1 = raw0 + kChunk * RS;
+  float* xhi = raw1 + kChunk * RS;
   float* xlo = xhi + kChunk * DS;
   float* kf = xlo + kChunk * DS;
   float4* smp = reinterpret_cast<float4*>(kf + kChunk * DS);
   unsigned char* m80 = reinterpret_cast<unsigned char*>(smp + kChunk);
-  unsigned char* m81 = m80 + kChunk * D;
+  unsigned char* m81 = m80 + kChunk * RS;
 
   const bool hexa = hexa_i != 0, gaussian = gaussian_i != 0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -182,6 +236,7 @@ som_update_masked_kernel(float* __restrict__ codes, int noc, int D,
   const int r0 = blockIdx.x * kRows6;
   const int f0 = blockIdx.y * SW;  // this CTA's feature slab
   const int width = min(SW, D - f0);
+  const int roff = RS == D ? f0 : 0;  // the slab's first column in a staged row
   const float r2 = radius * radius;
   const float den = 2.0f * radius * radius;
 
@@ -202,8 +257,7 @@ som_update_masked_kernel(float* __restrict__ codes, int noc, int D,
     for (int q = 0; q < 4; ++q) acc[j][q] = mass[j][q] = 0.f;
 
   const int nchunks = (B + kChunk - 1) / kChunk;
-  cp_async_floats(raw0, xb, min(kChunk, B) * D, tid, kThreads6);
-  copy_bytes_async(m80, mask, min(kChunk, B) * D, tid, kThreads6);
+  stage_rows6(raw0, m80, xb, mask, 0, min(kChunk, B), D, f0, width, RS, tid, kThreads6);
   cp_async_commit();
   for (int c = 0; c < nchunks; ++c) {
     const int s0 = c * kChunk, nb = min(kChunk, B - s0);
@@ -212,18 +266,16 @@ som_update_masked_kernel(float* __restrict__ codes, int noc, int D,
     cp_async_wait_all();
     __syncthreads();  // chunk c landed; chunk c - 1's fragments all read
     if (c + 1 < nchunks) {  // its buffers were last read by chunk c - 1's split
-      const int n = min(kChunk, B - s0 - kChunk) * D;
-      const size_t off = (size_t)(s0 + kChunk) * D;
-      cp_async_floats((c & 1) ? raw0 : raw1, xb + off, n, tid, kThreads6);
-      copy_bytes_async((c & 1) ? m80 : m81, mask + off, n, tid, kThreads6);
+      stage_rows6((c & 1) ? raw0 : raw1, (c & 1) ? m80 : m81, xb, mask, s0 + kChunk,
+                  min(kChunk, B - s0 - kChunk), D, f0, width, RS, tid, kThreads6);
       cp_async_commit();
     }
     // X o K split into hi and lo, and K; zero past the batch and the slab
     for (int e = tid; e < kChunk * SW; e += kThreads6) {
       const int s = e / SW, k = e % SW;
       float v = 0.f, kv = 0.f;
-      if (s < nb && k < width && m8[s * D + f0 + k] == 0) {
-        v = raw[s * D + f0 + k];
+      if (s < nb && k < width && m8[s * RS + roff + k] == 0) {
+        v = raw[s * RS + roff + k];
         kv = 1.f;
       }
       float hi, lo;
@@ -295,26 +347,27 @@ int launch_masked(float* codes, int noc, int D, const float* xb,
                   int B, int xdim, int hexa, int gaussian, float radius,
                   cudaStream_t stream) {
   using L = K6Smem<NT>;
-  const size_t smem = L::bytes(D);
+  const int RS = k6_row_stride<NT>(D);
+  const size_t smem = L::bytes(RS);
   cudaError_t err = cudaFuncSetAttribute(som_update_masked_kernel<NT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((noc + kRows6 - 1) / kRows6, (D + L::SW - 1) / L::SW);
   som_update_masked_kernel<NT><<<grid, kThreads6, smem, stream>>>(
-      codes, noc, D, xb, mask, bmu, alpha, B, xdim, hexa, gaussian, radius);
+      codes, noc, D, xb, mask, bmu, alpha, B, xdim, hexa, gaussian, radius, RS);
   return (int)cudaGetLastError();
 }
 
 bool bad_args(int noc, int D, int B, int xdim) {
-  return noc <= 0 || D <= 0 || D > MAX_D || B <= 0 || xdim <= 0;
+  return noc <= 0 || D <= 0 || B <= 0 || xdim <= 0;
 }
 
 }  // namespace
 
-// K5; xs scratch for the split batch: 2 Bp DP floats (B rounded up to a
-// multiple of 64, DP 8 times the power of two of 8-feature steps that
-// covers D)
+// K5; xs scratch for the split batch: 2 Bp W floats (B rounded up to a
+// multiple of 64, W = ops.som_step.split_width(D): 8 times the power of two
+// of 8-feature steps that covers D, 256 n_passes(D) past 256, the passes)
 extern "C" int somvq_som_update(float* codes, int noc, int D, const float* xb,
                                 const int* bmu, const float* alpha, int B,
                                 int xdim, int hexa, int gaussian, float radius,
@@ -322,7 +375,7 @@ extern "C" int somvq_som_update(float* codes, int noc, int D, const float* xb,
   if (bad_args(noc, D, B, xdim) || !xs) return (int)cudaErrorInvalidValue;
   const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
 #define K5_LAUNCH(NT)                                                          \
-  if (k8 <= NT)                                                                \
+  if (k8 <= NT || NT == 32)                                                    \
     return launch_update<NT>(codes, noc, D, xb, bmu, alpha, B, xdim, hexa,     \
                              gaussian, radius, xs, stream);
   K5_LAUNCH(1)

@@ -66,6 +66,15 @@
 // for m-tile mt and group cg, each holding the mma's C fragments of its
 // m-tile for its n-tiles of the features (update) or of the chunk's samples
 // (winners).
+//
+// Past 256 features (NT 32) a step runs in n_passes(D) feature passes of
+// 256, as fused_step_tc.cuh's do: the resident rows are whole (the slabs side
+// by side, row stride DTF = stride_nk(256 NP)); pass s updates slab s of the
+// tile from the split batch's slab s (W rebuilt, the same floats every pass);
+// ||m||^2 runs over every column in order; each winner chunk's scores are
+// summed in the mma over the slabs in order, the chunk's slab of x' staged
+// for each (no double buffer).  Rows per CTA shrink where whole rows do not
+// fit (ops.som_vmem.k7_rows).
 
 #include <cuda_runtime.h>
 
@@ -142,9 +151,10 @@ __host__ __device__ constexpr int k7_cg(int NT, int MT) {
 // Shared memory (floats) of a CTA owning T tiles: the step region, the
 // update's staging, x [2 buffers][hi, lo][kBC][DSU] | W [2 buffers][MT][4
 // k-steps][32 lanes][4], or after the update two winner chunks x' [2][hi,
-// lo][BW][DW] | redv, redi [MT][BW]; then tiles [T][R][DT] (float32) | m2s
-// [T][R] | wsum [R] | the step's W table (float4) [Bc], Bc = B rounded up
-// to a multiple of kBC
+// lo][BW][DW] | redv, redi [MT][BW]; then tiles [T][R][DTF] (float32) |
+// m2s [T][R] | wsum [R] | the step's W table (float4) [Bc], Bc = B rounded
+// up to a multiple of kBC.  DTF, a resident row: DT, or past 256 features
+// (the feature passes' instantiation) stride_nk(256 n_passes(D)) (dtf)
 template <int NT, int MT>
 struct VmemSmem {
   static constexpr int CG = k7_cg(NT, MT), WARPS = MT * CG, R = 16 * MT;
@@ -154,31 +164,33 @@ struct VmemSmem {
   static constexpr size_t kUpdate = kX + 2 * (size_t)MT * 4 * 32 * 4;
   static constexpr size_t kWinner = 4 * (size_t)BW * DW + 2 * (size_t)MT * BW;
   static constexpr size_t kStep = kUpdate > kWinner ? kUpdate : kWinner;
-  __host__ __device__ static size_t table(int T) {
-    return kStep + (size_t)T * R * (DT + 1) + R;
+  __host__ __device__ static int dtf(int D) { return stride_nk(DP * n_passes(D)); }
+  __host__ __device__ static size_t table(int T, int DTF) {
+    return kStep + (size_t)T * R * (DTF + 1) + R;
   }
-  static size_t bytes(int T, int B) {
-    return sizeof(float) * (table(T) + 4 * (size_t)((B + kBC - 1) / kBC * kBC));
+  static size_t bytes(int T, int B, int DTF) {
+    return sizeof(float) * (table(T, DTF) + 4 * (size_t)((B + kBC - 1) / kBC * kBC));
   }
 };
 
 // Every batch of the launch split once, split_batches_kernel's split per
-// batch: batch t (batches[t] for t < K, the tail for t = K) at xs + 2 t P,
-// its hi plane then its lo plane, P = Bp DP floats each (Bp: B rounded up to
-// a multiple of 64), zero past B and D; one thread per entry
+// batch: batch t (batches[t] for t < K, the tail for t = K) at xs + 2 NP t
+// P, slab s (features s DP.., NP n_passes slabs, 1 up to 256 features) at
+// + 2 s P, its hi plane then its lo plane, P = Bp DP floats each (Bp: B
+// rounded up to a multiple of 64), zero past B and D; one thread per entry
 __global__ void split_group_kernel(const float* __restrict__ batches, int K, int B,
-                                   const float* __restrict__ tail, int D, int DP,
+                                   const float* __restrict__ tail, int D, int DP, int NP,
                                    int Bp, float* __restrict__ xs) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t plane = (int64_t)Bp * DP;
-  if (e >= (int64_t)(K + 1) * plane) return;
-  const int t = (int)(e / plane);
-  const int64_t i = e - t * plane;
-  const int b = (int)(i / DP), k = (int)(i % DP);
+  const int64_t plane = (int64_t)Bp * DP, W = (int64_t)NP * DP;
+  if (e >= (int64_t)(K + 1) * Bp * W) return;
+  const int t = (int)(e / (Bp * W));
+  const int64_t i = e - t * Bp * W;
+  const int b = (int)(i / W), f = (int)(i % W);
   const float* x = t < K ? batches + (size_t)t * B * D : tail;
-  const float v = (b < B && k < D) ? x[(size_t)b * D + k] : 0.f;
-  float* hi = xs + 2 * t * plane;
-  split_tf32(v, hi[i], hi[plane + i]);
+  const float v = (b < B && f < D) ? x[(size_t)b * D + f] : 0.f;
+  float* hi = xs + 2 * ((int64_t)t * NP + f / DP) * plane + (int64_t)b * DP + f % DP;
+  split_tf32(v, hi[0], hi[plane]);
 }
 
 // Grid-wide barrier: bar[0] counts arrivals, bar[1] is the generation.  The
@@ -302,24 +314,28 @@ __device__ __forceinline__ void group_update(float (&acc)[NT / k7_cg(NT, MT)][4]
   }
 }
 
-// up to 128 registers a thread
-template <int NT, int MT>
+// up to 128 registers a thread; kPasses: the feature passes (NT 32, D > 256),
+// an instantiation of its own so that the one-pass kernels keep their code
+template <int NT, int MT, bool kPasses>
 __global__ void __launch_bounds__(32 * VmemSmem<NT, MT>::WARPS, 16 / VmemSmem<NT, MT>::WARPS)
 som_vmem_steps_kernel(const VmemArgs a) {
   using L = VmemSmem<NT, MT>;
   constexpr int CG = L::CG, NTW = NT / CG, DP = L::DP, R = L::R, BW = L::BW;
-  constexpr int DT = L::DT, DW = L::DW, NTH = 32 * L::WARPS;
+  constexpr int DW = L::DW, NTH = 32 * L::WARPS;
   constexpr int NW = BW / 8 / CG;  // a warp's n-tiles of a winner chunk
   extern __shared__ __align__(16) float smem[];
   float* xw = smem;  // winner chunk buffers: [buffer][hi, lo][BW][DW]
   float* redv = xw + 4 * BW * DW;
   int* redi = reinterpret_cast<int*>(redv + MT * BW);
+  const int noc = a.noc, D = a.D, B = a.B;
+  // the feature passes (kPasses); DT: a resident row's stride
+  const int np = kPasses ? n_passes(D) : 1;
+  const int DT = kPasses ? L::dtf(D) : L::DT;
   float* tiles = smem + L::kStep;
   float* m2s = tiles + (size_t)a.T * R * DT;
   float* wsm = m2s + a.T * R;
-  float4* tab = reinterpret_cast<float4*>(smem + L::table(a.T));
+  float4* tab = reinterpret_cast<float4*>(smem + L::table(a.T, DT));
 
-  const int noc = a.noc, D = a.D, B = a.B;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int mt = warp % MT, cg = warp / MT;
@@ -359,8 +375,9 @@ som_vmem_steps_kernel(const VmemArgs a) {
     unsigned long long* kr = a.keys + (size_t)((s + 2) % 3) * B;
     for (int b = gtid; b < B; b += gsz) kr[b] = ~0ull;
     unsigned long long* kn = a.keys + (size_t)((s + 1) % 3) * B;
-    const float* xb_hi = a.xs + 2 * s * plane;
-    const float* xn_hi = xb_hi + 2 * plane;
+    // batch s's slabs, then batch s + 1's: slab p's hi plane at + 2 p plane
+    const float* xb_hi = a.xs + 2 * (size_t)np * s * plane;
+    const float* xn_hi = xb_hi + 2 * (size_t)np * plane;
     const float radius = a.radii[s];
     GroupW wp;
     wp.xdim = a.xdim;
@@ -368,50 +385,56 @@ som_vmem_steps_kernel(const VmemArgs a) {
     wp.gaussian = a.gaussian != 0;
     wp.r2 = radius * radius;
     wp.den = 2.0f * radius * radius;
-    wp.tab = (int)L::table(a.T);
+    wp.tab = (int)L::table(a.T, DT);
     __syncthreads();  // the table written before the first chunk's W
 
     // ---- 2. K3's update, then its blend into the resident tile ------------
     for (int tt = 0; tt < nt; ++tt) {
       const int r0 = row0 + tt * R;
-      float acc[NTW][4];
-      float wsum[2];
-      group_update<NT, MT>(acc, wsum, xb_hi, xb_hi + plane, B, r0, wp);
-      if (cg == 0 && t4 == 0) {
-        wsm[16 * mt + g] = wsum[0];
-        wsm[16 * mt + g + 8] = wsum[1];
-      }
-      __syncthreads();  // every fragment read: the step region is free; wsum
-      if (tt == nt - 1) {  // the first winner chunk lands while the tile blends
-        copy_rows<DP>(xw, DW, xn_hi, BW, tid, NTH);
-        copy_rows<DP>(xw + BW * DW, DW, xn_hi + plane, BW, tid, NTH);
-        cp_async_commit();
-      }
       float* tile = tiles + (size_t)tt * R * DT;
-      const float ws[2] = {wsm[16 * mt + g], wsm[16 * mt + g + 8]};
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
-          const int h = q >> 1, r = 16 * mt + g + 8 * h;
-          const int k = 8 * (cg * NTW + j) + 2 * t4 + (q & 1);
-          float nc = 0.f;
-          if (k < D && r0 + r < noc) nc = guarded_blend(tile[r * DT + k], acc[j][q], ws[h]);
-          tile[r * DT + k] = nc;
+      for (int p = 0; p < np; ++p) {
+        float acc[NTW][4];
+        float wsum[2];
+        group_update<NT, MT>(acc, wsum, xb_hi + 2 * p * plane, xb_hi + (2 * p + 1) * plane, B,
+                             r0, wp);
+        if (cg == 0 && t4 == 0) {
+          wsm[16 * mt + g] = wsum[0];
+          wsm[16 * mt + g + 8] = wsum[1];
         }
+        __syncthreads();  // every fragment read: the step region is free; wsum
+        if (np == 1 && tt == nt - 1) {  // the first winner chunk lands while the tile blends
+          copy_rows<DP>(xw, DW, xn_hi, BW, tid, NTH);
+          copy_rows<DP>(xw + BW * DW, DW, xn_hi + plane, BW, tid, NTH);
+          cp_async_commit();
+        }
+        const float ws[2] = {wsm[16 * mt + g], wsm[16 * mt + g + 8]};
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {  // c0 (g, 2t), c1 (g, 2t + 1), c2, c3: g + 8
+            const int h = q >> 1, r = 16 * mt + g + 8 * h;
+            const int k = p * DP + 8 * (cg * NTW + j) + 2 * t4 + (q & 1);
+            float nc = 0.f;
+            if (k < D && r0 + r < noc) nc = guarded_blend(tile[r * DT + k], acc[j][q], ws[h]);
+            tile[r * DT + k] = nc;
+          }
+        }
+        __syncthreads();  // the slab blended
       }
-      __syncthreads();  // the tile blended
-      // ||m||^2 in K3's order: per thread over n-tiles then c0..c3, then the
-      // four lanes of a row
+      // ||m||^2 in K3's order: per thread over n-tiles (every pass's) then
+      // c0..c3, then the four lanes of a row
       if (cg == 0) {
         float sq[2] = {0.f, 0.f};
+        for (int j0 = 0; j0 < np * NT; j0 += NT) {
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
+          for (int j = 0; j < NT; ++j) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int h = q >> 1;
-            const float nc = tile[(16 * mt + g + 8 * h) * DT + 8 * j + 2 * t4 + (q & 1)];
-            sq[h] += nc * nc;
+            for (int q = 0; q < 4; ++q) {
+              const int h = q >> 1;
+              const float nc =
+                  tile[(16 * mt + g + 8 * h) * DT + 8 * (j0 + j) + 2 * t4 + (q & 1)];
+              sq[h] += nc * nc;
+            }
           }
         }
 #pragma unroll
@@ -424,24 +447,59 @@ som_vmem_steps_kernel(const VmemArgs a) {
     }
 
     // ---- 3. batch s+1's winners against the resident rows -----------------
-    // chunk i in buffer i & 1; chunk i + 1 copied while chunk i is scored;
-    // warp (mt, cg) scores m-tile mt against the chunk's n-tiles cg NW ..
-    for (int n0 = 0; n0 < B; n0 += BW) {
-      const float* whi = xw + ((n0 / BW) & 1) * 2 * BW * DW;
-      const float* wlo = whi + BW * DW;
-      cp_async_wait_all();
-      __syncthreads();  // chunk landed; tiles, m2s and the last chunk's reads done
-      if (n0 + BW < B) {
-        const size_t o = (size_t)(n0 + BW) * DP;
-        float* nhi = xw + (((n0 / BW) & 1) ^ 1) * 2 * BW * DW;
-        copy_rows<DP>(nhi, DW, xn_hi + o, BW, tid, NTH);
-        copy_rows<DP>(nhi + BW * DW, DW, xn_hi + plane + o, BW, tid, NTH);
-        cp_async_commit();
+    // per (sample 8 n + 2 t + q) the best (value, row) of this lane's rows:
+    // rows ascend (tile, then g, then g + 8), so strict < keeps the first
+    float bv[NW][2];
+    int bi[NW][2];
+    // S = this warp's m-tile of tile tt against the staged chunk (whi, wlo),
+    // features from `col` of the resident rows, added to S
+    auto scores = [&](float (&S)[NW][4], const float* tile, const float* whi,
+                      const float* wlo, int col) {
+#pragma unroll 2
+      for (int ks = 0; ks < NT; ++ks) {
+        float av[4], ahi[4], alo[4];
+        load_a(av, tile + col, DT, 16 * mt, 8 * ks, lane);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(av[q], ahi[q], alo[q]);
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          float bhi[2], blo[2];
+          load_b_nk(bhi, whi, DW, 8 * (cg * NW + n), 8 * ks, lane);
+          load_b_nk(blo, wlo, DW, 8 * (cg * NW + n), 8 * ks, lane);
+          mma_tf32x3(S[n], ahi, alo, bhi, blo);
+        }
       }
-      // per (sample 8 n + 2 t + q) the best (value, row) of this lane's rows:
-      // rows ascend (tile, then g, then g + 8), so strict < keeps the first
-      float bv[NW][2];
-      int bi[NW][2];
+    };
+    // tile tt's scores folded into (bv, bi)
+    auto fold = [&](const float (&S)[NW][4], int tt) {
+      const int ra = row0 + tt * R + 16 * mt + g, rb = ra + 8;
+      const float m2a = m2s[tt * R + 16 * mt + g], m2b = m2s[tt * R + 16 * mt + g + 8];
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (ra < noc) {
+            const float d = m2a - 2.f * S[n][q];
+            if (d < bv[n][q]) {
+              bv[n][q] = d;
+              bi[n][q] = ra;
+            }
+          }
+          if (rb < noc) {
+            const float d = m2b - 2.f * S[n][2 + q];
+            if (d < bv[n][q]) {
+              bv[n][q] = d;
+              bi[n][q] = rb;
+            }
+          }
+        }
+      }
+    };
+    // chunk i in buffer i & 1; chunk i + 1 copied while chunk i is scored
+    // (one pass; past 256 features each slab of the chunk is staged in
+    // buffer 0 in turn); warp (mt, cg) scores m-tile mt against the chunk's
+    // n-tiles cg NW ..
+    for (int n0 = 0; n0 < B; n0 += BW) {
 #pragma unroll
       for (int n = 0; n < NW; ++n)
 #pragma unroll
@@ -449,48 +507,45 @@ som_vmem_steps_kernel(const VmemArgs a) {
           bv[n][q] = INFINITY;
           bi[n][q] = INT_MAX;
         }
-      for (int tt = 0; tt < nt; ++tt) {
-        const float* tile = tiles + (size_t)tt * R * DT;
-        float S[NW][4];
-#pragma unroll
-        for (int n = 0; n < NW; ++n)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
-#pragma unroll 2
-        for (int ks = 0; ks < NT; ++ks) {
-          float av[4], ahi[4], alo[4];
-          load_a(av, tile, DT, 16 * mt, 8 * ks, lane);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) split_tf32(av[q], ahi[q], alo[q]);
-#pragma unroll
-          for (int n = 0; n < NW; ++n) {
-            float bhi[2], blo[2];
-            load_b_nk(bhi, whi, DW, 8 * (cg * NW + n), 8 * ks, lane);
-            load_b_nk(blo, wlo, DW, 8 * (cg * NW + n), 8 * ks, lane);
-            mma_tf32x3(S[n], ahi, alo, bhi, blo);
-          }
+      if (np == 1) {
+        const float* whi = xw + ((n0 / BW) & 1) * 2 * BW * DW;
+        const float* wlo = whi + BW * DW;
+        cp_async_wait_all();
+        __syncthreads();  // chunk landed; tiles, m2s and the last chunk's reads done
+        if (n0 + BW < B) {
+          const size_t o = (size_t)(n0 + BW) * DP;
+          float* nhi = xw + (((n0 / BW) & 1) ^ 1) * 2 * BW * DW;
+          copy_rows<DP>(nhi, DW, xn_hi + o, BW, tid, NTH);
+          copy_rows<DP>(nhi + BW * DW, DW, xn_hi + plane + o, BW, tid, NTH);
+          cp_async_commit();
         }
-        const int ra = row0 + tt * R + 16 * mt + g, rb = ra + 8;
-        const float m2a = m2s[tt * R + 16 * mt + g], m2b = m2s[tt * R + 16 * mt + g + 8];
+        for (int tt = 0; tt < nt; ++tt) {
+          float S[NW][4];
 #pragma unroll
-        for (int n = 0; n < NW; ++n) {
+          for (int n = 0; n < NW; ++n)
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            if (ra < noc) {
-              const float d = m2a - 2.f * S[n][q];
-              if (d < bv[n][q]) {
-                bv[n][q] = d;
-                bi[n][q] = ra;
-              }
-            }
-            if (rb < noc) {
-              const float d = m2b - 2.f * S[n][2 + q];
-              if (d < bv[n][q]) {
-                bv[n][q] = d;
-                bi[n][q] = rb;
-              }
-            }
+            for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+          scores(S, tiles + (size_t)tt * R * DT, whi, wlo, 0);
+          fold(S, tt);
+        }
+      } else {
+        for (int tt = 0; tt < nt; ++tt) {
+          float S[NW][4];
+#pragma unroll
+          for (int n = 0; n < NW; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) S[n][q] = 0.f;
+          for (int p = 0; p < np; ++p) {
+            __syncthreads();  // the last slab's fragments read (and tiles, m2s written)
+            const float* src = xn_hi + 2 * p * plane + (size_t)n0 * DP;
+            copy_rows<DP>(xw, DW, src, BW, tid, NTH);
+            copy_rows<DP>(xw + BW * DW, DW, src + plane, BW, tid, NTH);
+            cp_async_commit();
+            cp_async_wait_all();
+            __syncthreads();  // the slab landed
+            scores(S, tiles + (size_t)tt * R * DT, xw, xw + BW * DW, p * DP);
           }
+          fold(S, tt);
         }
       }
 #pragma unroll
@@ -548,7 +603,7 @@ som_vmem_steps_kernel(const VmemArgs a) {
 
 // the fewest tiles per CTA whose grid can be resident at once, then the
 // cooperative launch
-template <int NT, int MT>
+template <int NT, int MT, bool kPasses>
 int launch_vmem(VmemArgs a, cudaStream_t stream) {
   using L = VmemSmem<NT, MT>;
   int dev = 0, sms = 0, coop = 0, max_smem = 0;
@@ -561,10 +616,11 @@ int launch_vmem(VmemArgs a, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  void (*kern)(const VmemArgs) = som_vmem_steps_kernel<NT, MT>;
+  void (*kern)(const VmemArgs) = som_vmem_steps_kernel<NT, MT, kPasses>;
   const int ntiles = (a.noc + L::R - 1) / L::R;
+  const int dtf = kPasses ? L::dtf(a.D) : L::DT;
   for (int T = 1; T <= ntiles; ++T) {
-    const size_t smem = L::bytes(T, a.B);
+    const size_t smem = L::bytes(T, a.B, dtf);
     if (smem > (size_t)max_smem) break;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
@@ -585,24 +641,62 @@ int launch_vmem(VmemArgs a, cudaStream_t stream) {
 }
 
 // R = rows per CTA: 16, 32, 64 or 128 (not past D 128)
-template <int NT>
+template <int NT, bool kPasses = false>
 int launch_rows(int rows, const VmemArgs& a, cudaStream_t stream) {
-  if (rows == 16) return launch_vmem<NT, 1>(a, stream);
-  if (rows == 32) return launch_vmem<NT, 2>(a, stream);
-  if (rows == 64) return launch_vmem<NT, 4>(a, stream);
+  if (rows == 16) return launch_vmem<NT, 1, kPasses>(a, stream);
+  if (rows == 32) return launch_vmem<NT, 2, kPasses>(a, stream);
+  if (rows == 64) return launch_vmem<NT, 4, kPasses>(a, stream);
   if constexpr (NT <= 16) {
-    if (rows == 128) return launch_vmem<NT, 8>(a, stream);
+    if (rows == 128) return launch_vmem<NT, 8, kPasses>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// VmemSmem<NT, MT>::bytes of one tile a CTA at `rows` rows, B samples and D
+// features (the feature passes' instantiation past 256); -1 for a height
+// that is not built
+template <class L>
+int one_tile_bytes(int B, int D) {
+  return (int)L::bytes(1, B, n_passes(D) > 1 ? L::dtf(D) : (int)L::DT);
+}
+
+template <int NT>
+int smem_rows(int rows, int B, int D) {
+  if (rows == 16) return one_tile_bytes<VmemSmem<NT, 1>>(B, D);
+  if (rows == 32) return one_tile_bytes<VmemSmem<NT, 2>>(B, D);
+  if (rows == 64) return one_tile_bytes<VmemSmem<NT, 4>>(B, D);
+  if constexpr (NT <= 16) {
+    if (rows == 128) return one_tile_bytes<VmemSmem<NT, 8>>(B, D);
+  }
+  return -1;
+}
+
 }  // namespace
+
+// The shared memory (bytes) of K7's CTA of `rows` rows owning one tile, at
+// B samples and D features: ops.som_vmem.k7_rows passes over a height that
+// does not fit.  -1 for a height that is not built at this D
+extern "C" int somvq_vmem_smem_bytes(int rows, int B, int D) {
+  if (B <= 0 || D <= 0) return -1;
+  const int k8 = (D + 7) / 8;
+  int NT = 1;
+  while (NT < k8 && NT < 32) NT *= 2;
+  switch (NT) {
+    case 1: return smem_rows<1>(rows, B, D);
+    case 2: return smem_rows<2>(rows, B, D);
+    case 4: return smem_rows<4>(rows, B, D);
+    case 8: return smem_rows<8>(rows, B, D);
+    case 16: return smem_rows<16>(rows, B, D);
+    default: return smem_rows<32>(rows, B, D);
+  }
+}
 
 // codes (noc, D) float32, updated in place; batches (K, B, D), tail (B, D):
 // the winners' last batch; rows: R; xs: scratch for the split batches,
-// 2 (K + 1) Bp DP floats (B rounded up to a multiple of 64, DP 8 times the
-// power of two of 8-feature steps that covers D); keys: (3 B) u64; bar: two
-// zeroed words
+// 2 (K + 1) Bp W floats (B rounded up to a multiple of 64, W =
+// ops.som_step.split_width(D): 8 times the power of two of 8-feature steps
+// that covers D, 256 n_passes(D) past 256); keys: (3 B) u64; bar: two zeroed
+// words
 extern "C" int somvq_som_vmem_steps(float* codes, int noc, int D,
                                     const float* batches, int K, int B,
                                     const int* bmu0, const float* alphas,
@@ -611,20 +705,21 @@ extern "C" int somvq_som_vmem_steps(float* codes, int noc, int D,
                                     float* xs, unsigned long long* keys,
                                     unsigned int* bar, int* bmu_out,
                                     cudaStream_t stream) {
-  if (noc <= 0 || D <= 0 || D > MAX_D || K <= 0 || B <= 0 || xdim <= 0 || !xs)
+  if (noc <= 0 || D <= 0 || K <= 0 || B <= 0 || xdim <= 0 || !xs)
     return (int)cudaErrorInvalidValue;
   const int k8 = (D + 7) / 8;
   int NT = 1;
-  while (NT < k8) NT *= 2;
-  const int DP = 8 * NT, Bp = (B + 63) / 64 * 64;
-  const int64_t n = (int64_t)(K + 1) * Bp * DP;
+  while (NT < k8 && NT < 32) NT *= 2;
+  const int DP = 8 * NT, NP = n_passes(D), Bp = (B + 63) / 64 * 64;
+  const int64_t n = (int64_t)(K + 1) * Bp * DP * NP;
   split_group_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      batches, K, B, tail, D, DP, Bp, xs);
+      batches, K, B, tail, D, DP, NP, Bp, xs);
   const int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const VmemArgs a{codes, noc,  D,     xs,       K,        B,       bmu0,
                    alphas, radii, xdim, hexa,    gaussian, 0,       keys,
                    bar,    bmu_out};
+  if (NP > 1) return launch_rows<32, true>(rows, a, stream);
   switch (NT) {
     case 1: return launch_rows<1>(rows, a, stream);
     case 2: return launch_rows<2>(rows, a, stream);

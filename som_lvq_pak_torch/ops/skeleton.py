@@ -30,7 +30,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import MAX_D, k3_route, sm90_scratch
+from .som_step import k3_route, sm90_scratch
 
 
 def _check(codes, w, x, xn) -> str:
@@ -52,9 +52,6 @@ def _check(codes, w, x, xn) -> str:
     dev = codes.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {codes.device}")
-    if dev == "cuda" and D > MAX_D:
-        raise ValueError(f"fused_step_skeleton: D={D} > {MAX_D}, the widest the "
-                         "CUDA kernel takes")
     return dev
 
 

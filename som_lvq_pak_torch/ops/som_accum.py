@@ -29,7 +29,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import MAX_D, _split_scratch, neighborhood_w
+from .som_step import _split_scratch, neighborhood_w
 
 
 def som_neighborhood_accumulate_plain(xb, bmu, n_local, xdim, hexa, alpha,
@@ -78,8 +78,6 @@ def som_neighborhood_accumulate(
                                                  unit_offset)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if D > MAX_D:
-        raise ValueError(f"som_neighborhood_accumulate: D={D} > {MAX_D}")
     xb = xb.contiguous()
     xs = _split_scratch(B, 0, D, dev)
     acc = torch.empty((n_local, D), dtype=torch.float32, device=dev)

@@ -28,7 +28,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import MAX_D, _split_scratch, guarded_blend
+from .som_step import _split_scratch, guarded_blend
 
 
 def som_blend_winner_plain(codes, acc, wsum, xn):
@@ -67,8 +67,6 @@ def som_blend_winner(codes: torch.Tensor, acc: torch.Tensor,
         return som_blend_winner_plain(codes, acc, wsum, xn)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if D > MAX_D:
-        raise ValueError(f"som_blend_winner: D={D} > {MAX_D}")
     acc, wsum, xn = acc.contiguous(), wsum.contiguous(), xn.contiguous()
     Bn = xn.shape[0]
     xs = _split_scratch(0, Bn, D, dev)

@@ -9,10 +9,12 @@ kernels, each a hand-written CUDA kernel here:
   closed form, winners in distance form; both contractions on the tensor
   cores as split-TF32 products (float32 accuracy, csrc/tf32x3.cuh), the
   two kernels bit-equal;
-- K13 `som_fused_factored_step` (csrc/som_fused_factored.cu): the separable
-  kernel (`_som_fused_factored_kernel`), W = Wx(column, row parity) *
-  Wy(row) from tables, winners in max-score form; K3's tensor-core body
-  (csrc/fused_step_tc.cuh) with W read from the tables;
+- K13 `som_fused_factored_step` (csrc/som_fused_factored_sm90.cu for D <=
+  128, K3's Hopper walk with W built from the tables; csrc/som_fused_factored.cu
+  past it, `k13_route`): the separable kernel (`_som_fused_factored_kernel`),
+  W = Wx(column, row parity) * Wy(row) from tables, winners in max-score
+  form; past D 128 K3's tensor-core body (csrc/fused_step_tc.cuh) with W read
+  from the tables; the two bit-equal;
 - K14 `som_fused_factored_chunked_step` (csrc/som_fused_chunked_tc.cuh and
   the same source): the batch-chunked kernel
   (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
@@ -44,7 +46,12 @@ JAX wrapper's plain path does.
 64 for D > 128), by `k13_rows` (K13: 128, or 64 up to 128x128) or by
 `k14_rows` (K14: 64, or 32 under `stagger` past D 128), and the result
 depends on it only through the float32 order of additions.  The
-port keeps D unpadded, so the JAX `d_real` has no counterpart.
+port keeps D unpadded, so the JAX `d_real` has no counterpart.  The kernels
+take any D >= 1: past PASS_D (256) features, the widest they instantiate,
+they run in `feature_passes(D)` passes of 256 within one launch (the update
+and blend slab by slab, the winners' scores summed over the slabs in a fixed
+order), so a bf16 codebook there needs a float32 copy of its blended rows
+(`_rows32`).
 
 The codebook is updated IN PLACE (the caller owns the resident codebook;
 this saves a second codebook-sized buffer per step) and returned.  It is
@@ -86,7 +93,9 @@ import torch
 from .. import _build
 from .distance import fp32_matmul
 
-MAX_D = 256  # widest feature dimension the CUDA kernels take
+# features per pass of the SOM step kernels (K3, K5-K7, K11-K14, K17): their
+# widest instantiation; a wider D runs in feature_passes(D) passes of PASS_D
+PASS_D = 256
 _SQRT075 = math.sqrt(0.75)
 
 
@@ -205,14 +214,15 @@ def som_fused_train_step_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha,
     return codes, idx.to(torch.int32), val
 
 
-def separable_w(bmu: torch.Tensor, alpha: torch.Tensor, radius: torch.Tensor,
-                noc: int, xdim: int, hexa: bool, gaussian: bool,
-                wxa_bf16: bool = False) -> torch.Tensor:
-    """(noc, B) weights of the separable kernels (pallas_som.py:791-858):
-    the x-pattern over (row parity, column) and the per-grid-row y-factor,
-    with s = 1 / (2 r r); gaussian (alpha exp(-dx^2 s)) * exp(-dy^2 s), the
-    x-pattern rounded to bf16 with `wxa_bf16`; bubble alpha where dx^2 +
-    dy^2 <= r^2.  0 where bmu < 0 (the TPU kernels are never given one)."""
+def separable_tables(bmu: torch.Tensor, alpha: torch.Tensor, radius: torch.Tensor,
+                      noc: int, xdim: int, hexa: bool, gaussian: bool,
+                      wxa_bf16: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The separable kernels' tables (csrc/separable_w.cuh:
+    factored_tables_kernel): the x-pattern (2 xdim rows, hexa, or xdim; row
+    parity * xdim + column, B), the y-factor (grid rows, B) and alpha (0
+    where bmu < 0); gaussian alpha exp(-dx^2 s) (bf16-rounded with
+    `wxa_bf16`) and exp(-dy^2 s), bubble dx^2 and dy^2, s = 1 / (2 r r)."""
     dev = bmu.device
     ok = bmu >= 0
     bm = torch.where(ok, bmu, torch.zeros_like(bmu))
@@ -232,13 +242,33 @@ def separable_w(bmu: torch.Tensor, alpha: torch.Tensor, radius: torch.Tensor,
     dy2 = (rd * rd) * 0.75 if hexa else rd * rd
     if gaussian:
         pat = a[None, :] * torch.exp(-dx2 * s)
-        pat, ytab = (_bf16(pat) if wxa_bf16 else pat), torch.exp(-dy2 * s)
-    else:
-        pat, ytab = dx2, dy2
-    u = torch.arange(noc, device=dev)
+        return (_bf16(pat) if wxa_bf16 else pat), torch.exp(-dy2 * s), a
+    return dx2, dy2, a
+
+
+def separable_rows(noc: int, xdim: int, hexa: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each unit's x-pattern row (row parity * xdim + column on a hexa map,
+    the column on a rect one) and y-factor row (its grid row): the rows of
+    `separable_tables` the kernels read for it (csrc/separable_w.cuh:
+    SeparableW::init, csrc/som_fused_factored_sm90.cu's walk)."""
+    u = torch.arange(noc)
     row = u // xdim
-    wx = pat[(row % 2) * xdim + u % xdim if hexa else u % xdim]
-    wy = ytab[row]
+    return ((row % 2) * xdim + u % xdim if hexa else u % xdim), row
+
+
+def separable_w(bmu: torch.Tensor, alpha: torch.Tensor, radius: torch.Tensor,
+                noc: int, xdim: int, hexa: bool, gaussian: bool,
+                wxa_bf16: bool = False) -> torch.Tensor:
+    """(noc, B) weights of the separable kernels (pallas_som.py:791-858):
+    the x-pattern over (row parity, column) and the per-grid-row y-factor,
+    with s = 1 / (2 r r); gaussian (alpha exp(-dx^2 s)) * exp(-dy^2 s), the
+    x-pattern rounded to bf16 with `wxa_bf16`; bubble alpha where dx^2 +
+    dy^2 <= r^2.  0 where bmu < 0 (the TPU kernels are never given one)."""
+    pat, ytab, a = separable_tables(bmu, alpha, radius, noc, xdim, hexa, gaussian,
+                                    wxa_bf16)
+    prow, yrow = (r.to(bmu.device) for r in separable_rows(noc, xdim, hexa))
+    wx, wy = pat[prow], ytab[yrow]
     if gaussian:
         return wx * wy
     return torch.where(wx + wy <= radius * radius, a[None, :],
@@ -430,9 +460,8 @@ def _step_args(codes, xb, bmu, xb_next, alpha):
     aw = aw.expand(B).contiguous() if aw.dim() == 0 else aw.contiguous()
     if aw.shape != (B,):
         raise ValueError(f"alpha must be a scalar or ({B},)")
-    if dev.type == "cuda" and D > MAX_D:
-        raise ValueError(f"som_fused_train_step: D={D} > {MAX_D}, the "
-                         "widest the CUDA kernels take")
+    if dev.type == "cuda" and D < 1:
+        raise ValueError(f"som_fused_train_step: D={D}, the kernels take D >= 1")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return bmu.to(torch.int32).contiguous(), aw
@@ -473,18 +502,49 @@ def som_fused_factored_chunked_step(codes, xb, bmu, xb_next, xdim, hexa,
 def _split_scratch(B: int, Bn: int, D: int, dev, planes: int = 2) -> torch.Tensor:
     """Scratch for the tensor-core steps' batches split once per step
     (csrc/fused_step_tc.cuh:split_batches_kernel): the hi and lo parts
-    (`planes` 2; one plane of bf16 values under K14's batch_bf16) of (B, DP)
-    and (Bn, DP), rows rounded up to a multiple of 64, DP = 8 times the power
-    of two of 8-feature steps that covers D."""
+    (`planes` 2; one plane of bf16 values under K14's batch_bf16) of (B, W)
+    and (Bn, W), rows rounded up to a multiple of 64, W = split_width(D)
+    (past PASS_D the passes' slabs side by side: `split_scratch_floats`)."""
+    return torch.empty((split_scratch_floats(B, Bn, D, planes),),
+                       dtype=torch.float32, device=dev)
+
+
+def split_scratch_floats(B: int, Bn: int, D: int, planes: int = 2) -> int:
+    """The floats of `_split_scratch`: `planes` planes of each batch, rows
+    rounded up to 64, split_width(D) features each (each pass's slab of
+    DP features in turn, the planes of one slab together)."""
     rows = (-(-B // 64) + -(-Bn // 64)) * 64
-    return torch.empty((planes * rows * split_width(D),), dtype=torch.float32,
-                       device=dev)
+    return planes * rows * split_width(D)
+
+
+def feature_passes(D: int) -> Tuple[int, int]:
+    """(passes, DP) of the SOM step kernels for D features: one pass of DP =
+    8 times the power of two of 8-feature steps that covers D, up to PASS_D;
+    past it ceil(D / PASS_D) passes of PASS_D features, the last padded with
+    zeros (csrc/som_grid.cuh: n_passes)."""
+    if D < 1:
+        raise ValueError(f"the SOM step kernels take D >= 1, got {D}")
+    if D <= PASS_D:
+        return 1, 8 * (1 << (-(-D // 8) - 1).bit_length())
+    return -(-D // PASS_D), PASS_D
 
 
 def split_width(D: int) -> int:
-    """DP, the width of the tensor-core steps' split rows: 8 times the power
-    of two of 8-feature steps that covers D."""
-    return 8 * (1 << (-(-D // 8) - 1).bit_length())
+    """The width of the tensor-core steps' split rows: DP, 8 times the power
+    of two of 8-feature steps that covers D, or past PASS_D the passes' slabs
+    together (passes x PASS_D)."""
+    passes, dp = feature_passes(D)
+    return passes * dp
+
+
+def _rows32(codes: torch.Tensor) -> Optional[torch.Tensor]:
+    """The float32 copy of a bf16 codebook's blended rows that the step
+    kernels' winners read past PASS_D features (their feature passes read the
+    rows back slab by slab, and a bf16 codebook holds only the rounded rows);
+    None where the kernel does not read it."""
+    if codes.dtype == torch.bfloat16 and codes.shape[1] > PASS_D:
+        return torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    return None
 
 
 def k13_rows(noc: int, D: int, device: torch.device) -> int:
@@ -530,7 +590,7 @@ def k14_walk_smem_bytes(D: int, rows: int, int8_win: bool, batch_bf16: bool,
     staging.  A mirror of the C layout, to check that every D fits."""
     def c32(n):
         return -(-n // 32) * 32
-    planes, dp, bc = (1 if batch_bf16 else 2), split_width(D), 32
+    planes, dp, bc = (1 if batch_bf16 else 2), feature_passes(D)[1], 32
     dsu, dt, xw = c32(dp) + 8, c32(dp) + 4, max(dp, 32) // 4 + 4
     bw = INT8_WIN_CHUNK if int8_win else 32
     slot = max(planes * bc * dsu, bw * xw if int8_win else planes * bw * dt)
@@ -548,7 +608,8 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     on the CPU): K14's main form, or its walk under `stagger` or `int8_win`,
     counted as the module docstring says.  One scratch buffer holds the
     winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc / xdim), B)
-    and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16); another the
+    and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16), their rows B
+    padded to a multiple of 64 for K13's walk; another the
     split batches (x' not split under int8_win); under int8_win the quantized
     next batch, padded by `int8_win_staged`, and its scales come from
     `int8_win_inputs`, on the device."""
@@ -565,16 +626,29 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     noc, D = codes.shape
     B, Bn = xb.shape[0], xb_next.shape[0]
     n_pat = 2 * xdim if hexa else xdim
-    words = [2 * Bn, B, -(-noc // xdim) * B]  # float32 words before the pattern
+    sm90 = not chunked and k13_route(D) == "sm90"
+    ld = -(-B // 64) * 64 if sm90 else B  # the tables' rows (padded for K13's walk)
+    words = [2 * Bn, ld, -(-noc // xdim) * ld]  # float32 words before the pattern
     offs = [4 * sum(words[:k]) for k in range(4)]
-    pat_words = -(-n_pat * B // 2) if wxa_bf16 else n_pat * B
+    pat_words = -(-n_pat * ld // 2) if wxa_bf16 else n_pat * ld
     scratch = torch.empty((sum(words) + pat_words,), dtype=torch.float32,
                           device=dev)
     keys, aw_eff, ytab, pat = (scratch.data_ptr() + o for o in offs)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
-    xb, xn = xb.contiguous(), xb_next.contiguous()
     walk = chunked and bool(stagger or int8_win)
+    rows32 = _rows32(codes)
+    xb, xn = xb.contiguous(), xb_next.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if sm90:
+        xs = sm90_scratch(B, Bn, D, dev, table=False)
+        _build.call("somvq_som_fused_factored_sm90", codes.data_ptr(),
+                    int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
+                    bmu.data_ptr(), aw.data_ptr(), B, xn.data_ptr(), Bn, int(xdim),
+                    int(bool(hexa)), int(bool(gaussian)), float(radius), xs.data_ptr(),
+                    pat, ytab, aw_eff, keys, val.data_ptr(), idx.data_ptr(), stream)
+        som_fused_factored_step.launches += 1
+        return codes, idx, val
     if chunked:
         xs = _split_scratch(B, 0 if int8_win else Bn, D, dev, 1 if batch_bf16 else 2)
         rows = k14_rows(D, bool(stagger))
@@ -589,7 +663,7 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
                 xs.data_ptr(), xq.data_ptr() if int8_win else None,
                 q.data_ptr() if int8_win else None, pat, ytab, aw_eff, keys,
                 val.data_ptr(), idx.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                rows32.data_ptr() if rows32 is not None else None, stream)
     if not walk:
         wrapper = som_fused_factored_chunked_step if chunked else som_fused_factored_step
         wrapper.launches += 1
@@ -665,11 +739,20 @@ SM90_MAX_D = 128
 def k3_route(D: int) -> str:
     """K3's kernel for D features, a route by shape: "sm90", the Hopper walk
     (csrc/fused_step_sm90.cu: TMA ring, wgmma TF32), up to SM90_MAX_D;
-    "mma_sync" (csrc/som_fused_step.cu) past it, up to MAX_D.  Both give the
-    same floats; K17 (ops.skeleton) routes by the same rule."""
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"K3 takes 1 <= D <= {MAX_D}, got {D}")
+    "mma_sync" (csrc/som_fused_step.cu) past it, at any D (in feature passes
+    past PASS_D).  Both give the same floats; K17 (ops.skeleton) routes by the
+    same rule."""
+    if D < 1:
+        raise ValueError(f"K3 takes D >= 1, got {D}")
     return "sm90" if D <= SM90_MAX_D else "mma_sync"
+
+
+def k13_route(D: int) -> str:
+    """K13's kernel for D features, K3's rule (`k3_route`): "sm90", K3's
+    Hopper walk with the separable W (csrc/som_fused_factored_sm90.cu), up to
+    SM90_MAX_D; "mma_sync" (csrc/som_fused_factored.cu) past it, at any D.
+    Both give the same floats."""
+    return k3_route(D)
 
 
 def sm90_width(D: int) -> int:
@@ -685,7 +768,9 @@ def sm90_scratch(B: int, Bn: int, D: int, dev, planes: int = 2,
     """Scratch of the Hopper walk's prologue (csrc/fused_step_sm90.cuh:
     split_sm90_kernel): `planes` planes of the batch transposed, (DP, Bp),
     and of the next batch, (Bnp, DP), then with `table` K3's per-sample
-    float4 table (Bp,); Bp and Bnp are B and Bn rounded up to 64."""
+    float4 table (Bp,); Bp and Bnp are B and Bn rounded up to 64.  K13 on
+    the walk takes no table (its W comes from the step's tables), K17 none
+    either."""
     Bp, Bnp = -(-B // 64) * 64, -(-Bn // 64) * 64
     n = planes * sm90_width(D) * (Bp + Bnp) + (4 * Bp if table else 0)
     return torch.empty((n,), dtype=torch.float32, device=dev)
@@ -709,14 +794,16 @@ def _fused_step_k3(codes, xb, bmu, xb_next, xdim, hexa, aw, radius, gaussian,
     keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
+    args = [codes.data_ptr(), int(codes.dtype == torch.bfloat16), codes.shape[0],
+            codes.shape[1], xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B,
+            xn.data_ptr(), Bn, int(xdim), int(bool(hexa)), int(bool(gaussian)),
+            float(radius), int(unit_offset), xs.data_ptr(), keys.data_ptr(),
+            val.data_ptr(), idx.data_ptr()]
+    if not sm90:
+        rows32 = _rows32(codes)
+        args.append(rows32.data_ptr() if rows32 is not None else None)
     _build.call("somvq_som_fused_step_sm90" if sm90 else "somvq_som_fused_step",
-                codes.data_ptr(),
-                int(codes.dtype == torch.bfloat16), codes.shape[0],
-                codes.shape[1], xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(),
-                B, xn.data_ptr(), Bn, int(xdim), int(bool(hexa)),
-                int(bool(gaussian)), float(radius), int(unit_offset),
-                xs.data_ptr(), keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                *args, torch.cuda.current_stream(dev).cuda_stream)
     som_fused_train_step.launches += 1
     return codes, idx, val
 

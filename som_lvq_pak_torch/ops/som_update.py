@@ -36,7 +36,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul, keep_of, mask_bytes
-from .som_step import MAX_D, _split_scratch, guarded_blend, neighborhood_w
+from .som_step import _split_scratch, guarded_blend, neighborhood_w
 
 
 def som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa, alpha,
@@ -84,9 +84,6 @@ def _prepare(codes, xb, bmu, alpha, mask):
         raise ValueError(f"alpha must be a scalar or ({B},)")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and codes.shape[1] > MAX_D:
-        raise ValueError(f"som_neighborhood_update_idx: D={codes.shape[1]} > "
-                         f"{MAX_D}, the widest the CUDA kernel takes")
     return bmu.to(torch.int32).contiguous(), aw
 
 

@@ -35,7 +35,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from .. import _build
-from .som_step import MAX_D, som_fused_train_step_plain, split_width
+from .som_step import feature_passes, som_fused_train_step_plain, split_width
 
 
 def _schedules(alphas, radii, K: int, B: int, dev: torch.device):
@@ -51,19 +51,27 @@ def _schedules(alphas, radii, K: int, B: int, dev: torch.device):
     return aw, rr
 
 
-def k7_rows(noc: int, D: int, device: torch.device) -> int:
+def k7_rows(noc: int, D: int, device: torch.device, B: int = 1) -> int:
     """K7's codebook rows per CTA (csrc/som_vmem_steps.cu builds 16, 32, 64
     and 128, 128 not past D 128): the fewest that keep the grid within one
     CTA per SM.  Each 16-row m-tile's work is split over up to four warps,
     and every CTA walks the whole batch every step, so more CTAs than SMs
     only add walks: on an H100 32 rows (128 CTAs) led at 4096 x D 64 and 64
     rows (128 CTAs) at 8192 x D 128 (chip_smoke.py's k7_rows lines;
-    PERF.md)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    PERF.md).  A height whose resident rows (whole rows: past 256 features
+    every pass's slab) and step region do not fit in shared memory at B
+    samples (the C layout's count, `somvq_vmem_smem_bytes`) is passed over
+    for a lower one."""
+    props = torch.cuda.get_device_properties(device)
+    optin = props.shared_memory_per_block_optin
+    smem = _build.library().somvq_vmem_smem_bytes
+
+    def fits(rows):
+        return 0 < smem(rows, B, D) <= optin
     for rows in (16, 32, 64):
-        if -(-noc // rows) <= sms:
+        if -(-noc // rows) <= props.multi_processor_count and fits(rows):
             return rows
-    return 64 if D > 128 else 128
+    return next((rows for rows in (64 if D > 128 else 128, 64, 32) if fits(rows)), 16)
 
 
 def chain_steps(step, codes, batches, bmu0, alphas, radii, xdim, hexa,
@@ -132,14 +140,11 @@ def som_vmem_train_steps(
                                           hexa, gaussian, next_first)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if D > MAX_D:
-        raise ValueError(f"som_vmem_train_steps: D={D} > {MAX_D}, the widest "
-                         "the CUDA kernel takes")
     batches = batches.contiguous()
     aw = aw.contiguous()
     tail = (batches[-1] if next_first is None else next_first).contiguous()
     # the K batches and the tail split into hi and lo: (K + 1) x 2 planes of
-    # (B rounded up to 64, DP)
+    # (B rounded up to 64, split_width(D)), past 256 features slab by slab
     xs = torch.empty((2 * (K + 1) * -(-B // 64) * 64 * split_width(D),),
                      dtype=torch.float32, device=dev)
     keys = torch.empty((3 * B,), dtype=torch.int64, device=dev)  # 3 key buffers
@@ -148,7 +153,7 @@ def som_vmem_train_steps(
     _build.call("somvq_som_vmem_steps", codes.data_ptr(), noc, D,
                 batches.data_ptr(), K, B, bmu0.data_ptr(), aw.data_ptr(),
                 rr.data_ptr(), tail.data_ptr(), int(xdim), int(bool(hexa)),
-                int(bool(gaussian)), k7_rows(noc, D, dev), xs.data_ptr(),
+                int(bool(gaussian)), k7_rows(noc, D, dev, B), xs.data_ptr(),
                 keys.data_ptr(), bar.data_ptr(), bmu_next.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     som_vmem_train_steps.launches += 1

@@ -364,15 +364,24 @@ def _pad_rows(x: torch.Tensor, rows: int, width: int) -> torch.Tensor:
     return out
 
 
-def split_batches_plain(xb: torch.Tensor, xn: torch.Tensor, DP: int) -> torch.Tensor:
+def split_batches_plain(xb: torch.Tensor, xn: torch.Tensor, DP: int,
+                        planes: int = 2) -> torch.Tensor:
     """The mma.sync steps' prologue (csrc/fused_step_tc.cuh:
     split_batches_kernel) as it fills its scratch: xb hi, xb lo as (Bp, DP),
     then xn hi, xn lo as (Bnp, DP), B and Bn rounded up to 64, zeros past D
-    and past each batch."""
+    and past each batch; planes 1 (K14's batch_bf16): each value rounded to
+    bf16, one plane.  Past DP features (the feature passes) each batch is its
+    slabs of DP features in turn, each slab's planes together."""
     Bp, Bnp = -(-xb.shape[0] // 64) * 64, -(-xn.shape[0] // 64) * 64
+    D = xb.shape[1]
+    slabs = max(1, -(-D // DP))
     parts = []
     for x, rows in ((xb, Bp), (xn, Bnp)):
-        parts += tf32_split(_pad_rows(x, rows, DP))
+        full = _pad_rows(x, rows, slabs * DP)
+        for s in range(slabs):
+            slab = full[:, s * DP:(s + 1) * DP]
+            parts += ([slab.to(torch.bfloat16).to(torch.float32)] if planes == 1
+                      else list(tf32_split(slab)))
     return torch.cat([p.reshape(-1) for p in parts])
 
 

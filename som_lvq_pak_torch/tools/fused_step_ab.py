@@ -1,8 +1,10 @@
 """The tensor-core fused steps and their skeleton, timed side by side on one
 tree, with a digest of every output so that two trees can be held bit for
 bit against each other: K3 (csrc/fused_step_sm90.cu, the Hopper walk, for D
-<= 128; csrc/som_fused_step.cu past it), K13 and K14's main form (on
-csrc/fused_step_tc.cuh), K17 (csrc/fused_skeleton_sm90.cu, K3's walk;
+<= 128; csrc/som_fused_step.cu past it), K13 (csrc/som_fused_factored_sm90.cu,
+K3's walk, for D <= 128; csrc/som_fused_factored.cu past it), K14's main form
+(on csrc/fused_step_tc.cuh; past 256 features every fused-step kernel runs in
+feature passes), K17 (csrc/fused_skeleton_sm90.cu, K3's walk;
 csrc/fused_skeleton.cu past D 128) and the winner walks K4 (masked,
 csrc/argmin_masked_sm90.cu), K8 (csrc/argmin_sm90.cu) and K10
 (csrc/dist_topk.cu, at k 2 and 8).
@@ -19,9 +21,12 @@ seed 4 (codes, both batches and the per-sample alphas from `randn`/`rand`,
 the BMUs from `dist_argmin_plain`, seven samples without one).  For each
 kernel: the mean milliseconds per step over `iters` steps after a warm-up
 (CUDA events), and the SHA-256 of its updated codebook, winners and values
-from one step on fresh inputs; for K3 also the digests of a step on the
-codebook rounded to bf16 ("k3_digest_bf16") and of one taking the rows as a
-model-axis shard from unit 64 ("k3_digest_offset").  For each skeleton case (N, D, T, B, B',
+from one step on fresh inputs; for K3 (and K13) also the digests of a step on
+the codebook rounded to bf16 ("k3_digest_bf16", "k13_digest_bf16") and for K3
+of one taking the rows as a model-axis shard from unit 64
+("k3_digest_offset").  A kernel a tree refuses
+(a tree whose kernels stop at D 256, at the D 300 and 512 cases) gets "not
+runnable: " and the refusal in place of its digest and ms.  For each skeleton case (N, D, T, B, B',
 float32 or bf16): K17 (`fused_step_skeleton`) on bench.py:prep_skeleton's
 inputs from seed 6, the SHA-256 of its out and vmax at scale 1.0 (where the
 accumulation shows) and its ms at the bench's 1e-30.  For each winner case
@@ -33,22 +38,26 @@ digests mean the same floats.  Prints one JSON line.  `device="cpu"` runs
 the plain versions, timed by the host clock (a CPU time, never a device
 number).
 
-`--walk-variants` (a card and nvcc): where K3's Hopper walk spends its time.
-Copies of csrc/ with the walk's source edited (`walk_variant_sources`) are
-built by nvcc into `som_lvq_pak_torch/_build/step_ab/` (git-ignored) and
-timed in turns, K3 at 256x256, B 4096, D 64 (gaussian, hexa, radius 64),
-whole and with each contraction nearly alone (B' 64: the update; B 32: the
-winners), and K17 at its bench shape:
+`--walk-variants` (a card and nvcc): where K3's and K13's Hopper walk spends
+its time.  Copies of csrc/ with the walk's sources edited
+(`walk_variant_sources`, `k13_variant_sources`) are built by nvcc into
+`som_lvq_pak_torch/_build/step_ab/` (git-ignored) and timed in turns, K3 at
+256x256, B 4096, D 64 (gaussian, hexa, radius 64), whole and with each
+contraction nearly alone (B' 64: the update; B 32: the winners), K13 at its
+main-path shape, 128x128, B 1024, D 64 (gaussian, hexa, radius 32), and K17
+at its bench shape:
 
 * `walk`: the source as it is;
 * `no_w`: K3's W value replaced by the sample's alpha (no grid distance, no
-  division, no expf; the table read and every product stay);
+  division, no expf; the table read and every product stay); K13's table
+  entries replaced by 1 (no table read from L2; the products stay);
 * `no_feed`: the producer loads each phase's first ring-full of chunks and
   only arms the barriers after, so the products read stale slots: the L2
   feed alone removed;
-* `no_fold`: K3's winner fold cut to a sum of the scores folded once a
-  chunk (a product whose sums nothing reads would be dropped by ptxas, so
-  the sums stay read);
+* `no_fold`: K3's and K13's winner fold (their call of fused_step_sm90.cuh's
+  argmin_fold) cut to a sum of the scores folded once a chunk (a product
+  whose sums nothing reads would be dropped by ptxas, so the sums stay
+  read);
 * `no_turns`: the two consumer warpgroups issue their products without
   taking turns.
 
@@ -79,8 +88,9 @@ from ..ops.som_step import (som_fused_factored_chunked_step, som_fused_factored_
 from .timing import mean_ms, resolve
 
 # (xdim, ydim, hexa, gaussian, B, D, radius, K13 too): the 1M cell's step,
-# K13's main-path shapes, and K3's D 5, ragged D 37 and D 200 cases; K14 runs
-# where K13 does and B is a multiple of 128 (its batch chunk)
+# K13's main-path shapes, and K3's D 5, ragged D 37 and D 200 cases, then D
+# 300 and 512 (the feature passes: a full slab and a ragged one, two full
+# ones); K14 runs where K13 does and B is a multiple of 128 (its batch chunk)
 CASES = ((256, 256, True, True, 4096, 64, 64.0, False),
          (128, 128, True, True, 1024, 64, 32.0, True),
          (64, 64, True, True, 512, 64, 16.0, True),
@@ -88,7 +98,9 @@ CASES = ((256, 256, True, True, 4096, 64, 64.0, False),
          (64, 64, True, False, 4096, 64, 16.0, True),
          (12, 8, True, False, 1000, 5, 3.0, True),
          (10, 6, True, True, 100, 37, 3.0, True),
-         (16, 16, False, True, 256, 200, 4.0, True))
+         (16, 16, False, True, 256, 200, 4.0, True),
+         (16, 16, True, True, 256, 300, 4.0, True),
+         (16, 16, True, False, 256, 512, 4.0, True))
 
 
 # (B, N, D) of the winner walks: the LVQ step, the masked 1M cell's step,
@@ -144,13 +156,26 @@ def run_case(xdim, ydim, hexa, gaussian, B, D, radius, k13, dev, iters=10) -> di
     out = dict(case=f"{xdim}x{ydim} {'hexa' if hexa else 'rect'} "
                     f"{'gaussian' if gaussian else 'bubble'} B {B} D {D}")
     args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
+
+    def digest(key, fn, *a, **kw):
+        try:
+            out[key] = _digest(fn(*a, **kw))
+        except ValueError as e:  # a tree that refuses the shape
+            out[key] = f"not runnable: {e}"
+        return not out[key].startswith("not runnable")
+
     for name, fn in kernels(B, k13):
-        out[f"{name}_digest"] = _digest(fn(codes.clone(), *args))
-        work = codes.clone()
-        out[f"{name}_ms"] = mean_ms(lambda: fn(work, *args), dev, iters)
-    # K3 on a bf16 codebook and as a model-axis shard (rows from unit 64)
-    out["k3_digest_bf16"] = _digest(_k3(codes.to(torch.bfloat16), *args))
-    out["k3_digest_offset"] = _digest(_k3(codes.clone(), *args, unit_offset=64))
+        if digest(f"{name}_digest", fn, codes.clone(), *args):
+            work = codes.clone()
+            out[f"{name}_ms"] = mean_ms(lambda: fn(work, *args), dev, iters)
+        else:
+            out[f"{name}_ms"] = out[f"{name}_digest"]
+    # K3 (and K13) on a bf16 codebook, K3 as a model-axis shard (rows from
+    # unit 64)
+    digest("k3_digest_bf16", _k3, codes.to(torch.bfloat16), *args)
+    if k13:
+        digest("k13_digest_bf16", som_fused_factored_step, codes.to(torch.bfloat16), *args)
+    digest("k3_digest_offset", _k3, codes.clone(), *args, unit_offset=64)
     return out
 
 
@@ -221,7 +246,7 @@ _TURN_LINES = (("__device__ __forceinline__ void await_turn(int wg) "
                ("__device__ __forceinline__ void pass_turn(int wg) "
                 "{ sm90::bar_arrive(TURN + (wg ^ 1), ALL); }\n",
                 "__device__ __forceinline__ void pass_turn(int) {}\n"))
-_FOLD_START = "    // the two samples' keys as folded so far, read first: the loads run\n"
+_FOLD_START = "    argmin_fold(S, n0, m2s, keys, Bn, r0, warp, lane);\n"
 _FOLD_END = "  });\n}\n"
 _NO_FOLD = """    float v = 0.f;
 #pragma unroll
@@ -254,26 +279,51 @@ def walk_variant_sources(step_src: str, walk_src: str) -> dict:
             "no_turns": (step_src, no_turns)}
 
 
-_WALK_ENTRIES = ("somvq_som_fused_step_sm90", "somvq_fused_skeleton_sm90")
+_K13_W_LINE = ("        const float wx = __ldg(pat + po[h] + s), "
+               "wy = __ldg(ytab + yo[h] + s);\n")
+
+
+def k13_variant_sources(k13_src: str, walk_texts: dict) -> dict:
+    """{variant: text of som_fused_factored_sm90.cu} for each of
+    WALK_VARIANTS, beside `walk_variant_sources`'s texts (whose header edits,
+    no_feed and no_turns, K13's walk shares): no_w reads no table, no_fold
+    folds as K3's no_fold; raises ValueError if the source no longer holds
+    the lines edited here."""
+    missing = [s for s in (_K13_W_LINE, _FOLD_START) if s not in k13_src]
+    if missing:
+        raise ValueError(f"K13's walk lacks the lines the variants edit: {missing}")
+    assert tuple(walk_texts) == WALK_VARIANTS
+    i = k13_src.index(_FOLD_START)
+    no_fold = k13_src[:i] + _NO_FOLD + k13_src[i + len(_FOLD_START):]
+    return {name: {"no_w": k13_src.replace(_K13_W_LINE,
+                                           "        const float wx = 1.f, wy = 1.f;\n"),
+                   "no_fold": no_fold}.get(name, k13_src) for name in WALK_VARIANTS}
+
+
+_WALK_ENTRIES = ("somvq_som_fused_step_sm90", "somvq_fused_skeleton_sm90",
+                 "somvq_som_fused_factored_sm90")
 
 
 def build_variants(out: str = VARIANT_OUT) -> dict:
-    """Each variant's copy of csrc/ built into a library of K3's and K17's
-    walks by one nvcc each, all started together; {variant: library}."""
+    """Each variant's copy of csrc/ built into a library of K3's, K13's and
+    K17's walks by one nvcc each, all started together; {variant: library}."""
     read = lambda f: open(os.path.join(_build.CSRC, f)).read()  # noqa: E731
     texts = walk_variant_sources(read("fused_step_sm90.cu"), read("fused_step_sm90.cuh"))
+    k13 = k13_variant_sources(read("som_fused_factored_sm90.cu"), texts)
     nvcc, procs = _build._nvcc(), []
     for name, (step_src, walk_src) in texts.items():
         d = os.path.join(out, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        for f, text in (("fused_step_sm90.cu", step_src), ("fused_step_sm90.cuh", walk_src)):
+        for f, text in (("fused_step_sm90.cu", step_src), ("fused_step_sm90.cuh", walk_src),
+                        ("som_fused_factored_sm90.cu", k13[name])):
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
         procs.append(_build._start([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
                                     os.path.join(d, "lib.so"),
                                     os.path.join(d, "fused_step_sm90.cu"),
-                                    os.path.join(d, "fused_skeleton_sm90.cu")],
+                                    os.path.join(d, "fused_skeleton_sm90.cu"),
+                                    os.path.join(d, "som_fused_factored_sm90.cu")],
                                    os.path.join(d, "nvcc.log")))
     _build._wait(procs)
     libs = {}
@@ -305,6 +355,31 @@ def _k3_call(lib, codes, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian):
         val.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"somvq_som_fused_step_sm90: CUDA error {rc}")
+    return codes, idx, val
+
+
+def _k13_call(lib, codes, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian):
+    """K13's C call on a variant's library, as ops.som_step's wrapper makes
+    it for D <= 128 (the walk): (codes, idx, val)."""
+    from ..ops.som_step import sm90_scratch
+
+    dev = codes.device
+    noc, D = codes.shape
+    B, Bn = xb.shape[0], xn.shape[0]
+    n_pat, ld = (2 * xdim if hexa else xdim), -(-B // 64) * 64  # the walk's padded rows
+    words = [2 * Bn, ld, -(-noc // xdim) * ld]  # keys, alpha, y-factor; then the pattern
+    scratch = torch.empty((sum(words) + n_pat * ld,), dtype=torch.float32, device=dev)
+    keys, aw, ytab, pat = (scratch.data_ptr() + 4 * sum(words[:k]) for k in range(4))
+    xs = sm90_scratch(B, Bn, D, dev, table=False)
+    val = torch.empty((Bn,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
+    rc = lib.somvq_som_fused_factored_sm90(
+        codes.data_ptr(), int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
+        bmu.data_ptr(), alpha.data_ptr(), B, xn.data_ptr(), Bn, xdim, int(hexa),
+        int(gaussian), float(radius), xs.data_ptr(), pat, ytab, aw, keys, val.data_ptr(),
+        idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_fused_factored_sm90: CUDA error {rc}")
     return codes, idx, val
 
 
@@ -355,6 +430,19 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
         for name in order:
             rec[name].append(mean_ms(lambda: _k3_call(libs[name], work, *a), dev, iters))
         ms[label] = rec
+    g = torch.Generator(device=dev).manual_seed(4)
+    c13 = torch.randn((128 * 128, D), generator=g, device=dev)
+    x13 = torch.randn((1024, D), generator=g, device=dev)
+    n13 = torch.randn((1024, D), generator=g, device=dev)
+    b13 = dist_argmin_plain(x13, c13)[1]
+    a13 = (x13, b13, n13, 128, True, alpha[:1024], 32.0, True)
+    matched13 = _digest(_k13_call(libs["walk"], c13.clone(), *a13)) == _digest(
+        som_fused_factored_step(c13.clone(), *a13))
+    work = c13.clone()
+    rec = {name: [] for name in WALK_VARIANTS}
+    for name in order:
+        rec[name].append(mean_ms(lambda: _k13_call(libs[name], work, *a13), dev, iters))
+    ms["k13 128x128 B 1024 D 64"] = rec
     sk = _skeleton_inputs(65536, 64, 256, 4096, None, False, dev)
     rec = {name: [] for name in ("walk", "no_feed", "no_turns")}
     for name in ("walk", "no_feed", "no_turns", "no_turns", "no_feed", "walk"):
@@ -363,7 +451,7 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    return dict(card=card, walk_bit_equal_to_wrapper=matched, ms=ms)
+    return dict(card=card, walk_bit_equal_to_wrapper=matched and matched13, ms=ms)
 
 
 def main(argv=None) -> int:

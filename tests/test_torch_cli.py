@@ -25,12 +25,14 @@ import os
 import shutil
 import sys
 import time
+import types
 
 import pytest
 
 from som_lvq_pak_tpu import cli as jcli
 from som_lvq_pak_tpu.cli.params import verbose as jverbose
 from som_lvq_pak_tpu.data.labels import GLOBAL_LABELS as JAX_LABELS
+from som_lvq_pak_tpu.utils import rng as jrng
 from som_lvq_pak_tpu.utils.snapshot import read_snapshots as jread_snapshots
 from som_lvq_pak_torch import cli as pcli
 from som_lvq_pak_torch import get_version
@@ -38,6 +40,7 @@ from som_lvq_pak_torch.cli import lvq_run as plvq_run
 from som_lvq_pak_torch.cli.params import verbose as pverbose
 from som_lvq_pak_torch.cli.usage import usage_text
 from som_lvq_pak_torch.data.labels import GLOBAL_LABELS
+from som_lvq_pak_torch.utils import rng as prng
 from som_lvq_pak_torch.utils.snapshot import read_snapshots
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -98,10 +101,24 @@ def _files(d):
     return out
 
 
+# the one wall-clock second both packages' CRandom.init_random(0) reads
+PINNED_CLOCK = 1_700_000_000.5
+
+
+def _pin_clock(monkeypatch):
+    """Seed 0 means the wall clock in both packages (`CRandom.init_random`
+    reads `time.time()`): pin the clock that both `utils/rng.py` modules see
+    to one value, so a tool run with no -rand seeds both CLIs alike even when
+    its two runs straddle a second."""
+    for mod in (jrng, prng):
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(time=lambda: PINNED_CLOCK))
+
+
 class Both:
     """Runs each tool through the JAX CLI in `tmp/jax` and the port's in
     `tmp/port` (the port with `device`, None leaving its default) and
-    asserts equal results and equal directories."""
+    asserts equal results and equal directories.  The clock both packages
+    seed from is pinned (`_pin_clock`) for the whole case."""
 
     def __init__(self, tmp, device, monkeypatch):
         self.jdir, self.pdir = str(tmp / "jax"), str(tmp / "port")
@@ -109,6 +126,7 @@ class Both:
         os.makedirs(self.pdir)
         self.kw = {} if device == "cuda" else {"device": device}
         self.mp = monkeypatch
+        _pin_clock(monkeypatch)
 
     def copy(self, *names):
         for name in names:
@@ -184,6 +202,24 @@ def test_driver_errors_equal_jax(argv, rc, text, tmp_path, monkeypatch):
     b = Both(tmp_path, "cpu", monkeypatch)
     _, out, err = b(*argv, rc=rc)
     assert text in out + err
+
+
+def test_pinned_clock_seeds_both_packages_alike(tmp_path, monkeypatch):
+    """Inside a `Both` case seed 0 draws the same stream in both packages,
+    from the pinned second, however much time passes between the two
+    draws; the seeded streams are untouched."""
+    Both(tmp_path, "cpu", monkeypatch)
+    draws = []
+    for mod in (jrng, prng, jrng):
+        r = mod.CRandom()
+        r.init_random(0)
+        draws.append([r.orand() for _ in range(8)])
+        time.sleep(0.01)
+    want = prng.CRandom(int(PINNED_CLOCK))
+    assert draws[0] == draws[1] == draws[2] == [want.orand() for _ in range(8)]
+    r, s = prng.CRandom(), prng.CRandom(123)
+    r.init_random(123)
+    assert [r.orand() for _ in range(4)] == [s.orand() for _ in range(4)]
 
 
 @pytest.mark.parametrize("name,warns", [("default", False), ("DEFAULT", False),

@@ -24,7 +24,7 @@ import torch
 
 from som_lvq_pak_tpu.ops import pallas_som as jps
 from som_lvq_pak_torch.ops.skeleton import k17_route
-from som_lvq_pak_torch.ops.som_step import (MAX_D, SM90_MAX_D, k3_route, sm90_scratch,
+from som_lvq_pak_torch.ops.som_step import (PASS_D, SM90_MAX_D, k3_route, sm90_scratch,
                                             sm90_width, split_width)
 from som_lvq_pak_torch.ops.tf32x3 import (fused_step_skeleton_tf32x3,
                                           som_fused_train_step_tf32x3, sm90_positions,
@@ -178,17 +178,17 @@ def test_k3_table_is_the_closed_forms_bmu_data(hexa):
 
 def test_route_by_shape():
     """K3 and K17 run the walk up to SM90_MAX_D (128) and the mma.sync kernels
-    past it, up to MAX_D; the walk's width is 32, 64 or 128; anything else
-    raises."""
-    assert SM90_MAX_D == 128 and MAX_D == 256
+    past it, at any D (in feature passes of PASS_D past 256); the walk's
+    width is 32, 64 or 128; D 0 raises, and the walk past 128."""
+    assert SM90_MAX_D == 128 and PASS_D == 256
     for D in (1, 5, 32, 33, 64, 65, 100, 128):
         assert k3_route(D) == k17_route(D) == "sm90"
-    for D in (129, 130, 200, 256):
+    for D in (129, 130, 200, 256, 257, 300, 1024):
         assert k3_route(D) == k17_route(D) == "mma_sync"
     assert [sm90_width(D) for D in (1, 32, 33, 64, 65, 128)] == [32, 32, 64, 64, 128, 128]
-    for bad in (0, 257):
+    for route in (k3_route, k17_route):
         with pytest.raises(ValueError):
-            k3_route(bad)
+            route(0)
     with pytest.raises(ValueError):
         sm90_width(129)
 
