@@ -28,19 +28,20 @@ phases, each printing one JSON line:
             with the three slowest nvcc processes (each source's compile
             seconds, from the build's log); one "ptxas" line: registers and
             spill bytes of each instantiation of K1, K2 and their prologue,
-            K8, K4 and its prologue, K3's and K17's Hopper walk and its
-            prologue, K5, K9, K10, K12, K14's walk (its stagger and
-            int8_win) and K15,
+            K8, K4 and its prologue, K9, K3's and K17's Hopper walk and its
+            prologue, K6 and its prologue, K5, K10, K12, K14's walk (its
+            stagger and int8_win) and K15,
             from nvcc's -Xptxas -v report; one "sass" line: the HMMA
             (mma.sync tensor-core) instructions in each instantiation of the
-            tensor-core kernels K3 and K17 past D 128, K5, K6, K7, K9, K10,
+            tensor-core kernels K3 and K17 past D 128, K5, K7, K10,
             K11, K12, K13, K14's main form and its walk and K16, the HGMMA
-            (TF32 wgmma) instructions in each of K1's, K2's, K8's, K4's and
-            K3's and K17's Hopper walk (up to D 128; none may have an HMMA),
+            (TF32 wgmma) instructions in each of K1's, K2's, K8's, K4's,
+            K9's, K6's and K3's and K17's Hopper walk (up to D 128; none may
+            have an HMMA),
             the IMMA (int8 mma.sync) instructions in each instantiation of
             K14's int8_win walk, the IGMMA (int8 wgmma) instructions in each
             of K15's, and the UTMALDG (TMA tile loads) in each of K1's,
-            K2's, K8's, K4's, K3's and K17's walk and K15's, from cuobjdump
+            K2's, K8's, K4's, K9's, K6's, K3's and K17's walk and K15's, from cuobjdump
             --dump-sass of the library (none fails the run, as does an IDP4A
             anywhere in it);
             then g++ builds the native data-file engine (data/native_io.py
@@ -173,7 +174,8 @@ phases, each printing one JSON line:
             (bit-equal to its main form) and int8_win at 300, K5 (bit-equal
             to K3), K6, K7 (bit-equal to K chained K3 steps), K11 then K12
             (bit-equal to K3 on a shard) and K17 at 300 and 512, K3 and K6
-            at 1024, each under its D <= 256 gates at a small map; then
+            (sixteen 64-feature slabs) at 1024, each under its D <= 256
+            gates at a small map; then
             phase 4w's shapes: K1 at its step (1024 x 16384 x 512, rerun,
             bit-equal to K2), K2 at its evaluation (100,000 x 16384 x 512,
             rerun) and K13 at its step (128x128, B 1024, D 512), under
@@ -472,34 +474,35 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32 on
-# mma.sync: K3 and K17 past D 128 (their one instantiation each, NT 32), K6,
+# mma.sync: K3 and K17 past D 128 (their one instantiation each, NT 32),
 # K11 (K3's update half), K12 (K3's blend-and-winner half), K13 (K3's body
 # with the separable W), K14's main form (K13's body; one TF32 product under
 # batch_bf16) and its walk (stagger and int8_win: the same body's chunk
 # functions; int8_win's winners on int8 mma.sync, the IMMA of
 # INT8_MMA_KERNELS), K16 (the mma.sync winner walk), K10 (that walk with a
 # top-k fold),
-# K7 (K3's step body on the resident codebook), K9 (the masked mma.sync walk
-# with K10's fold at KM 2) and K5 (K3's update half with the blend)
-SPLIT_TF32_KERNELS = ("som_fused_step_kernel",
-                      "som_update_masked_kernel", "som_accum_kernel",
+# K7 (K3's step body on the resident codebook) and K5 (K3's update half with
+# the blend)
+SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "som_accum_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel",
                       "som_vmem_steps_kernel", "som_blend_winner_kernel",
-                      "dist_topk_kernel", "dist_top2_masked_kernel",
-                      "som_update_kernel", "som_fused_chunked_stagger_kernel",
+                      "dist_topk_kernel", "som_update_kernel", "som_fused_chunked_stagger_kernel",
                       "som_fused_chunked_int8_kernel")
 INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 # K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
 INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
 # K1 and K2 (one walk, two names), K8 (that walk with a top-2 fold), K4
-# (the walk with the keep contraction beside it) and K3, K13 and K17 up to D
-# 128 (their Hopper walk, csrc/fused_step_sm90.cuh): split-TF32 products on
-# warpgroup wgmma (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
+# (the walk with the keep contraction beside it) and K9 (K4's with the top-2
+# fold), K3, K13 and K17 up to D 128 (their Hopper walk,
+# csrc/fused_step_sm90.cuh) and K6 (its update on that walk, at any D):
+# split-TF32 products on warpgroup wgmma (HGMMA, and no HMMA), fed by TMA
+# like K15 (UTMALDG)
 TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel", "top2_sm90_kernel",
-                      "masked_argmin_sm90_kernel", "som_fused_step_sm90_kernel",
-                      "som_fused_factored_sm90_kernel", "fused_skeleton_sm90_kernel")
+                      "masked_argmin_sm90_kernel", "masked_top2_sm90_kernel",
+                      "som_fused_step_sm90_kernel", "som_fused_factored_sm90_kernel",
+                      "fused_skeleton_sm90_kernel", "som_update_masked_sm90_kernel")
 TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -587,6 +590,12 @@ def library_winners(x, codes, form, k=2, mask=None):
     return out
 
 
+def kernel_base(name: str, bases):
+    """The longest of `bases` within the mangled `name` (K8's
+    top2_sm90_kernel lies within K9's masked_top2_sm90_kernel), or None."""
+    return max((b for b in bases if b in name), key=len, default=None)
+
+
 def sass_mma(dump: dict, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict:
     """Tensor-core use of `kernels` (the split-TF32 ones unless given), read
     from the built library's SASS (`dump`: tools.sass_diff.sass of the
@@ -597,9 +606,9 @@ def sass_mma(dump: dict, kernels=SPLIT_TF32_KERNELS, op: str = "HMMA") -> dict:
     is found."""
     counts = {}
     for name, insns in dump.items():
-        base = [b for b in kernels if b in name]
+        base = kernel_base(name, kernels)
         if base:
-            counts[name[name.index(base[0]):]] = sum(op in i for i in insns)
+            counts[name[name.index(base):]] = sum(op in i for i in insns)
     for base in kernels:
         found = {k: v for k, v in counts.items() if k.startswith(base)}
         if not found or not all(found.values()):
@@ -614,9 +623,9 @@ def sass_none(dump: dict, kernels, op: str) -> dict:
     otherwise, or if no instantiation is found."""
     counts = {}
     for name, insns in dump.items():
-        base = [b for b in kernels if b in name]
+        base = kernel_base(name, kernels)
         if base:
-            counts[name[name.index(base[0]):]] = sum(op in i for i in insns)
+            counts[name[name.index(base):]] = sum(op in i for i in insns)
     if not counts or any(counts.values()):
         raise AssertionError(f"{kernels}: {op} instructions in the SASS: {counts}")
     return counts
@@ -667,18 +676,20 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "masked_argmin_sm90_kernel",
                                   "split_masked_codes_kernel",
                                   "dist_topk_kernel", "som_blend_winner_kernel",
-                                  "dist_top2_masked_kernel", "som_update_kernel",
+                                  "masked_top2_sm90_kernel", "som_update_kernel",
                                   "som_fused_chunked_stagger_kernel",
                                   "som_fused_chunked_int8_kernel",
                                   "int8_winner_probe_kernel",
                                   "som_fused_step_sm90_kernel",
                                   "som_fused_factored_sm90_kernel",
                                   "fused_skeleton_sm90_kernel",
-                                  "split_sm90_kernel")) -> dict:
+                                  "split_sm90_kernel", "som_update_masked_sm90_kernel",
+                                  "split_masked_batch_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
     (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5,
-    K14's walk, K15, and K3's, K13's and K17's Hopper walk and its prologue
-    unless given), and "wgmma_serialized" where ptxas reports that it serialized the
+    K14's walk, K15, K3's, K13's and K17's Hopper walk and its prologue, and
+    K6 and its prologue unless given), and "wgmma_serialized" where ptxas
+    reports that it serialized the
     function's wgmma (its C7518 performance note), from nvcc's -Xptxas -v
     report (the build's log; K4's registers are its launch's 168 a thread,
     before its warpgroups' setmaxnreg split): {"name<args>":
@@ -689,7 +700,7 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
     for line in log.splitlines():
         m = re.search(r"wgmma.mma_async instructions are serialized.* function '(\w+)'", line)
         if m:
-            base = next((b for b in bases if b in m.group(1)), None)
+            base = kernel_base(m.group(1), bases)
             if base:
                 targs = template_args(m.group(1), base)
                 name = base + (f"<{','.join(targs)}>" if targs else "")
@@ -698,7 +709,7 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             name = m.group(1)
-            base = next((b for b in bases if b in name), None)
+            base = kernel_base(name, bases)
             fn = None
             if base:
                 targs = template_args(name, base)
@@ -1154,8 +1165,8 @@ def wide_d_phases(recs):
     its int8_win held as at D 64, at 300; K5 and K6 (K5 bit-equal to K3),
     K7 (bit-equal to K chained K3 steps), K11 then K12 (their shard step
     bit-equal to K3's, and each against its plain version) and K17 at 300
-    and 512; K3 and K6 (whole rows past its shared memory: one slab staged)
-    at 1024.  Then the wide e2e path's own shapes (phase 4w): K1 at its
+    and 512; K3 and K6 (sixteen 64-feature slabs on gridDim.y) at 1024.
+    Then the wide e2e path's own shapes (phase 4w): K1 at its
     step (1024 x 16384 x 512, rerun, bit-equal to K2), K2 at its
     evaluation (100,000 x 16384 x 512, rerun) and K13 at its step (128x128
     hexa gaussian, B 1024, D 512, radius 32, rerun).  Last, K7's shared
@@ -4969,7 +4980,7 @@ def main() -> int:
     phase_bubble_boundary()
     # K5 and K6 at the masked 1M cell's step first (their records), the
     # 128x128 step, a small rect bubble map, D 5, a ragged map at D 37 and
-    # D 200 (K6: two 128-feature slabs)
+    # D 200 (K6: four 64-feature slabs)
     update_cases = ((256, 256, True, True, 4096, 64, 64.0),
                     (128, 128, True, True, 1024, 64, 32.0),
                     (12, 8, False, False, 1024, 64, 3.0),
@@ -5377,13 +5388,14 @@ def main() -> int:
                                "som_lvq_pak_tpu/ops/pallas_distance.py:74"),
         "som_neighborhood_update_idx": ("som_lvq_pak_torch/csrc/som_update.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:116"),
-        "som_neighborhood_update_idx_masked": ("som_lvq_pak_torch/csrc/som_update.cu",
+        "som_neighborhood_update_idx_masked": (
+            "som_lvq_pak_torch/csrc/som_update_masked_sm90.cu",
                                                "som_lvq_pak_tpu/ops/pallas_som.py:152"),
         "som_vmem_train_steps": ("som_lvq_pak_torch/csrc/som_vmem_steps.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:1449"),
         "dist_top2": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:295"),
-        "dist_top2_masked": ("som_lvq_pak_torch/csrc/dist_top2.cu",
+        "dist_top2_masked": ("som_lvq_pak_torch/csrc/argmin_masked_sm90.cu",
                              "som_lvq_pak_tpu/ops/pallas_distance.py:308"),
         "dist_topk": ("som_lvq_pak_torch/csrc/dist_topk.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:583"),

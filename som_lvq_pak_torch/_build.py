@@ -46,8 +46,8 @@ _SIGNATURES = {
     "somvq_split_masked_codes": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     # x, mask, codes, B, N, D, Dp, splits, scratch, val, idx, stream
     "somvq_dist_argmin_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # x, mask, codes, B, N, D, splits, pv, pi, v1, i1, v2, i2, stream
-    "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    # x, mask, codes, B, N, D, Dp, splits, scratch, v1, i1, v2, i2, stream
+    "somvq_dist_top2_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _P, _P],
     # codes, codes_bf16, noc, D, xb, bmu, alpha, B, xn, Bn, xdim, hexa,
     # gaussian, radius, unit_offset, xs, keys, val, idx, rows32, stream
@@ -99,9 +99,9 @@ _SIGNATURES = {
     "somvq_som_update": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.c_float, _P, _P],
     # codes, noc, D, xb, mask, bmu, alpha, B, xdim, hexa, gaussian, radius,
-    # stream
+    # xs (sized by ops.som_update.k6_scratch), stream
     "somvq_som_update_masked": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                ctypes.c_float, _P],
+                                ctypes.c_float, _P, _P],
     # codes, noc, D, batches, K, B, bmu0, alphas, radii, tail, xdim, hexa,
     # gaussian, rows, xs, keys, bar, bmu_out, stream
     "somvq_som_vmem_steps": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,

@@ -1,6 +1,6 @@
-// The pieces of the mma.sync winner search shared by K16 (dist_argmin_t.cu),
-// K9 (masked_walk.cuh) and K10 (dist_topk.cu), and the lane merge and split
-// fold of K1 and K2 (argmin_sm90.cu) and K4 (argmin_masked_sm90.cu):
+// The pieces of the mma.sync winner search shared by K16 (dist_argmin_t.cu)
+// and K10 (dist_topk.cu), and the lane merge and split fold of K1 and K2
+// (argmin_sm90.cu) and K4 (argmin_masked_sm90.cu):
 // the CTA shape, the codebook's split into spans of whole tiles, the cp.async
 // staging of a codebook tile, the merge of a sample's four lanes with the
 // fold across codebook splits, and the unmasked search's shared-memory

@@ -12,9 +12,9 @@
 // about two thirds (mma_probe.py).
 //
 // Design: the mma.sync walk the winner searches ran on before K1 and K2
-// moved to warpgroup wgmma fed by a TMA ring (argmin_sm90.cu), and K8 and K4
-// after them (argmin_sm90.cu, argmin_masked_sm90.cu); K10 (dist_topk.cu) and
-// K9 (masked_walk.cuh) still walk this way.  One
+// moved to warpgroup wgmma fed by a TMA ring (argmin_sm90.cu), and K8, K4
+// and K9 after them (argmin_sm90.cu, argmin_masked_sm90.cu); K10
+// (dist_topk.cu) still walks this way.  One
 // CTA owns TB = 128 samples, 16 per warp.  A warp keeps its samples' A
 // fragments, split into hi and lo, in registers for the whole walk over the
 // codebook (D <= 64: at most 8 k-steps, 64 registers); wider D is walked in

@@ -1,5 +1,6 @@
 // The SOM neighbourhood weights' device code, shared by every SOM kernel:
-// K3, K5 and K11 (fused_step_tc.cuh), K6 (som_update.cu), K7
+// K3, K5 and K11 (fused_step_tc.cuh), K3 and K6 on the Hopper walk
+// (fused_step_sm90.cuh's ClosedFormW90), K7
 // (som_vmem_steps.cu) and K13/K14 (separable_w.cuh, som_fused_factored.cu)
 // build W from staged grid coordinates (grid_x, grid_d2_at, weight_of_d2);
 // beside them the guarded blend, a bf16 codebook's loads and stores, and the

@@ -1,9 +1,9 @@
 // The top-k fold of the tensor-core winner walks, shared by K10 (dist_topk.cu,
-// on the mma.sync walk), K9 (dist_top2.cu, on the masked mma.sync walk) and
-// K8 (argmin_sm90.cu, on K1's wgmma walk at KM 2): per lane and sample a sorted list of KM (score, code)
-// pairs, the four lanes of a sample merged by shuffles, each codebook split's
-// k pairs written to a (splits, B, k) scratch, and a second small launch
-// that folds the splits in split order.
+// on the mma.sync walk), K8 (argmin_sm90.cu, on K1's wgmma walk at KM 2) and
+// K9 (argmin_masked_sm90.cu, on K4's wgmma walk at KM 2): per lane and sample
+// a sorted list of KM (score, code) pairs, the four lanes of a sample merged
+// by shuffles, each codebook split's k pairs written to a (splits, B, k)
+// scratch, and a second small launch that folds the splits in split order.
 //
 // A lane visits its codes in ascending order, so a strict > keeps the lower
 // code of equal scores everywhere in its list.  The lane merge and the split
@@ -151,7 +151,7 @@ __device__ __forceinline__ void insert(float (&v)[KM], int (&ix)[KM], float d, i
 }
 
 // The split merge's outputs: (B, k) row-major (K10), or one array per
-// column (K9's v1, i1, v2, i2)
+// column (K8's and K9's v1, i1, v2, i2)
 struct RowsOut {
   float* v;
   int* i;

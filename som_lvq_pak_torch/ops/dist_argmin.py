@@ -32,13 +32,15 @@ partial distance plus ||x||^2, clamped at 0.  Ties go to the lowest index.
   and q = m o m once per call into TF32 hi and lo rows, the walk streams
   them by TMA and takes (x keep).m by three TF32 products and keep.q by two
   (keep is exact in TF32) on warpgroup `wgmma`, into two sums, the codebook
-  split across CTAs by `k4_sm90_splits`.  Two runs are bit-equal.
+  split across CTAs by `k4_sm90_splits`.  Two runs are bit-equal.  The
+  masked top-2 search (`ops.dist_top2.dist_top2_masked`, K9) is the same
+  walk with a top-2 fold.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 beside it.  Any other device raises.  Each wrapper counts its kernel
 launches in its `launches` attribute (`split_codes` K1's and K2's
 prologue's, which K8 launches too; `split_masked_codes` the calls of K4's
-prologue alone, which K4's own calls launch in their C call).
+prologue alone, which K4's and K9's own calls launch in their C call).
 """
 
 from __future__ import annotations
@@ -144,7 +146,9 @@ def k2_splits(B: int, N: int, device: torch.device) -> int:
     rounded down to whole waves: exactly two of them fit on an SM (their
     registers), so a count that leaves a partial second wave costs a whole
     one (at B 4096, 9 splits would be 288 CTAs on 264 slots of an H100)."""
-    return _whole_waves(B, N, device, 2)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    b_tiles, n_tiles = -(-B // 128), -(-N // 64)
+    return max(1, min(n_tiles, 2 * sms // b_tiles))
 
 
 # K1's and K2's walk (csrc/argmin_sm90.cu): codes per tile (the wgmma's N),
@@ -190,13 +194,13 @@ K4_MIN_SPAN = 8
 
 
 def k4_sm90_splits(B: int, N: int, sms: int) -> int:
-    """K4's codebook splits on a card of `sms` SMs: K1's rule on 64-code
+    """K4's and K9's codebook splits on a card of `sms` SMs: K1's rule on 64-code
     tiles: spans of whole tiles, as many as fill one wave of CTAs of 128
     samples, one CTA an SM (its ring takes about 193 KB of shared memory at
     D 64), rounded down to whole waves, and at least K4_MIN_SPAN tiles
     each: at B 4096 four splits (128 CTAs on an H100's 132 SMs), at the
-    masked LVQ cell's B 1024 x 4096 eight, at the eval's 1M one, at the
-    scans' B 1 x 4096 eight."""
+    LVQ step's B 1024 x 65536 sixteen, at the masked LVQ cell's B 1024 x
+    4096 eight, at the eval's 1M one, at the scans' B 1 x 4096 eight."""
     b_tiles, n_tiles = -(-B // K4_SAMPLES), -(-N // K4_TILE)
     return max(1, min(n_tiles // K4_MIN_SPAN, sms // b_tiles))
 
@@ -321,20 +325,6 @@ def split_codes(codes: torch.Tensor
                 torch.cuda.current_stream(codes.device).cuda_stream)
     split_codes.launches += 1
     return hi, lo, m2
-
-
-def k4_splits(B: int, N: int, D: int, device: torch.device) -> int:
-    """K9's codebook splits (the masked mma.sync walk, csrc/masked_walk.cuh):
-    CTAs of 128 samples, in whole waves of the CTAs an SM holds: two up to D
-    64 (its registers and 100 KB of shared memory each), one past it (the
-    slab walk keeps the tile's sums of both contractions in registers)."""
-    return _whole_waves(B, N, device, 2 if D <= 64 else 1)
-
-
-def _whole_waves(B: int, N: int, device: torch.device, per_sm: int) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    b_tiles, n_tiles = -(-B // 128), -(-N // 64)
-    return max(1, min(n_tiles, per_sm * sms // b_tiles))
 
 
 def _launch(entry: str, wrapper, x: torch.Tensor, codes: torch.Tensor):

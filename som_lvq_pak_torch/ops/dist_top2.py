@@ -29,9 +29,10 @@ prologue (counted on `ops.dist_argmin.split_codes.launches` too), the walk
 on TF32 `wgmma` with the codebook split by `k1_sm90_splits`, and the
 merge of the splits; its best pair is K1's (value, index) and its pairs
 K10's at k = 2 (`ops.dist_topk.dist_topk`, on the mma.sync walk) bit for
-bit on the same inputs.  K9 (`csrc/dist_top2.cu`) is the masked
-split-TF32 mma.sync walk (`csrc/masked_walk.cuh`) with K10's fold at two,
-the codebook split by `k4_splits`, so its best pair is
+bit on the same inputs.  K9 is K4's Hopper walk with the same top-2 fold
+(`csrc/argmin_masked_sm90.cu`'s `masked_top2_sm90_kernel`): one C call runs
+K4's prologue, the walk on TF32 `wgmma` with the codebook split by
+`k4_sm90_splits`, and the merge of the splits; its best pair is
 `dist_argmin_masked`'s (value, index) bit for bit on the same inputs.
 """
 
@@ -42,8 +43,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import (_check, _check_mask, _rows_per_chunk, k1_sm90_splits, k4_splits,
-                          split_codes, split_codes_dp)
+from .dist_argmin import (_check, _check_mask, _rows_per_chunk, k1_sm90_splits,
+                          k4_sm90_splits, split_codes, split_codes_dp)
 from .distance import fp32_matmul, keep_of, mask_bytes
 
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -128,11 +129,16 @@ def _launch_masked(x: torch.Tensor, codes: torch.Tensor, m8: torch.Tensor) -> To
     v1, i1, v2, i2 = _pair_outputs(x)
     if B == 0:
         return v1, i1, v2, i2
-    splits = k4_splits(B, N, D, x.device)
-    pv = torch.empty((splits, B, 2), dtype=torch.float32, device=x.device)
-    pi = torch.empty((splits, B, 2), dtype=torch.int32, device=x.device)
+    Dp = split_codes_dp(D)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = k4_sm90_splits(B, N, sms)
+    # one C call: K4's prologue, the walk, the split merge; one scratch holds
+    # the prologue's hi, lo, qhi, qlo (N, Dp) and the (splits, B, 2) pairs
+    # of the splits
+    scratch = torch.empty((4 * N * Dp + 4 * splits * B,), dtype=torch.float32,
+                          device=x.device)
     _build.call("somvq_dist_top2_masked", x.data_ptr(), m8.data_ptr(),
-                codes.data_ptr(), B, N, D, splits, pv.data_ptr(), pi.data_ptr(),
+                codes.data_ptr(), B, N, D, Dp, splits, scratch.data_ptr(),
                 v1.data_ptr(), i1.data_ptr(), v2.data_ptr(), i2.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     dist_top2_masked.launches += 1

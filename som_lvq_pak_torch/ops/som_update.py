@@ -17,15 +17,20 @@ leave every unit's matching component untouched (lvq_pak.c:349-356).
 The codebook is updated IN PLACE, as by K3 (the caller owns the resident
 codebook; each CUDA block reads and writes only its own rows), and returned.
 
-A CUDA tensor launches the kernel in `csrc/som_update.cu`, both on the
-tensor cores as split-TF32 `mma.sync` products (float32 accuracy).  K5 is
-K3's update half (`csrc/fused_step_tc.cuh`, as K11 runs it) with the blend,
-the batch split once into a scratch (`ops.som_step._split_scratch`): its
-codebook is K3's rows on the same winners bit for bit
-(`ops.tf32x3.som_update_tf32x3` emulates it).  K6 runs W.(X o K) and the
-mass W.K (`ops.tf32x3.som_update_masked_tf32x3`).  A CPU tensor runs the
-plain version below.  The wrappers count their kernel launches in their
-`launches` attributes.
+A CUDA tensor launches the kernel, both on the tensor cores as split-TF32
+products (float32 accuracy).  K5 (`csrc/som_update.cu`) is K3's update
+half on `mma.sync` (`csrc/fused_step_tc.cuh`, as K11 runs it) with the
+blend, the batch split once into a scratch (`ops.som_step._split_scratch`):
+its codebook is K3's rows on the same winners bit for bit
+(`ops.tf32x3.som_update_tf32x3` emulates it).  K6
+(`csrc/som_update_masked_sm90.cu`) runs W.(X o K) and the mass W.K on K3's
+Hopper walk: a prologue splits X o K into TF32 hi and lo and K once a call,
+transposed, with K3's per-sample table, into a scratch (`k6_scratch`;
+`ops.tf32x3.split_k6_plain` is its plain version), and each CTA takes 128
+rows and one slab of at most 64 features, its products on TF32 `wgmma` fed
+by TMA, in the order `ops.tf32x3.som_update_masked_tf32x3` emulates.  A
+CPU tensor runs the plain version below.  The wrappers count their kernel
+launches in their `launches` attributes.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Optional, Union
 import torch
 
 from .. import _build
+from .dist_argmin import split_codes_dp
 from .distance import fp32_matmul, keep_of, mask_bytes
 from .som_step import _split_scratch, guarded_blend, neighborhood_w
 
@@ -56,6 +62,26 @@ def som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa, alpha,
         keep = keep_of(mask)
         acc, wsum = w @ (xb * keep), w @ keep
     return codes.copy_(guarded_blend(codes, acc, wsum))
+
+
+def k6_scratch(B: int, D: int, dev) -> torch.Tensor:
+    """Scratch of K6's prologue (csrc/som_update_masked_sm90.cu:
+    split_masked_batch_kernel): three planes of (Dp, Bp), X o K's TF32 hi and
+    lo and K, then K3's per-sample float4 table (Bp,); Dp =
+    `split_codes_dp(D)` (whole 64-feature slabs past 32), Bp = B rounded up
+    to 64."""
+    Bp = -(-B // 64) * 64
+    return torch.empty((3 * split_codes_dp(D) * Bp + 4 * Bp,), dtype=torch.float32,
+                       device=dev)
+
+
+def k6_slabs(D: int) -> list:
+    """The feature ranges [lo, hi) of K6's CTAs on gridDim.y
+    (csrc/som_update_masked_sm90.cu's launch): slabs of 32 features up to D
+    32, else of 64, over the prologue's `split_codes_dp(D)` rows; the last
+    cut at D."""
+    F = 32 if D <= 32 else 64
+    return [(f0, min(D, f0 + F)) for f0 in range(0, split_codes_dp(D), F)]
 
 
 def _prepare(codes, xb, bmu, alpha, mask):
@@ -137,11 +163,12 @@ def som_neighborhood_update_idx_masked(
                                                  aw, radius, gaussian, mask)
     xb = xb.contiguous()
     m8 = mask_bytes(mask)
-    _build.call("somvq_som_update_masked", codes.data_ptr(), codes.shape[0],
-                codes.shape[1], xb.data_ptr(), m8.data_ptr(), bmu.data_ptr(),
-                aw.data_ptr(), xb.shape[0], int(xdim), int(bool(hexa)),
-                int(bool(gaussian)), float(radius),
-                torch.cuda.current_stream(codes.device).cuda_stream)
+    B, D = xb.shape
+    xs = k6_scratch(B, D, codes.device)
+    _build.call("somvq_som_update_masked", codes.data_ptr(), codes.shape[0], D,
+                xb.data_ptr(), m8.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B,
+                int(xdim), int(bool(hexa)), int(bool(gaussian)), float(radius),
+                xs.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream)
     som_neighborhood_update_idx_masked.launches += 1
     return codes
 

@@ -30,10 +30,11 @@ bit for bit; K5 is K11 with the blend, so its rows are K3's too.  K8 and
 K10 score as K1, K9 as K4, and K7 steps as K3, so their emulations are K1's
 or K4's scoring with a second winner or k of them, and K chained K3 steps.
 
-`split_batches_plain` and `split_sm90_plain` are the plain versions of the
-steps' prologues, the mma.sync steps' split batches and the Hopper walk's
-(the update batch transposed, K3's per-sample table), as they fill their
-scratch.
+`split_batches_plain`, `split_sm90_plain` and `split_k6_plain` are the plain
+versions of the prologues, the mma.sync steps' split batches, the Hopper
+walk's (the update batch transposed, K3's per-sample table, `k3_table`) and
+K6's on the same walk (X o K split and K, transposed, and K3's table), as
+they fill their scratch.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Tuple
 
 import torch
 
+from .dist_argmin import split_codes_dp
 from .distance import fp32_matmul, keep_of
 from .som_step import _alpha_r, _bf16, guarded_blend, neighborhood_w, separable_w
 from .som_vmem import chain_steps
@@ -415,14 +417,38 @@ def split_sm90_plain(xb: torch.Tensor, xn: torch.Tensor, DP: int, planes: int = 
     else:
         parts = [xt.T.contiguous(), xr]
     if bmu is not None:
-        B = xb.shape[0]
-        table = torch.zeros((Bp, 4), dtype=torch.float32, device=xb.device)
-        bm = bmu.to(torch.int64)
-        col, row = (bm % xdim).to(torch.float32), bm // xdim
-        gx = col + 0.5 * (row % 2).to(torch.float32) if hexa else col
-        on = bm >= 0
-        table[:B, 0] = torch.where(on, gx, 0.0)
-        table[:B, 1] = torch.where(on, row.to(torch.float32), 0.0)
-        table[:B, 2] = torch.where(on, alpha.to(torch.float32), 0.0)
-        parts.append(table)
+        parts.append(k3_table(bmu, alpha, Bp, xdim, hexa))
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
+def k3_table(bmu, alpha, Bp: int, xdim: int, hexa: bool) -> torch.Tensor:
+    """K3's per-sample table on the Hopper walk (K6's too), (Bp, 4): for each
+    sample the float4 (BMU grid x, BMU row, alpha, 0), zeros where bmu < 0
+    or past B."""
+    B = bmu.shape[0]
+    table = torch.zeros((Bp, 4), dtype=torch.float32, device=bmu.device)
+    bm = bmu.to(torch.int64)
+    col, row = (bm % xdim).to(torch.float32), bm // xdim
+    gx = col + 0.5 * (row % 2).to(torch.float32) if hexa else col
+    on = bm >= 0
+    table[:B, 0] = torch.where(on, gx, 0.0)
+    table[:B, 1] = torch.where(on, row.to(torch.float32), 0.0)
+    table[:B, 2] = torch.where(on, alpha.to(torch.float32), 0.0)
+    return table
+
+
+def split_k6_plain(xb: torch.Tensor, mask: torch.Tensor, bmu, alpha, xdim: int,
+                   hexa: bool) -> torch.Tensor:
+    """K6's prologue on the Hopper walk (csrc/som_update_masked_sm90.cu:
+    split_masked_batch_kernel) as it fills its scratch
+    (`ops.som_update.k6_scratch`): X o K transposed, (Dp, Bp), split by
+    `tf32_split` into its hi and lo planes, then K transposed as 1.0 or 0.0,
+    zeros past D and past B (Dp = `split_codes_dp(D)`, Bp = B rounded up to
+    64); then `k3_table`.  `alpha` is (B,)."""
+    B, D = xb.shape
+    Bp = -(-B // 64) * 64
+    on = mask == 0
+    xk = _pad_rows(torch.where(on, xb, 0.0), Bp, split_codes_dp(D)).T.contiguous()
+    kt = _pad_rows(on.to(torch.float32), Bp, split_codes_dp(D)).T.contiguous()
+    parts = [*tf32_split(xk), kt, k3_table(bmu, alpha, Bp, xdim, hexa)]
     return torch.cat([p.reshape(-1) for p in parts])

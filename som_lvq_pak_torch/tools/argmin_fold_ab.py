@@ -1,5 +1,6 @@
 """The A/B of K1's and K2's fold (csrc/argmin_sm90.cu) on the card, and of
-K8's (the same walk with a top-2 fold) and K4's (csrc/argmin_masked_sm90.cu):
+K8's (the same walk with a top-2 fold), K4's (csrc/argmin_masked_sm90.cu)
+and K9's (K4's walk with the top-2 fold):
 the walk as it is beside copies of its source with the fold changed, each
 copy built alone by nvcc into a library of its own and timed in turns in one
 process.
@@ -19,16 +20,19 @@ The variants, text edits of the walk's consumer loop (`variant_sources`):
 The fold region holds K8's top-2 fold too, so `no_turns` is K8 without the
 turns and `no_fold` K8's products and feed alone (`per_score` breaks K8 and
 is not run for it).  K4's source has two variants (`masked_variant_sources`):
-`walk` and its own `no_fold`.
+`walk` and its own `no_fold`, which cuts K9's fold with K4's (the two
+kernels share the walk in that source).
 
 Every variant but `no_fold` must return the walk's (value, index) bit for bit
 (at 4096 x 65536 x 64, 777 x 3001 x 37, 1000 x 2999 x 130 and 1 x 4096 x 64;
-K8's `no_turns` its pairs at the same shapes); then each runs K1 at B 4096
-and 1024 against 65,536 codes and K2 at the eval's 1M x 65536 x 64, D 64,
-in the order walk, no_turns, per_score, no_fold and back, K8 at B 1024
-(walk, no_turns, no_fold and back) and K4 at B 4096 and 1M with p 0.1
-(walk, no_fold, no_fold, walk), over `iters` calls each (3 at 1M) by CUDA
-events, the prologue inside every call as in the wrappers.  The copies and
+K8's `no_turns` its pairs at the same shapes), and K9's best pair must be
+K4's (value, index) bit for bit at the same shapes with a mask (p 0.1);
+then each runs K1 at B 4096 and 1024 against 65,536 codes and K2 at the
+eval's 1M x 65536 x 64, D 64, in the order walk, no_turns, per_score,
+no_fold and back, K8 at B 1024 (walk, no_turns, no_fold and back), K4 at B
+4096 and 1M with p 0.1 and K9 at B 1024 with p 0.1 (walk, no_fold,
+no_fold, walk), over `iters` calls each (3 at 1M) by CUDA events, the
+prologue inside every call as in the wrappers.  The copies and
 their libraries go to `som_lvq_pak_torch/_build/fold_ab/` (git-ignored).
 Prints one JSON line with the card's name and power limit; exits non-zero
 when a variant that must match does not.  Needs nvcc and a card.
@@ -58,6 +62,7 @@ TIMED_CASES = ((4096, 65536, 64, "somvq_dist_argmin"), (1024, 65536, 64, "somvq_
 K8_VARIANTS = ("walk", "no_turns", "no_fold")
 K8_CASE = (1024, 65536, 64)
 K4_CASES = ((4096, 65536, 64), (1_000_000, 65536, 64))
+K9_CASE = (1024, 65536, 64)
 
 # the walk's lines that make the warpgroups take turns
 _TURNS = ("  if (wg == 1) sm90::bar_arrive(2, TURN);\n",
@@ -87,9 +92,9 @@ _PER_SCORE = """    if (sl == nslab - 1) {
       }
     }
 """
-# (K8's pair takes the score too: a product whose sums nothing reads is
-# dropped by the compiler, and K8's walk reads top2, not best; K4's score
-# reads both of its sums for the same reason)
+# (K8's and K9's pairs take the score too: a product whose sums nothing
+# reads is dropped by the compiler, and their walks read top2, not best;
+# K4's score reads both of its sums for the same reason)
 _NO_FOLD = """    if (sl == nslab - 1 && S[0] > best[0]) {
       best[0] = S[0];
       bidx[0] = n0;
@@ -99,6 +104,7 @@ _NO_FOLD = """    if (sl == nslab - 1 && S[0] > best[0]) {
 _NO_FOLD_K4 = """    if (sl == nslab - 1 && S1[0] - 0.5f * S2[0] > best[0]) {
       best[0] = S1[0] - 0.5f * S2[0];
       bidx[0] = n0;
+      top2.s[0][0] = best[0];
     }
 """
 
@@ -124,8 +130,9 @@ def variant_sources(src: str) -> dict:
 
 
 def masked_variant_sources(src: str) -> dict:
-    """{variant: the text of argmin_masked_sm90.cu} (K4) from its source
-    `src`: the walk, and `no_fold` (its fold cut to one compare a tile);
+    """{variant: the text of argmin_masked_sm90.cu} (K4 and K9) from its
+    source `src`: the walk, and `no_fold` (its folds cut to one compare a
+    tile);
     raises ValueError if the walk no longer has the lines edited here."""
     if _FOLD_START not in src or _FOLD_END not in src:
         raise ValueError("argmin_masked_sm90.cu lacks the lines the variants edit")
@@ -133,12 +140,12 @@ def masked_variant_sources(src: str) -> dict:
 
 
 _ENTRIES = {"argmin_sm90.cu": ("somvq_dist_argmin", "somvq_dist_argmin_t", "somvq_dist_top2"),
-            "argmin_masked_sm90.cu": ("somvq_dist_argmin_masked",)}
+            "argmin_masked_sm90.cu": ("somvq_dist_argmin_masked", "somvq_dist_top2_masked")}
 
 
 def build(out: str = OUT) -> dict:
     """Each variant's copy of csrc/ with its argmin_sm90.cu (K1, K2, K8), or
-    its argmin_masked_sm90.cu (K4, under the names "k4 walk" and "k4
+    its argmin_masked_sm90.cu (K4 and K9, under the names "k4 walk" and "k4
     no_fold"), built by one nvcc each, all started together; {variant:
     loaded library}."""
     with open(os.path.join(_build.CSRC, "argmin_sm90.cu")) as f:
@@ -224,6 +231,31 @@ def _call_masked(lib, x: torch.Tensor, codes: torch.Tensor, mask: torch.Tensor):
     return val, idx
 
 
+def _call_top2_masked(lib, x: torch.Tensor, codes: torch.Tensor, mask: torch.Tensor):
+    """K9's C call on `lib`: (v1, i1, v2, i2) partial distances, the
+    prologue included."""
+    (B, D), N = x.shape, codes.shape[0]
+    Dp = split_codes_dp(D)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = k4_sm90_splits(B, N, sms)
+    out = [torch.empty((B,), dtype=dt, device=x.device)
+           for dt in (torch.float32, torch.int32, torch.float32, torch.int32)]
+    scratch = torch.empty((4 * N * Dp + 4 * splits * B,), dtype=torch.float32,
+                          device=x.device)
+    rc = lib.somvq_dist_top2_masked(x.data_ptr(), mask.data_ptr(), codes.data_ptr(), B, N, D,
+                                    Dp, splits, scratch.data_ptr(),
+                                    *(t.data_ptr() for t in out),
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_dist_top2_masked: CUDA error {rc}")
+    return out
+
+
+def _mask(B: int, D: int, dev: torch.device) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(6)
+    return (torch.rand((B, D), generator=g, device=dev) < 0.1).to(torch.uint8)
+
+
 def _inputs(B: int, N: int, D: int, seed: int, dev: torch.device):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn((B, D), generator=g, device=dev),
@@ -246,6 +278,11 @@ def run(iters: int = 20, out: str = OUT) -> dict:
         p0, p1 = _call_top2(libs["walk"], x, codes), _call_top2(libs["no_turns"], x, codes)
         match.setdefault("k8 no_turns", []).append(
             all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(p0, p1)))
+        mask = _mask(B, D, dev)
+        v4, i4 = _call_masked(libs["k4 walk"], x, codes, mask)
+        v9, i9, _, _ = _call_top2_masked(libs["k4 walk"], x, codes, mask)
+        match.setdefault("k9 best is k4's", []).append(
+            bool(torch.equal(v9.view(torch.int32), v4.view(torch.int32)) and torch.equal(i9, i4)))
     order = list(VARIANTS) + list(VARIANTS)[::-1]
     times = {}
     for B, N, D, entry in TIMED_CASES:
@@ -264,8 +301,7 @@ def run(iters: int = 20, out: str = OUT) -> dict:
     times["K8 {}x{}x{}".format(*K8_CASE)] = ms
     for B, N, D in K4_CASES:
         x, codes = _inputs(B, N, D, 5, dev)
-        g = torch.Generator(device=dev).manual_seed(6)
-        mask = (torch.rand((B, D), generator=g, device=dev) < 0.1).to(torch.uint8)
+        mask = _mask(B, D, dev)
         n = 3 if B >= 100_000 else iters
         ms = {"walk": [], "no_fold": []}
         for name in ("walk", "no_fold", "no_fold", "walk"):
@@ -274,6 +310,13 @@ def run(iters: int = 20, out: str = OUT) -> dict:
         times[f"K4 {B}x{N}x{D} p0.1"] = ms
         del x, codes, mask
         torch.cuda.empty_cache()
+    x, codes = _inputs(*K9_CASE, 5, dev)
+    mask = _mask(K9_CASE[0], K9_CASE[2], dev)
+    ms = {"walk": [], "no_fold": []}
+    for name in ("walk", "no_fold", "no_fold", "walk"):
+        ms[name].append(mean_ms(lambda: _call_top2_masked(libs[f"k4 {name}"], x, codes, mask),
+                                dev, iters))
+    times["K9 {}x{}x{} p0.1".format(*K9_CASE)] = ms
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

@@ -5,9 +5,10 @@ bit against each other: K3 (csrc/fused_step_sm90.cu, the Hopper walk, for D
 K3's walk, for D <= 128; csrc/som_fused_factored.cu past it), K14's main form
 (on csrc/fused_step_tc.cuh; past 256 features every fused-step kernel runs in
 feature passes), K17 (csrc/fused_skeleton_sm90.cu, K3's walk;
-csrc/fused_skeleton.cu past D 128) and the winner walks K4 (masked,
+csrc/fused_skeleton.cu past D 128), the winner walks K4 and K9 (masked,
 csrc/argmin_masked_sm90.cu), K8 (csrc/argmin_sm90.cu) and K10
-(csrc/dist_topk.cu, at k 2 and 8).
+(csrc/dist_topk.cu, at k 2 and 8), and the two-kernel step's updates K5
+(csrc/som_update.cu) and K6 (masked, csrc/som_update_masked_sm90.cu).
 
     python -m som_lvq_pak_torch.tools.fused_step_ab [--iters 10] [--device cuda]
     python -m som_lvq_pak_torch.tools.fused_step_ab --walk-variants [--iters 10]
@@ -31,26 +32,32 @@ float32 or bf16): K17 (`fused_step_skeleton`) on bench.py:prep_skeleton's
 inputs from seed 6, the SHA-256 of its out and vmax at scale 1.0 (where the
 accumulation shows) and its ms at the bench's 1e-30.  For each winner case
 (B, N, D): K4 (`dist_argmin` with a mask, p 0.1 and every 97th row masked),
-K8 (`dist_top2`) and K10 (`dist_topk` at k 2 and 8) on inputs from seed 5,
-their ms and the SHA-256 of their values and indices.  Run it in two
-checkouts in one call (parent, change, change, parent) and compare: equal
-digests mean the same floats.  Prints one JSON line.  `device="cpu"` runs
-the plain versions, timed by the host clock (a CPU time, never a device
-number).
+K9 (`dist_top2` with the same mask), K8 (`dist_top2`) and K10 (`dist_topk`
+at k 2 and 8) on inputs from seed 5, their ms and the SHA-256 of their
+values and indices.  For each update case (map, topology, neighbourhood, B,
+D, radius: chip_smoke.py's K5 and K6 cases, then D 300, 512 and 1024): K5
+(`som_neighborhood_update_idx`) and K6 (the same with a mask, p 0.1 and
+every 97th row masked) on inputs made as for the step cases, their ms and
+the SHA-256 of the updated codebook.  Run it in two checkouts in one call
+(parent, change, change, parent) and compare: equal digests mean the same
+floats.  Prints one JSON line.  `device="cpu"` runs the plain versions,
+timed by the host clock (a CPU time, never a device number).
 
-`--walk-variants` (a card and nvcc): where K3's and K13's Hopper walk spends
-its time.  Copies of csrc/ with the walk's sources edited
-(`walk_variant_sources`, `k13_variant_sources`) are built by nvcc into
-`som_lvq_pak_torch/_build/step_ab/` (git-ignored) and timed in turns, K3 at
-256x256, B 4096, D 64 (gaussian, hexa, radius 64), whole and with each
-contraction nearly alone (B' 64: the update; B 32: the winners), K13 at its
-main-path shape, 128x128, B 1024, D 64 (gaussian, hexa, radius 32), and K17
-at its bench shape:
+`--walk-variants` (a card and nvcc): where K3's, K13's and K6's Hopper walk
+spends its time.  Copies of csrc/ with the walk's sources edited
+(`walk_variant_sources`, `k13_variant_sources`, `k6_variant_sources`) are
+built by nvcc into `som_lvq_pak_torch/_build/step_ab/` (git-ignored) and
+timed in turns, K3 at 256x256, B 4096, D 64 (gaussian, hexa, radius 64),
+whole and with each contraction nearly alone (B' 64: the update; B 32: the
+winners), K13 at its main-path shape, 128x128, B 1024, D 64 (gaussian,
+hexa, radius 32), K6 at the masked 1M cell's step (K3's shape, p 0.1) and
+K17 at its bench shape:
 
 * `walk`: the source as it is;
-* `no_w`: K3's W value replaced by the sample's alpha (no grid distance, no
-  division, no expf; the table read and every product stay); K13's table
-  entries replaced by 1 (no table read from L2; the products stay);
+* `no_w`: K3's and K6's W value replaced by the sample's alpha (no grid
+  distance, no division, no expf; the table read and every product stay);
+  K13's table entries replaced by 1 (no table read from L2; the products
+  stay);
 * `no_feed`: the producer loads each phase's first ring-full of chunks and
   only arms the barriers after, so the products read stale slots: the L2
   feed alone removed;
@@ -60,6 +67,8 @@ at its bench shape:
   read);
 * `no_turns`: the two consumer warpgroups issue their products without
   taking turns.
+
+K6 has no fold: its `no_fold` is its walk, not timed.
 
 Wrong results on purpose, except `walk`'s, which must equal the wrapper's
 (checked).  Prints one JSON line with the card's name and power limit.
@@ -85,6 +94,7 @@ from ..ops.dist_topk import dist_topk
 from ..ops.skeleton import fused_step_skeleton
 from ..ops.som_step import (som_fused_factored_chunked_step, som_fused_factored_step,
                             som_fused_train_step)
+from ..ops.som_update import som_neighborhood_update_idx
 from .timing import mean_ms, resolve
 
 # (xdim, ydim, hexa, gaussian, B, D, radius, K13 too): the 1M cell's step,
@@ -108,6 +118,20 @@ CASES = ((256, 256, True, True, 4096, 64, 64.0, False),
 # D 130 (64-feature slabs)
 WINNER_CASES = ((1024, 65536, 64), (4096, 65536, 64), (512, 32768, 64), (1024, 4096, 64),
                 (777, 3001, 37), (1000, 2999, 130))
+
+
+# (xdim, ydim, hexa, gaussian, B, D, radius) of K5 and K6: chip_smoke.py's
+# update cases (the masked 1M cell's step, the 128x128 step, a rect bubble
+# map, D 5, a ragged map at D 37, D 200), then D 300, 512 and 1024
+UPDATE_CASES = ((256, 256, True, True, 4096, 64, 64.0),
+                (128, 128, True, True, 1024, 64, 32.0),
+                (12, 8, False, False, 1024, 64, 3.0),
+                (12, 8, True, False, 1000, 5, 3.0),
+                (10, 6, True, True, 100, 37, 3.0),
+                (16, 16, False, True, 256, 200, 4.0),
+                (16, 16, True, True, 256, 300, 4.0),
+                (16, 16, True, True, 256, 512, 4.0),
+                (16, 16, True, False, 256, 1024, 4.0))
 
 
 # (N, D, T, B, B' or None for x' = x, bf16) of K17: bench.py's twins of the
@@ -179,20 +203,57 @@ def run_case(xdim, ydim, hexa, gaussian, B, D, radius, k13, dev, iters=10) -> di
     return out
 
 
+def _mask(g, B, D, dev):
+    """Components masked with probability 0.1, every 97th row (the first
+    included) masked whole."""
+    mask = (torch.rand((B, D), generator=g, device=dev) < 0.1).to(torch.uint8)
+    mask[::97] = 1
+    return mask
+
+
 def run_winners(B, N, D, dev, iters=10) -> dict:
-    """One winner case: ms and digest of K4, K8 and K10 at k 2 and 8."""
+    """One winner case: ms and digest of K4, K9, K8 and K10 at k 2 and 8."""
     g = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn((B, D), generator=g, device=dev)
     codes = torch.randn((N, D), generator=g, device=dev)
-    mask = (torch.rand((B, D), generator=g, device=dev) < 0.1).to(torch.uint8)
-    mask[::97] = 1
+    mask = _mask(g, B, D, dev)
     out = dict(case=f"B {B} N {N} D {D}")
     for name, fn in (("k4", lambda: dist_argmin(x, codes, mask)),
+                     ("k9", lambda: dist_top2(x, codes, mask)),
                      ("k8", lambda: dist_top2(x, codes)),
                      ("k10_k2", lambda: dist_topk(x, codes, 2)),
                      ("k10_k8", lambda: dist_topk(x, codes, 8))):
         out[f"{name}_digest"] = _digest(fn())
         out[f"{name}_ms"] = mean_ms(fn, dev, iters)
+    return out
+
+
+def _update_inputs(xdim, ydim, B, D, dev):
+    """An update case's inputs from seed 4, made as run_case makes its
+    step's: (codes, xb, bmu, alpha, mask)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    codes = torch.randn((xdim * ydim, D), generator=g, device=dev)
+    xb = torch.randn((B, D), generator=g, device=dev)
+    bmu = dist_argmin_plain(xb, codes)[1]
+    bmu[:7] = -1
+    alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device=dev)
+    return codes, xb, bmu, alpha, _mask(g, B, D, dev)
+
+
+def run_update(xdim, ydim, hexa, gaussian, B, D, radius, dev, iters=10) -> dict:
+    """One update case: ms and digest of K5 and K6 (K5's call with a
+    mask)."""
+    codes, xb, bmu, alpha, mask = _update_inputs(xdim, ydim, B, D, dev)
+    out = dict(case=f"update {xdim}x{ydim} {'hexa' if hexa else 'rect'} "
+                    f"{'gaussian' if gaussian else 'bubble'} B {B} D {D}")
+    for name, m in (("k5", None), ("k6", mask)):
+        def step(c):
+            return som_neighborhood_update_idx(c, xb, bmu, xdim, hexa, alpha, radius,
+                                               gaussian, mask=m)
+
+        out[f"{name}_digest"] = _digest([step(codes.clone())])
+        work = codes.clone()
+        out[f"{name}_ms"] = mean_ms(lambda: step(work), dev, iters)
     return out
 
 
@@ -223,7 +284,8 @@ def run(iters: int = 10, device="cuda") -> dict:
     return dict(device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
                 cases=[run_case(*c, dev=dev, iters=iters) for c in CASES],
                 skeleton=[run_skeleton(*c, dev=dev, iters=iters) for c in SKELETON_CASES],
-                winners=[run_winners(*c, dev=dev, iters=iters) for c in WINNER_CASES])
+                winners=[run_winners(*c, dev=dev, iters=iters) for c in WINNER_CASES],
+                updates=[run_update(*c, dev=dev, iters=iters) for c in UPDATE_CASES])
 
 
 # ---- --walk-variants: where K3's Hopper walk spends its time ------------------
@@ -258,12 +320,14 @@ _NO_FOLD = """    float v = 0.f;
 def walk_variant_sources(step_src: str, walk_src: str) -> dict:
     """{variant: (text of fused_step_sm90.cu, text of fused_step_sm90.cuh)}
     from the walk's two sources; raises ValueError if they no longer hold
-    the lines edited here."""
-    missing = [s for s in _W_LINES + (_FOLD_START, _FOLD_END) if s not in step_src]
+    the lines edited here.  K3's and K6's W construction (ClosedFormW90)
+    is the header's, so no_w edits the header."""
+    missing = [s for s in (_FOLD_START, _FOLD_END) if s not in step_src]
+    missing += [a for a in _W_LINES if a not in walk_src]
     missing += [a for a, _ in _FEED_LINES + _TURN_LINES if a not in walk_src]
     if missing:
         raise ValueError(f"the walk lacks the lines the variants edit: {missing}")
-    no_w = step_src
+    no_w = walk_src
     for line in _W_LINES:
         no_w = no_w.replace(line, "          w[ks][q] = sm.z;\n")
     no_feed = walk_src
@@ -274,7 +338,7 @@ def walk_variant_sources(step_src: str, walk_src: str) -> dict:
         no_turns = no_turns.replace(a, b)
     i = step_src.index(_FOLD_START)
     no_fold = step_src[:i] + _NO_FOLD + step_src[step_src.index(_FOLD_END, i):]
-    return {"walk": (step_src, walk_src), "no_w": (no_w, walk_src),
+    return {"walk": (step_src, walk_src), "no_w": (step_src, no_w),
             "no_feed": (step_src, no_feed), "no_fold": (no_fold, walk_src),
             "no_turns": (step_src, no_turns)}
 
@@ -300,30 +364,52 @@ def k13_variant_sources(k13_src: str, walk_texts: dict) -> dict:
                    "no_fold": no_fold}.get(name, k13_src) for name in WALK_VARIANTS}
 
 
+_K6_FEED_LINE = "        sm90::mbar_arrive_expect_tx(&ring.full[ring.s], L::UPD);\n"
+_K6_FEED_GUARD = ("        if (c >= L::STAGES) {\n"
+                  "          sm90::mbar_arrive(&ring.full[ring.s]);\n"
+                  "          ring.advance();\n          continue;\n        }\n")
+
+
+def k6_variant_sources(k6_src: str) -> dict:
+    """{variant: text of som_update_masked_sm90.cu} for each of
+    WALK_VARIANTS: K6's producer is its own, so no_feed edits it here (as
+    the header's `produce`); its W (no_w) and turns (no_turns) are the
+    header's; it has no fold.  Raises ValueError if the source no longer
+    holds the line edited here."""
+    if _K6_FEED_LINE not in k6_src:
+        raise ValueError("K6's walk lacks the line the variants edit")
+    no_feed = k6_src.replace(_K6_FEED_LINE, _K6_FEED_GUARD + _K6_FEED_LINE)
+    return {name: no_feed if name == "no_feed" else k6_src for name in WALK_VARIANTS}
+
+
 _WALK_ENTRIES = ("somvq_som_fused_step_sm90", "somvq_fused_skeleton_sm90",
-                 "somvq_som_fused_factored_sm90")
+                 "somvq_som_fused_factored_sm90", "somvq_som_update_masked")
 
 
 def build_variants(out: str = VARIANT_OUT) -> dict:
-    """Each variant's copy of csrc/ built into a library of K3's, K13's and
-    K17's walks by one nvcc each, all started together; {variant: library}."""
+    """Each variant's copy of csrc/ built into a library of K3's, K13's,
+    K17's and K6's walks by one nvcc each, all started together; {variant:
+    library}."""
     read = lambda f: open(os.path.join(_build.CSRC, f)).read()  # noqa: E731
     texts = walk_variant_sources(read("fused_step_sm90.cu"), read("fused_step_sm90.cuh"))
     k13 = k13_variant_sources(read("som_fused_factored_sm90.cu"), texts)
+    k6 = k6_variant_sources(read("som_update_masked_sm90.cu"))
     nvcc, procs = _build._nvcc(), []
     for name, (step_src, walk_src) in texts.items():
         d = os.path.join(out, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
         for f, text in (("fused_step_sm90.cu", step_src), ("fused_step_sm90.cuh", walk_src),
-                        ("som_fused_factored_sm90.cu", k13[name])):
+                        ("som_fused_factored_sm90.cu", k13[name]),
+                        ("som_update_masked_sm90.cu", k6[name])):
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
         procs.append(_build._start([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
                                     os.path.join(d, "lib.so"),
                                     os.path.join(d, "fused_step_sm90.cu"),
                                     os.path.join(d, "fused_skeleton_sm90.cu"),
-                                    os.path.join(d, "som_fused_factored_sm90.cu")],
+                                    os.path.join(d, "som_fused_factored_sm90.cu"),
+                                    os.path.join(d, "som_update_masked_sm90.cu")],
                                    os.path.join(d, "nvcc.log")))
     _build._wait(procs)
     libs = {}
@@ -381,6 +467,23 @@ def _k13_call(lib, codes, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian):
     if rc != 0:
         raise RuntimeError(f"somvq_som_fused_factored_sm90: CUDA error {rc}")
     return codes, idx, val
+
+
+def _k6_call(lib, codes, xb, bmu, mask, xdim, hexa, alpha, radius, gaussian):
+    """K6's C call on a variant's library, as ops.som_update's wrapper makes
+    it: the codebook, updated in place."""
+    from ..ops.som_update import k6_scratch
+
+    dev = codes.device
+    B, D = xb.shape
+    xs = k6_scratch(B, D, dev)
+    rc = lib.somvq_som_update_masked(
+        codes.data_ptr(), codes.shape[0], D, xb.data_ptr(), mask.data_ptr(), bmu.data_ptr(),
+        alpha.data_ptr(), B, xdim, int(hexa), int(gaussian), float(radius), xs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_update_masked: CUDA error {rc}")
+    return codes
 
 
 def _k17_call(lib, codes, w, x, xn):
@@ -443,6 +546,18 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
     for name in order:
         rec[name].append(mean_ms(lambda: _k13_call(libs[name], work, *a13), dev, iters))
     ms["k13 128x128 B 1024 D 64"] = rec
+    # K6 at the masked 1M cell's step: K3's shape with a mask
+    mask = _mask(g, B, D, dev)
+    a6 = (xb, bmu, mask, xdim, hexa, alpha, radius, gaussian)
+    matched6 = _digest([_k6_call(libs["walk"], codes.clone(), *a6)]) == _digest(
+        [som_neighborhood_update_idx(codes.clone(), xb, bmu, xdim, hexa, alpha, radius,
+                                     gaussian, mask=mask)])
+    k6_names = ("walk", "no_w", "no_feed", "no_turns")
+    rec = {name: [] for name in k6_names}
+    work = codes.clone()
+    for name in k6_names + k6_names[::-1]:
+        rec[name].append(mean_ms(lambda: _k6_call(libs[name], work, *a6), dev, iters))
+    ms["k6 256x256 B 4096 D 64 p 0.1"] = rec
     sk = _skeleton_inputs(65536, 64, 256, 4096, None, False, dev)
     rec = {name: [] for name in ("walk", "no_feed", "no_turns")}
     for name in ("walk", "no_feed", "no_turns", "no_turns", "no_feed", "walk"):
@@ -451,7 +566,8 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    return dict(card=card, walk_bit_equal_to_wrapper=matched and matched13, ms=ms)
+    return dict(card=card, walk_bit_equal_to_wrapper=matched and matched13 and matched6,
+                ms=ms)
 
 
 def main(argv=None) -> int:
@@ -459,7 +575,8 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--walk-variants", action="store_true",
-                    help="time K3's Hopper walk against its variants instead")
+                    help="time the Hopper walks of K3, K13, K6 and K17 against their "
+                         "variants instead")
     a = ap.parse_args(argv)
     if a.walk_variants:
         rec = run_variants(a.iters)

@@ -236,9 +236,12 @@ def test_plain_k17_against_bench_kernel(shape, bf16):
 def test_walk_variants_edit_the_walks_lines():
     """tools.fused_step_ab's walk variants (no_w, no_feed, no_fold,
     no_turns) find the lines they edit in the walk's sources, and each edits
-    only its own: the A/B cannot silently time the walk under another name."""
+    only its own: the A/B cannot silently time the walk under another name.
+    K3's and K6's W construction (ClosedFormW90) is the header's, so no_w
+    edits the header; K6's own producer takes no_feed's edit too."""
     from som_lvq_pak_torch import _build
-    from som_lvq_pak_torch.tools.fused_step_ab import WALK_VARIANTS, walk_variant_sources
+    from som_lvq_pak_torch.tools.fused_step_ab import (WALK_VARIANTS, k6_variant_sources,
+                                                       walk_variant_sources)
 
     read = lambda f: open(f"{_build.CSRC}/{f}").read()  # noqa: E731
     step, walk = read("fused_step_sm90.cu"), read("fused_step_sm90.cuh")
@@ -246,12 +249,19 @@ def test_walk_variants_edit_the_walks_lines():
     assert tuple(texts) == WALK_VARIANTS
     assert texts["walk"] == (step, walk)
     changed = {name: (a != step, b != walk) for name, (a, b) in texts.items()}
-    assert changed == {"walk": (False, False), "no_w": (True, False), "no_feed": (False, True),
+    assert changed == {"walk": (False, False), "no_w": (False, True), "no_feed": (False, True),
                        "no_fold": (True, False), "no_turns": (False, True)}
-    body = texts["no_w"][0].split("struct ClosedFormW90")[1].split("};")[0]
+    body = texts["no_w"][1].split("struct ClosedFormW90")[1].split("};")[0]
     assert "expf(" not in body and "weight_of_d2(" not in body
     with pytest.raises(ValueError):
-        walk_variant_sources(step.replace("d2 <= r2 ? sm.z", "d2 < r2 ? sm.z"), walk)
+        walk_variant_sources(step, walk.replace("d2 <= r2 ? sm.z", "d2 < r2 ? sm.z"))
+    k6 = read("som_update_masked_sm90.cu")
+    k6_texts = k6_variant_sources(k6)
+    assert tuple(k6_texts) == WALK_VARIANTS
+    assert {n for n, t in k6_texts.items() if t != k6} == {"no_feed"}
+    assert k6_texts["no_feed"].count("if (c >= L::STAGES)") == 1
+    with pytest.raises(ValueError):
+        k6_variant_sources(k6.replace("L::UPD);", "L::UPD) ;"))
 
 
 def test_fused_step_ab_skeleton_cases_on_the_cpu():
