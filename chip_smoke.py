@@ -29,19 +29,21 @@ phases, each printing one JSON line:
             seconds, from the build's log); one "ptxas" line: registers and
             spill bytes of each instantiation of K1, K2 and their prologue,
             K8, K4 and its prologue, K9, K3's and K17's Hopper walk and its
-            prologue, K6 and its prologue, K5, K10, K12, K14's walk (its
+            prologue, K6 and its prologue, K5, K11, K10, K12, K14's walk (its
             stagger and int8_win) and K15,
-            from nvcc's -Xptxas -v report; one "sass" line: the HMMA
+            from nvcc's -Xptxas -v report (K5's and K11's must spill nothing
+            and keep their wgmma unserialized); one "sass" line: the HMMA
             (mma.sync tensor-core) instructions in each instantiation of the
-            tensor-core kernels K3 and K17 past D 128, K5, K7, K10,
-            K11, K12, K13, K14's main form and its walk and K16, the HGMMA
+            tensor-core kernels K3 and K17 past D 128, K7, K10,
+            K12, K13, K14's main form and its walk and K16, the HGMMA
             (TF32 wgmma) instructions in each of K1's, K2's, K8's, K4's,
-            K9's, K6's and K3's and K17's Hopper walk (up to D 128; none may
-            have an HMMA),
+            K9's, K6's, K5's, K11's and K3's and K17's Hopper walk (up to D
+            128; none may have an HMMA),
             the IMMA (int8 mma.sync) instructions in each instantiation of
             K14's int8_win walk, the IGMMA (int8 wgmma) instructions in each
             of K15's, and the UTMALDG (TMA tile loads) in each of K1's,
-            K2's, K8's, K4's, K9's, K6's, K3's and K17's walk and K15's, from cuobjdump
+            K2's, K8's, K4's, K9's, K6's, K5's, K11's, K3's and K17's walk
+            and K15's, from cuobjdump
             --dump-sass of the library (none fails the run, as does an IDP4A
             anywhere in it);
             then g++ builds the native data-file engine (data/native_io.py
@@ -475,20 +477,18 @@ PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32 on
 # mma.sync: K3 and K17 past D 128 (their one instantiation each, NT 32),
-# K11 (K3's update half), K12 (K3's blend-and-winner half), K13 (K3's body
-# with the separable W), K14's main form (K13's body; one TF32 product under
-# batch_bf16) and its walk (stagger and int8_win: the same body's chunk
-# functions; int8_win's winners on int8 mma.sync, the IMMA of
-# INT8_MMA_KERNELS), K16 (the mma.sync winner walk), K10 (that walk with a
-# top-k fold),
-# K7 (K3's step body on the resident codebook) and K5 (K3's update half with
-# the blend)
-SPLIT_TF32_KERNELS = ("som_fused_step_kernel", "som_accum_kernel",
+# K12 (K3's blend-and-winner half), K13 (K3's body with the separable W),
+# K14's main form (K13's body; one TF32 product under batch_bf16) and its
+# walk (stagger and int8_win: the same body's chunk functions; int8_win's
+# winners on int8 mma.sync, the IMMA of INT8_MMA_KERNELS), K16 (the
+# mma.sync winner walk), K10 (that walk with a top-k fold) and K7 (K3's step
+# body on the resident codebook)
+SPLIT_TF32_KERNELS = ("som_fused_step_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel",
                       "som_vmem_steps_kernel", "som_blend_winner_kernel",
-                      "dist_topk_kernel", "som_update_kernel", "som_fused_chunked_stagger_kernel",
+                      "dist_topk_kernel", "som_fused_chunked_stagger_kernel",
                       "som_fused_chunked_int8_kernel")
 INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 # K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
@@ -496,13 +496,17 @@ INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
 # K1 and K2 (one walk, two names), K8 (that walk with a top-2 fold), K4
 # (the walk with the keep contraction beside it) and K9 (K4's with the top-2
 # fold), K3, K13 and K17 up to D 128 (their Hopper walk,
-# csrc/fused_step_sm90.cuh) and K6 (its update on that walk, at any D):
-# split-TF32 products on warpgroup wgmma (HGMMA, and no HMMA), fed by TMA
-# like K15 (UTMALDG)
+# csrc/fused_step_sm90.cuh) and K6, K5 and K11 (its update on one feature
+# slab a CTA, at any D): split-TF32 products on warpgroup wgmma (HGMMA, and
+# no HMMA), fed by TMA like K15 (UTMALDG)
 TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel", "top2_sm90_kernel",
                       "masked_argmin_sm90_kernel", "masked_top2_sm90_kernel",
                       "som_fused_step_sm90_kernel", "som_fused_factored_sm90_kernel",
-                      "fused_skeleton_sm90_kernel", "som_update_masked_sm90_kernel")
+                      "fused_skeleton_sm90_kernel", "som_update_masked_sm90_kernel",
+                      "som_update_sm90_kernel", "som_accum_sm90_kernel")
+# the kernels whose ptxas report must show no spill and no serialized
+# wgmma (K5 and K11, on K3's update walk)
+CLEAN_PTXAS_KERNELS = ("som_update_sm90_kernel", "som_accum_sm90_kernel")
 TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -676,7 +680,8 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "masked_argmin_sm90_kernel",
                                   "split_masked_codes_kernel",
                                   "dist_topk_kernel", "som_blend_winner_kernel",
-                                  "masked_top2_sm90_kernel", "som_update_kernel",
+                                  "masked_top2_sm90_kernel", "som_update_sm90_kernel",
+                                  "som_accum_sm90_kernel",
                                   "som_fused_chunked_stagger_kernel",
                                   "som_fused_chunked_int8_kernel",
                                   "int8_winner_probe_kernel",
@@ -686,7 +691,7 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "split_sm90_kernel", "som_update_masked_sm90_kernel",
                                   "split_masked_batch_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
-    (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5,
+    (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5, K11,
     K14's walk, K15, K3's, K13's and K17's Hopper walk and its prologue, and
     K6 and its prologue unless given), and "wgmma_serialized" where ptxas
     reports that it serialized the
@@ -725,6 +730,22 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
         if m:
             out[fn]["registers"] = int(m.group(1))
     return out
+
+
+def clean_ptxas(report: dict, bases=CLEAN_PTXAS_KERNELS) -> None:
+    """Raise unless each instantiation of `bases` in ptxas_report's
+    `report` spills nothing and keeps its wgmma unserialized (no C7518
+    note), and each base has one; an empty report (a library built earlier
+    whose build kept no log) checks nothing."""
+    if not report:
+        return
+    found = {n: v for n, v in report.items() if n.split("<")[0] in bases}
+    bad = {n: v for n, v in found.items()
+           if v.get("wgmma_serialized") or v.get("spill_stores", 0)
+           or v.get("spill_loads", 0)}
+    missing = [b for b in bases if not any(n.split("<")[0] == b for n in found)]
+    if bad or missing:
+        raise AssertionError(f"ptxas: spilled or serialized {bad}, not found {missing}")
 
 
 def check_winners(name, x, codes, ik, ip, rel=1e-5, mask=None, bf16_score=False,
@@ -4719,6 +4740,7 @@ def main() -> int:
     # earlier one's (built_now says which); empty if that build kept no log
     ptxas = ptxas_report(_build.build_log())
     emit("ptxas", card=smi, built_now=built_now, report=ptxas)
+    clean_ptxas(ptxas)
     dump = sass(_build.library_path())
     emit("sass", hmma_per_function=sass_mma(dump),
          hgmma_per_function=sass_mma(dump, TF32_WGMMA_KERNELS, "HGMMA"),
@@ -5386,7 +5408,7 @@ def main() -> int:
                                  "som_lvq_pak_tpu/ops/pallas_som.py:580"),
         "dist_argmin_masked": ("som_lvq_pak_torch/csrc/argmin_masked_sm90.cu",
                                "som_lvq_pak_tpu/ops/pallas_distance.py:74"),
-        "som_neighborhood_update_idx": ("som_lvq_pak_torch/csrc/som_update.cu",
+        "som_neighborhood_update_idx": ("som_lvq_pak_torch/csrc/som_update_sm90.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:116"),
         "som_neighborhood_update_idx_masked": (
             "som_lvq_pak_torch/csrc/som_update_masked_sm90.cu",
@@ -5399,7 +5421,7 @@ def main() -> int:
                              "som_lvq_pak_tpu/ops/pallas_distance.py:308"),
         "dist_topk": ("som_lvq_pak_torch/csrc/dist_topk.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:583"),
-        "som_neighborhood_accumulate": ("som_lvq_pak_torch/csrc/som_accum.cu",
+        "som_neighborhood_accumulate": ("som_lvq_pak_torch/csrc/som_accum_sm90.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:301"),
         "som_blend_winner": ("som_lvq_pak_torch/csrc/som_blend_winner.cu",
                              "som_lvq_pak_tpu/ops/pallas_som.py:401"),

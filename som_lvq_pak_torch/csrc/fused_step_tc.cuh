@@ -4,12 +4,11 @@
 // (som_fused_factored.cu and
 // som_fused_chunked_tc.cuh, W from the separable tables): batch t's
 // neighbourhood update, then batch t+1's winners against the updated rows,
-// in one pass over the codebook.  Its two halves run alone in the mixed mesh
-// step: the update half (fused_update_tc) as K11 (som_accum.cu: the
-// accumulators of a model shard, written out), the blend and winners
-// (fused_blend_winners_tc) as K12 (som_blend_winner.cu, on the accumulators
-// summed over the data axis); K5 (som_update.cu) is the update half with the
-// blend.  Each half is a loop over chunk functions (fetch_update_chunk,
+// in one pass over the codebook.  Its blend-and-winner half
+// (fused_blend_winners_tc) runs alone as K12 (som_blend_winner.cu, on the
+// accumulators of a model shard summed over the data axis, which K11 writes
+// on K3's Hopper walk, som_accum_sm90.cu; K5, the update with the blend,
+// runs that walk too, som_update_sm90.cu).  Each half is a loop over chunk functions (fetch_update_chunk,
 // update_chunk_tc; blend_rows_tc; winner_scores_tc, winner_fold_tc,
 // winner_merge_tc), which K14's stagger and int8_win call in another order
 // (som_fused_chunked_tc.cuh: chunked_walk) with the same floats.  The
@@ -100,9 +99,10 @@
 // Determinism.  Every sum runs in a fixed order inside one CTA: no split of
 // the batch across CTAs, no float atomics.  A row's arithmetic depends only
 // on its own data and its unit, not on the tile or shard that holds it (for
-// a given CTA height), so two runs are bit-equal, K11's accumulators of a
-// row are the very floats K3 blends into it, and K12 blending them gives
-// K3's rows, winners and values bit for bit.
+// a given CTA height), so two runs are bit-equal, the accumulators of a row
+// that K11 writes (on K3's Hopper walk, whose sums are this body's) are the
+// very floats K3 blends into it, and K12 blending them gives K3's rows,
+// winners and values bit for bit.
 
 #pragma once
 
@@ -124,7 +124,7 @@ constexpr int kBC = 32;  // update: batch samples per chunk (4 k-steps)
 // would not fit in 227 KB of shared memory beside 128 rows)
 __host__ __device__ constexpr int k3_bw(int NT) { return NT <= 16 ? 64 : 32; }
 
-// K3's and K11's warps per CTA (16 rows each): 8, or 4 for D > 128, where a
+// K3's warps per CTA (16 rows each): 8, or 4 for D > 128, where a
 // 128-row tile and a 64-sample winner chunk would not fit in 227 KB of
 // shared memory
 __host__ __device__ constexpr int k3_warps(int NT) { return NT <= 16 ? 8 : 4; }
@@ -209,7 +209,7 @@ __device__ __forceinline__ void copy_rows(float* dst, int stride,
   }
 }
 
-// K3's and K11's W: the closed form at the row's global unit, from each
+// K3's W: the closed form at the row's global unit, from each
 // sample's BMU grid x, BMU row and alpha staged per chunk (float4: x, row,
 // alpha, 0).  The staging is found from the dynamic shared array and an
 // offset, not a stored pointer, so its loads compile as shared-memory loads.
@@ -582,7 +582,8 @@ __device__ __forceinline__ void winner_merge_tc(const float* redv, const int* re
 // `keys`.  xn_hi, xn_lo: the next batch as split_batches_kernel wrote it
 // (xn_lo unread under kBf16).  Uses the winner region of shared memory, which
 // must be free: nothing else of the CTA may read or write it any more.  K12
-// (som_blend_winner.cu) runs it alone on accumulators K11 wrote out.
+// (som_blend_winner.cu) runs it alone on accumulators K11 wrote out
+// (som_accum_sm90.cu, the same sums as this body's update half).
 template <int NT, int WARPS, bool kBf16, typename CT>
 __device__ __forceinline__ void fused_blend_winners_tc(
     const float (&acc)[NT][4], const float (&wsum)[2], CT* __restrict__ codes, int noc,

@@ -16,10 +16,11 @@
 //
 // What bounds it on H100, the layout, the update, the blend, the winners and
 // why two runs are bit-equal: fused_step_tc.cuh, the body K3 shares with K13
-// and K14 (the separable steps, som_fused_factored.cu) and whose update half
-// is K11 (som_accum.cu), with the batches split once per step by its
-// split_batches_kernel.  K3 builds each W value (fused_step_tc.cuh's
-// ClosedFormW, which K11 shares) from
+// and K14 (the separable steps, som_fused_factored.cu), with the batches
+// split once per step by its split_batches_kernel (K11, the update half
+// alone, and K5, the update with the blend, run K3's Hopper walk at any D:
+// som_accum_sm90.cu, som_update_sm90.cu).  K3 builds each W value
+// (fused_step_tc.cuh's ClosedFormW) from
 // the closed form: each sample's BMU grid x and row and its alpha (0 where
 // bmu < 0 or past B) are staged once per chunk, each row's grid x and row
 // once per CTA, so no (row, sample) pair pays an integer division; W is

@@ -36,7 +36,8 @@
 // registers of the consumers' 232 at F 64).  A producer warpgroup's thread
 // streams by TMA (SWIZZLE_128B) each 32-sample chunk of the slab's rows of
 // the three planes, with the chunk's table slice, into a ring of slots
-// behind full and empty mbarriers.  Per k step of 8 samples a consumer
+// behind full and empty mbarriers (fused_step_sm90.cuh's SlabLayout and
+// produce_slab, K5's and K11's too).  Per k step of 8 samples a consumer
 // issues five wgmma.m64nFk8 with W's fragments as A in registers: X o K lo.W
 // hi, hi.W lo, hi.W hi into the chunk acc (mma_tf32x3's order), then K.W
 // lo, K.W hi into the chunk mass; both chunk sums start from zero (wgmma's
@@ -67,22 +68,6 @@ constexpr int PLANES = 3;  // X o K hi, X o K lo, K
 // the slab width (a wgmma's N) and the padded feature count for D
 __host__ __device__ constexpr int slab_of(int D) { return D <= 32 ? 32 : 64; }
 __host__ __device__ constexpr int padded_d(int D) { return D <= 32 ? 32 : (D + 63) / 64 * 64; }
-
-// Shared memory for F-feature slabs: [ring: STAGES slots of the three
-// planes' F rows of 32 samples and the chunk's table][TN floats unused by
-// K6: setup's m2s][barriers]
-template <int F>
-struct Layout6 {
-  static constexpr int UPD_PLANE = F * UC * 4;
-  static constexpr int TABLE = PLANES * UPD_PLANE;
-  static constexpr int UPD = TABLE + UC * 16;
-  static constexpr int SLOT = round_up(UPD, ALIGN);
-  static constexpr int TILE = 0;
-  static constexpr int FIXED = ALIGN + TN * 4 + 2 * MAX_STAGES * 8;
-  static constexpr int STAGES = min_of(MAX_STAGES, (SMEM_MAX - FIXED) / SLOT);
-  static constexpr int BYTES = FIXED + STAGES * SLOT;
-  static_assert(STAGES >= 2, "the ring needs two slots");
-};
 
 // The prologue: scratch xs = the three planes of (Dp, Bp), element (k, b)
 // from x[b][k] and mask[b][k] (X o K split into hi and lo, K), zeros past D
@@ -126,7 +111,7 @@ template <int F>
 __device__ __forceinline__ void issue_masked(float (&part)[F / 2], float (&mpart)[F / 2],
                                              const float (&whi)[4][4],
                                              const float (&wlo)[4][4], uint32_t slot) {
-  constexpr int P = Layout6<F>::UPD_PLANE;
+  constexpr int P = SlabLayout<F, PLANES>::UPD_PLANE;
   sm90::fence_operand(part);
   sm90::fence_operand(mpart);
   sm90::wgmma_fence();
@@ -208,7 +193,7 @@ som_update_masked_sm90_kernel(const __grid_constant__ CUtensorMap xt_map,
                               const __grid_constant__ CUtensorMap smp_map,
                               float* __restrict__ codes, int noc, int D, int Dp, int B,
                               int xdim, int hexa, int gaussian, float radius) {
-  using L = Layout6<F>;
+  using L = SlabLayout<F, PLANES>;
   constexpr int NT = F / 8;
   unsigned char* tile;
   float* m2s;
@@ -217,19 +202,7 @@ som_update_masked_sm90_kernel(const __grid_constant__ CUtensorMap xt_map,
   const int f0 = blockIdx.y * F;
   if (threadIdx.x >= ALL) {  // the producer warpgroup: one thread
     sm90::setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == ALL) {
-      for (int c = 0; c < nu; ++c) {
-        sm90::mbar_wait(&ring.empty[ring.s], ring.phase ^ 1);
-        sm90::mbar_arrive_expect_tx(&ring.full[ring.s], L::UPD);
-        unsigned char* slot = ring.slot();
-#pragma unroll
-        for (int p = 0; p < PLANES; ++p)
-          sm90::tma_load_2d(slot + p * L::UPD_PLANE, &xt_map, &ring.full[ring.s], c * UC,
-                            p * Dp + f0);
-        sm90::tma_load_1d(slot + L::TABLE, &smp_map, &ring.full[ring.s], 4 * UC * c);
-        ring.advance();
-      }
-    }
+    if (threadIdx.x == ALL) produce_slab<L, PLANES>(ring, &xt_map, &smp_map, nu, Dp, f0);
     return;
   }
   sm90::setmaxnreg_inc<CONSUMER_REGS>();
@@ -258,15 +231,10 @@ som_update_masked_sm90_kernel(const __grid_constant__ CUtensorMap xt_map,
 template <int F>
 int launch_walk(float* codes, int noc, int D, int B, int xdim, int hexa, int gaussian,
                 float radius, const float* xs, cudaStream_t stream) {
-  using L = Layout6<F>;
+  using L = SlabLayout<F, PLANES>;
   const int Dp = padded_d(D), Bp = round_up(B, 64);
   CUtensorMap xt, smp;
-  int rc = sm90::encode_map(&xt, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xs, PLANES * Dp, Bp, UC,
-                            F, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!rc)
-    rc = sm90::encode_map(&smp, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                          xs + (size_t)PLANES * Dp * Bp, 0, 4 * Bp, 4 * UC, 1,
-                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  const int rc = encode_slab_maps<F, PLANES>(&xt, &smp, xs, Dp, Bp);
   if (rc) return rc;
   const auto kernel = som_update_masked_sm90_kernel<F>;
   const cudaError_t attr =

@@ -14,11 +14,15 @@ bmu < 0 gives 0).  `alpha` is a scalar or a per-sample (B,) vector.  No
 codebook is read: the mixed data x model step sums these over the data axis
 before K12 blends them in (parallel.sharded).
 
-A CUDA tensor launches the kernel in `csrc/som_accum.cu`: K3's update half
-(csrc/fused_step_tc.cuh) on the tensor cores, split-TF32 products summed per
-32-sample chunk into float32 registers, so a row's sums are the floats K3
-blends into it; a CPU tensor runs the plain version below.  The wrapper
-counts its kernel launches in its `launches` attribute.
+A CUDA tensor launches the kernel in `csrc/som_accum_sm90.cu`: K3's update
+on its Hopper walk (csrc/fused_step_sm90.cuh), K5's without the blend (K3's
+prologue into `ops.som_update.update_scratch`, one feature slab of
+`ops.som_update.update_slabs` per CTA, any D), split-TF32 products on TF32
+`wgmma` summed per 32-sample chunk into float32 registers, so a row's sums
+are the floats K3 blends into it and do not depend on the rows beside it
+(a shard accumulated in row pieces gives the bits of the whole shard); a
+CPU tensor runs the plain version below.  The wrapper counts its kernel
+launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import _split_scratch, neighborhood_w
+from .som_step import neighborhood_w
+from .som_update import update_scratch
 
 
 def som_neighborhood_accumulate_plain(xb, bmu, n_local, xdim, hexa, alpha,
@@ -79,7 +84,7 @@ def som_neighborhood_accumulate(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     xb = xb.contiguous()
-    xs = _split_scratch(B, 0, D, dev)
+    xs = update_scratch(B, D, dev)
     acc = torch.empty((n_local, D), dtype=torch.float32, device=dev)
     wsum = torch.empty((n_local, 1), dtype=torch.float32, device=dev)
     _build.call("somvq_som_accum", int(n_local), D, xb.data_ptr(),

@@ -17,20 +17,23 @@ leave every unit's matching component untouched (lvq_pak.c:349-356).
 The codebook is updated IN PLACE, as by K3 (the caller owns the resident
 codebook; each CUDA block reads and writes only its own rows), and returned.
 
-A CUDA tensor launches the kernel, both on the tensor cores as split-TF32
-products (float32 accuracy).  K5 (`csrc/som_update.cu`) is K3's update
-half on `mma.sync` (`csrc/fused_step_tc.cuh`, as K11 runs it) with the
-blend, the batch split once into a scratch (`ops.som_step._split_scratch`):
-its codebook is K3's rows on the same winners bit for bit
-(`ops.tf32x3.som_update_tf32x3` emulates it).  K6
-(`csrc/som_update_masked_sm90.cu`) runs W.(X o K) and the mass W.K on K3's
-Hopper walk: a prologue splits X o K into TF32 hi and lo and K once a call,
-transposed, with K3's per-sample table, into a scratch (`k6_scratch`;
-`ops.tf32x3.split_k6_plain` is its plain version), and each CTA takes 128
-rows and one slab of at most 64 features, its products on TF32 `wgmma` fed
-by TMA, in the order `ops.tf32x3.som_update_masked_tf32x3` emulates.  A
-CPU tensor runs the plain version below.  The wrappers count their kernel
-launches in their `launches` attributes.
+A CUDA tensor launches the kernel, both on K3's Hopper walk
+(`csrc/fused_step_sm90.cuh`): split-TF32 products (float32 accuracy) on TF32
+`wgmma` fed by TMA, each CTA 128 rows and one feature slab on gridDim.y, so
+any D.  K5 (`csrc/som_update_sm90.cu`) is K3's update with its blend: K3's
+prologue splits the batch into TF32 hi and lo once a call, transposed, with
+K3's per-sample table, into a scratch (`update_scratch`;
+`ops.tf32x3.split_sm90_plain` is its plain version), the slabs are
+`update_slabs`; its codebook is K3's rows on the same winners bit for bit
+(`ops.tf32x3.som_update_tf32x3` emulates it; K11, `ops.som_accum`, is the
+same walk with the sums written out).  K6 (`csrc/som_update_masked_sm90.cu`)
+runs W.(X o K) and the mass W.K on the same walk: its prologue splits X o K
+into TF32 hi and lo and K once a call, transposed, with K3's per-sample
+table, into a scratch (`k6_scratch`; `ops.tf32x3.split_k6_plain` is its
+plain version), each CTA one slab of at most 64 features (`k6_slabs`), in
+the order `ops.tf32x3.som_update_masked_tf32x3` emulates.  A CPU tensor runs
+the plain version below.  The wrappers count their kernel launches in their
+`launches` attributes.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch
 from .. import _build
 from .dist_argmin import split_codes_dp
 from .distance import fp32_matmul, keep_of, mask_bytes
-from .som_step import _split_scratch, guarded_blend, neighborhood_w
+from .som_step import guarded_blend, neighborhood_w
 
 
 def som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa, alpha,
@@ -62,6 +65,35 @@ def som_neighborhood_update_idx_plain(codes, xb, bmu, xdim, hexa, alpha,
         keep = keep_of(mask)
         acc, wsum = w @ (xb * keep), w @ keep
     return codes.copy_(guarded_blend(codes, acc, wsum))
+
+
+def update_slab(D: int) -> int:
+    """The feature slab of K5's and K11's CTAs on gridDim.y
+    (csrc/fused_step_sm90.cuh: update_slab): 32 features up to D 32, 64 up
+    to D 64, else 128."""
+    if D < 1:
+        raise ValueError(f"K5 and K11 take D >= 1, got {D}")
+    return 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def update_slabs(D: int) -> list:
+    """The feature ranges [lo, hi) of K5's and K11's CTAs on gridDim.y:
+    whole `update_slab(D)` slabs over the prologue's padded rows, the last
+    cut at D."""
+    F = update_slab(D)
+    return [(f0, min(D, f0 + F)) for f0 in range(0, D, F)]
+
+
+def update_scratch(B: int, D: int, dev) -> torch.Tensor:
+    """Scratch of K5's and K11's prologue (K3's, csrc/fused_step_sm90.cuh:
+    split_sm90_kernel with no next batch): the batch transposed, (Dp, Bp),
+    split into its TF32 hi and lo planes, then K3's per-sample float4 table
+    (Bp,); Dp = D padded to whole `update_slab(D)` slabs, Bp = B rounded up
+    to 64 (`ops.tf32x3.split_sm90_plain(xb, xb[:0], Dp, bmu=...)` fills
+    it)."""
+    Bp, F = -(-B // 64) * 64, update_slab(D)
+    return torch.empty((2 * -(-D // F) * F * Bp + 4 * Bp,), dtype=torch.float32,
+                       device=dev)
 
 
 def k6_scratch(B: int, D: int, dev) -> torch.Tensor:
@@ -136,7 +168,7 @@ def som_neighborhood_update_idx(
                                                  aw, radius, gaussian)
     xb = xb.contiguous()
     B, D = xb.shape
-    xs = _split_scratch(B, 0, D, codes.device)
+    xs = update_scratch(B, D, codes.device)
     _build.call("somvq_som_update", codes.data_ptr(), codes.shape[0], D,
                 xb.data_ptr(), bmu.data_ptr(), aw.data_ptr(), B, int(xdim),
                 int(bool(hexa)), int(bool(gaussian)), float(radius),

@@ -32,9 +32,9 @@ or K4's scoring with a second winner or k of them, and K chained K3 steps.
 
 `split_batches_plain`, `split_sm90_plain` and `split_k6_plain` are the plain
 versions of the prologues, the mma.sync steps' split batches, the Hopper
-walk's (the update batch transposed, K3's per-sample table, `k3_table`) and
-K6's on the same walk (X o K split and K, transposed, and K3's table), as
-they fill their scratch.
+walk's (the update batch transposed, K3's per-sample table, `k3_table`; K5's
+and K11's with no next batch) and K6's on the same walk (X o K split and K,
+transposed, and K3's table), as they fill their scratch.
 """
 
 from __future__ import annotations

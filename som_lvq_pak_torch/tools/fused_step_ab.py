@@ -7,8 +7,10 @@ K3's walk, for D <= 128; csrc/som_fused_factored.cu past it), K14's main form
 feature passes), K17 (csrc/fused_skeleton_sm90.cu, K3's walk;
 csrc/fused_skeleton.cu past D 128), the winner walks K4 and K9 (masked,
 csrc/argmin_masked_sm90.cu), K8 (csrc/argmin_sm90.cu) and K10
-(csrc/dist_topk.cu, at k 2 and 8), and the two-kernel step's updates K5
-(csrc/som_update.cu) and K6 (masked, csrc/som_update_masked_sm90.cu).
+(csrc/dist_topk.cu, at k 2 and 8), the two-kernel step's updates K5
+(csrc/som_update_sm90.cu) and K6 (masked, csrc/som_update_masked_sm90.cu),
+and the mixed mesh step's halves K11 (csrc/som_accum_sm90.cu) then K12
+(csrc/som_blend_winner.cu).
 
     python -m som_lvq_pak_torch.tools.fused_step_ab [--iters 10] [--device cuda]
     python -m som_lvq_pak_torch.tools.fused_step_ab --walk-variants [--iters 10]
@@ -38,29 +40,38 @@ values and indices.  For each update case (map, topology, neighbourhood, B,
 D, radius: chip_smoke.py's K5 and K6 cases, then D 300, 512 and 1024): K5
 (`som_neighborhood_update_idx`) and K6 (the same with a mask, p 0.1 and
 every 97th row masked) on inputs made as for the step cases, their ms and
-the SHA-256 of the updated codebook.  Run it in two checkouts in one call
+the SHA-256 of the updated codebook.  For each accumulator case (map,
+topology, neighbourhood, shard rows, unit offset, B, D, radius: the mixed
+mesh step's shard, rows 32768.. of the 256x256 map at B 2048, then smaller
+shards at D 5, 37, 200, 300 and 512): K11 (`som_neighborhood_accumulate`)
+on inputs from seed 8, its ms and the SHA-256 of acc and wsum, and K11 then
+K12 (`som_blend_winner` on the shard's rows, the next batch B' = B) as the
+mixed step runs them, the SHA-256 of the codebook, values and winners
+("k11_k12_digest").  Run it in two checkouts in one call
 (parent, change, change, parent) and compare: equal digests mean the same
 floats.  Prints one JSON line.  `device="cpu"` runs the plain versions,
 timed by the host clock (a CPU time, never a device number).
 
-`--walk-variants` (a card and nvcc): where K3's, K13's and K6's Hopper walk
-spends its time.  Copies of csrc/ with the walk's sources edited
-(`walk_variant_sources`, `k13_variant_sources`, `k6_variant_sources`) are
-built by nvcc into `som_lvq_pak_torch/_build/step_ab/` (git-ignored) and
-timed in turns, K3 at 256x256, B 4096, D 64 (gaussian, hexa, radius 64),
-whole and with each contraction nearly alone (B' 64: the update; B 32: the
-winners), K13 at its main-path shape, 128x128, B 1024, D 64 (gaussian,
-hexa, radius 32), K6 at the masked 1M cell's step (K3's shape, p 0.1) and
-K17 at its bench shape:
+`--walk-variants` (a card and nvcc): where the Hopper walk of K3, K13, K6,
+K5, K11 and K17 spends its time.  Copies of csrc/ with the walk's sources
+edited (`walk_variant_sources`, `k13_variant_sources`) are built by nvcc
+into `som_lvq_pak_torch/_build/step_ab/` (git-ignored) and timed in turns,
+K3 at 256x256, B 4096, D 64 (gaussian, hexa, radius 64), whole and with
+each contraction nearly alone (B' 64: the update; B 32: the winners), K13
+at its main-path shape, 128x128, B 1024, D 64 (gaussian, hexa, radius 32),
+K6 at the masked 1M cell's step (K3's shape, p 0.1), K5 at K3's shape, K11
+at the mixed mesh step's shard (rows 32768.. of the 256x256 map, B 2048, D
+64) and K17 at its bench shape:
 
 * `walk`: the source as it is;
-* `no_w`: K3's and K6's W value replaced by the sample's alpha (no grid
-  distance, no division, no expf; the table read and every product stay);
-  K13's table entries replaced by 1 (no table read from L2; the products
-  stay);
+* `no_w`: K3's, K5's, K6's and K11's W value replaced by the sample's alpha
+  (no grid distance, no division, no expf; the table read and every
+  product stay); K13's table entries replaced by 1 (no table read from L2;
+  the products stay);
 * `no_feed`: the producer loads each phase's first ring-full of chunks and
   only arms the barriers after, so the products read stale slots: the L2
-  feed alone removed;
+  feed alone removed (K5's, K6's and K11's producer, `produce_slab`, takes
+  the same edit as K3's);
 * `no_fold`: K3's and K13's winner fold (their call of fused_step_sm90.cuh's
   argmin_fold) cut to a sum of the scores folded once a chunk (a product
   whose sums nothing reads would be dropped by ptxas, so the sums stay
@@ -68,7 +79,11 @@ K17 at its bench shape:
 * `no_turns`: the two consumer warpgroups issue their products without
   taking turns.
 
-K6 has no fold: its `no_fold` is its walk, not timed.
+K5, K6 and K11 have no fold: their `no_fold` is their walk, not timed.
+Beside them one more copy, `slab64` (`slab_variant_source`): K5 and K11 with
+the slab of 64 features past D 64 instead of 128, timed against `walk` on K5
+at 256x256, B 4096, D 300 (five slabs of 64 against three of 128) and held
+to it bit for bit: the sums do not depend on the slab width.
 
 Wrong results on purpose, except `walk`'s, which must equal the wrapper's
 (checked).  Prints one JSON line with the card's name and power limit.
@@ -92,6 +107,8 @@ from ..ops.dist_argmin import dist_argmin, dist_argmin_plain
 from ..ops.dist_top2 import dist_top2
 from ..ops.dist_topk import dist_topk
 from ..ops.skeleton import fused_step_skeleton
+from ..ops.som_accum import som_neighborhood_accumulate
+from ..ops.som_blend import som_blend_winner
 from ..ops.som_step import (som_fused_factored_chunked_step, som_fused_factored_step,
                             som_fused_train_step)
 from ..ops.som_update import som_neighborhood_update_idx
@@ -132,6 +149,21 @@ UPDATE_CASES = ((256, 256, True, True, 4096, 64, 64.0),
                 (16, 16, True, True, 256, 300, 4.0),
                 (16, 16, True, True, 256, 512, 4.0),
                 (16, 16, True, False, 256, 1024, 4.0))
+
+
+# (xdim, ydim, hexa, gaussian, n_local, unit offset, B, D, radius) of K11
+# and K11 then K12: the mixed mesh step's shard (rows 32768.. of the
+# 256x256 map, B 4096 over a data axis of 2), chip_smoke.py's other
+# geometries at a small shard (a rect bubble map, hexa bubble), a ragged
+# shard at D 5 and 37, then D 200, 300 and 512 (chip_smoke.py's wide cases)
+ACCUM_CASES = ((256, 256, True, True, 32768, 32768, 2048, 64, 64.0),
+               (16, 16, False, False, 128, 128, 1024, 64, 3.0),
+               (16, 16, True, False, 96, 64, 1000, 64, 3.0),
+               (12, 8, True, False, 40, 48, 1000, 5, 3.0),
+               (10, 6, True, True, 24, 32, 100, 37, 3.0),
+               (32, 32, True, True, 512, 512, 512, 200, 8.0),
+               (32, 32, True, True, 512, 512, 512, 300, 8.0),
+               (32, 32, True, True, 512, 512, 512, 512, 8.0))
 
 
 # (N, D, T, B, B' or None for x' = x, bf16) of K17: bench.py's twins of the
@@ -257,6 +289,39 @@ def run_update(xdim, ydim, hexa, gaussian, B, D, radius, dev, iters=10) -> dict:
     return out
 
 
+def _accum_inputs(xdim, ydim, n_local, offset, B, D, dev):
+    """An accumulator case's inputs from seed 8: the shard's rows of the
+    codebook, the batch, its global BMUs over the whole map (seven samples
+    without one), per-sample alphas and the next batch."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    codes = torch.randn((n_local, D), generator=g, device=dev)
+    xb = torch.randn((B, D), generator=g, device=dev)
+    bmu = torch.randint(0, xdim * ydim, (B,), generator=g, device=dev, dtype=torch.int32)
+    bmu[:7] = -1
+    alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device=dev)
+    xn = torch.randn((B, D), generator=g, device=dev)
+    return codes, xb, bmu, alpha, xn
+
+
+def run_accum(xdim, ydim, hexa, gaussian, n_local, offset, B, D, radius, dev,
+              iters=10) -> dict:
+    """One accumulator case: ms and digest of K11, and the digest of K11
+    then K12 on the shard (the mixed step's two halves on one data
+    shard)."""
+    codes, xb, bmu, alpha, xn = _accum_inputs(xdim, ydim, n_local, offset, B, D, dev)
+
+    def k11():
+        return som_neighborhood_accumulate(xb, bmu, n_local, xdim, hexa, alpha, radius,
+                                           gaussian, unit_offset=offset)
+
+    acc, wsum = k11()
+    return dict(case=f"accum {xdim}x{ydim}[{offset}:{offset + n_local}] "
+                     f"{'hexa' if hexa else 'rect'} {'gaussian' if gaussian else 'bubble'} "
+                     f"B {B} D {D}",
+                k11_digest=_digest([acc, wsum]), k11_ms=mean_ms(k11, dev, iters),
+                k11_k12_digest=_digest(som_blend_winner(codes.clone(), acc, wsum, xn)))
+
+
 def _skeleton_inputs(N, D, T, B, Bn, bf16, dev):
     """bench.py:prep_skeleton's inputs: codes normal, W uniform * 0.001, X
     normal (all bf16 W and X for the bf16 twin); x' = X unless Bn is given."""
@@ -285,7 +350,8 @@ def run(iters: int = 10, device="cuda") -> dict:
                 cases=[run_case(*c, dev=dev, iters=iters) for c in CASES],
                 skeleton=[run_skeleton(*c, dev=dev, iters=iters) for c in SKELETON_CASES],
                 winners=[run_winners(*c, dev=dev, iters=iters) for c in WINNER_CASES],
-                updates=[run_update(*c, dev=dev, iters=iters) for c in UPDATE_CASES])
+                updates=[run_update(*c, dev=dev, iters=iters) for c in UPDATE_CASES],
+                accums=[run_accum(*c, dev=dev, iters=iters) for c in ACCUM_CASES])
 
 
 # ---- --walk-variants: where K3's Hopper walk spends its time ------------------
@@ -320,8 +386,9 @@ _NO_FOLD = """    float v = 0.f;
 def walk_variant_sources(step_src: str, walk_src: str) -> dict:
     """{variant: (text of fused_step_sm90.cu, text of fused_step_sm90.cuh)}
     from the walk's two sources; raises ValueError if they no longer hold
-    the lines edited here.  K3's and K6's W construction (ClosedFormW90)
-    is the header's, so no_w edits the header."""
+    the lines edited here.  K3's, K5's, K6's and K11's W construction
+    (ClosedFormW90) is the header's, so no_w edits the header; so are K3's
+    producer and the slab walks' (produce_slab), which no_feed edits alike."""
     missing = [s for s in (_FOLD_START, _FOLD_END) if s not in step_src]
     missing += [a for a in _W_LINES if a not in walk_src]
     missing += [a for a, _ in _FEED_LINES + _TURN_LINES if a not in walk_src]
@@ -364,58 +431,58 @@ def k13_variant_sources(k13_src: str, walk_texts: dict) -> dict:
                    "no_fold": no_fold}.get(name, k13_src) for name in WALK_VARIANTS}
 
 
-_K6_FEED_LINE = "        sm90::mbar_arrive_expect_tx(&ring.full[ring.s], L::UPD);\n"
-_K6_FEED_GUARD = ("        if (c >= L::STAGES) {\n"
-                  "          sm90::mbar_arrive(&ring.full[ring.s]);\n"
-                  "          ring.advance();\n          continue;\n        }\n")
+_SLAB_LINE = ("__host__ __device__ constexpr int update_slab(int D) "
+              "{ return D <= 32 ? 32 : D <= 64 ? 64 : 128; }\n")
 
 
-def k6_variant_sources(k6_src: str) -> dict:
-    """{variant: text of som_update_masked_sm90.cu} for each of
-    WALK_VARIANTS: K6's producer is its own, so no_feed edits it here (as
-    the header's `produce`); its W (no_w) and turns (no_turns) are the
-    header's; it has no fold.  Raises ValueError if the source no longer
-    holds the line edited here."""
-    if _K6_FEED_LINE not in k6_src:
-        raise ValueError("K6's walk lacks the line the variants edit")
-    no_feed = k6_src.replace(_K6_FEED_LINE, _K6_FEED_GUARD + _K6_FEED_LINE)
-    return {name: no_feed if name == "no_feed" else k6_src for name in WALK_VARIANTS}
+def slab_variant_source(walk_src: str) -> str:
+    """The text of fused_step_sm90.cuh with K5's and K11's slab of 64
+    features past D 64 (`slab64`) instead of 128; raises ValueError if the
+    header no longer holds the line edited here."""
+    if _SLAB_LINE not in walk_src:
+        raise ValueError("the walk lacks the slab rule the slab64 variant edits")
+    return walk_src.replace(_SLAB_LINE, _SLAB_LINE.replace("D <= 64 ? 64 : 128", "64"))
 
 
 _WALK_ENTRIES = ("somvq_som_fused_step_sm90", "somvq_fused_skeleton_sm90",
-                 "somvq_som_fused_factored_sm90", "somvq_som_update_masked")
+                 "somvq_som_fused_factored_sm90", "somvq_som_update_masked",
+                 "somvq_som_update", "somvq_som_accum")
+_WALK_SOURCES = ("fused_step_sm90.cu", "fused_skeleton_sm90.cu", "som_fused_factored_sm90.cu",
+                 "som_update_masked_sm90.cu", "som_update_sm90.cu", "som_accum_sm90.cu")
+# slab64's library: K5 and K11 alone
+_SLAB_SOURCES = ("som_update_sm90.cu", "som_accum_sm90.cu")
 
 
 def build_variants(out: str = VARIANT_OUT) -> dict:
     """Each variant's copy of csrc/ built into a library of K3's, K13's,
-    K17's and K6's walks by one nvcc each, all started together; {variant:
-    library}."""
+    K17's, K6's, K5's and K11's walks, and slab64's of K5's and K11's, by
+    one nvcc each, all started together; {variant: library}."""
     read = lambda f: open(os.path.join(_build.CSRC, f)).read()  # noqa: E731
-    texts = walk_variant_sources(read("fused_step_sm90.cu"), read("fused_step_sm90.cuh"))
+    walk = read("fused_step_sm90.cuh")
+    texts = walk_variant_sources(read("fused_step_sm90.cu"), walk)
     k13 = k13_variant_sources(read("som_fused_factored_sm90.cu"), texts)
-    k6 = k6_variant_sources(read("som_update_masked_sm90.cu"))
+    copies = {name: ({"fused_step_sm90.cu": step_src, "fused_step_sm90.cuh": walk_src,
+                      "som_fused_factored_sm90.cu": k13[name]}, _WALK_SOURCES)
+              for name, (step_src, walk_src) in texts.items()}
+    copies["slab64"] = ({"fused_step_sm90.cuh": slab_variant_source(walk)}, _SLAB_SOURCES)
     nvcc, procs = _build._nvcc(), []
-    for name, (step_src, walk_src) in texts.items():
+    for name, (edits, sources) in copies.items():
         d = os.path.join(out, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        for f, text in (("fused_step_sm90.cu", step_src), ("fused_step_sm90.cuh", walk_src),
-                        ("som_fused_factored_sm90.cu", k13[name]),
-                        ("som_update_masked_sm90.cu", k6[name])):
+        for f, text in edits.items():
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
         procs.append(_build._start([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
                                     os.path.join(d, "lib.so"),
-                                    os.path.join(d, "fused_step_sm90.cu"),
-                                    os.path.join(d, "fused_skeleton_sm90.cu"),
-                                    os.path.join(d, "som_fused_factored_sm90.cu"),
-                                    os.path.join(d, "som_update_masked_sm90.cu")],
+                                    *(os.path.join(d, f) for f in sources)],
                                    os.path.join(d, "nvcc.log")))
     _build._wait(procs)
     libs = {}
-    for name in texts:
+    for name, (_, sources) in copies.items():
         lib = ctypes.CDLL(os.path.join(out, name, "lib.so"))
-        for entry in _WALK_ENTRIES:
+        for entry in (_WALK_ENTRIES if sources == _WALK_SOURCES else
+                      ("somvq_som_update", "somvq_som_accum")):
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
@@ -486,6 +553,42 @@ def _k6_call(lib, codes, xb, bmu, mask, xdim, hexa, alpha, radius, gaussian):
     return codes
 
 
+def _k5_call(lib, codes, xb, bmu, xdim, hexa, alpha, radius, gaussian):
+    """K5's C call on a variant's library, as ops.som_update's wrapper makes
+    it: the codebook, updated in place."""
+    from ..ops.som_update import update_scratch
+
+    dev = codes.device
+    B, D = xb.shape
+    xs = update_scratch(B, D, dev)
+    rc = lib.somvq_som_update(
+        codes.data_ptr(), codes.shape[0], D, xb.data_ptr(), bmu.data_ptr(), alpha.data_ptr(),
+        B, xdim, int(hexa), int(gaussian), float(radius), xs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_update: CUDA error {rc}")
+    return codes
+
+
+def _k11_call(lib, xb, bmu, n_local, xdim, hexa, alpha, radius, gaussian, unit_offset):
+    """K11's C call on a variant's library, as ops.som_accum's wrapper makes
+    it: (acc, wsum)."""
+    from ..ops.som_update import update_scratch
+
+    dev = xb.device
+    B, D = xb.shape
+    xs = update_scratch(B, D, dev)
+    acc = torch.empty((n_local, D), dtype=torch.float32, device=dev)
+    wsum = torch.empty((n_local, 1), dtype=torch.float32, device=dev)
+    rc = lib.somvq_som_accum(
+        n_local, D, xb.data_ptr(), bmu.data_ptr(), alpha.data_ptr(), B, xdim, int(hexa),
+        int(gaussian), float(radius), unit_offset, xs.data_ptr(), acc.data_ptr(),
+        wsum.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_accum: CUDA error {rc}")
+    return acc, wsum
+
+
 def _k17_call(lib, codes, w, x, xn):
     """K17's C call on a variant's library at the bench's scale: (out, vmax)."""
     from ..ops.som_step import sm90_scratch
@@ -552,12 +655,37 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
     matched6 = _digest([_k6_call(libs["walk"], codes.clone(), *a6)]) == _digest(
         [som_neighborhood_update_idx(codes.clone(), xb, bmu, xdim, hexa, alpha, radius,
                                      gaussian, mask=mask)])
-    k6_names = ("walk", "no_w", "no_feed", "no_turns")
-    rec = {name: [] for name in k6_names}
+    upd_names = ("walk", "no_w", "no_feed", "no_turns")
+    rec = {name: [] for name in upd_names}
     work = codes.clone()
-    for name in k6_names + k6_names[::-1]:
+    for name in upd_names + upd_names[::-1]:
         rec[name].append(mean_ms(lambda: _k6_call(libs[name], work, *a6), dev, iters))
     ms["k6 256x256 B 4096 D 64 p 0.1"] = rec
+    # K5 at K3's shape; K11 at the mixed mesh step's shard
+    a5 = (xb, bmu, xdim, hexa, alpha, radius, gaussian)
+    matched5 = _digest([_k5_call(libs["walk"], codes.clone(), *a5)]) == _digest(
+        [som_neighborhood_update_idx(codes.clone(), *a5)])
+    rec = {name: [] for name in upd_names}
+    for name in upd_names + upd_names[::-1]:
+        rec[name].append(mean_ms(lambda: _k5_call(libs[name], work, *a5), dev, iters))
+    ms["k5 256x256 B 4096 D 64"] = rec
+    a11 = (xb[:2048], bmu[:2048], 32768, xdim, hexa, alpha[:2048], radius, gaussian, 32768)
+    matched11 = _digest(_k11_call(libs["walk"], *a11)) == _digest(
+        som_neighborhood_accumulate(*a11[:-1], unit_offset=a11[-1]))
+    rec = {name: [] for name in upd_names}
+    for name in upd_names + upd_names[::-1]:
+        rec[name].append(mean_ms(lambda: _k11_call(libs[name], *a11), dev, iters))
+    ms["k11 256x256[32768:65536] B 2048 D 64"] = rec
+    # K5's slab width past D 64: 128 (walk) against 64 (slab64), bit for bit
+    c300 = torch.randn((xdim * xdim, 300), generator=g, device=dev)
+    x300 = torch.randn((B, 300), generator=g, device=dev)
+    a300 = (x300, bmu, xdim, hexa, alpha, radius, gaussian)
+    slab_equal = _digest([_k5_call(libs["walk"], c300.clone(), *a300)]) == _digest(
+        [_k5_call(libs["slab64"], c300.clone(), *a300)])
+    rec = {name: [] for name in ("walk", "slab64")}
+    for name in ("walk", "slab64", "slab64", "walk"):
+        rec[name].append(mean_ms(lambda: _k5_call(libs[name], c300, *a300), dev, iters))
+    ms["k5 256x256 B 4096 D 300 (slab 128 vs 64)"] = rec
     sk = _skeleton_inputs(65536, 64, 256, 4096, None, False, dev)
     rec = {name: [] for name in ("walk", "no_feed", "no_turns")}
     for name in ("walk", "no_feed", "no_turns", "no_turns", "no_feed", "walk"):
@@ -566,8 +694,9 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    return dict(card=card, walk_bit_equal_to_wrapper=matched and matched13 and matched6,
-                ms=ms)
+    return dict(card=card, walk_bit_equal_to_wrapper=(matched and matched13 and matched6
+                                                       and matched5 and matched11),
+                slab64_bit_equal_to_walk=slab_equal, ms=ms)
 
 
 def main(argv=None) -> int:
@@ -575,13 +704,13 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--walk-variants", action="store_true",
-                    help="time the Hopper walks of K3, K13, K6 and K17 against their "
-                         "variants instead")
+                    help="time the Hopper walks of K3, K13, K6, K5, K11 and K17 against "
+                         "their variants instead")
     a = ap.parse_args(argv)
     if a.walk_variants:
         rec = run_variants(a.iters)
         print(json.dumps(rec), flush=True)
-        return 0 if rec["walk_bit_equal_to_wrapper"] else 1
+        return 0 if rec["walk_bit_equal_to_wrapper"] and rec["slab64_bit_equal_to_walk"] else 1
     print(json.dumps(run(a.iters, a.device)), flush=True)
     return 0
 

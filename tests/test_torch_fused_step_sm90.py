@@ -237,10 +237,12 @@ def test_walk_variants_edit_the_walks_lines():
     """tools.fused_step_ab's walk variants (no_w, no_feed, no_fold,
     no_turns) find the lines they edit in the walk's sources, and each edits
     only its own: the A/B cannot silently time the walk under another name.
-    K3's and K6's W construction (ClosedFormW90) is the header's, so no_w
-    edits the header; K6's own producer takes no_feed's edit too."""
+    K3's, K5's, K6's and K11's W construction (ClosedFormW90) is the
+    header's, so no_w edits the header; no_feed edits both producers there,
+    K3's and the slab walks' (K5, K6, K11); slab64 edits only K5's and K11's
+    slab rule."""
     from som_lvq_pak_torch import _build
-    from som_lvq_pak_torch.tools.fused_step_ab import (WALK_VARIANTS, k6_variant_sources,
+    from som_lvq_pak_torch.tools.fused_step_ab import (WALK_VARIANTS, slab_variant_source,
                                                        walk_variant_sources)
 
     read = lambda f: open(f"{_build.CSRC}/{f}").read()  # noqa: E731
@@ -255,13 +257,14 @@ def test_walk_variants_edit_the_walks_lines():
     assert "expf(" not in body and "weight_of_d2(" not in body
     with pytest.raises(ValueError):
         walk_variant_sources(step, walk.replace("d2 <= r2 ? sm.z", "d2 < r2 ? sm.z"))
-    k6 = read("som_update_masked_sm90.cu")
-    k6_texts = k6_variant_sources(k6)
-    assert tuple(k6_texts) == WALK_VARIANTS
-    assert {n for n, t in k6_texts.items() if t != k6} == {"no_feed"}
-    assert k6_texts["no_feed"].count("if (c >= L::STAGES)") == 1
+    assert texts["no_feed"][1].count("if (c >= L::STAGES)") == 2
+    assert "produce_slab" in read("som_update_masked_sm90.cu")
+    slab = slab_variant_source(walk)
+    changed = [(a, b) for a, b in zip(walk.splitlines(), slab.splitlines()) if a != b]
+    assert len(changed) == 1 and "update_slab" in changed[0][0]
+    assert changed[0][1].endswith("{ return D <= 32 ? 32 : 64; }")
     with pytest.raises(ValueError):
-        k6_variant_sources(k6.replace("L::UPD);", "L::UPD) ;"))
+        slab_variant_source(walk.replace("D <= 64 ? 64 : 128", "D <= 64 ? 64 : 256"))
 
 
 def test_fused_step_ab_skeleton_cases_on_the_cpu():
