@@ -28,22 +28,23 @@ phases, each printing one JSON line:
             with the three slowest nvcc processes (each source's compile
             seconds, from the build's log); one "ptxas" line: registers and
             spill bytes of each instantiation of K1, K2 and their prologue,
-            K8, K4 and its prologue, K9, K3's and K17's Hopper walk and its
-            prologue, K6 and its prologue, K5, K11, K10, K12, K14's walk (its
-            stagger and int8_win) and K15,
-            from nvcc's -Xptxas -v report (K5's and K11's must spill nothing
-            and keep their wgmma unserialized); one "sass" line: the HMMA
+            K8, K10, K4 and its prologue, K9, K3's, K13's, K14's and K17's
+            Hopper walk and its prologue, K6 and its prologue, K5, K11, K12,
+            K14's walk (its stagger and int8_win) and K15,
+            from nvcc's -Xptxas -v report (K5's, K11's, K10's and K14's
+            Hopper walk must spill nothing and keep their wgmma
+            unserialized); one "sass" line: the HMMA
             (mma.sync tensor-core) instructions in each instantiation of the
-            tensor-core kernels K3 and K17 past D 128, K7, K10,
-            K12, K13, K14's main form and its walk and K16, the HGMMA
-            (TF32 wgmma) instructions in each of K1's, K2's, K8's, K4's,
-            K9's, K6's, K5's, K11's and K3's and K17's Hopper walk (up to D
-            128; none may have an HMMA),
+            tensor-core kernels K3, K13, K14's main form and K17 past D 128,
+            K7, K12, K14's walk and K16, the HGMMA
+            (TF32 wgmma) instructions in each of K1's, K2's, K8's, K10's,
+            K4's, K9's, K6's, K5's, K11's and K3's, K13's, K14's and K17's
+            Hopper walk (up to D 128; none may have an HMMA),
             the IMMA (int8 mma.sync) instructions in each instantiation of
             K14's int8_win walk, the IGMMA (int8 wgmma) instructions in each
             of K15's, and the UTMALDG (TMA tile loads) in each of K1's,
-            K2's, K8's, K4's, K9's, K6's, K5's, K11's, K3's and K17's walk
-            and K15's, from cuobjdump
+            K2's, K8's, K10's, K4's, K9's, K6's, K5's, K11's, K3's, K13's,
+            K14's and K17's walk and K15's, from cuobjdump
             --dump-sass of the library (none fails the run, as does an IDP4A
             anywhere in it);
             then g++ builds the native data-file engine (data/native_io.py
@@ -114,11 +115,13 @@ phases, each printing one JSON line:
             256x256 shapes (B 4096 with the bf16 x-pattern, B 8192 with both
             options), bubble with and without bf16 batches and a bf16
             codebook (values within 5e-3 of the plain run under bf16
-            batches), each run twice (bit-equal); its 64x64 cases also at 32
-            and 64 rows per CTA, with one "k14_vs_k13" line each (both
-            heights, the height ops.som_step.K14_ROWS takes, K13 at the same
-            shape), and so are the trainer's other K14 maps, 32x32 and 64x32
-            gaussian at B 4096 (one "k14_rows" line each); on a float32
+            batches), each run twice (bit-equal), at the cluster
+            ops.som_step.k14_cluster picks; its 64x64 cases, the trainer's
+            other K14 maps (32x32 and 64x32 gaussian at B 4096) and 128x128
+            at B 4096 also at each cluster size 1, 2, 4 and 8, each held to
+            the same gates, with one "k14_cluster" line each (ms at every
+            size, the pick, its route share) and for the 64x64 cases one
+            "k14_vs_k13" line (K13 at the same shape); on a float32
             codebook each
             fused-step kernel's winners and values are also held against the
             plain scoring of its own updated rows; K14's bound under bf16
@@ -414,15 +417,16 @@ the per-sample lvq2/lvq3 scans' step, B 1 x 4096 x 64 (K9 once with its one
 row partly masked, once with it fully masked); K9 with p = 0.1 and fully
 masked rows; each shape run twice (bit-equal), the best
 pair bit-equal to the same sums' argmin (K1's for K8, K4's for K9) on the
-same inputs, K8's pairs bit-equal to K10's at k = 2 (the mma.sync walk),
+same inputs, K8's pairs bit-equal to K10's at k = 2 (one walk),
 with its route's bound (6 B N D; 10 B N D for K9).  K10
-(dist_topk) at the mesh step's shapes (B 512 and 1024 x 32768 x 64, k = 2),
-K8's shapes at k = 2 (its pairs K8's bit for bit: K8 is K1's wgmma walk
-with a top-2 fold, the same scores), the mesh rank's shape at
-k = 4, 8 and 16 (one "k10_km" line: the time of each list width KM beside
-its ptxas spills), small shapes at k = 1, 5 and 16, and every code twice;
-each run twice (bit-equal), its column 0 K1's (value, index) bit for bit,
-with its route's bound (6 B N D); K10 in the reference tie order
+(dist_topk, K1's wgmma walk with a fold of KM pairs) at the mesh step's
+shapes (B 512 and 1024 x 32768 x 64, k = 2; the record at B 512 timed over
+50 back-to-back launches), K8's shapes at k = 2 (its pairs K8's bit for
+bit), the mesh rank's shape at k = 4, 8 and 16 (one "k10_km" line: the
+time of each list width KM beside its ptxas registers and spills), small
+shapes at k = 1, 3, 5 and 16, every code twice, D 37, 130 and 300 at k 3,
+5, 8 and 16; each run twice (bit-equal), its column 0 K1's (value, index)
+bit for bit, with its route's bound (6 B N D); K10 in the reference tie order
 (dist_topk_reference: K10 on the reversed codebook, the host tools' kNN) at
 B 1024 x 65536 x 64, k 5, and with every code twice: its indices the plain
 reference_ties path's (exactly with ties, the later copy first), its values
@@ -452,6 +456,7 @@ Topology, CRandom) are the port's own.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -477,36 +482,41 @@ PEAK_BYTES_S = 3.35e12
 
 # the kernels whose products run on the tensor cores as split TF32 on
 # mma.sync: K3 and K17 past D 128 (their one instantiation each, NT 32),
-# K12 (K3's blend-and-winner half), K13 (K3's body with the separable W),
-# K14's main form (K13's body; one TF32 product under batch_bf16) and its
-# walk (stagger and int8_win: the same body's chunk functions; int8_win's
-# winners on int8 mma.sync, the IMMA of INT8_MMA_KERNELS), K16 (the
-# mma.sync winner walk), K10 (that walk with a top-k fold) and K7 (K3's step
-# body on the resident codebook)
+# K12 (K3's blend-and-winner half), K13 (K3's body with the separable W)
+# and K14's main form (K13's body; one TF32 product under batch_bf16) past
+# D 128, K14's walk (stagger and int8_win: the same body's chunk functions;
+# int8_win's winners on int8 mma.sync, the IMMA of INT8_MMA_KERNELS), K16
+# (the mma.sync winner walk) and K7 (K3's step body on the resident
+# codebook)
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
                       "f32_winner_probe_kernel", "fused_skeleton_kernel",
                       "som_vmem_steps_kernel", "som_blend_winner_kernel",
-                      "dist_topk_kernel", "som_fused_chunked_stagger_kernel",
+                      "som_fused_chunked_stagger_kernel",
                       "som_fused_chunked_int8_kernel")
 INT8_MMA_KERNELS = ("som_fused_chunked_int8_kernel",)
 # K15's int8 products on warpgroup wgmma (IGMMA in the SASS)
 INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
-# K1 and K2 (one walk, two names), K8 (that walk with a top-2 fold), K4
-# (the walk with the keep contraction beside it) and K9 (K4's with the top-2
-# fold), K3, K13 and K17 up to D 128 (their Hopper walk,
-# csrc/fused_step_sm90.cuh) and K6, K5 and K11 (its update on one feature
-# slab a CTA, at any D): split-TF32 products on warpgroup wgmma (HGMMA, and
-# no HMMA), fed by TMA like K15 (UTMALDG)
+# K1 and K2 (one walk, two names), K8 and K10 (that walk with a top-2 and a
+# top-k fold), K4 (the walk with the keep contraction beside it) and K9
+# (K4's with the top-2 fold), K3, K13, K14's main form and K17 up to D 128
+# (their Hopper walk, csrc/fused_step_sm90.cuh) and K6, K5 and K11 (its
+# update on one feature slab a CTA, at any D): split-TF32 products on
+# warpgroup wgmma (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
 TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel", "top2_sm90_kernel",
+                      "dist_topk_sm90_kernel",
                       "masked_argmin_sm90_kernel", "masked_top2_sm90_kernel",
                       "som_fused_step_sm90_kernel", "som_fused_factored_sm90_kernel",
+                      "som_chunked_sm90_kernel",
                       "fused_skeleton_sm90_kernel", "som_update_masked_sm90_kernel",
                       "som_update_sm90_kernel", "som_accum_sm90_kernel")
 # the kernels whose ptxas report must show no spill and no serialized
-# wgmma (K5 and K11, on K3's update walk)
-CLEAN_PTXAS_KERNELS = ("som_update_sm90_kernel", "som_accum_sm90_kernel")
+# wgmma (K5 and K11, on K3's update walk; K10, on K8's walk; K13 and K14's
+# main form, instances of one separable walk)
+CLEAN_PTXAS_KERNELS = ("som_update_sm90_kernel", "som_accum_sm90_kernel",
+                       "dist_topk_sm90_kernel", "som_fused_factored_sm90_kernel",
+                       "som_chunked_sm90_kernel")
 TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -514,8 +524,14 @@ TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 PROBE_F32_REL = 1e-5
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of the run's record, with its seconds since the script
+    started (at_s), so that a phase's share of the wall can be read."""
+    print(json.dumps({"phase": phase, **kw, "at_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -679,7 +695,7 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "split_codes_kernel", "top2_sm90_kernel",
                                   "masked_argmin_sm90_kernel",
                                   "split_masked_codes_kernel",
-                                  "dist_topk_kernel", "som_blend_winner_kernel",
+                                  "dist_topk_sm90_kernel", "som_blend_winner_kernel",
                                   "masked_top2_sm90_kernel", "som_update_sm90_kernel",
                                   "som_accum_sm90_kernel",
                                   "som_fused_chunked_stagger_kernel",
@@ -687,12 +703,13 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "int8_winner_probe_kernel",
                                   "som_fused_step_sm90_kernel",
                                   "som_fused_factored_sm90_kernel",
+                                  "som_chunked_sm90_kernel",
                                   "fused_skeleton_sm90_kernel",
                                   "split_sm90_kernel", "som_update_masked_sm90_kernel",
                                   "split_masked_batch_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
     (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5, K11,
-    K14's walk, K15, K3's, K13's and K17's Hopper walk and its prologue, and
+    K14's walk, K15, K3's, K13's, K14's and K17's Hopper walk and its prologue, and
     K6 and its prologue unless given), and "wgmma_serialized" where ptxas
     reports that it serialized the
     function's wgmma (its C7518 performance note), from nvcc's -Xptxas -v
@@ -1055,7 +1072,7 @@ def bf16_ulp_close(got, want, atol=1e-5) -> bool:
 def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                name="som_fused_train_step", kw=None, bf16=False, dup=False,
                codes_tol=1e-4, val_tol=(1e-4, 1e-3), win_rel=1e-5, twin=None,
-               tf32x3=False, separable=False, route_mult=None):
+               tf32x3=False, separable=False, route_mult=None, plain_memo=None):
     """A fused-step kernel (K3, K13 or K14, options `kw`) against its plain
     version: a few samples without a BMU, per-sample alphas.  Codes within
     `codes_tol` (a bf16 codebook: bf16_ulp_close), winners equal except where
@@ -1074,7 +1091,11 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     the mean distance of the kernel's and the plain version's codebooks from
     the same blend taken in float64 (W from the separable factors with
     `separable`, K13's); `route_mult` (K14's main form) the route's bound and
-    share alone, at that many TF32 products per float32 product."""
+    share alone, at that many TF32 products per float32 product.  With
+    `plain_memo` (a dict) the plain run's outputs and time are taken from
+    it where an earlier call on the same case and options left them, else
+    left there: the plain version is deterministic, so a case run at
+    several launch settings (K14's cluster sizes) runs and times it once."""
     import torch
 
     from som_lvq_pak_torch.ops.dist_argmin import dist_argmin_plain
@@ -1098,7 +1119,11 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
     if bf16:
         codes = codes.to(torch.bfloat16)
     ck, ik, vk = kernel(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, **kw)
-    cp, ip, vp = plain(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, **kw)
+    memo = {} if plain_memo is None else plain_memo
+    if "out" not in memo:
+        memo["out"] = plain(codes.clone(), xb, bmu, xn, xdim, hexa, alpha, radius, gaussian,
+                            **kw)
+    cp, ip, vp = memo["out"]
     torch.cuda.synchronize()
     name = f"{name} {xdim}x{ydim} {'hexa' if hexa else 'rect'} " \
            f"{'gaussian' if gaussian else 'bubble'}" \
@@ -1158,8 +1183,9 @@ def phase_step(kernel, plain, xdim, ydim, hexa, gaussian, B, D, radius, seed,
                **({} if twin is None else dict(bit_equal_to=twin)),
                ms=cuda_ms(lambda: kernel(work, xb, bmu, xn, xdim, hexa, alpha, radius,
                                          gaussian, **kw)),
-               plain_ms=cuda_ms(lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius,
-                                              gaussian, **kw)),
+               plain_ms=memo["ms"] if "ms" in memo else memo.setdefault("ms", cuda_ms(
+                   lambda: plain(work, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian,
+                                 **kw))),
                **bound(4 * noc * B * D, 2 * cb * noc * D + 8 * B * D + 16 * B,
                        PEAK_BF16_FLOPS if batch_bf16 else PEAK_FP32_FLOPS,
                        route_flops=mult * 4 * noc * B * D if mult else None))
@@ -1450,7 +1476,8 @@ def phase_int8(xdim, ydim, hexa, gaussian, B, D, radius, seed, kw, bf16=False):
     if bf16:
         codes = codes.to(torch.bfloat16)
     args = (xb, bmu, xn, xdim, hexa, alpha, radius, gaussian)
-    c0 = k14(codes.clone(), *args, **kw)[0]
+    with k14_cluster_forced(1):  # the main form's sums in the walk's own order
+        c0 = k14(codes.clone(), *args, **kw)[0]
     ck, ik, vk = k14(codes.clone(), *args, int8_win=True, **kw)
     cs, is_, vs = k14(codes.clone(), *args, int8_win=True, stagger=True, **kw)
     cp, ip, vp = k14p(codes.clone(), *args, int8_win=True, **kw)
@@ -1689,18 +1716,22 @@ K14_CASES = (((64, 64, True, True, 4096, 64, 16.0), 47, K14_BOTH),
               dict(batch_chunk=1024, batch_bf16=True)))
 K14_BF16_CODEBOOK = ((64, 64, True, True, 4096, 64, 16.0), 52)
 # the trainer's other K14 maps at B 4096 (models.trainer.fused_step_choice:
-# 32x32 and 64x32 hexa gaussian, both bf16 options), timed at both CTA
-# heights beside 64x64's
-K14_ROWS_CASES = (((32, 32, True, True, 4096, 64, 8.0), 58, K14_BOTH),
-                  ((64, 32, True, True, 4096, 64, 16.0), 59, K14_BOTH))
+# 32x32 and 64x32 hexa gaussian, both bf16 options) and 128x128, timed at
+# every cluster size beside 64x64's
+K14_CLUSTER_CASES = (((32, 32, True, True, 4096, 64, 8.0), 58, K14_BOTH),
+                     ((64, 32, True, True, 4096, 64, 16.0), 59, K14_BOTH),
+                     ((128, 128, True, True, 4096, 64, 32.0), 60, K14_BOTH))
 
 
-def k14_step(case, seed, kw, twin=None, bf16=False, name="som_fused_factored_chunked_step"):
+def k14_step(case, seed, kw, twin=None, bf16=False, name="som_fused_factored_chunked_step",
+             plain_memo=None):
     """phase_step on K14 with options `kw`, at the tolerances of its batches
     and codebook, with its route's bound (one TF32 product per float32
     product under batch_bf16, three otherwise).  The main form (no stagger,
     no int8_win) reruns bit-equal; stagger is held bit-equal to K14 under the
-    options `twin` (the same options without it: the main form)."""
+    options `twin` (the same options without it: the main form, at a
+    cluster of one CTA, whose sums are the walk's own order).  `plain_memo`
+    as phase_step's."""
     from som_lvq_pak_torch.ops.som_step import (som_fused_factored_chunked_step,
                                                 som_fused_factored_chunked_step_plain)
 
@@ -1710,10 +1741,12 @@ def k14_step(case, seed, kw, twin=None, bf16=False, name="som_fused_factored_chu
         tols = dict(codes_tol=1e-5, val_tol=(0.0, 5e-3) if kw.get("batch_bf16")
                     else (1e-4, 1e-4))
     main = not (kw.get("stagger") or kw.get("int8_win"))
-    return phase_step(som_fused_factored_chunked_step,
-                      som_fused_factored_chunked_step_plain, *case, seed=seed,
-                      name=name, kw=kw, twin=kw if main else twin,
-                      route_mult=1 if kw.get("batch_bf16") else 3, bf16=bf16, **tols)
+    with contextlib.nullcontext() if main else k14_cluster_forced(1):
+        return phase_step(som_fused_factored_chunked_step,
+                          som_fused_factored_chunked_step_plain, *case, seed=seed,
+                          name=name, kw=kw, twin=kw if main else twin,
+                          route_mult=1 if kw.get("batch_bf16") else 3, bf16=bf16,
+                          plain_memo=plain_memo, **tols)
 
 
 @contextlib.contextmanager
@@ -1745,17 +1778,18 @@ def k15_splits_forced(splits: int):
 
 
 @contextlib.contextmanager
-def k14_rows_forced(rows: int):
-    """K14's main form at `rows` rows per CTA (32 or 64) in place of
-    ops.som_step.K14_ROWS."""
+def k14_cluster_forced(c: int):
+    """K14's main form on its Hopper walk with each tile's batch split
+    across `c` CTAs (ops.som_step.K14_CLUSTER) in place of the wrapper's
+    choice, k14_cluster."""
     from som_lvq_pak_torch.ops import som_step
 
-    saved = som_step.K14_ROWS
-    som_step.K14_ROWS = rows
+    saved = som_step.K14_CLUSTER
+    som_step.K14_CLUSTER = c
     try:
         yield
     finally:
-        som_step.K14_ROWS = saved
+        som_step.K14_CLUSTER = saved
 
 
 def option_phases(recs):
@@ -3461,7 +3495,7 @@ TRACE_STEPS = 16  # the fit under utils.progress.trace
 FUSED_STEP_KERNELS = {
     "K13": ("som_fused_factored_step", "som_fused_factored_sm90_kernel",
             "som_fused_factored_kernel"),
-    "K14": ("som_fused_factored_chunked_step", "som_fused_factored_chunked_tc_kernel",
+    "K14": ("som_fused_factored_chunked_step", "som_chunked_sm90_kernel",
             "som_fused_factored_chunked_tc_kernel"),
     "K3": ("som_fused_train_step", "som_fused_step_sm90_kernel", "som_fused_step_kernel")}
 
@@ -4682,6 +4716,51 @@ def state_probe(smi):
     emit("state", card=smi, cell="e2e_masked_64x64_100k", **out)
 
 
+class SassDump:
+    """cuobjdump --dump-sass of the built library in a process of its own,
+    its text into a temporary file beside the library; `check` waits for it and emits the
+    "sass" line: the tensor-core instructions of each kernel family, each
+    held to its rule (sass_mma, sass_none, no_dp4a).  The process is killed
+    when the script exits before the check."""
+
+    def __init__(self, library: str):
+        import tempfile
+
+        from som_lvq_pak_torch import _build
+        from som_lvq_pak_torch.tools.sass_diff import dump_command
+
+        self.out = tempfile.TemporaryFile(mode="w+", dir=_build.BUILD_DIR)
+        self.proc = subprocess.Popen(dump_command(library), stdout=self.out,
+                                     stderr=subprocess.PIPE, text=True)
+        self.checked = False
+        atexit.register(self.close)
+
+    def check(self) -> None:
+        from som_lvq_pak_torch.tools.sass_diff import parse
+
+        if self.checked:
+            return
+        err = self.proc.communicate()[1]
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed ({self.proc.returncode}): {err}")
+        self.out.seek(0)
+        dump = parse(self.out.read())
+        emit("sass", hmma_per_function=sass_mma(dump),
+             hgmma_per_function=sass_mma(dump, TF32_WGMMA_KERNELS, "HGMMA"),
+             hmma_in_tf32_wgmma=sass_none(dump, TF32_WGMMA_KERNELS, "HMMA"),
+             imma_per_function=sass_mma(dump, INT8_MMA_KERNELS, "IMMA"),
+             igmma_per_function=sass_mma(dump, INT8_WGMMA_KERNELS, "IGMMA"),
+             utmaldg_per_function=sass_mma(dump, TMA_KERNELS, "UTMALDG"),
+             idp4a=no_dp4a(dump))
+        self.checked = True
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4712,7 +4791,6 @@ def main() -> int:
         som_neighborhood_update_idx, som_neighborhood_update_idx_masked,
         som_neighborhood_update_idx_plain)
     from som_lvq_pak_torch.tools import int8_probe, int8_step_ab
-    from som_lvq_pak_torch.tools.sass_diff import sass
 
     fp32_matmul()  # plain references in full float32 (no TF32)
     smi = nvidia_smi_line()
@@ -4741,14 +4819,12 @@ def main() -> int:
     ptxas = ptxas_report(_build.build_log())
     emit("ptxas", card=smi, built_now=built_now, report=ptxas)
     clean_ptxas(ptxas)
-    dump = sass(_build.library_path())
-    emit("sass", hmma_per_function=sass_mma(dump),
-         hgmma_per_function=sass_mma(dump, TF32_WGMMA_KERNELS, "HGMMA"),
-         hmma_in_tf32_wgmma=sass_none(dump, TF32_WGMMA_KERNELS, "HMMA"),
-         imma_per_function=sass_mma(dump, INT8_MMA_KERNELS, "IMMA"),
-         igmma_per_function=sass_mma(dump, INT8_WGMMA_KERNELS, "IGMMA"),
-         utmaldg_per_function=sass_mma(dump, TMA_KERNELS, "UTMALDG"),
-         idp4a=no_dp4a(dump))
+    # the library's SASS dump takes minutes of one CPU core and no card: it
+    # runs beside the phases (the other modes wait for it here), and its
+    # checks come before the run's result
+    sass_dump = SassDump(_build.library_path())
+    if sys.argv[1:]:
+        sass_dump.check()
     if sys.argv[1:] == ["--profile"]:
         profile_cells()
         print(smi)
@@ -4961,34 +5037,42 @@ def main() -> int:
              k13_over_k3=r13["ms"] / r3["ms"], k13_route_pct=r13["route_pct"],
              k3_route_pct=r3["route_pct"])
     # K14 at K14_CASES (e2e_64x64_1M_B4096's step first: its record), each
-    # run twice (bit-equal), with its route's bound; the 64x64 cases also at
-    # both CTA heights (ops.som_step.K14_ROWS takes 64) and beside K13 at the
-    # same shape (one "k14_vs_k13" line each), the trainer's other K14 maps
-    # at both heights (one "k14_rows" line each); then its options stagger
-    # and int8_win, K15-K17 and the attainable_pct lines
+    # run twice (bit-equal), with its route's bound, at the cluster the
+    # wrapper picks; the 64x64 cases (a bf16 codebook too), the trainer's
+    # other K14 maps and 128x128 also at every cluster size, each held to the same gates (one
+    # "k14_cluster" line each: the ms and route share at each size, the
+    # pick), the 64x64 cases beside K13 at the same shape (one "k14_vs_k13"
+    # line each); then its options stagger and int8_win (held to the main
+    # form at a cluster of one), K15-K17 and the attainable_pct lines
     steps = [k14_step(case, seed, kw) for case, seed, kw in K14_CASES]
     k14_step(*K14_BF16_CODEBOOK, K14_BOTH, bf16=True)
     recs["som_fused_factored_chunked_step"] = dict(
         steps[0], max_abs_err=max(r["max_abs_err"] for r in steps))
-    for (case, seed, kw), r14 in list(zip(K14_CASES, steps)) + [
-            (c, None) for c in K14_ROWS_CASES]:
-        if case[:2] != (64, 64) and r14 is not None:
-            continue
-        by_rows = {}
-        for rows in (32, 64):
-            with k14_rows_forced(rows):
-                by_rows[rows] = k14_step(
-                    case, seed, kw, name=f"som_fused_factored_chunked_step rows={rows}")
-        line = dict(card=smi, shape=by_rows[64]["shape"], options=kw, gaussian=case[3],
-                    k14_rows32_ms=by_rows[32]["ms"], k14_rows64_ms=by_rows[64]["ms"],
-                    k14_rows_chosen=som_step.K14_ROWS)
-        if r14 is None:  # another map of the trainer's K14 choice
-            emit("k14_rows", **line)
-            continue
-        r13 = k13_by_case[case]
-        emit("k14_vs_k13", **line, k14_ms=r14["ms"], k13_ms=r13["ms"],
-             k14_over_k13=r14["ms"] / r13["ms"], k14_route_pct=r14["route_pct"],
-             k13_route_pct=r13["route_pct"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cluster_cases = ([(case, seed, kw, False, r14)
+                      for (case, seed, kw), r14 in zip(K14_CASES, steps)
+                      if case[:2] == (64, 64)]
+                     + [(*K14_BF16_CODEBOOK, K14_BOTH, True, None)]
+                     + [(case, seed, kw, False, None) for case, seed, kw in K14_CLUSTER_CASES])
+    for case, seed, kw, bf16, r14 in cluster_cases:
+        by_c, memo = {}, {}  # the plain version run and timed once a case
+        for c in som_step.K14_CLUSTERS:
+            with k14_cluster_forced(c):
+                by_c[c] = k14_step(case, seed, kw, bf16=bf16,
+                                   name=f"som_fused_factored_chunked_step cluster={c}",
+                                   plain_memo=memo)
+        pick = som_step._k14_cluster_on(case[0] * case[1], case[5],
+                                        bool(kw.get("batch_bf16")), sms)
+        emit("k14_cluster", card=smi, shape=by_c[1]["shape"], options=kw,
+             gaussian=case[3], bf16_codebook=bf16, ms={c: r["ms"] for c, r in by_c.items()},
+             route_pct={c: r["route_pct"] for c, r in by_c.items()},
+             route_bound_ms=by_c[1]["route_bound_ms"], cluster_chosen=pick,
+             chosen_ms=by_c[pick]["ms"], c1_over_chosen=by_c[1]["ms"] / by_c[pick]["ms"])
+        if r14 is not None:
+            r13 = k13_by_case[case]
+            emit("k14_vs_k13", card=smi, shape=r14["shape"], options=kw, gaussian=case[3],
+                 k14_ms=r14["ms"], k13_ms=r13["ms"], k14_over_k13=r14["ms"] / r13["ms"],
+                 k14_route_pct=r14["route_pct"], k13_route_pct=r13["route_pct"])
     sk = option_phases(recs)
     release()
     for fused, step, skel in (
@@ -5036,22 +5120,30 @@ def main() -> int:
     recs["som_vmem_train_steps"] = dict(rs[0], max_abs_err=max(r["max_abs_err"]
                                                                for r in rs))
     # K10 at the sharded lvq3 step's shape (B 1024 over (data 2, model 2) is
-    # 512 per rank against a 32768-row shard; their record, with library_ms),
+    # 512 per rank against a 32768-row shard; their record, with library_ms,
+    # timed over 50 back-to-back launches: that shape reads the host's floor),
     # the whole batch against the shard, K8's shapes at k = 2 (the LVQ step,
     # the masked LVQ cell's, D 37, D 130, N = 2, 1000 x 999 x 5), the rank's
-    # shape at k = 4, 8 and 16 (each list width KM), small shapes at k = 1, 5
-    # and 16, every code twice, N = 17 at k = 16 and D 130 at k = 16
+    # shape at k = 4, 8 and 16 (each list width KM), small shapes at k = 1,
+    # 3, 5 and 16, every code twice (at D 5, 37, 130 and 300), N = 17 at
+    # k = 16, D 130 at k = 16 and D 300 at k = 8: every list width at D 5,
+    # 37, 64, 130 and 300, N mostly not a multiple of the walk's 128-code
+    # tile
     cases = (((512, 32768, 64), 2, 18, False), ((1024, 32768, 64), 2, 19, False),
              ((1024, 65536, 64), 2, 61, False), ((1024, 4096, 64), 2, 62, False),
              ((777, 3001, 37), 2, 63, False), ((1000, 2999, 130), 2, 64, False),
              ((1000, 2, 5), 2, 65, False), ((1000, 999, 5), 2, 70, False),
              ((512, 32768, 64), 4, 66, False),
              ((512, 32768, 64), 8, 67, False), ((512, 32768, 64), 16, 68, False),
-             ((1000, 999, 5), 1, 20, False), ((1000, 999, 5), 5, 21, False),
+             ((1000, 999, 5), 1, 20, False), ((1000, 999, 5), 3, 26, False),
+             ((1000, 999, 5), 5, 21, False),
              ((1000, 999, 5), 16, 22, False), ((1000, 998, 5), 2, 23, True),
              ((1000, 998, 5), 16, 24, True), ((1000, 17, 5), 16, 25, False),
-             ((1000, 2999, 130), 16, 69, False))
-    rs = [phase_topk(*shape, k, seed=seed, dup=dup, library=j == 0)
+             ((1000, 2999, 130), 16, 69, False), ((778, 3002, 37), 8, 74, True),
+             ((1000, 3000, 130), 5, 75, True), ((600, 1201, 300), 8, 76, False),
+             ((600, 1202, 300), 3, 77, True))
+    rs = [phase_topk(*shape, k, seed=seed, dup=dup, library=j == 0,
+                     iters=50 if j == 0 else 10)
           for j, (shape, k, seed, dup) in enumerate(cases)]
     recs["dist_topk"] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # K10 in the reference tie order (the host tools' kNN route), at the LVQ
@@ -5063,7 +5155,7 @@ def main() -> int:
     emit("k10_km", card=smi, shape=[512, 32768, 64],
          ms={r["km"]: r["ms"] for r in rs if r["shape"] == [512, 32768, 64]},
          route_pct={r["km"]: r["route_pct"] for r in rs if r["shape"] == [512, 32768, 64]},
-         ptxas={n: v for n, v in ptxas.items() if n.startswith("dist_topk_kernel<8,")})
+         ptxas={n: v for n, v in ptxas.items() if n.startswith("dist_topk_sm90_kernel<2,")})
     # K11 at the mixed mesh step's shard (rows 32768.. of the 256x256 map,
     # B 4096 over a data axis of 2; their record first)
     rs = [phase_accum(256, hexa, gaussian, 32768, 32768, 2048, 64, radius, per_sample,
@@ -5419,15 +5511,15 @@ def main() -> int:
                       "som_lvq_pak_tpu/ops/pallas_distance.py:295"),
         "dist_top2_masked": ("som_lvq_pak_torch/csrc/argmin_masked_sm90.cu",
                              "som_lvq_pak_tpu/ops/pallas_distance.py:308"),
-        "dist_topk": ("som_lvq_pak_torch/csrc/dist_topk.cu",
+        "dist_topk": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:583"),
         "som_neighborhood_accumulate": ("som_lvq_pak_torch/csrc/som_accum_sm90.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:301"),
         "som_blend_winner": ("som_lvq_pak_torch/csrc/som_blend_winner.cu",
                              "som_lvq_pak_tpu/ops/pallas_som.py:401"),
-        "som_fused_factored_step": ("som_lvq_pak_torch/csrc/som_fused_factored_sm90.cu",
+        "som_fused_factored_step": ("som_lvq_pak_torch/csrc/separable_sm90.cuh",
                                     "som_lvq_pak_tpu/ops/pallas_som.py:743"),
-        "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/som_fused_chunked_tc.cuh",
+        "som_fused_factored_chunked_step": ("som_lvq_pak_torch/csrc/separable_sm90.cuh",
                                             "som_lvq_pak_tpu/ops/pallas_som.py:904"),
         "som_fused_factored_chunked_step[int8_win]": (
             "som_lvq_pak_torch/csrc/som_fused_chunked_tc.cuh",
@@ -5444,6 +5536,7 @@ def main() -> int:
     idle = [name for name in list(sources) + ["segment_sum"] if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
+    sass_dump.check()
     emit("wall", card=smi, script_s=time.perf_counter() - t_script)
     # the LVQ steps' fixed-order segment sum: a kernel of the path that ports
     # no TPU kernel (the JAX package sums in XLA), so a line of its own

@@ -72,6 +72,16 @@ _SIGNATURES = {
     "somvq_som_fused_factored_sm90": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
                                       _I, _I, ctypes.c_float, _P, _P, _P, _P, _P,
                                       _P, _P, _P],
+    # K14's main form for D <= 128 on the Hopper walk: codes, codes_bf16, noc,
+    # D, xb, bmu, alpha, B, xn, Bn, xdim, hexa, gaussian, radius, wxa_bf16,
+    # batch_bf16, cluster, xs (sized by ops.som_step.sm90_scratch without its
+    # table, one plane under batch_bf16), pat, ytab, aw, keys, val, idx,
+    # stream
+    "somvq_som_fused_chunked_sm90": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I,
+                                     _I, _I, ctypes.c_float, _I, _I, _I, _P, _P,
+                                     _P, _P, _P, _P, _P, _P],
+    # D, batch_bf16, cluster, out (int)
+    "somvq_som_fused_chunked_sm90_clusters": [_I, _I, _I, _P],
     # rows, seg, B, C, noc, presorted, scratch, out, stream
     "somvq_segment_sum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # m, x, N, D, Dp, B, splits, out, stream
@@ -86,8 +96,8 @@ _SIGNATURES = {
     # xs, stream (D <= 128, the Hopper walk)
     "somvq_fused_skeleton_sm90": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
                                   ctypes.c_float, _P, _P, _P, _P, _P],
-    # x, codes, B, N, D, k, splits, pv, pi, vo, io, stream
-    "somvq_dist_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # x, codes, B, N, D, Dp, k, splits, scratch, vo, io, stream
+    "somvq_dist_topk": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # n_local, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius,
     # unit_offset, xs, acc, wsum, stream
     "somvq_som_accum": [_I, _I, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,

@@ -3,13 +3,15 @@
 // lowest n on exact ties), or the two smallest (value, index) pairs,
 // reported as the partial distance ||m_n||^2 - 2 x_b.m_n.
 //
-// Replaces three TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
+// Replaces four TPU kernels of som_lvq_pak_tpu/ops/pallas_distance.py:
 //   * _dist_argmin_kernel (:60, wrapper dist_argmin, the distance form
 //     ||m||^2 - 2 x.m with a strict-< running min)     -> dist_argmin_kernel (K1)
 //   * _dist_argmin_t_kernel (:426, wrapper dist_argmin_t, the max-score form
 //     x.m - ||m||^2 / 2, reported as -2 * the best)   -> dist_argmin_t_kernel (K2)
 //   * _dist_top2_kernel (:295, wrapper dist_top2, the running (best, second)
 //     pair, strict <, earlier tile kept)              -> top2_sm90_kernel (K8)
+//   * _dist_topk_kernel (:583, wrapper dist_topk, k <= 16, the running top
+//     k merged tile by tile)                          -> dist_topk_sm90_kernel (K10)
 // and the ||m||^2 row the JAX wrapper of K1 computes in XLA (its m2_ref),
 // here split_codes_kernel, the walk's prologue.  The two forms give the
 // same floats: halving and doubling are exact, so -2 fl(x.m - ||m||^2 / 2)
@@ -83,7 +85,22 @@
 // partial distances (-2 * the score, -0 to +0) to a (splits, B, 2) scratch,
 // and topk_merge_splits<2> folds the splits in split order.  Its scores are
 // K1's floats, so its best pair is K1's (value, index) and its pairs are
-// K10's at k 2 (dist_topk.cu, on mma.sync) bit for bit.
+// K10's at k 2 (dist_topk_sm90_kernel below) bit for bit.
+//
+// K10 is the same walk with the fold at a list of KM in {2, 4, 8, 16}
+// pairs (k <= KM chosen at run time): the sample's bar is the highest KM-th
+// entry of its four lanes' lists, and a lane visits a tile's codes four at a
+// time where their max beats the bar and its own KM-th.  A code at or below
+// the bar has KM >= k better codes of lower index in one lane, so it cannot
+// be in the sample's top k; the lists, the lane merge and
+// topk_merge_splits<KM> give the k smallest (value, index) pairs in
+// lexicographic order, whatever the order of the visits, so the pruning
+// changes no pair.  At KM 2 it is K8's instance under its own name.  The
+// lists of KM 4 and up (16 KM registers) do not fit beside S and the A
+// fragments in the 168 registers a thread of the 288-thread CTA gets, so
+// those instances take K4's layout (argmin_masked_sm90.cu): a producer
+// warpgroup that gives its registers to the consumers by setmaxnreg (232 a
+// consumer thread, 40 a producer's), one of its threads issuing the loads.
 
 #include <cuda_runtime.h>
 
@@ -101,6 +118,11 @@ constexpr int TN = 128;                        // codes per tile: the wgmma's N
 constexpr int CONSUMERS = 2;                   // warpgroups of 64 samples
 constexpr int BS = 64 * CONSUMERS;             // samples per CTA
 constexpr int THREADS = 128 * CONSUMERS + 32;  // and the producer warp
+// K10's lists of KM > 2: a producer warpgroup, whose registers go to the
+// consumers (K4's split)
+constexpr int WIDE_THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 constexpr int CHUNK = 32;                      // features per 128-byte swizzled row
 constexpr int CHUNK_BYTES = TN * CHUNK * 4;
 constexpr int SMEM_MAX = 232448;               // a CTA's dynamic shared memory
@@ -168,16 +190,23 @@ int split(const float* codes, int N, int D, int Dp, float* hi, float* lo, float*
   return (int)cudaGetLastError();
 }
 
+// a CTA's threads for a fold of KM pairs (0: the argmin)
+template <int KM>
+__host__ __device__ constexpr int threads_of() {
+  return KM > 2 ? WIDE_THREADS : THREADS;
+}
+
 // The walk of CTA (blockIdx.x, blockIdx.y): samples blockIdx.x * BS.., the
 // tiles [blockIdx.y * span, +span) of the codebook, in nslab slabs of
-// 32 KC features each; the argmin fold into `keys` (K1, K2), or with kTop2
-// the top-2 fold into split blockIdx.y's pairs of pv/pi (K8)
-template <int KC, bool kTop2>
+// 32 KC features each; the argmin fold into `keys` (K1, K2; KM 0), or the
+// fold of KM pairs into split blockIdx.y's k best pairs of pv/pi (K8, K10)
+template <int KC, int KM>
 __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMap* lo_map,
                                      const CUtensorMap* m2_map, const float* __restrict__ x,
                                      int B, int N, int D, int nslab, int span, int stages,
-                                     unsigned long long* __restrict__ keys,
+                                     int k, unsigned long long* __restrict__ keys,
                                      float* __restrict__ pv, int* __restrict__ pi) {
+  constexpr bool kList = KM > 0;
   constexpr int KS = 4 * KC;  // k steps of 8 features a slab
   constexpr int SW = CHUNK * KC;
   constexpr int SLOT = slot_bytes<KC>();
@@ -200,7 +229,8 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128 * CONSUMERS) {  // the producer warp
+  if (threadIdx.x >= 128 * CONSUMERS) {  // the producer warp (warpgroup past KM 2)
+    if constexpr (KM > 2) sm90::setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 128 * CONSUMERS) {
       int s = 0;
       uint32_t phase = 0;  // of slot s's current use
@@ -222,13 +252,14 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
     return;
   }
 
+  if constexpr (KM > 2) sm90::setmaxnreg_inc<CONSUMER_REGS>();
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int b0 = blockIdx.x * BS + 16 * (threadIdx.x >> 5);  // this warp's 16 samples
   float ahi[KS][4], alo[KS][4];
   if (nslab == 1) load_x<KS, false>(ahi, alo, x, B, D, b0, 0, lane);
   float best[2] = {-INFINITY, -INFINITY};
   int bidx[2] = {INT_MAX, INT_MAX};
-  ListFold<2> top2;  // K8: each sample's (best, second), sorted
+  ListFold<kList ? KM : 2> list;  // K8, K10: each sample's KM best, sorted
   float S[64];
   int s = 0;
   uint32_t phase = 0;
@@ -284,10 +315,10 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
       // per sample, the tile's best score by a max tree; only where it beats
       // the running best (rarely, past the first tiles) the first code that
       // reaches it: the (max, first index) a strict > over ascending codes
-      // keeps, with fewer instructions on the path every tile takes.  K8:
-      // only where it beats the sample's bar, the lane's codes in ascending
-      // order into the pair, four at a time where their max beats the bar
-      // and the lane's second too
+      // keeps, with fewer instructions on the path every tile takes.  K8,
+      // K10: only where it beats the sample's bar, the lane's codes in
+      // ascending order into its list, four at a time where their max beats
+      // the bar and the lane's KM-th too
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float m[TN / 16];
@@ -299,11 +330,11 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
         for (int w = TN / 32; w >= 1; w >>= 1)
 #pragma unroll
           for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
-        if constexpr (kTop2) {
-          // the sample's bar: the highest second of its four lanes, whose
-          // codes all precede this tile's; a code at or below it has two
-          // better ones in that lane and cannot enter the sample's pair
-          float bar = top2.s[h][1];
+        if constexpr (kList) {
+          // the sample's bar: the highest KM-th of its four lanes, whose
+          // codes all precede this tile's; a code at or below it has KM
+          // better ones in that lane and cannot enter the sample's top k
+          float bar = list.s[h][KM - 1];
           bar = fmaxf(bar, __shfl_xor_sync(0xffffffffu, bar, 1));
           bar = fmaxf(bar, __shfl_xor_sync(0xffffffffu, bar, 2));
           if (m[0] > bar) {
@@ -311,10 +342,10 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
             for (int j = 0; j < TN / 16; ++j) {  // four codes: column blocks 2j, 2j + 1
               const float gm = fmaxf(fmaxf(S[8 * j + 2 * h], S[8 * j + 2 * h + 1]),
                                      fmaxf(S[8 * j + 4 + 2 * h], S[8 * j + 4 + 2 * h + 1]));
-              if (gm > fmaxf(bar, top2.s[h][1])) {
+              if (gm > fmaxf(bar, list.s[h][KM - 1])) {
 #pragma unroll
                 for (int c = 4 * j; c < 4 * j + 4; ++c)
-                  top2.visit(h, S[4 * (c >> 1) + 2 * h + (c & 1)],
+                  list.visit(h, S[4 * (c >> 1) + 2 * h + (c & 1)],
                              n0 + 8 * (c >> 1) + 2 * t + (c & 1));
               }
             }
@@ -334,14 +365,15 @@ __device__ __forceinline__ void walk(const CUtensorMap* hi_map, const CUtensorMa
     if (++s == stages) s = 0, phase ^= 1;
   }
 
-  if constexpr (kTop2)
-    top2.write(b0, B, lane, blockIdx.y, 2, pv, pi);
+  if constexpr (kList)
+    list.write(b0, B, lane, blockIdx.y, k, pv, pi);
   else
     merge_fold(best, bidx, b0, B, lane, keys);
 }
 
 // K1 (the distance form's wrapper dist_argmin) and K2 (dist_argmin_t): one
-// walk, two names; K8 (dist_top2) the walk with the top-2 fold
+// walk, two names; K8 (dist_top2) the walk with the top-2 fold, K10
+// (dist_topk) with the fold of KM pairs, k <= KM
 template <int KC>
 __global__ void __launch_bounds__(THREADS, 1)
 dist_argmin_kernel(const __grid_constant__ CUtensorMap hi_map,
@@ -349,7 +381,7 @@ dist_argmin_kernel(const __grid_constant__ CUtensorMap hi_map,
                    const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
                    int B, int N, int D, int nslab, int span, int stages,
                    unsigned long long* __restrict__ keys, float* pv, int* pi) {
-  walk<KC, false>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys, pv, pi);
+  walk<KC, 0>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, 0, keys, pv, pi);
 }
 
 template <int KC>
@@ -359,7 +391,7 @@ dist_argmin_t_kernel(const __grid_constant__ CUtensorMap hi_map,
                      const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
                      int B, int N, int D, int nslab, int span, int stages,
                      unsigned long long* __restrict__ keys, float* pv, int* pi) {
-  walk<KC, false>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys, pv, pi);
+  walk<KC, 0>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, 0, keys, pv, pi);
 }
 
 template <int KC>
@@ -369,17 +401,26 @@ top2_sm90_kernel(const __grid_constant__ CUtensorMap hi_map,
                  const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
                  int B, int N, int D, int nslab, int span, int stages,
                  unsigned long long* __restrict__ keys, float* pv, int* pi) {
-  walk<KC, true>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, keys, pv, pi);
+  walk<KC, 2>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, 2, keys, pv, pi);
+}
+
+template <int KC, int KM>
+__global__ void __launch_bounds__(threads_of<KM>(), 1)
+dist_topk_sm90_kernel(const __grid_constant__ CUtensorMap hi_map,
+                      const __grid_constant__ CUtensorMap lo_map,
+                      const __grid_constant__ CUtensorMap m2_map, const float* __restrict__ x,
+                      int B, int N, int D, int nslab, int span, int stages, int k,
+                      float* pv, int* pi) {
+  walk<KC, KM>(&hi_map, &lo_map, &m2_map, x, B, N, D, nslab, span, stages, k, nullptr, pv,
+               pi);
 }
 
 enum Kind { kK1, kK2, kK8 };
 
-// the walk over the non-empty spans of `splits`; their count into `used`
-template <int KC, Kind kKind>
-int launch(const float* x, const float* hi, const float* lo, const float* m2, int B, int N,
-           int D, int Dp, int splits, unsigned long long* keys, float* pv, int* pi,
-           int& used, cudaStream_t stream) {
-  CUtensorMap hi_map, lo_map, m2_map;
+// the walk's tensor maps of the prologue's split: hi and lo (N, Dp) in
+// (CHUNK, TN) boxes, 128B-swizzled, and m2 (N,) in TN boxes
+int encode(CUtensorMap& hi_map, CUtensorMap& lo_map, CUtensorMap& m2_map, const float* hi,
+           const float* lo, const float* m2, int N, int Dp) {
   int rc = sm90::encode_map(&hi_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, hi, N, Dp, CHUNK, TN,
                             CU_TENSOR_MAP_SWIZZLE_128B);
   if (!rc)
@@ -388,6 +429,25 @@ int launch(const float* x, const float* hi, const float* lo, const float* m2, in
   if (!rc)
     rc = sm90::encode_map(&m2_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, m2, 0, N, TN, 1,
                           CU_TENSOR_MAP_SWIZZLE_NONE);
+  return rc;
+}
+
+// `splits` spans of whole tiles, every span used non-empty: the tiles a
+// span takes, and the spans used into `used`
+int span_of(int N, int splits, int& used) {
+  const int tiles = (N + TN - 1) / TN;
+  const int span = (tiles + splits - 1) / splits;
+  used = (tiles + span - 1) / span;
+  return span;
+}
+
+// the walk over the non-empty spans of `splits`; their count into `used`
+template <int KC, Kind kKind>
+int launch(const float* x, const float* hi, const float* lo, const float* m2, int B, int N,
+           int D, int Dp, int splits, unsigned long long* keys, float* pv, int* pi,
+           int& used, cudaStream_t stream) {
+  CUtensorMap hi_map, lo_map, m2_map;
+  const int rc = encode(hi_map, lo_map, m2_map, hi, lo, m2, N, Dp);
   if (rc) return rc;
   constexpr int stages = ring_stages<KC>();
   constexpr int bytes = ALIGN + stages * slot_bytes<KC>() + BARRIER_BYTES;
@@ -397,13 +457,37 @@ int launch(const float* x, const float* hi, const float* lo, const float* m2, in
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return (int)attr;
-  // `splits` spans of whole tiles; every span used is non-empty
-  const int tiles = (N + TN - 1) / TN;
-  const int span = (tiles + splits - 1) / splits;
-  used = (tiles + span - 1) / span;
+  const int span = span_of(N, splits, used);
   const dim3 grid((B + BS - 1) / BS, used);
   kernel<<<grid, THREADS, bytes, stream>>>(hi_map, lo_map, m2_map, x, B, N, D, Dp / (CHUNK * KC),
                                           span, stages, keys, pv, pi);
+  return (int)cudaGetLastError();
+}
+
+// K10's walk at list width KM (k <= KM) over the non-empty spans of
+// `splits`, then the merge of the splits' (splits, B, k) pairs into (B, k)
+template <int KC, int KM>
+int launch_topk(const float* x, const float* hi, const float* lo, const float* m2, int B,
+                int N, int D, int Dp, int k, int splits, float* pv, int* pi, float* vo,
+                int* io, cudaStream_t stream) {
+  CUtensorMap hi_map, lo_map, m2_map;
+  int rc = encode(hi_map, lo_map, m2_map, hi, lo, m2, N, Dp);
+  if (rc) return rc;
+  constexpr int stages = ring_stages<KC>();
+  constexpr int bytes = ALIGN + stages * slot_bytes<KC>() + BARRIER_BYTES;
+  const auto kernel = dist_topk_sm90_kernel<KC, KM>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  int used = 0;
+  const int span = span_of(N, splits, used);
+  const dim3 grid((B + BS - 1) / BS, used);
+  kernel<<<grid, threads_of<KM>(), bytes, stream>>>(hi_map, lo_map, m2_map, x, B, N, D,
+                                                    Dp / (CHUNK * KC), span, stages, k, pv, pi);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  topk_merge_splits<KM><<<(B + 255) / 256, 256, 0, stream>>>(pv, pi, B, k, used,
+                                                             RowsOut{vo, io, k});
   return (int)cudaGetLastError();
 }
 
@@ -444,6 +528,17 @@ int search(const float* x, const float* codes, int B, int N, int D, int Dp, int 
   return (int)cudaGetLastError();
 }
 
+// K10 at KM for both chunk widths
+template <int KM>
+int topk_km(const float* x, const float* hi, const float* lo, const float* m2, int B, int N,
+            int D, int Dp, int k, int splits, float* pv, int* pi, float* vo, int* io,
+            cudaStream_t stream) {
+  return Dp == CHUNK ? launch_topk<1, KM>(x, hi, lo, m2, B, N, D, Dp, k, splits, pv, pi, vo,
+                                          io, stream)
+                     : launch_topk<2, KM>(x, hi, lo, m2, B, N, D, Dp, k, splits, pv, pi, vo,
+                                          io, stream);
+}
+
 }  // namespace
 
 // K1/K2's prologue alone: codes (N, D) -> hi, lo (N, Dp) and m2 (N,), Dp =
@@ -470,6 +565,31 @@ extern "C" int somvq_dist_argmin_t(const float* x, const float* codes, int B, in
                                    cudaStream_t stream) {
   return search<kK2>(x, codes, B, N, D, Dp, splits, scratch, val, idx, nullptr, nullptr,
                      stream);
+}
+
+// K10: the prologue, then the walk with the fold of KM pairs (the smallest
+// of 2, 4, 8, 16 that holds k, 1 <= k <= 16, k <= N), then the split merge;
+// scratch: 2 N Dp + 4 ceil(N / 4) + 2 splits B k floats, 16-byte aligned
+// (hi, lo, m2 as search's, then the splits' pair values and indices); vo, io
+// (B, k) get the k smallest partial distances ||m||^2 - 2 x.m, ascending,
+// and their rows, equal values lowest row first
+extern "C" int somvq_dist_topk(const float* x, const float* codes, int B, int N, int D,
+                               int Dp, int k, int splits, float* scratch, float* vo, int* io,
+                               cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || k < 1 || k > 16 || k > N || splits < 1 ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  float* hi = scratch;
+  float* lo = hi + (size_t)N * Dp;
+  float* m2 = lo + (size_t)N * Dp;
+  float* pv = m2 + (N + 3) / 4 * 4;
+  int* pi = reinterpret_cast<int*>(pv + (size_t)splits * B * k);
+  const int rc = split(codes, N, D, Dp, hi, lo, m2, stream);
+  if (rc) return rc;
+  if (k <= 2) return topk_km<2>(x, hi, lo, m2, B, N, D, Dp, k, splits, pv, pi, vo, io, stream);
+  if (k <= 4) return topk_km<4>(x, hi, lo, m2, B, N, D, Dp, k, splits, pv, pi, vo, io, stream);
+  if (k <= 8) return topk_km<8>(x, hi, lo, m2, B, N, D, Dp, k, splits, pv, pi, vo, io, stream);
+  return topk_km<16>(x, hi, lo, m2, B, N, D, Dp, k, splits, pv, pi, vo, io, stream);
 }
 
 // K8: the prologue, then the walk with the top-2 fold, then the split merge;

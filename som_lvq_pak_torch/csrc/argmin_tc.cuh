@@ -1,10 +1,8 @@
-// The pieces of the mma.sync winner search shared by K16 (dist_argmin_t.cu)
-// and K10 (dist_topk.cu), and the lane merge and split fold of K1 and K2
-// (argmin_sm90.cu) and K4 (argmin_masked_sm90.cu):
-// the CTA shape, the codebook's split into spans of whole tiles, the cp.async
-// staging of a codebook tile, the merge of a sample's four lanes with the
-// fold across codebook splits, and the unmasked search's shared-memory
-// layout (K2Smem) and split A fragments (load_x).
+// The mma.sync winner search of K16 (dist_argmin_t.cu), the last kernel on
+// it, and the pieces the Hopper walks share with it: the lane merge and split
+// fold of K1 and K2 (argmin_sm90.cu) and K4 (argmin_masked_sm90.cu) and the
+// split A fragments (load_x, K1's too).  K16's: the CTA shape, the cp.async
+// staging of a codebook tile, and its shared-memory layout (K2Smem).
 //
 // One CTA owns kTB = 128 samples, 16 per warp, and walks its span of the
 // codebook in kTNC-row tiles, each tile split into slabs of SW = 8 KT
@@ -27,14 +25,6 @@ constexpr int kTB = 128;   // samples per CTA (8 warps x 16)
 constexpr int kTNC = 64;   // codebook rows per tile (8 n-tiles)
 constexpr int kWarps = kTB / 16;
 constexpr int kThreads = 32 * kWarps;
-
-// `splits` spans of whole kTNC-row tiles across gridDim.y: (rows per span,
-// spans used, the non-empty ones)
-inline void tile_spans(int N, int splits, int& n_span, int& used) {
-  const int n_tiles = (N + kTNC - 1) / kTNC;
-  n_span = ((n_tiles + splits - 1) / splits) * kTNC;
-  used = (N + n_span - 1) / n_span;
-}
 
 // cp.async of item i's (tile, slab) into raw[row][feature]: rows past n_hi
 // and features past D are not copied (the split reads zeros for them);

@@ -56,6 +56,12 @@ int k14_walk_f32codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
 int k14_walk_bf16codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
 int k14_walk_int8_f32codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
 int k14_walk_int8_bf16codes(const StepArgs& a, int wxa_bf16, int batch_bf16);
+// K14's main form for D <= 128 on K13's Hopper walk, the batch split across
+// a cluster of `cluster` CTAs a tile (separable_sm90.cuh), for a bf16
+// codebook (som_fused_chunked_sm90_bf16.cu; the float32 codebook's, and the
+// walk's C entries, in som_fused_chunked_sm90_f32.cu): the prologue and the
+// walk after the table launch
+int k14_sm90_bf16codes(const StepArgs& a, int batch_bf16, int cluster);
 
 }  // namespace somvq
 
@@ -76,8 +82,10 @@ __device__ __forceinline__ __nv_bfloat16 to_pattern(float v, __nv_bfloat16*) {
 // samples without a BMU (alpha 0, so every W of theirs is +0; K13's Hopper
 // walk reads whole chunks with no test).  Grid rows of the launch walk the
 // n_pat + ydim table rows; the first also sets the Bn winner keys to their
-// start value (init_keys).
-template <typename PT>
+// start value (init_keys).  kRound: the x-pattern rounded to bf16 and kept
+// as float32 (K14's wxa_bf16 on its Hopper walk, which reads float32 rows;
+// the widened bf16 table's values exactly)
+template <typename PT, bool kRound = false>
 __global__ void factored_tables_kernel(const int* __restrict__ bmu,
                                        const float* __restrict__ alpha, int B, int ld,
                                        int Bn, int xdim, int hexa, int gaussian,
@@ -103,7 +111,8 @@ __global__ void factored_tables_kernel(const int* __restrict__ bmu,
       const float xq = hexa ? (float)col + 0.5f * (float)par : (float)col;
       const float dx = xq - bx;
       const float dx2 = dx * dx;
-      pat[(size_t)p * ld + b] = to_pattern(gaussian ? a * expf(-dx2 * s) : dx2, pat);
+      const float wx = gaussian ? a * expf(-dx2 * s) : dx2;
+      pat[(size_t)p * ld + b] = to_pattern(kRound ? bf16_round(wx) : wx, pat);
     } else {
       const int y = p - n_pat;
       const float rd = (float)(y - brow);
@@ -115,13 +124,13 @@ __global__ void factored_tables_kernel(const int* __restrict__ bmu,
 
 // The table launch of one step (it also sets the winner keys), table rows of
 // ld >= B entries
-template <typename PT>
+template <typename PT, bool kRound = false>
 int launch_tables(const StepArgs& a, int ld) {
   const int n_pat = a.hexa ? 2 * a.xdim : a.xdim;
   const int ydim = (a.noc + a.xdim - 1) / a.xdim;
   const int trows = n_pat + ydim < 65535 ? n_pat + ydim : 65535;
   const dim3 tgrid(((ld > a.Bn ? ld : a.Bn) + 255) / 256, trows);
-  factored_tables_kernel<PT><<<tgrid, 256, 0, a.stream>>>(
+  factored_tables_kernel<PT, kRound><<<tgrid, 256, 0, a.stream>>>(
       a.bmu, a.alpha, a.B, ld, a.Bn, a.xdim, a.hexa, a.gaussian, a.radius, n_pat,
       ydim, static_cast<PT*>(a.pat), a.ytab, a.aw, a.keys);
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
 // Hopper's asynchronous pipeline in PTX, for kernels that feed warpgroup
 // `wgmma` from a ring of shared-memory slots filled by TMA: mbarriers, the
 // 1-D and 2-D tensor-map loads and the tensor map's encoder, the warpgroup
-// register split (setmaxnreg), the
+// register split (setmaxnreg), a thread-block cluster's barrier and
+// distributed shared memory (K14's batch split), the
 // shared-memory matrix descriptor of a K-major swizzled operand, the wgmma
 // fences, the int8 m64n256k32 product (K15) and the TF32 m64n128k8 (K1, K2,
 // K8, K3's and K17's winners), m64n64k8 (K4, their update at D 64) and
@@ -113,6 +114,58 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- thread-block clusters ---------------------------------------------------
+
+// this CTA's rank in its cluster and the cluster's CTA count (0 and 1 in a
+// launch without clusters)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// every non-exited thread of the cluster past this point: the writes before
+// it (shared memory of any CTA of the cluster) seen by the reads after it.
+// The aligned form for whole warps, the other for a thread alone
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync_thread() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the shared::cluster address of the shared::cta address `addr` in the
+// cluster's CTA `rank`, and loads from such an address
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // the registers each thread of this warpgroup owns, lowered or raised to R

@@ -52,11 +52,8 @@
 // int8_win alone, the walk on a grid of one CTA per tile, is the main form's
 // update, the blend, then its tile's int8 winners.
 //
-// Rows per CTA: 64 or 32 (the wrapper takes ops.som_step.K14_ROWS, 64: each
-// CTA walks the whole batch in about the same time at either height, so the
-// main path's 64x64 map at B 4096, 64 CTAs of 64 rows on 132 SMs, is no
-// slower than 128 of 32; chip_smoke.py times both; stagger takes 32 past D
-// 128, where the ring and the previous float tile do not fit beside 64 rows).
+// Rows per CTA (ops.som_step.k14_rows): 64, but 32 under stagger past D 128,
+// where the walk's ring and previous float tile do not fit beside 64 rows.
 // Each row's batch stays in one CTA, so reruns are bit-equal.
 //
 // What bounds it on H100: the two contractions, 4 noc B D FLOPs per step,
@@ -64,9 +61,9 @@
 // 495 TFLOP/s; under int8_win the update's third (2 or 6 noc B D TF32) and 2
 // noc B D int8 operations at 1979 TOP/s.  That is far less than the time each
 // CTA takes to walk the batch, one barrier-separated 32-sample chunk after
-// another (staging, W build, mma), then the winner chunks.  That walk, the
-// same for every map the trainer gives K14, sets the time; a split of the
-// batch across CTAs would shorten it (PERF.md).  The main form is
+// another (staging, W build, mma), then the winner chunks.  That walk sets the
+// time; K14's main form for D <= 128 splits it across the CTAs of a cluster
+// (separable_sm90.cuh).  The main form is
 // instantiated per codebook type in som_fused_chunked_tc_f32.cu and _bf16.cu,
 // the walk in som_fused_chunked_walk_f32.cu, _bf16.cu, _int8_f32.cu and
 // _int8_bf16.cu.
@@ -91,33 +88,17 @@ som_fused_factored_chunked_tc_kernel(CT* __restrict__ codes, int noc, int D,
                                                rows32);
 }
 
-// for D's width and the rows per CTA (a.rows: 64 or 32); past D 256 NT 32's
-// feature passes, an instantiation of their own
+// for D's width, 64 rows a CTA: NT 32 from D 129 to 256, past D 256 its
+// feature passes, an instantiation of their own; D <= 128 runs on K13's
+// Hopper walk (separable_sm90.cuh), not here
 template <typename CT, typename PT, bool kBf16>
 int launch_k14_tc(const StepArgs& a) {
-  const int k8 = (a.D + 7) / 8;  // 8-feature steps, padded up to a power of two
-  if (a.rows != 32 && a.rows != 64) return (int)cudaErrorInvalidValue;
+  if (a.rows != 64 || a.D <= 128) return (int)cudaErrorInvalidValue;
   if (a.D > kPassD)
-    return a.rows == 32
-               ? launch_separable_tc<32, 2, kBf16, CT, PT>(
-                     som_fused_factored_chunked_tc_kernel<32, 2, CT, PT, kBf16, true>, a)
-               : launch_separable_tc<32, 4, kBf16, CT, PT>(
-                     som_fused_factored_chunked_tc_kernel<32, 4, CT, PT, kBf16, true>, a);
-#define K14_LAUNCH(NT)                                                                 \
-  if (k8 <= NT)                                                                      \
-    return a.rows == 32                                                              \
-               ? launch_separable_tc<NT, 2, kBf16, CT, PT>(                          \
-                     som_fused_factored_chunked_tc_kernel<NT, 2, CT, PT, kBf16, false>, a) \
-               : launch_separable_tc<NT, 4, kBf16, CT, PT>(                          \
-                     som_fused_factored_chunked_tc_kernel<NT, 4, CT, PT, kBf16, false>, a);
-  K14_LAUNCH(1)
-  K14_LAUNCH(2)
-  K14_LAUNCH(4)
-  K14_LAUNCH(8)
-  K14_LAUNCH(16)
-  K14_LAUNCH(32)
-#undef K14_LAUNCH
-  return (int)cudaErrorInvalidValue;
+    return launch_separable_tc<32, 4, kBf16, CT, PT>(
+        som_fused_factored_chunked_tc_kernel<32, 4, CT, PT, kBf16, true>, a);
+  return launch_separable_tc<32, 4, kBf16, CT, PT>(
+      som_fused_factored_chunked_tc_kernel<32, 4, CT, PT, kBf16, false>, a);
 }
 
 // K14's main launch for its bf16 options (wxa_bf16 only on a gaussian map)

@@ -163,8 +163,8 @@ int run_flags(const StepArgs& a, int chunked, int wxa_bf16, int batch_bf16,
 // of 64, DP = ops.som_step.split_width(D): 8 times the power of two of
 // 8-feature steps that covers D, 256 n_passes(D) past 256); rows32: (noc, D)
 // float32 scratch for a bf16 codebook past D 256, else unread;
-// rows, the rows per CTA (ops.som_step.k13_rows: 128 or 64; K14: 64 or 32,
-// ops.som_step.k14_rows).  val gets -2 * the best score, idx its row.
+// rows, the rows per CTA (ops.som_step.k13_rows: 128 or 64; K14's
+// ops.som_step.k14_rows: 64, or 32 under stagger past D 128).  val gets -2 * the best score, idx its row.
 extern "C" int somvq_som_fused_factored(
     void* codes, int codes_bf16, int noc, int D, const float* xb,
     const int* bmu, const float* alpha, int B, const float* xn, int Bn,

@@ -1,6 +1,6 @@
-// The top-k fold of the tensor-core winner walks, shared by K10 (dist_topk.cu,
-// on the mma.sync walk), K8 (argmin_sm90.cu, on K1's wgmma walk at KM 2) and
-// K9 (argmin_masked_sm90.cu, on K4's wgmma walk at KM 2): per lane and sample
+// The top-k fold of the tensor-core winner walks, shared by K8 and K10
+// (argmin_sm90.cu, on K1's wgmma walk; K8 at KM 2, K10 at KM 2, 4, 8 or 16)
+// and K9 (argmin_masked_sm90.cu, on K4's wgmma walk at KM 2): per lane and sample
 // a sorted list of KM (score, code) pairs, the four lanes of a sample merged
 // by shuffles, each codebook split's k pairs written to a (splits, B, k)
 // scratch, and a second small launch that folds the splits in split order.

@@ -141,7 +141,7 @@ def dist_argmin_t_plain(x: torch.Tensor, codes: torch.Tensor
 
 
 def k2_splits(B: int, N: int, device: torch.device) -> int:
-    """The codebook splits of the mma.sync walk of K10 and K16: enough
+    """The codebook splits of the mma.sync walk of K16: enough
     spans of whole 64-row tiles for about two CTAs of 128 samples per SM,
     rounded down to whole waves: exactly two of them fit on an SM (their
     registers), so a count that leaves a partial second wave costs a whole
@@ -159,7 +159,7 @@ K1_MIN_SPAN = 4
 
 
 def k1_sm90_splits(B: int, N: int, sms: int) -> int:
-    """K1's and K2's codebook splits on a card of `sms` SMs: spans of whole
+    """K1's, K2's, K8's and K10's codebook splits on a card of `sms` SMs: spans of whole
     128-code tiles, as many as fill one wave of CTAs of 128 samples, one CTA
     an SM (its ring takes about 196 KB of shared memory), rounded down to
     whole waves, and at least K1_MIN_SPAN tiles each, so that a CTA's ring

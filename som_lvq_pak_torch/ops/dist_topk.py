@@ -13,14 +13,17 @@ there; so does k > N.
 The plain version is ops.distance.topk_winners (k first-minimum argmins of
 the full distance, each pick masked out, never `torch.topk`, which promises
 no order among equal values), its values clamped at 0.  A CUDA tensor
-launches the kernel in `csrc/dist_topk.cu`: the split-TF32 mma.sync walk
-(K16's, with ||m||^2 summed in the order of K1's prologue) with a top-k
-fold, the codebook split by `k2_splits`; a row's score depends only on its
-own data and K1's products give the same floats, so its first column is
-K1's (value, index) bit for bit on the same inputs, and at k = 2 its
-pairs are K8's (`ops.dist_top2.dist_top2`, K1's Hopper walk with a top-2
-fold).  A CPU tensor runs the plain version.  The wrapper counts its kernel
-launches in its `launches` attribute.
+launches the kernel: K1's Hopper walk (`csrc/argmin_sm90.cu`'s
+`dist_topk_sm90_kernel`: a TMA ring fed by a producer, TF32 `wgmma`) with
+a fold of KM in {2, 4, 8, 16} (score, code) pairs per lane and sample, KM
+the smallest that holds k.  One C call runs K1's prologue (the codebook
+split into TF32 hi and lo once, with ||m||^2; counted on
+`ops.dist_argmin.split_codes.launches` too), the walk with the codebook
+split by `k1_sm90_splits`, and the merge of the splits.  A row's score is
+K1's float, so the first column is K1's (value, index) bit for bit on the
+same inputs, and at k = 2 the pairs are K8's (`ops.dist_top2.dist_top2`,
+the same walk at KM 2).  A CPU tensor runs the plain version.  The wrapper
+counts its kernel launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
-from .dist_argmin import _check, k2_splits
+from .dist_argmin import _check, k1_sm90_splits, split_codes, split_codes_dp
 from .distance import topk_winners
 
 
@@ -70,6 +73,13 @@ def dist_topk_reference(x: torch.Tensor, rev: torch.Tensor, k: int
     return vals, rev.shape[0] - 1 - idx
 
 
+def topk_scratch_floats(B: int, N: int, D: int, k: int, splits: int) -> int:
+    """The floats of K10's one scratch buffer: the prologue's hi and lo (N,
+    Dp), ||m||^2 (N, padded to 4), then the splits' (splits, B, k) pair
+    values and indices."""
+    return 2 * N * split_codes_dp(D) + -(-N // 4) * 4 + 2 * splits * B * k
+
+
 def _launch(x: torch.Tensor, codes: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch `somvq_dist_topk` on checked CUDA tensors (x contiguous): the
@@ -78,17 +88,18 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, k: int
     codes = codes.contiguous()
     B, D = x.shape
     N = codes.shape[0]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    i32 = dict(dtype=torch.int32, device=x.device)
-    vo, io = torch.empty((B, k), **f32), torch.empty((B, k), **i32)
+    vo = torch.empty((B, k), dtype=torch.float32, device=x.device)
+    io = torch.empty((B, k), dtype=torch.int32, device=x.device)
     if B == 0:
         return vo, io
-    splits = k2_splits(B, N, x.device)
-    pv = torch.empty((splits, B, k), **f32)
-    pi = torch.empty((splits, B, k), **i32)
-    _build.call("somvq_dist_topk", x.data_ptr(), codes.data_ptr(), B, N, D, k,
-                splits, pv.data_ptr(), pi.data_ptr(), vo.data_ptr(),
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = k1_sm90_splits(B, N, sms)
+    scratch = torch.empty((topk_scratch_floats(B, N, D, k, splits),),
+                          dtype=torch.float32, device=x.device)
+    _build.call("somvq_dist_topk", x.data_ptr(), codes.data_ptr(), B, N, D,
+                split_codes_dp(D), k, splits, scratch.data_ptr(), vo.data_ptr(),
                 io.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    split_codes.launches += 1
     dist_topk.launches += 1
     return vo, io
 

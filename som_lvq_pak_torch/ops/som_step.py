@@ -10,23 +10,26 @@ kernels, each a hand-written CUDA kernel here:
   cores as split-TF32 products (float32 accuracy, csrc/tf32x3.cuh), the
   two kernels bit-equal;
 - K13 `som_fused_factored_step` (csrc/som_fused_factored_sm90.cu for D <=
-  128, K3's Hopper walk with W built from the tables; csrc/som_fused_factored.cu
+  128, K3's Hopper walk with W built from the tables, csrc/separable_sm90.cuh; csrc/som_fused_factored.cu
   past it, `k13_route`): the separable kernel (`_som_fused_factored_kernel`),
   W = Wx(column, row parity) * Wy(row) from tables, winners in max-score
   form; past D 128 K3's tensor-core body (csrc/fused_step_tc.cuh) with W read
   from the tables; the two bit-equal;
-- K14 `som_fused_factored_chunked_step` (csrc/som_fused_chunked_tc.cuh and
-  the same source): the batch-chunked kernel
+- K14 `som_fused_factored_chunked_step` (csrc/separable_sm90.cuh
+  for its main form up to D 128, `k14_route`; csrc/som_fused_chunked_tc.cuh
+  past it and for its options): the batch-chunked kernel
   (`_som_fused_factored_chunked_kernel`) with its bf16 x-pattern
   (`wxa_bf16`, gaussian only), bf16 batches (`batch_bf16`), int8 winners
   (`int8_win`) and staggered schedule (`stagger`).  Its main form (no
-  `stagger`, no `int8_win`) is K13's tensor-core body with the bf16 table
-  widened where W is built and, under `batch_bf16`, one TF32 product per
-  contraction on the bf16 operands; `stagger` and `int8_win` run the same
+  `stagger`, no `int8_win`) is K13's Hopper walk with the x-pattern rounded
+  to bf16 by the table launch and, under `batch_bf16`, one TF32 product per
+  contraction on the bf16 operands, each tile's batch split across a
+  thread-block cluster of `k14_cluster` CTAs (past D 128 K13's
+  tensor-core body with the same roundings); `stagger` and `int8_win` run the same
   body's chunk functions in a walk of their own (a persistent grid that
   interleaves each tile's update with the previous tile's winners under
   `stagger`; the winners on int8 `mma.sync` under `int8_win`), bit-equal to
-  the main form (`int8_win`: its codebook).
+  the main form at a cluster of one CTA (`int8_win`: its codebook).
 
 One call applies batch t's neighbourhood update to the codebook and finds
 batch t+1's winners against the UPDATED codebook (the software-pipelined
@@ -44,8 +47,10 @@ batch-chunked kernel (pallas_som.py:1339-1349); K3 ignores all five, as the
 JAX wrapper's plain path does.
 `tile_n` decides the geometry only: the CUDA kernels tile by 128 rows (K3;
 64 for D > 128), by `k13_rows` (K13: 128, or 64 up to 128x128) or by
-`k14_rows` (K14: 64, or 32 under `stagger` past D 128), and the result
-depends on it only through the float32 order of additions.  The
+`k14_rows` (K14 past D 128 and its options: 64, or 32 under `stagger` past
+D 128; its main form up to D 128: 128, the batch split across `k14_cluster`
+CTAs), and the result depends on it only through the float32 order of
+additions.  The
 port keeps D unpadded, so the JAX `d_real` has no counterpart.  The kernels
 take any D >= 1: past PASS_D (256) features, the widest they instantiate,
 they run in `feature_passes(D)` passes of 256 within one launch (the update
@@ -85,6 +90,8 @@ the kernel's schedule, not its result, so its plain version is K14's.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -251,7 +258,7 @@ def separable_rows(noc: int, xdim: int, hexa: bool
     """Each unit's x-pattern row (row parity * xdim + column on a hexa map,
     the column on a rect one) and y-factor row (its grid row): the rows of
     `separable_tables` the kernels read for it (csrc/separable_w.cuh:
-    SeparableW::init, csrc/som_fused_factored_sm90.cu's walk)."""
+    SeparableW::init, csrc/separable_sm90.cuh's walk)."""
     u = torch.arange(noc)
     row = u // xdim
     return ((row % 2) * xdim + u % xdim if hexa else u % xdim), row
@@ -369,16 +376,20 @@ def int8_win_scores(newc, rows, xq, q):
 
 def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
                      gaussian, chunked=False, batch_chunk=None, wxa_bf16=False,
-                     batch_bf16=False, stagger=False, int8_win=False):
+                     batch_bf16=False, stagger=False, int8_win=False, cluster=None):
     """Plain K13 (`chunked` False: the whole batch at once) or K14: the
     batch in `batch_chunk` slices with the batch-chunked kernel's bf16
     roundings (pallas_som.py:1012-1094) and, with `int8_win`, its int8
     winners.  `stagger` changes the kernel's schedule, not the function: it
-    is taken and has no effect here."""
+    is taken and has no effect here.  With `cluster` (K14) the update sums
+    the batch in the `cluster_ranges` of a cluster of that many CTAs, each
+    range's partial added in rank order, as K14's Hopper walk splits it."""
     fp32_matmul()
     dev = codes.device
     B, D = xb.shape
     chunk = _batch_chunk(B, xb_next.shape[0], batch_chunk) if chunked else None
+    ranges = (cluster_ranges(B, cluster) if cluster else
+              [(lo, min(B, lo + (chunk or B))) for lo in range(0, B, chunk or B)])
     wxa_bf16 = bool(wxa_bf16 and gaussian)
     aw, r = _alpha_r(alpha, radius, B, dev)
     bmu = bmu.to(torch.int32)
@@ -387,8 +398,8 @@ def _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
     noc = codes.shape[0]
     acc = torch.zeros((noc, D), dtype=torch.float32, device=dev)
     wsum = torch.zeros((noc, 1), dtype=torch.float32, device=dev)
-    for lo in range(0, B, chunk or B):
-        sl = slice(lo, lo + (chunk or B))
+    for lo, hi in ranges:
+        sl = slice(lo, hi)
         w = separable_w(bmu[sl], aw[sl], r, noc, xdim, hexa, gaussian, wxa_bf16)
         acc = acc + (_bf16(w) if batch_bf16 else w) @ x[sl]
         wsum = wsum + w.sum(1, keepdim=True)
@@ -413,16 +424,17 @@ def som_fused_factored_chunked_step_plain(codes, xb, bmu, xb_next, xdim, hexa,
                                           alpha, radius, gaussian=False,
                                           batch_chunk=None, wxa_bf16=False,
                                           batch_bf16=False, stagger=False,
-                                          int8_win=False):
+                                          int8_win=False, cluster=None):
     """Plain K14 (`_som_fused_factored_chunked_kernel`): the separable step
     with the batch in `batch_chunk` slices (default gcd(B, B')), the
     x-pattern rounded to bf16 with `wxa_bf16` (gaussian only), the batches
     and W's product operands with `batch_bf16`, and the int8 winners of
     `fused_step_winners_int8` with `int8_win`; `stagger` leaves the result
-    as it is."""
+    as it is.  `cluster`: the update summed in `cluster_ranges(B, cluster)`,
+    the partials added in rank order (K14's Hopper walk's batch split)."""
     return _separable_plain(codes, xb, bmu, xb_next, xdim, hexa, alpha, radius,
                             gaussian, True, batch_chunk, wxa_bf16, batch_bf16,
-                            stagger, int8_win)
+                            stagger, int8_win, cluster)
 
 
 def _batch_chunk(B: int, Bn: int, batch_chunk: Optional[int]) -> int:
@@ -558,26 +570,90 @@ def k13_rows(noc: int, D: int, device: torch.device) -> int:
     return 128 if D <= 128 and -(-noc // 128) >= 2 * sms else 64
 
 
-# K14's codebook rows per CTA (csrc/som_fused_chunked_tc.cuh builds 64 and
-# 32), chosen from the card's times: each CTA walks the whole batch, and on an
-# H100 a 64-row CTA did so as fast as a 32-row one, so at every map the
-# trainer gives K14 (32x32, 64x32 and 64x64 at B 4096) and at 128x128 the
-# 64-row grid was as fast or faster (chip_smoke.py's k14_vs_k13 and k14_rows
-# lines time both heights; PERF.md).  The batch is never split across CTAs:
-# each row's sums keep one order.
-K14_ROWS = 64
-
 # The most CTAs of K14's staggered persistent grid; the card's resident count
 # caps it first (chip_smoke.py forces a few, so that each CTA walks several
 # tiles)
 K14_STAGGER_CTAS = 2 ** 31 - 1
 
 def k14_rows(D: int, stagger: bool = False) -> int:
-    """K14's rows per CTA: K14_ROWS, but 32 under `stagger` past D 128,
-    where its walk's ring and previous float32 tile do not fit in shared
-    memory beside 64 rows (`k14_walk_smem_bytes`).  The kernel refuses a
-    height that does not fit; it never shrinks one."""
-    return 32 if stagger and D > 128 else K14_ROWS
+    """K14's rows per CTA off its Hopper walk (csrc/som_fused_chunked_tc.cuh:
+    its main form past D 128, its stagger and int8_win): 64, but 32 under
+    `stagger` past D 128, where the walk's ring and previous float32 tile do
+    not fit in shared memory beside 64 rows (`k14_walk_smem_bytes`).  The
+    kernel refuses a height that does not fit; it never shrinks one.  Each
+    row's batch stays in one CTA: its sums keep one order."""
+    return 32 if stagger and D > 128 else 64
+
+
+# K14's main form up to SM90_MAX_D: the cluster sizes its Hopper walk is
+# launched with (csrc/separable_sm90.cuh), the samples of an update
+# chunk (a rank takes whole chunks), and a forced cluster size (None: the
+# wrapper's choice, `k14_cluster`; chip_smoke.py forces each size)
+K14_CLUSTERS = (1, 2, 4, 8)
+K14_UPDATE_CHUNK = 32
+K14_CLUSTER = None
+
+
+def cluster_ranges(B: int, cluster: int) -> list:
+    """The sample ranges [lo, hi) of the `cluster` CTAs that split a tile's
+    batch of B samples in K14's Hopper walk: rank r takes the update chunks
+    [r n / c, (r + 1) n / c) of the n = ceil(B / 32), whole 32-sample chunks
+    (the last cut at B); a rank with no chunk gets an empty range."""
+    if cluster not in K14_CLUSTERS:
+        raise ValueError(f"cluster={cluster} not in {K14_CLUSTERS}")
+    n = -(-B // K14_UPDATE_CHUNK)
+    edges = [min(B, (r * n // cluster) * K14_UPDATE_CHUNK) for r in range(cluster + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def k14_cluster(tiles: int, sms: int) -> int:
+    """The CTAs of the cluster that splits each 128-row tile's batch in K14's
+    Hopper walk, for a map of `tiles` tiles on a card of `sms` SMs: the
+    largest size in K14_CLUSTERS with tiles x size <= sms, so that the
+    step's clusters fill at most one wave of one CTA an SM (its shared
+    memory takes about 227 KB); 1 where the tiles alone fill the card.
+    `_k14_cluster_on` then halves it while the card holds fewer such
+    clusters at once than the map has tiles.  On an H100 (132 SMs) the two
+    pick 8, 4, 2 and 1 at 32x32, 64x32, 64x64 and 128x128 (B 4096), the
+    fastest size of the walk kernel's device time at each of those maps
+    and option sets (tools/fused_step_ab.py --walk-variants, its cluster
+    sweep; PERF.md).  The pick depends on the card's SM count and cluster
+    placement, and at c > 1 the batch sum is reassociated at c - 1 points:
+    two card models may pick different sizes and then give codebooks that
+    differ by float32 rounding; one card's reruns are bit-equal."""
+    for c in reversed(K14_CLUSTERS):
+        if tiles * c <= sms:
+            return c
+    return 1
+
+
+def _k14_max_clusters(D: int, batch_bf16: bool, cluster: int) -> int:
+    """cudaOccupancyMaxActiveClusters of K14's walk at D for `cluster`."""
+    out = ctypes.c_int(0)
+    _build.call("somvq_som_fused_chunked_sm90_clusters", D, int(batch_bf16), cluster,
+                ctypes.byref(out))
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _k14_cluster_on(noc: int, D: int, batch_bf16: bool, sms: int) -> int:
+    """`k14_cluster` checked against the card: halved while fewer clusters
+    fit at once than the map has tiles (a GPC may not place clusters of 8
+    CTAs of one SM each in every one of its SMs)."""
+    tiles = -(-noc // 128)
+    c = k14_cluster(tiles, sms)
+    while c > 1 and _k14_max_clusters(D, batch_bf16, c) < tiles:
+        c //= 2
+    return c
+
+
+def k14_route(D: int) -> str:
+    """K14's main form's kernel for D features, K3's rule (`k3_route`):
+    "sm90", K13's Hopper walk with K14's roundings and the batch split
+    across a cluster (csrc/separable_sm90.cuh), up to SM90_MAX_D;
+    "mma_sync" (csrc/som_fused_chunked_tc.cuh) past it.  K14's stagger and
+    int8_win run their own walk at any D."""
+    return k3_route(D)
 
 
 def k14_walk_smem_bytes(D: int, rows: int, int8_win: bool, batch_bf16: bool,
@@ -608,8 +684,10 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     on the CPU): K14's main form, or its walk under `stagger` or `int8_win`,
     counted as the module docstring says.  One scratch buffer holds the
     winner keys (Bn u64), alpha (B), the y-factor table (ceil(noc / xdim), B)
-    and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16), their rows B
-    padded to a multiple of 64 for K13's walk; another the
+    and the x-pattern (2 xdim or xdim, B; bf16 under wxa_bf16 off the Hopper
+    walk), their rows B padded to a multiple of 64 for K13's and K14's
+    walk, whose K14 cluster is K14_CLUSTER or `k14_cluster` checked on the
+    card; another the
     split batches (x' not split under int8_win); under int8_win the quantized
     next batch, padded by `int8_win_staged`, and its scales come from
     `int8_win_inputs`, on the device."""
@@ -626,20 +704,34 @@ def _fused_step_separable(codes, xb, bmu, xb_next, xdim, hexa, aw, radius,
     noc, D = codes.shape
     B, Bn = xb.shape[0], xb_next.shape[0]
     n_pat = 2 * xdim if hexa else xdim
-    sm90 = not chunked and k13_route(D) == "sm90"
-    ld = -(-B // 64) * 64 if sm90 else B  # the tables' rows (padded for K13's walk)
+    walk = chunked and bool(stagger or int8_win)
+    # K13's or K14's main form on the Hopper walk (tables' rows padded to 64,
+    # a float32 x-pattern: K14's wxa_bf16 rounds its values)
+    sm90 = not walk and (k14_route(D) if chunked else k13_route(D)) == "sm90"
+    ld = -(-B // 64) * 64 if sm90 else B
     words = [2 * Bn, ld, -(-noc // xdim) * ld]  # float32 words before the pattern
     offs = [4 * sum(words[:k]) for k in range(4)]
-    pat_words = -(-n_pat * ld // 2) if wxa_bf16 else n_pat * ld
+    pat_words = -(-n_pat * ld // 2) if wxa_bf16 and not sm90 else n_pat * ld
     scratch = torch.empty((sum(words) + pat_words,), dtype=torch.float32,
                           device=dev)
     keys, aw_eff, ytab, pat = (scratch.data_ptr() + o for o in offs)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
-    walk = chunked and bool(stagger or int8_win)
     rows32 = _rows32(codes)
     xb, xn = xb.contiguous(), xb_next.contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if sm90 and chunked:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        cluster = K14_CLUSTER or _k14_cluster_on(noc, D, bool(batch_bf16), sms)
+        xs = sm90_scratch(B, Bn, D, dev, 1 if batch_bf16 else 2, table=False)
+        _build.call("somvq_som_fused_chunked_sm90", codes.data_ptr(),
+                    int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
+                    bmu.data_ptr(), aw.data_ptr(), B, xn.data_ptr(), Bn, int(xdim),
+                    int(bool(hexa)), int(bool(gaussian)), float(radius), int(wxa_bf16),
+                    int(bool(batch_bf16)), int(cluster), xs.data_ptr(), pat, ytab, aw_eff,
+                    keys, val.data_ptr(), idx.data_ptr(), stream)
+        som_fused_factored_chunked_step.launches += 1
+        return codes, idx, val
     if sm90:
         xs = sm90_scratch(B, Bn, D, dev, table=False)
         _build.call("somvq_som_fused_factored_sm90", codes.data_ptr(),
@@ -749,7 +841,8 @@ def k3_route(D: int) -> str:
 
 def k13_route(D: int) -> str:
     """K13's kernel for D features, K3's rule (`k3_route`): "sm90", K3's
-    Hopper walk with the separable W (csrc/som_fused_factored_sm90.cu), up to
+    Hopper walk with the separable W (csrc/separable_sm90.cuh, entry in
+    csrc/som_fused_factored_sm90.cu), up to
     SM90_MAX_D; "mma_sync" (csrc/som_fused_factored.cu) past it, at any D.
     Both give the same floats."""
     return k3_route(D)

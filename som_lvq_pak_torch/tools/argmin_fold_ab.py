@@ -92,13 +92,14 @@ _PER_SCORE = """    if (sl == nslab - 1) {
       }
     }
 """
-# (K8's and K9's pairs take the score too: a product whose sums nothing
-# reads is dropped by the compiler, and their walks read top2, not best;
-# K4's score reads both of its sums for the same reason)
+# (K8's, K10's and K9's lists take the score too: a product whose sums
+# nothing reads is dropped by the compiler, and their walks read their list
+# (K8's and K10's `list`, K9's `top2`), not best; K4's score reads both of
+# its sums for the same reason)
 _NO_FOLD = """    if (sl == nslab - 1 && S[0] > best[0]) {
       best[0] = S[0];
       bidx[0] = n0;
-      top2.s[0][0] = S[0];
+      list.s[0][0] = S[0];
     }
 """
 _NO_FOLD_K4 = """    if (sl == nslab - 1 && S1[0] - 0.5f * S2[0] > best[0]) {

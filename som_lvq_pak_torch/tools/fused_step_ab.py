@@ -3,11 +3,14 @@ tree, with a digest of every output so that two trees can be held bit for
 bit against each other: K3 (csrc/fused_step_sm90.cu, the Hopper walk, for D
 <= 128; csrc/som_fused_step.cu past it), K13 (csrc/som_fused_factored_sm90.cu,
 K3's walk, for D <= 128; csrc/som_fused_factored.cu past it), K14's main form
-(on csrc/fused_step_tc.cuh; past 256 features every fused-step kernel runs in
-feature passes), K17 (csrc/fused_skeleton_sm90.cu, K3's walk;
-csrc/fused_skeleton.cu past D 128), the winner walks K4 and K9 (masked,
-csrc/argmin_masked_sm90.cu), K8 (csrc/argmin_sm90.cu) and K10
-(csrc/dist_topk.cu, at k 2 and 8), the two-kernel step's updates K5
+(csrc/separable_sm90.cuh, K13's walk with the batch split across a
+cluster, for D <= 128; csrc/fused_step_tc.cuh past it; past 256 features
+every fused-step kernel runs in feature passes), K17
+(csrc/fused_skeleton_sm90.cu, K3's walk; csrc/fused_skeleton.cu past D 128),
+the winner walks K4 and K9 (masked, csrc/argmin_masked_sm90.cu), K8 and K10
+(csrc/argmin_sm90.cu; K10 at k 1, 2, 5, 8 and 16, and at every k from 1 to
+16 of the list widths on small codebooks, every code twice or not, in file
+and reversed order), the two-kernel step's updates K5
 (csrc/som_update_sm90.cu) and K6 (masked, csrc/som_update_masked_sm90.cu),
 and the mixed mesh step's halves K11 (csrc/som_accum_sm90.cu) then K12
 (csrc/som_blend_winner.cu).
@@ -19,7 +22,10 @@ For each case (map, topology, neighbourhood, B, D, radius): K3
 (`som_fused_train_step(factored=False)`) and, where the case names it, K13
 (`som_fused_factored_step`) and, where B is also a multiple of 128, K14's
 main form (`som_fused_factored_chunked_step`, "k14") and its bf16-batch form
-(`batch_bf16=True`, "k14_bf16") on the same inputs, made on the device from
+(`batch_bf16=True`, "k14_bf16") on the same inputs, at the tree's own
+cluster choice and at each cluster size c of K14's Hopper walk ("k14_c1",
+"k14_bf16_c4", ...: `ops.som_step.K14_CLUSTER`; "not runnable" on a tree
+without it, whose "k14" digests are its c 1 ones), made on the device from
 seed 4 (codes, both batches and the per-sample alphas from `randn`/`rand`,
 the BMUs from `dist_argmin_plain`, seven samples without one).  For each
 kernel: the mean milliseconds per step over `iters` steps after a warm-up
@@ -35,8 +41,11 @@ inputs from seed 6, the SHA-256 of its out and vmax at scale 1.0 (where the
 accumulation shows) and its ms at the bench's 1e-30.  For each winner case
 (B, N, D): K4 (`dist_argmin` with a mask, p 0.1 and every 97th row masked),
 K9 (`dist_top2` with the same mask), K8 (`dist_top2`) and K10 (`dist_topk`
-at k 2 and 8) on inputs from seed 5, their ms and the SHA-256 of their
-values and indices.  For each update case (map, topology, neighbourhood, B,
+at k 1, 2, 5, 8 and 16) on inputs from seed 5, their ms and the SHA-256 of
+their values and indices.  For each top-k case (B, N, D, every code twice
+or not: D 5, 37, 64, 130 and 300, N not a multiple of 128): K10 at k 1, 2,
+3, 5, 8 and 16 in file order and in the reference tie order
+(`dist_topk_reference` on the reversed codebook), their SHA-256.  For each update case (map, topology, neighbourhood, B,
 D, radius: chip_smoke.py's K5 and K6 cases, then D 300, 512 and 1024): K5
 (`som_neighborhood_update_idx`) and K6 (the same with a mask, p 0.1 and
 every 97th row masked) on inputs made as for the step cases, their ms and
@@ -53,7 +62,7 @@ floats.  Prints one JSON line.  `device="cpu"` runs the plain versions,
 timed by the host clock (a CPU time, never a device number).
 
 `--walk-variants` (a card and nvcc): where the Hopper walk of K3, K13, K6,
-K5, K11 and K17 spends its time.  Copies of csrc/ with the walk's sources
+K5, K11, K17 and K14's main form spends its time.  Copies of csrc/ with the walk's sources
 edited (`walk_variant_sources`, `k13_variant_sources`) are built by nvcc
 into `som_lvq_pak_torch/_build/step_ab/` (git-ignored) and timed in turns,
 K3 at 256x256, B 4096, D 64 (gaussian, hexa, radius 64), whole and with
@@ -85,6 +94,20 @@ the slab of 64 features past D 64 instead of 128, timed against `walk` on K5
 at 256x256, B 4096, D 300 (five slabs of 64 against three of 128) and held
 to it bit for bit: the sums do not depend on the slab width.
 
+K14's main form (`k14_variant_sources`, edits of csrc/separable_sm90.cuh
+built with K14's two sources alone) at the trainer's 64x64 step (hexa
+gaussian, B 4096, both bf16 options), 32x32 and 128x128, each at cluster
+sizes 1 and the wrapper's pick: `walk`, `no_w` (its table reads replaced by
+1, K13's no_w) and `no_exchange` (no cluster barrier and no distributed
+shared-memory read: each rank blends its own partial sums).  Then the
+cluster sweep (`K14_SWEEP`, `cluster_sweep`): K14's walk kernel alone at
+every cluster size, its device time per launch under torch.profiler (the
+table launch, the prologue and the host's floor left out), at the trainer's
+K14 maps 32x32, 64x32 and 64x64 and at 128x128 (hexa gaussian, B 4096, D
+64), each with both bf16 options, with neither, and with both on a bf16
+codebook, beside the wrapper's pick: the readings `ops.som_step.k14_cluster`
+is set from.
+
 Wrong results on purpose, except `walk`'s, which must equal the wrapper's
 (checked).  Prints one JSON line with the card's name and power limit.
 """
@@ -105,7 +128,8 @@ import torch
 from .. import _build
 from ..ops.dist_argmin import dist_argmin, dist_argmin_plain
 from ..ops.dist_top2 import dist_top2
-from ..ops.dist_topk import dist_topk
+from ..ops import som_step
+from ..ops.dist_topk import dist_topk, dist_topk_reference
 from ..ops.skeleton import fused_step_skeleton
 from ..ops.som_accum import som_neighborhood_accumulate
 from ..ops.som_blend import som_blend_winner
@@ -182,6 +206,23 @@ def _k14_bf16(*a):
     return som_fused_factored_chunked_step(*a, batch_bf16=True)
 
 
+def _k14_at(c, **kw):
+    """K14's main form with each tile's batch split across `c` CTAs; a tree
+    without the split refuses it (ValueError)."""
+    def step(*a):
+        if not hasattr(som_step, "K14_CLUSTER"):
+            raise ValueError("this tree's K14 takes no cluster")
+        saved, som_step.K14_CLUSTER = som_step.K14_CLUSTER, c
+        try:
+            return som_fused_factored_chunked_step(*a, **kw)
+        finally:
+            som_step.K14_CLUSTER = saved
+    return step
+
+
+K14_CLUSTERS = (1, 2, 4, 8)
+
+
 def kernels(B, k13) -> tuple:
     """The (name, step) pairs a case runs."""
     out = (("k3", _k3),)
@@ -189,6 +230,9 @@ def kernels(B, k13) -> tuple:
         out += (("k13", som_fused_factored_step),)
     if k13 and B % 128 == 0:
         out += (("k14", som_fused_factored_chunked_step), ("k14_bf16", _k14_bf16))
+        out += tuple((f"{name}_c{c}", _k14_at(c, batch_bf16=bb))
+                     for name, bb in (("k14", False), ("k14_bf16", True))
+                     for c in K14_CLUSTERS)
     return out
 
 
@@ -244,7 +288,8 @@ def _mask(g, B, D, dev):
 
 
 def run_winners(B, N, D, dev, iters=10) -> dict:
-    """One winner case: ms and digest of K4, K9, K8 and K10 at k 2 and 8."""
+    """One winner case: ms and digest of K4, K9, K8 and K10 at k 1, 2, 5, 8
+    and 16."""
     g = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn((B, D), generator=g, device=dev)
     codes = torch.randn((N, D), generator=g, device=dev)
@@ -253,10 +298,35 @@ def run_winners(B, N, D, dev, iters=10) -> dict:
     for name, fn in (("k4", lambda: dist_argmin(x, codes, mask)),
                      ("k9", lambda: dist_top2(x, codes, mask)),
                      ("k8", lambda: dist_top2(x, codes)),
-                     ("k10_k2", lambda: dist_topk(x, codes, 2)),
-                     ("k10_k8", lambda: dist_topk(x, codes, 8))):
+                     *((f"k10_k{k}", lambda k=k: dist_topk(x, codes, k))
+                       for k in (1, 2, 5, 8, 16))):
         out[f"{name}_digest"] = _digest(fn())
         out[f"{name}_ms"] = mean_ms(fn, dev, iters)
+    return out
+
+
+# (B, N, D, every code twice) of K10 alone: D 5, 37, 64, 130 and 300 (its
+# slabs past 64), N not a multiple of the walk's 128-code tile, exact ties
+TOPK_CASES = ((1000, 999, 5, False), (1000, 998, 5, True), (777, 3002, 37, True),
+              (512, 4001, 64, True), (1000, 2999, 130, False), (600, 1202, 300, True))
+
+
+def run_topk(B, N, D, dup, dev) -> dict:
+    """One top-k case: the digest of K10 at k 1, 2, 3, 5, 8 and 16 in file
+    order ("k10_k3") and in the reference tie order ("k10_ref_k3")."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((B, D), generator=g, device=dev)
+    if dup:
+        base = torch.randn((N // 2, D), generator=g, device=dev)
+        codes = torch.cat([base, base]).contiguous()
+    else:
+        codes = torch.randn((N, D), generator=g, device=dev)
+    rev = codes.flip(0).contiguous()
+    out = dict(case=f"topk B {B} N {codes.shape[0]} D {D}" + (" every code twice" if dup
+                                                              else ""))
+    for k in (1, 2, 3, 5, 8, 16):
+        out[f"k10_k{k}_digest"] = _digest(dist_topk(x, codes, k))
+        out[f"k10_ref_k{k}_digest"] = _digest(dist_topk_reference(x, rev, k))
     return out
 
 
@@ -350,6 +420,7 @@ def run(iters: int = 10, device="cuda") -> dict:
                 cases=[run_case(*c, dev=dev, iters=iters) for c in CASES],
                 skeleton=[run_skeleton(*c, dev=dev, iters=iters) for c in SKELETON_CASES],
                 winners=[run_winners(*c, dev=dev, iters=iters) for c in WINNER_CASES],
+                topk=[run_topk(*c, dev=dev) for c in TOPK_CASES],
                 updates=[run_update(*c, dev=dev, iters=iters) for c in UPDATE_CASES],
                 accums=[run_accum(*c, dev=dev, iters=iters) for c in ACCUM_CASES])
 
@@ -412,23 +483,52 @@ def walk_variant_sources(step_src: str, walk_src: str) -> dict:
 
 _K13_W_LINE = ("        const float wx = __ldg(pat + po[h] + s), "
                "wy = __ldg(ytab + yo[h] + s);\n")
+# the separable walk's fold (K13's and K14's: a rank's share starts at chunk w0)
+_K13_FOLD = "    argmin_fold(S, w0 * WC + n0, m2s, keys, Bn, r0, warp, lane);\n"
 
 
 def k13_variant_sources(k13_src: str, walk_texts: dict) -> dict:
-    """{variant: text of som_fused_factored_sm90.cu} for each of
-    WALK_VARIANTS, beside `walk_variant_sources`'s texts (whose header edits,
-    no_feed and no_turns, K13's walk shares): no_w reads no table, no_fold
-    folds as K3's no_fold; raises ValueError if the source no longer holds
-    the lines edited here."""
-    missing = [s for s in (_K13_W_LINE, _FOLD_START) if s not in k13_src]
+    """{variant: text of separable_sm90.cuh, K13's and K14's walk} for each
+    of WALK_VARIANTS, beside `walk_variant_sources`'s texts (whose header
+    edits, no_feed and no_turns, K13's walk shares): no_w reads no table,
+    no_fold folds as K3's no_fold; raises ValueError if the source no longer
+    holds the lines edited here."""
+    missing = [s for s in (_K13_W_LINE, _K13_FOLD) if s not in k13_src]
     if missing:
         raise ValueError(f"K13's walk lacks the lines the variants edit: {missing}")
     assert tuple(walk_texts) == WALK_VARIANTS
-    i = k13_src.index(_FOLD_START)
-    no_fold = k13_src[:i] + _NO_FOLD + k13_src[i + len(_FOLD_START):]
+    i = k13_src.index(_K13_FOLD)
+    no_fold = k13_src[:i] + _NO_FOLD + k13_src[i + len(_K13_FOLD):]
     return {name: {"no_w": k13_src.replace(_K13_W_LINE,
                                            "        const float wx = 1.f, wy = 1.f;\n"),
                    "no_fold": no_fold}.get(name, k13_src) for name in WALK_VARIANTS}
+
+
+# K14's main form's variants: edits of csrc/separable_sm90.cuh, its
+# W from the same table reads as K13's (no_w takes K13's edit), and the
+# cluster exchange (no_exchange: no cluster barrier, in the consumers or the
+# producer, and no partial read from another rank)
+K14_VARIANTS = ("walk", "no_w", "no_exchange")
+_EXCHANGE_LINES = (("  sm90::cluster_sync();\n", ""),
+                   ("      sm90::cluster_sync_thread();\n", ""),
+                   ("    sm90::cluster_sync_thread();\n", ""),
+                   ("  for (int r = 0; r < nc; ++r) {\n", "  for (int r = 0; r < 0; ++r) {\n"))
+
+
+def k14_variant_sources(k14_src: str) -> dict:
+    """{variant: text of separable_sm90.cuh} for each of
+    K14_VARIANTS; raises ValueError if the header no longer holds the lines
+    edited here."""
+    missing = [a for a in (_K13_W_LINE,) + tuple(a for a, _ in _EXCHANGE_LINES)
+               if a not in k14_src]
+    if missing:
+        raise ValueError(f"K14's walk lacks the lines the variants edit: {missing}")
+    no_exchange = k14_src
+    for a, b in _EXCHANGE_LINES:
+        no_exchange = no_exchange.replace(a, b)
+    return {"walk": k14_src,
+            "no_w": k14_src.replace(_K13_W_LINE, "        const float wx = 1.f, wy = 1.f;\n"),
+            "no_exchange": no_exchange}
 
 
 _SLAB_LINE = ("__host__ __device__ constexpr int update_slab(int D) "
@@ -451,20 +551,28 @@ _WALK_SOURCES = ("fused_step_sm90.cu", "fused_skeleton_sm90.cu", "som_fused_fact
                  "som_update_masked_sm90.cu", "som_update_sm90.cu", "som_accum_sm90.cu")
 # slab64's library: K5 and K11 alone
 _SLAB_SOURCES = ("som_update_sm90.cu", "som_accum_sm90.cu")
+# K14's variants' library: its two sources, which hold its C entry
+_K14_SOURCES = ("som_fused_chunked_sm90_f32.cu", "som_fused_chunked_sm90_bf16.cu")
+_ENTRIES = {_WALK_SOURCES: _WALK_ENTRIES, _SLAB_SOURCES: ("somvq_som_update", "somvq_som_accum"),
+            _K14_SOURCES: ("somvq_som_fused_chunked_sm90",)}
 
 
 def build_variants(out: str = VARIANT_OUT) -> dict:
     """Each variant's copy of csrc/ built into a library of K3's, K13's,
-    K17's, K6's, K5's and K11's walks, and slab64's of K5's and K11's, by
+    K17's, K6's, K5's and K11's walks, slab64's of K5's and K11's, and
+    K14's ("k14_walk", "k14_no_w", "k14_no_exchange") of K14's main form, by
     one nvcc each, all started together; {variant: library}."""
     read = lambda f: open(os.path.join(_build.CSRC, f)).read()  # noqa: E731
     walk = read("fused_step_sm90.cuh")
     texts = walk_variant_sources(read("fused_step_sm90.cu"), walk)
-    k13 = k13_variant_sources(read("som_fused_factored_sm90.cu"), texts)
+    separable = read("separable_sm90.cuh")
+    k13 = k13_variant_sources(separable, texts)
     copies = {name: ({"fused_step_sm90.cu": step_src, "fused_step_sm90.cuh": walk_src,
-                      "som_fused_factored_sm90.cu": k13[name]}, _WALK_SOURCES)
+                      "separable_sm90.cuh": k13[name]}, _WALK_SOURCES)
               for name, (step_src, walk_src) in texts.items()}
     copies["slab64"] = ({"fused_step_sm90.cuh": slab_variant_source(walk)}, _SLAB_SOURCES)
+    for name, text in k14_variant_sources(separable).items():
+        copies[f"k14_{name}"] = ({"separable_sm90.cuh": text}, _K14_SOURCES)
     nvcc, procs = _build._nvcc(), []
     for name, (edits, sources) in copies.items():
         d = os.path.join(out, name)
@@ -481,8 +589,7 @@ def build_variants(out: str = VARIANT_OUT) -> dict:
     libs = {}
     for name, (_, sources) in copies.items():
         lib = ctypes.CDLL(os.path.join(out, name, "lib.so"))
-        for entry in (_WALK_ENTRIES if sources == _WALK_SOURCES else
-                      ("somvq_som_update", "somvq_som_accum")):
+        for entry in _ENTRIES[sources]:
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
@@ -533,6 +640,34 @@ def _k13_call(lib, codes, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian):
         idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"somvq_som_fused_factored_sm90: CUDA error {rc}")
+    return codes, idx, val
+
+
+def _k14_call(lib, codes, xb, bmu, xn, xdim, hexa, alpha, radius, gaussian, cluster,
+              wxa_bf16=True, batch_bf16=True):
+    """K14's main form's C call on a variant's library, as ops.som_step's
+    wrapper makes it for D <= 128 (the walk, both bf16 options by default):
+    (codes, idx, val)."""
+    from ..ops.som_step import sm90_scratch
+
+    dev = codes.device
+    noc, D = codes.shape
+    B, Bn = xb.shape[0], xn.shape[0]
+    n_pat, ld = (2 * xdim if hexa else xdim), -(-B // 64) * 64
+    words = [2 * Bn, ld, -(-noc // xdim) * ld]
+    scratch = torch.empty((sum(words) + n_pat * ld,), dtype=torch.float32, device=dev)
+    keys, aw, ytab, pat = (scratch.data_ptr() + 4 * sum(words[:k]) for k in range(4))
+    xs = sm90_scratch(B, Bn, D, dev, 1 if batch_bf16 else 2, table=False)
+    val = torch.empty((Bn,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
+    rc = lib.somvq_som_fused_chunked_sm90(
+        codes.data_ptr(), int(codes.dtype == torch.bfloat16), noc, D, xb.data_ptr(),
+        bmu.data_ptr(), alpha.data_ptr(), B, xn.data_ptr(), Bn, xdim, int(hexa),
+        int(gaussian), float(radius), int(wxa_bf16), int(batch_bf16), cluster, xs.data_ptr(),
+        pat, ytab, aw, keys, val.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_fused_chunked_sm90: CUDA error {rc}")
     return codes, idx, val
 
 
@@ -691,12 +826,95 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
     for name in ("walk", "no_feed", "no_turns", "no_turns", "no_feed", "walk"):
         rec[name].append(mean_ms(lambda: _k17_call(libs[name], *sk), dev, iters))
     ms["k17 65536x64 B 4096 float32"] = rec
+    # K14's main form at the trainer's maps (both bf16 options), at cluster 1
+    # and at the wrapper's pick
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k14_names = tuple(f"k14_{name}" for name in K14_VARIANTS)
+    matched14 = True
+    for side, radius14 in ((64, 16.0), (32, 8.0), (128, 32.0)):
+        g = torch.Generator(device=dev).manual_seed(4)
+        c14 = torch.randn((side * side, D), generator=g, device=dev)
+        x14 = torch.randn((B, D), generator=g, device=dev)
+        n14 = torch.randn((B, D), generator=g, device=dev)
+        b14 = dist_argmin_plain(x14, c14)[1]
+        a14 = (x14, b14, n14, side, True, alpha, radius14, True)
+        pick = som_step._k14_cluster_on(side * side, D, True, sms)
+        matched14 = matched14 and _digest(
+            _k14_call(libs["k14_walk"], c14.clone(), *a14, pick)) == _digest(
+            _k14_at(pick, batch_chunk=1024, wxa_bf16=True, batch_bf16=True)(c14.clone(), *a14))
+        for c in sorted({1, pick}):
+            rec = {name: [] for name in k14_names}
+            work = c14.clone()
+            for name in k14_names + k14_names[::-1]:
+                rec[name].append(mean_ms(lambda: _k14_call(libs[name], work, *a14, c), dev,
+                                         iters))
+            ms[f"k14 {side}x{side} B 4096 D 64 both bf16 options, cluster {c}"] = rec
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     return dict(card=card, walk_bit_equal_to_wrapper=(matched and matched13 and matched6
-                                                       and matched5 and matched11),
-                slab64_bit_equal_to_walk=slab_equal, ms=ms)
+                                                       and matched5 and matched11
+                                                       and matched14),
+                slab64_bit_equal_to_walk=slab_equal, ms=ms,
+                cluster_sweep=cluster_sweep(libs["k14_walk"], iters))
+
+
+# (xdim, ydim, radius) of the cluster sweep: the trainer's K14 maps at B 4096
+# (models.trainer's fused-step choice: 32x32, 64x32, 64x64), then 128x128;
+# and its option sets (name, wxa_bf16, batch_bf16, bf16 codebook)
+K14_SWEEP = ((32, 32, 8.0), (64, 32, 16.0), (64, 64, 16.0), (128, 128, 32.0))
+K14_SWEEP_OPTIONS = (("both", True, True, False), ("neither", False, False, False),
+                     ("both, bf16 codebook", True, True, True))
+
+
+def cluster_sweep(lib, iters: int = 20) -> list:
+    """K14's walk kernel (som_chunked_sm90_kernel) at each cluster size of
+    K14_CLUSTERS, for each map of K14_SWEEP and option set of
+    K14_SWEEP_OPTIONS: its mean device milliseconds per launch under
+    torch.profiler, `iters` steps at each size in turns (1, 2, 4, 8, 8, 4, 2,
+    1: two readings each), beside `ops.som_step.k14_cluster`'s and the
+    wrapper's (occupancy-checked) pick; one record per map and option set."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, D, out = 4096, 64, []
+    order = list(K14_CLUSTERS) + list(K14_CLUSTERS)[::-1]
+    for xdim, ydim, radius in K14_SWEEP:
+        g = torch.Generator(device=dev).manual_seed(4)
+        codes = torch.randn((xdim * ydim, D), generator=g, device=dev)
+        xb = torch.randn((B, D), generator=g, device=dev)
+        xn = torch.randn((B, D), generator=g, device=dev)
+        bmu = dist_argmin_plain(xb, codes)[1]
+        alpha = 0.02 + 0.06 * torch.rand((B,), generator=g, device=dev)
+        a = (xb, bmu, xn, xdim, True, alpha, radius, True)
+        for label, wxa, bb, bf16 in K14_SWEEP_OPTIONS:
+            work = codes.to(torch.bfloat16) if bf16 else codes.clone()
+            step = lambda c: _k14_call(lib, work, *a, c, wxa_bf16=wxa,  # noqa: E731
+                                       batch_bf16=bb)
+            for c in K14_CLUSTERS:  # warm-up
+                step(c)
+            torch.cuda.synchronize(dev)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for c in order:
+                    for _ in range(iters):
+                        step(c)
+                torch.cuda.synchronize(dev)
+            spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                           if e.device_type == DeviceType.CUDA
+                           and "som_chunked_sm90_kernel" in e.name)
+            if len(spans) != len(order) * iters:
+                raise RuntimeError(f"cluster sweep: {len(spans)} walk launches traced, "
+                                   f"{len(order) * iters} made")
+            ms = {c: [] for c in K14_CLUSTERS}
+            for i, c in enumerate(order):
+                run = spans[i * iters:(i + 1) * iters]
+                ms[c].append(sum(t1 - t0 for t0, t1 in run) / iters * 1e-3)
+            out.append(dict(map=f"{xdim}x{ydim}", options=label, device_ms=ms,
+                            rule=som_step.k14_cluster(-(-xdim * ydim // 128), sms),
+                            pick=som_step._k14_cluster_on(xdim * ydim, D, bb, sms)))
+    return out
 
 
 def main(argv=None) -> int:
@@ -704,8 +922,8 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--walk-variants", action="store_true",
-                    help="time the Hopper walks of K3, K13, K6, K5, K11 and K17 against "
-                         "their variants instead")
+                    help="time the Hopper walks of K3, K13, K6, K5, K11, K17 and K14's "
+                         "main form against their variants instead")
     a = ap.parse_args(argv)
     if a.walk_variants:
         rec = run_variants(a.iters)

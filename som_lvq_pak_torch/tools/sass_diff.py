@@ -40,13 +40,17 @@ def unanonymize(name: str) -> str:
     return name[:m.start()] + "_GLOBAL__N_" + unanonymize(name[end:])
 
 
-def sass(library: str) -> dict:
-    """{mangled function name: [instruction text, ...]} of a library."""
+def dump_command(library: str) -> list:
+    """The cuobjdump command (next to nvcc) that prints a library's SASS."""
     from .. import _build
 
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    return parse(subprocess.run([cuobjdump, "--dump-sass", library],
-                                capture_output=True, text=True, check=True).stdout)
+    return [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "--dump-sass", library]
+
+
+def sass(library: str) -> dict:
+    """{mangled function name: [instruction text, ...]} of a library."""
+    return parse(subprocess.run(dump_command(library), capture_output=True, text=True,
+                                check=True).stdout)
 
 
 def parse(dump: str) -> dict:

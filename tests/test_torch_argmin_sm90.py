@@ -198,15 +198,16 @@ def test_fold_ab_variants_edit_k8_and_k4():
 
     with open(f"{_build.CSRC}/argmin_sm90.cu") as f:
         v = ab.variant_sources(f.read())
-    # K8's top-2 fold sits inside the fold the variants replace
-    assert "top2.visit" in v["no_turns"] and "top2.visit" not in v["no_fold"]
+    # K8's top-2 fold (K10's list fold, one walk) sits inside the fold the
+    # variants replace
+    assert "list.visit" in v["no_turns"] and "list.visit" not in v["no_fold"]
     with open(f"{_build.CSRC}/argmin_masked_sm90.cu") as f:
         src = f.read()
     m = ab.masked_variant_sources(src)
     assert list(m) == ["walk", "no_fold"] and m["walk"] == src
     assert src.count("fmaxf") > 0 and "fmaxf" not in m["no_fold"]
     assert "S1[0] - 0.5f * S2[0] > best[0]" in m["no_fold"]
-    assert "top2.s[0][0] = S[0]" in v["no_fold"]
+    assert "list.s[0][0] = S[0]" in v["no_fold"]
     assert m["no_fold"].count("bar_sync") == src.count(
         "bar_sync")
     with pytest.raises(ValueError):

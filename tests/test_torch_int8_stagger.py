@@ -384,7 +384,7 @@ def test_int8_win_staged_xq_keeps_winners(D):
 @pytest.mark.parametrize("int8_win", [False, True])
 @pytest.mark.parametrize("batch_bf16", [False, True])
 def test_k14_walk_rows_fit(int8_win, batch_bf16):
-    """K14's rows per CTA: 64 (K14_ROWS) for the main form and int8_win at
+    """K14's rows per CTA: 64 for the main form past D 128 and int8_win at
     every D, and for stagger up to D 128, 32 above; the walk's shared memory
     (k14_walk_smem_bytes, the C layout's mirror) at those rows fits one CTA
     at every D from 1 to 256 with the most grid rows a CTA can span (xdim >=

@@ -1,4 +1,4 @@
-"""K13 on K3's Hopper walk (csrc/som_fused_factored_sm90.cu), the parts the
+"""K13 on K3's Hopper walk (csrc/separable_sm90.cuh), the parts the
 CPU reaches: its route by shape, its prologue (the walk's split planes with
 no per-sample table) against the `mma.sync` K13's split planes, and the
 table rows its W builder reads for each unit against the separable step's
@@ -133,14 +133,14 @@ def _unit_w(bmu, alpha, r, noc, xdim, hexa, gaussian):
 
 def test_k13_walk_variants_edit_its_lines():
     """tools.fused_step_ab's walk variants find the lines they edit in K13's
-    walk (som_fused_factored_sm90.cu): no_w reads no table, no_fold cuts its
+    walk (separable_sm90.cuh): no_w reads no table, no_fold cuts its
     fold; the header's variants (no_feed, no_turns) leave it as it is."""
     from som_lvq_pak_torch import _build
     from som_lvq_pak_torch.tools.fused_step_ab import (WALK_VARIANTS, k13_variant_sources,
                                                        walk_variant_sources)
 
     read = lambda f: open(f"{_build.CSRC}/{f}").read()  # noqa: E731
-    src = read("som_fused_factored_sm90.cu")
+    src = read("separable_sm90.cuh")
     texts = k13_variant_sources(src, walk_variant_sources(read("fused_step_sm90.cu"),
                                                           read("fused_step_sm90.cuh")))
     assert tuple(texts) == WALK_VARIANTS

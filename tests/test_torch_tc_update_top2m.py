@@ -278,14 +278,14 @@ def test_update_tf32x3_exact_bubble_boundary():
 @pytest.mark.parametrize("B,N,D", [(50, 99, 37), (130, 70, 130)])
 def test_fused_step_ab_winner_digests_repeat_on_the_cpu(B, N, D):
     """`tools.fused_step_ab`'s winner cases on the CPU (the plain K4, K9, K8
-    and K10): K4, K9, K8 and K10 at k 2 and 8 are timed and digested, and a
-    second run on the same seed gives the same digests, so equal digests
-    across trees mean equal floats."""
+    and K10): K4, K9, K8 and K10 at k 1, 2, 5, 8 and 16 are timed and
+    digested, and a second run on the same seed gives the same digests, so
+    equal digests across trees mean equal floats."""
     from som_lvq_pak_torch.tools import fused_step_ab
 
     one, two = (fused_step_ab.run_winners(B, N, D, torch.device("cpu"), iters=1)
                 for _ in range(2))
-    names = ("k4", "k9", "k8", "k10_k2", "k10_k8")
+    names = ("k4", "k9", "k8", "k10_k1", "k10_k2", "k10_k5", "k10_k8", "k10_k16")
     assert sorted(k[:-len("_digest")] for k in one if k.endswith("_digest")) == sorted(names)
     for name in names:
         assert len(one[f"{name}_digest"]) == 64 and one[f"{name}_ms"] > 0
