@@ -86,12 +86,19 @@ phases, each printing one JSON line:
             bench.py:prep_vmem_steps's geometry,
             bench.py:prep_somexample_shape's, a ragged shape with every code
             three times and the largest codebook the grouped path takes
-            (128x64 at D 128); at each the codebook and winners are
-            bit-equal to K chained K3 launches and to a rerun, and with zero
-            alphas the codebook stays bit-equal to its input; beside it the
-            K3 chain's time (and K13's at the first shape); at the first and
-            the last at 16, 32, 64 and 128 rows per CTA, each bit-equal to the K3
-            chain, with one "k7_rows" line of their times.
+            (128x64 at D 128), then 32x32, 64x64 and 128x128 at D 5, 64,
+            128 and 129 (K 8, B 256; not 128x128 at 129, which the
+            mma.sync kernel cannot hold resident); at each the codebook
+            and winners are bit-equal to K chained K3 launches and to a
+            rerun, and with zero alphas the codebook stays bit-equal to its
+            input; beside it the K3 chain's time (and K13's at the first
+            shape); at the first, the fifth and the new shapes, up to D 128
+            (its walk, csrc/som_vmem_steps_sm90.cu) at every cluster size
+            the card holds resident, past it at 16, 32 and 64 rows per CTA,
+            each bit-equal to the K3 chain, with one "k7_cluster" (or
+            "k7_rows") line of the pick and each size's time.  K12 also at
+            D 128 (its walk) and 129, and K11 then K12 bit-equal to K3 on a
+            shard at D 128.
             K1 also runs at the LVQ steps' B 1024, a mesh rank's B 512 x
             32768, D 37, D 130, the online scan's B 1 x 4096 and at the LVQ
             accuracy's single launch over 1M x 65536; K4 at the masked LVQ
@@ -185,8 +192,9 @@ phases, each printing one JSON line:
             bit-equal to K2), K2 at its evaluation (100,000 x 16384 x 512,
             rerun) and K13 at its step (128x128, B 1024, D 512), under
             their D <= 256 gates; and K7's shared memory by the C layout's
-            count (somvq_vmem_smem_bytes): whole rows of 16-row CTAs at
-            B 256 within the card's opt-in at every D 1-1024;
+            count (somvq_vmem_smem_bytes): up to D 128 the walk's CTA at
+            every cluster size, past it whole rows of 16-row CTAs at B 256,
+            within the card's opt-in at every D 1-1024;
 4. e2e_128x128_100k  SOMTrainer.fit on a stream, then find_qerror(fast),
             through the kernels and through the plain versions: K13 per
             step (no K3 launch, the JAX trainer's choice); qerror within
@@ -486,8 +494,8 @@ PEAK_BYTES_S = 3.35e12
 # and K14's main form (K13's body; one TF32 product under batch_bf16) past
 # D 128, K14's walk (stagger and int8_win: the same body's chunk functions;
 # int8_win's winners on int8 mma.sync, the IMMA of INT8_MMA_KERNELS), K16
-# (the mma.sync winner walk) and K7 (K3's step body on the resident
-# codebook)
+# (the mma.sync winner walk) and, past D 128, K7 (K3's step body on the
+# resident codebook) and K12
 SPLIT_TF32_KERNELS = ("som_fused_step_kernel",
                       "som_fused_factored_kernel",
                       "som_fused_factored_chunked_tc_kernel",
@@ -501,22 +509,26 @@ INT8_WGMMA_KERNELS = ("int8_winner_probe_kernel",)
 # K1 and K2 (one walk, two names), K8 and K10 (that walk with a top-2 and a
 # top-k fold), K4 (the walk with the keep contraction beside it) and K9
 # (K4's with the top-2 fold), K3, K13, K14's main form and K17 up to D 128
-# (their Hopper walk, csrc/fused_step_sm90.cuh) and K6, K5 and K11 (its
-# update on one feature slab a CTA, at any D): split-TF32 products on
-# warpgroup wgmma (HGMMA, and no HMMA), fed by TMA like K15 (UTMALDG)
+# (their Hopper walk, csrc/fused_step_sm90.cuh), K6, K5 and K11 (its
+# update on one feature slab a CTA, at any D), and K7 and K12 up to D 128
+# (the walk's steps on resident rows, and its blend and winners):
+# split-TF32 products on warpgroup wgmma (HGMMA, and no HMMA), fed by TMA
+# like K15 (UTMALDG)
 TF32_WGMMA_KERNELS = ("dist_argmin_kernel", "dist_argmin_t_kernel", "top2_sm90_kernel",
                       "dist_topk_sm90_kernel",
                       "masked_argmin_sm90_kernel", "masked_top2_sm90_kernel",
                       "som_fused_step_sm90_kernel", "som_fused_factored_sm90_kernel",
                       "som_chunked_sm90_kernel",
                       "fused_skeleton_sm90_kernel", "som_update_masked_sm90_kernel",
-                      "som_update_sm90_kernel", "som_accum_sm90_kernel")
+                      "som_update_sm90_kernel", "som_accum_sm90_kernel",
+                      "som_vmem_steps_sm90_kernel", "som_blend_winner_sm90_kernel")
 # the kernels whose ptxas report must show no spill and no serialized
 # wgmma (K5 and K11, on K3's update walk; K10, on K8's walk; K13 and K14's
-# main form, instances of one separable walk)
+# main form, instances of one separable walk; K7 and K12 on K3's walk)
 CLEAN_PTXAS_KERNELS = ("som_update_sm90_kernel", "som_accum_sm90_kernel",
                        "dist_topk_sm90_kernel", "som_fused_factored_sm90_kernel",
-                       "som_chunked_sm90_kernel")
+                       "som_chunked_sm90_kernel", "som_vmem_steps_sm90_kernel",
+                       "som_blend_winner_sm90_kernel")
 TMA_KERNELS = TF32_WGMMA_KERNELS + INT8_WGMMA_KERNELS
 
 # K16 on normal float32 inputs: within this relative gap of the float64
@@ -706,7 +718,10 @@ def ptxas_report(log: str, bases=("dist_argmin_kernel", "dist_argmin_t_kernel",
                                   "som_chunked_sm90_kernel",
                                   "fused_skeleton_sm90_kernel",
                                   "split_sm90_kernel", "som_update_masked_sm90_kernel",
-                                  "split_masked_batch_kernel")) -> dict:
+                                  "split_masked_batch_kernel",
+                                  "som_vmem_steps_sm90_kernel",
+                                  "som_blend_winner_sm90_kernel",
+                                  "split_steps_kernel")) -> dict:
     """Registers and spill bytes of each instantiation of the kernels named
     (K1, K2 and their prologue, K8, K4 and its prologue, K10, K12, K9, K5, K11,
     K14's walk, K15, K3's, K13's, K14's and K17's Hopper walk and its prologue, and
@@ -1217,8 +1232,9 @@ def wide_d_phases(recs):
     step (1024 x 16384 x 512, rerun, bit-equal to K2), K2 at its
     evaluation (100,000 x 16384 x 512, rerun) and K13 at its step (128x128
     hexa gaussian, B 1024, D 512, radius 32, rerun).  Last, K7's shared
-    memory by the C layout's count: 16-row CTAs of whole rows at B 256 fit
-    in the card's opt-in at every D 1-1024.  Each kernel's largest error
+    memory by the C layout's count: up to D 128 the walk's CTA at every
+    cluster size (its Python mirror's count), past it 16-row CTAs of whole
+    rows at B 256, within the card's opt-in at every D 1-1024.  Each kernel's largest error
     joins its record's max_abs_err."""
     import torch
 
@@ -1307,13 +1323,26 @@ def wide_d_phases(recs):
           [phase_step(som_fused_factored_step, som_fused_factored_step_plain, 128, 128,
                       True, True, 1024, 512, 32.0, seed=212,
                       name="som_fused_factored_step", **f32_tols)])
-    # K7's shared memory, the C layout's count: whole rows (every pass's
-    # slab) of a 16-row CTA at B 256 within the opt-in at every D
+    # K7's shared memory, the C layout's count: up to D 128 the walk's CTA
+    # (its tile's 128 rows split, the ring) at every cluster size, equal to
+    # its Python mirror; past it whole rows (every pass's slab) of a 16-row
+    # CTA at B 256; within the opt-in at every D
+    from som_lvq_pak_torch.ops import som_vmem
+
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     smem = _build.library().somvq_vmem_smem_bytes
     for D in range(1, 1025):
         n, dp = feature_passes(D)
-        got = smem(16, 256, D)
+        if som_vmem.k7_route(D) == "sm90":
+            for c in som_vmem.k7_clusters(D):
+                got = smem(128, c, 256, D)
+                low = 2 * 4 * 128 * som_vmem.sm90_width(D)
+                if not (low <= got <= optin and got == som_vmem.k7_walk_smem_bytes(D, c)):
+                    raise AssertionError(f"K7's walk at D {D}, cluster {c}: {got} bytes of "
+                                         f"shared memory, not within [{low}, {optin}] or not "
+                                         f"{som_vmem.k7_walk_smem_bytes(D, c)}")
+            continue
+        got = smem(16, 1, 256, D)
         if not 4 * 16 * n * dp <= got <= optin:
             raise AssertionError(f"K7 at D {D}: {got} bytes of shared memory for 16 "
                                  f"rows, not within [{4 * 16 * n * dp}, {optin}]")
@@ -1996,19 +2025,33 @@ def phase_update_bubble_boundary():
 
 @contextlib.contextmanager
 def k7_rows_forced(rows: int):
-    """K7 at `rows` codebook rows per CTA, whatever
-    ops.som_vmem.k7_rows picks."""
+    """K7 past D 128 (the mma.sync kernel) at `rows` codebook rows per CTA,
+    whatever ops.som_vmem.k7_rows picks."""
     from som_lvq_pak_torch.ops import som_vmem
 
     saved = som_vmem.k7_rows
-    som_vmem.k7_rows = lambda *_: rows
+    som_vmem.k7_rows = lambda *_: (rows, 1)
     try:
         yield
     finally:
         som_vmem.k7_rows = saved
 
 
-K7_ROWS = (16, 32, 64, 128)
+@contextlib.contextmanager
+def k7_cluster_forced(cluster: int):
+    """K7's walk (D <= 128) at `cluster` CTAs a tile, whatever
+    ops.som_vmem.k7_rows picks."""
+    from som_lvq_pak_torch.ops import som_vmem
+
+    saved = som_vmem.K7_CLUSTER
+    som_vmem.K7_CLUSTER = cluster
+    try:
+        yield
+    finally:
+        som_vmem.K7_CLUSTER = saved
+
+
+K7_ROWS = (16, 32, 64)
 
 
 def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
@@ -2022,9 +2065,13 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
     (som_fused_train_step(..., factored=False)) and to a rerun; the record
     carries k3_chain_ms (and with `k13` k13_chain_ms, K chained K13 steps,
     the trainer's per-step kernel at that shape) and the split-TF32 route's
-    bound (12 noc B D K TF32 FLOPs).  With `rows`, K7 at every height of
-    K7_ROWS, each bit-equal to the K3 chain, and one "k7_rows" line of
-    their times."""
+    bound (12 noc B D K TF32 FLOPs).  With `rows`, up to D 128 K7's walk at
+    every cluster size of `ops.som_vmem.k7_clusters` whose grid the card
+    holds at once, each bit-equal to the K3 chain, and one "k7_cluster"
+    line of the wrapper's pick and each size's ms by CUDA events over
+    back-to-back launches ("not resident" for a size whose grid the card
+    cannot hold: the wrapper never picks it); past D 128 the mma.sync
+    kernel at every height of K7_ROWS, likewise, in one "k7_rows" line."""
     import torch
 
     from som_lvq_pak_torch.ops import som_vmem
@@ -2097,7 +2144,8 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
                winners_differ_vs_k3=flips3, bit_equal_rerun=True,
                bit_equal_to="K chained som_fused_train_step(factored=False)",
                zero_alpha_bit_equal=True,
-               rows_per_cta=som_vmem.k7_rows(noc, D, codes.device, B))
+               rows_cluster=list(som_vmem.k7_rows(noc, D, codes.device, B)),
+               route=som_vmem.k7_route(D))
     work = codes.clone()
     # K steps of update W.X and winners, 2 noc B D FLOPs each; the codebook
     # read and written once, the batches, next_first, alphas, radii and bmu0
@@ -2113,19 +2161,30 @@ def phase_vmem(xdim, ydim, hexa, gaussian, D, B, K, radius, alpha, seed,
         rec["k13_chain_ms"] = cuda_ms(lambda: chain(som_fused_factored_step, work))
     emit("kernels", **rec)
     if rows:
-        line = dict(card=nvidia_smi_line(), shape=rec["shape"],
-                    k7_rows_chosen=som_vmem.k7_rows(noc, D, codes.device, B))
-        for r in K7_ROWS:
-            if r == 128 and D > 128:
+        walk = som_vmem.k7_route(D) == "sm90"
+        rows_now, c_now = som_vmem.k7_rows(noc, D, codes.device, B)
+        line = dict(card=nvidia_smi_line(), shape=rec["shape"])
+        if walk:
+            line["k7_cluster_chosen"] = c_now
+            tiles = -(-noc // som_vmem.K7_TILE)
+            forced = [(f"k7_c{c}_ms", k7_cluster_forced(c),
+                       som_vmem._k7_resident(D, c) >= tiles)
+                      for c in som_vmem.k7_clusters(D)]
+        else:
+            line["k7_rows_chosen"] = rows_now
+            forced = [(f"k7_rows{r}_ms", k7_rows_forced(r), True) for r in K7_ROWS]
+        for key, ctx, resident in forced:
+            if not resident:
+                line[key] = "not resident"
                 continue
-            with k7_rows_forced(r):
+            with ctx:
                 cf, i_f = k7(som_vmem_train_steps, codes.clone())
                 torch.cuda.synchronize()
                 if not bit_equal(cf, i_f, c3, i3):
-                    raise AssertionError(f"{name} at {r} rows per CTA: not bit-equal "
-                                         f"to {K} chained K3 launches")
-                line[f"k7_rows{r}_ms"] = cuda_ms(lambda: k7(som_vmem_train_steps, work))
-        emit("k7_rows", **line, k3_chain_ms=rec["k3_chain_ms"],
+                    raise AssertionError(f"{name} at {key[:-3]}: not bit-equal to {K} "
+                                         "chained K3 launches")
+                line[key] = cuda_ms(lambda: k7(som_vmem_train_steps, work))
+        emit("k7_cluster" if walk else "k7_rows", **line, k3_chain_ms=rec["k3_chain_ms"],
              **({"k13_chain_ms": rec["k13_chain_ms"]} if k13 else {}))
     return rec
 
@@ -5117,6 +5176,15 @@ def main() -> int:
           phase_vmem(11, 9, False, True, 37, 100, 9, 2.5, 0.05, seed=8, varied=True,
                      dup=True),
           phase_vmem(128, 64, True, True, 128, 512, 32, 6.0, 0.01, seed=61, rows=True)]
+    # K7 at 1024, 4096 and 16384 rows (32x32, 64x64, 128x128; K 8, B 256)
+    # at D 5, 64 and 128 (the walk, every cluster size) and D 129 (the
+    # mma.sync kernel, every height; not at 16384 rows, which no height of
+    # it holds resident: it raises there, as before the walk)
+    rs += [phase_vmem(side, side, True, True, D, 256, 8, 4.0, 0.005, seed=62 + j,
+                      varied=True, rows=True)
+           for j, (side, D) in enumerate((side, D) for side in (32, 64, 128)
+                                         for D in (5, 64, 128, 129)
+                                         if not (side == 128 and D == 129))]
     recs["som_vmem_train_steps"] = dict(rs[0], max_abs_err=max(r["max_abs_err"]
                                                                for r in rs))
     # K10 at the sharded lvq3 step's shape (B 1024 over (data 2, model 2) is
@@ -5168,11 +5236,13 @@ def main() -> int:
         rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     rs = [phase_blend(32768, 64, 2048, seed=31), phase_blend(32768, 64, 4096, seed=32),
           phase_blend(32768, 64, 2048, seed=33, dup=True),
-          phase_blend(1000, 5, 999, seed=34)]
+          phase_blend(1000, 5, 999, seed=34), phase_blend(1000, 128, 777, seed=37),
+          phase_blend(500, 129, 300, seed=38)]
     recs["som_blend_winner"] = dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
     # K3 with a unit offset on each half of the 256x256 map; K11 + K12 on one
     phase_shard_step(256, True, True, 4096, 64, 64.0, seed=35)
     phase_shard_step(16, False, False, 1024, 64, 3.0, seed=36)
+    phase_shard_step(16, True, False, 1024, 128, 3.0, seed=39)
     # every SOM step kernel past 256 features (the feature passes)
     wide_d_phases(recs)
 
@@ -5505,7 +5575,7 @@ def main() -> int:
         "som_neighborhood_update_idx_masked": (
             "som_lvq_pak_torch/csrc/som_update_masked_sm90.cu",
                                                "som_lvq_pak_tpu/ops/pallas_som.py:152"),
-        "som_vmem_train_steps": ("som_lvq_pak_torch/csrc/som_vmem_steps.cu",
+        "som_vmem_train_steps": ("som_lvq_pak_torch/csrc/som_vmem_steps_sm90.cu",
                                  "som_lvq_pak_tpu/ops/pallas_som.py:1449"),
         "dist_top2": ("som_lvq_pak_torch/csrc/argmin_sm90.cu",
                       "som_lvq_pak_tpu/ops/pallas_distance.py:295"),
@@ -5515,7 +5585,7 @@ def main() -> int:
                       "som_lvq_pak_tpu/ops/pallas_distance.py:583"),
         "som_neighborhood_accumulate": ("som_lvq_pak_torch/csrc/som_accum_sm90.cu",
                                         "som_lvq_pak_tpu/ops/pallas_som.py:301"),
-        "som_blend_winner": ("som_lvq_pak_torch/csrc/som_blend_winner.cu",
+        "som_blend_winner": ("som_lvq_pak_torch/csrc/som_blend_winner_sm90.cu",
                              "som_lvq_pak_tpu/ops/pallas_som.py:401"),
         "som_fused_factored_step": ("som_lvq_pak_torch/csrc/separable_sm90.cuh",
                                     "som_lvq_pak_tpu/ops/pallas_som.py:743"),

@@ -104,6 +104,7 @@ _SIGNATURES = {
                         _P, _P, _P, _P],
     # codes, n_local, D, acc, wsum, xn, Bn, xs, keys, val, idx, stream
     "somvq_som_blend_winner": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "somvq_som_blend_winner_sm90": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     # codes, noc, D, xb, bmu, alpha, B, xdim, hexa, gaussian, radius, xs,
     # stream
     "somvq_som_update": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -116,6 +117,11 @@ _SIGNATURES = {
     # gaussian, rows, xs, keys, bar, bmu_out, stream
     "somvq_som_vmem_steps": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P, _P, _P, _P, _P],
+    # the same with cluster (CTAs a tile) in place of rows: K7's walk
+    "somvq_som_vmem_steps_sm90": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _P, _P, _P, _P, _P],
+    # D, cluster, out
+    "somvq_vmem_sm90_clusters": [_I, _I, _P],
 }
 
 
@@ -250,8 +256,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.somvq_error_string.argtypes = [ctypes.c_int]
     lib.somvq_error_string.restype = ctypes.c_char_p
-    # rows, B, D -> K7's shared memory in bytes (a query; -1 if not built)
-    lib.somvq_vmem_smem_bytes.argtypes = [_I, _I, _I]
+    # rows, cluster, B, D -> K7's shared memory in bytes (a query; -1 if not
+    # built)
+    lib.somvq_vmem_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.somvq_vmem_smem_bytes.restype = ctypes.c_int
     return lib
 

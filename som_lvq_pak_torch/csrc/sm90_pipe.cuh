@@ -61,6 +61,14 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
+// `bytes` more to come from the copies completing on `bar`, without an
+// arrival (a barrier whose arrivals come from other threads, K7's)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
 // until the phase of parity `parity` has completed (a barrier starts in phase
 // 0, so waiting on parity 1 passes at once)
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {

@@ -1,6 +1,9 @@
-// Pass B of the mixed data x model fused SOM step: the guarded blend of the
-// summed accumulators into a codebook shard, then the next batch's winners
-// against the blended rows, in one pass over the shard.
+// Pass B of the mixed data x model fused SOM step for D > 128: the guarded
+// blend of the summed accumulators into a codebook shard, then the next
+// batch's winners against the blended rows, in one pass over the shard.  Up
+// to D 128 K12 runs K3's Hopper walk instead (som_blend_winner_sm90.cu, the
+// route ops.som_blend.k12_route names); this kernel keeps its NT 32
+// instances (D 129-256, and the feature passes past 256).
 //
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_blend_winner_kernel
 // (wrapper som_blend_winner).
@@ -113,19 +116,9 @@ int launch_blend(float* codes, int n_local, int D, const float* acc,
 int launch_any(float* codes, int n_local, int D, const float* acc, const float* wsum,
                const float* xn, int Bn, float* xs, unsigned long long* keys,
                cudaStream_t stream) {
-  const int k8 = (D + 7) / 8;  // 8-feature steps, padded up to a power of two
   if (D > kPassD)
     return launch_blend<32, true>(codes, n_local, D, acc, wsum, xn, Bn, xs, keys, stream);
-#define K12_LAUNCH(NT) \
-  if (k8 <= NT) return launch_blend<NT>(codes, n_local, D, acc, wsum, xn, Bn, xs, keys, stream);
-  K12_LAUNCH(1)
-  K12_LAUNCH(2)
-  K12_LAUNCH(4)
-  K12_LAUNCH(8)
-  K12_LAUNCH(16)
-  K12_LAUNCH(32)
-#undef K12_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return launch_blend<32>(codes, n_local, D, acc, wsum, xn, Bn, xs, keys, stream);
 }
 
 }  // namespace
@@ -140,7 +133,7 @@ extern "C" int somvq_som_blend_winner(float* codes, int n_local, int D,
                                       const float* xn, int Bn, float* xs,
                                       unsigned long long* keys, float* val,
                                       int* idx, cudaStream_t stream) {
-  if (n_local <= 0 || D <= 0 || Bn <= 0 || !xs)
+  if (n_local <= 0 || D <= 128 || Bn <= 0 || !xs)
     return (int)cudaErrorInvalidValue;
   init_keys<<<(Bn + 255) / 256, 256, 0, stream>>>(keys, Bn);
   int rc = (int)cudaGetLastError();

@@ -1,5 +1,9 @@
 // K SOM training steps in one launch, the codebook resident on chip
-// throughout: a persistent cooperative kernel on K3's tensor-core step body.
+// throughout, for D > 128: a persistent cooperative kernel on K3's
+// tensor-core step body.  Up to D 128 K7 runs K3's Hopper walk instead
+// (som_vmem_steps_sm90.cu, the route ops.som_vmem.k7_route names); this
+// kernel keeps its NT 32 instances (D 129-256, and the feature passes past
+// 256).
 //
 // Replaces som_lvq_pak_tpu/ops/pallas_som.py:_som_vmem_steps_kernel (wrapper
 // som_vmem_train_steps).  The TPU kernel keeps the whole codebook (up to
@@ -640,15 +644,12 @@ int launch_vmem(VmemArgs a, cudaStream_t stream) {
   return (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
-// R = rows per CTA: 16, 32, 64 or 128 (not past D 128)
-template <int NT, bool kPasses = false>
+// R = rows per CTA: 16, 32 or 64
+template <bool kPasses>
 int launch_rows(int rows, const VmemArgs& a, cudaStream_t stream) {
-  if (rows == 16) return launch_vmem<NT, 1, kPasses>(a, stream);
-  if (rows == 32) return launch_vmem<NT, 2, kPasses>(a, stream);
-  if (rows == 64) return launch_vmem<NT, 4, kPasses>(a, stream);
-  if constexpr (NT <= 16) {
-    if (rows == 128) return launch_vmem<NT, 8, kPasses>(a, stream);
-  }
+  if (rows == 16) return launch_vmem<32, 1, kPasses>(a, stream);
+  if (rows == 32) return launch_vmem<32, 2, kPasses>(a, stream);
+  if (rows == 64) return launch_vmem<32, 4, kPasses>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -660,35 +661,22 @@ int one_tile_bytes(int B, int D) {
   return (int)L::bytes(1, B, n_passes(D) > 1 ? L::dtf(D) : (int)L::DT);
 }
 
-template <int NT>
 int smem_rows(int rows, int B, int D) {
-  if (rows == 16) return one_tile_bytes<VmemSmem<NT, 1>>(B, D);
-  if (rows == 32) return one_tile_bytes<VmemSmem<NT, 2>>(B, D);
-  if (rows == 64) return one_tile_bytes<VmemSmem<NT, 4>>(B, D);
-  if constexpr (NT <= 16) {
-    if (rows == 128) return one_tile_bytes<VmemSmem<NT, 8>>(B, D);
-  }
+  if (rows == 16) return one_tile_bytes<VmemSmem<32, 1>>(B, D);
+  if (rows == 32) return one_tile_bytes<VmemSmem<32, 2>>(B, D);
+  if (rows == 64) return one_tile_bytes<VmemSmem<32, 4>>(B, D);
   return -1;
 }
 
 }  // namespace
 
-// The shared memory (bytes) of K7's CTA of `rows` rows owning one tile, at
-// B samples and D features: ops.som_vmem.k7_rows passes over a height that
-// does not fit.  -1 for a height that is not built at this D
-extern "C" int somvq_vmem_smem_bytes(int rows, int B, int D) {
-  if (B <= 0 || D <= 0) return -1;
-  const int k8 = (D + 7) / 8;
-  int NT = 1;
-  while (NT < k8 && NT < 32) NT *= 2;
-  switch (NT) {
-    case 1: return smem_rows<1>(rows, B, D);
-    case 2: return smem_rows<2>(rows, B, D);
-    case 4: return smem_rows<4>(rows, B, D);
-    case 8: return smem_rows<8>(rows, B, D);
-    case 16: return smem_rows<16>(rows, B, D);
-    default: return smem_rows<32>(rows, B, D);
-  }
+// The shared memory (bytes) of this kernel's CTA of `rows` rows owning one
+// tile, at B samples and D features (> 128; the feature passes'
+// instantiation past 256), for som_vmem_steps_sm90.cu's
+// somvq_vmem_smem_bytes; -1 for a shape that is not built
+extern "C" int somvq_vmem_mma_smem_bytes(int rows, int B, int D) {
+  if (B <= 0 || D <= 128) return -1;
+  return smem_rows(rows, B, D);
 }
 
 // codes (noc, D) float32, updated in place; batches (K, B, D), tail (B, D):
@@ -705,12 +693,9 @@ extern "C" int somvq_som_vmem_steps(float* codes, int noc, int D,
                                     float* xs, unsigned long long* keys,
                                     unsigned int* bar, int* bmu_out,
                                     cudaStream_t stream) {
-  if (noc <= 0 || D <= 0 || K <= 0 || B <= 0 || xdim <= 0 || !xs)
+  if (noc <= 0 || D <= 128 || K <= 0 || B <= 0 || xdim <= 0 || !xs)
     return (int)cudaErrorInvalidValue;
-  const int k8 = (D + 7) / 8;
-  int NT = 1;
-  while (NT < k8 && NT < 32) NT *= 2;
-  const int DP = 8 * NT, NP = n_passes(D), Bp = (B + 63) / 64 * 64;
+  const int DP = 256, NP = n_passes(D), Bp = (B + 63) / 64 * 64;
   const int64_t n = (int64_t)(K + 1) * Bp * DP * NP;
   split_group_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       batches, K, B, tail, D, DP, NP, Bp, xs);
@@ -719,13 +704,5 @@ extern "C" int somvq_som_vmem_steps(float* codes, int noc, int D,
   const VmemArgs a{codes, noc,  D,     xs,       K,        B,       bmu0,
                    alphas, radii, xdim, hexa,    gaussian, 0,       keys,
                    bar,    bmu_out};
-  if (NP > 1) return launch_rows<32, true>(rows, a, stream);
-  switch (NT) {
-    case 1: return launch_rows<1>(rows, a, stream);
-    case 2: return launch_rows<2>(rows, a, stream);
-    case 4: return launch_rows<4>(rows, a, stream);
-    case 8: return launch_rows<8>(rows, a, stream);
-    case 16: return launch_rows<16>(rows, a, stream);
-    default: return launch_rows<32>(rows, a, stream);
-  }
+  return NP > 1 ? launch_rows<true>(rows, a, stream) : launch_rows<false>(rows, a, stream);
 }

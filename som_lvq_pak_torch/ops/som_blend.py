@@ -12,12 +12,15 @@ score = x.m - ||m||^2 / 2, the first (lowest) row of the largest score;
 `val` = -2 * score (the partial distance ||m||^2 - 2 x.m, in this rounding)
 and `idx` the LOCAL row, int32, as the JAX wrapper returns them.
 
-A CUDA tensor launches the kernel in `csrc/som_blend_winner.cu`: K3's
-blend-and-winner half (csrc/fused_step_tc.cuh) on the tensor cores, the
-winners in distance form through split-TF32 products, so K11 then K12 on a
-shard give K3's rows, values and winners bit for bit; a CPU tensor runs the
-plain version below.  The wrapper counts its kernel launches in its
-`launches` attribute.
+A CUDA tensor launches the kernel the route `k12_route` names: up to D 128
+`csrc/som_blend_winner_sm90.cu`, K3's Hopper walk without its update (the
+next batch split once, the blend from acc and wsum in K3's register layout,
+the winners on TF32 `wgmma` fed by a TMA ring), past it
+`csrc/som_blend_winner.cu`, K3's split-TF32 `mma.sync` blend-and-winner half
+(csrc/fused_step_tc.cuh); either way the winners in distance form through
+split-TF32 products, so K11 then K12 on a shard give K3's rows, values and
+winners bit for bit; a CPU tensor runs the plain version below.  The wrapper
+counts its kernel launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from .. import _build
 from .distance import fp32_matmul
-from .som_step import _split_scratch, guarded_blend
+from .som_step import _split_scratch, guarded_blend, k3_route, sm90_scratch
 
 
 def som_blend_winner_plain(codes, acc, wsum, xn):
@@ -40,6 +43,14 @@ def som_blend_winner_plain(codes, acc, wsum, xn):
     val = -2.0 * score.gather(0, idx[None, :])[0]
     codes.copy_(newc)
     return codes, val, idx.to(torch.int32)
+
+
+def k12_route(D: int) -> str:
+    """K12's kernel for D features, K3's rule (`ops.som_step.k3_route`):
+    "sm90", K3's Hopper walk without the update
+    (csrc/som_blend_winner_sm90.cu), up to D 128; "mma_sync"
+    (csrc/som_blend_winner.cu) past it.  Both give the same floats."""
+    return k3_route(D)
 
 
 def som_blend_winner(codes: torch.Tensor, acc: torch.Tensor,
@@ -69,11 +80,13 @@ def som_blend_winner(codes: torch.Tensor, acc: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     acc, wsum, xn = acc.contiguous(), wsum.contiguous(), xn.contiguous()
     Bn = xn.shape[0]
-    xs = _split_scratch(0, Bn, D, dev)
+    walk = k12_route(D) == "sm90"
+    xs = sm90_scratch(0, Bn, D, dev, table=False) if walk else _split_scratch(0, Bn, D, dev)
     keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
     val = torch.empty((Bn,), dtype=torch.float32, device=dev)
     idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
-    _build.call("somvq_som_blend_winner", codes.data_ptr(), n_local, D,
+    _build.call("somvq_som_blend_winner_sm90" if walk else "somvq_som_blend_winner",
+                codes.data_ptr(), n_local, D,
                 acc.data_ptr(), wsum.data_ptr(), xn.data_ptr(), Bn, xs.data_ptr(),
                 keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)

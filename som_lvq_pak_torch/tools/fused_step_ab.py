@@ -12,8 +12,11 @@ the winner walks K4 and K9 (masked, csrc/argmin_masked_sm90.cu), K8 and K10
 16 of the list widths on small codebooks, every code twice or not, in file
 and reversed order), the two-kernel step's updates K5
 (csrc/som_update_sm90.cu) and K6 (masked, csrc/som_update_masked_sm90.cu),
-and the mixed mesh step's halves K11 (csrc/som_accum_sm90.cu) then K12
-(csrc/som_blend_winner.cu).
+the mixed mesh step's halves K11 (csrc/som_accum_sm90.cu) then K12
+(csrc/som_blend_winner_sm90.cu, K3's walk without the update, for D <= 128;
+csrc/som_blend_winner.cu past it), and the grouped steps K7
+(csrc/som_vmem_steps_sm90.cu, K3's walk on resident rows, each tile's work
+split across a cluster, for D <= 128; csrc/som_vmem_steps.cu past it).
 
     python -m som_lvq_pak_torch.tools.fused_step_ab [--iters 10] [--device cuda]
     python -m som_lvq_pak_torch.tools.fused_step_ab --walk-variants [--iters 10]
@@ -56,7 +59,17 @@ shards at D 5, 37, 200, 300 and 512): K11 (`som_neighborhood_accumulate`)
 on inputs from seed 8, its ms and the SHA-256 of acc and wsum, and K11 then
 K12 (`som_blend_winner` on the shard's rows, the next batch B' = B) as the
 mixed step runs them, the SHA-256 of the codebook, values and winners
-("k11_k12_digest").  Run it in two checkouts in one call
+("k11_k12_digest").  For each group case (map, topology, neighbourhood, B,
+D, K, radius: e2e_64x64_1M's group, chip_smoke.py's 32x32 and 128x64 at D
+128, D 5, a ragged D 37 with 99 rows and D 129): K7 (`som_vmem_train_steps`,
+K steps, per-sample alphas and a decaying radius, next_first given) on
+inputs from seed 7, the SHA-256 of its codebook and bmu_next at the tree's
+pick ("k7_digest") and at each cluster size of K7's walk ("k7_c1", ...:
+`ops.som_vmem.K7_CLUSTER`; "not runnable" on a tree without it, whose "k7"
+digests are the mma.sync kernel's, and at a size whose grid the card cannot
+hold), its ms, and beside it the K chained K3 steps' digest and ms
+("k3_chain"): one K7 launch against K chained launches of K3's walk.  Run
+it in two checkouts in one call
 (parent, change, change, parent) and compare: equal digests mean the same
 floats.  Prints one JSON line.  `device="cpu"` runs the plain versions,
 timed by the host clock (a CPU time, never a device number).
@@ -87,6 +100,16 @@ at the mixed mesh step's shard (rows 32768.. of the 256x256 map, B 2048, D
   read);
 * `no_turns`: the two consumer warpgroups issue their products without
   taking turns.
+
+K7's walk (`som_vmem_steps_sm90.cu`, at e2e_64x64_1M's group: 4096 rows, B
+512, D 64, K 32, at its pick and at cluster 1) and K12's (`som_blend_winner_sm90.cu`, at
+the mixed mesh step's shard: 32768 rows, B' 2048, D 64) take the same
+header edits (`no_w`: K7's W; `no_feed`: K12's producer, the header's
+`produce`; `no_turns`: both) and their own fold edits (`no_fold`); K7 one
+more copy, `no_barrier` (`k7_variant_sources`): no grid barrier between
+steps and no wait for one in its producer, so each CTA runs its K steps on
+stale tables and keys.  K7's `no_feed` is its walk (its producer is its
+own), not timed.
 
 K5, K6 and K11 have no fold: their `no_fold` is their walk, not timed.
 Beside them one more copy, `slab64` (`slab_variant_source`): K5 and K11 with
@@ -135,7 +158,9 @@ from ..ops.som_accum import som_neighborhood_accumulate
 from ..ops.som_blend import som_blend_winner
 from ..ops.som_step import (som_fused_factored_chunked_step, som_fused_factored_step,
                             som_fused_train_step)
+from ..ops import som_vmem
 from ..ops.som_update import som_neighborhood_update_idx
+from ..ops.som_vmem import som_vmem_train_steps
 from .timing import mean_ms, resolve
 
 # (xdim, ydim, hexa, gaussian, B, D, radius, K13 too): the 1M cell's step,
@@ -188,6 +213,18 @@ ACCUM_CASES = ((256, 256, True, True, 32768, 32768, 2048, 64, 64.0),
                (32, 32, True, True, 512, 512, 512, 200, 8.0),
                (32, 32, True, True, 512, 512, 512, 300, 8.0),
                (32, 32, True, True, 512, 512, 512, 512, 8.0))
+
+
+# (xdim, ydim, hexa, gaussian, B, D, K, radius) of K7: e2e_64x64_1M's
+# group, chip_smoke.py's 32x32 and 128x64 at D 128, D 5, a ragged D 37 with
+# 99 rows, and D 129 (the mma.sync kernel)
+VMEM_CASES = ((64, 64, True, True, 512, 64, 32, 16.0),
+              (32, 32, True, True, 256, 128, 8, 4.0),
+              (128, 64, True, True, 512, 128, 8, 6.0),
+              (12, 8, True, False, 128, 5, 16, 3.0),
+              (11, 9, False, True, 100, 37, 9, 2.5),
+              (32, 32, True, True, 256, 129, 4, 4.0))
+K7_CLUSTERS = (1, 2, 4)
 
 
 # (N, D, T, B, B' or None for x' = x, bf16) of K17: bench.py's twins of the
@@ -392,6 +429,67 @@ def run_accum(xdim, ydim, hexa, gaussian, n_local, offset, B, D, radius, dev,
                 k11_k12_digest=_digest(som_blend_winner(codes.clone(), acc, wsum, xn)))
 
 
+def _vmem_inputs(xdim, ydim, B, D, K, radius, dev):
+    """A group case's inputs from seed 7: (codes, batches, next_first, bmu0,
+    per-sample alphas, a decaying radius)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    codes = torch.randn((xdim * ydim, D), generator=g, device=dev)
+    xs = torch.randn((K, B, D), generator=g, device=dev)
+    nf = torch.randn((B, D), generator=g, device=dev)
+    bmu0 = dist_argmin_plain(xs[0], codes)[1]
+    alphas = 0.005 * (0.5 + torch.rand((K, B), generator=g, device=dev))
+    radii = torch.linspace(radius, max(1.0, radius / 2), K, device=dev)
+    return codes, xs, nf, bmu0, alphas, radii
+
+
+def _k7_at(c):
+    """K7 with its walk's tiles split across `c` CTAs; a tree without the
+    walk refuses it (ValueError)."""
+    def run(*a, **kw):
+        if not hasattr(som_vmem, "K7_CLUSTER"):
+            raise ValueError("this tree's K7 takes no cluster")
+        saved, som_vmem.K7_CLUSTER = som_vmem.K7_CLUSTER, c
+        try:
+            return som_vmem_train_steps(*a, **kw)
+        except RuntimeError as e:  # a grid the card cannot hold at this size
+            raise ValueError(str(e)) from e
+        finally:
+            som_vmem.K7_CLUSTER = saved
+    return run
+
+
+def run_vmem(xdim, ydim, hexa, gaussian, B, D, K, radius, dev, iters=10) -> dict:
+    """One group case: digest and ms of K7 at the tree's pick and at each
+    cluster size, and of K chained K3 steps."""
+    codes, xs, nf, bmu0, alphas, radii = _vmem_inputs(xdim, ydim, B, D, K, radius, dev)
+    rl = radii.tolist()
+    out = dict(case=f"vmem {xdim}x{ydim} {'hexa' if hexa else 'rect'} "
+                    f"{'gaussian' if gaussian else 'bubble'} B {B} D {D} K {K}")
+
+    def k3_chain(c):
+        bmu = bmu0
+        for t in range(K):
+            _, bmu, _ = _k3(c, xs[t], bmu, xs[t + 1] if t + 1 < K else nf, xdim, hexa,
+                            alphas[t], rl[t], gaussian)
+        return c, bmu
+
+    steps = [("k7", som_vmem_train_steps)] + [(f"k7_c{c}", _k7_at(c)) for c in K7_CLUSTERS]
+    for name, fn in steps:
+        def k7(c, fn=fn):
+            return fn(c, xs, bmu0, alphas, radii, xdim, hexa, gaussian, next_first=nf)
+        try:
+            out[f"{name}_digest"] = _digest(k7(codes.clone()))
+        except ValueError as e:
+            out[f"{name}_digest"] = out[f"{name}_ms"] = f"not runnable: {e}"
+            continue
+        work = codes.clone()
+        out[f"{name}_ms"] = mean_ms(lambda: k7(work), dev, iters)
+    out["k3_chain_digest"] = _digest(k3_chain(codes.clone()))
+    work = codes.clone()
+    out["k3_chain_ms"] = mean_ms(lambda: k3_chain(work), dev, max(1, iters // 2))
+    return out
+
+
 def _skeleton_inputs(N, D, T, B, Bn, bf16, dev):
     """bench.py:prep_skeleton's inputs: codes normal, W uniform * 0.001, X
     normal (all bf16 W and X for the bf16 twin); x' = X unless Bn is given."""
@@ -422,7 +520,8 @@ def run(iters: int = 10, device="cuda") -> dict:
                 winners=[run_winners(*c, dev=dev, iters=iters) for c in WINNER_CASES],
                 topk=[run_topk(*c, dev=dev) for c in TOPK_CASES],
                 updates=[run_update(*c, dev=dev, iters=iters) for c in UPDATE_CASES],
-                accums=[run_accum(*c, dev=dev, iters=iters) for c in ACCUM_CASES])
+                accums=[run_accum(*c, dev=dev, iters=iters) for c in ACCUM_CASES],
+                vmem=[run_vmem(*c, dev=dev, iters=iters) for c in VMEM_CASES])
 
 
 # ---- --walk-variants: where K3's Hopper walk spends its time ------------------
@@ -454,6 +553,14 @@ _NO_FOLD = """    float v = 0.f;
 """
 
 
+def _no_fold(src: str, start: str = _FOLD_START, body: str = _NO_FOLD,
+             end: str = _FOLD_END) -> str:
+    """`src` with the fold call at `start` (through the end of its winner
+    walk's lambda, `end`) cut to `body`."""
+    i = src.index(start)
+    return src[:i] + body + src[src.index(end, i):]
+
+
 def walk_variant_sources(step_src: str, walk_src: str) -> dict:
     """{variant: (text of fused_step_sm90.cu, text of fused_step_sm90.cuh)}
     from the walk's two sources; raises ValueError if they no longer hold
@@ -474,8 +581,7 @@ def walk_variant_sources(step_src: str, walk_src: str) -> dict:
     no_turns = walk_src
     for a, b in _TURN_LINES:
         no_turns = no_turns.replace(a, b)
-    i = step_src.index(_FOLD_START)
-    no_fold = step_src[:i] + _NO_FOLD + step_src[step_src.index(_FOLD_END, i):]
+    no_fold = _no_fold(step_src)
     return {"walk": (step_src, walk_src), "no_w": (step_src, no_w),
             "no_feed": (step_src, no_feed), "no_fold": (no_fold, walk_src),
             "no_turns": (step_src, no_turns)}
@@ -531,6 +637,52 @@ def k14_variant_sources(k14_src: str) -> dict:
             "no_exchange": no_exchange}
 
 
+# K7's walk: its fold (a rank's share starts at chunk w0, into the step's
+# key buffer kn), its grid barrier's thread-0 block and its producer's wait
+# for the barrier's generation
+_K7_FOLD = "      argmin_fold(S, w0 * WC + n0, m2s, kn, B, r0, warp, lane);\n"
+_K7_FOLD_END = "    });\n"
+_K7_NO_FOLD = """      float v = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) v += S[i];
+      fold_min_u64(kn + min(w0 * WC + n0, B - 1), pack_key(v, r0), ~0ull, t == 0);
+"""
+_K7_BARRIER_LINES = (("  if (threadIdx.x == 0) {\n    volatile unsigned int* vgen = bar + 1;\n",
+                      "  if (false) {\n    volatile unsigned int* vgen = bar + 1;\n"),
+                     ("    if (s > 0) {  // the grid barrier of step s - 1 passed\n",
+                      "    if (false) {  // the grid barrier of step s - 1 passed\n"))
+
+
+def k7_variant_sources(k7_src: str) -> dict:
+    """{variant: text of som_vmem_steps_sm90.cu} for each of WALK_VARIANTS
+    (the header's edits are `walk_variant_sources`'s; no_fold cuts K7's
+    fold as K3's) and `no_barrier`; raises ValueError if the source no
+    longer holds the lines edited here."""
+    missing = [a for a in (_K7_FOLD, _K7_FOLD_END)
+               + tuple(a for a, _ in _K7_BARRIER_LINES) if a not in k7_src]
+    if missing:
+        raise ValueError(f"K7's walk lacks the lines the variants edit: {missing}")
+    no_barrier = k7_src
+    for a, b in _K7_BARRIER_LINES:
+        no_barrier = no_barrier.replace(a, b)
+    out = {name: k7_src for name in WALK_VARIANTS}
+    out["no_fold"] = _no_fold(k7_src, _K7_FOLD, _K7_NO_FOLD, _K7_FOLD_END)
+    out["no_barrier"] = no_barrier
+    return out
+
+
+def k12_variant_sources(k12_src: str) -> dict:
+    """{variant: text of som_blend_winner_sm90.cu} for each of WALK_VARIANTS:
+    no_fold cuts its fold as K3's (the same call); the header's edits are
+    `walk_variant_sources`'s; raises ValueError if the source no longer
+    holds the lines edited here."""
+    if _FOLD_START not in k12_src or _FOLD_END not in k12_src:
+        raise ValueError("K12's walk lacks the fold the no_fold variant edits")
+    out = {name: k12_src for name in WALK_VARIANTS}
+    out["no_fold"] = _no_fold(k12_src)
+    return out
+
+
 _SLAB_LINE = ("__host__ __device__ constexpr int update_slab(int D) "
               "{ return D <= 32 ? 32 : D <= 64 ? 64 : 128; }\n")
 
@@ -546,20 +698,28 @@ def slab_variant_source(walk_src: str) -> str:
 
 _WALK_ENTRIES = ("somvq_som_fused_step_sm90", "somvq_fused_skeleton_sm90",
                  "somvq_som_fused_factored_sm90", "somvq_som_update_masked",
-                 "somvq_som_update", "somvq_som_accum")
+                 "somvq_som_update", "somvq_som_accum", "somvq_som_vmem_steps_sm90",
+                 "somvq_vmem_sm90_clusters", "somvq_som_blend_winner_sm90")
+# (som_vmem_steps.cu: the mma.sync K7, whose shared-memory count the walk's
+# source calls)
 _WALK_SOURCES = ("fused_step_sm90.cu", "fused_skeleton_sm90.cu", "som_fused_factored_sm90.cu",
-                 "som_update_masked_sm90.cu", "som_update_sm90.cu", "som_accum_sm90.cu")
+                 "som_update_masked_sm90.cu", "som_update_sm90.cu", "som_accum_sm90.cu",
+                 "som_vmem_steps_sm90.cu", "som_vmem_steps.cu", "som_blend_winner_sm90.cu")
+# K7's no_barrier library: its walk alone
+_K7_SOURCES = ("som_vmem_steps_sm90.cu", "som_vmem_steps.cu")
 # slab64's library: K5 and K11 alone
 _SLAB_SOURCES = ("som_update_sm90.cu", "som_accum_sm90.cu")
 # K14's variants' library: its two sources, which hold its C entry
 _K14_SOURCES = ("som_fused_chunked_sm90_f32.cu", "som_fused_chunked_sm90_bf16.cu")
 _ENTRIES = {_WALK_SOURCES: _WALK_ENTRIES, _SLAB_SOURCES: ("somvq_som_update", "somvq_som_accum"),
-            _K14_SOURCES: ("somvq_som_fused_chunked_sm90",)}
+            _K14_SOURCES: ("somvq_som_fused_chunked_sm90",),
+            _K7_SOURCES: ("somvq_som_vmem_steps_sm90", "somvq_vmem_sm90_clusters")}
 
 
 def build_variants(out: str = VARIANT_OUT) -> dict:
     """Each variant's copy of csrc/ built into a library of K3's, K13's,
-    K17's, K6's, K5's and K11's walks, slab64's of K5's and K11's, and
+    K17's, K6's, K5's, K11's, K7's and K12's walks, K7's no_barrier
+    ("k7_no_barrier") of K7's alone, slab64's of K5's and K11's, and
     K14's ("k14_walk", "k14_no_w", "k14_no_exchange") of K14's main form, by
     one nvcc each, all started together; {variant: library}."""
     read = lambda f: open(os.path.join(_build.CSRC, f)).read()  # noqa: E731
@@ -567,9 +727,13 @@ def build_variants(out: str = VARIANT_OUT) -> dict:
     texts = walk_variant_sources(read("fused_step_sm90.cu"), walk)
     separable = read("separable_sm90.cuh")
     k13 = k13_variant_sources(separable, texts)
+    k7 = k7_variant_sources(read("som_vmem_steps_sm90.cu"))
+    k12 = k12_variant_sources(read("som_blend_winner_sm90.cu"))
     copies = {name: ({"fused_step_sm90.cu": step_src, "fused_step_sm90.cuh": walk_src,
-                      "separable_sm90.cuh": k13[name]}, _WALK_SOURCES)
+                      "separable_sm90.cuh": k13[name], "som_vmem_steps_sm90.cu": k7[name],
+                      "som_blend_winner_sm90.cu": k12[name]}, _WALK_SOURCES)
               for name, (step_src, walk_src) in texts.items()}
+    copies["k7_no_barrier"] = ({"som_vmem_steps_sm90.cu": k7["no_barrier"]}, _K7_SOURCES)
     copies["slab64"] = ({"fused_step_sm90.cuh": slab_variant_source(walk)}, _SLAB_SOURCES)
     for name, text in k14_variant_sources(separable).items():
         copies[f"k14_{name}"] = ({"separable_sm90.cuh": text}, _K14_SOURCES)
@@ -724,6 +888,48 @@ def _k11_call(lib, xb, bmu, n_local, xdim, hexa, alpha, radius, gaussian, unit_o
     return acc, wsum
 
 
+def _k7_call(lib, codes, xs, nf, bmu0, alphas, radii, xdim, hexa, gaussian, cluster):
+    """K7's walk's C call on a variant's library, as ops.som_vmem's wrapper
+    makes it for D <= 128: (codes, bmu_next)."""
+    from ..ops.som_step import sm90_width
+
+    dev = codes.device
+    (noc, D), (K, B) = codes.shape, xs.shape[:2]
+    scratch = torch.empty((4 * K * -(-B // 64) * 64 * sm90_width(D),), dtype=torch.float32,
+                          device=dev)
+    keys = torch.empty((3 * B,), dtype=torch.int64, device=dev)
+    bar = torch.zeros((2,), dtype=torch.int32, device=dev)
+    bmu = torch.empty((B,), dtype=torch.int32, device=dev)
+    rc = lib.somvq_som_vmem_steps_sm90(
+        codes.data_ptr(), noc, D, xs.data_ptr(), K, B, bmu0.data_ptr(), alphas.data_ptr(),
+        radii.data_ptr(), nf.data_ptr(), xdim, int(hexa), int(gaussian), cluster,
+        scratch.data_ptr(), keys.data_ptr(), bar.data_ptr(), bmu.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_vmem_steps_sm90: CUDA error {rc}")
+    return codes, bmu
+
+
+def _k12_call(lib, codes, acc, wsum, xn):
+    """K12's walk's C call on a variant's library, as ops.som_blend's
+    wrapper makes it for D <= 128: (codes, val, idx)."""
+    from ..ops.som_step import sm90_scratch
+
+    dev = codes.device
+    (n_local, D), Bn = codes.shape, xn.shape[0]
+    xs = sm90_scratch(0, Bn, D, dev, table=False)
+    keys = torch.empty((Bn,), dtype=torch.int64, device=dev)
+    val = torch.empty((Bn,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Bn,), dtype=torch.int32, device=dev)
+    rc = lib.somvq_som_blend_winner_sm90(
+        codes.data_ptr(), n_local, D, acc.data_ptr(), wsum.data_ptr(), xn.data_ptr(), Bn,
+        xs.data_ptr(), keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"somvq_som_blend_winner_sm90: CUDA error {rc}")
+    return codes, val, idx
+
+
 def _k17_call(lib, codes, w, x, xn):
     """K17's C call on a variant's library at the bench's scale: (out, vmax)."""
     from ..ops.som_step import sm90_scratch
@@ -821,6 +1027,33 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
     for name in ("walk", "slab64", "slab64", "walk"):
         rec[name].append(mean_ms(lambda: _k5_call(libs[name], c300, *a300), dev, iters))
     ms["k5 256x256 B 4096 D 300 (slab 128 vs 64)"] = rec
+    # K7's walk at e2e_64x64_1M's group (4096 rows, B 512, D 64, K 32) at its
+    # pick and at cluster 1; K12's at the mixed mesh step's shard
+    v = _vmem_inputs(64, 64, 512, 64, 32, 16.0, dev)
+    a7 = (v[1], v[2], v[3], v[4].contiguous(), v[5], 64, True, True)
+    pick7 = som_vmem.k7_rows(4096, 64, dev, 512)[1]
+    matched7 = all(_digest(_k7_call(libs["walk"], v[0].clone(), *a7, c)) == _digest(
+        _k7_at(c)(v[0].clone(), v[1], v[3], v[4], v[5], 64, True, True, next_first=v[2]))
+        for c in sorted({1, pick7}))
+    k7_names = ("walk", "no_w", "no_fold", "no_turns", "k7_no_barrier")
+    for c in sorted({1, pick7}):
+        rec = {name: [] for name in k7_names}
+        work = v[0].clone()
+        for name in k7_names + k7_names[::-1]:
+            rec[name].append(mean_ms(lambda: _k7_call(libs[name], work, *a7, c), dev, iters))
+        ms[f"k7 64x64 B 512 D 64 K 32, cluster {c}"] = rec
+    c12, xb12, bmu12, al12, xn12 = _accum_inputs(256, 256, 32768, 32768, 2048, 64, dev)
+    acc12, wsum12 = som_neighborhood_accumulate(xb12, bmu12, 32768, 256, True, al12, 64.0,
+                                                True, unit_offset=32768)
+    matched12 = _digest(_k12_call(libs["walk"], c12.clone(), acc12, wsum12, xn12)) == _digest(
+        som_blend_winner(c12.clone(), acc12, wsum12, xn12))
+    k12_names = ("walk", "no_feed", "no_fold", "no_turns")
+    rec = {name: [] for name in k12_names}
+    for name in k12_names + k12_names[::-1]:
+        work = c12.clone()
+        rec[name].append(mean_ms(lambda: _k12_call(libs[name], work, acc12, wsum12, xn12),
+                                 dev, iters))
+    ms["k12 32768 rows B' 2048 D 64"] = rec
     sk = _skeleton_inputs(65536, 64, 256, 4096, None, False, dev)
     rec = {name: [] for name in ("walk", "no_feed", "no_turns")}
     for name in ("walk", "no_feed", "no_turns", "no_turns", "no_feed", "walk"):
@@ -854,7 +1087,8 @@ def run_variants(iters: int = 10, out: str = VARIANT_OUT) -> dict:
                           text=True).stdout.strip()
     return dict(card=card, walk_bit_equal_to_wrapper=(matched and matched13 and matched6
                                                        and matched5 and matched11
-                                                       and matched14),
+                                                       and matched14 and matched7
+                                                       and matched12),
                 slab64_bit_equal_to_walk=slab_equal, ms=ms,
                 cluster_sweep=cluster_sweep(libs["k14_walk"], iters))
 
@@ -922,8 +1156,8 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--walk-variants", action="store_true",
-                    help="time the Hopper walks of K3, K13, K6, K5, K11, K17 and K14's "
-                         "main form against their variants instead")
+                    help="time the Hopper walks of K3, K13, K6, K5, K11, K17, K14's "
+                         "main form, K7 and K12 against their variants instead")
     a = ap.parse_args(argv)
     if a.walk_variants:
         rec = run_variants(a.iters)
